@@ -1,0 +1,19 @@
+"""sparkflow-tpu ported to PyTorch and CUDA.
+
+The JAX package ``sparkflow_tpu`` stays the reference; this package is its
+port, module by module, onto an NVIDIA Hopper card. It imports ``torch``
+and never ``jax`` or anything of ``sparkflow_tpu``. Entry points run on the
+CUDA card unless the caller passes ``device="cpu"``.
+
+Ported so far: the decode-serving path — ``ServingClient.generate`` →
+``InferenceServer`` ``/v1/generate`` → ``ContinuousBatcher`` →
+``DecodeEngine`` → ``TransformerLM.prefill`` / ``decode_step`` → the
+``flash_attention`` and ``paged_attention`` CUDA kernels. ROADMAP.md lists
+what is still to port.
+"""
+
+__version__ = "0.1.0"
+
+from .device import device_report, resolve_device
+
+__all__ = ["device_report", "resolve_device"]

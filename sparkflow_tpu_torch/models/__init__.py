@@ -1,0 +1,8 @@
+"""Model zoo of the PyTorch port: registry specs (the JAX package's wire
+format) dispatch to ``nn.Module`` models. Ported: ``transformer_lm``."""
+
+from .registry import build_registry_spec, model_from_json, register_model
+from .transformer import TransformerLM
+
+__all__ = ["build_registry_spec", "model_from_json", "register_model",
+           "TransformerLM"]

@@ -1,0 +1,311 @@
+"""Causal transformer LM — the port of the JAX package's
+``models/transformer.py`` ``TransformerLM``.
+
+Same architecture, parameter names and layouts (``qkv_kernel [h, 3h]``,
+``o_kernel [h, h]``, ...), so weights carry across without transposes
+(:mod:`sparkflow_tpu_torch.convert`). Numerics follow the JAX model:
+
+- layer norm computes in float32 with eps 1e-6 (not ``nn.LayerNorm``'s 1e-5);
+- a dense layer casts its kernel to the activation's dtype (bf16 on the card
+  with ``compute_dtype=bfloat16``), parameters themselves stay float32;
+- GELU is the tanh approximation (``jax.nn.gelu``'s default);
+- the tied-embedding head runs in float32;
+- positions are clipped to ``max_len - 1``.
+
+Prefill attention is :func:`~sparkflow_tpu_torch.ops.flash_attention` (the
+CUDA kernel on the card); decode attention is delegated to an ``attend``
+callback — the dense cache below for parity, the serving engine's paged
+pool over :func:`~sparkflow_tpu_torch.ops.paged_attention` in production.
+
+Training (dropout, remat) and model parallelism (``tp_axis``, ``ep_axis``,
+``sp_axis``) and quantized KV (``kv_dtype``) are not yet ported and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import flash_attention
+from .base import Params, RegistryModel
+from .registry import register_model
+
+NEG_INF = -1e30
+
+
+def _layer_norm(x, scale, bias, eps=1e-6):
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps) * scale + bias
+    return y.to(x.dtype)
+
+
+def _dense(x, kernel, bias=None):
+    y = torch.matmul(x, kernel.to(x.dtype))
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def _not_yet(what: str):
+    raise ValueError(f"{what} is not yet ported to PyTorch (see ROADMAP.md)")
+
+
+@register_model("transformer_lm")
+class TransformerLM(RegistryModel):
+    """Causal decoder LM (next-token prediction)."""
+
+    TENSORS = ("input_ids", "attention_mask", "logits", "pred")
+
+    def __init__(self, vocab_size: int, hidden: int = 768,
+                 num_layers: int = 12, num_heads: int = 12,
+                 mlp_dim: int = 3072, max_len: int = 512,
+                 dropout: float = 0.1, remat=False,
+                 sp_axis: Optional[str] = None, compute_dtype=None,
+                 device=None):
+        if remat:
+            _not_yet("remat")
+        if sp_axis is not None:
+            _not_yet("sequence parallelism (sp_axis)")
+        super().__init__(compute_dtype, device)
+        self.vocab_size = int(vocab_size)
+        self.hidden = int(hidden)
+        self.num_layers = int(num_layers)
+        self.num_heads = int(num_heads)
+        self.head_dim = self.hidden // self.num_heads
+        self.mlp_dim = int(mlp_dim)
+        self.max_len = int(max_len)
+        self.dropout = float(dropout)  # training only; serving ignores it
+
+    # -- specs ---------------------------------------------------------------
+
+    def _block_specs(self):
+        h, m = self.hidden, self.mlp_dim
+        return {
+            "ln1_scale": ((h,), "ones"), "ln1_bias": ((h,), "zeros"),
+            "qkv_kernel": ((h, 3 * h), "normal(0.02)"),
+            "qkv_bias": ((3 * h,), "zeros"),
+            "o_kernel": ((h, h), "normal(0.02)"), "o_bias": ((h,), "zeros"),
+            "ln2_scale": ((h,), "ones"), "ln2_bias": ((h,), "zeros"),
+            "fc1_kernel": ((h, m), "normal(0.02)"),
+            "fc1_bias": ((m,), "zeros"),
+            "fc2_kernel": ((m, h), "normal(0.02)"),
+            "fc2_bias": ((h,), "zeros"),
+        }
+
+    def param_specs(self):
+        h = self.hidden
+        specs = {"embed": {"tok": ((self.vocab_size, h), "normal(0.02)"),
+                           "pos": ((self.max_len, h), "normal(0.02)")}}
+        for i in range(self.num_layers):
+            specs[f"block_{i}"] = self._block_specs()
+        specs["final_ln"] = {"scale": ((h,), "ones"), "bias": ((h,), "zeros")}
+        return specs
+
+    # -- blocks --------------------------------------------------------------
+
+    @staticmethod
+    def _check_axes(tp_axis, ep_axis):
+        if tp_axis is not None:
+            _not_yet("tensor parallelism (tp_axis)")
+        if ep_axis is not None:
+            _not_yet("expert parallelism (ep_axis)")
+
+    def _qkv(self, bp, x):
+        """ln1 + qkv projection of ``x`` [B,S,hidden] -> q, k, v views
+        [B,heads,S,d] of ONE [3,B,heads,S,d] permutation (no copies)."""
+        b, s, _ = x.shape
+        y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+        qkv = _dense(y, bp["qkv_kernel"], bp["qkv_bias"])
+        qkv = qkv.view(b, s, 3, self.num_heads, self.head_dim)
+        qkv = qkv.permute(2, 0, 3, 1, 4)
+        return qkv[0], qkv[1], qkv[2]
+
+    def _finish_block(self, bp, x, att):
+        """O-projection + residual + MLP on ``att`` [B,S,heads*d]."""
+        x = x + _dense(att, bp["o_kernel"], bp["o_bias"])
+        y = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+        y = _gelu(_dense(y, bp["fc1_kernel"], bp["fc1_bias"]))
+        return x + _dense(y, bp["fc2_kernel"], bp["fc2_bias"])
+
+    def _block(self, bp, x, mask, causal, attention=None):
+        """Full-sequence block: ``(x, k, v)`` with k/v [B,heads,S,d]."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(bp, x)
+        attend = flash_attention if attention is None else attention
+        att = attend(q, k, v, causal=causal, kv_mask=mask)
+        att = att.transpose(1, 2).reshape(b, s, -1)
+        return self._finish_block(bp, x, att), k, v
+
+    def _block_decode(self, bp, x, layer, cache, pos, attend):
+        """One block on a single token ``x`` [B,1,hidden]; attention over
+        the cached history is ``attend``'s (see :meth:`decode_step`)."""
+        b = x.shape[0]
+        y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+        qkv = _dense(y, bp["qkv_kernel"], bp["qkv_bias"])
+        qkv = qkv.view(b, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]           # [B, heads, d]
+        att, cache = attend(layer, q, k, v, cache, pos)
+        return self._finish_block(bp, x, att.reshape(b, 1, -1)), cache
+
+    def _block_suffix(self, bp, x, layer, cache, start, attend):
+        """One block on a prompt suffix ``x`` [B,S,hidden] starting at
+        absolute position ``start`` [B]; ``attend(layer, q, k, v, cache,
+        start)`` with q/k/v [B,heads,S,d] owns the history."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(bp, x)
+        att, cache = attend(layer, q, k, v, cache, start)
+        att = att.transpose(1, 2).reshape(b, s, -1)
+        return self._finish_block(bp, x, att), cache
+
+    # -- embed / head ----------------------------------------------------------
+
+    def decode_embed(self, params, token, pos):
+        """``token``/``pos`` [B] -> [B, 1, hidden] in compute dtype."""
+        emb = params["embed"]
+        x = emb["tok"][token.long()]
+        posemb = emb["pos"][pos.long().clamp(0, self.max_len - 1)]
+        return self.cast(x + posemb)[:, None, :]
+
+    def suffix_embed(self, params, ids, start):
+        """``ids`` [B,S] whose first token sits at ``start`` [B]."""
+        emb = params["embed"]
+        s = ids.shape[1]
+        pos = start.long()[:, None] + torch.arange(s, device=ids.device)
+        x = emb["tok"][ids.long()]
+        return self.cast(x + emb["pos"][pos.clamp(0, self.max_len - 1)])
+
+    def prefill_embed(self, params, ids):
+        emb = params["embed"]
+        s = ids.shape[1]
+        return self.cast(emb["tok"][ids.long()] + emb["pos"][:s][None])
+
+    def head_all(self, params, x):
+        """Final LN + tied head at every position -> [B,S,vocab] f32."""
+        x = _layer_norm(x, params["final_ln"]["scale"],
+                        params["final_ln"]["bias"])
+        return torch.matmul(x.float(), params["embed"]["tok"].float().t())
+
+    def decode_head(self, params, x):
+        return self.head_all(params, x)[:, 0]
+
+    def head_last(self, params, x, lengths=None):
+        """Final LN + tied head at the last valid position (``lengths`` [B]
+        valid tokens, default S) -> [B, vocab] f32."""
+        b, s, _ = x.shape
+        x = _layer_norm(x, params["final_ln"]["scale"],
+                        params["final_ln"]["bias"])
+        if lengths is None:
+            last = torch.full((b,), s - 1, dtype=torch.long, device=x.device)
+        else:
+            last = (lengths.long() - 1).clamp(0, s - 1)
+        x_last = x[torch.arange(b, device=x.device), last]
+        return torch.matmul(x_last.float(), params["embed"]["tok"].float().t())
+
+    # -- whole-model entry points -----------------------------------------------
+
+    def _forward(self, params: Params, feeds, train: bool = False, rng=None,
+                 attention: Optional[Callable] = None):
+        """Causal forward over ``feeds["input_ids"]`` [B,S] -> ``{"logits"
+        [B,S,vocab] f32, "pred"}``. ``attention`` overrides the prefill
+        kernel (``attention_reference`` gives the plain dense forward)."""
+        if train:
+            _not_yet("training (train=True)")
+        ids = torch.as_tensor(feeds["input_ids"], device=self.device)
+        mask = feeds.get("attention_mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        x = self.prefill_embed(params, ids)
+        for i in range(self.num_layers):
+            x, _, _ = self._block(params[f"block_{i}"], x, mask, True,
+                                  attention)
+        logits = self.head_all(params, x)
+        return {"logits": logits, "pred": logits.argmax(-1).float()}
+
+    def prefill(self, params: Params, ids, mask=None, lengths=None,
+                tp_axis=None, ep_axis=None
+                ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+        """Causal forward over a (padded) prompt that also returns each
+        block's keys/values: ``(logits [B, vocab] at the last valid position,
+        [(k, v)] * layers with k/v [B,heads,S,d])``."""
+        self._check_axes(tp_axis, ep_axis)
+        x = self.prefill_embed(params, ids)
+        kvs = []
+        for i in range(self.num_layers):
+            x, k, v = self._block(params[f"block_{i}"], x, mask, True)
+            kvs.append((k, v))
+        return self.head_last(params, x, lengths), kvs
+
+    def decode_step(self, params: Params, cache, token, pos, attend=None,
+                    num_layers: Optional[int] = None, tp_axis=None,
+                    ep_axis=None):
+        """Single-token apply: embed ``token`` [B] at ``pos`` [B], run the
+        blocks over the cached history, return ``(logits [B, vocab] f32,
+        cache)``. ``attend(layer, q, k_new, v_new, cache, pos) -> (att
+        [B,heads,d], cache)`` owns the cache layout (default: the dense
+        cache of :meth:`init_decode_cache`)."""
+        self._check_axes(tp_axis, ep_axis)
+        if attend is None:
+            attend = self._dense_cache_attend
+        n = self.num_layers if num_layers is None else int(num_layers)
+        x = self.decode_embed(params, token, pos)
+        for i in range(n):
+            x, cache = self._block_decode(params[f"block_{i}"], x, i, cache,
+                                          pos, attend)
+        return self.decode_head(params, x), cache
+
+    def prefill_suffix(self, params: Params, ids, start, cache, attend,
+                       lengths=None, tp_axis=None, ep_axis=None):
+        """Prefill a prompt suffix ``ids`` [B,S] whose first token sits at
+        ``start`` [B]; attention over the committed prefix is ``attend``'s.
+        Returns ``(logits [B, vocab] at the last valid suffix position,
+        cache)``."""
+        self._check_axes(tp_axis, ep_axis)
+        x = self.suffix_embed(params, ids, start)
+        for i in range(self.num_layers):
+            x, cache = self._block_suffix(params[f"block_{i}"], x, i, cache,
+                                          start, attend)
+        return self.head_last(params, x, lengths), cache
+
+    # -- dense decode cache (parity implementation) ------------------------------
+
+    def init_decode_cache(self, batch: int, max_len: Optional[int] = None,
+                          dtype=None, kv_dtype: Optional[str] = None):
+        """Dense per-slot cache ``{"k","v": [layers, B, heads, L, d]}``."""
+        if kv_dtype not in (None, "bf16"):
+            _not_yet(f"quantized KV cache (kv_dtype={kv_dtype!r})")
+        L = int(max_len) if max_len is not None else self.max_len
+        shape = (self.num_layers, batch, self.num_heads, L, self.head_dim)
+        dt = dtype if dtype is not None else (self.compute_dtype
+                                              or torch.float32)
+        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+
+    def _dense_cache_attend(self, layer, q, k_new, v_new, cache, pos):
+        """Write this token's k/v into the dense cache at ``pos`` (in place)
+        and attend over positions ``<= pos``."""
+        b = q.shape[0]
+        L = cache["k"].shape[3]
+        bidx = torch.arange(b, device=q.device)
+        pos = pos.long()
+        kc, vc = cache["k"][layer], cache["v"][layer]
+        kc[bidx, :, pos] = k_new.to(kc.dtype)
+        vc[bidx, :, pos] = v_new.to(vc.dtype)
+        scale = 1.0 / math.sqrt(self.head_dim)
+        s = torch.einsum("bhd,bhld->bhl", q.float(), kc.float()) * scale
+        valid = torch.arange(L, device=q.device)[None, :] <= pos[:, None]
+        s = torch.where(valid[:, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhl,bhld->bhd", p, vc.float())
+        return out.to(q.dtype), cache
+
+
+__all__ = ["TransformerLM"]

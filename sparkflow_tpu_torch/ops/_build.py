@@ -1,0 +1,157 @@
+"""Build and load the CUDA kernels of :mod:`sparkflow_tpu_torch.ops`.
+
+Each source under ``ops/csrc/`` is compiled by its own ``nvcc`` process —
+all of them started together — for ``sm_90a`` with ``-Xptxas -v``, and the
+objects are linked into ONE shared library with a plain C interface, loaded
+with ``ctypes``. The build happens at first use, into ``ops/_build/`` (a
+directory ``.gitignore`` lists; ``SPARKFLOW_TORCH_KERNEL_DIR`` overrides
+it), and is keyed by a hash of the sources and flags, so an unchanged tree
+reuses its library across processes. Nothing here runs at import time: the
+CPU tests import every module of the package without a CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List, Optional
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+SOURCES = ("flash_fwd.cu", "paged_attention.cu")
+ARCH = "arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_report: Dict[str, List[str]] = {}
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    # dtype, q, k, v, mask, o, lse, B, H, S, Sk, D, strides[12], scale,
+    # causal, stream
+    "sf_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
+                     _I, _P],
+    # dtype, q, qsb, qsh, k_pages, v_pages, table, maxp, lengths, out, B, H,
+    # D, page, scale, stream
+    "sf_paged_attention": [_I, _P, _LL, _LL, _P, _P, _P, _I, _P, _P, _I, _I,
+                           _I, _I, _F, _P],
+}
+
+
+def build_dir() -> str:
+    return os.environ.get("SPARKFLOW_TORCH_KERNEL_DIR",
+                          os.path.join(_HERE, "_build"))
+
+
+def nvcc_path() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def _key(nvcc: str) -> str:
+    h = hashlib.sha256(repr((nvcc, NVCC_FLAGS)).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _compile(nvcc: str, out_dir: str, key: str) -> str:
+    """Compile every source in parallel, then link; returns the library
+    path. Writes each source's ptxas report next to it."""
+    procs = []
+    for name in SOURCES:
+        obj = os.path.join(out_dir, f"{name}.{key}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o", obj]
+        procs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    objs, failed = [], []
+    for name, obj, p in procs:
+        out, _ = p.communicate(timeout=900)
+        with open(os.path.join(out_dir, f"{name}.{key}.log"), "w") as f:
+            f.write(out)
+        if p.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {p.returncode})\n{out}")
+        objs.append(obj)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    lib = os.path.join(out_dir, f"libsparkflow_kernels.{key}.so")
+    tmp = lib + f".tmp{os.getpid()}"
+    r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"linking the CUDA kernels failed:\n{r.stdout}"
+                           f"{r.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _read_reports(out_dir: str, key: str) -> Dict[str, List[str]]:
+    rep = {}
+    for name in SOURCES:
+        path = os.path.join(out_dir, f"{name}.{key}.log")
+        lines = []
+        if os.path.exists(path):
+            with open(path) as f:
+                lines = [ln.rstrip() for ln in f
+                         if "ptxas" in ln or "spill" in ln]
+        rep[name] = lines
+    return rep
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call in this checkout."""
+    global _lib, _report
+    with _lock:
+        if _lib is not None:
+            return _lib
+        nvcc = nvcc_path()
+        out_dir = build_dir()
+        os.makedirs(out_dir, exist_ok=True)
+        key = _key(nvcc)
+        lib_path = os.path.join(out_dir, f"libsparkflow_kernels.{key}.so")
+        with open(os.path.join(out_dir, "build.lock"), "w") as lk:
+            fcntl.flock(lk, fcntl.LOCK_EX)  # one build at a time across processes
+            try:
+                if not os.path.exists(lib_path):
+                    _compile(nvcc, out_dir, key)
+            finally:
+                fcntl.flock(lk, fcntl.LOCK_UN)
+        lib = ctypes.CDLL(lib_path)
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.sf_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.sf_cuda_error_string.restype = ctypes.c_char_p
+        _report = _read_reports(out_dir, key)
+        _lib = lib
+        return lib
+
+
+def ptxas_report() -> Dict[str, List[str]]:
+    """``-Xptxas -v`` lines (registers, shared memory, spills) per source of
+    the loaded library."""
+    load()
+    return dict(_report)
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = load().sf_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")

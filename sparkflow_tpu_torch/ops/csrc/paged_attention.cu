@@ -1,0 +1,219 @@
+// Single-query decode attention through a page table, for NVIDIA Hopper,
+// sm_90a.
+//
+// Replaces the TPU kernel sparkflow_tpu/ops/attention.py:_paged_kernel
+// (launched by paged_attention). Same function: for each slot b and head h,
+// out[b, h] = softmax(scale * q[b, h] . K[t, h]) V[t, h] over the slot's
+// tokens t < lengths[b], where token t lives in pool page
+// table[b, t / page] at row t % page. A slot with lengths[b] == 0 returns
+// exact zeros.
+//
+// Translation from the TPU kernel:
+// - the TPU grid (B, max_pages) walked a slot's pages in order, with the page
+//   table scalar-prefetched into the BlockSpec index maps and m / l / acc
+//   carried in VMEM across the sequential page axis. Here one thread block
+//   owns one (slot, head) and reads its own table row; the page walk is a
+//   loop split over the block's warps, each warp keeping its own online
+//   softmax state, merged through shared memory at the end;
+// - the loop visits only t < lengths[b] (the ragged last page is masked by
+//   the bound itself, pages past the length are never touched), so a masked
+//   lane of the engine (table row of scratch page 0, length 1) and aliased
+//   pages shared between slots are just reads of valid pool rows.
+//
+// What bounds it on the H100: bytes. Each K/V row is read once and used for
+// 2*D flops, far below the ~295 flops/byte ridge, so the time is the KV rows
+// of the live tokens over HBM bandwidth. The design therefore spends nothing
+// on tensor cores and everything on keeping loads in flight: a lane reads 8
+// elements (16 bytes in bf16) of a row with one vector load, D/8 lanes cover
+// a row, a warp covers several rows at once, each lane issues kUnroll rows'
+// K and V loads before it computes on any of them, and eight warps share a
+// (slot, head). Splitting one slot's sequence over several blocks (split-K
+// flash decoding), which a long context at small batch needs to fill all
+// 132 SMs, is later work.
+//
+// Interface: plain C, loaded with ctypes; launches on the caller's stream and
+// returns cudaGetLastError() of the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kVec = 8;       // elements of a row per lane
+constexpr int kUnroll = 4;    // rows per lane in flight
+constexpr int kMaxD = 128;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// grid (H, B); block kWarps * 32 threads. G = lanes per row, a power of two
+// >= D / 8; 32 / G rows per warp per step.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
+                       const T* __restrict__ kp, const T* __restrict__ vp,
+                       const int* __restrict__ table, int maxp,
+                       const int* __restrict__ lengths, T* __restrict__ out,
+                       int H, int D, int page, float scale, int G) {
+  __shared__ float s_acc[kWarps][kMaxD];
+  __shared__ float s_m[kWarps], s_l[kWarps];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane & (G - 1), grp = lane / G, groups = 32 / G;
+  const int d0 = sub * kVec;
+  const bool active = d0 < D;
+  const int len = max(0, min(lengths[b], maxp * page));
+
+  float qv[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e)
+    qv[e] = active ? to_f(q[b * qsb + h * qsh + d0 + e]) : 0.f;
+
+  float m = kNegInf, l = 0.f, acc[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+
+  const long long row = (long long)H * D;  // between consecutive tokens
+  const int* trow = table + (long long)b * maxp;
+  const int step = kWarps * groups;        // rows per block per unrolled row
+  // every lane of a warp runs the same trip count (the shuffles below need
+  // the whole warp); lanes past the length just skip their update
+  for (int t0 = warp * groups + grp; t0 - grp < len; t0 += step * kUnroll) {
+    float kv[kUnroll][kVec], vv[kUnroll][kVec];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = t0 + u * step;
+      if (active && t < len) {
+        const int pg = t / page;
+        const long long base =
+            ((long long)trow[pg] * page + (t - pg * page)) * row +
+            (long long)h * D + d0;
+        load8(kp + base, kv[u]);
+        load8(vp + base, vv[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) kv[u][e] = vv[u][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) part = fmaf(qv[e], kv[u][e], part);
+      for (int o = G >> 1; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (t0 + u * step >= len) continue;
+      const float s = part * scale;
+      const float mn = fmaxf(m, s);
+      const float alpha = expf(m - mn), p = expf(s - mn);
+      l = l * alpha + p;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vv[u][e], acc[e] * alpha);
+      m = mn;
+    }
+  }
+
+  // merge the row groups of this warp (lanes with the same sub)
+  for (int o = G; o < 32; o <<= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
+    const float mn = fmaxf(m, m2);
+    const float a1 = expf(m - mn), a2 = expf(m2 - mn);
+    l = l * a1 + l2 * a2;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float x2 = __shfl_xor_sync(0xffffffffu, acc[e], o);
+      acc[e] = acc[e] * a1 + x2 * a2;
+    }
+    m = mn;
+  }
+  if (grp == 0 && active) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) s_acc[warp][d0 + e] = acc[e];
+  }
+  if (lane == 0) {
+    s_m[warp] = m;
+    s_l[warp] = l;
+  }
+  __syncthreads();
+
+  // merge the warps; an empty slot (no row visited) divides 0 by 1e-30
+  if (tid < D) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(s_m[w] - mx);
+      lsum = fmaf(s_l[w], f, lsum);
+      a = fmaf(s_acc[w][tid], f, a);
+    }
+    store(out + ((long long)b * H + h) * D + tid, a / fmaxf(lsum, 1e-30f));
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, long long qsb, long long qsh,
+                   const void* kp, const void* vp, const int* table, int maxp,
+                   const int* lengths, void* out, int B, int H, int D,
+                   int page, float scale, cudaStream_t stream) {
+  int G = 1;
+  while (G * kVec < D) G <<= 1;
+  dim3 grid(H, B);
+  paged_attention_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), qsb, qsh, static_cast<const T*>(kp),
+      static_cast<const T*>(vp), table, maxp, lengths, static_cast<T*>(out),
+      H, D, page, scale, G);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q: [B, H, D] with D contiguous and
+// strides (qsb, qsh) in elements; k_pages / v_pages: one layer's contiguous
+// [num_pages, page, H, D] pool; table: [B, maxp] int32 pool page ids;
+// lengths: [B] int32; out: contiguous [B, H, D]. Requires D % 8 == 0 and
+// 8 <= D <= 128 and 16-byte aligned pools (the wrapper checks).
+extern "C" int sf_paged_attention(int dtype, const void* q, long long qsb,
+                                  long long qsh, const void* k_pages,
+                                  const void* v_pages, const void* table,
+                                  int maxp, const void* lengths, void* out,
+                                  int B, int H, int D, int page, float scale,
+                                  void* stream) {
+  if (D % 8 != 0 || D < 8 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  const int* t = static_cast<const int*>(table);
+  const int* n = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = dtype == 0
+      ? launch<float>(q, qsb, qsh, k_pages, v_pages, t, maxp, n, out, B, H, D, page, scale, s)
+      : launch<__nv_bfloat16>(q, qsb, qsh, k_pages, v_pages, t, maxp, n, out, B, H, D, page, scale, s);
+  return (int)e;
+}

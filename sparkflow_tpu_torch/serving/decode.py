@@ -1,0 +1,678 @@
+"""Autoregressive decode engine: prefill ladder + fixed-shape paged decode.
+
+The port of the JAX package's ``serving/decode.py`` ``DecodeEngine`` for one
+device. What it keeps:
+
+- **Prefill** pads a prompt to the nearest page-aligned bucket of the ladder
+  (page, 2*page, 4*page, ... up to ``max_seq_len``), runs
+  :meth:`TransformerLM.prefill` — flash attention, the CUDA ``flash_fwd``
+  kernel on the card — and writes every block's K/V straight into the
+  slot's pool pages (the padded tail's pages point at scratch page 0).
+- **Decode** is one step over all ``num_slots`` lanes whatever subset is
+  live: token ids, positions and page tables are dense ``[num_slots]``
+  operands, lanes not ready to decode point at scratch page 0 with
+  position 0, and attention is :func:`~sparkflow_tpu_torch.ops.paged_attention`
+  — the CUDA ``paged_attention`` kernel — over the page-table-indirected
+  pool of :class:`~sparkflow_tpu_torch.serving.kvcache.PagedKVCache`.
+- **Shared-prefix caching** (``prefix_cache=True``) maps indexed prefix
+  pages into a new slot's table and forwards only the un-shared suffix,
+  in ``page_size`` chunks, through :meth:`TransformerLM.prefill_suffix`
+  with a plain-torch attend over the slot's pages.
+- **Chunked prefill** (``prefill_chunk=N``) admits a long prompt at once and
+  advances its suffix one N-token chunk per :meth:`step`, run together
+  with the decode step; the first token surfaces from :meth:`step`.
+- **Sampling** is greedy at ``temperature == 0``; otherwise temperature +
+  per-slot top-k (clamped to ``max_top_k``) from a per-slot
+  ``torch.Generator`` (seeded ``seed + slot``, re-seeded by a request's
+  ``seed``). ``jax.random``'s bits cannot be reproduced here: greedy output
+  matches the JAX engine token for token, seeded sampling repeats within
+  this package.
+
+What changes: there is no ``jit`` and no AOT executable — the engine runs
+eagerly under ``torch.inference_mode()`` and the pools are updated in
+place. ``stats()`` keeps the keys the server and ``/healthz`` read;
+``traces`` / ``steady_traces`` read 0 (nothing is traced).
+
+Not yet ported, and refused with a ``ValueError`` naming ROADMAP.md:
+speculative decoding (``spec_k``, ``draft_layers``, ``draft_model``,
+``draft_params``), quantized KV (``kv_quant``), model parallelism
+(``mesh``, ``sharding``, ``pp_wave``) and serialized executables
+(``executable_dir``).
+
+The engine is mechanism only — slot admission at token boundaries, queueing,
+futures and drain semantics live in
+:class:`~sparkflow_tpu_torch.serving.batcher.ContinuousBatcher`.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..convert import params_from_jax
+from ..obs.spans import span as obs_span
+from ..ops import paged_attention
+from ..resilience import faults
+from ..utils import metrics as metrics_mod
+from .kvcache import OutOfPages, PagedKVCache
+
+__all__ = ["DecodeEngine"]
+
+NEG_INF = -1e30
+
+
+def _prefill_ladder(page_size: int, max_prompt: int) -> List[int]:
+    """Page-aligned bucket ladder: page, 2*page, 4*page, ... capped at
+    ``max_prompt`` (itself included, already page-aligned)."""
+    buckets, b = [], page_size
+    while b < max_prompt:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_prompt)
+    return buckets
+
+
+def _not_yet(option: str):
+    raise ValueError(f"DecodeEngine option {option} is not yet ported to "
+                     f"PyTorch (see ROADMAP.md)")
+
+
+class DecodeEngine:
+    """Continuous-decode mechanism over a paged KV cache.
+
+    Parameters
+    ----------
+    model : TransformerLM | str
+        A causal LM exposing ``prefill`` / ``decode_step`` (or a registry
+        spec JSON, loaded on the CUDA card).
+    params : tree | list | None
+        The port's ``{layer: {name: tensor}}`` tree, a tree of numpy arrays
+        (JAX params), or the flat weight list; default the model's own
+        parameters. Moved to the model's device.
+    num_slots, page_size, num_pages, max_seq_len, max_top_k, prefill_chunk,
+    prefix_cache, metrics
+        As in the JAX engine.
+    seed : int
+        Slot ``i``'s sampling generator starts at ``seed + i``.
+    warmup : bool
+        Build the CUDA kernels now (on the card) so the first request does
+        not pay the compile.
+    """
+
+    def __init__(self, model, params=None, *, num_slots: int = 8,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 max_seq_len: Optional[int] = None, max_top_k: int = 64,
+                 seed: int = 0, warmup: bool = True,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 spec_k: int = 0, draft_layers: Optional[int] = None,
+                 draft_model=None, draft_params=None,
+                 mesh=None, sharding=None, pp_wave: bool = True,
+                 kv_quant: Optional[str] = None,
+                 executable_dir: Optional[str] = None,
+                 metrics: Optional[metrics_mod.Metrics] = None):
+        unported = {"spec_k": spec_k or None, "draft_layers": draft_layers,
+                    "draft_model": draft_model, "draft_params": draft_params,
+                    "mesh": mesh, "sharding": sharding,
+                    "pp_wave": None if pp_wave else pp_wave,
+                    "kv_quant": (None if kv_quant in (None, "bf16")
+                                 else kv_quant),
+                    "executable_dir": executable_dir}
+        for name, value in unported.items():
+            if value is not None:
+                _not_yet(f"{name}={value!r}")
+        if isinstance(model, str):
+            from ..models import model_from_json
+            model = model_from_json(model)
+        for need in ("prefill", "decode_step", "prefill_suffix"):
+            if not hasattr(model, need):
+                raise TypeError(f"model has no {need}(); DecodeEngine needs "
+                                f"a causal LM (transformer_lm)")
+        self.model = model
+        self.device = model.device
+        self.metrics = metrics if metrics is not None else metrics_mod.Metrics()
+        self.num_slots = int(num_slots)
+        self.page_size = int(page_size)
+        cap = self.page_size * (int(model.max_len) // self.page_size)
+        if cap < self.page_size:
+            raise ValueError(
+                f"model.max_len={model.max_len} is below one page "
+                f"(page_size={page_size})")
+        self.max_seq_len = int(max_seq_len) if max_seq_len else cap
+        if self.max_seq_len > int(model.max_len):
+            raise ValueError(f"max_seq_len={self.max_seq_len} exceeds the "
+                             f"model's max_len={model.max_len}")
+        self.max_pages_per_slot = math.ceil(self.max_seq_len / self.page_size)
+        if num_pages is None:
+            num_pages = self.num_slots * self.max_pages_per_slot + 1
+        self.kv_quant = "bf16"
+        pool_dtype = model.compute_dtype or torch.float32
+        itemsize = torch.empty((), dtype=pool_dtype).element_size()
+        self._kv_bytes_per_page = 2 * int(model.num_layers) * (
+            self.page_size * int(model.num_heads) * int(model.head_dim)
+            * itemsize)
+        self.kv = PagedKVCache(num_pages, self.page_size, self.num_slots,
+                               self.max_pages_per_slot, metrics=self.metrics,
+                               kv_dtype=self.kv_quant,
+                               kv_bytes_per_page=self._kv_bytes_per_page)
+        self.max_top_k = max(1, min(int(max_top_k), int(model.vocab_size)))
+        self.prefill_buckets = _prefill_ladder(
+            self.page_size, self.page_size * (self.max_seq_len
+                                              // self.page_size))
+        self.max_prompt_len = self.prefill_buckets[-1]
+        self.prefix_cache = bool(prefix_cache)
+        self.prefill_chunk: Optional[int] = None
+        if prefill_chunk:
+            self.prefill_chunk = max(1, min(int(prefill_chunk),
+                                            self.max_prompt_len))
+        # width of one suffix chunk: the chunk size when chunking, else one
+        # page (prefix-hit suffixes are typically short)
+        self._chunk_width = self.prefill_chunk or self.page_size
+
+        tree = self._as_tree(params)
+        self._weights_template = {
+            ln: {pn: (tuple(t.shape), t.dtype) for pn, t in layer.items()}
+            for ln, layer in tree.items()}
+        self._params = tree
+        pool_shape = (model.num_layers, num_pages, self.page_size,
+                      model.num_heads, model.head_dim)
+        with torch.inference_mode():
+            self._k_pool = torch.zeros(pool_shape, dtype=pool_dtype,
+                                       device=self.device)
+            self._v_pool = torch.zeros(pool_shape, dtype=pool_dtype,
+                                       device=self.device)
+        self._gens = [self._generator(seed + i) for i in range(self.num_slots)]
+        self._last_token = np.zeros(self.num_slots, np.int64)
+        self._temp = np.zeros(self.num_slots, np.float32)
+        self._topk = np.zeros(self.num_slots, np.int64)
+        # slots mid-chunked-prefill are kv-active but not decode-ready: the
+        # step masks them to scratch until their K/V is committed
+        self._decode_ready = np.zeros(self.num_slots, bool)
+        self._pending: List[Dict[str, Any]] = []  # chunked-prefill states
+        self._lock = threading.Lock()
+        self._steps = 0
+        self._tokens_out = 0
+        self._prefills = 0
+        # hot-swap state (guarded by self._lock): a prepared-but-unapplied
+        # (params, version) waiting for a drained token boundary
+        self._pending_swap: Optional[Tuple[Any, int]] = None
+        self._serving_version = 0  # 0 = ctor weights
+        self._swaps = 0
+        if warmup:
+            self.warmup()
+
+    # -- set-up ----------------------------------------------------------------
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _as_tree(self, params):
+        """Any accepted params form -> the port's tree on the model's
+        device, shapes checked against ``param_specs()``."""
+        if params is None:
+            return self.model.params()
+        if isinstance(params, (list, tuple)) or any(
+                not isinstance(t, torch.Tensor)
+                for layer in params.values() for t in layer.values()):
+            return params_from_jax(self.model, params, device=self.device)
+        specs = self.model.param_specs()
+        if set(specs) != set(params):
+            raise ValueError("params tree does not match the model's "
+                             "param_specs() layers")
+        out = {}
+        for ln, ps in specs.items():
+            if set(ps) != set(params[ln]):
+                raise ValueError(f"params[{ln!r}] does not match the model's "
+                                 f"param_specs()")
+            layer = {}
+            for pn, (shape, _init) in ps.items():
+                t = params[ln][pn]
+                if tuple(t.shape) != tuple(shape):
+                    raise ValueError(f"{ln}/{pn} has shape {tuple(t.shape)}, "
+                                     f"expected {tuple(shape)}")
+                layer[pn] = t.to(self.device)
+            out[ln] = layer
+        return out
+
+    def warmup(self) -> None:
+        """Build the CUDA kernels ahead of the first request (no-op on the
+        CPU, where the wrappers run their plain versions)."""
+        if self.device.type == "cuda":
+            from ..ops import _build
+            _build.load()
+
+    # -- device pieces -----------------------------------------------------------
+
+    def _sample(self, logits: torch.Tensor, slots: Sequence[int],
+                temp: np.ndarray, topk: np.ndarray) -> np.ndarray:
+        """Greedy lanes take the argmax; ``temp > 0`` lanes draw from the
+        temperature-scaled softmax, restricted to the top-k logits when
+        ``topk > 0``, with their slot's generator. Returns host int64."""
+        tok = logits.argmax(dim=-1)
+        hot = [i for i in range(len(slots)) if temp[i] > 0]
+        if hot:
+            tok = tok.clone()
+            for i in hot:
+                lg = logits[i]
+                k = int(min(topk[i], self.max_top_k))
+                if k > 0:
+                    thr = torch.topk(lg, k).values[-1]
+                    lg = torch.where(lg < thr, NEG_INF, lg)
+                probs = torch.softmax(lg / float(temp[i]), dim=-1)
+                tok[i] = torch.multinomial(probs, 1,
+                                           generator=self._gens[slots[i]])[0]
+        return tok.cpu().numpy()
+
+    def _decode(self, token: np.ndarray, pos: np.ndarray,
+                table: np.ndarray) -> torch.Tensor:
+        """One token for every lane: scatter each lane's new K/V row into its
+        page, attend over the pool through the page table; returns logits
+        [num_slots, vocab] f32."""
+        dev, page = self.device, self.page_size
+        token_t = torch.as_tensor(token, device=dev)
+        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+        table_t = torch.as_tensor(table, dtype=torch.int32, device=dev)
+        bidx = torch.arange(self.num_slots, device=dev)
+        page_ids = table_t[bidx, pos_t // page].long()
+        off = pos_t % page
+        lengths = (pos_t + 1).to(torch.int32)
+
+        def attend(layer, q, k_new, v_new, cache, _pos):
+            kp, vp = cache
+            kp[layer, page_ids, off] = k_new.to(kp.dtype)
+            vp[layer, page_ids, off] = v_new.to(vp.dtype)
+            out = paged_attention(q, kp[layer], vp[layer], table_t, lengths)
+            return out.to(q.dtype), cache
+
+        logits, _ = self.model.decode_step(
+            self._params, (self._k_pool, self._v_pool), token_t, pos_t,
+            attend=attend)
+        return logits
+
+    def _prefill_bucket(self, ids: np.ndarray, n: int,
+                        page_ids: np.ndarray) -> torch.Tensor:
+        """Ladder prefill of one padded prompt; commits every block's K/V
+        into ``page_ids`` (pads -> scratch page 0). Returns [1, vocab]."""
+        dev, page = self.device, self.page_size
+        npages = ids.shape[1] // page
+        logits, kvs = self.model.prefill(
+            self._params, torch.as_tensor(ids, device=dev),
+            lengths=torch.as_tensor([n], device=dev))
+        pid = torch.as_tensor(page_ids, dtype=torch.int64, device=dev)
+        for i, (k, v) in enumerate(kvs):
+            # [1, heads, bucket, d] -> [npages, page, heads, d]
+            kk = k[0].transpose(0, 1).reshape(npages, page, k.shape[1],
+                                              k.shape[3])
+            vv = v[0].transpose(0, 1).reshape(npages, page, v.shape[1],
+                                              v.shape[3])
+            self._k_pool[i, pid] = kk.to(self._k_pool.dtype)
+            self._v_pool[i, pid] = vv.to(self._v_pool.dtype)
+        return logits
+
+    def _suffix_chunk(self, ids: np.ndarray, start: int, valid: int,
+                      ctable: np.ndarray) -> torch.Tensor:
+        """Forward one ``_chunk_width``-token chunk of a prompt whose first
+        ``start`` tokens' K/V is committed in the slot's pages: write the
+        chunk's K/V into those pages and attend over the whole history
+        through the table row ``ctable`` (plain torch; chunks are per-slot
+        events). Returns the last valid position's logits [1, vocab]."""
+        model, dev = self.model, self.device
+        page, C = self.page_size, self._chunk_width
+        maxp = self.max_pages_per_slot
+        scale = 1.0 / math.sqrt(model.head_dim)
+        j = torch.arange(C, device=dev)
+        tpos = torch.arange(maxp * page, device=dev)
+        row = torch.as_tensor(ctable, dtype=torch.int64, device=dev)
+        pos_abs = start + j
+        pids = row[(pos_abs // page).clamp(0, maxp - 1)]
+        pids = torch.where(j < valid, pids, 0)              # pad -> scratch
+        off = pos_abs % page
+        causal = tpos[None, :] <= pos_abs[:, None]          # [C, L]
+
+        def attend(layer, q, k_new, v_new, cache, _start):
+            kp, vp = cache
+            kp[layer, pids, off] = k_new[0].transpose(0, 1).to(kp.dtype)
+            vp[layer, pids, off] = v_new[0].transpose(0, 1).to(vp.dtype)
+            hk = kp[layer, row].float().reshape(maxp * page, -1,
+                                                model.head_dim)
+            hv = vp[layer, row].float().reshape(maxp * page, -1,
+                                                model.head_dim)
+            s = torch.einsum("hcd,lhd->hcl", q[0].float(), hk) * scale
+            s = torch.where(causal[None], s, NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            out = torch.einsum("hcl,lhd->hcd", p, hv)
+            return out[None].to(q.dtype), cache
+
+        logits, _ = model.prefill_suffix(
+            self._params, torch.as_tensor(ids, device=dev),
+            torch.as_tensor([start], device=dev),
+            (self._k_pool, self._v_pool), attend,
+            lengths=torch.as_tensor([valid], device=dev))
+        return logits
+
+    # -- admission / prefill -------------------------------------------------
+
+    def can_admit(self, prompt_len: int, max_new_tokens: int,
+                  prompt: Optional[Sequence[int]] = None) -> bool:
+        """Token-boundary admission check: a free slot exists and the pool
+        can reserve the request's worst case (less any indexed prefix pages
+        when the actual ``prompt`` is given and prefix caching is on)."""
+        if not (1 <= prompt_len <= self.max_prompt_len):
+            return False
+        total = prompt_len + max(1, int(max_new_tokens))
+        if total > self.max_seq_len:
+            return False
+        with self._lock:
+            if (self._pending_swap is not None
+                    and not self._maybe_swap_locked()):
+                return False
+        return self.kv.can_admit(
+            total, list(prompt) if (prompt is not None
+                                    and self.prefix_cache) else None)
+
+    def prefill(self, prompt: Sequence[int], *, max_new_tokens: int = 32,
+                temperature: float = 0.0, top_k: int = 0,
+                seed: Optional[int] = None) -> Dict[str, Any]:
+        """Admit one sequence: allocate a slot + pages (mapping any indexed
+        shared prefix into the table), prefill what isn't shared — the
+        bucket ladder for cold prompts, suffix chunks for prefix hits — and
+        sample the first token. With chunked prefill and a suffix longer
+        than ``prefill_chunk`` the call returns at once with
+        ``token=None``; the first token surfaces from :meth:`step`.
+
+        Returns ``{"slot", "token", "prompt_len", "shared_tokens",
+        "chunked"}``; raises :class:`OutOfPages` when the request cannot be
+        admitted right now (backpressure)."""
+        prompt = [int(t) for t in prompt]
+        n = len(prompt)
+        if not 1 <= n <= self.max_prompt_len:
+            raise ValueError(f"prompt length {n} outside [1, "
+                             f"{self.max_prompt_len}]")
+        total = n + max(1, int(max_new_tokens))
+        if total > self.max_seq_len:
+            raise ValueError(f"prompt + max_new_tokens = {total} exceeds "
+                             f"max_seq_len={self.max_seq_len}")
+        with self._lock, torch.inference_mode():
+            if (self._pending_swap is not None
+                    and not self._maybe_swap_locked()):
+                raise OutOfPages("weight swap pending at token boundary")
+            slot = self.kv.free_slot()
+            if slot is None:
+                raise OutOfPages("no free decode slot")
+            shared_pages, _saved = self.kv.alloc(
+                slot, prompt if self.prefix_cache else n, total)
+            try:
+                t0 = time.perf_counter()
+                start = shared_pages * self.page_size  # first un-shared pos
+                self._temp[slot] = float(temperature)
+                self._topk[slot] = min(int(top_k), self.max_top_k)
+                self._decode_ready[slot] = False
+                if seed is not None:
+                    self._gens[slot] = self._generator(seed)
+                self._prefills += 1
+                self.metrics.observe("serving/decode/prompt_tokens", n)
+                if (self.prefill_chunk is not None
+                        and n - start > self.prefill_chunk):
+                    self._pending.append({"slot": int(slot),
+                                          "prompt": prompt,
+                                          "next": start, "end": n,
+                                          "seed": seed, "t0": t0})
+                    return {"slot": int(slot), "token": None,
+                            "prompt_len": n, "shared_tokens": start,
+                            "chunked": True}
+                if start == 0:
+                    bucket = next(b for b in self.prefill_buckets if n <= b)
+                    ids = np.zeros((1, bucket), np.int64)
+                    ids[0, :n] = prompt
+                    page_ids = np.zeros(bucket // self.page_size, np.int64)
+                    held = self.kv.pages_for(n, self.page_size)
+                    page_ids[:held] = self.kv.page_tables()[slot, :held]
+                    with obs_span("serving/decode_prefill",
+                                  args={"bucket": bucket, "slot": int(slot)},
+                                  profiler_annotation=True):
+                        logits = self._prefill_bucket(ids, n, page_ids)
+                else:
+                    logits = self._suffix_prefill_locked(slot, prompt,
+                                                         start, n)
+                if self.prefix_cache:
+                    self.kv.commit_prefix(slot, prompt)  # K/V on device now
+                first = int(self._sample(logits, [slot],
+                                         self._temp[[slot]],
+                                         self._topk[[slot]])[0])
+                self._last_token[slot] = first
+                self._decode_ready[slot] = True
+                self.metrics.observe("serving/decode/prefill_ms",
+                                     (time.perf_counter() - t0) * 1000.0)
+            except BaseException:
+                # a prefill that dies after alloc must hand the slot's pages
+                # back before the error propagates — the caller never learns
+                # the slot id, so nobody else can release it
+                self._release_locked(int(slot))
+                raise
+        return {"slot": int(slot), "token": first, "prompt_len": n,
+                "shared_tokens": start, "chunked": False}
+
+    def _suffix_prefill_locked(self, slot: int, prompt: List[int],
+                               start: int, n: int) -> torch.Tensor:
+        """Synchronous suffix prefill for a prefix-hit prompt, in
+        ``_chunk_width`` pieces. Returns the final chunk's logits."""
+        C = self._chunk_width
+        row = self.kv.page_tables()[slot]
+        logits = None
+        p = start
+        while p < n:
+            c = min(C, n - p)
+            ids = np.zeros((1, C), np.int64)
+            ids[0, :c] = prompt[p:p + c]
+            with obs_span("serving/decode_prefill_suffix",
+                          args={"slot": int(slot), "start": int(p)},
+                          profiler_annotation=True):
+                logits = self._suffix_chunk(ids, p, c, row)
+            p += c
+        return logits
+
+    # -- decode --------------------------------------------------------------
+
+    def step(self) -> Dict[int, List[int]]:
+        """One decode iteration over every decode-ready slot: append page
+        room, run the step, return ``{slot: [token]}``. A pending chunked
+        prefill advances one chunk here, before the decode step; a slot
+        whose final chunk just committed contributes its *first* token.
+        No-op (empty dict) when nothing is active."""
+        with self._lock, torch.inference_mode():
+            if self._pending_swap is not None:
+                self._maybe_swap_locked()  # lands iff fully drained
+            active = self.kv.active_slots()
+            ready = np.asarray([int(s) for s in active
+                                if self._decode_ready[s]], np.int64)
+            state = self._pending[0] if self._pending else None
+            if ready.size == 0 and state is None:
+                return {}
+            t0 = time.perf_counter()
+            # the incoming token occupies position == current length: make
+            # sure its page exists, then pass the PRE-append position
+            for s in ready:
+                self.kv.append(int(s))
+            lengths = self.kv.lengths()
+            table_full = self.kv.page_tables()
+            # mask non-ready lanes (mid-chunked-prefill or idle) to scratch:
+            # the step must not write into half-committed pages
+            mask = np.zeros(self.num_slots, bool)
+            mask[ready] = True
+            pos = np.maximum(lengths - 1, 0).astype(np.int64)
+            pos[~mask] = 0
+            table = table_full.copy()
+            table[~mask] = 0
+            token = np.where(mask, self._last_token, 0).astype(np.int64)
+            out: Dict[int, List[int]] = {}
+            if state is not None:
+                C = self._chunk_width
+                p, end = state["next"], state["end"]
+                c = min(C, end - p)
+                ids = np.zeros((1, C), np.int64)
+                ids[0, :c] = state["prompt"][p:p + c]
+                with obs_span("serving/decode_fused_step",
+                              args={"active": int(ready.size),
+                                    "slot": state["slot"]},
+                              profiler_annotation=True):
+                    chunk_logits = self._suffix_chunk(
+                        ids, p, c, table_full[state["slot"]])
+                    logits = self._decode(token, pos, table)
+                state["next"] = p + c
+                if state["next"] >= end:  # final chunk: first token is born
+                    self._pending.pop(0)
+                    slot = state["slot"]
+                    if self.prefix_cache:
+                        self.kv.commit_prefix(slot, state["prompt"])
+                    if state["seed"] is not None:
+                        self._gens[slot] = self._generator(state["seed"])
+                    first = int(self._sample(chunk_logits, [slot],
+                                             self._temp[[slot]],
+                                             self._topk[[slot]])[0])
+                    self._last_token[slot] = first
+                    self._decode_ready[slot] = True
+                    out[int(slot)] = [first]
+                    self.metrics.observe(
+                        "serving/decode/prefill_ms",
+                        (time.perf_counter() - state["t0"]) * 1000.0)
+            else:
+                with obs_span("serving/decode_step",
+                              args={"active": int(ready.size)},
+                              profiler_annotation=True):
+                    logits = self._decode(token, pos, table)
+            if ready.size:
+                tok = self._sample(logits[torch.as_tensor(ready, device=self.device)],
+                                   list(ready), self._temp[ready],
+                                   self._topk[ready])
+                for s, t in zip(ready, tok):
+                    self._last_token[s] = t
+                    out[int(s)] = [int(t)]
+            self._steps += 1
+            self._tokens_out += len(out)
+            dt_ms = (time.perf_counter() - t0) * 1000.0
+            self.metrics.observe("serving/decode/step_ms", dt_ms)
+            self.metrics.observe("serving/decode/step_active",
+                                 int(ready.size))
+            self.metrics.observe("serving/decode/token_latency_ms", dt_ms)
+        return out
+
+    def release(self, slot: int) -> None:
+        """Retire a finished sequence at a token boundary: its pages return
+        to the pool immediately (shared pages drop one reference), the lane
+        is reusable next step."""
+        with self._lock:
+            self._release_locked(int(slot))
+
+    def _release_locked(self, slot: int) -> None:
+        self.kv.free(slot)
+        self._pending = [st for st in self._pending if st["slot"] != slot]
+        self._decode_ready[slot] = False
+        self._last_token[slot] = 0
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+
+    def active_slots(self) -> np.ndarray:
+        return self.kv.active_slots()
+
+    # -- live weight hot-swap ------------------------------------------------
+
+    def weights_template(self):
+        """``{layer: {name: (shape, dtype)}}`` of the ctor params — what a
+        swapped tree must match leaf for leaf."""
+        return self._weights_template
+
+    def swap_params(self, params, *, version: Optional[int] = None) -> bool:
+        """Stage a hot swap of the serving weights (any form the ctor
+        accepts; shapes and dtypes must equal the ctor tree's). The tree is
+        placed on the device outside the engine lock, then applied only at a
+        fully drained token boundary so no sequence decodes under two
+        versions; ``can_admit`` holds new admissions meanwhile. Returns True
+        if the swap applied immediately (engine idle)."""
+        faults.fire("engine.swap")  # chaos hook; no-op unless armed
+        tree = self._as_tree(params)
+        for ln, layer in self._weights_template.items():
+            for pn, (shape, dtype) in layer.items():
+                t = tree[ln][pn]
+                if tuple(t.shape) != shape or t.dtype != dtype:
+                    raise ValueError(
+                        f"swapped params {ln}/{pn} is {tuple(t.shape)}/"
+                        f"{t.dtype}, expected {shape}/{dtype}: hot swap "
+                        f"requires unchanged shapes")
+        with self._lock:
+            v = (int(version) if version is not None
+                 else self._serving_version + 1)
+            self._pending_swap = (tree, v)
+            return self._maybe_swap_locked()
+
+    def _maybe_swap_locked(self) -> bool:
+        if self._pending_swap is None:
+            return False
+        if self.kv.active_slots().size or self._pending:
+            return False
+        params, version = self._pending_swap
+        self._pending_swap = None
+        self._params = params
+        if self.prefix_cache:
+            # old-version K/V must not seed post-swap prompts
+            self.kv.flush_prefix_index()
+        self._serving_version = version
+        self._swaps += 1
+        self.metrics.gauge("serving/version", float(version))
+        return True
+
+    def maybe_swap(self) -> bool:
+        """Try to land a pending swap. True if a swap applied now."""
+        with self._lock:
+            return self._maybe_swap_locked()
+
+    def serving_version(self) -> int:
+        """Version of the weights currently serving (0 = ctor weights)."""
+        with self._lock:
+            return self._serving_version
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            kv_bytes = (self._k_pool.numel() * self._k_pool.element_size()
+                        + self._v_pool.numel() * self._v_pool.element_size())
+            param_bytes = sum(t.numel() * t.element_size()
+                              for layer in self._params.values()
+                              for t in layer.values())
+            return {
+                "num_slots": self.num_slots,
+                "prefill_buckets": list(self.prefill_buckets),
+                "max_seq_len": self.max_seq_len,
+                "prefix_cache": self.prefix_cache,
+                "prefill_chunk": self.prefill_chunk,
+                "pending_prefills": len(self._pending),
+                "device": str(self.device),
+                "aot_compiles": 0,
+                "cold_start": None,
+                "traces": 0,
+                "steady_traces": 0,
+                "steps": self._steps,
+                "tokens_out": self._tokens_out,
+                "prefills": self._prefills,
+                "serving_version": self._serving_version,
+                "swaps": self._swaps,
+                "pending_swap": self._pending_swap is not None,
+                "kv_quant": self.kv_quant,
+                "kv_quant_error": None,
+                "spec": {"enabled": False, "k": 0, "mode": None,
+                         "draft_layers": None, "steps": 0, "proposed": 0,
+                         "accepted": 0, "accept_rate": 0.0,
+                         "mean_accepted": 0.0, "draft_ms": 0.0,
+                         "verify_ms": 0.0},
+                "kv": self.kv.stats(),
+                "parallel": {"mesh": None, "tp": 1, "ep": 1, "pp": 1,
+                             "stages": 1, "pp_wave": False,
+                             "wave_ticks": 0,
+                             "kv_bytes_per_device": kv_bytes,
+                             "param_bytes_per_device": param_bytes},
+            }

@@ -1,0 +1,147 @@
+"""PyTorch port on the CUDA card: each kernel against its plain PyTorch
+version at the shapes of the decode-serving path, and the engine through
+the kernels. Marked ``cuda``; every test skips where there is no card.
+
+This file imports no JAX, so it runs on a machine without it:
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
+(``--noconftest`` skips tests/conftest.py, which sets JAX up).
+
+Tolerances (same as chip_smoke.py): float32 outputs 1e-4 (float32 FMA on
+both sides, different summation order); bfloat16 flash outputs 2e-2 (the
+plain version rounds P to bfloat16 before P V, as the JAX reference does,
+the kernel keeps P in float32; a few bfloat16 ulps at |O| ~ 1); bfloat16
+paged outputs 8e-3 (both sides compute in float32 from the same bfloat16
+rows and round once: up to two ulps); logsumexp 1e-3 in bfloat16 inputs,
+1e-4 in float32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sparkflow_tpu_torch.ops import (attention_reference, flash_attention,
+                                     paged_attention,
+                                     paged_attention_reference)
+
+pytestmark = pytest.mark.cuda
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [16, 100, 128, 1024])
+def test_flash_kernel_matches_plain_causal(dev, dtype, s):
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn(1, 12, s, 64, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = attention_reference(q, k, v, causal=True, return_lse=True)
+    assert _max_err(out, ref) < FLASH_TOL[dtype]
+    assert _max_err(lse, ref_lse) < LSE_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain_masked(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 12, 256, 64, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    mask = torch.ones(2, 256, device=dev)
+    mask[0, 200:] = 0
+    mask[1, 77:] = 0
+    out = flash_attention(q, k, v, kv_mask=mask)
+    ref = attention_reference(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert _max_err(out, ref) < FLASH_TOL[dtype]
+
+
+def _paged_inputs(dev, dtype, seed=0):
+    b, h, d, page, maxp, num_pages = 8, 12, 64, 16, 64, 513
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+    kp = torch.randn(num_pages, page, h, d, generator=g, device=dev).to(dtype)
+    vp = torch.randn(num_pages, page, h, d, generator=g, device=dev).to(dtype)
+    lengths = torch.tensor([0, 1, 17, 100, 255, 512, 700, 1024],
+                           dtype=torch.int32, device=dev)
+    rs = np.random.RandomState(seed)
+    table = rs.permutation(np.arange(1, num_pages))[:b * maxp].reshape(b, maxp)
+    table[3, :2] = table[2, :2]      # slot 3 aliases slot 2's first pages
+    table[0] = 0                     # the empty slot reads scratch page 0
+    table = torch.as_tensor(table, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_kernel_matches_plain(dev, dtype):
+    q, kp, vp, table, lengths = _paged_inputs(dev, dtype)
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    ref = paged_attention_reference(q, kp, vp, table, lengths)
+    assert _max_err(out, ref) < PAGED_TOL[dtype]
+    assert torch.all(out[0] == 0)
+    assert torch.isfinite(out.float()).all()
+
+
+def test_paged_kernel_ignores_rows_past_length(dev):
+    q, kp, vp, table, lengths = _paged_inputs(dev, torch.float32, seed=1)
+    out1 = paged_attention(q, kp, vp, table, lengths)
+    kp2, vp2 = kp.clone(), vp.clone()
+    last = int(table[2, 1])          # slot 2 holds 17 tokens: row 1 of page 1
+    kp2[last, 1:] = 1e4
+    vp2[last, 1:] = -1e4
+    out2 = paged_attention(q, kp2, vp2, table, lengths)
+    torch.cuda.synchronize()
+    assert _max_err(out1[2], out2[2]) == 0.0
+
+
+def test_engine_on_card_matches_plain_forward(dev):
+    """A small LM served through both kernels gives the greedy tokens of
+    its own dense forward over the plain attention."""
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    from sparkflow_tpu_torch.ops import attention_reference as plain
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    spec = build_registry_spec("transformer_lm", vocab_size=97, hidden=64,
+                               num_layers=2, num_heads=4, mlp_dim=128,
+                               max_len=64)
+    model = model_from_json(spec, device="cuda")
+    params = model.init(seed=3)
+    for t in params["block_0"].values():     # wander instead of repeating
+        t.mul_(10.0)
+    eng = DecodeEngine(model, params, num_slots=4, page_size=8)
+    f0, p0 = flash_attention.launches, paged_attention.launches
+    prompt = [5, 9, 2, 40, 17, 3, 3, 60, 1, 8, 22]
+    info = eng.prefill(prompt, max_new_tokens=8)
+    toks = [info["token"]]
+    while len(toks) < 8:
+        toks.extend(eng.step()[info["slot"]])
+    eng.release(info["slot"])
+    assert flash_attention.launches > f0 and paged_attention.launches > p0
+    ids = list(prompt)
+    with torch.inference_mode():
+        for _ in range(8):
+            lg = model._forward(params, {"input_ids": torch.tensor([ids])},
+                                attention=plain)["logits"]
+            ids.append(int(lg[0, -1].argmax()))
+    assert toks == ids[len(prompt):]

@@ -1,0 +1,200 @@
+"""PyTorch port, decode serving: the port's DecodeEngine (plain attention on
+the CPU) against the JAX package's DecodeEngine (Pallas kernels in
+interpret mode) on the same numpy-drawn weights — greedy tokens must be
+identical — plus the port's own engine contract: page accounting, chunked
+prefill cadence, prefix hits, seeded sampling, hot swap and the options that
+are not ported yet."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_shared import CFG, PAGE, jax_model, numpy_params, torch_model
+from sparkflow_tpu.serving import DecodeEngine as JaxDecodeEngine
+from sparkflow_tpu_torch.convert import params_from_jax
+from sparkflow_tpu_torch.serving import (ContinuousBatcher, DecodeEngine,
+                                         OutOfPages)
+
+SYS = [11, 3, 5, 8, 2, 9, 4, 6, 1, 13, 12, 10]      # shared system prefix
+PROMPTS = [[5, 2, 8], list(range(1, 25)), [33], SYS + [17, 18],
+           SYS + [17, 19, 20], [7, 7, 40, 41, 42, 43, 44, 45, 46]]
+NEW = 6
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jm = jax_model()
+    npp = numpy_params(jm.param_specs(), seed=2)
+    return jm, jax.tree.map(jnp.asarray, npp), npp
+
+
+@pytest.fixture(scope="module")
+def torch_lm(weights):
+    tm = torch_model()
+    return tm, params_from_jax(tm, weights[2])
+
+
+def _drive(eng, prompt, n):
+    """n greedy tokens for one request, riding out a chunked prefill."""
+    info = eng.prefill(prompt, max_new_tokens=n, temperature=0.0)
+    toks = [] if info["token"] is None else [info["token"]]
+    while len(toks) < n:
+        toks.extend(eng.step().get(info["slot"], []))
+    eng.release(info["slot"])
+    return toks[:n], info
+
+
+def _run_all(eng):
+    out = [_drive(eng, p, NEW)[0] for p in PROMPTS]
+    out.append(_drive(eng, SYS + [17, 18], NEW)[0])   # prefix-hit replay
+    return out
+
+
+@pytest.fixture(scope="module", params=[None, 8], ids=["ladder", "chunk8"])
+def jax_tokens(request, weights):
+    jm, jp, _ = weights
+    eng = JaxDecodeEngine(jm, jp, num_slots=4, page_size=PAGE, seed=0,
+                          prefill_chunk=request.param)
+    return request.param, _run_all(eng)
+
+
+def test_greedy_tokens_identical_to_jax_engine(jax_tokens, torch_lm):
+    chunk, want = jax_tokens
+    tm, tp = torch_lm
+    eng = DecodeEngine(tm, tp, num_slots=4, page_size=PAGE, seed=0,
+                       prefill_chunk=chunk)
+    got = _run_all(eng)
+    assert got == want
+    assert len({tuple(t) for t in got}) > 3, "weights decode to one token"
+    st = eng.stats()
+    assert st["kv"]["pages_used"] == 0 and st["kv"]["slots_active"] == 0
+    assert st["kv"]["prefix_hits"] >= 1
+    assert st["steady_traces"] == 0 and st["pending_prefills"] == 0
+
+
+def test_prefix_replay_shares_pages(torch_lm):
+    tm, tp = torch_lm
+    eng = DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, seed=0)
+    cold, info0 = _drive(eng, SYS + [17, 18], NEW)
+    hot, info1 = _drive(eng, SYS + [17, 18], NEW)
+    assert info0["shared_tokens"] == 0 and info1["shared_tokens"] == PAGE
+    assert cold == hot
+    off = DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, seed=0,
+                       prefix_cache=False)
+    assert _drive(off, SYS + [17, 18], NEW)[0] == cold
+
+
+def test_chunked_prefill_keeps_decode_cadence(torch_lm):
+    """A long prompt admitted mid-stream advances one chunk per step while
+    the in-flight request emits a token on every step."""
+    tm, tp = torch_lm
+    eng = DecodeEngine(tm, tp, num_slots=4, page_size=PAGE, seed=0,
+                       prefill_chunk=8)
+    a = eng.prefill([1, 2, 3], max_new_tokens=12)
+    b = eng.prefill(list(range(1, 25)), max_new_tokens=4)
+    assert b["token"] is None and b["chunked"]
+    first_b = None
+    for i in range(6):
+        out = eng.step()
+        assert a["slot"] in out
+        if b["slot"] in out and first_b is None:
+            first_b = i
+    assert first_b == 2   # 24 prompt tokens / chunk 8 -> 3 steps
+    eng.release(a["slot"])
+    eng.release(b["slot"])
+    assert eng.kv.stats()["pages_used"] == 0
+
+
+def test_seeded_sampling_repeats_and_greedy_is_default(torch_lm):
+    tm, tp = torch_lm
+    eng = DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, seed=0)
+
+    def sample(seed):
+        info = eng.prefill([4, 4, 9], max_new_tokens=8, temperature=1.0,
+                           top_k=8, seed=seed)
+        toks = [info["token"]]
+        while len(toks) < 8:
+            toks.extend(eng.step().get(info["slot"], []))
+        eng.release(info["slot"])
+        return toks
+
+    a, b, c = sample(123), sample(123), sample(7)
+    assert a == b
+    assert all(0 <= t < CFG["vocab_size"] for t in a + c)
+    assert a != c
+
+
+def test_batcher_mixed_lengths_match_engine(torch_lm):
+    tm, tp = torch_lm
+    ref_eng = DecodeEngine(tm, tp, num_slots=4, page_size=PAGE, seed=0)
+    want = [_drive(ref_eng, p, n)[0] for p, n in zip(PROMPTS, (3, 7, 2, 9, 5, 4))]
+    eng = DecodeEngine(tm, tp, num_slots=4, page_size=PAGE, seed=0)
+    cb = ContinuousBatcher(eng, max_queue=32)
+    try:
+        futs = [cb.submit(p, max_new_tokens=n)
+                for p, n in zip(PROMPTS, (3, 7, 2, 9, 5, 4))]
+        got = [f.result(timeout=120) for f in futs]
+    finally:
+        cb.close()
+    assert [r["tokens"] for r in got] == want
+    assert all(r["finish_reason"] == "length" for r in got)
+    assert eng.kv.stats()["pages_used"] == 0
+
+
+def test_admission_bounds_and_backpressure(torch_lm):
+    tm, tp = torch_lm
+    eng = DecodeEngine(tm, tp, num_slots=1, page_size=PAGE, seed=0)
+    assert eng.can_admit(2, 4)
+    assert not eng.can_admit(eng.max_prompt_len + 1, 1)
+    assert not eng.can_admit(2, eng.max_seq_len)
+    info = eng.prefill([1, 2], max_new_tokens=2)
+    with pytest.raises(OutOfPages):
+        eng.prefill([3], max_new_tokens=2)
+    with pytest.raises(ValueError):
+        eng.prefill([], max_new_tokens=2)
+    eng.release(info["slot"])
+
+
+def test_swap_params_defers_until_drained(torch_lm, weights):
+    tm, tp = torch_lm
+    eng = DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, seed=0)
+    before = _drive(eng, [5, 2, 8], NEW)[0]
+    other = numpy_params(tm.param_specs(), seed=9)
+    info = eng.prefill([1, 2, 3], max_new_tokens=4)
+    assert eng.swap_params(other, version=3) is False   # a slot is live
+    assert eng.stats()["pending_swap"]
+    eng.release(info["slot"])
+    assert eng.maybe_swap() and eng.serving_version() == 3
+    after = _drive(eng, [5, 2, 8], NEW)[0]
+    cold = DecodeEngine(tm, params_from_jax(tm, other), num_slots=2,
+                        page_size=PAGE, seed=0)
+    assert after == _drive(cold, [5, 2, 8], NEW)[0]
+    assert after != before
+    bad = numpy_params(tm.param_specs(), seed=9)
+    bad["embed"]["tok"] = bad["embed"]["tok"][:-1]
+    with pytest.raises(ValueError):
+        eng.swap_params(bad)
+
+
+@pytest.mark.parametrize("kw", [{"spec_k": 2}, {"draft_layers": 1},
+                                {"kv_quant": "int8"}, {"mesh": object()},
+                                {"sharding": "tp"}, {"pp_wave": False},
+                                {"executable_dir": "x"}])
+def test_unported_engine_options_raise(torch_lm, kw):
+    tm, tp = torch_lm
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, **kw)
+
+
+def test_engine_stats_carry_server_keys(torch_lm):
+    tm, tp = torch_lm
+    st = DecodeEngine(tm, tp, num_slots=2, page_size=PAGE).stats()
+    for key in ("num_slots", "prefill_buckets", "max_seq_len", "kv",
+                "steady_traces", "spec", "parallel", "kv_quant"):
+        assert key in st
+    assert st["prefill_buckets"] == [8, 16, 32, 64]
+    assert st["kv"]["kv_bytes_per_page"] == (
+        2 * CFG["num_layers"] * PAGE * CFG["hidden"] * 4)
+    assert st["device"] == "cpu"
