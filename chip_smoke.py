@@ -22,7 +22,28 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    over one 700-token prefill — device busy time, idle share, top kernels;
 5. exactness: float32 with TF32 off, all 12 layers — the engine's greedy
    tokens equal the argmax of the dense full-sequence forward over the plain
-   attention, and prefill logits agree within 1e-3.
+   attention, and prefill logits agree within 1e-3;
+6. backward kernels, on operands laid out as the training step lays them
+   out (strided q/k/v views of one qkv permutation, a transposed dO): the
+   forward's output and logsumexp against ``attention_reference``, then
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` against their plain versions, at
+   the training shape (B=8, H=12, S=1024, D=64, causal), at S=128, at a
+   ragged S=700 and on a non-causal key-padded batch, in bfloat16 and
+   float32, with the same timings as phase 2 (the forward's too, at the
+   training shape); ``library_ms`` for the backward is that of
+   ``F.scaled_dot_product_attention`` at the same shape (all three
+   gradients in one call), timed by itself by CUDA-graph replay;
+7. training: ``Trainer.fit`` on the GPT-2-small-width ``transformer_lm``
+   (dropout 0.1, bf16 compute, adam, lr 3e-4) over 64 rows x 1024 tokens
+   of a 1,000-id sub-vocabulary, batch 8: 8 epochs of one step each, each
+   timed on the host clock at its ``loss_callback`` (after the trainer's
+   host read of the loss); the launch counters and the peak-memory mark are
+   reset just before and read just after (12 x steps for each attention
+   kernel); the losses must be finite and fall; then one more step under
+   ``torch.profiler``;
+8. training exactness: float32, TF32 off, full width cut to 2 layers — one
+   step's loss and gradients through the kernels equal those through the
+   plain attention, and 3 adam steps' losses agree within 1e-4 relative.
 
 The line before the last gives the card's name and power limit; the last
 line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
@@ -46,6 +67,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# backward kernels: |kernel - plain| <= tol x max |plain|, per gradient
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_STEPS = 8
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 
@@ -115,6 +139,47 @@ def time_calls(fn, reps: int = 20) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+def time_sdpa_backward(q, k, v, dout, mask, causal: bool,
+                       calls: int = 10, replays: int = 7) -> float:
+    """The card's ms per call of ``F.scaled_dot_product_attention``'s
+    backward (dQ, dK and dV in one call). Autograd runs a backward on its
+    forward's stream, so the forward runs once on a side stream and the
+    backward calls are captured from that stream into a CUDA graph (as
+    ``torch.cuda.make_graphed_callables`` does), then replayed between CUDA
+    events like ``time_device``."""
+    import torch
+    import torch.nn.functional as F
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask,
+                                             is_causal=causal)
+
+        def backward():
+            torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
+
+        for _ in range(2):
+            backward()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            backward()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a, b = _events()
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del graph
+    return sorted(times)[len(times) // 2] / calls
 
 
 def _bound(nbytes: float, flops: float, dtype_name: str):
@@ -506,6 +571,322 @@ def phase_exactness(card):
         f"forward; max |prefill logit delta| {worst:.3g} [{card}]")
 
 
+def _training_operands(b, s, dtype, gen):
+    """q, k, v and dO laid out as the training step hands them to the
+    kernels: q, k and v strided views of one [3,B,H,S,D] permutation of the
+    qkv projection's [B,S,3,H,D] output, dO the [B,H,S,D] view of a
+    [B,S,H,D] tensor (the gradient of the forward's transpose back)."""
+    import torch
+    qkv = torch.randn(b, s, 3, 12, 64, generator=gen, device="cuda").to(dtype)
+    qkv = qkv.permute(2, 0, 3, 1, 4)
+    dout = torch.randn(b, s, 12, 64, generator=gen, device="cuda").to(dtype)
+    return qkv[0], qkv[1], qkv[2], dout.transpose(1, 2)
+
+
+def phase_backward_kernels(card):
+    """The forward's output and logsumexp, then the dq and dk/dv kernels,
+    against their plain versions at the training path's operands; and their
+    times. Returns the kernels-line rows: bf16 at the training shape for the
+    two backward kernels and for the forward."""
+    import torch
+    import torch.nn.functional as F
+    from sparkflow_tpu_torch.ops import (attention_reference, flash_attention,
+                                         flash_attention_backward_reference,
+                                         flash_bwd_dkv,
+                                         flash_bwd_dkv_reference,
+                                         flash_bwd_dq, flash_bwd_dq_reference)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    cases = [("train", 8, 1024, True, None), ("s128", 2, 128, True, None),
+             ("s700", 1, 700, True, None),
+             # the classifier's mask: padded tails, one row all padding
+             ("masked", 4, 512, False, (512, 300, 77, 0))]
+    rows, fwd_rows = [], []
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = names[dtype]
+        for case, b, s, causal, first_pad in cases:
+            g = torch.Generator(device=dev).manual_seed(s + b)
+            q, k, v, dout = _training_operands(b, s, dtype, g)
+            mask = None
+            if first_pad is not None:
+                mask = torch.ones(b, s, device=dev)
+                for i, f in enumerate(first_pad):
+                    mask[i, f:] = 0
+            out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                                       return_lse=True)
+            ref_out, ref_lse = attention_reference(q, k, v, causal,
+                                                   kv_mask=mask,
+                                                   return_lse=True)
+            torch.cuda.synchronize()
+            # a row whose keys are all padding has lse at NEG_INF on both
+            # sides (the backward's gate zeroes its P): compare the others
+            live = ref_lse > -0.5e30
+            e = max_err(out, ref_out)
+            el = max_err(lse[live], ref_lse[live])
+            if not (e < FLASH_TOL[dn] and el < LSE_TOL[dn]
+                    and bool((lse[~live] <= -0.5e30).all())):
+                raise AssertionError(
+                    f"flash_fwd {dn} {case}: max |dO| {e} (tol "
+                    f"{FLASH_TOL[dn]}), max |dlse| {el} (tol {LSE_TOL[dn]}), "
+                    f"all-padding rows at NEG_INF: "
+                    f"{bool((lse[~live] <= -0.5e30).all())}")
+            worst["flash_fwd"] = max(worst["flash_fwd"], e)
+            log(f"[bwd] flash_fwd {dn} {case} B={b} S={s}: err {e:.3g} "
+                f"lse_err {el:.3g}")
+            if case == "train":
+                # q, k, v read once, O written once; QK^T and PV over the
+                # causal (query, key) pairs
+                nbytes = 4 * q.numel() * q.element_size()
+                flops = 4 * 64 * 12 * b * s * (s + 1) / 2
+                kern = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+                row = {"dtype": dn, "case": case, "B": b, "S": s,
+                       "max_abs_err": e, "lse_err": el,
+                       "ms": time_device([kern] * 10),
+                       "call_ms": time_calls(kern),
+                       "plain_ms": time_device([lambda: attention_reference(
+                           q, k, v, causal=True)] * 2),
+                       "library_ms": time_device([
+                           lambda: F.scaled_dot_product_attention(
+                               q, k, v, is_causal=True)] * 10),
+                       "bytes": nbytes, "flops": flops}
+                row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
+                fwd_rows.append(row)
+                log(f"[bwd] flash_fwd {dn} train B={b} H=12 S={s} D=64 "
+                    f"causal: ms {row['ms']:.5f} (per call "
+                    f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
+                    f"sdpa {row['library_ms']:.5f} bound "
+                    f"{row['bound_ms']:.5f} ({row['bound_by']}) [{card}]")
+            del ref_out, ref_lse
+            delta = (dout.float() * out.float()).sum(-1).contiguous()
+            args = (q, k, v, dout, lse, delta, causal)
+            dq = flash_bwd_dq(*args, kv_mask=mask)
+            dk, dv = flash_bwd_dkv(*args, kv_mask=mask)
+            ref = flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                     causal, kv_mask=mask)
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                e, top = max_err(a, r), float(r.float().abs().max())
+                if not (e <= BWD_TOL[dn] * top and torch.isfinite(
+                        a.float()).all()):
+                    raise AssertionError(
+                        f"flash_bwd {gname} {dn} {case}: max |d| {e} > "
+                        f"{BWD_TOL[dn]} x max |plain| {top}")
+                errs[gname] = e
+            if mask is not None and not (torch.all(dq[3] == 0)
+                                         and torch.all(dk[3] == 0)):
+                raise AssertionError(f"flash_bwd {dn}: the all-padding row's "
+                                     f"gradient is not zero")
+            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
+            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"],
+                                         errs["dv"])
+            # the (query, key) pairs this run's data needs: at or below the
+            # diagonal when causal, the unpadded keys otherwise
+            if causal:
+                pairs = 12 * b * s * (s + 1) / 2
+            else:
+                pairs = 12 * s * float(mask.sum()) if mask is not None \
+                    else 12 * b * s * s
+            item = q.element_size()
+            plane = q.numel() * item            # one [B,H,S,D] operand
+            stats = 2 * b * 12 * s * 4          # lse and delta, float32
+            mbytes = mask.numel() * 4 if mask is not None else 0
+            library_ms = time_sdpa_backward(q, k, v, dout, mask, causal)
+            for name, kern, plain, nbytes, products in (
+                    ("flash_bwd_dq",
+                     lambda: flash_bwd_dq(*args, kv_mask=mask),
+                     lambda: flash_bwd_dq_reference(*args, None, mask),
+                     5 * plane + stats + mbytes, 3),
+                    ("flash_bwd_dkv",
+                     lambda: flash_bwd_dkv(*args, kv_mask=mask),
+                     lambda: flash_bwd_dkv_reference(*args, None, mask),
+                     6 * plane + stats + mbytes, 4)):
+                flops = products * 2 * 64 * pairs
+                row = {"kernel": name, "dtype": dn, "case": case, "B": b,
+                       "S": s, "causal": causal,
+                       "max_abs_err": (errs["dq"] if name == "flash_bwd_dq"
+                                       else max(errs["dk"], errs["dv"])),
+                       "ms": time_device([kern] * 10),
+                       "call_ms": time_calls(kern),
+                       "plain_ms": time_device([plain] * 2),
+                       "library_ms": library_ms,
+                       "bytes": nbytes, "flops": flops}
+                row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
+                rows.append(row)
+                log(f"[bwd] {name} {dn} {case} B={b} H=12 S={s} D=64 "
+                    f"{'causal' if causal else 'padded keys'}: err "
+                    f"{row['max_abs_err']:.3g} ms {row['ms']:.5f} (per call "
+                    f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
+                    f"bound {row['bound_ms']:.5f} ({row['bound_by']}) "
+                    f"sdpa-bwd {library_ms:.5f} [{card}]")
+            del q, k, v, dout, out, lse, delta, dq, dk, dv, ref
+    log("[bwd] detail " + json.dumps({"flash_fwd": fwd_rows,
+                                      "backward": rows}))
+    picked = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        main = next(r for r in rows if r["kernel"] == name
+                    and r["dtype"] == "bfloat16" and r["case"] == "train")
+        picked[name] = {"max_abs_err": worst[name], **_pick(main)}
+    main = next(r for r in fwd_rows if r["dtype"] == "bfloat16")
+    picked["flash_fwd"] = {"max_abs_err": worst["flash_fwd"], "B": main["B"],
+                           "S": main["S"], **_pick(main)}
+    return picked
+
+
+def _train_spec(**over):
+    from sparkflow_tpu_torch.models import build_registry_spec
+    return build_registry_spec("transformer_lm",
+                               **dict(GPT2_SMALL, dropout=0.1, **over))
+
+
+def phase_training(card):
+    """``Trainer.fit`` at GPT-2-small width through the attention kernels,
+    forward and backward; then one more step under the profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sparkflow_tpu_torch.core import make_loss_fn, make_train_step
+    from sparkflow_tpu_torch.ops import (flash_attention, flash_bwd_dkv,
+                                         flash_bwd_dq, reset_launch_counts)
+    from sparkflow_tpu_torch.trainer import Trainer
+    rows, seq, batch = 64, 1024, 8
+    toks = np.random.default_rng(0).integers(0, 1000, (rows, seq)).astype(
+        np.float32)
+    marks, losses = [], []
+
+    def on_step(loss, it, partition):
+        # the trainer has read the epoch's loss back to the host: its one
+        # step is done
+        marks.append(time.perf_counter())
+        losses.append(loss)
+
+    # one step per epoch (a batch of 8 rows drawn from the 64), so the
+    # reference's per-epoch loss_callback times each step
+    tr = Trainer(_train_spec(), "input_ids", None, optimizer="adam",
+                 learning_rate=3e-4, iters=TRAIN_STEPS, mini_batch_size=batch,
+                 mini_stochastic_iters=1, compute_dtype="bfloat16", seed=0,
+                 loss_callback=on_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.fit(toks)
+    launches = {"flash_fwd": flash_attention.launches,
+                "flash_bwd_dq": flash_bwd_dq.launches,
+                "flash_bwd_dkv": flash_bwd_dkv.launches}
+    steps = len(losses)
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    want = tr.model.num_layers * TRAIN_STEPS
+    if steps != TRAIN_STEPS or any(n != want for n in launches.values()):
+        raise AssertionError(f"{steps} steps, launches {launches}; each "
+                             f"kernel must launch {want} times")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite, or not falling")
+    steady = step_ms[1:]
+    summary = {"steps": steps, "batch": batch, "seq": seq,
+               "losses": losses,
+               "step_ms": step_ms,
+               "first_step_includes": "fit set-up (init, staging, optimizer "
+                                      "state)",
+               "step_ms_median_after_first": sorted(steady)[len(steady) // 2],
+               "tokens_per_s_after_first": batch * seq * len(steady)
+               / (sum(steady) / 1e3),
+               "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "card": card}
+    log("[training] " + json.dumps(summary))
+
+    # one more step, profiled: the trainer's own step function on its
+    # parameters and optimizer state
+    model = tr.model
+    params = model.load_params(tr.params, trainable=True)
+    step = make_train_step(make_loss_fn(model, "input_ids", None),
+                           tr.optimizer)
+    x = torch.as_tensor(toks[:batch], device="cuda")
+    y = torch.zeros(batch, 1, device="cuda")
+    m = torch.ones(batch, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state = tr._last_opt_state
+    params, state, _ = step(params, state, x, y, m, gen)     # warm
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, loss = step(params, state, x, y, m, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    prof_sum = _device_profile(prof, wall, 1)
+    attn = sum(t["ms"] for t in prof_sum["top"]
+               if "flash_" in t["name"])
+    log("[training-profile] " + json.dumps(
+        {"train_step": prof_sum, "attention_kernels_ms": attn,
+         "attention_share_of_busy": attn / prof_sum["device_busy_ms"],
+         "loss": float(loss), "card": card}))
+    return launches
+
+
+def phase_train_exactness(card):
+    """Float32, TF32 off, full width cut to 2 layers: the training step
+    through the kernels against the same step through the plain attention
+    (autograd of ``attention_reference``), dropout draws shared."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.core import make_train_step
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import attention_reference
+    from sparkflow_tpu_torch.optimizers import build_optimizer, tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = model_from_json(_train_spec(num_layers=2))
+    init = {ln: {pn: t.detach().clone() for pn, t in layer.items()}
+            for ln, layer in model.init(seed=2).items()}
+    x = torch.as_tensor(np.random.default_rng(3).integers(
+        0, GPT2_SMALL["vocab_size"], (4, 1024)), device="cuda")
+
+    def fresh():
+        return model.load_params({ln: {pn: t.clone() for pn, t in l.items()}
+                                  for ln, l in init.items()}, trainable=True)
+
+    def loss_fn(attention):
+        return lambda p, xb, y, m, g: model.loss_vector(
+            p, {"input_ids": xb}, True, g, attention=attention).mean()
+
+    grads = {}
+    for name, att in (("kernel", None), ("plain", attention_reference)):
+        p = fresh()
+        loss = loss_fn(att)(p, x, None, None,
+                            torch.Generator(device="cuda").manual_seed(4))
+        grads[name] = (float(loss.detach()),
+                       torch.autograd.grad(loss, tree_leaves(p)))
+    (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+    if not abs(lk - lp) <= 1e-5 * abs(lp):
+        raise AssertionError(f"loss {lk} through the kernels, {lp} plain")
+    ratio = max(max_err(a, b) / float(b.abs().max()) for a, b in zip(gk, gp))
+    if not ratio <= 1e-4:
+        raise AssertionError(f"gradients differ by {ratio} x max |plain|")
+    traj = {}
+    for name, att in (("kernel", None), ("plain", attention_reference)):
+        p, opt = fresh(), build_optimizer("adam", 3e-4)
+        state, gen = opt.init(p), torch.Generator(device="cuda").manual_seed(5)
+        step = make_train_step(loss_fn(att), opt)
+        traj[name] = []
+        for _ in range(3):
+            p, state, loss = step(p, state, x, None, None, gen)
+            traj[name].append(float(loss))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(traj["kernel"],
+                                                  traj["plain"]))
+    if not rel <= 1e-4:
+        raise AssertionError(f"adam losses {traj}: differ by {rel} relative")
+    log(f"[train-exactness] float32, 2 layers, B=4 S=1024: loss {lk:.7f} vs "
+        f"plain {lp:.7f}; max |dgrad| / max |grad| {ratio:.3g} over "
+        f"{len(gk)} leaves; 3 adam steps {traj['kernel']} vs "
+        f"{traj['plain']} (max rel {rel:.3g}) [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -520,10 +901,13 @@ def main() -> int:
     try:
         phase_setup()
         flash_row, paged_row = phase_kernels(card)
+        bwd_rows = phase_backward_kernels(card)
         launches, eng = phase_serving(card)
         phase_profile(card, eng)
         del eng
         phase_exactness(card)
+        train_launches = phase_training(card)
+        phase_train_exactness(card)
     except Exception:
         traceback.print_exc()
         return 1
@@ -531,11 +915,25 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "sparkflow_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "sparkflow_tpu/ops/attention.py:196",
-         "launches": launches["flash_fwd"], **flash_row},
+         "launches": launches["flash_fwd"], **flash_row,
+         # the same kernel on the training path: its launches there and its
+         # times at the training shape
+         "training": {"launches": train_launches["flash_fwd"],
+                      **bwd_rows["flash_fwd"]}},
         {"name": "paged_attention", "route": "cuda",
          "source": "sparkflow_tpu_torch/ops/csrc/paged_attention.cu",
          "replaces": "sparkflow_tpu/ops/attention.py:734",
          "launches": launches["paged_attention"], **paged_row},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "sparkflow_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": "sparkflow_tpu/ops/attention.py:372",
+         "launches": train_launches["flash_bwd_dq"],
+         **bwd_rows["flash_bwd_dq"]},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "sparkflow_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": "sparkflow_tpu/ops/attention.py:415",
+         "launches": train_launches["flash_bwd_dkv"],
+         **bwd_rows["flash_bwd_dkv"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

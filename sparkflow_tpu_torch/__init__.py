@@ -8,8 +8,11 @@ CUDA card unless the caller passes ``device="cpu"``.
 Ported so far: the decode-serving path — ``ServingClient.generate`` →
 ``InferenceServer`` ``/v1/generate`` → ``ContinuousBatcher`` →
 ``DecodeEngine`` → ``TransformerLM.prefill`` / ``decode_step`` → the
-``flash_attention`` and ``paged_attention`` CUDA kernels. ROADMAP.md lists
-what is still to port.
+``flash_attention`` and ``paged_attention`` CUDA kernels — and the
+single-card training path — ``trainer.Trainer.fit`` → ``core`` steps →
+``optimizers`` → the ``transformer_lm`` / ``transformer_classifier`` loss
+→ ``flash_attention`` forward and its dq and dk/dv backward kernels.
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

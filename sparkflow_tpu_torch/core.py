@@ -1,0 +1,250 @@
+"""Train and predict steps: the compute core — the port of the JAX package's
+``core.py`` for one device.
+
+- :func:`make_loss_fn` — masked mean of the model's per-example loss;
+- :func:`make_train_step` — one optimizer step: the loss's gradient with
+  respect to the parameter tree (``torch.autograd.grad``), the optimizer
+  update, and the update added to the parameters in place;
+- :func:`make_epoch_fn` — one epoch of steps in the reference's three
+  batching modes (``sweep``, ``stochastic``, ``full``);
+- :func:`make_predict_fn` / :func:`predict_in_chunks` — fixed-size chunked
+  inference.
+
+Batches keep a fixed size: the dataset is padded to whole batches and a
+0/1 row mask weights the loss, so padded rows add zero loss and zero
+gradient, as in the JAX package. PyTorch runs eagerly, so there is no
+compiled epoch program, no mesh and no fused multi-epoch path here: an
+epoch is a Python loop of steps. Shuffles and batch draws come from a CPU
+``torch.Generator`` (the same indices on any device), dropout from a
+generator on the model's device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .optimizers import GradientTransformation, apply_updates, tree_leaves
+
+
+def _masked_mean(loss_vec: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return (loss_vec * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _rows(x) -> int:
+    """Row count of a features value (one tensor or a tuple of tensors)."""
+    return (x[0] if isinstance(x, (tuple, list)) else x).shape[0]
+
+
+def make_feeds_builder(input_name, label_name: Optional[str]) -> Callable:
+    """``(x, y) -> feeds dict``: strips ``:0`` suffixes, zips multi-input
+    tuples, omits the label when unsupervised."""
+    multi = isinstance(input_name, (list, tuple))
+    in_keys = ([n.split(":")[0] for n in input_name] if multi
+               else [input_name.split(":")[0]])
+    lbl_key = label_name.split(":")[0] if label_name else None
+
+    def build_feeds(x, y):
+        feeds = dict(zip(in_keys, tuple(x) if multi else (x,)))
+        if lbl_key is not None:
+            feeds[lbl_key] = y
+        return feeds
+
+    return build_feeds
+
+
+def make_loss_fn(model, input_name, label_name: Optional[str]) -> Callable:
+    """``loss_fn(params, x, y, mask, generator) -> scalar``: the masked mean
+    of ``model.loss_vector`` in training mode. ``label_name=None`` is the
+    unsupervised path (the LM's labels are its own shifted inputs)."""
+    build_feeds = make_feeds_builder(input_name, label_name)
+
+    def loss_fn(params, x, y, mask, generator=None):
+        lv = model.loss_vector(params, build_feeds(x, y), train=True,
+                               generator=generator)
+        return _masked_mean(lv, mask)
+
+    return loss_fn
+
+
+def make_train_step(loss_fn: Callable,
+                    optimizer: GradientTransformation) -> Callable:
+    """``step(params, opt_state, x, y, mask, generator) -> (params,
+    opt_state, loss)``. The parameter leaves must require a gradient; they
+    are updated in place (the returned tree is the same tensors), the
+    returned loss is a detached device scalar (no host sync)."""
+
+    def step(params, opt_state, x, y, mask, generator=None):
+        leaves = tree_leaves(params)
+        loss = loss_fn(params, x, y, mask, generator)
+        grads = torch.autograd.grad(loss, leaves)
+        it = iter(grads)
+        grad_tree = _unflatten(params, it)
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grad_tree, opt_state, params)
+            apply_updates(params, updates)
+        return params, opt_state, loss.detach()
+
+    return step
+
+
+def _unflatten(like, it):
+    if isinstance(like, dict):
+        return {k: _unflatten(v, it) for k, v in like.items()}
+    return next(it)
+
+
+def _take(data, idx):
+    if isinstance(data, (tuple, list)):
+        return tuple(a.index_select(0, idx) for a in data)
+    return data.index_select(0, idx)
+
+
+def _epoch_indices(mode: str, shuffle: bool, n_rows: int, batch_size: int,
+                   num_batches: int, n_real: int,
+                   generator: torch.Generator) -> Optional[torch.Tensor]:
+    """Row order of one epoch, ``num_batches * batch_size`` long (None: the
+    rows in order). ``stochastic``: each batch drawn without replacement
+    from the ``n_real`` real rows (padding fills a batch only when it
+    exceeds the dataset); ``shuffle``: one permutation of all rows."""
+    if mode == "stochastic":
+        parts = []
+        for _ in range(num_batches):
+            perm = torch.randperm(n_real, generator=generator)
+            if batch_size <= n_real:
+                parts.append(perm[:batch_size])
+            else:
+                parts.append(torch.cat([perm, torch.arange(n_real,
+                                                           batch_size)]))
+        return torch.cat(parts)
+    if shuffle:
+        return torch.randperm(n_rows, generator=generator)
+    return None
+
+
+def make_epoch_fn(loss_fn: Callable, optimizer: GradientTransformation,
+                  batch_size: int, num_batches: int, mode: str,
+                  shuffle: bool, n_real: Optional[int] = None) -> Callable:
+    """One epoch: ``epoch(params, opt_state, data, labels, mask,
+    shuffle_gen, dropout_gen) -> (params, opt_state, losses [num_batches])``.
+
+    ``mode``: ``sweep`` (sequential slices), ``stochastic`` (``num_batches``
+    batches, each sampled without replacement), ``full`` (one batch of the
+    whole padded set). ``data`` is one tensor (or a tuple for multi-input
+    models) of ``[num_batches * batch_size, ...]`` padded rows on the
+    model's device; ``shuffle_gen`` is a CPU generator."""
+    step = make_train_step(loss_fn, optimizer)
+
+    def epoch(params, opt_state, data, labels, mask, shuffle_gen,
+              dropout_gen=None):
+        nr = n_real if n_real is not None else _rows(data)
+        idx = _epoch_indices(mode, shuffle, _rows(data), batch_size,
+                             num_batches, nr, shuffle_gen)
+        if idx is not None:
+            idx = idx.to(mask.device)
+            data, labels, mask = (_take(data, idx), labels.index_select(0, idx),
+                                  mask.index_select(0, idx))
+        losses = []
+        for i in range(num_batches):
+            sl = slice(i * batch_size, (i + 1) * batch_size)
+            x = (tuple(a[sl] for a in data)
+                 if isinstance(data, (tuple, list)) else data[sl])
+            params, opt_state, loss = step(params, opt_state, x, labels[sl],
+                                           mask[sl], dropout_gen)
+            losses.append(loss)
+        return params, opt_state, torch.stack(losses)
+
+    return epoch
+
+
+def pad_to_batches(x: np.ndarray, batch_size: int,
+                   num_batches: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad rows so len == num_batches*batch_size; return (padded, mask)."""
+    n = x.shape[0]
+    if num_batches is None:
+        num_batches = max(1, -(-n // batch_size))
+    total = num_batches * batch_size
+    mask = np.zeros((total,), np.float32)
+    mask[:n] = 1.0
+    if total == n:
+        return x, mask
+    pad = np.zeros((total - n,) + x.shape[1:], x.dtype)
+    return np.concatenate([x, pad], axis=0), mask
+
+
+def make_predict_fn(model, input_name, output_name: str,
+                    dropout_name: Optional[str] = None,
+                    dropout_value: float = 1.0) -> Callable:
+    """``predict(params, x) -> out`` (a tensor on the model's device), in
+    inference mode; ``input_name`` may be a sequence of names, ``x`` then a
+    tuple. ``dropout_name`` feeds the graph-DSL keep-probability
+    placeholder, as in the JAX package."""
+    multi = isinstance(input_name, (list, tuple))
+    in_keys = ([n.split(":")[0] for n in input_name] if multi
+               else [input_name.split(":")[0]])
+    drop_key = dropout_name.split(":")[0] if dropout_name else None
+
+    def predict(params, x):
+        xs = tuple(x) if multi else (x,)
+        feeds = {k: torch.as_tensor(a, device=model.device)
+                 for k, a in zip(in_keys, xs)}
+        if drop_key is not None:
+            feeds[drop_key] = torch.tensor(dropout_value,
+                                           dtype=torch.float32)
+        with torch.inference_mode():
+            return model.apply(params, feeds, [output_name],
+                               train=False)[output_name]
+
+    return predict
+
+
+def _to_numpy(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        return x.detach().float().cpu().numpy() if x.is_floating_point() \
+            else x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def predict_in_chunks(predict_fn: Callable, params, x,
+                      chunk_size: int = 4096) -> np.ndarray:
+    """Run fixed-size chunks over arbitrary-length input (pad and trim the
+    tail); ``x`` is one array or a tuple of arrays. Returns numpy."""
+    multi = isinstance(x, (list, tuple))
+    if multi:
+        xs = tuple(np.asarray(a) for a in x)
+        n = xs[0].shape[0]
+        zeros = lambda m: tuple(np.zeros((m,) + a.shape[1:], a.dtype)  # noqa: E731
+                                for a in xs)
+        sl = lambda i, j: tuple(a[i:j] for a in xs)  # noqa: E731
+        cat = lambda parts, pad: tuple(  # noqa: E731
+            np.concatenate([p, z], axis=0) for p, z in zip(parts, pad))
+    else:
+        xs = np.asarray(x)
+        n = xs.shape[0]
+        zeros = lambda m: np.zeros((m,) + xs.shape[1:], xs.dtype)  # noqa: E731
+        sl = lambda i, j: xs[i:j]  # noqa: E731
+        cat = lambda part, pad: np.concatenate([part, pad], axis=0)  # noqa: E731
+    if n == 0:
+        return _to_numpy(predict_fn(params, zeros(1)))[:0]
+    chunk = min(chunk_size, max(1, 1 << (n - 1).bit_length()))
+    outs: List[np.ndarray] = []
+    i = 0
+    while i < n:
+        part = sl(i, i + chunk)
+        have = (part[0] if multi else part).shape[0]
+        if have < chunk:
+            out = _to_numpy(predict_fn(params, cat(part, zeros(chunk - have))))
+            out = out[:have]
+        else:
+            out = _to_numpy(predict_fn(params, part))
+        outs.append(out)
+        i += chunk
+    return np.concatenate(outs, axis=0)
+
+
+__all__: Sequence[str] = (
+    "make_feeds_builder", "make_loss_fn", "make_train_step", "make_epoch_fn",
+    "pad_to_batches", "make_predict_fn", "predict_in_chunks")

@@ -2,11 +2,16 @@
 
 The port of the JAX package's ``models/base.py``. A registry model keeps
 the JAX surface — ``param_specs()`` (ordered, for the flat weight-list wire
-format), ``init``, ``apply(params, feeds, outputs)`` and functional methods
-that take a ``params`` tree as their first argument, so the serving engine
-can hot-swap weights — and is an ``nn.Module`` whose registered parameters
-are the tree ``init``/``load_params`` last installed, under the JAX names
-(``block_0.qkv_kernel``, ``embed.tok``, ...).
+format), ``init``, ``apply(params, feeds, outputs, train, generator)``,
+``loss_vector`` and functional methods that take a ``params`` tree as their
+first argument, so the serving engine can hot-swap weights and the trainer
+can differentiate with respect to the tree — and is an ``nn.Module`` whose
+registered parameters are the tree ``init``/``load_params`` last installed,
+under the JAX names (``block_0.qkv_kernel``, ``embed.tok``, ...).
+
+Randomness (dropout) comes from an explicit ``torch.Generator`` on the
+model's device where the JAX package threads a ``jax.random`` key; the two
+streams differ, so parity tests train with dropout 0.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import as_dtype, resolve_device
@@ -54,11 +60,14 @@ class RegistryModel(nn.Module):
             tree[lname] = layer
         return self.load_params(tree)
 
-    def load_params(self, tree: Params) -> Params:
-        """Install ``tree`` as this module's parameters (frozen: this package
-        only serves) and make it the default for ``params=None`` calls."""
+    def load_params(self, tree: Params, trainable: bool = False) -> Params:
+        """Install ``tree`` as this module's parameters and make it the
+        default for ``params=None`` calls. Frozen for serving; with
+        ``trainable`` every leaf requires a gradient (the trainer's tree,
+        which its optimizer then updates in place). The parameters share
+        storage with ``tree``'s tensors."""
         for lname, layer in tree.items():
-            pd = nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+            pd = nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                                    for k, v in layer.items()})
             setattr(self, lname, pd)
         self._tree = {ln: {k: getattr(self, ln)[k] for k in layer}
@@ -73,11 +82,26 @@ class RegistryModel(nn.Module):
 
     # -- GraphModel-compatible surface ---------------------------------------
 
+    def resolve(self, tensor_name: str) -> int:
+        """Index of ``tensor_name`` (``:0`` suffix optional) in ``TENSORS``;
+        KeyError naming the known tensors otherwise — the JAX package's
+        ``graphdef.resolve`` check for registry models."""
+        name = tensor_name.split(":")[0]
+        if name not in self.TENSORS:
+            raise KeyError(f"tensor {tensor_name!r} not found; known tensors: "
+                           f"{', '.join(sorted(self.TENSORS))}")
+        return list(self.TENSORS).index(name)
+
     def apply(self, params: Optional[Params], feeds: Dict[str, Any],
-              outputs: Sequence[str], **kw) -> Dict[str, Any]:
+              outputs: Sequence[str], train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              **kw) -> Dict[str, Any]:
+        """Named outputs of the forward. ``train`` turns dropout on, drawn
+        from ``generator`` (a ``torch.Generator`` on the model's device)."""
         params = self.params() if params is None else params
         feeds = {k.split(":")[0]: v for k, v in feeds.items()}
-        vals = self._forward(params, feeds, **kw)
+        vals = self._forward(params, feeds, train=train, generator=generator,
+                             **kw)
         out = {}
         for o in outputs:
             key = o.split(":")[0]
@@ -85,6 +109,17 @@ class RegistryModel(nn.Module):
                 raise KeyError(f"tensor {o!r} not produced; have {sorted(vals)}")
             out[o] = vals[key]
         return out
+
+    def loss_vector(self, params: Optional[Params], feeds: Dict[str, Any],
+                    train: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    **kw) -> torch.Tensor:
+        """Per-example loss [B] float32 (the subclass's ``_loss``); ``kw``
+        goes to the forward (``attention=`` overrides the kernel)."""
+        params = self.params() if params is None else params
+        feeds = {k.split(":")[0]: v for k, v in feeds.items()}
+        return self._loss(params, feeds, train=train, generator=generator,
+                          **kw)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self._forward(self.params(), {"input_ids": input_ids})["logits"]
@@ -95,6 +130,19 @@ class RegistryModel(nn.Module):
         if self.compute_dtype is not None and x.is_floating_point():
             return x.to(self.compute_dtype)
         return x
+
+
+def softmax_xent(logits: torch.Tensor, y) -> torch.Tensor:
+    """Per-example softmax cross entropy [N] accepting one-hot labels
+    [N, C] or class-index labels ([N] / [N, 1], what the estimator's scalar
+    label column gives) — the JAX package's ``softmax_xent``."""
+    y = torch.as_tensor(y, device=logits.device)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    c = logits.shape[-1]
+    if y.dim() == logits.dim() and y.shape[-1] == c:
+        return -(y.float() * logp).sum(-1)
+    idx = y.reshape(y.shape[0]).long()
+    return -logp.gather(-1, idx[:, None])[:, 0]
 
 
 def _initialize(name: str, shape, generator: torch.Generator) -> torch.Tensor:

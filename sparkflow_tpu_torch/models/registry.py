@@ -17,7 +17,7 @@ _REGISTRY: Dict[str, Callable] = {}
 
 # registry families of the JAX package that this package does not have yet
 _NOT_YET_PORTED = ("resnet", "resnet50", "rnn_classifier", "rnn_lm",
-                   "transformer_classifier", "transformer_moe_lm")
+                   "transformer_moe_lm")
 
 
 def register_model(name: str):

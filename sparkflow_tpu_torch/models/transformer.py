@@ -1,36 +1,43 @@
-"""Causal transformer LM — the port of the JAX package's
-``models/transformer.py`` ``TransformerLM``.
+"""Transformer models — the port of the JAX package's
+``models/transformer.py``: ``TransformerLM`` (causal decoder) and
+``TransformerClassifier`` (encoder + mean-pool head).
 
 Same architecture, parameter names and layouts (``qkv_kernel [h, 3h]``,
 ``o_kernel [h, h]``, ...), so weights carry across without transposes
-(:mod:`sparkflow_tpu_torch.convert`). Numerics follow the JAX model:
+(:mod:`sparkflow_tpu_torch.convert`). Numerics follow the JAX models:
 
 - layer norm computes in float32 with eps 1e-6 (not ``nn.LayerNorm``'s 1e-5);
 - a dense layer casts its kernel to the activation's dtype (bf16 on the card
   with ``compute_dtype=bfloat16``), parameters themselves stay float32;
 - GELU is the tanh approximation (``jax.nn.gelu``'s default);
-- the tied-embedding head runs in float32;
-- positions are clipped to ``max_len - 1``.
+- the tied-embedding head and the classifier head run in float32;
+- positions are clipped to ``max_len - 1``;
+- training applies dropout after the O projection and after fc2,
+  ``where(keep, x / keep_prob, 0)``, drawn from an explicit
+  ``torch.Generator`` on the model's device.
 
-Prefill attention is :func:`~sparkflow_tpu_torch.ops.flash_attention` (the
-CUDA kernel on the card); decode attention is delegated to an ``attend``
-callback — the dense cache below for parity, the serving engine's paged
-pool over :func:`~sparkflow_tpu_torch.ops.paged_attention` in production.
-
-Training (dropout, remat) and model parallelism (``tp_axis``, ``ep_axis``,
-``sp_axis``) and quantized KV (``kv_dtype``) are not yet ported and raise.
+Full-sequence attention is :func:`~sparkflow_tpu_torch.ops.flash_attention`
+(the CUDA kernels on the card, forward and backward); decode attention is
+delegated to an ``attend`` callback — the dense cache below for parity, the
+serving engine's paged pool over
+:func:`~sparkflow_tpu_torch.ops.paged_attention` in production.
+``remat=True`` / ``"full"`` recomputes each block in the backward
+(``torch.utils.checkpoint``). ``remat="dots"``, model parallelism
+(``tp_axis``, ``ep_axis``, ``sp_axis``) and quantized KV (``kv_dtype``) are
+not yet ported and raise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention
-from .base import Params, RegistryModel
+from .base import Params, RegistryModel, softmax_xent
 from .registry import register_model
 
 NEG_INF = -1e30
@@ -59,11 +66,8 @@ def _not_yet(what: str):
     raise ValueError(f"{what} is not yet ported to PyTorch (see ROADMAP.md)")
 
 
-@register_model("transformer_lm")
-class TransformerLM(RegistryModel):
-    """Causal decoder LM (next-token prediction)."""
-
-    TENSORS = ("input_ids", "attention_mask", "logits", "pred")
+class _TransformerBase(RegistryModel):
+    """Embedding, blocks and specs shared by the LM and the classifier."""
 
     def __init__(self, vocab_size: int, hidden: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
@@ -71,8 +75,11 @@ class TransformerLM(RegistryModel):
                  dropout: float = 0.1, remat=False,
                  sp_axis: Optional[str] = None, compute_dtype=None,
                  device=None):
-        if remat:
-            _not_yet("remat")
+        if remat not in (False, True, "full", "dots"):
+            raise ValueError(
+                f"remat must be False, True/'full', or 'dots'; got {remat!r}")
+        if remat == "dots":
+            _not_yet("remat='dots' (saving the matmul outputs)")
         if sp_axis is not None:
             _not_yet("sequence parallelism (sp_axis)")
         super().__init__(compute_dtype, device)
@@ -84,6 +91,7 @@ class TransformerLM(RegistryModel):
         self.mlp_dim = int(mlp_dim)
         self.max_len = int(max_len)
         self.dropout = float(dropout)  # training only; serving ignores it
+        self.remat = remat
 
     # -- specs ---------------------------------------------------------------
 
@@ -119,6 +127,13 @@ class TransformerLM(RegistryModel):
         if ep_axis is not None:
             _not_yet("expert parallelism (ep_axis)")
 
+    def _dropout(self, x, train: bool, generator: Optional[torch.Generator]):
+        if not train or self.dropout <= 0.0:
+            return x
+        keep = 1.0 - self.dropout
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
     def _qkv(self, bp, x):
         """ln1 + qkv projection of ``x`` [B,S,hidden] -> q, k, v views
         [B,heads,S,d] of ONE [3,B,heads,S,d] permutation (no copies)."""
@@ -129,21 +144,26 @@ class TransformerLM(RegistryModel):
         qkv = qkv.permute(2, 0, 3, 1, 4)
         return qkv[0], qkv[1], qkv[2]
 
-    def _finish_block(self, bp, x, att):
-        """O-projection + residual + MLP on ``att`` [B,S,heads*d]."""
-        x = x + _dense(att, bp["o_kernel"], bp["o_bias"])
+    def _finish_block(self, bp, x, att, train: bool = False,
+                      generator: Optional[torch.Generator] = None):
+        """O-projection + residual + MLP on ``att`` [B,S,heads*d], with
+        dropout after the O projection and after fc2 when training."""
+        x = x + self._dropout(_dense(att, bp["o_kernel"], bp["o_bias"]),
+                              train, generator)
         y = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
         y = _gelu(_dense(y, bp["fc1_kernel"], bp["fc1_bias"]))
-        return x + _dense(y, bp["fc2_kernel"], bp["fc2_bias"])
+        return x + self._dropout(_dense(y, bp["fc2_kernel"], bp["fc2_bias"]),
+                                 train, generator)
 
-    def _block(self, bp, x, mask, causal, attention=None):
+    def _block(self, bp, x, mask, causal, attention=None, train: bool = False,
+               generator: Optional[torch.Generator] = None):
         """Full-sequence block: ``(x, k, v)`` with k/v [B,heads,S,d]."""
         b, s, _ = x.shape
         q, k, v = self._qkv(bp, x)
         attend = flash_attention if attention is None else attention
         att = attend(q, k, v, causal=causal, kv_mask=mask)
         att = att.transpose(1, 2).reshape(b, s, -1)
-        return self._finish_block(bp, x, att), k, v
+        return self._finish_block(bp, x, att, train, generator), k, v
 
     def _block_decode(self, bp, x, layer, cache, pos, attend):
         """One block on a single token ``x`` [B,1,hidden]; attention over
@@ -166,6 +186,106 @@ class TransformerLM(RegistryModel):
         att = att.transpose(1, 2).reshape(b, s, -1)
         return self._finish_block(bp, x, att), cache
 
+    def _remat_block(self, bp, x, mask, causal, attention, train, generator):
+        """One block under ``torch.utils.checkpoint``: its activations are
+        recomputed in the backward. Dropout must draw the same masks twice,
+        so the block draws from a generator rebuilt from ``generator``'s
+        state before the block, and ``generator`` then moves past the
+        block's draws as if it had drawn them itself."""
+        state = (generator.get_state() if train and self.dropout > 0.0
+                 and generator is not None else None)
+        after = {}
+
+        def run(x):
+            g = None
+            if state is not None:
+                g = torch.Generator(device=x.device)
+                g.set_state(state)
+            y = self._block(bp, x, mask, causal, attention, train, g)[0]
+            if g is not None:
+                after["state"] = g.get_state()
+            return y
+
+        x = checkpoint(run, x, use_reentrant=False)
+        if state is not None:
+            generator.set_state(after["state"])
+        return x
+
+    def _encode(self, params: Params, feeds, causal: bool,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                attention: Optional[Callable] = None):
+        """Embeddings and every block over ``feeds["input_ids"]`` [B,S],
+        then the final layer norm: ``(x [B,S,hidden], mask)``; the optional
+        ``attention_mask`` [B,S] is the key-padding mask of every block."""
+        ids = torch.as_tensor(feeds["input_ids"], device=self.device).long()
+        mask = feeds.get("attention_mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        x = self.prefill_embed(params, ids)
+        remat = self.remat and torch.is_grad_enabled()
+        for i in range(self.num_layers):
+            bp = params[f"block_{i}"]
+            if remat:
+                x = self._remat_block(bp, x, mask, causal, attention, train,
+                                      generator)
+            else:
+                x = self._block(bp, x, mask, causal, attention, train,
+                                generator)[0]
+        return _layer_norm(x, params["final_ln"]["scale"],
+                           params["final_ln"]["bias"]), mask
+
+    def prefill_embed(self, params, ids):
+        emb = params["embed"]
+        s = ids.shape[1]
+        return self.cast(emb["tok"][ids.long()] + emb["pos"][:s][None])
+
+
+@register_model("transformer_classifier")
+class TransformerClassifier(_TransformerBase):
+    """BERT-class encoder + mean-pool classification head (non-causal,
+    key-padding mask honoured, softmax cross-entropy loss)."""
+
+    TENSORS = ("input_ids", "attention_mask", "y", "logits", "probs", "pred")
+
+    def __init__(self, vocab_size: int, num_classes: int, **kw):
+        super().__init__(vocab_size, **kw)
+        self.num_classes = int(num_classes)
+
+    def param_specs(self):
+        specs = super().param_specs()
+        specs["head"] = {"kernel": ((self.hidden, self.num_classes),
+                                    "normal(0.02)"),
+                         "bias": ((self.num_classes,), "zeros")}
+        return specs
+
+    def _forward(self, params: Params, feeds, train: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 attention: Optional[Callable] = None):
+        x, mask = self._encode(params, feeds, False, train, generator,
+                               attention)
+        if mask is not None:
+            w = mask[:, :, None].to(x.dtype)
+            pooled = (x * w).sum(1) / w.sum(1).clamp_min(1e-6)
+        else:
+            pooled = x.mean(1)
+        logits = _dense(pooled.float(), params["head"]["kernel"],
+                        params["head"]["bias"])
+        return {"logits": logits, "probs": torch.softmax(logits, -1),
+                "pred": logits.argmax(-1).float()}
+
+    def _loss(self, params: Params, feeds, train: bool = True,
+              generator: Optional[torch.Generator] = None, **kw):
+        logits = self._forward(params, feeds, train, generator, **kw)["logits"]
+        return softmax_xent(logits, feeds["y"])
+
+
+@register_model("transformer_lm")
+class TransformerLM(_TransformerBase):
+    """Causal decoder LM (next-token prediction)."""
+
+    TENSORS = ("input_ids", "attention_mask", "logits", "pred")
+
     # -- embed / head ----------------------------------------------------------
 
     def decode_embed(self, params, token, pos):
@@ -182,11 +302,6 @@ class TransformerLM(RegistryModel):
         pos = start.long()[:, None] + torch.arange(s, device=ids.device)
         x = emb["tok"][ids.long()]
         return self.cast(x + emb["pos"][pos.clamp(0, self.max_len - 1)])
-
-    def prefill_embed(self, params, ids):
-        emb = params["embed"]
-        s = ids.shape[1]
-        return self.cast(emb["tok"][ids.long()] + emb["pos"][:s][None])
 
     def head_all(self, params, x):
         """Final LN + tied head at every position -> [B,S,vocab] f32."""
@@ -212,23 +327,32 @@ class TransformerLM(RegistryModel):
 
     # -- whole-model entry points -----------------------------------------------
 
-    def _forward(self, params: Params, feeds, train: bool = False, rng=None,
+    def _forward(self, params: Params, feeds, train: bool = False,
+                 generator: Optional[torch.Generator] = None,
                  attention: Optional[Callable] = None):
         """Causal forward over ``feeds["input_ids"]`` [B,S] -> ``{"logits"
-        [B,S,vocab] f32, "pred"}``. ``attention`` overrides the prefill
-        kernel (``attention_reference`` gives the plain dense forward)."""
-        if train:
-            _not_yet("training (train=True)")
-        ids = torch.as_tensor(feeds["input_ids"], device=self.device)
+        [B,S,vocab] f32, "pred"}``. ``attention`` overrides the kernel
+        (``attention_reference`` gives the plain dense forward)."""
+        x, _ = self._encode(params, feeds, True, train, generator, attention)
+        logits = torch.matmul(x.float(), params["embed"]["tok"].float().t())
+        return {"logits": logits, "pred": logits.argmax(-1).float()}
+
+    def _loss(self, params: Params, feeds, train: bool = True,
+              generator: Optional[torch.Generator] = None, **kw):
+        """Per-sequence mean next-token NLL [B], weighted by
+        ``attention_mask[:, 1:]`` when the feeds carry one."""
+        ids = torch.as_tensor(feeds["input_ids"], device=self.device).long()
+        logits = self._forward(params, feeds, train, generator, **kw)["logits"]
+        b, s, vocab = logits.shape
+        # next-token targets; the last position has none (ignored: NLL 0)
+        tgt = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -100)], 1)
+        nll = F.cross_entropy(logits.reshape(b * s, vocab), tgt.reshape(-1),
+                              reduction="none").view(b, s)[:, :-1]
         mask = feeds.get("attention_mask")
         if mask is not None:
-            mask = torch.as_tensor(mask, device=self.device)
-        x = self.prefill_embed(params, ids)
-        for i in range(self.num_layers):
-            x, _, _ = self._block(params[f"block_{i}"], x, mask, True,
-                                  attention)
-        logits = self.head_all(params, x)
-        return {"logits": logits, "pred": logits.argmax(-1).float()}
+            w = torch.as_tensor(mask, device=self.device)[:, 1:].float()
+            return (nll * w).sum(-1) / w.sum(-1).clamp_min(1e-6)
+        return nll.mean(-1)
 
     def prefill(self, params: Params, ids, mask=None, lengths=None,
                 tp_axis=None, ep_axis=None
@@ -308,4 +432,4 @@ class TransformerLM(RegistryModel):
         return out.to(q.dtype), cache
 
 
-__all__ = ["TransformerLM"]
+__all__ = ["TransformerClassifier", "TransformerLM"]

@@ -1,13 +1,21 @@
-"""Kernels of the PyTorch port: attention for the decode-serving path.
+"""Kernels of the PyTorch port: attention for the decode-serving and
+training paths.
 
 See :mod:`sparkflow_tpu_torch.ops.attention`; the CUDA sources live in
 ``ops/csrc/`` and are built at first use by :mod:`._build`.
 """
 
-from .attention import (attention_reference, flash_attention,
-                        last_attention_path, paged_attention,
-                        paged_attention_reference, reset_launch_counts)
+from .attention import (FlashAttentionFunction, attention_reference,
+                        flash_attention, flash_attention_backward,
+                        flash_attention_backward_reference, flash_bwd_dkv,
+                        flash_bwd_dkv_reference, flash_bwd_dq,
+                        flash_bwd_dq_reference, last_attention_path,
+                        paged_attention, paged_attention_reference,
+                        reset_launch_counts)
 
-__all__ = ["attention_reference", "flash_attention", "last_attention_path",
+__all__ = ["FlashAttentionFunction", "attention_reference", "flash_attention",
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
+           "flash_bwd_dq_reference", "last_attention_path",
            "paged_attention", "paged_attention_reference",
            "reset_launch_counts"]

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("flash_fwd.cu", "paged_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -38,6 +38,14 @@ _SIGNATURES = {
     # causal, stream
     "sf_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
                      _I, _P],
+    # dtype, q, k, v, dout, lse, delta, mask, dq, B, H, S, Sk, D,
+    # strides[15], scale, causal, stream
+    "sf_flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _P, _F, _I, _P],
+    # dtype, q, k, v, dout, lse, delta, mask, dk, dv, B, H, S, Sk, D,
+    # strides[18], scale, causal, stream
+    "sf_flash_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _P, _F, _I, _P],
     # dtype, q, qsb, qsh, k_pages, v_pages, table, maxp, lengths, out, B, H,
     # D, page, scale, stream
     "sf_paged_attention": [_I, _P, _LL, _LL, _P, _P, _P, _I, _P, _P, _I, _I,

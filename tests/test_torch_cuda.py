@@ -1,6 +1,7 @@
 """PyTorch port on the CUDA card: each kernel against its plain PyTorch
-version at the shapes of the decode-serving path, and the engine through
-the kernels. Marked ``cuda``; every test skips where there is no card.
+version at the shapes of the decode-serving and training paths, and the
+engine and the trainer through the kernels. Marked ``cuda``; every test
+skips where there is no card.
 
 This file imports no JAX, so it runs on a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -12,7 +13,9 @@ plain version rounds P to bfloat16 before P V, as the JAX reference does,
 the kernel keeps P in float32; a few bfloat16 ulps at |O| ~ 1); bfloat16
 paged outputs 8e-3 (both sides compute in float32 from the same bfloat16
 rows and round once: up to two ulps); logsumexp 1e-3 in bfloat16 inputs,
-1e-4 in float32.
+1e-4 in float32; backward kernels 1e-4 (float32) and 2e-2 (bfloat16) of
+the largest |gradient| (both sides compute in float32 from the same inputs
+and round the result once; the summation order differs).
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ pytestmark = pytest.mark.cuda
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max |reference|
 
 
 @pytest.fixture(scope="module")
@@ -71,6 +75,76 @@ def test_flash_kernel_matches_plain_masked(dev, dtype):
     ref = attention_reference(q, k, v, kv_mask=mask)
     torch.cuda.synchronize()
     assert _max_err(out, ref) < FLASH_TOL[dtype]
+
+
+def _bwd_case(dev, dtype, b, s, causal, mask_rows=(), seed=0):
+    """Inputs of the backward kernels: q, k, v, the forward's O and
+    logsumexp (through the forward kernel), a non-uniform cotangent and the
+    key mask (``mask_rows``: per batch row, the first padded key)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, 12, s, 64, generator=g, device=dev)
+                     .to(dtype) for _ in range(4))
+    mask = None
+    if mask_rows:
+        mask = torch.ones(b, s, device=dev)
+        for i, first in enumerate(mask_rows):
+            mask[i, first:] = 0
+    out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                               return_lse=True)
+    return q, k, v, out, lse, dout, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    dict(b=2, s=128, causal=True),
+    dict(b=1, s=700, causal=True),               # ragged edges of S and Sk
+    dict(b=2, s=1024, causal=True),
+    dict(b=3, s=256, causal=False, mask_rows=(200, 77, 0)),  # row 2 all pad
+], ids=["s128", "s700", "s1024", "masked"])
+def test_flash_bwd_kernels_match_plain(dev, dtype, case):
+    from sparkflow_tpu_torch.ops import (flash_attention_backward,
+                                         flash_attention_backward_reference,
+                                         flash_bwd_dkv, flash_bwd_dq)
+    q, k, v, out, lse, dout, mask = _bwd_case(dev, dtype, **case)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_attention_backward(q, k, v, out, lse, dout, case["causal"],
+                                   kv_mask=mask)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                              case["causal"], kv_mask=mask)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        scale = float(b.float().abs().max())
+        assert _max_err(a, b) <= BWD_TOL[dtype] * scale, name
+    if case.get("mask_rows"):
+        # all keys of batch row 2 are padding: zero gradient, as in JAX
+        assert torch.all(got[0][2] == 0) and torch.all(got[1][2] == 0)
+
+
+def test_flash_attention_autograd_goes_through_the_kernels(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(2, 96, 3, 4, 32, generator=g, device=dev,
+                      requires_grad=True)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)          # strided views, as the model
+    counts = (flash_attention.launches, *_bwd_launches())
+    out = flash_attention(q, k, v, causal=True)
+    out.transpose(1, 2).square().sum().backward()
+    assert (flash_attention.launches, *_bwd_launches()) == tuple(
+        c + 1 for c in counts)
+    ref_qkv = qkv.detach().clone().requires_grad_(True)
+    rq, rk, rv = ref_qkv.permute(2, 0, 3, 1, 4)
+    attention_reference(rq, rk, rv, causal=True).transpose(
+        1, 2).square().sum().backward()
+    assert _max_err(qkv.grad, ref_qkv.grad) <= 1e-4 * float(
+        ref_qkv.grad.abs().max())
+
+
+def _bwd_launches():
+    from sparkflow_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq
+    return flash_bwd_dq.launches, flash_bwd_dkv.launches
 
 
 def _paged_inputs(dev, dtype, seed=0):
@@ -145,3 +219,57 @@ def test_engine_on_card_matches_plain_forward(dev):
                                 attention=plain)["logits"]
             ids.append(int(lg[0, -1].argmax()))
     assert toks == ids[len(prompt):]
+
+
+def _tiny_lm_spec(**kw):
+    from sparkflow_tpu_torch.models import build_registry_spec
+    cfg = dict(vocab_size=97, hidden=64, num_layers=2, num_heads=4,
+               mlp_dim=128, max_len=64, dropout=0.0)
+    cfg.update(kw)
+    return build_registry_spec("transformer_lm", **cfg)
+
+
+def test_trainer_step_on_card_goes_through_the_kernels(dev):
+    """One SGD step of the Trainer on the card launches each attention
+    kernel once per layer and lands where the same step on the CPU (the
+    plain versions) lands."""
+    from sparkflow_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq
+    from sparkflow_tpu_torch.trainer import Trainer
+    spec = _tiny_lm_spec()
+    toks = np.random.default_rng(0).integers(0, 97, (8, 64)).astype(
+        np.float32)
+    kw = dict(optimizer="gradient_descent", learning_rate=0.1, iters=1,
+              mini_batch_size=8, seed=0)
+    cpu = Trainer(spec, "input_ids", None, device="cpu", **kw)
+    want = cpu.fit(toks)
+    counts = (flash_attention.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    card = Trainer(spec, "input_ids", None, **kw)
+    got = card.fit(toks)         # the same seed draws the same weights (CPU)
+    assert (flash_attention.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(c + 2 for c in counts)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5)
+    for a, b in zip(card.weights_list(), cpu.weights_list()):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
+def test_remat_on_card_recomputes_the_forward_kernel(dev):
+    """remat=True: the backward reruns each block's forward, so flash_fwd
+    launches twice per layer; dropout draws repeat and the fit equals the
+    one without remat."""
+    from sparkflow_tpu_torch.trainer import Trainer
+    toks = np.random.default_rng(1).integers(0, 97, (8, 64)).astype(
+        np.float32)
+    fits = []
+    for remat in (False, True):
+        before = flash_attention.launches
+        tr = Trainer(_tiny_lm_spec(dropout=0.1, remat=remat), "input_ids",
+                     None, optimizer="adam", learning_rate=1e-3, iters=1,
+                     mini_batch_size=8, seed=3)
+        res = tr.fit(toks)
+        fits.append((flash_attention.launches - before, res.losses,
+                     tr.weights_list()))
+    assert fits[0][0] == 2 and fits[1][0] == 4
+    assert fits[0][1] == fits[1][1]
+    for a, b in zip(fits[0][2], fits[1][2]):
+        np.testing.assert_array_equal(a, b)

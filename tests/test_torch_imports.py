@@ -17,7 +17,9 @@ SUBPACKAGES = ["sparkflow_tpu_torch", "sparkflow_tpu_torch.device",
                "sparkflow_tpu_torch.ops", "sparkflow_tpu_torch.ops._build",
                "sparkflow_tpu_torch.serving", "sparkflow_tpu_torch.obs",
                "sparkflow_tpu_torch.resilience",
-               "sparkflow_tpu_torch.utils.metrics"]
+               "sparkflow_tpu_torch.utils.metrics",
+               "sparkflow_tpu_torch.optimizers", "sparkflow_tpu_torch.core",
+               "sparkflow_tpu_torch.trainer"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():

@@ -211,7 +211,7 @@ def test_registry_spec_is_byte_identical_to_jax():
     assert m.compute_dtype == torch.bfloat16 and m.head_dim == 8
 
 
-@pytest.mark.parametrize("family", ["transformer_classifier", "resnet50",
+@pytest.mark.parametrize("family", ["rnn_classifier", "resnet50",
                                     "rnn_lm", "transformer_moe_lm"])
 def test_unported_families_raise(family):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -222,7 +222,7 @@ def test_unported_families_raise(family):
         model_from_json(spec, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"remat": True}, {"sp_axis": "sp"}])
+@pytest.mark.parametrize("kw", [{"remat": "dots"}, {"sp_axis": "sp"}])
 def test_unported_model_options_raise(kw):
     spec = build_registry_spec("transformer_lm", **dict(CFG, **kw))
     with pytest.raises(ValueError, match="not yet ported"):
@@ -236,8 +236,8 @@ def test_unported_call_options_raise(pair):
         tm.prefill(tp, ids, tp_axis="tp")
     with pytest.raises(ValueError, match="kv_dtype"):
         tm.init_decode_cache(1, kv_dtype="int8")
-    with pytest.raises(ValueError, match="train"):
-        tm._forward(tp, {"input_ids": ids}, train=True)
+    with pytest.raises(ValueError, match="ep_axis"):
+        tm.prefill(tp, ids, ep_axis="ep")
 
 
 def test_constructor_without_device_needs_a_card():
