@@ -43,8 +43,26 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    ``torch.profiler``;
 8. training exactness: float32, TF32 off, full width cut to 2 layers — one
    step's loss and gradients through the kernels equal those through the
-   plain attention, and 3 adam steps' losses agree within 1e-4 relative.
+   plain attention, and 3 adam steps' losses agree within 1e-4 relative;
+9. the quantized and verify kernels against their plain versions at the
+   decode step's shapes (verify: S = spec_k + 1 = 5 queries per slot,
+   ragged starts incl. 0): ``paged_attention`` over int8 and fp8 pools with
+   a page-head of scale 0 and a page rescaled mid-fill, and
+   ``paged_attention_verify`` over the bf16/f32 pool and both quantized
+   ones, bf16 and f32 queries, timed as in phase 2;
+10. speculative serving: the GPT-2-small-width engine with ``spec_k=4``
+    (self-speculation through 6 of 12 layers) serves one burst as in
+    phase 3 with (a) the bf16 pool and (b) ``kv_quant="int8"``; the
+    counters are zeroed before each burst and read after: every step is
+    speculative, the verify kernel launches 12 times and the draft's paged
+    kernel 4 x 6 times a step, and the other pool layout's kernels never;
+    then 5 spec steps with 8 live slots under ``torch.profiler``;
+11. speculative exactness: float32, TF32 off, 12 layers — greedy tokens with
+    ``spec_k=4`` (self-draft, and an external 6-layer draft) equal the
+    spec-off engine's; with an int8 pool the card's tokens equal the same
+    engine's on the CPU; ``kv_quant_error`` of int8 below 0.05.
 
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8.
 The line before the last gives the card's name and power limit; the last
 line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``. Exits nonzero, printing no result, where there is no CUDA card.
@@ -70,6 +88,7 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # backward kernels: |kernel - plain| <= tol x max |plain|, per gradient
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_STEPS = 8
+SPEC_K = 4
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 
@@ -213,7 +232,6 @@ def max_err(a, b) -> float:
 def phase_kernels(card):
     import torch
     import torch.nn.functional as F
-    import numpy as np
     from sparkflow_tpu_torch.ops import (attention_reference, flash_attention,
                                          paged_attention,
                                          paged_attention_reference)
@@ -276,18 +294,9 @@ def phase_kernels(card):
             f"err {e:.3g}")
 
     # -- paged attention: the decode step's shapes --------------------------
-    b, h, d, page, maxp, num_pages = 8, 12, 64, 16, 64, 513
-    lengths = torch.tensor([0, 1, 17, 100, 255, 512, 700, 1024],
-                           dtype=torch.int32, device=dev)
-    rs = np.random.RandomState(0)
-    table = rs.permutation(np.arange(1, num_pages))[:b * maxp].reshape(b, maxp)
-    table[3, :2] = table[2, :2]                   # aliased shared prefix
-    table[0] = 0                                  # empty slot -> scratch page
-    # the pool rows this run's lengths need, each counted once (the aliased
-    # pages of slots 2 and 3 are one set of rows)
-    rows = {(int(table[i, t // page]), t % page)
-            for i, n in enumerate(lengths.tolist()) for t in range(n)}
-    table = torch.as_tensor(table, dtype=torch.int32, device=dev)
+    b, h, d, page, maxp, num_pages = DECODE_SHAPE
+    lengths, table = _decode_operands(dev)
+    rows = _pool_rows(table, lengths, page)
     for dtype in (torch.bfloat16, torch.float32):
         dn = names[dtype]
         g = torch.Generator(device=dev).manual_seed(1)
@@ -343,6 +352,34 @@ def phase_kernels(card):
     main_paged = next(r for r in paged_rows if r["dtype"] == "bfloat16")
     return ({"max_abs_err": flash_err, **_pick(main_flash)},
             {"max_abs_err": paged_err, **_pick(main_paged)})
+
+
+# the decode step's paged operands: B, H, D, page, max pages, pool pages
+DECODE_SHAPE = (8, 12, 64, 16, 64, 513)
+DECODE_LENGTHS = (0, 1, 17, 100, 255, 512, 700, 1024)
+
+
+def _decode_operands(dev):
+    """``(lengths, table)`` of the paged kernels' rows: ragged lengths with
+    an empty slot (its table row on scratch page 0) and slot 3 aliasing
+    slot 2's first two pages (a shared prefix)."""
+    import numpy as np
+    import torch
+    b, _, _, _, maxp, num_pages = DECODE_SHAPE
+    rs = np.random.RandomState(0)
+    table = rs.permutation(np.arange(1, num_pages))[:b * maxp].reshape(b, maxp)
+    table[3, :2] = table[2, :2]                   # aliased shared prefix
+    table[0] = 0                                  # empty slot -> scratch page
+    return (torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev),
+            torch.as_tensor(table, dtype=torch.int32, device=dev))
+
+
+def _pool_rows(table, walked, page):
+    """The (page, row) pool rows a kernel reads when slot i walks its first
+    ``walked[i]`` tokens, each counted once (aliased pages are one set)."""
+    tab = table.tolist()
+    return {(tab[i][t // page], t % page)
+            for i, n in enumerate(walked.tolist()) for t in range(n)}
 
 
 def _pick(row):
@@ -569,6 +606,375 @@ def phase_exactness(card):
                                  f"{ids[n:]}")
     log(f"[exactness] 3 prompts x 8 greedy tokens equal the dense float32 "
         f"forward; max |prefill logit delta| {worst:.3g} [{card}]")
+
+
+def _quant_pools(kp, vp, kind, zero_page, grow_page):
+    """K and V ``(rows, scales)`` of float pools quantized to ``kind``
+    ("int8" / "fp8") as the engine's pool holds them: head 3 of
+    ``zero_page`` all zeros (scale 0, never written), and ``grow_page``
+    rescaled mid-fill — a late row with 3x the page's absmax appended at
+    offset 7 through the running-scale path."""
+    import torch
+    from sparkflow_tpu_torch.utils import quant
+    out = []
+    for pages in (kp, vp):
+        pages = pages.float().clone()
+        pages[zero_page, :, 3] = 0.0
+        rows, scales = quant.quantize_kv_pages(pages, kind)
+        rows, scales = rows[None].contiguous(), scales[None].contiguous()
+        dev = pages.device
+        quant.paged_quant_append(
+            rows, scales, 0, torch.tensor([grow_page], device=dev),
+            torch.tensor([7], device=dev), 3.0 * pages[grow_page, 7:8])
+        if float(scales[0, zero_page, 3]) != 0.0:
+            raise AssertionError("the zeroed page-head has a scale")
+        out.append((rows[0], scales[0]))
+    return out
+
+
+def phase_spec_kernels(card):
+    """Kernels 5-7 against their plain versions at the decode step's shapes
+    (B=8, H=12, D=64, page 16, the paged row's 2609 live tokens; verify
+    S=5): ``paged_attention`` over int8 and fp8 pools, ``paged_attention_
+    verify`` over the plain pool and both quantized ones, bf16 and f32
+    queries; each timed like the paged row (pool cold in L2). Returns the
+    kernels-line rows (bf16 queries; int8 for the quantized kernels)."""
+    import torch
+    from sparkflow_tpu_torch.ops import (paged_attention,
+                                         paged_attention_reference,
+                                         paged_attention_verify,
+                                         paged_attention_verify_reference)
+    dev = torch.device("cuda")
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    b, h, d, page, maxp, num_pages = DECODE_SHAPE
+    lengths, table = _decode_operands(dev)
+    zero_page, grow_page = int(table[5, 0]), int(table[6, 1])
+    S = SPEC_K + 1
+    start = (lengths - S).clamp(min=0).to(torch.int32)
+    walked = start + S                                # verify's tokens per slot
+    rows = {"decode": _pool_rows(table, lengths, page),
+            "verify": _pool_rows(table, walked, page)}
+    pages = {k: len({p for p, _ in r}) for k, r in rows.items()}
+    # (query, key) pairs: every key at or before the query's position
+    pairs = {"decode": int(lengths.sum()),
+             "verify": sum(int(st) * S + S * (S + 1) // 2
+                           for st in start.tolist())}
+    detail, worst = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = names[dtype]
+        g = torch.Generator(device=dev).manual_seed(5)
+        kp = torch.randn(num_pages, page, h, d, generator=g, device=dev)
+        vp = torch.randn(num_pages, page, h, d, generator=g, device=dev)
+        q1 = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+        # the verify query as the model hands it over: a strided view of
+        # one [B, S, 3, H, D] qkv projection
+        qs = torch.randn(b, S, 3, h, d, generator=g, device=dev).to(dtype)
+        qs = qs.permute(2, 0, 3, 1, 4)[0]
+        cases = [("paged_attention_quant", kind, kind) for kind in
+                 ("int8", "fp8")]
+        cases += [("paged_verify", None, dn)]
+        cases += [("paged_verify_quant", kind, kind) for kind in
+                  ("int8", "fp8")]
+        for name, kind, pool_name in cases:
+            verify = name.startswith("paged_verify")
+            if kind is None:
+                pool = (kp.to(dtype), None), (vp.to(dtype), None)
+            else:
+                pool = _quant_pools(kp, vp, kind, zero_page, grow_page)
+            (kq, ks), (vq, vs) = pool
+            sc = {} if kind is None else dict(k_scales=ks, v_scales=vs)
+            kern, ref_fn = ((paged_attention_verify,
+                             paged_attention_verify_reference) if verify
+                            else (paged_attention, paged_attention_reference))
+            q, per_slot = (qs, start) if verify else (q1, lengths)
+
+            def call(kk, vv, sc, kern=kern, q=q, per_slot=per_slot):
+                return kern(q, kk, vv, table, per_slot, **sc)
+
+            def plain(kk, vv, sc, ref_fn=ref_fn, q=q, per_slot=per_slot):
+                return ref_fn(q, kk, vv, table, per_slot, **sc)
+
+            out, ref = call(kq, vq, sc), plain(kq, vq, sc)
+            torch.cuda.synchronize()
+            e = max_err(out, ref)
+            if not (e < PAGED_TOL[dn] and bool(torch.isfinite(
+                    out.float()).all())):
+                raise AssertionError(f"{name} {dn} q, {pool_name} pool: max "
+                                     f"|d| {e} (tol {PAGED_TOL[dn]})")
+            if not verify and not bool(torch.all(out[0] == 0)):
+                raise AssertionError(f"{name} {dn}: the empty slot is not 0")
+            worst[name] = max(worst.get(name, 0.0), e)
+            shape = "verify" if verify else "decode"
+            item = kq.element_size()
+            qbytes = q.numel() * q.element_size()
+            # K and V rows read once (and one float32 scale per page-head
+            # of the pages read), q read and O written, table and
+            # lengths / start
+            nbytes = (2 * len(rows[shape]) * h * d * item
+                      + (2 * pages[shape] * h * 4 if kind else 0)
+                      + 2 * qbytes + table.numel() * 4 + b * 4)
+            flops = 4 * h * d * pairs[shape]
+            # cold in L2 as in a decode step: enough pool copies that more
+            # than the 50 MB L2 of live rows lies between two visits of one
+            copies = 12 * 2 // item if item < 4 else 12
+            pools = [(kq.clone(), vq.clone(), {k: v.clone() for k, v in
+                                               sc.items()})
+                     for _ in range(copies)]
+            row = {"kernel": name, "dtype": dn, "pool": pool_name,
+                   "S": S if verify else 1, "tokens": int(
+                       (walked if verify else lengths).sum()),
+                   "max_abs_err": e,
+                   "ms": time_device([lambda p=p: call(*p) for p in pools]),
+                   "call_ms": time_calls(lambda: call(kq, vq, sc)),
+                   "plain_ms": time_device([lambda p=p: plain(*p)
+                                            for p in pools[:12]]),
+                   "library_ms": None, "bytes": nbytes, "flops": flops}
+            del pools
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
+            detail.append(row)
+            log(f"[spec-kernels] {name} {dn} q, {pool_name} pool, B=8 H=12 "
+                f"D=64 page=16 S={row['S']} tokens {row['tokens']}: err "
+                f"{e:.3g} ms {row['ms']:.5f} (per call {row['call_ms']:.4f})"
+                f" plain {row['plain_ms']:.4f} bound {row['bound_ms']:.5f} "
+                f"({row['bound_by']}) [{card}]")
+    log("[spec-kernels] detail " + json.dumps(detail))
+    picked = {}
+    for name, pool_name in (("paged_attention_quant", "int8"),
+                            ("paged_verify", "bfloat16"),
+                            ("paged_verify_quant", "int8")):
+        main = next(r for r in detail if r["kernel"] == name
+                    and r["dtype"] == "bfloat16" and r["pool"] == pool_name)
+        picked[name] = {"max_abs_err": worst[name], **_pick(main)}
+    return picked
+
+
+def _serve_burst(eng, seed: int):
+    """Eight concurrent ``generate`` calls (the serving phase's prompt
+    lengths, 32 new tokens, two of them sampled) through
+    ``ContinuousBatcher`` -> ``InferenceServer`` -> ``ServingClient``, after
+    one warm-up request per prefill bucket. The launch counters are zeroed
+    just before the burst and read just after. Returns ``(results, wall
+    seconds, launch counts, engine steps in the burst)``."""
+    import numpy as np
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import (ContinuousBatcher,
+                                             InferenceServer, ServingClient)
+    cb = ContinuousBatcher(eng, max_queue=64)
+    srv = InferenceServer(None, generate_batcher=cb, host="127.0.0.1",
+                          port=0, memory_watch=False).start()
+    try:
+        cli = ServingClient(srv.url, timeout=300)
+        rng = np.random.default_rng(seed)
+        for n in [max(1, bk // 2 + 1) for bk in eng.prefill_buckets]:
+            cli.generate(rng.integers(0, 1000, n).tolist(), max_new_tokens=2,
+                         temperature=0.5, top_k=8, seed=0)
+        lens = (17, 64, 100, 128, 255, 300, 512, 700)
+        prompts = [rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
+                   for n in lens]
+        sampled = {2: 1234, 5: 99}
+        results = [None] * len(prompts)
+
+        def one(i):
+            kw = {}
+            if i in sampled:
+                kw = dict(temperature=0.8, top_k=40, seed=sampled[i])
+            results[i] = cli.generate(prompts[i], max_new_tokens=32, **kw)
+
+        st0 = eng.stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        st1 = eng.stats()
+        for i, r in enumerate(results):
+            if r is None or r["num_tokens"] != 32 or len(r["tokens"]) != 32 \
+                    or r["finish_reason"] != "length":
+                raise AssertionError(f"request {i} (prompt {lens[i]}): {r}")
+        h = cli.healthz()
+        if h["status"] != "ok" or h["decode"]["engine"]["kv"][
+                "pages_used"] != 0:
+            raise AssertionError(f"healthz after the burst: {h['status']}, "
+                                 f"pages_used "
+                                 f"{h['decode']['engine']['kv']['pages_used']}")
+    finally:
+        srv.stop()
+    return results, wall, launches, {
+        "steps": st1["steps"] - st0["steps"],
+        "spec_steps": st1["spec"]["steps"] - st0["spec"]["steps"]}
+
+
+def _profile_steps(eng, steps: int = 5) -> dict:
+    """``torch.profiler`` over ``steps`` engine steps with all 8 slots live
+    (the profile phase's prompt lengths), after two unprofiled ones."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(3)
+    slots = [eng.prefill(rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist(),
+                         max_new_tokens=200)["slot"]
+             for n in (17, 64, 100, 128, 255, 300, 512, 700)]
+    for _ in range(2):
+        eng.step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    for s in slots:
+        eng.release(s)
+    return {"steps": steps, **_device_profile(prof, wall, steps)}
+
+
+def phase_spec_serving(card):
+    """The speculative decode plane at GPT-2-small width (bf16, random
+    weights from a seed): ``DecodeEngine(num_slots=8, page_size=16,
+    spec_k=4)`` — self-speculation through the first 6 of 12 layers — with
+    (a) the bf16 pool and (b) ``kv_quant="int8"``, each serving one burst,
+    then 5 spec steps with 8 live slots under ``torch.profiler``. Returns
+    the launch counts of both bursts."""
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    model, params = _lm("bfloat16")
+    layers = model.num_layers
+    out = {}
+    for arm, kw in (("a", {}), ("b", {"kv_quant": "int8"})):
+        eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0,
+                           spec_k=SPEC_K, **kw)
+        results, wall, launches, steps = _serve_burst(eng, seed=10)
+        st = eng.stats()
+        quantized = arm == "b"
+        draft_key = "paged_attention_quant" if quantized else "paged_attention"
+        verify_key = "paged_verify_quant" if quantized else "paged_verify"
+        others = ("paged_attention", "paged_verify") if quantized else (
+            "paged_attention_quant", "paged_verify_quant")
+        n = steps["spec_steps"]
+        if not (n > 0 and n == steps["steps"]
+                and launches[verify_key] == layers * n
+                and launches[draft_key] == SPEC_K * eng.draft_layers * n
+                and launches["flash_fwd"] > 0
+                and all(launches[k] == 0 for k in others)):
+            raise AssertionError(
+                f"burst ({arm}): {steps}, launches {launches}: every step "
+                f"must be speculative, {verify_key} {layers} per step, "
+                f"{draft_key} {SPEC_K} x {eng.draft_layers} per step, "
+                f"{', '.join(others)} never")
+        ttft = [r["timing_ms"]["queue_wait_ms"] + r["timing_ms"]["prefill_ms"]
+                for r in results]
+        gen = sum(r["num_tokens"] for r in results)
+        spec = st["spec"]
+        summary = {
+            "arm": arm, "kv_quant": st["kv_quant"], "spec_k": SPEC_K,
+            "draft_layers": eng.draft_layers, "requests": len(results),
+            "tokens_generated": gen, "wall_s": wall,
+            "ttft_ms_p50": _pct(ttft, 50), "ttft_ms_p95": _pct(ttft, 95),
+            "decode_tokens_per_s": gen / wall,
+            "spec_steps": n, "accept_rate": spec["accept_rate"],
+            "mean_accepted": spec["mean_accepted"],
+            "draft_ms_p50": eng.metrics.percentile(
+                "serving/decode/draft_ms", 50, window=n),
+            "verify_ms_p50": eng.metrics.percentile(
+                "serving/decode/verify_ms", 50, window=n),
+            "step_ms_p50": eng.metrics.percentile(
+                "serving/decode/step_ms", 50, window=n),
+            "kv_bytes_per_page": st["kv"]["kv_bytes_per_page"],
+            "kv_quant_error": st["kv_quant_error"],
+            "launches": launches, "card": card}
+        log("[spec-serving] " + json.dumps(summary))
+        log("[spec-profile] " + json.dumps(
+            {"arm": arm, "spec_step_8_slots": _profile_steps(eng),
+             "card": card}))
+        out[arm] = (launches, summary)
+        del eng
+    bf16, int8 = (out[a][1]["kv_bytes_per_page"] for a in ("a", "b"))
+    log(f"[spec-serving] KV bytes per page ({layers} layers, K and V): bf16 "
+        f"{bf16}, "
+        f"int8 {int8} ({bf16 / int8:.3f}x as many pages per byte)")
+    return {arm: launches for arm, (launches, _) in out.items()}
+
+
+def _greedy(eng, prompts, n):
+    """``n`` greedy tokens for each prompt, all admitted at once; a slot is
+    released as soon as it has its ``n`` (a speculative step may give some
+    slots several tokens and others one)."""
+    infos = [eng.prefill(p, max_new_tokens=n) for p in prompts]
+    toks = {i["slot"]: [i["token"]] for i in infos}
+    live = set(toks)
+    while live:
+        for s, t in eng.step().items():
+            toks[s].extend(t)
+            if len(toks[s]) >= n:
+                eng.release(s)
+                live.discard(s)
+    return [toks[i["slot"]][:n] for i in infos]
+
+
+def phase_spec_exactness(card):
+    """Float32, TF32 off, all 12 layers: greedy tokens with ``spec_k=4``
+    (self-speculation, and an external 6-layer 768-wide draft of the same
+    vocab) equal the spec-off engine's; with an int8 pool and ``spec_k=4``
+    the card's tokens equal the same engine's on the CPU (its plain
+    versions) over 4 prompts x 16 tokens; ``kv_quant_error`` of int8 below
+    0.05 (fp8's printed)."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, params = _lm(None, seed=1)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
+               for n in (20, 57, 100, 150)]
+    kw = dict(num_slots=4, page_size=16, max_seq_len=256, seed=0,
+              prefix_cache=False)
+    want = _greedy(DecodeEngine(model, params, **kw), prompts, 16)
+    draft_spec = build_registry_spec("transformer_lm",
+                                     **dict(GPT2_SMALL, num_layers=6))
+    draft = model_from_json(draft_spec)
+    draft_params = draft.init(torch.Generator().manual_seed(2))
+    accept = {}
+    for name, extra in (("self", {}),
+                        ("external", dict(draft_model=draft_spec,
+                                          draft_params=draft_params))):
+        eng = DecodeEngine(model, params, spec_k=SPEC_K, **kw, **extra)
+        got = _greedy(eng, prompts, 16)
+        if got != want:
+            raise AssertionError(f"spec_k={SPEC_K} ({name} draft) tokens "
+                                 f"{got} != spec-off {want}")
+        accept[name] = eng.stats()["spec"]["accept_rate"]
+    card_eng = DecodeEngine(model, params, spec_k=SPEC_K, kv_quant="int8",
+                            **kw)
+    card_toks = _greedy(card_eng, prompts, 16)
+    cpu_model = model_from_json(build_registry_spec("transformer_lm",
+                                                    **GPT2_SMALL),
+                                device="cpu")
+    cpu_params = {ln: {pn: t.cpu() for pn, t in layer.items()}
+                  for ln, layer in params.items()}
+    cpu_eng = DecodeEngine(cpu_model, cpu_params, spec_k=SPEC_K,
+                           kv_quant="int8", **kw)
+    cpu_toks = _greedy(cpu_eng, prompts, 16)
+    if card_toks != cpu_toks:
+        raise AssertionError(f"int8 + spec_k={SPEC_K}: card {card_toks} != "
+                             f"CPU engine {cpu_toks}")
+    err = card_eng.stats()["kv_quant_error"]
+    if not (err is not None and 0.0 <= err < 0.05):
+        raise AssertionError(f"kv_quant_error (int8) {err}, not below 0.05")
+    fp8_err = DecodeEngine(model, params, kv_quant="fp8",
+                           **kw).stats()["kv_quant_error"]
+    log(f"[spec-exactness] float32, 12 layers, 4 prompts x 16 greedy tokens: "
+        f"spec_k={SPEC_K} self-draft (accept {accept['self']:.3f}) and "
+        f"external 6-layer draft (accept {accept['external']:.3f}) equal "
+        f"spec-off; int8 + spec_k={SPEC_K} card equals the CPU engine; "
+        f"kv_quant_error int8 {err:.4g} (CPU {cpu_eng.stats()['kv_quant_error']:.4g}),"
+        f" fp8 {fp8_err:.4g} [{card}]")
 
 
 def _training_operands(b, s, dtype, gen):
@@ -901,39 +1307,56 @@ def main() -> int:
     try:
         phase_setup()
         flash_row, paged_row = phase_kernels(card)
+        spec_rows = phase_spec_kernels(card)
         bwd_rows = phase_backward_kernels(card)
         launches, eng = phase_serving(card)
         phase_profile(card, eng)
         del eng
+        spec_launches = phase_spec_serving(card)
         phase_exactness(card)
+        phase_spec_exactness(card)
         train_launches = phase_training(card)
         phase_train_exactness(card)
     except Exception:
         traceback.print_exc()
         return 1
+    src = "sparkflow_tpu_torch/ops/csrc/"
+    ref = "sparkflow_tpu/ops/attention.py:"
+    spec_a, spec_b = spec_launches["a"], spec_launches["b"]
     kernels = [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "sparkflow_tpu_torch/ops/csrc/flash_fwd.cu",
-         "replaces": "sparkflow_tpu/ops/attention.py:196",
+        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+         "replaces": ref + "196",
          "launches": launches["flash_fwd"], **flash_row,
          # the same kernel on the training path: its launches there and its
          # times at the training shape
          "training": {"launches": train_launches["flash_fwd"],
-                      **bwd_rows["flash_fwd"]}},
+                      **bwd_rows["flash_fwd"]},
+         "spec_serving": {"launches": [spec_a["flash_fwd"],
+                                       spec_b["flash_fwd"]]}},
         {"name": "paged_attention", "route": "cuda",
-         "source": "sparkflow_tpu_torch/ops/csrc/paged_attention.cu",
-         "replaces": "sparkflow_tpu/ops/attention.py:734",
-         "launches": launches["paged_attention"], **paged_row},
+         "source": src + "paged_attention.cu", "replaces": ref + "734",
+         "launches": launches["paged_attention"], **paged_row,
+         # the self-speculation draft chain of burst (a), bf16 pool
+         "spec_serving": {"launches": spec_a["paged_attention"]}},
         {"name": "flash_bwd_dq", "route": "cuda",
-         "source": "sparkflow_tpu_torch/ops/csrc/flash_bwd.cu",
-         "replaces": "sparkflow_tpu/ops/attention.py:372",
+         "source": src + "flash_bwd.cu", "replaces": ref + "372",
          "launches": train_launches["flash_bwd_dq"],
          **bwd_rows["flash_bwd_dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda",
-         "source": "sparkflow_tpu_torch/ops/csrc/flash_bwd.cu",
-         "replaces": "sparkflow_tpu/ops/attention.py:415",
+         "source": src + "flash_bwd.cu", "replaces": ref + "415",
          "launches": train_launches["flash_bwd_dkv"],
          **bwd_rows["flash_bwd_dkv"]},
+        {"name": "paged_attention_quant", "route": "cuda",
+         "source": src + "paged_attention.cu", "replaces": ref + "781",
+         "launches": spec_b["paged_attention_quant"],
+         **spec_rows["paged_attention_quant"]},
+        {"name": "paged_verify", "route": "cuda",
+         "source": src + "paged_verify.cu", "replaces": ref + "967",
+         "launches": spec_a["paged_verify"], **spec_rows["paged_verify"]},
+        {"name": "paged_verify_quant", "route": "cuda",
+         "source": src + "paged_verify.cu", "replaces": ref + "1015",
+         "launches": spec_b["paged_verify_quant"],
+         **spec_rows["paged_verify_quant"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

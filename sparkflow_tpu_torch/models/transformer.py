@@ -22,9 +22,11 @@ delegated to an ``attend`` callback — the dense cache below for parity, the
 serving engine's paged pool over
 :func:`~sparkflow_tpu_torch.ops.paged_attention` in production.
 ``remat=True`` / ``"full"`` recomputes each block in the backward
-(``torch.utils.checkpoint``). ``remat="dots"``, model parallelism
-(``tp_axis``, ``ep_axis``, ``sp_axis``) and quantized KV (``kv_dtype``) are
-not yet ported and raise.
+(``torch.utils.checkpoint``). :meth:`TransformerLM.decode_verify` scores a
+drafted token block at every position (speculative decoding), and the dense
+decode cache takes int8/fp8 rows (``init_decode_cache(kv_dtype=)``).
+``remat="dots"`` and model parallelism (``tp_axis``, ``ep_axis``,
+``sp_axis``) are not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention
+from ..utils import quant
 from .base import Params, RegistryModel, softmax_xent
 from .registry import register_model
 
@@ -393,42 +396,86 @@ class TransformerLM(_TransformerBase):
         Returns ``(logits [B, vocab] at the last valid suffix position,
         cache)``."""
         self._check_axes(tp_axis, ep_axis)
+        x = self._suffix_blocks(params, ids, start, cache, attend)
+        return self.head_last(params, x, lengths), cache
+
+    def decode_verify(self, params: Params, ids, start, cache, attend,
+                      tp_axis=None, ep_axis=None):
+        """Speculative-verify forward: like :meth:`prefill_suffix` (``ids``
+        [B,S] starting at absolute position ``start`` [B], attention over
+        the committed history and this chunk is ``attend``'s) but with
+        logits at EVERY position — ``(logits [B, S, vocab] f32, cache)`` —
+        so one call scores a drafted block: ``logits[:, j]`` is the model's
+        next-token distribution after the prefix and ``ids[:, :j+1]``."""
+        self._check_axes(tp_axis, ep_axis)
+        x = self._suffix_blocks(params, ids, start, cache, attend)
+        return self.head_all(params, x), cache
+
+    def _suffix_blocks(self, params, ids, start, cache, attend):
         x = self.suffix_embed(params, ids, start)
         for i in range(self.num_layers):
             x, cache = self._block_suffix(params[f"block_{i}"], x, i, cache,
                                           start, attend)
-        return self.head_last(params, x, lengths), cache
+        return x
 
     # -- dense decode cache (parity implementation) ------------------------------
 
     def init_decode_cache(self, batch: int, max_len: Optional[int] = None,
                           dtype=None, kv_dtype: Optional[str] = None):
-        """Dense per-slot cache ``{"k","v": [layers, B, heads, L, d]}``."""
-        if kv_dtype not in (None, "bf16"):
-            _not_yet(f"quantized KV cache (kv_dtype={kv_dtype!r})")
+        """Dense per-slot cache ``{"k","v": [layers, B, heads, L, d]}``.
+        With ``kv_dtype="int8"|"fp8"`` the rows are stored quantized and the
+        cache carries ``k_scale`` / ``v_scale`` ``[layers, B, heads, L]``
+        float32 per-token-per-head scales — the dense twin of the serving
+        engine's quantized page pool (dense writes are independent per
+        position, so no running page max is needed)."""
         L = int(max_len) if max_len is not None else self.max_len
         shape = (self.num_layers, batch, self.num_heads, L, self.head_dim)
-        dt = dtype if dtype is not None else (self.compute_dtype
-                                              or torch.float32)
-        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        if kv_dtype in (None, "bf16"):
+            dt = dtype if dtype is not None else (self.compute_dtype
+                                                  or torch.float32)
+            return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                    "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        store, _ = quant.kv_pool_dtype(kv_dtype)
+        sshape = shape[:-1]
+        return {"k": torch.zeros(shape, dtype=store, device=self.device),
+                "v": torch.zeros(shape, dtype=store, device=self.device),
+                "k_scale": torch.zeros(sshape, device=self.device),
+                "v_scale": torch.zeros(sshape, device=self.device)}
 
     def _dense_cache_attend(self, layer, q, k_new, v_new, cache, pos):
         """Write this token's k/v into the dense cache at ``pos`` (in place)
-        and attend over positions ``<= pos``."""
+        and attend over positions ``<= pos``. A quantized cache (``"k_scale"
+        in cache``) stores each row as int8/fp8 with its own per-head scale;
+        the gathered rows are multiplied by their scales in float32."""
         b = q.shape[0]
         L = cache["k"].shape[3]
         bidx = torch.arange(b, device=q.device)
         pos = pos.long()
         kc, vc = cache["k"][layer], cache["v"][layer]
-        kc[bidx, :, pos] = k_new.to(kc.dtype)
-        vc[bidx, :, pos] = v_new.to(vc.dtype)
+        if "k_scale" in cache:
+            qmax = quant.kv_qmax(kc.dtype)
+
+            def put(rows, scales, new):
+                nf = new.float()                                # [B, heads, d]
+                sc = nf.abs().amax(dim=-1) / qmax               # [B, heads]
+                eff = torch.where(sc > 0, sc, torch.ones_like(sc))
+                rows[bidx, :, pos] = quant.kv_cast(nf / eff[..., None],
+                                                   rows.dtype, qmax)
+                scales[bidx, :, pos] = sc
+                return rows.float() * scales[..., None]
+
+            kf = put(kc, cache["k_scale"][layer], k_new)
+            vf = put(vc, cache["v_scale"][layer], v_new)
+        else:
+            kc[bidx, :, pos] = k_new.to(kc.dtype)
+            vc[bidx, :, pos] = v_new.to(vc.dtype)
+            kf, vf = kc.float(), vc.float()
         scale = 1.0 / math.sqrt(self.head_dim)
-        s = torch.einsum("bhd,bhld->bhl", q.float(), kc.float()) * scale
+        s = torch.einsum("bhd,bhld->bhl", q.float(), kf) * scale
         valid = torch.arange(L, device=q.device)[None, :] <= pos[:, None]
         s = torch.where(valid[:, None, :], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhl,bhld->bhd", p, vc.float())
+        out = torch.einsum("bhl,bhld->bhd", p, vf)
         return out.to(q.dtype), cache
 
 

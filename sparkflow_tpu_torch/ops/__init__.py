@@ -1,21 +1,26 @@
-"""Kernels of the PyTorch port: attention for the decode-serving and
-training paths.
+"""Kernels of the PyTorch port: attention for the decode-serving,
+speculative-decoding and training paths.
 
 See :mod:`sparkflow_tpu_torch.ops.attention`; the CUDA sources live in
 ``ops/csrc/`` and are built at first use by :mod:`._build`.
 """
 
-from .attention import (FlashAttentionFunction, attention_reference,
-                        flash_attention, flash_attention_backward,
+from .attention import (MAX_VERIFY_ROWS, FlashAttentionFunction,
+                        attention_reference, flash_attention,
+                        flash_attention_backward,
                         flash_attention_backward_reference, flash_bwd_dkv,
                         flash_bwd_dkv_reference, flash_bwd_dq,
                         flash_bwd_dq_reference, last_attention_path,
-                        paged_attention, paged_attention_reference,
+                        launch_counts, paged_attention,
+                        paged_attention_reference, paged_attention_verify,
+                        paged_attention_verify_reference,
                         reset_launch_counts)
 
-__all__ = ["FlashAttentionFunction", "attention_reference", "flash_attention",
-           "flash_attention_backward", "flash_attention_backward_reference",
-           "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
-           "flash_bwd_dq_reference", "last_attention_path",
+__all__ = ["MAX_VERIFY_ROWS", "FlashAttentionFunction", "attention_reference",
+           "flash_attention", "flash_attention_backward",
+           "flash_attention_backward_reference", "flash_bwd_dkv",
+           "flash_bwd_dkv_reference", "flash_bwd_dq",
+           "flash_bwd_dq_reference", "last_attention_path", "launch_counts",
            "paged_attention", "paged_attention_reference",
+           "paged_attention_verify", "paged_attention_verify_reference",
            "reset_launch_counts"]

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of :mod:`sparkflow_tpu_torch.ops`.
 
-Each source under ``ops/csrc/`` is compiled by its own ``nvcc`` process —
+Each source under ``ops/csrc/`` (``*.cu``; the ``*.cuh`` headers they
+include count in the build key) is compiled by its own ``nvcc`` process —
 all of them started together — for ``sm_90a`` with ``-Xptxas -v``, and the
 objects are linked into ONE shared library with a plain C interface, loaded
 with ``ctypes``. The build happens at first use, into ``ops/_build/`` (a
@@ -23,7 +24,9 @@ from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu",
+           "paged_verify.cu")
+HEADERS = ("pool_load.cuh",)
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -50,6 +53,14 @@ _SIGNATURES = {
     # D, page, scale, stream
     "sf_paged_attention": [_I, _P, _LL, _LL, _P, _P, _P, _I, _P, _P, _I, _I,
                            _I, _I, _F, _P],
+    # dtype, pool, q, qsb, qsh, k_pages, v_pages, k_scales, v_scales, table,
+    # maxp, lengths, out, B, H, D, page, scale, stream
+    "sf_paged_attention_quant": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P,
+                                 _I, _P, _P, _I, _I, _I, _I, _F, _P],
+    # dtype, pool, q, k_pages, v_pages, k_scales, v_scales, table, maxp,
+    # start, out, B, H, S, D, page, strides[6], scale, stream
+    "sf_paged_verify": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                        _I, _I, _I, _P, _F, _P],
 }
 
 
@@ -72,7 +83,7 @@ def nvcc_path() -> str:
 
 def _key(nvcc: str) -> str:
     h = hashlib.sha256(repr((nvcc, NVCC_FLAGS)).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

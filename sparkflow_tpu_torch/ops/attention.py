@@ -1,5 +1,6 @@
-"""Attention ops: flash attention (forward and backward) and paged decode
-attention.
+"""Attention ops: flash attention (forward and backward), paged decode
+attention and paged verify attention (speculative decoding), each over a
+plain or an int8/fp8-quantized KV pool.
 
 The port of the JAX package's ``ops/attention.py`` for the decode-serving
 and training paths. Each op is a pair:
@@ -7,11 +8,13 @@ and training paths. Each op is a pair:
 - a plain PyTorch version (:func:`attention_reference`,
   :func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference` and
   their composition :func:`flash_attention_backward_reference`,
-  :func:`paged_attention_reference`) — the ground truth, and what the
-  wrapper computes for tensors on the CPU;
+  :func:`paged_attention_reference`,
+  :func:`paged_attention_verify_reference`) — the ground truth, and what
+  the wrapper computes for tensors on the CPU;
 - a wrapper (:func:`flash_attention`, :func:`flash_bwd_dq`,
-  :func:`flash_bwd_dkv`, :func:`paged_attention`) that, for CUDA tensors,
-  launches the hand-written kernel from ``ops/csrc/`` (built at first use,
+  :func:`flash_bwd_dkv`, :func:`paged_attention`,
+  :func:`paged_attention_verify`) that, for CUDA tensors, launches the
+  hand-written kernel from ``ops/csrc/`` (built at first use,
   :mod:`._build`) or raises — it never falls back to the plain version on
   the card.
 
@@ -20,16 +23,20 @@ gradient it runs as a ``torch.autograd.Function`` (the counterpart of the
 JAX ``jax.custom_vjp`` ``_flash``) whose backward is
 :func:`flash_attention_backward` — the dq and dk/dv kernels on the card.
 
-Every wrapper carries ``launches``, a plain integer counting the kernel
-launches it made, so a run can show its main path went through the kernel.
+Every kernel has a launch counter, a plain integer on its wrapper
+(``launches``; the paged wrappers also ``quant_launches`` for their
+quantized-pool kernel), so a run can show its main path went through the
+kernel; :func:`launch_counts` reads them all by kernel name.
 :func:`last_attention_path` reports which of the two the latest call in this
 context took (``"kernel"`` or ``"reference"``).
 
-Layout convention: ``[batch, heads, seq, head_dim]`` for flash attention;
-the paged pool is ``[num_pages, page_size, heads, head_dim]``, as in the JAX
-package. Unlike the TPU kernels there are no tile rules: the CUDA kernels
-mask their ragged edges and take every sequence length, with ``head_dim``
-a multiple of 8 up to 128, in float32 or bfloat16.
+Layout convention: ``[batch, heads, seq, head_dim]`` for flash attention
+and the verify queries; the paged pool is ``[num_pages, page_size, heads,
+head_dim]``, as in the JAX package. Unlike the TPU kernels there are no
+tile rules: the CUDA kernels mask their ragged edges and take every
+sequence length, with ``head_dim`` a multiple of 8 up to 128, queries in
+float32 or bfloat16 and quantized pools in int8 or float8_e4m3fn. The
+verify kernel takes up to :data:`MAX_VERIFY_ROWS` query rows per slot.
 """
 
 from __future__ import annotations
@@ -396,12 +403,102 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Paged attention (decode)
+# Paged attention (decode) and paged verify attention (speculative decode)
+#
+# The pool is [num_pages, page_size, H, D]. It holds the compute dtype
+# (float32 or bfloat16, the query's), or is quantized: int8 or float8_e4m3fn
+# rows with [num_pages, H] float32 scales, row = stored * scale[page, head]
+# (see utils/quant.py). A quantized pool is never dequantized as a whole:
+# the plain versions convert the gathered pages only, the kernels fold the K
+# scale into the scores and the V scale into the PV update.
 # ---------------------------------------------------------------------------
+
+#: quantized pool element type -> the kernels' pool code
+_POOL_CODE = {torch.int8: 0}
+if hasattr(torch, "float8_e4m3fn"):
+    _POOL_CODE[torch.float8_e4m3fn] = 1
+
+#: most query rows per slot the verify kernel takes (spec_k <= 15)
+MAX_VERIFY_ROWS = 16
+
+
+def _check_scales_given(k_scales, v_scales) -> None:
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales or neither")
+
+
+def _check_paged_shapes(name: str, b: int, h: int, d: int, k_pages, v_pages,
+                        page_table, per_slot, k_scales, v_scales) -> None:
+    """Pools [P, page, H, D], table [B, max_pages], ``per_slot`` (lengths
+    or start) [B], scales [P, H]."""
+    num_pages, page = k_pages.shape[:2]
+    if (tuple(k_pages.shape) != (num_pages, page, h, d)
+            or v_pages.shape != k_pages.shape):
+        raise ValueError(f"{name}: pools {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match H={h}, D={d}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(per_slot.shape) != (b,):
+        raise ValueError(f"{name}: page_table must be [B, max_pages] and "
+                         f"lengths/start [B] with B={b}")
+    for sc in (k_scales, v_scales):
+        if sc is not None and tuple(sc.shape) != (num_pages, h):
+            raise ValueError(f"{name}: scales {tuple(sc.shape)} are not "
+                             f"[num_pages, H] = {(num_pages, h)}")
+
+
+def _paged_operands(name: str, q, k_pages, v_pages, page_table, k_scales,
+                    v_scales):
+    """Check the paged kernels' operands and ready them for a launch:
+    returns ``(k_pages, v_pages, table, k_scales, v_scales, pool_code)`` —
+    pools contiguous, table int32, scales float32, ``pool_code`` None for a
+    pool in the query's dtype."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+                        f"queries, got {q.dtype}")
+    for t in (k_pages, v_pages, page_table, k_scales, v_scales):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name}: operands on {t.device} and {q.device}")
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"{name}: k_pages {k_pages.dtype} and v_pages "
+                        f"{v_pages.dtype} differ")
+    code = None
+    if k_scales is None:
+        if k_pages.dtype != q.dtype:
+            raise TypeError(f"{name}: a pool without scales holds the "
+                            f"query's dtype; got pool {k_pages.dtype}, query "
+                            f"{q.dtype}")
+    else:
+        code = _POOL_CODE.get(k_pages.dtype)
+        if code is None:
+            raise TypeError(f"{name}: a pool with scales is int8 or "
+                            f"float8_e4m3fn, got {k_pages.dtype}")
+        k_scales = k_scales.to(torch.float32).contiguous()
+        v_scales = v_scales.to(torch.float32).contiguous()
+    _check_head_dim(name, q.shape[-1])
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{name}: pools must be 16-byte aligned")
+    return (k_pages, v_pages, page_table.to(torch.int32).contiguous(),
+            k_scales, v_scales, code)
+
+
+def _gather_dequant(pages, page_table, scales) -> torch.Tensor:
+    """Gather each slot's pages and (when quantized) apply the
+    per-page-per-head scales: ``[num_pages, page, H, D]`` x ``[B, maxp]``
+    -> ``[B, maxp*page, H, D]`` float32. The conversion runs on the gathered
+    pages only, never on the whole pool."""
+    b, maxp = page_table.shape
+    page, h, d = pages.shape[1:]
+    idx = page_table.long()
+    g = pages[idx].float()                            # [B, maxp, page, H, D]
+    if scales is not None:
+        g = g * scales[idx].float()[:, :, None, :, None]
+    return g.reshape(b, maxp * page, h, d)
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
-                              sm_scale: Optional[float] = None):
+                              sm_scale: Optional[float] = None,
+                              k_scales=None, v_scales=None):
     """Ground-truth decode attention over a paged KV pool.
 
     - ``q``: ``[B, H, D]`` — the current token's query per slot;
@@ -411,17 +508,18 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
       that count must still be valid pool indices);
     - ``lengths``: ``[B]`` int — valid tokens per slot; position
       ``p * page_size + t < lengths[b]`` attends. A slot with
-      ``lengths == 0`` returns exact zeros.
+      ``lengths == 0`` returns exact zeros;
+    - ``k_scales`` / ``v_scales``: optional ``[num_pages, H]`` float32
+      scales of an int8/fp8 pool (``row = stored * scale``); both or
+      neither.
     """
+    _check_scales_given(k_scales, v_scales)
     b, h, d = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    maxp = page_table.shape[1]
-    page = k_pages.shape[1]
-    idx = page_table.long()
-    k = k_pages[idx].float().reshape(b, maxp * page, h, d)
-    v = v_pages[idx].float().reshape(b, maxp * page, h, d)
+    k = _gather_dequant(k_pages, page_table, k_scales)
+    v = _gather_dequant(v_pages, page_table, v_scales)
     s = torch.einsum("bhd,bkhd->bhk", q.float(), k) * scale
-    pos = torch.arange(maxp * page, device=q.device)
+    pos = torch.arange(k.shape[1], device=q.device)
     valid = pos[None, :] < lengths.to(q.device).long()[:, None]
     s = torch.where(valid[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -432,60 +530,183 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None,
+                    k_scales=None, v_scales=None) -> torch.Tensor:
     """Decode attention: one query token per slot against a page-table-
     indirected K/V pool. Same operands and semantics as
-    :func:`paged_attention_reference`. On the card this launches
-    ``csrc/paged_attention.cu`` (the port of the TPU ``_paged_kernel``): one
-    thread block per (slot, head) reads its own table row and walks only
-    the slot's ``ceil(lengths[b] / page)`` pages. Quantized pools (the TPU
-    ``_paged_kernel_quant``) are not ported yet."""
+    :func:`paged_attention_reference`. On the card an unquantized pool
+    launches ``paged_attention_kernel`` of ``csrc/paged_attention.cu`` (the
+    port of the TPU ``_paged_kernel``; counter ``paged_attention.launches``)
+    and an int8/fp8 pool with ``k_scales``/``v_scales`` its quantized
+    instantiation (the port of ``_paged_kernel_quant``; counter
+    ``paged_attention.quant_launches``): one thread block per (slot, head)
+    reads its own table row and walks only the slot's ``lengths[b]``
+    tokens."""
+    _check_scales_given(k_scales, v_scales)
     b, h, d = q.shape
-    num_pages, page = k_pages.shape[:2]
-    if (tuple(k_pages.shape) != (num_pages, page, h, d)
-            or v_pages.shape != k_pages.shape):
-        raise ValueError(f"paged_attention: pools {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if page_table.shape[0] != b or tuple(lengths.shape) != (b,):
-        raise ValueError("paged_attention: page_table must be [B, max_pages] "
-                         "and lengths [B]")
+    _check_paged_shapes("paged_attention", b, h, d, k_pages, v_pages,
+                        page_table, lengths, k_scales, v_scales)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     path = _route(q)
     _LAST_PATH.set(path)
     if path == "reference":
         return paged_attention_reference(q, k_pages, v_pages, page_table,
-                                         lengths, sm_scale=scale)
-    _check_kernel_operands("paged_attention", q.dtype, q, k_pages, v_pages,
-                           page_table, lengths)
-    _check_head_dim("paged_attention", d)
+                                         lengths, scale, k_scales, v_scales)
+    kp, vp, table, ks, vs, code = _paged_operands(
+        "paged_attention", q, k_pages, v_pages, page_table, k_scales,
+        v_scales)
     if q.stride(-1) != 1:
         q = q.contiguous()
-    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_attention: pools must be 16-byte aligned")
-    table = page_table.to(torch.int32).contiguous()
+    if lengths.device != q.device:
+        raise ValueError(f"paged_attention: lengths on {lengths.device}")
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel():
         from . import _build
         lib = _build.load()
-        rc = lib.sf_paged_attention(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
-            k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-            table.shape[1], lens.data_ptr(), out.data_ptr(), b, h, d, page,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(rc, "paged_attention")
-        paged_attention.launches += 1
+        page = kp.shape[1]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if code is None:
+            rc = lib.sf_paged_attention(
+                _DTYPE_CODE[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
+                kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+                table.shape[1], lens.data_ptr(), out.data_ptr(), b, h, d,
+                page, float(scale), stream)
+            _build.check(rc, "paged_attention")
+            paged_attention.launches += 1
+        else:
+            rc = lib.sf_paged_attention_quant(
+                _DTYPE_CODE[q.dtype], code, q.data_ptr(), q.stride(0),
+                q.stride(1), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+                vs.data_ptr(), table.data_ptr(), table.shape[1],
+                lens.data_ptr(), out.data_ptr(), b, h, d, page, float(scale),
+                stream)
+            _build.check(rc, "paged_attention_quant")
+            paged_attention.quant_launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.quant_launches = 0
+
+
+def paged_attention_verify_reference(q, k_pages, v_pages, page_table, start,
+                                     sm_scale: Optional[float] = None,
+                                     k_scales=None, v_scales=None):
+    """Ground-truth multi-position decode attention over a paged KV pool.
+
+    The speculative verify step scores ``S = k + 1`` consecutive positions
+    per slot in one call: slot b's query ``s`` sits at absolute position
+    ``start[b] + s`` and attends causally over everything at or before it.
+
+    - ``q``: ``[B, H, S, D]``;
+    - pools, ``page_table`` and scales as in
+      :func:`paged_attention_reference`, with the K/V of all S positions
+      already written;
+    - ``start``: ``[B]`` int — tokens committed before this chunk; query
+      ``s`` attends positions ``<= start[b] + s``, so ``S == 1`` is
+      :func:`paged_attention_reference` with ``lengths = start + 1``.
+
+    Every query attends at least itself, so there is no empty-slot case.
+    """
+    _check_scales_given(k_scales, v_scales)
+    b, h, s, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    k = _gather_dequant(k_pages, page_table, k_scales)
+    v = _gather_dequant(v_pages, page_table, v_scales)
+    att = torch.einsum("bhsd,bkhd->bhsk", q.float(), k) * scale
+    pos = torch.arange(k.shape[1], device=q.device)
+    qpos = (start.to(q.device).long()[:, None]
+            + torch.arange(s, device=q.device)[None, :])        # [B, S]
+    valid = pos[None, None, :] <= qpos[:, :, None]              # [B, S, K]
+    att = torch.where(valid[:, None], att, NEG_INF)
+    p = torch.softmax(att, dim=-1)
+    return torch.einsum("bhsk,bkhd->bhsd", p, v).to(q.dtype)
+
+
+def paged_attention_verify(q, k_pages, v_pages, page_table, start,
+                           sm_scale: Optional[float] = None,
+                           k_scales=None, v_scales=None) -> torch.Tensor:
+    """Speculative-verify attention: ``S`` consecutive query positions per
+    slot against the page-table-indirected K/V pool, causal per query. Same
+    operands and semantics as :func:`paged_attention_verify_reference`.
+
+    On the card this launches ``csrc/paged_verify.cu`` — the port of the
+    TPU ``_paged_verify_kernel`` (counter
+    ``paged_attention_verify.launches``) or, for an int8/fp8 pool with
+    scales, of ``_paged_verify_kernel_quant`` (counter
+    ``paged_attention_verify.quant_launches``). One thread block per
+    (slot, head) reads every K/V row of the slot once and scores it for all
+    S queries. The kernel takes S up to :data:`MAX_VERIFY_ROWS`. q may be a
+    strided view with ``head_dim`` contiguous; the output is allocated
+    [B,S,H,D]-contiguous and returned as its [B,H,S,D] view."""
+    _check_scales_given(k_scales, v_scales)
+    b, h, s, d = q.shape
+    _check_paged_shapes("paged_attention_verify", b, h, d, k_pages, v_pages,
+                        page_table, start, k_scales, v_scales)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    path = _route(q)
+    _LAST_PATH.set(path)
+    if path == "reference":
+        return paged_attention_verify_reference(
+            q, k_pages, v_pages, page_table, start, scale, k_scales,
+            v_scales)
+    if not 1 <= s <= MAX_VERIFY_ROWS:
+        raise ValueError(f"paged_attention_verify: {s} query rows per slot; "
+                         f"the CUDA kernel takes 1 to {MAX_VERIFY_ROWS} "
+                         f"(spec_k up to {MAX_VERIFY_ROWS - 1})")
+    kp, vp, table, ks, vs, code = _paged_operands(
+        "paged_attention_verify", q, k_pages, v_pages, page_table, k_scales,
+        v_scales)
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    if start.device != q.device:
+        raise ValueError(f"paged_attention_verify: start on {start.device}")
+    st = start.to(torch.int32).contiguous()
+    out = torch.empty((b, s, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if out.numel():
+        from . import _build
+        lib = _build.load()
+        strides = _seq_strides(q, out)
+        rc = lib.sf_paged_verify(
+            _DTYPE_CODE[q.dtype], -1 if code is None else code, q.data_ptr(),
+            kp.data_ptr(), vp.data_ptr(),
+            ks.data_ptr() if ks is not None else None,
+            vs.data_ptr() if vs is not None else None,
+            table.data_ptr(), table.shape[1], st.data_ptr(), out.data_ptr(),
+            b, h, s, d, kp.shape[1], ctypes.addressof(strides), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(rc, "paged_attention_verify")
+        if code is None:
+            paged_attention_verify.launches += 1
+        else:
+            paged_attention_verify.quant_launches += 1
+    return out
+
+
+paged_attention_verify.launches = 0
+paged_attention_verify.quant_launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel since the last
+    :func:`reset_launch_counts`, by kernel name."""
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches,
+            "paged_attention": paged_attention.launches,
+            "paged_attention_quant": paged_attention.quant_launches,
+            "paged_verify": paged_attention_verify.launches,
+            "paged_verify_quant": paged_attention_verify.quant_launches}
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's ``launches`` counter."""
+    """Zero every kernel wrapper's launch counters."""
     flash_attention.launches = 0
     flash_bwd_dq.launches = 0
     flash_bwd_dkv.launches = 0
     paged_attention.launches = 0
+    paged_attention.quant_launches = 0
+    paged_attention_verify.launches = 0
+    paged_attention_verify.quant_launches = 0

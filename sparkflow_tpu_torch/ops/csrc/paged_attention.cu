@@ -1,20 +1,27 @@
 // Single-query decode attention through a page table, for NVIDIA Hopper,
-// sm_90a.
+// sm_90a, over a plain or a quantized KV pool.
 //
-// Replaces the TPU kernel sparkflow_tpu/ops/attention.py:_paged_kernel
-// (launched by paged_attention). Same function: for each slot b and head h,
-// out[b, h] = softmax(scale * q[b, h] . K[t, h]) V[t, h] over the slot's
-// tokens t < lengths[b], where token t lives in pool page
-// table[b, t / page] at row t % page. A slot with lengths[b] == 0 returns
-// exact zeros.
+// Replaces two TPU kernels of sparkflow_tpu/ops/attention.py, both launched
+// by paged_attention:
+// - _paged_kernel: for each slot b and head h,
+//   out[b, h] = softmax(scale * q[b, h] . K[t, h]) V[t, h] over the slot's
+//   tokens t < lengths[b], where token t lives in pool page table[b, t / page]
+//   at row t % page. A slot with lengths[b] == 0 returns exact zeros.
+// - _paged_kernel_quant: the same over an int8 or fp8 (e4m3) pool with
+//   [num_pages, H] float32 scales, K[t, h] = Kq[t, h] * ks[page(t), h] and
+//   likewise V. The K scale folds into the score,
+//   s = (q . Kq[t]) * (ks * scale), and the V scale into the PV update,
+//   acc += (p * vs) * Vq[t]; the softmax sum takes p itself. No row is ever
+//   dequantized in memory and no scale is divided by; a page-head of scale 0
+//   (never written) holds exact zeros and reads back as zeros.
 //
-// Translation from the TPU kernel:
+// Translation from the TPU kernels:
 // - the TPU grid (B, max_pages) walked a slot's pages in order, with the page
-//   table scalar-prefetched into the BlockSpec index maps and m / l / acc
-//   carried in VMEM across the sequential page axis. Here one thread block
-//   owns one (slot, head) and reads its own table row; the page walk is a
-//   loop split over the block's warps, each warp keeping its own online
-//   softmax state, merged through shared memory at the end;
+//   table (and the scales) scalar-prefetched into the BlockSpec index maps and
+//   m / l / acc carried in VMEM across the sequential page axis. Here one
+//   thread block owns one (slot, head) and reads its own table row; the page
+//   walk is a loop split over the block's warps, each warp keeping its own
+//   online softmax state, merged through shared memory at the end;
 // - the loop visits only t < lengths[b] (the ragged last page is masked by
 //   the bound itself, pages past the length are never touched), so a masked
 //   lane of the engine (table row of scratch page 0, length 1) and aliased
@@ -22,20 +29,21 @@
 //
 // What bounds it on the H100: bytes. Each K/V row is read once and used for
 // 2*D flops, far below the ~295 flops/byte ridge, so the time is the KV rows
-// of the live tokens over HBM bandwidth. The design therefore spends nothing
-// on tensor cores and everything on keeping loads in flight: a lane reads 8
-// elements (16 bytes in bf16) of a row with one vector load, D/8 lanes cover
-// a row, a warp covers several rows at once, each lane issues kUnroll rows'
-// K and V loads before it computes on any of them, and eight warps share a
-// (slot, head). Splitting one slot's sequence over several blocks (split-K
-// flash decoding), which a long context at small batch needs to fill all
-// 132 SMs, is later work.
+// of the live tokens over HBM bandwidth — half of it for an int8/fp8 pool
+// (plus one float32 scale per page-head, 4 bytes against page*D = 1024 of
+// rows at the serving shape). The design therefore spends nothing on tensor
+// cores and everything on keeping loads in flight: a lane reads 8 elements
+// of a row with one vector load (16 bytes in bf16, 8 in int8/fp8), D/8 lanes
+// cover a row, a warp covers several rows at once, each lane issues kUnroll
+// rows' K and V loads (and their scales) before it computes on any of them,
+// and eight warps share a (slot, head). Splitting one slot's sequence over
+// several blocks (split-K flash decoding), which a long context at small
+// batch needs to fill all 132 SMs, is later work.
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError() of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "pool_load.cuh"
 
 namespace {
 
@@ -45,39 +53,15 @@ constexpr int kUnroll = 4;    // rows per lane in flight
 constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // grid (H, B); block kWarps * 32 threads. G = lanes per row, a power of two
-// >= D / 8; 32 / G rows per warp per step.
-template <typename T>
+// >= D / 8; 32 / G rows per warp per step. T: query/output type; P: pool
+// element type (T itself, or int8_t / __nv_fp8_e4m3 with kQuant).
+template <typename T, typename P, bool kQuant>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
-                       const T* __restrict__ kp, const T* __restrict__ vp,
+                       const P* __restrict__ kp, const P* __restrict__ vp,
+                       const float* __restrict__ ks,
+                       const float* __restrict__ vs,
                        const int* __restrict__ table, int maxp,
                        const int* __restrict__ lengths, T* __restrict__ out,
                        int H, int D, int page, float scale, int G) {
@@ -107,20 +91,31 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
   // the whole warp); lanes past the length just skip their update
   for (int t0 = warp * groups + grp; t0 - grp < len; t0 += step * kUnroll) {
     float kv[kUnroll][kVec], vv[kUnroll][kVec];
+    float ksc[kUnroll], vsc[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u * step;
-      if (active && t < len) {
+      ksc[u] = vsc[u] = 1.f;
+      if (t < len) {
         const int pg = t / page;
-        const long long base =
-            ((long long)trow[pg] * page + (t - pg * page)) * row +
-            (long long)h * D + d0;
-        load8(kp + base, kv[u]);
-        load8(vp + base, vv[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) kv[u][e] = vv[u][e] = 0.f;
+        const int pid = trow[pg];
+        if (kQuant) {
+          // every lane of a row group, active or not, takes the row's scale:
+          // the reduced score below must be the same on all of them
+          ksc[u] = ks[(long long)pid * H + h];
+          vsc[u] = vs[(long long)pid * H + h];
+        }
+        if (active) {
+          const long long base =
+              ((long long)pid * page + (t - pg * page)) * row +
+              (long long)h * D + d0;
+          load8(kp + base, kv[u]);
+          load8(vp + base, vv[u]);
+          continue;
+        }
       }
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) kv[u][e] = vv[u][e] = 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -130,12 +125,13 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
       for (int o = G >> 1; o > 0; o >>= 1)
         part += __shfl_xor_sync(0xffffffffu, part, o);
       if (t0 + u * step >= len) continue;
-      const float s = part * scale;
+      const float s = kQuant ? part * (ksc[u] * scale) : part * scale;
       const float mn = fmaxf(m, s);
       const float alpha = expf(m - mn), p = expf(s - mn);
       l = l * alpha + p;
+      const float pv = kQuant ? p * vsc[u] : p;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[e] = fmaf(p, vv[u][e], acc[e] * alpha);
+      for (int e = 0; e < kVec; ++e) acc[e] = fmaf(pv, vv[u][e], acc[e] * alpha);
       m = mn;
     }
   }
@@ -180,28 +176,31 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
   }
 }
 
-template <typename T>
+template <typename T, typename P, bool kQuant>
 cudaError_t launch(const void* q, long long qsb, long long qsh,
-                   const void* kp, const void* vp, const int* table, int maxp,
+                   const void* kp, const void* vp, const void* ks,
+                   const void* vs, const int* table, int maxp,
                    const int* lengths, void* out, int B, int H, int D,
                    int page, float scale, cudaStream_t stream) {
   int G = 1;
   while (G * kVec < D) G <<= 1;
   dim3 grid(H, B);
-  paged_attention_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), qsb, qsh, static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, maxp, lengths, static_cast<T*>(out),
-      H, D, page, scale, G);
+  paged_attention_kernel<T, P, kQuant><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), qsb, qsh, static_cast<const P*>(kp),
+      static_cast<const P*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), table, maxp, lengths,
+      static_cast<T*>(out), H, D, page, scale, G);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q: [B, H, D] with D contiguous and
-// strides (qsb, qsh) in elements; k_pages / v_pages: one layer's contiguous
-// [num_pages, page, H, D] pool; table: [B, maxp] int32 pool page ids;
-// lengths: [B] int32; out: contiguous [B, H, D]. Requires D % 8 == 0 and
-// 8 <= D <= 128 and 16-byte aligned pools (the wrapper checks).
+// dtype: 0 = float32, 1 = bfloat16 (query, output and pool). q: [B, H, D]
+// with D contiguous and strides (qsb, qsh) in elements; k_pages / v_pages:
+// one layer's contiguous [num_pages, page, H, D] pool; table: [B, maxp] int32
+// pool page ids; lengths: [B] int32; out: contiguous [B, H, D]. Requires
+// D % 8 == 0 and 8 <= D <= 128 and 16-byte aligned pools (the wrapper
+// checks).
 extern "C" int sf_paged_attention(int dtype, const void* q, long long qsb,
                                   long long qsh, const void* k_pages,
                                   const void* v_pages, const void* table,
@@ -213,7 +212,34 @@ extern "C" int sf_paged_attention(int dtype, const void* q, long long qsb,
   const int* n = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = dtype == 0
-      ? launch<float>(q, qsb, qsh, k_pages, v_pages, t, maxp, n, out, B, H, D, page, scale, s)
-      : launch<__nv_bfloat16>(q, qsb, qsh, k_pages, v_pages, t, maxp, n, out, B, H, D, page, scale, s);
+      ? launch<float, float, false>(q, qsb, qsh, k_pages, v_pages, nullptr, nullptr, t, maxp, n, out, B, H, D, page, scale, s)
+      : launch<__nv_bfloat16, __nv_bfloat16, false>(q, qsb, qsh, k_pages, v_pages, nullptr, nullptr, t, maxp, n, out, B, H, D, page, scale, s);
+  return (int)e;
+}
+
+// The quantized pool: dtype as above for q and out; pool: 0 = int8,
+// 1 = fp8 e4m3 (k_pages / v_pages); k_scales / v_scales: one layer's
+// contiguous [num_pages, H] float32 scales. Other operands as
+// sf_paged_attention.
+extern "C" int sf_paged_attention_quant(
+    int dtype, int pool, const void* q, long long qsb, long long qsh,
+    const void* k_pages, const void* v_pages, const void* k_scales,
+    const void* v_scales, const void* table, int maxp, const void* lengths,
+    void* out, int B, int H, int D, int page, float scale, void* stream) {
+  if (D % 8 != 0 || D < 8 || D > kMaxD || (pool != 0 && pool != 1) ||
+      k_scales == nullptr || v_scales == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int* t = static_cast<const int*>(table);
+  const int* n = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 0)
+    e = pool == 0
+        ? launch<float, int8_t, true>(q, qsb, qsh, k_pages, v_pages, k_scales, v_scales, t, maxp, n, out, B, H, D, page, scale, s)
+        : launch<float, __nv_fp8_e4m3, true>(q, qsb, qsh, k_pages, v_pages, k_scales, v_scales, t, maxp, n, out, B, H, D, page, scale, s);
+  else
+    e = pool == 0
+        ? launch<__nv_bfloat16, int8_t, true>(q, qsb, qsh, k_pages, v_pages, k_scales, v_scales, t, maxp, n, out, B, H, D, page, scale, s)
+        : launch<__nv_bfloat16, __nv_fp8_e4m3, true>(q, qsb, qsh, k_pages, v_pages, k_scales, v_scales, t, maxp, n, out, B, H, D, page, scale, s);
   return (int)e;
 }

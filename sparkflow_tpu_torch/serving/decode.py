@@ -21,6 +21,26 @@ device. What it keeps:
 - **Chunked prefill** (``prefill_chunk=N``) admits a long prompt at once and
   advances its suffix one N-token chunk per :meth:`step`, run together
   with the decode step; the first token surfaces from :meth:`step`.
+- **Speculative decoding** (``spec_k=N``): a draft proposes up to N tokens
+  per slot — self-speculation through the target's first ``draft_layers``
+  blocks over the same paged pool (default ``num_layers // 2``), or an
+  external ``draft_model`` with its own dense cache — then ONE verify call
+  (:meth:`TransformerLM.decode_verify` over
+  :func:`~sparkflow_tpu_torch.ops.paged_attention_verify`, the CUDA
+  ``paged_verify`` kernel) scores all N + 1 positions of every live slot.
+  The longest draft prefix matching the target's greedy argmax commits,
+  plus the target's own bonus token, and the rest rolls back through
+  :meth:`PagedKVCache.truncate`. Greedy output equals non-speculative
+  decoding; temperature slots run with a window of 0 and sample their token
+  from the verify logits at position 0.
+- **Quantized KV** (``kv_quant="int8"|"fp8"``): each pool is a ``(rows,
+  scales)`` pair — int8 or float8_e4m3fn rows plus ``[layers, pages,
+  heads]`` float32 scales (:mod:`~sparkflow_tpu_torch.utils.quant`); writes
+  quantize with a running per-page-per-head absmax, and every attend reads
+  the quantized rows with the scales folded into the kernels'
+  accumulations (the ``paged_attention`` and ``paged_verify`` kernels'
+  quantized instantiations). Construction measures the quantization's
+  logit error once (``stats()["kv_quant_error"]``).
 - **Sampling** is greedy at ``temperature == 0``; otherwise temperature +
   per-slot top-k (clamped to ``max_top_k``) from a per-slot
   ``torch.Generator`` (seeded ``seed + slot``, re-seeded by a request's
@@ -31,13 +51,13 @@ device. What it keeps:
 What changes: there is no ``jit`` and no AOT executable — the engine runs
 eagerly under ``torch.inference_mode()`` and the pools are updated in
 place. ``stats()`` keeps the keys the server and ``/healthz`` read;
-``traces`` / ``steady_traces`` read 0 (nothing is traced).
+``traces`` / ``steady_traces`` read 0 (nothing is traced). The
+quantization-error probe lets a failure raise (the JAX engine swallows it):
+on the card it runs the kernels, and a kernel fault must not pass unseen.
 
-Not yet ported, and refused with a ``ValueError`` naming ROADMAP.md:
-speculative decoding (``spec_k``, ``draft_layers``, ``draft_model``,
-``draft_params``), quantized KV (``kv_quant``), model parallelism
-(``mesh``, ``sharding``, ``pp_wave``) and serialized executables
-(``executable_dir``).
+Not yet ported, and refused with a ``ValueError`` naming ROADMAP.md: model
+parallelism (``mesh``, ``sharding``, ``pp_wave``) and serialized
+executables (``executable_dir``).
 
 The engine is mechanism only — slot admission at token boundaries, queueing,
 futures and drain semantics live in
@@ -56,9 +76,10 @@ import torch
 
 from ..convert import params_from_jax
 from ..obs.spans import span as obs_span
-from ..ops import paged_attention
+from ..ops import paged_attention, paged_attention_verify
 from ..resilience import faults
 from ..utils import metrics as metrics_mod
+from ..utils import quant
 from .kvcache import OutOfPages, PagedKVCache
 
 __all__ = ["DecodeEngine"]
@@ -82,6 +103,35 @@ def _not_yet(option: str):
                      f"PyTorch (see ROADMAP.md)")
 
 
+def _as_tree(model, params, device):
+    """Any accepted params form -> the port's tree on ``device``, shapes
+    checked against ``model.param_specs()``."""
+    if params is None:
+        return model.params()
+    if isinstance(params, (list, tuple)) or any(
+            not isinstance(t, torch.Tensor)
+            for layer in params.values() for t in layer.values()):
+        return params_from_jax(model, params, device=device)
+    specs = model.param_specs()
+    if set(specs) != set(params):
+        raise ValueError("params tree does not match the model's "
+                         "param_specs() layers")
+    out = {}
+    for ln, ps in specs.items():
+        if set(ps) != set(params[ln]):
+            raise ValueError(f"params[{ln!r}] does not match the model's "
+                             f"param_specs()")
+        layer = {}
+        for pn, (shape, _init) in ps.items():
+            t = params[ln][pn]
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{ln}/{pn} has shape {tuple(t.shape)}, "
+                                 f"expected {tuple(shape)}")
+            layer[pn] = t.to(device)
+        out[ln] = layer
+    return out
+
+
 class DecodeEngine:
     """Continuous-decode mechanism over a paged KV cache.
 
@@ -97,11 +147,25 @@ class DecodeEngine:
     num_slots, page_size, num_pages, max_seq_len, max_top_k, prefill_chunk,
     prefix_cache, metrics
         As in the JAX engine.
+    spec_k : int
+        Speculative window: draft up to ``spec_k`` tokens per slot per step
+        and verify them (plus a bonus token) in one target call; 0 (default)
+        is off. At most ``MAX_VERIFY_ROWS - 1`` (15) on the card.
+    draft_layers : int | None
+        Self-speculation depth (default ``num_layers // 2``).
+    draft_model, draft_params
+        An external draft (same vocab) instead of self-speculation: a model
+        or a registry spec JSON (loaded on the engine's device) and its
+        params in any form ``params`` takes.
+    kv_quant : str | None
+        ``None``/``"bf16"`` keeps the compute-dtype pool; ``"int8"`` /
+        ``"fp8"`` store quantized rows plus per-page-per-head float32 scales.
     seed : int
         Slot ``i``'s sampling generator starts at ``seed + i``.
     warmup : bool
         Build the CUDA kernels now (on the card) so the first request does
-        not pay the compile.
+        not pay the compile, and measure ``kv_quant_error`` for a quantized
+        pool.
     """
 
     def __init__(self, model, params=None, *, num_slots: int = 8,
@@ -116,12 +180,8 @@ class DecodeEngine:
                  kv_quant: Optional[str] = None,
                  executable_dir: Optional[str] = None,
                  metrics: Optional[metrics_mod.Metrics] = None):
-        unported = {"spec_k": spec_k or None, "draft_layers": draft_layers,
-                    "draft_model": draft_model, "draft_params": draft_params,
-                    "mesh": mesh, "sharding": sharding,
+        unported = {"mesh": mesh, "sharding": sharding,
                     "pp_wave": None if pp_wave else pp_wave,
-                    "kv_quant": (None if kv_quant in (None, "bf16")
-                                 else kv_quant),
                     "executable_dir": executable_dir}
         for name, value in unported.items():
             if value is not None:
@@ -150,12 +210,28 @@ class DecodeEngine:
         self.max_pages_per_slot = math.ceil(self.max_seq_len / self.page_size)
         if num_pages is None:
             num_pages = self.num_slots * self.max_pages_per_slot + 1
-        self.kv_quant = "bf16"
+        # the pool layout is validated here so a misconfigured replica fails
+        # at construction, not at its first decode
+        self.kv_quant = ("bf16" if kv_quant in (None, "bf16")
+                         else str(kv_quant))
+        if self.kv_quant not in quant.KV_DTYPES:
+            raise ValueError(f"kv_quant must be one of {quant.KV_DTYPES} or "
+                             f"None, got {kv_quant!r}")
+        if not quant.kv_quant_supported(self.kv_quant):
+            raise ValueError(
+                "kv_quant='fp8' needs torch.float8_e4m3fn, which this torch "
+                "does not expose; use 'int8'")
+        self._quantized = self.kv_quant != "bf16"
+        self._kv_quant_error: Optional[float] = None
         pool_dtype = model.compute_dtype or torch.float32
-        itemsize = torch.empty((), dtype=pool_dtype).element_size()
+        heads, hd = int(model.num_heads), int(model.head_dim)
+        # device bytes of one page across K and V and all layers: rows plus,
+        # quantized, one float32 scale per page-head
+        itemsize = (1 if self._quantized
+                    else torch.empty((), dtype=pool_dtype).element_size())
         self._kv_bytes_per_page = 2 * int(model.num_layers) * (
-            self.page_size * int(model.num_heads) * int(model.head_dim)
-            * itemsize)
+            self.page_size * heads * hd * itemsize
+            + (heads * 4 if self._quantized else 0))
         self.kv = PagedKVCache(num_pages, self.page_size, self.num_slots,
                                self.max_pages_per_slot, metrics=self.metrics,
                                kv_dtype=self.kv_quant,
@@ -173,19 +249,35 @@ class DecodeEngine:
         # width of one suffix chunk: the chunk size when chunking, else one
         # page (prefix-hit suffixes are typically short)
         self._chunk_width = self.prefill_chunk or self.page_size
+        self._init_spec(spec_k, draft_layers, draft_model, draft_params)
 
-        tree = self._as_tree(params)
+        tree = _as_tree(model, params, self.device)
         self._weights_template = {
             ln: {pn: (tuple(t.shape), t.dtype) for pn, t in layer.items()}
             for ln, layer in tree.items()}
         self._params = tree
-        pool_shape = (model.num_layers, num_pages, self.page_size,
-                      model.num_heads, model.head_dim)
+        pool_shape = (model.num_layers, num_pages, self.page_size, heads, hd)
         with torch.inference_mode():
-            self._k_pool = torch.zeros(pool_shape, dtype=pool_dtype,
-                                       device=self.device)
-            self._v_pool = torch.zeros(pool_shape, dtype=pool_dtype,
-                                       device=self.device)
+            if self._quantized:
+                store, _ = quant.kv_pool_dtype(self.kv_quant)
+                scale_shape = pool_shape[:2] + (heads,)
+                self._k_pool, self._v_pool = (
+                    (torch.zeros(pool_shape, dtype=store, device=self.device),
+                     torch.zeros(scale_shape, device=self.device))
+                    for _ in range(2))
+            else:
+                self._k_pool, self._v_pool = (
+                    torch.zeros(pool_shape, dtype=pool_dtype,
+                                device=self.device) for _ in range(2))
+            if self._draft_model is not None:
+                dm = self._draft_model
+                # dense per-slot draft cache: a clamped-window chain reaches
+                # position max_seq_len - 1 + spec_k, and the last row is the
+                # write margin masked lanes aim at (never attended)
+                self._draft_cache_len = self.max_seq_len + self.spec_k + 1
+                cache = dm.init_decode_cache(self.num_slots,
+                                             self._draft_cache_len)
+                self._draft_k, self._draft_v = cache["k"], cache["v"]
         self._gens = [self._generator(seed + i) for i in range(self.num_slots)]
         self._last_token = np.zeros(self.num_slots, np.int64)
         self._temp = np.zeros(self.num_slots, np.float32)
@@ -198,6 +290,12 @@ class DecodeEngine:
         self._steps = 0
         self._tokens_out = 0
         self._prefills = 0
+        self._spec_steps = 0
+        self._spec_slot_steps = 0   # per-slot participations in spec steps
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_draft_ms = 0.0
+        self._spec_verify_ms = 0.0
         # hot-swap state (guarded by self._lock): a prepared-but-unapplied
         # (params, version) waiting for a drained token boundary
         self._pending_swap: Optional[Tuple[Any, int]] = None
@@ -208,43 +306,172 @@ class DecodeEngine:
 
     # -- set-up ----------------------------------------------------------------
 
+    def _init_spec(self, spec_k, draft_layers, draft_model,
+                   draft_params) -> None:
+        """Validate the speculative-decoding options (the JAX engine's
+        rules and messages)."""
+        model = self.model
+        self.spec_k = int(spec_k or 0)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self.draft_layers: Optional[int] = None
+        self._draft_model = None
+        self._draft_params = None
+        if not self.spec_k:
+            if draft_model is not None or draft_layers:
+                raise ValueError(
+                    "draft_model / draft_layers require spec_k >= 1")
+            return
+        if draft_model is None:
+            n = (int(draft_layers) if draft_layers
+                 else max(1, int(model.num_layers) // 2))
+            if not 1 <= n <= int(model.num_layers):
+                raise ValueError(
+                    f"draft_layers={n} outside [1, {model.num_layers}]")
+            self.draft_layers = n
+            return
+        if isinstance(draft_model, str):
+            from ..models import model_from_json
+            draft_model = model_from_json(draft_model, device=self.device)
+        for need in ("prefill", "decode_step"):
+            if not hasattr(draft_model, need):
+                raise TypeError(f"draft_model has no {need}(); it must be a "
+                                f"causal LM")
+        if int(draft_model.vocab_size) != int(model.vocab_size):
+            raise ValueError(
+                f"draft vocab_size={draft_model.vocab_size} != target "
+                f"vocab_size={model.vocab_size}")
+        if draft_params is None:
+            raise ValueError("draft_model requires draft_params")
+        if draft_model.device != self.device:
+            raise ValueError(f"draft_model is on {draft_model.device}, the "
+                             f"engine on {self.device}")
+        self._draft_model = draft_model
+        self._draft_params = _as_tree(draft_model, draft_params, self.device)
+
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
-    def _as_tree(self, params):
-        """Any accepted params form -> the port's tree on the model's
-        device, shapes checked against ``param_specs()``."""
-        if params is None:
-            return self.model.params()
-        if isinstance(params, (list, tuple)) or any(
-                not isinstance(t, torch.Tensor)
-                for layer in params.values() for t in layer.values()):
-            return params_from_jax(self.model, params, device=self.device)
-        specs = self.model.param_specs()
-        if set(specs) != set(params):
-            raise ValueError("params tree does not match the model's "
-                             "param_specs() layers")
-        out = {}
-        for ln, ps in specs.items():
-            if set(ps) != set(params[ln]):
-                raise ValueError(f"params[{ln!r}] does not match the model's "
-                                 f"param_specs()")
-            layer = {}
-            for pn, (shape, _init) in ps.items():
-                t = params[ln][pn]
-                if tuple(t.shape) != tuple(shape):
-                    raise ValueError(f"{ln}/{pn} has shape {tuple(t.shape)}, "
-                                     f"expected {tuple(shape)}")
-                layer[pn] = t.to(self.device)
-            out[ln] = layer
-        return out
-
     def warmup(self) -> None:
-        """Build the CUDA kernels ahead of the first request (no-op on the
-        CPU, where the wrappers run their plain versions)."""
+        """Build the CUDA kernels ahead of the first request (on the card)
+        and, for a quantized pool, measure ``kv_quant_error``."""
         if self.device.type == "cuda":
             from ..ops import _build
             _build.load()
+        if self._quantized and self._kv_quant_error is None:
+            with self._lock, torch.inference_mode():
+                self._kv_quant_error_probe_locked()
+
+    def _kv_quant_error_probe_locked(self) -> None:
+        """The ``decode/kv_quant_error`` gauge: prefill one synthetic
+        page-length prompt, commit its K/V to two throwaway pools (the
+        compute dtype and the quantized layout), run one decode step through
+        each and record the largest absolute logit difference. The serving
+        pools are untouched. A failure raises — on the card this runs the
+        paged kernels."""
+        model, page = self.model, self.page_size
+        dev = self.device
+        store, _ = quant.kv_pool_dtype(self.kv_quant)
+        ref_dt = model.compute_dtype or torch.float32
+        rng = np.random.default_rng(0)
+        ids = torch.as_tensor(rng.integers(0, model.vocab_size, (1, page)),
+                              device=dev)
+        logits, kvs = model.prefill(self._params, ids,
+                                    lengths=torch.as_tensor([page], device=dev))
+        L = len(kvs)
+        h, d = kvs[0][0].shape[1], kvs[0][0].shape[3]
+        shape = (L, 3, page, h, d)
+        kr = torch.zeros(shape, dtype=ref_dt, device=dev)
+        vr = torch.zeros(shape, dtype=ref_dt, device=dev)
+        kq = (torch.zeros(shape, dtype=store, device=dev),
+              torch.zeros((L, 3, h), device=dev))
+        vq = (torch.zeros(shape, dtype=store, device=dev),
+              torch.zeros((L, 3, h), device=dev))
+        pid = torch.tensor([1], device=dev)
+        for i, (k, v) in enumerate(kvs):
+            kk = k[0].transpose(0, 1)[None]                # [1, page, h, d]
+            vv = v[0].transpose(0, 1)[None]
+            kr[i, pid] = kk.to(ref_dt)
+            vr[i, pid] = vv.to(ref_dt)
+            quant.paged_quant_write_pages(kq[0], kq[1], i, pid, kk)
+            quant.paged_quant_write_pages(vq[0], vq[1], i, pid, vv)
+        table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+        tok = logits.argmax(dim=-1)
+        pos = torch.tensor([page], device=dev)
+        pids, off = table[0, pos // page].long(), pos % page
+
+        def attend_ref(layer, q, k_new, v_new, cache, p):
+            kp, vp = cache
+            kp[layer, pids, off] = k_new.to(kp.dtype)
+            vp[layer, pids, off] = v_new.to(vp.dtype)
+            out = paged_attention(q, kp[layer], vp[layer], table,
+                                  (p + 1).to(torch.int32))
+            return out.to(q.dtype), cache
+
+        def attend_q(layer, q, k_new, v_new, cache, p):
+            kp, vp = cache
+            quant.paged_quant_append(kp[0], kp[1], layer, pids, off, k_new)
+            quant.paged_quant_append(vp[0], vp[1], layer, pids, off, v_new)
+            out = paged_attention(q, kp[0][layer], vp[0][layer], table,
+                                  (p + 1).to(torch.int32),
+                                  k_scales=kp[1][layer],
+                                  v_scales=vp[1][layer])
+            return out.to(q.dtype), cache
+
+        lg_ref, _ = model.decode_step(self._params, (kr, vr), tok, pos,
+                                      attend=attend_ref)
+        lg_q, _ = model.decode_step(self._params, (kq, vq), tok, pos,
+                                    attend=attend_q)
+        err = float((lg_q.float() - lg_ref.float()).abs().max())
+        self._kv_quant_error = err
+        self.metrics.gauge("decode/kv_quant_error", err)
+
+    # -- pool layout ------------------------------------------------------------
+    #
+    # With kv_quant on, each pool is a (rows int8/fp8, scales f32) pair;
+    # these keep the attend closures layout-agnostic. All writes are in place.
+
+    def _kv_rows(self, pool, layer, pids, offs, rows) -> None:
+        """Write token rows at ``(layer, pids, offs)``, any batch shape;
+        a quantized pool keeps its running per-page-per-head scale."""
+        if self._quantized:
+            quant.paged_quant_append(pool[0], pool[1], layer, pids, offs, rows)
+        else:
+            pool[layer, pids, offs] = rows.to(pool.dtype)
+
+    def _kv_pages(self, pool, layer, page_ids, pages) -> None:
+        """Commit whole pages at ``(layer, page_ids)`` (ladder prefill)."""
+        if self._quantized:
+            quant.paged_quant_write_pages(pool[0], pool[1], layer, page_ids,
+                                          pages)
+        else:
+            pool[layer, page_ids] = pages.to(pool.dtype)
+
+    def _kv_gather(self, pool, layer, page_ids) -> torch.Tensor:
+        """Pages as float32 rows ``[..., page, heads, d]``, dequantizing the
+        gathered pages only."""
+        if self._quantized:
+            return quant.paged_quant_gather(pool[0], pool[1], layer, page_ids)
+        return pool[layer, page_ids].float()
+
+    def _paged_att(self, q, kp, vp, layer, table, lengths):
+        if self._quantized:
+            return paged_attention(q, kp[0][layer], vp[0][layer], table,
+                                   lengths, k_scales=kp[1][layer],
+                                   v_scales=vp[1][layer])
+        return paged_attention(q, kp[layer], vp[layer], table, lengths)
+
+    def _paged_verify_att(self, q, kp, vp, layer, table, start):
+        if self._quantized:
+            return paged_attention_verify(q, kp[0][layer], vp[0][layer],
+                                          table, start, k_scales=kp[1][layer],
+                                          v_scales=vp[1][layer])
+        return paged_attention_verify(q, kp[layer], vp[layer], table, start)
+
+    def _pool_tensors(self):
+        """Every device tensor of the K and V pools (rows, and scales)."""
+        pools = (self._k_pool, self._v_pool)
+        return [t for p in pools for t in (p if self._quantized else (p,))]
 
     # -- device pieces -----------------------------------------------------------
 
@@ -270,7 +497,7 @@ class DecodeEngine:
 
     def _decode(self, token: np.ndarray, pos: np.ndarray,
                 table: np.ndarray) -> torch.Tensor:
-        """One token for every lane: scatter each lane's new K/V row into its
+        """One token for every lane: write each lane's new K/V row into its
         page, attend over the pool through the page table; returns logits
         [num_slots, vocab] f32."""
         dev, page = self.device, self.page_size
@@ -284,9 +511,9 @@ class DecodeEngine:
 
         def attend(layer, q, k_new, v_new, cache, _pos):
             kp, vp = cache
-            kp[layer, page_ids, off] = k_new.to(kp.dtype)
-            vp[layer, page_ids, off] = v_new.to(vp.dtype)
-            out = paged_attention(q, kp[layer], vp[layer], table_t, lengths)
+            self._kv_rows(kp, layer, page_ids, off, k_new)
+            self._kv_rows(vp, layer, page_ids, off, v_new)
+            out = self._paged_att(q, kp, vp, layer, table_t, lengths)
             return out.to(q.dtype), cache
 
         logits, _ = self.model.decode_step(
@@ -310,8 +537,8 @@ class DecodeEngine:
                                               k.shape[3])
             vv = v[0].transpose(0, 1).reshape(npages, page, v.shape[1],
                                               v.shape[3])
-            self._k_pool[i, pid] = kk.to(self._k_pool.dtype)
-            self._v_pool[i, pid] = vv.to(self._v_pool.dtype)
+            self._kv_pages(self._k_pool, i, pid, kk)
+            self._kv_pages(self._v_pool, i, pid, vv)
         return logits
 
     def _suffix_chunk(self, ids: np.ndarray, start: int, valid: int,
@@ -336,12 +563,12 @@ class DecodeEngine:
 
         def attend(layer, q, k_new, v_new, cache, _start):
             kp, vp = cache
-            kp[layer, pids, off] = k_new[0].transpose(0, 1).to(kp.dtype)
-            vp[layer, pids, off] = v_new[0].transpose(0, 1).to(vp.dtype)
-            hk = kp[layer, row].float().reshape(maxp * page, -1,
-                                                model.head_dim)
-            hv = vp[layer, row].float().reshape(maxp * page, -1,
-                                                model.head_dim)
+            self._kv_rows(kp, layer, pids, off, k_new[0].transpose(0, 1))
+            self._kv_rows(vp, layer, pids, off, v_new[0].transpose(0, 1))
+            hk = self._kv_gather(kp, layer, row).reshape(maxp * page, -1,
+                                                         model.head_dim)
+            hv = self._kv_gather(vp, layer, row).reshape(maxp * page, -1,
+                                                         model.head_dim)
             s = torch.einsum("hcd,lhd->hcl", q[0].float(), hk) * scale
             s = torch.where(causal[None], s, NEG_INF)
             p = torch.softmax(s, dim=-1)
@@ -354,6 +581,107 @@ class DecodeEngine:
             (self._k_pool, self._v_pool), attend,
             lengths=torch.as_tensor([valid], device=dev))
         return logits
+
+    def _self_draft(self, token, start, table, nappend) -> torch.Tensor:
+        """Self-speculation: a ``spec_k``-step greedy chain through the
+        target's first ``draft_layers`` blocks, reading and writing the same
+        paged pool the verify pass uses — a truncated stack's layer-i K/V is
+        the full stack's, and the verify pass rewrites every chunk position
+        anyway. Writes past a slot's appended room go to scratch page 0.
+        Returns the drafts [B, spec_k]."""
+        page, maxp = self.page_size, self.max_pages_per_slot
+        bidx = torch.arange(self.num_slots, device=self.device)
+        writable = start + nappend         # first position with no room
+        pools = (self._k_pool, self._v_pool)
+        toks, tok = [], token
+        for j in range(self.spec_k):
+            pos = start + j
+            pids = table[bidx, (pos // page).clamp(0, maxp - 1)].long()
+            pids = torch.where(pos < writable, pids, 0)
+            off = pos % page
+            lengths = (pos + 1).to(torch.int32)
+
+            def attend(layer, q, k_new, v_new, cache, _pos, pids=pids,
+                       off=off, lengths=lengths):
+                kp, vp = cache
+                self._kv_rows(kp, layer, pids, off, k_new)
+                self._kv_rows(vp, layer, pids, off, v_new)
+                out = self._paged_att(q, kp, vp, layer, table, lengths)
+                return out.to(q.dtype), cache
+
+            logits, _ = self.model.decode_step(
+                self._params, pools, tok, pos, attend=attend,
+                num_layers=self.draft_layers)
+            tok = logits.argmax(dim=-1)
+            toks.append(tok)
+        return torch.stack(toks, dim=1)
+
+    def _ext_draft(self, token, start, live) -> torch.Tensor:
+        """External draft: the draft model's greedy ``spec_k`` steps over its
+        own dense per-slot cache (plain torch attention, as in the JAX
+        engine). Rejected positions leave stale rows behind that the next
+        chain overwrites before anything attends to them; dead lanes write
+        to the cache's margin row. Returns the drafts [B, spec_k]."""
+        dm = self._draft_model
+        CL = self._draft_cache_len
+        bidx = torch.arange(self.num_slots, device=self.device)
+        scale = 1.0 / math.sqrt(dm.head_dim)
+        lpos = torch.arange(CL, device=self.device)
+
+        def attend(layer, q, k_new, v_new, cache, p):
+            ck, cv = cache
+            p_eff = torch.where(live, p, CL - 1)
+            ck[layer][bidx, :, p_eff] = k_new.to(ck.dtype)
+            cv[layer][bidx, :, p_eff] = v_new.to(cv.dtype)
+            s = torch.einsum("bhd,bhld->bhl", q.float(),
+                             ck[layer].float()) * scale
+            ok = lpos[None, :] <= p[:, None]
+            s = torch.where(ok[:, None, :], s, NEG_INF)
+            pr = torch.softmax(s, dim=-1)
+            out = torch.einsum("bhl,bhld->bhd", pr, cv[layer].float())
+            return out.to(q.dtype), cache
+
+        toks, tok = [], token
+        for j in range(self.spec_k):
+            logits, _ = dm.decode_step(self._draft_params,
+                                       (self._draft_k, self._draft_v), tok,
+                                       start + j, attend=attend)
+            tok = logits.argmax(dim=-1)
+            toks.append(tok)
+        return torch.stack(toks, dim=1)
+
+    def _verify(self, ids, start, nvalid, table) -> torch.Tensor:
+        """One target call scoring all ``spec_k + 1`` chunk positions of
+        every slot: write the chunk's K/V into the slots' pages (positions
+        past ``nvalid`` -> scratch), attend causally per query over the
+        whole table (:func:`paged_attention_verify`). Returns the logits
+        [B, spec_k + 1, vocab] f32."""
+        page, maxp = self.page_size, self.max_pages_per_slot
+        dev = self.device
+        j = torch.arange(self.spec_k + 1, device=dev)
+        bidx = torch.arange(self.num_slots, device=dev)
+        pos_abs = start[:, None] + j[None, :]                    # [B, S]
+        pids = table[bidx[:, None], (pos_abs // page).clamp(0, maxp - 1)]
+        pids = torch.where(j[None, :] < nvalid[:, None], pids.long(), 0)
+        off = pos_abs % page
+        start32 = start.to(torch.int32)
+
+        def attend(layer, q, k_new, v_new, cache, _st):
+            kp, vp = cache
+            self._kv_rows(kp, layer, pids, off, k_new.transpose(1, 2))
+            self._kv_rows(vp, layer, pids, off, v_new.transpose(1, 2))
+            out = self._paged_verify_att(q, kp, vp, layer, table, start32)
+            return out.to(q.dtype), cache
+
+        logits, _ = self.model.decode_verify(
+            self._params, ids, start, (self._k_pool, self._v_pool), attend)
+        return logits
+
+    def _copy_pages(self, src: int, dst: int) -> None:
+        """Rollback COW un-alias: clone pool page ``src`` into ``dst`` in
+        every layer — the rows and, quantized, the scales."""
+        for t in self._pool_tensors():
+            t[:, dst] = t[:, src]
 
     # -- admission / prefill -------------------------------------------------
 
@@ -441,6 +769,10 @@ class DecodeEngine:
                                                          start, n)
                 if self.prefix_cache:
                     self.kv.commit_prefix(slot, prompt)  # K/V on device now
+                if self._draft_model is not None:
+                    # the draft keeps its own cache, so a prefix hit on the
+                    # target side still needs a full draft prefill
+                    self._draft_prefill_locked(slot, prompt)
                 first = int(self._sample(logits, [slot],
                                          self._temp[[slot]],
                                          self._topk[[slot]])[0])
@@ -476,14 +808,38 @@ class DecodeEngine:
             p += c
         return logits
 
+    def _draft_prefill_locked(self, slot: int, prompt: List[int]) -> None:
+        """Fill the external draft's dense cache lane of ``slot``: one
+        forward of the bucket-padded prompt through the draft model (padding
+        rows past the prompt are overwritten by the first draft chain
+        before anything attends to them)."""
+        n = len(prompt)
+        bucket = next(b for b in self.prefill_buckets if n <= b)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :n] = prompt
+        with obs_span("serving/decode_draft_prefill",
+                      args={"bucket": bucket, "slot": int(slot)},
+                      profiler_annotation=True):
+            _logits, kvs = self._draft_model.prefill(
+                self._draft_params, torch.as_tensor(ids, device=self.device),
+                lengths=torch.as_tensor([n], device=self.device))
+            for i, (k, v) in enumerate(kvs):
+                self._draft_k[i, slot, :, :bucket] = k[0].to(
+                    self._draft_k.dtype)
+                self._draft_v[i, slot, :, :bucket] = v[0].to(
+                    self._draft_v.dtype)
+
     # -- decode --------------------------------------------------------------
 
     def step(self) -> Dict[int, List[int]]:
         """One decode iteration over every decode-ready slot: append page
-        room, run the step, return ``{slot: [token]}``. A pending chunked
-        prefill advances one chunk here, before the decode step; a slot
-        whose final chunk just committed contributes its *first* token.
-        No-op (empty dict) when nothing is active."""
+        room, run the step, return ``{slot: [tokens...]}`` — one token per
+        slot, or up to ``spec_k + 1`` with speculation on (the accepted
+        drafts and the target's bonus token, in order). A pending chunked
+        prefill advances one chunk here, before a plain decode step (the
+        speculative path stands down for that iteration); a slot whose final
+        chunk just committed contributes its *first* token. No-op (empty
+        dict) when nothing is active."""
         with self._lock, torch.inference_mode():
             if self._pending_swap is not None:
                 self._maybe_swap_locked()  # lands iff fully drained
@@ -493,6 +849,8 @@ class DecodeEngine:
             state = self._pending[0] if self._pending else None
             if ready.size == 0 and state is None:
                 return {}
+            if self.spec_k and state is None:
+                return self._spec_step_locked(ready)
             t0 = time.perf_counter()
             # the incoming token occupies position == current length: make
             # sure its page exists, then pass the PRE-append position
@@ -529,6 +887,8 @@ class DecodeEngine:
                     slot = state["slot"]
                     if self.prefix_cache:
                         self.kv.commit_prefix(slot, state["prompt"])
+                    if self._draft_model is not None:
+                        self._draft_prefill_locked(slot, state["prompt"])
                     if state["seed"] is not None:
                         self._gens[slot] = self._generator(state["seed"])
                     first = int(self._sample(chunk_logits, [slot],
@@ -560,6 +920,116 @@ class DecodeEngine:
                                  int(ready.size))
             self.metrics.observe("serving/decode/token_latency_ms", dt_ms)
         return out
+
+    def _spec_step_locked(self, ready: np.ndarray) -> Dict[int, List[int]]:
+        """One speculative iteration: clamp each slot's window to its page
+        room (temperature slots to 0), append the whole window's room, run
+        the draft chain then the single verify call, commit the longest
+        matching prefix + bonus per slot, and roll the rest back through
+        :meth:`PagedKVCache.truncate`."""
+        t0 = time.perf_counter()
+        K, B, dev = self.spec_k, self.num_slots, self.device
+        lengths0 = self.kv.lengths()
+        rooms = self.kv.token_rooms()
+        mask = np.zeros(B, bool)
+        mask[ready] = True
+        kb = np.zeros(B, np.int64)
+        for s in ready:
+            want = K if self._temp[s] == 0.0 else 0
+            kb[s] = max(0, min(want, int(rooms[s]) - 1))
+        nappend = np.where(mask, kb + 1, 0)
+        for s in ready:
+            self.kv.append(int(s), int(nappend[s]))
+        table = self.kv.page_tables()
+        table[~mask] = 0
+        # chunk base: the incoming token sits at the pre-append length
+        start = np.where(mask, lengths0, 0).astype(np.int64)
+        token = np.where(mask, self._last_token, 0).astype(np.int64)
+        table_t = torch.as_tensor(table, dtype=torch.int32, device=dev)
+        start_t = torch.as_tensor(start, device=dev)
+        token_t = torch.as_tensor(token, device=dev)
+        nappend_t = torch.as_tensor(nappend, device=dev)
+
+        td = time.perf_counter()
+        with obs_span("serving/decode_draft",
+                      args={"active": int(ready.size)},
+                      profiler_annotation=True):
+            if self._draft_model is None:
+                drafts_t = self._self_draft(token_t, start_t, table_t,
+                                            nappend_t)
+            else:
+                drafts_t = self._ext_draft(
+                    token_t, start_t, torch.as_tensor(mask, device=dev))
+            drafts = drafts_t.cpu().numpy()                  # [B, K]
+        draft_ms = (time.perf_counter() - td) * 1000.0
+
+        ids = np.zeros((B, K + 1), np.int64)
+        ids[:, 0] = token
+        ids[:, 1:] = drafts
+        ids[~mask] = 0
+        tv = time.perf_counter()
+        with obs_span("serving/decode_verify",
+                      args={"active": int(ready.size)},
+                      profiler_annotation=True):
+            logits = self._verify(torch.as_tensor(ids, device=dev), start_t,
+                                  nappend_t, table_t)
+            g = logits.argmax(dim=-1).cpu().numpy()          # [B, K+1]
+            hot = [int(s) for s in ready if self._temp[s] > 0.0]
+            samp0 = {}
+            if hot:
+                # temperature slots (window 0): their token is sampled from
+                # the verify logits at position 0, one draw per step
+                drawn = self._sample(logits[torch.as_tensor(hot, device=dev),
+                                            0], hot, self._temp[hot],
+                                     self._topk[hot])
+                samp0 = dict(zip(hot, (int(t) for t in drawn)))
+        verify_ms = (time.perf_counter() - tv) * 1000.0
+
+        out: Dict[int, List[int]] = {}
+        committed_total = 0
+        for s in ready:
+            s = int(s)
+            k_b = int(kb[s])
+            a = 0
+            while a < k_b and drafts[s, a] == g[s, a]:
+                a += 1
+            bonus = samp0[s] if s in samp0 else int(g[s, a])
+            for src, dst in self.kv.truncate(s, int(lengths0[s]) + a + 1):
+                self._copy_pages(int(src), int(dst))
+            toks = [int(drafts[s, i]) for i in range(a)] + [bonus]
+            self._last_token[s] = bonus
+            out[s] = toks
+            self._spec_proposed += k_b
+            self._spec_accepted += a
+            committed_total += len(toks)
+
+        self._spec_steps += 1
+        self._spec_slot_steps += int(ready.size)
+        self._steps += 1
+        self._tokens_out += committed_total
+        self._spec_draft_ms = draft_ms
+        self._spec_verify_ms = verify_ms
+        dt_ms = (time.perf_counter() - t0) * 1000.0
+        self.metrics.observe("serving/decode/step_ms", dt_ms)
+        self.metrics.observe("serving/decode/step_active", int(ready.size))
+        self.metrics.observe("serving/decode/draft_ms", draft_ms)
+        self.metrics.observe("serving/decode/verify_ms", verify_ms)
+        # amortized per-token latency: one observation per committed token so
+        # the histogram's percentiles stay per-token like the plain path
+        per_tok = dt_ms / max(1, committed_total)
+        for _ in range(committed_total):
+            self.metrics.observe("serving/decode/token_latency_ms", per_tok)
+        self.metrics.gauge("decode/spec/accept_rate", self._accept_rate())
+        self.metrics.gauge("decode/spec/mean_accepted",
+                           self._spec_accepted
+                           / max(1, self._spec_slot_steps))
+        self.metrics.gauge("decode/spec/draft_ms", draft_ms)
+        self.metrics.gauge("decode/spec/verify_ms", verify_ms)
+        return out
+
+    def _accept_rate(self) -> float:
+        return (self._spec_accepted / self._spec_proposed
+                if self._spec_proposed else 0.0)
 
     def release(self, slot: int) -> None:
         """Retire a finished sequence at a token boundary: its pages return
@@ -594,7 +1064,7 @@ class DecodeEngine:
         versions; ``can_admit`` holds new admissions meanwhile. Returns True
         if the swap applied immediately (engine idle)."""
         faults.fire("engine.swap")  # chaos hook; no-op unless armed
-        tree = self._as_tree(params)
+        tree = _as_tree(self.model, params, self.device)
         for ln, layer in self._weights_template.items():
             for pn, (shape, dtype) in layer.items():
                 t = tree[ln][pn]
@@ -639,8 +1109,8 @@ class DecodeEngine:
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
-            kv_bytes = (self._k_pool.numel() * self._k_pool.element_size()
-                        + self._v_pool.numel() * self._v_pool.element_size())
+            kv_bytes = sum(t.numel() * t.element_size()
+                           for t in self._pool_tensors())
             param_bytes = sum(t.numel() * t.element_size()
                               for layer in self._params.values()
                               for t in layer.values())
@@ -663,12 +1133,24 @@ class DecodeEngine:
                 "swaps": self._swaps,
                 "pending_swap": self._pending_swap is not None,
                 "kv_quant": self.kv_quant,
-                "kv_quant_error": None,
-                "spec": {"enabled": False, "k": 0, "mode": None,
-                         "draft_layers": None, "steps": 0, "proposed": 0,
-                         "accepted": 0, "accept_rate": 0.0,
-                         "mean_accepted": 0.0, "draft_ms": 0.0,
-                         "verify_ms": 0.0},
+                "kv_quant_error": self._kv_quant_error,
+                "spec": {
+                    "enabled": bool(self.spec_k),
+                    "k": self.spec_k,
+                    "mode": ("external" if self._draft_model is not None
+                             else ("self" if self.spec_k else None)),
+                    "draft_layers": self.draft_layers,
+                    "steps": self._spec_steps,
+                    "proposed": self._spec_proposed,
+                    "accepted": self._spec_accepted,
+                    "accept_rate": self._accept_rate(),
+                    # mean draft tokens accepted per slot per spec step
+                    "mean_accepted": (self._spec_accepted
+                                      / self._spec_slot_steps
+                                      if self._spec_slot_steps else 0.0),
+                    "draft_ms": self._spec_draft_ms,
+                    "verify_ms": self._spec_verify_ms,
+                },
                 "kv": self.kv.stats(),
                 "parallel": {"mesh": None, "tp": 1, "ep": 1, "pp": 1,
                              "stages": 1, "pp_wave": False,

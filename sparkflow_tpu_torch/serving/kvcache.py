@@ -81,12 +81,9 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from ..utils import metrics as metrics_mod
+from ..utils.quant import KV_DTYPES
 
 __all__ = ["PagedKVCache", "OutOfPages", "KV_DTYPES"]
-
-# KV pool element layouts the page accounting knows about; only "bf16" (the
-# compute-dtype pool) is served by this package so far
-KV_DTYPES = ("bf16", "int8", "fp8")
 
 
 class OutOfPages(Exception):

@@ -1,1 +1,2 @@
-"""Utilities carried from the JAX package (``metrics``)."""
+"""Utilities carried from the JAX package (``metrics``, and the KV-pool
+layer of ``quant``)."""

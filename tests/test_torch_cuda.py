@@ -273,3 +273,146 @@ def test_remat_on_card_recomputes_the_forward_kernel(dev):
     assert fits[0][1] == fits[1][1]
     for a, b in zip(fits[0][2], fits[1][2]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- quantized paged attention and paged verify attention ---------------------
+#
+# Tolerances as for the plain paged kernel: both sides compute in float32
+# from the same stored rows and scales and round the output once.
+
+
+def _quant_pools(kp, vp, pool):
+    """``(rows, scales)`` of a float pool quantized to ``pool`` ("int8" /
+    "fp8"), with a page-head of scale 0 (its rows all zero, so never
+    written) and a page rescaled mid-fill (a late row with a larger absmax
+    appended through the running-scale path)."""
+    from sparkflow_tpu_torch.utils import quant
+    kp, vp = kp.float().clone(), vp.float().clone()
+    kp[5, :, 3] = 0.0
+    vp[5, :, 3] = 0.0
+    out = []
+    for pages in (kp, vp):
+        rows, scales = quant.quantize_kv_pages(pages, pool)
+        rows, scales = rows[None].clone(), scales[None].clone()
+        late = 3.0 * pages[9, 7:8]                   # [1, H, D]
+        quant.paged_quant_append(rows, scales, 0, torch.tensor(
+            [9], device=kp.device), torch.tensor([7], device=kp.device), late)
+        out.append((rows[0], scales[0]))
+    assert bool((out[0][1][5, 3] == 0).item())
+    return out
+
+
+def _verify_starts(lengths, s):
+    return (lengths - s).clamp(min=0).to(torch.int32)
+
+
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_quant_kernel_matches_plain(dev, dtype, pool):
+    q, kp, vp, table, lengths = _paged_inputs(dev, dtype, seed=2)
+    table[5, 0] = 5                                  # reads the scale-0 head
+    table[6, 1] = 9                                  # and the rescaled page
+    (kq, ks), (vq, vs) = _quant_pools(kp, vp, pool)
+    before = (paged_attention.launches, paged_attention.quant_launches)
+    out = paged_attention(q, kq, vq, table, lengths, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.quant_launches) == (
+        before[0], before[1] + 1)
+    ref = paged_attention_reference(q, kq, vq, table, lengths, k_scales=ks,
+                                    v_scales=vs)
+    assert _max_err(out, ref) < PAGED_TOL[dtype]
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("pool", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [1, 5, 16])
+def test_paged_verify_kernel_matches_plain(dev, dtype, pool, s):
+    from sparkflow_tpu_torch.ops import (paged_attention_verify,
+                                         paged_attention_verify_reference)
+    _, kp, vp, table, lengths = _paged_inputs(dev, dtype, seed=3)
+    g = torch.Generator(device=dev).manual_seed(s)
+    # q as the model hands it over: a strided view of one qkv permutation
+    qkv = torch.randn(8, s, 3, 12, 64, generator=g, device=dev).to(dtype)
+    q = qkv.permute(2, 0, 3, 1, 4)[0]
+    start = _verify_starts(lengths, s)
+    scales = {}
+    if pool is not None:
+        table[5, 0] = 5
+        (kp, ks), (vp, vs) = _quant_pools(kp, vp, pool)
+        scales = dict(k_scales=ks, v_scales=vs)
+    counter = "launches" if pool is None else "quant_launches"
+    before = getattr(paged_attention_verify, counter)
+    out = paged_attention_verify(q, kp, vp, table, start, **scales)
+    torch.cuda.synchronize()
+    assert getattr(paged_attention_verify, counter) == before + 1
+    ref = paged_attention_verify_reference(q, kp, vp, table, start, **scales)
+    assert out.shape == (8, 12, s, 64) and out.dtype == dtype
+    assert _max_err(out, ref) < PAGED_TOL[dtype]
+
+
+def test_paged_verify_one_row_is_the_decode_kernel(dev):
+    """S = 1 is single-query decode attention with lengths = start + 1."""
+    from sparkflow_tpu_torch.ops import paged_attention_verify
+    q, kp, vp, table, lengths = _paged_inputs(dev, torch.float32, seed=4)
+    start = _verify_starts(lengths, 1)
+    one = paged_attention_verify(q[:, :, None], kp, vp, table, start)[:, :, 0]
+    dec = paged_attention(q, kp, vp, table, start + 1)
+    torch.cuda.synchronize()
+    assert _max_err(one, dec) < PAGED_TOL[torch.float32]
+
+
+def test_paged_verify_refuses_more_rows_than_the_kernel_takes(dev):
+    from sparkflow_tpu_torch.ops import MAX_VERIFY_ROWS, paged_attention_verify
+    _, kp, vp, table, lengths = _paged_inputs(dev, torch.float32)
+    q = torch.zeros(8, 12, MAX_VERIFY_ROWS + 1, 64, device=dev)
+    with pytest.raises(ValueError, match=str(MAX_VERIFY_ROWS)):
+        paged_attention_verify(q, kp, vp, table, lengths)
+
+
+@pytest.mark.parametrize("kw", [{"spec_k": 3}, {"kv_quant": "int8"},
+                                {"spec_k": 3, "kv_quant": "int8"}],
+                         ids=["spec", "int8", "spec-int8"])
+def test_spec_and_quant_engine_on_card_match_the_cpu_engine(dev, kw):
+    """Speculation and the quantized pool on the card give the greedy
+    tokens of the same engine on the CPU (the plain versions), and the
+    step goes through the new kernels."""
+    from sparkflow_tpu_torch.convert import params_from_jax
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    spec = _tiny_lm_spec()
+    cpu_model = model_from_json(spec, device="cpu")
+    params = cpu_model.init(seed=3)
+    for t in params["block_0"].values():     # wander instead of repeating
+        t.mul_(10.0)
+    flat = [t.numpy() for layer in params.values() for t in layer.values()]
+    card_model = model_from_json(spec, device="cuda")
+    prompts = [[5, 9, 2, 40, 17, 3, 3, 60, 1, 8, 22], [7, 7, 7], list(
+        range(1, 30))]
+    got = {}
+    for name, model, p in (("cpu", cpu_model, params),
+                           ("card", card_model,
+                            params_from_jax(card_model, flat))):
+        eng = DecodeEngine(model, p, num_slots=4, page_size=8, **kw)
+        reset_launch_counts()
+        got[name] = []
+        for prompt in prompts:
+            info = eng.prefill(prompt, max_new_tokens=10)
+            toks = [info["token"]]
+            while len(toks) < 10:
+                toks.extend(eng.step()[info["slot"]])
+            eng.release(info["slot"])
+            got[name].append(toks[:10])
+        if name == "card":
+            counts = launch_counts()
+            quant = "kv_quant" in kw
+            assert (counts["paged_attention_quant"] > 0) == quant
+            assert (counts["paged_attention"] > 0) != quant
+            if "spec_k" in kw:
+                want = 2 * eng.stats()["spec"]["steps"]
+                key = "paged_verify_quant" if quant else "paged_verify"
+                assert counts[key] == want
+    assert got["card"] == got["cpu"]

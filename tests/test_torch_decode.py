@@ -3,24 +3,20 @@ the CPU) against the JAX package's DecodeEngine (Pallas kernels in
 interpret mode) on the same numpy-drawn weights — greedy tokens must be
 identical — plus the port's own engine contract: page accounting, chunked
 prefill cadence, prefix hits, seeded sampling, hot swap and the options that
-are not ported yet."""
+are not ported yet (speculation and quantized KV: test_torch_spec.py,
+test_torch_kvquant.py)."""
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
-import torch
 
-from test_torch_shared import CFG, PAGE, jax_model, numpy_params, torch_model
+from test_torch_shared import (CFG, NEW, PAGE, PROMPTS, SYS, _drive,
+                               _run_all, jax_model, numpy_params,
+                               torch_model)
 from sparkflow_tpu.serving import DecodeEngine as JaxDecodeEngine
 from sparkflow_tpu_torch.convert import params_from_jax
 from sparkflow_tpu_torch.serving import (ContinuousBatcher, DecodeEngine,
                                          OutOfPages)
-
-SYS = [11, 3, 5, 8, 2, 9, 4, 6, 1, 13, 12, 10]      # shared system prefix
-PROMPTS = [[5, 2, 8], list(range(1, 25)), [33], SYS + [17, 18],
-           SYS + [17, 19, 20], [7, 7, 40, 41, 42, 43, 44, 45, 46]]
-NEW = 6
 
 
 @pytest.fixture(scope="module")
@@ -34,22 +30,6 @@ def weights():
 def torch_lm(weights):
     tm = torch_model()
     return tm, params_from_jax(tm, weights[2])
-
-
-def _drive(eng, prompt, n):
-    """n greedy tokens for one request, riding out a chunked prefill."""
-    info = eng.prefill(prompt, max_new_tokens=n, temperature=0.0)
-    toks = [] if info["token"] is None else [info["token"]]
-    while len(toks) < n:
-        toks.extend(eng.step().get(info["slot"], []))
-    eng.release(info["slot"])
-    return toks[:n], info
-
-
-def _run_all(eng):
-    out = [_drive(eng, p, NEW)[0] for p in PROMPTS]
-    out.append(_drive(eng, SYS + [17, 18], NEW)[0])   # prefix-hit replay
-    return out
 
 
 @pytest.fixture(scope="module", params=[None, 8], ids=["ladder", "chunk8"])
@@ -178,10 +158,8 @@ def test_swap_params_defers_until_drained(torch_lm, weights):
         eng.swap_params(bad)
 
 
-@pytest.mark.parametrize("kw", [{"spec_k": 2}, {"draft_layers": 1},
-                                {"kv_quant": "int8"}, {"mesh": object()},
-                                {"sharding": "tp"}, {"pp_wave": False},
-                                {"executable_dir": "x"}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"sharding": "tp"},
+                                {"pp_wave": False}, {"executable_dir": "x"}])
 def test_unported_engine_options_raise(torch_lm, kw):
     tm, tp = torch_lm
     with pytest.raises(ValueError, match="ROADMAP.md"):

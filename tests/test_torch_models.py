@@ -235,7 +235,7 @@ def test_unported_call_options_raise(pair):
     with pytest.raises(ValueError, match="tp_axis"):
         tm.prefill(tp, ids, tp_axis="tp")
     with pytest.raises(ValueError, match="kv_dtype"):
-        tm.init_decode_cache(1, kv_dtype="int8")
+        tm.init_decode_cache(1, kv_dtype="int4")
     with pytest.raises(ValueError, match="ep_axis"):
         tm.prefill(tp, ids, ep_axis="ep")
 

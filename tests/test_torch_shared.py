@@ -1,7 +1,8 @@
 """Shared set-up for the PyTorch-port parity tests (tests/test_torch_*.py;
 this module holds no tests itself):
 one small transformer_lm configuration, built in both packages, with
-weights drawn by numpy from a seed and handed to both."""
+weights drawn by numpy from a seed and handed to both, and the prompts and
+drive loop the engine parity tests share."""
 
 import numpy as np
 
@@ -41,3 +42,36 @@ def torch_model(**kw):
                                             model_from_json)
     return model_from_json(build_registry_spec("transformer_lm", **CFG),
                            device="cpu", **kw)
+
+
+SYS = [11, 3, 5, 8, 2, 9, 4, 6, 1, 13, 12, 10]      # shared system prefix
+PROMPTS = [[5, 2, 8], list(range(1, 25)), [33], SYS + [17, 18],
+           SYS + [17, 19, 20], [7, 7, 40, 41, 42, 43, 44, 45, 46]]
+NEW = 6
+
+
+def _drive(eng, prompt, n):
+    """n greedy tokens for one request, riding out a chunked prefill."""
+    info = eng.prefill(prompt, max_new_tokens=n, temperature=0.0)
+    toks = [] if info["token"] is None else [info["token"]]
+    while len(toks) < n:
+        toks.extend(eng.step().get(info["slot"], []))
+    eng.release(info["slot"])
+    return toks[:n], info
+
+
+def _run_all(eng):
+    out = [_drive(eng, p, NEW)[0] for p in PROMPTS]
+    out.append(_drive(eng, SYS + [17, 18], NEW)[0])   # prefix-hit replay
+    return out
+
+
+def to_torch(a):
+    """A JAX or numpy array as a torch tensor; fp8 (e4m3fn) is carried bit
+    for bit (torch.from_numpy does not take ml_dtypes arrays)."""
+    import torch
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    return torch.from_numpy(a.copy())
