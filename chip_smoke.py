@@ -32,7 +32,10 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    float32, with the same timings as phase 2 (the forward's too, at the
    training shape); ``library_ms`` for the backward is that of
    ``F.scaled_dot_product_attention`` at the same shape (all three
-   gradients in one call), timed by itself by CUDA-graph replay;
+   gradients in one call), timed by itself by CUDA-graph replay; each
+   backward row also gives its achieved TFLOP/s and its share of the bound
+   (``bound_ms / ms``), and in every case a second launch of each kernel
+   must give the same bits (no atomics);
 7. training: ``Trainer.fit`` on the GPT-2-small-width ``transformer_lm``
    (dropout 0.1, bf16 compute, adam, lr 3e-4) over 64 rows x 1024 tokens
    of a 1,000-id sub-vocabulary, batch 8: 8 epochs of one step each, each
@@ -40,7 +43,8 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    host read of the loss); the launch counters and the peak-memory mark are
    reset just before and read just after (12 x steps for each attention
    kernel); the losses must be finite and fall; then one more step under
-   ``torch.profiler``;
+   ``torch.profiler``, with each attention kernel's calls and device time
+   summed over every profiled event;
 8. training exactness: float32, TF32 off, full width cut to 2 layers — one
    step's loss and gradients through the kernels equal those through the
    plain attention, and 3 adam steps' losses agree within 1e-4 relative;
@@ -62,10 +66,11 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     spec-off engine's; with an int8 pool the card's tokens equal the same
     engine's on the CPU; ``kv_quant_error`` of int8 below 0.05.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8.
-The line before the last gives the card's name and power limit; the last
-line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-...}}``. Exits nonzero, printing no result, where there is no CUDA card.
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8; a ``[time]`` line gives
+each phase's wall time. The line before the last gives the card's name and
+power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
+there is no CUDA card.
 """
 
 from __future__ import annotations
@@ -387,11 +392,13 @@ def _pick(row):
                                 "library_ms")}
 
 
-def _device_profile(prof, wall_ms: float, per: int) -> dict:
+def _device_profile(prof, wall_ms: float, per: int,
+                    kernels: tuple = ()) -> dict:
     """The card's share of a profiled window: the union of its kernel, copy
     and memset intervals (GPU-side ``record_function`` ranges excluded)
-    against the window's host wall time, and the kernels that took most of
-    it, all per ``per`` (steps or prefills)."""
+    against the window's host wall time, the kernels that took most of it
+    and, for each name fragment in ``kernels``, the calls and time of every
+    kernel whose name holds it, all per ``per`` (steps or prefills)."""
     from torch.autograd import DeviceType
     evs = [e for e in prof.events()
            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
@@ -407,11 +414,19 @@ def _device_profile(prof, wall_ms: float, per: int) -> dict:
         by_name[e.name] = (n + 1, us + (t - s))
     busy_ms = busy / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    return {"wall_ms": wall_ms / per, "device_busy_ms": busy_ms / per,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_ops": len(evs) / per,
-            "top": [{"name": n[:90], "calls": c / per, "ms": us / 1e3 / per}
-                    for n, (c, us) in top]}
+    out = {"wall_ms": wall_ms / per, "device_busy_ms": busy_ms / per,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_ops": len(evs) / per,
+           "top": [{"name": n[:90], "calls": c / per, "ms": us / 1e3 / per}
+                   for n, (c, us) in top]}
+    if kernels:
+        out["kernels"] = {
+            frag: {"calls": sum(c for n, (c, _) in by_name.items()
+                                if frag in n) / per,
+                   "ms": sum(us for n, (_, us) in by_name.items()
+                             if frag in n) / 1e3 / per}
+            for frag in kernels}
+    return out
 
 
 def phase_profile(card, eng):
@@ -1086,6 +1101,14 @@ def phase_backward_kernels(card):
                                          and torch.all(dk[3] == 0)):
                 raise AssertionError(f"flash_bwd {dn}: the all-padding row's "
                                      f"gradient is not zero")
+            again = (flash_bwd_dq(*args, kv_mask=mask),
+                     *flash_bwd_dkv(*args, kv_mask=mask))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv),
+                                                         again)):
+                raise AssertionError(f"flash_bwd {dn} {case}: a second "
+                                     f"launch gave other bits")
+            del again
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
             worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"],
                                          errs["dv"])
@@ -1121,13 +1144,17 @@ def phase_backward_kernels(card):
                        "library_ms": library_ms,
                        "bytes": nbytes, "flops": flops}
                 row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
+                row["tflops"] = flops / row["ms"] / 1e9
+                row["bound_share"] = row["bound_ms"] / row["ms"]
                 rows.append(row)
                 log(f"[bwd] {name} {dn} {case} B={b} H=12 S={s} D=64 "
                     f"{'causal' if causal else 'padded keys'}: err "
                     f"{row['max_abs_err']:.3g} ms {row['ms']:.5f} (per call "
                     f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
                     f"bound {row['bound_ms']:.5f} ({row['bound_by']}) "
-                    f"sdpa-bwd {library_ms:.5f} [{card}]")
+                    f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} "
+                    f"of the bound; sdpa-bwd {library_ms:.5f}; a second "
+                    f"launch bit-identical [{card}]")
             del q, k, v, dout, out, lse, delta, dq, dk, dv, ref
     log("[bwd] detail " + json.dumps({"flash_fwd": fwd_rows,
                                       "backward": rows}))
@@ -1135,7 +1162,9 @@ def phase_backward_kernels(card):
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         main = next(r for r in rows if r["kernel"] == name
                     and r["dtype"] == "bfloat16" and r["case"] == "train")
-        picked[name] = {"max_abs_err": worst[name], **_pick(main)}
+        picked[name] = {"max_abs_err": worst[name], **_pick(main),
+                        "tflops": main["tflops"],
+                        "bound_share": main["bound_share"]}
     main = next(r for r in fwd_rows if r["dtype"] == "bfloat16")
     picked["flash_fwd"] = {"max_abs_err": worst["flash_fwd"], "B": main["B"],
                            "S": main["S"], **_pick(main)}
@@ -1225,9 +1254,9 @@ def phase_training(card):
         params, state, loss = step(params, state, x, y, m, gen)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
-    prof_sum = _device_profile(prof, wall, 1)
-    attn = sum(t["ms"] for t in prof_sum["top"]
-               if "flash_" in t["name"])
+    prof_sum = _device_profile(prof, wall, 1, kernels=(
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    attn = sum(k["ms"] for k in prof_sum["kernels"].values())
     log("[training-profile] " + json.dumps(
         {"train_step": prof_sum, "attention_kernels_ms": attn,
          "attention_share_of_busy": attn / prof_sum["device_busy_ms"],
@@ -1304,22 +1333,31 @@ def main() -> int:
     from sparkflow_tpu_torch.device import device_report
     card = card_line()
     log(f"[setup] {card}")
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {name} {time.perf_counter() - t:.1f} s")
+        return out
+
     try:
-        phase_setup()
-        flash_row, paged_row = phase_kernels(card)
-        spec_rows = phase_spec_kernels(card)
-        bwd_rows = phase_backward_kernels(card)
-        launches, eng = phase_serving(card)
-        phase_profile(card, eng)
+        timed("setup", phase_setup)
+        flash_row, paged_row = timed("kernels", phase_kernels, card)
+        spec_rows = timed("spec-kernels", phase_spec_kernels, card)
+        bwd_rows = timed("bwd", phase_backward_kernels, card)
+        launches, eng = timed("serving", phase_serving, card)
+        timed("profile", phase_profile, card, eng)
         del eng
-        spec_launches = phase_spec_serving(card)
-        phase_exactness(card)
-        phase_spec_exactness(card)
-        train_launches = phase_training(card)
-        phase_train_exactness(card)
+        spec_launches = timed("spec-serving", phase_spec_serving, card)
+        timed("exactness", phase_exactness, card)
+        timed("spec-exactness", phase_spec_exactness, card)
+        train_launches = timed("training", phase_training, card)
+        timed("train-exactness", phase_train_exactness, card)
     except Exception:
         traceback.print_exc()
         return 1
+    log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     src = "sparkflow_tpu_torch/ops/csrc/"
     ref = "sparkflow_tpu/ops/attention.py:"
     spec_a, spec_b = spec_launches["a"], spec_launches["b"]

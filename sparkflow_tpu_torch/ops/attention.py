@@ -284,6 +284,16 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout,
     return dq, dk, dv
 
 
+def _cp_async_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if the bf16 backward kernels can stream it with 16-byte
+    ``cp.async`` copies (pointer 16-byte aligned, batch/head/seq strides
+    multiples of 8 elements), else a contiguous copy in fresh (aligned)
+    memory — a layout copy, the same values."""
+    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]):
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
 def _bwd_operands(name, q, k, v, dout, lse, delta, kv_mask):
     """Check the backward kernels' operands; returns (q, k, v, dout,
     kv_mask) ready for the launch."""
@@ -294,7 +304,10 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, kv_mask):
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name}: {what} must be a contiguous float32 "
                              f"[B, H, S] = {want} tensor on {q.device}")
-    return _flash_operands(name, q, k, v, kv_mask, dout)
+    *ts, kv_mask = _flash_operands(name, q, k, v, kv_mask, dout)
+    if q.dtype == torch.bfloat16:
+        ts = [_cp_async_ready(t) for t in ts]
+    return (*ts, kv_mask)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
@@ -302,8 +315,10 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
                  ) -> torch.Tensor:
     """dQ of flash attention from the forward's logsumexp ``lse`` and
     ``delta`` = rowsum(dO * O), both [B,H,S] float32. On the card this
-    launches ``flash_bwd_dq_kernel`` of ``csrc/flash_bwd.cu`` (the port of
-    the TPU ``_flash_bwd_dq_kernel``); dQ is allocated [B,S,H,D]-contiguous
+    launches the dq kernel of ``csrc/flash_bwd.cu`` (the port of the TPU
+    ``_flash_bwd_dq_kernel``): on the tensor cores for bfloat16 operands
+    (P and dS rounded to bfloat16 before the second product), on the CUDA
+    cores in float32 for float32 ones. dQ is allocated [B,S,H,D]-contiguous
     and returned as its [B,H,S,D] view, like the forward's output."""
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if _route(q) == "reference":
@@ -336,8 +351,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
                   sm_scale: Optional[float] = None, kv_mask=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of flash attention; operands as :func:`flash_bwd_dq`. On the
-    card this launches ``flash_bwd_dkv_kernel`` of ``csrc/flash_bwd.cu``
-    (the port of the TPU ``_flash_bwd_dkv_kernel``)."""
+    card this launches the dk/dv kernel of ``csrc/flash_bwd.cu`` (the port
+    of the TPU ``_flash_bwd_dkv_kernel``), by dtype as there."""
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if _route(q) == "reference":
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal,

@@ -13,9 +13,14 @@ plain version rounds P to bfloat16 before P V, as the JAX reference does,
 the kernel keeps P in float32; a few bfloat16 ulps at |O| ~ 1); bfloat16
 paged outputs 8e-3 (both sides compute in float32 from the same bfloat16
 rows and round once: up to two ulps); logsumexp 1e-3 in bfloat16 inputs,
-1e-4 in float32; backward kernels 1e-4 (float32) and 2e-2 (bfloat16) of
-the largest |gradient| (both sides compute in float32 from the same inputs
-and round the result once; the summation order differs).
+1e-4 in float32; backward kernels 1e-4 (float32: both sides compute in
+float32 from the same inputs and round once; the summation order differs)
+and 2e-2 (bfloat16) of the largest |gradient|: the bfloat16 kernels run on
+the tensor cores and round P and dS to bfloat16 before the second product
+(dV = P^T dO, dQ = dS K, dK = dS^T Q), as FlashAttention-2 does, where the
+plain version keeps them in float32 — tests/test_torch_flash_bwd.py holds
+an emulation of that rounding to the float32 backward within 2e-2 on the
+CPU.
 """
 
 import numpy as np
@@ -77,12 +82,12 @@ def test_flash_kernel_matches_plain_masked(dev, dtype):
     assert _max_err(out, ref) < FLASH_TOL[dtype]
 
 
-def _bwd_case(dev, dtype, b, s, causal, mask_rows=(), seed=0):
+def _bwd_case(dev, dtype, b, s, causal, mask_rows=(), seed=0, h=12, d=64):
     """Inputs of the backward kernels: q, k, v, the forward's O and
     logsumexp (through the forward kernel), a non-uniform cotangent and the
     key mask (``mask_rows``: per batch row, the first padded key)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, dout = (torch.randn(b, 12, s, 64, generator=g, device=dev)
+    q, k, v, dout = (torch.randn(b, h, s, d, generator=g, device=dev)
                      .to(dtype) for _ in range(4))
     mask = None
     if mask_rows:
@@ -122,6 +127,105 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, case):
     if case.get("mask_rows"):
         # all keys of batch row 2 are padding: zero gradient, as in JAX
         assert torch.all(got[0][2] == 0) and torch.all(got[1][2] == 0)
+
+
+def _check_bwd(got, want, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        scale = float(b.float().abs().max())
+        assert _max_err(a, b) <= BWD_TOL[dtype] * scale, name
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+def test_flash_bwd_bf16_head_dims_ragged(dev, d):
+    """The tensor-core kernels at a padded head_dim (40 -> 48), GPT-2's 64
+    and the largest, 128, over ragged S = 700, causal."""
+    from sparkflow_tpu_torch.ops import (flash_attention_backward,
+                                         flash_attention_backward_reference)
+    q, k, v, out, lse, dout, mask = _bwd_case(dev, torch.bfloat16, 1, 700,
+                                              True, seed=d, h=4, d=d)
+    got = flash_attention_backward(q, k, v, out, lse, dout, True)
+    torch.cuda.synchronize()
+    _check_bwd(got, flash_attention_backward_reference(
+        q, k, v, out, lse, dout, True), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_flash_bwd_bf16_every_head_dim(dev, d):
+    """Every head_dim the wrapper takes (a multiple of 8 in [8, 128]) runs
+    on the bf16 kernels, non-causal with padded keys."""
+    from sparkflow_tpu_torch.ops import (flash_attention_backward,
+                                         flash_attention_backward_reference)
+    q, k, v, out, lse, dout, mask = _bwd_case(
+        dev, torch.bfloat16, 2, 150, False, mask_rows=(150, 61), seed=d,
+        h=2, d=d)
+    got = flash_attention_backward(q, k, v, out, lse, dout, False,
+                                   kv_mask=mask)
+    torch.cuda.synchronize()
+    _check_bwd(got, flash_attention_backward_reference(
+        q, k, v, out, lse, dout, False, kv_mask=mask), torch.bfloat16)
+
+
+def _training_layout(dev, b, s, seed):
+    """bf16 q, k, v as strided views of one [B,S,3,H,D] qkv projection and
+    dO the [B,H,S,D] view of a [B,S,H,D] tensor, as the training step hands
+    them to the backward kernels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, s, 3, 12, 64, generator=g, device=dev).to(
+        torch.bfloat16).permute(2, 0, 3, 1, 4)
+    dout = torch.randn(b, s, 12, 64, generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+def test_flash_bwd_bf16_strided_training_operands(dev):
+    from sparkflow_tpu_torch.ops import (flash_attention_backward,
+                                         flash_attention_backward_reference)
+    q, k, v, out, lse, dout = _training_layout(dev, 2, 333, seed=7)
+    assert q.stride(2) == 3 * 12 * 64 and dout.stride(2) == 12 * 64
+    got = flash_attention_backward(q, k, v, out, lse, dout, True)
+    torch.cuda.synchronize()
+    _check_bwd(got, flash_attention_backward_reference(
+        q, k, v, out, lse, dout, True), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_bwd_repeats_bit_for_bit(dev, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    from sparkflow_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq
+    q, k, v, out, lse, dout, mask = _bwd_case(dev, dtype, 2, 640, True,
+                                              seed=11)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, dout, lse, delta, True)
+    first = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    second = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_bf16_misaligned_operand_is_copied(dev):
+    """An operand whose pointer is not 16-byte aligned (a view at an odd
+    element offset) is copied to aligned memory before the launch: the
+    result equals that of the aligned operand."""
+    from sparkflow_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq
+    q, k, v, out, lse, dout, mask = _bwd_case(dev, torch.bfloat16, 1, 200,
+                                              True, seed=5, h=2)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    q_odd = buf[1:].view(q.shape).copy_(q)
+    assert q_odd.data_ptr() % 16 != 0
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        a = fn(q, k, v, dout, lse, delta, True)
+        b = fn(q_odd, k, v, dout, lse, delta, True)
+        torch.cuda.synchronize()
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
 
 
 def test_flash_attention_autograd_goes_through_the_kernels(dev):
