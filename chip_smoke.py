@@ -6,11 +6,13 @@ Phases — any failure exits nonzero with its traceback and prints no result:
 
 1. set-up: the card's name and power limit; build the CUDA kernels from
    ``sparkflow_tpu_torch/ops/csrc`` and print ptxas's registers, shared
-   memory and spills;
+   memory and spills (a spill in a tensor-core or split-verify
+   instantiation fails the phase);
 2. kernels against their plain PyTorch versions at the serving path's
    shapes, in bfloat16 and float32, and their times beside the plain
    version's, the least time the card could take (``bound_ms``) and, for
-   flash, ``F.scaled_dot_product_attention`` as a yardstick only. ``ms``,
+   flash, ``F.scaled_dot_product_attention`` as a yardstick only, with the
+   achieved TFLOP/s and share of the bound (``bound_ms / ms``). ``ms``,
    ``plain_ms`` and ``library_ms`` are device times (CUDA-graph replays
    between CUDA events); ``call_ms`` in the detail line is the time per
    call as the host enqueues it one at a time;
@@ -30,7 +32,8 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    the training shape (B=8, H=12, S=1024, D=64, causal), at S=128, at a
    ragged S=700 and on a non-causal key-padded batch, in bfloat16 and
    float32, with the same timings as phase 2 (the forward's too, at the
-   training shape); ``library_ms`` for the backward is that of
+   training shape, with its TFLOP/s and share of the bound); ``library_ms``
+   for the backward is that of
    ``F.scaled_dot_product_attention`` at the same shape (all three
    gradients in one call), timed by itself by CUDA-graph replay; each
    backward row also gives its achieved TFLOP/s and its share of the bound
@@ -53,7 +56,9 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    ragged starts incl. 0): ``paged_attention`` over int8 and fp8 pools with
    a page-head of scale 0 and a page rescaled mid-fill, and
    ``paged_attention_verify`` over the bf16/f32 pool and both quantized
-   ones, bf16 and f32 queries, timed as in phase 2;
+   ones, bf16 and f32 queries, timed as in phase 2; verify also at one
+   1024-token slot (start 1019), the longest walk; in every case a second
+   launch must give the same bits;
 10. speculative serving: the GPT-2-small-width engine with ``spec_k=4``
     (self-speculation through 6 of 12 layers) serves one burst as in
     phase 3 with (a) the bf16 pool and (b) ``kv_quant="int8"``; the
@@ -212,22 +217,42 @@ def _bound(nbytes: float, flops: float, dtype_name: str):
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
+def _rate(row, dtype_name: str) -> None:
+    """Add ``bound_ms`` / ``bound_by`` from the row's bytes and flops, the
+    achieved TFLOP/s and the share of the bound (``bound_ms / ms``)."""
+    row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"],
+                                              dtype_name)
+    row["tflops"] = row["flops"] / row["ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+
+
 def phase_setup():
     from sparkflow_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.load()
     log(f"[setup] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    spilled, name = [], None
     for src, lines in _build.ptxas_report().items():
         log(f"[setup] ptxas {src}:")
         for ln in lines:
-            # a mangled entry name, e.g. 16flash_fwd_kernelI13__nv_bfloat16Li2EE
+            # a mangled entry name, e.g. 20flash_fwd_mma_kernelILi64EE
             entry = re.search(r"entry function '\w*?\d([a-z_]+_kernel)I(\w+?)EE",
                               ln)
             if entry:
-                log(f"  {entry.group(1)}<{entry.group(2)}>")
+                name = f"{entry.group(1)}<{entry.group(2)}>"
+                log(f"  {name}")
             elif "registers" in ln or "spill" in ln:
                 log("   ", ln.split(":", 1)[-1].strip())
+                if re.search(r"[1-9]\d* bytes spill", ln):
+                    spilled.append(name)
+    log(f"[setup] instantiations that spill: {spilled or 'none'}")
+    # the tensor-core and the split verify kernels are held to no spill
+    held = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+            "paged_verify_split", "paged_verify_combine")
+    bad = [n for n in spilled if n and n.startswith(held)]
+    if bad:
+        raise AssertionError(f"ptxas spills registers in {bad}")
 
 
 def max_err(a, b) -> float:
@@ -277,13 +302,14 @@ def phase_kernels(card):
                    "library_ms": time_device([lambda: F.scaled_dot_product_attention(
                        q, k, v, is_causal=True)] * 20),
                    "bytes": nbytes, "flops": flops}
-            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
+            _rate(row, dn)
             flash_rows.append(row)
             log(f"[kernels] flash_fwd {dn} B=1 H=12 S={s} D=64 causal: "
                 f"err {e:.3g} lse_err {el:.3g} ms {row['ms']:.5f} (per "
                 f"call {row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
                 f"sdpa {row['library_ms']:.5f} bound {row['bound_ms']:.5f} "
-                f"({row['bound_by']}) [{card}]")
+                f"({row['bound_by']}) {row['tflops']:.1f} TFLOP/s, "
+                f"{row['bound_share']:.3f} of the bound [{card}]")
         g = torch.Generator(device=dev).manual_seed(3)
         q, k, v = (torch.randn(2, 12, 256, 64, generator=g, device=dev)
                    .to(dtype) for _ in range(3))
@@ -355,7 +381,9 @@ def phase_kernels(card):
     main_flash = next(r for r in flash_rows
                       if r["dtype"] == "bfloat16" and r["S"] == 1024)
     main_paged = next(r for r in paged_rows if r["dtype"] == "bfloat16")
-    return ({"max_abs_err": flash_err, **_pick(main_flash)},
+    return ({"max_abs_err": flash_err, **_pick(main_flash),
+             "tflops": main_flash["tflops"],
+             "bound_share": main_flash["bound_share"]},
             {"max_abs_err": paged_err, **_pick(main_paged)})
 
 
@@ -666,14 +694,19 @@ def phase_spec_kernels(card):
     zero_page, grow_page = int(table[5, 0]), int(table[6, 1])
     S = SPEC_K + 1
     start = (lengths - S).clamp(min=0).to(torch.int32)
-    walked = start + S                                # verify's tokens per slot
-    rows = {"decode": _pool_rows(table, lengths, page),
-            "verify": _pool_rows(table, walked, page)}
+    # verify's operands: the decode step's slots, and one 1024-token slot
+    # (slot 7's table row, start 1019) — one block walked it all before
+    # the walk was split into chunks
+    one = torch.tensor([1024 - S], dtype=torch.int32, device=dev)
+    slots = {"decode": (table, lengths), "verify": (table, start + S),
+             "one-slot": (table[7:8], one + S)}
+    rows = {k: _pool_rows(t, walked, page) for k, (t, walked) in
+            slots.items()}
     pages = {k: len({p for p, _ in r}) for k, r in rows.items()}
     # (query, key) pairs: every key at or before the query's position
     pairs = {"decode": int(lengths.sum()),
-             "verify": sum(int(st) * S + S * (S + 1) // 2
-                           for st in start.tolist())}
+             **{k: sum(int(st) * S + S * (S + 1) // 2 for st in sv.tolist())
+                for k, sv in (("verify", start), ("one-slot", one))}}
     detail, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = names[dtype]
@@ -685,12 +718,16 @@ def phase_spec_kernels(card):
         # one [B, S, 3, H, D] qkv projection
         qs = torch.randn(b, S, 3, h, d, generator=g, device=dev).to(dtype)
         qs = qs.permute(2, 0, 3, 1, 4)[0]
-        cases = [("paged_attention_quant", kind, kind) for kind in
+        cases = [("paged_attention_quant", kind, kind, "decode") for kind in
                  ("int8", "fp8")]
-        cases += [("paged_verify", None, dn)]
-        cases += [("paged_verify_quant", kind, kind) for kind in
+        cases += [("paged_verify", None, dn, "verify")]
+        cases += [("paged_verify_quant", kind, kind, "verify") for kind in
                   ("int8", "fp8")]
-        for name, kind, pool_name in cases:
+        if dtype == torch.bfloat16:
+            cases += [("paged_verify", None, dn, "one-slot")]
+            cases += [("paged_verify_quant", kind, kind, "one-slot")
+                      for kind in ("int8", "fp8")]
+        for name, kind, pool_name, shape in cases:
             verify = name.startswith("paged_verify")
             if kind is None:
                 pool = (kp.to(dtype), None), (vp.to(dtype), None)
@@ -701,25 +738,33 @@ def phase_spec_kernels(card):
             kern, ref_fn = ((paged_attention_verify,
                              paged_attention_verify_reference) if verify
                             else (paged_attention, paged_attention_reference))
-            q, per_slot = (qs, start) if verify else (q1, lengths)
+            tab = slots[shape][0]
+            q, per_slot = {"decode": (q1, lengths), "verify": (qs, start),
+                           "one-slot": (qs[7:8], one)}[shape]
 
-            def call(kk, vv, sc, kern=kern, q=q, per_slot=per_slot):
-                return kern(q, kk, vv, table, per_slot, **sc)
+            def call(kk, vv, sc, kern=kern, q=q, tab=tab, per_slot=per_slot):
+                return kern(q, kk, vv, tab, per_slot, **sc)
 
-            def plain(kk, vv, sc, ref_fn=ref_fn, q=q, per_slot=per_slot):
-                return ref_fn(q, kk, vv, table, per_slot, **sc)
+            def plain(kk, vv, sc, ref_fn=ref_fn, q=q, tab=tab,
+                      per_slot=per_slot):
+                return ref_fn(q, kk, vv, tab, per_slot, **sc)
 
-            out, ref = call(kq, vq, sc), plain(kq, vq, sc)
+            out, ref, again = (call(kq, vq, sc), plain(kq, vq, sc),
+                               call(kq, vq, sc))
             torch.cuda.synchronize()
             e = max_err(out, ref)
             if not (e < PAGED_TOL[dn] and bool(torch.isfinite(
                     out.float()).all())):
-                raise AssertionError(f"{name} {dn} q, {pool_name} pool: max "
-                                     f"|d| {e} (tol {PAGED_TOL[dn]})")
+                raise AssertionError(f"{name} {dn} q, {pool_name} pool, "
+                                     f"{shape}: max |d| {e} (tol "
+                                     f"{PAGED_TOL[dn]})")
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name} {dn} q, {pool_name} pool, "
+                                     f"{shape}: a second launch gave other "
+                                     f"bits")
             if not verify and not bool(torch.all(out[0] == 0)):
                 raise AssertionError(f"{name} {dn}: the empty slot is not 0")
             worst[name] = max(worst.get(name, 0.0), e)
-            shape = "verify" if verify else "decode"
             item = kq.element_size()
             qbytes = q.numel() * q.element_size()
             # K and V rows read once (and one float32 scale per page-head
@@ -727,7 +772,7 @@ def phase_spec_kernels(card):
             # lengths / start
             nbytes = (2 * len(rows[shape]) * h * d * item
                       + (2 * pages[shape] * h * 4 if kind else 0)
-                      + 2 * qbytes + table.numel() * 4 + b * 4)
+                      + 2 * qbytes + tab.numel() * 4 + per_slot.numel() * 4)
             flops = 4 * h * d * pairs[shape]
             # cold in L2 as in a decode step: enough pool copies that more
             # than the 50 MB L2 of live rows lies between two visits of one
@@ -736,8 +781,8 @@ def phase_spec_kernels(card):
                                                sc.items()})
                      for _ in range(copies)]
             row = {"kernel": name, "dtype": dn, "pool": pool_name,
-                   "S": S if verify else 1, "tokens": int(
-                       (walked if verify else lengths).sum()),
+                   "case": shape, "B": q.shape[0], "S": S if verify else 1,
+                   "tokens": int(slots[shape][1].sum()),
                    "max_abs_err": e,
                    "ms": time_device([lambda p=p: call(*p) for p in pools]),
                    "call_ms": time_calls(lambda: call(kq, vq, sc)),
@@ -747,18 +792,20 @@ def phase_spec_kernels(card):
             del pools
             row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
             detail.append(row)
-            log(f"[spec-kernels] {name} {dn} q, {pool_name} pool, B=8 H=12 "
-                f"D=64 page=16 S={row['S']} tokens {row['tokens']}: err "
-                f"{e:.3g} ms {row['ms']:.5f} (per call {row['call_ms']:.4f})"
-                f" plain {row['plain_ms']:.4f} bound {row['bound_ms']:.5f} "
-                f"({row['bound_by']}) [{card}]")
+            log(f"[spec-kernels] {name} {dn} q, {pool_name} pool, "
+                f"B={row['B']} H=12 D=64 page=16 S={row['S']} tokens "
+                f"{row['tokens']}: err {e:.3g} ms {row['ms']:.5f} (per call "
+                f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} bound "
+                f"{row['bound_ms']:.5f} ({row['bound_by']}); a second launch "
+                f"bit-identical [{card}]")
     log("[spec-kernels] detail " + json.dumps(detail))
     picked = {}
     for name, pool_name in (("paged_attention_quant", "int8"),
                             ("paged_verify", "bfloat16"),
                             ("paged_verify_quant", "int8")):
         main = next(r for r in detail if r["kernel"] == name
-                    and r["dtype"] == "bfloat16" and r["pool"] == pool_name)
+                    and r["dtype"] == "bfloat16" and r["pool"] == pool_name
+                    and r["case"] != "one-slot")
         picked[name] = {"max_abs_err": worst[name], **_pick(main)}
     return picked
 
@@ -1073,13 +1120,15 @@ def phase_backward_kernels(card):
                            lambda: F.scaled_dot_product_attention(
                                q, k, v, is_causal=True)] * 10),
                        "bytes": nbytes, "flops": flops}
-                row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
+                _rate(row, dn)
                 fwd_rows.append(row)
                 log(f"[bwd] flash_fwd {dn} train B={b} H=12 S={s} D=64 "
                     f"causal: ms {row['ms']:.5f} (per call "
                     f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
                     f"sdpa {row['library_ms']:.5f} bound "
-                    f"{row['bound_ms']:.5f} ({row['bound_by']}) [{card}]")
+                    f"{row['bound_ms']:.5f} ({row['bound_by']}) "
+                    f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} "
+                    f"of the bound [{card}]")
             del ref_out, ref_lse
             delta = (dout.float() * out.float()).sum(-1).contiguous()
             args = (q, k, v, dout, lse, delta, causal)
@@ -1143,9 +1192,7 @@ def phase_backward_kernels(card):
                        "plain_ms": time_device([plain] * 2),
                        "library_ms": library_ms,
                        "bytes": nbytes, "flops": flops}
-                row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
-                row["tflops"] = flops / row["ms"] / 1e9
-                row["bound_share"] = row["bound_ms"] / row["ms"]
+                _rate(row, dn)
                 rows.append(row)
                 log(f"[bwd] {name} {dn} {case} B={b} H=12 S={s} D=64 "
                     f"{'causal' if causal else 'padded keys'}: err "
@@ -1167,7 +1214,9 @@ def phase_backward_kernels(card):
                         "bound_share": main["bound_share"]}
     main = next(r for r in fwd_rows if r["dtype"] == "bfloat16")
     picked["flash_fwd"] = {"max_abs_err": worst["flash_fwd"], "B": main["B"],
-                           "S": main["S"], **_pick(main)}
+                           "S": main["S"], **_pick(main),
+                           "tflops": main["tflops"],
+                           "bound_share": main["bound_share"]}
     return picked
 
 

@@ -58,9 +58,11 @@ _SIGNATURES = {
     "sf_paged_attention_quant": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P,
                                  _I, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, pool, q, k_pages, v_pages, k_scales, v_scales, table, maxp,
-    # start, out, B, H, S, D, page, strides[6], scale, stream
-    "sf_paged_verify": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-                        _I, _I, _I, _P, _F, _P],
+    # start, out, part_acc, part_ml, nchunks, B, H, S, D, page, strides[6],
+    # scale, stream
+    "sf_paged_verify": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _P, _F, _P],
+    "sf_paged_verify_chunk": [],
 }
 
 

@@ -168,10 +168,14 @@ def flash_attention(q, k, v, causal: bool = False,
     j > query i (positions counted from 0 on both axes).
 
     On the card this launches ``csrc/flash_fwd.cu`` (the port of the TPU
-    ``_flash_kernel``). q/k/v may be strided views (the model passes slices
-    of one qkv permutation) as long as ``head_dim`` is contiguous; the output
-    is allocated [B,S,H,D]-contiguous and returned as its [B,H,S,D] view, so
-    the caller's transpose back to [B,S,H*D] is free.
+    ``_flash_kernel``): on the tensor cores for bfloat16 operands (P
+    rounded to bfloat16 before P V, as the TPU kernel does), on the CUDA
+    cores in float32 for float32 ones. q/k/v may be strided views (the model
+    passes slices of one qkv permutation) as long as ``head_dim`` is
+    contiguous; a bfloat16 operand whose rows are not 16-byte aligned is
+    copied first (:func:`_cp_async_ready`). The output is allocated
+    [B,S,H,D]-contiguous and returned as its [B,H,S,D] view, so the caller's
+    transpose back to [B,S,H*D] is free.
 
     When grad mode is on and q, k or v requires a gradient, the call runs
     as :class:`FlashAttentionFunction`: the forward saves q, k, v, the mask,
@@ -193,6 +197,8 @@ def flash_attention(q, k, v, causal: bool = False,
         return attention_reference(q, k, v, causal, scale, kv_mask=kv_mask,
                                    return_lse=return_lse)
     q, k, v, kv_mask = _flash_operands("flash_attention", q, k, v, kv_mask)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_cp_async_ready(t) for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -285,7 +291,7 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout,
 
 
 def _cp_async_ready(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself if the bf16 backward kernels can stream it with 16-byte
+    """``t`` itself if the bf16 flash kernels can stream it with 16-byte
     ``cp.async`` copies (pointer 16-byte aligned, batch/head/seq strides
     multiples of 8 elements), else a contiguous copy in fresh (aligned)
     memory — a layout copy, the same values."""
@@ -650,10 +656,15 @@ def paged_attention_verify(q, k_pages, v_pages, page_table, start,
     TPU ``_paged_verify_kernel`` (counter
     ``paged_attention_verify.launches``) or, for an int8/fp8 pool with
     scales, of ``_paged_verify_kernel_quant`` (counter
-    ``paged_attention_verify.quant_launches``). One thread block per
-    (slot, head) reads every K/V row of the slot once and scores it for all
-    S queries. The kernel takes S up to :data:`MAX_VERIFY_ROWS`. q may be a
-    strided view with ``head_dim`` contiguous; the output is allocated
+    ``paged_attention_verify.quant_launches``; one count per call, which
+    launches the split and the combine kernel). The walk of each (slot,
+    head) is split into chunks of 128 tokens, one thread block each, that
+    read every K/V row once and score it for all S queries; the combine
+    kernel folds the chunks' partial softmax states, in order, into O. The
+    partial states live in float32 scratch allocated here per call, sized
+    from ``page_table``'s width, so the host never reads ``start``. The
+    kernel takes S up to :data:`MAX_VERIFY_ROWS`. q may be a strided view
+    with ``head_dim`` contiguous; the output is allocated
     [B,S,H,D]-contiguous and returned as its [B,H,S,D] view."""
     _check_scales_given(k_scales, v_scales)
     b, h, s, d = q.shape
@@ -684,13 +695,21 @@ def paged_attention_verify(q, k_pages, v_pages, page_table, start,
         from . import _build
         lib = _build.load()
         strides = _seq_strides(q, out)
+        maxp, page = table.shape[1], kp.shape[1]
+        chunk = lib.sf_paged_verify_chunk()
+        nchunks = -(-maxp * page // chunk)
+        part_acc = torch.empty((b, h, nchunks, s, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, h, nchunks, s, 2), dtype=torch.float32,
+                              device=q.device)
         rc = lib.sf_paged_verify(
             _DTYPE_CODE[q.dtype], -1 if code is None else code, q.data_ptr(),
             kp.data_ptr(), vp.data_ptr(),
             ks.data_ptr() if ks is not None else None,
             vs.data_ptr() if vs is not None else None,
-            table.data_ptr(), table.shape[1], st.data_ptr(), out.data_ptr(),
-            b, h, s, d, kp.shape[1], ctypes.addressof(strides), float(scale),
+            table.data_ptr(), maxp, st.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), nchunks, b, h, s, d,
+            page, ctypes.addressof(strides), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "paged_attention_verify")
         if code is None:

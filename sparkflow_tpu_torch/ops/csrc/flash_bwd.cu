@@ -512,20 +512,11 @@ template <int HD>
 __host__ __device__ constexpr int dkv_tile() { return HD <= 64 ? 64 : 32; }
 constexpr int kDqTile = 64;
 
-// Start cp.async copies of rows [r0, r0 + nrows) of one head of a bf16
-// operand (sequence stride ss, D columns) into an [nrows][HD + 8] tile.
-// Rows past n and columns past D are zero-filled.
 template <int HD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           long long ss, int r0, int nrows,
                                           int n, int D) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < nrows * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks, c = i - r * kChunks, row = r0 + r;
-    const bool ok = row < n && c * 8 < D;
-    sf_mma::cp_async16(dst + r * (HD + 8) + c * 8,
-                       ok ? src + row * ss + c * 8 : src, ok ? 16 : 0);
-  }
+  sf_mma::load_rows<HD, kMmaThreads>(dst, src, ss, r0, nrows, n, D);
 }
 
 template <int HD>

@@ -35,6 +35,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 8 bytes global -> shared; src_bytes 0 writes zeros. Both addresses 8-byte
+// aligned.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // 4 bytes global -> shared; src_bytes 0 writes zeros.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
@@ -116,6 +126,25 @@ __device__ __forceinline__ int bt_offset(int lane, int pitch, int n0, int k0) {
 __device__ __forceinline__ int b_offset(int lane, int pitch, int k0, int n0) {
   return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + n0 +
          (lane >> 4) * 8;
+}
+
+// Start cp.async copies, by a block of kThreads threads, of rows
+// [r0, r0 + nrows) of one head of a bf16 [B, H, S, D] operand (sequence
+// stride ss, D columns) into an [nrows][HD + 8] tile (rows padded by 16
+// bytes, so ldmatrix's eight row reads land on distinct bank groups). Rows
+// past n and columns past D are zero-filled.
+template <int HD, int kThreads>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss, int r0, int nrows,
+                                          int n, int D) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < nrows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i - r * kChunks, row = r0 + r;
+    const bool ok = row < n && c * 8 < D;
+    cp_async16(dst + r * (HD + 8) + c * 8, ok ? src + row * ss + c * 8 : src,
+               ok ? 16 : 0);
+  }
 }
 
 }  // namespace sf_mma

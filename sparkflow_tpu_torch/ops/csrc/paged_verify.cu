@@ -15,43 +15,67 @@
 //
 // Translation from the TPU kernels: the TPU grid (B, max_pages) carried S
 // rows of online-softmax state per head in VMEM across the sequential page
-// axis, skipping pages at or past start + S. Here one thread block owns one
-// (slot, head) and walks the tokens t < start[b] + S in tiles of kTile rows:
-// - the block stages a tile's K and V rows in shared memory, widened to
-//   float32, with each row's page scales; every K/V row of the slot is read
-//   from device memory ONCE and then used for all S queries, which is the
-//   point of one verify call over S single-query calls;
-// - warp w owns queries w, w + kWarps, ... and keeps their running max,
-//   sum and output accumulators in registers (kMaxS / kWarps queries of
-//   D / 32 values per lane): lane r scores tile row r, the warp reduces max
-//   and sum with shuffles, and each lane accumulates its own D / 32 output
-//   elements over the tile's rows;
-// - the per-query causal mask t <= start[b] + s is applied per score; a
-//   tile with no visible row for a query leaves its state untouched.
+// axis. Here the walk of each (slot, head) over its tokens t < start[b] + S
+// is split into chunks of kChunk tokens (flash-decoding):
+// 1. the split kernel, grid (chunks, H, B), sized on the host from
+//    max_pages * page alone — the host never reads `start`, so a call needs
+//    no synchronisation and can later be captured in a CUDA graph. A chunk
+//    at or past start[b] + S exits at once. A live chunk walks its tokens
+//    in tiles of kTile rows and writes, for each of the S queries, its
+//    partial softmax state (m, l and the unnormalised acc, float32) to
+//    scratch that the wrapper allocates;
+// 2. the combine kernel, grid (S, H, B), reads the live chunks' partial
+//    states in chunk order, rescales them to the common max and writes O. A
+//    chunk in which a query sees no row (m = -1e30, l = 0, acc = 0) adds
+//    exactly 0. The order is fixed and there are no atomics: two launches
+//    give the same bits.
+// Inside a chunk:
+// - the pool rows, raw (int8 / fp8 / bf16 / f32 bytes), are staged through
+//   a two-stage cp.async ring (16-byte copies; 8-byte ones for an int8/fp8
+//   row whose D is not a multiple of 16), rows padded by 16 bytes, rows past
+//   the walk zero-filled; tile t+1 is in flight while tile t is computed.
+//   They are widened to float32 only when read from shared memory;
+// - the page table and (quantized) the page-head scales are read once per
+//   page of the chunk, into shared memory, not once per row;
+// - every K/V row is read from device memory ONCE and used for all S
+//   queries, which is the point of one verify call over S decode calls;
+// - warp w owns queries w, w + kWarps (S <= 16): lane r scores tile row r
+//   against them, the warp reduces max and sum with shuffles, and each lane
+//   accumulates its own HD / 32 consecutive output elements; the kernels
+//   are specialised on head_dim rounded up to 32 (HD = 32, 64, 96, 128), so
+//   D = 64 does not run D = 128's idle lanes.
+//
+// kChunk = 128 tokens (8 pages of 16): at the serving shape (B=8, H=12,
+// max 1024 tokens) the longest slot splits into 8 chunks and the call has
+// ~290 live blocks for the card's 132 SMs, each walking at most 4 tiles;
+// a smaller chunk would add combine work and scratch (B*H*chunks*S*(D+2)
+// floats) for blocks that are already short.
 //
 // What bounds it on the H100: bytes, like the single-query kernel: each K/V
 // row is read once and used for 4*S*D flops (S = 5 at the serving shape),
-// still far below the ~295 flops/byte ridge. The tile is loaded with one
-// 8-element vector load per thread and per operand, then used from shared
-// memory; the load of the next tile does not yet overlap the compute of this
-// one (a cp.async / TMA ring is later work), nor is one slot split over
-// several blocks.
+// far below the ~295 flops/byte ridge. At these sizes the call is bound by
+// latency: the dependent table -> row loads of one chunk, and the launch of
+// two kernels (measured with chip_smoke.py on an H100 80GB HBM3, 700 W:
+// 0.023-0.026 ms at the decode step's shape against a 0.0012-0.0024 ms
+// bound, 0.014-0.016 ms for one 1024-token slot).
+// ptxas -v (sm_90a): no instantiation spills; the split kernel 46-64
+// registers (bf16 query, int8 pool, HD 64: 64), the combine kernel 32.
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream and
-// returns cudaGetLastError() of the launch.
+// returns cudaGetLastError() of the launches.
 
+#include "mma_bf16.cuh"
 #include "pool_load.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 128;               // tokens per chunk of a slot's walk
 constexpr int kTile = 32;                 // K/V rows staged per step = lanes
-constexpr int kMaxD = 128;
 constexpr int kMaxS = 16;                 // query rows per slot
 constexpr int kQPerWarp = kMaxS / kWarps; // queries a warp owns, at most
-constexpr int kDPerLane = kMaxD / 32;     // output elements a lane owns
-constexpr int kPad = 4;                   // floats after each staged row
+constexpr int kMaxPages = kChunk + 1;     // pages a chunk touches, at most
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -66,101 +90,147 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// grid (H, B); block kThreads. T: query/output type; P: pool element type
-// (T itself, or int8_t / __nv_fp8_e4m3 with kQuant). st: element strides
-// (batch, head, seq) of q, then of out.
-template <typename T, typename P, bool kQuant>
-__global__ void __launch_bounds__(kThreads)
-paged_verify_kernel(const T* __restrict__ q, const P* __restrict__ kp,
-                    const P* __restrict__ vp, const float* __restrict__ ks,
-                    const float* __restrict__ vs,
-                    const int* __restrict__ table, int maxp,
-                    const int* __restrict__ start, T* __restrict__ out,
-                    int H, int S, int D, int page, long long qsb,
-                    long long qsh, long long qss, long long osb,
-                    long long osh, long long oss, float scale) {
-  __shared__ __align__(16) float s_q[kMaxS][kMaxD];
-  __shared__ __align__(16) float s_k[kTile][kMaxD + kPad];
-  __shared__ __align__(16) float s_v[kTile][kMaxD + kPad];
-  __shared__ float s_ks[kTile], s_vs[kTile];
+// staged row pitch in bytes: HD pool elements and 16 bytes of padding
+template <typename P, int HD>
+__host__ __device__ constexpr int row_bytes() {
+  return HD * (int)sizeof(P) + 16;
+}
 
-  const int h = blockIdx.x, b = blockIdx.y;
+template <typename P, int HD>
+size_t split_smem(int S) {
+  return sizeof(float) * (size_t)S * HD + 2 * 2 * kTile * row_bytes<P, HD>();
+}
+
+// grid (chunks, H, B); block kThreads. T: query type; P: pool element type
+// (T itself, or int8_t / __nv_fp8_e4m3 with kQuant). part_acc [B, H,
+// chunks, S, D] and part_ml [B, H, chunks, S, 2] float32 scratch.
+template <typename T, typename P, bool kQuant, int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_split_kernel(const T* __restrict__ q, const P* __restrict__ kp,
+                          const P* __restrict__ vp,
+                          const float* __restrict__ ks,
+                          const float* __restrict__ vs,
+                          const int* __restrict__ table, int maxp,
+                          const int* __restrict__ start,
+                          float* __restrict__ part_acc,
+                          float* __restrict__ part_ml, int H, int S, int D,
+                          int page, int nchunks, long long qsb, long long qsh,
+                          long long qss, float scale, int vec16) {
+  constexpr int E = HD / 32;                  // output elements per lane
+  constexpr int RB = row_bytes<P, HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_q = reinterpret_cast<float*>(smem_raw);         // [S][HD]
+  unsigned char* ring = smem_raw + sizeof(float) * S * HD;  // [2][K, V][kTile][RB]
+  __shared__ long long s_base[kMaxPages];  // element offset of (page, row 0, h)
+  __shared__ float s_ks[kMaxPages], s_vs[kMaxPages];
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int st0 = start[b];
-  const int end = min(st0 + S, maxp * page);   // tokens walked
-  const int* trow = table + (long long)b * maxp;
+  const int end = min(st0 + S, maxp * page);   // tokens the slot walks
+  const int c0 = c * kChunk;
+  if (c0 >= end) return;                       // a chunk past the walk
+  const int c1 = min(c0 + kChunk, end);
+  const int p0 = c0 / page;
+  const int np = (c1 - 1) / page - p0 + 1;
   const long long row = (long long)H * D;      // between consecutive tokens
 
+  if (tid < np) {
+    const long long pid = table[(long long)b * maxp + p0 + tid];
+    s_base[tid] = pid * page * row + (long long)h * D;
+    if (kQuant) {
+      s_ks[tid] = ks[pid * H + h] * scale;
+      s_vs[tid] = vs[pid * H + h];
+    }
+  }
   for (int i = tid; i < S * D; i += kThreads) {
     const int s = i / D, d = i - s * D;
-    s_q[s][d] = to_f(q[b * qsb + h * qsh + s * qss + d]);
+    s_q[s * HD + d] = to_f(q[b * qsb + h * qsh + s * qss + d]);
   }
+  __syncthreads();
 
-  float m[kQPerWarp], l[kQPerWarp], acc[kQPerWarp][kDPerLane];
+  const int vbytes = vec16 ? 16 : 8;
+  const int nvec = D * (int)sizeof(P) / vbytes;   // copies per row
+  auto load_tile = [&](int t) {
+    const int t0 = c0 + t * kTile;
+    unsigned char* dst = ring + (t & 1) * 2 * kTile * RB;
+    for (int i = tid; i < 2 * kTile * nvec; i += kThreads) {
+      const int kv = i / (kTile * nvec);        // 0: K, 1: V
+      const int rem = i - kv * kTile * nvec;
+      const int r = rem / nvec, cc = rem - r * nvec, tok = t0 + r;
+      const P* pool = kv ? vp : kp;
+      const bool ok = tok < c1;
+      const char* src = reinterpret_cast<const char*>(pool);
+      if (ok) {
+        const int pg = tok / page;
+        src = reinterpret_cast<const char*>(
+                  pool + s_base[pg - p0] + (long long)(tok - pg * page) * row) +
+              cc * vbytes;
+      }
+      unsigned char* d = dst + (kv * kTile + r) * RB + cc * vbytes;
+      if (vec16)
+        sf_mma::cp_async16(d, src, ok ? 16 : 0);
+      else
+        sf_mma::cp_async8(d, src, ok ? 8 : 0);
+    }
+  };
+
+  float m[kQPerWarp], l[kQPerWarp], acc[kQPerWarp][E];
 #pragma unroll
   for (int j = 0; j < kQPerWarp; ++j) {
     m[j] = kNegInf;
     l[j] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) acc[j][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[j][e] = 0.f;
   }
 
-  const int vecs_per_row = D / 8;
-  for (int t0 = 0; t0 < end; t0 += kTile) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kTile * vecs_per_row; i += kThreads) {
-      const int r = i / vecs_per_row, c = (i - r * vecs_per_row) * 8;
-      const int t = t0 + r;
-      float kv[8], vv[8];
-      if (t < end) {
-        const int pg = t / page;
-        const long long base =
-            ((long long)trow[pg] * page + (t - pg * page)) * row +
-            (long long)h * D + c;
-        load8(kp + base, kv);
-        load8(vp + base, vv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kv[e] = vv[e] = 0.f;
-      }
-      float4* kd = reinterpret_cast<float4*>(&s_k[r][c]);
-      float4* vd = reinterpret_cast<float4*>(&s_v[r][c]);
-      kd[0] = make_float4(kv[0], kv[1], kv[2], kv[3]);
-      kd[1] = make_float4(kv[4], kv[5], kv[6], kv[7]);
-      vd[0] = make_float4(vv[0], vv[1], vv[2], vv[3]);
-      vd[1] = make_float4(vv[4], vv[5], vv[6], vv[7]);
-    }
-    if (tid < kTile) {
-      const int t = t0 + tid;
-      float a = 1.f, c = 1.f;
-      if (kQuant && t < end) {
-        const long long pid = trow[t / page];
-        a = ks[pid * H + h];
-        c = vs[pid * H + h];
-      }
-      s_ks[tid] = a;
-      s_vs[tid] = c;
-    }
-    __syncthreads();
+  const int ntiles = (c1 - c0 + kTile - 1) / kTile;
+  load_tile(0);
+  sf_mma::cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load_tile(t + 1);
+    sf_mma::cp_async_commit();
+    sf_mma::cp_async_wait<1>();  // tile t landed for this thread
+    __syncthreads();             // ... and for every thread
+    const unsigned char* sk = ring + (t & 1) * 2 * kTile * RB;
+    const unsigned char* sv = sk + kTile * RB;
 
-    const int t = t0 + lane;                   // this lane's tile row
-    const float kscale = kQuant ? s_ks[lane] * scale : scale;
-    const float vscale = s_vs[lane];
+    const int tok = c0 + t * kTile + lane;     // this lane's tile row
+    const bool live = tok < c1;
+    float kscale = scale, vscale = 1.f;
+    if (kQuant && live) {
+      const int pg = tok / page - p0;
+      kscale = s_ks[pg];
+      vscale = s_vs[pg];
+    }
+
+    // dot[j] = q[warp + j * kWarps] . K[tok]
+    float dot[kQPerWarp] = {};
+    const P* krow = reinterpret_cast<const P*>(sk + lane * RB);
+    for (int cc = 0; cc < D; cc += 8) {
+      float kv[8];
+      load8(krow + cc, kv);
+#pragma unroll
+      for (int j = 0; j < kQPerWarp; ++j) {
+        const int s = warp + j * kWarps;
+        if (s >= S) break;
+        const float4 a = *reinterpret_cast<const float4*>(s_q + s * HD + cc);
+        const float4 z = *reinterpret_cast<const float4*>(s_q + s * HD + cc + 4);
+        float x = dot[j];
+        x = fmaf(a.x, kv[0], x); x = fmaf(a.y, kv[1], x);
+        x = fmaf(a.z, kv[2], x); x = fmaf(a.w, kv[3], x);
+        x = fmaf(z.x, kv[4], x); x = fmaf(z.y, kv[5], x);
+        x = fmaf(z.z, kv[6], x); x = fmaf(z.w, kv[7], x);
+        dot[j] = x;
+      }
+    }
+
 #pragma unroll
     for (int j = 0; j < kQPerWarp; ++j) {
       const int s = warp + j * kWarps;
       if (s >= S) break;                       // uniform across the warp
-      float dot = 0.f;
-      for (int c = 0; c < D; c += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&s_k[lane][c]);
-        const float4 qq = *reinterpret_cast<const float4*>(&s_q[s][c]);
-        dot = fmaf(qq.x, kk.x, dot);
-        dot = fmaf(qq.y, kk.y, dot);
-        dot = fmaf(qq.z, kk.z, dot);
-        dot = fmaf(qq.w, kk.w, dot);
-      }
-      const bool visible = t < end && t <= st0 + s;
-      const float sc = visible ? dot * kscale : kNegInf;
+      const bool visible = live && tok <= st0 + s;
+      const float sc = visible ? dot[j] * kscale : kNegInf;
       const float mx = warp_max(sc);
       if (mx <= 0.5f * kNegInf) continue;      // no visible row in this tile
       const float mn = fmaxf(m[j], mx);
@@ -169,46 +239,119 @@ paged_verify_kernel(const T* __restrict__ q, const P* __restrict__ kp,
       l[j] = l[j] * alpha + warp_sum(p);
       const float pv = kQuant ? p * vscale : p;
 #pragma unroll
-      for (int e = 0; e < kDPerLane; ++e) acc[j][e] *= alpha;
+      for (int e = 0; e < E; ++e) acc[j][e] *= alpha;
       for (int r = 0; r < kTile; ++r) {
         const float pr = __shfl_sync(0xffffffffu, pv, r);
+        const P* vrow = reinterpret_cast<const P*>(sv + r * RB);
 #pragma unroll
-        for (int e = 0; e < kDPerLane; ++e) {
-          const int d = lane + 32 * e;
-          if (d < D) acc[j][e] = fmaf(pr, s_v[r][d], acc[j][e]);
+        for (int e = 0; e < E; ++e) {
+          const int d = lane * E + e;
+          if (d < D) acc[j][e] = fmaf(pr, to_f(vrow[d]), acc[j][e]);
         }
       }
       m[j] = mn;
     }
+    __syncthreads();  // stage t & 1 is consumed before tile t + 2 fills it
   }
+  sf_mma::cp_async_wait<0>();
 
 #pragma unroll
   for (int j = 0; j < kQPerWarp; ++j) {
     const int s = warp + j * kWarps;
     if (s >= S) break;
-    const float inv = 1.f / fmaxf(l[j], 1e-30f);
+    const long long idx = (((long long)b * H + h) * nchunks + c) * S + s;
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) {
-      const int d = lane + 32 * e;
-      if (d < D) store(out + b * osb + h * osh + s * oss + d, acc[j][e] * inv);
+    for (int e = 0; e < E; ++e) {
+      const int d = lane * E + e;
+      if (d < D) part_acc[idx * D + d] = acc[j][e];
+    }
+    if (lane == 0) {
+      part_ml[idx * 2] = m[j];
+      part_ml[idx * 2 + 1] = l[j];
     }
   }
 }
 
-template <typename T, typename P, bool kQuant>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* ks, const void* vs, const int* table, int maxp,
-                   const int* start, void* out, int B, int H, int S, int D,
-                   int page, const long long* st, float scale,
-                   cudaStream_t stream) {
-  dim3 grid(H, B);
-  paged_verify_kernel<T, P, kQuant><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(kp),
-      static_cast<const P*>(vp), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), table, maxp, start,
-      static_cast<T*>(out), H, S, D, page, st[0], st[1], st[2], st[3], st[4],
-      st[5], scale);
+// grid (S, H, B); block kCombineThreads. Folds the live chunks' partial
+// states, in chunk order, into out [B, H, S, D] (strides (batch, head, seq)).
+constexpr int kCombineThreads = 128;
+
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+paged_verify_combine_kernel(const float* __restrict__ part_acc,
+                            const float* __restrict__ part_ml,
+                            const int* __restrict__ start, int maxp, int page,
+                            T* __restrict__ out, int H, int S, int D,
+                            int nchunks, long long osb, long long osh,
+                            long long oss) {
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int end = min(start[b] + S, maxp * page);
+  const int live = (end + kChunk - 1) / kChunk;   // chunks the split wrote
+  const long long base = ((long long)b * H + h) * nchunks * S + s;
+  float mmax = kNegInf;
+  for (int c = 0; c < live; ++c)
+    mmax = fmaxf(mmax, part_ml[(base + (long long)c * S) * 2]);
+  for (int d = threadIdx.x; d < D; d += kCombineThreads) {
+    float lsum = 0.f, a = 0.f;
+    for (int c = 0; c < live; ++c) {
+      const long long idx = base + (long long)c * S;
+      const float w = expf(part_ml[idx * 2] - mmax);
+      lsum = fmaf(part_ml[idx * 2 + 1], w, lsum);
+      a = fmaf(part_acc[idx * D + d], w, a);
+    }
+    store(out + b * osb + h * osh + s * oss + d, a / fmaxf(lsum, 1e-30f));
+  }
+}
+
+struct Args {
+  const void *q, *kp, *vp, *ks, *vs;
+  const int* table;
+  int maxp;
+  const int* start;
+  float *part_acc, *part_ml;
+  void* out;
+  int B, H, S, D, page, nchunks;
+  const long long* st;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename P, bool kQuant, int HD>
+cudaError_t launch(const Args& a) {
+  auto kern = paged_verify_split_kernel<T, P, kQuant, HD>;
+  const size_t smem = split_smem<P, HD>(a.S);
+  if (smem > 40 * 1024) {  // with the ~2 KB of static page staging, > 48 KB
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  // 16-byte copies where a row's bytes allow them (the pool is 16-byte
+  // aligned), else 8-byte ones: an int8/fp8 row of D % 16 != 0 elements
+  const int vec16 = (a.D * (int)sizeof(P)) % 16 == 0;
+  kern<<<dim3(a.nchunks, a.H, a.B), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.kp),
+      static_cast<const P*>(a.vp), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), a.table, a.maxp, a.start, a.part_acc,
+      a.part_ml, a.H, a.S, a.D, a.page, a.nchunks, a.st[0], a.st[1], a.st[2],
+      a.scale, vec16);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  paged_verify_combine_kernel<T><<<dim3(a.S, a.H, a.B), kCombineThreads, 0,
+                                   a.stream>>>(
+      a.part_acc, a.part_ml, a.start, a.maxp, a.page, static_cast<T*>(a.out),
+      a.H, a.S, a.D, a.nchunks, a.st[3], a.st[4], a.st[5]);
   return cudaGetLastError();
+}
+
+template <typename T, typename P, bool kQuant>
+cudaError_t dispatch(const Args& a) {
+  switch ((a.D + 31) / 32) {   // head_dim rounded up to 32
+    case 1: return launch<T, P, kQuant, 32>(a);
+    case 2: return launch<T, P, kQuant, 64>(a);
+    case 3: return launch<T, P, kQuant, 96>(a);
+    case 4: return launch<T, P, kQuant, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -219,40 +362,43 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 // q: [B, H, S, D] and out: [B, H, S, D], each with D contiguous and
 // (batch, head, seq) element strides in strides[0:3] / strides[3:6];
 // k_pages / v_pages: one layer's contiguous [num_pages, page, H, D] pool;
-// table: [B, maxp] int32 pool page ids; start: [B] int32. Requires
-// 1 <= S <= 16, D % 8 == 0, 8 <= D <= 128 and 16-byte aligned pools (the
-// wrapper checks).
+// table: [B, maxp] int32 pool page ids; start: [B] int32. part_acc /
+// part_ml: float32 scratch of [B, H, nchunks, S, D] / [B, H, nchunks, S, 2]
+// elements, nchunks = ceil(maxp * page / 128) (paged_verify_chunk()).
+// Requires 1 <= S <= 16, D % 8 == 0, 8 <= D <= 128 and 16-byte aligned
+// pools (the wrapper checks).
 extern "C" int sf_paged_verify(int dtype, int pool, const void* q,
                                const void* k_pages, const void* v_pages,
                                const void* k_scales, const void* v_scales,
                                const void* table, int maxp, const void* start,
-                               void* out, int B, int H, int S, int D,
+                               void* out, void* part_acc, void* part_ml,
+                               int nchunks, int B, int H, int S, int D,
                                int page, const long long* strides,
                                float scale, void* stream) {
-  if (D % 8 != 0 || D < 8 || D > kMaxD || S < 1 || S > kMaxS ||
+  if (D % 8 != 0 || D < 8 || D > 128 || S < 1 || S > kMaxS ||
       pool < -1 || pool > 1 ||
-      (pool >= 0 && (k_scales == nullptr || v_scales == nullptr)))
+      (pool >= 0 && (k_scales == nullptr || v_scales == nullptr)) ||
+      part_acc == nullptr || part_ml == nullptr ||
+      nchunks != (maxp * page + kChunk - 1) / kChunk)
     return (int)cudaErrorInvalidValue;
-  const int* t = static_cast<const int*>(table);
-  const int* n = static_cast<const int*>(start);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* ks = k_scales;
-  const void* vs = v_scales;
+  const Args a{q, k_pages, v_pages, k_scales, v_scales,
+               static_cast<const int*>(table), maxp,
+               static_cast<const int*>(start),
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               out, B, H, S, D, page, nchunks, strides, scale,
+               static_cast<cudaStream_t>(stream)};
   cudaError_t e;
   if (dtype == 0) {
-    if (pool < 0)
-      e = launch<float, float, false>(q, k_pages, v_pages, ks, vs, t, maxp, n, out, B, H, S, D, page, strides, scale, s);
-    else if (pool == 0)
-      e = launch<float, int8_t, true>(q, k_pages, v_pages, ks, vs, t, maxp, n, out, B, H, S, D, page, strides, scale, s);
-    else
-      e = launch<float, __nv_fp8_e4m3, true>(q, k_pages, v_pages, ks, vs, t, maxp, n, out, B, H, S, D, page, strides, scale, s);
+    if (pool < 0) e = dispatch<float, float, false>(a);
+    else if (pool == 0) e = dispatch<float, int8_t, true>(a);
+    else e = dispatch<float, __nv_fp8_e4m3, true>(a);
   } else {
-    if (pool < 0)
-      e = launch<__nv_bfloat16, __nv_bfloat16, false>(q, k_pages, v_pages, ks, vs, t, maxp, n, out, B, H, S, D, page, strides, scale, s);
-    else if (pool == 0)
-      e = launch<__nv_bfloat16, int8_t, true>(q, k_pages, v_pages, ks, vs, t, maxp, n, out, B, H, S, D, page, strides, scale, s);
-    else
-      e = launch<__nv_bfloat16, __nv_fp8_e4m3, true>(q, k_pages, v_pages, ks, vs, t, maxp, n, out, B, H, S, D, page, strides, scale, s);
+    if (pool < 0) e = dispatch<__nv_bfloat16, __nv_bfloat16, false>(a);
+    else if (pool == 0) e = dispatch<__nv_bfloat16, int8_t, true>(a);
+    else e = dispatch<__nv_bfloat16, __nv_fp8_e4m3, true>(a);
   }
   return (int)e;
 }
+
+// tokens per chunk of a slot's walk: the wrapper sizes the scratch by it
+extern "C" int sf_paged_verify_chunk() { return kChunk; }

@@ -1,8 +1,9 @@
 // Element access shared by the paged kernels (paged_attention.cu,
 // paged_verify.cu): a lane's 8 consecutive elements of a pool row loaded as
 // ONE vector load and widened to float32 — 32 bytes for float32, 16 for
-// bfloat16, 8 for an int8 or fp8 (e4m3) quantized pool — and the float32 <->
-// query/output type conversions.
+// bfloat16, 8 for an int8 or fp8 (e4m3) quantized pool — the conversion of
+// one element of any of those types to float32, and of float32 to the
+// output type.
 //
 // The widening is exact for every pool type (int8 and e4m3 values are all
 // float32 numbers); a quantized pool's per-page-per-head scale is applied by
@@ -59,6 +60,12 @@ __device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {

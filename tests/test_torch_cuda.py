@@ -9,8 +9,11 @@ This file imports no JAX, so it runs on a machine without it:
 
 Tolerances (same as chip_smoke.py): float32 outputs 1e-4 (float32 FMA on
 both sides, different summation order); bfloat16 flash outputs 2e-2 (the
-plain version rounds P to bfloat16 before P V, as the JAX reference does,
-the kernel keeps P in float32; a few bfloat16 ulps at |O| ~ 1); bfloat16
+kernel runs on the tensor cores and rounds the unnormalised P of each
+64-key tile to bfloat16 before P V, as the TPU kernel does; the plain
+version rounds the normalised P; a few bfloat16 ulps at |O| ~ 1 —
+tests/test_torch_flash_fwd.py holds an emulation of the kernel's rounding
+against the JAX Pallas forward on the CPU); bfloat16
 paged outputs 8e-3 (both sides compute in float32 from the same bfloat16
 rows and round once: up to two ulps); logsumexp 1e-3 in bfloat16 inputs,
 1e-4 in float32; backward kernels 1e-4 (float32: both sides compute in
@@ -53,7 +56,7 @@ def _max_err(a, b):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("s", [16, 100, 128, 1024])
+@pytest.mark.parametrize("s", [16, 100, 128, 700, 1024])
 def test_flash_kernel_matches_plain_causal(dev, dtype, s):
     g = torch.Generator(device=dev).manual_seed(s)
     q, k, v = (torch.randn(1, 12, s, 64, generator=g, device=dev).to(dtype)
@@ -80,6 +83,93 @@ def test_flash_kernel_matches_plain_masked(dev, dtype):
     ref = attention_reference(q, k, v, kv_mask=mask)
     torch.cuda.synchronize()
     assert _max_err(out, ref) < FLASH_TOL[dtype]
+
+
+def _check_fwd(q, k, v, causal, mask=None):
+    """The forward kernel's output and logsumexp against the plain version
+    (all-padding rows: lse at NEG_INF on both sides); returns the output."""
+    out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                               return_lse=True)
+    ref, ref_lse = attention_reference(q, k, v, causal, kv_mask=mask,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
+    assert _max_err(out, ref) < FLASH_TOL[q.dtype]
+    live = ref_lse > -0.5e30
+    assert _max_err(lse[live], ref_lse[live]) < LSE_TOL[q.dtype]
+    assert bool((lse[~live] <= -0.5e30).all())
+    return out
+
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_flash_fwd_bf16_every_head_dim(dev, d):
+    """Every head_dim the wrapper takes (a multiple of 8 in [8, 128]) runs
+    on the tensor-core forward, causal over a ragged S and non-causal with
+    padded keys."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn(2, 2, 150, d, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    _check_fwd(q, k, v, True)
+    mask = torch.ones(2, 150, device=dev)
+    mask[1, 61:] = 0
+    _check_fwd(q, k, v, False, mask)
+
+
+def test_flash_fwd_bf16_strided_training_operands_need_no_copy(dev):
+    """q, k, v as the training step and the serving prefill hand them over
+    (strided views of one [B,S,3,H,D] qkv projection, row stride 2304) are
+    streamed as they are, without a copy."""
+    from sparkflow_tpu_torch.ops.attention import _cp_async_ready
+    g = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn(2, 333, 3, 12, 64, generator=g, device=dev).to(
+        torch.bfloat16).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    assert q.stride(2) == 3 * 12 * 64
+    assert all(_cp_async_ready(t) is t for t in (q, k, v))
+    _check_fwd(q, k, v, True)
+
+
+def test_flash_fwd_bf16_misaligned_operand_is_copied(dev):
+    """A k whose pointer is not 16-byte aligned is copied to aligned memory
+    before the launch: the result equals that of the aligned operand."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(1, 2, 200, 64, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)
+    k_odd = buf[1:].view(k.shape).copy_(k)
+    assert k_odd.data_ptr() % 16 != 0
+    a = flash_attention(q, k, v, causal=True, return_lse=True)
+    b = flash_attention(q, k_odd, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_flash_fwd_bf16_all_padding_row_averages_uniformly(dev):
+    """Non-causal, padded keys; batch row 2's keys are all padding: its
+    output is the uniform average of its values, as in JAX."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(3, 4, 300, 64, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    mask = torch.ones(3, 300, device=dev)
+    mask[0, 250:] = 0
+    mask[1, 77:] = 0
+    mask[2] = 0
+    out = _check_fwd(q, k, v, False, mask)
+    uniform = v[2].float().mean(1, keepdim=True).expand(4, 300, 64)
+    assert _max_err(out[2], uniform) < FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_fwd_repeats_bit_for_bit(dev, dtype):
+    """Two launches on the same inputs give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(2, 12, 700, 64, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    a = flash_attention(q, k, v, causal=True, return_lse=True)
+    b = flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def _bwd_case(dev, dtype, b, s, causal, mask_rows=(), seed=0, h=12, d=64):
@@ -455,6 +545,37 @@ def test_paged_verify_kernel_matches_plain(dev, dtype, pool, s):
     ref = paged_attention_verify_reference(q, kp, vp, table, start, **scales)
     assert out.shape == (8, 12, s, 64) and out.dtype == dtype
     assert _max_err(out, ref) < PAGED_TOL[dtype]
+
+
+@pytest.mark.parametrize("pool", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [1, 5, 16])
+def test_paged_verify_split_walks_one_to_eight_chunks(dev, dtype, pool, s):
+    """One call whose slots walk 1 to 8 chunks of 128 tokens (starts 0 to
+    1024 - S, the table's end), over a page-head of scale 0 (quantized
+    pools): within the tolerance of the plain version, and a second launch
+    gives the same bits (the chunks are combined in a fixed order)."""
+    from sparkflow_tpu_torch.ops import (paged_attention_verify,
+                                         paged_attention_verify_reference)
+    _, kp, vp, table, _ = _paged_inputs(dev, dtype, seed=8)
+    g = torch.Generator(device=dev).manual_seed(20 + s)
+    q = torch.randn(8, 12, s, 64, generator=g, device=dev).to(dtype)
+    ends = torch.tensor([5, 200, 300, 400, 600, 700, 800, 1024], device=dev)
+    start = (ends - s).clamp(min=0).to(torch.int32)
+    start[0] = 0
+    scales = {}
+    if pool is not None:
+        table[0, 0] = 5                              # the scale-0 page-head
+        (kp, ks), (vp, vs) = _quant_pools(kp, vp, pool)
+        scales = dict(k_scales=ks, v_scales=vs)
+    out = paged_attention_verify(q, kp, vp, table, start, **scales)
+    again = paged_attention_verify(q, kp, vp, table, start, **scales)
+    torch.cuda.synchronize()
+    ref = paged_attention_verify_reference(q, kp, vp, table, start, **scales)
+    assert torch.isfinite(out.float()).all()
+    assert _max_err(out, ref) < PAGED_TOL[dtype]
+    assert torch.equal(out, again)
 
 
 def test_paged_verify_one_row_is_the_decode_kernel(dev):
