@@ -50,13 +50,13 @@ _SIGNATURES = {
     "sf_flash_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _P, _F, _I, _P],
     # dtype, q, qsb, qsh, k_pages, v_pages, table, maxp, lengths, out, B, H,
-    # D, page, scale, stream
+    # D, page, chunk, nchunks, scale, stream
     "sf_paged_attention": [_I, _P, _LL, _LL, _P, _P, _P, _I, _P, _P, _I, _I,
-                           _I, _I, _F, _P],
+                           _I, _I, _I, _I, _F, _P],
     # dtype, pool, q, qsb, qsh, k_pages, v_pages, k_scales, v_scales, table,
-    # maxp, lengths, out, B, H, D, page, scale, stream
+    # maxp, lengths, out, B, H, D, page, chunk, nchunks, scale, stream
     "sf_paged_attention_quant": [_I, _I, _P, _LL, _LL, _P, _P, _P, _P, _P,
-                                 _I, _P, _P, _I, _I, _I, _I, _F, _P],
+                                 _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # dtype, pool, q, k_pages, v_pages, k_scales, v_scales, table, maxp,
     # start, out, part_acc, part_ml, nchunks, B, H, S, D, page, strides[6],
     # scale, stream

@@ -442,6 +442,45 @@ if hasattr(torch, "float8_e4m3fn"):
 #: most query rows per slot the verify kernel takes (spec_k <= 15)
 MAX_VERIFY_ROWS = 16
 
+#: tokens a thread block of the decode kernel walks, at the least, and the
+#: most blocks (the portable thread-block cluster size) one (slot, head)'s
+#: walk is split over
+DECODE_CHUNK = 128
+DECODE_MAX_BLOCKS = 8
+#: pool rows a decode block loads in one trip, at one lane a row: its 8
+#: warps x 32 lanes x 4 rows a lane in flight (``kWarps`` x 32 x
+#: ``kUnroll`` in ``csrc/paged_attention.cu``)
+_DECODE_TRIP_LANES = 8 * 32 * 4
+
+
+def _decode_trip(d: int, itemsize: int) -> int:
+    """Tokens one block of the decode kernel loads in a single trip: a lane
+    loads a 16-byte run of a row (8 bytes for an int8/fp8 row whose ``d`` is
+    not a multiple of 16), and a power of two of lanes covers the row."""
+    run = 16 if itemsize > 1 or d % 16 == 0 else 8
+    lanes = 1
+    while lanes * run < d * itemsize:
+        lanes *= 2
+    return _DECODE_TRIP_LANES // lanes
+
+
+def _paged_split(max_pages: int, page: int, d: int,
+                 itemsize: int) -> Tuple[int, int]:
+    """``(chunk, blocks)``: how the decode kernel splits the walk of each
+    (slot, head) over one thread-block cluster, from the table's width and
+    the pool's row (``d`` elements of ``itemsize`` bytes) alone, never from
+    ``lengths``. A chunk is ``DECODE_CHUNK`` tokens or, where a block loads
+    more in one trip (an int8/fp8 row at D = 64: 256), that trip — fewer
+    blocks wait at the cluster barrier and the launch fits the card in one
+    wave; up to ``DECODE_MAX_BLOCKS`` blocks, past which the chunk grows to
+    a ``DECODE_MAX_BLOCKS``-th of the table's tokens. The chunk is rounded
+    up to a whole page."""
+    tokens = max_pages * page
+    chunk = max(DECODE_CHUNK, _decode_trip(d, itemsize),
+                -(-tokens // DECODE_MAX_BLOCKS))
+    chunk = -(-chunk // page) * page
+    return chunk, max(1, -(-tokens // chunk))
+
 
 def _check_scales_given(k_scales, v_scales) -> None:
     if (k_scales is None) != (v_scales is None):
@@ -560,9 +599,13 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths,
     port of the TPU ``_paged_kernel``; counter ``paged_attention.launches``)
     and an int8/fp8 pool with ``k_scales``/``v_scales`` its quantized
     instantiation (the port of ``_paged_kernel_quant``; counter
-    ``paged_attention.quant_launches``): one thread block per (slot, head)
-    reads its own table row and walks only the slot's ``lengths[b]``
-    tokens."""
+    ``paged_attention.quant_launches``): the walk of each (slot, head) is
+    split over one thread-block cluster (:func:`_paged_split`, sized from
+    ``page_table``'s width and the pool's row, so the host never reads
+    ``lengths``), each block walks only its chunk's tokens below
+    ``lengths[b]``, and the blocks merge their partial softmax states
+    through distributed shared memory, in a fixed order — one launch,
+    nothing allocated but the output."""
     _check_scales_given(k_scales, v_scales)
     b, h, d = q.shape
     _check_paged_shapes("paged_attention", b, h, d, k_pages, v_pages,
@@ -585,22 +628,23 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths,
     if out.numel():
         from . import _build
         lib = _build.load()
-        page = kp.shape[1]
+        maxp, page = table.shape[1], kp.shape[1]
+        chunk, blocks = _paged_split(maxp, page, d, kp.element_size())
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if code is None:
             rc = lib.sf_paged_attention(
                 _DTYPE_CODE[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
-                kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
-                table.shape[1], lens.data_ptr(), out.data_ptr(), b, h, d,
-                page, float(scale), stream)
+                kp.data_ptr(), vp.data_ptr(), table.data_ptr(), maxp,
+                lens.data_ptr(), out.data_ptr(), b, h, d, page, chunk, blocks,
+                float(scale), stream)
             _build.check(rc, "paged_attention")
             paged_attention.launches += 1
         else:
             rc = lib.sf_paged_attention_quant(
                 _DTYPE_CODE[q.dtype], code, q.data_ptr(), q.stride(0),
                 q.stride(1), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
-                vs.data_ptr(), table.data_ptr(), table.shape[1],
-                lens.data_ptr(), out.data_ptr(), b, h, d, page, float(scale),
+                vs.data_ptr(), table.data_ptr(), maxp, lens.data_ptr(),
+                out.data_ptr(), b, h, d, page, chunk, blocks, float(scale),
                 stream)
             _build.check(rc, "paged_attention_quant")
             paged_attention.quant_launches += 1

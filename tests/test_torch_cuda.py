@@ -519,6 +519,130 @@ def test_paged_quant_kernel_matches_plain(dev, dtype, pool):
     assert torch.all(out[0] == 0)
 
 
+# -- the decode kernel's walk split over a thread-block cluster ---------------
+#
+# Each case runs one call over slots of every kind (empty, within one chunk,
+# across chunks, the table's whole width), a page aliased by two slots and,
+# quantized, a page-head of scale 0 and a page rescaled mid-fill; against
+# the plain version, and launched twice for the same bits.
+
+POOLS = [None, "int8", "fp8"]
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
+
+
+def _decode_case(dev, dtype, pool, lengths, *, d=64, h=12, page=16, maxp=64,
+                 seed=0):
+    """q, pools and scales (as the engine holds them), table and lengths.
+    An empty slot 0 reads scratch page 0, as the engine's idle lanes do;
+    the last slot's first page aliases the one before it and, quantized,
+    its second page is the scale-0 page-head (page 5, head 3) and the third
+    page of the slot before it the rescaled page (page 9)."""
+    b = len(lengths)
+    num_pages = b * maxp + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+    kp = torch.randn(num_pages, page, h, d, generator=g, device=dev)
+    vp = torch.randn(num_pages, page, h, d, generator=g, device=dev)
+    rs = np.random.RandomState(seed)
+    table = rs.permutation(np.arange(1, num_pages))[:b * maxp].reshape(b, maxp)
+    if lengths[0] == 0:
+        table[0] = 0
+    if b > 2:
+        table[-1, 0] = table[-2, 0]
+    scales = {}
+    if pool is None:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        table[-1, 1] = 5
+        table[max(b - 2, 0), 2] = 9
+        (kp, ks), (vp, vs) = _quant_pools(kp, vp, pool)
+        scales = dict(k_scales=ks, v_scales=vs)
+    return (q, kp, vp, torch.as_tensor(table, dtype=torch.int32, device=dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev), scales)
+
+
+def _check_decode(q, kp, vp, table, lengths, scales):
+    """The kernel against its plain version, the empty slots exact zeros,
+    and a second launch bit-identical; returns the output."""
+    counter = "launches" if not scales else "quant_launches"
+    before = getattr(paged_attention, counter)
+    out = paged_attention(q, kp, vp, table, lengths, **scales)
+    again = paged_attention(q, kp, vp, table, lengths, **scales)
+    torch.cuda.synchronize()
+    assert getattr(paged_attention, counter) == before + 2
+    ref = paged_attention_reference(q, kp, vp, table, lengths, **scales)
+    assert torch.isfinite(out.float()).all()
+    assert _max_err(out, ref) < PAGED_TOL[q.dtype]
+    assert torch.all(out[lengths == 0] == 0)
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@DTYPES
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_paged_decode_every_head_dim(dev, dtype, pool, d):
+    """Every head_dim 8-128: 2 to 32 lanes a row, and 8-byte runs for an
+    int8/fp8 row whose D is not a multiple of 16."""
+    _check_decode(*_decode_case(dev, dtype, pool, (0, 1, 17, 100, 255, 700,
+                                                   1024), d=d, h=4, seed=d))
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@DTYPES
+@pytest.mark.parametrize("page", [8, 16, 64])
+def test_paged_decode_lengths_at_chunk_edges(dev, dtype, pool, page):
+    """Lengths 0, 1, page-1, page, 127, 128, 129 and 255, 256, 257 (the
+    edges of a 128-token chunk and of an int8/fp8 pool's 256-token one)
+    and the table's whole 1024 tokens, in one call."""
+    lengths = (0, 1, page - 1, page, 127, 128, 129, 255, 256, 257, 1024)
+    _check_decode(*_decode_case(dev, dtype, pool, lengths, page=page,
+                                maxp=1024 // page, seed=page))
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@DTYPES
+def test_paged_decode_one_long_slot(dev, dtype, pool):
+    """B = 1 with 1024 tokens: the whole cluster works for one slot."""
+    _check_decode(*_decode_case(dev, dtype, pool, (1024,), seed=11))
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@DTYPES
+def test_paged_decode_table_of_2048_tokens(dev, dtype, pool):
+    """maxp * page = 2048: the chunk grows to 256 tokens (8 blocks), each
+    block walking more than one trip of a bf16 or float32 pool."""
+    _check_decode(*_decode_case(dev, dtype, pool,
+                                (0, 1, 255, 256, 257, 1500, 2048), maxp=128,
+                                seed=12))
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@DTYPES
+def test_paged_decode_replays_in_a_cuda_graph(dev, dtype, pool):
+    """A call captured in a CUDA graph and replayed equals the eager call,
+    and reads the lengths on the card at replay time: after new lengths are
+    copied into the same tensor, a replay equals the eager call on them."""
+    q, kp, vp, table, lengths, scales = _decode_case(
+        dev, dtype, pool, (0, 1, 17, 100, 255, 512, 700, 1024), seed=13)
+    want = paged_attention(q, kp, vp, table, lengths, **scales)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = paged_attention(q, kp, vp, table, lengths, **scales)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    lengths.copy_(torch.tensor([1024, 0, 900, 5, 129, 128, 16, 300],
+                               dtype=torch.int32, device=dev))
+    want = paged_attention(q, kp, vp, table, lengths, **scales)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.all(got[1] == 0)
+
+
 @pytest.mark.parametrize("pool", [None, "int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
