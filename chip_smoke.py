@@ -75,9 +75,29 @@ Phases — any failure exits nonzero with its traceback and prints no result:
 11. speculative exactness: float32, TF32 off, 12 layers — greedy tokens with
     ``spec_k=4`` (self-draft, and an external 6-layer draft) equal the
     spec-off engine's; with an int8 pool the card's tokens equal the same
-    engine's on the CPU; ``kv_quant_error`` of int8 below 0.05.
+    engine's on the CPU; ``kv_quant_error`` of int8 below 0.05;
+12. estimator: the Spark ML surface on the card with no device asked for.
+    (a) The reference suite's ``nn`` model on its overlapping Gaussians
+    through ``SparkAsyncDL`` in a ``Pipeline``: fewer than 400 errors in
+    400 rows (the reference's bar), and the pipeline saved and loaded
+    predicts the same. (b) ``examples/bert_classifier.py`` at full width:
+    BERT-base ``transformer_classifier`` in float32 (the estimator sets no
+    compute dtype), ``Pipeline([OneHotEncoder, SparkAsyncDL])`` over 256
+    rows x 512 tokens with a mask column, batch 32, 1 epoch (8 steps),
+    weights in an npz side file; fit, then transform; the fit's wall
+    time, training examples/s over the steps after the first (CUDA events
+    after each step), transform examples/s, peak memory, the per-epoch
+    losses (finite) and the kernels' launches, 12 a step for each of the
+    three flash kernels in the fit and 12 a partition of ``flash_fwd`` in
+    the transform, zeroed just before and read just after each; then one
+    more training step under ``torch.profiler``. (c) The transform's probs
+    and logits for 8 rows against a forward of the same weights through
+    ``attention_reference``, float32, TF32 off; kernels 1-3 against their
+    plain versions at the fit's shape (float32, B=32, H=12, S=512, D=64,
+    non-causal, the first batch's masks), timed beside their bounds and
+    SDPA's forward and backward.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8; a ``[time]`` line gives
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12; a ``[time]`` line gives
 each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
@@ -1437,6 +1457,367 @@ def phase_train_exactness(card):
         f"{traj['plain']} (max rel {rel:.3g}) [{card}]")
 
 
+# BASELINE.md's transformer configuration, examples/bert_classifier.py at
+# full width: BERT-base as a transformer_classifier, float32 (the estimator
+# builds its Trainer with no compute dtype)
+BERT_BASE = dict(vocab_size=30522, num_classes=2, hidden=768, num_layers=12,
+                 num_heads=12, mlp_dim=3072, max_len=512, dropout=0.1)
+EST_ROWS, EST_BATCH = 256, 32
+# the fitted model's transform against a forward through the plain attention
+# on the same weights: float32 (TF32 off), 12 layers; probs absolute, logits
+# relative to max(1, their largest magnitude)
+EST_PROBS_TOL = 1e-4
+
+
+def synthetic_text(spark, n, seq_len, vocab):
+    """``examples/bert_classifier.py``'s ``synthetic_text`` (copied: that
+    example imports the JAX package): token ids with a "positive" marker
+    pattern, ragged real lengths, the attention mask as its own column."""
+    import numpy as np
+    from sparkflow_tpu_torch.localml import Vectors
+    rs = np.random.RandomState(0)
+    rows = []
+    for _ in range(n):
+        label = rs.randint(0, 2)
+        ids = rs.randint(10, vocab, seq_len)
+        if label:
+            ids[:: 7] = 3
+        n_real = rs.randint(seq_len // 2, seq_len + 1)
+        mask = np.zeros(seq_len)
+        mask[:n_real] = 1.0
+        ids[n_real:] = 0
+        rows.append((float(label), Vectors.dense(ids.astype(float)),
+                     Vectors.dense(mask)))
+    return spark.createDataFrame(rows, ["label", "tokens", "mask"])
+
+
+def _estimator_reference_model(card, tmp):
+    """The reference suite's ``create_model`` on overlapping Gaussians
+    (tests/test_estimator.py) through ``SparkAsyncDL`` on the card, in a
+    ``Pipeline`` that is saved and loaded."""
+    import numpy as np
+    import sparkflow_tpu_torch.nn as nn
+    from sparkflow_tpu_torch.graph_utils import build_graph
+    from sparkflow_tpu_torch.localml import (LocalSession, Pipeline,
+                                             PipelineModel, Vectors)
+    from sparkflow_tpu_torch.pipeline_util import PysparkPipelineWrapper
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+
+    def create_model():
+        x = nn.placeholder([None, 2], name="x")
+        y = nn.placeholder([None, 1], name="y")
+        layer1 = nn.dense(x, 12, activation="relu")
+        layer2 = nn.dense(layer1, 5, activation="relu")
+        out = nn.dense(layer2, 1, activation="sigmoid", name="outer")
+        nn.sigmoid_cross_entropy(y, out)
+
+    spark = LocalSession.builder.appName("chip-smoke").getOrCreate()
+    rs = np.random.RandomState(12345)
+    rows = []
+    for _ in range(200):
+        rows.append((1.0, Vectors.dense(rs.normal(2, 1, 2))))
+        rows.append((0.0, Vectors.dense(rs.normal(-2, 1, 2))))
+    df = spark.createDataFrame(rows, ["label", "features"])
+    est = SparkAsyncDL(inputCol="features", tensorflowGraph=build_graph(
+        create_model), tfInput="x:0", tfLabel="y:0",
+        tfOutput="outer/Sigmoid:0", tfOptimizer="adam", tfLearningRate=.1,
+        iters=35, partitions=2, predictionCol="predicted", labelCol="label")
+    t0 = time.perf_counter()
+    fitted = Pipeline(stages=[est]).fit(df)
+    fit_s = time.perf_counter() - t0
+    if fitted.stages[-1].getDevice() is not None:
+        raise AssertionError("the fitted model left the card")
+    preds = [r["predicted"] for r in fitted.transform(df).collect()]
+    errors = sum(1 for p, r in zip(preds, df.collect())
+                 if round(p) != r["label"])
+    if not errors < 400:       # the reference's "better than all-wrong"
+        raise AssertionError(f"{errors} errors in 400 rows")
+    path = os.path.join(tmp, "pipeline")
+    fitted.write().overwrite().save(path)
+    loaded = PysparkPipelineWrapper.unwrap(PipelineModel.load(path))
+    again = [r["predicted"] for r in loaded.transform(df).collect()]
+    if again != preds:
+        raise AssertionError("the loaded pipeline predicts otherwise")
+    log(f"[estimator] nn create_model on the reference's Gaussians: fit "
+        f"{fit_s:.2f} s (35 epochs x 4 batches), {errors} errors in 400 "
+        f"(reference bar < 400); pipeline saved and loaded, predictions "
+        f"identical [{card}]")
+
+
+def _estimator_kernel_rows(card, masks):
+    """Kernels 1-3 against their plain versions at the estimator's shape —
+    float32, B=32, H=12, S=512, D=64, non-causal, the masks of the fit's
+    first batch — with their times, bounds and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from sparkflow_tpu_torch.ops import (attention_reference, flash_attention,
+                                         flash_bwd_dkv,
+                                         flash_bwd_dkv_reference,
+                                         flash_bwd_dq, flash_bwd_dq_reference)
+    b, s = masks.shape
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, dout = _training_operands(b, s, torch.float32, g)
+    out, lse = flash_attention(q, k, v, kv_mask=masks, return_lse=True)
+    ref, ref_lse = attention_reference(q, k, v, kv_mask=masks,
+                                       return_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, dout, lse, delta, False)
+    dq = flash_bwd_dq(*args, kv_mask=masks)
+    dk, dv = flash_bwd_dkv(*args, kv_mask=masks)
+    rdq = flash_bwd_dq_reference(*args, None, masks)
+    rdk, rdv = flash_bwd_dkv_reference(*args, None, masks)
+    torch.cuda.synchronize()
+    errs = {"flash_fwd": max_err(out, ref),
+            "flash_bwd_dq": max_err(dq, rdq),
+            "flash_bwd_dkv": max(max_err(dk, rdk), max_err(dv, rdv))}
+    tops = {"flash_fwd": 1.0, "flash_bwd_dq": float(rdq.abs().max()),
+            "flash_bwd_dkv": float(torch.maximum(rdk.abs().max(),
+                                                 rdv.abs().max()))}
+    lse_err = max_err(lse, ref_lse)
+    if not (errs["flash_fwd"] < FLASH_TOL["float32"]
+            and lse_err < LSE_TOL["float32"]):
+        raise AssertionError(f"flash_fwd at the estimator's shape: max |dO| "
+                             f"{errs['flash_fwd']}, max |dlse| {lse_err}")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if not errs[name] <= BWD_TOL["float32"] * tops[name]:
+            raise AssertionError(f"{name} at the estimator's shape: max |d| "
+                                 f"{errs[name]} > {BWD_TOL['float32']} x "
+                                 f"{tops[name]}")
+    del ref, ref_lse, rdq, rdk, rdv
+    # the (query, key) pairs this data needs: every query against the
+    # unpadded keys of its row
+    pairs = 12 * s * float(masks.sum())
+    plane = q.numel() * 4
+    stats = b * 12 * s * 4                     # one [B,H,S] float32
+    mbytes = masks.numel() * 4
+    attn_mask = (masks > 0)[:, None, None, :]
+    sdpa_fwd = time_device([lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask)] * 10)
+    sdpa_bwd = time_sdpa_backward(q, k, v, dout, masks, False)
+    rows = {}
+    for name, kern, plain, nbytes, products, lib in (
+            ("flash_fwd",
+             lambda: flash_attention(q, k, v, kv_mask=masks, return_lse=True),
+             lambda: attention_reference(q, k, v, kv_mask=masks,
+                                         return_lse=True),
+             4 * plane + stats + mbytes, 2, sdpa_fwd),
+            ("flash_bwd_dq", lambda: flash_bwd_dq(*args, kv_mask=masks),
+             lambda: flash_bwd_dq_reference(*args, None, masks),
+             5 * plane + 2 * stats + mbytes, 3, sdpa_bwd),
+            ("flash_bwd_dkv", lambda: flash_bwd_dkv(*args, kv_mask=masks),
+             lambda: flash_bwd_dkv_reference(*args, None, masks),
+             6 * plane + 2 * stats + mbytes, 4, sdpa_bwd)):
+        row = {"dtype": "float32", "B": b, "S": s, "causal": False,
+               "max_abs_err": errs[name], "ms": time_device([kern] * 10),
+               "plain_ms": time_device([plain] * 2), "library_ms": lib,
+               "bytes": nbytes, "flops": products * 2 * 64 * pairs}
+        _rate(row, "float32")
+        rows[name] = row
+        log(f"[estimator] {name} float32 B={b} H=12 S={s} D=64 padded keys: "
+            f"err {row['max_abs_err']:.3g} ms {row['ms']:.5f} plain "
+            f"{row['plain_ms']:.4f} bound {row['bound_ms']:.5f} "
+            f"({row['bound_by']}) {row['tflops']:.1f} TFLOP/s, "
+            f"{row['bound_share']:.3f} of the bound; sdpa"
+            f"{'' if name == 'flash_fwd' else '-bwd'} {lib:.5f} [{card}]")
+    return rows
+
+
+def phase_estimator(card):
+    """The Spark ML estimator on the card: the reference's own nn model,
+    then ``examples/bert_classifier.py`` at BERT-base width through
+    ``Pipeline([OneHotEncoder, SparkAsyncDL]).fit`` and ``transform``; the
+    probs against a plain-attention forward; kernels 1-3 at its shape."""
+    import tempfile
+    import numpy as np
+    import torch
+    import sparkflow_tpu_torch.core as core
+    from sparkflow_tpu_torch.localml import (LocalSession, OneHotEncoder,
+                                             Pipeline)
+    from sparkflow_tpu_torch.ml_util import resolve_weights
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.convert import list_to_params
+    from sparkflow_tpu_torch.ops import (attention_reference, launch_counts,
+                                         reset_launch_counts)
+    from sparkflow_tpu_torch.tensorflow_async import (SparkAsyncDL,
+                                                      SparkAsyncDLModel)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    with tempfile.TemporaryDirectory() as tmp:
+        _estimator_reference_model(card, tmp)
+
+        spark = LocalSession.builder.appName("bert-classifier").getOrCreate()
+        seq, vocab = BERT_BASE["max_len"], BERT_BASE["vocab_size"]
+        df = synthetic_text(spark, EST_ROWS, seq, vocab)
+        spec = build_registry_spec("transformer_classifier", **BERT_BASE)
+        losses = []
+        est = SparkAsyncDL(
+            inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
+            tfLabel="y:0", tfOutput="pred:0", tfOptimizer="adam",
+            tfLearningRate=3e-4, iters=1, miniBatchSize=EST_BATCH,
+            labelCol="labels", predictionCol="predicted",
+            extraInputCols="mask", extraTfInputs="attention_mask:0",
+            weightsPath=os.path.join(tmp, "bert"))
+        est.setLossCallback(lambda loss, it, part: losses.append(loss))
+        pipe = Pipeline(stages=[
+            OneHotEncoder(inputCol="label", outputCol="labels",
+                          dropLast=False), est])
+        # a CUDA event after every optimizer step (recorded on the stream,
+        # no host sync): the steps after the first on the card's timeline
+        marks = []
+        make_step = core.make_train_step
+
+        def marked_train_step(loss_fn, optimizer):
+            step = make_step(loss_fn, optimizer)
+
+            def marked(*a):
+                out = step(*a)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append(ev)
+                return out
+            return marked
+
+        core.make_train_step = marked_train_step
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            fitted = pipe.fit(df)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            core.make_train_step = make_step
+        fit_launches = {n: launch_counts()[n] for n in names}
+        fit_peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = len(marks)
+        want_steps = -(-EST_ROWS // EST_BATCH)
+        if steps != want_steps or any(
+                fit_launches[n] != 12 * want_steps for n in names):
+            raise AssertionError(f"{steps} steps, launches {fit_launches}; "
+                                 f"each kernel must launch 12 x "
+                                 f"{want_steps} times")
+        if not (losses and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"per-epoch losses {losses}: not finite")
+        after_first_s = marks[0].elapsed_time(marks[-1]) / 1e3
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        preds = fitted.transform(df).collect()
+        torch.cuda.synchronize()
+        transform_s = time.perf_counter() - t1
+        tr_launches = {n: launch_counts()[n] for n in names}
+        tr_peak = torch.cuda.max_memory_allocated() / 1e9
+        parts = df.rdd.getNumPartitions()
+        if tr_launches != {"flash_fwd": 12 * parts, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}:
+            raise AssertionError(f"transform launches {tr_launches}; want "
+                                 f"12 x {parts} partitions of flash_fwd")
+        if len(preds) != EST_ROWS or not all(
+                r["predicted"] in (0.0, 1.0) for r in preds):
+            raise AssertionError("transform: a row without a class")
+        acc = float(np.mean([r["predicted"] == r["label"] for r in preds]))
+        summary = {
+            "config": "transformer_classifier BERT-base (768/12/12/3072, "
+                      "vocab 30522, max_len 512), float32, adam 3e-4",
+            "rows": EST_ROWS, "seq": seq, "batch": EST_BATCH, "steps": steps,
+            "fit_s": fit_s,
+            "train_examples_per_s_after_first":
+                EST_BATCH * (steps - 1) / after_first_s,
+            "steps_after_first_s": after_first_s,
+            "transform_s": transform_s,
+            "transform_examples_per_s": EST_ROWS / transform_s,
+            "partitions": parts, "losses": losses, "train_accuracy": acc,
+            "peak_mem_gb": {"fit": fit_peak, "transform": tr_peak},
+            "launches": {"fit": fit_launches, "transform": tr_launches},
+            "card": card}
+        log("[estimator] " + json.dumps(summary))
+
+        # the fitted weights through the plain attention on 8 rows: the
+        # probs, and the logits, which the fitted model's near-certain
+        # probs would not show a difference in
+        model_stage = fitted.stages[-1]
+        weights = model_stage.getOrDefault(model_stage.modelWeights)
+        few = synthetic_text(spark, 8, seq, vocab)
+        from sparkflow_tpu_torch.models import model_from_json
+        model = model_from_json(spec)
+        params = list_to_params(model, resolve_weights(weights))
+        rows = few.collect()
+        feeds = {"input_ids": torch.tensor(np.stack(
+                     [r["tokens"].toArray() for r in rows]), device="cuda"),
+                 "attention_mask": torch.tensor(np.stack(
+                     [r["mask"].toArray() for r in rows]),
+                     dtype=torch.float32, device="cuda")}
+        with torch.inference_mode():
+            want = model.apply(params, feeds, ["probs", "logits"],
+                               attention=attention_reference)
+        errs = {}
+        for out in ("probs", "logits"):
+            stage = SparkAsyncDLModel(
+                inputCol="tokens", modelJson=spec, modelWeights=weights,
+                tfInput="input_ids:0", tfOutput=out + ":0",
+                predictionCol=out, extraInputCols="mask",
+                extraTfInputs="attention_mask:0")
+            got = np.stack([r[out].toArray()
+                            for r in stage.transform(few).collect()])
+            ref = want[out].cpu().numpy()
+            tol = EST_PROBS_TOL * max(1.0, float(np.abs(ref).max()))
+            errs[out] = float(np.abs(got - ref).max())
+            if not (errs[out] <= tol and np.isfinite(got).all()):
+                raise AssertionError(f"transform {out} differ from the plain "
+                                     f"attention's by {errs[out]} (tol "
+                                     f"{tol})")
+        log(f"[estimator] transform (8 rows) vs plain attention on the same "
+            f"weights, float32, TF32 off: probs max |d| {errs['probs']:.3g} "
+            f"(tol {EST_PROBS_TOL}), logits max |d| {errs['logits']:.3g} "
+            f"(tol {EST_PROBS_TOL} x max(1, max |logit|)) [{card}]")
+
+        # one more training step of the fitted model under the profiler:
+        # the estimator's step (float32, dropout 0.1, adam) on its first
+        # batch
+        first = df.collect()[:EST_BATCH]
+        x = tuple(torch.tensor(np.stack([r[c].toArray() for r in first]),
+                               dtype=torch.float32, device="cuda")
+                  for c in ("tokens", "mask"))
+        y = torch.tensor(np.eye(2)[[int(r["label"]) for r in first]],
+                         dtype=torch.float32, device="cuda")
+        m = torch.ones(EST_BATCH, device="cuda")
+        ptree = model.load_params(params, trainable=True)
+        from sparkflow_tpu_torch.optimizers import build_optimizer
+        opt = build_optimizer("adam", 3e-4)
+        state = opt.init(ptree)
+        step = core.make_train_step(core.make_loss_fn(
+            model, ["input_ids", "attention_mask"], "y"), opt)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        ptree, state, _ = step(ptree, state, x, y, m, gen)      # warm
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ptree, state, loss = step(ptree, state, x, y, m, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t2) * 1e3
+        prof_sum = _device_profile(prof, wall, 1, kernels=names)
+        attn = sum(k["ms"] for k in prof_sum["kernels"].values())
+        log("[estimator-profile] " + json.dumps(
+            {"train_step": prof_sum, "attention_kernels_ms": attn,
+             "attention_share_of_busy": attn / prof_sum["device_busy_ms"],
+             "loss": float(loss), "card": card}))
+        del model, params, ptree, state, fitted, pipe, est
+        masks = torch.tensor(np.stack([r["mask"].toArray() for r in first]),
+                             dtype=torch.float32, device="cuda")
+    rows = _estimator_kernel_rows(card, masks)
+    return {n: {"launches": fit_launches[n],
+                "transform_launches": tr_launches[n], **_pick(rows[n]),
+                "max_abs_err": rows[n]["max_abs_err"],
+                "tflops": rows[n]["tflops"],
+                "bound_share": rows[n]["bound_share"]} for n in names}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1469,6 +1850,7 @@ def main() -> int:
         timed("spec-exactness", phase_spec_exactness, card)
         train_launches = timed("training", phase_training, card)
         timed("train-exactness", phase_train_exactness, card)
+        est_rows = timed("estimator", phase_estimator, card)
     except Exception:
         traceback.print_exc()
         return 1
@@ -1485,7 +1867,10 @@ def main() -> int:
          "training": {"launches": train_launches["flash_fwd"],
                       **bwd_rows["flash_fwd"]},
          "spec_serving": {"launches": [spec_a["flash_fwd"],
-                                       spec_b["flash_fwd"]]}},
+                                       spec_b["flash_fwd"]]},
+         # the estimator phase: BERT-base fit (launches) and transform,
+         # times at its shape (float32, B=32, S=512, padded keys)
+         "estimator": est_rows["flash_fwd"]},
         {"name": "paged_attention", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "734",
          "launches": launches["paged_attention"], **paged_row,
@@ -1494,11 +1879,12 @@ def main() -> int:
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "372",
          "launches": train_launches["flash_bwd_dq"],
-         **bwd_rows["flash_bwd_dq"]},
+         **bwd_rows["flash_bwd_dq"], "estimator": est_rows["flash_bwd_dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "415",
          "launches": train_launches["flash_bwd_dkv"],
-         **bwd_rows["flash_bwd_dkv"]},
+         **bwd_rows["flash_bwd_dkv"],
+         "estimator": est_rows["flash_bwd_dkv"]},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "781",
          "launches": spec_b["paged_attention_quant"],

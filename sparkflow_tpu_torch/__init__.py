@@ -11,8 +11,13 @@ Ported so far: the decode-serving path — ``ServingClient.generate`` →
 ``flash_attention`` and ``paged_attention`` CUDA kernels — and the
 single-card training path — ``trainer.Trainer.fit`` → ``core`` steps →
 ``optimizers`` → the ``transformer_lm`` / ``transformer_classifier`` loss
-→ ``flash_attention`` forward and its dq and dk/dv backward kernels.
-ROADMAP.md lists what is still to port.
+→ ``flash_attention`` forward and its dq and dk/dv backward kernels —
+and the Spark ML estimator on top of it: ``spark_async.SparkAsyncDL`` /
+``SparkAsyncDLModel`` (alias ``tensorflow_async``) in a ``Pipeline`` on
+``localml`` or pyspark (``compat``, ``pipeline_util``, ``ml_util``), with
+models from the ``nn`` graph DSL (``nn``, ``graph_utils.build_graph``,
+``graphdef.GraphModel``) or the registry. ROADMAP.md lists what is still
+to port.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,197 @@
+"""Weight serialization, the per-partition inference kernel, and data
+marshalling — the port of the JAX package's ``ml_util.py``.
+
+- weights travel as a JSON list of nested lists in ``param_specs()`` order,
+  the JAX package's wire format unchanged, or as an ``npz:<path>`` side
+  file (keys ``w_0 .. w_{n-1}``) — so either package reads the other's
+  fitted ``modelWeights``;
+- :func:`predict_func` rebuilds the model from its spec JSON on the stage's
+  device (the CUDA card unless ``device="cpu"``), runs the named output
+  tensor in fixed-size chunks and appends the prediction column (a float
+  for scalar outputs, ``Vectors.dense`` otherwise).
+
+int8 serving (``quantize``) and serving over a device mesh (``mesh_axes``)
+are not yet ported and raise (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from collections import OrderedDict
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+
+from .compat import Row, Vectors
+from .convert import list_to_params, params_to_list
+from .core import make_predict_fn, predict_in_chunks
+from .device import resolve_device
+from .localml.linalg import vector_to_array
+
+
+def get_weights(model, params) -> List[np.ndarray]:
+    """Params tree -> flat weight list (``tensorflow_get_weights`` analog)."""
+    return params_to_list(model, params)
+
+
+def set_weights(model, weights: List[np.ndarray]):
+    """Flat weight list -> params tree on the model's device."""
+    return list_to_params(model, weights)
+
+
+def convert_weights_to_json(weights: List[np.ndarray]) -> str:
+    return json.dumps([np.asarray(w).tolist() for w in weights])
+
+
+def convert_json_to_weights(json_weights: str) -> List[np.ndarray]:
+    return [np.asarray(x, dtype=np.float32) for x in json.loads(json_weights)]
+
+
+def save_weights_npz(path: str, weights: List[np.ndarray]) -> None:
+    """Save a flat weight list as ``.npz`` (keys ``w_0..w_{n-1}`` keep
+    order) — the JAX package's ``model_loader.save_weights_npz`` format."""
+    np.savez(path, **{f"w_{i}": w for i, w in enumerate(weights)})
+
+
+def resolve_weights(weights_str: str) -> List[np.ndarray]:
+    """Decode a model's weight Param: inline JSON (the reference's wire
+    format) or a side-file reference ``npz:<path>``."""
+    if weights_str.startswith("npz:"):
+        path = weights_str[4:]
+        with np.load(path) as z:
+            return [z[k] for k in sorted(z.files, key=lambda s: int(s.split("_")[-1]))]
+    return convert_json_to_weights(weights_str)
+
+
+def params_to_json(model, params) -> str:
+    return convert_weights_to_json(params_to_list(model, params))
+
+
+def json_to_params(model, json_weights: str):
+    return list_to_params(model, convert_json_to_weights(json_weights))
+
+
+def _not_yet(what: str):
+    raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
+                              f"ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# Inference kernel
+# ---------------------------------------------------------------------------
+
+# Keyed on the sha256 of the full graph JSON and the device, LRU-bounded so
+# long-lived processes serving many models don't keep every model.
+_PREDICT_CACHE: "OrderedDict[Tuple, Any]" = OrderedDict()
+_PREDICT_CACHE_MAX = 32
+
+
+def _cached_predict_fn(graph_json: str, tf_output: str, tf_input,
+                       tf_dropout: Optional[str], dropout_value: float,
+                       device=None):
+    """Cache (model, predict_fn) across partitions: the model is rebuilt
+    from its spec once per (spec, output, inputs, dropout feed, device)."""
+    dev = resolve_device(device)
+    digest = hashlib.sha256(graph_json.encode()).hexdigest()
+    in_key = (tuple(tf_input) if isinstance(tf_input, (list, tuple))
+              else tf_input)
+    key = (digest, tf_output, in_key, tf_dropout, dropout_value, str(dev))
+    if key not in _PREDICT_CACHE:
+        from .models import model_from_json
+        model = model_from_json(graph_json, device=dev)
+        fn = make_predict_fn(model, tf_input, tf_output, tf_dropout,
+                             dropout_value)
+        _PREDICT_CACHE[key] = (model, fn)
+        while len(_PREDICT_CACHE) > _PREDICT_CACHE_MAX:
+            _PREDICT_CACHE.popitem(last=False)
+    else:
+        _PREDICT_CACHE.move_to_end(key)
+    return _PREDICT_CACHE[key]
+
+
+def predict_func(rows: Iterable, graph_json: str, prediction: str,
+                 graph_weights: str, inp: str, activation: str, tf_input: str,
+                 tf_dropout: Optional[str] = None, to_keep_dropout: bool = False,
+                 chunk_size: int = 4096, extra_cols: Optional[List[str]] = None,
+                 extra_inputs: Optional[List[str]] = None,
+                 quantize: Optional[str] = None,
+                 mesh_axes: Optional[Dict[str, int]] = None,
+                 device=None) -> List:
+    """Per-partition inference (the JAX package's signature and meaning;
+    ``activation`` is the output tensor name). ``extra_cols`` /
+    ``extra_inputs`` feed more columns to more tensors (e.g. an attention
+    mask). ``device`` is the card unless ``"cpu"`` is asked for."""
+    if quantize:
+        _not_yet("int8 serving (inferenceQuantize)")
+    if mesh_axes:
+        _not_yet("serving over a device mesh (meshShape)")
+    if bool(extra_cols) != bool(extra_inputs) or (
+            extra_cols and len(extra_cols) != len(extra_inputs)):
+        raise ValueError("extra_cols and extra_inputs must pair up one-to-one")
+    row_dicts = [r.asDict() for r in rows]
+    if not row_dicts:
+        return []
+    dropout_v = 1.0 if (tf_dropout is not None and to_keep_dropout) else 0.0
+    names = [tf_input] + list(extra_inputs) if extra_cols else tf_input
+    model, fn = _cached_predict_fn(graph_json, activation, names,
+                                   tf_dropout, dropout_v, device)
+    params = list_to_params(model, resolve_weights(graph_weights))
+    cols = [inp] + list(extra_cols) if extra_cols else [inp]
+    stacked = tuple(
+        np.stack([vector_to_array(rd[c]) for rd in row_dicts]).astype(np.float32)
+        for c in cols)
+    x = stacked if extra_cols else stacked[0]
+    preds = predict_in_chunks(fn, params, x, chunk_size)
+    for rd, p in zip(row_dicts, preds):
+        arr = np.asarray(p)
+        if arr.ndim == 0 or arr.size == 1:
+            rd[prediction] = float(arr.reshape(()))
+        else:
+            rd[prediction] = Vectors.dense(arr)
+    return [Row(**rd) for rd in row_dicts]
+
+
+# ---------------------------------------------------------------------------
+# Data marshalling (reference ml_util.py:86-134)
+# ---------------------------------------------------------------------------
+
+
+def handle_features(data: Iterable, is_supervised: bool = False
+                    ) -> Tuple[Any, Optional[np.ndarray]]:
+    """Materialize an iterator of (features, label) / features into arrays.
+    Scalar labels wrap to ``[y]``. A row's features may be a TUPLE of
+    vectors (multi-input models); the return is then a matching tuple of
+    arrays."""
+    def to_arr(x):
+        return x if isinstance(x, np.ndarray) else vector_to_array(x)
+
+    features, labels = [], []
+    multi = False
+    for item in data:
+        if is_supervised:
+            x, y = item
+            if isinstance(y, (int, float)):
+                labels.append([y])
+            else:
+                labels.append(vector_to_array(y))
+        else:
+            x = item
+        if isinstance(x, tuple):
+            multi = True
+            features.append([to_arr(c) for c in x])
+        else:
+            features.append(to_arr(x))
+    if multi:
+        f = tuple(np.asarray([row[i] for row in features], dtype=np.float32)
+                  for i in range(len(features[0])))
+    else:
+        f = np.asarray(features, dtype=np.float32)
+    l = np.asarray(labels, dtype=np.float32) if is_supervised else None
+    return f, l
+
+
+def handle_shuffle(features: np.ndarray, labels: Optional[np.ndarray]
+                   ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    idx = np.random.permutation(features.shape[0])
+    return features[idx], labels[idx] if labels is not None else None

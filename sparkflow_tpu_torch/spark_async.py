@@ -1,0 +1,574 @@
+"""``SparkAsyncDL`` / ``SparkAsyncDLModel``: the Spark ML estimator surface,
+ported to PyTorch.
+
+The JAX package's classes with the same Params — names, defaults and
+converters — so a persisted stage keeps its shape, and the same
+``.fit`` / ``.transform`` semantics: unsupervised mode (``tfLabel=None``),
+the dropout feed (``tfDropout`` / ``toKeepDropout``), extra input columns
+(``extraInputCols`` / ``extraTfInputs``), ``weightsPath`` side files and
+``useEmaWeights``. ``_fit`` collects the rows and trains with the port's
+:class:`~.trainer.Trainer`; ``_transform`` predicts per partition through
+:func:`~.ml_util.predict_func`.
+
+Both stages take a ``device`` keyword (not a Param): ``None`` is the CUDA
+card, ``"cpu"`` must be asked for. The estimator hands it to its
+``Trainer`` and to the model it fits, the model to its predict path.
+
+Refused before any training with "not yet ported (see ROADMAP.md)":
+``meshShape`` on either stage, ``fitMode="stream"``, ``checkpointDir``,
+non-default ``ppMicrobatches`` / ``ppSchedule`` / ``weightUpdateSharding``
+/ ``zeroStage``, and the model's ``inferenceQuantize``.
+
+Also importable as :mod:`sparkflow_tpu_torch.tensorflow_async`.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from typing import Optional
+
+import numpy as np
+
+from .compat import (Estimator, HasInputCol, HasLabelCol, HasPredictionCol,
+                     Identifiable, MLReadable, MLWritable, Model, Param, Params,
+                     TypeConverters, keyword_only)
+from .localml.linalg import vector_to_array
+from .ml_util import (convert_weights_to_json, handle_features, predict_func,
+                      save_weights_npz)
+from .optimizers import build_optimizer_from_json
+from .pipeline_util import PysparkReaderWriter
+from .trainer import Trainer
+
+logger = logging.getLogger("sparkflow_tpu_torch")
+
+
+def _not_yet(what: str):
+    raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
+                              f"ROADMAP.md)")
+
+
+class _OnDevice:
+    """The ``device`` keyword of both stages: kept on the instance (and so
+    in a saved stage), not as a Param."""
+
+    _device = None
+
+    def _take_device(self, kwargs: dict) -> dict:
+        kwargs = dict(kwargs)
+        if "device" in kwargs:
+            self._device = kwargs.pop("device")
+        return kwargs
+
+    def getDevice(self):
+        return self._device
+
+    def setDevice(self, device):
+        self._device = device
+        return self
+
+
+def _split_csv(s: Optional[str]) -> list:
+    """Comma-separated Param -> list of names (empty list for None/blank)."""
+    return [t.strip() for t in (s or "").split(",") if t.strip()]
+
+
+def _opt_param(obj, param, default=None):
+    """getOrDefault that tolerates instances persisted by OLDER versions:
+    dill-loaded stages restore the old _defaultParamMap, which lacks Params
+    added since — treat those as their current default instead of KeyError."""
+    try:
+        return obj.getOrDefault(param)
+    except KeyError:
+        return default
+
+
+def build_optimizer(optimizer_name, learning_rate, optimizer_options=None):
+    """Name -> gradient transformation (reference
+    ``tensorflow_async.py:17-42``)."""
+    from .optimizers import build_optimizer as _bo
+    return _bo(optimizer_name, learning_rate, optimizer_options)
+
+
+def handle_data(data, inp_col: str, label_col: Optional[str],
+                extra_cols: Optional[list] = None):
+    """Row -> (features ndarray, label) or bare features when unsupervised
+    (reference ``tensorflow_async.py:45-48``). With ``extra_cols`` the
+    features become a tuple (multi-input models)."""
+    def feat(row):
+        base = np.asarray(vector_to_array(row[inp_col]), dtype=np.float32)
+        if extra_cols:
+            return (base,) + tuple(
+                np.asarray(vector_to_array(row[c]), dtype=np.float32)
+                for c in extra_cols)
+        return base
+
+    if label_col is None:
+        return feat(data)
+    return (feat(data), data[label_col])
+
+
+class SparkAsyncDLModel(_OnDevice, Model, HasInputCol, HasPredictionCol,
+                        PysparkReaderWriter, MLReadable, MLWritable,
+                        Identifiable):
+    """Fitted model: graph JSON + weights JSON as string Params, applied
+    per-partition (reference ``tensorflow_async.py:51-99``)."""
+
+    modelJson = Param(Params._dummy(), "modelJson", "", typeConverter=TypeConverters.toString)
+    modelWeights = Param(Params._dummy(), "modelWeights", "", typeConverter=TypeConverters.toString)
+    tfOutput = Param(Params._dummy(), "tfOutput", "", typeConverter=TypeConverters.toString)
+    tfInput = Param(Params._dummy(), "tfInput", "", typeConverter=TypeConverters.toString)
+    tfDropout = Param(Params._dummy(), "tfDropout", "", typeConverter=TypeConverters.toString)
+    toKeepDropout = Param(Params._dummy(), "toKeepDropout", "", typeConverter=TypeConverters.toBoolean)
+    # upgrade: extra (column, tensor) feeds for multi-input models, e.g. an
+    # attention mask next to token ids; comma-separated so the Params stay
+    # plain strings (persistence-friendly, like every reference Param)
+    extraInputCols = Param(Params._dummy(), "extraInputCols", "", typeConverter=TypeConverters.toString)
+    extraTfInputs = Param(Params._dummy(), "extraTfInputs", "", typeConverter=TypeConverters.toString)
+    # JAX-package upgrades kept so persisted stages keep their shape; both
+    # are refused here until int8 serving and mesh serving are ported:
+    # int8-quantized serving ('' = off, 'weight_only', 'dynamic') and
+    # serving over a device mesh ("dp=8")
+    inferenceQuantize = Param(Params._dummy(), "inferenceQuantize", "", typeConverter=TypeConverters.toString)
+    meshShape = Param(Params._dummy(), "meshShape", "", typeConverter=TypeConverters.toString)
+
+    @keyword_only
+    def __init__(self,
+                 inputCol=None,
+                 modelJson=None,
+                 modelWeights=None,
+                 tfInput=None,
+                 tfOutput=None,
+                 tfDropout=None,
+                 toKeepDropout=None,
+                 predictionCol=None,
+                 extraInputCols=None,
+                 extraTfInputs=None,
+                 inferenceQuantize=None,
+                 meshShape=None,
+                 device=None):
+        super(SparkAsyncDLModel, self).__init__()
+        self._setDefault(modelJson=None, inputCol='encoded',
+                         predictionCol='predicted', tfOutput=None, tfInput=None,
+                         modelWeights=None, tfDropout=None, toKeepDropout=False,
+                         extraInputCols=None, extraTfInputs=None,
+                         inferenceQuantize=None, meshShape=None)
+        self.setParams(**self._take_device(self._input_kwargs))
+
+    @keyword_only
+    def setParams(self,
+                  inputCol=None,
+                  modelJson=None,
+                  modelWeights=None,
+                  tfInput=None,
+                  tfOutput=None,
+                  tfDropout=None,
+                  toKeepDropout=None,
+                  predictionCol=None,
+                  extraInputCols=None,
+                  extraTfInputs=None,
+                  inferenceQuantize=None,
+                  meshShape=None):
+        kwargs = self._input_kwargs
+        return self._set(**kwargs)
+
+    def _transform(self, dataset):
+        inp = self.getOrDefault(self.inputCol)
+        out = self.getOrDefault(self.predictionCol)
+        mod_json = self.getOrDefault(self.modelJson)
+        mod_weights = self.getOrDefault(self.modelWeights)
+        tf_input = self.getOrDefault(self.tfInput)
+        tf_output = self.getOrDefault(self.tfOutput)
+        tf_dropout = self.getOrDefault(self.tfDropout)
+        to_keep_dropout = self.getOrDefault(self.toKeepDropout)
+        extra_cols = _split_csv(_opt_param(self, self.extraInputCols))
+        extra_inputs = _split_csv(_opt_param(self, self.extraTfInputs))
+        if len(extra_cols) != len(extra_inputs):
+            raise ValueError(
+                "extraInputCols (%d names) and extraTfInputs (%d names) must "
+                "pair up one-to-one" % (len(extra_cols), len(extra_inputs)))
+        if _opt_param(self, self.inferenceQuantize):
+            _not_yet("int8 serving (inferenceQuantize)")
+        if _opt_param(self, self.meshShape):
+            _not_yet("serving over a device mesh (meshShape)")
+        device = self._device
+        return dataset.rdd.mapPartitions(
+            lambda x: predict_func(x, mod_json, out, mod_weights, inp, tf_output,
+                                   tf_input, tf_dropout, to_keep_dropout,
+                                   extra_cols=extra_cols or None,
+                                   extra_inputs=extra_inputs or None,
+                                   device=device)).toDF()
+
+
+class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
+                   HasLabelCol, PysparkReaderWriter, MLReadable, MLWritable,
+                   Identifiable):
+    """Estimator with the reference's full 18-Param surface
+    (``tensorflow_async.py:102-210``) and the JAX package's upgrades;
+    ``_fit`` trains on one card (or the CPU with ``device="cpu"``)."""
+
+    tensorflowGraph = Param(Params._dummy(), "tensorflowGraph", "", typeConverter=TypeConverters.toString)
+    tfInput = Param(Params._dummy(), "tfInput", "", typeConverter=TypeConverters.toString)
+    tfOutput = Param(Params._dummy(), "tfOutput", "", typeConverter=TypeConverters.toString)
+    tfLabel = Param(Params._dummy(), "tfLabel", "", typeConverter=TypeConverters.toString)
+    tfOptimizer = Param(Params._dummy(), "tfOptimizer", "", typeConverter=TypeConverters.toString)
+    tfLearningRate = Param(Params._dummy(), "tfLearningRate", "", typeConverter=TypeConverters.toFloat)
+    iters = Param(Params._dummy(), "iters", "", typeConverter=TypeConverters.toInt)
+    partitions = Param(Params._dummy(), "partitions", "", typeConverter=TypeConverters.toInt)
+    miniBatchSize = Param(Params._dummy(), "miniBatchSize", "", typeConverter=TypeConverters.toInt)
+    miniStochasticIters = Param(Params._dummy(), "miniStochasticIters", "", typeConverter=TypeConverters.toInt)
+    verbose = Param(Params._dummy(), "verbose", "", typeConverter=TypeConverters.toInt)
+    acquireLock = Param(Params._dummy(), "acquireLock", "", typeConverter=TypeConverters.toBoolean)
+    shufflePerIter = Param(Params._dummy(), "shufflePerIter", "", typeConverter=TypeConverters.toBoolean)
+    tfDropout = Param(Params._dummy(), "tfDropout", "", typeConverter=TypeConverters.toString)
+    toKeepDropout = Param(Params._dummy(), "toKeepDropout", "", typeConverter=TypeConverters.toBoolean)
+    partitionShuffles = Param(Params._dummy(), "partitionShuffles", "", typeConverter=TypeConverters.toInt)
+    optimizerOptions = Param(Params._dummy(), "optimizerOptions", "", typeConverter=TypeConverters.toString)
+    port = Param(Params._dummy(), "port", "", typeConverter=TypeConverters.toInt)
+    # the JAX package's upgrades over the reference param set, all kept so
+    # persisted stages keep their shape: weightsPath (npz side-file weights),
+    # extraInputCols/extraTfInputs (multi-input feeds) and useEmaWeights are
+    # ported; checkpointDir/checkpointEvery, fitMode='stream', meshShape,
+    # ppMicrobatches/ppSchedule and weightUpdateSharding/zeroStage are
+    # refused (see the module docstring)
+    weightsPath = Param(Params._dummy(), "weightsPath", "", typeConverter=TypeConverters.toString)
+    checkpointDir = Param(Params._dummy(), "checkpointDir", "", typeConverter=TypeConverters.toString)
+    checkpointEvery = Param(Params._dummy(), "checkpointEvery", "", typeConverter=TypeConverters.toInt)
+    fitMode = Param(Params._dummy(), "fitMode", "", typeConverter=TypeConverters.toString)
+    extraInputCols = Param(Params._dummy(), "extraInputCols", "", typeConverter=TypeConverters.toString)
+    extraTfInputs = Param(Params._dummy(), "extraTfInputs", "", typeConverter=TypeConverters.toString)
+    meshShape = Param(Params._dummy(), "meshShape", "", typeConverter=TypeConverters.toString)
+    useEmaWeights = Param(Params._dummy(), "useEmaWeights", "", typeConverter=TypeConverters.toBoolean)
+    ppMicrobatches = Param(Params._dummy(), "ppMicrobatches", "", typeConverter=TypeConverters.toInt)
+    ppSchedule = Param(Params._dummy(), "ppSchedule", "", typeConverter=TypeConverters.toString)
+    weightUpdateSharding = Param(Params._dummy(), "weightUpdateSharding", "", typeConverter=TypeConverters.toString)
+    zeroStage = Param(Params._dummy(), "zeroStage", "", typeConverter=TypeConverters.toInt)
+
+    @keyword_only
+    def __init__(self,
+                 inputCol=None,
+                 tensorflowGraph=None,
+                 tfInput=None,
+                 tfLabel=None,
+                 tfOutput=None,
+                 tfOptimizer=None,
+                 tfLearningRate=None,
+                 iters=None,
+                 predictionCol=None,
+                 partitions=None,
+                 miniBatchSize=None,
+                 miniStochasticIters=None,
+                 acquireLock=None,
+                 shufflePerIter=None,
+                 tfDropout=None,
+                 toKeepDropout=None,
+                 verbose=None,
+                 labelCol=None,
+                 partitionShuffles=None,
+                 optimizerOptions=None,
+                 port=None,
+                 weightsPath=None,
+                 checkpointDir=None,
+                 checkpointEvery=None,
+                 fitMode=None,
+                 extraInputCols=None,
+                 extraTfInputs=None,
+                 meshShape=None,
+                 useEmaWeights=None,
+                 ppMicrobatches=None,
+                 ppSchedule=None,
+                 weightUpdateSharding=None,
+                 zeroStage=None,
+                 device=None):
+        """Same parameter meanings as the reference estimator docstring
+        (``tensorflow_async.py:146-175``); ``acquireLock`` and ``port`` are
+        accepted no-ops under synchronous training. ``weightsPath`` is an
+        upgrade (side-file weights); ``device`` is the card unless
+        ``"cpu"``."""
+        super(SparkAsyncDL, self).__init__()
+        self._setDefault(inputCol='transformed', tensorflowGraph='',
+                         tfInput='x:0', tfLabel=None, tfOutput='out/Sigmoid:0',
+                         tfOptimizer='adam', tfLearningRate=.01, partitions=5,
+                         miniBatchSize=128, miniStochasticIters=-1,
+                         shufflePerIter=True, tfDropout=None, acquireLock=False,
+                         verbose=0, iters=1000, toKeepDropout=False,
+                         predictionCol='predicted', labelCol=None,
+                         partitionShuffles=1, optimizerOptions=None, port=5000,
+                         weightsPath=None, checkpointDir=None, checkpointEvery=0,
+                         fitMode='collect', extraInputCols=None,
+                         extraTfInputs=None, meshShape=None,
+                         useEmaWeights=False, ppMicrobatches=-1,
+                         ppSchedule='gpipe', weightUpdateSharding='auto',
+                         zeroStage=-1)
+        self._loss_callback = None
+        self.setParams(**self._take_device(self._input_kwargs))
+
+    @keyword_only
+    def setParams(self,
+                  inputCol=None,
+                  tensorflowGraph=None,
+                  tfInput=None,
+                  tfLabel=None,
+                  tfOutput=None,
+                  tfOptimizer=None,
+                  tfLearningRate=None,
+                  iters=None,
+                  predictionCol=None,
+                  partitions=None,
+                  miniBatchSize=None,
+                  miniStochasticIters=None,
+                  acquireLock=None,
+                  shufflePerIter=None,
+                  tfDropout=None,
+                  toKeepDropout=None,
+                  verbose=None,
+                  labelCol=None,
+                  partitionShuffles=None,
+                  optimizerOptions=None,
+                  port=None,
+                  weightsPath=None,
+                  checkpointDir=None,
+                  checkpointEvery=None,
+                  fitMode=None,
+                  extraInputCols=None,
+                  extraTfInputs=None,
+                  meshShape=None,
+                 useEmaWeights=None,
+                 ppMicrobatches=None,
+                 ppSchedule=None,
+                 weightUpdateSharding=None,
+                 zeroStage=None):
+        kwargs = self._input_kwargs
+        return self._set(**kwargs)
+
+    def setLossCallback(self, fn):
+        """Per-iteration ``fn(loss, iteration, partition_id)`` hook — the hook
+        the reference declared on HogwildSparkModel but never plumbed through
+        the estimator (``HogwildSparkModel.py:124``; SURVEY.md §5). Not a
+        Param (functions don't persist); set it per-fit."""
+        self._loss_callback = fn
+        return self
+
+    # getters (reference tensorflow_async.py:212-264)
+    def getTensorflowGraph(self):
+        return self.getOrDefault(self.tensorflowGraph)
+
+    def getIters(self):
+        return self.getOrDefault(self.iters)
+
+    def getTfInput(self):
+        return self.getOrDefault(self.tfInput)
+
+    def getTfLabel(self):
+        return self.getOrDefault(self.tfLabel)
+
+    def getTfOutput(self):
+        return self.getOrDefault(self.tfOutput)
+
+    def getTfOptimizer(self):
+        return self.getOrDefault(self.tfOptimizer)
+
+    def getTfLearningRate(self):
+        return self.getOrDefault(self.tfLearningRate)
+
+    def getPartitions(self):
+        return self.getOrDefault(self.partitions)
+
+    def getMiniBatchSize(self):
+        return self.getOrDefault(self.miniBatchSize)
+
+    def getMiniStochasticIters(self):
+        return self.getOrDefault(self.miniStochasticIters)
+
+    def getVerbose(self):
+        return self.getOrDefault(self.verbose)
+
+    def getAcquireLock(self):
+        return self.getOrDefault(self.acquireLock)
+
+    def getShufflePerIter(self):
+        return self.getOrDefault(self.shufflePerIter)
+
+    def getTfDropout(self):
+        return self.getOrDefault(self.tfDropout)
+
+    def getToKeepDropout(self):
+        return self.getOrDefault(self.toKeepDropout)
+
+    def getPartitionShuffles(self):
+        return self.getOrDefault(self.partitionShuffles)
+
+    def getOptimizerOptions(self):
+        return self.getOrDefault(self.optimizerOptions)
+
+    def getPort(self):
+        return self.getOrDefault(self.port)
+
+    def getMeshShape(self):
+        return _opt_param(self, self.meshShape)
+
+    def getFitMode(self):
+        return _opt_param(self, self.fitMode, "collect")
+
+    def _validate_params(self):
+        """Error loudly on inconsistent Param combinations (the JAX
+        package's checks and messages), then refuse what is not yet ported
+        — all before any training."""
+        label_col = self.getOrDefault(self.labelCol)
+        tf_label = self.getTfLabel()
+        if tf_label is not None and label_col is None:
+            raise ValueError(
+                "tfLabel=%r names a label tensor but labelCol is None: the "
+                "supervised loss would train on dummy zero labels. Set "
+                "labelCol (or clear tfLabel for unsupervised training)."
+                % tf_label)
+        if label_col is not None and tf_label is None:
+            raise ValueError(
+                "labelCol=%r supplies labels but tfLabel is None, so no loss "
+                "consumes them. Set tfLabel (or clear labelCol)." % label_col)
+        fit_mode = (self.getFitMode() or "collect").lower()
+        if fit_mode not in ("collect", "stream"):
+            raise ValueError("fitMode must be 'collect' or 'stream', got %r"
+                             % self.getFitMode())
+        extra_cols = _split_csv(_opt_param(self, self.extraInputCols))
+        extra_inputs = _split_csv(_opt_param(self, self.extraTfInputs))
+        if len(extra_cols) != len(extra_inputs):
+            raise ValueError(
+                "extraInputCols (%d names) and extraTfInputs (%d names) must "
+                "pair up one-to-one" % (len(extra_cols), len(extra_inputs)))
+        sched = _opt_param(self, self.ppSchedule, "gpipe") or "gpipe"
+        if sched not in ("gpipe", "1f1b", "sequential"):
+            raise ValueError(
+                "ppSchedule must be 'gpipe', '1f1b', or 'sequential'; got %r"
+                % sched)
+        wus = _opt_param(self, self.weightUpdateSharding, "auto") or "auto"
+        if wus not in ("auto", "on", "off"):
+            raise ValueError(
+                "weightUpdateSharding must be 'auto', 'on', or 'off'; got %r"
+                % wus)
+        zs = _opt_param(self, self.zeroStage, -1)
+        zs = -1 if zs is None else int(zs)
+        if zs not in (-1, 0, 1, 2, 3):
+            raise ValueError(
+                "zeroStage must be -1 (unset) or 0-3; got %r" % zs)
+        if fit_mode == "stream":
+            _not_yet("fitMode='stream' (Trainer.fit_stream)")
+        if self.getMeshShape():
+            _not_yet("training on a device mesh (meshShape)")
+        if self.getOrDefault(self.checkpointDir):
+            _not_yet("checkpointDir (mid-training checkpoints)")
+        pp_mb = _opt_param(self, self.ppMicrobatches, -1)
+        if (pp_mb is not None and pp_mb >= 1) or sched != "gpipe":
+            _not_yet("pipeline-parallel training (ppMicrobatches, "
+                     "ppSchedule)")
+        if wus != "auto" or zs != -1:
+            _not_yet("ZeRO weight-update sharding (weightUpdateSharding, "
+                     "zeroStage)")
+        if self.getOrDefault(self.useEmaWeights):
+            # fail BEFORE training, not after hours of fit: the EMA only
+            # exists when the optimizer maintains it
+            raw = self.getOptimizerOptions()
+            opts_d = (json.loads(raw) if isinstance(raw, str) and raw
+                      else (raw or {}))
+            d = float(opts_d.get("ema_decay", 0) or 0)
+            if not 0.0 < d < 1.0:
+                raise ValueError(
+                    "useEmaWeights=True requires {'ema_decay': d} with "
+                    "0 < d < 1 in optimizerOptions — no EMA would be "
+                    "maintained (got %r)" % d)
+        # Documented no-ops (there is no parameter server): warn so a config
+        # carried over from the reference states its own inertness instead of
+        # silently passing (the API contract is "accepted, warned, ignored").
+        if self.getAcquireLock():
+            logger.warning(
+                "acquireLock=True has no effect: synchronous all-reduce "
+                "updates are already serialized (no Hogwild parameter server "
+                "exists to lock)")
+        if self.isSet(self.port):
+            logger.warning(
+                "port=%d has no effect: there is no parameter server to bind "
+                "a port for (weights never leave the device mesh)",
+                self.getPort())
+        return extra_cols, extra_inputs
+
+    def _fit(self, dataset):
+        inp_col = self.getOrDefault(self.inputCol)
+        graph_json = self.getTensorflowGraph()
+        label_col = self.getOrDefault(self.labelCol)
+        tf_label = self.getTfLabel()
+        optimizer_options = self.getOptimizerOptions()
+        extra_cols, extra_inputs = self._validate_params()
+
+        # DataFrame -> (features, label) pairs; partitions Param shapes the RDD
+        # exactly as the reference does (tensorflow_async.py:290-291), and the
+        # union of the partitions is staged on the card
+        rdd = dataset.rdd.map(
+            lambda r: handle_data(r, inp_col, label_col,
+                                  extra_cols=extra_cols or None))
+        partitions = self.getPartitions()
+        if rdd.getNumPartitions() > partitions:
+            rdd = rdd.coalesce(partitions)
+
+        optimizer = build_optimizer_from_json(self.getTfOptimizer(),
+                                              self.getTfLearningRate(),
+                                              optimizer_options)
+        input_spec = ([self.getTfInput()] + extra_inputs if extra_inputs
+                      else self.getTfInput())
+        trainer = Trainer(
+            graph_json,
+            input_spec,
+            tf_label,
+            optimizer=optimizer,
+            iters=self.getIters(),
+            mini_batch_size=self.getMiniBatchSize(),
+            mini_stochastic_iters=self.getMiniStochasticIters(),
+            shuffle_per_iter=self.getShufflePerIter(),
+            partition_shuffles=self.getPartitionShuffles(),
+            verbose=self.getVerbose(),
+            loss_callback=self._loss_callback,
+            dropout_name=self.getTfDropout(),
+            acquire_lock=self.getAcquireLock(),
+            device=self._device,
+        )
+        items = rdd.collect()
+        features, labels = handle_features(
+            items, is_supervised=label_col is not None)
+        trainer.fit(features, labels)
+        final_weights = trainer.weights_list()
+        if self.getOrDefault(self.useEmaWeights):
+            ema = trainer.ema_weights()
+            if ema is None:
+                raise ValueError(
+                    "useEmaWeights=True requires {'ema_decay': d} in "
+                    "optimizerOptions (no EMA was maintained this fit)")
+            from .convert import params_to_list
+            final_weights = params_to_list(trainer.model, ema)
+        weights_path = self.getOrDefault(self.weightsPath)
+        if weights_path:
+            if not weights_path.endswith(".npz"):
+                weights_path += ".npz"
+            save_weights_npz(weights_path, final_weights)
+            # NOTE: the model stores this PATH, not the weights — unlike the
+            # reference's self-contained inline JSON, the file must be visible
+            # to every executor/machine that transforms or loads the pipeline
+            # (use a shared filesystem path).
+            logger.warning(
+                "weightsPath=%s: model references a filesystem path; ensure it "
+                "is reachable from all executors and travels with saved "
+                "pipelines", weights_path)
+            weights_json = "npz:" + weights_path
+        else:
+            weights_json = convert_weights_to_json(final_weights)
+
+        return SparkAsyncDLModel(
+            inputCol=inp_col,
+            modelJson=graph_json,
+            modelWeights=weights_json,
+            tfOutput=self.getTfOutput(),
+            tfInput=self.getTfInput(),
+            tfDropout=self.getTfDropout(),
+            toKeepDropout=self.getToKeepDropout(),
+            predictionCol=self.getOrDefault(self.predictionCol),
+            extraInputCols=_opt_param(self, self.extraInputCols),
+            extraTfInputs=_opt_param(self, self.extraTfInputs),
+            device=self._device)

@@ -20,10 +20,12 @@ Not ported yet, and rejected with "not yet ported (see ROADMAP.md)": a
 device mesh (``mesh``, ``sharding``, ``param_sharding`` other than
 ``"auto"``, ``pp_*``, ``weight_update_sharding``), ``strategy="elastic_dp"``,
 ``checkpoint_dir`` (the JAX package's checkpoints are orbax's format),
-``publish_to``, ``fit_stream``, ``trace_spans``, ``debug_recompiles`` and the
-``nn`` graph DSL (``GraphDef``). ``jax.random`` streams cannot be repeated in
-PyTorch: shuffles and dropout come from ``torch.Generator`` s seeded from
-``seed``, so a fit repeats within the port, not across the two packages.
+``publish_to``, ``fit_stream``, ``trace_spans`` and ``debug_recompiles``.
+``graph`` is a registry spec, an ``nn`` graph-DSL spec, a
+:class:`~.graphdef.GraphDef` or a model object. ``jax.random`` streams
+cannot be repeated in PyTorch: shuffles and dropout come from
+``torch.Generator`` s seeded from ``seed``, so a fit repeats within the
+port, not across the two packages.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 
 from .convert import params_to_list
 from .core import make_epoch_fn, make_loss_fn, make_predict_fn, pad_to_batches
+from .graphdef import GraphDef, GraphModel
 from .models.base import RegistryModel
 from .optimizers import (GradientTransformation, build_optimizer,
                          extract_ema_params, tree_map)
@@ -72,12 +75,13 @@ class TrainResult:
 
 class Trainer:
     """Synchronous trainer on one CUDA card (or the CPU with
-    ``device="cpu"``). ``graph`` is a registry spec JSON string or a
-    registry model object; the other parameters mirror the JAX ``Trainer``
+    ``device="cpu"``). ``graph`` is a spec JSON string (registry or ``nn``
+    graph DSL), a :class:`GraphDef`, or a model object (registry model or
+    :class:`GraphModel`); the other parameters mirror the JAX ``Trainer``
     (see the module docstring for those not ported yet)."""
 
     def __init__(self,
-                 graph: Union[str, RegistryModel],
+                 graph: Union[str, GraphDef, GraphModel, RegistryModel],
                  input_name,
                  label_name: Optional[str] = None,
                  optimizer: Union[str, GradientTransformation] = "adam",
@@ -135,14 +139,17 @@ class Trainer:
         if rng_impl is not None:
             raise ValueError("rng_impl names a jax.random implementation; the "
                              "port draws from torch.Generator")
-        if isinstance(graph, str):
+        if isinstance(graph, GraphDef):
+            self.model = GraphModel(graph, compute_dtype, device=device)
+        elif isinstance(graph, str):
             from .models import model_from_json
             self.model = model_from_json(graph, compute_dtype, device=device)
-        elif isinstance(graph, RegistryModel):
+        elif isinstance(graph, (RegistryModel, GraphModel)):
             self.model = graph
         else:
-            _not_yet(f"training a {type(graph).__name__} (only registry "
-                     f"models are ported; the nn graph DSL is not)")
+            raise TypeError(f"graph must be a spec JSON string, a GraphDef, "
+                            f"or a model of this package; got "
+                            f"{type(graph).__module__}.{type(graph).__name__}")
         for name in (input_name if isinstance(input_name, (list, tuple))
                      else [input_name]):
             self.model.resolve(name)

@@ -765,3 +765,64 @@ def test_spec_and_quant_engine_on_card_match_the_cpu_engine(dev, kw):
                 key = "paged_verify_quant" if quant else "paged_verify"
                 assert counts[key] == want
     assert got["card"] == got["cpu"]
+
+
+# -- the estimator's shapes: float32, S=512, non-causal, padded keys ---------
+
+def test_estimator_shape_f32_kernels_match_plain(dev):
+    """The three flash kernels at the BERT-base estimator's operands, cut
+    to B=2: float32, H=12, S=512, D=64, non-causal, padded key tails as
+    ``examples/bert_classifier.py``'s ``synthetic_text`` makes them (one
+    row unpadded)."""
+    from sparkflow_tpu_torch.ops import (flash_attention_backward,
+                                         flash_attention_backward_reference,
+                                         flash_bwd_dkv, flash_bwd_dq)
+    q, k, v, out, lse, dout, mask = _bwd_case(
+        dev, torch.float32, 2, 512, False, mask_rows=(301, 512), seed=5)
+    _check_fwd(q, k, v, False, mask)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_attention_backward(q, k, v, out, lse, dout, False,
+                                   kv_mask=mask)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    _check_bwd(got, flash_attention_backward_reference(
+        q, k, v, out, lse, dout, False, kv_mask=mask), torch.float32)
+
+
+def test_graph_model_conv_on_card_matches_cpu(dev):
+    """An ``nn`` graph's SAME convolution and pool at stride 2 on the card
+    against the same graph and weights on the CPU, forward and weight
+    gradients, float32 (the op turns cuDNN's TF32 off): within 1e-5
+    absolute plus 1e-5 relative."""
+    import sparkflow_tpu_torch.nn as nn
+    from sparkflow_tpu_torch.graph_utils import build_graph
+    from sparkflow_tpu_torch.graphdef import GraphModel
+
+    def cnn():
+        x = nn.placeholder([None, 15, 16, 3], name="x")
+        y = nn.placeholder([None, 4], name="y")
+        h = nn.conv2d(x, 8, 3, strides=2, padding="same", activation="relu")
+        h = nn.avg_pooling2d(h, 3, strides=2, padding="same")
+        out = nn.dense(nn.flatten(h), 4, name="out")
+        nn.softmax_cross_entropy(y, out)
+
+    spec = build_graph(cnn)
+    cpu = GraphModel.from_json(spec, device="cpu")
+    card = GraphModel.from_json(spec, device=dev)
+    tree = cpu.init(seed=0)
+    rs = np.random.RandomState(0)
+    feeds = {"x": torch.from_numpy(rs.normal(0, 1, (6, 15, 16, 3))
+                                   .astype(np.float32)),
+             "y": torch.eye(4)[rs.randint(0, 4, 6)]}
+    results = []
+    for model in (cpu, card):
+        p = {ln: {pn: t.to(model.device).requires_grad_(True)
+                  for pn, t in layer.items()} for ln, layer in tree.items()}
+        out = model.apply(p, feeds, ["out:0"])["out:0"]
+        loss = model.loss_vector(p, feeds).sum()
+        grads = torch.autograd.grad(loss, [p[ln][pn] for ln in p
+                                           for pn in p[ln]])
+        results.append([t.detach().cpu() for t in (out, *grads)])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)

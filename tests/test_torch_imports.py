@@ -19,7 +19,13 @@ SUBPACKAGES = ["sparkflow_tpu_torch", "sparkflow_tpu_torch.device",
                "sparkflow_tpu_torch.resilience",
                "sparkflow_tpu_torch.utils.metrics",
                "sparkflow_tpu_torch.optimizers", "sparkflow_tpu_torch.core",
-               "sparkflow_tpu_torch.trainer"]
+               "sparkflow_tpu_torch.trainer", "sparkflow_tpu_torch.compat",
+               "sparkflow_tpu_torch.localml", "sparkflow_tpu_torch.graphdef",
+               "sparkflow_tpu_torch.nn", "sparkflow_tpu_torch.graph_utils",
+               "sparkflow_tpu_torch.ml_util",
+               "sparkflow_tpu_torch.pipeline_util",
+               "sparkflow_tpu_torch.spark_async",
+               "sparkflow_tpu_torch.tensorflow_async"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():

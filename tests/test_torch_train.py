@@ -239,10 +239,12 @@ def test_trainer_misuse_raises():
         jnn.dense(x, 2, name="out")
 
     graph_json = build_graph(dnn)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # a graph-DSL spec trains; an object of the JAX package is refused
+    with pytest.raises(TypeError, match="sparkflow_tpu.graphdef.GraphDef"):
         Trainer(GraphDef.from_json(graph_json), "x:0", device="cpu")
-    with pytest.raises(NotImplementedError, match="registry"):
-        Trainer(graph_json, "x:0", device="cpu")
+    from sparkflow_tpu_torch.graphdef import GraphModel
+    assert isinstance(Trainer(graph_json, "x:0", device="cpu").model,
+                      GraphModel)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(spec, "input_ids", None)
