@@ -6,11 +6,13 @@ Phases — any failure exits nonzero with its traceback and prints no result:
 
 1. set-up: the card's name and power limit; build the CUDA kernels from
    ``sparkflow_tpu_torch/ops/csrc`` and print ptxas's registers, shared
-   memory and spills (a spill in a tensor-core, split-verify or cluster
-   decode instantiation fails the phase);
+   memory and spills (a spill in a tensor-core — bf16 or 3xTF32 —,
+   split-verify or cluster decode instantiation fails the phase);
 2. kernels against their plain PyTorch versions at the serving path's
    shapes, in bfloat16 and float32, and their times beside the plain
-   version's, the least time the card could take (``bound_ms``) and, for
+   version's, the least time the card could take (``bound_ms``; for
+   float32 work at the 3xTF32 tensor-core rate, 495 / 3 TFLOP/s, with the
+   CUDA cores' 67 TFLOP/s bound beside it as ``bound_cuda_core_ms``) and, for
    flash, ``F.scaled_dot_product_attention`` as a yardstick only, with the
    achieved TFLOP/s and share of the bound (``bound_ms / ms``). ``ms``,
    ``plain_ms`` and ``library_ms`` are device times (CUDA-graph replays
@@ -35,7 +37,8 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` against their plain versions, at
    the training shape (B=8, H=12, S=1024, D=64, causal), at S=128, at a
    ragged S=700 and on a non-causal key-padded batch, in bfloat16 and
-   float32, with the same timings as phase 2 (the forward's too, at the
+   float32 (the float32 backward runs the 3xTF32 tensor-core kernels),
+   with the same timings as phase 2 (the forward's too, at the
    training shape, with its TFLOP/s and share of the bound); ``library_ms``
    for the backward is that of
    ``F.scaled_dot_product_attention`` at the same shape (all three
@@ -53,8 +56,9 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    ``torch.profiler``, with each attention kernel's calls and device time
    summed over every profiled event;
 8. training exactness: float32, TF32 off, full width cut to 2 layers — one
-   step's loss and gradients through the kernels equal those through the
-   plain attention, and 3 adam steps' losses agree within 1e-4 relative;
+   step's loss and gradients through the kernels (the backward in 3xTF32)
+   equal those through the plain attention, and 3 adam steps' losses agree
+   within 1e-4 relative;
 9. the quantized and verify kernels against their plain versions at the
    decode step's shapes (verify: S = spec_k + 1 = 5 queries per slot,
    ragged starts incl. 0): ``paged_attention`` over int8 and fp8 pools with
@@ -94,8 +98,10 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     and logits for 8 rows against a forward of the same weights through
     ``attention_reference``, float32, TF32 off; kernels 1-3 against their
     plain versions at the fit's shape (float32, B=32, H=12, S=512, D=64,
-    non-causal, the first batch's masks), timed beside their bounds and
-    SDPA's forward and backward.
+    non-causal, the first batch's masks), timed beside their bounds (the
+    3xTF32 one and the CUDA cores') and SDPA's forward and backward. The
+    fit's training examples/s and the profiled step's device busy ms are
+    the numbers a parent / change comparison reads.
 
 Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12; a ``[time]`` line gives
 each phase's wall time. The line before the last gives the card's name and
@@ -116,9 +122,13 @@ import threading
 import time
 import traceback
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit). A
+# float32-accurate product is fastest as three TF32 tensor-core products
+# (3xTF32): 495 / 3 TFLOP/s, above the CUDA cores' 67, which float32 rows
+# also print as ``bound_cuda_core_ms`` (the rule of earlier float32 rows).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+CUDA_CORE_FLOPS = 67e12
 
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # backward kernels: |kernel - plain| <= tol x max |plain|, per gradient
@@ -237,19 +247,46 @@ def time_sdpa_backward(q, k, v, dout, mask, causal: bool,
     return sorted(times)[len(times) // 2] / calls
 
 
-def _bound(nbytes: float, flops: float, dtype_name: str):
+def _bound(nbytes: float, flops: float, dtype_name: str,
+           peak: float = None):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / PEAK_FLOPS[dtype_name] * 1e3
+    tf = flops / (peak or PEAK_FLOPS[dtype_name]) * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
 def _rate(row, dtype_name: str) -> None:
     """Add ``bound_ms`` / ``bound_by`` from the row's bytes and flops, the
-    achieved TFLOP/s and the share of the bound (``bound_ms / ms``)."""
+    achieved TFLOP/s and the share of the bound (``bound_ms / ms``); a
+    float32 row also its bound at the CUDA cores' peak."""
     row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"],
                                               dtype_name)
+    if dtype_name == "float32":
+        row["bound_cuda_core_ms"] = _bound(row["bytes"], row["flops"],
+                                           dtype_name, CUDA_CORE_FLOPS)[0]
     row["tflops"] = row["flops"] / row["ms"] / 1e9
     row["bound_share"] = row["bound_ms"] / row["ms"]
+
+
+def _cuda_core_note(row) -> str:
+    """``"; CUDA cores <ms>"`` for a row that has that bound, else ``""``."""
+    if "bound_cuda_core_ms" not in row:
+        return ""
+    return f"; CUDA cores {row['bound_cuda_core_ms']:.5f}"
+
+
+def _entry_name(line: str):
+    """``name<args>`` of the kernel whose ptxas report ``line`` starts
+    (``Compiling entry function '<mangled>'``), else None. The mangled name
+    holds ``<length><name>I<args>EE``; the anonymous namespace's own mangled
+    name holds digits too, so the length prefix is what finds the name, e.g.
+    ``..._cu_ddd79eae24flash_bwd_dq_tf32_kernelILi64EE`` ->
+    ``flash_bwd_dq_tf32_kernel<Li64>``."""
+    if "entry function" not in line:
+        return None
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel)I(\w+?)EE)", line):
+        if int(m.group(1)) == len(m.group(2)):
+            return f"{m.group(2)}<{m.group(3)}>"
+    return None
 
 
 def phase_setup():
@@ -262,20 +299,19 @@ def phase_setup():
     for src, lines in _build.ptxas_report().items():
         log(f"[setup] ptxas {src}:")
         for ln in lines:
-            # a mangled entry name, e.g. 20flash_fwd_mma_kernelILi64EE
-            entry = re.search(r"entry function '\w*?\d([a-z_]+_kernel)I(\w+?)EE",
-                              ln)
+            entry = _entry_name(ln)
             if entry:
-                name = f"{entry.group(1)}<{entry.group(2)}>"
+                name = entry
                 log(f"  {name}")
             elif "registers" in ln or "spill" in ln:
                 log("   ", ln.split(":", 1)[-1].strip())
                 if re.search(r"[1-9]\d* bytes spill", ln):
                     spilled.append(name)
     log(f"[setup] instantiations that spill: {spilled or 'none'}")
-    # the tensor-core, the split verify and the cluster decode kernels are
-    # held to no spill
+    # the tensor-core (bf16 and 3xTF32), the split verify and the cluster
+    # decode kernels are held to no spill
     held = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
+            "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32",
             "paged_verify_split", "paged_verify_combine",
             "paged_attention_kernel")
     bad = [n for n in spilled if n and n.startswith(held)]
@@ -1284,10 +1320,11 @@ def phase_backward_kernels(card):
                     f"{'causal' if causal else 'padded keys'}: err "
                     f"{row['max_abs_err']:.3g} ms {row['ms']:.5f} (per call "
                     f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
-                    f"bound {row['bound_ms']:.5f} ({row['bound_by']}) "
-                    f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} "
-                    f"of the bound; sdpa-bwd {library_ms:.5f}; a second "
-                    f"launch bit-identical [{card}]")
+                    f"bound {row['bound_ms']:.5f} ({row['bound_by']}"
+                    f"{_cuda_core_note(row)}) {row['tflops']:.1f} TFLOP/s, "
+                    f"{row['bound_share']:.3f} of the bound; sdpa-bwd "
+                    f"{library_ms:.5f}; a second launch bit-identical "
+                    f"[{card}]")
             del q, k, v, dout, out, lse, delta, dq, dk, dv, ref
     log("[bwd] detail " + json.dumps({"flash_fwd": fwd_rows,
                                       "backward": rows}))
@@ -1616,7 +1653,8 @@ def _estimator_kernel_rows(card, masks):
         log(f"[estimator] {name} float32 B={b} H=12 S={s} D=64 padded keys: "
             f"err {row['max_abs_err']:.3g} ms {row['ms']:.5f} plain "
             f"{row['plain_ms']:.4f} bound {row['bound_ms']:.5f} "
-            f"({row['bound_by']}) {row['tflops']:.1f} TFLOP/s, "
+            f"({row['bound_by']}{_cuda_core_note(row)}) "
+            f"{row['tflops']:.1f} TFLOP/s, "
             f"{row['bound_share']:.3f} of the bound; sdpa"
             f"{'' if name == 'flash_fwd' else '-bwd'} {lib:.5f} [{card}]")
     return rows
@@ -1813,6 +1851,7 @@ def phase_estimator(card):
     rows = _estimator_kernel_rows(card, masks)
     return {n: {"launches": fit_launches[n],
                 "transform_launches": tr_launches[n], **_pick(rows[n]),
+                "bound_cuda_core_ms": rows[n]["bound_cuda_core_ms"],
                 "max_abs_err": rows[n]["max_abs_err"],
                 "tflops": rows[n]["tflops"],
                 "bound_share": rows[n]["bound_share"]} for n in names}

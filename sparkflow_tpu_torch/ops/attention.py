@@ -291,11 +291,13 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout,
 
 
 def _cp_async_ready(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself if the bf16 flash kernels can stream it with 16-byte
-    ``cp.async`` copies (pointer 16-byte aligned, batch/head/seq strides
-    multiples of 8 elements), else a contiguous copy in fresh (aligned)
-    memory — a layout copy, the same values."""
-    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]):
+    """``t`` itself if the tensor-core flash kernels can stream it with
+    16-byte ``cp.async`` copies (pointer 16-byte aligned, batch/head/seq
+    strides multiples of 16 bytes: 8 bf16 or 4 float32 elements), else a
+    contiguous copy in fresh (aligned) memory — a layout copy, the same
+    values."""
+    vec = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % vec == 0 for s in t.stride()[:3]):
         return t
     return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
 
@@ -311,9 +313,7 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, kv_mask):
             raise ValueError(f"{name}: {what} must be a contiguous float32 "
                              f"[B, H, S] = {want} tensor on {q.device}")
     *ts, kv_mask = _flash_operands(name, q, k, v, kv_mask, dout)
-    if q.dtype == torch.bfloat16:
-        ts = [_cp_async_ready(t) for t in ts]
-    return (*ts, kv_mask)
+    return (*(_cp_async_ready(t) for t in ts), kv_mask)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
@@ -322,10 +322,13 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     """dQ of flash attention from the forward's logsumexp ``lse`` and
     ``delta`` = rowsum(dO * O), both [B,H,S] float32. On the card this
     launches the dq kernel of ``csrc/flash_bwd.cu`` (the port of the TPU
-    ``_flash_bwd_dq_kernel``): on the tensor cores for bfloat16 operands
-    (P and dS rounded to bfloat16 before the second product), on the CUDA
-    cores in float32 for float32 ones. dQ is allocated [B,S,H,D]-contiguous
-    and returned as its [B,H,S,D] view, like the forward's output."""
+    ``_flash_bwd_dq_kernel``) on the tensor cores: in bf16 for bfloat16
+    operands (P and dS rounded to bfloat16 before the second product), in
+    3xTF32 for float32 ones (each product as three TF32 products of a
+    big/small split, float32-accurate). Operands whose rows are not 16-byte
+    aligned are copied first (:func:`_cp_async_ready`). dQ is allocated
+    [B,S,H,D]-contiguous and returned as its [B,H,S,D] view, like the
+    forward's output."""
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if _route(q) == "reference":
         return flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal,

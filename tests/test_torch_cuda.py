@@ -16,8 +16,11 @@ tests/test_torch_flash_fwd.py holds an emulation of the kernel's rounding
 against the JAX Pallas forward on the CPU); bfloat16
 paged outputs 8e-3 (both sides compute in float32 from the same bfloat16
 rows and round once: up to two ulps); logsumexp 1e-3 in bfloat16 inputs,
-1e-4 in float32; backward kernels 1e-4 (float32: both sides compute in
-float32 from the same inputs and round once; the summation order differs)
+1e-4 in float32; backward kernels 1e-4 (float32: the kernels run on the
+tensor cores in 3xTF32, each product to ~2^-21 where the plain version's
+float32 product keeps 2^-24, and the summation order differs —
+tests/test_torch_flash_bwd_tf32.py holds an emulation of the 3xTF32
+arithmetic to the JAX Pallas backward within 2e-5 on the CPU)
 and 2e-2 (bfloat16) of the largest |gradient|: the bfloat16 kernels run on
 the tensor cores and round P and dS to bfloat16 before the second product
 (dV = P^T dO, dQ = dS K, dK = dS^T Q), as FlashAttention-2 does, where the
@@ -788,6 +791,178 @@ def test_estimator_shape_f32_kernels_match_plain(dev):
         before[0] + 1, before[1] + 1)
     _check_bwd(got, flash_attention_backward_reference(
         q, k, v, out, lse, dout, False, kv_mask=mask), torch.float32)
+
+
+# -- the float32 backward on the tensor cores (3xTF32) -----------------------
+
+def _bwd_f32(q, k, v, out, lse, dout, causal, mask=None):
+    """The float32 backward through the kernels, checked against the plain
+    backward; returns the kernels' (dq, dk, dv)."""
+    from sparkflow_tpu_torch.ops import (flash_attention_backward,
+                                         flash_attention_backward_reference)
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal,
+                                   kv_mask=mask)
+    torch.cuda.synchronize()
+    _check_bwd(got, flash_attention_backward_reference(
+        q, k, v, out, lse, dout, causal, kv_mask=mask), torch.float32)
+    return got
+
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_flash_bwd_f32_every_head_dim(dev, d):
+    """Every head_dim the float32 entry takes (a multiple of 8 in [8, 128]),
+    each its own 3xTF32 instantiation: causal over a ragged S = 150, and
+    non-causal with padded keys."""
+    for causal, rows in ((True, ()), (False, (150, 61))):
+        q, k, v, out, lse, dout, mask = _bwd_case(
+            dev, torch.float32, 2, 150, causal, mask_rows=rows, seed=d, h=2,
+            d=d)
+        _bwd_f32(q, k, v, out, lse, dout, causal, mask)
+
+
+def test_flash_bwd_f32_keys_of_another_length(dev):
+    """S = 77 queries against S_k = 200 padded keys: the dq kernel's walk
+    and the dkv kernel's grid follow S_k, each ragged edge masked."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, dout = (torch.randn(2, 3, 77, 64, generator=g, device=dev)
+               for _ in range(2))
+    k, v = (torch.randn(2, 3, 200, 64, generator=g, device=dev)
+            for _ in range(2))
+    mask = torch.ones(2, 200, device=dev)
+    mask[1, 130:] = 0
+    out, lse = flash_attention(q, k, v, kv_mask=mask, return_lse=True)
+    _bwd_f32(q, k, v, out, lse, dout, False, mask)
+
+
+def test_flash_bwd_f32_strided_training_operands_need_no_copy(dev):
+    """float32 q, k, v as the estimator's training step hands them over
+    (strided views of one [B,S,3,H,D] qkv projection, row stride 2304) and
+    dO as the [B,H,S,D] view of a [B,S,H,D] tensor stream as they are."""
+    from sparkflow_tpu_torch.ops.attention import _cp_async_ready
+    g = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn(2, 333, 3, 12, 64, generator=g,
+                      device=dev).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    dout = torch.randn(2, 333, 12, 64, generator=g,
+                       device=dev).transpose(1, 2)
+    assert q.stride(2) == 3 * 12 * 64 and dout.stride(2) == 12 * 64
+    assert all(_cp_async_ready(t) is t for t in (q, k, v, dout))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    _bwd_f32(q, k, v, out, lse, dout, True)
+
+
+def _misaligned_copy(q, how):
+    """``q``'s values at a 4-byte offset (``"pointer"``) or with rows 66
+    floats apart (``"stride"``): not ready for 16-byte cp.async copies."""
+    if how == "pointer":
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+        odd = buf[1:].view(q.shape).copy_(q)
+        assert odd.data_ptr() % 16 != 0
+    else:
+        buf = torch.empty(*q.shape[:3], q.shape[3] + 2, dtype=q.dtype,
+                          device=q.device)
+        odd = buf[..., :q.shape[3]].copy_(q)
+        assert odd.stride(2) % 4 != 0
+    return odd
+
+
+@pytest.mark.parametrize("how", ["pointer", "stride"])
+def test_flash_bwd_f32_misaligned_operand_is_copied(dev, how):
+    """A float32 operand whose pointer is not 16-byte aligned, or whose
+    sequence stride is not a multiple of 4 elements, is copied to aligned
+    memory before the launch: the result equals the aligned operand's bit
+    for bit."""
+    from sparkflow_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq
+    from sparkflow_tpu_torch.ops.attention import _cp_async_ready
+    q, k, v, out, lse, dout, mask = _bwd_case(dev, torch.float32, 1, 200,
+                                              True, seed=5, h=2)
+    q_odd = _misaligned_copy(q, how)
+    assert _cp_async_ready(q_odd) is not q_odd
+    delta = (dout * out).sum(-1).contiguous()
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        a = fn(q, k, v, dout, lse, delta, True)
+        b = fn(q_odd, k, v, dout, lse, delta, True)
+        torch.cuda.synchronize()
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("how", ["pointer", "stride"])
+def test_flash_bwd_f32_entry_refuses_misaligned_operand(dev, how):
+    """The C entry points themselves refuse a float32 operand that 16-byte
+    cp.async copies cannot stream: cudaErrorInvalidValue (1), no launch."""
+    import ctypes
+    from sparkflow_tpu_torch.ops import _build
+    from sparkflow_tpu_torch.ops.attention import _seq_strides
+    q, k, v, out, lse, dout, _ = _bwd_case(dev, torch.float32, 1, 96, True,
+                                           seed=6, h=2)
+    q_odd = _misaligned_copy(q, how)
+    delta = (dout * out).sum(-1).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (q_odd.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), None)
+    st = _seq_strides(q_odd, k, v, dout, dq)
+    assert lib.sf_flash_bwd_dq(0, *common, dq.data_ptr(), 1, 2, 96, 96, 64,
+                               ctypes.addressof(st), 0.125, 1, stream) == 1
+    st = _seq_strides(q_odd, k, v, dout, dk, dv)
+    assert lib.sf_flash_bwd_dkv(0, *common, dk.data_ptr(), dv.data_ptr(), 1,
+                                2, 96, 96, 64, ctypes.addressof(st), 0.125, 1,
+                                stream) == 1
+
+
+def test_flash_bwd_f32_padding_gets_zero_gradient(dev):
+    """Non-causal, S = 300, padded keys: batch row 1's keys are all padding
+    (dQ = dK = dV = 0, as in JAX), row 0 is padded from key 130 and row 2
+    has a hole of padding over keys 64-191 (two whole 64-key tiles, which
+    the dq kernel skips) — padded keys get exactly zero dK and dV, the rest
+    is within the tolerance of the plain backward."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, dout = (torch.randn(3, 4, 300, 64, generator=g, device=dev)
+                     for _ in range(4))
+    mask = torch.ones(3, 300, device=dev)
+    mask[0, 130:] = 0
+    mask[1] = 0
+    mask[2, 64:192] = 0
+    out, lse = flash_attention(q, k, v, kv_mask=mask, return_lse=True)
+    dq, dk, dv = _bwd_f32(q, k, v, out, lse, dout, False, mask)
+    assert torch.all(dq[1] == 0)
+    padded = (mask == 0)[:, None, :, None].expand_as(dk)
+    assert torch.all(dk[padded] == 0) and torch.all(dv[padded] == 0)
+    assert bool((dk[~padded] != 0).any())
+
+
+def test_flash_bwd_f32_replays_in_a_cuda_graph(dev):
+    """The float32 dq and dk/dv calls captured in a CUDA graph and replayed
+    equal the eager calls; after new dO, D and mask values are copied into
+    the same tensors, a replay equals the eager calls on them."""
+    from sparkflow_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq
+    q, k, v, out, lse, dout, mask = _bwd_case(
+        dev, torch.float32, 2, 300, False, mask_rows=(300, 140), seed=21, h=4)
+    delta = (dout * out).sum(-1).contiguous()
+
+    def calls():
+        return (flash_bwd_dq(q, k, v, dout, lse, delta, kv_mask=mask),
+                *flash_bwd_dkv(q, k, v, dout, lse, delta, kv_mask=mask))
+
+    want = calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    g = torch.Generator(device=dev).manual_seed(22)
+    dout.copy_(torch.randn(dout.shape, generator=g, device=dev))
+    delta.copy_((dout * out).sum(-1))
+    mask[1, 200:] = 1
+    want = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_graph_model_conv_on_card_matches_cpu(dev):
