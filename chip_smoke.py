@@ -9,7 +9,8 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    memory and spills (a spill in a tensor-core — bf16 or 3xTF32 —,
    split-verify or cluster decode instantiation fails the phase);
 2. kernels against their plain PyTorch versions at the serving path's
-   shapes, in bfloat16 and float32, and their times beside the plain
+   shapes, in bfloat16 and float32 (``flash_fwd`` on the tensor cores in
+   both: bf16, and 3xTF32 for float32), and their times beside the plain
    version's, the least time the card could take (``bound_ms``; for
    float32 work at the 3xTF32 tensor-core rate, 495 / 3 TFLOP/s, with the
    CUDA cores' 67 TFLOP/s bound beside it as ``bound_cuda_core_ms``) and, for
@@ -37,8 +38,8 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` against their plain versions, at
    the training shape (B=8, H=12, S=1024, D=64, causal), at S=128, at a
    ragged S=700 and on a non-causal key-padded batch, in bfloat16 and
-   float32 (the float32 backward runs the 3xTF32 tensor-core kernels),
-   with the same timings as phase 2 (the forward's too, at the
+   float32 (the float32 forward and backward run the 3xTF32 tensor-core
+   kernels), with the same timings as phase 2 (the forward's too, at the
    training shape, with its TFLOP/s and share of the bound); ``library_ms``
    for the backward is that of
    ``F.scaled_dot_product_attention`` at the same shape (all three
@@ -96,10 +97,11 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     the transform, zeroed just before and read just after each; then one
     more training step under ``torch.profiler``. (c) The transform's probs
     and logits for 8 rows against a forward of the same weights through
-    ``attention_reference``, float32, TF32 off; kernels 1-3 against their
-    plain versions at the fit's shape (float32, B=32, H=12, S=512, D=64,
-    non-causal, the first batch's masks), timed beside their bounds (the
-    3xTF32 one and the CUDA cores') and SDPA's forward and backward. The
+    ``attention_reference``, float32, TF32 off; kernels 1-3 (all three on
+    the tensor cores in 3xTF32) against their plain versions at the fit's
+    shape (float32, B=32, H=12, S=512, D=64, non-causal, the first batch's
+    masks), timed beside their bounds (the 3xTF32 one and the CUDA cores')
+    and SDPA's forward and backward. The
     fit's training examples/s and the profiled step's device busy ms are
     the numbers a parent / change comparison reads.
 
@@ -311,7 +313,7 @@ def phase_setup():
     # the tensor-core (bf16 and 3xTF32), the split verify and the cluster
     # decode kernels are held to no spill
     held = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
-            "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32",
+            "flash_fwd_tf32", "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32",
             "paged_verify_split", "paged_verify_combine",
             "paged_attention_kernel")
     bad = [n for n in spilled if n and n.startswith(held)]
@@ -370,7 +372,8 @@ def phase_kernels(card):
                 f"err {e:.3g} lse_err {el:.3g} ms {row['ms']:.5f} (per "
                 f"call {row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
                 f"sdpa {row['library_ms']:.5f} bound {row['bound_ms']:.5f} "
-                f"({row['bound_by']}) {row['tflops']:.1f} TFLOP/s, "
+                f"({row['bound_by']}{_cuda_core_note(row)}) "
+                f"{row['tflops']:.1f} TFLOP/s, "
                 f"{row['bound_share']:.3f} of the bound [{card}]")
         g = torch.Generator(device=dev).manual_seed(3)
         q, k, v = (torch.randn(2, 12, 256, 64, generator=g, device=dev)
@@ -1248,7 +1251,8 @@ def phase_backward_kernels(card):
                     f"causal: ms {row['ms']:.5f} (per call "
                     f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
                     f"sdpa {row['library_ms']:.5f} bound "
-                    f"{row['bound_ms']:.5f} ({row['bound_by']}) "
+                    f"{row['bound_ms']:.5f} ({row['bound_by']}"
+                    f"{_cuda_core_note(row)}) "
                     f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} "
                     f"of the bound [{card}]")
             del ref_out, ref_lse

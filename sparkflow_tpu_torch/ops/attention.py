@@ -168,12 +168,13 @@ def flash_attention(q, k, v, causal: bool = False,
     j > query i (positions counted from 0 on both axes).
 
     On the card this launches ``csrc/flash_fwd.cu`` (the port of the TPU
-    ``_flash_kernel``): on the tensor cores for bfloat16 operands (P
-    rounded to bfloat16 before P V, as the TPU kernel does), on the CUDA
-    cores in float32 for float32 ones. q/k/v may be strided views (the model
-    passes slices of one qkv permutation) as long as ``head_dim`` is
-    contiguous; a bfloat16 operand whose rows are not 16-byte aligned is
-    copied first (:func:`_cp_async_ready`). The output is allocated
+    ``_flash_kernel``) on the tensor cores: in bf16 for bfloat16 operands
+    (P rounded to bfloat16 before P V, as the TPU kernel does), in 3xTF32
+    for float32 ones (each product as three TF32 products of a big/small
+    split, float32-accurate; P not rounded). q/k/v may be strided views (the
+    model passes slices of one qkv permutation) as long as ``head_dim`` is
+    contiguous; an operand whose rows are not 16-byte aligned is copied
+    first (:func:`_cp_async_ready`). The output is allocated
     [B,S,H,D]-contiguous and returned as its [B,H,S,D] view, so the caller's
     transpose back to [B,S,H*D] is free.
 
@@ -197,8 +198,7 @@ def flash_attention(q, k, v, causal: bool = False,
         return attention_reference(q, k, v, causal, scale, kv_mask=kv_mask,
                                    return_lse=return_lse)
     q, k, v, kv_mask = _flash_operands("flash_attention", q, k, v, kv_mask)
-    if q.dtype == torch.bfloat16:
-        q, k, v = (_cp_async_ready(t) for t in (q, k, v))
+    q, k, v = (_cp_async_ready(t) for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)

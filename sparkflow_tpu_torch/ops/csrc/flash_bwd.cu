@@ -573,20 +573,12 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
 // float32: 3xTF32 tensor-core kernels
 // ---------------------------------------------------------------------------
 
-// visited-side tile rows: 64, or 32 above HD = 64
-template <int HD>
-__host__ __device__ constexpr int tf32_tile() { return HD <= 64 ? 64 : 32; }
-
 // own rows (two operands), two stages of two visited operands, and two
 // stages of two per-row floats (the dq kernel's key mask uses half)
 template <int HD>
 size_t tf32_smem() {
-  return sizeof(float) * ((HD + 4) * (2 * kOwn + 2 * 2 * tf32_tile<HD>()) +
-                          2 * 2 * tf32_tile<HD>());
-}
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  constexpr int BC = sf_mma::tf32_tile<HD>();
+  return sizeof(float) * ((HD + 4) * (2 * kOwn + 2 * 2 * BC) + 2 * 2 * BC);
 }
 
 // dQ: one block per (batch*head, 64-query tile); loops over key tiles.
@@ -602,7 +594,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
                          const float* __restrict__ mask,
                          float* __restrict__ dq, int H, int S, int Sk,
                          Strides st, float scale, int causal) {
-  constexpr int P = HD + 4, BC = tf32_tile<HD>();
+  constexpr int P = HD + 4, BC = sf_mma::tf32_tile<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sq = reinterpret_cast<float*>(smem_raw);  // [kOwn][P]
   float* sdo = sq + kOwn * P;                      // [kOwn][P]
@@ -744,8 +736,8 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
     float* row = dq + b * s_[12] + h * s_[13] + qi * s_[14];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      store2(row + n * 8 + c2, scale * acc[n][2 * r],
-             scale * acc[n][2 * r + 1]);
+      sf_mma::store2(row + n * 8 + c2, scale * acc[n][2 * r],
+                     scale * acc[n][2 * r + 1]);
   }
 }
 
@@ -763,7 +755,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int H, int S, int Sk, Strides st, float scale,
                           int causal) {
-  constexpr int P = HD + 4, BC = tf32_tile<HD>();
+  constexpr int P = HD + 4, BC = sf_mma::tf32_tile<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sk = reinterpret_cast<float*>(smem_raw);  // [kOwn][P]
   float* sv = sk + kOwn * P;                       // [kOwn][P]
@@ -793,8 +785,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
       float* dvb = dv + b * s_[15] + h * s_[16];
       for (int i = tid; i < nrows * (HD / 2); i += kMmaThreads) {
         const int r = i / (HD / 2), d = (i - r * (HD / 2)) * 2;
-        store2(dkb + (k0 + r) * s_[14] + d, 0.f, 0.f);
-        store2(dvb + (k0 + r) * s_[17] + d, 0.f, 0.f);
+        sf_mma::store2(dkb + (k0 + r) * s_[14] + d, 0.f, 0.f);
+        sf_mma::store2(dvb + (k0 + r) * s_[17] + d, 0.f, 0.f);
       }
       return;
     }
@@ -914,9 +906,10 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
     float* vrow = dv + b * s_[15] + h * s_[16] + kj * s_[17];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      store2(krow + n * 8 + c2, scale * acck[n][2 * r],
-             scale * acck[n][2 * r + 1]);
-      store2(vrow + n * 8 + c2, accv[n][2 * r], accv[n][2 * r + 1]);
+      sf_mma::store2(krow + n * 8 + c2, scale * acck[n][2 * r],
+                     scale * acck[n][2 * r + 1]);
+      sf_mma::store2(vrow + n * 8 + c2, accv[n][2 * r],
+                     accv[n][2 * r + 1]);
     }
   }
 }
@@ -960,28 +953,6 @@ cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
       copy_strides(strides, 18), scale, causal);
   return cudaGetLastError();
 }
-
-// head_dim itself, a multiple of 8
-#define SF_DISPATCH_HD8(fn, d, ...)               \
-  switch (d) {                                    \
-    case 8: return fn<8>(__VA_ARGS__);            \
-    case 16: return fn<16>(__VA_ARGS__);          \
-    case 24: return fn<24>(__VA_ARGS__);          \
-    case 32: return fn<32>(__VA_ARGS__);          \
-    case 40: return fn<40>(__VA_ARGS__);          \
-    case 48: return fn<48>(__VA_ARGS__);          \
-    case 56: return fn<56>(__VA_ARGS__);          \
-    case 64: return fn<64>(__VA_ARGS__);          \
-    case 72: return fn<72>(__VA_ARGS__);          \
-    case 80: return fn<80>(__VA_ARGS__);          \
-    case 88: return fn<88>(__VA_ARGS__);          \
-    case 96: return fn<96>(__VA_ARGS__);          \
-    case 104: return fn<104>(__VA_ARGS__);        \
-    case 112: return fn<112>(__VA_ARGS__);        \
-    case 120: return fn<120>(__VA_ARGS__);        \
-    case 128: return fn<128>(__VA_ARGS__);        \
-    default: return cudaErrorInvalidValue;        \
-  }
 
 // cp.async reads 16-byte chunks: the four operands' pointers must be
 // 16-byte aligned and their (batch, head, seq) strides multiples of `vec`

@@ -68,12 +68,63 @@
 // pointer and strides and makes a copy where they are not, and the entry
 // point refuses (cudaErrorInvalidValue) what is not aligned.
 //
-// float32 operands (the exactness arm, held to 1e-4; TF32 tensor cores
-// would miss that) keep a CUDA-core kernel: one block per (batch*head,
-// 32-row query tile) of 4 warps x 8 rows; operands converted once into
-// shared memory; each lane owns one key of the 32-key tile for Q K^T and a
-// strip of head_dim columns for P V, Q rows are read as float4 broadcasts
-// and P through a per-warp shared buffer, K with a padded row.
+// float32 operands (the Spark ML estimator, which gives its Trainer no
+// compute dtype, and the exactness checks, held to 1e-4) run on the tensor
+// cores too, in 3xTF32 (mma_tf32.cuh, shared with the float32 backward):
+// every product is three mma.sync m16n8k8 TF32 products of a big/small
+// split of its operands (big = tf32(x), small = tf32(x - big), cvt.rna),
+// summed in float32, small terms first — a float32 product to ~2^-21, where
+// one TF32 product keeps 2^-11 and misses 1e-4. What bounds it: 2 products
+// of 2*D flops per attending (query, key) pair over 16 bytes per query
+// row and head_dim column of q, k, v and o: L / 4 flops per byte for L
+// attended keys a query, ~96 at the estimator's shape (B=32, H=12, S=512,
+// D=64, keys 256-512 of 512 unpadded) and ~128 at the training shape
+// (S=1024, causal), above the ridge of the 3xTF32 rate (495 / 3 TFLOP/s
+// over 3.35 TB/s, ~49), so the tensor cores' issue is the limit. The
+// kernel follows the bf16 one:
+// - one block of 4 warps per (batch*head, 64-row query tile), the tile
+//   index reversed; each warp owns 16 query rows. K and V tiles (and the
+//   key mask) flow through the same two-stage cp.async ring of 16-byte
+//   copies, zero-filled past Sk; rows are float32 at a pitch of HD + 4
+//   floats, so every fragment load hits 32 distinct banks. Tiles are 64
+//   keys, 32 above HD = 64 (two blocks an SM in shared memory);
+// - S = Q K^T with Q as the A operand and K read as B^T; an operand is
+//   split as its fragment is loaded from shared memory. Up to HD = 64 the
+//   warp's Q fragments are split once and held for the whole walk (64
+//   registers at HD = 64); above, they are split again at each tile, where
+//   the HD-wide accumulator needs the registers;
+// - P = exp2(x - m) stays float32: for float32 operands the TPU kernel's
+//   p.astype(v.dtype) is a no-op, so P is split (not rounded) and its
+//   accumulators are the A operand of O += P V in registers, with no
+//   shuffle and no shared buffer: the product's k-slots take the
+//   accumulator's columns in the order its registers hold them (2c in slot
+//   c, 2c+1 in slot c+4) and V's B fragment reads rows 2c and 2c+1;
+// - padding is skipped and the function stays the same: with a key mask the
+//   block reads its batch row's mask once; when every one of its rows
+//   attends a live key, key tiles all of padding are skipped (a
+//   __syncthreads_count over the tile's mask, which is also the barrier the
+//   tile needs) and the walk ends with the tile of the last live key. A row
+//   with no live key visits every tile and averages them uniformly. The
+//   mask, causal test and ragged edge run only on the tiles that need them;
+// - specialised on head_dim itself (HD = 8..128 in steps of 8): m16n8k8's
+//   k-step of 8 covers every head_dim the entry takes, with no padding;
+// - no atomics: a second launch gives the same bits.
+// The kernel asks for two blocks an SM (__launch_bounds__(128, 2), what
+// shared memory allows at HD = 64), so ptxas may spend up to 255 registers
+// a thread: holding Q's fragments costs no block at HD = 64, and splitting
+// them again at each tile (146 registers there) was slower at the
+// estimator's, training and serving shapes in a variant build. ptxas -v on
+// an H100 (sm_90a; chip_smoke.py prints it at set-up), registers / dynamic
+// shared memory per block / blocks per SM that both allow, no
+// instantiation spills (Q held up to HD = 64; 32-key tiles above):
+//   HD   8: 140 / 15,872 / 3     HD  72: 133 / 58,624 / 3
+//   HD  16: 149 / 26,112 / 3     HD  80: 128 / 64,768 / 3
+//   HD  24: 143 / 36,352 / 3     HD  88: 132 / 70,912 / 3
+//   HD  32: 167 / 46,592 / 3     HD  96: 141 / 77,056 / 2
+//   HD  40: 167 / 56,832 / 3     HD 104: 144 / 83,200 / 2
+//   HD  48: 188 / 67,072 / 2     HD 112: 150 / 89,344 / 2
+//   HD  56: 204 / 77,312 / 2     HD 120: 151 / 95,488 / 2
+//   HD  64: 222 / 87,552 / 2     HD 128: 159 / 101,632 / 2
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError() of the launch.
@@ -84,6 +135,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -99,207 +151,6 @@ cudaError_t set_smem(Kern kern, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
-}
-
-// ---------------------------------------------------------------------------
-// float32: CUDA-core kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kWarps = 4;
-constexpr int kRows = 8;                  // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;   // query rows per block
-constexpr int kBlockK = 32;               // keys per tile: one per lane
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-size_t smem_bytes(int D) {
-  return sizeof(float) * (size_t(kBlockQ) * D + size_t(kBlockK) * (D + 1) +
-                          size_t(kBlockK) * D + kWarps * kRows * kBlockK +
-                          kBlockK);
-}
-
-// NC = ceil(D / 32): head_dim columns each lane accumulates for P V.
-template <int NC>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ mask,
-                 float* __restrict__ o, float* __restrict__ lse, int H, int S,
-                 int Sk, int D, Strides st, float scale, int causal) {
-  extern __shared__ __align__(16) float smem[];
-  const int DP = D + 1;                     // padded K row: no bank conflicts
-  float* sq = smem;                         // [kBlockQ][D]
-  float* sk = sq + kBlockQ * D;             // [kBlockK][D + 1]
-  float* sv = sk + kBlockK * DP;            // [kBlockK][D]
-  float* sp = sv + kBlockK * D;             // [kWarps][kRows][kBlockK]
-  float* sm = sp + kWarps * kRows * kBlockK;  // [kBlockK] key mask
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kBlockQ;
-  const long long* s_ = st.s;
-  const float* qb = q + b * s_[0] + h * s_[1];
-  const float* kb = k + b * s_[3] + h * s_[4];
-  const float* vb = v + b * s_[6] + h * s_[7];
-
-  for (int i = tid; i < kBlockQ * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D, qi = q0 + r;
-    sq[i] = qi < S ? qb[qi * s_[2] + d] : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-
-  int ntiles = (Sk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    const int q_last = min(q0 + kBlockQ, S) - 1;
-    ntiles = min(ntiles, q_last / kBlockK + 1);
-  }
-  const int rbase = warp * kRows;
-  float* spw = sp + warp * kRows * kBlockK;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // the previous tile is consumed (and Q is staged)
-    for (int i = tid; i < kBlockK * D; i += blockDim.x) {
-      const int j = i / D, d = i - j * D, kj = k0 + j;
-      const bool in = kj < Sk;
-      sk[j * DP + d] = in ? kb[kj * s_[5] + d] : 0.f;
-      sv[j * D + d] = in ? vb[kj * s_[8] + d] : 0.f;
-    }
-    if (mask != nullptr && tid < kBlockK) {
-      const int kj = k0 + tid;
-      sm[tid] = kj < Sk ? mask[(long long)b * Sk + kj] : 0.f;
-    }
-    __syncthreads();
-
-    // scores: lane j holds s[r] = q[rbase + r] . k[k0 + j]
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* krow = sk + lane * DP;
-    for (int d = 0; d < D; d += 4) {
-      const float k0v = krow[d], k1v = krow[d + 1], k2v = krow[d + 2],
-                  k3v = krow[d + 3];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qq =
-            *reinterpret_cast<const float4*>(sq + (rbase + r) * D + d);
-        s[r] = fmaf(qq.x, k0v, s[r]);
-        s[r] = fmaf(qq.y, k1v, s[r]);
-        s[r] = fmaf(qq.z, k2v, s[r]);
-        s[r] = fmaf(qq.w, k3v, s[r]);
-      }
-    }
-
-    const int kj = k0 + lane;
-    const bool in = kj < Sk;
-    const bool keep = mask == nullptr || sm[lane] > 0.f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = q0 + rbase + r;
-      float x = s[r] * scale;
-      if ((causal && kj > qi) || !keep) x = kNegInf;
-      if (!in) x = -CUDART_INF_F;  // past Sk: contributes exactly nothing
-      const float mn = fmaxf(m[r], warp_max(x));
-      const float p = expf(x - mn);
-      const float alpha = expf(m[r] - mn);
-      l[r] = l[r] * alpha + warp_sum(p);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-      m[r] = mn;
-      spw[r * kBlockK + lane] = p;
-    }
-    __syncwarp();
-
-    // acc[r][c] += sum_j p[r][j] * v[j][lane + 32c]
-    for (int j = 0; j < kBlockK; j += 4) {
-      float vv[4][NC];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int d = lane + 32 * c;
-          vv[jj][c] = d < D ? sv[(j + jj) * D + d] : 0.f;
-        }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pp =
-            *reinterpret_cast<const float4*>(spw + r * kBlockK + j);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          float a = acc[r][c];
-          a = fmaf(pp.x, vv[0][c], a);
-          a = fmaf(pp.y, vv[1][c], a);
-          a = fmaf(pp.z, vv[2][c], a);
-          a = fmaf(pp.w, vv[3][c], a);
-          acc[r][c] = a;
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + rbase + r;
-    if (qi >= S) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    float* orow = o + b * s_[9] + h * s_[10] + qi * s_[11];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) orow[d] = acc[r][c] / denom;
-    }
-    if (lse != nullptr && lane == 0)
-      lse[(long long)bh * S + qi] = m[r] + logf(denom);
-  }
-}
-
-template <int NC>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const float* mask, void* o, float* lse, int B, int H,
-                       int S, int Sk, int D, const Strides& st, float scale,
-                       int causal, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<NC>;
-  const size_t smem = smem_bytes(D);
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), mask, static_cast<float*>(o), lse, H, S,
-      Sk, D, st, scale, causal);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
-                         const float* mask, void* o, float* lse, int B, int H,
-                         int S, int Sk, int D, const Strides& st, float scale,
-                         int causal, cudaStream_t stream) {
-  switch ((D + 31) / 32) {
-    case 1: return launch_f32<1>(q, k, v, mask, o, lse, B, H, S, Sk, D, st, scale, causal, stream);
-    case 2: return launch_f32<2>(q, k, v, mask, o, lse, B, H, S, Sk, D, st, scale, causal, stream);
-    case 3: return launch_f32<3>(q, k, v, mask, o, lse, B, H, S, Sk, D, st, scale, causal, stream);
-    case 4: return launch_f32<4>(q, k, v, mask, o, lse, B, H, S, Sk, D, st, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -509,18 +360,24 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// cp.async reads 16-byte chunks: 16-byte aligned q/k/v pointers and
+// (batch, head, seq) strides that are multiples of `vec` elements (8 bf16,
+// 4 float32)
+bool cp_async_ready(const void* q, const void* k, const void* v,
+                    const Strides& st, int vec) {
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  for (int i = 0; i < 9; ++i)
+    if (st.s[i] % vec != 0) return false;
+  return true;
+}
+
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
                          const float* mask, void* o, float* lse, int B, int H,
                          int S, int Sk, int D, const Strides& st, float scale,
                          int causal, cudaStream_t stream) {
-  // cp.async reads 16-byte chunks: 16-byte aligned q/k/v pointers and
-  // (batch, head, seq) strides that are multiples of 8 elements
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0)
-      return cudaErrorInvalidValue;
-  for (int i = 0; i < 9; ++i)
-    if (st.s[i] % 8 != 0) return cudaErrorInvalidValue;
+  if (!cp_async_ready(q, k, v, st, 8)) return cudaErrorInvalidValue;
   switch ((D + 15) / 16 * 16) {   // head_dim rounded up to 16
     case 16: return launch_mma<16>(q, k, v, mask, o, lse, B, H, S, Sk, D, st, scale, causal, stream);
     case 32: return launch_mma<32>(q, k, v, mask, o, lse, B, H, S, Sk, D, st, scale, causal, stream);
@@ -534,15 +391,269 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+// the Q tile, two stages of K and V, and two stages of the key mask
+template <int HD>
+size_t tf32_smem() {
+  constexpr int BN = sf_mma::tf32_tile<HD>();
+  return sizeof(float) * ((HD + 4) * (kBlockM + 2 * 2 * BN) + 2 * BN);
+}
+
+// One block per (batch*head, 64-query tile); loops over key tiles.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ mask, float* __restrict__ o,
+                      float* __restrict__ lse, int H, int S, int Sk,
+                      Strides st, float scale, int causal) {
+  constexpr int P = HD + 4, BN = sf_mma::tf32_tile<HD>();
+  // Q's split fragments stay in registers for the whole walk up to HD = 64
+  // (64 registers there); above, they are split again from shared memory
+  // at each tile
+  constexpr bool kQRegs = HD <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [kBlockM][P]
+  float* skv = sq + kBlockM * P;                   // [2 stages][K, V][BN][P]
+  float* smask = skv + 2 * 2 * BN * P;             // [2 stages][BN]
+  __shared__ int warp_last[kMmaThreads / 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  // the last query tiles see the most keys: they start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;
+  const long long* s_ = st.s;
+  const float* qb = q + b * s_[0] + h * s_[1];
+  const float* kb = k + b * s_[3] + h * s_[4];
+  const float* vb = v + b * s_[6] + h * s_[7];
+  const float* mrow = mask != nullptr ? mask + (long long)b * Sk : nullptr;
+
+  sf_mma::load_rows_f32<HD, kMmaThreads>(sq, qb, s_[2], q0, kBlockM, S);
+  sf_mma::cp_async_commit();
+  int ntiles = (Sk + BN - 1) / BN;
+  if (causal) ntiles = min(ntiles, (min(q0 + kBlockM, S) - 1) / BN + 1);
+  // A key tile whose keys are all padding adds exactly nothing to a row
+  // that attends a live key: once m is a score, exp2(kMasked - m) is 0, and
+  // what such a tile added before the first live key, the rescale by
+  // alpha = exp2(kMasked - m) = 0 wipes out. So when every row of the block
+  // attends a live key (one at or before q0 if causal, anywhere if not),
+  // the walk skips those tiles and ends with the tile of the row's last
+  // live key. Otherwise every tile is visited, and a row with no live key
+  // averages its visited keys uniformly, as the TPU kernel does.
+  bool skip = false;
+  if (mrow != nullptr) {
+    const int lim = causal ? min(q0 + 1, Sk) : Sk;
+    int last = -1;
+    bool attended = false;
+    for (int j = tid; j < min(Sk, ntiles * BN); j += kMmaThreads)
+      if (mrow[j] > 0.f) {
+        last = j;
+        attended |= j < lim;
+      }
+    skip = __syncthreads_or(attended);
+    if (skip) {
+      last = __reduce_max_sync(0xffffffffu, last);
+      if (lane == 0) warp_last[warp] = last;
+      __syncthreads();
+      for (int w = 0; w < kMmaThreads / 32; ++w)
+        last = max(last, warp_last[w]);
+      ntiles = min(ntiles, last / BN + 1);
+    }
+  }
+
+  auto load_tile = [&](int t) {
+    const int k0 = t * BN;
+    float* dst = skv + (t & 1) * 2 * BN * P;
+    sf_mma::load_rows_f32<HD, kMmaThreads>(dst, kb, s_[5], k0, BN, Sk);
+    sf_mma::load_rows_f32<HD, kMmaThreads>(dst + BN * P, vb, s_[8], k0, BN,
+                                           Sk);
+    if (mrow != nullptr && tid < BN) {
+      const int kj = k0 + tid;
+      sf_mma::cp_async4(smask + (t & 1) * BN + tid, mrow + (kj < Sk ? kj : 0),
+                        kj < Sk ? 4 : 0);
+    }
+  };
+  if (ntiles > 0) load_tile(0);
+  sf_mma::cp_async_commit();
+
+  // this lane's two rows of the warp's 16 (accumulator rows g and g + 8)
+  const int g = lane >> 2, c2 = (lane & 3) * 2, rw = warp * 16;
+  uint32_t qf[kQRegs ? HD / 8 : 1][4], qf_s[kQRegs ? HD / 8 : 1][4];
+  if constexpr (kQRegs) {
+    sf_mma::cp_async_wait<1>();  // Q landed for this thread
+    __syncthreads();             // ... and for every thread
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk)
+      sf_mma::load_a_split(qf[kk], qf_s[kk], sq, P, rw, kk * 8, lane);
+  }
+  const float sl2 = scale * kLog2e;
+
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  float acc[HD / 8][4] = {};
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load_tile(t + 1);
+    sf_mma::cp_async_commit();
+    sf_mma::cp_async_wait<1>();  // tile t (and Q) landed for this thread
+    const float* sk = skv + (t & 1) * 2 * BN * P;
+    const float* sv = sk + BN * P;
+    const float* sm = smask + (t & 1) * BN;
+    // ... and for every thread; with a mask, the same barrier counts the
+    // tile's keys that attend
+    int live = BN;
+    if (mrow != nullptr)
+      live = __syncthreads_count(tid < BN && sm[tid] > 0.f);
+    else
+      __syncthreads();
+
+    if (live > 0 || !skip) {
+      // S = Q K^T for the warp's 16 rows x BN keys
+      float s[BN / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        uint32_t a[4], a_s[4];
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a[i] = qf[kk][i];
+            a_s[i] = qf_s[kk][i];
+          }
+        } else {
+          sf_mma::load_a_split(a, a_s, sq, P, rw, kk * 8, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n) {
+          uint32_t kf[2], kf_s[2];
+          sf_mma::load_bt_split(kf, kf_s, sk, P, n * 8, kk * 8, lane);
+          sf_mma::mma_3xtf32(s[n], a, a_s, kf, kf_s);
+        }
+      }
+
+      // scores in the exp2 domain, masked where the tile needs it; row max
+      const int k0 = t * BN;
+      const bool edge = live < BN || k0 + BN > Sk ||
+                        (causal && k0 + BN - 1 > q0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = s[n][e] * sl2;
+          if (edge) {
+            const int col = n * 8 + c2 + (e & 1), kj = k0 + col;
+            const int qi = q0 + rw + g + 8 * r;
+            const bool drop = (causal && kj > qi) ||
+                              (mrow != nullptr && !(sm[col] > 0.f));
+            x = kj >= Sk ? -CUDART_INF_F : (drop ? kMasked : x);
+          }
+          s[n][e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      // P = exp2(x - m) in float32, not rounded: l sums it and O += P V
+      // takes it split, as the A operand straight from its accumulators
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[n][e] - m[e >> 1]);
+          l[e >> 1] += p;
+          s[n][e] = p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        uint32_t pa[4], pa_s[4];
+        sf_mma::accum_to_a_split(pa, pa_s, s[j]);
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          uint32_t vf[2], vf_s[2];
+          sf_mma::load_b_perm_split(vf, vf_s, sv, P, j * 8, n * 8, lane);
+          sf_mma::mma_3xtf32(acc[n], pa, pa_s, vf, vf_s);
+        }
+      }
+    }
+    __syncthreads();  // stage t & 1 is consumed before tile t + 2 fills it
+  }
+  sf_mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(quad_sum(l[r]), 1e-30f);
+    const int qi = q0 + rw + g + 8 * r;
+    if (qi >= S) continue;
+    float* row = o + b * s_[9] + h * s_[10] + qi * s_[11];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      sf_mma::store2(row + n * 8 + c2, acc[n][2 * r] / den,
+                     acc[n][2 * r + 1] / den);
+    // a row with no live key: NEG_INF itself, as the TPU kernel's m is
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(long long)bh * S + qi] =
+          (m[r] == kMasked ? kNegInf : m[r] * kLn2) + logf(den);
+  }
+}
+
+template <int HD>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        const float* mask, void* o, float* lse, int B, int H,
+                        int S, int Sk, const Strides& st, float scale,
+                        int causal, cudaStream_t stream) {
+  auto kern = flash_fwd_tf32_kernel<HD>;
+  const size_t smem = tf32_smem<HD>();
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(B * H, (S + kBlockM - 1) / kBlockM);
+  kern<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), mask, static_cast<float*>(o), lse, H, S,
+      Sk, st, scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tf32(const void* q, const void* k, const void* v,
+                          const float* mask, void* o, float* lse, int B,
+                          int H, int S, int Sk, int D, const Strides& st,
+                          float scale, int causal, cudaStream_t stream) {
+  // the output is written two columns at a time: 8-byte aligned, even
+  // (batch, head, seq) strides
+  if (!cp_async_ready(q, k, v, st, 4) ||
+      reinterpret_cast<uintptr_t>(o) % 8 != 0 || st.s[9] % 2 != 0 ||
+      st.s[10] % 2 != 0 || st.s[11] % 2 != 0)
+    return cudaErrorInvalidValue;
+  SF_DISPATCH_HD8(launch_tf32, D, q, k, v, mask, o, lse, B, H, S, Sk, st,
+                  scale, causal, stream)
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/o are [B, H, S|Sk, D] with D
 // contiguous; strides[12] = (q, k, v, o) x (batch, head, seq) in elements.
 // mask: [B, Sk] float32 (> 0 attends) or null; lse: [B, H, S] float32
 // contiguous, or null. Requires D % 8 == 0 and 8 <= D <= 128 (the wrapper
-// checks); for bfloat16 also 16-byte aligned q/k/v pointers and their
-// strides multiples of 8. float32 runs the CUDA-core kernel, bfloat16 the
-// tensor-core one.
+// checks), 16-byte aligned q/k/v pointers and their strides multiples of 8
+// (bfloat16) or 4 (float32) elements (cp_async_ready); a float32 o 8-byte
+// aligned with even strides. float32 runs the 3xTF32 kernel, bfloat16 the
+// bf16 one, both on the tensor cores.
 extern "C" int sf_flash_fwd(int dtype, const void* q, const void* k,
                             const void* v, const void* mask, void* o,
                             void* lse, int B, int H, int S, int Sk, int D,
@@ -555,7 +666,7 @@ extern "C" int sf_flash_fwd(int dtype, const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = dtype == 0
-      ? dispatch_f32(q, k, v, m, o, l, B, H, S, Sk, D, st, scale, causal, s)
+      ? dispatch_tf32(q, k, v, m, o, l, B, H, S, Sk, D, st, scale, causal, s)
       : dispatch_mma(q, k, v, m, o, l, B, H, S, Sk, D, st, scale, causal, s);
   return (int)e;
 }

@@ -120,6 +120,17 @@ __device__ __forceinline__ void accum_to_a_split(uint32_t (&big)[4],
   split_tf32(acc[3], big[3], small[3]);
 }
 
+// Tile rows the float32 kernels visit per step: 64, or 32 above HD = 64,
+// where shared memory (and in dkv the two HD-wide accumulators) would
+// leave one block an SM.
+template <int HD>
+__host__ __device__ constexpr int tf32_tile() { return HD <= 64 ? 64 : 32; }
+
+// Two float32 columns of an output row (8-byte aligned).
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
 // Start cp.async copies, by a block of kThreads threads, of rows
 // [r0, r0 + nrows) of one head of a float32 [B, H, S, HD] operand
 // (sequence stride ss) into an [nrows][HD + 4] tile. Rows past n are
@@ -138,3 +149,26 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
 }
 
 }  // namespace sf_mma
+
+// Dispatch on head_dim itself, a multiple of 8 in [8, 128]: the float32
+// kernels' m16n8k8 k-step covers each with no padding.
+#define SF_DISPATCH_HD8(fn, d, ...)               \
+  switch (d) {                                    \
+    case 8: return fn<8>(__VA_ARGS__);            \
+    case 16: return fn<16>(__VA_ARGS__);          \
+    case 24: return fn<24>(__VA_ARGS__);          \
+    case 32: return fn<32>(__VA_ARGS__);          \
+    case 40: return fn<40>(__VA_ARGS__);          \
+    case 48: return fn<48>(__VA_ARGS__);          \
+    case 56: return fn<56>(__VA_ARGS__);          \
+    case 64: return fn<64>(__VA_ARGS__);          \
+    case 72: return fn<72>(__VA_ARGS__);          \
+    case 80: return fn<80>(__VA_ARGS__);          \
+    case 88: return fn<88>(__VA_ARGS__);          \
+    case 96: return fn<96>(__VA_ARGS__);          \
+    case 104: return fn<104>(__VA_ARGS__);        \
+    case 112: return fn<112>(__VA_ARGS__);        \
+    case 120: return fn<120>(__VA_ARGS__);        \
+    case 128: return fn<128>(__VA_ARGS__);        \
+    default: return cudaErrorInvalidValue;        \
+  }

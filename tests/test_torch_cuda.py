@@ -7,8 +7,13 @@ This file imports no JAX, so it runs on a machine without it:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``--noconftest`` skips tests/conftest.py, which sets JAX up).
 
-Tolerances (same as chip_smoke.py): float32 outputs 1e-4 (float32 FMA on
-both sides, different summation order); bfloat16 flash outputs 2e-2 (the
+Tolerances (same as chip_smoke.py): float32 outputs 1e-4 (float32 flash:
+the kernel runs on the tensor cores in 3xTF32, each product to ~2^-21
+where the plain version's float32 product keeps 2^-24, and the summation
+order differs — tests/test_torch_flash_fwd_tf32.py holds an emulation of
+the kernel's arithmetic to the JAX Pallas forward within 2e-6 on the CPU;
+float32 paged: float32 FMA on both sides, different summation order);
+bfloat16 flash outputs 2e-2 (the
 kernel runs on the tensor cores and rounds the unnormalised P of each
 64-key tile to bfloat16 before P V, as the TPU kernel does; the plain
 version rounds the normalised P; a few bfloat16 ulps at |O| ~ 1 —
@@ -960,6 +965,139 @@ def test_flash_bwd_f32_replays_in_a_cuda_graph(dev):
     delta.copy_((dout * out).sum(-1))
     mask[1, 200:] = 1
     want = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# -- the float32 forward on the tensor cores (3xTF32) ------------------------
+
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_flash_fwd_f32_every_head_dim(dev, d):
+    """Every head_dim the float32 entry takes (a multiple of 8 in [8, 128]),
+    each its own 3xTF32 instantiation: causal over a ragged S = 150, and
+    non-causal with padded keys."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn(2, 2, 150, d, generator=g, device=dev)
+               for _ in range(3))
+    _check_fwd(q, k, v, True)
+    mask = torch.ones(2, 150, device=dev)
+    mask[1, 61:] = 0
+    _check_fwd(q, k, v, False, mask)
+
+
+def test_flash_fwd_f32_strided_training_operands_need_no_copy(dev):
+    """float32 q, k, v as the estimator's step hands them over (strided
+    views of one [B,S,3,H,D] qkv projection, row stride 2304) stream as
+    they are, without a copy."""
+    from sparkflow_tpu_torch.ops.attention import _cp_async_ready
+    g = torch.Generator(device=dev).manual_seed(9)
+    qkv = torch.randn(2, 333, 3, 12, 64, generator=g,
+                      device=dev).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    assert q.stride(2) == 3 * 12 * 64
+    assert all(_cp_async_ready(t) is t for t in (q, k, v))
+    _check_fwd(q, k, v, True)
+    mask = torch.ones(2, 333, device=dev)
+    mask[0, 200:] = 0
+    _check_fwd(q, k, v, False, mask)
+
+
+@pytest.mark.parametrize("how", ["pointer", "stride"])
+def test_flash_fwd_f32_misaligned_operand_is_copied(dev, how):
+    """A float32 k whose pointer is not 16-byte aligned, or whose sequence
+    stride is not a multiple of 4 elements, is copied to aligned memory
+    before the launch: the result equals the aligned operand's bit for
+    bit."""
+    from sparkflow_tpu_torch.ops.attention import _cp_async_ready
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(1, 2, 200, 64, generator=g, device=dev)
+               for _ in range(3))
+    k_odd = _misaligned_copy(k, how)
+    assert _cp_async_ready(k_odd) is not k_odd
+    a = flash_attention(q, k, v, causal=True, return_lse=True)
+    b = flash_attention(q, k_odd, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("how", ["pointer", "stride"])
+def test_flash_fwd_f32_entry_refuses_misaligned_operand(dev, how):
+    """The C entry itself refuses a float32 operand that 16-byte cp.async
+    copies cannot stream: cudaErrorInvalidValue (1), no launch."""
+    import ctypes
+    from sparkflow_tpu_torch.ops import _build
+    from sparkflow_tpu_torch.ops.attention import _seq_strides
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(1, 2, 96, 64, generator=g, device=dev)
+               for _ in range(3))
+    q_odd = _misaligned_copy(q, how)
+    o = torch.empty_like(q)
+    st = _seq_strides(q_odd, k, v, o)
+    lib = _build.load()
+    assert lib.sf_flash_fwd(
+        0, q_odd.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(),
+        None, 1, 2, 96, 96, 64, ctypes.addressof(st), 0.125, 1,
+        torch.cuda.current_stream().cuda_stream) == 1
+
+
+def test_flash_fwd_f32_all_padding_row_averages_uniformly(dev):
+    """Non-causal, S = 300, padded keys: batch row 2's keys are all padding
+    (its output is the uniform average of its values and its logsumexp
+    NEG_INF, as in JAX), row 0 is padded from key 250 and row 1 has a hole
+    of padding over keys 64-191 (two whole 64-key tiles, which the kernel
+    skips)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(3, 4, 300, 64, generator=g, device=dev)
+               for _ in range(3))
+    mask = torch.ones(3, 300, device=dev)
+    mask[0, 250:] = 0
+    mask[1, 64:192] = 0
+    mask[2] = 0
+    out = _check_fwd(q, k, v, False, mask)
+    uniform = v[2].mean(1, keepdim=True).expand(4, 300, 64)
+    assert _max_err(out[2], uniform) < FLASH_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("s", [1, 700])
+def test_flash_fwd_f32_ragged_sequence(dev, s):
+    """A ragged S of 700 (not a multiple of the 64-row and 64-key tiles)
+    and a single query, causal and with a padded key tail."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn(2, 3, s, 64, generator=g, device=dev)
+               for _ in range(3))
+    _check_fwd(q, k, v, True)
+    mask = torch.ones(2, s, device=dev)
+    mask[1, s // 2 + 1:] = 0
+    _check_fwd(q, k, v, False, mask)
+    _check_fwd(q, k, v, True, mask)
+
+
+def test_flash_fwd_f32_replays_in_a_cuda_graph(dev):
+    """The float32 forward captured in a CUDA graph and replayed equals the
+    eager call; after new q values and a new mask are copied into the same
+    tensors, a replay equals the eager call on them."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn(2, 4, 300, 64, generator=g, device=dev)
+               for _ in range(3))
+    mask = torch.ones(2, 300, device=dev)
+    mask[1, 140:] = 0
+
+    def call():
+        return flash_attention(q, k, v, kv_mask=mask, return_lse=True)
+
+    want = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    q.copy_(torch.randn(q.shape, generator=g, device=dev))
+    mask[1, 140:200] = 1
+    mask[0, 30:] = 0
+    want = call()
     graph.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -1,14 +1,13 @@
 """PyTorch port, the float32 flash-attention backward kernels' arithmetic
 on the CPU: ``csrc/flash_bwd.cu``'s ``flash_bwd_dq_tf32_kernel`` and
 ``flash_bwd_dkv_tf32_kernel`` run every product on the tensor cores in
-3xTF32 (``csrc/mma_tf32.cuh``). Emulated here in PyTorch:
+3xTF32 (``csrc/mma_tf32.cuh``). Emulated here in PyTorch
+(tests/tf32_emulation.py):
 
-- TF32 rounding as ``cvt.rna.tf32.f32`` does it, on float32 bit patterns:
-  10 mantissa bits kept, to nearest, ties away from zero;
-- each product split into big = tf32(x) and small = tf32(x - big) of both
-  operands, summed k-step by k-step of 8 (the m16n8k8 depth) in the
-  kernels' order, small terms first: small_a * big_b, big_a * small_b,
-  big_a * big_b — with the kernels' operands in the A and B places (dq:
+- TF32 rounding as ``cvt.rna.tf32.f32`` does it;
+- each product split into big and small of both operands, summed k-step by
+  k-step of 8 in the kernels' order, small terms first — with the
+  kernels' operands in the A and B places (dq:
   Q K^T, dO V^T, dS K; dkv: K Q^T, V dO^T, P^T dO, dS^T Q) and the
   contraction over keys or queries walked in order, as the kernels walk
   their tiles;
@@ -38,51 +37,11 @@ import torch
 
 from sparkflow_tpu.ops import attention as jattn
 from sparkflow_tpu_torch.ops import flash_attention_backward_reference
+from tf32_emulation import LOG2E, product as _product, split as _split, tf32
 
 REL_TOL = 2e-5
 ONE_TF32_FACTOR = 10.0
 B, H = 2, 2
-LOG2E = 1.4426950408889634
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32`` on each float32 of ``x``: the low 13 bits of
-    the pattern rounded off, to nearest, ties away from zero (adding half
-    of the dropped range to the magnitude bits carries into the kept ones
-    exactly when the dropped bits are at least half)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _split(x):
-    big = tf32(x)
-    return big, tf32(x - big)
-
-
-def _product(a, b, mode):
-    """``a @ b`` ([..., M, K] x [..., K, N], float32) as the kernels take
-    it: k-steps of 8 in order, each added to the float32 accumulator as
-    three TF32 products, small terms first (``mode="3x"``), as the one
-    big_a * big_b product (``"1x"``), or unrounded (``"float32"``). K is
-    zero-padded to a multiple of 8, as the kernels' tiles are zero-filled
-    past the ragged edge."""
-    k = a.shape[-1]
-    pad = -k % 8
-    if pad:
-        a = torch.nn.functional.pad(a, (0, pad))
-        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
-    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
-    for k0 in range(0, k + pad, 8):
-        if mode == "float32":
-            acc = acc + a[..., k0:k0 + 8] @ b[..., k0:k0 + 8, :]
-            continue
-        ab, a_s = _split(a[..., k0:k0 + 8])
-        bb, b_s = _split(b[..., k0:k0 + 8, :])
-        if mode == "3x":
-            acc = acc + a_s @ bb
-            acc = acc + ab @ b_s
-        acc = acc + ab @ bb
-    return acc
 
 
 def _keep(s, sk, causal, mask):
@@ -98,7 +57,7 @@ def _keep(s, sk, causal, mask):
 def tf32_backward(q, k, v, out, lse, dout, causal, scale, mask, mode="3x"):
     """The float32 kernels' arithmetic: ``(dq, dk, dv)`` from the forward's
     O and logsumexp, every product in 3xTF32 (or as ``mode`` says, see
-    :func:`_product`)."""
+    :func:`tf32_emulation.product`)."""
     delta = (dout * out).sum(-1)                         # the wrapper's D
     s, sk = q.shape[2], k.shape[2]
     keep = _keep(s, sk, causal, mask)
