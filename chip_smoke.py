@@ -103,9 +103,31 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     masks), timed beside their bounds (the 3xTF32 one and the CUDA cores')
     and SDPA's forward and backward. The
     fit's training examples/s and the profiled step's device busy ms are
-    the numbers a parent / change comparison reads.
+    the numbers a parent / change comparison reads;
+13. predict: README's "Serve it online" path on phase 12's fitted weights —
+    ``InferenceEngine(modelJson, modelWeights, input_name=["input_ids:0",
+    "attention_mask:0"], output_name="probs:0", max_batch=32)`` behind
+    ``InferenceServer(max_delay_ms=2.0)`` in four arms: (a) float32, (b)
+    ``compute_dtype="bfloat16"``, (c) ``quantize="weight_only"``, (d)
+    ``quantize="dynamic"``. Each serves 8 concurrent
+    ``ServingClient.predict`` threads x 8 requests of 1-8 rows (sizes from
+    a seed, masks ragged over 256-512 live tokens); the counters are zeroed
+    before each burst and read after: ``flash_fwd`` 12 times a bucket call,
+    nothing else. It prints rows/s, request p50/p95 ms, batch rows and
+    padding waste from ``/metrics``, the ms of buckets 1, 8 and 32 (CUDA
+    events around one eager call), a profile of a 32-row call, ``stats()``
+    and peak memory. Each arm's every served answer against the card
+    engine's own predict of the burst's rows outside the server, a seeded
+    16-row sample of them against the same arm on the CPU port engine
+    (probs, and logits over max(1, max |logit|); the int8 trees built on
+    the card bit-equal to the CPU's), arm (a) against a forward through
+    ``attention_reference`` (TF32 off, 1e-4). Then a port ``Trainer(publish_to=store)`` takes 2 steps on the
+    same model, ``WeightWatcher.poll_once()`` moves arm (a) to version 1,
+    and its probs equal a fresh engine's built from ``store.load()``;
+    ``flash_fwd`` at the largest bucket in bf16 (B=32 S=512, a key mask)
+    against its plain version, beside its bound and SDPA's time.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12; a ``[time]`` line gives
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13; a ``[time]`` line gives
 each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
@@ -118,8 +140,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -1664,11 +1688,13 @@ def _estimator_kernel_rows(card, masks):
     return rows
 
 
-def phase_estimator(card):
+def phase_estimator(card, work):
     """The Spark ML estimator on the card: the reference's own nn model,
     then ``examples/bert_classifier.py`` at BERT-base width through
     ``Pipeline([OneHotEncoder, SparkAsyncDL]).fit`` and ``transform``; the
-    probs against a plain-attention forward; kernels 1-3 at its shape."""
+    probs against a plain-attention forward; kernels 1-3 at its shape.
+    The fitted weights stay in ``work`` for the predict phase; returns the
+    kernel rows and the fitted ``(modelJson, modelWeights)``."""
     import tempfile
     import numpy as np
     import torch
@@ -1699,7 +1725,7 @@ def phase_estimator(card):
             tfLearningRate=3e-4, iters=1, miniBatchSize=EST_BATCH,
             labelCol="labels", predictionCol="predicted",
             extraInputCols="mask", extraTfInputs="attention_mask:0",
-            weightsPath=os.path.join(tmp, "bert"))
+            weightsPath=os.path.join(work, "bert"))
         est.setLossCallback(lambda loss, it, part: losses.append(loss))
         pipe = Pipeline(stages=[
             OneHotEncoder(inputCol="label", outputCol="labels",
@@ -1853,12 +1879,390 @@ def phase_estimator(card):
         masks = torch.tensor(np.stack([r["mask"].toArray() for r in first]),
                              dtype=torch.float32, device="cuda")
     rows = _estimator_kernel_rows(card, masks)
-    return {n: {"launches": fit_launches[n],
+    return (spec, weights), {n: {"launches": fit_launches[n],
                 "transform_launches": tr_launches[n], **_pick(rows[n]),
                 "bound_cuda_core_ms": rows[n]["bound_cuda_core_ms"],
                 "max_abs_err": rows[n]["max_abs_err"],
                 "tflops": rows[n]["tflops"],
                 "bound_share": rows[n]["bound_share"]} for n in names}
+
+
+# phase 13: README's "Serve it online" path at BERT-base, on phase 12's
+# fitted weights: four arms, 8 client threads x 8 requests of 1-8 rows
+PREDICT_MAX_BATCH = 32
+PREDICT_CLIENTS, PREDICT_PER_CLIENT = 8, 8
+PREDICT_ARMS = (("a", "float32", {}),
+                ("b", "bfloat16", {"compute_dtype": "bfloat16"}),
+                ("c", "weight_only", {"quantize": "weight_only"}),
+                ("d", "dynamic", {"quantize": "dynamic"}))
+# limits, absolute, per arm: "cpu" the card's probs against the same arm
+# on the CPU port engine over PREDICT_CPU_ROWS rows of the burst, "logits"
+# the same for logits over max(1, max |logit|), "replay" each served answer
+# against the card engine's own predict of the burst's rows outside the
+# server (other bucket mixes). Each is about 10x its reading on an H100
+# 80GB HBM3 (700 W), but no probs limit is under 2e-7: float32 steps by
+# 6e-8 just below 1.0, where these probs sit (readings: replay 3.8e-10 to
+# 7.6e-10; cpu
+# 2.3e-9 / 1.2e-6 / 1.7e-9 / 2.7e-7; logits 6.7e-7 / 2.4e-4 / 4.5e-7 /
+# 1.5e-4 in (a) to (d))
+PREDICT_TOL = {"a": {"cpu": 2e-7, "logits": 5e-6, "replay": 2e-7},
+               "b": {"cpu": 1e-5, "logits": 2e-3, "replay": 2e-7},
+               "c": {"cpu": 2e-7, "logits": 5e-6, "replay": 2e-7},
+               "d": {"cpu": 3e-6, "logits": 1.5e-3, "replay": 2e-7}}
+PREDICT_CPU_ROWS = 16
+PREDICT_IN = ["input_ids:0", "attention_mask:0"]
+
+
+def _predict_rows(n, seed):
+    """``n`` rows of phase 12's ``synthetic_text`` kind: token ids with the
+    marker pattern on about half, masks ragged over 256-512 live tokens."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    seq, vocab = BERT_BASE["max_len"], BERT_BASE["vocab_size"]
+    ids = rs.randint(10, vocab, (n, seq))
+    mask = np.zeros((n, seq), np.float32)
+    for i in range(n):
+        if rs.randint(0, 2):
+            ids[i, ::7] = 3
+        live = rs.randint(seq // 2, seq + 1)
+        mask[i, :live] = 1.0
+        ids[i, live:] = 0
+    return ids.astype(np.int32), mask
+
+
+def _predict_burst(eng, seed):
+    """8 concurrent ``ServingClient.predict`` threads x 8 requests of 1-8
+    rows through ``InferenceServer(max_delay_ms=2.0)``; the launch counters
+    are zeroed just before and read just after."""
+    import numpy as np
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import InferenceServer, ServingClient
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 9, (PREDICT_CLIENTS, PREDICT_PER_CLIENT))
+    reqs = [[_predict_rows(int(n), seed * 1000 + 10 * c + j)
+             for j, n in enumerate(row)] for c, row in enumerate(sizes)]
+    lat, results, errors = [], {}, []
+    srv = InferenceServer(eng, max_delay_ms=2.0, memory_watch=False).start()
+    try:
+        def client(c):
+            try:
+                cli = ServingClient(srv.url, timeout=600)
+                for j, (ids, mask) in enumerate(reqs[c]):
+                    t = time.perf_counter()
+                    out = cli.predict({"input_ids": ids,
+                                       "attention_mask": mask})
+                    lat.append((time.perf_counter() - t) * 1e3)
+                    results[(c, j)] = np.asarray(out, np.float64)
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        calls0 = eng.metrics.histograms().get(
+            "serving/engine_batch_rows", {}).get("count", 0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(PREDICT_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        if errors:
+            raise errors[0]
+        hist = ServingClient(srv.url).metrics()["histograms"]
+        health = ServingClient(srv.url).healthz()
+    finally:
+        srv.stop()
+    calls = hist["serving/engine_batch_rows"]["count"] - calls0
+    for (c, j), out in results.items():
+        n = reqs[c][j][0].shape[0]
+        if out.shape != (n, 2) or not np.isfinite(out).all() or \
+                np.abs(out.sum(-1) - 1.0).max() > 1e-3:
+            raise AssertionError(f"request {c}/{j}: probs {out}")
+    if len(results) != PREDICT_CLIENTS * PREDICT_PER_CLIENT:
+        raise AssertionError(f"{len(results)} answers")
+    layers = BERT_BASE["num_layers"]
+    others = {k: v for k, v in launches.items() if k != "flash_fwd"}
+    if launches["flash_fwd"] != layers * calls or any(others.values()):
+        raise AssertionError(f"{calls} bucket calls, launches {launches}: "
+                             f"want flash_fwd {layers} a call and no other")
+    rows = int(sizes.sum())
+    # the burst's rows and answers in request order, for the checks
+    keys = sorted(results)
+    served = (tuple(np.concatenate([reqs[c][j][i] for c, j in keys])
+                    for i in range(2)),
+              np.concatenate([results[k] for k in keys]))
+    return served, {"requests": len(results), "rows": rows, "wall_s": wall,
+            "rows_per_s": rows / wall, "bucket_calls": calls,
+            "request_ms_p50": _pct(lat, 50), "request_ms_p95": _pct(lat, 95),
+            "server_request_ms": {k: hist["serving/request_latency_ms"][k]
+                                  for k in ("p50", "p95", "p99")},
+            "batch_rows_mean": hist["serving/engine_batch_rows"]["mean"],
+            "padding_waste_mean": hist["serving/padding_waste"]["mean"],
+            "healthz_status": health["status"],
+            "launches": launches}
+
+
+def _bucket_ms(eng, bucket, reps=5):
+    """ms of one eager bucket call (CUDA events around ``_apply``, inputs
+    copied in as a request's are), median of ``reps`` after a warm call."""
+    import torch
+    xs = _predict_rows(bucket, 7)
+    params = eng._snapshot_params()
+    times = []
+    for i in range(reps + 1):
+        a, b = _events()
+        a.record()
+        eng._apply(params, xs)
+        b.record()
+        b.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
+
+
+def _bucket_profile(eng):
+    """``torch.profiler`` over one full-bucket call (32 rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    xs = _predict_rows(PREDICT_MAX_BATCH, 8)
+    params = eng._snapshot_params()
+    eng._apply(params, xs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._apply(params, xs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return _device_profile(prof, wall, 1, kernels=("flash_fwd",))
+
+
+def _predict_flash_row(card):
+    """``flash_fwd`` at the largest predict bucket in bf16: B=32, H=12,
+    S=512, D=64, non-causal, a ragged key mask; against the plain version,
+    beside its bound and SDPA's time."""
+    import torch
+    import torch.nn.functional as F
+    from sparkflow_tpu_torch.ops import attention_reference, flash_attention
+    b, s = PREDICT_MAX_BATCH, BERT_BASE["max_len"]
+    masks = torch.tensor(_predict_rows(b, 3)[1], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(b, 12, s, 64, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v, kv_mask=masks)
+    ref = attention_reference(q, k, v, kv_mask=masks)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    if not err < FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"flash_fwd bf16 at the predict bucket: max "
+                             f"|dO| {err}")
+    attn_mask = (masks > 0)[:, None, None, :]
+    pairs = 12 * s * float(masks.sum())
+    # the bytes this data needs: Q and O whole; K and V of each batch row
+    # up to its last live key, as ``pairs`` counts only live keys
+    live = masks > 0
+    last = torch.where(live.any(-1), s - live.flip(-1).int().argmax(-1), 0)
+    kv_bytes = 2 * 12 * 64 * q.element_size() * float(last.sum())
+    row = {"dtype": "bfloat16", "B": b, "S": s, "causal": False,
+           "max_abs_err": err,
+           "ms": time_device([lambda: flash_attention(q, k, v,
+                                                      kv_mask=masks)] * 10),
+           "plain_ms": time_device([lambda: attention_reference(
+               q, k, v, kv_mask=masks)] * 2),
+           "library_ms": time_device([lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=attn_mask)] * 10),
+           "bytes": 2 * q.numel() * q.element_size() + kv_bytes
+                    + masks.numel() * 4,
+           "flops": 2 * 2 * 64 * pairs}
+    _rate(row, "bfloat16")
+    log(f"[predict] flash_fwd bf16 B={b} H=12 S={s} D=64 padded keys: err "
+        f"{err:.3g} ms {row['ms']:.5f} plain {row['plain_ms']:.4f} sdpa "
+        f"{row['library_ms']:.5f} bound {row['bound_ms']:.5f} "
+        f"({row['bound_by']}) {row['tflops']:.1f} TFLOP/s, "
+        f"{row['bound_share']:.3f} of the bound [{card}]")
+    return row
+
+
+def _arm_outputs(eng, xs):
+    """probs and logits of the rows ``xs`` through ``eng``'s model and
+    serving params, on its device, as float64 numpy."""
+    import numpy as np
+    import torch
+    feeds = {k: torch.as_tensor(a, device=eng.device)
+             for k, a in zip(eng._in_keys, xs)}
+    with torch.inference_mode():
+        out = eng.model.apply(eng._snapshot_params(), feeds,
+                              ["probs", "logits"], train=False)
+    return {k: v.float().cpu().numpy().astype(np.float64)
+            for k, v in out.items()}
+
+
+def _predict_checks(tag, eng, spec, weights, kw, extra, rows, served):
+    """One arm's answers held to ``PREDICT_TOL[tag]``: every served answer
+    against the card engine's own predict of the same rows (a row sent
+    back to the wrong request, or a padding row leaking into a real one,
+    shows there; the rows must not all win the same class, so a mix-up
+    cannot hide); a seeded sample of ``PREDICT_CPU_ROWS`` burst rows
+    against the same arm on the CPU port engine, probs and logits; an int8
+    arm's ``q8``/``scale`` built on the card bit-equal to the CPU's."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.serving import InferenceEngine
+    tol = PREDICT_TOL[tag]
+    replay = eng.predict(rows)
+    r_err = float(np.abs(served - replay).max())
+    wins = np.bincount(replay.argmax(-1), minlength=2)
+    pick = np.sort(np.random.default_rng(ord(tag)).choice(
+        len(served), PREDICT_CPU_ROWS, replace=False))
+    sample = tuple(a[pick] for a in rows)
+    t0 = time.perf_counter()
+    cpu = InferenceEngine(spec, weights, device="cpu", warmup=False,
+                          **dict(kw, max_batch=2), **extra)
+    got, want = _arm_outputs(eng, sample), _arm_outputs(cpu, sample)
+    cpu_s = time.perf_counter() - t0
+    p_err = float(np.abs(got["probs"] - want["probs"]).max())
+    top = max(1.0, float(np.abs(want["logits"]).max()))
+    l_err = float(np.abs(got["logits"] - want["logits"]).max()) / top
+    errs = {"replay_max_abs_err": r_err, "replay_wins": wins.tolist(),
+            "cpu_rows": PREDICT_CPU_ROWS, "cpu_check_s": cpu_s,
+            "cpu_probs_max_abs_err": p_err,
+            "cpu_logits_max_abs_err_over_top": l_err, "logits_top": top}
+    log(f"[predict] arm ({tag}) checks: " + json.dumps(errs))
+    if not (r_err < tol["replay"] and wins.min() > 0
+            and np.isfinite(served).all()):
+        raise AssertionError(f"arm ({tag}): served answers vs the engine's "
+                             f"replay max |d| {r_err} (tol {tol['replay']}), "
+                             f"wins per class {wins.tolist()}")
+    if not (p_err < tol["cpu"] and l_err < tol["logits"]
+            and np.isfinite(got["logits"]).all()):
+        raise AssertionError(f"arm ({tag}): card vs CPU probs max |d| "
+                             f"{p_err} (tol {tol['cpu']}), logits max |d| / "
+                             f"{top} {l_err} (tol {tol['logits']})")
+    if "quantize" in extra:
+        for ln, layer in eng._snapshot_params().items():
+            for pn, t in layer.items():
+                if not torch.equal(t.cpu(), cpu._params[ln][pn]):
+                    raise AssertionError(f"arm ({tag}): {ln}/{pn} built on "
+                                         f"the card differs from the CPU's")
+    return errs
+
+
+def phase_predict(card, spec, weights, work):
+    """The predict plane on the card: ``InferenceEngine(modelJson,
+    modelWeights)`` -> ``InferenceServer`` -> ``ServingClient.predict`` in
+    four arms on phase 12's fitted BERT-base; each arm's answers against
+    its own replay and the CPU port engine (``_predict_checks``), arm (a)
+    against the plain attention; then a port
+    ``Trainer(publish_to=)`` and a ``WeightWatcher`` swap."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.ml_util import resolve_weights
+    from sparkflow_tpu_torch.ops import attention_reference
+    from sparkflow_tpu_torch.serving import (InferenceEngine, WeightStore,
+                                             WeightWatcher)
+    from sparkflow_tpu_torch.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(input_name=PREDICT_IN, output_name="probs:0",
+              max_batch=PREDICT_MAX_BATCH)
+    arms, launches, eng_a = {}, {}, None
+    for tag, name, extra in PREDICT_ARMS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = InferenceEngine(spec, weights, **kw, **extra)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        (rows, served), burst = _predict_burst(eng, seed=ord(tag))
+        launches[tag] = burst["launches"]["flash_fwd"]
+        buckets = {b: _bucket_ms(eng, b) for b in (1, 8, PREDICT_MAX_BATCH)}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _bucket_profile(eng)
+        errs = _predict_checks(tag, eng, spec, weights, kw, extra, rows,
+                               served)
+        summary = {"arm": tag, "serving": name, "engine_build_s": build_s,
+                   **burst, "bucket_ms": buckets, "peak_mem_gb": peak,
+                   **errs, "tol": PREDICT_TOL[tag],
+                   "bucket32_profile": prof, "stats": eng.stats(),
+                   "card": card}
+        log("[predict] " + json.dumps(summary))
+        arms[tag] = summary
+        if tag == "a":
+            eng_a = eng
+        else:
+            del eng
+    torch.cuda.empty_cache()
+
+    # arm (a) against a forward through the plain attention, TF32 off
+    rows = _predict_rows(8, 5)
+    got = eng_a.predict(rows)
+    feeds = {"input_ids": torch.tensor(rows[0], device="cuda"),
+             "attention_mask": torch.tensor(rows[1], device="cuda")}
+    with torch.inference_mode():
+        ref = eng_a.model.apply(eng_a._snapshot_params(), feeds,
+                                ["probs", "logits"],
+                                attention=attention_reference)
+        mine = eng_a.model.apply(eng_a._snapshot_params(), feeds,
+                                 ["logits"])["logits"]
+    p_err = float(np.abs(got - ref["probs"].cpu().numpy()).max())
+    top = max(1.0, float(ref["logits"].abs().max()))
+    l_err = float((mine - ref["logits"]).abs().max())
+    if not (p_err < EST_PROBS_TOL and l_err < EST_PROBS_TOL * top):
+        raise AssertionError(f"arm (a) vs plain attention: probs {p_err}, "
+                             f"logits {l_err} (tol {EST_PROBS_TOL} x {top})")
+    log(f"[predict] arm (a) vs plain attention (8 rows, float32, TF32 off): "
+        f"probs max |d| {p_err:.3g}, logits max |d| {l_err:.3g} (tol "
+        f"{EST_PROBS_TOL} x max(1, max |logit|)) [{card}]")
+
+    # live publication: a port Trainer publishes, the watcher swaps arm (a)
+    store = WeightStore(os.path.join(work, "store"))
+    w = resolve_weights(weights)
+    specs = eng_a.model.param_specs()
+    it = iter(w)
+    init = {ln: {pn: next(it) for pn in ps} for ln, ps in specs.items()}
+    ids, mask = _predict_rows(2 * EST_BATCH, 11)
+    labels = np.eye(2, dtype=np.float32)[np.random.RandomState(12).randint(
+        0, 2, 2 * EST_BATCH)]
+    tr = Trainer(spec, ["input_ids", "attention_mask"], "y",
+                 optimizer="adam", learning_rate=3e-4, iters=1,
+                 mini_batch_size=EST_BATCH, shuffle_per_iter=False,
+                 publish_to=store)
+    t0 = time.perf_counter()
+    res = tr.fit((ids.astype(np.float32), mask), labels, init_params=init)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if store.all_versions() != [1] or not all(
+            math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"published {store.all_versions()}, losses "
+                             f"{res.losses}")
+    del tr, res
+    before = eng_a.predict(rows)
+    watcher = WeightWatcher(store, [eng_a])
+    if not watcher.poll_once() or eng_a.serving_version() != 1:
+        raise AssertionError(f"watcher did not swap: {watcher.stats()}")
+    version, tree = store.load(like=eng_a.weights_template())
+    fresh = InferenceEngine(spec, tree, **kw)
+    after, want = eng_a.predict(rows), fresh.predict(rows)
+    if not np.array_equal(after, want):
+        raise AssertionError(f"swapped engine vs fresh engine on version "
+                             f"{version}: max |d| "
+                             f"{np.abs(after - want).max()}")
+    moved = float(np.abs(after - before).max())
+    log("[predict-publish] " + json.dumps(
+        {"trainer_steps": 2, "train_s": train_s,
+         "versions": store.all_versions(), "served_version":
+         eng_a.serving_version(), "watcher": watcher.stats(),
+         "probs_moved_by_swap": moved,
+         "swapped_equals_fresh_engine": True, "card": card}))
+    del eng_a, fresh
+    torch.cuda.empty_cache()
+    row = _predict_flash_row(card)
+    return {"launches": launches, "bf16_B32_S512": {
+        **_pick(row), "max_abs_err": row["max_abs_err"],
+        "tflops": row["tflops"], "bound_share": row["bound_share"]}}
 
 
 def main() -> int:
@@ -1873,6 +2277,8 @@ def main() -> int:
     card = card_line()
     log(f"[setup] {card}")
     t0 = time.perf_counter()
+    # phase 12's fitted weights and phase 13's weight store
+    work = tempfile.mkdtemp(prefix="chip-smoke-")
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -1893,10 +2299,14 @@ def main() -> int:
         timed("spec-exactness", phase_spec_exactness, card)
         train_launches = timed("training", phase_training, card)
         timed("train-exactness", phase_train_exactness, card)
-        est_rows = timed("estimator", phase_estimator, card)
+        (spec, weights), est_rows = timed("estimator", phase_estimator,
+                                          card, work)
+        predict = timed("predict", phase_predict, card, spec, weights, work)
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     src = "sparkflow_tpu_torch/ops/csrc/"
     ref = "sparkflow_tpu/ops/attention.py:"
@@ -1913,7 +2323,10 @@ def main() -> int:
                                        spec_b["flash_fwd"]]},
          # the estimator phase: BERT-base fit (launches) and transform,
          # times at its shape (float32, B=32, S=512, padded keys)
-         "estimator": est_rows["flash_fwd"]},
+         "estimator": est_rows["flash_fwd"],
+         # the predict phase: launches per arm (a) float32, (b) bf16,
+         # (c) weight_only, (d) dynamic; times at its largest bucket, bf16
+         "predict": predict},
         {"name": "paged_attention", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "734",
          "launches": launches["paged_attention"], **paged_row,

@@ -8,7 +8,7 @@ no transposes. Arrays cross as numpy: this module never imports JAX.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,3 +62,99 @@ def list_to_params(model, weights: Sequence[Any], *, device=None,
     """Inverse of :func:`params_to_list` (same as :func:`params_from_jax`
     on a list)."""
     return params_from_jax(model, list(weights), device=device, dtype=dtype)
+
+
+def params_tree(model, params, device) -> Params:
+    """Any accepted params form — the port's tree of tensors, a tree of
+    numpy arrays (JAX params), or the flat weight list — as the port's tree
+    on ``device``, shapes checked against ``model.param_specs()``; ``None``
+    is the model's own parameters."""
+    if params is None:
+        return model.params()
+    if isinstance(params, (list, tuple)) or any(
+            not isinstance(t, torch.Tensor)
+            for layer in params.values() for t in layer.values()):
+        return params_from_jax(model, params, device=device)
+    specs = model.param_specs()
+    if set(specs) != set(params):
+        raise ValueError("params tree does not match the model's "
+                         "param_specs() layers")
+    out = {}
+    for ln, ps in specs.items():
+        if set(ps) != set(params[ln]):
+            raise ValueError(f"params[{ln!r}] does not match the model's "
+                             f"param_specs()")
+        layer = {}
+        for pn, (shape, _init) in ps.items():
+            t = params[ln][pn]
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{ln}/{pn} has shape {tuple(t.shape)}, "
+                                 f"expected {tuple(shape)}")
+            layer[pn] = t.to(device)
+        out[ln] = layer
+    return out
+
+
+def shape_template(tree: Params) -> Params:
+    """The shape/dtype template of a tree: the same structure with
+    ``meta``-device tensors (no storage) for leaves — the port's
+    ``jax.ShapeDtypeStruct`` tree, what an engine's hot swap checks a new
+    tree against and a ``WeightStore`` load pins shapes to."""
+    return {ln: {pn: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                 for pn, t in layer.items()} for ln, layer in tree.items()}
+
+
+def check_template(tree: Params, template: Params) -> None:
+    """Raise ``ValueError`` unless ``tree`` matches ``template`` leaf for
+    leaf in shape and dtype (a hot swap keeps every shape)."""
+    for ln, layer in template.items():
+        for pn, want in layer.items():
+            t = tree[ln][pn]
+            if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
+                raise ValueError(
+                    f"swapped params {ln}/{pn} is {tuple(t.shape)}/{t.dtype}"
+                    f", expected {tuple(want.shape)}/{want.dtype}: hot swap "
+                    f"requires unchanged shapes")
+
+
+def sorted_leaves(tree) -> List[Tuple[Tuple[Any, ...], Any]]:
+    """``(path, leaf)`` pairs of a nested tree in ``jax.tree.leaves`` order:
+    dict keys sorted (so ``block_10`` comes before ``block_2``), lists and
+    tuples in order, ``None`` an empty subtree; anything else is a leaf.
+    This is the leaf order of the JAX package's on-disk trees (the
+    ``WeightStore``'s ``l_{i}``, an npz checkpoint's ``state.npz``), which
+    neither ``param_specs()`` order nor insertion order follows."""
+    out: List[Tuple[Tuple[Any, ...], Any]] = []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (i,))
+        else:
+            out.append((path, node))
+
+    walk(tree, ())
+    return out
+
+
+def unflatten_sorted(like, leaves: Sequence[Any]):
+    """Inverse of :func:`sorted_leaves`: ``leaves`` placed into the structure
+    of ``like`` (dicts keep ``like``'s keys, lists and tuples their type)."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(like)

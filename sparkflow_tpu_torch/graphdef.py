@@ -258,14 +258,17 @@ _DTYPES = {"float32": torch.float32, "float": torch.float32,
 class _EvalCtx:
     """Per-apply context threaded through op evaluation."""
 
-    __slots__ = ("feeds", "train", "generator", "compute_dtype", "device")
+    __slots__ = ("feeds", "train", "generator", "compute_dtype", "device",
+                 "quant_mode")
 
-    def __init__(self, feeds, train, generator, compute_dtype, device):
+    def __init__(self, feeds, train, generator, compute_dtype, device,
+                 quant_mode=None):
         self.feeds = feeds
         self.train = train
         self.generator = generator
         self.compute_dtype = compute_dtype
         self.device = device
+        self.quant_mode = quant_mode
 
 
 def _cast(x, dtype):
@@ -306,6 +309,11 @@ def _params_dense(node, ins):
 
 def _eval_dense(node, ins, ctx, p):
     x = _cast(ins[0], ctx.compute_dtype)
+    if "kernel_q8" in p:  # int8-quantized serving tree (utils/quant.py)
+        from .utils.quant import quantized_dense
+        return _cast(quantized_dense(x, p, ctx.quant_mode or "weight_only",
+                                     compute_dtype=ctx.compute_dtype),
+                     ctx.compute_dtype)
     y = torch.matmul(x, _cast(p["kernel"], ctx.compute_dtype))
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
@@ -399,7 +407,12 @@ class _Conv2d(torch.autograd.Function):
 
 def _eval_conv2d(node, ins, ctx, p):
     x = _cast(ins[0], ctx.compute_dtype)
-    k = _cast(p["kernel"], ctx.compute_dtype)
+    if "kernel_q8" in p:  # conv always serves weight-only (utils/quant.py)
+        from .utils.quant import dequantize_tensor
+        k = _cast(dequantize_tensor(p["kernel_q8"], p["kernel_scale"]),
+                  ctx.compute_dtype)
+    else:
+        k = _cast(p["kernel"], ctx.compute_dtype)
     kh, kw = _pair(node.attrs["kernel_size"])
     sh, sw = _pair(node.attrs.get("strides", 1))
     pad = node.attrs.get("padding", "VALID").upper()
@@ -715,6 +728,11 @@ class GraphModel:
         self.graphdef = graphdef
         self.compute_dtype = as_dtype(compute_dtype)
         self.device = resolve_device(device)
+        # int8 serving (utils/quant.py): apply() consumes quantized trees
+        # when present; 'dynamic' additionally routes dense matmuls through
+        # int8 x int8 -> int32. Set by utils.quant.quantize_for_serving()
+        # or directly.
+        self.quant_mode: Optional[str] = None
         self._shapes: Dict[int, Shape] = {}
         self._tree: Optional[Params] = None
         self._infer_shapes()
@@ -808,7 +826,7 @@ class GraphModel:
         target_ids = [o if isinstance(o, int) else self.graphdef.resolve(o)
                       for o in outputs]
         ctx = _EvalCtx(norm_feeds, train, generator, self.compute_dtype,
-                       self.device)
+                       self.device, self.quant_mode)
         values: Dict[int, Any] = {}
         for node in self._needed(target_ids):
             od = OPS[node.op]

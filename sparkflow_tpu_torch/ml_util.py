@@ -8,16 +8,19 @@ marshalling — the port of the JAX package's ``ml_util.py``.
 - :func:`predict_func` rebuilds the model from its spec JSON on the stage's
   device (the CUDA card unless ``device="cpu"``), runs the named output
   tensor in fixed-size chunks and appends the prediction column (a float
-  for scalar outputs, ``Vectors.dense`` otherwise).
+  for scalar outputs, ``Vectors.dense`` otherwise). ``quantize`` serves
+  int8 weights (``"weight_only"`` / ``"dynamic"``, ``utils/quant.py``),
+  quantized once per weights identity and cached.
 
-int8 serving (``quantize``) and serving over a device mesh (``mesh_axes``)
-are not yet ported and raise (see ROADMAP.md).
+Serving over a device mesh (``mesh_axes``) is not yet ported and raises
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 from collections import OrderedDict
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
@@ -89,17 +92,22 @@ _PREDICT_CACHE_MAX = 32
 
 def _cached_predict_fn(graph_json: str, tf_output: str, tf_input,
                        tf_dropout: Optional[str], dropout_value: float,
-                       device=None):
+                       quantize: Optional[str] = None, device=None):
     """Cache (model, predict_fn) across partitions: the model is rebuilt
-    from its spec once per (spec, output, inputs, dropout feed, device)."""
+    from its spec once per (spec, output, inputs, dropout feed, quantize
+    mode, device). ``quantize`` keys separately: the model's
+    ``quant_mode`` picks its matmul path."""
     dev = resolve_device(device)
     digest = hashlib.sha256(graph_json.encode()).hexdigest()
     in_key = (tuple(tf_input) if isinstance(tf_input, (list, tuple))
               else tf_input)
-    key = (digest, tf_output, in_key, tf_dropout, dropout_value, str(dev))
+    key = (digest, tf_output, in_key, tf_dropout, dropout_value, quantize,
+           str(dev))
     if key not in _PREDICT_CACHE:
         from .models import model_from_json
         model = model_from_json(graph_json, device=dev)
+        if quantize:
+            model.quant_mode = quantize
         fn = make_predict_fn(model, tf_input, tf_output, tf_dropout,
                              dropout_value)
         _PREDICT_CACHE[key] = (model, fn)
@@ -108,6 +116,59 @@ def _cached_predict_fn(graph_json: str, tf_output: str, tf_input,
     else:
         _PREDICT_CACHE.move_to_end(key)
     return _PREDICT_CACHE[key]
+
+
+# quantized weight trees, keyed on the weights identity: quantizing the
+# full tree per partition would undo the amortization _PREDICT_CACHE exists
+# for
+_QUANT_CACHE: "OrderedDict[str, Any]" = OrderedDict()
+_QUANT_CACHE_MAX = 8
+
+
+def _check_quantize(quantize: str) -> None:
+    from .utils.quant import MODES
+    if quantize not in MODES:
+        # predict_func is a documented serving API of its own: a typo'd
+        # mode must not silently serve a different path
+        raise ValueError(f"quantize must be one of {MODES}, got {quantize!r}")
+
+
+def _cached_quantized_params(model, graph_weights: str, quantize: str):
+    from .graphdef import GraphModel
+    from .utils.quant import quantize_params
+
+    _check_quantize(quantize)
+    supports = (isinstance(model, GraphModel)
+                or getattr(model, "SUPPORTS_INT8_SERVING", False))
+    if not supports:
+        raise ValueError(
+            f"int8 serving (inferenceQuantize) supports graphdef models (the "
+            f"nn DSL / build_graph), TF1 metagraphs, and the transformer "
+            f"family; got {type(model).__name__} — serve this model without "
+            f"quantization")
+    # the tree is mode-agnostic (quant.py) but its leaf naming is the
+    # MODEL's, so the key pairs the model's param-tree naming with the
+    # weights identity (and the device the tree lives on). npz side files
+    # key on (path, mtime, size): the string digest would serve stale
+    # weights after a refit overwrites the same path
+    naming = hashlib.sha256(repr(
+        [(scope, sorted(leaves)) for scope, leaves in
+         model.param_specs().items()]).encode()).hexdigest()[:16]
+    if graph_weights.startswith("npz:"):
+        st = os.stat(graph_weights[4:])
+        key = f"{naming}:{graph_weights}:{st.st_mtime_ns}:{st.st_size}"
+    else:
+        key = (naming + ":"
+               + hashlib.sha256(graph_weights.encode()).hexdigest())
+    key += f":{model.device}"
+    if key not in _QUANT_CACHE:
+        params = list_to_params(model, resolve_weights(graph_weights))
+        _QUANT_CACHE[key] = quantize_params(params)
+        while len(_QUANT_CACHE) > _QUANT_CACHE_MAX:
+            _QUANT_CACHE.popitem(last=False)
+    else:
+        _QUANT_CACHE.move_to_end(key)
+    return _QUANT_CACHE[key]
 
 
 def predict_func(rows: Iterable, graph_json: str, prediction: str,
@@ -121,9 +182,11 @@ def predict_func(rows: Iterable, graph_json: str, prediction: str,
     """Per-partition inference (the JAX package's signature and meaning;
     ``activation`` is the output tensor name). ``extra_cols`` /
     ``extra_inputs`` feed more columns to more tensors (e.g. an attention
-    mask). ``device`` is the card unless ``"cpu"`` is asked for."""
+    mask). ``quantize`` serves int8 weights ('weight_only' or 'dynamic',
+    ``utils/quant.py``). ``device`` is the card unless ``"cpu"`` is asked
+    for."""
     if quantize:
-        _not_yet("int8 serving (inferenceQuantize)")
+        _check_quantize(quantize)
     if mesh_axes:
         _not_yet("serving over a device mesh (meshShape)")
     if bool(extra_cols) != bool(extra_inputs) or (
@@ -135,8 +198,11 @@ def predict_func(rows: Iterable, graph_json: str, prediction: str,
     dropout_v = 1.0 if (tf_dropout is not None and to_keep_dropout) else 0.0
     names = [tf_input] + list(extra_inputs) if extra_cols else tf_input
     model, fn = _cached_predict_fn(graph_json, activation, names,
-                                   tf_dropout, dropout_v, device)
-    params = list_to_params(model, resolve_weights(graph_weights))
+                                   tf_dropout, dropout_v, quantize, device)
+    if quantize:
+        params = _cached_quantized_params(model, graph_weights, quantize)
+    else:
+        params = list_to_params(model, resolve_weights(graph_weights))
     cols = [inp] + list(extra_cols) if extra_cols else [inp]
     stacked = tuple(
         np.stack([vector_to_array(rd[c]) for rd in row_dicts]).astype(np.float32)

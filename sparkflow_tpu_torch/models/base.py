@@ -34,10 +34,18 @@ class RegistryModel(nn.Module):
 
     TENSORS: Sequence[str] = ()
 
+    # model families whose forwards consume int8-quantized trees set this
+    # True (the transformer family); serving refuses quantized trees
+    # otherwise instead of silently computing float32
+    SUPPORTS_INT8_SERVING = False
+
     def __init__(self, compute_dtype: Optional[Any] = None, device=None):
         super().__init__()
         self.compute_dtype = as_dtype(compute_dtype)
         self.device = resolve_device(device)
+        # 'weight_only' | 'dynamic' when serving a tree from
+        # utils.quant.quantize_params (the mode picks the matmul path)
+        self.quant_mode: Optional[str] = None
         self._tree: Optional[Params] = None
 
     # -- parameters ----------------------------------------------------------

@@ -9,6 +9,10 @@ Same architecture, parameter names and layouts (``qkv_kernel [h, 3h]``,
 - layer norm computes in float32 with eps 1e-6 (not ``nn.LayerNorm``'s 1e-5);
 - a dense layer casts its kernel to the activation's dtype (bf16 on the card
   with ``compute_dtype=bfloat16``), parameters themselves stay float32;
+  every projection goes through ``_proj``, which also serves an
+  int8-quantized tree (``*_kernel_q8`` + ``*_kernel_scale``,
+  :func:`~sparkflow_tpu_torch.utils.quant.quantize_params`) in the model's
+  ``quant_mode`` and casts the result back to the activation's dtype;
 - GELU is the tanh approximation (``jax.nn.gelu``'s default);
 - the tied-embedding head and the classifier head run in float32;
 - positions are clipped to ``max_len - 1``;
@@ -98,6 +102,10 @@ class _TransformerBase(RegistryModel):
 
     # -- specs ---------------------------------------------------------------
 
+    def input_specs(self):
+        return {"input_ids": ((None, self.max_len), "int32"),
+                "attention_mask": ((None, self.max_len), "float32")}
+
     def _block_specs(self):
         h, m = self.hidden, self.mlp_dim
         return {
@@ -130,6 +138,20 @@ class _TransformerBase(RegistryModel):
         if ep_axis is not None:
             _not_yet("expert parallelism (ep_axis)")
 
+    SUPPORTS_INT8_SERVING = True
+
+    def _proj(self, p, base: str, x):
+        """Dense projection through ``p[f'{base}kernel']``, or through its
+        int8-quantized form (``{base}kernel_q8``) when the serving tree came
+        from ``quantize_params``. The result is cast back to ``x``'s dtype:
+        the dynamic path rescales in float32, and without the cast a bf16
+        model's residual stream would promote to float32."""
+        if f"{base}kernel_q8" in p:
+            return quant.quantized_dense(
+                x, p, self.quant_mode or "weight_only", compute_dtype=x.dtype,
+                prefix=f"{base}kernel").to(x.dtype)
+        return _dense(x, p[f"{base}kernel"], p.get(f"{base}bias"))
+
     def _dropout(self, x, train: bool, generator: Optional[torch.Generator]):
         if not train or self.dropout <= 0.0:
             return x
@@ -142,7 +164,7 @@ class _TransformerBase(RegistryModel):
         [B,heads,S,d] of ONE [3,B,heads,S,d] permutation (no copies)."""
         b, s, _ = x.shape
         y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
-        qkv = _dense(y, bp["qkv_kernel"], bp["qkv_bias"])
+        qkv = self._proj(bp, "qkv_", y)
         qkv = qkv.view(b, s, 3, self.num_heads, self.head_dim)
         qkv = qkv.permute(2, 0, 3, 1, 4)
         return qkv[0], qkv[1], qkv[2]
@@ -151,11 +173,11 @@ class _TransformerBase(RegistryModel):
                       generator: Optional[torch.Generator] = None):
         """O-projection + residual + MLP on ``att`` [B,S,heads*d], with
         dropout after the O projection and after fc2 when training."""
-        x = x + self._dropout(_dense(att, bp["o_kernel"], bp["o_bias"]),
+        x = x + self._dropout(self._proj(bp, "o_", att),
                               train, generator)
         y = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-        y = _gelu(_dense(y, bp["fc1_kernel"], bp["fc1_bias"]))
-        return x + self._dropout(_dense(y, bp["fc2_kernel"], bp["fc2_bias"]),
+        y = _gelu(self._proj(bp, "fc1_", y))
+        return x + self._dropout(self._proj(bp, "fc2_", y),
                                  train, generator)
 
     def _block(self, bp, x, mask, causal, attention=None, train: bool = False,
@@ -173,7 +195,7 @@ class _TransformerBase(RegistryModel):
         the cached history is ``attend``'s (see :meth:`decode_step`)."""
         b = x.shape[0]
         y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
-        qkv = _dense(y, bp["qkv_kernel"], bp["qkv_bias"])
+        qkv = self._proj(bp, "qkv_", y)
         qkv = qkv.view(b, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]           # [B, heads, d]
         att, cache = attend(layer, q, k, v, cache, pos)
@@ -255,6 +277,11 @@ class TransformerClassifier(_TransformerBase):
         super().__init__(vocab_size, **kw)
         self.num_classes = int(num_classes)
 
+    def input_specs(self):
+        specs = super().input_specs()
+        specs["y"] = ((None, self.num_classes), "float32")
+        return specs
+
     def param_specs(self):
         specs = super().param_specs()
         specs["head"] = {"kernel": ((self.hidden, self.num_classes),
@@ -272,8 +299,7 @@ class TransformerClassifier(_TransformerBase):
             pooled = (x * w).sum(1) / w.sum(1).clamp_min(1e-6)
         else:
             pooled = x.mean(1)
-        logits = _dense(pooled.float(), params["head"]["kernel"],
-                        params["head"]["bias"])
+        logits = self._proj(params["head"], "", pooled.float())
         return {"logits": logits, "probs": torch.softmax(logits, -1),
                 "pred": logits.argmax(-1).float()}
 

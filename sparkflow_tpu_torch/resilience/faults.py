@@ -22,8 +22,9 @@ Two complementary mechanisms:
    hooks that blow up (or deliver a real SIGTERM) at a chosen epoch exactly
    once, and :func:`corrupt_file` / :func:`truncate_file` tear files on disk
    (byte flips, truncation) so fallback paths are exercised against genuine
-   corruption. The checkpoint- and weight-store-aware corruptors of the JAX
-   package wait for those stores to be ported.
+   corruption; :func:`corrupt_latest_checkpoint` /
+   :func:`corrupt_latest_weights` aim them at the newest checkpoint step or
+   published weight version.
 
 Everything is seeded/counted — the same test run injects the same faults.
 """
@@ -39,7 +40,8 @@ from contextlib import contextmanager
 from typing import Dict, Iterable, Optional, Tuple
 
 __all__ = ["InjectedFault", "inject", "fire", "crash_at", "sigterm_at",
-           "corrupt_file", "truncate_file"]
+           "corrupt_file", "truncate_file", "corrupt_latest_checkpoint",
+           "corrupt_latest_weights"]
 
 
 class InjectedFault(Exception):
@@ -192,3 +194,81 @@ def truncate_file(path: str, keep_bytes: int = 0) -> None:
     """Truncate ``path`` to ``keep_bytes`` (a torn write)."""
     with open(path, "r+b") as f:
         f.truncate(keep_bytes)
+
+
+def corrupt_latest_checkpoint(directory: str, mode: str = "flip",
+                              seed: int = 0) -> Tuple[int, str]:
+    """Corrupt the newest checkpoint under a
+    :class:`~sparkflow_tpu_torch.checkpoint.CheckpointManager` directory the way a
+    crash or bit-rot would, returning ``(step, damaged_path)``.
+
+    Modes: ``'flip'`` / ``'truncate'`` damage the largest data file of the
+    step (manifest checksum then catches it); ``'manifest'`` garbles the
+    step's manifest.json; ``'latest_json'`` garbles the ``latest.json``
+    pointer (``latest_step`` must fall back to scanning).
+    """
+    from ..checkpoint import MANIFEST_NAME, CheckpointManager
+    mgr = CheckpointManager(directory)
+    if mode == "latest_json":
+        p = os.path.join(mgr.directory, "latest.json")
+        with open(p, "w") as f:
+            f.write('{"latest_step": 9')  # torn mid-write
+        steps = mgr.all_steps()
+        return (steps[-1] if steps else -1), p
+    steps = mgr.all_steps()
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    step = steps[-1]
+    step_dir = mgr._step_dir(step)
+    if mode == "manifest":
+        p = os.path.join(step_dir, MANIFEST_NAME)
+        corrupt_file(p, "truncate", seed=seed)
+        return step, p
+    candidates = []
+    for root, _dirs, names in os.walk(step_dir):
+        for nm in names:
+            if nm == MANIFEST_NAME:
+                continue
+            full = os.path.join(root, nm)
+            candidates.append((os.path.getsize(full), full))
+    if not candidates:
+        raise FileNotFoundError(f"checkpoint step {step} has no data files")
+    # the largest file holds the arrays — damaging it is the realistic tear
+    _size, target = max(candidates, key=lambda t: (t[0], t[1]))
+    corrupt_file(target, mode, seed=seed)
+    return step, target
+
+
+def corrupt_latest_weights(directory: str, mode: str = "flip",
+                           seed: int = 0) -> Tuple[int, str]:
+    """Corrupt the newest published version under a
+    :class:`~sparkflow_tpu_torch.serving.weightstore.WeightStore` directory the
+    way a crash or bit-rot would, returning ``(version, damaged_path)`` —
+    the weight-publication mirror of :func:`corrupt_latest_checkpoint`.
+
+    Modes: ``'flip'`` / ``'truncate'`` damage the version's weight file
+    (the manifest checksum then catches it); ``'manifest'`` garbles the
+    version's manifest.json; ``'latest_json'`` garbles the ``latest.json``
+    pointer (``latest_version`` must fall back to scanning).
+    """
+    from ..serving.weightstore import (MANIFEST_NAME, WEIGHTS_NAME,
+                                       WeightStore)
+    store = WeightStore(directory)
+    if mode == "latest_json":
+        p = os.path.join(store.directory, "latest.json")
+        with open(p, "w") as f:
+            f.write('{"latest_version": 9')  # torn mid-write
+        vs = store.all_versions()
+        return (vs[-1] if vs else -1), p
+    vs = store.all_versions()
+    if not vs:
+        raise FileNotFoundError(f"no published weights under {directory}")
+    version = vs[-1]
+    vdir = store._version_dir(version)
+    if mode == "manifest":
+        p = os.path.join(vdir, MANIFEST_NAME)
+        corrupt_file(p, "truncate", seed=seed)
+        return version, p
+    target = os.path.join(vdir, WEIGHTS_NAME)
+    corrupt_file(target, mode, seed=seed)
+    return version, target

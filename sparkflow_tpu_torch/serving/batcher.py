@@ -58,8 +58,8 @@ class _Pending:
 
 
 class MicroBatcher:
-    """Thread-safe request coalescer in front of a predict engine (the
-    JAX package's ``InferenceEngine``, not ported yet).
+    """Thread-safe request coalescer in front of a predict engine
+    (:class:`~sparkflow_tpu_torch.serving.engine.InferenceEngine`).
 
     Parameters
     ----------

@@ -74,7 +74,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..convert import params_from_jax
+from ..convert import check_template, params_tree, shape_template
 from ..obs.spans import span as obs_span
 from ..ops import paged_attention, paged_attention_verify
 from ..resilience import faults
@@ -101,35 +101,6 @@ def _prefill_ladder(page_size: int, max_prompt: int) -> List[int]:
 def _not_yet(option: str):
     raise ValueError(f"DecodeEngine option {option} is not yet ported to "
                      f"PyTorch (see ROADMAP.md)")
-
-
-def _as_tree(model, params, device):
-    """Any accepted params form -> the port's tree on ``device``, shapes
-    checked against ``model.param_specs()``."""
-    if params is None:
-        return model.params()
-    if isinstance(params, (list, tuple)) or any(
-            not isinstance(t, torch.Tensor)
-            for layer in params.values() for t in layer.values()):
-        return params_from_jax(model, params, device=device)
-    specs = model.param_specs()
-    if set(specs) != set(params):
-        raise ValueError("params tree does not match the model's "
-                         "param_specs() layers")
-    out = {}
-    for ln, ps in specs.items():
-        if set(ps) != set(params[ln]):
-            raise ValueError(f"params[{ln!r}] does not match the model's "
-                             f"param_specs()")
-        layer = {}
-        for pn, (shape, _init) in ps.items():
-            t = params[ln][pn]
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"{ln}/{pn} has shape {tuple(t.shape)}, "
-                                 f"expected {tuple(shape)}")
-            layer[pn] = t.to(device)
-        out[ln] = layer
-    return out
 
 
 class DecodeEngine:
@@ -251,10 +222,8 @@ class DecodeEngine:
         self._chunk_width = self.prefill_chunk or self.page_size
         self._init_spec(spec_k, draft_layers, draft_model, draft_params)
 
-        tree = _as_tree(model, params, self.device)
-        self._weights_template = {
-            ln: {pn: (tuple(t.shape), t.dtype) for pn, t in layer.items()}
-            for ln, layer in tree.items()}
+        tree = params_tree(model, params, self.device)
+        self._weights_template = shape_template(tree)
         self._params = tree
         pool_shape = (model.num_layers, num_pages, self.page_size, heads, hd)
         with torch.inference_mode():
@@ -347,7 +316,7 @@ class DecodeEngine:
             raise ValueError(f"draft_model is on {draft_model.device}, the "
                              f"engine on {self.device}")
         self._draft_model = draft_model
-        self._draft_params = _as_tree(draft_model, draft_params, self.device)
+        self._draft_params = params_tree(draft_model, draft_params, self.device)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
@@ -1052,8 +1021,8 @@ class DecodeEngine:
     # -- live weight hot-swap ------------------------------------------------
 
     def weights_template(self):
-        """``{layer: {name: (shape, dtype)}}`` of the ctor params — what a
-        swapped tree must match leaf for leaf."""
+        """``{layer: {name: meta tensor}}`` of the ctor params (shape and
+        dtype, no storage) — what a swapped tree must match leaf for leaf."""
         return self._weights_template
 
     def swap_params(self, params, *, version: Optional[int] = None) -> bool:
@@ -1064,15 +1033,8 @@ class DecodeEngine:
         versions; ``can_admit`` holds new admissions meanwhile. Returns True
         if the swap applied immediately (engine idle)."""
         faults.fire("engine.swap")  # chaos hook; no-op unless armed
-        tree = _as_tree(self.model, params, self.device)
-        for ln, layer in self._weights_template.items():
-            for pn, (shape, dtype) in layer.items():
-                t = tree[ln][pn]
-                if tuple(t.shape) != shape or t.dtype != dtype:
-                    raise ValueError(
-                        f"swapped params {ln}/{pn} is {tuple(t.shape)}/"
-                        f"{t.dtype}, expected {shape}/{dtype}: hot swap "
-                        f"requires unchanged shapes")
+        tree = params_tree(self.model, params, self.device)
+        check_template(tree, self._weights_template)
         with self._lock:
             v = (int(version) if version is not None
                  else self._serving_version + 1)

@@ -1,0 +1,420 @@
+"""Online-inference engine: a bucket ladder of padded batch sizes — the port
+of the JAX package's ``serving/engine.py`` ``InferenceEngine`` for one
+device.
+
+Requests pad with zero rows up to the nearest bucket of a ladder (1, 2, 4,
+... ``max_batch``) and trim on return; requests beyond ``max_batch`` run in
+``max_batch`` chunks. Rows are independent through every model of the
+package, so padded rows cannot perturb real rows' outputs. On the card a
+``transformer_classifier``'s forward runs the CUDA ``flash_fwd`` kernel, in
+3xTF32 for float32 and on the bf16 tensor cores with
+``compute_dtype="bfloat16"``.
+
+Quantized serving reuses :mod:`sparkflow_tpu_torch.utils.quant`: the
+engine quantizes the full-precision tree once at load (and on every hot
+swap), and ``weight_only`` and ``dynamic`` serve through the same ladder.
+
+What changes: PyTorch runs eagerly, so there is no ``jit``, no AOT
+executable and no trace. :meth:`warmup` runs every bucket once on the
+device instead — the kernels' build at first use, cuBLAS's set-up and the
+allocator's pools — and counts those runs in ``aot_compiles``; a bucket
+first run outside warmup is counted in ``fallback_compiles``, so the
+steady-state contract ("no first-time work after warmup") reads the same.
+``stats()`` keeps every key of the JAX engine's; those with no counterpart
+read as the JAX engine reports them with the feature off: ``traces`` and
+``steady_traces`` 0 (nothing is traced), ``compile_cache`` and
+``cold_start`` None, ``mesh`` None, ``tp`` / ``ep`` 1, and ``sharding``
+the JAX default config's description.
+
+Not yet ported, refused with a ``ValueError`` naming ROADMAP.md: ``mesh`` /
+``sharding`` (model-parallel and data-parallel serving, queue 1 item 7),
+and ``executable_dir`` / ``compile_cache_dir`` (queue 1 item 4): a
+``jax.export`` executable and XLA's compilation cache have no torch
+counterpart, and the port keeps its built kernel library in
+``ops/_build/``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..convert import check_template, list_to_params, params_tree, \
+    shape_template
+from ..core import _to_numpy
+from ..obs.spans import span as obs_span
+from ..resilience import faults
+from ..utils import metrics as metrics_mod
+
+__all__ = ["InferenceEngine"]
+
+# what the JAX engine's stats()["sharding"] reads with no sharding config
+_DEFAULT_SHARDING = {"data_axis": "dp", "dcn_axis": None, "zero_stage": 0,
+                     "param_axes": "auto", "offload_opt_state": False,
+                     "tp_axis": None, "ep_axis": None, "pp_axis": None}
+
+
+def _bucket_ladder(max_batch: int) -> List[int]:
+    """1, 2, 4, ... up to max_batch (max_batch itself always included, so a
+    non-power-of-two cap still has a full-size bucket)."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    buckets, b = [], 1
+    while b < max_batch:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_batch)
+    return buckets
+
+
+def _not_yet(option: str, why: str):
+    raise ValueError(f"InferenceEngine option {option} is not yet ported to "
+                     f"PyTorch ({why}; see ROADMAP.md)")
+
+
+class InferenceEngine:
+    """Low-latency predictions from a trained model over a bucket ladder.
+
+    Parameters
+    ----------
+    graph : str | model
+        Model spec JSON (``nn`` graph DSL or registry spec — anything
+        :func:`sparkflow_tpu_torch.models.model_from_json` loads), built on
+        ``device``, or an already constructed model (its own device).
+    weights : list of arrays | str | params tree
+        Flat weight list, the estimator's weights Param (inline JSON or
+        ``npz:<path>``), or a params tree (the port's tensors or numpy
+        arrays, the JAX package's layout).
+    input_name : str | sequence of str
+        Input tensor name(s); a sequence means requests carry a tuple of
+        arrays (multi-input models, e.g. ``input_ids:0`` +
+        ``attention_mask:0``).
+    output_name : str
+        Output tensor to serve.
+    dropout_name, dropout_value
+        A keep-probability placeholder to feed (graph-DSL models).
+    max_batch : int
+        Top of the bucket ladder; larger requests run in max_batch chunks.
+    quantize : None | 'weight_only' | 'dynamic'
+        int8 serving via ``utils.quant``. ``quant_min_size`` forwards to
+        :func:`~sparkflow_tpu_torch.utils.quant.quantize_params` (kernels
+        below it stay full precision).
+    compute_dtype
+        ``"bfloat16"`` runs a spec's matmuls and attention in bf16.
+    warmup : bool
+        Run every bucket once at construction (default); with
+        ``warmup=False`` each bucket's first request is counted in
+        ``stats()['fallback_compiles']``.
+    device
+        The CUDA card unless ``"cpu"`` is asked for; with no card it raises.
+    mesh, sharding, compile_cache_dir, executable_dir
+        Not yet ported (see the module docstring).
+    """
+
+    def __init__(self, graph, weights=None, *,
+                 input_name: Union[str, Sequence[str]] = "x:0",
+                 output_name: str = "out:0",
+                 dropout_name: Optional[str] = None,
+                 dropout_value: float = 1.0,
+                 max_batch: int = 64,
+                 mesh=None,
+                 sharding=None,
+                 quantize: Optional[str] = None,
+                 quant_min_size: int = 4096,
+                 compute_dtype=None,
+                 warmup: bool = True,
+                 compile_cache_dir: Optional[str] = None,
+                 executable_dir: Optional[str] = None,
+                 metrics: Optional[metrics_mod.Metrics] = None,
+                 device=None):
+        for name, value in (("mesh", mesh), ("sharding", sharding)):
+            if value is not None:
+                _not_yet(f"{name}={value!r}", "serving over a device mesh, "
+                         "queue 1 item 7")
+        for name, value in (("compile_cache_dir", compile_cache_dir),
+                            ("executable_dir", executable_dir)):
+            if value is not None:
+                _not_yet(f"{name}={value!r}",
+                         "a jax.export executable or XLA cache entry has no "
+                         "torch counterpart, and the built kernel library "
+                         "lives in ops/_build/; queue 1 item 4")
+        if isinstance(graph, str):
+            from ..models import model_from_json
+            self.model = model_from_json(graph, compute_dtype, device=device)
+        else:
+            self.model = graph
+        self.device = self.model.device
+        self.input_name = input_name
+        self.output_name = output_name
+        self.dropout_name = dropout_name
+        self.dropout_value = dropout_value
+        self.max_batch = int(max_batch)
+        self.quantize = quantize
+        self.metrics = metrics if metrics is not None else metrics_mod.Metrics()
+
+        self._multi = isinstance(input_name, (list, tuple))
+        names = list(input_name) if self._multi else [input_name]
+        self._in_keys = [n.split(":")[0] for n in names]
+        # validate names against the model's tensor table up front — a typo
+        # must fail at engine construction, not on the first live request
+        for n in names + [output_name]:
+            self.model.resolve(n)
+
+        params = self._load_params(weights)
+        # shape/dtype template of the ctor weights in STANDARD layout,
+        # captured before quantize: every hot swap validates against it
+        self._weights_template = shape_template(params)
+        self._quant_min_size = int(quant_min_size)
+        if quantize:
+            from ..utils.quant import MODES
+            if quantize not in MODES:
+                raise ValueError(f"quantize must be one of {MODES} (or None), "
+                                 f"got {quantize!r}")
+        self._params = self._place_params(params)
+
+        self._in_shapes, self._in_dtypes = self._input_layouts()
+        self.buckets = _bucket_ladder(self.max_batch)
+        self._warm: set = set()
+        self._compile_lock = threading.Lock()
+        self._stats_lock = threading.Lock()  # request counters + params ref
+        self.aot_compiles = 0
+        self.fallback_compiles = 0
+        self._requests = 0
+        self._rows = 0
+        self._serving_version = 0  # bumped by swap_params; 0 = ctor weights
+        self._swaps = 0
+        if warmup:
+            self.warmup()
+
+    # -- loading -------------------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, directory: str, graph, retry=None, **kwargs
+                        ) -> "InferenceEngine":
+        """Load from a :class:`~sparkflow_tpu_torch.checkpoint.
+        CheckpointManager` directory: its ``weights.npz`` export (the JAX
+        package's too) or its newest restorable npz checkpoint, whose
+        restore verifies manifest checksums and falls back past corrupt
+        steps. An orbax checkpoint is refused (the port reads npz only).
+        ``retry`` (a ``RetryPolicy``) governs transient read errors."""
+        from ..checkpoint import CheckpointManager
+        from ..models import model_from_json
+        model = (model_from_json(graph, kwargs.get("compute_dtype"),
+                                 device=kwargs.get("device"))
+                 if isinstance(graph, str) else graph)
+        weights = CheckpointManager.load_weights(directory, model,
+                                                 retry=retry)
+        return cls(model, weights, **kwargs)
+
+    def _load_params(self, weights):
+        if weights is None:
+            raise ValueError("weights are required (flat list, weights JSON, "
+                             "'npz:<path>', or a params pytree)")
+        if isinstance(weights, str):
+            from ..ml_util import resolve_weights
+            weights = resolve_weights(weights)
+        if isinstance(weights, (list, tuple)):
+            return list_to_params(self.model, list(weights),
+                                  device=self.device)
+        return params_tree(self.model, weights, self.device)
+
+    def _place_params(self, params):
+        """Quantize one standard-layout tree into this engine's serving
+        form. The ctor and every hot swap run exactly this path, so a
+        swapped tree lands bit-identical to a cold start."""
+        if self.quantize:
+            from ..utils.quant import quantize_for_serving
+            params = quantize_for_serving(self.model, params, self.quantize,
+                                          self._quant_min_size)
+        return params
+
+    def _snapshot_params(self):
+        with self._stats_lock:
+            return self._params
+
+    def _input_layouts(self) -> Tuple[List[Tuple[int, ...]], List[Any]]:
+        specs = self.model.input_specs()
+        shapes, dtypes = [], []
+        for key in self._in_keys:
+            if key not in specs:
+                raise KeyError(f"input {key!r} is not a model input; inputs: "
+                               f"{sorted(specs)}")
+            shape, dtype = specs[key]
+            if any(d is None for d in shape[1:]):
+                raise ValueError(
+                    f"input {key!r} has non-static feature dims {shape}; the "
+                    f"bucket ladder needs fully static row shapes")
+            shapes.append(tuple(int(d) for d in shape[1:]))
+            dtypes.append(np.dtype(dtype))
+        return shapes, dtypes
+
+    # -- the forward ---------------------------------------------------------
+
+    def _apply(self, params, xs: Tuple[np.ndarray, ...]) -> torch.Tensor:
+        """One bucket's forward on the device; ``xs`` padded numpy rows."""
+        feeds = {k: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                 for k, a in zip(self._in_keys, xs)}
+        if self.dropout_name:
+            feeds[self.dropout_name.split(":")[0]] = torch.tensor(
+                self.dropout_value, dtype=torch.float32, device=self.device)
+        with torch.inference_mode():
+            return self.model.apply(params, feeds, [self.output_name],
+                                    train=False)[self.output_name]
+
+    def warmup(self) -> None:
+        """Run every bucket once on the device (zeros rows). Idempotent;
+        after it returns, no request size meets first-time work."""
+        with self._compile_lock:
+            params = self._snapshot_params()
+            for b in self.buckets:
+                if b not in self._warm:
+                    xs = tuple(np.zeros((b,) + shape, dtype)
+                               for shape, dtype in zip(self._in_shapes,
+                                                       self._in_dtypes))
+                    _to_numpy(self._apply(params, xs))
+                    self._warm.add(b)
+                    self.aot_compiles += 1
+
+    def _first_use(self, bucket: int) -> None:
+        # lazy path (warmup=False) — counted so tests can assert the steady
+        # state meets no first-time work
+        if bucket not in self._warm:
+            with self._compile_lock:
+                if bucket not in self._warm:
+                    self._warm.add(bucket)
+                    self.fallback_compiles += 1
+
+    # -- serving -------------------------------------------------------------
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.max_batch
+
+    def predict(self, x) -> np.ndarray:
+        """Predict for ``x``: one array ``[n, ...]`` (or a tuple for
+        multi-input models), any ``n >= 1``. Pads to the nearest bucket;
+        requests beyond ``max_batch`` run in max_batch chunks."""
+        faults.fire("engine.predict")  # chaos hook; no-op unless armed
+        # rows take the model's input dtypes (JSON bodies arrive as float64
+        # / int64 arrays)
+        xs = tuple(np.asarray(a, dt) for a, dt in zip(
+            x if self._multi else (x,), self._in_dtypes))
+        if xs[0].ndim == len(self._in_shapes[0]):  # single unbatched row
+            xs = tuple(a[None] for a in xs)
+        for a, shape, key in zip(xs, self._in_shapes, self._in_keys):
+            if tuple(a.shape[1:]) != shape:
+                raise ValueError(
+                    f"input {key!r}: rows have shape {tuple(a.shape[1:])}, "
+                    f"model expects {shape}")
+        n = xs[0].shape[0]
+        if any(a.shape[0] != n for a in xs):
+            raise ValueError("multi-input arrays must share the batch dim")
+        # one params snapshot per request: a concurrent hot swap never gives
+        # a chunked request mixed versions — every chunk runs the same tree
+        params = self._snapshot_params()
+        if n == 0:
+            probe = self._run(tuple(a[:0] for a in xs), 0, params,
+                              probe_rows=1)
+            return probe[:0]
+        with self._stats_lock:
+            self._requests += 1
+            self._rows += n
+        if n > self.max_batch:
+            outs = [self._run(tuple(a[i:i + self.max_batch] for a in xs),
+                              min(self.max_batch, n - i), params)
+                    for i in range(0, n, self.max_batch)]
+            return np.concatenate(outs, axis=0)
+        return self._run(xs, n, params)
+
+    def _run(self, xs, n: int, params, probe_rows: int = 0) -> np.ndarray:
+        have = max(n, probe_rows)
+        bucket = self._bucket_for(have)
+        if have < bucket:
+            xs = tuple(np.concatenate(
+                [a, np.zeros((bucket - a.shape[0],) + a.shape[1:], a.dtype)])
+                for a in xs)
+        elif probe_rows and xs[0].shape[0] == 0:
+            xs = tuple(np.zeros((bucket,) + a.shape[1:], a.dtype) for a in xs)
+        self._first_use(bucket)
+        self.metrics.observe("serving/engine_batch_rows", n)
+        self.metrics.observe("serving/padding_waste",
+                             (bucket - n) / bucket if bucket else 0.0)
+        # the host span routes to whatever tracer is active on this thread
+        # (the batcher worker's, usually); the same named range shows in
+        # torch.profiler captures
+        with obs_span("serving/engine_apply", args={"bucket": bucket},
+                      profiler_annotation=True):
+            out = _to_numpy(self._apply(params, xs))
+        return out[:n]
+
+    # -- live weight hot-swap ------------------------------------------------
+
+    def weights_template(self):
+        """Shape/dtype template (``{layer: {name: meta tensor}}``, standard
+        layout) of the ctor weights — what a published tree must match leaf
+        for leaf for :meth:`swap_params` to accept it."""
+        return self._weights_template
+
+    def swap_params(self, weights, *, version: Optional[int] = None) -> bool:
+        """Hot-swap the serving weights without a restart. ``weights`` is
+        anything the ctor accepts, in the model's STANDARD layout, with every
+        leaf's shape and dtype identical to the ctor tree's (enforced).
+        Double-buffered: the new tree is placed on the device and quantized
+        while the old one keeps serving, then swapped in one reference
+        assignment; in-flight predicts hold their snapshot, so no request
+        observes mixed versions. Returns True (swaps apply immediately on
+        this engine)."""
+        faults.fire("engine.swap")  # chaos hook; no-op unless armed
+        params = self._load_params(weights)
+        check_template(params, self._weights_template)
+        placed = self._place_params(params)  # old tree still serving
+        with self._stats_lock:
+            self._params = placed  # the swap: one reference assignment
+            v = (int(version) if version is not None
+                 else self._serving_version + 1)
+            self._serving_version = v
+            self._swaps += 1
+        self.metrics.gauge("serving/version", float(v))
+        return True
+
+    def serving_version(self) -> int:
+        """Version of the weights currently serving (0 = ctor weights)."""
+        with self._stats_lock:
+            return self._serving_version
+
+    def maybe_swap(self) -> bool:
+        """Swaps apply immediately on this engine; nothing is deferred."""
+        return True
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        with self._stats_lock:
+            requests, rows = self._requests, self._rows
+            serving_version, swaps = self._serving_version, self._swaps
+            params = self._params
+        return {"buckets": list(self.buckets),
+                "serving_version": serving_version,
+                "swaps": swaps,
+                "sharding": dict(_DEFAULT_SHARDING),
+                "aot_compiles": self.aot_compiles,
+                "fallback_compiles": self.fallback_compiles,
+                "traces": 0,
+                "steady_traces": 0,
+                "requests": requests,
+                "rows": rows,
+                "compile_cache": None,
+                "cold_start": None,
+                "quantize": self.quantize,
+                "mesh": None,
+                "tp": 1,
+                "ep": 1,
+                "param_bytes_per_device": sum(
+                    t.numel() * t.element_size()
+                    for layer in params.values() for t in layer.values()),
+                "device": str(self.device)}

@@ -14,10 +14,11 @@ Both stages take a ``device`` keyword (not a Param): ``None`` is the CUDA
 card, ``"cpu"`` must be asked for. The estimator hands it to its
 ``Trainer`` and to the model it fits, the model to its predict path.
 
-Refused before any training with "not yet ported (see ROADMAP.md)":
-``meshShape`` on either stage, ``fitMode="stream"``, ``checkpointDir``,
-non-default ``ppMicrobatches`` / ``ppSchedule`` / ``weightUpdateSharding``
-/ ``zeroStage``, and the model's ``inferenceQuantize``.
+The model's ``inferenceQuantize`` (``"weight_only"`` / ``"dynamic"``)
+serves int8 weights through ``predict_func``. Refused before any training
+with "not yet ported (see ROADMAP.md)": ``meshShape`` on either stage,
+``fitMode="stream"``, ``checkpointDir``, non-default ``ppMicrobatches`` /
+``ppSchedule`` / ``weightUpdateSharding`` / ``zeroStage``.
 
 Also importable as :mod:`sparkflow_tpu_torch.tensorflow_async`.
 """
@@ -125,10 +126,10 @@ class SparkAsyncDLModel(_OnDevice, Model, HasInputCol, HasPredictionCol,
     # plain strings (persistence-friendly, like every reference Param)
     extraInputCols = Param(Params._dummy(), "extraInputCols", "", typeConverter=TypeConverters.toString)
     extraTfInputs = Param(Params._dummy(), "extraTfInputs", "", typeConverter=TypeConverters.toString)
-    # JAX-package upgrades kept so persisted stages keep their shape; both
-    # are refused here until int8 serving and mesh serving are ported:
+    # JAX-package upgrades kept so persisted stages keep their shape:
     # int8-quantized serving ('' = off, 'weight_only', 'dynamic') and
-    # serving over a device mesh ("dp=8")
+    # serving over a device mesh ("dp=8"; refused until mesh serving is
+    # ported)
     inferenceQuantize = Param(Params._dummy(), "inferenceQuantize", "", typeConverter=TypeConverters.toString)
     meshShape = Param(Params._dummy(), "meshShape", "", typeConverter=TypeConverters.toString)
 
@@ -187,8 +188,13 @@ class SparkAsyncDLModel(_OnDevice, Model, HasInputCol, HasPredictionCol,
             raise ValueError(
                 "extraInputCols (%d names) and extraTfInputs (%d names) must "
                 "pair up one-to-one" % (len(extra_cols), len(extra_inputs)))
-        if _opt_param(self, self.inferenceQuantize):
-            _not_yet("int8 serving (inferenceQuantize)")
+        quantize = _opt_param(self, self.inferenceQuantize) or None
+        if quantize:
+            from .utils.quant import MODES
+            if quantize not in MODES:
+                raise ValueError(
+                    "inferenceQuantize must be one of %s (or unset), got %r"
+                    % (list(MODES), quantize))
         if _opt_param(self, self.meshShape):
             _not_yet("serving over a device mesh (meshShape)")
         device = self._device
@@ -197,6 +203,7 @@ class SparkAsyncDLModel(_OnDevice, Model, HasInputCol, HasPredictionCol,
                                    tf_input, tf_dropout, to_keep_dropout,
                                    extra_cols=extra_cols or None,
                                    extra_inputs=extra_inputs or None,
+                                   quantize=quantize,
                                    device=device)).toDF()
 
 

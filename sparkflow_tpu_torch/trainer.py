@@ -16,11 +16,17 @@ The dataset is staged on the card once, padded to whole batches with a 0/1
 row mask; every step runs the model's loss forward and backward (the flash
 attention kernels on the card) and the optimizer update in place.
 
+Live weight publication: ``publish_to`` (a
+:class:`~.serving.weightstore.WeightStore` or its directory) receives the
+weights after every ``publish_every``-th epoch and after the last, or once
+at the end of the fit with ``publish_every=0`` (never after a NaN halt).
+Publication is best-effort: a failure is logged and never fails training.
+
 Not ported yet, and rejected with "not yet ported (see ROADMAP.md)": a
 device mesh (``mesh``, ``sharding``, ``param_sharding`` other than
 ``"auto"``, ``pp_*``, ``weight_update_sharding``), ``strategy="elastic_dp"``,
-``checkpoint_dir`` (the JAX package's checkpoints are orbax's format),
-``publish_to``, ``fit_stream``, ``trace_spans`` and ``debug_recompiles``.
+``checkpoint_dir`` (checkpointing the training state is queue 1 item 2),
+``fit_stream``, ``trace_spans`` and ``debug_recompiles``.
 ``graph`` is a registry spec, an ``nn`` graph-DSL spec, a
 :class:`~.graphdef.GraphDef` or a model object. ``jax.random`` streams
 cannot be repeated in PyTorch: shuffles and dropout come from
@@ -131,9 +137,7 @@ class Trainer:
         if strategy == "elastic_dp" or elastic:
             _not_yet("strategy='elastic_dp'")
         if checkpoint_dir is not None:
-            _not_yet("checkpoint_dir (the checkpoint format is orbax's)")
-        if publish_to is not None:
-            _not_yet("publish_to (live weight publication)")
+            _not_yet("checkpoint_dir (checkpointing the training state)")
         if debug_recompiles:
             _not_yet("debug_recompiles")
         if rng_impl is not None:
@@ -178,6 +182,13 @@ class Trainer:
         self.straggler_factor = straggler_factor
         self.straggler_callback = straggler_callback
         self.metrics = metrics if metrics is not None else default_metrics
+        # live weight publication (train -> serve): publish_every == 0 means
+        # publish once at fit end when a store is configured
+        self.publish_every = int(publish_every)
+        if isinstance(publish_to, str):
+            from .serving.weightstore import WeightStore
+            publish_to = WeightStore(publish_to)
+        self._publish_store = publish_to
         self.params = None
         self._last_opt_state = None
 
@@ -280,6 +291,7 @@ class Trainer:
         nan_halted = False
         t0 = time.perf_counter()
         it = 0
+        total_epochs = self.partition_shuffles * self.iters
         for _round in range(self.partition_shuffles):
             for _epoch in range(self.iters):
                 it += 1
@@ -305,6 +317,10 @@ class Trainer:
                 if self.straggler_factor:
                     self._check_straggler(it, te, losses_by_epoch[-1],
                                           epoch_secs)
+                if (self._publish_store is not None and self.publish_every > 0
+                        and (it % self.publish_every == 0
+                             or it == total_epochs)):
+                    self._publish_weights(params)
             if nan_halted:
                 break
         if dev.type == "cuda":
@@ -320,10 +336,26 @@ class Trainer:
             if bad:
                 logger.warning("training diverged: non-finite loss at "
                                "epoch(s) %s", bad[:5])
+        # publish-at-end mode (publish_every == 0): the fit's final weights
+        # become the next served version — but never NaN-halted ones
+        if (self._publish_store is not None and self.publish_every <= 0
+                and not nan_halted):
+            self._publish_weights(self.params)
         return TrainResult(self.params, epoch_losses,
                            per_epoch * len(epoch_losses) / max(wall, 1e-9),
                            wall, stop_reason="nan" if nan_halted
                            else "completed")
+
+    def _publish_weights(self, params) -> None:
+        """Best-effort push of standard-layout weights to the configured
+        :class:`~.serving.weightstore.WeightStore`. A failed publication
+        logs and moves on — it must never fail training, and serving
+        replicas keep last-good weights regardless."""
+        try:
+            v = self._publish_store.publish(params)
+            logger.info("trainer: published weights as version %d", v)
+        except Exception:  # noqa: BLE001 - publication never fails a fit
+            logger.exception("trainer: live weight publication failed")
 
     def _check_straggler(self, it: int, te: float, loss: torch.Tensor,
                          epoch_secs: List[float]) -> None:

@@ -1139,3 +1139,86 @@ def test_graph_model_conv_on_card_matches_cpu(dev):
         results.append([t.detach().cpu() for t in (out, *grads)])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+# -- the predict plane: InferenceEngine and int8 weights ----------------------
+
+PREDICT_CLS = dict(vocab_size=500, num_classes=3, hidden=128, num_layers=2,
+                   num_heads=2, mlp_dim=256, max_len=128, dropout=0.0)
+# probs, card against CPU: float32 1e-4 (3xTF32 flash, TF32 off in the
+# GEMMs); bf16 2e-2 (bf16 GEMMs and flash on both sides, different
+# summation and rounding); int8 weight_only 1e-4 (float32 once
+# dequantized); dynamic 1e-3 (an activation on an int8 rounding boundary
+# may round apart between the devices, as between the packages —
+# tests/test_torch_estimator.py QUANT_TOL)
+PREDICT_TOL = {None: 1e-4, "bfloat16": 2e-2, "weight_only": 1e-4,
+               "dynamic": 1e-3}
+
+
+def _predict_rows(n, seed):
+    rs = np.random.RandomState(seed)
+    s = PREDICT_CLS["max_len"]
+    ids = rs.randint(1, PREDICT_CLS["vocab_size"], (n, s)).astype(np.int32)
+    mask = np.zeros((n, s), np.float32)
+    for i in range(n):
+        mask[i, :rs.randint(s // 2, s + 1)] = 1.0
+    return ids, mask
+
+
+@pytest.mark.parametrize("arm", [None, "bfloat16", "weight_only", "dynamic"],
+                         ids=["f32", "bf16", "weight_only", "dynamic"])
+def test_inference_engine_on_card_matches_cpu(dev, arm):
+    """The predict engine on the card against the same engine on the CPU,
+    every bucket (1..8) and a chunked request; the forward launches the
+    flash kernel once a layer per bucket call, nothing else."""
+    from sparkflow_tpu_torch.convert import params_to_list
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import InferenceEngine
+    spec = build_registry_spec("transformer_classifier", **PREDICT_CLS)
+    cpu_model = model_from_json(spec, device="cpu")
+    weights = params_to_list(cpu_model, cpu_model.init(seed=3))
+    kw = dict(input_name=["input_ids:0", "attention_mask:0"],
+              output_name="probs:0", max_batch=8,
+              quantize=arm if arm in ("weight_only", "dynamic") else None,
+              quant_min_size=1024,
+              compute_dtype="bfloat16" if arm == "bfloat16" else None)
+    card = InferenceEngine(spec, weights, **kw)
+    cpu = InferenceEngine(spec, weights, device="cpu", warmup=False, **kw)
+    assert card.device.type == "cuda" and card.aot_compiles == 4
+    for n in (1, 3, 8, 11):
+        x = _predict_rows(n, seed=n)
+        reset_launch_counts()
+        got = card.predict(x)
+        counts = launch_counts()
+        calls = -(-n // 8)
+        assert counts["flash_fwd"] == PREDICT_CLS["num_layers"] * calls
+        assert sum(counts.values()) == counts["flash_fwd"]
+        want = cpu.predict(x)
+        assert got.shape == want.shape == (n, PREDICT_CLS["num_classes"])
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() < PREDICT_TOL[arm]
+    assert card.fallback_compiles == 0
+
+
+@pytest.mark.parametrize("m,k,n", [(2048, 768, 2304), (1, 768, 2),
+                                   (16, 64, 64), (33, 100, 30)],
+                         ids=lambda v: str(v))
+def test_int8_matmul_on_card_matches_cpu(dev, m, k, n):
+    """The int32 product on the card (torch._int_mm, padded where a shape
+    breaks its rule) equals the CPU's exactly, and so does the rescaled
+    result of ``int8_matmul``; the quantized tree built on the card is
+    bit-equal to the CPU's."""
+    from sparkflow_tpu_torch.utils import quant
+    rs = np.random.RandomState(m + k + n)
+    x = torch.from_numpy(rs.randn(m, k).astype(np.float32))
+    w = torch.from_numpy((rs.randn(k, n) * 0.05).astype(np.float32))
+    q8, scale = quant.quantize_tensor(w)
+    q8c, scalec = quant.quantize_tensor(w.to(dev))
+    assert torch.equal(q8c.cpu(), q8) and torch.equal(scalec.cpu(), scale)
+    xq = torch.from_numpy(rs.randint(-127, 128, (m, k)).astype(np.int8))
+    want = quant._int_mm(xq, q8)
+    assert torch.equal(quant._int_mm(xq.to(dev), q8c).cpu(), want)
+    got = quant.int8_matmul(x.to(dev), q8c, scalec).cpu()
+    assert torch.equal(got, quant.int8_matmul(x, q8, scale))
