@@ -127,8 +127,36 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     ``flash_fwd`` at the largest bucket in bf16 (B=32 S=512, a key mask)
     against its plain version, beside its bound and SDPA's time.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13; a ``[time]`` line gives
-each phase's wall time. The line before the last gives the card's name and
+14. resilience and stream: README's text pipeline at BERT-base width
+    (phase 12's configuration, float32, TF32 off). (a) 256 long synthetic
+    reviews (200-700 words, ``examples/text_classifier.py``'s shape),
+    ``build_vocab`` over them, the native WordPiece ids and masks at 512
+    tokens against the pure-Python fallback's on 32 rows (the native
+    library must have loaded), encode rows/s. (b) ``Pipeline([
+    WordpieceEncoder, OneHotEncoder, SparkAsyncDL(fitMode="stream",
+    checkpointDir, checkpointEvery=4)])`` over them, batch 32, 8 steps:
+    the counters zeroed before and read after (12 a step for each flash
+    kernel), finite losses, training examples/s with and without the
+    saves, the step-4 and step-8 checkpoints verified by their manifests,
+    each save's host ms and bytes; then the transform's accuracy. (c)
+    ``Trainer.fit`` over the encoded rows, 2 epochs of 8 steps,
+    ``checkpoint_every=1``: uninterrupted; preempted by SIGTERM in epoch 1
+    and fitted again; crashed in epoch 2 and resumed in the fit
+    (``resume_retries=1``) — both land on the uninterrupted fit's weights
+    bit for bit (else their relative delta is printed and held to 1e-6).
+    (d) The uninterrupted fit runs with ``trace_spans``: phase totals within
+    10 % of its wall time, the save's share, MFU against
+    ``device_peak_flops()`` (the bf16 peak, the JAX convention, though the
+    step runs float32), the Chrome trace parsed. (e) One forward and
+    backward of phase 7's GPT-2-small-width bf16 model at 8 x 1024 in
+    ``remat`` False, "dots" and "full": peak memory above the step's start
+    (full < dots < False), step ms, a profiled step's device busy ms and
+    idle share, ``flash_fwd`` launches (12, 24, 24),
+    "dots" and "full" loss and gradients against False's within the bf16
+    backward tolerance.
+
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14; a ``[time]`` line
+gives each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
 there is no CUDA card.
@@ -2265,6 +2293,416 @@ def phase_predict(card, spec, weights, work):
         "tflops": row["tflops"], "bound_share": row["bound_share"]}}
 
 
+# phase 14: resilience and stream — README's text pipeline at BERT-base width
+# through the estimator's stream mode with checkpoints, Trainer.fit preempted,
+# crashed and resumed, one fit traced, and remat="dots" at the training shape
+# (c) runs 2 epochs: with 3 the phase took over the ~90 s it is allowed
+RES_ROWS, RES_BATCH, RES_EPOCHS = 256, 32, 2
+RES_LEN = BERT_BASE["max_len"]
+RES_SAMPLE = 32           # rows whose native ids are held to the fallback's
+# the resumed weights equal the uninterrupted fit's bit for bit (no kernel
+# uses atomics); this relative bound is a fallback that is never used
+# silently: a run that needs it prints its delta
+RESUME_REL_TOL = 1e-6
+SPAN_TOL = 0.10           # phase sums against the fit's host wall time
+
+
+def synthetic_reviews(n, seed):
+    """Long reviews in the shape of ``examples/text_classifier.py``'s
+    ``synthetic_reviews`` (filler words, a sentiment marker inserted), 200
+    to 700 words each: the filler from a seeded 20,000-word pseudo-lexicon
+    drawn by a Zipf law, every twelfth word carrying punctuation, the
+    marker inserted three times. Returns ``[(label, text)]``."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    pos = ["wonderful", "great", "loved", "excellent", "delightful"]
+    neg = ["terrible", "awful", "hated", "boring", "dreadful"]
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    lexicon = np.array(["".join(rs.choice(letters, rs.randint(2, 10)))
+                        for _ in range(20000)])
+    p = 1.0 / np.arange(1, len(lexicon) + 1)
+    p /= p.sum()
+    rows = []
+    for _ in range(n):
+        label = rs.randint(0, 2)
+        k = rs.randint(200, 701)
+        words = list(lexicon[rs.choice(len(lexicon), k, p=p)])
+        for j in rs.choice(k, k // 12, replace=False):
+            words[j] += ",.!?"[rs.randint(4)]
+        for _ in range(3):
+            words.insert(rs.randint(0, len(words)),
+                         (pos if label else neg)[rs.randint(0, 5)])
+        rows.append((float(label), " ".join(words)))
+    return rows
+
+
+def _text_front(card, texts):
+    """(a) The vocabulary over the corpus, the native tokenizer's ids and
+    masks against the pure-Python fallback's on a sample, encode rates."""
+    import numpy as np
+    from sparkflow_tpu_torch.native.build import load_library
+    from sparkflow_tpu_torch.utils.text import WordpieceTokenizer, build_vocab
+    t0 = time.perf_counter()
+    vocab = build_vocab(texts)
+    vocab_s = time.perf_counter() - t0
+    native = load_library() is not None
+    if not native:
+        raise AssertionError("the native data-plane library did not build "
+                             "or load (g++): the C++ path is the one "
+                             "measured")
+    tok, plain = (WordpieceTokenizer(vocab),
+                  WordpieceTokenizer(vocab, use_native=False))
+    t0 = time.perf_counter()
+    ids, mask = tok.encode_batch(texts, RES_LEN)
+    native_s = time.perf_counter() - t0
+    sample = texts[:RES_SAMPLE]
+    t0 = time.perf_counter()
+    pids, pmask = plain.encode_batch(sample, RES_LEN)
+    plain_s = time.perf_counter() - t0
+    if not (np.array_equal(ids[:RES_SAMPLE], pids)
+            and np.array_equal(mask[:RES_SAMPLE], pmask)):
+        raise AssertionError("native WordPiece ids or masks differ from the "
+                             "pure-Python fallback's")
+    live = mask.sum(1)
+    info = {"native_library_loaded": native, "vocab": len(vocab),
+            "vocab_s": vocab_s, "rows": len(texts), "max_len": RES_LEN,
+            "truncated_rows": int((live == RES_LEN).sum()),
+            "live_tokens_min_median": [int(live.min()),
+                                       int(np.median(live))],
+            "unk_share": float((ids == tok.unk_id).sum() / live.sum()),
+            "encode_rows_per_s_native": len(texts) / native_s,
+            "encode_rows_per_s_fallback": RES_SAMPLE / plain_s,
+            "native_equals_fallback_rows": RES_SAMPLE, "card": card}
+    log("[resilience-text] " + json.dumps(info))
+    return vocab, info
+
+
+class _SaveClock:
+    """Times every ``CheckpointManager.save`` while active (host ms, the
+    state's copy off the card included) and reads each save's bytes from
+    its manifest."""
+
+    def __init__(self):
+        self.saves = []
+
+    def __enter__(self):
+        from sparkflow_tpu_torch import checkpoint as ckpt
+        self._cls, self._orig = ckpt.CheckpointManager, \
+            ckpt.CheckpointManager.save
+        orig, saves = self._orig, self.saves
+
+        def save(mgr, step, state):
+            t0 = time.perf_counter()
+            orig(mgr, step, state)
+            ms = (time.perf_counter() - t0) * 1e3
+            files = (mgr._manifest(step) or {}).get("files", {})
+            saves.append({"step": int(step), "ms": ms,
+                          "bytes": sum(f["bytes"] for f in files.values())})
+
+        self._cls.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.save = self._orig
+        return False
+
+
+def _stream_fit(card, rows, vocab, spec, work):
+    """(b) ``Pipeline([WordpieceEncoder, OneHotEncoder, SparkAsyncDL(
+    fitMode="stream", checkpointDir, checkpointEvery=4)])`` over the corpus,
+    then its transform."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.checkpoint import CheckpointManager
+    from sparkflow_tpu_torch.localml import (LocalSession, OneHotEncoder,
+                                             Pipeline, WordpieceEncoder)
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    spark = LocalSession.builder.appName("text-stream").getOrCreate()
+    df = spark.createDataFrame(rows, ["label", "text"])
+    ck = os.path.join(work, "stream-ckpt")
+    marks = []
+    est = SparkAsyncDL(
+        inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
+        tfLabel="y:0", tfOutput="pred:0", tfOptimizer="adam",
+        tfLearningRate=3e-4, iters=1, miniBatchSize=RES_BATCH,
+        labelCol="labels", predictionCol="predicted", fitMode="stream",
+        checkpointDir=ck, checkpointEvery=4, extraInputCols="mask",
+        extraTfInputs="attention_mask:0",
+        # an npz side file: inline, 110 M weights would be ~2 GB of JSON
+        weightsPath=os.path.join(work, "text-bert"))
+    est.setLossCallback(
+        lambda loss, step, part: marks.append((time.perf_counter(), loss)))
+    pipe = Pipeline(stages=[
+        WordpieceEncoder(inputCol="text", outputCol="tokens", maskCol="mask",
+                         maxLen=RES_LEN, vocab=vocab),
+        OneHotEncoder(inputCol="label", outputCol="labels", dropLast=False),
+        est])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _SaveClock() as clock:
+        fitted = pipe.fit(df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {n: launch_counts()[n] for n in names}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = RES_ROWS // RES_BATCH
+    losses = [loss for _t, loss in marks]
+    if len(marks) != steps or any(launches[n] != 12 * steps for n in names):
+        raise AssertionError(f"{len(marks)} steps, launches {launches}: each "
+                             f"flash kernel must launch 12 x {steps} times")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"stream losses {losses}: not finite")
+    mgr = CheckpointManager(ck)
+    if mgr.all_steps() != [4, 8] or not all(
+            mgr.verify_step(s) is True for s in (4, 8)):
+        raise AssertionError(f"stream checkpoints {mgr.all_steps()}: steps "
+                             f"4 and 8 must verify by their manifests")
+    saves = clock.saves
+    if [s["step"] for s in saves] != [4, 8]:
+        raise AssertionError(f"saves {saves}")
+    span = marks[-1][0] - marks[0][0]                   # steps 2 .. 8
+    in_span = sum(s["ms"] for s in saves if s["step"] < steps) / 1e3
+    t1 = time.perf_counter()
+    preds = fitted.transform(df).collect()
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t1
+    acc = float(np.mean([r["predicted"] == r["label"] for r in preds]))
+    info = {"rows": RES_ROWS, "batch": RES_BATCH, "steps": steps,
+            "fit_s": fit_s, "losses": losses,
+            "train_examples_per_s_steps_2_to_8": RES_BATCH * (steps - 1)
+            / span,
+            "train_examples_per_s_steps_2_to_8_without_saves":
+                RES_BATCH * (steps - 1) / (span - in_span),
+            "saves": saves, "launches": launches, "peak_mem_gb": peak,
+            "transform_s": transform_s, "train_accuracy": acc,
+            "card": card}
+    log("[resilience-stream] " + json.dumps(info))
+    shutil.rmtree(ck, ignore_errors=True)
+    return info
+
+
+def _resume_delta(tr, base_weights):
+    """``(bit_equal, max |a - b| / max |b|)`` of a trainer's final weights
+    against the uninterrupted fit's."""
+    import numpy as np
+    got = tr.weights_list()
+    same = all(np.array_equal(a, b) for a, b in zip(got, base_weights))
+    rel = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                1e-30)
+              for a, b in zip(got, base_weights))
+    return same, rel
+
+
+def _preempt_and_resume(card, x, labels, spec, work):
+    """(c) ``Trainer.fit`` (collect) over the encoded rows, 2 epochs of 8
+    steps, ``checkpoint_every=1``: an uninterrupted fit, traced (d); a fit
+    preempted in epoch 1 (the guard is read at each epoch's start, so a
+    SIGTERM in the last epoch would not stop it) and fitted again; a fit
+    crashed in epoch 2 and resumed in the fit."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.resilience import faults
+    from sparkflow_tpu_torch.trainer import Trainer
+    from sparkflow_tpu_torch.utils.flops import device_peak_flops
+
+    def trainer(name, cb, retries=0):
+        return Trainer(spec, ["input_ids", "attention_mask"], "y",
+                       optimizer="adam", learning_rate=3e-4,
+                       iters=RES_EPOCHS, mini_batch_size=RES_BATCH, seed=14,
+                       checkpoint_dir=os.path.join(work, name),
+                       checkpoint_every=1, resume_retries=retries,
+                       loss_callback=cb)
+
+    out = {}
+    base = trainer("base", lambda *a: None)
+    trace = os.path.join(work, "fit_trace.json")
+    with _SaveClock() as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = base.fit(x, labels, trace_spans=trace)
+        wall = time.perf_counter() - t0
+    want = base.weights_list()
+    stats = base.last_step_stats
+    with open(base.last_trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    phases = stats["phase_totals_s"]
+    spent = sum(phases.values())
+    if not (res.completed and abs(spent - wall) <= SPAN_TOL * wall
+            and events):
+        raise AssertionError(f"traced fit: phases sum {spent} s against "
+                             f"{wall} s of wall time, {len(events)} trace "
+                             f"events")
+    ck_ms = [s["ms"] for s in clock.saves]
+    out["uninterrupted"] = {
+        "epochs": RES_EPOCHS, "steps": RES_EPOCHS * RES_ROWS // RES_BATCH,
+        "losses": res.losses, "fit_wall_s": wall,
+        "phase_totals_s": phases, "phase_counts": stats["phase_counts"],
+        "phase_sum_over_wall": spent / wall,
+        "checkpoint_share_of_wall": phases.get("checkpoint", 0.0) / wall,
+        "save_ms": ck_ms, "save_bytes": [s["bytes"] for s in clock.saves],
+        "examples_per_s": stats["examples_per_sec"],
+        "flops_per_step": stats.get("flops_per_step"),
+        "flops_per_s": stats.get("flops_per_sec"),
+        "mfu": stats.get("mfu"), "mfu_peak_flops": device_peak_flops(),
+        "mfu_note": "against the dense bf16 peak (the JAX package's "
+                    "convention); the step runs float32 with TF32 off",
+        "trace_events": len(events)}
+    shutil.rmtree(os.path.join(work, "base"), ignore_errors=True)
+    del base
+
+    tr = trainer("preempt", faults.sigterm_at(1))
+    first = tr.fit(x, labels)
+    again = tr.fit(x, labels)
+    if first.stop_reason != "preempted" or not again.completed:
+        raise AssertionError(f"preempted fit: {first.stop_reason}, then "
+                             f"{again.stop_reason}")
+    same, rel = _resume_delta(tr, want)
+    out["preempted"] = {"stop_reason": first.stop_reason,
+                        "epochs_before": len(first.losses),
+                        "epochs_after": len(again.losses),
+                        "weights_bit_equal": same, "max_rel_delta": rel}
+    shutil.rmtree(os.path.join(work, "preempt"), ignore_errors=True)
+    del tr
+
+    crash = faults.crash_at(2)
+    tr = trainer("crash", crash, retries=1)
+    res = tr.fit(x, labels)
+    if crash.fired != 1 or not res.completed:
+        raise AssertionError(f"crashed fit: fired {crash.fired}, "
+                             f"{res.stop_reason}")
+    same_c, rel_c = _resume_delta(tr, want)
+    out["crashed"] = {"fault_fired": crash.fired, "completed": res.completed,
+                      "weights_bit_equal": same_c, "max_rel_delta": rel_c}
+    shutil.rmtree(os.path.join(work, "crash"), ignore_errors=True)
+    del tr
+    out["card"] = card
+    log("[resilience-resume] " + json.dumps(out))
+    for k in ("preempted", "crashed"):
+        if not (out[k]["weights_bit_equal"]
+                or out[k]["max_rel_delta"] <= RESUME_REL_TOL):
+            raise AssertionError(f"{k} fit resumed to weights {out[k]} away "
+                                 f"from the uninterrupted fit's")
+    return out
+
+
+def _remat_modes(card):
+    """(e) One training step (forward and backward) of the GPT-2-small-width
+    bf16 ``transformer_lm`` at batch 8 x 1024, dropout 0.1, in each
+    ``remat`` mode: peak memory above the step's start, step ms (CUDA
+    events), flash_fwd launches, then one more step's device busy time
+    under the profiler; "dots" and "full" against False."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.optimizers import tree_leaves, tree_map
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 1000, (8, 1024)), device="cuda")
+    out, ref = {}, None
+    for remat in (False, "dots", "full"):
+        model = model_from_json(_train_spec(remat=remat), "bfloat16")
+        params = model.load_params(tree_map(
+            lambda a: a.detach().clone(), model.init(seed=0)), trainable=True)
+        leaves = tree_leaves(params)
+        gen = torch.Generator(device="cuda")
+
+        def step():
+            gen.manual_seed(1)
+            loss = model.loss_vector(params, {"input_ids": toks}, train=True,
+                                     generator=gen).mean()
+            return loss, torch.autograd.grad(loss, leaves)
+
+        step()                                                   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        a, b = _events()
+        a.record()
+        loss, grads = step()
+        b.record()
+        b.synchronize()
+        row = {"step_ms": a.elapsed_time(b),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "peak_above_start_gb": (torch.cuda.max_memory_allocated()
+                                       - start) / 1e9,
+               "flash_fwd_launches": launch_counts()["flash_fwd"],
+               "flash_bwd_launches": launch_counts()["flash_bwd_dq"],
+               "loss": float(loss)}
+        # one more step under the profiler: the card's busy time against
+        # the host's (the selective policy runs Python for every op)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        prof_sum = _device_profile(prof, wall, 1)
+        row.update(profiled_wall_ms=prof_sum["wall_ms"],
+                   device_busy_ms=prof_sum["device_busy_ms"],
+                   device_idle_share=prof_sum["device_idle_share"],
+                   device_ops=prof_sum["device_ops"])
+        grads = [g.float().cpu() for g in grads]
+        if ref is None:
+            ref = (float(loss), grads)
+        else:
+            errs = [float((g - r).abs().max()) / max(float(r.abs().max()),
+                                                     1e-30)
+                    for g, r in zip(grads, ref[1])]
+            row["loss_delta"] = abs(float(loss) - ref[0])
+            row["max_grad_err_over_max_grad"] = max(errs)
+            row["bit_equal_to_no_remat"] = (
+                row["loss_delta"] == 0 and max(errs) == 0)
+            if not (row["loss_delta"] <= BWD_TOL["bfloat16"] * abs(ref[0])
+                    and max(errs) <= BWD_TOL["bfloat16"]):
+                raise AssertionError(f"remat={remat!r} against remat=False: "
+                                     f"{row}")
+        out[str(remat)] = row
+        del model, params, leaves, grads, loss
+        torch.cuda.empty_cache()
+    want = {"False": 12, "dots": 24, "full": 24}
+    got = {k: out[k]["flash_fwd_launches"] for k in want}
+    peaks = [out[k]["peak_above_start_gb"] for k in ("full", "dots", "False")]
+    out["card"] = card
+    log("[resilience-remat] " + json.dumps(out))
+    if got != want or not peaks[0] < peaks[1] < peaks[2]:
+        raise AssertionError(f"flash_fwd launches {got} (want {want}); peak "
+                             f"memory full / dots / False {peaks} must "
+                             f"rise in that order")
+    return got
+
+
+def phase_resilience(card, work):
+    """Phase 14: (a) the text front, (b) the stream fit through the
+    estimator with checkpoints, (c) preempted and crashed fits resumed, (d)
+    the traced fit's spans and MFU, (e) ``remat="dots"``. Returns the
+    launch counts for the kernels line."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.utils.text import WordpieceTokenizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = synthetic_reviews(RES_ROWS, seed=14)
+    texts = [t for _l, t in rows]
+    vocab, _text = _text_front(card, texts)
+    spec = build_registry_spec("transformer_classifier", **BERT_BASE)
+    stream = _stream_fit(card, rows, vocab, spec, work)
+    ids, mask = WordpieceTokenizer(vocab).encode_batch(texts, RES_LEN)
+    labels = np.eye(2, dtype=np.float32)[[int(l) for l, _t in rows]]
+    resume = _preempt_and_resume(card, (ids.astype(np.float32), mask),
+                                 labels, spec, work)
+    remat = _remat_modes(card)
+    return {"stream_fit": stream["launches"],
+            "uninterrupted_fit_steps": resume["uninterrupted"]["steps"],
+            "remat_flash_fwd_per_step": remat}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2302,6 +2740,7 @@ def main() -> int:
         (spec, weights), est_rows = timed("estimator", phase_estimator,
                                           card, work)
         predict = timed("predict", phase_predict, card, spec, weights, work)
+        resil = timed("resilience", phase_resilience, card, work)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2326,7 +2765,13 @@ def main() -> int:
          "estimator": est_rows["flash_fwd"],
          # the predict phase: launches per arm (a) float32, (b) bf16,
          # (c) weight_only, (d) dynamic; times at its largest bucket, bf16
-         "predict": predict},
+         "predict": predict,
+         # phase 14: the BERT-base stream fit's launches, and a step's at
+         # GPT-2-small width in each remat mode
+         "resilience": {"stream_fit_launches":
+                        resil["stream_fit"]["flash_fwd"],
+                        "remat_launches_per_step":
+                        resil["remat_flash_fwd_per_step"]}},
         {"name": "paged_attention", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "734",
          "launches": launches["paged_attention"], **paged_row,
@@ -2335,12 +2780,16 @@ def main() -> int:
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "372",
          "launches": train_launches["flash_bwd_dq"],
-         **bwd_rows["flash_bwd_dq"], "estimator": est_rows["flash_bwd_dq"]},
+         **bwd_rows["flash_bwd_dq"], "estimator": est_rows["flash_bwd_dq"],
+         "resilience": {"stream_fit_launches":
+                        resil["stream_fit"]["flash_bwd_dq"]}},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "415",
          "launches": train_launches["flash_bwd_dkv"],
          **bwd_rows["flash_bwd_dkv"],
-         "estimator": est_rows["flash_bwd_dkv"]},
+         "estimator": est_rows["flash_bwd_dkv"],
+         "resilience": {"stream_fit_launches":
+                        resil["stream_fit"]["flash_bwd_dkv"]}},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "781",
          "launches": spec_b["paged_attention_quant"],

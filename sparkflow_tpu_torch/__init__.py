@@ -11,7 +11,10 @@ Ported so far: the decode-serving path — ``ServingClient.generate`` →
 ``flash_attention`` and ``paged_attention`` CUDA kernels — and the
 single-card training path — ``trainer.Trainer.fit`` → ``core`` steps →
 ``optimizers`` → the ``transformer_lm`` / ``transformer_classifier`` loss
-→ ``flash_attention`` forward and its dq and dk/dv backward kernels —
+→ ``flash_attention`` forward and its dq and dk/dv backward kernels, with
+checkpoints, resume and preemption (``checkpoint``, ``resilience``), step
+spans (``obs.StepStats``, ``utils.flops``) and ``fit_stream`` over the
+native host data plane (``native``, ``utils.data``, ``utils.text``) —
 and the Spark ML estimator on top of it: ``spark_async.SparkAsyncDL`` /
 ``SparkAsyncDLModel`` (alias ``tensorflow_async``) in a ``Pipeline`` on
 ``localml`` or pyspark (``compat``, ``pipeline_util``, ``ml_util``), with

@@ -144,7 +144,9 @@ def sorted_leaves(tree) -> List[Tuple[Tuple[Any, ...], Any]]:
 
 def unflatten_sorted(like, leaves: Sequence[Any]):
     """Inverse of :func:`sorted_leaves`: ``leaves`` placed into the structure
-    of ``like`` (dicts keep ``like``'s keys, lists and tuples their type)."""
+    of ``like`` (dicts keep ``like``'s keys, lists, tuples and named tuples
+    their type). Raises ``ValueError`` when the count of ``leaves`` is not
+    the template's."""
     it = iter(leaves)
 
     def build(node):
@@ -154,7 +156,17 @@ def unflatten_sorted(like, leaves: Sequence[Any]):
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}
         if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
+            vals = [build(v) for v in node]
+            return (type(node)(*vals) if hasattr(node, "_fields")
+                    else type(node)(vals))
+        try:
+            return next(it)
+        except StopIteration:
+            raise ValueError(f"{len(leaves)} leaves for a template that "
+                             f"holds more") from None
 
-    return build(like)
+    out = build(like)
+    if next(it, it) is not it:
+        raise ValueError(f"{len(leaves)} leaves for a template that holds "
+                         f"fewer")
+    return out

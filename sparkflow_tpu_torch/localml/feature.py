@@ -112,10 +112,11 @@ class Normalizer(Transformer, HasInputCol, HasOutputCol):
 class WordpieceEncoder(Transformer, HasInputCol, HasOutputCol):
     """Text column -> fixed-shape token-id vector + attention-mask columns,
     ready for ``SparkAsyncDL`` transformer models
-    (``extraInputCols=maskCol``). No pyspark analog exists. The JAX
-    package backs it with a native C++ WordPiece tokenizer
-    (``sparkflow_tpu/utils/text.py``, ``native/tokenizer.cpp``), which is
-    not yet ported: ``transform`` raises (see ROADMAP.md)."""
+    (``extraInputCols=maskCol``). Backed by the native C++ WordPiece
+    tokenizer (``sparkflow_tpu_torch/native/tokenizer.cpp``, through
+    :mod:`sparkflow_tpu_torch.utils.text`); pure-Python fallback otherwise,
+    with the same ids. No pyspark analog exists. Without a vocabulary,
+    ``transform`` builds one from the dataset it transforms."""
 
     maskCol = Param(Params._dummy(), "maskCol", "attention mask column",
                     typeConverter=TypeConverters.toString)
@@ -137,10 +138,27 @@ class WordpieceEncoder(Transformer, HasInputCol, HasOutputCol):
         return self
 
     def _transform(self, dataset: DataFrame) -> DataFrame:
-        raise NotImplementedError(
-            "WordpieceEncoder is not yet ported to PyTorch: it needs the "
-            "WordPiece tokenizer (utils/text.py and native/tokenizer.cpp), "
-            "see ROADMAP.md")
+        from ..utils.text import WordpieceTokenizer, build_vocab
+        in_col = self.getOrDefault(self.inputCol)
+        out_col = self.getOrDefault(self.outputCol)
+        mask_col = self.getOrDefault(self.maskCol)
+        max_len = self.getOrDefault(self.maxLen)
+        rows = dataset.collect()
+        texts = [str(r[in_col]) for r in rows]
+        vocab = self._vocab
+        if vocab is None:  # fit-free convenience: derive from this dataset
+            vocab = build_vocab(texts)
+            self._vocab = vocab
+        tok = WordpieceTokenizer(vocab)
+        ids, mask = tok.encode_batch(texts, max_len)
+        out = []
+        for r, i, m_ in zip(rows, ids, mask):
+            out.append(Row(**{**r.asDict(),
+                              out_col: Vectors.dense(i.astype(float)),
+                              mask_col: Vectors.dense(m_.astype(float))}))
+        cols = dataset.columns + [c for c in (out_col, mask_col)
+                                  if c not in dataset.columns]
+        return DataFrame(out, cols, dataset.num_partitions)
 
 
 # ---------------------------------------------------------------------------

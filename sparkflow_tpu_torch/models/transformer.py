@@ -26,21 +26,28 @@ delegated to an ``attend`` callback — the dense cache below for parity, the
 serving engine's paged pool over
 :func:`~sparkflow_tpu_torch.ops.paged_attention` in production.
 ``remat=True`` / ``"full"`` recomputes each block in the backward
-(``torch.utils.checkpoint``). :meth:`TransformerLM.decode_verify` scores a
-drafted token block at every position (speculative decoding), and the dense
-decode cache takes int8/fp8 rows (``init_decode_cache(kv_dtype=)``).
-``remat="dots"`` and model parallelism (``tp_axis``, ``ep_axis``,
-``sp_axis``) are not yet ported and raise.
+(``torch.utils.checkpoint``); ``remat="dots"`` saves the outputs of the
+block's 2-D weight products (``mm`` / ``addmm`` over the flattened tokens)
+and recomputes the rest, the flash forward included — JAX's
+``dots_with_no_batch_dims_saveable`` policy, which saves no batched product
+and no Pallas call. :meth:`TransformerLM.decode_verify` scores a drafted
+token block at every position (speculative decoding), and the dense decode
+cache takes int8/fp8 rows (``init_decode_cache(kv_dtype=)``). Model
+parallelism (``tp_axis``, ``ep_axis``, ``sp_axis``) is not yet ported and
+raises.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..ops import flash_attention
 from ..utils import quant
@@ -73,6 +80,20 @@ def _not_yet(what: str):
     raise ValueError(f"{what} is not yet ported to PyTorch (see ROADMAP.md)")
 
 
+# remat="dots": the weight products' outputs are kept, everything else is
+# recomputed in the backward
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _save_weight_products)
+
+
 class _TransformerBase(RegistryModel):
     """Embedding, blocks and specs shared by the LM and the classifier."""
 
@@ -85,8 +106,6 @@ class _TransformerBase(RegistryModel):
         if remat not in (False, True, "full", "dots"):
             raise ValueError(
                 f"remat must be False, True/'full', or 'dots'; got {remat!r}")
-        if remat == "dots":
-            _not_yet("remat='dots' (saving the matmul outputs)")
         if sp_axis is not None:
             _not_yet("sequence parallelism (sp_axis)")
         super().__init__(compute_dtype, device)
@@ -213,7 +232,9 @@ class _TransformerBase(RegistryModel):
 
     def _remat_block(self, bp, x, mask, causal, attention, train, generator):
         """One block under ``torch.utils.checkpoint``: its activations are
-        recomputed in the backward. Dropout must draw the same masks twice,
+        recomputed in the backward, all of them (``remat`` True / "full")
+        or all but the weight products' outputs ("dots", a selective
+        checkpoint policy). Dropout must draw the same masks twice,
         so the block draws from a generator rebuilt from ``generator``'s
         state before the block, and ``generator`` then moves past the
         block's draws as if it had drawn them itself."""
@@ -231,7 +252,8 @@ class _TransformerBase(RegistryModel):
                 after["state"] = g.get_state()
             return y
 
-        x = checkpoint(run, x, use_reentrant=False)
+        x = checkpoint(run, x, use_reentrant=False, context_fn=(
+            _DOTS_CONTEXT if self.remat == "dots" else noop_context_fn))
         if state is not None:
             generator.set_state(after["state"])
         return x

@@ -6,9 +6,12 @@ converters — so a persisted stage keeps its shape, and the same
 ``.fit`` / ``.transform`` semantics: unsupervised mode (``tfLabel=None``),
 the dropout feed (``tfDropout`` / ``toKeepDropout``), extra input columns
 (``extraInputCols`` / ``extraTfInputs``), ``weightsPath`` side files and
-``useEmaWeights``. ``_fit`` collects the rows and trains with the port's
-:class:`~.trainer.Trainer`; ``_transform`` predicts per partition through
-:func:`~.ml_util.predict_func`.
+``useEmaWeights``, mid-training checkpoints (``checkpointDir`` /
+``checkpointEvery``: a refit on the same directory resumes). ``_fit``
+collects the rows and trains with the port's :class:`~.trainer.Trainer`
+(``fitMode="stream"``: ``Trainer.fit_stream`` over
+``rdd.toLocalIterator``, never collecting); ``_transform`` predicts per
+partition through :func:`~.ml_util.predict_func`.
 
 Both stages take a ``device`` keyword (not a Param): ``None`` is the CUDA
 card, ``"cpu"`` must be asked for. The estimator hands it to its
@@ -17,8 +20,8 @@ card, ``"cpu"`` must be asked for. The estimator hands it to its
 The model's ``inferenceQuantize`` (``"weight_only"`` / ``"dynamic"``)
 serves int8 weights through ``predict_func``. Refused before any training
 with "not yet ported (see ROADMAP.md)": ``meshShape`` on either stage,
-``fitMode="stream"``, ``checkpointDir``, non-default ``ppMicrobatches`` /
-``ppSchedule`` / ``weightUpdateSharding`` / ``zeroStage``.
+non-default ``ppMicrobatches`` / ``ppSchedule`` / ``weightUpdateSharding``
+/ ``zeroStage``.
 
 Also importable as :mod:`sparkflow_tpu_torch.tensorflow_async`.
 """
@@ -234,10 +237,10 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
     port = Param(Params._dummy(), "port", "", typeConverter=TypeConverters.toInt)
     # the JAX package's upgrades over the reference param set, all kept so
     # persisted stages keep their shape: weightsPath (npz side-file weights),
-    # extraInputCols/extraTfInputs (multi-input feeds) and useEmaWeights are
-    # ported; checkpointDir/checkpointEvery, fitMode='stream', meshShape,
-    # ppMicrobatches/ppSchedule and weightUpdateSharding/zeroStage are
-    # refused (see the module docstring)
+    # extraInputCols/extraTfInputs (multi-input feeds), useEmaWeights,
+    # checkpointDir/checkpointEvery and fitMode='stream' are ported;
+    # meshShape, ppMicrobatches/ppSchedule and weightUpdateSharding/zeroStage
+    # are refused (see the module docstring)
     weightsPath = Param(Params._dummy(), "weightsPath", "", typeConverter=TypeConverters.toString)
     checkpointDir = Param(Params._dummy(), "checkpointDir", "", typeConverter=TypeConverters.toString)
     checkpointEvery = Param(Params._dummy(), "checkpointEvery", "", typeConverter=TypeConverters.toInt)
@@ -458,12 +461,8 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
         if zs not in (-1, 0, 1, 2, 3):
             raise ValueError(
                 "zeroStage must be -1 (unset) or 0-3; got %r" % zs)
-        if fit_mode == "stream":
-            _not_yet("fitMode='stream' (Trainer.fit_stream)")
         if self.getMeshShape():
             _not_yet("training on a device mesh (meshShape)")
-        if self.getOrDefault(self.checkpointDir):
-            _not_yet("checkpointDir (mid-training checkpoints)")
         pp_mb = _opt_param(self, self.ppMicrobatches, -1)
         if (pp_mb is not None and pp_mb >= 1) or sched != "gpipe":
             _not_yet("pipeline-parallel training (ppMicrobatches, "
@@ -535,12 +534,28 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
             loss_callback=self._loss_callback,
             dropout_name=self.getTfDropout(),
             acquire_lock=self.getAcquireLock(),
+            checkpoint_dir=self.getOrDefault(self.checkpointDir),
+            checkpoint_every=self.getOrDefault(self.checkpointEvery) or 0,
             device=self._device,
         )
-        items = rdd.collect()
-        features, labels = handle_features(
-            items, is_supervised=label_col is not None)
-        trainer.fit(features, labels)
+        if (self.getFitMode() or "collect").lower() == "stream":
+            # one epoch = one pass over rdd.toLocalIterator(): the dataset
+            # never fully materializes on the driver (bounded by one
+            # partition + the batch-assembly ring); iters x
+            # partitionShuffles passes, as the collect path's epochs, with
+            # the optimizer state and generators carried across passes
+            epochs = (max(1, self.getIters())
+                      * max(1, self.getPartitionShuffles()))
+            rdd.persist()
+            try:
+                trainer.fit_stream(rdd.toLocalIterator, epochs=epochs)
+            finally:
+                rdd.unpersist()
+        else:
+            items = rdd.collect()
+            features, labels = handle_features(
+                items, is_supervised=label_col is not None)
+            trainer.fit(features, labels)
         final_weights = trainer.weights_list()
         if self.getOrDefault(self.useEmaWeights):
             ema = trainer.ema_weights()

@@ -477,6 +477,64 @@ def test_remat_on_card_recomputes_the_forward_kernel(dev):
         np.testing.assert_array_equal(a, b)
 
 
+def test_remat_dots_on_card_recomputes_flash_fwd_and_matches_no_remat(dev):
+    """remat="dots" keeps the weight products' outputs and recomputes the
+    rest: flash_fwd launches twice per layer, as with remat=True, and
+    with the same dropout draws the fit equals the one without remat."""
+    from sparkflow_tpu_torch.trainer import Trainer
+    toks = np.random.default_rng(1).integers(0, 97, (8, 64)).astype(
+        np.float32)
+    fits = []
+    for remat in (False, "dots"):
+        before = flash_attention.launches
+        tr = Trainer(_tiny_lm_spec(dropout=0.1, remat=remat), "input_ids",
+                     None, optimizer="adam", learning_rate=1e-3, iters=1,
+                     mini_batch_size=8, seed=3)
+        res = tr.fit(toks)
+        fits.append((flash_attention.launches - before, res.losses,
+                     tr.weights_list()))
+    assert fits[0][0] == 2 and fits[1][0] == 4
+    assert fits[0][1] == fits[1][1]
+    for a, b in zip(fits[0][2], fits[1][2]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_preempted_fit_resumed_on_card_equals_the_uninterrupted_fit(
+        dev, tmp_path):
+    """A float32 BERT-width classifier (768 / 12 heads / 3072, cut to 2
+    layers and 128 tokens, dropout 0.1, adam) preempted by SIGTERM in epoch
+    2 of 3 and fitted again on the same checkpoint_dir lands on the
+    uninterrupted fit's weights, bit for bit: the kernels use no atomics and
+    the restored generators repeat the dropout and shuffle streams."""
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.resilience import faults
+    from sparkflow_tpu_torch.trainer import Trainer
+    spec = build_registry_spec("transformer_classifier", vocab_size=30522,
+                               num_classes=2, hidden=768, num_layers=2,
+                               num_heads=12, mlp_dim=3072, max_len=128,
+                               dropout=0.1)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 30522, (32, 128)).astype(np.float32)
+    mask = (np.arange(128)[None] < rs.randint(64, 129, (32, 1))).astype(
+        np.float32)
+    labels = rs.randint(0, 2, 32).astype(np.float32)
+
+    def fit(ck, cb):
+        tr = Trainer(spec, ["input_ids", "attention_mask"], "y",
+                     optimizer="adam", learning_rate=3e-4, iters=3,
+                     mini_batch_size=16, seed=1, checkpoint_dir=ck,
+                     checkpoint_every=1, loss_callback=cb)
+        return tr, tr.fit((ids, mask), labels)
+
+    base_tr, base = fit(str(tmp_path / "a"), lambda *a: None)
+    tr, first = fit(str(tmp_path / "b"), faults.sigterm_at(2))
+    assert first.stop_reason == "preempted" and len(first.losses) == 2
+    again = tr.fit((ids, mask), labels)
+    assert again.completed and first.losses + again.losses == base.losses
+    for a, b in zip(tr.weights_list(), base_tr.weights_list()):
+        np.testing.assert_array_equal(a, b)
+
+
 # -- quantized paged attention and paged verify attention ---------------------
 #
 # Tolerances as for the plain paged kernel: both sides compute in float32

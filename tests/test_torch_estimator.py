@@ -26,9 +26,9 @@ from sparkflow_tpu.models.registry import build_registry_spec as jax_spec
 from sparkflow_tpu.tensorflow_async import SparkAsyncDL as JaxSparkAsyncDL
 from sparkflow_tpu.tensorflow_async import SparkAsyncDLModel as JaxModel
 from sparkflow_tpu_torch.graph_utils import build_adam_config, build_graph
+from sparkflow_tpu_torch.checkpoint import CheckpointManager
 from sparkflow_tpu_torch.localml import (LocalSession, OneHotEncoder, Pipeline,
-                                         PipelineModel, Vectors,
-                                         WordpieceEncoder)
+                                         PipelineModel, Vectors)
 from sparkflow_tpu_torch.ml_util import predict_func, resolve_weights
 from sparkflow_tpu_torch.models import build_registry_spec
 from sparkflow_tpu_torch.pipeline_util import PysparkPipelineWrapper
@@ -154,8 +154,7 @@ def test_unsupervised_autoencoder_and_vector_predictions(spark):
 
 
 @pytest.mark.parametrize("over", [
-    {"meshShape": "dp=1"}, {"fitMode": "stream"},
-    {"checkpointDir": "/nonexistent"}, {"ppMicrobatches": 2},
+    {"meshShape": "dp=1"}, {"ppMicrobatches": 2},
     {"ppSchedule": "1f1b"}, {"weightUpdateSharding": "on"},
     {"zeroStage": 1}], ids=lambda d: next(iter(d)))
 def test_unported_params_are_refused_before_training(gaussian_df, over):
@@ -221,10 +220,108 @@ def test_the_params_keep_the_jax_packages_names_and_defaults():
             assert ours.getOrDefault(p.name) == theirs.getOrDefault(p.name)
 
 
-def test_wordpiece_encoder_is_refused(spark):
-    df = spark.createDataFrame([("a b",)], ["text"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        WordpieceEncoder(inputCol="text", outputCol="ids").transform(df)
+# -- fitMode="stream" and checkpointDir --------------------------------------
+
+def test_fit_mode_stream_never_collects(gaussian_df, monkeypatch):
+    """fitMode='stream' trains through rdd.toLocalIterator and never
+    materializes the dataset on the driver."""
+    from sparkflow_tpu_torch.localml.sql import RDD
+
+    def no_collect(self):
+        raise AssertionError("collect() called in stream mode")
+
+    monkeypatch.setattr(RDD, "collect", no_collect)
+    model = _estimator(iters=20, fitMode="stream",
+                       miniBatchSize=64).fit(gaussian_df)
+    monkeypatch.undo()
+    assert _errors(model.transform(gaussian_df)) < 40
+
+
+def test_fit_stream_consumes_the_iterator_boundedly():
+    """The stream path pulls rows in ring-sized chunks while it trains,
+    not all up front."""
+    from sparkflow_tpu_torch.trainer import Trainer
+    pulled, at_first_step = [], []
+
+    def rows():
+        rs = np.random.RandomState(3)
+        for i in range(5000):
+            pulled.append(i)
+            yield rs.rand(4).astype(np.float32), float(i % 2)
+
+    def m():
+        x = tnn.placeholder([None, 4], name="x")
+        y = tnn.placeholder([None, 1], name="y")
+        tnn.sigmoid_cross_entropy(y, tnn.dense(x, 1, name="out"))
+
+    def cb(loss, step, pid):
+        if not at_first_step:
+            at_first_step.append(len(pulled))
+
+    tr = Trainer(build_graph(m), "x:0", "y:0", mini_batch_size=32,
+                 loss_callback=cb, device="cpu")
+    res = tr.fit_stream(rows(), queue_capacity=2, chunk=64)
+    assert len(pulled) == 5000 and len(res.losses) == -(-5000 // 32)
+    assert at_first_step[0] < 1000, at_first_step
+
+
+def test_multi_input_stream_mode_through_estimator(spark):
+    """fitMode='stream' with extraInputCols: ids and mask ride the batch
+    ring as one row and split back per input before the step."""
+    seq, vocab = 8, 30
+    spec = build_registry_spec("transformer_classifier", vocab_size=vocab,
+                               num_classes=2, hidden=16, num_layers=1,
+                               num_heads=2, mlp_dim=32, max_len=seq,
+                               dropout=0.0)
+    rs = np.random.RandomState(0)
+    rows = []
+    for _ in range(60):
+        label = rs.randint(0, 2)
+        ids = rs.randint(3, vocab, seq)
+        if label:
+            ids[0] = 1  # marker token
+        n_real = rs.randint(seq // 2, seq + 1)
+        mask = np.zeros(seq)
+        mask[:n_real] = 1.0
+        ids[n_real:] = 0
+        rows.append((float(label), Vectors.dense(ids.astype(float)),
+                     Vectors.dense(mask)))
+    df = spark.createDataFrame(rows, ["label", "tokens", "mask"])
+    est = SparkAsyncDL(inputCol="tokens", tensorflowGraph=spec,
+                       tfInput="input_ids:0", tfLabel="y:0",
+                       tfOutput="pred:0", tfOptimizer="adam",
+                       tfLearningRate=0.01, iters=30, partitions=2,
+                       labelCol="label", predictionCol="predicted",
+                       miniBatchSize=16, fitMode="stream",
+                       extraInputCols="mask",
+                       extraTfInputs="attention_mask:0", device="cpu")
+    model = est.fit(df)
+    errs = sum(1 for r in model.transform(df).collect()
+               if round(float(r["predicted"])) != float(r["label"]))
+    assert errs < 15
+
+
+@pytest.mark.parametrize("mode", ["collect", "stream"])
+def test_checkpoint_dir_is_passed_to_the_trainer(gaussian_df, tmp_path,
+                                                 mode):
+    """checkpointDir / checkpointEvery reach the Trainer: epochs (collect)
+    or steps (stream) are saved, and a refit on the same directory resumes.
+    Collect: the refit restores the last epoch, has nothing left to run and
+    lands on the same weights. Stream: the refit continues from the saved
+    step on a new pass of the stream."""
+    ck = str(tmp_path / "ck")
+    est = _estimator(iters=4, miniBatchSize=100, checkpointDir=ck,
+                     checkpointEvery=2, fitMode=mode)
+    first = _predictions(est.fit(gaussian_df).transform(gaussian_df))
+    mgr = CheckpointManager(ck)
+    # 400 rows, batches of 100: 4 epochs of 4 steps; the newest 3 are kept
+    assert mgr.all_steps() == ([2, 4] if mode == "collect" else [12, 14, 16])
+    again = _predictions(est.fit(gaussian_df).transform(gaussian_df))
+    if mode == "collect":
+        assert mgr.all_steps() == [2, 4]
+        np.testing.assert_array_equal(again, first)
+    else:
+        assert mgr.all_steps() == [28, 30, 32]
 
 
 # -- (e) across the packages --------------------------------------------------

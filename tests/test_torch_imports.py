@@ -25,7 +25,14 @@ SUBPACKAGES = ["sparkflow_tpu_torch", "sparkflow_tpu_torch.device",
                "sparkflow_tpu_torch.ml_util",
                "sparkflow_tpu_torch.pipeline_util",
                "sparkflow_tpu_torch.spark_async",
-               "sparkflow_tpu_torch.tensorflow_async"]
+               "sparkflow_tpu_torch.tensorflow_async",
+               "sparkflow_tpu_torch.native", "sparkflow_tpu_torch.native.build",
+               "sparkflow_tpu_torch.utils.preempt",
+               "sparkflow_tpu_torch.utils.data",
+               "sparkflow_tpu_torch.utils.text",
+               "sparkflow_tpu_torch.utils.flops",
+               "sparkflow_tpu_torch.resilience.driver",
+               "sparkflow_tpu_torch.obs.stepstats"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -81,3 +88,13 @@ def test_chip_smoke_imports_no_jax():
                 else [])
         for m in mods:
             assert m.split(".")[0] not in ("jax", "jaxlib", "sparkflow_tpu")
+
+
+@pytest.mark.parametrize("name", ["dataplane.cpp", "tokenizer.cpp"])
+def test_native_sources_are_the_jax_packages(name):
+    """The host C++ of the data plane and the tokenizer is carried byte for
+    byte; only the Python around it is rewired."""
+    with open(os.path.join(PORT, "native", name), "rb") as f:
+        ours = f.read()
+    with open(os.path.join(REPO, "sparkflow_tpu", "native", name), "rb") as f:
+        assert ours == f.read()

@@ -222,7 +222,7 @@ def test_unported_families_raise(family):
         model_from_json(spec, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"remat": "dots"}, {"sp_axis": "sp"}])
+@pytest.mark.parametrize("kw", [{"sp_axis": "sp"}])
 def test_unported_model_options_raise(kw):
     spec = build_registry_spec("transformer_lm", **dict(CFG, **kw))
     with pytest.raises(ValueError, match="not yet ported"):

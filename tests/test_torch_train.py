@@ -206,6 +206,80 @@ def test_remat_recomputes_the_same_dropout():
         np.testing.assert_array_equal(a, b)
 
 
+def _remat_grads(remat, dropout, seed=5):
+    """One training forward and backward of a 2-layer LM (hidden 32, S=32)
+    with the given ``remat``, dropout drawn from a generator seeded
+    ``seed``: the loss, the gradients and the generator's state after."""
+    spec = build_registry_spec("transformer_lm", **dict(
+        LM, max_len=32, dropout=dropout, remat=remat))
+    tm = model_from_json(spec, device="cpu")
+    tp = tm.load_params(params_from_jax(tm, numpy_params(
+        tm.param_specs(), seed=6, std=0.1)), trainable=True)
+    gen = torch.Generator().manual_seed(seed)
+    loss = tm.loss_vector(tp, {"input_ids": torch.from_numpy(
+        _tokens(4, 3, 32))}, train=True, generator=gen).mean()
+    leaves = [tp[ln][pn] for ln, ps in tm.param_specs().items() for pn in ps]
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.numpy() for g in grads], gen.get_state()
+
+
+def test_remat_dots_matches_no_remat_with_dropout():
+    """remat="dots" recomputes each block's dropout from the same
+    generator state: loss and gradients equal remat=False's within 1e-5
+    (they come out bit-equal on this CPU), and the generator ends where it
+    would without remat."""
+    loss, grads, state = _remat_grads(False, 0.1)
+    dloss, dgrads, dstate = _remat_grads("dots", 0.1)
+    np.testing.assert_allclose(dloss, loss, **LOSS_TOL)
+    for g, w in zip(dgrads, grads):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
+    assert torch.equal(state, dstate)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_remat_dots_loss_and_gradients_match_jax(masked):
+    """The same step through JAX's ``remat="dots"`` (its
+    ``dots_with_no_batch_dims_saveable`` policy), dropout 0."""
+    jm, tm, npp = _pair("transformer_lm", dict(LM, remat="dots"))
+    assert tm.remat == jm.remat == "dots"
+    feeds = {"input_ids": _tokens(2, 3)}
+    if masked:
+        feeds["attention_mask"] = _pad_mask(3, 4)
+    _one_step(jm, tm, npp, feeds)
+
+
+def test_remat_dots_keeps_the_products_and_recomputes_attention(monkeypatch):
+    """Counted over one forward and backward: ``"dots"`` runs the
+    attention forward twice a block, as ``"full"`` does, and every weight
+    product once, as ``False`` does (FlopCounterMode: the products' and the
+    plain attention's matmul FLOPs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    import sparkflow_tpu_torch.models.transformer as tmod
+    calls = []
+    inner = tmod.flash_attention
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(tmod, "flash_attention", counted)
+    out = {}
+    for remat in (False, "dots", "full"):
+        calls.clear()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            _remat_grads(remat, 0.1)
+        out[remat] = (len(calls), counter.get_total_flops())
+    layers = LM["num_layers"]
+    assert [out[r][0] for r in (False, "dots", "full")] == [
+        layers, 2 * layers, 2 * layers]
+    b, s, h, m = 3, 32, LM["hidden"], LM["mlp_dim"]
+    attention_fwd = layers * 4 * b * s * s * h      # QK^T and PV, unmasked
+    products_fwd = layers * 2 * b * s * (4 * h * h + 2 * h * m)
+    assert out["dots"][1] - out[False][1] == attention_fwd
+    assert out["full"][1] - out["dots"][1] == products_fwd
+
+
 def test_trainer_predict_ema_and_weights():
     r, tr = _small_fit(1, optimizer_options={"learning_rate": 0.01,
                                              "ema_decay": 0.9})
@@ -223,9 +297,8 @@ def test_trainer_misuse_raises():
     spec = build_registry_spec("transformer_lm", **LM)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Trainer(spec, "input_ids", None, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer(spec, "input_ids", None, checkpoint_dir="/nonexistent",
-                device="cpu")
+    with pytest.raises(ValueError, match="traces and compiles nothing"):
+        Trainer(spec, "input_ids", None, debug_recompiles=True, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Trainer(spec, "input_ids", None, strategy="elastic_dp", device="cpu")
     with pytest.raises(KeyError, match="known tensors"):
