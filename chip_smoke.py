@@ -155,7 +155,39 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     "dots" and "full" loss and gradients against False's within the bf16
     backward tolerance.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14; a ``[time]`` line
+15. fleet: README's "Serve from a fleet" path. Replicas are subprocesses
+    (this script re-invoked with ``--replica KIND PORT``) running the port's
+    ``InferenceServer`` on the card, each with a fresh empty kernel build
+    directory, no ``nvcc`` on ``PATH`` or under ``CUDA_HOME``, and
+    ``executable_dir`` set to an ``ExecutableStore`` this process filled
+    with the library it built at setup; each prints its boot tier (1 = the
+    store; tier 3 fails) and its boot-to-healthy and boot-to-first-answer
+    seconds, beside this process's own build time. (a) Phase 12's BERT-base
+    on phase 13's published weights (float32, ``max_batch=32``) behind
+    ``RouterServer`` over an ``Autoscaler`` + ``ReplicaManager`` (min 1, max
+    3): 12 closed-loop clients of 1-8 rows (phase 13's traffic, drawn
+    from a 128-row pool) grow the fleet to 2 or more, one replica is
+    SIGKILLed mid-burst and replaced, a trickle drains it back to 1; the
+    clients retry nothing, and every answer equals the parent engine's
+    probs of its rows, as one bucket of its ladder computes them, within
+    phase 13's float32 replay limit. (b) One more replica boots from this
+    process's build directory (``compile_cache_dir``, tier 2). (c) ``RouterServer(canary=True)`` over a pinned replica and one
+    whose ``WeightWatcher`` follows the store: a version scaled by 1 + 1e-3
+    is promoted; a version with one NaN leaf is quarantined and rolled back
+    (the gate forwards the NaN answer that closes it, as the JAX router
+    does; at most one), with no other failure. (d) Two GPT-2-small decode
+    replicas (bf16, 8 slots, page 16) behind ``/v1/generate``: 8 greedy
+    prompts of 64-700 tokens, 32 new tokens each, token-identical to this
+    process's own ``DecodeEngine``; dispatch split, TTFT p50/p95. Drained
+    replicas report their launches (12 ``flash_fwd`` a bucket call or
+    prefill, 12 ``paged_attention`` a decode step, nothing else). (e) A
+    seeded trace replayed through the router after (a), then through
+    ``FleetSimulator`` with ``CostModel.fit_predict`` over the real
+    latencies: the sim-over-real p95 ratio, a reading only. The replicas
+    share the card's SMs: the phase measures routing, recovery, canary and
+    boot time, not scale-out throughput.
+
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15; a ``[time]`` line
 gives each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
@@ -169,6 +201,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2703,6 +2736,807 @@ def phase_resilience(card, work):
             "remat_flash_fwd_per_step": remat}
 
 
+# phase 15: the serving fleet — README's "Serve from a fleet" at BERT-base
+# and GPT-2-small width. Replicas are subprocesses (this script re-invoked
+# with ``--replica KIND PORT``), each on the card in a CUDA context of its
+# own, sharing the card's SMs: the phase measures routing, recovery, canary
+# and boot time, not scale-out throughput.
+#
+# bands on the router's request p95: a burst queues behind bucket-32 calls
+# (81 ms in float32 on an H100 80GB HBM3, 700 W; PERF.md section 5), a
+# one-row trickle does not
+FLEET_TARGETS = dict(min_replicas=1, max_replicas=3, queue_wait_high_ms=100.0,
+                     queue_wait_low_ms=40.0, up_cooldown_s=2.0,
+                     down_cooldown_s=3.0, max_step_up=1)
+FLEET_WORKERS = 12         # closed-loop burst clients, 1-8 rows a request
+FLEET_HEALTH_S = 120.0     # one replica's boot, at most
+GEN_LENS = (64, 100, 160, 255, 300, 450, 512, 700)
+GEN_NEW = 32
+CANARY_MIN_REQUESTS = 10
+FLEET_POOL_ROWS = 128     # distinct rows the fleet's requests draw from
+_FLEET_PROCS = []          # every replica process the phase started
+
+
+def _no_nvcc_path() -> str:
+    """``PATH`` without any directory that holds an ``nvcc``."""
+    return os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+
+
+def _launch_replica(cfg: dict, port: int, launched: dict):
+    """Start one replica on ``port``: a fresh empty kernel build directory,
+    no ``nvcc`` on ``PATH`` or under ``CUDA_HOME``."""
+    path = os.path.join(cfg["out"], f"cfg-{port}.json")
+    kdir = os.path.join(cfg["out"], f"kernels-{port}")
+    os.makedirs(kdir)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env.update(PATH=_no_nvcc_path(), CUDA_HOME=kdir,
+               SPARKFLOW_TORCH_KERNEL_DIR=kdir, CHIP_SMOKE_REPLICA=path)
+    launched[port] = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--replica",
+         cfg["kind"], str(port)], env=env)
+    _FLEET_PROCS.append(proc)
+    return proc
+
+
+def _write_status(path, status):
+    tmp = f"{path}.{threading.get_ident()}.tmp"   # the server's threads too
+    with open(tmp, "w") as f:
+        json.dump(status, f)
+    os.replace(tmp, path)
+
+
+def _meta_like(model):
+    """The model's parameter tree as ``meta`` tensors: the template a
+    ``WeightStore`` load pins shapes to."""
+    import torch
+    return {ln: {pn: torch.empty(shape, device="meta")
+                 for pn, (shape, _init) in layer.items()}
+            for ln, layer in model.param_specs().items()}
+
+
+def _replica_predict_engine(cfg, status):
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.serving import (InferenceEngine, WeightStore,
+                                             WeightWatcher)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(cfg["spec"]) as f:
+        spec = f.read()
+    model = model_from_json(spec, device=cfg["device"])
+    store = WeightStore(cfg["store"])
+    version, tree = store.load(version=cfg["version"],
+                               like=_meta_like(model))
+    status["t_weights"] = time.time()
+    eng = InferenceEngine(model, tree, input_name=PREDICT_IN,
+                          output_name="probs:0", max_batch=PREDICT_MAX_BATCH,
+                          executable_dir=cfg["exe"],
+                          compile_cache_dir=cfg["compile_cache"])
+    # serve as the store's version, so the canary sees one incumbent
+    eng.swap_params(tree, version=version)
+    watcher = (WeightWatcher(store, [eng], poll_interval_s=0.2)
+               if cfg["watch"] else None)
+    return eng, watcher
+
+
+def run_replica(kind: str, port: int) -> int:
+    """One fleet replica (``python3 chip_smoke.py --replica KIND PORT``):
+    the port's ``InferenceServer`` over a BERT-base predict engine or a
+    GPT-2-small decode engine, until SIGTERM drains it. Its status file
+    carries the boot tier, the ready and first-answer times and, at exit,
+    the launch counts of what it served."""
+    with open(os.environ["CHIP_SMOKE_REPLICA"]) as f:
+        cfg = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.resilience.lifecycle import ServerState
+    from sparkflow_tpu_torch.serving import (ContinuousBatcher, DecodeEngine,
+                                             InferenceServer)
+    status_path = os.path.join(cfg["out"], f"replica-{port}.json")
+    status = {"kind": kind, "port": port, "pid": os.getpid(),
+              "role": cfg.get("role"), "t_imported": time.time()}
+    if cfg["device"] != "cpu":
+        torch.zeros(1, device="cuda")       # the CUDA context
+    status["t_context"] = time.time()
+    if kind == "predict":
+        eng, watcher = _replica_predict_engine(cfg, status)
+        first = eng.predict
+
+        def predict(x):
+            out = first(x)
+            if "t_first_answer" not in status:
+                status["t_first_answer"] = time.time()
+                _write_status(status_path, status)
+            return out
+
+        eng.predict = predict
+        srv = InferenceServer(eng, port=port, max_delay_ms=2.0,
+                              memory_watch=False, weight_watcher=watcher,
+                              flight_dir=cfg["out"])
+    else:
+        from sparkflow_tpu_torch.models import (build_registry_spec,
+                                                model_from_json)
+        model = model_from_json(build_registry_spec("transformer_lm",
+                                                    **cfg["lm"]),
+                                compute_dtype="bfloat16",
+                                device=cfg["device"])
+        params = model.init(torch.Generator().manual_seed(0))
+        eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0,
+                           executable_dir=cfg["exe"])
+        first = eng.prefill
+
+        def prefill(*a, **kw):
+            out = first(*a, **kw)
+            if "t_first_answer" not in status:
+                status["t_first_answer"] = time.time()   # its first token
+                _write_status(status_path, status)
+            return out
+
+        eng.prefill = prefill
+        srv = InferenceServer(None, port=port,
+                              generate_batcher=ContinuousBatcher(
+                                  eng, max_queue=64),
+                              memory_watch=False, flight_dir=cfg["out"])
+    status["boot"] = eng.boot
+    status["t_engine"] = time.time()
+    calls0 = eng.metrics.histograms().get(
+        "serving/engine_batch_rows", {}).get("count", 0)
+    reset_launch_counts()        # what follows is served traffic only
+    srv.start()
+    srv.install_signal_handlers()
+    status["t_ready"] = time.time()
+    _write_status(status_path, status)
+    while srv.lifecycle.state in (ServerState.STARTING, ServerState.SERVING):
+        time.sleep(0.1)
+    srv.stop()
+    st = eng.stats()
+    status.update(launches=launch_counts(), t_exit=time.time(),
+                  bucket_calls=eng.metrics.histograms().get(
+                      "serving/engine_batch_rows", {}).get("count", 0)
+                  - calls0,
+                  steps=st.get("steps"), prefills=st.get("prefills"),
+                  serving_version=st.get("serving_version"))
+    _write_status(status_path, status)
+    return 0
+
+
+def _read_status(out, port):
+    try:
+        with open(os.path.join(out, f"replica-{port}.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _wait(cond, timeout_s, what):
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        if cond():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"timed out after {timeout_s:.0f} s: {what}")
+
+
+def _wait_ready(out, port, proc):
+    def ready():
+        if proc.poll() is not None:
+            raise AssertionError(f"replica on {port} exited with "
+                                 f"{proc.returncode} before it was ready")
+        st = _read_status(out, port)
+        return st is not None and "t_ready" in st
+    _wait(ready, FLEET_HEALTH_S, f"replica on {port} ready")
+
+
+def _boot_row(out, port, launched, cuda):
+    """One replica's boot: its tier and its boot-to-healthy and
+    boot-to-first-answer seconds from its launch; tier 3 (or, on the card,
+    anything but the tier asked for) fails the phase."""
+    st = _read_status(out, port) or {}
+    boot = st.get("boot") or {}
+    row = {"port": port, "kind": st.get("kind"), "role": st.get("role"),
+           "tier": boot.get("tier"), "source": boot.get("source"),
+           "kernels_boot_s": boot.get("boot_s")}
+    t0 = launched[port]
+    # the boot's steps, each from the launch: interpreter and imports, the
+    # CUDA context, the weights read (predict), the engine (kernels, model,
+    # warmup), the server up
+    for step in ("imported", "context", "weights", "engine"):
+        if f"t_{step}" in st:
+            row[f"{step}_s"] = st[f"t_{step}"] - t0
+    if "t_ready" in st:
+        row["boot_to_healthy_s"] = st["t_ready"] - t0
+    if "t_first_answer" in st:
+        row["boot_to_first_answer_s"] = st["t_first_answer"] - t0
+    if cuda and row["tier"] not in (1, 2):
+        raise AssertionError(f"replica on {port} booted its kernels by "
+                             f"{row}: a replica must not build them")
+    return row
+
+
+def _served_launches(out, ports, cuda, kind, layers):
+    """Launch counts of drained replicas (a SIGKILLed one writes none),
+    checked against what each served: 12 ``flash_fwd`` a bucket call and
+    nothing else for predict; 12 a prefill and 12 ``paged_attention`` a
+    decode step for generate."""
+    rows = []
+    for port in ports:
+        st = _read_status(out, port) or {}
+        if "launches" not in st:
+            continue
+        lc = st["launches"]
+        if kind == "predict":
+            want = {"flash_fwd": layers * st["bucket_calls"]}
+        else:
+            want = {"flash_fwd": layers * st["prefills"],
+                    "paged_attention": layers * st["steps"]}
+        others = {k: v for k, v in lc.items() if k not in want and v}
+        if cuda and ({k: lc.get(k) for k in want} != want or others
+                     or not all(want.values())):
+            raise AssertionError(f"replica on {port}: launches {lc}, want "
+                                 f"{want} and no other")
+        rows.append({"port": port, **{k: lc.get(k, 0) for k in want},
+                     "bucket_calls": st.get("bucket_calls"),
+                     "steps": st.get("steps"),
+                     "prefills": st.get("prefills")})
+    return rows
+
+
+def _fleet_client(url, pool, seed, errors, answers, stop, rows_max=8):
+    """A closed-loop predict client (no retries): 1-``rows_max`` rows of
+    ``pool`` a request until ``stop`` is set; every answer is kept with
+    the rows' indices in the pool."""
+    import numpy as np
+    from sparkflow_tpu_torch.serving import ServingClient
+    cli = ServingClient(url, retries=0, timeout=120)
+    rs = np.random.RandomState(seed)
+    while not stop.is_set():
+        idx = rs.randint(0, len(pool[0]), rs.randint(1, rows_max + 1))
+        t = time.perf_counter()
+        try:
+            out = cli.predict({"input_ids": pool[0][idx],
+                               "attention_mask": pool[1][idx]})
+            answers.append((idx, np.asarray(out, np.float64),
+                            (time.perf_counter() - t) * 1e3))
+        except Exception as e:  # noqa: BLE001 - every failure is counted
+            errors.append(f"client {seed}: {type(e).__name__}: {e}")
+    cli.close()
+
+
+def _pool_probs(eng, pool):
+    """The parent engine's probs of every pool row as each bucket of its
+    ladder computes them, ``[buckets, rows, classes]``: a replica's
+    batcher runs a request in whichever bucket its joined batch fills,
+    and float32 GEMMs of another height sum in another order."""
+    import numpy as np
+    n = len(pool[0])
+    return np.stack([np.concatenate([
+        np.asarray(eng.predict((pool[0][i:i + b], pool[1][i:i + b])),
+                   np.float64) for i in range(0, n, b)])
+        for b in eng.buckets])
+
+
+def _answer_err(answers, want):
+    """Per answer, the largest difference over its rows from the parent's
+    probs of the same rows in the bucket closest to it (``want`` from
+    :func:`_pool_probs`)."""
+    import numpy as np
+    return np.array([np.abs(got[None] - want[:, idx]).max(axis=(1, 2)).min()
+                     for idx, got, _ms in answers])
+
+
+def _predict_fleet(card, cfg, pool, want, cuda):
+    """(a): RouterServer over an Autoscaler + ReplicaManager (min 1, max 3);
+    a burst, a SIGKILL mid-burst, a trickle; (e) on the fleet left."""
+    from sparkflow_tpu_torch.serving import (Autoscaler, ReplicaManager,
+                                             RouterServer, ServingClient,
+                                             policies)
+    from sparkflow_tpu_torch.serving.autoscaler import free_port
+    out, launched = cfg["out"], {}
+    pcfg = dict(cfg, kind="predict", role="autoscaled")
+
+    def launcher(port):
+        return _launch_replica(pcfg, port, launched)
+
+    port0 = free_port()
+    proc0 = launcher(port0)
+    _wait_ready(out, port0, proc0)
+    router = RouterServer([f"http://127.0.0.1:{port0}"],
+                          probe_interval_s=0.2, dispatch_retries=4,
+                          max_inflight=4 * FLEET_WORKERS)
+    router.start()
+    manager = ReplicaManager(launcher, membership=router.membership,
+                             health_timeout_s=FLEET_HEALTH_S,
+                             drain_timeout_s=30.0, flight_dir=out)
+    manager.adopt(router.membership.replicas[0], proc0)
+    scaler = Autoscaler(router.membership, manager,
+                        targets=policies.ScaleTargets(**FLEET_TARGETS),
+                        interval_s=0.5, signal_window=64)
+    errors, answers, stop = [], [], threading.Event()
+    threads = [threading.Thread(target=_fleet_client,
+                                args=(router.url, pool, 10 + w, errors,
+                                      answers, stop), daemon=True)
+               for w in range(FLEET_WORKERS)]
+    timeline, sizes, sampled = {}, [1], threading.Event()
+
+    def sample():
+        while not sampled.is_set():
+            sizes.append(manager.managed_count)
+            time.sleep(0.1)
+
+    try:
+        scaler.start()
+        threading.Thread(target=sample, daemon=True).start()
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        _wait(lambda: scaler.spawns >= 1 and manager.managed_count >= 2,
+              4 * FLEET_HEALTH_S, "the burst grows the fleet to 2")
+        timeline["grown_s"] = time.time() - t0
+        victim = manager.managed()[-1]
+        vproc = manager._managed[victim.index].proc
+        t_kill = time.time()
+        vproc.send_signal(signal.SIGKILL)
+        vproc.wait(timeout=30)
+        _wait(lambda: scaler.replacements >= 1,
+              2 * FLEET_HEALTH_S, "the SIGKILLed replica is replaced")
+        timeline["kill_to_replaced_s"] = time.time() - t_kill
+        n0 = len(answers)
+        _wait(lambda: len(answers) >= n0 + 4 * FLEET_WORKERS, 60,
+              "the burst goes on after the replacement")
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a burst client did not finish")
+        t_trickle = time.time()
+        trickle_stop = threading.Event()
+        trickle = threading.Thread(
+            target=_fleet_client, args=(router.url, pool, 99, errors,
+                                        answers, trickle_stop, 1),
+            daemon=True)
+        trickle.start()
+        _wait(lambda: manager.managed_count == FLEET_TARGETS["min_replicas"]
+              and scaler.drains >= 1, 120, "the trickle drains the fleet "
+              "back to its minimum")
+        timeline["trickle_to_min_s"] = time.time() - t_trickle
+        sampled.set()
+        peak = max(sizes)
+        trickle_stop.set()
+        trickle.join(timeout=60)
+        gauges = {k: v for k, v in router.metrics.gauges().items()
+                  if k.startswith("autoscaler/")}
+        scaler.stop()
+        if errors:
+            raise AssertionError(f"{len(errors)} client-visible failures: "
+                                 f"{errors[:3]}")
+        tol = PREDICT_TOL["a"]["replay"]
+        err = float(_answer_err(answers, want).max())
+        # the same answers against the bucket-32 reference alone: what
+        # float32 reduction order alone moves the probs by
+        err32 = float(_answer_err(answers, want[-1:]).max())
+        lat = [a[2] for a in answers]
+        calib = _calibrate(router.url, len(router.membership.replicas))
+        summary = {"requests": len(answers), "client_failures": len(errors),
+                   "max_abs_err_vs_parent": err,
+                   "max_abs_err_vs_parent_bucket32": err32, "tol": tol,
+                   "request_ms_p50": _pct(lat, 50),
+                   "request_ms_p95": _pct(lat, 95),
+                   "spawns": scaler.spawns, "drains": scaler.drains,
+                   "replacements": scaler.replacements, "peak_replicas": peak,
+                   "timeline": timeline,
+                   "flight_records": [
+                       {"replica": r.get("replica_url"),
+                        "reason": r.get("harvest_reason"),
+                        "inflight_trace_ids": len(
+                            r.get("inflight_trace_ids", []))}
+                       for r in manager.flight_reports],
+                   "autoscaler_gauges": gauges,
+                   "card": card}
+        log("[fleet-predict] " + json.dumps(summary))
+        if peak < 2 or scaler.replacements < 1 or scaler.drains < 1:
+            raise AssertionError("the fleet did not grow, heal and shrink")
+        if not err <= tol:
+            raise AssertionError(f"predict fleet: served answers vs the "
+                                 f"parent engine: max |d| {err} (tol {tol})")
+    finally:
+        stop.set()
+        sampled.set()
+        scaler.stop()
+        manager.stop_all()
+        router.stop()
+    summary["replica_launches"] = _served_launches(
+        out, sorted(launched), cuda, "predict", BERT_BASE["num_layers"])
+    boots = [_boot_row(out, p, launched, cuda) for p in sorted(launched)]
+    return summary, boots, calib
+
+
+def _calibrate(url, replicas):
+    """(e): a seeded trace replayed open-loop through the router (one row a
+    request, BERT-base), then the same trace through ``FleetSimulator``
+    with ``CostModel.fit_predict`` over the real latencies, as
+    ``sim/calibrate.py`` does; the p95 ratio is a reading, not a gate."""
+    from sparkflow_tpu_torch.serving import ServingClient, policies
+    from sparkflow_tpu_torch.sim import (CostModel, FleetSimulator,
+                                         ReplicaSpec, synthetic_trace)
+    tr = synthetic_trace(80, seed=1, rate_rps=20.0, session_fraction=0.0,
+                         burst_factor=2.0)
+    rows = _predict_rows(1, 4242)
+    lat, errors = [], []
+    lock = threading.Lock()
+    cli = ServingClient(url, retries=0, timeout=120)
+
+    def one(delay):
+        time.sleep(delay)
+        t = time.perf_counter()
+        try:
+            cli.predict({"input_ids": rows[0], "attention_mask": rows[1]})
+            with lock:
+                lat.append((time.perf_counter() - t) * 1e3)
+        except Exception as e:  # noqa: BLE001 - counted and raised below
+            errors.append(e)
+
+    base = tr[0].arrival_s
+    threads = [threading.Thread(target=one, args=(r.arrival_s - base,))
+               for r in tr]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    cli.close()
+    if errors:
+        raise AssertionError(f"calibration replay: {errors[:3]}")
+    cost = CostModel.fit_predict(lat)
+    rep = FleetSimulator([ReplicaSpec(slots=8) for _ in range(replicas)],
+                         tr, cost, mode="predict", seed=0,
+                         probe_interval_s=0.2).run()
+    real = policies.percentile_nearest_rank(lat, 95.0)
+    return {"trace_requests": len(tr), "replicas": replicas,
+            "fitted_predict_ms": cost.predict_ms, "real_p50_ms":
+            policies.percentile_nearest_rank(lat, 50.0),
+            "real_p95_ms": real, "sim_p95_ms": rep.latency_p95_ms,
+            "sim_over_real_p95": rep.latency_p95_ms / real}
+
+
+def _tier2_replica(card, cfg, cuda):
+    """(b): one more predict replica, booted from the parent's build
+    directory (``compile_cache_dir``), no store, no ``nvcc``."""
+    from sparkflow_tpu_torch.serving import ServingClient
+    from sparkflow_tpu_torch.serving.autoscaler import free_port
+    launched = {}
+    tcfg = dict(cfg, kind="predict", role="compile_cache", exe=None,
+                compile_cache=cfg["parent_build_dir"])
+    port = free_port()
+    proc = _launch_replica(tcfg, port, launched)
+    try:
+        _wait_ready(cfg["out"], port, proc)
+        rows = _predict_rows(3, 77)
+        ServingClient(f"http://127.0.0.1:{port}", retries=0,
+                      timeout=120).predict({"input_ids": rows[0],
+                                            "attention_mask": rows[1]})
+        _wait(lambda: "t_first_answer" in (_read_status(cfg["out"], port)
+                                           or {}), 30, "first answer noted")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    row = _boot_row(cfg["out"], port, launched, cuda)
+    if cuda and row["tier"] != 2:
+        raise AssertionError(f"compile_cache_dir replica: {row}")
+    return row, _served_launches(cfg["out"], [port], cuda, "predict",
+                                 BERT_BASE["num_layers"])
+
+
+def _canary(card, cfg, pool, want, cuda):
+    """(c): ``RouterServer(canary=True)`` over a pinned replica and a
+    watching one; a good version (v1 x (1 + 1e-3)) is promoted, a version
+    with one NaN leaf is quarantined and rolled back."""
+    import numpy as np
+    from sparkflow_tpu_torch.serving import (RouterServer, ServingClient,
+                                             WeightStore)
+    from sparkflow_tpu_torch.serving.autoscaler import free_port
+    store = WeightStore(cfg["store"])
+    launched, procs = {}, {}
+    for role, watch in (("pinned", False), ("canary", True)):
+        port = free_port()
+        procs[role] = (port, _launch_replica(
+            dict(cfg, kind="predict", role=role, watch=watch), port,
+            launched))
+    for port, proc in procs.values():
+        _wait_ready(cfg["out"], port, proc)
+    router = RouterServer([f"http://127.0.0.1:{p}" for p, _ in
+                           procs.values()], probe_interval_s=0.1,
+                          dispatch_retries=4, canary=True,
+                          canary_fraction=0.5,
+                          canary_min_requests=CANARY_MIN_REQUESTS,
+                          canary_latency_factor=4.0, weight_store=store)
+    router.start()
+    canary_url = f"http://127.0.0.1:{procs['canary'][0]}"
+    cli = ServingClient(router.url, retries=0, timeout=120)
+    answers, nans = [], []
+    rs = np.random.RandomState(5)
+
+    def send(n):
+        for _ in range(n):
+            idx = rs.randint(0, len(pool[0]), rs.randint(1, 5))
+            got = np.asarray(cli.predict({"input_ids": pool[0][idx],
+                                          "attention_mask": pool[1][idx]}),
+                             np.float64)
+            (nans if np.isnan(got).any() else answers).append(
+                (idx, got, 0.0))
+
+    def version_of(url):
+        for r in router.membership.snapshot():
+            if r["url"] == url:
+                return r["version"]
+        return None
+
+    ctl = router.canary_ctl
+    try:
+        send(2 * CANARY_MIN_REQUESTS)
+        good = want["good_tree"]
+        t_pub = time.time()
+        v_good = store.publish(good)
+        _wait(lambda: version_of(canary_url) == v_good, 30,
+              "the canary replica serves the good version")
+        while ctl.promotions < 1 and time.time() - t_pub < 60:
+            send(1)
+        promote_s = time.time() - t_pub
+        if ctl.promotions != 1 or ctl.incumbent != v_good:
+            raise AssertionError(f"good version not promoted: "
+                                 f"{ctl.stats()}")
+        bad = {ln: dict(layer) for ln, layer in good.items()}
+        ln0 = sorted(bad)[-1]
+        pn0 = sorted(bad[ln0])[0]
+        bad[ln0][pn0] = bad[ln0][pn0].copy()
+        bad[ln0][pn0].reshape(-1)[0] = np.nan
+        t_pub = time.time()
+        v_bad = store.publish(bad)
+        _wait(lambda: version_of(canary_url) == v_bad, 30,
+              "the canary replica serves the NaN version")
+        while ctl.rollbacks < 1 and time.time() - t_pub < 60:
+            send(1)
+        rollback_s = time.time() - t_pub
+        if ctl.rollbacks != 1 or v_bad not in ctl.quarantined:
+            raise AssertionError(f"NaN version not rolled back: "
+                                 f"{ctl.stats()}")
+        if store.latest_version() != v_good:
+            raise AssertionError(f"store not repointed: {store.stats()}")
+        _wait(lambda: version_of(canary_url) == v_good, 30,
+              "the canary replica reverts to the good version")
+        revert_s = time.time() - t_pub
+        send(2 * CANARY_MIN_REQUESTS)
+        stats = ctl.stats()
+    finally:
+        cli.close()
+        router.stop()
+        for port, proc in procs.values():
+            proc.terminate()
+        for port, proc in procs.values():
+            proc.wait(timeout=60)
+    if len(nans) > 1:
+        raise AssertionError(f"{len(nans)} NaN answers: the gate must close "
+                             f"on the first")
+    # each answer is the parent's on the incumbent or on the good version
+    tol = PREDICT_TOL["a"]["replay"]
+    e1, e2 = _answer_err(answers, want["v1"]), _answer_err(answers,
+                                                          want["good"])
+    err = np.minimum(e1, e2)
+    if not err.max() <= tol:
+        raise AssertionError(f"canary answers vs the parent: {err.max()}")
+    return {"requests": len(answers) + len(nans), "nan_answers": len(nans),
+            "answers_on_good_version": int((e2 <= tol).sum()),
+            "max_abs_err_vs_parent": float(err.max()), "tol": tol,
+            "promote_s": promote_s, "rollback_s": rollback_s,
+            "revert_s": revert_s, "versions": [v_good, v_bad],
+            "canary": {k: stats[k] for k in ("incumbent", "canary",
+                                             "quarantined", "promotions",
+                                             "rollbacks")},
+            "store": store.stats(), "card": card}, \
+        [_boot_row(cfg["out"], p, launched, cuda) for p in sorted(launched)], \
+        _served_launches(cfg["out"], sorted(launched), cuda, "predict",
+                         BERT_BASE["num_layers"])
+
+
+def _generate_fleet(card, cfg, cuda):
+    """(d): two GPT-2-small decode replicas behind the router's
+    ``/v1/generate``; 8 greedy prompts of 64-700 tokens, 32 new tokens
+    each, token-identical to the parent's own engine."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.serving import (DecodeEngine, RouterServer,
+                                             ServingClient)
+    from sparkflow_tpu_torch.serving.autoscaler import free_port
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg["lm"]["vocab_size"], n).tolist()
+               for n in GEN_LENS]
+    launched, procs = {}, []
+    gcfg = dict(cfg, kind="generate", role="generate")
+    for _ in range(2):
+        port = free_port()
+        procs.append((port, _launch_replica(gcfg, port, launched)))
+    model = model_from_json(build_registry_spec("transformer_lm",
+                                                **cfg["lm"]),
+                            compute_dtype="bfloat16", device=cfg["device"])
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0)
+    want = _greedy(eng, prompts, GEN_NEW)
+    del eng, model, params
+    if cuda:
+        torch.cuda.empty_cache()
+    for port, proc in procs:
+        _wait_ready(cfg["out"], port, proc)
+    # each fresh replica's first requests pay first-use costs (the lazy
+    # load of every GEMM shape's module): one request per prompt length,
+    # straight to each replica, before the measured burst
+    cold = []
+    for port, _proc in procs:
+        cli = ServingClient(f"http://127.0.0.1:{port}", retries=0,
+                            timeout=300)
+        for n in GEN_LENS:
+            r = cli.generate(rng.integers(0, cfg["lm"]["vocab_size"],
+                                          n).tolist(), max_new_tokens=2)
+            cold.append(r["timing_ms"]["queue_wait_ms"]
+                        + r["timing_ms"]["prefill_ms"])
+        cli.close()
+    router = RouterServer([f"http://127.0.0.1:{p}" for p, _ in procs],
+                          probe_interval_s=0.1, dispatch_retries=4).start()
+    results, errors = [None] * len(prompts), []
+    try:
+        cli = ServingClient(router.url, retries=0, timeout=300)
+
+        def one(i):
+            t = time.perf_counter()
+            try:
+                r = cli.generate(prompts[i], max_new_tokens=GEN_NEW)
+                results[i] = (r, (time.perf_counter() - t) * 1e3)
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        split = [r["successes"] for r in router.membership.snapshot()]
+    finally:
+        router.stop()
+        for _port, proc in procs:
+            proc.terminate()
+        for _port, proc in procs:
+            proc.wait(timeout=60)
+    if errors:
+        raise AssertionError(f"{len(errors)} client-visible failures: "
+                             f"{errors[:3]}")
+    got = [r["tokens"] for r, _ in results]
+    if got != want:
+        bad = [i for i in range(len(got)) if got[i] != want[i]]
+        raise AssertionError(f"prompts {bad}: router tokens differ from the "
+                             f"parent engine's")
+    ttft = [r["timing_ms"]["queue_wait_ms"] + r["timing_ms"]["prefill_ms"]
+            for r, _ in results]
+    total = [ms for _, ms in results]
+    return {"requests": len(results), "tokens_identical_to_parent": True,
+            "warmup_ttft_ms_first_per_replica": [cold[0],
+                                                 cold[len(GEN_LENS)]],
+            "warmup_ttft_ms_max": max(cold),
+            "dispatch_split": split, "ttft_ms_p50": _pct(ttft, 50),
+            "ttft_ms_p95": _pct(ttft, 95),
+            "request_ms_p50": _pct(total, 50),
+            "request_ms_p95": _pct(total, 95), "wall_s": wall,
+            "tokens_per_s": sum(len(g) for g in got) / wall,
+            "card": card}, \
+        [_boot_row(cfg["out"], p, launched, cuda) for p in sorted(launched)], \
+        _served_launches(cfg["out"], sorted(launched), cuda, "generate",
+                         cfg["lm"]["num_layers"])
+
+
+def phase_fleet(card, spec, work, lm=None, device=None):
+    """Phase 15: the port's serving fleet on the card (see the module
+    docstring); returns the fleet's launches for the kernels line."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import _build
+    from sparkflow_tpu_torch.serving import (ExecutableStore, InferenceEngine,
+                                             WeightStore)
+    from sparkflow_tpu_torch.serving.coldstart import boot_kernels
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = os.path.join(work, "fleet")
+    os.makedirs(out)
+    spec_path = os.path.join(out, "spec.json")
+    with open(spec_path, "w") as f:
+        f.write(spec)
+    # the store the replicas boot their kernels from, filled with the
+    # library this process built at setup
+    exe = os.path.join(work, "executables")
+    parent = _build.loaded() if cuda else None
+    if cuda:
+        # the library this process loaded at setup goes to the store
+        fill = boot_kernels(ExecutableStore(exe), None, torch.device("cuda"))
+        if fill["source"] != "already_loaded" or not fill["saved"]:
+            raise AssertionError(f"cannot fill the kernel store: {fill}")
+        ldd = subprocess.run(["ldd", parent["path"]], capture_output=True,
+                             text=True).stdout
+        log("[fleet] ldd of the kernel library:\n" + ldd.rstrip())
+        if "libcudart" in ldd:
+            raise AssertionError("the kernel library links cudart "
+                                 "dynamically: the store's fingerprint "
+                                 "would need the runtime's version")
+    # phase 13's published weights; the parent's own engine gives every
+    # answer's reference, on them and on the canary's good version
+    wstore = WeightStore(os.path.join(work, "store"))
+    version = wstore.latest_version()
+    ref_model = model_from_json(spec, device=device)
+    _v, v1 = wstore.load(version=version, like=_meta_like(ref_model))
+    v1 = {ln: {pn: np.asarray(t) for pn, t in layer.items()}
+          for ln, layer in v1.items()}
+    good = {ln: {pn: t * np.float32(1 + 1e-3) for pn, t in layer.items()}
+            for ln, layer in v1.items()}
+    pool = _predict_rows(FLEET_POOL_ROWS, 1515)
+    ref = InferenceEngine(ref_model, v1, input_name=PREDICT_IN,
+                          output_name="probs:0",
+                          max_batch=PREDICT_MAX_BATCH)
+    want = {"v1": _pool_probs(ref, pool), "good_tree": good}
+    ref.swap_params(good)
+    want["good"] = _pool_probs(ref, pool)
+    del ref, ref_model
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg = {"out": out, "spec": spec_path, "store": wstore.directory,
+           "version": version, "exe": exe, "compile_cache": None,
+           "watch": False, "device": device, "lm": lm or GPT2_SMALL,
+           "parent_build_dir": (os.path.dirname(parent["path"])
+                                if parent else None)}
+    try:
+        pred, boots, calib = _predict_fleet(card, cfg, pool, want["v1"],
+                                            cuda)
+        log("[fleet-predict-launches] " + json.dumps(
+            pred["replica_launches"]))
+        row2, launches2 = _tier2_replica(card, cfg, cuda)
+        canary, cboots, claunches = _canary(card, cfg, pool, want, cuda)
+        log("[fleet-canary] " + json.dumps(canary))
+        gen, gboots, glaunches = _generate_fleet(card, cfg, cuda)
+        log("[fleet-generate] " + json.dumps(gen))
+    finally:
+        for p in _FLEET_PROCS:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    parent_row = {"role": "parent (phase setup)",
+                  "tier": ({"built": 3, "found": 2}.get(parent["how"])
+                           if parent else None),
+                  "source": parent["how"] if parent else "cpu",
+                  "kernels_boot_s": parent["seconds"] if parent else None}
+    log("[fleet-coldstart] " + json.dumps(
+        {"parent": parent_row, "replicas": boots + [row2] + cboots + gboots,
+         "card": card}))
+    log("[fleet-sim] " + json.dumps({**calib, "card": card}))
+    log(f"[fleet] phase 15 {time.perf_counter() - t0:.1f} s")
+    predict_launches = pred["replica_launches"] + launches2 + claunches
+    return {"flash_fwd": {
+                "predict_replicas": [r["flash_fwd"]
+                                     for r in predict_launches],
+                "generate_replicas": [r["flash_fwd"] for r in glaunches]},
+            "paged_attention": {
+                "generate_replicas": [r["paged_attention"]
+                                      for r in glaunches]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2741,6 +3575,7 @@ def main() -> int:
                                           card, work)
         predict = timed("predict", phase_predict, card, spec, weights, work)
         resil = timed("resilience", phase_resilience, card, work)
+        fleet = timed("fleet", phase_fleet, card, spec, work)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2771,12 +3606,15 @@ def main() -> int:
          "resilience": {"stream_fit_launches":
                         resil["stream_fit"]["flash_fwd"],
                         "remat_launches_per_step":
-                        resil["remat_flash_fwd_per_step"]}},
+                        resil["remat_flash_fwd_per_step"]},
+         # phase 15: each drained replica's launches over what it served
+         "fleet": fleet["flash_fwd"]},
         {"name": "paged_attention", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "734",
          "launches": launches["paged_attention"], **paged_row,
          # the self-speculation draft chain of burst (a), bf16 pool
-         "spec_serving": {"launches": spec_a["paged_attention"]}},
+         "spec_serving": {"launches": spec_a["paged_attention"]},
+         "fleet": fleet["paged_attention"]},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "372",
          "launches": train_launches["flash_bwd_dq"],
@@ -2809,4 +3647,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--replica"]:
+        sys.exit(run_replica(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -19,8 +19,11 @@ and the Spark ML estimator on top of it: ``spark_async.SparkAsyncDL`` /
 ``SparkAsyncDLModel`` (alias ``tensorflow_async``) in a ``Pipeline`` on
 ``localml`` or pyspark (``compat``, ``pipeline_util``, ``ml_util``), with
 models from the ``nn`` graph DSL (``nn``, ``graph_utils.build_graph``,
-``graphdef.GraphModel``) or the registry. ROADMAP.md lists what is still
-to port.
+``graphdef.GraphModel``) or the registry — and the serving fleet:
+``serving.RouterServer`` over replicas, ``serving.Autoscaler``, canary
+rollout, the ``sim`` fleet simulator, and a replica's cold start from a
+stored kernel library (``serving.ExecutableStore``). ROADMAP.md lists what
+is still to port.
 """
 
 __version__ = "0.1.0"

@@ -55,9 +55,13 @@ place. ``stats()`` keeps the keys the server and ``/healthz`` read;
 quantization-error probe lets a failure raise (the JAX engine swallows it):
 on the card it runs the kernels, and a kernel fault must not pass unseen.
 
+``executable_dir`` boots the kernel library from a
+:class:`~sparkflow_tpu_torch.serving.coldstart.ExecutableStore` before
+warmup, as the predict engine does, and reports the tier under
+``stats()["cold_start"]``.
+
 Not yet ported, and refused with a ``ValueError`` naming ROADMAP.md: model
-parallelism (``mesh``, ``sharding``, ``pp_wave``) and serialized
-executables (``executable_dir``).
+parallelism (``mesh``, ``sharding``, ``pp_wave``).
 
 The engine is mechanism only — slot admission at token boundaries, queueing,
 futures and drain semantics live in
@@ -80,6 +84,7 @@ from ..ops import paged_attention, paged_attention_verify
 from ..resilience import faults
 from ..utils import metrics as metrics_mod
 from ..utils import quant
+from .coldstart import ExecutableStore, boot_kernels, cold_start_stats
 from .kvcache import OutOfPages, PagedKVCache
 
 __all__ = ["DecodeEngine"]
@@ -137,6 +142,9 @@ class DecodeEngine:
         Build the CUDA kernels now (on the card) so the first request does
         not pay the compile, and measure ``kv_quant_error`` for a quantized
         pool.
+    executable_dir : str | None
+        Cold start from a stored kernel library (see the module docstring);
+        on a miss the library is found or built and saved back.
     """
 
     def __init__(self, model, params=None, *, num_slots: int = 8,
@@ -152,8 +160,7 @@ class DecodeEngine:
                  executable_dir: Optional[str] = None,
                  metrics: Optional[metrics_mod.Metrics] = None):
         unported = {"mesh": mesh, "sharding": sharding,
-                    "pp_wave": None if pp_wave else pp_wave,
-                    "executable_dir": executable_dir}
+                    "pp_wave": None if pp_wave else pp_wave}
         for name, value in unported.items():
             if value is not None:
                 _not_yet(f"{name}={value!r}")
@@ -270,6 +277,13 @@ class DecodeEngine:
         self._pending_swap: Optional[Tuple[Any, int]] = None
         self._serving_version = 0  # 0 = ctor weights
         self._swaps = 0
+        # cold start: the kernel library from the store before any launch
+        self.exec_store = None
+        self.boot = None
+        if executable_dir is not None:
+            self.exec_store = ExecutableStore(executable_dir,
+                                              metrics=self.metrics)
+            self.boot = boot_kernels(self.exec_store, None, self.device)
         if warmup:
             self.warmup()
 
@@ -1085,7 +1099,7 @@ class DecodeEngine:
                 "pending_prefills": len(self._pending),
                 "device": str(self.device),
                 "aot_compiles": 0,
-                "cold_start": None,
+                "cold_start": cold_start_stats(self.exec_store, self.boot),
                 "traces": 0,
                 "steady_traces": 0,
                 "steps": self._steps,

@@ -22,20 +22,26 @@ first run outside warmup is counted in ``fallback_compiles``, so the
 steady-state contract ("no first-time work after warmup") reads the same.
 ``stats()`` keeps every key of the JAX engine's; those with no counterpart
 read as the JAX engine reports them with the feature off: ``traces`` and
-``steady_traces`` 0 (nothing is traced), ``compile_cache`` and
-``cold_start`` None, ``mesh`` None, ``tp`` / ``ep`` 1, and ``sharding``
-the JAX default config's description.
+``steady_traces`` 0 (nothing is traced), ``mesh`` None, ``tp`` / ``ep`` 1,
+and ``sharding`` the JAX default config's description.
+
+Cold start (:mod:`~sparkflow_tpu_torch.serving.coldstart`): what a fresh
+replica compiles is the kernel library, not executables, so
+``executable_dir`` stores that library beside the weights and
+``compile_cache_dir`` is the build directory it is looked up and built in.
+With either set, the engine loads the library before :meth:`warmup` by the
+best tier there is and reports it under ``stats()["cold_start"]`` (JAX's
+``dir`` / ``serialized_loads`` / ``serialized_saves``, plus ``tier``,
+``source``, ``library`` and ``boot_s``) and ``stats()["compile_cache"]``
+(``dir`` / ``hits`` / ``misses``).
 
 Not yet ported, refused with a ``ValueError`` naming ROADMAP.md: ``mesh`` /
-``sharding`` (model-parallel and data-parallel serving, queue 1 item 7),
-and ``executable_dir`` / ``compile_cache_dir`` (queue 1 item 4): a
-``jax.export`` executable and XLA's compilation cache have no torch
-counterpart, and the port keeps its built kernel library in
-``ops/_build/``.
+``sharding`` (model-parallel and data-parallel serving, queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -48,6 +54,8 @@ from ..core import _to_numpy
 from ..obs.spans import span as obs_span
 from ..resilience import faults
 from ..utils import metrics as metrics_mod
+from .coldstart import (ExecutableStore, boot_kernels, cold_start_stats,
+                        compile_cache_stats)
 
 __all__ = ["InferenceEngine"]
 
@@ -110,7 +118,16 @@ class InferenceEngine:
         ``stats()['fallback_compiles']``.
     device
         The CUDA card unless ``"cpu"`` is asked for; with no card it raises.
-    mesh, sharding, compile_cache_dir, executable_dir
+    executable_dir : str | None
+        Cold start from a stored kernel library: a
+        :class:`~sparkflow_tpu_torch.serving.coldstart.ExecutableStore`
+        directory. The engine loads the library from here (sha256-verified,
+        no ``nvcc``) before warmup; on a miss it finds or builds it and
+        saves it back for the next boot.
+    compile_cache_dir : str | None
+        The kernel build directory the library is looked up and built in,
+        in place of ``ops/_build/`` or ``SPARKFLOW_TORCH_KERNEL_DIR``.
+    mesh, sharding
         Not yet ported (see the module docstring).
     """
 
@@ -134,13 +151,6 @@ class InferenceEngine:
             if value is not None:
                 _not_yet(f"{name}={value!r}", "serving over a device mesh, "
                          "queue 1 item 7")
-        for name, value in (("compile_cache_dir", compile_cache_dir),
-                            ("executable_dir", executable_dir)):
-            if value is not None:
-                _not_yet(f"{name}={value!r}",
-                         "a jax.export executable or XLA cache entry has no "
-                         "torch counterpart, and the built kernel library "
-                         "lives in ops/_build/; queue 1 item 4")
         if isinstance(graph, str):
             from ..models import model_from_json
             self.model = model_from_json(graph, compute_dtype, device=device)
@@ -186,6 +196,18 @@ class InferenceEngine:
         self._rows = 0
         self._serving_version = 0  # bumped by swap_params; 0 = ctor weights
         self._swaps = 0
+        # cold start: the kernel library, from the store (tier 1), the
+        # build directory (tier 2) or nvcc (tier 3), before any bucket runs
+        self.exec_store = None
+        if executable_dir is not None:
+            self.exec_store = ExecutableStore(executable_dir,
+                                              metrics=self.metrics)
+        self.compile_cache_dir = (os.path.abspath(compile_cache_dir)
+                                  if compile_cache_dir is not None else None)
+        self.boot = None
+        if self.exec_store is not None or self.compile_cache_dir is not None:
+            self.boot = boot_kernels(self.exec_store, self.compile_cache_dir,
+                                     self.device)
         if warmup:
             self.warmup()
 
@@ -408,8 +430,9 @@ class InferenceEngine:
                 "steady_traces": 0,
                 "requests": requests,
                 "rows": rows,
-                "compile_cache": None,
-                "cold_start": None,
+                "compile_cache": compile_cache_stats(self.compile_cache_dir,
+                                                     self.boot),
+                "cold_start": cold_start_stats(self.exec_store, self.boot),
                 "quantize": self.quantize,
                 "mesh": None,
                 "tp": 1,

@@ -1280,3 +1280,82 @@ def test_int8_matmul_on_card_matches_cpu(dev, m, k, n):
     assert torch.equal(quant._int_mm(xq.to(dev), q8c).cpu(), want)
     got = quant.int8_matmul(x.to(dev), q8c, scalec).cpu()
     assert torch.equal(got, quant.int8_matmul(x, q8, scale))
+
+
+# -- cold start: the kernel library from a store, with no nvcc ---------------
+
+_COLDSTART_PROBE = """
+import json, sys
+import torch
+from sparkflow_tpu_torch.ops import _build, attention_reference, flash_attention
+from sparkflow_tpu_torch.serving.coldstart import ExecutableStore, boot_kernels
+torch.backends.cuda.matmul.allow_tf32 = False
+store = ExecutableStore(sys.argv[1]) if sys.argv[1] != "-" else None
+boot = boot_kernels(store, None, torch.device("cuda"))
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn(2, 12, 512, 64, generator=g, device="cuda")
+           for _ in range(3))
+out = flash_attention(q, k, v, causal=True)
+ref = attention_reference(q, k, v, causal=True)
+torch.cuda.synchronize()
+print(json.dumps({"boot": boot, "err": float((out - ref).abs().max()),
+                  "launches": flash_attention.launches,
+                  "report": _build.ptxas_report()}))
+"""
+
+
+def _no_nvcc_env(kernel_dir):
+    """An environment whose ``PATH`` and ``CUDA_HOME`` reach no nvcc, with
+    an empty kernel build directory."""
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH", "PYTHONPATH")}
+    env.update(
+        PATH=os.pathsep.join(d for d in env.get("PATH", "").split(os.pathsep)
+                             if d and not os.path.exists(
+                                 os.path.join(d, "nvcc"))),
+        CUDA_HOME=str(kernel_dir), SPARKFLOW_TORCH_KERNEL_DIR=str(kernel_dir),
+        PYTHONPATH=repo)
+    return env
+
+
+def _probe(store_arg, kernel_dir):
+    import subprocess
+    import sys
+    kernel_dir.mkdir()
+    return subprocess.run([sys.executable, "-c", _COLDSTART_PROBE, store_arg],
+                          env=_no_nvcc_env(kernel_dir), capture_output=True,
+                          text=True, timeout=600)
+
+
+def test_coldstart_store_boots_flash_without_nvcc(dev, tmp_path):
+    """A process with an empty build directory and no nvcc loads the
+    library from the store (tier 1) and launches flash_fwd within its
+    plain version's limit; the stored ptxas reports come with it."""
+    import json
+    from sparkflow_tpu_torch.ops import _build
+    from sparkflow_tpu_torch.serving.coldstart import (ExecutableStore,
+                                                       kernel_key)
+    _build.load()
+    store = ExecutableStore(str(tmp_path / "exe"))
+    assert store.save(kernel_key(), _build.loaded()["path"],
+                      _build.ptxas_report())
+    r = _probe(str(tmp_path / "exe"), tmp_path / "kernels")
+    assert r.returncode == 0, r.stderr[-4000:]
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res["boot"]["tier"] == 1 and res["boot"]["source"] == "store"
+    assert res["launches"] == 1
+    assert res["err"] < FLASH_TOL[torch.float32]
+    assert res["report"] == _build.ptxas_report()
+    # nothing was compiled there: the verified copy is all it holds
+    assert [f for f in (tmp_path / "kernels").iterdir()
+            if not f.name.endswith(".stored.so")] == []
+
+
+def test_coldstart_without_store_or_nvcc_raises(dev, tmp_path):
+    """With no store and no nvcc the same process raises the build's
+    "nvcc not found": it never falls back to the plain version."""
+    r = _probe("-", tmp_path / "kernels")
+    assert r.returncode != 0
+    assert "nvcc not found" in r.stderr

@@ -159,11 +159,25 @@ def test_swap_params_defers_until_drained(torch_lm, weights):
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"sharding": "tp"},
-                                {"pp_wave": False}, {"executable_dir": "x"}])
+                                {"pp_wave": False}])
 def test_unported_engine_options_raise(torch_lm, kw):
     tm, tp = torch_lm
     with pytest.raises(ValueError, match="ROADMAP.md"):
         DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, **kw)
+
+
+def test_executable_dir_reports_cold_start(torch_lm, tmp_path):
+    """``executable_dir`` is accepted; on the CPU no library loads, tokens
+    do not move, and ``stats()["cold_start"]`` has the JAX keys."""
+    tm, tp = torch_lm
+    eng = DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, seed=0,
+                       executable_dir=str(tmp_path))
+    plain = DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, seed=0)
+    assert _drive(eng, [5, 2, 8], NEW)[0] == _drive(plain, [5, 2, 8], NEW)[0]
+    cs = eng.stats()["cold_start"]
+    assert {"dir", "serialized_loads", "serialized_saves"} <= set(cs)
+    assert cs["dir"] == str(tmp_path) and cs["source"] == "cpu"
+    assert cs["tier"] is None and plain.stats()["cold_start"] is None
 
 
 def test_engine_stats_carry_server_keys(torch_lm):

@@ -32,7 +32,13 @@ SUBPACKAGES = ["sparkflow_tpu_torch", "sparkflow_tpu_torch.device",
                "sparkflow_tpu_torch.utils.text",
                "sparkflow_tpu_torch.utils.flops",
                "sparkflow_tpu_torch.resilience.driver",
-               "sparkflow_tpu_torch.obs.stepstats"]
+               "sparkflow_tpu_torch.obs.stepstats",
+               "sparkflow_tpu_torch.serving.policies",
+               "sparkflow_tpu_torch.serving.membership",
+               "sparkflow_tpu_torch.serving.router",
+               "sparkflow_tpu_torch.serving.autoscaler",
+               "sparkflow_tpu_torch.serving.coldstart",
+               "sparkflow_tpu_torch.sim", "sparkflow_tpu_torch.sim.calibrate"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():

@@ -214,15 +214,80 @@ def test_bad_names_modes_and_weights_fail_at_construction():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"mesh": object()}, "item 7"), ({"sharding": {}}, "item 7"),
-    ({"executable_dir": "/nonexistent"}, "item 4"),
-    ({"compile_cache_dir": "/nonexistent"}, "item 4")],
+    ({"mesh": object()}, "item 7"), ({"sharding": {}}, "item 7")],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_unported_options_are_refused(option, item):
     spec, weights, inp, out = _mlp()
     with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
         InferenceEngine(spec, weights, input_name=inp, output_name=out,
                         device="cpu", **option)
+
+
+# -- cold start (executable_dir / compile_cache_dir) ---------------------------
+
+def test_cold_start_options_report_in_stats(tmp_path, rng):
+    """On the CPU the plain versions run and no library is loaded: the
+    options are accepted, predictions do not move, and ``stats()`` carries
+    the JAX engine's cold_start and compile_cache keys with no tier."""
+    spec, weights, inp, out = _mlp()
+    kw = dict(input_name=inp, output_name=out, max_batch=4, device="cpu")
+    plain = InferenceEngine(spec, weights, **kw)
+    eng = InferenceEngine(spec, weights, executable_dir=str(tmp_path / "exe"),
+                          compile_cache_dir=str(tmp_path / "cc"), **kw)
+    x = rng.randn(6, 4).astype(np.float32)
+    np.testing.assert_array_equal(eng.predict(x), plain.predict(x))
+    st = eng.stats()
+    assert st["cold_start"] == {
+        "dir": str(tmp_path / "exe"), "serialized_loads": 0,
+        "serialized_saves": 0, "tier": None, "source": "cpu",
+        "library": None, "boot_s": 0.0}
+    assert st["compile_cache"] == {"dir": str(tmp_path / "cc"), "hits": 0,
+                                   "misses": 0}
+    assert plain.stats()["cold_start"] is None
+    assert plain.stats()["compile_cache"] is None
+    jeng = JaxEngine(spec, weights, input_name=inp, output_name=out,
+                     max_batch=4, executable_dir=str(tmp_path / "jexe"))
+    assert set(jeng.stats()["cold_start"]) <= set(st["cold_start"])
+
+
+def test_cold_start_boots_the_kernels_before_warmup(tmp_path, monkeypatch):
+    """The engine hands its store and build directory to ``boot_kernels``
+    before any bucket runs, reports the tier it returns, and lets a failed
+    boot raise out of the constructor."""
+    import sparkflow_tpu_torch.serving.engine as engine_mod
+    spec, weights, inp, out = _mlp()
+    calls = []
+    warm = InferenceEngine.warmup
+
+    def boot(store, cache_dir, device):
+        calls.append(("boot", store.directory, cache_dir, str(device)))
+        return {"tier": 1, "source": "store", "library": "lib.so",
+                "boot_s": 0.5, "saved": False}
+
+    def warmup(self):
+        calls.append(("warmup",))
+        return warm(self)
+
+    monkeypatch.setattr(engine_mod, "boot_kernels", boot)
+    monkeypatch.setattr(InferenceEngine, "warmup", warmup)
+    eng = InferenceEngine(spec, weights, input_name=inp, output_name=out,
+                          max_batch=4, device="cpu",
+                          executable_dir=str(tmp_path / "exe"),
+                          compile_cache_dir=str(tmp_path / "cc"))
+    assert calls == [("boot", str(tmp_path / "exe"), str(tmp_path / "cc"),
+                      "cpu"), ("warmup",)]
+    st = eng.stats()
+    assert st["cold_start"]["tier"] == 1
+    assert st["cold_start"]["serialized_loads"] == 1
+    assert st["compile_cache"]["hits"] == 0
+
+    def failing(store, cache_dir, device):
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+
+    monkeypatch.setattr(engine_mod, "boot_kernels", failing)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        InferenceEngine(spec, weights, input_name=inp, output_name=out,
+                        device="cpu", compile_cache_dir=str(tmp_path))
 
 
 def test_the_card_is_the_default_device():
