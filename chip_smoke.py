@@ -187,7 +187,38 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     share the card's SMs: the phase measures routing, recovery, canary and
     boot time, not scale-out throughput.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15; a ``[time]`` line
+16. families: the registry families that the port added last. (a) The
+    MoE LM (``transformer_moe_lm``) at Switch-Base-8's widths (768 / 12
+    layers / 12 heads / 3072, 8 experts on every second layer, top-1,
+    capacity factor 1.25, vocab 32128, max_len 512; random weights from a
+    seed, bf16) behind ``DecodeEngine(num_slots=8, page_size=16)`` ->
+    ``ContinuousBatcher`` -> ``InferenceServer``: 8 concurrent
+    ``ServingClient.generate`` calls of 64-400-token prompts, 32 new tokens
+    each, the counters zeroed before and read after (``flash_fwd`` and
+    ``paged_attention`` must launch); TTFT p50/p95, tokens/s, step ms, and
+    10 decode steps with 8 live slots under ``torch.profiler``. (b)
+    Float32, TF32 off, 4 layers: the engine's decode-step logits against
+    ``decode_step`` over the dense cache filled from the engine's pool,
+    fed the engine's tokens and positions (the same slots and idle lanes,
+    so capacity sees the same batch), within 1e-3; router near-ties
+    (top-1 minus top-2 under 1e-4) counted; a bf16 replay of the last step
+    must miss 1e-3. (c) ``Trainer.fit``: 8 steps of 8 x 512, bf16, dropout
+    0.1, adam 3e-4 (12 launches a step of each flash kernel), step ms,
+    tokens/s, peak memory and MFU with the trainer's MoE FLOP count; one
+    float32 step at 2 layers through the kernels against the plain
+    attention (loss 1e-5 relative, gradients 1e-4 of max |plain|). (d)
+    ``examples/resnet_cifar.py``'s path: ``resnet`` depth 50, width 64,
+    image 32, float32, through ``Pipeline([OneHotEncoder, SparkAsyncDL])``
+    (batch 64, 2 epochs of 256 rows), examples/s; ``resnet50`` at 224 (the
+    ImageNet stem and max-pool) on 8 images, card float32 logits against
+    the CPU's within 1e-4. (e) ``rnn_lm`` at Zaremba et al.'s medium PTB
+    widths (2 x 650 LSTM, vocab 10000, 35 steps, batch 20, dropout 0.5,
+    SGD lr 1, tied embeddings): 8 ``Trainer`` steps in float32 and in
+    bf16, the float32 loss on the card against the CPU's within 1e-5
+    relative, one profiled step; the bi-GRU ``rnn_classifier`` (512, 2
+    layers, max_len 128) through ``SparkAsyncDL`` fit and transform.
+
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16; a ``[time]`` line
 gives each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
@@ -1791,36 +1822,12 @@ def phase_estimator(card, work):
         pipe = Pipeline(stages=[
             OneHotEncoder(inputCol="label", outputCol="labels",
                           dropLast=False), est])
-        # a CUDA event after every optimizer step (recorded on the stream,
-        # no host sync): the steps after the first on the card's timeline
-        marks = []
-        make_step = core.make_train_step
-
-        def marked_train_step(loss_fn, optimizer):
-            step = make_step(loss_fn, optimizer)
-
-            def marked(*a):
-                out = step(*a)
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append(ev)
-                return out
-            return marked
-
-        core.make_train_step = marked_train_step
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            fitted = pipe.fit(df)
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-        finally:
-            core.make_train_step = make_step
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        fitted, fit_s, gaps = _marked_fit(lambda: pipe.fit(df), True)
         fit_launches = {n: launch_counts()[n] for n in names}
         fit_peak = torch.cuda.max_memory_allocated() / 1e9
-        steps = len(marks)
+        steps = len(gaps) + 1
         want_steps = -(-EST_ROWS // EST_BATCH)
         if steps != want_steps or any(
                 fit_launches[n] != 12 * want_steps for n in names):
@@ -1829,7 +1836,7 @@ def phase_estimator(card, work):
                                  f"{want_steps} times")
         if not (losses and all(math.isfinite(x) for x in losses)):
             raise AssertionError(f"per-epoch losses {losses}: not finite")
-        after_first_s = marks[0].elapsed_time(marks[-1]) / 1e3
+        after_first_s = sum(gaps)
 
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -3537,6 +3544,629 @@ def phase_fleet(card, spec, work, lm=None, device=None):
                                       for r in glaunches]}}
 
 
+# -- phase 16: the other registry families ------------------------------------
+#
+# Switch-Base-8's widths (Fedus et al. 2021; HF google/switch-base-8): 768 /
+# 12 layers / 12 heads / 3072, 8 experts on every second layer, top-1,
+# capacity factor 1.25, vocab 32128. The repo's MoE LM is decoder-only with
+# learned positions and the tanh GELU (its departure from Switch's T5
+# encoder-decoder); max_len 512.
+SWITCH_BASE_8 = dict(vocab_size=32128, hidden=768, num_layers=12,
+                     num_heads=12, mlp_dim=3072, max_len=512, dropout=0.0,
+                     num_experts=8, moe_every=2, router_top_k=1,
+                     capacity_factor=1.25)
+MOE_PROMPTS = (64, 100, 150, 200, 256, 300, 350, 400)
+MOE_NEW = 32
+MOE_EXACT_LAYERS = 4       # float32 exactness: full width, 2 MoE layers
+MOE_EXACT_STEPS = 8
+MOE_LOGIT_TOL = 1e-3       # engine decode logits vs the dense cache's
+MOE_MARGIN = 1e-4          # a router top-1/top-2 margin counted as a near-tie
+MOE_TRAIN_ROWS, MOE_TRAIN_SEQ, MOE_TRAIN_BATCH = 64, 512, 8
+# examples/resnet_cifar.py's full path: resnet depth 50, width 64, CIFAR
+# images, float32, miniBatchSize 64 (epochs cut to 2 over 256 rows)
+CIFAR_RESNET = dict(num_classes=10, depth=50, image_size=32, width=64)
+CIFAR_ROWS, CIFAR_BATCH, CIFAR_EPOCHS = 256, 64, 2
+RESNET_224_BATCH = 8
+RESNET_TOL = 1e-4          # ResNet-50 at 224, card vs CPU float32 logits
+# Zaremba et al. 2014 "medium" PTB LSTM: 2 x 650, vocab 10000, 35 steps,
+# batch 20, dropout 0.5, SGD lr 1; embeddings tied (Press & Wolf 2017)
+PTB_MEDIUM = dict(vocab_size=10000, hidden=650, num_layers=2, max_len=35,
+                  cell="lstm", dropout=0.5)
+PTB_BATCH, PTB_STEPS = 20, 8
+RNN_LOSS_TOL = 1e-5        # card vs CPU float32 loss, relative
+# examples/rnn_sequence.py's bi-GRU at the JAX defaults
+BIGRU = dict(vocab_size=1000, num_classes=2, hidden=512, num_layers=2,
+             max_len=128, cell="gru", bidirectional=True)
+BIGRU_ROWS, BIGRU_BATCH = 256, 32
+
+
+def _sync(cuda):
+    import torch
+    if cuda:
+        torch.cuda.synchronize()
+
+
+def _moe_spec(**over):
+    from sparkflow_tpu_torch.models import build_registry_spec
+    return build_registry_spec("transformer_moe_lm",
+                               **dict(SWITCH_BASE_8, **over))
+
+
+def _moe_serving(card, device):
+    """(a) The Switch-Base-8-width MoE LM, bf16, behind ``/v1/generate``;
+    then 10 decode steps with 8 live slots under ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import (ContinuousBatcher, DecodeEngine,
+                                             InferenceServer, ServingClient)
+    cuda = device != "cpu"
+    model = model_from_json(_moe_spec(), compute_dtype="bfloat16",
+                            device=device)
+    params = model.init(torch.Generator().manual_seed(0))
+    n_params = sum(t.numel() for layer in params.values()
+                   for t in layer.values())
+    eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0)
+    cb = ContinuousBatcher(eng, max_queue=64)
+    srv = InferenceServer(None, generate_batcher=cb, host="127.0.0.1",
+                          port=0, memory_watch=False).start()
+    vocab = SWITCH_BASE_8["vocab_size"]
+    rng = np.random.default_rng(16)
+    try:
+        cli = ServingClient(srv.url, timeout=300)
+        for n in [max(1, b // 2 + 1) for b in eng.prefill_buckets]:
+            cli.generate(rng.integers(0, vocab, n).tolist(), max_new_tokens=2)
+        prompts = [rng.integers(0, vocab, n).tolist() for n in MOE_PROMPTS]
+        results = [None] * len(prompts)
+
+        def one(i):
+            results[i] = cli.generate(prompts[i], max_new_tokens=MOE_NEW)
+
+        steps0 = eng.stats()["steps"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        launches = {k: counts[k] for k in ("flash_fwd", "paged_attention")}
+        others = {k: v for k, v in counts.items()
+                  if k not in launches and v}
+        for i, r in enumerate(results):
+            if r is None or len(r["tokens"]) != MOE_NEW \
+                    or r["finish_reason"] != "length":
+                raise AssertionError(f"MoE request {i}: {r}")
+        if cuda and not (launches["flash_fwd"] > 0
+                         and launches["paged_attention"] > 0) or others:
+            raise AssertionError(f"MoE serving launches {counts}")
+        ttft = [r["timing_ms"]["queue_wait_ms"] + r["timing_ms"]["prefill_ms"]
+                for r in results]
+        step_ms = eng.metrics.percentile(
+            "serving/decode/step_ms", 50,
+            window=eng.stats()["steps"] - steps0)
+        pages = cli.healthz()["decode"]["engine"]["kv"]["pages_used"]
+        if pages != 0:
+            raise AssertionError(f"pages_used {pages} after all retired")
+    finally:
+        srv.stop()
+    gen = sum(len(r["tokens"]) for r in results)
+    summary = {"config": "transformer_moe_lm at Switch-Base-8 widths",
+               "params": n_params, "requests": len(results),
+               "prompt_lens": list(MOE_PROMPTS), "tokens_generated": gen,
+               "wall_s": wall, "ttft_ms_p50": _pct(ttft, 50),
+               "ttft_ms_p95": _pct(ttft, 95),
+               "decode_tokens_per_s": gen / wall, "step_ms_p50": step_ms,
+               "launches": launches, "card": card}
+    if cuda:
+        slots = [eng.prefill(p, max_new_tokens=100)["slot"]
+                 for p in prompts]
+        for _ in range(3):
+            eng.step()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        steps = 10
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t1) * 1e3
+        for s in slots:
+            eng.release(s)
+        summary["decode_step_8_slots"] = _device_profile(
+            prof, prof_wall, steps, kernels=("paged_attention", "gemm",
+                                             "index", "scatter"))
+    log("[families-moe-serving] " + json.dumps(summary))
+    return launches
+
+
+def _moe_exactness(card, device):
+    """(b) Float32, TF32 off, full width cut to 4 layers: each decode
+    step's logits from the engine (paged pool, paged kernel) against the
+    model's own ``decode_step`` over the dense cache, filled from the
+    engine's pool after prefill and fed the engine's tokens and positions —
+    the same slots and idle lanes, so every expert sees the same batch.
+    A near-tie in the router (top-1 minus top-2 probability under
+    ``MOE_MARGIN``) in either run is counted. Control: the last step
+    replayed in bf16 must miss the tolerance."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = model_from_json(_moe_spec(num_layers=MOE_EXACT_LAYERS),
+                            device=device)
+    params = model.init(torch.Generator().manual_seed(1))
+    eng = DecodeEngine(model, params, num_slots=4, page_size=16, seed=0,
+                       prefix_cache=False)
+    rng = np.random.default_rng(17)
+    vocab = SWITCH_BASE_8["vocab_size"]
+    infos = [eng.prefill(rng.integers(0, vocab, n).tolist(),
+                         max_new_tokens=MOE_EXACT_STEPS + 1)
+             for n in (40, 129, 300)]                   # one idle lane
+    live = torch.tensor([i["slot"] for i in infos], device=model.device)
+    page = eng.page_size
+    cache = model.init_decode_cache(eng.num_slots, max_len=eng.max_seq_len)
+    tables, lengths = eng.kv.page_tables(), eng.kv.lengths()
+    with torch.inference_mode():
+        for s in live.tolist():
+            pos = torch.arange(int(lengths[s]), device=model.device)
+            pids = torch.as_tensor(tables[s],
+                                   device=model.device)[pos // page].long()
+            for pool, name in ((eng._k_pool, "k"), (eng._v_pool, "v")):
+                cache[name][:, s, :, :len(pos)] = pool[
+                    :, pids, pos % page].transpose(1, 2)
+    step_inner, route_inner = model.decode_step, model.route
+    seen, margins = [], []
+
+    def decode_spy(*a, **kw):
+        logits, c = step_inner(*a, **kw)
+        seen.append((a[2].clone(), a[3].clone(), logits.detach().clone()))
+        return logits, c
+
+    def route_spy(bp, xf, token_mask=None):
+        out = route_inner(bp, xf, token_mask)
+        top2 = out[0].topk(2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).detach())
+        return out
+
+    model.decode_step, model.route = decode_spy, route_spy
+    near = {"engine": 0, "dense": 0}
+    worst, tok = 0.0, None
+    try:
+        with torch.inference_mode():
+            for _ in range(MOE_EXACT_STEPS):
+                margins.clear()
+                eng.step()
+                token, pos, want = seen[-1]
+                near["engine"] += int(sum(
+                    (m[live] < MOE_MARGIN).sum() for m in margins))
+                margins.clear()
+                got, cache = step_inner(params, cache, token, pos)
+                near["dense"] += int(sum(
+                    (m[live] < MOE_MARGIN).sum() for m in margins))
+                worst = max(worst, max_err(got[live], want[live]))
+                tok = (token, pos, want)
+            model.compute_dtype = torch.bfloat16
+            bf_cache = {k: v.to(torch.bfloat16) for k, v in cache.items()}
+            bf, _ = step_inner(params, bf_cache, tok[0], tok[1])
+            control = max_err(bf[live], tok[2][live])
+    finally:
+        model.compute_dtype = None
+        del model.decode_step, model.route
+        for i in infos:
+            eng.release(i["slot"])
+    if not worst <= MOE_LOGIT_TOL:
+        raise AssertionError(f"MoE engine decode logits differ from the "
+                             f"dense cache's by {worst}")
+    if not control > MOE_LOGIT_TOL:
+        raise AssertionError(f"a bf16 replay differs by only {control}: "
+                             f"the check would not see bf16")
+    out = {"layers": MOE_EXACT_LAYERS, "steps": MOE_EXACT_STEPS,
+           "live_lanes": len(infos), "idle_lanes": eng.num_slots - len(infos),
+           "max_abs_logit_err": worst, "tol": MOE_LOGIT_TOL,
+           "bf16_control_err": control,
+           "router_near_ties": near, "margin": MOE_MARGIN, "card": card}
+    log("[families-moe-exactness] " + json.dumps(out))
+
+
+def _moe_training(card, device):
+    """(c) ``Trainer.fit`` on the Switch-Base-8-width MoE LM, bf16,
+    dropout 0.1, adam 3e-4, 8 steps of 8 x 512; MFU against
+    ``device_peak_flops()`` with the trainer's MoE FLOP count. Then one
+    float32 step (2 layers, one MoE) through the kernels against the same
+    step through the plain attention."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import (attention_reference, launch_counts,
+                                         reset_launch_counts)
+    from sparkflow_tpu_torch.optimizers import tree_leaves
+    from sparkflow_tpu_torch.trainer import Trainer
+    from sparkflow_tpu_torch.utils.flops import device_peak_flops
+    cuda = device != "cpu"
+    toks = np.random.default_rng(18).integers(
+        0, 1000, (MOE_TRAIN_ROWS, MOE_TRAIN_SEQ)).astype(np.float32)
+    marks, losses = [], []
+
+    def on_step(loss, it, partition):
+        marks.append(time.perf_counter())
+        losses.append(loss)
+
+    tr = Trainer(_moe_spec(dropout=0.1), "input_ids", None,
+                 optimizer="adam", learning_rate=3e-4, iters=TRAIN_STEPS,
+                 mini_batch_size=MOE_TRAIN_BATCH, mini_stochastic_iters=1,
+                 compute_dtype="bfloat16", seed=0, loss_callback=on_step,
+                 device=device)
+    _sync(cuda)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.fit(toks)
+    counts = launch_counts()
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    launches = {n: counts[n] for n in names}
+    want = SWITCH_BASE_8["num_layers"] * TRAIN_STEPS if cuda else 0
+    if len(losses) != TRAIN_STEPS or any(v != want
+                                         for v in launches.values()):
+        raise AssertionError(f"{len(losses)} steps, launches {launches}; "
+                             f"each kernel must launch {want} times")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"MoE losses {losses} not finite")
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    flops = tr._train_flops_per_batch(toks[:MOE_TRAIN_BATCH], None, None)
+    peak = device_peak_flops()
+    summary = {"config": "transformer_moe_lm at Switch-Base-8 widths, bf16, "
+                         "dropout 0.1, adam 3e-4",
+               "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ,
+               "losses": losses, "step_ms": step_ms,
+               "step_ms_median_after_first": steady,
+               "tokens_per_s_after_first":
+                   MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (steady / 1e3),
+               "flops_per_step": flops,
+               "mfu": (flops / (steady / 1e3) / peak) if peak else None,
+               "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if cuda else None),
+               "launches": launches, "card": card}
+    log("[families-moe-training] " + json.dumps(summary))
+    del tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = model_from_json(_moe_spec(num_layers=2, dropout=0.1),
+                            device=device)
+    init = model.init(torch.Generator().manual_seed(2))
+    x = torch.as_tensor(np.random.default_rng(19).integers(
+        0, SWITCH_BASE_8["vocab_size"], (4, MOE_TRAIN_SEQ)),
+        device=model.device)
+    res = {}
+    for name, att in (("kernel", None), ("plain", attention_reference)):
+        p = model.load_params({ln: {pn: t.clone() for pn, t in l.items()}
+                               for ln, l in init.items()}, trainable=True)
+        gen = torch.Generator(device=model.device).manual_seed(4)
+        loss = model.loss_vector(p, {"input_ids": x}, True, gen,
+                                 attention=att).mean()
+        res[name] = (float(loss.detach()),
+                     torch.autograd.grad(loss, tree_leaves(p)))
+    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+    ratio = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gk, gp))
+    if not (abs(lk - lp) <= 1e-5 * abs(lp) and ratio <= 1e-4):
+        raise AssertionError(f"MoE float32 step: loss {lk} vs plain {lp}, "
+                             f"gradients differ by {ratio} x max |plain|")
+    log(f"[families-moe-train-exactness] float32, 2 layers (1 MoE), B=4 "
+        f"S={MOE_TRAIN_SEQ}, dropout 0.1 shared: loss {lk:.7f} vs plain "
+        f"{lp:.7f}; max |dgrad| / max |grad| {ratio:.3g} over {len(gk)} "
+        f"leaves [{card}]")
+    return launches
+
+
+def synthetic_cifar(spark, n, seed=0):
+    """``examples/resnet_cifar.py``'s ``synthetic_cifar`` (copied: that
+    example imports the JAX package): flattened 32x32x3 NHWC vectors whose
+    brightness follows the label."""
+    import numpy as np
+    from sparkflow_tpu_torch.localml import Vectors
+    rs = np.random.RandomState(seed)
+    rows = []
+    for _ in range(n):
+        label = rs.randint(0, 10)
+        img = rs.rand(32 * 32 * 3) * (0.5 + 0.05 * label)
+        rows.append((float(label), Vectors.dense(img)))
+    return spark.createDataFrame(rows, ["label", "features"])
+
+
+def _marked_fit(fit, cuda):
+    """Run ``fit()`` with a mark after every optimizer step — on the card a
+    CUDA event recorded on the stream (no host sync), so the gaps are the
+    steps after the first on the card's timeline; on the CPU the host
+    clock: ``(result, wall_s, [seconds between consecutive steps])``."""
+    import torch
+    import sparkflow_tpu_torch.core as core
+    marks = []
+    make_step = core.make_train_step
+
+    def marked_train_step(loss_fn, optimizer):
+        step = make_step(loss_fn, optimizer)
+
+        def marked(*a):
+            out = step(*a)
+            if cuda:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append(ev)
+            else:
+                marks.append(time.perf_counter())
+            return out
+        return marked
+
+    core.make_train_step = marked_train_step
+    try:
+        _sync(cuda)
+        t0 = time.perf_counter()
+        out = fit()
+        _sync(cuda)
+        wall = time.perf_counter() - t0
+    finally:
+        core.make_train_step = make_step
+    gaps = [(a.elapsed_time(b) / 1e3 if cuda else b - a)
+            for a, b in zip(marks, marks[1:])]
+    return out, wall, gaps
+
+
+def _resnet(card, device, work):
+    """(d) ``examples/resnet_cifar.py`` on the port: ResNet-50 (width 64,
+    CIFAR stem) in float32 through ``Pipeline([OneHotEncoder,
+    SparkAsyncDL])`` fit and transform; then ``resnet50`` at 224 (the
+    ImageNet stem and max-pool) on 8 images, card against CPU."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.localml import (LocalSession, OneHotEncoder,
+                                             Pipeline)
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    cuda = device != "cpu"
+    torch.backends.cudnn.allow_tf32 = False
+    spark = LocalSession.builder.appName("resnet-cifar").getOrCreate()
+    df = synthetic_cifar(spark, CIFAR_ROWS)
+    spec = build_registry_spec("resnet", **CIFAR_RESNET)
+    losses = []
+    est = SparkAsyncDL(
+        inputCol="features", tensorflowGraph=spec, tfInput="x:0",
+        tfLabel="y:0", tfOutput="pred:0", tfOptimizer="adam",
+        tfLearningRate=1e-3, iters=CIFAR_EPOCHS, miniBatchSize=CIFAR_BATCH,
+        labelCol="labels", predictionCol="predicted",
+        weightsPath=os.path.join(work, "resnet"), device=device)
+    est.setLossCallback(lambda loss, it, part: losses.append(loss))
+    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
+                                          outputCol="labels",
+                                          dropLast=False), est])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fitted, fit_s, gaps = _marked_fit(lambda: pipe.fit(df), cuda)
+    steps = len(gaps) + 1
+    if steps != CIFAR_EPOCHS * -(-CIFAR_ROWS // CIFAR_BATCH) or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"ResNet fit: {steps} steps, losses {losses}")
+    t1 = time.perf_counter()
+    preds = fitted.transform(df).collect()
+    _sync(cuda)
+    transform_s = time.perf_counter() - t1
+    if len(preds) != CIFAR_ROWS or not all(
+            0 <= r["predicted"] < 10 for r in preds):
+        raise AssertionError("ResNet transform: a row without a class")
+    acc = float(np.mean([r["predicted"] == r["label"] for r in preds]))
+    summary = {"config": "resnet depth 50 width 64 image 32, float32, "
+                         "adam 1e-3",
+               "rows": CIFAR_ROWS, "batch": CIFAR_BATCH, "steps": steps,
+               "fit_s": fit_s, "losses": losses,
+               "train_examples_per_s_after_first":
+                   CIFAR_BATCH * (steps - 1) / sum(gaps),
+               "step_ms_after_first": 1e3 * sum(gaps) / len(gaps),
+               "transform_s": transform_s,
+               "transform_examples_per_s": CIFAR_ROWS / transform_s,
+               "train_accuracy": acc,
+               "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if cuda else None), "card": card}
+    log("[families-resnet-cifar] " + json.dumps(summary))
+
+    spec224 = build_registry_spec("resnet50", num_classes=1000,
+                                  image_size=224)
+    on_card = model_from_json(spec224, device=device)
+    params = on_card.init(torch.Generator().manual_seed(3))
+    # the head is zeros at init: random, so the logits carry the features
+    params["head"]["kernel"].copy_(torch.randn(
+        params["head"]["kernel"].shape,
+        generator=torch.Generator().manual_seed(4)) * 0.05)
+    x = torch.randn(RESNET_224_BATCH, 224, 224, 3,
+                    generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        got = on_card.apply(params, {"x": x.to(on_card.device)},
+                            ["logits"])["logits"]
+        _sync(cuda)
+        t2 = time.perf_counter()
+        on_card.apply(params, {"x": x.to(on_card.device)}, ["logits"])
+        _sync(cuda)
+        fwd_ms = (time.perf_counter() - t2) * 1e3
+        cpu = model_from_json(spec224, device="cpu")
+        want = cpu.apply({ln: {pn: t.cpu() for pn, t in l.items()}
+                          for ln, l in params.items()}, {"x": x},
+                         ["logits"])["logits"]
+    err = max_err(got.cpu(), want)
+    if not err <= RESNET_TOL:
+        raise AssertionError(f"ResNet-50 at 224: card logits differ from "
+                             f"the CPU's by {err}")
+    log(f"[families-resnet50-224] batch {RESNET_224_BATCH}, float32: card "
+        f"vs CPU max |logit delta| {err:.3g} (tol {RESNET_TOL}, max |logit| "
+        f"{float(want.abs().max()):.3g}); one forward {fwd_ms:.1f} ms "
+        f"[{card}]")
+
+
+def _rnn(card, device, work):
+    """(e) ``rnn_lm`` at Zaremba et al.'s medium PTB widths through
+    ``Trainer.fit``, float32 then bf16, the float32 loss against the CPU's
+    and a profiled step; the bi-GRU ``rnn_classifier`` through
+    ``SparkAsyncDL`` fit and transform."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sparkflow_tpu_torch.core import make_loss_fn, make_train_step
+    from sparkflow_tpu_torch.localml import LocalSession, Vectors
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    from sparkflow_tpu_torch.trainer import Trainer
+    cuda = device != "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = build_registry_spec("rnn_lm", **PTB_MEDIUM)
+    toks = np.random.default_rng(20).integers(
+        0, PTB_MEDIUM["vocab_size"],
+        (PTB_BATCH * PTB_STEPS, PTB_MEDIUM["max_len"])).astype(np.float32)
+    out = {}
+    for dtype in (None, "bfloat16"):
+        marks, losses = [], []
+
+        def on_step(loss, it, partition):
+            marks.append(time.perf_counter())
+            losses.append(loss)
+
+        tr = Trainer(spec, "input_ids", None, optimizer="gradient_descent",
+                     learning_rate=1.0, iters=PTB_STEPS,
+                     mini_batch_size=PTB_BATCH, mini_stochastic_iters=1,
+                     compute_dtype=dtype, seed=0, loss_callback=on_step,
+                     device=device)
+        t0 = time.perf_counter()
+        tr.fit(toks)
+        step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+        if len(losses) != PTB_STEPS or not all(math.isfinite(x)
+                                               for x in losses):
+            raise AssertionError(f"rnn_lm {dtype}: losses {losses}")
+        out[dtype or "float32"] = {
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_median_after_first": sorted(step_ms[1:])[
+                len(step_ms[1:]) // 2]}
+        if dtype is None:
+            f32 = tr
+    model = f32.model
+    feeds = {"input_ids": torch.as_tensor(toks[:PTB_BATCH])}
+    cpu = model_from_json(spec, device="cpu")
+    with torch.inference_mode():
+        got = float(model.loss_vector(
+            f32.params, {"input_ids": feeds["input_ids"].to(model.device)},
+            train=False).mean())
+        want = float(cpu.loss_vector(
+            {ln: {pn: t.detach().cpu() for pn, t in l.items()}
+             for ln, l in f32.params.items()}, feeds, train=False).mean())
+    rel = abs(got - want) / abs(want)
+    if not rel <= RNN_LOSS_TOL:
+        raise AssertionError(f"rnn_lm float32 loss {got} on the card, "
+                             f"{want} on the CPU")
+    summary = {"config": "rnn_lm 2 x 650 LSTM, vocab 10000, 35 steps, "
+                         "batch 20, dropout 0.5, SGD lr 1, tied",
+               **out, "loss_card": got, "loss_cpu": want,
+               "loss_rel_err": rel, "card": card}
+    if cuda:
+        params = model.load_params(f32.params, trainable=True)
+        step = make_train_step(make_loss_fn(model, "input_ids", None),
+                               f32.optimizer)
+        x = torch.as_tensor(toks[:PTB_BATCH], device=model.device)
+        y = torch.zeros(PTB_BATCH, 1, device=model.device)
+        m = torch.ones(PTB_BATCH, device=model.device)
+        gen = torch.Generator(device=model.device).manual_seed(1)
+        state = f32._last_opt_state
+        params, state, _ = step(params, state, x, y, m, gen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(params, state, x, y, m, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        summary["train_step_float32"] = _device_profile(prof, wall, 1)
+    log("[families-rnn-lm] " + json.dumps(summary))
+    del f32, tr
+
+    rs = np.random.RandomState(21)
+    rows = []
+    seq = BIGRU["max_len"]
+    for _ in range(BIGRU_ROWS):
+        label = rs.randint(0, 2)
+        ids = rs.randint(10, BIGRU["vocab_size"], seq)
+        if label:
+            ids[::9] = 3
+        n_real = rs.randint(seq // 4, seq + 1)
+        mask = np.zeros(seq)
+        mask[:n_real] = 1.0
+        ids[n_real:] = 0
+        rows.append((float(label), Vectors.dense(ids.astype(float)),
+                     Vectors.dense(mask)))
+    spark = LocalSession.builder.appName("rnn-sequence").getOrCreate()
+    df = spark.createDataFrame(rows, ["label", "tokens", "mask"])
+    losses = []
+    est = SparkAsyncDL(
+        inputCol="tokens", tensorflowGraph=build_registry_spec(
+            "rnn_classifier", **BIGRU),
+        tfInput="input_ids:0", tfLabel="y:0", labelCol="label",
+        tfOutput="pred:0", extraInputCols="mask",
+        extraTfInputs="attention_mask:0", iters=1,
+        miniBatchSize=BIGRU_BATCH, tfOptimizer="adam", tfLearningRate=1e-3,
+        predictionCol="predicted", weightsPath=os.path.join(work, "bigru"),
+        device=device)
+    est.setLossCallback(lambda loss, it, part: losses.append(loss))
+    fitted, fit_s, gaps = _marked_fit(lambda: est.fit(df), cuda)
+    if len(gaps) + 1 != -(-BIGRU_ROWS // BIGRU_BATCH) or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"bi-GRU fit: {len(gaps) + 1} steps, "
+                             f"losses {losses}")
+    t1 = time.perf_counter()
+    preds = fitted.transform(df).collect()
+    _sync(cuda)
+    transform_s = time.perf_counter() - t1
+    if len(preds) != BIGRU_ROWS or not all(r["predicted"] in (0.0, 1.0)
+                                          for r in preds):
+        raise AssertionError("bi-GRU transform: a row without a class")
+    acc = float(np.mean([r["predicted"] == r["label"] for r in preds]))
+    log("[families-bigru] " + json.dumps({
+        "config": "rnn_classifier bi-GRU 2 x 512, max_len 128, vocab 1000, "
+                  "float32, adam 1e-3",
+        "rows": BIGRU_ROWS, "batch": BIGRU_BATCH, "steps": len(gaps) + 1,
+        "fit_s": fit_s, "losses": losses,
+        "train_examples_per_s_after_first": BIGRU_BATCH * len(gaps)
+        / sum(gaps),
+        "step_ms_after_first": 1e3 * sum(gaps) / len(gaps),
+        "transform_s": transform_s,
+        "transform_examples_per_s": BIGRU_ROWS / transform_s,
+        "train_accuracy": acc, "card": card}))
+
+
+def phase_families(card, work, device=None):
+    """Phase 16: the MoE LM served and trained at Switch-Base-8 widths,
+    ResNet-50 / CIFAR-10 and the LSTM / GRU family (see the module
+    docstring). Returns the MoE path's kernel launches."""
+    import torch
+    cuda = device != "cpu"
+    t0 = time.perf_counter()
+    serving = _moe_serving(card, device)
+    if cuda:
+        torch.cuda.empty_cache()
+    _moe_exactness(card, device)
+    training = _moe_training(card, device)
+    if cuda:
+        torch.cuda.empty_cache()
+    _resnet(card, device, work)
+    _rnn(card, device, work)
+    log(f"[families] phase 16 {time.perf_counter() - t0:.1f} s")
+    return {"serving": serving, "training": training}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3576,6 +4206,7 @@ def main() -> int:
         predict = timed("predict", phase_predict, card, spec, weights, work)
         resil = timed("resilience", phase_resilience, card, work)
         fleet = timed("fleet", phase_fleet, card, spec, work)
+        families = timed("families", phase_families, card, work)
     except Exception:
         traceback.print_exc()
         return 1
@@ -3608,26 +4239,38 @@ def main() -> int:
                         "remat_launches_per_step":
                         resil["remat_flash_fwd_per_step"]},
          # phase 15: each drained replica's launches over what it served
-         "fleet": fleet["flash_fwd"]},
+         "fleet": fleet["flash_fwd"],
+         # phase 16: the Switch-Base-8-width MoE LM's serving burst and its
+         # 8 training steps
+         "families": {"moe_serving_launches":
+                      families["serving"]["flash_fwd"],
+                      "moe_training_launches":
+                      families["training"]["flash_fwd"]}},
         {"name": "paged_attention", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "734",
          "launches": launches["paged_attention"], **paged_row,
          # the self-speculation draft chain of burst (a), bf16 pool
          "spec_serving": {"launches": spec_a["paged_attention"]},
-         "fleet": fleet["paged_attention"]},
+         "fleet": fleet["paged_attention"],
+         "families": {"moe_serving_launches":
+                      families["serving"]["paged_attention"]}},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "372",
          "launches": train_launches["flash_bwd_dq"],
          **bwd_rows["flash_bwd_dq"], "estimator": est_rows["flash_bwd_dq"],
          "resilience": {"stream_fit_launches":
-                        resil["stream_fit"]["flash_bwd_dq"]}},
+                        resil["stream_fit"]["flash_bwd_dq"]},
+         "families": {"moe_training_launches":
+                      families["training"]["flash_bwd_dq"]}},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "415",
          "launches": train_launches["flash_bwd_dkv"],
          **bwd_rows["flash_bwd_dkv"],
          "estimator": est_rows["flash_bwd_dkv"],
          "resilience": {"stream_fit_launches":
-                        resil["stream_fit"]["flash_bwd_dkv"]}},
+                        resil["stream_fit"]["flash_bwd_dkv"]},
+         "families": {"moe_training_launches":
+                      families["training"]["flash_bwd_dkv"]}},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "781",
          "launches": spec_b["paged_attention_quant"],

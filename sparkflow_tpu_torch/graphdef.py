@@ -366,16 +366,20 @@ def _params_conv2d(node, ins):
 
 
 class _NoTF32:
-    """cuDNN runs float32 convolutions in TF32 unless told not to; the JAX
-    op asks for float32 (``preferred_element_type``). Turns TF32 off for
-    the block and restores the caller's setting."""
+    """cuDNN runs float32 convolutions in TF32 unless told not to, and
+    cuBLAS float32 matmuls when asked to; the JAX ops compute in float32
+    (``preferred_element_type``). Turns TF32 off for both in the block and
+    restores the caller's settings."""
 
     def __enter__(self):
-        self.prev = torch.backends.cudnn.allow_tf32
+        self.prev = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
     def __exit__(self, *exc):
-        torch.backends.cudnn.allow_tf32 = self.prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.prev
         return False
 
 
@@ -394,15 +398,25 @@ class _Conv2d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
-        gx = gw = None
         with _NoTF32():
-            if ctx.needs_input_grad[0]:
-                gx = torch.nn.grad.conv2d_input(x.shape, w, gy,
-                                                stride=ctx.stride)
-            if ctx.needs_input_grad[1]:
-                gw = torch.nn.grad.conv2d_weight(x, w.shape, gy,
-                                                 stride=ctx.stride)
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, list(ctx.stride), [0, 0], [1, 1], False,
+                [0, 0], 1, [ctx.needs_input_grad[0],
+                            ctx.needs_input_grad[1], False])
         return gx, gw, None
+
+
+def _conv2d(x, w, stride: Tuple[int, int]):
+    """``_Conv2d`` of NCHW ``x`` by OIHW ``w``. Rows and columns that no
+    window reads (a strided convolution whose windows stop short of the
+    edge) are cut first: for such a convolution the CPU's oneDNN backward
+    gave wrong gradients that changed from run to run."""
+    (sh, sw), (kh, kw) = stride, w.shape[2:]
+    h = (x.shape[2] - kh) // sh * sh + kh
+    wd = (x.shape[3] - kw) // sw * sw + kw
+    if (h, wd) != tuple(x.shape[2:]):
+        x = x[:, :, :h, :wd]
+    return _Conv2d.apply(x, w, (sh, sw))
 
 
 def _eval_conv2d(node, ins, ctx, p):
@@ -417,7 +431,7 @@ def _eval_conv2d(node, ins, ctx, p):
     sh, sw = _pair(node.attrs.get("strides", 1))
     pad = node.attrs.get("padding", "VALID").upper()
     xc = _pad_nchw(x.permute(0, 3, 1, 2), kh, kw, sh, sw, pad)
-    y = _Conv2d.apply(xc, k.permute(3, 2, 0, 1), (sh, sw)).permute(0, 2, 3, 1)
+    y = _conv2d(xc, k.permute(3, 2, 0, 1), (sh, sw)).permute(0, 2, 3, 1)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import as_dtype, resolve_device
+from ..graphdef import initialize
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -52,18 +53,20 @@ class RegistryModel(nn.Module):
 
     def init(self, generator: Optional[torch.Generator] = None,
              seed: int = 0) -> Params:
-        """Draw float32 parameters following ``param_specs()`` —
-        ``normal(std)``, ``ones``, ``zeros`` — from ``generator`` (a CPU
-        ``torch.Generator``; default one seeded with ``seed``), install them
-        on this module and return the tree. The draws are made on the CPU so
-        a seed gives the same weights on every device."""
+        """Draw float32 parameters following ``param_specs()`` — any
+        initializer of :func:`~sparkflow_tpu_torch.graphdef.initialize`
+        (``normal(std)``, ``ones``, ``zeros``, ``he_normal``, ...) — from
+        ``generator`` (a CPU ``torch.Generator``; default one seeded with
+        ``seed``), install them on this module and return the tree. The
+        draws are made on the CPU so a seed gives the same weights on every
+        device."""
         if generator is None:
             generator = torch.Generator().manual_seed(int(seed))
         tree: Params = {}
         for lname, pspec in self.param_specs().items():
             layer = {}
             for pname, (shape, init_name) in pspec.items():
-                layer[pname] = _initialize(init_name, shape, generator).to(
+                layer[pname] = initialize(init_name, shape, generator).to(
                     self.device)
             tree[lname] = layer
         return self.load_params(tree)
@@ -129,8 +132,10 @@ class RegistryModel(nn.Module):
         return self._loss(params, feeds, train=train, generator=generator,
                           **kw)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self._forward(self.params(), {"input_ids": input_ids})["logits"]
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits for the model's first input tensor (``input_ids``, or a
+        ResNet's ``x``)."""
+        return self._forward(self.params(), {self.TENSORS[0]: x})["logits"]
 
     # -- helpers --------------------------------------------------------------
 
@@ -152,16 +157,3 @@ def softmax_xent(logits: torch.Tensor, y) -> torch.Tensor:
     idx = y.reshape(y.shape[0]).long()
     return -logp.gather(-1, idx[:, None])[:, 0]
 
-
-def _initialize(name: str, shape, generator: torch.Generator) -> torch.Tensor:
-    if name == "zeros":
-        return torch.zeros(shape, dtype=torch.float32)
-    if name == "ones":
-        return torch.ones(shape, dtype=torch.float32)
-    if name.startswith("normal"):
-        std = 0.05
-        if "(" in name:
-            std = float(name[name.index("(") + 1:name.index(")")])
-        return torch.randn(shape, generator=generator,
-                           dtype=torch.float32) * std
-    raise ValueError(f"initializer {name!r} is not yet ported")

@@ -2,8 +2,9 @@
 
 Carried from the JAX package: the spec wire format is unchanged, so a spec
 built here is byte-identical to ``build_registry_spec``'s there and either
-package loads the other's. Only the families listed in ``_REGISTRY`` are
-ported; the rest of the JAX zoo raises "not yet ported" (ROADMAP.md).
+package loads the other's. Every registry family of the JAX zoo is ported
+(``transformer_lm``, ``transformer_classifier``, ``transformer_moe_lm``,
+``resnet``, ``resnet50``, ``rnn_classifier``, ``rnn_lm``).
 :func:`model_from_json` dispatches as the JAX package does: a registry
 spec, then a TF1 ``MetaGraphDef`` JSON (refused: the TF1 interpreter is not
 yet ported), then the ``nn`` graph DSL (:class:`~..graphdef.GraphModel`).
@@ -18,10 +19,6 @@ REGISTRY_FORMAT = "sparkflow-tpu-model"
 
 _REGISTRY: Dict[str, Callable] = {}
 
-# registry families of the JAX package that this package does not have yet
-_NOT_YET_PORTED = ("resnet", "resnet50", "rnn_classifier", "rnn_lm",
-                   "transformer_moe_lm")
-
 
 def register_model(name: str):
     def deco(cls):
@@ -34,10 +31,6 @@ def register_model(name: str):
 def _check_known(name: str) -> Callable:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"model family {name!r} is not yet ported to PyTorch; ported: "
-            f"{sorted(_REGISTRY)} (see ROADMAP.md)")
     raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
 
 

@@ -188,26 +188,38 @@ class _TransformerBase(RegistryModel):
         qkv = qkv.permute(2, 0, 3, 1, 4)
         return qkv[0], qkv[1], qkv[2]
 
+    def _mlp(self, bp, y, mask=None):
+        """The block's feed-forward half on ``y`` [B,S,hidden] (after ln2):
+        ``(out, aux)``. Dense blocks add no auxiliary loss (``aux`` None);
+        the MoE mixin overrides this for its expert layers, where ``mask``
+        [B,S] marks the tokens that may claim expert capacity."""
+        y = _gelu(self._proj(bp, "fc1_", y))
+        return self._proj(bp, "fc2_", y), None
+
     def _finish_block(self, bp, x, att, train: bool = False,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      mask=None):
         """O-projection + residual + MLP on ``att`` [B,S,heads*d], with
-        dropout after the O projection and after fc2 when training."""
+        dropout after the O projection and after the MLP when training:
+        ``(x, aux)`` (see :meth:`_mlp`)."""
         x = x + self._dropout(self._proj(bp, "o_", att),
                               train, generator)
         y = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-        y = _gelu(self._proj(bp, "fc1_", y))
-        return x + self._dropout(self._proj(bp, "fc2_", y),
-                                 train, generator)
+        y, aux = self._mlp(bp, y, mask)
+        return x + self._dropout(y, train, generator), aux
 
     def _block(self, bp, x, mask, causal, attention=None, train: bool = False,
                generator: Optional[torch.Generator] = None):
-        """Full-sequence block: ``(x, k, v)`` with k/v [B,heads,S,d]."""
+        """Full-sequence block: ``(x, k, v, aux)`` with k/v
+        [B,heads,S,d]; ``mask`` is the key-padding mask and the MLP's live
+        tokens."""
         b, s, _ = x.shape
         q, k, v = self._qkv(bp, x)
         attend = flash_attention if attention is None else attention
         att = attend(q, k, v, causal=causal, kv_mask=mask)
         att = att.transpose(1, 2).reshape(b, s, -1)
-        return self._finish_block(bp, x, att, train, generator), k, v
+        x, aux = self._finish_block(bp, x, att, train, generator, mask)
+        return x, k, v, aux
 
     def _block_decode(self, bp, x, layer, cache, pos, attend):
         """One block on a single token ``x`` [B,1,hidden]; attention over
@@ -218,7 +230,7 @@ class _TransformerBase(RegistryModel):
         qkv = qkv.view(b, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]           # [B, heads, d]
         att, cache = attend(layer, q, k, v, cache, pos)
-        return self._finish_block(bp, x, att.reshape(b, 1, -1)), cache
+        return self._finish_block(bp, x, att.reshape(b, 1, -1))[0], cache
 
     def _block_suffix(self, bp, x, layer, cache, start, attend):
         """One block on a prompt suffix ``x`` [B,S,hidden] starting at
@@ -228,16 +240,16 @@ class _TransformerBase(RegistryModel):
         q, k, v = self._qkv(bp, x)
         att, cache = attend(layer, q, k, v, cache, start)
         att = att.transpose(1, 2).reshape(b, s, -1)
-        return self._finish_block(bp, x, att), cache
+        return self._finish_block(bp, x, att)[0], cache
 
     def _remat_block(self, bp, x, mask, causal, attention, train, generator):
-        """One block under ``torch.utils.checkpoint``: its activations are
-        recomputed in the backward, all of them (``remat`` True / "full")
-        or all but the weight products' outputs ("dots", a selective
-        checkpoint policy). Dropout must draw the same masks twice,
-        so the block draws from a generator rebuilt from ``generator``'s
-        state before the block, and ``generator`` then moves past the
-        block's draws as if it had drawn them itself."""
+        """One block under ``torch.utils.checkpoint``: ``(x, aux)``, its
+        activations recomputed in the backward, all of them (``remat`` True
+        / "full") or all but the weight products' outputs ("dots", a
+        selective checkpoint policy). Dropout must draw the same masks
+        twice, so the block draws from a generator rebuilt from
+        ``generator``'s state before the block, and ``generator`` then moves
+        past the block's draws as if it had drawn them itself."""
         state = (generator.get_state() if train and self.dropout > 0.0
                  and generator is not None else None)
         after = {}
@@ -247,40 +259,46 @@ class _TransformerBase(RegistryModel):
             if state is not None:
                 g = torch.Generator(device=x.device)
                 g.set_state(state)
-            y = self._block(bp, x, mask, causal, attention, train, g)[0]
+            y, _, _, aux = self._block(bp, x, mask, causal, attention, train,
+                                       g)
             if g is not None:
                 after["state"] = g.get_state()
-            return y
+            return y, aux
 
-        x = checkpoint(run, x, use_reentrant=False, context_fn=(
+        x, aux = checkpoint(run, x, use_reentrant=False, context_fn=(
             _DOTS_CONTEXT if self.remat == "dots" else noop_context_fn))
         if state is not None:
             generator.set_state(after["state"])
-        return x
+        return x, aux
 
     def _encode(self, params: Params, feeds, causal: bool,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 attention: Optional[Callable] = None):
         """Embeddings and every block over ``feeds["input_ids"]`` [B,S],
-        then the final layer norm: ``(x [B,S,hidden], mask)``; the optional
-        ``attention_mask`` [B,S] is the key-padding mask of every block."""
+        then the final layer norm: ``(x [B,S,hidden], mask, aux)``; the
+        optional ``attention_mask`` [B,S] is the key-padding mask of every
+        block, and ``aux`` the float32 sum of the blocks' auxiliary losses
+        (zero for a dense model)."""
         ids = torch.as_tensor(feeds["input_ids"], device=self.device).long()
         mask = feeds.get("attention_mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device)
         x = self.prefill_embed(params, ids)
         remat = self.remat and torch.is_grad_enabled()
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(self.num_layers):
             bp = params[f"block_{i}"]
             if remat:
-                x = self._remat_block(bp, x, mask, causal, attention, train,
-                                      generator)
+                x, aux = self._remat_block(bp, x, mask, causal, attention,
+                                           train, generator)
             else:
-                x = self._block(bp, x, mask, causal, attention, train,
-                                generator)[0]
+                x, _, _, aux = self._block(bp, x, mask, causal, attention,
+                                           train, generator)
+            if aux is not None:
+                aux_total = aux_total + aux
         return _layer_norm(x, params["final_ln"]["scale"],
-                           params["final_ln"]["bias"]), mask
+                           params["final_ln"]["bias"]), mask, aux_total
 
     def prefill_embed(self, params, ids):
         emb = params["embed"]
@@ -314,8 +332,8 @@ class TransformerClassifier(_TransformerBase):
     def _forward(self, params: Params, feeds, train: bool = False,
                  generator: Optional[torch.Generator] = None,
                  attention: Optional[Callable] = None):
-        x, mask = self._encode(params, feeds, False, train, generator,
-                               attention)
+        x, mask, _ = self._encode(params, feeds, False, train, generator,
+                                  attention)
         if mask is not None:
             w = mask[:, :, None].to(x.dtype)
             pooled = (x * w).sum(1) / w.sum(1).clamp_min(1e-6)
@@ -384,7 +402,8 @@ class TransformerLM(_TransformerBase):
         """Causal forward over ``feeds["input_ids"]`` [B,S] -> ``{"logits"
         [B,S,vocab] f32, "pred"}``. ``attention`` overrides the kernel
         (``attention_reference`` gives the plain dense forward)."""
-        x, _ = self._encode(params, feeds, True, train, generator, attention)
+        x, _, _ = self._encode(params, feeds, True, train, generator,
+                               attention)
         logits = torch.matmul(x.float(), params["embed"]["tok"].float().t())
         return {"logits": logits, "pred": logits.argmax(-1).float()}
 
@@ -415,7 +434,7 @@ class TransformerLM(_TransformerBase):
         x = self.prefill_embed(params, ids)
         kvs = []
         for i in range(self.num_layers):
-            x, k, v = self._block(params[f"block_{i}"], x, mask, True)
+            x, k, v, _ = self._block(params[f"block_{i}"], x, mask, True)
             kvs.append((k, v))
         return self.head_last(params, x, lengths), kvs
 

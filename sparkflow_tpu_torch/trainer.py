@@ -675,12 +675,20 @@ class Trainer:
     def _train_flops_per_batch(self, x, y, params) -> Optional[float]:
         """Model FLOPs of one optimizer step on the batch ``x``: the analytic
         count for a registry transformer (its attention runs in a kernel
-        that no counter sees), else one step counted by
+        that no counter sees; an MoE LM's expert layers priced as the slot
+        dispatch runs them), else one step counted by
         :func:`~sparkflow_tpu_torch.utils.flops.train_step_flops`."""
+        from .models.moe import MoETransformerLM
         from .models.transformer import TransformerLM, _TransformerBase
-        from .utils.flops import (train_step_flops,
+        from .utils.flops import (moe_train_step_flops, train_step_flops,
                                   transformer_train_step_flops)
         m = self.model
+        if isinstance(m, MoETransformerLM):
+            ids = x[0] if isinstance(x, tuple) else x
+            return moe_train_step_flops(
+                ids.shape[0], ids.shape[1], m.hidden, m.num_layers,
+                m.mlp_dim, m.num_experts, m.moe_every, m.capacity_factor,
+                m.router_top_k, vocab_size=m.vocab_size, causal=True)
         if isinstance(m, _TransformerBase):
             ids = x[0] if isinstance(x, tuple) else x
             lm = isinstance(m, TransformerLM)

@@ -14,7 +14,9 @@ Two FLOPs sources:
   ``ctypes`` is invisible to it and counts zero (the JAX package's caveat for
   a Pallas call), so the count is for pure-PyTorch graphs only.
 - :func:`transformer_train_step_flops` — the standard analytic count for
-  transformer steps, whose attention runs in a hand-written kernel.
+  transformer steps, whose attention runs in a hand-written kernel, and
+  :func:`moe_train_step_flops`, the same for the MoE LM with its expert
+  layers priced at the products the slot dispatch runs.
 
 The JAX module's ``jit_flops`` (XLA's cost analysis of a compiled program)
 has no counterpart: PyTorch runs eagerly and compiles nothing to price.
@@ -27,6 +29,7 @@ dense **bf16** peak, whatever dtype the step runs in.
 from __future__ import annotations
 
 import logging
+import math
 from typing import Optional
 
 logger = logging.getLogger(__name__)
@@ -133,6 +136,31 @@ def transformer_train_step_flops(batch: int, seq: int, hidden: int,
     fwd += 4.0 * batch * seq * seq * hidden * num_layers * (
         0.5 if causal else 1.0)
     return 3.0 * fwd
+
+
+def moe_train_step_flops(batch: int, seq: int, hidden: int,
+                         num_layers: int, mlp_dim: int, num_experts: int,
+                         moe_every: int, capacity_factor: float,
+                         router_top_k: int = 1, vocab_size: int = 0,
+                         causal: bool = True) -> float:
+    """Analytic model FLOPs for one train step (fwd + bwd) of
+    ``transformer_moe_lm``: :func:`transformer_train_step_flops` with each
+    MoE layer's dense MLP replaced by the products the slot dispatch runs —
+    the router (2 · N · hidden · E) and the two expert products over every
+    one of the ``E · C`` slots (2 · E · C · hidden · mlp_dim each), filled
+    or not, C = ceil(capacity_factor · N · k / E) over the step's N =
+    batch · seq tokens. Backward = 2 × forward."""
+    n = batch * seq
+    e, k = int(num_experts), max(1, min(int(router_top_k), num_experts))
+    every = max(1, int(moe_every))
+    moe_layers = sum(1 for i in range(num_layers) if i % every == every - 1)
+    cap = max(1, math.ceil(capacity_factor * n * k / e))
+    dense_mlp = 2.0 * n * 2 * hidden * mlp_dim
+    routed = 2.0 * n * hidden * e + 2 * (2.0 * e * cap * hidden * mlp_dim)
+    return (transformer_train_step_flops(batch, seq, hidden, num_layers,
+                                         mlp_dim, vocab_size=vocab_size,
+                                         causal=causal)
+            + 3.0 * moe_layers * (routed - dense_mlp))
 
 
 def attention_flops(batch: int, heads: int, seq_q: int, seq_k: int,

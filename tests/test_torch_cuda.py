@@ -1359,3 +1359,105 @@ def test_coldstart_without_store_or_nvcc_raises(dev, tmp_path):
     r = _probe("-", tmp_path / "kernels")
     assert r.returncode != 0
     assert "nvcc not found" in r.stderr
+
+
+# -- the other registry families: MoE dispatch, ResNet, LSTM / GRU ------------
+
+def _on(tree, device, grad=False):
+    return {k: v.detach().to(device).requires_grad_(grad)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_slot_dispatch_on_card_matches_cpu(dev, top_k):
+    """``_moe_mlp_slots`` at 512 tokens, 8 experts, capacity 1.25, a
+    padding mask: the same routing (slot table) and, float32 with TF32
+    off, the expert output, the aux loss and the gradients within 1e-5
+    absolute plus 1e-5 relative of the CPU's."""
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    spec = build_registry_spec(
+        "transformer_moe_lm", vocab_size=64, hidden=64, num_layers=2,
+        num_heads=4, mlp_dim=128, max_len=256, num_experts=8,
+        router_top_k=top_k)
+    cpu = model_from_json(spec, device="cpu")
+    card = model_from_json(spec, device=dev)
+    bp = {k: v for k, v in cpu.init(seed=top_k)["block_1"].items()
+          if k == "router" or k.startswith("experts_")}
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 256, 64, generator=g)
+    mask = torch.ones(2, 256)
+    mask[1, 200:] = 0.0
+    results = []
+    for model in (cpu, card):
+        p = _on(bp, model.device, grad=True)
+        xd = x.to(model.device)
+        _, top_idx, _, _ = model.route(p, xd.reshape(-1, 64),
+                                       mask.to(model.device))
+        y, aux = model._moe_mlp_slots(p, xd, mask.to(model.device))
+        grads = torch.autograd.grad((y * y).sum() + aux,
+                                    [p[k] for k in sorted(p)])
+        results.append([t.detach().cpu() for t in (top_idx, y, aux, *grads)])
+    assert torch.equal(results[0][0], results[1][0])
+    for a, b in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bottleneck", [False, True],
+                         ids=["basic", "bottleneck"])
+def test_resnet_block_on_card_matches_cpu(dev, bottleneck):
+    """A strided residual block with its projection (SAME pads (0, 1) at
+    stride 2 on 16 pixels, group norm, ReLU), forward and weight
+    gradients, float32 (cuDNN's TF32 off): each tensor within 1e-5 of its
+    largest entry on the CPU (the gradients reach ~180; float32 against
+    float64 on the CPU lands within 1e-6 of it)."""
+    from sparkflow_tpu_torch.models import ResNet
+    model = ResNet(10, depth=50 if bottleneck else 18, image_size=32,
+                   width=16, device="cpu")
+    bp = model.init(seed=1)["stage1_block0"]
+    block = model._bottleneck_block if bottleneck else model._basic_block
+    cin = 64 if bottleneck else 16
+    x = torch.randn(4, cin, 16, 16, generator=torch.Generator().manual_seed(2))
+    results = []
+    for device in ("cpu", dev):
+        p = _on(bp, device, grad=True)
+        y = block(p, x.to(device), 2)
+        grads = torch.autograd.grad((y * y).sum(), [p[k] for k in sorted(p)])
+        results.append([t.detach().cpu() for t in (y, *grads)])
+    for a, b in zip(*results):
+        assert _max_err(a, b) <= 1e-5 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_rnn_steps_on_card_match_cpu(dev, cell, dtype):
+    """20 steps of a 650-unit LSTM / GRU layer over a ragged mask, forward
+    and gradients, each tensor within a share of its largest entry on the
+    CPU: float32 (TF32 off) 1e-5 (float32 against float64 on the CPU
+    lands within 4e-7); bf16 operands (float32 gate products and state on
+    both devices) 2e-2 — the hidden state is rounded to bf16 before each
+    step's product, so a last-bit float32 difference can move an operand
+    by one bf16 ulp (2^-8) and compounds over the steps."""
+    from sparkflow_tpu_torch.models.rnn import _gru_scan, _lstm_scan
+    g = torch.Generator().manual_seed(3)
+    gates = 4 if cell == "lstm" else 3
+    h = 650
+    kernel = torch.randn(2 * h, gates * h, generator=g) * 0.02
+    bias = torch.randn(gates * h, generator=g) * 0.02
+    x = torch.randn(20, 8, h, generator=g)
+    mask = torch.ones(20, 8, 1)
+    mask[11:, 3] = 0.0
+    results = []
+    for device in ("cpu", dev):
+        k, b = (t.to(device).requires_grad_(True) for t in (kernel, bias))
+        xd, md = x.to(device, dtype), mask.to(device)
+        h0 = torch.zeros(8, h, device=device)
+        if cell == "lstm":
+            ys, hl, _ = _lstm_scan(xd, md, h0, h0, k, b)
+        else:
+            ys, hl = _gru_scan(xd, md, h0, k, b)
+        gk, gb = torch.autograd.grad((ys * ys).sum() + hl.sum(), [k, b])
+        results.append([t.detach().cpu() for t in (ys, hl, gk, gb)])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(*results):
+        assert _max_err(a, b) <= tol * float(a.abs().max())

@@ -3,8 +3,6 @@ numpy-drawn weights, the weight carry (convert.py), the registry and the
 device rule. Tolerance 1e-4 in float32: the two frameworks sum matmuls in
 different orders, a few 1e-6 per layer at these widths."""
 
-import json
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,15 +209,61 @@ def test_registry_spec_is_byte_identical_to_jax():
     assert m.compute_dtype == torch.bfloat16 and m.head_dim == 8
 
 
-@pytest.mark.parametrize("family", ["rnn_classifier", "resnet50",
-                                    "rnn_lm", "transformer_moe_lm"])
-def test_unported_families_raise(family):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_registry_spec(family, vocab_size=10)
-    spec = json.dumps({"format": "sparkflow-tpu-model", "version": 1,
-                       "model": family, "config": {}})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model_from_json(spec, device="cpu")
+# one case per preset builder and one per registry family: the spec
+# string is the JAX package's byte for byte, and the port builds the model
+PRESETS = {
+    "mlp": dict(input_dim=20, num_classes=3),
+    "cnn": dict(side=12, channels=1, num_classes=4),
+    "autoencoder": dict(input_dim=30, widths=(16, 8, 16)),
+    "moe_lm": dict(vocab_size=61, hidden=32, num_layers=2, num_heads=4,
+                   mlp_dim=64, max_len=32),
+}
+FAMILIES = {
+    "transformer_lm": CFG,
+    "transformer_classifier": dict(CFG, num_classes=3),
+    "transformer_moe_lm": dict(CFG, num_experts=4, router_top_k=2),
+    "resnet": dict(num_classes=10, depth=18, image_size=32, width=8),
+    "resnet50": dict(num_classes=10, image_size=32),
+    "rnn_classifier": dict(vocab_size=40, num_classes=2, hidden=16,
+                           cell="gru", bidirectional=True),
+    "rnn_lm": dict(vocab_size=40, hidden=16, num_layers=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS) + sorted(FAMILIES))
+def test_specs_are_byte_identical_to_jax_and_build(name):
+    from sparkflow_tpu.models import presets as jax_presets
+    from sparkflow_tpu.models.registry import model_from_json as jax_from
+    from sparkflow_tpu_torch.models import presets
+    if name in PRESETS:
+        spec = getattr(presets, name)(**PRESETS[name])
+        assert spec == getattr(jax_presets, name)(**PRESETS[name])
+    else:
+        spec = build_registry_spec(name, **FAMILIES[name])
+        assert spec == jax_spec(name, **FAMILIES[name])
+    jm = jax_from(spec)
+    tm = model_from_json(spec, device="cpu")
+    assert list(tm.param_specs().items()) == list(jm.param_specs().items())
+    if name in FAMILIES:
+        assert tm.model_name == name == jm.model_name
+    tree = tm.init(seed=0)
+    flat = params_to_list(tm, tree)
+    assert len(flat) == sum(len(p) for p in jm.param_specs().values())
+    assert all(torch.equal(a, b) for ln in tree for a, b in zip(
+        tree[ln].values(), list_to_params(tm, flat)[ln].values()))
+    # JAX weights carry both ways: the flat list in spec order, and the
+    # sorted-key leaf order of the on-disk trees
+    from sparkflow_tpu.graphdef import params_to_list as jax_to_list
+    from sparkflow_tpu_torch.convert import sorted_leaves
+    npp = numpy_params(jm.param_specs(), seed=3)
+    tp = params_from_jax(tm, npp)
+    assert all(np.array_equal(a, b) for a, b in zip(
+        params_to_list(tm, tp), jax_to_list(jm, npp), strict=True))
+    assert all(np.array_equal(t.numpy(), a) for (_, t), a in zip(
+        sorted_leaves(tp), jax.tree.leaves(npp), strict=True))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model_from_json(spec)
 
 
 @pytest.mark.parametrize("kw", [{"sp_axis": "sp"}])
