@@ -218,7 +218,35 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     relative, one profiled step; the bi-GRU ``rnn_classifier`` (512, 2
     layers, max_len 128) through ``SparkAsyncDL`` fit and transform.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16; a ``[time]`` line
+17. tf1-hogwild: the reference's own path. (a) Its three example graphs
+    as TF1 MetaGraphDef JSON (``tests/fixtures/torch_tf1/``: the MNIST MLP
+    784-256-256-10, the MNIST CNN conv 32x5 / pool / conv 64x3 / pool /
+    dense 10, the autoencoder 784-256-128-256-784; published widths),
+    trained through ``SparkAsyncDL(tensorflowGraph=<fixture>)`` at the
+    examples' batch sizes (300, 300, 256) for 8 steps each on synthetic
+    MNIST-shaped rows, float32 with TF32 off, on the card and on the CPU
+    from the same weights and shuffles: the first loss, the fit's losses
+    and 64 rows' predictions within 1e-5 (relative), and a
+    ``load_checkpoint_model`` round trip through an npz predicting the
+    same; examples/s, step ms (CUDA events between steps), and one
+    profiled step's device ops, busy ms and idle share. (b)
+    ``HogwildSparkModel(tensorflowGraph=<BERT-base spec>, mini_batch=8,
+    iters=4).train(rdd)`` over a 4-partition localml RDD of 32 rows x 512
+    tokens (float32, dropout 0.1): 4 replica threads, 4 pushes each; the
+    flash kernels' counters zeroed before and read after (12 a gradient,
+    warm-up included); accepted / rejected-stale / dropped pushes, the
+    staleness histogram, final version and peak memory of that first
+    train; then, warm, its examples/s with the median host ms of a
+    gradient and of a push (the wait for the store's lock included),
+    one replica's over the same rows, the sync ``Trainer``'s on them
+    (recorded, not gated), and a train under ``torch.profiler`` for the
+    idle share. At 2 layers (dropout 0): one
+    replica through ``strategy="elastic_dp"`` equals the sync ``Trainer``'s
+    SGD for 4 steps (losses and weights within 1e-5 relative), and
+    ``run_virtual`` with a 10x straggler on the card gives the CPU's
+    accounting exactly.
+
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17; a ``[time]`` line
 gives each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
@@ -4167,6 +4195,413 @@ def phase_families(card, work, device=None):
     return {"serving": serving, "training": training}
 
 
+# phase 17: the reference's own path. The three example graphs as TF1
+# MetaGraphDef JSON (tests/fixtures/torch_tf1/, written with tf.compat.v1 by
+# make_fixtures.py there): (fixture, tensor compared, supervised, batch,
+# miniStochasticIters, iters, rows, learning rate) — the examples' batch
+# sizes and optimizer settings, 8 steps each
+TF1_GRAPHS = (("mnist_mlp", "dense_2/BiasAdd:0", True, 300, 1, 8, 1200, 1e-3),
+              ("mnist_cnn", "dense/BiasAdd:0", True, 300, -1, 2, 1200, 1e-4),
+              ("autoencoder", "out/Sigmoid:0", False, 256, -1, 2, 1024,
+               1e-3))
+TF1_TOL = 1e-5             # card vs CPU: losses relative, predictions of
+TF1_PRED_ROWS = 64         # this many rows over max(1, max |CPU|)
+# Hogwild at BERT-base width: 4 partitions of 8 rows x 512 tokens, batch 8,
+# 4 pushes a replica; the exactness checks at 2 layers
+HOGWILD_ROWS, HOGWILD_PARTS, HOGWILD_BATCH, HOGWILD_ITERS = 32, 4, 8, 4
+HOGWILD_EXACT_TOL = 1e-5   # 1 elastic replica vs sync SGD, relative
+VIRTUAL_COSTS = (1.0, 1.0, 1.0, 10.0)
+
+
+def _tf1_fixture(name):
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "torch_tf1", name + ".json")
+    with open(path) as f:
+        return f.read()
+
+
+def _tf1_rows(n, supervised, seed):
+    """Synthetic MNIST-shaped rows: 784 floats in [0, 1] and, when
+    supervised, a one-hot label of 10 classes, from ``seed``."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, 784).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, n)]
+    return x, (y if supervised else None)
+
+
+def _tf1_df(x, y):
+    from sparkflow_tpu_torch.localml import LocalSession, Vectors
+    spark = LocalSession.builder.appName("tf1").getOrCreate()
+    if y is None:
+        return spark.createDataFrame([(Vectors.dense(r),) for r in x],
+                                     ["features"])
+    return spark.createDataFrame(
+        [(Vectors.dense(r), Vectors.dense(l)) for r, l in zip(x, y)],
+        ["features", "labels"])
+
+
+def _tf1_predictions(stage, df):
+    import numpy as np
+    col = stage.getOrDefault(stage.predictionCol)
+    return np.stack([np.asarray(r[col].toArray(), np.float32)
+                     for r in stage.transform(df).collect()])
+
+
+def _tf1_fit(mg, cfg, df, device):
+    """``SparkAsyncDL(tensorflowGraph=mg)`` fitted on ``device``: the fitted
+    stage, the per-epoch losses, the fit's wall seconds and the gaps
+    between consecutive optimizer steps."""
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    name, out, sup, batch, stoch, iters, _rows, lr = cfg
+    losses = []
+    est = SparkAsyncDL(
+        inputCol="features", tensorflowGraph=mg, tfInput="x:0",
+        tfLabel="y:0" if sup else None, tfOutput=out, tfOptimizer="adam",
+        tfLearningRate=lr, miniBatchSize=batch, miniStochasticIters=stoch,
+        iters=iters, shufflePerIter=True, partitions=4,
+        labelCol="labels" if sup else None, predictionCol="predicted",
+        device=device)
+    est.setLossCallback(lambda loss, it, part: losses.append(float(loss)))
+    model, wall, gaps = _marked_fit(lambda: est.fit(df), device != "cpu")
+    return model, losses, wall, gaps
+
+
+def _tf1_step_profile(mg, cfg, x, y, device):
+    """One training step of the interpreted graph under ``torch.profiler``
+    (after a warm step): device ops per step, busy ms and idle share, and
+    the step's host ms."""
+    import torch
+    import sparkflow_tpu_torch.core as core
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    name, _out, sup, batch = cfg[:4]
+    m = model_from_json(mg, device=device)
+    params = m.load_params(m.init(seed=0), trainable=True)
+    opt = build_optimizer("adam", cfg[7])
+    state = opt.init(params)
+    step = core.make_train_step(core.make_loss_fn(
+        m, "x:0", "y:0" if sup else None), opt)
+    dev = m.device
+    xb = torch.as_tensor(x[:batch], device=dev)
+    yb = (torch.as_tensor(y[:batch], device=dev) if sup
+          else torch.zeros((batch, 1), device=dev))
+    mask = torch.ones(batch, device=dev)
+    params, state, _ = step(params, state, xb, yb, mask)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, xb, yb, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _device_profile(prof, wall_ms, 1)
+
+
+def _tf1_graphs(card, work, device):
+    """Phase 17 (a): each reference graph trained through ``SparkAsyncDL``
+    on the card and on the CPU from the same weights (``init`` draws on the
+    CPU) and shuffles: losses and predictions against each other, an npz
+    round trip through ``load_checkpoint_model``. Returns a line per
+    graph."""
+    import numpy as np
+    from sparkflow_tpu_torch.ml_util import resolve_weights, save_weights_npz
+    from sparkflow_tpu_torch.model_loader import load_checkpoint_model
+    from sparkflow_tpu_torch.models import model_from_json
+    cuda = device != "cpu"
+    rows = []
+    for cfg in TF1_GRAPHS:
+        name, out, sup, batch, stoch, iters, n, lr = cfg
+        mg = _tf1_fixture(name)
+        x, y = _tf1_rows(n, sup, seed=len(rows))
+        df = _tf1_df(x, y)
+        pdf = _tf1_df(x[:TF1_PRED_ROWS], None)
+        # the same weights on both devices: one loss, card against CPU
+        feeds = {"x": x[:batch]}
+        if sup:
+            feeds["y"] = y[:batch]
+        first = []
+        for dev in (device, "cpu"):
+            m = model_from_json(mg, device=dev)
+            first.append(float(m.loss_vector(m.init(seed=0), feeds,
+                                             train=False).mean()))
+        rel0 = abs(first[0] - first[1]) / abs(first[1])
+        model, losses, wall, gaps = _tf1_fit(mg, cfg, df, device)
+        cpu_model, cpu_losses, _w, _g = _tf1_fit(mg, cfg, df, "cpu")
+        if not (np.isfinite(losses).all() and len(losses) == iters):
+            raise AssertionError(f"{name}: losses {losses}")
+        rel = float(np.max(np.abs(np.subtract(losses, cpu_losses))
+                           / np.abs(cpu_losses)))
+        got = _tf1_predictions(model, pdf)
+        want = _tf1_predictions(cpu_model, pdf)
+        perr = float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+        weights = resolve_weights(model.getOrDefault(model.modelWeights))
+        npz = os.path.join(work, f"{name}.npz")
+        save_weights_npz(npz, weights)
+        loaded = load_checkpoint_model(npz, mg, "features", "x:0", out,
+                                       device=device)
+        again = _tf1_predictions(loaded, pdf)
+        rt = float(np.abs(again - got).max())
+        steps = len(gaps) + 1
+        step_ms = 1e3 * float(np.median(gaps)) if gaps else float("nan")
+        row = {"graph": name, "steps": steps, "fit_s": wall,
+               "examples_per_s": steps * batch / wall, "step_ms": step_ms,
+               "losses": losses, "loss_rel_err_vs_cpu": rel,
+               "init_loss_rel_err_vs_cpu": rel0,
+               "pred_err_vs_cpu": perr, "npz_round_trip_err": rt}
+        if cuda:
+            prof = _tf1_step_profile(mg, cfg, x, y, device)
+            row.update(device_ops_per_step=prof["device_ops"],
+                       step_wall_ms=prof["wall_ms"],
+                       device_busy_ms=prof["device_busy_ms"],
+                       device_idle_share=prof["device_idle_share"])
+        log(f"[tf1] {name}: " + json.dumps(row) + f" [{card}]")
+        if rel0 > TF1_TOL or rel > TF1_TOL or perr > TF1_TOL:
+            raise AssertionError(f"{name}: card vs CPU off by loss {rel:.3g}"
+                                 f" (first {rel0:.3g}), predictions "
+                                 f"{perr:.3g} > {TF1_TOL}")
+        if rt > 1e-6:
+            raise AssertionError(f"{name}: npz round trip off by {rt:.3g}")
+        rows.append(row)
+    return rows
+
+
+def _hogwild_data():
+    import numpy as np
+    rs = np.random.RandomState(17)
+    ids = rs.randint(0, BERT_BASE["vocab_size"],
+                     (HOGWILD_ROWS, BERT_BASE["max_len"])).astype(np.float32)
+    return ids, rs.randint(0, 2, HOGWILD_ROWS).astype(np.float32)
+
+
+def _hogwild_exactness(card, device, ids, labels):
+    """Phase 17 (b) exactness at full width, 2 layers, dropout 0: one
+    replica through ``strategy="elastic_dp"`` against the sync ``Trainer``'s
+    plain SGD for 4 steps; ``run_virtual`` with a 10x straggler on the card
+    against the same run on the CPU (accounting exactly)."""
+    import numpy as np
+    from sparkflow_tpu_torch.core import make_loss_fn
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    from sparkflow_tpu_torch.parallel import ElasticDPEngine, ReplicaSpec
+    from sparkflow_tpu_torch.trainer import Trainer
+    from sparkflow_tpu_torch.utils.metrics import Metrics
+    spec = build_registry_spec("transformer_classifier", **dict(
+        BERT_BASE, num_layers=2, dropout=0.0))
+    x, y = ids[:HOGWILD_BATCH], labels[:HOGWILD_BATCH]
+    kw = dict(optimizer=build_optimizer("gradient_descent", 0.05),
+              mini_batch_size=HOGWILD_BATCH, iters=4, device=device)
+    el = Trainer(spec, "input_ids:0", "y:0", strategy="elastic_dp",
+                 elastic={"replicas": 1}, **kw)
+    r_el = el.fit(x, y)
+    sy = Trainer(spec, "input_ids:0", "y:0", **kw)
+    r_sy = sy.fit(x, y)
+    loss_rel = float(np.max(np.abs(np.subtract(r_el.losses, r_sy.losses))
+                            / np.abs(r_sy.losses)))
+    w_rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                for a, b in zip(el.weights_list(), sy.weights_list()))
+    if (len(r_el.losses) != 4 or loss_rel > HOGWILD_EXACT_TOL
+            or w_rel > HOGWILD_EXACT_TOL):
+        raise AssertionError(f"elastic 1 replica vs sync SGD: losses "
+                             f"{r_el.losses} vs {r_sy.losses} "
+                             f"({loss_rel:.3g}), weights {w_rel:.3g}")
+    short = ids[:, :64]
+    shards = [(short[i::HOGWILD_PARTS], labels[i::HOGWILD_PARTS])
+              for i in range(HOGWILD_PARTS)]
+    runs = {}
+    for dev in (device, "cpu"):
+        m = model_from_json(spec, device=dev)
+        # plain SGD: adam would turn the exactly-zero gradient of each
+        # qkv_bias's key third into steps of the round-off's sign, and the
+        # final params of the two devices would part there
+        eng = ElasticDPEngine(make_loss_fn(m, "input_ids:0", "y:0"),
+                              build_optimizer("gradient_descent", 0.05),
+                              m.init(seed=0), max_staleness=2,
+                              metrics=Metrics())
+        runs[dev] = eng.run_virtual(
+            shards, [ReplicaSpec(cost_s=c) for c in VIRTUAL_COSTS], epochs=3,
+            batch_size=4, seed=0)
+    keys = ("pushes", "accepted", "rejected_stale", "dropped_stale",
+            "final_version", "per_replica_accepted", "wire_bytes")
+    card_s, cpu_s = runs[device].stats, runs["cpu"].stats
+    acct = {k: card_s[k] for k in keys}
+    prel = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for la, lb in zip(runs[device].params.values(),
+                                  runs["cpu"].params.values())
+        for a, b in zip(la.values(), lb.values()))
+    log(f"[hogwild] exactness (2 layers): 1-replica elastic vs sync SGD "
+        f"losses {loss_rel:.3g} rel, weights {w_rel:.3g} rel; run_virtual "
+        f"10x straggler card {acct} == CPU, final params {prel:.3g} rel "
+        f"[{card}]")
+    if any(card_s[k] != cpu_s[k] for k in keys) or (
+            runs[device].version != runs["cpu"].version):
+        raise AssertionError(f"run_virtual accounting: card {acct} vs CPU "
+                             f"{ {k: cpu_s[k] for k in keys} }")
+    return {"elastic_vs_sync_loss_rel": loss_rel,
+            "elastic_vs_sync_weights_rel": w_rel, "virtual": acct,
+            "virtual_params_rel": prel}
+
+
+class _PushTimer:
+    """Host seconds of each replica's gradient (``compute``) and each push
+    (``ElasticParamStore.push``, the wait for the store's lock included)
+    while the block runs."""
+
+    def __enter__(self):
+        import sparkflow_tpu_torch.parallel.elastic as el
+        self.el, self.times = el, {"compute": [], "push": []}
+        self.real = (el._ReplicaRunner.compute, el.ElasticParamStore.push)
+
+        def timed(key, fn):
+            def call(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                self.times[key].append(time.perf_counter() - t)
+                return out
+            return call
+        el._ReplicaRunner.compute = timed("compute", self.real[0])
+        el.ElasticParamStore.push = timed("push", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.el._ReplicaRunner.compute, self.el.ElasticParamStore.push = \
+            self.real
+        return False
+
+    def medians_ms(self):
+        import numpy as np
+        return {k: 1e3 * float(np.median(v)) for k, v in self.times.items()
+                if v}
+
+
+def _hogwild(card, device):
+    """Phase 17 (b): ``HogwildSparkModel(...).train(rdd)`` on BERT-base over
+    a 4-partition localml RDD (4 replica threads x batch 8 x 512 tokens, 4
+    pushes a replica), the launch counters read around the first train;
+    then, warm, the same train timed with its pushes, one replica over the
+    same rows, the sync ``Trainer`` on them, and one more 4-replica train
+    under the profiler."""
+    import collections
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.HogwildSparkModel import HogwildSparkModel
+    from sparkflow_tpu_torch.localml import RDD
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    from sparkflow_tpu_torch.trainer import Trainer
+    from sparkflow_tpu_torch.utils.metrics import Metrics
+    cuda = device != "cpu"
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    spec = build_registry_spec("transformer_classifier", **BERT_BASE)
+    ids, labels = _hogwild_data()
+    rows = list(zip(ids, labels))
+    losses = []
+
+    def model():
+        hw = HogwildSparkModel(
+            tensorflowGraph=spec, tfInput="input_ids:0", tfLabel="y:0",
+            mini_batch=HOGWILD_BATCH, iters=HOGWILD_ITERS,
+            optimizer=build_optimizer("adam", 1e-4), master_url="unused",
+            loss_callback=lambda l, step, rid: losses.append(l),
+            device=device)
+        hw._trainer.metrics = Metrics()
+        return hw
+
+    def train(parts):
+        hw = model()
+        _sync(cuda)
+        t0 = time.perf_counter()
+        hw.train(RDD(rows, parts))
+        _sync(cuda)
+        return hw, time.perf_counter() - t0
+
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    hw, cold = train(HOGWILD_PARTS)
+    launches = {n: launch_counts()[n] for n in names}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    st = hw.elastic_stats
+    computes = st["pushes"] + 1          # and the warm-up gradient
+    if cuda and any(launches[n] != 12 * computes for n in names):
+        raise AssertionError(f"hogwild launches {launches}, expected 12 x "
+                             f"{computes} gradients")
+    if not (np.isfinite(losses).all() and st["accepted"] > 0
+            and len(st["per_replica_accepted"]) == HOGWILD_PARTS):
+        raise AssertionError(f"hogwild: losses {losses}, stats {st}")
+    hist = collections.Counter(int(v) for v in hw._trainer.metrics._hists[
+        "elastic/staleness"].samples)
+    applied = HOGWILD_BATCH * st["accepted"]
+    with _PushTimer() as four:
+        hw4, warm = train(HOGWILD_PARTS)
+    with _PushTimer() as one:
+        hw1, single = train(1)
+    sync = Trainer(spec, "input_ids:0", "y:0",
+                   optimizer=build_optimizer("adam", 1e-4),
+                   mini_batch_size=HOGWILD_BATCH, iters=HOGWILD_ITERS,
+                   device=device)
+    _sync(cuda)
+    t1 = time.perf_counter()
+    sync.fit(ids, labels)
+    _sync(cuda)
+    sync_wall = time.perf_counter() - t1
+    row = {"replicas": HOGWILD_PARTS, "rows": HOGWILD_ROWS,
+           "batch": HOGWILD_BATCH, "seq": BERT_BASE["max_len"],
+           "train_s_cold": cold, "examples_per_s_cold": applied / cold,
+           "train_s": warm, "examples_per_s": HOGWILD_BATCH
+           * hw4.elastic_stats["accepted"] / warm,
+           "host_ms_median_4_replicas": four.medians_ms(),
+           "examples_per_s_1_replica": HOGWILD_BATCH
+           * hw1.elastic_stats["accepted"] / single,
+           "host_ms_median_1_replica": one.medians_ms(),
+           "sync_examples_per_s": HOGWILD_ROWS * HOGWILD_ITERS / sync_wall,
+           "sync_fit_s": sync_wall, "accepted": st["accepted"],
+           "rejected_stale": st["rejected_stale"],
+           "dropped": st["dropped_stale"] + st["dropped_lease"]
+           + st["dropped_fault"], "final_version": st["final_version"],
+           "staleness_histogram": dict(sorted(hist.items())),
+           "launches": launches, "gradients": computes,
+           "peak_memory_gb": peak,
+           "sparse_bytes_saved": st["sparse_bytes_saved"]}
+    if cuda:
+        hw2 = model()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t2 = time.perf_counter()
+            hw2.train(RDD(rows, HOGWILD_PARTS))
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t2) * 1e3
+        p = _device_profile(prof, pwall, 1, kernels=("flash",))
+        row.update(profiled_wall_ms=p["wall_ms"],
+                   device_busy_ms=p["device_busy_ms"],
+                   device_idle_share=p["device_idle_share"])
+    log("[hogwild] BERT-base " + json.dumps(row) + f" [{card}]")
+    return row
+
+
+def phase_tf1_hogwild(card, work, device=None):
+    """Phase 17: the reference graphs as TF1 MetaGraphDefs through the
+    estimator, then Hogwild at BERT-base width and its exactness checks.
+    Returns the Hogwild run's kernel launches."""
+    import torch
+    cuda = device != "cpu"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    graphs = _tf1_graphs(card, work, device)
+    hog = _hogwild(card, device)
+    if cuda:
+        torch.cuda.empty_cache()
+    exact = _hogwild_exactness(card, device, *_hogwild_data())
+    log(f"[tf1-hogwild] phase 17 {time.perf_counter() - t0:.1f} s")
+    return {"graphs": graphs, "hogwild": hog, "exactness": exact}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4207,6 +4642,7 @@ def main() -> int:
         resil = timed("resilience", phase_resilience, card, work)
         fleet = timed("fleet", phase_fleet, card, spec, work)
         families = timed("families", phase_families, card, work)
+        tf1_hog = timed("tf1-hogwild", phase_tf1_hogwild, card, work)
     except Exception:
         traceback.print_exc()
         return 1
@@ -4245,7 +4681,10 @@ def main() -> int:
          "families": {"moe_serving_launches":
                       families["serving"]["flash_fwd"],
                       "moe_training_launches":
-                      families["training"]["flash_fwd"]}},
+                      families["training"]["flash_fwd"]},
+         # phase 17: BERT-base HogwildSparkModel, 4 replica threads
+         "tf1_hogwild": {"launches":
+                         tf1_hog["hogwild"]["launches"]["flash_fwd"]}},
         {"name": "paged_attention", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "734",
          "launches": launches["paged_attention"], **paged_row,
@@ -4261,7 +4700,9 @@ def main() -> int:
          "resilience": {"stream_fit_launches":
                         resil["stream_fit"]["flash_bwd_dq"]},
          "families": {"moe_training_launches":
-                      families["training"]["flash_bwd_dq"]}},
+                      families["training"]["flash_bwd_dq"]},
+         "tf1_hogwild": {"launches":
+                         tf1_hog["hogwild"]["launches"]["flash_bwd_dq"]}},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "415",
          "launches": train_launches["flash_bwd_dkv"],
@@ -4270,7 +4711,9 @@ def main() -> int:
          "resilience": {"stream_fit_launches":
                         resil["stream_fit"]["flash_bwd_dkv"]},
          "families": {"moe_training_launches":
-                      families["training"]["flash_bwd_dkv"]}},
+                      families["training"]["flash_bwd_dkv"]},
+         "tf1_hogwild": {"launches":
+                         tf1_hog["hogwild"]["launches"]["flash_bwd_dkv"]}},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "781",
          "launches": spec_b["paged_attention_quant"],

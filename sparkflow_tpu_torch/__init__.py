@@ -22,8 +22,13 @@ models from the ``nn`` graph DSL (``nn``, ``graph_utils.build_graph``,
 ``graphdef.GraphModel``) or the registry — and the serving fleet:
 ``serving.RouterServer`` over replicas, ``serving.Autoscaler``, canary
 rollout, the ``sim`` fleet simulator, and a replica's cold start from a
-stored kernel library (``serving.ExecutableStore``). ROADMAP.md lists what
-is still to port.
+stored kernel library (``serving.ExecutableStore``) — and the reference's
+own path: TF1 ``MetaGraphDef`` JSON run by the ``tf1_compat`` interpreter
+(``SparkAsyncDL(tensorflowGraph=<metagraph JSON>)``), Saver / npz / torch
+checkpoint import (``model_loader``, alias ``tensorflow_model_loader``), and
+Hogwild-style async training (``hogwild.HogwildSparkModel``,
+``Trainer(strategy="elastic_dp")``) over the elastic parameter store
+(``parallel.elastic``). ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

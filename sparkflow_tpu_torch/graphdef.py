@@ -389,34 +389,38 @@ class _Conv2d(torch.autograd.Function):
     context the forward set."""
 
     @staticmethod
-    def forward(ctx, x, w, stride):
+    def forward(ctx, x, w, stride, dilation=(1, 1), groups=1):
         ctx.save_for_backward(x, w)
-        ctx.stride = stride
+        ctx.stride, ctx.dilation, ctx.groups = stride, dilation, groups
         with _NoTF32():
-            return F.conv2d(x, w, stride=stride)
+            return F.conv2d(x, w, stride=stride, dilation=dilation,
+                            groups=groups)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         with _NoTF32():
             gx, gw, _ = torch.ops.aten.convolution_backward(
-                gy, x, w, None, list(ctx.stride), [0, 0], [1, 1], False,
-                [0, 0], 1, [ctx.needs_input_grad[0],
-                            ctx.needs_input_grad[1], False])
-        return gx, gw, None
+                gy, x, w, None, list(ctx.stride), [0, 0],
+                list(ctx.dilation), False, [0, 0], ctx.groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
 
 
-def _conv2d(x, w, stride: Tuple[int, int]):
+def _conv2d(x, w, stride: Tuple[int, int],
+            dilation: Tuple[int, int] = (1, 1), groups: int = 1):
     """``_Conv2d`` of NCHW ``x`` by OIHW ``w``. Rows and columns that no
     window reads (a strided convolution whose windows stop short of the
     edge) are cut first: for such a convolution the CPU's oneDNN backward
     gave wrong gradients that changed from run to run."""
-    (sh, sw), (kh, kw) = stride, w.shape[2:]
+    (sh, sw), (dh, dw) = stride, dilation
+    kh = (w.shape[2] - 1) * dh + 1
+    kw = (w.shape[3] - 1) * dw + 1
     h = (x.shape[2] - kh) // sh * sh + kh
     wd = (x.shape[3] - kw) // sw * sw + kw
     if (h, wd) != tuple(x.shape[2:]):
         x = x[:, :, :h, :wd]
-    return _Conv2d.apply(x, w, (sh, sw))
+    return _Conv2d.apply(x, w, (sh, sw), (dh, dw), groups)
 
 
 def _eval_conv2d(node, ins, ctx, p):

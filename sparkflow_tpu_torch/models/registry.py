@@ -6,14 +6,17 @@ package loads the other's. Every registry family of the JAX zoo is ported
 (``transformer_lm``, ``transformer_classifier``, ``transformer_moe_lm``,
 ``resnet``, ``resnet50``, ``rnn_classifier``, ``rnn_lm``).
 :func:`model_from_json` dispatches as the JAX package does: a registry
-spec, then a TF1 ``MetaGraphDef`` JSON (refused: the TF1 interpreter is not
-yet ported), then the ``nn`` graph DSL (:class:`~..graphdef.GraphModel`).
+spec, then a TF1 ``MetaGraphDef`` JSON (the reference's wire format, run by
+:class:`~..tf1_compat.TF1GraphModel`), then the ``nn`` graph DSL
+(:class:`~..graphdef.GraphModel`).
 """
 
 from __future__ import annotations
 
 import json
 from typing import Any, Callable, Dict, Optional
+
+from ..tf1_compat import TF1GraphModel, is_tf1_metagraph  # noqa: F401
 
 REGISTRY_FORMAT = "sparkflow-tpu-model"
 
@@ -42,18 +45,6 @@ def build_registry_spec(name: str, **config) -> str:
                        "model": name, "config": config})
 
 
-def is_tf1_metagraph(graph_json) -> bool:
-    """Is this (string or parsed dict) a TF1 ``MetaGraphDef`` JSON — the
-    reference's wire format? The JAX package's sniff, carried."""
-    if isinstance(graph_json, str):
-        try:
-            graph_json = json.loads(graph_json)
-        except (ValueError, TypeError):
-            return False
-    return (isinstance(graph_json, dict)
-            and ("graphDef" in graph_json or "graph_def" in graph_json))
-
-
 def model_from_json(spec: str, compute_dtype: Optional[Any] = None,
                     device=None):
     """Dispatch a JSON model spec to its model object. ``compute_dtype`` is
@@ -64,9 +55,7 @@ def model_from_json(spec: str, compute_dtype: Optional[Any] = None,
         cls = _check_known(d["model"])
         return cls(compute_dtype=compute_dtype, device=device, **d["config"])
     if is_tf1_metagraph(d):
-        raise NotImplementedError(
-            "TF1 MetaGraphDef specs are not yet ported to PyTorch (the "
-            "tf1_compat interpreter, see ROADMAP.md)")
+        return TF1GraphModel(d, compute_dtype, device)
     # default: graph-DSL spec
     from ..graphdef import GraphModel
     return GraphModel.from_json(spec, compute_dtype, device)

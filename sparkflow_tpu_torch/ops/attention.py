@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from contextvars import ContextVar
 from typing import Optional, Tuple, Union
 
@@ -215,7 +216,7 @@ def flash_attention(q, k, v, causal: bool = False,
             int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "flash_fwd")
-        flash_attention.launches += 1
+        _count(flash_attention, "launches")
     return (out, lse) if return_lse else out
 
 
@@ -349,7 +350,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
             b, h, s, k.shape[2], d, ctypes.addressof(strides), float(scale),
             int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "flash_bwd_dq")
-        flash_bwd_dq.launches += 1
+        _count(flash_bwd_dq, "launches")
     return dq
 
 
@@ -384,7 +385,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
             ctypes.addressof(strides), float(scale), int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "flash_bwd_dkv")
-        flash_bwd_dkv.launches += 1
+        _count(flash_bwd_dkv, "launches")
     return dk, dv
 
 
@@ -641,7 +642,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths,
                 lens.data_ptr(), out.data_ptr(), b, h, d, page, chunk, blocks,
                 float(scale), stream)
             _build.check(rc, "paged_attention")
-            paged_attention.launches += 1
+            _count(paged_attention, "launches")
         else:
             rc = lib.sf_paged_attention_quant(
                 _DTYPE_CODE[q.dtype], code, q.data_ptr(), q.stride(0),
@@ -650,7 +651,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths,
                 out.data_ptr(), b, h, d, page, chunk, blocks, float(scale),
                 stream)
             _build.check(rc, "paged_attention_quant")
-            paged_attention.quant_launches += 1
+            _count(paged_attention, "quant_launches")
     return out
 
 
@@ -760,14 +761,25 @@ def paged_attention_verify(q, k_pages, v_pages, page_table, start,
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "paged_attention_verify")
         if code is None:
-            paged_attention_verify.launches += 1
+            _count(paged_attention_verify, "launches")
         else:
-            paged_attention_verify.quant_launches += 1
+            _count(paged_attention_verify, "quant_launches")
     return out
 
 
 paged_attention_verify.launches = 0
 paged_attention_verify.quant_launches = 0
+
+
+# wrappers launch from several threads at once (the elastic engine's
+# replicas): a counter's read-add-write happens under this lock
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper, attr: str) -> None:
+    """Add one to ``wrapper.<attr>``, the launch counter of a kernel."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def launch_counts() -> dict:

@@ -13,12 +13,18 @@ collects the rows and trains with the port's :class:`~.trainer.Trainer`
 ``rdd.toLocalIterator``, never collecting); ``_transform`` predicts per
 partition through :func:`~.ml_util.predict_func`.
 
+``tensorflowGraph`` is any spec ``models.model_from_json`` takes: the
+reference's TF1 ``MetaGraphDef`` JSON (run by the ``tf1_compat``
+interpreter; ``tfDropout`` names its keep-probability placeholder, e.g. a
+``placeholder_with_default``), a registry spec or an ``nn`` graph.
+
 Both stages take a ``device`` keyword (not a Param): ``None`` is the CUDA
 card, ``"cpu"`` must be asked for. The estimator hands it to its
 ``Trainer`` and to the model it fits, the model to its predict path.
 
 The model's ``inferenceQuantize`` (``"weight_only"`` / ``"dynamic"``)
-serves int8 weights through ``predict_func``. Refused before any training
+serves int8 weights through ``predict_func`` (a TF1 graph dequantizes at the
+variable read, so it serves both as weight-only). Refused before any training
 with "not yet ported (see ROADMAP.md)": ``meshShape`` on either stage,
 non-default ``ppMicrobatches`` / ``ppSchedule`` / ``weightUpdateSharding``
 / ``zeroStage``.

@@ -39,12 +39,21 @@ weights after every ``publish_every``-th epoch and after the last, or once
 at the end of the fit with ``publish_every=0`` (never after a NaN halt).
 Publication is best-effort: a failure is logged and never fails training.
 
+``strategy="elastic_dp"`` (tuned by ``elastic={"replicas", "max_staleness",
+"dampening", "density_threshold", "lease_ttl_s"}``) trains through
+:class:`~.parallel.elastic.ElasticDPEngine`: replica threads over
+round-robin shards exchange gradients through the bounded-staleness
+versioned store instead of a synchronous step; ``last_elastic_stats`` holds
+its push and membership accounting. As in the JAX package it takes
+single-input models only, ignores ``checkpoint_dir`` (with a warning) and
+needs ``replicas >= 1``.
+
 Not ported yet, and rejected with "not yet ported (see ROADMAP.md)": a
 device mesh (``mesh``, ``sharding``, ``param_sharding`` other than
-``"auto"``, ``pp_*``, ``weight_update_sharding``) and
-``strategy="elastic_dp"``. ``debug_recompiles`` has no counterpart: PyTorch
-runs eagerly, so there are no traces or compiles to count.
-``graph`` is a registry spec, an ``nn`` graph-DSL spec, a
+``"auto"``, ``pp_*``, ``weight_update_sharding``). ``debug_recompiles`` has
+no counterpart: PyTorch runs eagerly, so there are no traces or compiles to
+count. ``graph`` is a registry spec, an ``nn`` graph-DSL spec, a TF1
+``MetaGraphDef`` JSON (the reference's wire format), a
 :class:`~.graphdef.GraphDef` or a model object. ``jax.random`` streams
 cannot be repeated in PyTorch: shuffles and dropout come from
 ``torch.Generator`` s seeded from ``seed``, so a fit repeats within the
@@ -69,6 +78,7 @@ from .core import (make_epoch_fn, make_loss_fn, make_predict_fn,
                    make_train_step, pad_to_batches)
 from .graphdef import GraphDef, GraphModel
 from .models.base import RegistryModel
+from .tf1_compat import TF1GraphModel
 from .optimizers import (GradientTransformation, build_optimizer,
                          extract_ema_params, tree_map)
 from .utils.metrics import default_metrics
@@ -205,11 +215,25 @@ class Trainer:
         if pp_microbatches is not None or pp_schedule != "gpipe":
             _not_yet("pipeline-parallel training (pp_microbatches, "
                      "pp_schedule)")
+        # training strategy: None/'sync' is the synchronous loop below;
+        # 'elastic_dp' routes fit() through parallel.elastic — bounded-
+        # staleness async replicas over a versioned parameter store (the
+        # reference's Hogwild identity). `elastic` tunes it
         if strategy not in (None, "sync", "elastic_dp"):
             raise ValueError(f"strategy must be None, 'sync', or "
                              f"'elastic_dp'; got {strategy!r}")
-        if strategy == "elastic_dp" or elastic:
-            _not_yet("strategy='elastic_dp'")
+        self.strategy = strategy
+        self.elastic = dict(elastic or {})
+        known = {"replicas", "max_staleness", "dampening",
+                 "density_threshold", "lease_ttl_s"}
+        unknown = set(self.elastic) - known
+        if unknown:
+            raise ValueError(f"unknown elastic option(s) {sorted(unknown)}; "
+                             f"known: {sorted(known)}")
+        if self.elastic and strategy != "elastic_dp":
+            raise ValueError("elastic options require strategy='elastic_dp'")
+        # filled by an elastic fit: push/staleness/membership accounting
+        self.last_elastic_stats: Optional[Dict[str, Any]] = None
         if debug_recompiles:
             raise ValueError(
                 "debug_recompiles counts the JAX package's traces and XLA "
@@ -224,7 +248,7 @@ class Trainer:
         elif isinstance(graph, str):
             from .models import model_from_json
             self.model = model_from_json(graph, compute_dtype, device=device)
-        elif isinstance(graph, (RegistryModel, GraphModel)):
+        elif isinstance(graph, (RegistryModel, GraphModel, TF1GraphModel)):
             self.model = graph
         else:
             raise TypeError(f"graph must be a spec JSON string, a GraphDef, "
@@ -474,6 +498,8 @@ class Trainer:
             labels = np.ascontiguousarray(labels, dtype=np.float32)
             if labels.ndim == 1:
                 labels = labels[:, None]
+        if self.strategy == "elastic_dp":
+            return self._fit_elastic(features, labels, init_params, multi)
 
         mode, batch, num_batches = self._plan(n)
         total = -(-n // batch) * batch
@@ -671,6 +697,77 @@ class Trainer:
         return TrainResult(self.params, epoch_losses,
                            per_epoch * ran / max(wall, 1e-9), wall,
                            stop_reason=stop)
+
+    def _fit_elastic(self, features, labels, init_params,
+                     multi: bool) -> TrainResult:
+        """strategy='elastic_dp': train through
+        :class:`~.parallel.elastic.ElasticDPEngine` — N replica threads over
+        round-robin data shards, exchanging gradients through the
+        bounded-staleness versioned store instead of a synchronous step.
+        Reference semantics: the per-replica batch is ``mini_batch_size``
+        and each replica makes ``iters`` passes over its shard per shuffle
+        round, like the reference's per-partition workers."""
+        if multi:
+            raise ValueError(
+                "strategy='elastic_dp' supports single-input models only "
+                "(multi-input gradient exchange is not implemented); use "
+                "the sync path")
+        if self.checkpoint_dir:
+            logger.warning(
+                "strategy='elastic_dp' ignores checkpoint_dir: the async "
+                "store has no epoch boundary to checkpoint at (resume "
+                "support is a sync-path feature)")
+        from .parallel.elastic import ElasticDPEngine
+
+        n = features.shape[0]
+        replicas = int(self.elastic.get("replicas", 4))
+        if replicas < 1:
+            raise ValueError(f"elastic replicas must be >= 1, got {replicas}")
+        replicas = min(replicas, n)  # every replica needs at least one row
+        if init_params is None:
+            init_params = self.model.init(seed=self.seed)
+        params = tree_map(
+            lambda a: (a.detach() if torch.is_tensor(a)
+                       else torch.as_tensor(np.asarray(a))).to(
+                self.device, torch.float32), init_params)
+        # engine calls back as (loss, replica_step, replica_index) — the
+        # same shape as the sync path's (loss, iteration, partition_id)
+        engine = ElasticDPEngine(
+            make_loss_fn(self.model, self.input_name, self.label_name),
+            self.optimizer, params,
+            max_staleness=int(self.elastic.get("max_staleness", 4)),
+            dampening=self.elastic.get("dampening", "inverse"),
+            density_threshold=self.elastic.get("density_threshold", 0.25),
+            lease_ttl_s=float(self.elastic.get("lease_ttl_s", 10.0)),
+            metrics=self.metrics, loss_callback=self.loss_callback,
+            publish_to=self._publish_store, publish_every=self.publish_every)
+        shards = [(features[i::replicas],
+                   labels[i::replicas] if labels is not None else None)
+                  for i in range(replicas)]
+        # mini_batch_size <= 0 means full-batch (the sync planner's 'full'
+        # mode); per replica that is its whole shard per step
+        bs = self.mini_batch_size
+        if bs is None or bs <= 0:
+            bs = n
+        epochs = max(1, self.iters) * self.partition_shuffles
+        result = engine.run_threads(shards, epochs=epochs, batch_size=bs,
+                                    seed=self.seed)
+        self.params = self.model.load_params(result.params)
+        self._last_opt_state = result.opt_state
+        self.last_elastic_stats = result.stats
+        if self.verbose:
+            logger.info(
+                "elastic fit: %d replicas, %d accepted / %d rejected-stale "
+                "/ %d dropped pushes, final version %d",
+                replicas, result.stats["accepted"],
+                result.stats["rejected_stale"],
+                result.stats["dropped_stale"] + result.stats["dropped_fault"],
+                result.version)
+        if self._publish_store is not None and self.publish_every <= 0:
+            self._publish_weights(self.params)
+        return TrainResult(self.params, result.losses,
+                           result.examples_per_sec, result.wall_s,
+                           stop_reason="completed")
 
     def _train_flops_per_batch(self, x, y, params) -> Optional[float]:
         """Model FLOPs of one optimizer step on the batch ``x``: the analytic

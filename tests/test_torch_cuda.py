@@ -1461,3 +1461,33 @@ def test_rnn_steps_on_card_match_cpu(dev, cell, dtype):
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for a, b in zip(*results):
         assert _max_err(a, b) <= tol * float(a.abs().max())
+
+
+def test_hogwild_on_card_launches_the_flash_kernels(dev):
+    """A two-layer ``transformer_classifier`` through
+    ``HogwildSparkModel(...).train(rdd)`` on the card: 2 replica threads, 2
+    pushes each; the three flash kernels launch 2 x (pushes + the warm-up
+    gradient) times each (one per layer, forward and backward), and the
+    fitted weights are finite."""
+    from sparkflow_tpu_torch.HogwildSparkModel import HogwildSparkModel
+    from sparkflow_tpu_torch.localml import RDD
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    spec = build_registry_spec("transformer_classifier", vocab_size=256,
+                               num_classes=2, hidden=64, num_layers=2,
+                               num_heads=4, mlp_dim=128, max_len=64,
+                               dropout=0.1)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 256, (16, 64)).astype(np.float32)
+    labels = rs.randint(0, 2, 16).astype(np.float32)
+    hw = HogwildSparkModel(tensorflowGraph=spec, tfInput="input_ids:0",
+                           tfLabel="y:0", mini_batch=8, iters=2,
+                           optimizer="adam")
+    reset_launch_counts()
+    weights = hw.train(RDD(list(zip(ids, labels)), 2))
+    counts = launch_counts()
+    st = hw.elastic_stats
+    assert st["accepted"] > 0 and len(st["per_replica_accepted"]) == 2
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] == 2 * (st["pushes"] + 1), (name, counts)
+    assert all(np.isfinite(w).all() for w in weights)

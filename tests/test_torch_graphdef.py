@@ -115,9 +115,15 @@ def test_config_builders_match(builder, kw):
 def test_registry_dispatches_graph_specs_and_refuses_tf1():
     _, t = _graphs(create_model)
     assert isinstance(model_from_json(t, device="cpu"), GraphModel)
+    # a TF1 MetaGraphDef JSON goes to the TF1 interpreter (no longer
+    # refused), which refuses an op it does not know by name
+    from sparkflow_tpu_torch.tf1_compat import TF1GraphModel
     tf1 = '{"metaInfoDef": {}, "graphDef": {"node": []}}'
-    with pytest.raises(NotImplementedError, match="TF1.*ROADMAP"):
-        model_from_json(tf1, device="cpu")
+    assert isinstance(model_from_json(tf1, device="cpu"), TF1GraphModel)
+    bad = ('{"graphDef": {"node": [{"name": "w", "op": "SparseSegmentMean"}'
+           ']}}')
+    with pytest.raises(NotImplementedError, match="SparseSegmentMean"):
+        model_from_json(bad, device="cpu").apply({}, {}, ["w:0"])
 
 
 # -- (b) each op: forward, loss and gradients ---------------------------------

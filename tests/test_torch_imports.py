@@ -1,7 +1,9 @@
 """PyTorch port, import rule: ``sparkflow_tpu_torch`` imports torch and
-never jax, nor anything of the JAX package ``sparkflow_tpu``. Checked in a
-fresh interpreter (tests/conftest.py has already imported jax into this
-one) and by scanning the port's import statements."""
+never jax, nor anything of the JAX package ``sparkflow_tpu``, and no module
+of it imports TensorFlow or ``google.protobuf`` when imported (the TF1
+interpreter runs without them). Checked in a fresh interpreter
+(tests/conftest.py has already imported jax into this one) and by scanning
+the port's import statements."""
 
 import ast
 import os
@@ -38,7 +40,18 @@ SUBPACKAGES = ["sparkflow_tpu_torch", "sparkflow_tpu_torch.device",
                "sparkflow_tpu_torch.serving.router",
                "sparkflow_tpu_torch.serving.autoscaler",
                "sparkflow_tpu_torch.serving.coldstart",
-               "sparkflow_tpu_torch.sim", "sparkflow_tpu_torch.sim.calibrate"]
+               "sparkflow_tpu_torch.sim", "sparkflow_tpu_torch.sim.calibrate",
+               "sparkflow_tpu_torch.tf1_compat",
+               "sparkflow_tpu_torch.model_loader",
+               "sparkflow_tpu_torch.tensorflow_model_loader",
+               "sparkflow_tpu_torch.parallel",
+               "sparkflow_tpu_torch.parallel.elastic",
+               "sparkflow_tpu_torch.hogwild",
+               "sparkflow_tpu_torch.HogwildSparkModel",
+               "sparkflow_tpu_torch.RWLock",
+               "sparkflow_tpu_torch.utils.rwlock",
+               "sparkflow_tpu_torch.analysis",
+               "sparkflow_tpu_torch.analysis.racecheck"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -48,7 +61,9 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'sparkflow_tpu'\n"
-        "             or m.startswith('sparkflow_tpu.'))\n"
+        "             or m.startswith('sparkflow_tpu.')\n"
+        "             or m.split('.')[0] == 'tensorflow'\n"
+        "             or m.startswith('google.protobuf'))\n"
         "print(json.dumps(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -103,4 +118,15 @@ def test_native_sources_are_the_jax_packages(name):
     with open(os.path.join(PORT, "native", name), "rb") as f:
         ours = f.read()
     with open(os.path.join(REPO, "sparkflow_tpu", "native", name), "rb") as f:
+        assert ours == f.read()
+
+
+@pytest.mark.parametrize("name", ["findings.py", "racecheck.py"])
+def test_analysis_sources_are_the_jax_packages(name):
+    """The race detector and its finding records import no JAX and are
+    carried byte for byte."""
+    with open(os.path.join(PORT, "analysis", name), "rb") as f:
+        ours = f.read()
+    with open(os.path.join(REPO, "sparkflow_tpu", "analysis", name),
+              "rb") as f:
         assert ours == f.read()

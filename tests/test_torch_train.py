@@ -299,8 +299,10 @@ def test_trainer_misuse_raises():
         Trainer(spec, "input_ids", None, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="traces and compiles nothing"):
         Trainer(spec, "input_ids", None, debug_recompiles=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer(spec, "input_ids", None, strategy="elastic_dp", device="cpu")
+    # strategy='elastic_dp' is ported; its options without it are refused
+    with pytest.raises(ValueError, match="elastic_dp"):
+        Trainer(spec, "input_ids", None, elastic={"replicas": 2},
+                device="cpu")
     with pytest.raises(KeyError, match="known tensors"):
         Trainer(spec, "tokens", None, device="cpu")
     import sparkflow_tpu.nn as jnn
