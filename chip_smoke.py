@@ -246,7 +246,34 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     ``run_virtual`` with a 10x straggler on the card gives the CPU's
     accounting exactly.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17; a ``[time]`` line
+18. mesh: synchronous mesh training, each rank a process on the card (2
+    ranks on one card: gloo, every collective staged through pinned host
+    memory; the backend is printed). (a) ``ring_flash_attention`` against
+    the plain ring on the card and against one rank's ``flash_attention``
+    over the whole sequence, output and dq / dk / dv, at the training shape
+    (B=8, H=12, S=1024, 512 a rank, D=64) in bf16 and float32, causal, and
+    non-causal with a key-padding mask, in phases 2 and 6's tolerances; a
+    causal ring launches kernels 1-3 3 times each summed over the ranks (4
+    without causality), the ring's fwd+bwd ms. (b) ``examples/
+    bert_classifier.py``'s BERT-base through ``Pipeline([OneHotEncoder,
+    SparkAsyncDL(meshShape="dp=2")])``, batch 32 x 512 (16 rows a rank,
+    ragged 256-512 live tokens), 4 steps at ``zeroStage`` auto (adam -> 1)
+    and at 3: training examples/s and step ms (CUDA events on rank 0),
+    each rank's peak memory, optimizer-state and parameter bytes, bytes
+    moved a step and staged through the host, launches of kernels 1-3 per
+    rank (12 a step); one step profiled on rank 0 (busy, idle); the fitted
+    model's transform against the rank-0 params' single-card forward
+    (1e-5). (c) GPT-2 small (bf16, dropout 0.1, adam 3e-4) through
+    ``Trainer(mesh={"dp": 1, "sp": 2})``, batch 8 x 1024, 3 steps: tokens/s,
+    36 launches a step of each kernel summed over the ranks, losses finite
+    and falling. (d) Float32, TF32 off, full widths cut to 2 layers: dp=2
+    at zero stages 0-3 against one card's ``Trainer`` on the same rows
+    (losses 1e-5 relative, params atol 5e-5 / rtol 1e-5), and the sp=2
+    step through the kernel ring against the plain ring's (1e-4). The
+    rank processes load the library phase 1 built; every collective and
+    every wait for a rank has a 240 s limit.
+
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 18; a ``[time]`` line
 gives each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
@@ -4602,6 +4629,523 @@ def phase_tf1_hogwild(card, work, device=None):
     return {"graphs": graphs, "hogwild": hog, "exactness": exact}
 
 
+# phase 18: synchronous mesh training — ranks are processes on the card
+# (gloo over CUDA tensors, staged through pinned host memory: one card)
+MESH_RING_SHAPE = (8, 12, 1024, 64)   # the training shape, 512 a rank
+MESH_RING_REPS = 5
+MESH_EST_ROWS, MESH_EST_BATCH, MESH_EST_STEPS = 64, 32, 4
+MESH_SP_BATCH, MESH_SP_STEPS = 8, 3
+MESH_TIMEOUT_S = 240.0     # a collective's, a rank join's, a pool task's
+MESH_LOSS_RTOL = 1e-5      # dp=2 vs one card, float32, TF32 off
+MESH_PARAM_ATOL, MESH_PARAM_RTOL = 5e-5, 1e-5
+MESH_SP_TOL = 1e-4         # the kernel ring's sp step vs the plain ring's
+MESH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _mesh_rank_setup():
+    """A rank's start: the kernel library phase 1 built (found, never
+    rebuilt), TF32 off; ``(rank, device, how the library came)``."""
+    import torch
+    import torch.distributed as dist
+    from sparkflow_tpu_torch.ops import _build
+    _build.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return (dist.get_rank(), torch.device("cuda", torch.cuda.current_device()),
+            _build.loaded()["how"])
+
+
+def _mesh_ring_rank(cases):
+    """(a) on each of 2 ranks: ``ring_flash_attention`` and the plain ring on
+    this rank's half of the training shape, forward and backward; the
+    kernels' launches over one ring call; a single-rank ``flash_attention``
+    over the whole sequence; ring fwd+bwd ms (CUDA events, rank 0's
+    reading)."""
+    import torch
+    from sparkflow_tpu_torch.ops import attention as A
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    rank, dev, how = _mesh_rank_setup()
+    mesh = Mesh({"sp": 2})
+    b, h, s, d = MESH_RING_SHAPE
+    sl = s // 2
+    cols = slice(rank * sl, (rank + 1) * sl)
+    rows = []
+    for dtype_name, causal, masked in cases:
+        dt = getattr(torch, dtype_name)
+        g = torch.Generator().manual_seed(11)
+        q, k, v, do = (torch.randn(b, h, s, d, generator=g).to(dev, dt)
+                       for _ in range(4))
+        mask = None
+        if masked:
+            lens = torch.randint(s // 2, s + 1, (b,), generator=g)
+            mask = (torch.arange(s)[None, :] < lens[:, None]).float().to(dev)
+        local_mask = None if mask is None else mask[:, cols].contiguous()
+
+        def run(fn):
+            ql, kl, vl = (t[:, :, cols].detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            o = fn(ql, kl, vl, "sp", causal=causal, kv_mask=local_mask)
+            o.backward(do[:, :, cols])
+            return [o.detach(), ql.grad, kl.grad, vl.grad]
+
+        with mesh.bind():
+            A.reset_launch_counts()
+            ring = run(A.ring_flash_attention)
+            torch.cuda.synchronize()
+            launches = {n: A.launch_counts()[n] for n in MESH_NAMES}
+            plain = run(A.ring_attention)
+            times = []
+            for i in range(MESH_RING_REPS + 1):
+                a0, a1 = _events()
+                a0.record()
+                run(A.ring_flash_attention)
+                a1.record()
+                a1.synchronize()
+                if i:
+                    times.append(a0.elapsed_time(a1))
+        qf, kf, vf = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        of = A.flash_attention(qf, kf, vf, causal=causal, kv_mask=mask)
+        of.backward(do)
+        full = [of.detach()[:, :, cols], qf.grad[:, :, cols],
+                kf.grad[:, :, cols], vf.grad[:, :, cols]]
+        errs = {}
+        for ref_name, ref in (("plain", plain), ("full", full)):
+            errs[ref_name] = {
+                "out": max_err(ring[0], ref[0]),
+                "grad": max(max_err(a, r) for a, r in zip(ring[1:], ref[1:])),
+                "grad_top": max(float(r.float().abs().max())
+                                for r in ref[1:]),
+                "finite": bool(all(torch.isfinite(t.float()).all()
+                                   for t in ring))}
+        rows.append({"dtype": dtype_name, "causal": causal, "masked": masked,
+                     "errs": errs, "launches": launches,
+                     "ring_fwd_bwd_ms": sorted(times)[len(times) // 2]})
+        del q, k, v, do, ring, plain, full, qf, kf, vf, of
+        torch.cuda.empty_cache()
+    return {"rank": rank, "library": how, "rows": rows}
+
+
+def _mesh_profile_rank(spec, ids, masks, labels):
+    """(b) one step of the estimator's dp=2 fit (BERT-base, adam 3e-4, the
+    ZeRO stage ``auto`` picks): the trainer's own mesh fit, run in place,
+    two epochs of one step each; each rank profiles the second, from the
+    first epoch's loss callback to the second's. Rank 0's profile."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev, _ = _mesh_rank_setup()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   record_shapes=False)
+    marks = []
+
+    def window(loss, it, part):
+        # the loss was read back (a sync) before the callback runs
+        if not marks:
+            prof.start()
+            marks.append(time.perf_counter())
+        elif len(marks) == 1:
+            marks.append(time.perf_counter())
+            prof.stop()
+
+    tr = Trainer(spec, ["input_ids", "attention_mask"], "y",
+                 mesh=Mesh({"dp": 2}), device=dev, optimizer="adam",
+                 learning_rate=3e-4, iters=2, mini_batch_size=len(ids),
+                 mini_stochastic_iters=1, seed=0, loss_callback=window)
+    res = tr.fit((ids, masks), labels)
+    stage = tr._zero_stage
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(marks) != 2:
+        raise AssertionError(f"rank {rank}: {len(marks)} loss callbacks, "
+                             f"want 2")
+    if rank != 0:
+        return None
+    out = _device_profile(prof, (marks[1] - marks[0]) * 1e3, 1,
+                          kernels=MESH_NAMES)
+    out["zero_stage"] = stage
+    out["loss"] = float(res.losses[-1])
+    out["finite"] = bool(np.isfinite(out["loss"]))
+    return out
+
+
+def _mesh_exact_dp_rank(spec, stage, ids, masks, labels, opt):
+    """(d) a ``Trainer(mesh={"dp": 2})`` fit in place at ``stage`` with the
+    optimizer ``opt`` names (:func:`_mesh_exact_kw`), float32, TF32 off;
+    rank 0 returns the standard-layout params."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev, _ = _mesh_rank_setup()
+    tr = Trainer(spec, ["input_ids", "attention_mask"], "y",
+                 mesh=Mesh({"dp": 2}), device=dev,
+                 sharding=ShardingConfig(zero_stage=stage),
+                 **_mesh_exact_kw(opt))
+    r = tr.fit((ids, masks), labels)
+    out = {"losses": r.losses, "zero_stage": tr._zero_stage,
+           "ranks": tr.last_mesh_stats["ranks"]}
+    if rank == 0:
+        out["params"] = {ln: {k: t.detach().cpu().numpy()
+                              for k, t in layer.items()}
+                         for ln, layer in r.params.items()}
+    return out
+
+
+def _mesh_exact_kw(opt):
+    """Adam nearly ignores the gradient's scale, so (d) also takes one SGD
+    step at learning rate 1: the params then move by minus the gradient,
+    and a missing or doubled 1/n in a reduction shows in full."""
+    if opt == "adam":
+        return dict(optimizer="adam", learning_rate=3e-4,
+                    optimizer_options={"epsilon": 1e-6}, iters=2,
+                    mini_batch_size=16, seed=0)
+    return dict(optimizer="gradient_descent", learning_rate=1.0, iters=1,
+                mini_batch_size=32, seed=0)
+
+
+def _mesh_exact_sp_rank(spec, ids, masks):
+    """(d) one sp=2 SGD step (learning rate 1: the params move by minus the
+    gradient) through the kernel ring and through the plain ring from the
+    same weights, float32, TF32 off: the loss and gradient differences."""
+    import functools
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import ring_attention
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.parallel.sp import make_sp_train_step
+    rank, dev, _ = _mesh_rank_setup()
+    mesh = Mesh({"dp": 1, "sp": 2})
+    model = model_from_json(spec, device=dev)
+    p0 = model.init(seed=0)
+    sl = ids.shape[1] // 2
+    cols = slice(rank * sl, (rank + 1) * sl)
+    feed = (torch.tensor(ids[:, cols], device=dev).long(),
+            torch.tensor(masks[:, cols], device=dev))
+    out = {}
+    with mesh.bind():
+        for name, att in (("kernel", None), ("plain", functools.partial(
+                ring_attention, axis_name="sp"))):
+            params = {ln: {k: t.detach().clone().requires_grad_(True)
+                           for k, t in layer.items()}
+                      for ln, layer in p0.items()}
+            opt = build_optimizer("gradient_descent", 1.0)
+            step = make_sp_train_step(model, opt, mesh, attention=att)
+            params, _, loss = step(params, opt.init(params), *feed, 0)
+            out[name] = (float(loss), {ln: {k: p0[ln][k] - t.detach()
+                                            for k, t in layer.items()}
+                                       for ln, layer in params.items()})
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    top = max(float(g.abs().max()) for layer in gp.values()
+              for g in layer.values())
+    err = max(float((gk[ln][k] - gp[ln][k]).abs().max())
+              for ln in gp for k in gp[ln])
+    return {"loss_kernel": lk, "loss_plain": lp,
+            "loss_rel": abs(lk - lp) / max(abs(lp), 1e-12),
+            "grad_err": err, "grad_top": top,
+            "grad_rel": err / max(top, 1e-12)}
+
+
+def _mesh_estimator_fit(card, spec, df, label, zero_stage, work):
+    """(b) ``SparkAsyncDL(meshShape="dp=2")`` over the BERT-base rows, fit
+    and transform, with the mesh accounting of the fit."""
+    import numpy as np
+    from sparkflow_tpu_torch.localml import OneHotEncoder, Pipeline
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    losses = []
+    est = SparkAsyncDL(
+        inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
+        tfLabel="y:0", tfOutput="probs:0", tfOptimizer="adam",
+        tfLearningRate=3e-4, iters=MESH_EST_STEPS,
+        miniBatchSize=MESH_EST_BATCH, miniStochasticIters=1,
+        labelCol="labels", predictionCol="probs", extraInputCols="mask",
+        extraTfInputs="attention_mask:0", meshShape="dp=2",
+        zeroStage=zero_stage, weightsPath=os.path.join(work, f"mesh-{label}"))
+    est.setLossCallback(lambda loss, it, part: losses.append(loss))
+    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
+                                          outputCol="labels",
+                                          dropLast=False), est])
+    t0 = time.perf_counter()
+    fitted = pipe.fit(df)
+    fit_s = time.perf_counter() - t0
+    st = est.last_mesh_stats
+    if st is None or st["mesh"] != {"dp": 2} or not st["launched"]:
+        raise AssertionError(f"the estimator did not fit on the mesh: {st}")
+    if len(losses) != MESH_EST_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: per-epoch losses {losses}")
+    want_stage = 1 if zero_stage < 0 else zero_stage
+    if st["zero_stage"] != want_stage:
+        raise AssertionError(f"{label}: zero stage {st['zero_stage']}, "
+                             f"want {want_stage}")
+    per_rank = []
+    for r in st["ranks"]:
+        for n in MESH_NAMES:
+            if r["kernel_launches"][n] != 12 * MESH_EST_STEPS:
+                raise AssertionError(
+                    f"{label}: rank {r['rank']} launched {n} "
+                    f"{r['kernel_launches'][n]} times, want 12 x "
+                    f"{MESH_EST_STEPS}")
+        steady = sorted(r["epoch_ms"][1:])
+        per_rank.append({
+            "rank": r["rank"], "device": r["device"],
+            "peak_mem_gb": r["peak_memory_bytes"] / 1e9,
+            "opt_state_gb": r["opt_state_bytes"] / 1e9,
+            "param_gb": r["param_bytes"] / 1e9,
+            "bytes_moved_per_step_gb": r["bytes_moved_per_step"] / 1e9,
+            "host_staged_gb": r["host_staged_bytes"] / 1e9,
+            "step_ms": r["epoch_ms"],
+            "step_ms_median_after_first": steady[len(steady) // 2],
+            "launches": {n: r["kernel_launches"][n] for n in MESH_NAMES}})
+    r0 = per_rank[0]
+    summary = {"zero_stage": st["zero_stage"], "backend": st["backend"],
+               "fit_s": fit_s, "losses": losses,
+               "train_examples_per_s": (MESH_EST_BATCH * 1e3
+                                        / r0["step_ms_median_after_first"]),
+               "ranks": per_rank}
+    log(f"[mesh-dp] {label} " + json.dumps(summary) + f" [{card}]")
+    return fitted, summary
+
+
+def _mesh_transform_check(card, fitted, spec, df):
+    """(b) the fitted model's transform on this process's card against the
+    rank-0 params' single-card predictions (a plain forward)."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.convert import list_to_params
+    from sparkflow_tpu_torch.ml_util import resolve_weights
+    from sparkflow_tpu_torch.models import model_from_json
+    stage = fitted.stages[-1]
+    rows = df.collect()[:16]
+    got = np.stack([r["probs"].toArray()
+                    for r in fitted.transform(df).collect()[:16]])
+    model = model_from_json(spec)
+    params = list_to_params(model, resolve_weights(
+        stage.getOrDefault(stage.modelWeights)))
+    feeds = {"input_ids": torch.tensor(np.stack(
+                 [r["tokens"].toArray() for r in rows]), device="cuda"),
+             "attention_mask": torch.tensor(np.stack(
+                 [r["mask"].toArray() for r in rows]), dtype=torch.float32,
+                 device="cuda")}
+    with torch.inference_mode():
+        want = model.apply(params, feeds, ["probs"])["probs"].cpu().numpy()
+    err = float(np.abs(got - want).max())
+    if not (err <= 1e-5 and np.isfinite(got).all()):
+        raise AssertionError(f"mesh-fitted transform vs the rank-0 params' "
+                             f"forward: max |d| {err}")
+    log(f"[mesh-dp] transform of the dp=2 fit (16 rows) vs the rank-0 "
+        f"params' single-card forward: max |d| {err:.3g} (tol 1e-5) "
+        f"[{card}]")
+    return err
+
+
+def phase_mesh(card, work):
+    """Phase 18: (a) the ring against its plain version on 2 ranks, (b)
+    dp=2 on the estimator's path at two zero stages and a profiled step,
+    (c) sp=2 on GPT-2 small through ``Trainer(mesh=...)``, (d) exactness
+    at full width cut to 2 layers. Returns the phase's launches and
+    summary."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.localml import LocalSession
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.parallel import distributed
+    from sparkflow_tpu_torch.parallel.distributed import RankPool
+    from sparkflow_tpu_torch.trainer import Trainer
+    t0 = time.perf_counter()
+    # every collective, a rank's joining and every pool task; a launched
+    # fit's ranks end on a collective's timeout
+    os.environ["SPARKFLOW_TORCH_MESH_TIMEOUT_S"] = str(MESH_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = distributed.choose_backend(2, "cuda")
+    why = ("a card for each rank" if backend == "nccl" else
+           "NCCL refuses two ranks on one device: gloo, each collective "
+           "staged through pinned host memory")
+    log(f"[mesh] 2 ranks on {torch.cuda.device_count()} card(s): backend "
+        f"{backend} ({why}) [{card}]")
+    out = {"backend": backend}
+    spark = LocalSession.builder.appName("mesh").getOrCreate()
+    seq, vocab = BERT_BASE["max_len"], BERT_BASE["vocab_size"]
+    bert = build_registry_spec("transformer_classifier", **BERT_BASE)
+    df = synthetic_text(spark, MESH_EST_ROWS, seq, vocab)
+    rows = df.collect()
+    ids = np.stack([r["tokens"].toArray() for r in rows]).astype(np.float32)
+    masks = np.stack([r["mask"].toArray() for r in rows]).astype(np.float32)
+    labels = np.eye(2, dtype=np.float32)[[int(r["label"]) for r in rows]]
+
+    with RankPool(2, device="cuda") as pool:
+        # (a) the ring against its plain version and one card's flash
+        cases = [(dt, c, m) for dt in ("bfloat16", "float32")
+                 for c, m in ((True, False), (False, True))]
+        ring = pool.run(_mesh_ring_rank, cases)
+        if {r["library"] for r in ring} != {"found"}:
+            raise AssertionError(f"a rank did not load the built kernel "
+                                 f"library: {[r['library'] for r in ring]}")
+        ring_rows = []
+        for i, (dt, causal, masked) in enumerate(cases):
+            visits = 3 if causal else 4
+            got = {n: sum(r["rows"][i]["launches"][n] for r in ring)
+                   for n in MESH_NAMES}
+            if got != {n: visits for n in MESH_NAMES}:
+                raise AssertionError(f"ring {dt} causal={causal}: launches "
+                                     f"{got}, want {visits} each")
+            for r in ring:
+                e = r["rows"][i]["errs"]
+                for ref in ("plain", "full"):
+                    if not (e[ref]["finite"]
+                            and e[ref]["out"] < FLASH_TOL[dt]
+                            and e[ref]["grad"]
+                            <= BWD_TOL[dt] * e[ref]["grad_top"]):
+                        raise AssertionError(
+                            f"ring {dt} causal={causal} rank {r['rank']} vs "
+                            f"{ref}: {e[ref]}")
+            row = {"dtype": dt, "causal": causal, "kv_mask": masked,
+                   "launches_summed_over_ranks": got,
+                   "errs": [r["rows"][i]["errs"] for r in ring],
+                   "ring_fwd_bwd_ms_rank0": ring[0]["rows"][i][
+                       "ring_fwd_bwd_ms"]}
+            ring_rows.append(row)
+            log(f"[mesh-ring] B=8 H=12 S=1024 (512 a rank) D=64 {dt} "
+                f"causal={causal} kv_mask={masked}: " + json.dumps(row)
+                + f" [{card}]")
+        out["ring"] = ring_rows
+        # (b) one estimator-shaped step profiled on rank 0
+        prof = pool.run(_mesh_profile_rank, bert, ids[:MESH_EST_BATCH],
+                        masks[:MESH_EST_BATCH], labels[:MESH_EST_BATCH])[0]
+        if not prof["finite"]:
+            raise AssertionError(f"profiled dp step: loss {prof['loss']}")
+        if prof["zero_stage"] != 1:
+            raise AssertionError(f"profiled dp fit: zero stage "
+                                 f"{prof['zero_stage']}, auto wants 1")
+        log("[mesh-dp] profiled step of the trainer's dp=2 fit, rank 0 "
+            "(BERT-base, 16 rows a rank, ZeRO-1): " + json.dumps(prof)
+            + f" [{card}]")
+        out["dp_profile"] = prof
+        # (d) exactness: dp=2 at every stage against one card
+        bert2 = build_registry_spec("transformer_classifier", **dict(
+            BERT_BASE, num_layers=2, dropout=0.0))
+        exact = {}
+        for opt in ("adam", "gradient_descent"):
+            ref_r = Trainer(bert2, ["input_ids", "attention_mask"], "y",
+                            **_mesh_exact_kw(opt)).fit(
+                (ids[:32], masks[:32]), labels[:32])
+            want = {ln: {k: t.detach().cpu().numpy()
+                         for k, t in layer.items()}
+                    for ln, layer in ref_r.params.items()}
+            exact[opt] = {}
+            for stage in (0, 1, 2, 3):
+                got = pool.run(_mesh_exact_dp_rank, bert2, stage, ids[:32],
+                               masks[:32], labels[:32], opt)
+                lrel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(
+                    got[0]["losses"], ref_r.losses))
+                perr = max(float(np.max(
+                    np.abs(got[0]["params"][ln][k] - want[ln][k])
+                    - MESH_PARAM_RTOL * np.abs(want[ln][k])))
+                    for ln in want for k in want[ln])
+                e = exact[opt][stage] = {"loss_rel": lrel,
+                                         "param_excess": perr,
+                                         "zero_stage": got[0]["zero_stage"]}
+                if not (got[0]["zero_stage"] == stage
+                        and len(got[0]["losses"]) == len(ref_r.losses)
+                        and lrel <= MESH_LOSS_RTOL
+                        and perr <= MESH_PARAM_ATOL
+                        and got[0]["losses"] == got[1]["losses"]):
+                    raise AssertionError(f"dp=2 {opt} stage {stage} vs one "
+                                         f"card: {e}")
+        log(f"[mesh-exact] dp=2 stages 0-3 vs one card (BERT-base widths, "
+            f"2 layers, float32, TF32 off; 2 adam steps of 16 rows, 1 SGD "
+            f"step at learning rate 1 of 32 rows): " + json.dumps(exact)
+            + f" (losses <= {MESH_LOSS_RTOL} relative, params |d| - "
+            f"{MESH_PARAM_RTOL} |p| <= {MESH_PARAM_ATOL}) [{card}]")
+        out["dp_exact"] = exact
+        lm2 = build_registry_spec("transformer_lm", **dict(
+            GPT2_SMALL, num_layers=2, dropout=0.0))
+        rs = np.random.RandomState(5)
+        sp_ids = rs.randint(0, 1000, (2, 1024)).astype(np.float32)
+        sp_mask = np.ones((2, 1024), np.float32)
+        sp_mask[1, 900:] = 0.0
+        sp_ex = pool.run(_mesh_exact_sp_rank, lm2, sp_ids, sp_mask)
+        for e in sp_ex:
+            if not (e["loss_rel"] <= MESH_SP_TOL
+                    and e["grad_rel"] <= MESH_SP_TOL):
+                raise AssertionError(f"sp=2 step, kernel ring vs plain ring: "
+                                     f"{e}")
+        log(f"[mesh-exact] sp=2 step (GPT-2-small widths, 2 layers, float32, "
+            f"TF32 off), kernel ring vs plain ring: " + json.dumps(sp_ex)
+            + f" (tol {MESH_SP_TOL}) [{card}]")
+        out["sp_exact"] = sp_ex
+
+    # (b) the estimator's main path, dp=2, at ZeRO auto (adam -> 1) and 3
+    out["dp"] = {}
+    dp_launches = {n: 0 for n in MESH_NAMES}
+    for label, stage in (("auto", -1), ("zero3", 3)):
+        fitted, summary = _mesh_estimator_fit(card, bert, df, label, stage,
+                                              work)
+        out["dp"][label] = summary
+        for r in summary["ranks"]:
+            for n in MESH_NAMES:
+                dp_launches[n] += r["launches"][n]
+        if label == "auto":
+            out["transform_err"] = _mesh_transform_check(card, fitted, bert,
+                                                         df)
+        del fitted
+
+    # (c) sp=2 on GPT-2 small through Trainer(mesh=...)
+    lm = build_registry_spec("transformer_lm", **dict(GPT2_SMALL,
+                                                      dropout=0.1))
+    sp_ids = np.random.RandomState(9).randint(
+        0, 1000, (MESH_SP_BATCH, 1024)).astype(np.float32)
+    tr = Trainer(lm, "input_ids", None, optimizer="adam", learning_rate=3e-4,
+                 iters=MESH_SP_STEPS, mini_batch_size=MESH_SP_BATCH,
+                 mini_stochastic_iters=1, compute_dtype="bfloat16", seed=0,
+                 mesh={"dp": 1, "sp": 2})
+    t1 = time.perf_counter()
+    res = tr.fit(sp_ids)
+    sp_fit_s = time.perf_counter() - t1
+    st = tr.last_mesh_stats
+    if not (all(math.isfinite(x) for x in res.losses)
+            and res.losses[-1] < res.losses[0]):
+        raise AssertionError(f"sp=2 GPT-2 small losses {res.losses}")
+    sp_launches = {n: sum(r["kernel_launches"][n] for r in st["ranks"])
+                   for n in MESH_NAMES}
+    want_l = 3 * GPT2_SMALL["num_layers"] * MESH_SP_STEPS
+    if sp_launches != {n: want_l for n in MESH_NAMES}:
+        raise AssertionError(f"sp=2 launches {sp_launches}, want {want_l} "
+                             f"each (3 ring visits x 12 layers x "
+                             f"{MESH_SP_STEPS} steps)")
+    steady = sorted(st["ranks"][0]["epoch_ms"][1:])
+    sp_sum = {"losses": res.losses, "fit_s": sp_fit_s,
+              "backend": st["backend"],
+              "step_ms": st["ranks"][0]["epoch_ms"],
+              "tokens_per_s": (MESH_SP_BATCH * 1024 * 1e3
+                               / steady[len(steady) // 2]),
+              "launches_summed_over_ranks": sp_launches,
+              "ranks": [{"rank": r["rank"],
+                         "peak_mem_gb": r["peak_memory_bytes"] / 1e9,
+                         "bytes_moved_per_step_gb":
+                             r["bytes_moved_per_step"] / 1e9,
+                         "launches": {n: r["kernel_launches"][n]
+                                      for n in MESH_NAMES}}
+                        for r in st["ranks"]]}
+    log("[mesh-sp] GPT-2 small (bf16, dropout 0.1, adam 3e-4), "
+        "Trainer(mesh={'dp': 1, 'sp': 2}), batch 8 x 1024: "
+        + json.dumps(sp_sum) + f" [{card}]")
+    out["sp"] = sp_sum
+    out["launches"] = {"dp": dp_launches, "sp_ring": sp_launches}
+    log(f"[mesh] phase 18 {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _mesh_launches(mesh, name):
+    return {"dp": mesh["launches"]["dp"][name],
+            "sp_ring": mesh["launches"]["sp_ring"][name]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4643,6 +5187,7 @@ def main() -> int:
         fleet = timed("fleet", phase_fleet, card, spec, work)
         families = timed("families", phase_families, card, work)
         tf1_hog = timed("tf1-hogwild", phase_tf1_hogwild, card, work)
+        mesh = timed("mesh", phase_mesh, card, work)
     except Exception:
         traceback.print_exc()
         return 1
@@ -4684,7 +5229,10 @@ def main() -> int:
                       families["training"]["flash_fwd"]},
          # phase 17: BERT-base HogwildSparkModel, 4 replica threads
          "tf1_hogwild": {"launches":
-                         tf1_hog["hogwild"]["launches"]["flash_fwd"]}},
+                         tf1_hog["hogwild"]["launches"]["flash_fwd"]},
+         # phase 18: summed over the ranks — the dp=2 estimator fits, and
+         # the sp=2 GPT-2-small fit's ring visits
+         "mesh": _mesh_launches(mesh, "flash_fwd")},
         {"name": "paged_attention", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "734",
          "launches": launches["paged_attention"], **paged_row,
@@ -4702,7 +5250,8 @@ def main() -> int:
          "families": {"moe_training_launches":
                       families["training"]["flash_bwd_dq"]},
          "tf1_hogwild": {"launches":
-                         tf1_hog["hogwild"]["launches"]["flash_bwd_dq"]}},
+                         tf1_hog["hogwild"]["launches"]["flash_bwd_dq"]},
+         "mesh": _mesh_launches(mesh, "flash_bwd_dq")},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "415",
          "launches": train_launches["flash_bwd_dkv"],
@@ -4713,7 +5262,8 @@ def main() -> int:
          "families": {"moe_training_launches":
                       families["training"]["flash_bwd_dkv"]},
          "tf1_hogwild": {"launches":
-                         tf1_hog["hogwild"]["launches"]["flash_bwd_dkv"]}},
+                         tf1_hog["hogwild"]["launches"]["flash_bwd_dkv"]},
+         "mesh": _mesh_launches(mesh, "flash_bwd_dkv")},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "781",
          "launches": spec_b["paged_attention_quant"],

@@ -126,7 +126,9 @@ def _epoch_indices(mode: str, shuffle: bool, n_rows: int, batch_size: int,
 
 def make_epoch_fn(loss_fn: Callable, optimizer: GradientTransformation,
                   batch_size: int, num_batches: int, mode: str,
-                  shuffle: bool, n_real: Optional[int] = None) -> Callable:
+                  shuffle: bool, n_real: Optional[int] = None,
+                  step_fn: Optional[Callable] = None,
+                  rows: Optional[Tuple[int, int]] = None) -> Callable:
     """One epoch: ``epoch(params, opt_state, data, labels, mask,
     shuffle_gen, dropout_gen) -> (params, opt_state, losses [num_batches])``.
 
@@ -134,8 +136,15 @@ def make_epoch_fn(loss_fn: Callable, optimizer: GradientTransformation,
     batches, each sampled without replacement), ``full`` (one batch of the
     whole padded set). ``data`` is one tensor (or a tuple for multi-input
     models) of ``[num_batches * batch_size, ...]`` padded rows on the
-    model's device; ``shuffle_gen`` is a CPU generator."""
-    step = make_train_step(loss_fn, optimizer)
+    model's device; ``shuffle_gen`` is a CPU generator.
+
+    On a mesh ``step_fn`` replaces the one-device step (same signature; it
+    receives ``dropout_gen`` as it is) and ``rows = (index, count)`` feeds it
+    only block ``index`` of ``count`` equal blocks of every batch — this
+    rank's rows; the epoch's row order is the same on every rank."""
+    step = step_fn or make_train_step(loss_fn, optimizer)
+    r_idx, r_cnt = rows or (0, 1)
+    local = batch_size // r_cnt
 
     def epoch(params, opt_state, data, labels, mask, shuffle_gen,
               dropout_gen=None):
@@ -148,7 +157,8 @@ def make_epoch_fn(loss_fn: Callable, optimizer: GradientTransformation,
                                   mask.index_select(0, idx))
         losses = []
         for i in range(num_batches):
-            sl = slice(i * batch_size, (i + 1) * batch_size)
+            lo = i * batch_size + r_idx * local
+            sl = slice(lo, lo + local)
             x = (tuple(a[sl] for a in data)
                  if isinstance(data, (tuple, list)) else data[sl])
             params, opt_state, loss = step(params, opt_state, x, labels[sl],

@@ -77,7 +77,7 @@ def json_to_params(model, json_weights: str):
 
 def _not_yet(what: str):
     raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
-                              f"ROADMAP.md)")
+                              f"ROADMAP.md, queue 1 item 7)")
 
 
 # ---------------------------------------------------------------------------

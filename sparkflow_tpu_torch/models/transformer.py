@@ -32,13 +32,20 @@ and recomputes the rest, the flash forward included — JAX's
 ``dots_with_no_batch_dims_saveable`` policy, which saves no batched product
 and no Pallas call. :meth:`TransformerLM.decode_verify` scores a drafted
 token block at every position (speculative decoding), and the dense decode
-cache takes int8/fp8 rows (``init_decode_cache(kv_dtype=)``). Model
-parallelism (``tp_axis``, ``ep_axis``, ``sp_axis``) is not yet ported and
-raises.
+cache takes int8/fp8 rows (``init_decode_cache(kv_dtype=)``).
+
+Sequence parallelism: with ``sp_axis`` set (a mesh axis name; the sp train
+step sets it on its own copy of the model, :mod:`..parallel.sp`) each rank
+holds a sequence shard, attention runs
+:func:`~sparkflow_tpu_torch.ops.ring_flash_attention` over that axis of the
+bound mesh, and positions start at the rank's index on the axis times the
+shard length. Tensor and expert parallelism (``tp_axis``, ``ep_axis``) are
+not yet ported and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Callable, List, Optional, Tuple
@@ -49,7 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from ..ops import flash_attention
+from ..ops import flash_attention, ring_flash_attention
 from ..utils import quant
 from .base import Params, RegistryModel, softmax_xent
 from .registry import register_model
@@ -106,9 +113,9 @@ class _TransformerBase(RegistryModel):
         if remat not in (False, True, "full", "dots"):
             raise ValueError(
                 f"remat must be False, True/'full', or 'dots'; got {remat!r}")
-        if sp_axis is not None:
-            _not_yet("sequence parallelism (sp_axis)")
         super().__init__(compute_dtype, device)
+        # a mesh axis name: attention becomes ring attention over it
+        self.sp_axis = sp_axis
         self.vocab_size = int(vocab_size)
         self.hidden = int(hidden)
         self.num_layers = int(num_layers)
@@ -215,8 +222,13 @@ class _TransformerBase(RegistryModel):
         tokens."""
         b, s, _ = x.shape
         q, k, v = self._qkv(bp, x)
-        attend = flash_attention if attention is None else attention
-        att = attend(q, k, v, causal=causal, kv_mask=mask)
+        if attention is not None:
+            att = attention(q, k, v, causal=causal, kv_mask=mask)
+        elif self.sp_axis is not None:
+            att = ring_flash_attention(q, k, v, self.sp_axis, causal=causal,
+                                       kv_mask=mask)
+        else:
+            att = flash_attention(q, k, v, causal=causal, kv_mask=mask)
         att = att.transpose(1, 2).reshape(b, s, -1)
         x, aux = self._finish_block(bp, x, att, train, generator, mask)
         return x, k, v, aux
@@ -253,14 +265,20 @@ class _TransformerBase(RegistryModel):
         state = (generator.get_state() if train and self.dropout > 0.0
                  and generator is not None else None)
         after = {}
+        # the recompute runs inside autograd's backward — on its own thread
+        # for CUDA tensors — where a ring needs its mesh bound again
+        from ..parallel.mesh import current_mesh
+        mesh = current_mesh()
 
         def run(x):
             g = None
             if state is not None:
                 g = torch.Generator(device=x.device)
                 g.set_state(state)
-            y, _, _, aux = self._block(bp, x, mask, causal, attention, train,
-                                       g)
+            with (mesh.bind() if mesh is not None
+                  else contextlib.nullcontext()):
+                y, _, _, aux = self._block(bp, x, mask, causal, attention,
+                                           train, g)
             if g is not None:
                 after["state"] = g.get_state()
             return y, aux
@@ -303,7 +321,14 @@ class _TransformerBase(RegistryModel):
     def prefill_embed(self, params, ids):
         emb = params["embed"]
         s = ids.shape[1]
-        return self.cast(emb["tok"][ids.long()] + emb["pos"][:s][None])
+        start = 0
+        if self.sp_axis is not None:
+            # a rank holds a sequence SHARD: global positions, not 0..s-1
+            # (clamped into the table as jax's dynamic_slice does)
+            from ..parallel.collectives import axis_index
+            start = min(axis_index(self.sp_axis) * s, self.max_len - s)
+        pos = emb["pos"][start:start + s]
+        return self.cast(emb["tok"][ids.long()] + pos[None])
 
 
 @register_model("transformer_classifier")

@@ -23,6 +23,11 @@ gradient it runs as a ``torch.autograd.Function`` (the counterpart of the
 JAX ``jax.custom_vjp`` ``_flash``) whose backward is
 :func:`flash_attention_backward` — the dq and dk/dv kernels on the card.
 
+:func:`ring_flash_attention` is ring attention for sequence parallelism:
+each rank holds a sequence shard, K/V rotate around a mesh axis, and every
+visit runs the flash kernels (forward, and dq / dk-dv in its backward);
+:func:`ring_attention` is its plain version.
+
 Every kernel has a launch counter, a plain integer on its wrapper
 (``launches``; the paged wrappers also ``quant_launches`` for their
 quantized-pool kernel), so a run can show its main path went through the
@@ -769,6 +774,207 @@ def paged_attention_verify(q, k_pages, v_pages, page_table, start,
 
 paged_attention_verify.launches = 0
 paged_attention_verify.quant_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Ring attention (sequence parallelism over a mesh axis)
+#
+# q/k/v hold this rank's sequence shard [B,H,S_local,D] (shard i covers
+# positions [i * S_local, (i + 1) * S_local)); K/V and the key mask rotate
+# around the axis ring with collectives.ppermute_ring, on every rank of the
+# bound mesh (parallel.mesh.Mesh.bind). Not a kernel of its own:
+# ring_flash_attention composes kernels 1-3 per visit.
+# ---------------------------------------------------------------------------
+
+
+def _block_stats(q, k, v, scale, causal, q_offset, k_offset, kv_mask=None):
+    """One blockwise attention step -> (acc, m, l) in float32."""
+    s = _masked_scores(q, k, scale, causal, kv_mask, q_offset, k_offset)
+    m = s.amax(dim=-1, keepdim=True)                            # [B,H,Sq,1]
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return acc, m, l
+
+
+def _merge_stats(acc, m, l, a2, m2, l2):
+    """Fold one blockwise (acc, max, sum) triple into the running online
+    softmax state."""
+    m_new = torch.maximum(m, m2)
+    alpha = torch.exp(m - m_new)
+    beta = torch.exp(m2 - m_new)
+    return acc * alpha + a2 * beta, m_new, l * alpha + l2 * beta
+
+
+class _RingShift(torch.autograd.Function):
+    """``ppermute`` by +1 along the axis; its backward shifts by -1 (the
+    transpose), so the plain ring differentiates through its rotations."""
+
+    @staticmethod
+    def forward(ctx, axis_name, *xs):
+        from ..parallel.collectives import ppermute_ring
+        from ..parallel.mesh import bound_mesh
+        ctx.axis_name, ctx.mesh = axis_name, bound_mesh()
+        return ppermute_ring(tuple(x.detach() for x in xs), axis_name, 1)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from ..parallel.collectives import ppermute_ring
+        # autograd runs a CUDA backward on its own thread: bind the mesh
+        with ctx.mesh.bind():
+            return (None,) + tuple(ppermute_ring(
+                tuple(g.contiguous() for g in gs), ctx.axis_name, -1))
+
+
+def ring_attention(q, k, v, axis_name: str, causal: bool = False,
+                   sm_scale: Optional[float] = None, kv_mask=None):
+    """The plain ring: attention where q/k/v are sequence-sharded over
+    ``axis_name`` (the JAX package's ``ring_attention``). K/V (and the
+    optional [B, S_local] ``kv_mask``) rotate around the ring; the online
+    softmax statistics merge per visit in float32. Differentiable by
+    autograd (a rotation's transpose is the rotation the other way)."""
+    from ..parallel.collectives import axis_index, axis_size
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    n, idx = axis_size(axis_name), axis_index(axis_name)
+    b, h, sl, _ = q.shape
+    acc = q.new_zeros((b, h, sl, d), dtype=torch.float32)
+    m = q.new_full((b, h, sl, 1), NEG_INF, dtype=torch.float32)
+    l = q.new_zeros((b, h, sl, 1), dtype=torch.float32)
+    kc, vc, mc = k, v, kv_mask
+    for step in range(n):
+        # the k/v block resident now came from rank (idx - step) % n
+        src = (idx - step) % n
+        acc, m, l = _merge_stats(acc, m, l, *_block_stats(
+            q, kc, vc, scale, causal, idx * sl, src * sl, mc))
+        if step < n - 1:
+            moved = _RingShift.apply(axis_name, kc, vc,
+                                     *(() if mc is None else (mc,)))
+            kc, vc = moved[0], moved[1]
+            mc = moved[2] if mc is not None else None
+    return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+def _ring_cases(causal: bool, n: int, idx: int):
+    """Per visit ``local_causal``, or None for a skipped visit: with equal
+    shards causality is three whole-block cases — source strictly behind
+    (full attention), the same shard (locally causal: the local diagonal IS
+    the global one), strictly ahead (no contribution, no launch)."""
+    out = []
+    for step in range(n):
+        src = (idx - step) % n
+        out.append(False if not causal or src < idx
+                   else True if src == idx else None)
+    return out
+
+
+class RingFlashAttentionFunction(torch.autograd.Function):
+    """Ring attention over kernels 1-3 — the JAX package's ``_ring_flash``
+    (a ``jax.custom_vjp``). ``apply(q, k, v, kv_mask, axis_name, causal,
+    scale) -> out``.
+
+    Forward: kernel 1 (:func:`flash_attention` with ``return_lse``) per
+    visit, merged exactly through the logsumexp weights ``o = sum_i o_i *
+    exp(lse_i - lse)``, ``lse = logaddexp_i lse_i``. Backward: ``delta =
+    rowsum(dO * O)`` once, then kernels 2-3 (:func:`flash_bwd_dq`,
+    :func:`flash_bwd_dkv`) per visit with the GLOBAL logsumexp, so each
+    visit's contribution is exact and they just sum; the dK/dV accumulators
+    rotate with their K/V shard and arrive home after the last visit. A
+    skipped causal visit launches nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, axis_name, causal, scale):
+        from ..parallel.collectives import axis_index, axis_size, ppermute_ring
+        n, idx = axis_size(axis_name), axis_index(axis_name)
+        b, h, sl, d = q.shape
+        o = q.new_zeros((b, h, sl, d), dtype=torch.float32)
+        lse = q.new_full((b, h, sl), NEG_INF, dtype=torch.float32)
+        kc, vc, mc = k, v, kv_mask
+        for step, local_causal in enumerate(_ring_cases(causal, n, idx)):
+            if local_causal is None:
+                o2 = torch.zeros_like(o)
+                lse2 = torch.full_like(lse, NEG_INF)
+            else:
+                o2, lse2 = flash_attention(q, kc, vc, local_causal, scale,
+                                           kv_mask=mc, return_lse=True)
+            # exact merge through the logsumexp weights
+            lse_new = torch.logaddexp(lse, lse2)
+            o = (o * torch.exp(lse - lse_new)[..., None]
+                 + o2.float() * torch.exp(lse2 - lse_new)[..., None])
+            lse = lse_new
+            if step < n - 1:
+                moved = ppermute_ring((kc, vc) + (() if mc is None
+                                                  else (mc,)), axis_name)
+                kc, vc = moved[0], moved[1]
+                mc = moved[2] if mc is not None else None
+        out = o.to(q.dtype)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.axis_name, ctx.causal, ctx.scale = axis_name, causal, scale
+        from ..parallel.mesh import bound_mesh
+        ctx.mesh = bound_mesh()
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        # autograd runs a CUDA backward on its own thread: bind the mesh
+        with ctx.mesh.bind():
+            return RingFlashAttentionFunction._backward(ctx, dout)
+
+    @staticmethod
+    def _backward(ctx, dout):
+        from ..parallel.collectives import axis_index, axis_size, ppermute_ring
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        n, idx = axis_size(ctx.axis_name), axis_index(ctx.axis_name)
+        dout = dout.contiguous()
+        # the q-side quantities never change across visits: computed once
+        delta = _bwd_delta(out, dout)
+        lse = lse.contiguous()
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        kc, vc, mc = k, v, kv_mask
+        for step, local_causal in enumerate(_ring_cases(ctx.causal, n, idx)):
+            if local_causal is not None:
+                dq += flash_bwd_dq(q, kc, vc, dout, lse, delta, local_causal,
+                                   ctx.scale, mc).float()
+                dk2, dv2 = flash_bwd_dkv(q, kc, vc, dout, lse, delta,
+                                         local_causal, ctx.scale, mc)
+                dk += dk2.float()
+                dv += dv2.float()
+            # the accumulators travel with their shard: after the n-th
+            # rotation they are home, and K/V need no last trip
+            last = step == n - 1
+            carry = (dk, dv) + (() if last else (kc, vc)) + (
+                () if last or mc is None else (mc,))
+            moved = ppermute_ring(carry, ctx.axis_name)
+            dk, dv = moved[0], moved[1]
+            if not last:
+                kc, vc = moved[2], moved[3]
+                mc = moved[4] if mc is not None else None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
+def ring_flash_attention(q, k, v, axis_name: str, causal: bool = False,
+                         sm_scale: Optional[float] = None, kv_mask=None):
+    """Ring attention whose per-visit block compute is the flash kernels
+    (the JAX package's ``ring_flash_attention``): q/k/v [B,H,S_local,D] are
+    this rank's sequence shard, ``kv_mask`` [B,S_local] its key-padding
+    mask; returns the local output shard. On the card each visit launches
+    kernel 1 (forward) and kernels 2-3 (backward), counted by their
+    wrappers' launch counters, or raises; on CPU tensors the visits run the
+    plain versions. The kernels take every shape, so there is no fallback
+    to the plain ring for untiled shapes as in JAX."""
+    _check_shapes("ring_flash_attention", q, k, v)
+    if k.shape[2] != q.shape[2]:
+        raise ValueError("ring_flash_attention: the q and k/v shards must "
+                         "have the same sequence length")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(device=q.device, dtype=torch.float32)
+    return RingFlashAttentionFunction.apply(q, k, v, kv_mask, axis_name,
+                                            bool(causal), float(scale))
 
 
 # wrappers launch from several threads at once (the elastic engine's

@@ -1,15 +1,35 @@
-"""Parallel training in the port. So far the in-process half of the JAX
-package's ``parallel``: :mod:`.elastic`, bounded-staleness async data
-parallelism over a versioned parameter store (the reference's Hogwild
-heritage), whose replicas are threads on one card. The device-mesh paths
-(``mesh``, ``dp``, ``ep``, ``pp``, ``sp``, ring attention, ``hyper``,
-``distributed``) are not yet ported (see ROADMAP.md)."""
+"""Parallel training in the port, on ``torch.distributed``:
 
+- :mod:`.mesh` — named meshes over ranks (one process per rank, a card or
+  the CPU each) and their axis groups;
+- :mod:`.collectives` — ``psum`` / ``psum_scatter`` / ``all_gather`` /
+  ``ppermute`` over named axes, and the two-level ``dcn`` reduction;
+- :mod:`.distributed` — joining a process group, and the local launcher
+  (:class:`~.distributed.RankPool`) a single-process caller gets its ranks
+  from; the backend rule;
+- :mod:`.dp` — synchronous data parallelism with ZeRO stages 0-3;
+- :mod:`.sp` — sequence parallelism through ring attention;
+- :mod:`.elastic` — bounded-staleness async data parallelism over a
+  versioned parameter store (the reference's Hogwild heritage), whose
+  replicas are threads on one card.
+
+Tensor, pipeline and expert parallelism (``tp``, ``fsdp``, ``pp``, ``ep``)
+and ``hyper`` are not yet ported (ROADMAP.md, queue 1 item 7)."""
+
+from .mesh import default_mesh, make_mesh, mesh_axis_size
+from . import collectives
+from .dp import (make_dp_shardmap_train_step, make_dp_train_step,
+                 make_dp_zero1_train_step)
+from ..sharding import ShardingConfig
 from .elastic import (ElasticDPEngine, ElasticParamStore, ElasticResult,
                       InProcessTransport, PushResult, ReplicaSpec, SparseRows,
                       decode_grads, encode_grads,
                       sync_baseline_examples_per_sec)
 
-__all__ = ["ElasticDPEngine", "ElasticParamStore", "ElasticResult",
+__all__ = ["default_mesh", "make_mesh", "mesh_axis_size", "collectives",
+           "ShardingConfig", "make_dp_train_step",
+           "make_dp_shardmap_train_step", "make_dp_zero1_train_step",
+           "ElasticDPEngine", "ElasticParamStore", "ElasticResult",
            "InProcessTransport", "PushResult", "ReplicaSpec", "SparseRows",
-           "encode_grads", "decode_grads", "sync_baseline_examples_per_sec"]
+           "encode_grads", "decode_grads",
+           "sync_baseline_examples_per_sec"]

@@ -1,0 +1,267 @@
+"""Named meshes over ranks — the port of the JAX package's
+``parallel/mesh.py``.
+
+A JAX mesh arranges devices on named axes; here a :class:`Mesh` arranges
+the RANKS of a ``torch.distributed`` process group the same way (row-major,
+as ``np.reshape`` lays devices out), and hands out one process group per
+axis line. A rank is one process on one device: the card
+``rank % torch.cuda.device_count()``, or the CPU. Several ranks may share a
+card (their collectives then go through gloo, :mod:`.distributed`).
+
+Outside an initialised process group a mesh is only a shape: a trainer
+given one launches that many local ranks (:func:`.distributed.launch`).
+Inside one, :meth:`Mesh.bind` makes it the mesh that named collectives
+(:mod:`.collectives`) and ring attention resolve their axis names against —
+the counterpart of running inside ``shard_map``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from contextvars import ContextVar
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+_BOUND: ContextVar = ContextVar("sparkflow_torch_bound_mesh", default=None)
+
+
+class Mesh:
+    """Axis names and sizes over ``size`` ranks. ``shape`` is a dict (axis ->
+    size, in axis order), as ``jax.sharding.Mesh.shape``."""
+
+    def __init__(self, axes: Dict[str, int]):
+        self.shape: Dict[str, int] = {str(k): int(v) for k, v in axes.items()}
+        self.axis_names: Tuple[str, ...] = tuple(self.shape)
+        self.size = int(np.prod(list(self.shape.values()), dtype=np.int64))
+        self._groups: Dict[Tuple[str, ...], object] = {}
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and other.shape == self.shape
+
+    def __hash__(self) -> int:
+        return hash(tuple(self.shape.items()))
+
+    # -- coordinates --------------------------------------------------------
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank -> its index on every axis (row-major)."""
+        idx = np.unravel_index(int(rank), tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        return int(np.ravel_multi_index(
+            tuple(coords[a] for a in self.axis_names),
+            tuple(self.shape.values())))
+
+    def _axes(self, axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"axis {a!r} is not a mesh axis "
+                                 f"{list(self.axis_names)}")
+        # mesh order, so ('dp', 'dcn') and ('dcn', 'dp') share one group
+        return tuple(a for a in self.axis_names if a in names)
+
+    def axis_index(self, axes: Union[str, Sequence[str]],
+                   rank: Optional[int] = None) -> int:
+        """This rank's (or ``rank``'s) position along ``axes`` — several axes
+        count row-major, as ``jax.lax.axis_index`` over a tuple does."""
+        names = self._axes(axes)
+        c = self.coords(_world_rank() if rank is None else rank)
+        out = 0
+        for a in names:
+            out = out * self.shape[a] + c[a]
+        return out
+
+    def axis_size(self, axes: Union[str, Sequence[str]]) -> int:
+        return int(np.prod([self.shape[a] for a in self._axes(axes)],
+                           dtype=np.int64))
+
+    def line(self, axes: Union[str, Sequence[str]],
+             rank: Optional[int] = None) -> list:
+        """The ranks that share every coordinate with ``rank`` except those
+        on ``axes``, ordered by their index along ``axes``."""
+        names = self._axes(axes)
+        c = self.coords(_world_rank() if rank is None else rank)
+        out = []
+        for idx in np.ndindex(*(self.shape[a] for a in names)):
+            cc = dict(c)
+            cc.update(zip(names, (int(i) for i in idx)))
+            out.append(self.rank_of(cc))
+        return out
+
+    # -- process groups -----------------------------------------------------
+
+    def group(self, axes: Union[str, Sequence[str]]):
+        """The process group of this rank's line along ``axes``. Every rank
+        of the world must ask for the same axes at the same point (the
+        groups are created collectively, in one order, the first time)."""
+        import torch.distributed as dist
+        names = self._axes(axes)
+        if names not in self._groups:
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    f"mesh axis group {names} needs an initialised "
+                    f"torch.distributed process group (run inside "
+                    f"distributed.launch / RankPool, or call "
+                    f"distributed.initialize())")
+            if dist.get_world_size() != self.size:
+                raise ValueError(
+                    f"mesh {self.shape} needs {self.size} ranks, the process "
+                    f"group has {dist.get_world_size()}")
+            if len(names) == len(self.axis_names):
+                self._groups[names] = dist.group.WORLD
+            else:
+                mine = None
+                seen = set()
+                backend = dist.get_backend()
+                for r in range(self.size):
+                    ranks = tuple(self.line(names, r))
+                    if ranks in seen:
+                        continue
+                    seen.add(ranks)
+                    g = dist.new_group(list(ranks), backend=backend)
+                    if dist.get_rank() in ranks:
+                        mine = g
+                self._groups[names] = mine
+        return self._groups[names]
+
+    @contextlib.contextmanager
+    def bind(self):
+        """Make this mesh the one named collectives resolve axis names
+        against, for the body of a per-rank step (JAX: inside
+        ``shard_map``)."""
+        tok = _BOUND.set(self)
+        try:
+            yield self
+        finally:
+            _BOUND.reset(tok)
+
+
+def _world_rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh of the enclosing :meth:`Mesh.bind`, or None."""
+    return _BOUND.get()
+
+
+def bound_mesh() -> Mesh:
+    """The mesh of the enclosing :meth:`Mesh.bind`; raises outside one, as
+    a collective over an unbound axis name does in JAX."""
+    m = _BOUND.get()
+    if m is None:
+        raise RuntimeError("no mesh is bound: named collectives and ring "
+                           "attention run inside `with mesh.bind():` on "
+                           "every rank of an initialised process group")
+    return m
+
+
+def _default_count() -> int:
+    """Ranks a mesh spans when none are named: the initialised process
+    group's world, else one per local card, else one."""
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return max(1, torch.cuda.device_count())
+
+
+def make_mesh(axes: Dict[str, int], devices=None) -> Mesh:
+    """Build a named mesh, e.g. ``make_mesh({"dp": 2, "sp": 2})``.
+
+    ``devices`` is how many ranks the mesh spans (an int, or a sequence of
+    one entry per rank); by default the initialised process group's world
+    size, else one rank per local card. Axis sizes must multiply to it;
+    ``-1`` for one axis means "use the remaining ranks" (like a reshape
+    wildcard). Outside a process group a mesh may ask for more ranks than
+    there are cards: pass ``devices`` = its size, or build it from a dict
+    through the trainer, and ranks then share cards."""
+    n = (_default_count() if devices is None
+         else int(devices) if isinstance(devices, (int, np.integer))
+         else len(devices))
+    sizes = list(axes.values())
+    n_unknown = sum(1 for s in sizes if s == -1)
+    if n_unknown > 1:
+        raise ValueError("at most one axis size may be -1")
+    if n_unknown == 1:
+        known = int(np.prod([s for s in sizes if s != -1])) or 1
+        if n % known:
+            raise ValueError(f"{n} devices not divisible by {known}")
+        sizes = [s if s != -1 else n // known for s in sizes]
+    if int(np.prod(sizes)) != n:
+        raise ValueError(f"mesh {dict(zip(axes, sizes))} needs "
+                         f"{int(np.prod(sizes))} devices, have {n}")
+    return Mesh(dict(zip(axes, sizes)))
+
+
+def as_mesh(mesh) -> Optional[Mesh]:
+    """``None``, a :class:`Mesh`, or a dict of axis sizes (no ``-1``: a dict
+    names its own rank count) -> a Mesh."""
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
+    if isinstance(mesh, dict):
+        if any(int(v) < 1 for v in mesh.values()):
+            raise ValueError(f"mesh axis sizes must be >= 1, got {mesh}; use "
+                             f"make_mesh for a -1 wildcard")
+        return Mesh(mesh)
+    raise TypeError(f"mesh must be a parallel.mesh.Mesh, a dict of axis "
+                    f"sizes, or None; got {type(mesh).__name__}")
+
+
+def default_mesh(axis: str = "dp") -> Optional[Mesh]:
+    """All local cards on one data-parallel axis; None on a single card or
+    none (one process is faster than a one-rank mesh)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n <= 1:
+        return None
+    return Mesh({axis: n})
+
+
+def mesh_axis_size(mesh: Optional[Mesh], axis: str) -> int:
+    if mesh is None or axis not in mesh.axis_names:
+        return 1
+    return mesh.shape[axis]
+
+
+def parse_mesh_shape(s: str) -> Dict[str, int]:
+    """Parse a mesh-shape string Param like ``"dp=2,tp=4"`` into axis sizes.
+
+    Accepted axes: dp, tp, fsdp, sp, pp, ep. One axis may be ``-1``
+    (remaining devices, like :func:`make_mesh`). This is the estimator-facing
+    config format — a plain string so it persists like every reference Param.
+    """
+    known = ("dp", "tp", "fsdp", "sp", "pp", "ep")
+    axes: Dict[str, int] = {}
+    for part in (p.strip() for p in s.split(",") if p.strip()):
+        if "=" not in part:
+            raise ValueError(
+                f"meshShape entry {part!r} is not 'axis=size' (got {s!r})")
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if name not in known:
+            raise ValueError(
+                f"unknown mesh axis {name!r} in meshShape {s!r}; "
+                f"known axes: {', '.join(known)}")
+        if name in axes:
+            raise ValueError(f"duplicate mesh axis {name!r} in {s!r}")
+        try:
+            axes[name] = int(size)
+        except ValueError:
+            raise ValueError(
+                f"mesh axis size {size!r} for {name!r} is not an integer")
+    if not axes:
+        raise ValueError(f"empty meshShape {s!r}")
+    return axes
+
+
+__all__ = ["Mesh", "as_mesh", "bound_mesh", "current_mesh", "default_mesh",
+           "make_mesh",
+           "mesh_axis_size", "parse_mesh_shape"]

@@ -24,10 +24,20 @@ card, ``"cpu"`` must be asked for. The estimator hands it to its
 
 The model's ``inferenceQuantize`` (``"weight_only"`` / ``"dynamic"``)
 serves int8 weights through ``predict_func`` (a TF1 graph dequantizes at the
-variable read, so it serves both as weight-only). Refused before any training
-with "not yet ported (see ROADMAP.md)": ``meshShape`` on either stage,
-non-default ``ppMicrobatches`` / ``ppSchedule`` / ``weightUpdateSharding``
-/ ``zeroStage``.
+variable read, so it serves both as weight-only).
+
+``meshShape`` on the estimator trains on a mesh of ranks (the JAX package's
+checks: ``sp`` needs ``fitMode="collect"``, a ``dp=1`` axis is added when
+``dp`` is absent): ``"dp=N"`` is synchronous data parallelism, with
+``weightUpdateSharding`` / ``zeroStage`` choosing the ZeRO stage, ``sp``
+sequence parallelism; the trainer launches the ranks (one card each, or
+sharing the card with gloo). Without ``meshShape`` the fit runs in this
+process on one card, however many the host has: only an explicit
+``meshShape`` launches ranks (the JAX estimator's ``default_mesh`` over every
+local card waits for ``fit_stream`` on a mesh, queue 1 item 7).
+Refused before any training with "not yet ported (see ROADMAP.md, queue 1
+item 7)": ``tp`` / ``fsdp`` / ``pp`` / ``ep`` axes, non-default
+``ppMicrobatches`` / ``ppSchedule``, and ``meshShape`` on the model stage.
 
 Also importable as :mod:`sparkflow_tpu_torch.tensorflow_async`.
 """
@@ -46,7 +56,6 @@ from .compat import (Estimator, HasInputCol, HasLabelCol, HasPredictionCol,
 from .localml.linalg import vector_to_array
 from .ml_util import (convert_weights_to_json, handle_features, predict_func,
                       save_weights_npz)
-from .optimizers import build_optimizer_from_json
 from .pipeline_util import PysparkReaderWriter
 from .trainer import Trainer
 
@@ -55,7 +64,7 @@ logger = logging.getLogger("sparkflow_tpu_torch")
 
 def _not_yet(what: str):
     raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
-                              f"ROADMAP.md)")
+                              f"ROADMAP.md, queue 1 item 7)")
 
 
 class _OnDevice:
@@ -317,6 +326,7 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
                          ppSchedule='gpipe', weightUpdateSharding='auto',
                          zeroStage=-1)
         self._loss_callback = None
+        self.last_mesh_stats = None
         self.setParams(**self._take_device(self._input_kwargs))
 
     @keyword_only
@@ -452,6 +462,21 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
             raise ValueError(
                 "extraInputCols (%d names) and extraTfInputs (%d names) must "
                 "pair up one-to-one" % (len(extra_cols), len(extra_inputs)))
+        mesh_axes = None
+        mesh_shape = self.getMeshShape()
+        if mesh_shape:
+            from .parallel.mesh import parse_mesh_shape
+            mesh_axes = parse_mesh_shape(mesh_shape)  # raises on bad syntax
+            if (("sp" in mesh_axes or "pp" in mesh_axes)
+                    and fit_mode == "stream"):
+                raise ValueError(
+                    "meshShape axes sp/pp need fitMode='collect': their "
+                    "fixed-shape batch schedules stage the whole dataset "
+                    "(the Trainer refuses pp/sp in fit_stream)")
+            if "dp" not in mesh_axes:
+                # rows shard over 'dp'; a size-1 axis keeps the other axes'
+                # meaning instead of a shapeless mesh
+                mesh_axes = {"dp": 1, **mesh_axes}
         sched = _opt_param(self, self.ppSchedule, "gpipe") or "gpipe"
         if sched not in ("gpipe", "1f1b", "sequential"):
             raise ValueError(
@@ -467,15 +492,14 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
         if zs not in (-1, 0, 1, 2, 3):
             raise ValueError(
                 "zeroStage must be -1 (unset) or 0-3; got %r" % zs)
-        if self.getMeshShape():
-            _not_yet("training on a device mesh (meshShape)")
+        for ax in (mesh_axes or {}):
+            if ax in ("tp", "fsdp", "pp", "ep"):
+                _not_yet(f"training on a mesh with a {ax!r} axis "
+                         f"(meshShape)")
         pp_mb = _opt_param(self, self.ppMicrobatches, -1)
         if (pp_mb is not None and pp_mb >= 1) or sched != "gpipe":
             _not_yet("pipeline-parallel training (ppMicrobatches, "
                      "ppSchedule)")
-        if wus != "auto" or zs != -1:
-            _not_yet("ZeRO weight-update sharding (weightUpdateSharding, "
-                     "zeroStage)")
         if self.getOrDefault(self.useEmaWeights):
             # fail BEFORE training, not after hours of fit: the EMA only
             # exists when the optimizer maintains it
@@ -501,7 +525,30 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
                 "port=%d has no effect: there is no parameter server to bind "
                 "a port for (weights never leave the device mesh)",
                 self.getPort())
-        return extra_cols, extra_inputs
+        return extra_cols, extra_inputs, mesh_axes
+
+    def _sharding_config(self):
+        """``zeroStage`` >= 0 mapped into a declarative
+        :class:`~sparkflow_tpu_torch.sharding.ShardingConfig`; ``-1`` (unset)
+        returns ``None`` so the legacy ``weightUpdateSharding`` knob keeps
+        driving the trainer's eligibility gate."""
+        stage = _opt_param(self, self.zeroStage, -1)
+        stage = -1 if stage is None else int(stage)
+        if stage < 0:
+            return None
+        from .sharding import as_sharding_config
+        return as_sharding_config({"zero_stage": stage})
+
+    def _mesh(self, mesh_axes):
+        """The fit's mesh: ``meshShape``'s axes (a ``-1`` axis takes the
+        local cards that are left), else ``None`` -- one card in this
+        process, whatever the host holds."""
+        if not mesh_axes:
+            return None
+        from .parallel.mesh import Mesh, make_mesh
+        if any(v == -1 for v in mesh_axes.values()):
+            return make_mesh(mesh_axes)
+        return Mesh(mesh_axes)
 
     def _fit(self, dataset):
         inp_col = self.getOrDefault(self.inputCol)
@@ -509,7 +556,7 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
         label_col = self.getOrDefault(self.labelCol)
         tf_label = self.getTfLabel()
         optimizer_options = self.getOptimizerOptions()
-        extra_cols, extra_inputs = self._validate_params()
+        extra_cols, extra_inputs, mesh_axes = self._validate_params()
 
         # DataFrame -> (features, label) pairs; partitions Param shapes the RDD
         # exactly as the reference does (tensorflow_async.py:290-291), and the
@@ -521,16 +568,20 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
         if rdd.getNumPartitions() > partitions:
             rdd = rdd.coalesce(partitions)
 
-        optimizer = build_optimizer_from_json(self.getTfOptimizer(),
-                                              self.getTfLearningRate(),
-                                              optimizer_options)
+        # by name, as the trainer's launched ranks rebuild it (the same
+        # transformation build_optimizer_from_json makes)
+        opts = (json.loads(optimizer_options)
+                if isinstance(optimizer_options, str) and optimizer_options
+                else optimizer_options or None)
         input_spec = ([self.getTfInput()] + extra_inputs if extra_inputs
                       else self.getTfInput())
         trainer = Trainer(
             graph_json,
             input_spec,
             tf_label,
-            optimizer=optimizer,
+            optimizer=self.getTfOptimizer(),
+            learning_rate=self.getTfLearningRate(),
+            optimizer_options=opts,
             iters=self.getIters(),
             mini_batch_size=self.getMiniBatchSize(),
             mini_stochastic_iters=self.getMiniStochasticIters(),
@@ -542,6 +593,10 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
             acquire_lock=self.getAcquireLock(),
             checkpoint_dir=self.getOrDefault(self.checkpointDir),
             checkpoint_every=self.getOrDefault(self.checkpointEvery) or 0,
+            mesh=self._mesh(mesh_axes),
+            weight_update_sharding=(_opt_param(self, self.weightUpdateSharding,
+                                               "auto") or "auto"),
+            sharding=self._sharding_config(),
             device=self._device,
         )
         if (self.getFitMode() or "collect").lower() == "stream":
@@ -562,6 +617,9 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
             features, labels = handle_features(
                 items, is_supervised=label_col is not None)
             trainer.fit(features, labels)
+        # a mesh fit's accounting (backend, bytes moved, per-rank memory and
+        # kernel launches); None off a mesh
+        self.last_mesh_stats = trainer.last_mesh_stats
         final_weights = trainer.weights_list()
         if self.getOrDefault(self.useEmaWeights):
             ema = trainer.ema_weights()

@@ -48,9 +48,33 @@ its push and membership accounting. As in the JAX package it takes
 single-input models only, ignores ``checkpoint_dir`` (with a warning) and
 needs ``replicas >= 1``.
 
-Not ported yet, and rejected with "not yet ported (see ROADMAP.md)": a
-device mesh (``mesh``, ``sharding``, ``param_sharding`` other than
-``"auto"``, ``pp_*``, ``weight_update_sharding``). ``debug_recompiles`` has
+Synchronous mesh training (``mesh=``, a :class:`~.parallel.mesh.Mesh` or
+a dict of axis sizes; ``sharding=`` / ``weight_update_sharding=``): each
+rank of a ``torch.distributed`` process group runs the unchanged model on
+its shard, collectives do the rest (:mod:`.parallel`). A mesh of ``dp``
+(and ``sharding.dcn_axis``) axes trains through
+:func:`~.parallel.dp.make_dp_train_step` at the resolved zero stage (0-3,
+the JAX trainer's ``_resolve_zero_stage`` rule; stage 0 too, where JAX
+uses its GSPMD program — the same semantics); a mesh with an ``sp`` axis
+trains a ``transformer_lm`` through :func:`~.parallel.sp.make_sp_train_step`
+(ring attention). Called inside an initialised process group the fit runs
+in place on this rank (SPMD, JAX's multi-host form); called outside one it
+launches ``mesh.size`` local ranks (:mod:`.parallel.distributed`), each
+rebuilding the model from the spec and the seed, and returns rank 0's
+result — ``loss_callback`` and ``verbose`` are then replayed here per epoch
+after the fit, and ``last_mesh_stats`` holds every rank's accounting (the
+backend, bytes moved, peak memory, kernel launches). Shuffles are the same
+on every rank; dropout draws from a generator per rank and step seeded
+from the fit's dropout stream folded with the rank's mesh indices.
+Parameters come back, and checkpoints are written, in the standard layout
+at every stage, so a fit saved at one stage resumes at any other; a rank
+whose step or collective fails fails the fit (no in-fit resume on a mesh).
+
+Not ported yet, and rejected with "not yet ported (see ROADMAP.md, queue 1
+item 7)": ``tp`` / ``fsdp`` / ``ep`` / ``pp`` mesh axes (and the same in
+``sharding``), explicit ``param_sharding`` / ``param_axes`` pytrees,
+``offload_opt_state``, ``pp_*``, ``fit_stream`` and ``predict_fn`` on a
+mesh. ``debug_recompiles`` has
 no counterpart: PyTorch runs eagerly, so there are no traces or compiles to
 count. ``graph`` is a registry spec, an ``nn`` graph-DSL spec, a TF1
 ``MetaGraphDef`` JSON (the reference's wire format), a
@@ -65,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import logging
+import math
 import os
 import tempfile
 import time
@@ -80,7 +105,8 @@ from .graphdef import GraphDef, GraphModel
 from .models.base import RegistryModel
 from .tf1_compat import TF1GraphModel
 from .optimizers import (GradientTransformation, build_optimizer,
-                         extract_ema_params, tree_map)
+                         extract_ema_params, tree_leaves, tree_map)
+from .sharding import ShardingConfig, as_sharding_config
 from .utils.metrics import default_metrics
 from .utils.preempt import NullGuard, PreemptionGuard
 
@@ -93,12 +119,94 @@ RNG_IMPL = "torch"
 
 def _not_yet(what: str):
     raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
-                              f"ROADMAP.md)")
+                              f"ROADMAP.md, queue 1 item 7)")
+
+
+#: mesh axes whose strategies are not yet ported (tensor, fsdp, expert and
+#: pipeline parallelism)
+_UNPORTED_AXES = {"tp": "tensor parallelism", "fsdp": "fsdp parameter "
+                  "sharding", "ep": "expert parallelism",
+                  "pp": "pipeline parallelism"}
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _in_group() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _launch_counts() -> Dict[str, int]:
+    from .ops import launch_counts
+    return launch_counts()
+
+
+def _draw_seed(gen: torch.Generator) -> int:
+    """A step's dropout seed from the fit's dropout stream (the same draw
+    on every rank of a mesh)."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                             device=gen.device))
+
+
+class _EpochTimer:
+    """Per-epoch milliseconds of a mesh fit: CUDA events on the card (read
+    once at the end), the host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self._spans: list = []
+
+    def start(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._spans.append([ev, None])
+        else:
+            self._spans.append([time.perf_counter(), None])
+
+    def stop(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._spans[-1][1] = ev
+        else:
+            self._spans[-1][1] = time.perf_counter()
+
+    def ms(self) -> List[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self._spans]
+        return [(b - a) * 1e3 for a, b in self._spans]
+
+
+def _mesh_fit_rank(recipe: Dict[str, Any], features, labels, init_params,
+                   trace: bool) -> Dict[str, Any]:
+    """One launched rank of a mesh fit: rebuild the trainer from
+    ``recipe`` on this rank's device and fit in place. Rank 0 returns the
+    standard-layout params (numpy); every rank returns its accounting."""
+    import torch.distributed as dist
+    from .parallel.distributed import rank_device
+    kw = dict(recipe)
+    rank = dist.get_rank()
+    device = rank_device(rank, "cpu" if kw.pop("device_kind") == "cpu"
+                         else "cuda")
+    tr = Trainer(kw.pop("graph"), kw.pop("input_name"), kw.pop("label_name"),
+                 device=device, **kw)
+    result = tr.fit(features, labels, init_params, trace_spans=trace)
+    out = {"mesh_stats": tr.last_mesh_stats, "losses": result.losses,
+           "epochs": tr._epoch_keys,
+           "examples_per_sec": result.examples_per_sec,
+           "stop_reason": result.stop_reason, "zero_stage": tr._zero_stage}
+    if rank == 0:
+        to_np = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+        ema = tr.ema_weights() if tr._zero_stage == 0 else None
+        out.update(params=tree_map(to_np, result.params),
+                   ema=tree_map(to_np, ema) if ema is not None else None,
+                   step_stats=tr.last_step_stats)
+    return out
 
 
 def _state_to_ckpt(leaf):
@@ -207,14 +315,47 @@ class Trainer:
                  strategy: Optional[str] = None,
                  elastic: Optional[Dict[str, Any]] = None,
                  sharding=None,
-                 device=None):
-        if mesh is not None or sharding is not None:
-            _not_yet("training on a device mesh (mesh=, sharding=)")
-        if param_sharding != "auto" or weight_update_sharding != "auto":
-            _not_yet("sharded parameters and ZeRO weight-update sharding")
+                 device=None,
+                 backend: Optional[str] = None):
+        from .parallel.mesh import as_mesh
+        self.mesh = as_mesh(mesh)
+        for ax in (self.mesh.axis_names if self.mesh is not None else ()):
+            if ax in _UNPORTED_AXES:
+                _not_yet(f"{_UNPORTED_AXES[ax]} (mesh axis {ax!r})")
+        if param_sharding not in ("auto", None):
+            _not_yet("explicit param_sharding pytrees (tensor / fsdp "
+                     "placement)")
         if pp_microbatches is not None or pp_schedule != "gpipe":
             _not_yet("pipeline-parallel training (pp_microbatches, "
                      "pp_schedule)")
+        if weight_update_sharding not in ("auto", "on", "off"):
+            raise ValueError(
+                f"weight_update_sharding must be 'auto', 'on', or 'off'; "
+                f"got {weight_update_sharding!r}")
+        self.weight_update_sharding = weight_update_sharding
+        # the declarative config supersedes the legacy knob when given: its
+        # zero_stage is an explicit request (ineligible fits raise)
+        self.sharding = (as_sharding_config(sharding)
+                         if sharding is not None else None)
+        if self.sharding is not None:
+            if self.sharding.model_parallel():
+                _not_yet("model-parallel sharding axes (tp_axis, ep_axis, "
+                         "pp_axis)")
+            if self.sharding.param_axes not in ("auto", None):
+                _not_yet("explicit ShardingConfig.param_axes pytrees")
+            if self.sharding.offload_opt_state:
+                _not_yet("offload_opt_state (optimizer state homed in "
+                         "pinned host memory)")
+        # a mesh fit's collective backend: None picks by the rule of
+        # parallel.distributed.choose_backend; an explicit one that cannot
+        # be honoured raises
+        self.backend = backend
+        self._zero_stage = 0          # resolved per fit: 0..3
+        self._zero1_active = False
+        self._zero3_template = None   # standard param shapes, stage-3 fits
+        self.last_mesh_stats: Optional[Dict[str, Any]] = None
+        self._launch_ema = None
+        self._launched_step_stats = None
         # training strategy: None/'sync' is the synchronous loop below;
         # 'elastic_dp' routes fit() through parallel.elastic — bounded-
         # staleness async replicas over a versioned parameter store (the
@@ -267,8 +408,33 @@ class Trainer:
         if isinstance(optimizer, str):
             self.optimizer = build_optimizer(optimizer, learning_rate,
                                              optimizer_options)
+            self._opt_cfg = dict(optimizer_options or {})
         else:
             self.optimizer = optimizer
+            # an optimizer object: optimizer_options passed alongside (as
+            # the estimator does) still inform the zero 'auto' gate
+            self._opt_cfg = (dict(optimizer_options) if optimizer_options
+                             else None)
+        # what a launched rank rebuilds this trainer from (a mesh fit
+        # outside a process group): picklable arguments only; None where
+        # the caller gave an object a rank cannot rebuild
+        self._recipe = dict(
+            graph=graph if isinstance(graph, (str, GraphDef)) else None,
+            input_name=input_name, label_name=label_name,
+            optimizer=optimizer if isinstance(optimizer, str) else None,
+            learning_rate=learning_rate, optimizer_options=optimizer_options,
+            iters=iters, mini_batch_size=mini_batch_size,
+            mini_stochastic_iters=mini_stochastic_iters,
+            shuffle_per_iter=shuffle_per_iter,
+            partition_shuffles=partition_shuffles, verbose=verbose,
+            dropout_name=dropout_name, seed=seed,
+            compute_dtype=compute_dtype, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, publish_every=publish_every,
+            straggler_factor=straggler_factor, halt_on_nan=halt_on_nan,
+            param_sharding=param_sharding,
+            weight_update_sharding=weight_update_sharding,
+            sharding=sharding, backend=backend,
+            mesh=dict(self.mesh.shape) if self.mesh is not None else None)
         self.iters = iters
         self.mini_batch_size = mini_batch_size
         self.mini_stochastic_iters = mini_stochastic_iters
@@ -295,6 +461,8 @@ class Trainer:
             from .serving.weightstore import WeightStore
             publish_to = WeightStore(publish_to)
         self._publish_store = publish_to
+        self._recipe["publish_to"] = (publish_to.directory
+                                      if publish_to is not None else None)
         self.params = None
         self._last_opt_state = None
         # span tracing: fit(trace_spans=...) fills these per run — the
@@ -310,8 +478,9 @@ class Trainer:
 
     def _plan(self, n: int):
         """Resolve (mode, batch_size, num_batches) from the reference's three
-        batching modes — the JAX trainer's rule on one device."""
-        dp = 1
+        batching modes — the JAX trainer's rule; on a mesh the batch rounds
+        up to a multiple of the ranks its rows divide over."""
+        dp = self._batch_ranks()
         bs = self.mini_batch_size
         stochastic = bool(self.mini_stochastic_iters
                           and self.mini_stochastic_iters > 0)
@@ -462,7 +631,10 @@ class Trainer:
         finally:
             self._tracer = None
             self._step_stats = None
-        self.last_step_stats = stats._summary
+        # a launched mesh fit traced its ranks: rank 0's summary
+        self.last_step_stats = (self._launched_step_stats
+                                or stats._summary)
+        self._launched_step_stats = None
         if isinstance(trace_spans, str):
             path = trace_spans
         else:
@@ -473,6 +645,369 @@ class Trainer:
         tracer.export_jsonl(
             (path[:-5] if path.endswith(".json") else path) + ".jsonl")
         return result
+
+    # -- mesh strategies (dp with ZeRO stages, sp) ---------------------------
+
+    def _chief(self) -> bool:
+        """Whether this process writes checkpoints and publishes: always off
+        a mesh, rank 0 on one."""
+        if self.mesh is None or not _in_group():
+            return True
+        import torch.distributed as dist
+        return dist.get_rank() == 0
+
+    def _mesh_strategy(self) -> str:
+        axes = self.mesh.axis_names
+        if "sp" in axes:
+            bad = [a for a in axes if a not in ("sp", "dp")]
+            if bad:
+                raise ValueError(
+                    f"'sp' composes with 'dp' only; mesh also has {bad}")
+            return "sp"
+        return "default"
+
+    def _strategy_task(self, strategy: str) -> str:
+        """Validate the model/mesh/label combination for an sp fit and
+        return the step's task (the JAX trainer's rules)."""
+        n_inputs = (len(self.input_name)
+                    if isinstance(self.input_name, (list, tuple)) else 1)
+        if n_inputs > 2:
+            raise ValueError(
+                f"{strategy} fits take at most (input_ids, attention_mask); "
+                f"got {n_inputs} input tensors")
+        from .models.transformer import TransformerLM
+        if not isinstance(self.model, TransformerLM):
+            raise ValueError(
+                f"meshShape with an 'sp' axis trains causal LM registry "
+                f"models (ring attention over the sequence); "
+                f"{type(self.model).__name__} is not a TransformerLM family "
+                f"model")
+        if self.label_name is not None:
+            raise ValueError(
+                "'sp' fits are unsupervised next-token training "
+                "(tfLabel/label_name must be None)")
+        return "lm"
+
+    def _data_axis(self) -> str:
+        return (self.sharding.data_axis if self.sharding is not None
+                else "dp")
+
+    def _dp_size(self) -> int:
+        from .parallel.mesh import mesh_axis_size
+        return mesh_axis_size(self.mesh, self._data_axis())
+
+    def _batch_axes(self) -> tuple:
+        """The mesh axes a batch's rows shard over: the config's (dcn, dp)
+        on the default strategy, ``dp`` under sp."""
+        if self.mesh is None:
+            return ()
+        if self._mesh_strategy() == "sp":
+            return tuple(a for a in ("dp",) if a in self.mesh.axis_names)
+        return (self.sharding or ShardingConfig()).batch_axes(self.mesh)
+
+    def _active_cfg(self):
+        """The ShardingConfig in effect for the current fit, its
+        ``zero_stage`` the one :meth:`_resolve_zero_stage` decided."""
+        base = (self.sharding if self.sharding is not None
+                else ShardingConfig())
+        return base.replace(zero_stage=self._zero_stage)
+
+    def _resolve_zero_stage(self, strategy: str, params) -> int:
+        """Decide how much of the weight update shards over dp (stage 0-3) —
+        the JAX trainer's rule. Eligible: the default (pure-dp) strategy and
+        dp >= 2. ``weight_update_sharding`` maps 'off' -> 0 and 'on' /
+        'auto' -> 1; 'auto' also needs per-param optimizer state and no
+        ``clip_norm`` / ``ema_decay``. An explicit
+        ``sharding=ShardingConfig(zero_stage=N)`` is a REQUEST: an
+        ineligible fit raises instead of falling back. ``params`` None
+        only checks."""
+        cfg_opts = self._opt_cfg or {}
+        blocked = [k for k in ("clip_norm", "ema_decay") if cfg_opts.get(k)]
+        eligible = (strategy == "default" and self.mesh is not None
+                    and self._data_axis() in self.mesh.axis_names
+                    and self._dp_size() >= 2)
+        if self.sharding is not None:
+            stage = self.sharding.zero_stage
+            if stage == 0:
+                return 0
+            if self.mesh is None:
+                raise ValueError(
+                    f"sharding.zero_stage={stage} shards the update over "
+                    f"mesh axis {self.sharding.data_axis!r} but the trainer "
+                    f"has no mesh; pass mesh=make_mesh({{'"
+                    f"{self.sharding.data_axis}': N}}) or use zero_stage=0")
+            self.sharding.validate(self.mesh, require_data_axis=True)
+            if not eligible:
+                raise ValueError(
+                    f"sharding.zero_stage={stage} needs a pure-dp fit with "
+                    f"replicated params and {self.sharding.data_axis} >= 2 "
+                    f"(got strategy={strategy!r}, sharded-params=False, "
+                    f"{self.sharding.data_axis}={self._dp_size()}); use "
+                    f"zero_stage=0 or a {self.sharding.data_axis}-axis mesh")
+            if blocked:
+                raise ValueError(
+                    f"sharding.zero_stage={stage} is incompatible with "
+                    f"optimizer options {blocked}: the shard-local update "
+                    f"would break their global-layout math (clip_norm "
+                    f"measures a global norm; ema extraction expects the "
+                    f"standard layout)")
+            return stage
+        mode = self.weight_update_sharding
+        if mode == "off":
+            return 0
+        if mode == "on":
+            if not eligible:
+                if params is not None:
+                    logger.warning(
+                        "weight_update_sharding='on' needs a pure-dp fit on "
+                        "a mesh with dp >= 2 (got strategy=%r, "
+                        "sharded-params=False, dp=%d); training with the "
+                        "replicated update", strategy, self._dp_size())
+                return 0
+            if blocked:
+                if params is not None:
+                    logger.warning(
+                        "weight_update_sharding='on' is incompatible with %s "
+                        "(shard-local update would break their global-layout "
+                        "math); training with the replicated update", blocked)
+                return 0
+            return 1
+        if not eligible or blocked or params is None:
+            return 0
+        from .optimizers_sharded import has_per_param_state
+        return 1 if has_per_param_state(self.optimizer, params) else 0
+
+    def _trim_for_strategy(self, strategy, features, labels, n, multi):
+        """Trim the dataset to whole batches for a strategy without
+        padded-row masking (the JAX trainer's rule and warning)."""
+        dp = self._batch_ranks()
+        bs = self.mini_batch_size
+        stoch = bool(self.mini_stochastic_iters
+                     and self.mini_stochastic_iters > 0)
+        if bs is None or bs <= 0 or bs >= n or stoch:
+            unit = dp
+        else:
+            unit = -(-bs // dp) * dp  # the planned sweep batch
+        n_use = (n // unit) * unit
+        if n_use == 0:
+            raise ValueError(f"dataset of {n} rows is smaller than one "
+                             f"{strategy} batch ({unit} rows)")
+        if n_use != n:
+            logger.warning(
+                "%s fit drops the %d-row remainder (pp/sp steps carry no "
+                "padded-row masking); a miniBatchSize dividing %d trains on "
+                "every row", strategy, n - n_use, n)
+            features = (tuple(f[:n_use] for f in features) if multi
+                        else features[:n_use])
+            if labels is not None:
+                labels = labels[:n_use]
+        return features, labels, n_use
+
+    def _batch_ranks(self) -> int:
+        """Ranks one batch's rows divide over."""
+        if self.mesh is None:
+            return 1
+        out = 1
+        for a in self._batch_axes():
+            out *= self.mesh.shape[a]
+        return out
+
+    def _mesh_step(self, strategy: str, task: str, batch: int):
+        """``(step_fn, rows)`` for the epoch loop on a mesh: the per-rank
+        step (dp at the resolved zero stage, or sp), fed this rank's block
+        of every batch, ``rows = (index, count)`` over the batch axes, and
+        a seed per step drawn from the fit's dropout stream (the same on
+        every rank; the step folds in the rank's mesh indices)."""
+        from .parallel.collectives import axis_index
+        mesh = self.mesh
+        axes = self._batch_axes()
+        count = self._batch_ranks()
+        if batch % count:
+            raise ValueError(
+                f"mini_batch_size={batch} must divide over the batch axes "
+                f"{axes} ({count} ranks) for a mesh fit")
+        rows = (axis_index(axes) if axes else 0, count)
+        if strategy == "default":
+            if self._data_axis() not in mesh.axis_names:
+                raise ValueError(
+                    f"a data-parallel mesh fit shards rows over mesh axis "
+                    f"{self._data_axis()!r}; the mesh has axes "
+                    f"{list(mesh.axis_names)}")
+            from .parallel.dp import make_dp_train_step
+            raw = make_dp_train_step(self.model, self.optimizer, mesh,
+                                     self.input_name, self.label_name,
+                                     sharding=self._active_cfg(),
+                                     param_template=self._zero3_template)
+
+            def step_fn(p, o, x, y, m, gen):
+                return raw(p, o, x, y, m, _draw_seed(gen))
+
+            return step_fn, rows
+        from .parallel.sp import make_sp_train_step
+        sp = mesh.shape["sp"]
+        j = axis_index("sp")
+        raw = make_sp_train_step(self.model, self.optimizer, mesh)
+
+        def step_fn(p, o, x, y, m, gen):
+            ids = x[0] if isinstance(x, tuple) else x
+            amask = x[1] if isinstance(x, tuple) else y  # y carries ones
+            s = ids.shape[1]
+            if s % sp:
+                raise ValueError(
+                    f"sequence length {s} must divide the sp axis (size "
+                    f"{sp}) for ring attention")
+            cols = slice(j * (s // sp), (j + 1) * (s // sp))
+            return raw(p, o, ids[:, cols], amask[:, cols], _draw_seed(gen))
+
+        return step_fn, rows
+
+    def _stop_requested(self, guard) -> bool:
+        """The preemption flag; on a mesh, raised on any rank stops every
+        rank at the same epoch (one small all-reduce an epoch, only when
+        the fit checkpoints)."""
+        if self.mesh is None or isinstance(guard, NullGuard):
+            return guard.requested
+        from .parallel import collectives
+        flag = torch.tensor([float(guard.requested)], device=self.device)
+        return bool(collectives.psum({"f": flag},
+                                     self.mesh.axis_names)["f"].item() > 0)
+
+    # -- layouts: the standard (checkpoint) form and the rank's form --------
+
+    def _params_to_ckpt(self, params):
+        """Standard-layout params (stage 3 gathers every rank's rows: a
+        collective)."""
+        if self._zero_stage < 3:
+            return params
+        from .optimizers_sharded import gather_rows, gather_zero3_params
+        rows = gather_rows(tree_map(lambda p: p.detach(), params),
+                           self._dp_size(), self._data_axis())
+        return gather_zero3_params(rows, self._zero3_template)
+
+    def _params_from_ckpt(self, params):
+        """Standard params -> this rank's stage-3 rows (trainable), the
+        standard tensors' storage released."""
+        if self._zero_stage < 3:
+            return params
+        from .optimizers_sharded import place_zero1_state, shard_zero3_params
+        dp_n = self._dp_size()
+        rows = place_zero1_state(
+            shard_zero3_params(tree_map(lambda p: p.detach(), params), dp_n),
+            self.mesh, dp_n, self._data_axis())
+        for p in tree_leaves(params):
+            # params at rest are the rows now: free the full copy
+            p.data = p.data.new_empty(0)
+        return tree_map(lambda r: r.requires_grad_(True), rows)
+
+    def _opt_to_ckpt(self, params, opt_state):
+        """The standard (param-shaped) optimizer state: a zero fit gathers
+        every rank's rows (a collective). ``params`` standard layout."""
+        if not self._zero1_active:
+            return opt_state
+        from .optimizers_sharded import gather_rows, gather_zero1_state
+        dp_n = self._dp_size()
+        return gather_zero1_state(
+            self.optimizer, params,
+            gather_rows(opt_state, dp_n, self._data_axis()), dp_n)
+
+    def _opt_from_ckpt(self, params, opt_state):
+        """Standard state -> this rank's rows, re-padded for THIS mesh's dp
+        size (which may differ from the writing run's)."""
+        if not self._zero1_active:
+            return opt_state
+        from .optimizers_sharded import place_zero1_state, shard_zero1_state
+        dp_n = self._dp_size()
+        return place_zero1_state(
+            shard_zero1_state(self.optimizer, params, opt_state, dp_n),
+            self.mesh, dp_n, self._data_axis())
+
+    def _rank_stats(self, strategy, opt_state, params, steps, timer,
+                    launches0) -> Dict[str, Any]:
+        """This rank's accounting of a mesh fit (``last_mesh_stats``)."""
+        import torch.distributed as dist
+        from .optimizers_sharded import state_bytes_per_device
+        from .parallel import collectives
+        from .parallel.distributed import current_backend
+        rank = dist.get_rank()
+        moved = collectives.stats()
+        ops = ("all_reduce", "reduce_scatter", "all_gather", "ppermute")
+        per_step = max(1, steps)
+        now = _launch_counts()
+        dev = self.device
+        me = {
+            "rank": rank, "coords": self.mesh.coords(rank),
+            "device": str(dev), "steps": steps,
+            "bytes_moved": {k: moved.get(k, 0) for k in ops},
+            "bytes_moved_per_step": sum(moved.get(k, 0)
+                                        for k in ops) / per_step,
+            "host_staged_bytes": moved.get("host_staged", 0),
+            "collective_calls": moved.get("calls", 0),
+            "opt_state_bytes": state_bytes_per_device(opt_state),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in tree_leaves(params)),
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            "epoch_ms": timer.ms() if timer is not None else [],
+            "kernel_launches": {k: now[k] - launches0.get(k, 0)
+                                for k in now}}
+        return {"backend": current_backend(), "mesh": dict(self.mesh.shape),
+                "strategy": strategy, "zero_stage": self._zero_stage,
+                "world": self.mesh.size, "launched": False, "ranks": [me]}
+
+    def _fit_launched(self, features, labels, init_params) -> TrainResult:
+        """A mesh fit outside a process group: start ``mesh.size`` local
+        ranks, fit in place on each, and take rank 0's result."""
+        from .parallel.distributed import RankPool
+        recipe = dict(self._recipe, verbose=0, device_kind=self.device.type)
+        if recipe["graph"] is None:
+            raise ValueError(
+                "a mesh fit outside a process group launches its ranks, and "
+                "each rebuilds the model from its spec: pass graph as the "
+                "spec JSON string (or a GraphDef), not a model object — or "
+                "run the fit inside an initialised group (torchrun)")
+        if recipe["optimizer"] is None:
+            raise ValueError(
+                "a mesh fit outside a process group launches its ranks, and "
+                "each rebuilds the optimizer: pass it by name (optimizer=, "
+                "learning_rate=, optimizer_options=) — or run the fit "
+                "inside an initialised group (torchrun)")
+        if init_params is not None:
+            init_params = tree_map(lambda a: (a.detach().cpu().numpy()
+                                              if torch.is_tensor(a)
+                                              else np.asarray(a)),
+                                   init_params)
+        trace = self._step_stats is not None
+        # a fit may run for as long as it needs: the wait is unbounded, and
+        # a hang still ends it, since every rank's collectives time out
+        # after mesh_timeout_s() and a rank that fails or dies stops the pool
+        t0 = time.perf_counter()
+        with RankPool(self.mesh.size, device=self.device.type,
+                      backend=self.backend) as pool:
+            results = pool.run(_mesh_fit_rank, recipe, features, labels,
+                               init_params, trace, timeout_s=math.inf)
+        wall = time.perf_counter() - t0
+        r0 = results[0]
+        self.params = tree_map(lambda p: p.detach(), self.model.load_params(
+            tree_map(lambda a: torch.as_tensor(a).to(self.device),
+                     r0["params"])))
+        self._zero_stage = r0["zero_stage"]
+        self._zero1_active = self._zero_stage >= 1
+        self._last_opt_state = None
+        self._launch_ema = (tree_map(lambda a: torch.as_tensor(a).to(
+            self.device), r0["ema"]) if r0["ema"] is not None else None)
+        self._launched_step_stats = r0["step_stats"]
+        stats = dict(r0["mesh_stats"], launched=True,
+                     ranks=[r["mesh_stats"]["ranks"][0] for r in results])
+        self.last_mesh_stats = stats
+        for it, loss_val in zip(r0["epochs"], r0["losses"]):
+            # the ranks ran without callbacks: replay them per epoch
+            if self.verbose:
+                logger.info("iteration %d loss %f", it, loss_val)
+            self.metrics.scalar("train/loss", loss_val, step=it)
+            if self.loss_callback is not None:
+                self.loss_callback(loss_val, it, 0)
+        return TrainResult(self.params, r0["losses"], r0["examples_per_sec"],
+                           wall, stop_reason=r0["stop_reason"])
 
     def _fit_impl(self, features, labels, init_params) -> TrainResult:
         multi = isinstance(features, tuple)
@@ -501,8 +1036,32 @@ class Trainer:
         if self.strategy == "elastic_dp":
             return self._fit_elastic(features, labels, init_params, multi)
 
+        mesh = self.mesh
+        strategy, task = "default", None
+        if mesh is not None:
+            strategy = self._mesh_strategy()
+            task = (self._strategy_task(strategy) if strategy != "default"
+                    else None)
+            # the zero-stage errors a fit raises, before any rank starts
+            self._resolve_zero_stage(strategy, None)
+            if not _in_group():
+                return self._fit_launched(features, labels, init_params)
+        if strategy != "default":
+            # sp steps have no padded-row masking: every batch must be
+            # all-real rows, so the dataset is trimmed to whole batches
+            features, labels, n = self._trim_for_strategy(
+                strategy, features, labels, n, multi)
+
         mode, batch, num_batches = self._plan(n)
+        if strategy != "default" and batch > n:
+            raise ValueError(
+                f"mini_batch_size rounds to {batch} rows (> dataset {n}); "
+                f"{strategy} fits cannot pad batches — lower miniBatchSize")
         total = -(-n // batch) * batch
+        if strategy != "default" and mode != "stochastic" and total != n:
+            raise RuntimeError(
+                f"{strategy} fit planned {total} padded rows over {n} real "
+                f"ones — internal trim/_plan divergence, please report")
         if multi:
             padded = [pad_to_batches(f, batch, total // batch)
                       for f in features]
@@ -511,20 +1070,78 @@ class Trainer:
             x_pad, mask = pad_to_batches(features, batch, total // batch)
         if labels is not None:
             y_pad, _ = pad_to_batches(labels, batch, total // batch)
+        elif task == "lm" and not multi:
+            # unsupervised sp fits consume the label slot as the attention
+            # mask (token loss weights); single-input: every token weighs 1
+            y_pad = np.ones((total, features.shape[1]), np.float32)
         else:
             y_pad = np.zeros((total, 1), np.float32)  # dummy; loss ignores it
 
+        with (mesh.bind() if mesh is not None else contextlib.nullcontext()):
+            return self._fit_loop(multi, n, mode, batch, num_batches, x_pad,
+                                  y_pad, mask, init_params, strategy, task)
+
+    def _fit_loop(self, multi, n, mode, batch, num_batches, x_pad, y_pad,
+                  mask, init_params, strategy, task) -> TrainResult:
+        mesh = self.mesh
+        chief = self._chief()
+        dev = self.device
         params = self._initial_params(init_params)
-        opt_state = self.optimizer.init(params)
+        if mesh is not None:
+            from .parallel import collectives
+            collectives.reset_stats()
+            launches0 = _launch_counts()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+        self._zero_stage = self._resolve_zero_stage(strategy, params)
+        self._zero1_active = self._zero_stage >= 1
+        self._zero3_template = None
+        with torch.no_grad():
+            if self._zero1_active:
+                # the global zero state (init over the flat [dp, s] view),
+                # of which this rank keeps its row
+                from .optimizers_sharded import (place_zero1_state,
+                                                 sharded_update)
+                dp_n, dp_ax = self._dp_size(), self._data_axis()
+                opt_state = place_zero1_state(
+                    sharded_update(self.optimizer, dp_n, dp_ax).init(params),
+                    mesh, dp_n, dp_ax)
+            else:
+                opt_state = self.optimizer.init(params)
+            if self._zero_stage >= 3:
+                self._zero3_template = tree_map(
+                    lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)
+                params = self._params_from_ckpt(params)
         gens = self._generators()
-        ckpt_mgr, ckpt_like, restored = self._open_checkpoints(
-            params, opt_state, gens)
+
+        def std_state():
+            """(params, opt_state) in the standard layout (collective on a
+            zero mesh: every rank calls it)."""
+            std_p = self._params_to_ckpt(params)
+            return std_p, self._opt_to_ckpt(std_p, opt_state)
+
+        def save(at):
+            std_p, std_o = std_state()
+            if chief:
+                ckpt_mgr.save(at, self._ckpt_state(std_p, std_o, at, gens))
+            if mesh is not None:
+                # no rank reads the directory before the save is committed
+                from .parallel.collectives import barrier
+                barrier()
+
+        ckpt_mgr, ckpt_like, restored = (
+            self._open_checkpoints(*std_state(), gens)
+            if self.checkpoint_dir else (None, None, None))
         start_epoch = 0
         if restored is not None:
             params, opt_state, start_epoch = restored
+            if mesh is not None:
+                with torch.no_grad():
+                    opt_state = self._opt_from_ckpt(params, opt_state)
+                    params = self._params_from_ckpt(params)
             logger.info("resumed from checkpoint at epoch %d", start_epoch)
 
-        dev = self.device
         to_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         stats = self._step_stats  # set by fit(trace_spans=...), else None
         if stats is not None:
@@ -540,19 +1157,27 @@ class Trainer:
                 _sync(dev)  # the copies are charged here, not to a step
         shuffle_gen, dropout_gen = gens
         loss_fn = make_loss_fn(self.model, self.input_name, self.label_name)
+        step_fn, rows = None, None
+        if mesh is not None:
+            step_fn, rows = self._mesh_step(strategy, task, batch)
         epoch_fn = make_epoch_fn(loss_fn, self.optimizer, batch, num_batches,
-                                 mode, self.shuffle_per_iter, n_real=n)
+                                 mode, self.shuffle_per_iter, n_real=n,
+                                 step_fn=step_fn, rows=rows)
         per_epoch = num_batches * batch if mode == "stochastic" else n
         if stats is not None:
             stats.examples_per_step = per_epoch
 
         loss_by_it: Dict[int, torch.Tensor] = {}  # device scalars
         epoch_secs: List[float] = []
+        timer = _EpochTimer(dev) if mesh is not None else None
         t0 = time.perf_counter()
         it = 0
         ran = 0
         total_epochs = self.partition_shuffles * self.iters
-        retries_left = self.resume_retries if ckpt_mgr is not None else 0
+        # a mesh rank that fails fails the fit: its peers cannot resume
+        # alone, so there is no in-fit restore there
+        retries_left = (self.resume_retries
+                        if ckpt_mgr is not None and mesh is None else 0)
         guard = PreemptionGuard() if ckpt_mgr is not None else NullGuard()
         preempted = False
         nan_halted = False
@@ -562,14 +1187,13 @@ class Trainer:
                     it = 0
                     for _round in range(self.partition_shuffles):
                         for _epoch in range(self.iters):
-                            if guard.requested:
+                            if self._stop_requested(guard):
                                 # preemption (SIGTERM): save and stop; the
                                 # next fit on this checkpoint_dir resumes
                                 # here. During the resume skip `it` is behind
                                 # the restored state: never label below it
                                 at = max(it, start_epoch)
-                                ckpt_mgr.save(at, self._ckpt_state(
-                                    params, opt_state, at, gens))
+                                save(at)
                                 logger.warning("preempted: checkpoint saved "
                                                "at epoch %d", at)
                                 preempted = True
@@ -581,6 +1205,8 @@ class Trainer:
                                 # them, so the stream continues exactly
                                 continue
                             te = time.perf_counter()
+                            if timer is not None:
+                                timer.start()
                             if stats is None:
                                 params, opt_state, losses = epoch_fn(
                                     params, opt_state, data, y_dev, mask_dev,
@@ -599,6 +1225,8 @@ class Trainer:
                                     "train/step", ts0, ts1,
                                     parent=self._tracer.current(),
                                     args={"epoch": it})
+                            if timer is not None:
+                                timer.stop()
                             loss_by_it[it] = losses.mean()
                             ran += 1
                             with (stats.phase("metrics") if stats is not None
@@ -635,13 +1263,14 @@ class Trainer:
                                 with (stats.phase("checkpoint")
                                       if stats is not None
                                       else contextlib.nullcontext()):
-                                    ckpt_mgr.save(it, self._ckpt_state(
-                                        params, opt_state, it, gens))
+                                    save(it)
                             if (self._publish_store is not None
                                     and self.publish_every > 0
                                     and (it % self.publish_every == 0
                                          or it == total_epochs)):
-                                self._publish_weights(params)
+                                std_p = self._params_to_ckpt(params)
+                                if chief:
+                                    self._publish_weights(std_p)
                             if stats is not None:
                                 stats.end_step()
                         if preempted:
@@ -670,16 +1299,29 @@ class Trainer:
         wall = time.perf_counter() - t0
         if stats is not None:
             # the FLOPs count runs a probe step: stop the clock first so it
-            # does not inflate the fit's wall time
+            # does not inflate the fit's wall time; on a mesh each rank is
+            # charged its share of the global batch's FLOPs
             stats.stop_clock()
             per_batch = self._train_flops_per_batch(
                 tuple(a[:batch] for a in x_pad) if multi else x_pad[:batch],
-                y_pad[:batch], params)
+                y_pad[:batch], params if self._zero_stage < 3
+                else self._params_to_ckpt(params))
+            if per_batch and mesh is not None:
+                per_batch = per_batch / mesh.size
             stats.finalize(flops_per_step=(per_batch * num_batches
                                            if per_batch else None))
+        if mesh is not None:
+            self.last_mesh_stats = self._rank_stats(
+                strategy, opt_state, params, num_batches * ran, timer,
+                launches0)
+        if self._zero_stage >= 3:
+            # back to the standard layout, installed on the model
+            params = self.model.load_params(self._params_to_ckpt(params),
+                                            trainable=True)
         self.params = tree_map(lambda p: p.detach(), params)
         self._last_opt_state = opt_state
         epoch_keys = sorted(loss_by_it)
+        self._epoch_keys = epoch_keys
         epoch_losses = [float(loss_by_it[k]) for k in epoch_keys]
         if not nan_halted:  # the halt already logged its own ERROR
             bad = [k for k, v in zip(epoch_keys, epoch_losses)
@@ -692,7 +1334,7 @@ class Trainer:
         # publish-at-end mode (publish_every == 0): the fit's final weights
         # become the next served version — but never NaN-halted ones
         if (self._publish_store is not None and self.publish_every <= 0
-                and not nan_halted):
+                and not nan_halted and chief):
             self._publish_weights(self.params)
         return TrainResult(self.params, epoch_losses,
                            per_epoch * ran / max(wall, 1e-9), wall,
@@ -850,6 +1492,8 @@ class Trainer:
         already consumed are not replayed), and SIGTERM saves and stops.
         ``TrainResult.losses`` holds one loss per step.
         """
+        if self.mesh is not None:
+            _not_yet("fit_stream on a device mesh")
         from .localml.linalg import vector_to_array
         from .utils.data import BatchQueue, feed_from_iterator
 
@@ -1003,6 +1647,8 @@ class Trainer:
     def ema_weights(self):
         """The debiased Polyak-averaged weight tree of the last fit when the
         optimizer was built with ``ema_decay``; None otherwise."""
+        if self._launch_ema is not None:
+            return self._launch_ema
         if self._last_opt_state is None:
             return None
         return extract_ema_params(self._last_opt_state)

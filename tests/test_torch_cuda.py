@@ -1491,3 +1491,40 @@ def test_hogwild_on_card_launches_the_flash_kernels(dev):
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert counts[name] == 2 * (st["pushes"] + 1), (name, counts)
     assert all(np.isfinite(w).all() for w in weights)
+
+
+# -- ring attention over two ranks on the card ----------------------------------
+
+@pytest.fixture(scope="module")
+def card_ranks(dev):
+    """Two rank processes on the card (gloo over CUDA tensors when they
+    share one card, NCCL when each has its own)."""
+    import torch_rank_tasks as tasks
+    with tasks.rank_pool(2, device="cuda", timeout_s=300) as pool:
+        yield pool
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)],
+                         ids=["causal", "kv_mask"])
+def test_ring_flash_on_card_matches_the_plain_ring(card_ranks, dtype, causal,
+                                                   masked):
+    """``ring_flash_attention`` (kernels 1-3 per visit) against the plain
+    ring on two ranks, forward and backward: output within the flash
+    tolerance, dq / dk / dv within the backward tolerance of the largest
+    plain gradient; a causal ring launches each kernel 3 times summed over
+    the ranks (the later shard's visit is skipped), a full one 4."""
+    import torch_rank_tasks as tasks
+    dt = getattr(torch, dtype)
+    ours = card_ranks.run(tasks.ring, 0, causal, masked, (2, 4, 256, 64),
+                          device="cuda", dtype=dtype)
+    for o in ours:
+        flash, plain = o["flash"], o["plain"]
+        assert np.abs(flash[0] - plain[0]).max() < FLASH_TOL[dt]
+        for got, want in zip(flash[1:], plain[1:]):
+            assert np.abs(got - want).max() <= BWD_TOL[dt] * max(
+                1e-6, np.abs(want).max())
+    visits = 3 if causal else 4
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert sum(o["flash_launches"][name] for o in ours) == visits
+        assert sum(o["plain_launches"][name] for o in ours) == 0

@@ -154,14 +154,16 @@ def test_unsupervised_autoencoder_and_vector_predictions(spark):
 
 
 @pytest.mark.parametrize("over", [
-    {"meshShape": "dp=1"}, {"ppMicrobatches": 2},
-    {"ppSchedule": "1f1b"}, {"weightUpdateSharding": "on"},
-    {"zeroStage": 1}], ids=lambda d: next(iter(d)))
+    {"meshShape": "tp=2"}, {"ppMicrobatches": 2},
+    {"ppSchedule": "1f1b"}, {"weightUpdateSharding": "on", "meshShape": "ep=2"},
+    {"zeroStage": 1, "meshShape": "fsdp=2"}], ids=lambda d: next(iter(d)))
 def test_unported_params_are_refused_before_training(gaussian_df, over):
+    # dp / sp meshes and the ZeRO Params are ported
+    # (tests/test_torch_zero.py); the model-parallel axes are not
     calls = []
     est = _estimator(**over).setLossCallback(lambda *a: calls.append(a))
     with pytest.raises(NotImplementedError,
-                       match="not yet ported.*ROADMAP.md"):
+                       match="not yet ported.*ROADMAP.md.*item 7"):
         est.fit(gaussian_df)
     assert calls == []
 
@@ -234,6 +236,30 @@ def test_fit_mode_stream_never_collects(gaussian_df, monkeypatch):
     model = _estimator(iters=20, fitMode="stream",
                        miniBatchSize=64).fit(gaussian_df)
     monkeypatch.undo()
+    assert _errors(model.transform(gaussian_df)) < 40
+
+
+@pytest.mark.parametrize("mode", ["collect", "stream"])
+def test_a_multi_card_host_fits_without_a_mesh_unless_asked(gaussian_df,
+                                                           monkeypatch, mode):
+    """Only an explicit meshShape launches ranks: on a host with two cards
+    a fit without one (a stream fit too, which a mesh would refuse) runs in
+    this process with no mesh, on the card and on the CPU alike."""
+    import sparkflow_tpu_torch.spark_async as sa
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    meshes, trainer = [], sa.Trainer
+
+    def spy(*args, **kwargs):
+        meshes.append(kwargs.get("mesh"))
+        return trainer(*args, **kwargs)
+
+    monkeypatch.setattr(sa, "Trainer", spy)
+    est = _estimator(iters=20, fitMode=mode, miniBatchSize=64)
+    est.setDevice(None)
+    assert est._mesh({}) is None
+    est.setDevice("cpu")
+    model = est.fit(gaussian_df)
+    assert meshes == [None] and est.last_mesh_stats is None
     assert _errors(model.transform(gaussian_df)) < 40
 
 

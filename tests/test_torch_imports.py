@@ -46,6 +46,13 @@ SUBPACKAGES = ["sparkflow_tpu_torch", "sparkflow_tpu_torch.device",
                "sparkflow_tpu_torch.tensorflow_model_loader",
                "sparkflow_tpu_torch.parallel",
                "sparkflow_tpu_torch.parallel.elastic",
+               "sparkflow_tpu_torch.parallel.mesh",
+               "sparkflow_tpu_torch.parallel.collectives",
+               "sparkflow_tpu_torch.parallel.distributed",
+               "sparkflow_tpu_torch.parallel.dp",
+               "sparkflow_tpu_torch.parallel.sp",
+               "sparkflow_tpu_torch.sharding",
+               "sparkflow_tpu_torch.optimizers_sharded",
                "sparkflow_tpu_torch.hogwild",
                "sparkflow_tpu_torch.HogwildSparkModel",
                "sparkflow_tpu_torch.RWLock",

@@ -268,9 +268,14 @@ def test_specs_are_byte_identical_to_jax_and_build(name):
 
 @pytest.mark.parametrize("kw", [{"sp_axis": "sp"}])
 def test_unported_model_options_raise(kw):
+    # sequence parallelism is ported: the model builds, and its forward
+    # runs ring attention only inside a bound mesh (tests/test_torch_ring.py)
     spec = build_registry_spec("transformer_lm", **dict(CFG, **kw))
-    with pytest.raises(ValueError, match="not yet ported"):
-        model_from_json(spec, device="cpu")
+    m = model_from_json(spec, device="cpu")
+    assert m.sp_axis == "sp"
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(RuntimeError, match="no mesh is bound"):
+        m.apply(m.init(seed=0), {"input_ids": ids}, ["logits"])
 
 
 def test_unported_call_options_raise(pair):
