@@ -271,9 +271,33 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     (losses 1e-5 relative, params atol 5e-5 / rtol 1e-5), and the sp=2
     step through the kernel ring against the plain ring's (1e-4). The
     rank processes load the library phase 1 built; every collective and
-    every wait for a rank has a 240 s limit.
+    every wait for a rank has a 240 s limit. Phases 18 and 19 run their
+    in-place rank work in one pool of 2 ranks.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 18; a ``[time]`` line
+19. stream-mesh: the data-parallel remainder, BERT-base (768 / 12 / 12 /
+    3072, vocab 30522, max_len 512), float32, adam 3e-4, on two ranks of
+    the card. (a) ``Pipeline([OneHotEncoder, SparkAsyncDL(fitMode="stream",
+    meshShape="dp=2", zeroStage=1, checkpointDir=...)])`` over 96 rows,
+    batch 32 x 512 (16 rows a rank), 3 steps: the stream read in this
+    process, each rank sent its rows; launches of kernels 1-3 summed over
+    the ranks (12 a step a rank), each rank's bytes moved, training
+    examples/s beside phase 18 (b)'s collect fit, and one step of an
+    in-place dp=2 stream fit profiled on rank 0 (busy, idle). (b) Full
+    widths cut to 2 layers, dropout 0, TF32 off: the dp=2 stream fit at
+    ZeRO 0-3 against one card's stream fit (losses 1e-6 relative, params
+    as phase 18 (d)); ``offload_opt_state`` at ZeRO 2 against the same fit
+    without it, both saving a checkpoint after each step (losses, each
+    rank's final optimizer state and every saved optimizer leaf
+    bit-equal); a launched ``fit`` whose callback raises
+    at epoch 2 (``faults.crash_at``), resumed in the fit, and one whose
+    callback kills a rank at epoch 2 (SIGKILL), relaunched from its
+    checkpoint, each against the uninterrupted fit (params bit-equal). (c)
+    The fitted model's ``transform`` with ``meshShape="dp=2"`` and
+    ``InferenceEngine(mesh={"dp": 2})`` at bucket 32 x 512, each against the
+    engine without a mesh (1e-5), rows/s, and ``flash_fwd``'s launches a
+    bucket call (12 a copy).
+
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 18, 19; a ``[time]`` line
 gives each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
@@ -2267,7 +2291,7 @@ def _predict_checks(tag, eng, spec, weights, kw, extra, rows, served):
     if "quantize" in extra:
         for ln, layer in eng._snapshot_params().items():
             for pn, t in layer.items():
-                if not torch.equal(t.cpu(), cpu._params[ln][pn]):
+                if not torch.equal(t.cpu(), cpu._snapshot_params()[ln][pn]):
                     raise AssertionError(f"arm ({tag}): {ln}/{pn} built on "
                                          f"the card differs from the CPU's")
     return errs
@@ -4943,18 +4967,45 @@ def _mesh_transform_check(card, fitted, spec, df):
     return err
 
 
-def phase_mesh(card, work):
+def _rank_release():
+    """Free a pool rank's cached card memory: the pool idles while the
+    launched fits run."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_pool():
+    """The 2-rank pool of phases 18 and 19's in-place work on the card,
+    every wait bounded by ``MESH_TIMEOUT_S``."""
+    from sparkflow_tpu_torch.parallel.distributed import RankPool
+    os.environ["SPARKFLOW_TORCH_MESH_TIMEOUT_S"] = str(MESH_TIMEOUT_S)
+    return RankPool(2, device="cuda")
+
+
+def _pool_of(pool, kind):
+    """``pool`` when the caller shares one (it closes it), else a pool of
+    2 ranks on ``kind`` for this phase alone."""
+    import contextlib
+    from sparkflow_tpu_torch.parallel.distributed import RankPool
+    if pool is not None:
+        return contextlib.nullcontext(pool)
+    return RankPool(2, device=kind)
+
+
+def phase_mesh(card, work, pool=None):
     """Phase 18: (a) the ring against its plain version on 2 ranks, (b)
     dp=2 on the estimator's path at two zero stages and a profiled step,
     (c) sp=2 on GPT-2 small through ``Trainer(mesh=...)``, (d) exactness
-    at full width cut to 2 layers. Returns the phase's launches and
-    summary."""
+    at full width cut to 2 layers. The in-place work runs in ``pool``
+    (:func:`mesh_pool`, shared with phase 19) or a pool of its own.
+    Returns the phase's launches and summary."""
     import numpy as np
     import torch
     from sparkflow_tpu_torch.localml import LocalSession
     from sparkflow_tpu_torch.models import build_registry_spec
     from sparkflow_tpu_torch.parallel import distributed
-    from sparkflow_tpu_torch.parallel.distributed import RankPool
     from sparkflow_tpu_torch.trainer import Trainer
     t0 = time.perf_counter()
     # every collective, a rank's joining and every pool task; a launched
@@ -4978,7 +5029,7 @@ def phase_mesh(card, work):
     masks = np.stack([r["mask"].toArray() for r in rows]).astype(np.float32)
     labels = np.eye(2, dtype=np.float32)[[int(r["label"]) for r in rows]]
 
-    with RankPool(2, device="cuda") as pool:
+    with _pool_of(pool, "cuda") as pool:
         # (a) the ring against its plain version and one card's flash
         cases = [(dt, c, m) for dt in ("bfloat16", "float32")
                  for c, m in ((True, False), (False, True))]
@@ -5079,6 +5130,7 @@ def phase_mesh(card, work):
             f"TF32 off), kernel ring vs plain ring: " + json.dumps(sp_ex)
             + f" (tol {MESH_SP_TOL}) [{card}]")
         out["sp_exact"] = sp_ex
+        pool.run(_rank_release)
 
     # (b) the estimator's main path, dp=2, at ZeRO auto (adam -> 1) and 3
     out["dp"] = {}
@@ -5146,6 +5198,474 @@ def _mesh_launches(mesh, name):
             "sp_ring": mesh["launches"]["sp_ring"][name]}
 
 
+# phase 19: the data-parallel remainder — stream fits on a dp mesh, in-fit
+# resume on a launched mesh, optimizer-state offload, dp serving
+SM_ROWS, SM_BATCH = 96, 32      # (a): 3 stream steps of 32 x 512
+SM_EXACT_ROWS = 64              # (b): 2 stream steps of 32 x 512
+# (b) the resumed fits: 32 rows, 2 steps an epoch, 3 epochs, a checkpoint
+# after each; the crash and the kill come at epoch 2
+SM_RESUME = dict(optimizer="adam", learning_rate=3e-4,
+                 optimizer_options={"epsilon": 1e-6}, iters=3,
+                 mini_batch_size=16, seed=0, shuffle_per_iter=False)
+SM_LOSS_RTOL = 1e-6        # (b) the stream dp=2 fit vs one card's stream
+SM_SERVE_TOL = 1e-5
+SM_SERVE_REPS = 5
+
+
+def _sm_rows(ids, masks, labels):
+    """A ``fit_stream`` row factory: ``((ids, mask), one-hot label)`` per
+    row, as the estimator's stream hands them over."""
+    return lambda: iter(zip(zip(ids, masks), labels))
+
+
+def _sm_stream_kw():
+    return dict(optimizer="adam", learning_rate=3e-4,
+                optimizer_options={"epsilon": 1e-6},
+                mini_batch_size=SM_BATCH, seed=0)
+
+
+def _np_tree(params):
+    return {ln: {k: t.detach().cpu().numpy() for k, t in layer.items()}
+            for ln, layer in params.items()}
+
+
+def _sm_rank_setup(device):
+    """A phase-19 rank's ``(rank, device)``: phase 18's set-up on the card
+    (the library phase 1 built, TF32 off), the CPU for a rehearsal (one
+    thread: the CPU's threaded kernels vary in the last bits from run to
+    run, which the bit-equality checks would see)."""
+    import torch
+    import torch.distributed as dist
+    if device == "cpu":
+        torch.set_num_threads(1)
+        return dist.get_rank(), torch.device("cpu")
+    rank, dev, _ = _mesh_rank_setup()
+    return rank, dev
+
+
+def _sm_stream_rank(spec, stage, ids, masks, labels, offload, device,
+                    ck=None):
+    """(b) an in-place ``Trainer(mesh={"dp": 2}).fit_stream`` at ``stage``
+    on this rank (every rank reads the same stream and keeps its rows),
+    saving a checkpoint into ``ck`` after each step when given; a digest
+    of each leaf of this rank's final optimizer state, and rank 0 the
+    standard-layout params."""
+    import hashlib
+    import torch
+    from sparkflow_tpu_torch.optimizers_sharded import state_leaves
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev = _sm_rank_setup(device)
+    tr = Trainer(spec, ["input_ids", "attention_mask"], "y",
+                 mesh=Mesh({"dp": 2}), device=dev,
+                 sharding=ShardingConfig(zero_stage=stage,
+                                         offload_opt_state=offload),
+                 checkpoint_dir=ck, checkpoint_every=1 if ck else 0,
+                 **_sm_stream_kw())
+    r = tr.fit_stream(_sm_rows(ids, masks, labels))
+    state = [t for t in state_leaves(tr._last_opt_state)
+             if torch.is_tensor(t)]
+    out = {"losses": r.losses, "zero_stage": tr._zero_stage,
+           "offload": tr._offload_active,
+           "opt_on_host": all(not t.is_cuda for t in state),
+           "opt_digest": [hashlib.sha256(t.detach().cpu().numpy().tobytes())
+                          .hexdigest() for t in state]}
+    if rank == 0:
+        out["params"] = _np_tree(r.params)
+    return out
+
+
+def _sm_saved_opt_equal(a, b):
+    """Whether two checkpoint directories hold the same steps and, at each,
+    the same optimizer-state leaves bit for bit; and how many leaves."""
+    import numpy as np
+    from sparkflow_tpu_torch.checkpoint import CheckpointManager
+    from sparkflow_tpu_torch.optimizers_sharded import state_leaves
+    ma, mb = CheckpointManager(a), CheckpointManager(b)
+    steps = ma.all_steps()
+    same, leaves = bool(steps) and steps == mb.all_steps(), 0
+    for step in steps if same else []:
+        la, lb = (state_leaves(m.restore(step=step)["opt_state"])
+                  for m in (ma, mb))
+        leaves += len(la)
+        same = same and len(la) == len(lb) > 0 and all(
+            np.array_equal(x, y) for x, y in zip(la, lb))
+    return {"steps": steps, "leaves": leaves, "bit_equal": same}
+
+
+def _sm_fit_rank(spec, ids, masks, labels, device):
+    """(b) the uninterrupted ``Trainer(mesh={"dp": 2}).fit`` of the resume
+    checks, in place, at ZeRO 1; rank 0's standard-layout params."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev = _sm_rank_setup(device)
+    tr = Trainer(spec, ["input_ids", "attention_mask"], "y",
+                 mesh=Mesh({"dp": 2}), device=dev,
+                 sharding=ShardingConfig(zero_stage=1), **SM_RESUME)
+    r = tr.fit((ids, masks), labels)
+    return {"losses": r.losses,
+            "params": _np_tree(r.params) if rank == 0 else None}
+
+
+def _sm_profile_rank(spec, ids, masks, labels):
+    """(a) one step of an in-place dp=2 stream fit (BERT-base, ZeRO 1),
+    profiled on each rank from the first step's loss callback to the
+    second's (batch assembly, staging, step, loss read-back); rank 0's
+    profile."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev, _ = _mesh_rank_setup()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   record_shapes=False)
+    marks = []
+
+    def window(loss, step, part):
+        if not marks:
+            prof.start()
+            marks.append(time.perf_counter())
+        elif len(marks) == 1:
+            marks.append(time.perf_counter())
+            prof.stop()
+
+    tr = Trainer(spec, ["input_ids", "attention_mask"], "y",
+                 mesh=Mesh({"dp": 2}), device=dev,
+                 sharding=ShardingConfig(zero_stage=1), loss_callback=window,
+                 **dict(_sm_stream_kw(), optimizer_options=None))
+    res = tr.fit_stream(_sm_rows(ids, masks, labels))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(marks) != 2:
+        raise AssertionError(f"rank {rank}: {len(marks)} loss callbacks, "
+                             f"want 2")
+    if rank != 0:
+        return None
+    out = _device_profile(prof, (marks[1] - marks[0]) * 1e3, 1,
+                          kernels=MESH_NAMES)
+    out["losses"] = res.losses
+    out["finite"] = all(math.isfinite(x) for x in res.losses)
+    return out
+
+
+def _sm_estimator(card, spec, df, work, mesh_out, device):
+    """(a) ``SparkAsyncDL(fitMode="stream", meshShape="dp=2", zeroStage=1,
+    checkpointDir=...)`` through a pipeline: the live losses, the fit's
+    mesh accounting and the fitted pipeline."""
+    from sparkflow_tpu_torch.checkpoint import CheckpointManager
+    from sparkflow_tpu_torch.localml import OneHotEncoder, Pipeline
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    losses = []
+    ck = os.path.join(work, "stream-mesh-ck")
+    steps = SM_ROWS // SM_BATCH
+    est = SparkAsyncDL(
+        inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
+        tfLabel="y:0", tfOutput="probs:0", tfOptimizer="adam",
+        tfLearningRate=3e-4, iters=1, miniBatchSize=SM_BATCH,
+        labelCol="labels", predictionCol="probs", extraInputCols="mask",
+        extraTfInputs="attention_mask:0", fitMode="stream",
+        meshShape="dp=2", zeroStage=1, checkpointDir=ck,
+        checkpointEvery=steps,
+        weightsPath=os.path.join(work, "stream-mesh"), device=device)
+    est.setLossCallback(lambda loss, it, part: losses.append(loss))
+    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
+                                          outputCol="labels",
+                                          dropLast=False), est])
+    t0 = time.perf_counter()
+    fitted = pipe.fit(df)
+    fit_s = time.perf_counter() - t0
+    st = est.last_mesh_stats
+    if st is None or st["mesh"] != {"dp": 2} or not st["launched"]:
+        raise AssertionError(f"the stream fit did not run on the mesh: {st}")
+    if st["zero_stage"] != 1 or len(losses) != steps or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"stream fit: zero stage {st['zero_stage']}, "
+                             f"live losses {losses}")
+    if CheckpointManager(ck).all_steps() != [steps]:
+        raise AssertionError(f"stream fit checkpoints "
+                             f"{CheckpointManager(ck).all_steps()}")
+    launches = {n: 0 for n in MESH_NAMES}
+    ranks = []
+    layers = json.loads(spec)["config"]["num_layers"]
+    for r in st["ranks"]:
+        for n in MESH_NAMES:
+            if device != "cpu" and r["kernel_launches"][n] != layers * steps:
+                raise AssertionError(
+                    f"stream fit: rank {r['rank']} launched {n} "
+                    f"{r['kernel_launches'][n]} times, want {layers} x "
+                    f"{steps}")
+            launches[n] += r["kernel_launches"][n]
+        steady = sorted(r["epoch_ms"][1:])
+        ranks.append({
+            "rank": r["rank"], "device": r["device"],
+            "bytes_moved_gb": {k: v / 1e9 for k, v in
+                               r["bytes_moved"].items()},
+            "bytes_moved_per_step_gb": r["bytes_moved_per_step"] / 1e9,
+            "host_staged_gb": r["host_staged_bytes"] / 1e9,
+            "peak_mem_gb": (r["peak_memory_bytes"] or 0) / 1e9,
+            "step_ms": r["epoch_ms"],
+            "step_ms_median_after_first": steady[len(steady) // 2]})
+    collect = (mesh_out or {}).get("dp", {}).get("auto", {})
+    summary = {
+        "zero_stage": st["zero_stage"], "backend": st["backend"],
+        "fit_s": fit_s, "live_losses": losses,
+        "train_examples_per_s": (SM_BATCH * 1e3
+                                 / ranks[0]["step_ms_median_after_first"]),
+        "phase18_collect_train_examples_per_s":
+            collect.get("train_examples_per_s"),
+        "launches_summed_over_ranks": launches, "ranks": ranks}
+    log("[stream-mesh] SparkAsyncDL(fitMode='stream', meshShape='dp=2', "
+        "zeroStage=1) BERT-base, 96 rows, batch 32 x 512: "
+        + json.dumps(summary) + f" [{card}]")
+    return fitted, summary
+
+
+def _sm_check_resume(card, label, tr, res, want, fired):
+    import numpy as np
+    got = _np_tree(res.params)
+    same = all(np.array_equal(got[ln][k], want["params"][ln][k])
+               for ln in want["params"] for k in want["params"][ln])
+    rel = max(float(np.abs(got[ln][k] - want["params"][ln][k]).max())
+              / max(float(np.abs(want["params"][ln][k]).max()), 1e-30)
+              for ln in want["params"] for k in want["params"][ln])
+    e = {"fired": fired, "completed": res.completed,
+         "launched": tr.last_mesh_stats["launched"],
+         "losses_equal": res.losses == want["losses"],
+         "params_bit_equal": same, "params_max_rel_delta": rel}
+    log(f"[stream-mesh-exact] {label} vs the uninterrupted dp=2 fit "
+        f"(BERT-base widths, 2 layers, ZeRO 1, 3 epochs of 2 steps): "
+        + json.dumps(e) + f" (bar: params bit-equal) [{card}]")
+    if not (fired and res.completed and same and e["losses_equal"]):
+        raise AssertionError(f"{label}: {e}")
+    return e
+
+
+def _sm_serving(card, fitted, spec, df, device):
+    """(c) the fitted model's ``transform`` with ``meshShape="dp=2"`` and
+    ``InferenceEngine(mesh={"dp": 2})`` at bucket 32, each against the
+    engine without a mesh."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.ml_util import resolve_weights
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import InferenceEngine
+    stage = fitted.stages[-1]
+    weights = resolve_weights(stage.getOrDefault(stage.modelWeights))
+    rows = df.collect()[:SM_BATCH]
+    ids = np.stack([r["tokens"].toArray() for r in rows]).astype(np.int64)
+    masks = np.stack([r["mask"].toArray() for r in rows]).astype(np.float32)
+    kw = dict(input_name=["input_ids:0", "attention_mask:0"],
+              output_name="probs:0", max_batch=SM_BATCH, device=device)
+    layers = json.loads(spec)["config"]["num_layers"]
+    plain = InferenceEngine(spec, weights, **kw)
+    dp = InferenceEngine(spec, weights, mesh={"dp": 2}, **kw)
+    want = plain.predict((ids, masks))
+    reset_launch_counts()
+    got = dp.predict((ids, masks))
+    _sync(device != "cpu")
+    bucket_launches = launch_counts()["flash_fwd"]
+    if device != "cpu" and bucket_launches != 2 * layers:
+        raise AssertionError(f"dp engine bucket: flash_fwd launched "
+                             f"{bucket_launches} times, want 12 a copy")
+    times = {}
+    for name, eng in (("plain", plain), ("dp2", dp)):
+        t = []
+        for _ in range(SM_SERVE_REPS):
+            t0 = time.perf_counter()
+            eng.predict((ids, masks))
+            t.append(time.perf_counter() - t0)
+        times[name] = SM_BATCH / sorted(t)[len(t) // 2]
+    stage.setParams(meshShape="dp=2")
+    t0 = time.perf_counter()
+    served = fitted.transform(df).collect()
+    transform_s = time.perf_counter() - t0
+    stage.setParams(meshShape="")
+    tr_probs = np.stack([r["probs"].toArray() for r in served[:SM_BATCH]])
+    e = {"engine_dp2_err": float(np.abs(got - want).max()),
+         "transform_dp2_err": float(np.abs(tr_probs - want).max()),
+         "finite": bool(np.isfinite(got).all() and np.isfinite(
+             tr_probs).all()),
+         "engine_mesh": dp.stats()["mesh"],
+         "flash_fwd_launches_per_bucket_call": bucket_launches,
+         "engine_rows_per_s": times,
+         "transform_dp2_rows_per_s": len(served) / transform_s}
+    log("[stream-mesh-serve] BERT-base float32, bucket 32 x 512: "
+        + json.dumps(e) + f" (tol {SM_SERVE_TOL}) [{card}]")
+    if not (e["finite"] and e["engine_dp2_err"] <= SM_SERVE_TOL
+            and e["transform_dp2_err"] <= SM_SERVE_TOL
+            and e["engine_mesh"] == {"dp": 2}):
+        raise AssertionError(f"dp serving: {e}")
+    del plain, dp
+    return e, bucket_launches
+
+
+def phase_stream_mesh(card, work, mesh_out, device=None, pool=None):
+    """Phase 19: (a) the estimator's stream fit on a dp=2 mesh and a
+    profiled stream step, (b) exactness at 2 layers (stream dp vs one card
+    at ZeRO 0-3, offload, a crash resumed in the fit, a killed rank
+    relaunched), (c) dp serving. The in-place work runs in ``pool``
+    (phase 18's) or a pool of its own. Returns the phase's launches and
+    summary. Rehearse it on the CPU with ``device="cpu"`` and a shrunk
+    ``BERT_BASE`` (the ranks get the spec as an argument)."""
+    import multiprocessing
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.localml import LocalSession
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.resilience import faults
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    from sparkflow_tpu_torch.trainer import Trainer
+    t0 = time.perf_counter()
+    cuda = device != "cpu"
+    kind = "cuda" if cuda else "cpu"
+    os.environ["SPARKFLOW_TORCH_MESH_TIMEOUT_S"] = str(MESH_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    spark = LocalSession.builder.appName("stream-mesh").getOrCreate()
+    bert = build_registry_spec("transformer_classifier", **BERT_BASE)
+    bert2 = build_registry_spec("transformer_classifier", **dict(
+        BERT_BASE, num_layers=2, dropout=0.0))
+    df = synthetic_text(spark, SM_ROWS, BERT_BASE["max_len"],
+                        BERT_BASE["vocab_size"])
+    rows = df.collect()
+    ids = np.stack([r["tokens"].toArray() for r in rows]).astype(np.float32)
+    masks = np.stack([r["mask"].toArray() for r in rows]).astype(np.float32)
+    labels = np.eye(2, dtype=np.float32)[[int(r["label"]) for r in rows]]
+
+    # (a) the main path: the estimator's stream fit on the mesh
+    fitted, out["fit"] = _sm_estimator(card, bert, df, work, mesh_out,
+                                       device)
+
+    ex = slice(0, SM_EXACT_ROWS)
+    one = Trainer(bert2, ["input_ids", "attention_mask"], "y", device=device,
+                  **_sm_stream_kw())
+    ref = one.fit_stream(_sm_rows(ids[ex], masks[ex], labels[ex]))
+    ref_p = _np_tree(ref.params)
+    del one
+    with _pool_of(pool, kind) as pool:
+        pool_ranks = set(pool._procs)
+        if cuda:
+            prof = pool.run(_sm_profile_rank, bert, ids[:SM_EXACT_ROWS],
+                            masks[:SM_EXACT_ROWS],
+                            labels[:SM_EXACT_ROWS])[0]
+            if not prof["finite"]:
+                raise AssertionError(f"profiled stream step: "
+                                     f"{prof['losses']}")
+            log("[stream-mesh] profiled step of an in-place dp=2 stream "
+                "fit, rank 0 (BERT-base, 16 rows a rank, ZeRO-1): "
+                + json.dumps(prof) + f" [{card}]")
+            out["profile"] = prof
+        # (b) the stream dp=2 fit at every stage against one card's
+        exact = {}
+        stage2 = None
+        for stage in (0, 1, 2, 3):
+            # stage 2 saves after each step: offload's baseline below
+            got = pool.run(_sm_stream_rank, bert2, stage, ids[ex], masks[ex],
+                           labels[ex], False, kind,
+                           os.path.join(work, "sm-z2") if stage == 2
+                           else None)
+            lrel = max(abs(a - b) / max(abs(b), 1e-12)
+                       for a, b in zip(got[0]["losses"], ref.losses))
+            perr = max(float(np.max(
+                np.abs(got[0]["params"][ln][k] - ref_p[ln][k])
+                - MESH_PARAM_RTOL * np.abs(ref_p[ln][k])))
+                for ln in ref_p for k in ref_p[ln])
+            e = exact[stage] = {"loss_rel": lrel, "param_excess": perr,
+                                "zero_stage": got[0]["zero_stage"]}
+            if not (got[0]["zero_stage"] == stage
+                    and len(got[0]["losses"]) == len(ref.losses) == 2
+                    and lrel <= SM_LOSS_RTOL
+                    and perr <= MESH_PARAM_ATOL
+                    and got[0]["losses"] == got[1]["losses"]):
+                raise AssertionError(f"stream dp=2 stage {stage} vs one "
+                                     f"card: {e}")
+            if stage == 2:
+                stage2 = got
+        log("[stream-mesh-exact] stream dp=2 stages 0-3 vs one card's stream "
+            "(BERT-base widths, 2 layers, float32, TF32 off; 2 adam steps of "
+            "32 rows): " + json.dumps(exact) + f" (losses <= "
+            f"{SM_LOSS_RTOL} relative, params |d| - {MESH_PARAM_RTOL} |p| "
+            f"<= {MESH_PARAM_ATOL}) [{card}]")
+        out["stream_exact"] = exact
+        off = pool.run(_sm_stream_rank, bert2, 2, ids[ex], masks[ex],
+                       labels[ex], True, kind,
+                       os.path.join(work, "sm-z2-offload"))
+        e = {"offload": [r["offload"] for r in off],
+             "losses_bit_equal": [a["losses"] == b["losses"]
+                                  for a, b in zip(off, stage2)],
+             "opt_state_on_host": [r["opt_on_host"] for r in off],
+             "final_opt_leaves": [len(r["opt_digest"]) for r in off],
+             "final_opt_bit_equal": [
+                 len(a["opt_digest"]) > 0 and a["opt_digest"]
+                 == b["opt_digest"] for a, b in zip(off, stage2)],
+             "saved_opt": _sm_saved_opt_equal(
+                 os.path.join(work, "sm-z2"),
+                 os.path.join(work, "sm-z2-offload")),
+             "max_loss_delta": max(abs(a - b) for a, b in zip(
+                 off[0]["losses"], stage2[0]["losses"]))}
+        log("[stream-mesh-exact] offload_opt_state at ZeRO 2 vs the same "
+            "stream fit without it, each saving after every step: "
+            + json.dumps(e) + f" (bar: losses, each rank's final optimizer "
+            f"state and every saved optimizer leaf bit-equal) [{card}]")
+        if not (all(e["offload"]) and all(e["losses_bit_equal"])
+                and all(e["opt_state_on_host"])
+                and all(e["final_opt_bit_equal"])
+                and e["saved_opt"]["bit_equal"]
+                and e["saved_opt"]["steps"] == [1, 2]):
+            raise AssertionError(f"offload: {e}")
+        out["offload"] = e
+        want = pool.run(_sm_fit_rank, bert2, ids[:32], masks[:32],
+                        labels[:32], kind)[0]
+        pool.run(_rank_release)
+
+    # (b) in-fit resume on a launched mesh: a raising callback, a killed
+    # rank (one of the fit's own, not of a pool shared with phase 18)
+    def launched(name, cb):
+        return Trainer(bert2, ["input_ids", "attention_mask"], "y",
+                       mesh={"dp": 2}, device=device,
+                       sharding=ShardingConfig(zero_stage=1),
+                       checkpoint_dir=os.path.join(work, name),
+                       checkpoint_every=1, resume_retries=1,
+                       loss_callback=cb, **SM_RESUME)
+
+    crash = faults.crash_at(2)
+    tr = launched("sm-crash", crash)
+    res = tr.fit((ids[:32], masks[:32]), labels[:32])
+    out["crash"] = _sm_check_resume(card, "a callback raising at epoch 2, "
+                                    "resumed in the fit", tr, res, want,
+                                    crash.fired == 1)
+    killed = []
+
+    def kill(loss, it, part):
+        if it == 2 and not killed:
+            victim = [c for c in multiprocessing.active_children()
+                      if c not in pool_ranks][0]
+            killed.append(victim.pid)
+            os.kill(victim.pid, signal.SIGKILL)
+
+    tr = launched("sm-kill", kill)
+    res = tr.fit((ids[:32], masks[:32]), labels[:32])
+    out["kill"] = _sm_check_resume(card, "a rank killed at epoch 2, "
+                                   "relaunched from its checkpoint", tr,
+                                   res, want, len(killed) == 1)
+    del tr
+
+    # (c) dp serving of the fitted model
+    out["serve"], bucket_launches = _sm_serving(card, fitted, bert, df,
+                                                device)
+    launches = dict(out["fit"]["launches_summed_over_ranks"])
+    out["launches"] = {n: {"stream_fit": launches[n]} for n in MESH_NAMES}
+    out["launches"]["flash_fwd"]["dp_engine_bucket"] = bucket_launches
+    log(f"[stream-mesh] phase 19 {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5187,7 +5707,10 @@ def main() -> int:
         fleet = timed("fleet", phase_fleet, card, spec, work)
         families = timed("families", phase_families, card, work)
         tf1_hog = timed("tf1-hogwild", phase_tf1_hogwild, card, work)
-        mesh = timed("mesh", phase_mesh, card, work)
+        with timed("mesh-pool", mesh_pool) as pool:
+            mesh = timed("mesh", phase_mesh, card, work, pool)
+            stream_mesh = timed("stream-mesh", phase_stream_mesh, card,
+                                work, mesh, None, pool)
     except Exception:
         traceback.print_exc()
         return 1
@@ -5232,7 +5755,10 @@ def main() -> int:
                          tf1_hog["hogwild"]["launches"]["flash_fwd"]},
          # phase 18: summed over the ranks — the dp=2 estimator fits, and
          # the sp=2 GPT-2-small fit's ring visits
-         "mesh": _mesh_launches(mesh, "flash_fwd")},
+         "mesh": _mesh_launches(mesh, "flash_fwd"),
+         # phase 19: the dp=2 stream fit summed over the ranks, and one
+         # bucket call of the dp=2 engine
+         "stream_mesh": stream_mesh["launches"]["flash_fwd"]},
         {"name": "paged_attention", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "734",
          "launches": launches["paged_attention"], **paged_row,
@@ -5251,7 +5777,8 @@ def main() -> int:
                       families["training"]["flash_bwd_dq"]},
          "tf1_hogwild": {"launches":
                          tf1_hog["hogwild"]["launches"]["flash_bwd_dq"]},
-         "mesh": _mesh_launches(mesh, "flash_bwd_dq")},
+         "mesh": _mesh_launches(mesh, "flash_bwd_dq"),
+         "stream_mesh": stream_mesh["launches"]["flash_bwd_dq"]},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": src + "flash_bwd.cu", "replaces": ref + "415",
          "launches": train_launches["flash_bwd_dkv"],
@@ -5263,7 +5790,8 @@ def main() -> int:
                       families["training"]["flash_bwd_dkv"]},
          "tf1_hogwild": {"launches":
                          tf1_hog["hogwild"]["launches"]["flash_bwd_dkv"]},
-         "mesh": _mesh_launches(mesh, "flash_bwd_dkv")},
+         "mesh": _mesh_launches(mesh, "flash_bwd_dkv"),
+         "stream_mesh": stream_mesh["launches"]["flash_bwd_dkv"]},
         {"name": "paged_attention_quant", "route": "cuda",
          "source": src + "paged_attention.cu", "replaces": ref + "781",
          "launches": spec_b["paged_attention_quant"],

@@ -8,15 +8,15 @@
 - :func:`make_epoch_fn` — one epoch of steps in the reference's three
   batching modes (``sweep``, ``stochastic``, ``full``);
 - :func:`make_predict_fn` / :func:`predict_in_chunks` — fixed-size chunked
-  inference.
+  inference, dp-sharded over a mesh in one process with ``mesh=``.
 
 Batches keep a fixed size: the dataset is padded to whole batches and a
 0/1 row mask weights the loss, so padded rows add zero loss and zero
 gradient, as in the JAX package. PyTorch runs eagerly, so there is no
-compiled epoch program, no mesh and no fused multi-epoch path here: an
-epoch is a Python loop of steps. Shuffles and batch draws come from a CPU
-``torch.Generator`` (the same indices on any device), dropout from a
-generator on the model's device.
+compiled epoch program and no fused multi-epoch path here: an epoch is a
+Python loop of steps (a mesh rank's step comes from :mod:`.parallel`).
+Shuffles and batch draws come from a CPU ``torch.Generator`` (the same
+indices on any device), dropout from a generator on the model's device.
 """
 
 from __future__ import annotations
@@ -187,28 +187,69 @@ def pad_to_batches(x: np.ndarray, batch_size: int,
 
 def make_predict_fn(model, input_name, output_name: str,
                     dropout_name: Optional[str] = None,
-                    dropout_value: float = 1.0) -> Callable:
+                    dropout_value: float = 1.0, mesh=None,
+                    sharding=None) -> Callable:
     """``predict(params, x) -> out`` (a tensor on the model's device), in
     inference mode; ``input_name`` may be a sequence of names, ``x`` then a
     tuple. ``dropout_name`` feeds the graph-DSL keep-probability
-    placeholder, as in the JAX package."""
+    placeholder, as in the JAX package.
+
+    With ``mesh`` (a :class:`~.parallel.mesh.Mesh` or a dict of sizes) the
+    batch shards over the config's batch axes in this process, by the
+    serving rule of :mod:`.parallel.mesh`: one parameter copy per dp shard
+    (made once for each params tree a call gets, and kept while that tree
+    is unchanged), any batch size padded up to a dp multiple, split into
+    contiguous row blocks, each block's output concatenated and trimmed."""
     multi = isinstance(input_name, (list, tuple))
     in_keys = ([n.split(":")[0] for n in input_name] if multi
                else [input_name.split(":")[0]])
     drop_key = dropout_name.split(":")[0] if dropout_name else None
 
-    def predict(params, x):
-        xs = tuple(x) if multi else (x,)
-        feeds = {k: torch.as_tensor(a, device=model.device)
+    def apply_on(m, params, xs):
+        feeds = {k: torch.as_tensor(a, device=m.device)
                  for k, a in zip(in_keys, xs)}
         if drop_key is not None:
             feeds[drop_key] = torch.tensor(dropout_value,
                                            dtype=torch.float32)
         with torch.inference_mode():
-            return model.apply(params, feeds, [output_name],
-                               train=False)[output_name]
+            return m.apply(params, feeds, [output_name],
+                           train=False)[output_name]
 
-    return predict
+    def predict(params, x):
+        return apply_on(model, params, tuple(x) if multi else (x,))
+
+    if mesh is None:
+        return predict
+    from .parallel.mesh import (dp_apply, dp_copies, model_on,
+                                serving_devices, serving_dp)
+    dp = serving_dp(mesh, sharding)
+    if dp <= 1:
+        return predict
+    devices = serving_devices(dp, model.device)
+    models = [model_on(model, d) for d in devices]
+    held: dict = {"key": None}
+
+    def copies(params):
+        # the per-shard copies of the tree this call got, made again only
+        # when another tree comes or one of its tensors changed in place
+        key = (id(params), tuple((id(t), getattr(t, "_version", 0))
+                                 for t in tree_leaves(params)))
+        if held["key"] != key:
+            held.update(key=key, src=params,
+                        copies=dp_copies(params, devices))
+        return held["copies"]
+
+    def padded_predict(params, x):
+        xs = tuple(torch.as_tensor(a) for a in (tuple(x) if multi else (x,)))
+        n = xs[0].shape[0]
+        pad = (-n) % dp if n else dp
+        if pad:
+            xs = tuple(torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+                       for a in xs)
+        return dp_apply(lambda r, p, block: apply_on(models[r], p, block),
+                        copies(params), xs)[:n]
+
+    return padded_predict
 
 
 def _to_numpy(x) -> np.ndarray:

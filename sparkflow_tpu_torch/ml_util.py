@@ -12,8 +12,11 @@ marshalling — the port of the JAX package's ``ml_util.py``.
   int8 weights (``"weight_only"`` / ``"dynamic"``, ``utils/quant.py``),
   quantized once per weights identity and cached.
 
-Serving over a device mesh (``mesh_axes``) is not yet ported and raises
-(see ROADMAP.md).
+``mesh_axes`` (``{"dp": N}``, the model stage's ``meshShape``) serves each
+partition data-parallel in this process, by the serving rule of
+:mod:`~sparkflow_tpu_torch.parallel.mesh`: one weight copy per dp shard,
+each batch split into dp row blocks. Other axes are refused with the JAX
+package's message.
 """
 
 from __future__ import annotations
@@ -75,9 +78,17 @@ def json_to_params(model, json_weights: str):
     return list_to_params(model, convert_json_to_weights(json_weights))
 
 
-def _not_yet(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
-                              f"ROADMAP.md, queue 1 item 7)")
+def check_serving_mesh(mesh_axes: Dict[str, int]) -> None:
+    """A serving mesh shards the batch only: refuse any axis but ``dp``
+    (the JAX package's check and message)."""
+    bad = [a for a in mesh_axes if a != "dp"]
+    if bad:
+        # inference shards the BATCH; params serve replicated, so a
+        # tp/fsdp/... axis would silently replicate compute instead of
+        # parallelizing it — refuse rather than mislead
+        raise ValueError(
+            "Model meshShape serves data-parallel only ('dp=N'); "
+            "axes %s are not inference strategies" % bad)
 
 
 # ---------------------------------------------------------------------------
@@ -92,24 +103,28 @@ _PREDICT_CACHE_MAX = 32
 
 def _cached_predict_fn(graph_json: str, tf_output: str, tf_input,
                        tf_dropout: Optional[str], dropout_value: float,
-                       quantize: Optional[str] = None, device=None):
+                       quantize: Optional[str] = None, device=None,
+                       mesh_axes: Optional[Dict[str, int]] = None):
     """Cache (model, predict_fn) across partitions: the model is rebuilt
     from its spec once per (spec, output, inputs, dropout feed, quantize
-    mode, device). ``quantize`` keys separately: the model's
-    ``quant_mode`` picks its matmul path."""
+    mode, device, mesh). ``quantize`` keys separately: the model's
+    ``quant_mode`` picks its matmul path; so does ``mesh_axes`` (a
+    dp-sharded predict with its weight copies)."""
     dev = resolve_device(device)
     digest = hashlib.sha256(graph_json.encode()).hexdigest()
     in_key = (tuple(tf_input) if isinstance(tf_input, (list, tuple))
               else tf_input)
+    mesh_key = tuple(sorted(mesh_axes.items())) if mesh_axes else None
     key = (digest, tf_output, in_key, tf_dropout, dropout_value, quantize,
-           str(dev))
+           str(dev), mesh_key)
     if key not in _PREDICT_CACHE:
         from .models import model_from_json
         model = model_from_json(graph_json, device=dev)
         if quantize:
             model.quant_mode = quantize
         fn = make_predict_fn(model, tf_input, tf_output, tf_dropout,
-                             dropout_value)
+                             dropout_value,
+                             mesh=dict(mesh_axes) if mesh_axes else None)
         _PREDICT_CACHE[key] = (model, fn)
         while len(_PREDICT_CACHE) > _PREDICT_CACHE_MAX:
             _PREDICT_CACHE.popitem(last=False)
@@ -184,11 +199,12 @@ def predict_func(rows: Iterable, graph_json: str, prediction: str,
     ``extra_inputs`` feed more columns to more tensors (e.g. an attention
     mask). ``quantize`` serves int8 weights ('weight_only' or 'dynamic',
     ``utils/quant.py``). ``device`` is the card unless ``"cpu"`` is asked
-    for."""
+    for; ``mesh_axes`` (``{"dp": N}``) splits each chunk over N weight
+    copies in this process."""
     if quantize:
         _check_quantize(quantize)
     if mesh_axes:
-        _not_yet("serving over a device mesh (meshShape)")
+        check_serving_mesh(mesh_axes)
     if bool(extra_cols) != bool(extra_inputs) or (
             extra_cols and len(extra_cols) != len(extra_inputs)):
         raise ValueError("extra_cols and extra_inputs must pair up one-to-one")
@@ -198,7 +214,8 @@ def predict_func(rows: Iterable, graph_json: str, prediction: str,
     dropout_v = 1.0 if (tf_dropout is not None and to_keep_dropout) else 0.0
     names = [tf_input] + list(extra_inputs) if extra_cols else tf_input
     model, fn = _cached_predict_fn(graph_json, activation, names,
-                                   tf_dropout, dropout_v, quantize, device)
+                                   tf_dropout, dropout_v, quantize, device,
+                                   mesh_axes)
     if quantize:
         params = _cached_quantized_params(model, graph_weights, quantize)
     else:

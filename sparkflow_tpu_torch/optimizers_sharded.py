@@ -59,15 +59,15 @@ from .sharding import at_rest_leaf_spec
 # ---------------------------------------------------------------------------
 
 
-def _state_leaves(tree) -> list:
+def state_leaves(tree) -> list:
     """Every non-container leaf of an optimizer state (tensors, Python
     counters), depth first."""
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [x for k in tree for x in _state_leaves(tree[k])]
+        return [x for k in tree for x in state_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _state_leaves(v)]
+        return [x for v in tree for x in state_leaves(v)]
     return [tree]
 
 
@@ -83,8 +83,10 @@ def _state_rebuild(like, it):
     return next(it)
 
 
-def _state_map(fn: Callable, tree):
-    return _state_rebuild(tree, iter([fn(x) for x in _state_leaves(tree)]))
+def state_map(fn: Callable, tree):
+    """``fn`` over every non-container leaf of ``tree``, in a tree of the
+    same structure."""
+    return _state_rebuild(tree, iter([fn(x) for x in state_leaves(tree)]))
 
 
 def _meta(tree):
@@ -354,7 +356,7 @@ def zero1_state_specs(state, n_shards: int, axis_name: str = "dp"):
     row-wise over ``axis_name``, everything else is whole — the rule of
     :func:`~sparkflow_tpu_torch.sharding.at_rest_leaf_spec`
     (``layout='flat'``)."""
-    return _state_map(lambda x: at_rest_leaf_spec(
+    return state_map(lambda x: at_rest_leaf_spec(
         _shape(x), axis_name, layout="flat", n_shards=n_shards), state)
 
 
@@ -369,14 +371,14 @@ def place_zero1_state(state, mesh, n_shards: int, axis_name: str = "dp"):
         if _is_row(x, n_shards):
             return x[idx:idx + 1].clone()
         return x
-    return _state_map(one, state)
+    return state_map(one, state)
 
 
 def gather_rows(state, n_shards: int, axis_name: str = "dp"):
     """Inside a bound mesh: every rank's ``[1, s]`` rows -> the global
     ``[n_shards, s]`` leaves (other leaves as they are) — the inverse of
     :func:`place_zero1_state`, one all-gather per dtype."""
-    leaves = _state_leaves(state)
+    leaves = state_leaves(state)
     idx = [i for i, x in enumerate(leaves) if _is_row(x)]
     if idx:
         fulls = _gather_rows([leaves[i] for i in idx], n_shards, axis_name)
@@ -388,7 +390,7 @@ def gather_rows(state, n_shards: int, axis_name: str = "dp"):
 
 def _paired_leaves(inner, params, state):
     std = inner.init(_meta(params))
-    return _state_leaves(std), _state_leaves(state), std
+    return state_leaves(std), state_leaves(state), std
 
 
 def gather_zero1_state(inner: GradientTransformation, params, state,
@@ -416,7 +418,7 @@ def shard_zero1_state(inner: GradientTransformation, params, state,
     width is recomputed here, so a checkpoint written under one dp size
     re-shards onto another."""
     std_leaves, s_leaves, std = _paired_leaves(inner, params, state)
-    z_leaves = _state_leaves(inner.init(_flat2d(_meta(params), n_shards)))
+    z_leaves = state_leaves(inner.init(_flat2d(_meta(params), n_shards)))
     out = []
     for tmpl, zt, s in zip(std_leaves, z_leaves, s_leaves):
         if not torch.is_tensor(zt) or _shape(zt) == _shape(s):
@@ -432,24 +434,24 @@ def has_per_param_state(optimizer: GradientTransformation, params) -> bool:
     — the states zero sharding actually shrinks. sgd / proximal_gd carry
     none, so ``auto`` mode leaves them replicated."""
     return any(torch.is_tensor(x) and x.dim() >= 1
-               for x in _state_leaves(optimizer.init(_meta(params))))
+               for x in state_leaves(optimizer.init(_meta(params))))
 
 
 def state_bytes_per_device(state) -> int:
     """Bytes ONE rank holds for a state tree: each tensor leaf its local
     size (a zero-placed state counts its rows), each counter 4."""
-    return sum(_nbytes(x) for x in _state_leaves(state))
+    return sum(_nbytes(x) for x in state_leaves(state))
 
 
 def _tree_bytes(tree) -> int:
-    return sum(_nbytes(x) for x in _state_leaves(tree))
+    return sum(_nbytes(x) for x in state_leaves(tree))
 
 
 def _row_shard_bytes(tree, n_shards: int) -> int:
     """Per-rank bytes of a global zero-layout tree: ``[n_shards, s]`` leaves
     contribute one row, everything else its full size."""
     total = 0
-    for x in _state_leaves(tree):
+    for x in state_leaves(tree):
         if _is_row(x, n_shards):
             total += _nbytes(x) // n_shards
         else:
@@ -501,4 +503,4 @@ __all__ = ["gather_rows", "gather_zero1_state", "gather_zero3_params",
            "gathered_params", "has_per_param_state",
            "place_zero1_state", "shard_zero1_state", "shard_zero3_params",
            "sharded_apply_update", "sharded_update", "state_bytes_per_device",
-           "zero1_state_specs", "zero3_param_specs", "zero_memory_report"]
+           "state_leaves", "state_map", "zero1_state_specs", "zero3_param_specs", "zero_memory_report"]

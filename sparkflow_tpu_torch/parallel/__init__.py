@@ -1,12 +1,13 @@
 """Parallel training in the port, on ``torch.distributed``:
 
 - :mod:`.mesh` — named meshes over ranks (one process per rank, a card or
-  the CPU each) and their axis groups;
+  the CPU each) and their axis groups; the rule of data-parallel serving
+  in one process;
 - :mod:`.collectives` — ``psum`` / ``psum_scatter`` / ``all_gather`` /
   ``ppermute`` over named axes, and the two-level ``dcn`` reduction;
 - :mod:`.distributed` — joining a process group, and the local launcher
   (:class:`~.distributed.RankPool`) a single-process caller gets its ranks
-  from; the backend rule;
+  from, with a line to each rank while a task runs; the backend rule;
 - :mod:`.dp` — synchronous data parallelism with ZeRO stages 0-3;
 - :mod:`.sp` — sequence parallelism through ring attention;
 - :mod:`.elastic` — bounded-staleness async data parallelism over a

@@ -17,6 +17,18 @@ Two ways into a mesh fit:
   the CPU with ``device="cpu"``). :class:`RankPool` keeps such ranks alive
   across several tasks (the tests start one pool a module).
 
+A launched rank keeps a line to its caller for the life of a task
+(:func:`channel`): it posts to the caller, and the caller sends to each
+rank (:meth:`RankPool.send`) while the task runs — a trainer's live
+callbacks and verdicts, and the batches of a streaming fit. The line is
+made of the queues the pool hands each rank at spawn, since a
+``multiprocessing.Queue`` travels only by inheritance, never inside a
+task's arguments.
+
+Spawned ranks re-import the caller's main module: a script that launches
+ranks keeps its top-level code under ``if __name__ == "__main__":``, else
+every rank dies while starting and the pool raises naming that guard.
+
 Backends are chosen up front and reported, never swapped:
 :func:`choose_backend` gives NCCL when every rank has a card of its own,
 gloo on the CPU, and gloo over CUDA tensors when ranks share a card (NCCL
@@ -30,8 +42,10 @@ hanging it.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import logging
+import multiprocessing
 import os
 import queue as queue_mod
 import socket
@@ -46,10 +60,21 @@ from .mesh import Mesh, make_mesh
 logger = logging.getLogger("sparkflow_tpu_torch")
 
 _INITIALIZED = False
+# a launched rank's line to its caller (set in the rank process only)
+_CHANNEL = None
+# how a message travels on a rank's task queue, told apart from a task
+_MSG = "__msg__"
+
+
+class RankError(RuntimeError):
+    """A launched rank raised, died or outlived its wait while running a
+    task (the pool was stopped)."""
+
 
 def mesh_timeout_s() -> float:
     """Seconds a collective may wait, a rank pool for its ranks to join, and
     a pool's task by default: ``SPARKFLOW_TORCH_MESH_TIMEOUT_S``, else 600.
+    A launched rank waits for its caller's messages without a limit.
     Read at each use, so rank processes see what their launcher's
     environment says."""
     return float(os.environ.get("SPARKFLOW_TORCH_MESH_TIMEOUT_S", 600.0))
@@ -235,11 +260,80 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _from_caller(q):
+    """The next item on a launched rank's task queue. The wait has no
+    limit: the caller sees ranks that die, and a rank whose caller is gone
+    ends here."""
+    parent = multiprocessing.parent_process()
+    while True:
+        try:
+            return q.get(timeout=1.0)
+        except queue_mod.Empty:
+            if parent is not None and not parent.is_alive():
+                raise SystemExit("the rank's caller has gone") from None
+
+
+class _Channel:
+    """A launched rank's line to its caller, for the task it runs:
+    :meth:`post` goes up to the caller, :meth:`recv` takes what the caller
+    sent this rank (:meth:`RankPool.send`). A message is a tuple whose
+    first item names its kind."""
+
+    def __init__(self, rank: int, inbox, outbox):
+        self.rank = rank
+        self._in, self._out = inbox, outbox
+        self._held: collections.deque = collections.deque()
+
+    def post(self, payload) -> None:
+        self._out.put((self.rank, "post", payload))
+
+    def _hold(self, item) -> None:
+        if item is None:
+            self._in.put(None)      # the task loop still has to see it
+            raise RuntimeError(f"rank {self.rank}: the rank pool is closing")
+        self._held.append(item[1])
+
+    def _pop(self, kind: Optional[str]):
+        for i, msg in enumerate(self._held):
+            if kind is None or msg[0] == kind:
+                del self._held[i]
+                return msg
+        return None
+
+    def recv(self, kind: Optional[str] = None):
+        """The caller's next message (of ``kind`` when given: those of
+        other kinds that come first are held, in order, for later calls).
+        Waits as long as the caller takes; raises if the pool is closing."""
+        while True:
+            msg = self._pop(kind)
+            if msg is not None:
+                return msg
+            self._hold(_from_caller(self._in))
+
+    def take(self, kind: str):
+        """A message of ``kind`` that has already arrived, ahead of any
+        sent before it, or None — without waiting."""
+        while True:
+            try:
+                item = self._in.get_nowait()
+            except queue_mod.Empty:
+                return self._pop(kind)
+            self._hold(item)
+
+
+def channel() -> Optional[_Channel]:
+    """This launched rank's line to its caller; None in any other
+    process."""
+    return _CHANNEL
+
+
 def _rank_main(rank: int, world: int, init_method: str, backend: str,
                device: str, timeout_s: float, tasks, results) -> None:
     """Body of one launched rank: join the group, then run tasks until a
-    None arrives. Results and errors go back through ``results``. A CPU
-    rank takes its share of the cores for intra-op threads (at most 4)."""
+    None arrives. Results and errors go back through ``results``, with
+    the task's posts. A CPU rank takes its share of the cores for
+    intra-op threads (at most 4)."""
+    global _CHANNEL
     try:
         import torch
         import torch.distributed as dist
@@ -252,15 +346,19 @@ def _rank_main(rank: int, world: int, init_method: str, backend: str,
         dist.init_process_group(
             backend, init_method=init_method, world_size=world, rank=rank,
             timeout=datetime.timedelta(seconds=float(timeout_s)))
+        _CHANNEL = _Channel(rank, tasks, results)
         results.put((rank, "ready", None))
     except Exception:  # noqa: BLE001 - reported to the caller
         results.put((rank, "error", traceback.format_exc()))
         return
     try:
         while True:
-            task = tasks.get()
+            task = _from_caller(tasks)
             if task is None:
                 break
+            if task[0] == _MSG:
+                continue    # sent for a task that has ended
+            _CHANNEL._held.clear()
             fn, args, kwargs = task
             try:
                 results.put((rank, "ok", fn(*args, **kwargs)))
@@ -280,9 +378,10 @@ class RankPool:
     picklable — return numpy, not CUDA tensors) and returns the per-rank
     results in rank order. A rank that raises or dies, or a task that
     outlives its wait (``run``'s ``timeout_s``, default
-    :func:`mesh_timeout_s`), stops the pool and raises ``RuntimeError``
+    :func:`mesh_timeout_s`), stops the pool and raises :class:`RankError`
     with the rank's traceback. The ranks' collectives and their joining
-    time out after :func:`mesh_timeout_s`.
+    time out after :func:`mesh_timeout_s`; ranks that die while starting
+    raise ``RuntimeError`` naming the main-module guard.
 
     ``backend`` / ``device`` as :func:`choose_backend`. Use as a context
     manager, or call :meth:`close`."""
@@ -309,6 +408,8 @@ class RankPool:
                   self.timeout_s, self._tasks[r], self._results))
             for r in range(self.world)]
         self._closed = False
+        self._got: Dict[int, Any] = {}
+        self._what = "task"
         for p in self._procs:
             p.start()
         try:
@@ -317,48 +418,119 @@ class RankPool:
             self.close()
             raise
 
-    def _collect(self, what: str, timeout_s: float) -> List[Any]:
-        got: Dict[int, Any] = {}
-        deadline = time.monotonic() + timeout_s
-        while len(got) < self.world:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                self.close()
-                raise RuntimeError(
-                    f"rank pool: {what} timed out after {timeout_s:.0f} s "
-                    f"(ranks {sorted(set(range(self.world)) - set(got))} "
-                    f"did not answer); the pool was stopped")
+    def _next(self, what: str, deadline: float):
+        """One item from the ranks, ``(rank, status, payload)``, or None when
+        ``deadline`` passes first; raises (and stops the pool) when a rank
+        failed or died."""
+        while True:
+            left = max(0.0, deadline - time.monotonic())
             try:
                 rank, status, payload = self._results.get(
                     timeout=min(left, 1.0))
             except queue_mod.Empty:
                 dead = [r for r, p in enumerate(self._procs)
-                        if not p.is_alive() and r not in got]
+                        if not p.is_alive() and r not in self._got]
                 if dead:
                     codes = [self._procs[r].exitcode for r in dead]
                     self.close()
-                    raise RuntimeError(
+                    if what == "ready":
+                        raise RuntimeError(
+                            f"rank pool: rank(s) {dead} exited (codes "
+                            f"{codes}) while starting; the pool was "
+                            f"stopped. Spawned ranks re-import the caller's "
+                            f"main module: a script that launches ranks "
+                            f"keeps its top-level code under `if __name__ "
+                            f"== \"__main__\":` (each rank's error output "
+                            f"is above)")
+                    raise RankError(
                         f"rank pool: rank(s) {dead} exited (codes {codes}) "
                         f"during {what}; the pool was stopped")
+                if time.monotonic() >= deadline:
+                    return None
                 continue
             if status == "error":
                 self.close()
-                raise RuntimeError(f"rank {rank} failed during {what}:\n"
-                                   f"{payload}")
-            got[rank] = payload
+                cls = RuntimeError if what == "ready" else RankError
+                raise cls(f"rank {rank} failed during {what}:\n{payload}")
+            return rank, status, payload
+
+    def _collect(self, what: str, timeout_s: float,
+                 on_post: Optional[Callable] = None) -> List[Any]:
+        """Every rank's result of the running task; each post on the way
+        goes to ``on_post(rank, payload)`` (dropped without one)."""
+        deadline = time.monotonic() + timeout_s
+        while len(self._got) < self.world:
+            item = self._next(what, deadline)
+            if item is None:
+                missing = sorted(set(range(self.world)) - set(self._got))
+                self.close()
+                cls = RuntimeError if what == "ready" else RankError
+                raise cls(
+                    f"rank pool: {what} timed out after {timeout_s:.0f} s "
+                    f"(ranks {missing} did not answer); the pool was "
+                    f"stopped")
+            rank, status, payload = item
+            if status == "post":
+                if on_post is not None:
+                    on_post(rank, payload)
+                continue
+            self._got[rank] = payload
+        got, self._got = self._got, {}
         return [got[r] for r in range(self.world)]
 
-    def run(self, fn: Callable, *args, timeout_s: Optional[float] = None,
-            **kwargs) -> List[Any]:
-        """``fn(*args, **kwargs)`` on every rank; waits ``timeout_s``
-        (default :func:`mesh_timeout_s`; ``math.inf`` for none)."""
+    def start(self, fn: Callable, *args, **kwargs) -> None:
+        """Begin ``fn(*args, **kwargs)`` on every rank without waiting: the
+        caller then talks to the ranks (:meth:`send`, :meth:`poll`) and
+        takes the results with :meth:`finish`."""
         if self._closed:
             raise RuntimeError("rank pool is closed")
+        self._got = {}
+        self._what = getattr(fn, "__name__", "task")
         for q in self._tasks:
             q.put((fn, args, kwargs))
-        return self._collect(getattr(fn, "__name__", "task"),
-                             self.timeout_s if timeout_s is None
-                             else float(timeout_s))
+
+    def send(self, rank: int, payload) -> None:
+        """Hand ``payload`` to ``rank``'s running task
+        (:meth:`_Channel.recv` there)."""
+        self._tasks[rank].put((_MSG, payload))
+
+    def broadcast(self, payload) -> None:
+        for r in range(self.world):
+            self.send(r, payload)
+
+    def poll(self, timeout_s: float):
+        """The next post of the running task, ``(rank, payload)``, or None
+        when ``timeout_s`` passes first or a rank has already returned its
+        result (see :meth:`done`). Raises :class:`RankError` when a rank
+        failed or died."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            item = self._next(self._what, deadline)
+            if item is None:
+                return None
+            rank, status, payload = item
+            if status == "post":
+                return rank, payload
+            self._got[rank] = payload
+            return None
+
+    def done(self) -> bool:
+        """Whether a rank has returned from the running task."""
+        return bool(self._got)
+
+    def finish(self, timeout_s: Optional[float] = None,
+               on_post: Optional[Callable] = None) -> List[Any]:
+        """Wait for the running task's results (see :meth:`run`)."""
+        return self._collect(self._what, self.timeout_s if timeout_s is None
+                             else float(timeout_s), on_post)
+
+    def run(self, fn: Callable, *args, timeout_s: Optional[float] = None,
+            on_post: Optional[Callable] = None, **kwargs) -> List[Any]:
+        """``fn(*args, **kwargs)`` on every rank; waits ``timeout_s``
+        (default :func:`mesh_timeout_s`; ``math.inf`` for none). The task's
+        posts go to ``on_post(rank, payload)`` as they come."""
+        self.start(fn, *args, **kwargs)
+        return self.finish(timeout_s, on_post)
 
     def close(self) -> None:
         """Stop every rank: ask them to finish, then terminate and kill the
@@ -414,7 +586,8 @@ def current_backend() -> Optional[str]:
     return str(dist.get_backend()).lower()
 
 
-__all__ = ["RankPool", "choose_backend", "current_backend",
+__all__ = ["RankError", "RankPool", "channel", "choose_backend",
+           "current_backend",
            "determine_master", "global_mesh", "initialize", "launch",
            "local_rows", "mesh_timeout_s", "process_local_batch",
            "rank_device"]

@@ -13,6 +13,25 @@ given one launches that many local ranks (:func:`.distributed.launch`).
 Inside one, :meth:`Mesh.bind` makes it the mesh that named collectives
 (:mod:`.collectives`) and ring attention resolve their axis names against —
 the counterpart of running inside ``shard_map``.
+
+Serving over a mesh (``Trainer.predict_fn(mesh=)``, ``core.make_predict_fn``,
+``SparkAsyncDLModel(meshShape="dp=N")``, ``InferenceEngine(mesh=)``) runs in
+ONE process, data-parallel only — JAX's jitted program with the batch
+sharded over the batch axes and the parameters replicated:
+
+- the process holds one parameter copy per dp shard (:func:`dp_copies`:
+  shard 0 the tree it was given);
+- shard ``r`` lives on card ``r % device_count``, or on the CPU with
+  ``device="cpu"`` — the rule the ranks use, so ``dp=2`` on a one-card
+  machine puts both copies on that card (:func:`serving_devices`);
+- a batch pads up to a dp multiple and splits into dp contiguous row
+  blocks (block ``r`` is what ``P('dp')`` hands device ``r``);
+- each block runs the unchanged forward on its copy, and the outputs are
+  concatenated (:func:`dp_apply`) and trimmed.
+
+JAX refuses a serving mesh that needs more devices than it sees; the rank
+rule lets one card hold every copy. A mesh axis other than the batch axes
+(``tp``, ``fsdp``, ``ep``, ``pp``) is refused (:func:`serving_dp`).
 """
 
 from __future__ import annotations
@@ -215,10 +234,16 @@ def as_mesh(mesh) -> Optional[Mesh]:
                     f"sizes, or None; got {type(mesh).__name__}")
 
 
-def default_mesh(axis: str = "dp") -> Optional[Mesh]:
-    """All local cards on one data-parallel axis; None on a single card or
-    none (one process is faster than a one-rank mesh)."""
+def default_mesh(axis: str = "dp", device=None) -> Optional[Mesh]:
+    """All local cards on one data-parallel axis, for a fit on ``device``
+    (``None`` or ``"cuda"``: every card); None on a single card or none (one
+    process is faster than a one-rank mesh), and when ``device`` is the CPU
+    or names one card, since the fit then uses no other."""
     import torch
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cpu" or device.index is not None:
+            return None
     n = torch.cuda.device_count()
     if n <= 1:
         return None
@@ -262,6 +287,75 @@ def parse_mesh_shape(s: str) -> Dict[str, int]:
     return axes
 
 
+# ---------------------------------------------------------------------------
+# Serving over a dp mesh, in one process (the rule of the module docstring)
+# ---------------------------------------------------------------------------
+
+
+def serving_dp(mesh, sharding=None) -> int:
+    """How many row blocks a one-process serving path splits a batch into:
+    the product of the sharding config's batch axes on ``mesh`` (a
+    :class:`Mesh` or a dict of sizes). Any other axis of size > 1 is
+    refused: serving shards the batch only."""
+    from ..sharding import as_sharding_config
+    mesh = as_mesh(mesh)
+    cfg = as_sharding_config(sharding)
+    axes = cfg.batch_axes(mesh)
+    bad = [a for a in mesh.axis_names if a not in axes and mesh.shape[a] > 1]
+    if bad:
+        raise NotImplementedError(
+            f"serving over mesh axes {bad} (model-parallel) is not yet "
+            f"ported to PyTorch (see ROADMAP.md, queue 1 item 7); a serving "
+            f"mesh shards the batch over {list(axes) or ['dp']} only")
+    return mesh.axis_size(axes) if axes else 1
+
+
+def serving_devices(count: int, device) -> list:
+    """The devices of ``count`` serving copies: copy ``r`` on card ``r %
+    device_count``, or every copy on the CPU when ``device`` is the CPU."""
+    import torch
+    from .distributed import rank_device
+    kind = torch.device(device).type
+    return [torch.device(rank_device(r, kind)) for r in range(count)]
+
+
+def model_on(model, device):
+    """``model`` computing on ``device``: itself when it is there, else a
+    shallow copy whose ``device`` is ``device`` (the copies share the
+    model's structure; parameters come with each call)."""
+    import copy
+    import torch
+    device = torch.device(device)
+    if model.device == device:
+        return model
+    other = copy.copy(model)
+    other.device = device
+    return other
+
+
+def dp_copies(tree, devices) -> list:
+    """The parameters of each serving shard (see :func:`serving_devices`):
+    shard 0 serves ``tree`` itself, which lives on ``devices[0]`` (the
+    model's device), shard ``r`` a copy on ``devices[r]``."""
+    import torch
+    from ..optimizers_sharded import state_map
+    return [tree] + [state_map(lambda t: t.detach().to(d, copy=True)
+                               if torch.is_tensor(t) else t, tree)
+                     for d in devices[1:]]
+
+
+def dp_apply(apply, copies, xs):
+    """The serving rule's forward: ``xs`` (a tuple of inputs whose rows
+    divide over the copies) split into one contiguous row block per copy,
+    ``apply(r, copies[r], block)`` on each, and the outputs concatenated on
+    copy 0's device."""
+    import torch
+    b = xs[0].shape[0] // len(copies)
+    outs = [apply(r, p, tuple(a[r * b:(r + 1) * b] for a in xs))
+            for r, p in enumerate(copies)]
+    return torch.cat([o.to(outs[0].device) for o in outs])
+
+
 __all__ = ["Mesh", "as_mesh", "bound_mesh", "current_mesh", "default_mesh",
-           "make_mesh",
-           "mesh_axis_size", "parse_mesh_shape"]
+           "dp_apply", "dp_copies", "make_mesh", "mesh_axis_size",
+           "model_on", "parse_mesh_shape", "serving_devices", "serving_dp"]

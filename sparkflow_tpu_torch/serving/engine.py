@@ -22,8 +22,7 @@ first run outside warmup is counted in ``fallback_compiles``, so the
 steady-state contract ("no first-time work after warmup") reads the same.
 ``stats()`` keeps every key of the JAX engine's; those with no counterpart
 read as the JAX engine reports them with the feature off: ``traces`` and
-``steady_traces`` 0 (nothing is traced), ``mesh`` None, ``tp`` / ``ep`` 1,
-and ``sharding`` the JAX default config's description.
+``steady_traces`` 0 (nothing is traced) and ``tp`` / ``ep`` 1.
 
 Cold start (:mod:`~sparkflow_tpu_torch.serving.coldstart`): what a fresh
 replica compiles is the kernel library, not executables, so
@@ -35,8 +34,17 @@ best tier there is and reports it under ``stats()["cold_start"]`` (JAX's
 ``source``, ``library`` and ``boot_s``) and ``stats()["compile_cache"]``
 (``dir`` / ``hits`` / ``misses``).
 
-Not yet ported, refused with a ``ValueError`` naming ROADMAP.md: ``mesh`` /
-``sharding`` (model-parallel and data-parallel serving, queue 1 item 7).
+Data-parallel serving (``mesh``, a :class:`~..parallel.mesh.Mesh` or a
+dict of sizes; ``sharding`` for its data / dcn axes) follows the serving
+rule of :mod:`~sparkflow_tpu_torch.parallel.mesh`, in this process: one
+parameter copy per dp shard, copy ``r`` on card ``r % device_count`` (or
+the CPU). A bucket that divides dp splits into dp row blocks, one per copy;
+a smaller bucket runs on copy 0. :meth:`warmup` runs every bucket on every
+copy, a hot swap places the new tree on every copy before the flip,
+``quantize`` quantizes once and copies the int8 tree, and ``stats()["mesh"]``
+is the mesh's shape. Not yet ported, refused with a ``ValueError`` naming
+ROADMAP.md queue 1 item 7: model-parallel serving (``sharding`` with
+``tp_axis`` / ``ep_axis``, or a mesh axis other than the batch axes).
 """
 
 from __future__ import annotations
@@ -58,12 +66,6 @@ from .coldstart import (ExecutableStore, boot_kernels, cold_start_stats,
                         compile_cache_stats)
 
 __all__ = ["InferenceEngine"]
-
-# what the JAX engine's stats()["sharding"] reads with no sharding config
-_DEFAULT_SHARDING = {"data_axis": "dp", "dcn_axis": None, "zero_stage": 0,
-                     "param_axes": "auto", "offload_opt_state": False,
-                     "tp_axis": None, "ep_axis": None, "pp_axis": None}
-
 
 def _bucket_ladder(max_batch: int) -> List[int]:
     """1, 2, 4, ... up to max_batch (max_batch itself always included, so a
@@ -128,7 +130,8 @@ class InferenceEngine:
         The kernel build directory the library is looked up and built in,
         in place of ``ops/_build/`` or ``SPARKFLOW_TORCH_KERNEL_DIR``.
     mesh, sharding
-        Not yet ported (see the module docstring).
+        Data-parallel serving over weight copies (see the module
+        docstring); model-parallel axes are not yet ported.
     """
 
     def __init__(self, graph, weights=None, *,
@@ -147,16 +150,33 @@ class InferenceEngine:
                  executable_dir: Optional[str] = None,
                  metrics: Optional[metrics_mod.Metrics] = None,
                  device=None):
-        for name, value in (("mesh", mesh), ("sharding", sharding)):
-            if value is not None:
-                _not_yet(f"{name}={value!r}", "serving over a device mesh, "
-                         "queue 1 item 7")
+        from ..sharding import as_sharding_config
+        self.sharding = as_sharding_config(sharding)
+        if self.sharding.model_parallel():
+            _not_yet(f"sharding={sharding!r}", "tensor / expert-parallel "
+                     "serving, queue 1 item 7")
+        self.mesh = None
+        dp = 1
+        if mesh is not None:
+            from ..parallel.mesh import as_mesh, serving_dp
+            self.mesh = as_mesh(mesh)
+            # a typo'd axis fails here, not on the first request
+            self.sharding.validate(self.mesh, require_data_axis=False)
+            try:
+                dp = serving_dp(self.mesh, self.sharding)
+            except NotImplementedError as e:
+                _not_yet(f"mesh={dict(self.mesh.shape)!r}", str(e))
         if isinstance(graph, str):
             from ..models import model_from_json
             self.model = model_from_json(graph, compute_dtype, device=device)
         else:
             self.model = graph
         self.device = self.model.device
+        # the serving rule (parallel/mesh.py): one copy per dp shard
+        from ..parallel.mesh import model_on, serving_devices
+        self.dp = dp
+        self._devices = serving_devices(dp, self.device)
+        self._models = [model_on(self.model, d) for d in self._devices]
         self.input_name = input_name
         self.output_name = output_name
         self.dropout_name = dropout_name
@@ -183,7 +203,7 @@ class InferenceEngine:
             if quantize not in MODES:
                 raise ValueError(f"quantize must be one of {MODES} (or None), "
                                  f"got {quantize!r}")
-        self._params = self._place_params(params)
+        self._copies = self._place_params(params)
 
         self._in_shapes, self._in_dtypes = self._input_layouts()
         self.buckets = _bucket_ladder(self.max_batch)
@@ -243,19 +263,28 @@ class InferenceEngine:
                                   device=self.device)
         return params_tree(self.model, weights, self.device)
 
-    def _place_params(self, params):
+    def _place_params(self, params) -> list:
         """Quantize one standard-layout tree into this engine's serving
-        form. The ctor and every hot swap run exactly this path, so a
-        swapped tree lands bit-identical to a cold start."""
+        form, one copy per dp shard (the tree itself on one device). The
+        ctor and every hot swap run exactly this path, so a swapped tree
+        lands bit-identical to a cold start."""
         if self.quantize:
             from ..utils.quant import quantize_for_serving
             params = quantize_for_serving(self.model, params, self.quantize,
                                           self._quant_min_size)
-        return params
+            for m in self._models:
+                m.quant_mode = self.quantize
+        from ..parallel.mesh import dp_copies
+        return dp_copies(params, self._devices)
 
     def _snapshot_params(self):
+        """The serving tree of copy 0 (the only one without a mesh)."""
         with self._stats_lock:
-            return self._params
+            return self._copies[0]
+
+    def _snapshot_copies(self) -> list:
+        with self._stats_lock:
+            return self._copies
 
     def _input_layouts(self) -> Tuple[List[Tuple[int, ...]], List[Any]]:
         specs = self.model.input_specs()
@@ -275,28 +304,45 @@ class InferenceEngine:
 
     # -- the forward ---------------------------------------------------------
 
-    def _apply(self, params, xs: Tuple[np.ndarray, ...]) -> torch.Tensor:
-        """One bucket's forward on the device; ``xs`` padded numpy rows."""
-        feeds = {k: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _apply(self, params, xs: Tuple[np.ndarray, ...],
+               copy: int = 0) -> torch.Tensor:
+        """One forward on copy ``copy``'s device (the engine's device for
+        copy 0); ``xs`` padded numpy rows."""
+        model = self._models[copy]
+        dev = model.device
+        feeds = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                  for k, a in zip(self._in_keys, xs)}
         if self.dropout_name:
             feeds[self.dropout_name.split(":")[0]] = torch.tensor(
-                self.dropout_value, dtype=torch.float32, device=self.device)
+                self.dropout_value, dtype=torch.float32, device=dev)
         with torch.inference_mode():
-            return self.model.apply(params, feeds, [self.output_name],
-                                    train=False)[self.output_name]
+            return model.apply(params, feeds, [self.output_name],
+                               train=False)[self.output_name]
+
+    def _forward(self, copies, xs, bucket: int) -> np.ndarray:
+        """A bucket's forward: split into one row block per copy when the
+        bucket divides dp, else on copy 0."""
+        if self.dp == 1 or bucket % self.dp:
+            return _to_numpy(self._apply(copies[0], xs))
+        from ..parallel.mesh import dp_apply
+        return _to_numpy(dp_apply(
+            lambda r, p, block: self._apply(p, block, r), copies, xs))
 
     def warmup(self) -> None:
-        """Run every bucket once on the device (zeros rows). Idempotent;
-        after it returns, no request size meets first-time work."""
+        """Run every bucket once on every copy (zeros rows: the block a
+        copy gets of a sharded bucket, the whole bucket otherwise).
+        Idempotent; after it returns, no request size meets first-time
+        work."""
         with self._compile_lock:
-            params = self._snapshot_params()
+            copies = self._snapshot_copies()
             for b in self.buckets:
                 if b not in self._warm:
-                    xs = tuple(np.zeros((b,) + shape, dtype)
+                    rows = b // self.dp if b % self.dp == 0 else b
+                    xs = tuple(np.zeros((rows,) + shape, dtype)
                                for shape, dtype in zip(self._in_shapes,
                                                        self._in_dtypes))
-                    _to_numpy(self._apply(params, xs))
+                    for r in range(self.dp):
+                        _to_numpy(self._apply(copies[r], xs, r))
                     self._warm.add(b)
                     self.aot_compiles += 1
 
@@ -338,7 +384,7 @@ class InferenceEngine:
             raise ValueError("multi-input arrays must share the batch dim")
         # one params snapshot per request: a concurrent hot swap never gives
         # a chunked request mixed versions — every chunk runs the same tree
-        params = self._snapshot_params()
+        params = self._snapshot_copies()
         if n == 0:
             probe = self._run(tuple(a[:0] for a in xs), 0, params,
                               probe_rows=1)
@@ -371,7 +417,7 @@ class InferenceEngine:
         # torch.profiler captures
         with obs_span("serving/engine_apply", args={"bucket": bucket},
                       profiler_annotation=True):
-            out = _to_numpy(self._apply(params, xs))
+            out = self._forward(params, xs, bucket)
         return out[:n]
 
     # -- live weight hot-swap ------------------------------------------------
@@ -394,9 +440,10 @@ class InferenceEngine:
         faults.fire("engine.swap")  # chaos hook; no-op unless armed
         params = self._load_params(weights)
         check_template(params, self._weights_template)
-        placed = self._place_params(params)  # old tree still serving
+        placed = self._place_params(params)  # old trees still serving
         with self._stats_lock:
-            self._params = placed  # the swap: one reference assignment
+            # the swap: every copy placed, then one flip
+            self._copies = placed
             v = (int(version) if version is not None
                  else self._serving_version + 1)
             self._serving_version = v
@@ -419,11 +466,11 @@ class InferenceEngine:
         with self._stats_lock:
             requests, rows = self._requests, self._rows
             serving_version, swaps = self._serving_version, self._swaps
-            params = self._params
+            params = self._copies[0]
         return {"buckets": list(self.buckets),
                 "serving_version": serving_version,
                 "swaps": swaps,
-                "sharding": dict(_DEFAULT_SHARDING),
+                "sharding": self.sharding.describe(),
                 "aot_compiles": self.aot_compiles,
                 "fallback_compiles": self.fallback_compiles,
                 "traces": 0,
@@ -434,7 +481,8 @@ class InferenceEngine:
                                                      self.boot),
                 "cold_start": cold_start_stats(self.exec_store, self.boot),
                 "quantize": self.quantize,
-                "mesh": None,
+                "mesh": (dict(self.mesh.shape) if self.mesh is not None
+                         else None),
                 "tp": 1,
                 "ep": 1,
                 "param_bytes_per_device": sum(

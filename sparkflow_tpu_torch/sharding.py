@@ -19,11 +19,12 @@ package's ``sharding.py``.
          forward; the gather's backward IS the reduce-scatter)
   ===== ==========================================================
 
-- ``param_axes``, ``offload_opt_state``, ``tp_axis`` / ``ep_axis`` /
-  ``pp_axis`` — parsed and validated with the JAX package's rules and
-  messages; a fit that activates a model-parallel axis, explicit
-  ``param_axes`` or ``offload_opt_state`` raises "not yet ported" (ROADMAP
-  queue 1, item 7).
+- ``offload_opt_state`` — a host mirror of a mesh fit's optimizer state,
+  refreshed behind each step (the trainer's ``_OffloadMirror``);
+- ``param_axes``, ``tp_axis`` / ``ep_axis`` / ``pp_axis`` — parsed and
+  validated with the JAX package's rules and messages; a fit that
+  activates a model-parallel axis or explicit ``param_axes`` raises "not
+  yet ported" (ROADMAP queue 1, item 7).
 
 In the port a rank holds plain local tensors, so there are no
 ``NamedSharding`` objects: :meth:`ShardingConfig.data_spec` and

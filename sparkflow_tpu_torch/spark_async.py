@@ -28,16 +28,21 @@ variable read, so it serves both as weight-only).
 
 ``meshShape`` on the estimator trains on a mesh of ranks (the JAX package's
 checks: ``sp`` needs ``fitMode="collect"``, a ``dp=1`` axis is added when
-``dp`` is absent): ``"dp=N"`` is synchronous data parallelism, with
-``weightUpdateSharding`` / ``zeroStage`` choosing the ZeRO stage, ``sp``
-sequence parallelism; the trainer launches the ranks (one card each, or
-sharing the card with gloo). Without ``meshShape`` the fit runs in this
-process on one card, however many the host has: only an explicit
-``meshShape`` launches ranks (the JAX estimator's ``default_mesh`` over every
-local card waits for ``fit_stream`` on a mesh, queue 1 item 7).
+``dp`` is absent): ``"dp=N"`` is synchronous data parallelism, in collect
+and stream mode, with ``weightUpdateSharding`` / ``zeroStage`` choosing the
+ZeRO stage, ``sp`` sequence parallelism; the trainer launches the ranks
+(one card each, or sharing the card with gloo). Without ``meshShape`` the
+fit runs over every local card on one ``dp`` axis, as JAX's does
+(``parallel.mesh.default_mesh``): in this process on a host with one card
+or none, and with ``device="cpu"`` (or one named card) on any host; one
+rank per card on a host with several — and spawned ranks re-import the main module, so a
+script keeps its top-level code under ``if __name__ == "__main__":``.
+``meshShape="dp=N"`` on the model stage serves each partition over N weight
+copies in this process (the serving rule of ``parallel/mesh.py``); its
+other axes are refused with the JAX package's message.
 Refused before any training with "not yet ported (see ROADMAP.md, queue 1
-item 7)": ``tp`` / ``fsdp`` / ``pp`` / ``ep`` axes, non-default
-``ppMicrobatches`` / ``ppSchedule``, and ``meshShape`` on the model stage.
+item 7)": ``tp`` / ``fsdp`` / ``pp`` / ``ep`` axes and non-default
+``ppMicrobatches`` / ``ppSchedule``.
 
 Also importable as :mod:`sparkflow_tpu_torch.tensorflow_async`.
 """
@@ -54,8 +59,8 @@ from .compat import (Estimator, HasInputCol, HasLabelCol, HasPredictionCol,
                      Identifiable, MLReadable, MLWritable, Model, Param, Params,
                      TypeConverters, keyword_only)
 from .localml.linalg import vector_to_array
-from .ml_util import (convert_weights_to_json, handle_features, predict_func,
-                      save_weights_npz)
+from .ml_util import (check_serving_mesh, convert_weights_to_json,
+                      handle_features, predict_func, save_weights_npz)
 from .pipeline_util import PysparkReaderWriter
 from .trainer import Trainer
 
@@ -146,8 +151,7 @@ class SparkAsyncDLModel(_OnDevice, Model, HasInputCol, HasPredictionCol,
     extraTfInputs = Param(Params._dummy(), "extraTfInputs", "", typeConverter=TypeConverters.toString)
     # JAX-package upgrades kept so persisted stages keep their shape:
     # int8-quantized serving ('' = off, 'weight_only', 'dynamic') and
-    # serving over a device mesh ("dp=8"; refused until mesh serving is
-    # ported)
+    # data-parallel serving over weight copies ("dp=8")
     inferenceQuantize = Param(Params._dummy(), "inferenceQuantize", "", typeConverter=TypeConverters.toString)
     meshShape = Param(Params._dummy(), "meshShape", "", typeConverter=TypeConverters.toString)
 
@@ -213,15 +217,23 @@ class SparkAsyncDLModel(_OnDevice, Model, HasInputCol, HasPredictionCol,
                 raise ValueError(
                     "inferenceQuantize must be one of %s (or unset), got %r"
                     % (list(MODES), quantize))
-        if _opt_param(self, self.meshShape):
-            _not_yet("serving over a device mesh (meshShape)")
+        mesh_shape = _opt_param(self, self.meshShape) or None
+        mesh_axes = None
+        if mesh_shape:
+            from .parallel.mesh import make_mesh, parse_mesh_shape
+            mesh_axes = parse_mesh_shape(mesh_shape)
+            check_serving_mesh(mesh_axes)
+            if mesh_axes["dp"] == -1:
+                # every local card (make_mesh's rule); more copies than
+                # cards share them (the serving rule, parallel/mesh.py)
+                mesh_axes = dict(make_mesh(mesh_axes).shape)
         device = self._device
         return dataset.rdd.mapPartitions(
             lambda x: predict_func(x, mod_json, out, mod_weights, inp, tf_output,
                                    tf_input, tf_dropout, to_keep_dropout,
                                    extra_cols=extra_cols or None,
                                    extra_inputs=extra_inputs or None,
-                                   quantize=quantize,
+                                   quantize=quantize, mesh_axes=mesh_axes,
                                    device=device)).toDF()
 
 
@@ -253,9 +265,10 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
     # the JAX package's upgrades over the reference param set, all kept so
     # persisted stages keep their shape: weightsPath (npz side-file weights),
     # extraInputCols/extraTfInputs (multi-input feeds), useEmaWeights,
-    # checkpointDir/checkpointEvery and fitMode='stream' are ported;
-    # meshShape, ppMicrobatches/ppSchedule and weightUpdateSharding/zeroStage
-    # are refused (see the module docstring)
+    # checkpointDir/checkpointEvery, fitMode='stream', dp / sp meshShape
+    # and weightUpdateSharding/zeroStage are ported; ppMicrobatches /
+    # ppSchedule and model-parallel axes are refused (see the module
+    # docstring)
     weightsPath = Param(Params._dummy(), "weightsPath", "", typeConverter=TypeConverters.toString)
     checkpointDir = Param(Params._dummy(), "checkpointDir", "", typeConverter=TypeConverters.toString)
     checkpointEvery = Param(Params._dummy(), "checkpointEvery", "", typeConverter=TypeConverters.toInt)
@@ -541,11 +554,13 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
 
     def _mesh(self, mesh_axes):
         """The fit's mesh: ``meshShape``'s axes (a ``-1`` axis takes the
-        local cards that are left), else ``None`` -- one card in this
-        process, whatever the host holds."""
+        local cards that are left), else every local card on one ``dp``
+        axis (``parallel.mesh.default_mesh``, as JAX's estimator) — None,
+        one process, on a host with one card or none, and for a fit on the
+        CPU or on one named card."""
+        from .parallel.mesh import Mesh, default_mesh, make_mesh
         if not mesh_axes:
-            return None
-        from .parallel.mesh import Mesh, make_mesh
+            return default_mesh(device=self._device)
         if any(v == -1 for v in mesh_axes.values()):
             return make_mesh(mesh_axes)
         return Mesh(mesh_axes)

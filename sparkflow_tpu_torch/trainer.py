@@ -55,26 +55,47 @@ its shard, collectives do the rest (:mod:`.parallel`). A mesh of ``dp``
 (and ``sharding.dcn_axis``) axes trains through
 :func:`~.parallel.dp.make_dp_train_step` at the resolved zero stage (0-3,
 the JAX trainer's ``_resolve_zero_stage`` rule; stage 0 too, where JAX
-uses its GSPMD program — the same semantics); a mesh with an ``sp`` axis
-trains a ``transformer_lm`` through :func:`~.parallel.sp.make_sp_train_step`
-(ring attention). Called inside an initialised process group the fit runs
-in place on this rank (SPMD, JAX's multi-host form); called outside one it
-launches ``mesh.size`` local ranks (:mod:`.parallel.distributed`), each
-rebuilding the model from the spec and the seed, and returns rank 0's
-result — ``loss_callback`` and ``verbose`` are then replayed here per epoch
-after the fit, and ``last_mesh_stats`` holds every rank's accounting (the
+uses its GSPMD program — the same semantics), in ``fit`` and in
+``fit_stream``; a mesh with an ``sp`` axis trains a ``transformer_lm``
+through :func:`~.parallel.sp.make_sp_train_step` (ring attention, ``fit``
+only, as in JAX). Called inside an initialised process group the fit runs
+in place on this rank (SPMD, JAX's multi-host form: a streaming fit then
+reads the same stream on every rank and keeps its own rows of each global
+batch); called outside one it launches ``mesh.size`` local ranks
+(:mod:`.parallel.distributed`), each rebuilding the model from the spec
+and the seed, and returns rank 0's result. A launched fit keeps a line to
+its ranks: rank 0 posts each epoch's loss (each step's in ``fit_stream``)
+and this process runs ``verbose``, the ``train/loss`` metric and
+``loss_callback`` live, then sends every rank its verdict — go on, restore
+the last checkpoint, or stop (a SIGTERM here, with a ``checkpoint_dir``)
+— when it has a callback or a ``checkpoint_dir``. ``fit_stream`` reads the
+stream here, assembles each global batch as one process would and sends
+each rank its rows; a "stop" goes ahead of the batches still queued. A
+launched rank waits for this process without a limit (a hung collective
+still times out) and exits when this process is gone. ``last_mesh_stats`` holds every rank's accounting (the
 backend, bytes moved, peak memory, kernel launches). Shuffles are the same
 on every rank; dropout draws from a generator per rank and step seeded
 from the fit's dropout stream folded with the rank's mesh indices.
 Parameters come back, and checkpoints are written, in the standard layout
-at every stage, so a fit saved at one stage resumes at any other; a rank
-whose step or collective fails fails the fit (no in-fit resume on a mesh).
+at every stage, so a fit saved at one stage resumes at any other.
+
+In-fit resume on a mesh (``fit``, with a ``checkpoint_dir``, up to
+``resume_retries`` times as on one card): a callback that raises here
+sends every rank "restore", and every rank restores the last checkpoint
+together; a rank that raises or dies stops its pool, and this process
+starts new ranks that resume from the directory. In place (``torchrun``) a
+failing rank fails the fit: restarting it is the launcher's job.
+
+``sharding.offload_opt_state`` (on a mesh; inert without one, as in JAX):
+the working optimizer state stays on the card and a mirror in pinned host
+memory is refreshed behind each step (each epoch in ``fit``) on a side
+stream; checkpoint saves, preemption and ``_last_opt_state`` read the
+mirror. Losses are bit-equal to the same fit without it.
 
 Not ported yet, and rejected with "not yet ported (see ROADMAP.md, queue 1
 item 7)": ``tp`` / ``fsdp`` / ``ep`` / ``pp`` mesh axes (and the same in
 ``sharding``), explicit ``param_sharding`` / ``param_axes`` pytrees,
-``offload_opt_state``, ``pp_*``, ``fit_stream`` and ``predict_fn`` on a
-mesh. ``debug_recompiles`` has
+``pp_*``. ``debug_recompiles`` has
 no counterpart: PyTorch runs eagerly, so there are no traces or compiles to
 count. ``graph`` is a registry spec, an ``nn`` graph-DSL spec, a TF1
 ``MetaGraphDef`` JSON (the reference's wire format), a
@@ -106,6 +127,7 @@ from .models.base import RegistryModel
 from .tf1_compat import TF1GraphModel
 from .optimizers import (GradientTransformation, build_optimizer,
                          extract_ema_params, tree_leaves, tree_map)
+from .optimizers_sharded import state_map
 from .sharding import ShardingConfig, as_sharding_config
 from .utils.metrics import default_metrics
 from .utils.preempt import NullGuard, PreemptionGuard
@@ -182,31 +204,256 @@ class _EpochTimer:
         return [(b - a) * 1e3 for a, b in self._spans]
 
 
-def _mesh_fit_rank(recipe: Dict[str, Any], features, labels, init_params,
-                   trace: bool) -> Dict[str, Any]:
-    """One launched rank of a mesh fit: rebuild the trainer from
-    ``recipe`` on this rank's device and fit in place. Rank 0 returns the
-    standard-layout params (numpy); every rank returns its accounting."""
+class _RestoreVerdict(Exception):
+    """A launched rank's order from its caller: restore the last checkpoint
+    and carry on (the caller's callback raised)."""
+
+
+def _rank_trainer(recipe: Dict[str, Any]) -> "Trainer":
+    """The trainer a launched rank rebuilds from ``recipe``, on this rank's
+    device, holding the line to its caller."""
     import torch.distributed as dist
-    from .parallel.distributed import rank_device
+    from .parallel.distributed import channel, rank_device
     kw = dict(recipe)
-    rank = dist.get_rank()
-    device = rank_device(rank, "cpu" if kw.pop("device_kind") == "cpu"
-                         else "cuda")
+    device = rank_device(dist.get_rank(), "cpu" if kw.pop("device_kind")
+                         == "cpu" else "cuda")
+    verdicts = kw.pop("verdicts")
     tr = Trainer(kw.pop("graph"), kw.pop("input_name"), kw.pop("label_name"),
                  device=device, **kw)
-    result = tr.fit(features, labels, init_params, trace_spans=trace)
+    tr._channel = channel()
+    tr._await_verdict = verdicts
+    return tr
+
+
+def _rank_result(tr: "Trainer", result: "TrainResult") -> Dict[str, Any]:
+    """What a launched rank returns: its accounting; rank 0 also the
+    standard-layout params (numpy), the EMA weights and its step stats."""
+    import torch.distributed as dist
     out = {"mesh_stats": tr.last_mesh_stats, "losses": result.losses,
-           "epochs": tr._epoch_keys,
+           "epochs": tr._epoch_keys, "resumed_from": tr._resumed_from,
            "examples_per_sec": result.examples_per_sec,
            "stop_reason": result.stop_reason, "zero_stage": tr._zero_stage}
-    if rank == 0:
+    if dist.get_rank() == 0:
         to_np = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
         ema = tr.ema_weights() if tr._zero_stage == 0 else None
         out.update(params=tree_map(to_np, result.params),
                    ema=tree_map(to_np, ema) if ema is not None else None,
                    step_stats=tr.last_step_stats)
     return out
+
+
+def _mesh_fit_rank(recipe: Dict[str, Any], features, labels, init_params,
+                   trace: bool) -> Dict[str, Any]:
+    """One launched rank of a mesh fit: rebuild the trainer from
+    ``recipe`` on this rank's device and fit in place."""
+    tr = _rank_trainer(recipe)
+    return _rank_result(tr, tr.fit(features, labels, init_params,
+                                   trace_spans=trace))
+
+
+def _mesh_stream_rank(recipe: Dict[str, Any], init_params,
+                      batch: int) -> Dict[str, Any]:
+    """One launched rank of a streaming mesh fit: this rank's rows of each
+    global batch come from the caller until it sends the end. A "stop"
+    goes ahead of the batches queued before it."""
+    tr = _rank_trainer(recipe)
+    chan = tr._channel
+
+    def events():
+        while True:
+            msg = chan.take("stop") or chan.recv()
+            if msg[0] == "end":
+                return
+            yield msg
+
+    with tr.mesh.bind():
+        result = tr._stream_loop(events(), init_params, batch, rows=None)
+    return _rank_result(tr, result)
+
+
+class _OffloadMirror:
+    """``offload_opt_state``: the optimizer state's home is host memory,
+    refreshed behind the compute. The working state stays on the card;
+    after each step (each epoch in ``fit``) an event is recorded on the
+    compute stream and ``non_blocking`` copies of every state leaf into
+    pinned host buffers are enqueued on a side stream behind it, so the
+    transfer runs under the next step. Readers (checkpoint saves,
+    preemption, the fit's ``_last_opt_state``) wait on the copy's event and
+    read the mirror. No value goes through the host on its way to the next
+    step, so the numerics are those of the fit without it."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.done = None
+        self.host = None
+        self._bufs: Dict[int, torch.Tensor] = {}
+
+    def refresh(self, opt_state) -> None:
+        if self.cuda:
+            step_done = torch.cuda.Event()
+            step_done.record()
+            self.stream.wait_event(step_done)
+        slot = itertools.count()
+
+        def copy(leaf):
+            if not torch.is_tensor(leaf):
+                return leaf
+            k = next(slot)
+            buf = self._bufs.get(k)
+            if (buf is None or buf.shape != leaf.shape
+                    or buf.dtype != leaf.dtype):
+                buf = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                  pin_memory=self.cuda)
+                self._bufs[k] = buf
+            if self.cuda:
+                # the allocator keeps the leaf's block until the copy ends
+                leaf.record_stream(self.stream)
+            buf.copy_(leaf, non_blocking=self.cuda)
+            return buf
+
+        with (torch.cuda.stream(self.stream) if self.cuda
+              else contextlib.nullcontext()):
+            self.host = state_map(copy, opt_state)
+        if self.cuda:
+            self.done = torch.cuda.Event()
+            self.done.record(self.stream)
+
+    def read(self):
+        """The host mirror once its copies have landed (None before the
+        first refresh)."""
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host
+
+    def wrap(self, fn: Callable) -> Callable:
+        """``fn(params, opt_state, ...) -> (params, opt_state, out)`` with a
+        refresh enqueued after each call."""
+
+        def refreshed(params, opt_state, *rest):
+            params, opt_state, out = fn(params, opt_state, *rest)
+            self.refresh(opt_state)
+            return params, opt_state, out
+
+        return refreshed
+
+
+class _FitState:
+    """What a fit carries between steps: params and optimizer state in this
+    rank's layout (the ZeRO rows on a mesh), the ``(shuffle, dropout)``
+    generators, the checkpoint manager and, with ``offload_opt_state``, the
+    host mirror. Saves and restores go through the standard layout, so a
+    checkpoint restores at any stage. Every rank of a mesh calls
+    :meth:`save` and :meth:`restore_latest` at the same points: both run
+    collectives."""
+
+    def __init__(self, tr: "Trainer", init_params, strategy: str):
+        self.tr = tr
+        mesh = tr.mesh
+        params = tr._initial_params(init_params)
+        tr._zero_stage = tr._resolve_zero_stage(strategy, params)
+        tr._zero1_active = tr._zero_stage >= 1
+        tr._zero3_template = None
+        with torch.no_grad():
+            if tr._zero1_active:
+                # the global zero state (init over the flat [dp, s] view),
+                # of which this rank keeps its row
+                from .optimizers_sharded import (place_zero1_state,
+                                                 sharded_update)
+                dp_n, dp_ax = tr._dp_size(), tr._data_axis()
+                opt_state = place_zero1_state(
+                    sharded_update(tr.optimizer, dp_n, dp_ax).init(params),
+                    mesh, dp_n, dp_ax)
+            else:
+                opt_state = tr.optimizer.init(params)
+            if tr._zero_stage >= 3:
+                tr._zero3_template = tree_map(
+                    lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)
+                params = tr._params_from_ckpt(params)
+        self.params, self.opt_state = params, opt_state
+        self.gens = tr._generators()
+        tr._offload_active = bool(tr.sharding is not None
+                                  and tr.sharding.offload_opt_state
+                                  and mesh is not None)
+        self.mirror = (_OffloadMirror(tr.device) if tr._offload_active
+                       else None)
+        self.start = 0
+        self.mgr, self.like, restored = (
+            tr._open_checkpoints(*self.std(), self.gens)
+            if tr.checkpoint_dir else (None, None, None))
+        if restored is not None:
+            self._install(restored)
+
+    def _opt_at_rest(self):
+        """The optimizer state a reader takes: the host mirror under
+        offload when the standard-layout gather can run on host tensors (no
+        gather, or gloo), else the working state."""
+        if self.mirror is not None:
+            from .parallel.distributed import current_backend
+            host = self.mirror.read()
+            if host is not None and (not self.tr._zero1_active
+                                     or current_backend() == "gloo"):
+                return host
+        return self.opt_state
+
+    def std(self):
+        """``(params, opt_state)`` in the standard layout (a collective on a
+        zero mesh)."""
+        std_p = self.tr._params_to_ckpt(self.params)
+        return std_p, self.tr._opt_to_ckpt(std_p, self._opt_at_rest())
+
+    def save(self, at: int) -> None:
+        std_p, std_o = self.std()
+        if self.tr._chief():
+            self.mgr.save(at, self.tr._ckpt_state(std_p, std_o, at,
+                                                  self.gens))
+        if self.tr.mesh is not None:
+            # no rank reads the directory before the save is committed
+            from .parallel.collectives import barrier
+            barrier()
+
+    def _install(self, restored) -> None:
+        params, opt_state, self.start = restored
+        if self.tr.mesh is not None:
+            with torch.no_grad():
+                opt_state = self.tr._opt_from_ckpt(params, opt_state)
+                params = self.tr._params_from_ckpt(params)
+        self.params, self.opt_state = params, opt_state
+
+    def restore_latest(self) -> Optional[int]:
+        """Restore the newest valid checkpoint (every rank together, after
+        a barrier: rank 0 wrote it) and return its epoch; None without
+        one."""
+        if self.tr.mesh is not None and _in_group():
+            from .parallel.collectives import barrier
+            barrier()
+        state = self.mgr.restore(like=self.like)
+        if state is None:
+            return None
+        self._install(self.tr._restore(state, self.like, self.gens))
+        return self.start
+
+    def finish(self):
+        """``(params, opt_state)`` to keep after the fit: params in the
+        standard layout (installed on the model), the optimizer state read
+        from the host mirror under offload."""
+        tr = self.tr
+        params = self.params
+        if tr._zero_stage >= 3:
+            params = tr.model.load_params(tr._params_to_ckpt(params),
+                                          trainable=True)
+        host = self.mirror.read() if self.mirror is not None else None
+        return (tree_map(lambda p: p.detach(), params),
+                self.opt_state if host is None else host)
+
+
+def _host_tree(tree):
+    """A params tree as numpy, for a launched rank (None stays None)."""
+    if tree is None:
+        return None
+    return tree_map(lambda a: (a.detach().cpu().numpy() if torch.is_tensor(a)
+                               else np.asarray(a)), tree)
 
 
 def _state_to_ckpt(leaf):
@@ -343,9 +590,6 @@ class Trainer:
                          "pp_axis)")
             if self.sharding.param_axes not in ("auto", None):
                 _not_yet("explicit ShardingConfig.param_axes pytrees")
-            if self.sharding.offload_opt_state:
-                _not_yet("offload_opt_state (optimizer state homed in "
-                         "pinned host memory)")
         # a mesh fit's collective backend: None picks by the rule of
         # parallel.distributed.choose_backend; an explicit one that cannot
         # be honoured raises
@@ -356,6 +600,14 @@ class Trainer:
         self.last_mesh_stats: Optional[Dict[str, Any]] = None
         self._launch_ema = None
         self._launched_step_stats = None
+        self._offload_active = False
+        # a launched rank's line to its caller (parallel.distributed), and
+        # whether it waits for the caller's verdict after each post
+        self._channel = None
+        self._await_verdict = False
+        self._ctl_stop = False        # the caller's "stop"
+        self._resumed_from = 0
+        self._epoch_keys: List[int] = []
         # training strategy: None/'sync' is the synchronous loop below;
         # 'elastic_dp' routes fit() through parallel.elastic — bounded-
         # staleness async replicas over a versioned parameter store (the
@@ -528,8 +780,7 @@ class Trainer:
         ``rng_impl`` the stream's name as ASCII bytes."""
         rng = np.concatenate([g.get_state().numpy() for g in gens])
         return {"params": params,
-                "opt_state": _tree_zip(lambda leaf, _same: _state_to_ckpt(
-                    leaf), opt_state, opt_state),
+                "opt_state": state_map(_state_to_ckpt, opt_state),
                 "epoch": np.int64(step), "rng": rng,
                 "rng_impl": np.frombuffer(RNG_IMPL.encode(), np.uint8).copy()}
 
@@ -862,13 +1113,14 @@ class Trainer:
         return step_fn, rows
 
     def _stop_requested(self, guard) -> bool:
-        """The preemption flag; on a mesh, raised on any rank stops every
-        rank at the same epoch (one small all-reduce an epoch, only when
-        the fit checkpoints)."""
+        """The preemption flag, or a launched rank's "stop" from its caller;
+        on a mesh, raised on any rank stops every rank at the same epoch
+        (one small all-reduce an epoch, only when the fit checkpoints)."""
         if self.mesh is None or isinstance(guard, NullGuard):
-            return guard.requested
+            return guard.requested or self._ctl_stop
         from .parallel import collectives
-        flag = torch.tensor([float(guard.requested)], device=self.device)
+        flag = torch.tensor([float(guard.requested or self._ctl_stop)],
+                            device=self.device)
         return bool(collectives.psum({"f": flag},
                                      self.mesh.axis_names)["f"].item() > 0)
 
@@ -954,11 +1206,11 @@ class Trainer:
                 "strategy": strategy, "zero_stage": self._zero_stage,
                 "world": self.mesh.size, "launched": False, "ranks": [me]}
 
-    def _fit_launched(self, features, labels, init_params) -> TrainResult:
-        """A mesh fit outside a process group: start ``mesh.size`` local
-        ranks, fit in place on each, and take rank 0's result."""
-        from .parallel.distributed import RankPool
-        recipe = dict(self._recipe, verbose=0, device_kind=self.device.type)
+    def _launch_recipe(self, verdicts: bool) -> Dict[str, Any]:
+        """What each launched rank rebuilds this trainer from; refuses what
+        a rank cannot rebuild."""
+        recipe = dict(self._recipe, verbose=0, device_kind=self.device.type,
+                      verdicts=verdicts)
         if recipe["graph"] is None:
             raise ValueError(
                 "a mesh fit outside a process group launches its ranks, and "
@@ -971,21 +1223,20 @@ class Trainer:
                 "each rebuilds the optimizer: pass it by name (optimizer=, "
                 "learning_rate=, optimizer_options=) — or run the fit "
                 "inside an initialised group (torchrun)")
-        if init_params is not None:
-            init_params = tree_map(lambda a: (a.detach().cpu().numpy()
-                                              if torch.is_tensor(a)
-                                              else np.asarray(a)),
-                                   init_params)
-        trace = self._step_stats is not None
-        # a fit may run for as long as it needs: the wait is unbounded, and
-        # a hang still ends it, since every rank's collectives time out
-        # after mesh_timeout_s() and a rank that fails or dies stops the pool
-        t0 = time.perf_counter()
-        with RankPool(self.mesh.size, device=self.device.type,
-                      backend=self.backend) as pool:
-            results = pool.run(_mesh_fit_rank, recipe, features, labels,
-                               init_params, trace, timeout_s=math.inf)
-        wall = time.perf_counter() - t0
+        return recipe
+
+    def _live_loss(self, it: int, loss_val: float) -> None:
+        """What the one-card loop does with an epoch's (a stream step's)
+        loss, for a launched fit's post: ``verbose``, the ``train/loss``
+        metric and ``loss_callback`` (which may raise)."""
+        if self.verbose:
+            logger.info("iteration %d loss %f", it, loss_val)
+        self.metrics.scalar("train/loss", loss_val, step=it)
+        if self.loss_callback is not None:
+            self.loss_callback(loss_val, it, 0)
+
+    def _take_launched(self, results: List[Dict[str, Any]]) -> Dict[str, Any]:
+        """Install rank 0's result of a launched fit on this trainer."""
         r0 = results[0]
         self.params = tree_map(lambda p: p.detach(), self.model.load_params(
             tree_map(lambda a: torch.as_tensor(a).to(self.device),
@@ -996,18 +1247,89 @@ class Trainer:
         self._launch_ema = (tree_map(lambda a: torch.as_tensor(a).to(
             self.device), r0["ema"]) if r0["ema"] is not None else None)
         self._launched_step_stats = r0["step_stats"]
-        stats = dict(r0["mesh_stats"], launched=True,
-                     ranks=[r["mesh_stats"]["ranks"][0] for r in results])
-        self.last_mesh_stats = stats
-        for it, loss_val in zip(r0["epochs"], r0["losses"]):
-            # the ranks ran without callbacks: replay them per epoch
-            if self.verbose:
-                logger.info("iteration %d loss %f", it, loss_val)
-            self.metrics.scalar("train/loss", loss_val, step=it)
-            if self.loss_callback is not None:
-                self.loss_callback(loss_val, it, 0)
-        return TrainResult(self.params, r0["losses"], r0["examples_per_sec"],
-                           wall, stop_reason=r0["stop_reason"])
+        self.last_mesh_stats = dict(
+            r0["mesh_stats"], launched=True,
+            ranks=[r["mesh_stats"]["ranks"][0] for r in results])
+        return r0
+
+    def _fit_launched(self, features, labels, init_params) -> TrainResult:
+        """A mesh fit outside a process group: start ``mesh.size`` local
+        ranks, fit in place on each, and take rank 0's result. The loss
+        posts run the callbacks here, live; with a callback or a
+        ``checkpoint_dir`` each post waits for this process's verdict. A
+        callback that raises restores the last checkpoint on every rank, a
+        rank that fails or dies restarts the ranks on the checkpoint
+        directory — each up to ``resume_retries`` times in all."""
+        from .parallel.distributed import RankError, RankPool
+        verdicts = (self.loss_callback is not None
+                    or bool(self.checkpoint_dir))
+        recipe = self._launch_recipe(verdicts)
+        init_params = _host_tree(init_params)
+        trace = self._step_stats is not None
+        retries = {"left": self.resume_retries if self.checkpoint_dir
+                   else 0}
+        live: Dict[int, float] = {}   # epoch -> rank 0's posted loss
+        guard = (PreemptionGuard() if self.checkpoint_dir else NullGuard())
+        pool = None
+
+        def on_post(_rank, msg):
+            _kind, it, loss_val = msg
+            live[it] = loss_val
+            verdict = "go"
+            try:
+                self._live_loss(it, loss_val)
+            except Exception as e:  # noqa: BLE001 - judged below
+                if not (retries["left"] > 0 and self._has_checkpoint()):
+                    raise
+                retries["left"] -= 1
+                verdict = "restore"
+                logger.warning(
+                    "training failure at iteration %d (%s: %s); every rank "
+                    "restores the last checkpoint (%d retries left)", it,
+                    type(e).__name__, e, retries["left"])
+            if verdict == "go" and guard.requested:
+                verdict = "stop"
+            if verdicts:
+                pool.broadcast(("verdict", verdict))
+
+        # a fit may run for as long as it needs: the wait is unbounded, and
+        # a hang still ends it, since every rank's collectives time out
+        # after mesh_timeout_s() and a rank that fails or dies stops the pool
+        t0 = time.perf_counter()
+        with guard:
+            while True:
+                try:
+                    with RankPool(self.mesh.size, device=self.device.type,
+                                  backend=self.backend) as pool:
+                        results = pool.run(_mesh_fit_rank, recipe, features,
+                                           labels, init_params, trace,
+                                           timeout_s=math.inf,
+                                           on_post=on_post)
+                    break
+                except RankError as e:
+                    if retries["left"] <= 0:
+                        raise
+                    retries["left"] -= 1
+                    logger.warning(
+                        "a rank failed (%s); starting new ranks that resume "
+                        "from %s (%d retries left)", str(e).splitlines()[0],
+                        self.checkpoint_dir, retries["left"])
+        wall = time.perf_counter() - t0
+        r0 = self._take_launched(results)
+        # epochs before the last run's resume point come from the posts of
+        # the runs before it; the rest from rank 0's result
+        start = r0["resumed_from"]
+        losses = dict((k, v) for k, v in live.items() if k <= start)
+        losses.update(zip(r0["epochs"], r0["losses"]))
+        self._epoch_keys = sorted(losses)
+        return TrainResult(self.params, [losses[k] for k in self._epoch_keys],
+                           r0["examples_per_sec"], wall,
+                           stop_reason=r0["stop_reason"])
+
+    def _has_checkpoint(self) -> bool:
+        from .checkpoint import CheckpointManager
+        return bool(self.checkpoint_dir
+                    and CheckpointManager(self.checkpoint_dir).all_steps())
 
     def _fit_impl(self, features, labels, init_params) -> TrainResult:
         multi = isinstance(features, tuple)
@@ -1081,66 +1403,36 @@ class Trainer:
             return self._fit_loop(multi, n, mode, batch, num_batches, x_pad,
                                   y_pad, mask, init_params, strategy, task)
 
+    def _report(self, it: int, loss_val: float) -> None:
+        """A launched rank's post of a step's loss (rank 0's), then, when
+        its caller asked for them, the caller's verdict: go on, "restore"
+        the last checkpoint, or "stop"."""
+        chan = self._channel
+        if chan.rank == 0:
+            chan.post(("loss", it, loss_val))
+        if self._await_verdict:
+            _kind, verdict = chan.recv("verdict")
+            if verdict == "restore":
+                raise _RestoreVerdict()
+            if verdict == "stop":
+                self._ctl_stop = True
+
     def _fit_loop(self, multi, n, mode, batch, num_batches, x_pad, y_pad,
                   mask, init_params, strategy, task) -> TrainResult:
         mesh = self.mesh
         chief = self._chief()
         dev = self.device
-        params = self._initial_params(init_params)
+        self._ctl_stop = False
         if mesh is not None:
             from .parallel import collectives
             collectives.reset_stats()
             launches0 = _launch_counts()
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-        self._zero_stage = self._resolve_zero_stage(strategy, params)
-        self._zero1_active = self._zero_stage >= 1
-        self._zero3_template = None
-        with torch.no_grad():
-            if self._zero1_active:
-                # the global zero state (init over the flat [dp, s] view),
-                # of which this rank keeps its row
-                from .optimizers_sharded import (place_zero1_state,
-                                                 sharded_update)
-                dp_n, dp_ax = self._dp_size(), self._data_axis()
-                opt_state = place_zero1_state(
-                    sharded_update(self.optimizer, dp_n, dp_ax).init(params),
-                    mesh, dp_n, dp_ax)
-            else:
-                opt_state = self.optimizer.init(params)
-            if self._zero_stage >= 3:
-                self._zero3_template = tree_map(
-                    lambda p: torch.empty(p.shape, dtype=p.dtype,
-                                          device="meta"), params)
-                params = self._params_from_ckpt(params)
-        gens = self._generators()
-
-        def std_state():
-            """(params, opt_state) in the standard layout (collective on a
-            zero mesh: every rank calls it)."""
-            std_p = self._params_to_ckpt(params)
-            return std_p, self._opt_to_ckpt(std_p, opt_state)
-
-        def save(at):
-            std_p, std_o = std_state()
-            if chief:
-                ckpt_mgr.save(at, self._ckpt_state(std_p, std_o, at, gens))
-            if mesh is not None:
-                # no rank reads the directory before the save is committed
-                from .parallel.collectives import barrier
-                barrier()
-
-        ckpt_mgr, ckpt_like, restored = (
-            self._open_checkpoints(*std_state(), gens)
-            if self.checkpoint_dir else (None, None, None))
-        start_epoch = 0
-        if restored is not None:
-            params, opt_state, start_epoch = restored
-            if mesh is not None:
-                with torch.no_grad():
-                    opt_state = self._opt_from_ckpt(params, opt_state)
-                    params = self._params_from_ckpt(params)
-            logger.info("resumed from checkpoint at epoch %d", start_epoch)
+        fs = _FitState(self, init_params, strategy)
+        self._resumed_from = fs.start
+        if fs.start:
+            logger.info("resumed from checkpoint at epoch %d", fs.start)
 
         to_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         stats = self._step_stats  # set by fit(trace_spans=...), else None
@@ -1155,7 +1447,7 @@ class Trainer:
             y_dev, mask_dev = to_dev(y_pad), to_dev(mask)
             if stats is not None:
                 _sync(dev)  # the copies are charged here, not to a step
-        shuffle_gen, dropout_gen = gens
+        shuffle_gen, dropout_gen = fs.gens
         loss_fn = make_loss_fn(self.model, self.input_name, self.label_name)
         step_fn, rows = None, None
         if mesh is not None:
@@ -1163,6 +1455,8 @@ class Trainer:
         epoch_fn = make_epoch_fn(loss_fn, self.optimizer, batch, num_batches,
                                  mode, self.shuffle_per_iter, n_real=n,
                                  step_fn=step_fn, rows=rows)
+        if fs.mirror is not None:
+            epoch_fn = fs.mirror.wrap(epoch_fn)
         per_epoch = num_batches * batch if mode == "stochastic" else n
         if stats is not None:
             stats.examples_per_step = per_epoch
@@ -1175,10 +1469,10 @@ class Trainer:
         ran = 0
         total_epochs = self.partition_shuffles * self.iters
         # a mesh rank that fails fails the fit: its peers cannot resume
-        # alone, so there is no in-fit restore there
+        # alone (a launched fit's caller restarts the ranks instead)
         retries_left = (self.resume_retries
-                        if ckpt_mgr is not None and mesh is None else 0)
-        guard = PreemptionGuard() if ckpt_mgr is not None else NullGuard()
+                        if fs.mgr is not None and mesh is None else 0)
+        guard = PreemptionGuard() if fs.mgr is not None else NullGuard()
         preempted = False
         nan_halted = False
         with guard:
@@ -1192,14 +1486,14 @@ class Trainer:
                                 # next fit on this checkpoint_dir resumes
                                 # here. During the resume skip `it` is behind
                                 # the restored state: never label below it
-                                at = max(it, start_epoch)
-                                save(at)
+                                at = max(it, fs.start)
+                                fs.save(at)
                                 logger.warning("preempted: checkpoint saved "
                                                "at epoch %d", at)
                                 preempted = True
                                 break
                             it += 1
-                            if it <= start_epoch:
+                            if it <= fs.start:
                                 # the restored generators were saved AFTER
                                 # these epochs' draws: skip without touching
                                 # them, so the stream continues exactly
@@ -1208,15 +1502,15 @@ class Trainer:
                             if timer is not None:
                                 timer.start()
                             if stats is None:
-                                params, opt_state, losses = epoch_fn(
-                                    params, opt_state, data, y_dev, mask_dev,
-                                    shuffle_gen, dropout_gen)
+                                fs.params, fs.opt_state, losses = epoch_fn(
+                                    fs.params, fs.opt_state, data, y_dev,
+                                    mask_dev, shuffle_gen, dropout_gen)
                             else:
                                 stats.begin_step()
                                 ts0 = time.perf_counter()
-                                params, opt_state, losses = epoch_fn(
-                                    params, opt_state, data, y_dev, mask_dev,
-                                    shuffle_gen, dropout_gen)
+                                fs.params, fs.opt_state, losses = epoch_fn(
+                                    fs.params, fs.opt_state, data, y_dev,
+                                    mask_dev, shuffle_gen, dropout_gen)
                                 # the step phase owns its device time
                                 _sync(dev)
                                 ts1 = time.perf_counter()
@@ -1232,7 +1526,8 @@ class Trainer:
                             with (stats.phase("metrics") if stats is not None
                                   else contextlib.nullcontext()):
                                 if (self.halt_on_nan or self.verbose
-                                        or self.loss_callback is not None):
+                                        or self.loss_callback is not None
+                                        or self._channel is not None):
                                     loss_val = float(loss_by_it[it])  # sync
                                     if (self.halt_on_nan
                                             and not np.isfinite(loss_val)):
@@ -1253,22 +1548,24 @@ class Trainer:
                                         # iteration, partition_id); one
                                         # logical partition here
                                         self.loss_callback(loss_val, it, 0)
+                                    if self._channel is not None:
+                                        self._report(it, loss_val)
                             if self.straggler_factor:
                                 self._check_straggler(it, te, loss_by_it[it],
                                                       epoch_secs)
-                            if (ckpt_mgr is not None
+                            if (fs.mgr is not None
                                     and self.checkpoint_every > 0
                                     and (it % self.checkpoint_every == 0
                                          or it == total_epochs)):
                                 with (stats.phase("checkpoint")
                                       if stats is not None
                                       else contextlib.nullcontext()):
-                                    save(it)
+                                    fs.save(it)
                             if (self._publish_store is not None
                                     and self.publish_every > 0
                                     and (it % self.publish_every == 0
                                          or it == total_epochs)):
-                                std_p = self._params_to_ckpt(params)
+                                std_p = self._params_to_ckpt(fs.params)
                                 if chief:
                                     self._publish_weights(std_p)
                             if stats is not None:
@@ -1278,22 +1575,31 @@ class Trainer:
                     break
                 except (KeyboardInterrupt, SystemExit):
                     raise
+                except _RestoreVerdict:
+                    # the caller's callback raised: every rank restores the
+                    # last checkpoint together and re-runs from there
+                    start = fs.restore_latest()
+                    if start is None:
+                        raise RuntimeError(
+                            "the caller asked this rank to restore the last "
+                            "checkpoint, but checkpoint_dir holds none")
+                    loss_by_it = {k: v for k, v in loss_by_it.items()
+                                  if k <= start}
+                    logger.warning("restored checkpoint epoch %d at the "
+                                   "caller's verdict", start)
                 except Exception as e:
                     # restore the last checkpoint and keep training
-                    state = (ckpt_mgr.restore(like=ckpt_like)
-                             if retries_left > 0 else None)
-                    if state is None:
+                    start = fs.restore_latest() if retries_left > 0 else None
+                    if start is None:
                         raise
                     retries_left -= 1
-                    params, opt_state, start_epoch = self._restore(
-                        state, ckpt_like, gens)
                     # epochs past the restore point re-run: drop their losses
                     loss_by_it = {k: v for k, v in loss_by_it.items()
-                                  if k <= start_epoch}
+                                  if k <= start}
                     logger.warning(
                         "training failure at iteration %d (%s: %s); "
                         "auto-resumed from checkpoint epoch %d (%d retries "
-                        "left)", it, type(e).__name__, e, start_epoch,
+                        "left)", it, type(e).__name__, e, start,
                         retries_left)
         _sync(dev)
         wall = time.perf_counter() - t0
@@ -1304,22 +1610,17 @@ class Trainer:
             stats.stop_clock()
             per_batch = self._train_flops_per_batch(
                 tuple(a[:batch] for a in x_pad) if multi else x_pad[:batch],
-                y_pad[:batch], params if self._zero_stage < 3
-                else self._params_to_ckpt(params))
+                y_pad[:batch], fs.params if self._zero_stage < 3
+                else self._params_to_ckpt(fs.params))
             if per_batch and mesh is not None:
                 per_batch = per_batch / mesh.size
             stats.finalize(flops_per_step=(per_batch * num_batches
                                            if per_batch else None))
         if mesh is not None:
             self.last_mesh_stats = self._rank_stats(
-                strategy, opt_state, params, num_batches * ran, timer,
+                strategy, fs.opt_state, fs.params, num_batches * ran, timer,
                 launches0)
-        if self._zero_stage >= 3:
-            # back to the standard layout, installed on the model
-            params = self.model.load_params(self._params_to_ckpt(params),
-                                            trainable=True)
-        self.params = tree_map(lambda p: p.detach(), params)
-        self._last_opt_state = opt_state
+        self.params, self._last_opt_state = fs.finish()
         epoch_keys = sorted(loss_by_it)
         self._epoch_keys = epoch_keys
         epoch_losses = [float(loss_by_it[k]) for k in epoch_keys]
@@ -1491,156 +1792,298 @@ class Trainer:
         continues on the incoming stream (streams cannot rewind, so rows
         already consumed are not replayed), and SIGTERM saves and stops.
         ``TrainResult.losses`` holds one loss per step.
-        """
-        if self.mesh is not None:
-            _not_yet("fit_stream on a device mesh")
-        from .localml.linalg import vector_to_array
-        from .utils.data import BatchQueue, feed_from_iterator
 
-        multi = isinstance(self.input_name, (list, tuple))
-        factory = row_iterator if callable(row_iterator) else None
-        if epochs > 1 and factory is None:
+        On a dp mesh (``sp`` is refused, as in JAX) the batch rounds up to
+        a multiple of the ranks and each rank steps on its block of every
+        global batch at the resolved zero stage. Launched (outside a process
+        group) the stream is read here and each rank gets its rows over
+        its line, at most ``queue_capacity`` batches ahead; in place every
+        rank reads the same stream.
+        """
+        if epochs > 1 and not callable(row_iterator):
             raise ValueError("epochs > 1 needs a callable iterator factory "
                              "(streams are single-pass)")
-        supervised = self.label_name is not None
         bs = (self.mini_batch_size if self.mini_batch_size
               and self.mini_batch_size > 0 else 128)
+        mesh = self.mesh
+        if mesh is None:
+            return self._stream_loop(self._stream_events(
+                row_iterator, epochs, queue_capacity, chunk, bs),
+                init_params, bs, rows=None)
+        if self._mesh_strategy() != "default":
+            raise ValueError(
+                "fit_stream trains dp/tp/fsdp/ep meshes; pp/sp strategy "
+                "fits need the whole dataset staged for their fixed-shape "
+                "batch schedules — use fit() (fitMode='collect')")
+        count = self._batch_ranks()
+        bs = -(-bs // count) * count
+        # the zero-stage errors a fit raises, before any rank starts
+        self._resolve_zero_stage("default", None)
+        if not _in_group():
+            return self._fit_stream_launched(row_iterator, init_params,
+                                             queue_capacity, chunk, epochs,
+                                             bs)
+        from .parallel.collectives import axis_index
+        axes = self._batch_axes()
+        with mesh.bind():
+            return self._stream_loop(self._stream_events(
+                row_iterator, epochs, queue_capacity, chunk, bs),
+                init_params, bs, rows=(axis_index(axes), count))
 
-        params = self._initial_params(init_params)
-        opt_state = self.optimizer.init(params)
-        gens = self._generators()
-        dropout_gen = gens[1]
-        step = make_train_step(make_loss_fn(self.model, self.input_name,
-                                            self.label_name), self.optimizer)
-        ckpt_mgr, _like, restored = self._open_checkpoints(params, opt_state,
-                                                           gens)
-        start_step = 0
-        if restored is not None:
-            params, opt_state, start_step = restored
-            logger.info("fit_stream resumed weights from step %d", start_step)
+    def _stream_events(self, row_iterator, epochs: int, queue_capacity: int,
+                       chunk: int, bs: int):
+        """The stream as one process reads it: ``("epoch", e)`` before each
+        pass, then ``("batch", x, y, mask, n_real)`` for each global batch
+        the native ring assembles (``x`` a tuple of per-input arrays for a
+        multi-input model, ``y`` None when unsupervised)."""
+        from .localml.linalg import vector_to_array
+        from .utils.data import BatchQueue, feed_from_iterator
+        multi = isinstance(self.input_name, (list, tuple))
+        factory = row_iterator if callable(row_iterator) else None
+        supervised = self.label_name is not None
+        for epoch in range(max(1, epochs)):
+            yield ("epoch", epoch)
+            it = iter(factory() if factory else row_iterator)
+            try:
+                first = next(it)
+            except StopIteration:
+                raise ValueError("no training data") from None
+            raw0 = first[0] if supervised else first
+            split_at = None
+            if multi:
+                if (not isinstance(raw0, tuple)
+                        or len(raw0) != len(self.input_name)):
+                    got = (f"a tuple of {len(raw0)}"
+                           if isinstance(raw0, tuple) else "a single vector")
+                    raise ValueError(
+                        f"model takes {len(self.input_name)} input tensors "
+                        f"({self.input_name}) but the stream yields {got} "
+                        f"per row")
+                part_dims = [int(vector_to_array(p).shape[0]) for p in raw0]
+                split_at = list(np.cumsum(part_dims))[:-1]
+                row_dim = int(sum(part_dims))
+            else:
+                row_dim = int(vector_to_array(raw0).shape[0])
+            if supervised:
+                lbl0 = first[1]
+                label_dim = (1 if isinstance(lbl0, (int, float))
+                             else len(vector_to_array(lbl0)))
+            else:
+                label_dim = 0
+            q = BatchQueue(bs, row_dim, label_dim, capacity=queue_capacity,
+                           shuffle=self.shuffle_per_iter,
+                           seed=self.seed + epoch)
+            feeder = feed_from_iterator(q, itertools.chain([first], it),
+                                        supervised, chunk)
+            try:
+                for x, y, mask, n_real in q:
+                    if multi:
+                        # split the concatenated ring row back into the
+                        # per-input arrays the loss feeds by name
+                        x = tuple(np.ascontiguousarray(part)
+                                  for part in np.split(x, split_at, axis=1))
+                    yield ("batch", x, y if supervised else None, mask,
+                           n_real)
+                feeder.join()
+            finally:
+                # always tear the queue down: drains and unblocks the
+                # feeder, frees the native ring
+                q.close()
 
+    def _stream_loop(self, events, init_params, bs: int,
+                     rows) -> TrainResult:
+        """The steps of a streaming fit over ``events`` (see
+        :meth:`_stream_events`; a launched rank's come from its caller:
+        its own rows, and ``("stop",)`` for a preemption there). ``rows =
+        (index, count)`` keeps block ``index`` of each global batch (an
+        in-place mesh rank); None feeds the batch as it comes."""
+        from .parallel.distributed import local_rows
+        mesh = self.mesh
         dev = self.device
+        self._ctl_stop = False
+        if mesh is not None:
+            from .parallel import collectives
+            collectives.reset_stats()
+            launches0 = _launch_counts()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+        fs = _FitState(self, init_params, "default")
+        self._resumed_from = fs.start
+        if fs.start:
+            logger.info("fit_stream resumed weights from step %d", fs.start)
+        if mesh is not None:
+            step = self._mesh_step("default", None, bs)[0]
+        else:
+            step = make_train_step(make_loss_fn(
+                self.model, self.input_name, self.label_name), self.optimizer)
+        if fs.mirror is not None:
+            step = fs.mirror.wrap(step)
+        dropout_gen = fs.gens[1]
+        timer = _EpochTimer(dev) if mesh is not None else None
+        to_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         losses: List[torch.Tensor] = []
         seen = 0
         nan_halted = False
-        it_count = start_step
+        stopped = False
+        it_count = fs.start
         t0 = time.perf_counter()
-        dummy_y = torch.zeros((bs, 1), device=dev)
-        guard = PreemptionGuard() if ckpt_mgr is not None else NullGuard()
-        preempt_saved = False
-
-        def save():
-            ckpt_mgr.save(it_count, self._ckpt_state(params, opt_state,
-                                                     it_count, gens))
-
+        guard = PreemptionGuard() if fs.mgr is not None else NullGuard()
         with guard:
-            for epoch in range(max(1, epochs)):
-                if guard.requested:
-                    # the signal landed between epochs: persist, then stop
-                    if ckpt_mgr is not None and not preempt_saved:
-                        save()
-                        logger.warning("preempted: checkpoint saved at "
-                                       "stream step %d", it_count)
+            for ev in events:
+                if ev[0] == "stop":
+                    self._ctl_stop = True
+                if self._stop_requested(guard):
+                    # preemption: persist and stop; rows not yet consumed
+                    # are not replayed
+                    if fs.mgr is not None:
+                        fs.save(it_count)
+                    logger.warning("preempted: stopping stream at step %d",
+                                   it_count)
+                    stopped = True
                     break
-                it = iter(factory() if factory else row_iterator)
-                try:
-                    first = next(it)
-                except StopIteration:
-                    raise ValueError("no training data") from None
-                raw0 = first[0] if supervised else first
-                if multi:
-                    if (not isinstance(raw0, tuple)
-                            or len(raw0) != len(self.input_name)):
-                        got = (f"a tuple of {len(raw0)}"
-                               if isinstance(raw0, tuple)
-                               else "a single vector")
-                        raise ValueError(
-                            f"model takes {len(self.input_name)} input "
-                            f"tensors ({self.input_name}) but the stream "
-                            f"yields {got} per row")
-                    part_dims = [int(vector_to_array(p).shape[0])
-                                 for p in raw0]
-                    split_at = list(np.cumsum(part_dims))[:-1]
-                    row_dim = int(sum(part_dims))
-                else:
-                    row_dim = int(vector_to_array(raw0).shape[0])
-                if supervised:
-                    lbl0 = first[1]
-                    label_dim = (1 if isinstance(lbl0, (int, float))
-                                 else len(vector_to_array(lbl0)))
-                else:
-                    label_dim = 0
-
-                q = BatchQueue(bs, row_dim, label_dim,
-                               capacity=queue_capacity,
-                               shuffle=self.shuffle_per_iter,
-                               seed=self.seed + epoch)
-                feeder = feed_from_iterator(q, itertools.chain([first], it),
-                                            supervised, chunk)
-                try:
-                    for x, y, mask, n_real in q:
-                        if guard.requested:
-                            # preemption: persist and stop; rows not yet
-                            # consumed are not replayed
-                            if ckpt_mgr is not None:
-                                save()
-                                preempt_saved = True
-                            logger.warning("preempted: stopping stream at "
-                                           "step %d", it_count)
-                            # unblock the producer before joining it
-                            q.close()
-                            break
-                        if multi:
-                            # split the concatenated ring row back into the
-                            # per-input arrays the loss feeds by name
-                            xd = tuple(torch.as_tensor(np.ascontiguousarray(
-                                part), device=dev)
-                                for part in np.split(x, split_at, axis=1))
-                        else:
-                            xd = torch.as_tensor(x, device=dev)
-                        yd = (torch.as_tensor(y, device=dev) if supervised
-                              else dummy_y)
-                        params, opt_state, loss = step(
-                            params, opt_state, xd, yd,
-                            torch.as_tensor(mask, device=dev), dropout_gen)
-                        losses.append(loss)
-                        seen += n_real
-                        it_count += 1
-                        # opt-in: a per-step host sync
-                        if self.halt_on_nan and not np.isfinite(float(loss)):
-                            logger.error("non-finite loss at stream step %d: "
-                                         "halting (halt_on_nan=True)",
-                                         it_count)
-                            nan_halted = True
-                            q.close()
-                            break
-                        if self.loss_callback is not None:
-                            self.loss_callback(float(loss), it_count, 0)
-                        if (ckpt_mgr is not None and self.checkpoint_every > 0
-                                and it_count % self.checkpoint_every == 0):
-                            save()
-                    feeder.join()
-                    if nan_halted:
-                        break
-                finally:
-                    # always tear the queue down: drains and unblocks the
-                    # feeder, frees the native ring
-                    q.close()
+                if ev[0] != "batch":
+                    continue
+                _, x, y, mask, n_real = ev
+                if rows is not None:
+                    x = (tuple(local_rows(a, *rows) for a in x)
+                         if isinstance(x, tuple) else local_rows(x, *rows))
+                    y = None if y is None else local_rows(y, *rows)
+                    mask = local_rows(mask, *rows)
+                xd = (tuple(to_dev(a) for a in x) if isinstance(x, tuple)
+                      else to_dev(x))
+                yd = (to_dev(y) if y is not None
+                      else torch.zeros((mask.shape[0], 1), device=dev))
+                if timer is not None:
+                    timer.start()
+                fs.params, fs.opt_state, loss = step(
+                    fs.params, fs.opt_state, xd, yd, to_dev(mask),
+                    dropout_gen)
+                if timer is not None:
+                    timer.stop()
+                losses.append(loss)
+                seen += n_real
+                it_count += 1
+                # opt-in: a per-step host sync
+                if self.halt_on_nan and not np.isfinite(float(loss)):
+                    logger.error("non-finite loss at stream step %d: "
+                                 "halting (halt_on_nan=True)", it_count)
+                    nan_halted = True
+                    break
+                if self.loss_callback is not None:
+                    self.loss_callback(float(loss), it_count, 0)
+                if self._channel is not None:
+                    self._report(it_count, float(loss))
+                if (fs.mgr is not None and self.checkpoint_every > 0
+                        and it_count % self.checkpoint_every == 0):
+                    fs.save(it_count)
+        events.close()
         _sync(dev)
         wall = time.perf_counter() - t0
-        self.params = tree_map(lambda p: p.detach(), params)
-        self._last_opt_state = opt_state
+        if mesh is not None:
+            self.last_mesh_stats = self._rank_stats(
+                "default", fs.opt_state, fs.params, len(losses), timer,
+                launches0)
+        self.params, self._last_opt_state = fs.finish()
         step_losses = [float(v) for v in losses]
+        self._epoch_keys = list(range(fs.start + 1,
+                                      fs.start + 1 + len(step_losses)))
         if not nan_halted:
-            bad = [i + start_step + 1 for i, v in enumerate(step_losses)
+            bad = [i + fs.start + 1 for i, v in enumerate(step_losses)
                    if not np.isfinite(v)]
             if bad:
                 logger.warning("training diverged: non-finite loss at stream "
                                "step(s) %s", bad[:5])
         stop = ("nan" if nan_halted
-                else "preempted" if guard.requested else "completed")
+                else "preempted" if stopped or guard.requested
+                else "completed")
         return TrainResult(self.params, step_losses, seen / max(wall, 1e-9),
                            wall, stop_reason=stop)
+
+    def _fit_stream_launched(self, row_iterator, init_params,
+                             queue_capacity: int, chunk: int, epochs: int,
+                             bs: int) -> TrainResult:
+        """A streaming mesh fit outside a process group: the stream is read
+        here (a Spark ``toLocalIterator`` cannot travel to a rank), each
+        global batch assembled as one process would, and each rank sent
+        its own rows — at most ``queue_capacity`` batches ahead of rank 0's
+        steps. Rank 0 posts each step's loss; ``loss_callback`` runs here
+        on it, and the ranks then wait for the verdict. A SIGTERM here
+        (with a ``checkpoint_dir``) sends "stop", which each rank takes
+        ahead of the batches it has queued: the ranks stop at their next
+        step, and rank 0 saves."""
+        from .parallel.distributed import RankPool, local_rows
+        verdicts = self.loss_callback is not None
+        recipe = self._launch_recipe(verdicts)
+        init_params = _host_tree(init_params)
+        axes = self._batch_axes()
+        count = self._batch_ranks()
+        blocks = [self.mesh.axis_index(axes, rank=r) if axes else 0
+                  for r in range(self.mesh.size)]
+        guard = (PreemptionGuard() if self.checkpoint_dir else NullGuard())
+        acked = [0]
+
+        def on_post(_rank, msg):
+            _kind, it, loss_val = msg
+            acked[0] += 1
+            self._live_loss(it, loss_val)
+            if verdicts:
+                pool.broadcast(("verdict",
+                                "stop" if guard.requested else "go"))
+
+        def rows(a, r):
+            if a is None:
+                return None
+            if isinstance(a, tuple):
+                return tuple(rows(p, r) for p in a)
+            return local_rows(a, blocks[r], count)
+
+        t0 = time.perf_counter()
+        sent = 0
+        events = self._stream_events(row_iterator, epochs, queue_capacity,
+                                     chunk, bs)
+        try:
+            # the first batch before any rank starts: an empty or malformed
+            # stream fails here
+            head = []
+            for ev in events:
+                head.append(ev)
+                if ev[0] == "batch":
+                    break
+            with guard, RankPool(self.mesh.size, device=self.device.type,
+                                 backend=self.backend) as pool:
+                pool.start(_mesh_stream_rank, recipe, init_params, bs)
+                for ev in itertools.chain(head, events):
+                    if pool.done():
+                        break        # the ranks stopped (halt_on_nan)
+                    if guard.requested:
+                        pool.broadcast(("stop",))
+                        break
+                    if ev[0] != "batch":
+                        pool.broadcast(ev)      # an epoch boundary
+                        continue
+                    _, x, y, mask, n_real = ev
+                    for r in range(self.mesh.size):
+                        pool.send(r, ("batch", rows(x, r), rows(y, r),
+                                      rows(mask, r), n_real))
+                    sent += 1
+                    while True:
+                        got = pool.poll(
+                            0.0 if sent - acked[0] < queue_capacity else 1.0)
+                        if got is not None:
+                            on_post(*got)
+                        elif (sent - acked[0] < queue_capacity
+                              or pool.done()):
+                            break
+                events.close()      # the producer stops pulling rows
+                pool.broadcast(("end",))
+                results = pool.finish(timeout_s=math.inf, on_post=on_post)
+        finally:
+            events.close()
+        wall = time.perf_counter() - t0
+        r0 = self._take_launched(results)
+        self._epoch_keys = r0["epochs"]
+        return TrainResult(self.params, r0["losses"], r0["examples_per_sec"],
+                           wall, stop_reason=r0["stop_reason"])
 
     # -- conveniences -------------------------------------------------------
 
@@ -1661,7 +2104,10 @@ class Trainer:
 
     def predict_fn(self, output_name: str, dropout_value: float = 1.0,
                    mesh=None) -> Callable:
-        if mesh is not None:
-            _not_yet("predicting on a device mesh (mesh=)")
+        """``predict(params, x)``; ``mesh=`` opts into dp-sharded batch
+        inference in this process (one parameter copy per dp shard, see
+        :mod:`.parallel.mesh`; batches of any size pad up to a dp multiple
+        and trim), as JAX's ``predict_fn(mesh=)``."""
         return make_predict_fn(self.model, self.input_name, output_name,
-                               self.dropout_name, dropout_value)
+                               self.dropout_name, dropout_value, mesh=mesh,
+                               sharding=self.sharding)

@@ -168,13 +168,15 @@ def test_unported_params_are_refused_before_training(gaussian_df, over):
     assert calls == []
 
 
-@pytest.mark.parametrize("over", [{"meshShape": "dp=1"}],
+@pytest.mark.parametrize("over", [{"meshShape": "tp=2"}],
                          ids=lambda d: next(iter(d)))
 def test_model_refuses_unported_params(gaussian_df, over):
+    # a dp meshShape serves (tests/test_torch_mesh_predict.py); any other
+    # axis is refused with the JAX package's message
     fitted = _estimator(iters=1).fit(gaussian_df)
     fitted.setParams(**over)
-    with pytest.raises(NotImplementedError,
-                       match="not yet ported.*ROADMAP.md"):
+    with pytest.raises(ValueError,
+                       match="Model meshShape serves data-parallel only"):
         fitted.transform(gaussian_df)
 
 
@@ -242,25 +244,39 @@ def test_fit_mode_stream_never_collects(gaussian_df, monkeypatch):
 @pytest.mark.parametrize("mode", ["collect", "stream"])
 def test_a_multi_card_host_fits_without_a_mesh_unless_asked(gaussian_df,
                                                            monkeypatch, mode):
-    """Only an explicit meshShape launches ranks: on a host with two cards
-    a fit without one (a stream fit too, which a mesh would refuse) runs in
-    this process with no mesh, on the card and on the CPU alike."""
+    """Without meshShape the fit goes over every local card, as JAX's
+    (``default_mesh``): on a host with two cards a fit without one, collect
+    or stream, launches two ranks (their trainer built on the CPU here, in
+    place of the cards), a fit asked onto the CPU keeps one process, and so
+    does a host with one card."""
     import sparkflow_tpu_torch.spark_async as sa
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     meshes, trainer = [], sa.Trainer
 
-    def spy(*args, **kwargs):
+    def on_the_cpu(*args, **kwargs):
         meshes.append(kwargs.get("mesh"))
-        return trainer(*args, **kwargs)
+        assert kwargs["device"] is None
+        return trainer(*args, **dict(kwargs, device="cpu"))
 
-    monkeypatch.setattr(sa, "Trainer", spy)
-    est = _estimator(iters=20, fitMode=mode, miniBatchSize=64)
-    est.setDevice(None)
-    assert est._mesh({}) is None
-    est.setDevice("cpu")
+    monkeypatch.setattr(sa, "Trainer", on_the_cpu)
+    est = _estimator(iters=20, fitMode=mode, miniBatchSize=64, device=None)
+    assert est._mesh({}) == Mesh({"dp": 2}) and est._mesh(None) == \
+        Mesh({"dp": 2})
     model = est.fit(gaussian_df)
-    assert meshes == [None] and est.last_mesh_stats is None
+    assert meshes == [Mesh({"dp": 2})]
+    st = est.last_mesh_stats
+    assert st["mesh"] == {"dp": 2} and st["launched"]
+    assert len(st["ranks"]) == 2
+    model.setDevice("cpu")
     assert _errors(model.transform(gaussian_df)) < 40
+    est.setDevice("cpu")
+    assert est._mesh({}) is None
+    est.setDevice("cuda:1")
+    assert est._mesh({}) is None
+    est.setDevice(None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert est._mesh({}) is None
 
 
 def test_fit_stream_consumes_the_iterator_boundedly():
@@ -428,9 +444,11 @@ def test_port_fitted_transformer_transforms_in_jax(tmp_path):
 
 
 def test_predict_func_refuses_mesh_serving():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # dp serving is ported (tests/test_torch_mesh_predict.py); an axis
+    # that is not an inference strategy is refused with JAX's message
+    with pytest.raises(ValueError, match="serves data-parallel only"):
         predict_func([], "{}", "p", "[]", "x", "out:0", "x:0",
-                     device="cpu", mesh_axes={"dp": 2})
+                     device="cpu", mesh_axes={"tp": 2})
 
 
 # -- (f) int8 serving across the packages --------------------------------------

@@ -467,16 +467,22 @@ def test_launch_needs_what_a_rank_can_rebuild():
                 mesh={"dp": 2}, device="cpu")
     with pytest.raises(ValueError, match="by name"):
         t.fit(x, y)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(SPEC, "x:0", "y:0", mesh={"dp": 2},
+    # offload_opt_state, fit_stream and predict_fn on a dp mesh are ported
+    # (tests/test_torch_stream_mesh.py, tests/test_torch_mesh_predict.py):
+    # the calls that item 7 refused now work
+    t = Trainer(SPEC, "x:0", "y:0", mesh={"dp": 2},
                 sharding=ShardingConfig(offload_opt_state=True),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    assert t.sharding.offload_opt_state
+    # an empty stream fails as one process's does, before any rank starts
+    with pytest.raises(ValueError, match="no training data"):
         Trainer(SPEC, "x:0", "y:0", mesh={"dp": 2},
                 device="cpu").fit_stream(iter([]))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(SPEC, "x:0", "y:0", device="cpu").predict_fn("out:0",
-                                                             mesh={"dp": 2})
+    t = Trainer(SPEC, "x:0", "y:0", device="cpu")
+    p = t.model.init(seed=1)
+    np.testing.assert_allclose(
+        t.predict_fn("out:0", mesh={"dp": 2})(p, x[:5]).numpy(),
+        t.predict_fn("out:0")(p, x[:5]).numpy(), atol=1e-6, rtol=0)
 
 
 # -- the estimator ------------------------------------------------------------

@@ -190,6 +190,59 @@ def trainer_fit(spec, axes, trainer_kw, x, y, init_params=None):
             "stats": t.last_mesh_stats}
 
 
+def _trainer(spec, axes, trainer_kw):
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    from sparkflow_tpu_torch.trainer import Trainer
+    kw = dict(trainer_kw)
+    if isinstance(kw.get("sharding"), int):
+        kw["sharding"] = ShardingConfig(zero_stage=kw["sharding"])
+    elif isinstance(kw.get("sharding"), dict):
+        kw["sharding"] = ShardingConfig(**kw["sharding"])
+    return Trainer(spec, "x:0", "y:0", mesh=_mesh(axes), device="cpu", **kw)
+
+
+def _opt_np(state):
+    """An optimizer state's tensor leaves as numpy, in order."""
+    from sparkflow_tpu_torch.optimizers_sharded import state_leaves
+    return [_np(a) for a in state_leaves(state) if torch.is_tensor(a)]
+
+
+def stream_fit(spec, axes, trainer_kw, x, y, init_params=None, epochs=1,
+               chunk=64):
+    """``Trainer(mesh=...).fit_stream`` in place on this rank over the rows
+    ``(x[i], y[i])``: every rank reads the same stream and keeps its own
+    rows of each global batch."""
+    from sparkflow_tpu_torch.optimizers_sharded import state_leaves
+    t = _trainer(spec, axes, trainer_kw)
+    r = t.fit_stream(lambda: zip(list(x), list(y)), init_params=init_params,
+                     epochs=epochs, chunk=chunk)
+    return {"losses": r.losses, "params": _tree_np(r.params),
+            "zero_stage": t._zero_stage, "stop": r.stop_reason,
+            "offload": t._offload_active, "stats": t.last_mesh_stats,
+            "opt_state": _opt_np(t._last_opt_state),
+            "opt_on_host": all(not a.is_cuda for a in state_leaves(
+                t._last_opt_state) if torch.is_tensor(a))}
+
+
+def offload_pair(spec, axes, trainer_kw, x, y, init_params, stream):
+    """The same fit (``fit`` or ``fit_stream``) without and with
+    ``offload_opt_state``: losses, params and the final optimizer state of
+    each."""
+    out = {}
+    for off in (False, True):
+        kw = dict(trainer_kw, sharding=dict(
+            zero_stage=trainer_kw["sharding"], offload_opt_state=off))
+        if stream:
+            out[off] = stream_fit(spec, axes, kw, x, y, init_params)
+        else:
+            t = _trainer(spec, axes, kw)
+            r = t.fit(x, y, init_params=init_params)
+            out[off] = {"losses": r.losses, "params": _tree_np(r.params),
+                        "offload": t._offload_active,
+                        "opt_state": _opt_np(t._last_opt_state)}
+    return out
+
+
 def checkpoint_matrix(spec, save_stage, directory, x, y, trainer_kw):
     """Fit at ``save_stage`` into ``directory``, then a fit at every stage
     on the same directory (which resumes at the last epoch and trains
