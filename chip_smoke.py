@@ -297,7 +297,37 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     engine without a mesh (1e-5), rows/s, and ``flash_fwd``'s launches a
     bucket call (12 a copy).
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 18, 19; a ``[time]`` line
+20. tp-fsdp: tensor parallelism and fsdp (ROADMAP 7d). Two ranks share
+    the card over gloo and one-process serving puts both tp shards on it:
+    the phase shows the mesh layer and kernels 1-7 at a shard's head count,
+    not scaling. Kernels 1-7 against their plain versions at 6 heads (bf16;
+    flash at B=8 S=1024 causal, paged at the decode step's operands, bf16
+    and int8, verify at S=5), a second launch bit-identical. (a) GPT-2
+    small (bf16, dropout 0.1, adam 3e-4) through ``Trainer(mesh={"dp": 1,
+    "tp": 2})`` in place on two ranks (as under torchrun), batch 8 x 1024,
+    3 steps: step ms on each rank (CUDA
+    events), tokens/s, bytes moved a step and param bytes a rank (against
+    one card's), peak memory, launches of kernels 1-3 a rank (12 a step).
+    (b) BERT-base (float32) through ``Pipeline([OneHotEncoder,
+    SparkAsyncDL(meshShape=...)])`` over 64 rows x 512, batch 32, 2 steps
+    each: "tp=2" and "fsdp=2" (a random batch an epoch), then "fsdp=2"
+    with ``fitMode="stream"``: examples/s against one card's
+    ``Trainer`` on the same rows in the same run, param bytes a rank at
+    rest. (c) GPT-2 small ``DecodeEngine(mesh={"tp": 2}, num_slots=8,
+    page_size=16)``, 8 prompts x 32 new tokens, plain, ``spec_k=4`` and
+    int8 with ``spec_k=4``: in float32 (TF32 off) the greedy tokens equal
+    the engine's without a mesh; in bf16 step ms p50, pool bytes a shard
+    (half) and kernels 4-7's launches a shard. (d) BERT-base
+    ``InferenceEngine(mesh={"tp": 2})``, float32, bucket 32: max |d| from
+    the engine without a mesh (1e-4), rows/s of each. (e) Full widths cut
+    to 2 layers, float32, TF32 off: tp=2 and fsdp=2 against one card (one
+    SGD step: loss 1e-5 relative, params rtol 3e-4 / atol 3e-5; 3 adam
+    steps: losses 2e-4), a tp=2 fit with dropout 0.1 whose replicated
+    leaves are bit-equal across the ranks and whose checkpoint, resumed on
+    one card, is bit-equal to it. ``python3 chip_smoke.py --phase tp-fsdp``
+    runs set-up and this phase alone.
+
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 18, 19, 20; a ``[time]`` line
 gives each phase's wall time. The line before the last gives the card's name and
 power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
@@ -5666,7 +5696,660 @@ def phase_stream_mesh(card, work, mesh_out, device=None, pool=None):
     return out
 
 
-def main() -> int:
+# phase 20: tensor parallelism and fsdp (ROADMAP 7d). On a one-card machine
+# the ranks share the card over gloo and the tp shards of one-process
+# serving sit on the same card: the phase shows the mesh layer and kernels
+# 1-7 at a tp shard's head count (6 of 12 at tp=2), not scaling.
+TPF_TRAIN_BATCH, TPF_TRAIN_STEPS = 8, 3          # (a) GPT-2 small 8 x 1024
+TPF_EST_ROWS, TPF_EST_BATCH, TPF_EST_STEPS = 64, 32, 2    # (b) 2 steps each
+TPF_DEC_LENS = (20, 57, 100, 150, 200, 256, 300, 400)     # (c) 8 prompts
+TPF_DEC_NEW = 32
+TPF_PREDICT_BATCH, TPF_PREDICT_REPS = 32, 5      # (d) one bucket
+TPF_PREDICT_TOL = 1e-4
+TPF_LOSS_RTOL = 1e-5                 # (e) one SGD step vs one card
+TPF_PARAM_RTOL, TPF_PARAM_ATOL = 3e-4, 3e-5      # tests/test_models.py's pin
+TPF_ADAM_RTOL = 2e-4                 # (e) 3 adam steps' losses vs one card
+TPF_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention",
+             "paged_attention_quant", "paged_verify", "paged_verify_quant")
+
+
+def _tpf_digest(params):
+    """sha256 of each leaf's bytes, ``{layer: {name: hex}}``."""
+    import hashlib
+    return {ln: {k: hashlib.sha256(t.detach().cpu().numpy().tobytes())
+                 .hexdigest() for k, t in layer.items()}
+            for ln, layer in params.items()}
+
+
+def _tpf_fit_rank(spec, axes, kw, ids, masks, labels, device):
+    """(e) a ``Trainer(mesh=axes)`` fit in place on this rank (TF32 off):
+    losses, the checkpoint epoch it resumed from, a digest of every leaf
+    this rank returns (a replicated leaf is the rank's own copy), and rank
+    0 the standard-layout params."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev = _sm_rank_setup(device)
+    tr = Trainer(spec, ["input_ids", "attention_mask"], "y", mesh=Mesh(axes),
+                 device=dev, **kw)
+    r = tr.fit((ids, masks), labels)
+    out = {"losses": r.losses, "resumed_from": tr._resumed_from,
+           "zero_stage": tr._zero_stage, "digest": _tpf_digest(r.params),
+           "param_bytes": tr.last_mesh_stats["ranks"][0]["param_bytes"]}
+    if rank == 0:
+        out["params"] = _np_tree(r.params)
+    return out
+
+
+def _tpf_excess(got, want):
+    """max over leaves of ``|got - want| - rtol |want|`` (<= atol passes)."""
+    import numpy as np
+    return max(float(np.max(np.abs(got[ln][k] - want[ln][k])
+                            - TPF_PARAM_RTOL * np.abs(want[ln][k])))
+               for ln in want for k in want[ln])
+
+
+def _tpf_rank_rows(st, names):
+    """Each rank's accounting of a launched tp / fsdp fit."""
+    rows = []
+    for r in st["ranks"]:
+        steady = sorted(r["epoch_ms"][1:] or r["epoch_ms"])
+        rows.append({
+            "rank": r["rank"], "device": r["device"],
+            "step_ms": r["epoch_ms"],
+            "step_ms_median_after_first": steady[len(steady) // 2],
+            "bytes_moved_per_step_gb": r["bytes_moved_per_step"] / 1e9,
+            "bytes_moved_gb": {k: v / 1e9 for k, v in
+                               r["bytes_moved"].items()},
+            "host_staged_gb": r["host_staged_bytes"] / 1e9,
+            "collective_calls": r["collective_calls"],
+            "param_gb": r["param_bytes"] / 1e9,
+            "opt_state_gb": r["opt_state_bytes"] / 1e9,
+            "peak_mem_gb": (r["peak_memory_bytes"] or 0) / 1e9,
+            "launches": {n: r["kernel_launches"][n] for n in names}})
+    return rows
+
+
+def _tpf_full_bytes(spec):
+    """float32 bytes of one whole copy of ``spec``'s params."""
+    import numpy as np
+    from sparkflow_tpu_torch.models import model_from_json
+    return sum(4 * int(np.prod(shape)) for layer in model_from_json(
+        spec, device="cpu").param_specs().values()
+        for shape, _init in layer.values())
+
+
+def _tpf_train_rank(spec, ids, device):
+    """(a) on each of 2 ranks: ``Trainer(mesh={"dp": 1, "tp": 2})`` fitting
+    in place (as under torchrun), the fit's wall and this rank's
+    accounting."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    _rank, dev = _sm_rank_setup(device)
+    tr = Trainer(spec, "input_ids", None, optimizer="adam", learning_rate=3e-4,
+                 iters=TPF_TRAIN_STEPS, mini_batch_size=TPF_TRAIN_BATCH,
+                 mini_stochastic_iters=1, seed=0, device=dev,
+                 compute_dtype="bfloat16" if device != "cpu" else None,
+                 mesh=Mesh({"dp": 1, "tp": 2}))
+    t0 = time.perf_counter()
+    res = tr.fit(ids)
+    return {"losses": res.losses, "fit_s": time.perf_counter() - t0,
+            "stats": tr.last_mesh_stats}
+
+
+def _tpf_training(card, device, pool):
+    """(a) GPT-2 small at ``tp=2`` through ``Trainer(mesh={"dp": 1, "tp":
+    2})`` on the pool's two ranks: bf16, dropout 0.1, adam 3e-4, batch 8 x
+    1024, 3 steps."""
+    import numpy as np
+    from sparkflow_tpu_torch.models import build_registry_spec
+    lm = build_registry_spec("transformer_lm", **dict(GPT2_SMALL,
+                                                      dropout=0.1))
+    rs = np.random.RandomState(9)
+    ids = rs.randint(0, min(1000, GPT2_SMALL["vocab_size"]),
+                     (TPF_TRAIN_BATCH, GPT2_SMALL["max_len"])
+                     ).astype(np.float32)
+    got = pool.run(_tpf_train_rank, lm, ids, device)
+    st = dict(got[0]["stats"], ranks=[g["stats"]["ranks"][0] for g in got])
+    losses = got[0]["losses"]
+    if not (st["mesh"] == {"dp": 1, "tp": 2}
+            and all(math.isfinite(x) for x in losses)
+            and len(losses) == TPF_TRAIN_STEPS
+            and got[1]["losses"] == losses):
+        raise AssertionError(f"tp=2 GPT-2 small: {st['mesh']} losses "
+                             f"{[g['losses'] for g in got]}")
+    ranks = _tpf_rank_rows(st, MESH_NAMES)
+    want_l = GPT2_SMALL["num_layers"] * TPF_TRAIN_STEPS
+    for r in ranks:
+        if device != "cpu" and r["launches"] != {n: want_l
+                                                 for n in MESH_NAMES}:
+            raise AssertionError(f"tp=2 rank {r['rank']} launches "
+                                 f"{r['launches']}, want {want_l} each")
+    full = _tpf_full_bytes(lm)
+    tokens = TPF_TRAIN_BATCH * GPT2_SMALL["max_len"]
+    out = {"losses": losses, "fit_s": got[0]["fit_s"],
+           "backend": st["backend"],
+           "tokens_per_s": tokens * 1e3 / ranks[0][
+               "step_ms_median_after_first"],
+           "param_bytes_share_of_one_card": [r["param_gb"] * 1e9 / full
+                                             for r in ranks],
+           "one_card_param_gb": full / 1e9, "ranks": ranks}
+    log("[tp-fsdp] (a) GPT-2 small, Trainer(mesh={'dp': 1, 'tp': 2}) in "
+        "place on 2 ranks, bf16, dropout 0.1, adam 3e-4, batch 8 x 1024, 3 "
+        "steps, 6 of 12 heads a rank: " + json.dumps(out) + f" [{card}]")
+    return out, {n: sum(r["launches"][n] for r in ranks) for n in MESH_NAMES}
+
+
+def _tpf_one_card_ex_s(spec, ids, masks, labels, device):
+    """Training examples/s of one card's ``Trainer`` on the estimator's
+    rows, one step an epoch: the last step's host time, from the loss read
+    of the step before to its own."""
+    from sparkflow_tpu_torch.trainer import Trainer
+    marks = []
+    Trainer(spec, ["input_ids", "attention_mask"], "y", optimizer="adam",
+            learning_rate=3e-4, iters=TPF_EST_STEPS + 1,
+            mini_batch_size=TPF_EST_BATCH, mini_stochastic_iters=1, seed=0,
+            device=device, loss_callback=lambda loss, it, part: marks.append(
+                time.perf_counter())).fit((ids, masks), labels)
+    return TPF_EST_BATCH / (marks[-1] - marks[-2])
+
+
+def _tpf_estimator(card, spec, df, mesh_shape, fit_mode, work, device):
+    """(b) ``Pipeline([OneHotEncoder, SparkAsyncDL(meshShape=...)])`` over
+    the BERT-base rows, 2 steps (collect: one random batch an epoch): the
+    fit's accounting and its training examples/s (the second step's
+    CUDA-event ms)."""
+    from sparkflow_tpu_torch.localml import OneHotEncoder, Pipeline
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    losses = []
+    stream = fit_mode == "stream"
+    est = SparkAsyncDL(
+        inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
+        tfLabel="y:0", tfOutput="probs:0", tfOptimizer="adam",
+        tfLearningRate=3e-4, iters=1 if stream else TPF_EST_STEPS,
+        miniStochasticIters=-1 if stream else 1,
+        miniBatchSize=TPF_EST_BATCH, labelCol="labels",
+        predictionCol="probs", extraInputCols="mask",
+        extraTfInputs="attention_mask:0", fitMode=fit_mode,
+        meshShape=mesh_shape, device=device,
+        weightsPath=os.path.join(work, f"tpf-{mesh_shape}-{fit_mode}"))
+    est.setLossCallback(lambda loss, it, part: losses.append(loss))
+    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
+                                          outputCol="labels",
+                                          dropLast=False), est])
+    t0 = time.perf_counter()
+    fitted = pipe.fit(df)
+    fit_s = time.perf_counter() - t0
+    st = est.last_mesh_stats
+    axes = dict(kv.split("=") for kv in mesh_shape.split(","))
+    want_mesh = {"dp": 1, **{k: int(v) for k, v in axes.items()}}
+    steps = TPF_EST_STEPS
+    if not (st is not None and st["mesh"] == want_mesh and st["launched"]
+            and len(losses) == steps
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"{mesh_shape} {fit_mode}: mesh "
+                             f"{st and st['mesh']}, losses {losses}")
+    if st["zero_stage"] != 0:
+        raise AssertionError(f"{mesh_shape}: zero stage {st['zero_stage']} "
+                             f"on sharded params, want 0")
+    ranks = _tpf_rank_rows(st, MESH_NAMES)
+    layers = BERT_BASE["num_layers"]
+    for r in ranks:
+        if device != "cpu" and r["launches"] != {n: layers * steps
+                                                 for n in MESH_NAMES}:
+            raise AssertionError(f"{mesh_shape} {fit_mode}: rank "
+                                 f"{r['rank']} launches {r['launches']}, "
+                                 f"want {layers} x {steps}")
+    summary = {"mesh": st["mesh"], "backend": st["backend"],
+               "fit_s": fit_s, "live_losses": losses,
+               "train_examples_per_s": TPF_EST_BATCH * 1e3 / ranks[0][
+                   "step_ms_median_after_first"],
+               "ranks": ranks}
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in MESH_NAMES}
+    return fitted, summary, launches
+
+
+def _tpf_greedy_timed(eng, prompts, n):
+    """``_greedy`` with each ``step()``'s host ms (the step returns after
+    its tokens are read from the card)."""
+    infos = [eng.prefill(p, max_new_tokens=n) for p in prompts]
+    toks = {i["slot"]: [i["token"]] for i in infos}
+    live = set(toks)
+    ms = []
+    while live:
+        t0 = time.perf_counter()
+        got = eng.step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for s, t in got.items():
+            toks[s].extend(t)
+            if len(toks[s]) >= n:
+                eng.release(s)
+                live.discard(s)
+    return [toks[i["slot"]][:n] for i in infos], ms
+
+
+TPF_DEC_ARMS = (("plain", {}), ("spec_k=4", {"spec_k": SPEC_K}),
+                ("int8+spec_k=4", {"kv_quant": "int8", "spec_k": SPEC_K}))
+
+
+def _tpf_decode(card, device):
+    """(c) GPT-2 small behind ``DecodeEngine(mesh={"tp": 2},
+    sharding=ShardingConfig(tp_axis="tp"), num_slots=8, page_size=16)``,
+    8 prompts x 32 new tokens, in three arms. Exactness in float32 (TF32
+    off): the tp engine's greedy tokens equal the engine's without a mesh.
+    Then bf16: step ms p50, the pool bytes a shard, kernels 4-7's launches
+    a shard, the counters zeroed just before each arm's burst."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
+               for n in TPF_DEC_LENS]
+    kw = dict(num_slots=8, page_size=16, seed=0)
+    tp = dict(mesh={"tp": 2}, sharding=ShardingConfig(tp_axis="tp"))
+    out = {"float32_identical": {}, "bf16": {}}
+    model, params = _tpf_lm(None, device)
+    for name, extra in TPF_DEC_ARMS:
+        want = _greedy(DecodeEngine(model, params, **kw, **extra), prompts,
+                       TPF_DEC_NEW)
+        got = _greedy(DecodeEngine(model, params, **kw, **tp, **extra),
+                      prompts, TPF_DEC_NEW)
+        out["float32_identical"][name] = got == want
+        if got != want:
+            raise AssertionError(f"tp=2 decode ({name}, float32) tokens "
+                                 f"{got} != no-mesh {want}")
+    del model, params
+    model, params = _tpf_lm("bfloat16" if device != "cpu" else None, device)
+    launches = {n: 0 for n in TPF_NAMES}
+    for name, extra in TPF_DEC_ARMS:
+        plain = DecodeEngine(model, params, **kw, **extra)
+        want = _greedy(plain, prompts, TPF_DEC_NEW)
+        eng = DecodeEngine(model, params, **kw, **tp, **extra)
+        reset_launch_counts()
+        got, ms = _tpf_greedy_timed(eng, prompts, TPF_DEC_NEW)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        for n in TPF_NAMES:
+            launches[n] += counts[n]
+        par, ref = eng.stats()["parallel"], plain.stats()["parallel"]
+        # bf16: the shards' GEMMs (half the columns, half the rows) round
+        # otherwise than the whole ones, so a near-tie may flip; where the
+        # first token differs in each sequence (None: identical)
+        first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                      None) for a, b in zip(got, want)]
+        row = {"tokens_identical_to_no_mesh": got == want,
+               "sequences_identical": sum(a == b for a, b in zip(got, want)),
+               "first_differing_token": first,
+               "step_ms_p50": _pct(ms, 50), "step_ms_p95": _pct(ms, 95),
+               "steps": len(ms),
+               "kv_gb_a_shard": par["kv_bytes_per_device"] / 1e9,
+               "kv_gb_no_mesh": ref["kv_bytes_per_device"] / 1e9,
+               "param_gb_a_shard": par["param_bytes_per_device"] / 1e9,
+               "param_gb_no_mesh": ref["param_bytes_per_device"] / 1e9,
+               "launches_a_shard": {n: counts[n] / 2 for n in TPF_NAMES
+                                    if counts[n]}}
+        if par["kv_bytes_per_device"] * 2 != ref["kv_bytes_per_device"]:
+            raise AssertionError(f"tp=2 decode {name}: pool bytes a shard "
+                                 f"{par}, no mesh {ref}")
+        out["bf16"][name] = row
+        del plain, eng
+    need = {"plain": ("paged_attention",),
+            "spec_k=4": ("paged_attention", "paged_verify"),
+            "int8+spec_k=4": ("paged_attention_quant",
+                              "paged_verify_quant")}
+    for name, kernels in need.items():
+        if device != "cpu" and not all(
+                out["bf16"][name]["launches_a_shard"].get(n)
+                for n in kernels):
+            raise AssertionError(f"tp=2 decode {name}: launches "
+                                 f"{out['bf16'][name]['launches_a_shard']}")
+    log("[tp-fsdp] (c) GPT-2 small DecodeEngine(mesh={'tp': 2}, num_slots=8, "
+        "page_size=16), 8 prompts x 32 new tokens: float32 (TF32 off) greedy "
+        "tokens identical to the engine without a mesh in every arm; bf16: "
+        + json.dumps(out) + f" [{card}]")
+    return out, launches
+
+
+def _tpf_lm(compute_dtype, device):
+    """Phase 3's GPT-2 small (random weights from seed 1) on ``device``."""
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    spec = build_registry_spec("transformer_lm", **GPT2_SMALL)
+    model = model_from_json(spec, compute_dtype=compute_dtype, device=device)
+    return model, model.init(torch.Generator().manual_seed(1))
+
+
+def _tpf_predict(card, device):
+    """(d) BERT-base ``InferenceEngine(mesh={"tp": 2},
+    sharding=ShardingConfig(tp_axis="tp"))``, float32, bucket 32 x 512:
+    logits against the engine without a mesh, rows/s of each (host clock
+    around a bucket call, after warmup), ``flash_fwd``'s launches a
+    call (12 a shard)."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import InferenceEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    spec = build_registry_spec("transformer_classifier", **dict(
+        BERT_BASE, dropout=0.0))
+    model = model_from_json(spec, device=device)
+    params = model.init(seed=4)
+    rs = np.random.RandomState(2)
+    n, s = TPF_PREDICT_BATCH, BERT_BASE["max_len"]
+    ids = rs.randint(10, BERT_BASE["vocab_size"], (n, s))
+    mask = (np.arange(s)[None] < rs.randint(s // 2, s + 1, (n, 1))).astype(
+        np.float32)
+    kw = dict(input_name=["input_ids:0", "attention_mask:0"],
+              output_name="logits:0", max_batch=TPF_PREDICT_BATCH)
+    engines = {"no_mesh": InferenceEngine(model, params, **kw),
+               "tp2": InferenceEngine(model, params, mesh={"tp": 2},
+                                      sharding=ShardingConfig(tp_axis="tp"),
+                                      **kw)}
+    outs, rows_s = {}, {}
+    for name, eng in engines.items():
+        if name == "tp2":
+            reset_launch_counts()
+        outs[name] = eng.predict((ids, mask))
+        if name == "tp2":
+            if device != "cpu":
+                torch.cuda.synchronize()
+            call = launch_counts()["flash_fwd"]
+        t0 = time.perf_counter()
+        for _ in range(TPF_PREDICT_REPS):
+            eng.predict((ids, mask))
+        rows_s[name] = n * TPF_PREDICT_REPS / (time.perf_counter() - t0)
+    err = float(np.abs(outs["tp2"] - outs["no_mesh"]).max())
+    st = engines["tp2"].stats()
+    out = {"max_abs_d": err, "rows_per_s": rows_s,
+           "rows_per_s_ratio": rows_s["tp2"] / rows_s["no_mesh"],
+           "flash_fwd_launches_a_call": call, "tp": st["tp"],
+           "param_gb_a_shard": st["param_bytes_per_device"] / 1e9,
+           "param_gb_no_mesh": engines["no_mesh"].stats()[
+               "param_bytes_per_device"] / 1e9}
+    if not (err <= TPF_PREDICT_TOL and np.isfinite(outs["tp2"]).all()
+            and st["tp"] == 2
+            and (device == "cpu"
+                 or call == 2 * BERT_BASE["num_layers"])):
+        raise AssertionError(f"tp=2 predict: {out}")
+    log("[tp-fsdp] (d) BERT-base InferenceEngine(mesh={'tp': 2}), float32, "
+        "bucket 32 x 512: " + json.dumps(out) + f" (tol {TPF_PREDICT_TOL}) "
+        f"[{card}]")
+    return out, call
+
+
+def _tpf_exactness(card, ids, masks, labels, work, device, pool):
+    """(e) Full widths cut to 2 layers, float32, TF32 off, dropout off
+    unless said: ``tp=2`` and fsdp=2 against one card's ``Trainer`` — one
+    SGD step (lr 0.1; loss 1e-5 relative, params rtol 3e-4 / atol 3e-5)
+    and 3 adam steps (losses 2e-4); a ``tp=2`` fit with dropout 0.1 whose
+    replicated leaves must be bit-equal across the two ranks; a ``tp=2``
+    checkpoint resumed on one card bit-equal to the tp fit."""
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.trainer import Trainer
+    bert2 = build_registry_spec("transformer_classifier", **dict(
+        BERT_BASE, num_layers=2, dropout=0.0))
+    rows = slice(0, 32)
+    x, m, y = ids[rows], masks[rows], labels[rows]
+    kws = {"sgd": dict(optimizer="gradient_descent", learning_rate=0.1,
+                       iters=1, mini_batch_size=32, seed=0),
+           "adam": dict(optimizer="adam", learning_rate=3e-4, iters=3,
+                        mini_batch_size=32, seed=0,
+                        optimizer_options={"epsilon": 1e-6})}
+    out = {}
+    for opt, kw in kws.items():
+        one = Trainer(bert2, ["input_ids", "attention_mask"], "y",
+                      device=device, **kw).fit((x, m), y)
+        want = _np_tree(one.params)
+        for axes in ({"dp": 1, "tp": 2}, {"dp": 1, "fsdp": 2}):
+            got = pool.run(_tpf_fit_rank, bert2, axes, kw, x, m, y, device)
+            lrel = max(abs(a - b) / max(abs(b), 1e-12)
+                       for a, b in zip(got[0]["losses"], one.losses))
+            e = {"loss_rel": lrel,
+                 "param_excess": _tpf_excess(got[0]["params"], want),
+                 "param_bytes_a_rank": got[0]["param_bytes"],
+                 "zero_stage": got[0]["zero_stage"]}
+            key = f"{opt} {'tp' if 'tp' in axes else 'fsdp'}=2"
+            out[key] = e
+            ok = (len(got[0]["losses"]) == len(one.losses)
+                  and got[0]["losses"] == got[1]["losses"]
+                  and e["zero_stage"] == 0)
+            if opt == "sgd":
+                ok = ok and lrel <= TPF_LOSS_RTOL and (
+                    e["param_excess"] <= TPF_PARAM_ATOL)
+            else:
+                ok = ok and lrel <= TPF_ADAM_RTOL
+            if not ok:
+                raise AssertionError(f"(e) {key} vs one card: {e}")
+    # a tp=2 fit with dropout 0.1 saving each epoch: the ranks' leaves
+    # bit-equal, and its checkpoint resumed on one card bit-equal to it
+    drop = build_registry_spec("transformer_classifier", **dict(
+        BERT_BASE, num_layers=2, dropout=0.1))
+    ck = os.path.join(work, "tpf-ck")
+    ckw = dict(kws["adam"], iters=2, checkpoint_dir=ck, checkpoint_every=1)
+    got = pool.run(_tpf_fit_rank, drop, {"dp": 1, "tp": 2}, ckw, x, m, y,
+                   device)
+    a, b = got[0]["digest"], got[1]["digest"]
+    same = all(a[ln][k] == b[ln][k] for ln in a for k in a[ln])
+    out["dropout_tp2_all_leaves_bit_equal_across_ranks"] = same
+    if not (same and got[0]["losses"] == got[1]["losses"]):
+        raise AssertionError("(e) tp=2 with dropout 0.1: the ranks' leaves "
+                             "or losses differ")
+    tr = Trainer(drop, ["input_ids", "attention_mask"], "y", device=device,
+                 **ckw)
+    res = tr.fit((x, m), y)
+    resumed = _np_tree(res.params)
+    bit = all((resumed[ln][k] == got[0]["params"][ln][k]).all()
+              for ln in resumed for k in resumed[ln])
+    out["tp2_checkpoint_resumed_on_one_card"] = {
+        "resumed_from": tr._resumed_from, "epochs_run": len(res.losses),
+        "bit_equal": bool(bit)}
+    if not (bit and tr._resumed_from == 2 and res.losses == []):
+        raise AssertionError(f"(e) tp=2 checkpoint on one card: "
+                             f"{out['tp2_checkpoint_resumed_on_one_card']}")
+    log("[tp-fsdp] (e) exactness, BERT-base widths cut to 2 layers, float32, "
+        "TF32 off, 32 rows: " + json.dumps(out) + f" (SGD loss <= "
+        f"{TPF_LOSS_RTOL} relative, params |d| - {TPF_PARAM_RTOL} |p| <= "
+        f"{TPF_PARAM_ATOL}; adam losses <= {TPF_ADAM_RTOL}) [{card}]")
+    return out
+
+
+def _tpf_kernels_h6(card):
+    """Kernels 1-7 at a tp=2 shard's head count (6 of GPT-2 small's 12)
+    against their plain versions, at the main path's shapes: flash forward
+    and backward bf16 at the training shape (B=8, S=1024, causal), the
+    decode step's paged operands (8 slots, 16-token pages, bf16 and int8)
+    and the verify grid (S = spec_k + 1); a second launch of each must
+    give the same bits. The kernel's ms beside (ten calls a CUDA-graph
+    replay, as phase 2 times them)."""
+    import torch
+    from sparkflow_tpu_torch.ops import (attention_reference,
+                                         flash_attention, flash_bwd_dkv,
+                                         flash_bwd_dkv_reference,
+                                         flash_bwd_dq, flash_bwd_dq_reference,
+                                         paged_attention,
+                                         paged_attention_reference,
+                                         paged_attention_verify,
+                                         paged_attention_verify_reference)
+    from sparkflow_tpu_torch.utils import quant
+    dev = torch.device("cuda")
+    h, rows = 6, {}
+    g = torch.Generator(device=dev).manual_seed(66)
+    q, k, v, do = (torch.randn(8, h, 1024, 64, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    again = flash_attention(q, k, v, causal=True)
+    ref = attention_reference(q, k, v, causal=True)
+    rows["flash_fwd"] = {"max_abs_err": max_err(out, ref),
+                         "repeat_bit_equal": bool(torch.equal(out, again)),
+                         "ms": time_device([lambda: flash_attention(
+                             q, k, v, causal=True)] * 10)}
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta, True)
+    for name, fn, ref_fn in (
+            ("flash_bwd_dq", lambda: (flash_bwd_dq(*args),),
+             lambda: (flash_bwd_dq_reference(*args),)),
+            ("flash_bwd_dkv", lambda: flash_bwd_dkv(*args),
+             lambda: flash_bwd_dkv_reference(*args))):
+        got, again, want = fn(), fn(), ref_fn()
+        rows[name] = {
+            "max_abs_err": max(max_err(a, w) for a, w in zip(got, want)),
+            "err_over_max_plain": max(max_err(a, w) / float(
+                w.float().abs().max()) for a, w in zip(got, want)),
+            "repeat_bit_equal": all(torch.equal(a, b_)
+                                    for a, b_ in zip(got, again)),
+            "ms": time_device([fn] * 10)}
+    b, page, maxp = 8, 16, 64
+    num_pages = b * maxp + 1
+    qd = torch.randn(b, h, 64, generator=g, device=dev).to(torch.bfloat16)
+    kp, vp = (torch.randn(num_pages, page, h, 64, generator=g, device=dev)
+              for _ in range(2))
+    table = torch.randperm(num_pages - 1, generator=g, device=dev)[
+        :b * maxp].reshape(b, maxp).add(1).to(torch.int32)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    table[0] = 0
+    qv = torch.randn(b, h, SPEC_K + 1, 64, generator=g, device=dev).to(
+        torch.bfloat16)
+    start = (lengths - (SPEC_K + 1)).clamp(min=0).to(torch.int32)
+    kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    (kq, ks), (vq, vs) = (quant.quantize_kv_pages(t, "int8")
+                          for t in (kp, vp))
+    sc = dict(k_scales=ks, v_scales=vs)
+    cases = (("paged_attention", paged_attention, paged_attention_reference,
+              qd, kb, vb, lengths, {}),
+             ("paged_attention_quant", paged_attention,
+              paged_attention_reference, qd, kq, vq, lengths, sc),
+             ("paged_verify", paged_attention_verify,
+              paged_attention_verify_reference, qv, kb, vb, start, {}),
+             ("paged_verify_quant", paged_attention_verify,
+              paged_attention_verify_reference, qv, kq, vq, start, sc))
+    for name, fn, ref_fn, qq, kk, vv, ln, extra in cases:
+        o1 = fn(qq, kk, vv, table, ln, **extra)
+        o2 = fn(qq, kk, vv, table, ln, **extra)
+        rows[name] = {"max_abs_err": max_err(o1, ref_fn(qq, kk, vv, table,
+                                                         ln, **extra)),
+                      "repeat_bit_equal": bool(torch.equal(o1, o2)),
+                      "ms": time_device([lambda: fn(qq, kk, vv, table, ln,
+                                                    **extra)] * 10)}
+    torch.cuda.synchronize()
+
+    def held(n, r):
+        if not (r["repeat_bit_equal"] and math.isfinite(r["max_abs_err"])):
+            return False
+        if n.startswith("flash_bwd"):
+            return r["err_over_max_plain"] <= BWD_TOL["bfloat16"]
+        tol = FLASH_TOL if n == "flash_fwd" else PAGED_TOL
+        return r["max_abs_err"] < tol["bfloat16"]
+
+    bad = [n for n, r in rows.items() if not held(n, r)]
+    if bad:
+        raise AssertionError(f"kernels at 6 heads: {bad}: {rows}")
+    log("[tp-fsdp] kernels 1-7 at a tp=2 shard's 6 heads (bf16; flash B=8 "
+        "S=1024 causal, paged 8 slots x 16-token pages, verify S=5) vs their "
+        "plain versions: " + json.dumps(rows) + f" [{card}]")
+    return rows
+
+
+def phase_tp_fsdp(card, work, device=None, pool=None):
+    """Phase 20: tensor parallelism and fsdp on the card (see the module
+    docstring). The in-place rank work of (a) and (e) runs in ``pool``
+    (phase 18's) or a pool of its own. Returns the phase's launches,
+    summary and the kernels' rows at 6 heads. Rehearse it on the CPU with
+    ``device="cpu"`` and shrunk ``GPT2_SMALL`` / ``BERT_BASE``."""
+    import torch
+    from sparkflow_tpu_torch.parallel import distributed
+    t0 = time.perf_counter()
+    cuda = device != "cpu"
+    kind = "cuda" if cuda else "cpu"
+    os.environ["SPARKFLOW_TORCH_MESH_TIMEOUT_S"] = str(MESH_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = distributed.choose_backend(2, kind)
+    log(f"[tp-fsdp] 2 ranks on {torch.cuda.device_count()} card(s), backend "
+        f"{backend}; tp shards of one-process serving on card (d * tp + t) % "
+        f"count. On one card this shows the mesh layer and the kernels at a "
+        f"shard's head count, not scaling [{card}]")
+    out = {"backend": backend, "seconds": {}}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds"][name] = now - mark[0]
+        mark[0] = now
+
+    out["kernels_h6"] = _tpf_kernels_h6(card) if cuda else {}
+    lap("kernels_h6")
+    with _pool_of(pool, kind) as pool:
+        out["train"], train_l = _tpf_training(card, device, pool)
+        pool.run(_rank_release)
+        lap("a_training")
+        out.update(_tpf_rest(card, work, device, pool, lap))
+    est_l, dec_l = out.pop("_est_l"), out.pop("_dec_l")
+    launches = {n: {"training_tp2": train_l.get(n, 0),
+                    "estimator": est_l.get(n, 0),
+                    "decode_tp2": dec_l.get(n, 0)} for n in TPF_NAMES}
+    launches["flash_fwd"]["predict_tp2_call"] = out.pop("_pred_call")
+    out["launches"] = launches
+    log(f"[tp-fsdp] phase 20 {time.perf_counter() - t0:.1f} s, by part "
+        + json.dumps(out["seconds"]) + f" [{card}]")
+    return out
+
+
+def _tpf_rest(card, work, device, pool, lap):
+    """Phase 20 (b)-(e); the launches under private keys for the caller."""
+    import numpy as np
+    from sparkflow_tpu_torch.localml import LocalSession
+    from sparkflow_tpu_torch.models import build_registry_spec
+    out = {}
+    spark = LocalSession.builder.appName("tp-fsdp").getOrCreate()
+    bert = build_registry_spec("transformer_classifier", **BERT_BASE)
+    df = synthetic_text(spark, TPF_EST_ROWS, BERT_BASE["max_len"],
+                        BERT_BASE["vocab_size"])
+    rows = df.collect()
+    ids = np.stack([r["tokens"].toArray() for r in rows]).astype(np.float32)
+    masks = np.stack([r["mask"].toArray() for r in rows]).astype(np.float32)
+    labels = np.eye(2, dtype=np.float32)[[int(r["label"]) for r in rows]]
+    one_ex_s = _tpf_one_card_ex_s(bert, ids, masks, labels, device)
+    est, est_l = {}, {n: 0 for n in MESH_NAMES}
+    for mesh_shape, mode in (("tp=2", "collect"), ("fsdp=2", "collect"),
+                             ("fsdp=2", "stream")):
+        _fitted, summary, launches = _tpf_estimator(
+            card, bert, df, mesh_shape, mode, work, device)
+        summary["examples_per_s_over_one_card"] = (
+            summary["train_examples_per_s"] / one_ex_s)
+        est[f"{mesh_shape} {mode}"] = summary
+        for n in MESH_NAMES:
+            est_l[n] += launches[n]
+        del _fitted
+    full = _tpf_full_bytes(bert)
+    est["one_card_train_examples_per_s"] = one_ex_s
+    est["one_card_param_gb"] = full / 1e9
+    est["fsdp_param_share_a_rank"] = [
+        r["param_gb"] * 1e9 / full
+        for r in est["fsdp=2 collect"]["ranks"]]
+    log("[tp-fsdp] (b) BERT-base through SparkAsyncDL(meshShape=...), "
+        "float32, 64 rows x 512, batch 32, 2 steps each (collect: a random "
+        "batch an epoch): "
+        + json.dumps(est) + f" [{card}]")
+    out["estimator"] = est
+    lap("b_estimator")
+    out["decode"], out["_dec_l"] = _tpf_decode(card, device)
+    lap("c_decode")
+    out["predict"], out["_pred_call"] = _tpf_predict(card, device)
+    lap("d_predict")
+    out["exact"] = _tpf_exactness(card, ids, masks, labels, work, device,
+                                  pool)
+    pool.run(_rank_release)
+    lap("e_exact")
+    out["_est_l"] = est_l
+    return out
+
+
+def main(only: str = None) -> int:
+    """All phases; with ``only="tp-fsdp"`` set-up and phase 20 alone (its
+    summary in place of the kernels line)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -5687,6 +6370,21 @@ def main() -> int:
         log(f"[time] {name} {time.perf_counter() - t:.1f} s")
         return out
 
+    if only == "tp-fsdp":
+        try:
+            timed("setup", phase_setup)
+            with timed("mesh-pool", mesh_pool) as pool:
+                tpf = timed("tp-fsdp", phase_tp_fsdp, card, work, None, pool)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(json.dumps({"tp_fsdp": tpf}))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": device_report()}),
+              flush=True)
+        return 0
     try:
         timed("setup", phase_setup)
         flash_row, paged_row = timed("kernels", phase_kernels, card)
@@ -5711,6 +6409,7 @@ def main() -> int:
             mesh = timed("mesh", phase_mesh, card, work, pool)
             stream_mesh = timed("stream-mesh", phase_stream_mesh, card,
                                 work, mesh, None, pool)
+            tpf = timed("tp-fsdp", phase_tp_fsdp, card, work, None, pool)
     except Exception:
         traceback.print_exc()
         return 1
@@ -5804,6 +6503,13 @@ def main() -> int:
          "launches": spec_b["paged_verify_quant"],
          **spec_rows["paged_verify_quant"]},
     ]
+    for row in kernels:
+        # phase 20: the launches of its tp / fsdp paths (training and
+        # estimator fits summed over the ranks, decode over both shards),
+        # and the kernel against its plain version at a tp=2 shard's 6
+        # heads
+        row["tp_fsdp"] = {"launches": tpf["launches"][row["name"]],
+                          "heads6": tpf["kernels_h6"][row["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)
@@ -5813,4 +6519,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--replica"]:
         sys.exit(run_replica(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

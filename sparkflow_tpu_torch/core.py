@@ -8,7 +8,8 @@
 - :func:`make_epoch_fn` — one epoch of steps in the reference's three
   batching modes (``sweep``, ``stochastic``, ``full``);
 - :func:`make_predict_fn` / :func:`predict_in_chunks` — fixed-size chunked
-  inference, dp-sharded over a mesh in one process with ``mesh=``.
+  inference, dp-sharded (and tp-split) over a mesh in one process with
+  ``mesh=``.
 
 Batches keep a fixed size: the dataset is padded to whole batches and a
 0/1 row mask weights the loss, so padded rows add zero loss and zero
@@ -199,7 +200,11 @@ def make_predict_fn(model, input_name, output_name: str,
     serving rule of :mod:`.parallel.mesh`: one parameter copy per dp shard
     (made once for each params tree a call gets, and kept while that tree
     is unchanged), any batch size padded up to a dp multiple, split into
-    contiguous row blocks, each block's output concatenated and trimmed."""
+    contiguous row blocks, each block's output concatenated and trimmed.
+    On a ``tp`` axis a model with megatron rules (``param_pspecs``) splits
+    each copy into tp shards and sums each block half's partials; a model
+    without them holds whole copies, as JAX's replicated program does.
+    An ``fsdp`` axis holds whole copies."""
     multi = isinstance(input_name, (list, tuple))
     in_keys = ([n.split(":")[0] for n in input_name] if multi
                else [input_name.split(":")[0]])
@@ -220,14 +225,26 @@ def make_predict_fn(model, input_name, output_name: str,
 
     if mesh is None:
         return predict
-    from .parallel.mesh import (dp_apply, dp_copies, model_on,
-                                serving_devices, serving_dp)
-    dp = serving_dp(mesh, sharding)
-    if dp <= 1:
+    from .parallel import mesh as pmesh
+    dp, tp_axis, tp = pmesh.serving_layout(mesh, sharding)
+    pspecs = None
+    if tp > 1:
+        from .parallel.tp import serving_pspecs
+        pspecs = serving_pspecs(model, pmesh.as_mesh(mesh), tp_axis)
+    if pspecs is None:
+        tp = 1      # no megatron rules: each copy holds the whole tree
+    if dp <= 1 and tp <= 1:
         return predict
-    devices = serving_devices(dp, model.device)
-    models = [model_on(model, d) for d in devices]
+    grid = pmesh.serving_grid(dp, tp, model.device)
+    models = [pmesh.model_on(model, g[0]) for g in grid]
     held: dict = {"key": None}
+
+    def place(params):
+        if tp <= 1:
+            return pmesh.dp_copies(params, [g[0] for g in grid])
+        from .parallel.tp import serving_tree
+        return [serving_tree(model, params, pspecs, tp_axis, g)
+                for g in grid]
 
     def copies(params):
         # the per-shard copies of the tree this call got, made again only
@@ -235,8 +252,7 @@ def make_predict_fn(model, input_name, output_name: str,
         key = (id(params), tuple((id(t), getattr(t, "_version", 0))
                                  for t in tree_leaves(params)))
         if held["key"] != key:
-            held.update(key=key, src=params,
-                        copies=dp_copies(params, devices))
+            held.update(key=key, src=params, copies=place(params))
         return held["copies"]
 
     def padded_predict(params, x):
@@ -246,8 +262,9 @@ def make_predict_fn(model, input_name, output_name: str,
         if pad:
             xs = tuple(torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
                        for a in xs)
-        return dp_apply(lambda r, p, block: apply_on(models[r], p, block),
-                        copies(params), xs)[:n]
+        return pmesh.dp_apply(
+            lambda r, p, block: apply_on(models[r], p, block),
+            copies(params), xs)[:n]
 
     return padded_predict
 

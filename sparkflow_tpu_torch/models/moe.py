@@ -31,7 +31,10 @@ mask, so padding claims no capacity. Prefill, decode and the suffix and
 verify forwards pass none (as in the JAX package): a padded prefill bucket's
 pad tokens and a decode batch's idle lanes claim capacity like live tokens,
 so the serving engine must present the same batch as the JAX engine does.
-Expert parallelism (``ep_axis``) is not yet ported and raises.
+On a ``tp`` mesh the attention is Megatron's and the expert MLP is
+replicated (its ``P("ep", ...)`` rules filter to replicated there), as in
+the JAX package. Expert parallelism (``ep_axis``) is not yet ported and
+raises.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..sharding import P
 from .registry import register_model
 from .transformer import TransformerLM, _gelu, _not_yet
 
@@ -87,6 +91,29 @@ class _MoEMixin:
         for i in range(self.num_layers):
             if self._is_moe_layer(i):
                 specs[f"block_{i}"] = self._moe_block_specs()
+        return specs
+
+    def _moe_block_pspecs(self):
+        specs = super()._block_pspecs()
+        for k in ("fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias"):
+            del specs[k]
+        specs.update({
+            "router": P(),
+            "experts_fc1": P("ep", None, None),
+            "experts_b1": P("ep", None),
+            "experts_fc2": P("ep", None, None),
+            "experts_b2": P("ep", None),
+        })
+        return specs
+
+    def param_pspecs(self):
+        """The JAX package's rules: megatron attention on ``tp``, the
+        expert bank on ``ep`` — which a ``tp`` mesh lacks, so there the
+        expert MLP is replicated and only the attention sums over ``tp``."""
+        specs = super().param_pspecs()
+        for i in range(self.num_layers):
+            if self._is_moe_layer(i):
+                specs[f"block_{i}"] = self._moe_block_pspecs()
         return specs
 
     def _mlp(self, bp, y, mask=None):

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graphdef import _conv2d, _pad_nchw
+from ..sharding import P
 from .base import Params, RegistryModel, softmax_xent
 from .registry import register_model
 
@@ -106,6 +107,12 @@ class ResNet(RegistryModel):
                 blocks.append((f"stage{si}_block{bi}", cin, cmid, stride))
                 cin = cmid * expansion
         return blocks
+
+    def param_pspecs(self):
+        """ResNets replicate cleanly (small params): every leaf ``P()``, so
+        a tp mesh trains them with replicated params, as JAX's does."""
+        return {name: {k: P() for k in layer}
+                for name, layer in self.param_specs().items()}
 
     def param_specs(self):
         k = 3 if self.image_size <= 64 else 7  # CIFAR stem vs ImageNet stem

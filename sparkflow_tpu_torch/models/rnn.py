@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from ..graphdef import _NoTF32
+from ..sharding import P
 from .base import Params, RegistryModel, softmax_xent
 from .registry import register_model
 
@@ -152,6 +153,11 @@ class _RNNBase(RegistryModel):
             specs[f"layer_{i}"] = self._layer_specs(in_dim)
             in_dim = self.hidden
         return specs
+
+    def param_pspecs(self):
+        # recurrent kernels replicated by design, as in the JAX package
+        return {name: {k: P() for k in layer}
+                for name, layer in self.param_specs().items()}
 
     def _dropout(self, x, train: bool, generator: Optional[torch.Generator]):
         if not train or self.dropout <= 0.0:

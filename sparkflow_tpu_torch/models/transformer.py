@@ -39,13 +39,30 @@ step sets it on its own copy of the model, :mod:`..parallel.sp`) each rank
 holds a sequence shard, attention runs
 :func:`~sparkflow_tpu_torch.ops.ring_flash_attention` over that axis of the
 bound mesh, and positions start at the rank's index on the axis times the
-shard length. Tensor and expert parallelism (``tp_axis``, ``ep_axis``) are
-not yet ported and raise.
+shard length.
+
+Tensor parallelism (Megatron; :mod:`..parallel.tp`): a block splits at its
+two reduction points into an attention half (ln1, qkv on the local
+columns, attention on the local heads, o on the local rows) and an MLP half
+(ln2, fc1 local, gelu, fc2 local); the number of heads comes from the local
+qkv width. Between the halves a reduction hook does one of two things. On
+a rank of a ``tp`` mesh (``tp_axis`` set on the rank's copy of the model,
+its leaves that rank's slices) *f* goes before qkv and fc1 and *g*, an
+all-reduce over the axis, after o and fc2
+(:func:`~..parallel.collectives.tp_enter`, ``tp_exit``), and the
+row-parallel bias is added once after the sum. In one-process serving a
+block's params are a :class:`~..parallel.tp.TPShards` (and so are a decode
+cache and a prefill's K/V): each half runs on every shard, the partials are
+summed in float32 on shard 0's device in shard order and rounded to the
+compute dtype once, and the bias is added once after. An MoE layer's
+expert MLP is replicated on a ``tp`` mesh and has no reduction. Expert parallelism
+(``ep_axis``) is not yet ported and raises.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import math
 from typing import Callable, List, Optional, Tuple
@@ -57,6 +74,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from ..ops import flash_attention, ring_flash_attention
+from ..parallel.tp import TPShards, shard_of as _shard, shards_of as _shards
+from ..sharding import P
 from ..utils import quant
 from .base import Params, RegistryModel, softmax_xent
 from .registry import register_model
@@ -116,6 +135,9 @@ class _TransformerBase(RegistryModel):
         super().__init__(compute_dtype, device)
         # a mesh axis name: attention becomes ring attention over it
         self.sp_axis = sp_axis
+        # a mesh axis name, set on a tp rank's copy of the model: the
+        # Megatron forward over that axis of the bound mesh
+        self.tp_axis: Optional[str] = None
         self.vocab_size = int(vocab_size)
         self.hidden = int(hidden)
         self.num_layers = int(num_layers)
@@ -155,14 +177,78 @@ class _TransformerBase(RegistryModel):
         specs["final_ln"] = {"scale": ((h,), "ones"), "bias": ((h,), "zeros")}
         return specs
 
+    def _block_pspecs(self):
+        return {
+            "ln1_scale": P(), "ln1_bias": P(),
+            "qkv_kernel": P(None, "tp"), "qkv_bias": P("tp"),
+            "o_kernel": P("tp", None), "o_bias": P(),
+            "ln2_scale": P(), "ln2_bias": P(),
+            "fc1_kernel": P(None, "tp"), "fc1_bias": P("tp"),
+            "fc2_kernel": P("tp", None), "fc2_bias": P(),
+        }
+
+    def param_pspecs(self):
+        """Megatron-style TP sharding rules, same tree structure as params
+        (the JAX package's)."""
+        specs = {"embed": {"tok": P(None, None), "pos": P(None, None)}}
+        for i in range(self.num_layers):
+            specs[f"block_{i}"] = self._block_pspecs()
+        specs["final_ln"] = {"scale": P(), "bias": P()}
+        return specs
+
     # -- blocks --------------------------------------------------------------
 
-    @staticmethod
-    def _check_axes(tp_axis, ep_axis):
-        if tp_axis is not None:
-            _not_yet("tensor parallelism (tp_axis)")
+    def _axes_model(self, tp_axis, ep_axis):
+        """The model an entry point called with mesh axes runs as: itself,
+        or a copy running the Megatron forward over ``tp_axis`` (of the
+        bound mesh, on this rank's slices). ``ep_axis`` is refused."""
         if ep_axis is not None:
             _not_yet("expert parallelism (ep_axis)")
+        if tp_axis is None or tp_axis == self.tp_axis:
+            return self
+        other = copy.copy(self)
+        other.tp_axis = tp_axis
+        return other
+
+    def _tp_enter(self, y):
+        """Megatron's *f* before a column-parallel projection on a tp rank;
+        the identity elsewhere."""
+        if self.tp_axis is None:
+            return y
+        from ..parallel.collectives import tp_enter
+        return tp_enter(y, self.tp_axis)
+
+    def _parallel_half(self, bp, x, half, base: str):
+        """One block half ending in the row-parallel projection ``base``
+        (``"o_"`` or ``"fc2_"``): ``half(p, x, s) -> (h, side)`` runs the
+        half up to that projection's input on params ``p`` (shard ``s``).
+        Returns ``(out, side)``: the projection's output, summed over the
+        tp shards with its bias counted once, and ``half``'s side output
+        (a TPShards of them in one-process serving)."""
+        shards = _shards(bp)
+        if shards is None:
+            h, side = half(bp, x, 0)
+            if self.tp_axis is None:
+                return self._proj(bp, base, h), side
+            from ..parallel.collectives import tp_exit
+            out = tp_exit(_dense(h, bp[f"{base}kernel"]), self.tp_axis)
+            bias = bp.get(f"{base}bias")
+            return (out if bias is None else out + bias.to(out.dtype)), side
+        # one process: each shard's product in float32 (a bf16 product of
+        # bf16 operands is exact there), summed in shard order on shard 0's
+        # device and rounded to the compute dtype once, then the bias — the
+        # unsharded projection's arithmetic up to the order of summation
+        total, sides = None, TPShards()
+        for s, p in enumerate(shards):
+            kernel = p[f"{base}kernel"]
+            h, side = half(p, x.to(kernel.device), s)
+            part = torch.matmul(h.float(), kernel.to(h.dtype).float())
+            total = part.to(x.device) if total is None else (
+                total + part.to(x.device))
+            sides.append(side)
+        out = total.to(x.dtype)
+        bias = shards[0].get(f"{base}bias")
+        return (out if bias is None else out + bias.to(out.dtype)), sides
 
     SUPPORTS_INT8_SERVING = True
 
@@ -187,11 +273,13 @@ class _TransformerBase(RegistryModel):
 
     def _qkv(self, bp, x):
         """ln1 + qkv projection of ``x`` [B,S,hidden] -> q, k, v views
-        [B,heads,S,d] of ONE [3,B,heads,S,d] permutation (no copies)."""
+        [B,heads,S,d] of ONE [3,B,heads,S,d] permutation (no copies);
+        ``heads`` from the (local) qkv width."""
         b, s, _ = x.shape
-        y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+        y = self._tp_enter(_layer_norm(x, bp["ln1_scale"], bp["ln1_bias"]))
         qkv = self._proj(bp, "qkv_", y)
-        qkv = qkv.view(b, s, 3, self.num_heads, self.head_dim)
+        heads = qkv.shape[-1] // (3 * self.head_dim)
+        qkv = qkv.view(b, s, 3, heads, self.head_dim)
         qkv = qkv.permute(2, 0, 3, 1, 4)
         return qkv[0], qkv[1], qkv[2]
 
@@ -203,55 +291,96 @@ class _TransformerBase(RegistryModel):
         y = _gelu(self._proj(bp, "fc1_", y))
         return self._proj(bp, "fc2_", y), None
 
+    def _mlp_half(self, bp, x, mask=None):
+        """ln2 and the feed-forward half on the residual stream ``x``:
+        ``(out, aux)``. Tensor-parallel as a Megatron half, except an MoE
+        layer's, whose expert MLP is replicated on a tp mesh (shard 0's copy
+        in one-process serving) and has no reduction."""
+        shards = _shards(bp)
+        p0 = bp if shards is None else shards[0]
+        if (shards is None and self.tp_axis is None) or "router" in p0:
+            y = _layer_norm(x, p0["ln2_scale"], p0["ln2_bias"])
+            return self._mlp(p0, y, mask)
+
+        def half(p, xs, _s):
+            y = self._tp_enter(_layer_norm(xs, p["ln2_scale"],
+                                           p["ln2_bias"]))
+            return _gelu(self._proj(p, "fc1_", y)), None
+
+        return self._parallel_half(bp, x, half, "fc2_")[0], None
+
     def _finish_block(self, bp, x, att, train: bool = False,
                       generator: Optional[torch.Generator] = None,
                       mask=None):
-        """O-projection + residual + MLP on ``att`` [B,S,heads*d], with
-        dropout after the O projection and after the MLP when training:
-        ``(x, aux)`` (see :meth:`_mlp`)."""
-        x = x + self._dropout(self._proj(bp, "o_", att),
-                              train, generator)
-        y = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-        y, aux = self._mlp(bp, y, mask)
+        """Residual + MLP after the attention half's output ``att``
+        [B,S,hidden], with dropout after the O projection and after the MLP
+        when training: ``(x, aux)`` (see :meth:`_mlp`)."""
+        x = x + self._dropout(att, train, generator)
+        y, aux = self._mlp_half(bp, x, mask)
         return x + self._dropout(y, train, generator), aux
 
     def _block(self, bp, x, mask, causal, attention=None, train: bool = False,
                generator: Optional[torch.Generator] = None):
         """Full-sequence block: ``(x, k, v, aux)`` with k/v
-        [B,heads,S,d]; ``mask`` is the key-padding mask and the MLP's live
-        tokens."""
+        [B,heads,S,d] (TPShards of them in one-process tp serving);
+        ``mask`` is the key-padding mask and the MLP's live tokens."""
         b, s, _ = x.shape
-        q, k, v = self._qkv(bp, x)
-        if attention is not None:
-            att = attention(q, k, v, causal=causal, kv_mask=mask)
-        elif self.sp_axis is not None:
-            att = ring_flash_attention(q, k, v, self.sp_axis, causal=causal,
-                                       kv_mask=mask)
-        else:
-            att = flash_attention(q, k, v, causal=causal, kv_mask=mask)
-        att = att.transpose(1, 2).reshape(b, s, -1)
+
+        def half(p, xs, _s):
+            q, k, v = self._qkv(p, xs)
+            m = None if mask is None else mask.to(q.device)
+            if attention is not None:
+                att = attention(q, k, v, causal=causal, kv_mask=m)
+            elif self.sp_axis is not None:
+                att = ring_flash_attention(q, k, v, self.sp_axis,
+                                           causal=causal, kv_mask=m)
+            else:
+                att = flash_attention(q, k, v, causal=causal, kv_mask=m)
+            return att.transpose(1, 2).reshape(b, s, -1), (k, v)
+
+        att, kv = self._parallel_half(bp, x, half, "o_")
         x, aux = self._finish_block(bp, x, att, train, generator, mask)
+        if isinstance(kv, TPShards):
+            k = TPShards([a for a, _ in kv])
+            v = TPShards([b_ for _, b_ in kv])
+        else:
+            k, v = kv
         return x, k, v, aux
 
     def _block_decode(self, bp, x, layer, cache, pos, attend):
         """One block on a single token ``x`` [B,1,hidden]; attention over
-        the cached history is ``attend``'s (see :meth:`decode_step`)."""
+        the cached history is ``attend``'s (see :meth:`decode_step`), on
+        shard ``s``'s entry of a TPShards cache in one-process tp
+        serving."""
         b = x.shape[0]
-        y = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
-        qkv = self._proj(bp, "qkv_", y)
-        qkv = qkv.view(b, 3, self.num_heads, self.head_dim)
-        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]           # [B, heads, d]
-        att, cache = attend(layer, q, k, v, cache, pos)
-        return self._finish_block(bp, x, att.reshape(b, 1, -1))[0], cache
+
+        def half(p, xs, s):
+            y = self._tp_enter(_layer_norm(xs, p["ln1_scale"],
+                                           p["ln1_bias"]))
+            qkv = self._proj(p, "qkv_", y)
+            heads = qkv.shape[-1] // (3 * self.head_dim)
+            qkv = qkv.view(b, 3, heads, self.head_dim)
+            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]       # [B, heads, d]
+            att, _ = attend(layer, q, k, v, _shard(cache, s),
+                            pos.to(q.device))
+            return att.reshape(b, 1, -1), None
+
+        att, _ = self._parallel_half(bp, x, half, "o_")
+        return self._finish_block(bp, x, att)[0], cache
 
     def _block_suffix(self, bp, x, layer, cache, start, attend):
         """One block on a prompt suffix ``x`` [B,S,hidden] starting at
         absolute position ``start`` [B]; ``attend(layer, q, k, v, cache,
         start)`` with q/k/v [B,heads,S,d] owns the history."""
         b, s, _ = x.shape
-        q, k, v = self._qkv(bp, x)
-        att, cache = attend(layer, q, k, v, cache, start)
-        att = att.transpose(1, 2).reshape(b, s, -1)
+
+        def half(p, xs, sh):
+            q, k, v = self._qkv(p, xs)
+            att, _ = attend(layer, q, k, v, _shard(cache, sh),
+                            start.to(q.device))
+            return att.transpose(1, 2).reshape(b, s, -1), None
+
+        att, _ = self._parallel_half(bp, x, half, "o_")
         return self._finish_block(bp, x, att)[0], cache
 
     def _remat_block(self, bp, x, mask, causal, attention, train, generator):
@@ -354,6 +483,11 @@ class TransformerClassifier(_TransformerBase):
                          "bias": ((self.num_classes,), "zeros")}
         return specs
 
+    def param_pspecs(self):
+        specs = super().param_pspecs()
+        specs["head"] = {"kernel": P(None, None), "bias": P()}
+        return specs
+
     def _forward(self, params: Params, feeds, train: bool = False,
                  generator: Optional[torch.Generator] = None,
                  attention: Optional[Callable] = None):
@@ -454,8 +588,12 @@ class TransformerLM(_TransformerBase):
                 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
         """Causal forward over a (padded) prompt that also returns each
         block's keys/values: ``(logits [B, vocab] at the last valid position,
-        [(k, v)] * layers with k/v [B,heads,S,d])``."""
-        self._check_axes(tp_axis, ep_axis)
+        [(k, v)] * layers with k/v [B,heads,S,d])``. ``tp_axis``: on a
+        rank of a tp mesh, the Megatron forward over that axis (k/v then
+        hold the rank's heads)."""
+        m = self._axes_model(tp_axis, ep_axis)
+        if m is not self:
+            return m.prefill(params, ids, mask, lengths)
         x = self.prefill_embed(params, ids)
         kvs = []
         for i in range(self.num_layers):
@@ -471,7 +609,10 @@ class TransformerLM(_TransformerBase):
         cache)``. ``attend(layer, q, k_new, v_new, cache, pos) -> (att
         [B,heads,d], cache)`` owns the cache layout (default: the dense
         cache of :meth:`init_decode_cache`)."""
-        self._check_axes(tp_axis, ep_axis)
+        m = self._axes_model(tp_axis, ep_axis)
+        if m is not self:
+            return m.decode_step(params, cache, token, pos, attend,
+                                 num_layers)
         if attend is None:
             attend = self._dense_cache_attend
         n = self.num_layers if num_layers is None else int(num_layers)
@@ -487,7 +628,10 @@ class TransformerLM(_TransformerBase):
         ``start`` [B]; attention over the committed prefix is ``attend``'s.
         Returns ``(logits [B, vocab] at the last valid suffix position,
         cache)``."""
-        self._check_axes(tp_axis, ep_axis)
+        m = self._axes_model(tp_axis, ep_axis)
+        if m is not self:
+            return m.prefill_suffix(params, ids, start, cache, attend,
+                                    lengths)
         x = self._suffix_blocks(params, ids, start, cache, attend)
         return self.head_last(params, x, lengths), cache
 
@@ -499,7 +643,9 @@ class TransformerLM(_TransformerBase):
         logits at EVERY position — ``(logits [B, S, vocab] f32, cache)`` —
         so one call scores a drafted block: ``logits[:, j]`` is the model's
         next-token distribution after the prefix and ``ids[:, :j+1]``."""
-        self._check_axes(tp_axis, ep_axis)
+        m = self._axes_model(tp_axis, ep_axis)
+        if m is not self:
+            return m.decode_verify(params, ids, start, cache, attend)
         x = self._suffix_blocks(params, ids, start, cache, attend)
         return self.head_all(params, x), cache
 

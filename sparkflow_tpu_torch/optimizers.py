@@ -27,8 +27,10 @@ The ZeRO re-exports of the JAX module wait for the parallel slice
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+from contextvars import ContextVar
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -373,9 +375,29 @@ def _clip(max_delta: float) -> GradientTransformation:
             tree_map(lambda u: u.clamp(-max_delta, max_delta), g), s))
 
 
+_NORM_SQ: ContextVar = ContextVar("sparkflow_torch_global_norm_sq",
+                                   default=None)
+
+
+@contextlib.contextmanager
+def global_norm_sq(fn: Callable):
+    """Within the block, ``clip_norm``'s squared global norm is ``fn(leaves)``
+    of the gradient tree's leaves (in ``tree_leaves`` order) — a sharded
+    step's rule: the squares of its sharded leaves summed over their axes,
+    its replicated leaves counted once."""
+    tok = _NORM_SQ.set(fn)
+    try:
+        yield
+    finally:
+        _NORM_SQ.reset(tok)
+
+
 def _clip_by_global_norm(max_norm: float) -> GradientTransformation:
     def update(g, state, params=None):
-        norm = torch.sqrt(sum((u * u).sum() for u in tree_leaves(g)))
+        fn = _NORM_SQ.get()
+        leaves = tree_leaves(g)
+        norm = torch.sqrt(fn(leaves) if fn is not None
+                          else sum((u * u).sum() for u in leaves))
         keep = norm < max_norm
         return tree_map(lambda u: torch.where(
             keep, u, (u / norm.to(u.dtype)) * max_norm), g), state

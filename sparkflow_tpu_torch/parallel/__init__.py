@@ -10,12 +10,16 @@
   from, with a line to each rank while a task runs; the backend rule;
 - :mod:`.dp` — synchronous data parallelism with ZeRO stages 0-3;
 - :mod:`.sp` — sequence parallelism through ring attention;
+- :mod:`.tp` — Megatron tensor parallelism and fsdp parameter sharding:
+  the spec rules, a rank's slices and the gather back, and the one-process
+  serving split (:class:`~.tp.TPShards`); the step is
+  :func:`~.dp.make_param_sharded_train_step`;
 - :mod:`.elastic` — bounded-staleness async data parallelism over a
   versioned parameter store (the reference's Hogwild heritage), whose
   replicas are threads on one card.
 
-Tensor, pipeline and expert parallelism (``tp``, ``fsdp``, ``pp``, ``ep``)
-and ``hyper`` are not yet ported (ROADMAP.md, queue 1 item 7)."""
+Pipeline and expert parallelism (``pp``, ``ep``) and ``hyper`` are not yet
+ported (ROADMAP.md, queue 1 item 7)."""
 
 from .mesh import default_mesh, make_mesh, mesh_axis_size
 from . import collectives

@@ -10,7 +10,10 @@ JAX one does; the mapping is one to one:
 - ``all_gather`` -> ``all_gather_into_tensor``;
 - ``ppermute`` (:func:`ppermute_ring`) -> ``batch_isend_irecv`` to rank
   +/- ``shift`` along the axis;
-- ``axis_index`` -> the rank's coordinate on the axis.
+- ``axis_index`` -> the rank's coordinate on the axis;
+- Megatron's *f* and *g* (:func:`tp_enter`, :func:`tp_exit`) — an
+  all-reduce in the backward or the forward of a tensor-parallel block,
+  inside autograd.
 
 Backends (chosen up front by :mod:`.distributed`, never swapped here): with
 NCCL the tensors go to the collective as they are. With gloo, a CUDA tensor
@@ -302,6 +305,53 @@ def ppermute_ring(x, axis_name: Axes, shift: int = 1):
     return out[0] if single else out
 
 
+# ---------------------------------------------------------------------------
+# Megatron's two operators (tensor parallelism inside autograd)
+# ---------------------------------------------------------------------------
+
+
+class _TPEnter(torch.autograd.Function):
+    """*f*: identity forward, gradient all-reduced over ``axis`` backward.
+    The mesh is kept in ``ctx``: autograd runs a CUDA backward on its own
+    thread, where the bound mesh is not seen."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.mesh = axis, bound_mesh()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.mesh.bind():
+            return psum({"g": g.contiguous()}, ctx.axis)["g"], None
+
+
+class _TPExit(torch.autograd.Function):
+    """*g*: all-reduce over ``axis`` forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return psum({"x": x.contiguous()}, axis)["x"]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_enter(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Megatron's *f*, before a column-parallel projection (qkv, fc1): the
+    replicated activation passes as it is, and its gradient — one rank's
+    heads' part — is summed over ``axis_name`` in the backward."""
+    return _TPEnter.apply(x, axis_name)
+
+
+def tp_exit(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Megatron's *g*, after a row-parallel projection (o, fc2): the ranks'
+    partial sums are summed over ``axis_name``; the gradient passes as it
+    is (every rank holds the whole activation's gradient)."""
+    return _TPExit.apply(x, axis_name)
+
+
 def _flat_pad(x: torch.Tensor, n: int) -> torch.Tensor:
     """Ravel + zero-pad so the size divides ``n`` (JAX's flat-pad rule)."""
     flat = x.reshape(-1)
@@ -351,4 +401,4 @@ def hierarchical_psum_mean(tree, ici_axis: str, dcn_axis: str):
 __all__ = ["all_gather", "axis_index", "axis_size", "barrier",
            "hierarchical_psum_mean",
            "ppermute_ring", "psum", "psum_mean", "reduce_scatter",
-           "reset_stats", "stats"]
+           "reset_stats", "stats", "tp_enter", "tp_exit"]

@@ -24,6 +24,11 @@ JAX's. Dropout draws from a ``torch.Generator`` per rank seeded from the
 step's seed folded with the rank's index on each batch axis (JAX's
 ``fold_in(rng, axis_index)``), so shards draw independent masks and a run
 repeats. The step must run inside ``with mesh.bind():`` on every rank.
+
+:func:`make_param_sharded_train_step` is the step of a fit whose
+parameters shard over ``tp`` (Megatron) or ``fsdp`` — JAX's GSPMD step
+with tp/fsdp-placed params (:mod:`.tp`); zero stages stay a pure-dp
+matter, as in JAX.
 """
 
 from __future__ import annotations
@@ -197,6 +202,134 @@ def make_dp_train_step(model, optimizer, mesh, input_name,
     return step
 
 
+def _leaf_specs(params, specs) -> list:
+    """The spec of every leaf of ``params``, in ``tree_leaves`` order."""
+    if isinstance(params, dict):
+        return [x for k in params for x in _leaf_specs(params[k], specs[k])]
+    return [specs]
+
+
+def _sub_rows(a, k: int, i: int):
+    """Block ``i`` of ``k`` of a dp shard's rows, the rows zero-padded to a
+    multiple of ``k`` first (their mask rows are 0: no loss, no
+    gradient)."""
+    if isinstance(a, tuple):
+        return tuple(_sub_rows(p, k, i) for p in a)
+    n = a.shape[0]
+    c = -(-n // k)
+    if c * k > n:
+        a = torch.cat([a, a.new_zeros((c * k - n,) + tuple(a.shape[1:]))])
+    return a[i * c:(i + 1) * c]
+
+
+def make_param_sharded_train_step(model, optimizer, mesh, input_name,
+                                  label_name: Optional[str], pspecs,
+                                  full_shapes, sharding: Any = None):
+    """The per-rank step of a fit whose parameters shard over ``tp`` or
+    ``fsdp`` (the counterpart of JAX's GSPMD step with tp/fsdp-placed
+    params): ``step(params, opt_state, x, y, mask, rng) -> (params,
+    opt_state, loss)``, ``params`` this rank's slices
+    (:func:`~..parallel.tp.shard_params`, a ``tp`` tree packed first),
+    ``opt_state`` built on them, ``x`` / ``y`` / ``mask`` this rank's rows
+    over the config's batch axes, ``loss`` the global masked mean.
+
+    - ``tp``: the model runs the Megatron forward over the tp axis (a copy
+      with ``tp_axis`` set); every tp rank of a dp group sees the same rows
+      and draws the same dropout masks (the generator folds the batch axes'
+      indices only), so the replicated leaves stay equal across them.
+      Gradients all-reduce over the batch axes.
+    - ``fsdp``: a dp shard's rows split again over ``fsdp`` (padded with
+      zero-mask rows to a multiple of it), each sharded leaf is gathered
+      just in time and its gradient comes back reduce-scattered over
+      ``fsdp``; then the sharded leaves' gradients all-reduce over the dp
+      axes and the replicated leaves' over dp and fsdp.
+
+    The loss is the masked mean over the global batch, as on one card; the
+    1/n comes after the sums. ``clip_norm`` measures the global norm: the
+    sharded leaves' squares summed over their axes, the replicated leaves'
+    counted once. ``full_shapes`` is a tree of the standard shapes."""
+    import copy
+    from ..core import make_feeds_builder
+    from ..optimizers import global_norm_sq
+    from .tp import filtered_pspecs, gathered_params, spec_axes
+
+    cfg = as_sharding_config(sharding)
+    specs = filtered_pspecs(pspecs, mesh)
+    dp_axes = cfg.batch_axes(mesh)
+    f = mesh.shape.get("fsdp", 1)
+    batch_axes = dp_axes + (("fsdp",) if "fsdp" in mesh.axis_names else ())
+    leaf_axes: list = []          # per leaf, its spec's axes
+    model_axes = set()
+    for s in _leaf_specs(full_shapes, specs):
+        leaf_axes.append(spec_axes(s))
+        model_axes.update(a for a in spec_axes(s) if a != "fsdp")
+    if len(model_axes) > 1:
+        raise ValueError(f"a sharded step takes one tensor-parallel axis; "
+                         f"the specs name {sorted(model_axes)}")
+    tp_axis = next(iter(model_axes), None)
+    fsdp_live = any("fsdp" in axes for axes in leaf_axes)
+    if tp_axis is not None:
+        model = copy.copy(model)
+        model.tp_axis = tp_axis
+    build_feeds = make_feeds_builder(input_name, label_name)
+    dp_n = mesh.axis_size(dp_axes) if dp_axes else 1
+    all_n = mesh.axis_size(batch_axes) if batch_axes else 1
+
+    def summed(tensors, axes, n):
+        if n <= 1 or not tensors:
+            return tensors
+        out = C.psum({str(i): t for i, t in enumerate(tensors)}, axes)
+        return [out[str(i)] for i in range(len(tensors))]
+
+    def norm_sq(leaves):
+        rep = [u for u, a in zip(leaves, leaf_axes) if not a]
+        shd = [u for u, a in zip(leaves, leaf_axes) if a]
+        total = sum((u.float() * u.float()).sum() for u in rep)
+        if shd:
+            part = sum((u.float() * u.float()).sum() for u in shd)
+            axes = tuple(a for a in mesh.axis_names
+                         if any(a in la for la in leaf_axes))
+            total = total + C.psum({"s": part}, axes)["s"]
+        return total
+
+    def step(params, opt_state, x, y, mask, rng):
+        if f > 1:
+            i = C.axis_index("fsdp")
+            x, y, mask = _sub_rows(x, f, i), _sub_rows(y, f, i), \
+                _sub_rows(mask, f, i)
+        gen = rank_generator(rng, batch_axes, mask.device)
+        full = (gathered_params(params, specs, full_shapes) if fsdp_live
+                else params)
+        lv = model.loss_vector(full, build_feeds(x, y), train=True,
+                               generator=gen)
+        s = (lv * mask).sum()
+        leaves = tree_leaves(params)
+        grads = list(torch.autograd.grad(s, leaves))
+        tot = {"s": s.detach().float(), "n": mask.sum().float()}
+        if all_n > 1:
+            tot = C.psum(tot, batch_axes)
+        n = torch.clamp_min(tot["n"], 1.0)
+        loss = tot["s"] / n
+        with torch.no_grad():
+            # a leaf sharded over fsdp arrives summed over fsdp; every other
+            # leaf sums over all the batch axes
+            over_dp = [i for i, a in enumerate(leaf_axes) if "fsdp" in a]
+            over_all = [i for i, a in enumerate(leaf_axes) if "fsdp" not in a]
+            for idx, axes, cnt in ((over_dp, dp_axes, dp_n),
+                                   (over_all, batch_axes, all_n)):
+                for i, g in zip(idx, summed([grads[i] for i in idx], axes,
+                                            cnt)):
+                    grads[i] = g
+            grads = [g / n for g in grads]
+            with global_norm_sq(norm_sq):
+                updates, opt_state = optimizer.update(
+                    _unflatten(params, grads), opt_state, params)
+            apply_updates(params, updates)
+        return params, opt_state, loss
+
+    return step
+
+
 def make_dp_shardmap_train_step(model, optimizer, mesh, input_name,
                                 label_name: Optional[str],
                                 dp_axis: str = "dp",
@@ -222,4 +355,5 @@ def make_dp_zero1_train_step(model, optimizer, mesh, input_name,
 
 
 __all__ = ["fold_in", "make_dp_shardmap_train_step", "make_dp_train_step",
-           "make_dp_zero1_train_step", "rank_generator"]
+           "make_dp_zero1_train_step", "make_param_sharded_train_step",
+           "rank_generator"]

@@ -15,23 +15,29 @@ Inside one, :meth:`Mesh.bind` makes it the mesh that named collectives
 the counterpart of running inside ``shard_map``.
 
 Serving over a mesh (``Trainer.predict_fn(mesh=)``, ``core.make_predict_fn``,
-``SparkAsyncDLModel(meshShape="dp=N")``, ``InferenceEngine(mesh=)``) runs in
-ONE process, data-parallel only — JAX's jitted program with the batch
-sharded over the batch axes and the parameters replicated:
+``SparkAsyncDLModel(meshShape="dp=N")``, ``InferenceEngine(mesh=)``,
+``DecodeEngine(mesh=)``) runs in ONE process — JAX's jitted program with
+the batch sharded over the batch axes:
 
 - the process holds one parameter copy per dp shard (:func:`dp_copies`:
   shard 0 the tree it was given);
 - shard ``r`` lives on card ``r % device_count``, or on the CPU with
   ``device="cpu"`` — the rule the ranks use, so ``dp=2`` on a one-card
-  machine puts both copies on that card (:func:`serving_devices`);
+  machine puts both copies on that card (:func:`serving_grid`);
 - a batch pads up to a dp multiple and splits into dp contiguous row
   blocks (block ``r`` is what ``P('dp')`` hands device ``r``);
 - each block runs the unchanged forward on its copy, and the outputs are
   concatenated (:func:`dp_apply`) and trimmed.
 
-JAX refuses a serving mesh that needs more devices than it sees; the rank
-rule lets one card hold every copy. A mesh axis other than the batch axes
-(``tp``, ``fsdp``, ``ep``, ``pp``) is refused (:func:`serving_dp`).
+Under ``tp`` (the config's ``tp_axis``, or a mesh axis named ``tp``) each
+dp copy is split into ``tp`` shards (:func:`serving_layout`,
+:class:`~.tp.TPShards`): shard ``t`` of copy ``d`` lives on card ``(d * tp +
+t) % device_count`` (:func:`serving_grid`); every block half runs on each
+shard and the partials are summed on the copy's shard 0. An ``fsdp`` axis
+holds full copies: one process has no ranks to shard against. JAX refuses
+a serving mesh that needs more devices than it sees; the rank rule lets one
+card hold every copy. ``ep``, ``pp`` and ``sp`` axes are refused
+(:func:`serving_layout`).
 """
 
 from __future__ import annotations
@@ -292,31 +298,39 @@ def parse_mesh_shape(s: str) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def serving_dp(mesh, sharding=None) -> int:
-    """How many row blocks a one-process serving path splits a batch into:
-    the product of the sharding config's batch axes on ``mesh`` (a
-    :class:`Mesh` or a dict of sizes). Any other axis of size > 1 is
-    refused: serving shards the batch only."""
+def serving_layout(mesh, sharding=None) -> Tuple[int, Optional[str], int]:
+    """``(dp, tp_axis, tp)`` of a one-process serving mesh (a :class:`Mesh`
+    or a dict of sizes): ``dp`` the product of the sharding config's batch
+    axes (the row blocks a batch splits into), ``tp_axis`` the config's
+    ``tp_axis`` or the mesh's ``tp`` axis (None without one) and ``tp`` its
+    size. An ``fsdp`` axis holds full copies; any other axis of size > 1
+    is refused."""
     from ..sharding import as_sharding_config
     mesh = as_mesh(mesh)
     cfg = as_sharding_config(sharding)
     axes = cfg.batch_axes(mesh)
-    bad = [a for a in mesh.axis_names if a not in axes and mesh.shape[a] > 1]
+    tp_axis = cfg.tp_axis or ("tp" if "tp" in mesh.axis_names else None)
+    bad = [a for a in mesh.axis_names if a not in axes
+           and a not in (tp_axis, "fsdp") and mesh.shape[a] > 1]
     if bad:
         raise NotImplementedError(
             f"serving over mesh axes {bad} (model-parallel) is not yet "
             f"ported to PyTorch (see ROADMAP.md, queue 1 item 7); a serving "
-            f"mesh shards the batch over {list(axes) or ['dp']} only")
-    return mesh.axis_size(axes) if axes else 1
+            f"mesh shards the batch over {list(axes) or ['dp']} and the "
+            f"weights over a tp axis only")
+    tp = mesh.shape[tp_axis] if tp_axis in mesh.shape else 1
+    return (mesh.axis_size(axes) if axes else 1), tp_axis, tp
 
 
-def serving_devices(count: int, device) -> list:
-    """The devices of ``count`` serving copies: copy ``r`` on card ``r %
-    device_count``, or every copy on the CPU when ``device`` is the CPU."""
+def serving_grid(dp: int, tp: int, device) -> list:
+    """The devices of ``dp`` serving copies of ``tp`` shards each: shard
+    ``t`` of copy ``d`` on card ``(d * tp + t) % device_count``, or all on
+    the CPU."""
     import torch
     from .distributed import rank_device
     kind = torch.device(device).type
-    return [torch.device(rank_device(r, kind)) for r in range(count)]
+    return [[torch.device(rank_device(d * tp + t, kind)) for t in range(tp)]
+            for d in range(dp)]
 
 
 def model_on(model, device):
@@ -334,7 +348,7 @@ def model_on(model, device):
 
 
 def dp_copies(tree, devices) -> list:
-    """The parameters of each serving shard (see :func:`serving_devices`):
+    """The parameters of each serving shard (see :func:`serving_grid`):
     shard 0 serves ``tree`` itself, which lives on ``devices[0]`` (the
     model's device), shard ``r`` a copy on ``devices[r]``."""
     import torch
@@ -358,4 +372,4 @@ def dp_apply(apply, copies, xs):
 
 __all__ = ["Mesh", "as_mesh", "bound_mesh", "current_mesh", "default_mesh",
            "dp_apply", "dp_copies", "make_mesh", "mesh_axis_size",
-           "model_on", "parse_mesh_shape", "serving_devices", "serving_dp"]
+           "model_on", "parse_mesh_shape", "serving_grid", "serving_layout"]

@@ -60,8 +60,24 @@ on the card it runs the kernels, and a kernel fault must not pass unseen.
 warmup, as the predict engine does, and reports the tier under
 ``stats()["cold_start"]``.
 
-Not yet ported, and refused with a ``ValueError`` naming ROADMAP.md: model
-parallelism (``mesh``, ``sharding``, ``pp_wave``).
+Tensor-parallel decode (``mesh=`` with ``sharding=ShardingConfig(tp_axis=
+...)``, the JAX engine's checks and messages): in one process, shard ``t``
+of ``tp`` on card ``t % device_count`` (or the CPU) holds its slice of the
+weights (qkv columns packed in ``(tp, 3, H/tp, d)`` order) and its
+``heads / tp`` slice of each pool (a quantized pool's scales sharded on
+heads with their rows). Each block half runs on every shard — the paged
+kernels over the shard's heads — and the partials are summed in float32 on
+shard 0's device in shard order, rounded to the compute dtype once; the
+row-parallel biases are added once after the sum, where JAX's decode plane
+adds ``bias / tp`` on every shard (the same value in exact arithmetic). Every arm runs over the shards: the ladder and
+chunked prefill, prefix hits, hot swap, ``spec_k`` with the self draft and
+``kv_quant``; an external ``draft_model`` stays whole on the engine's
+device, as in JAX. The host bookkeeping (page tables, refcounts, the prefix
+trie, the batcher) stays single and layout-blind. ``stats()["parallel"]``
+reports ``tp`` and one shard's bytes.
+
+Not yet ported, and refused with a ``ValueError`` naming ROADMAP.md:
+``ep_axis`` / ``pp_axis`` and ``pp_wave=False``.
 
 The engine is mechanism only — slot admission at token boundaries, queueing,
 futures and drain semantics live in
@@ -81,6 +97,7 @@ import torch
 from ..convert import check_template, params_tree, shape_template
 from ..obs.spans import span as obs_span
 from ..ops import paged_attention, paged_attention_verify
+from ..parallel.tp import TPShards, shard_of as _shard
 from ..resilience import faults
 from ..utils import metrics as metrics_mod
 from ..utils import quant
@@ -159,11 +176,8 @@ class DecodeEngine:
                  kv_quant: Optional[str] = None,
                  executable_dir: Optional[str] = None,
                  metrics: Optional[metrics_mod.Metrics] = None):
-        unported = {"mesh": mesh, "sharding": sharding,
-                    "pp_wave": None if pp_wave else pp_wave}
-        for name, value in unported.items():
-            if value is not None:
-                _not_yet(f"{name}={value!r}")
+        if not pp_wave:
+            _not_yet(f"pp_wave={pp_wave!r}")
         if isinstance(model, str):
             from ..models import model_from_json
             model = model_from_json(model)
@@ -173,6 +187,7 @@ class DecodeEngine:
                                 f"a causal LM (transformer_lm)")
         self.model = model
         self.device = model.device
+        self._init_mesh(mesh, sharding)
         self.metrics = metrics if metrics is not None else metrics_mod.Metrics()
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
@@ -231,20 +246,26 @@ class DecodeEngine:
 
         tree = params_tree(model, params, self.device)
         self._weights_template = shape_template(tree)
-        self._params = tree
-        pool_shape = (model.num_layers, num_pages, self.page_size, heads, hd)
-        with torch.inference_mode():
+        self._params = self._prepare_params(tree)
+        # under tp each shard holds the pool's heads axis / tp on its device
+        # (the int8/fp8 scales sharded on heads with their rows); the page
+        # bookkeeping stays single and layout-blind
+        local_heads = heads // self._tp
+        pool_shape = (model.num_layers, num_pages, self.page_size,
+                      local_heads, hd)
+
+        def make_pool(dev):
             if self._quantized:
                 store, _ = quant.kv_pool_dtype(self.kv_quant)
-                scale_shape = pool_shape[:2] + (heads,)
-                self._k_pool, self._v_pool = (
-                    (torch.zeros(pool_shape, dtype=store, device=self.device),
-                     torch.zeros(scale_shape, device=self.device))
-                    for _ in range(2))
-            else:
-                self._k_pool, self._v_pool = (
-                    torch.zeros(pool_shape, dtype=pool_dtype,
-                                device=self.device) for _ in range(2))
+                return (torch.zeros(pool_shape, dtype=store, device=dev),
+                        torch.zeros(pool_shape[:2] + (local_heads,),
+                                    device=dev))
+            return torch.zeros(pool_shape, dtype=pool_dtype, device=dev)
+
+        with torch.inference_mode():
+            shards = [(make_pool(d), make_pool(d)) for d in self._devices]
+            self._shard_pools = shards
+            self._k_pool, self._v_pool = shards[0]
             if self._draft_model is not None:
                 dm = self._draft_model
                 # dense per-slot draft cache: a clamped-window chain reaches
@@ -288,6 +309,59 @@ class DecodeEngine:
             self.warmup()
 
     # -- set-up ----------------------------------------------------------------
+
+    def _init_mesh(self, mesh, sharding) -> None:
+        """Validate ``mesh`` / ``sharding`` (the JAX engine's rules and
+        messages) and lay out the tp shards: shard ``t`` on card ``t %
+        device_count`` (the serving rule, :mod:`..parallel.mesh`), or the
+        CPU."""
+        from ..parallel.mesh import as_mesh, serving_grid
+        from ..sharding import as_sharding_config
+        model = self.model
+        self.mesh = as_mesh(mesh)
+        self.sharding = None
+        self._tp_axis: Optional[str] = None
+        self._tp = 1
+        if sharding is not None:
+            self.sharding = as_sharding_config(sharding)
+            if self.mesh is None and self.sharding.model_parallel():
+                raise ValueError("sharding names tp_axis/ep_axis/pp_axis but "
+                                 "no mesh was given; pass mesh= to "
+                                 "DecodeEngine")
+        if self.mesh is not None and self.sharding is not None:
+            self.sharding.validate(self.mesh, require_data_axis=False)
+            for field in ("ep_axis", "pp_axis"):
+                ax = getattr(self.sharding, field)
+                if ax and int(self.mesh.shape[ax]) > 1:
+                    _not_yet(f"sharding.{field}={ax!r}")
+            tp_ax = self.sharding.tp_axis
+            if tp_ax and int(self.mesh.shape[tp_ax]) > 1:
+                self._tp_axis, self._tp = tp_ax, int(self.mesh.shape[tp_ax])
+        if self._tp > 1 and int(model.num_heads) % self._tp:
+            raise ValueError(f"num_heads={model.num_heads} is not divisible "
+                             f"by tp={self._tp}")
+        if self._tp > 1 and not hasattr(model, "param_pspecs"):
+            raise TypeError("model-parallel decode needs the model to "
+                            "publish param_pspecs() (megatron rules)")
+        self._devices = serving_grid(1, self._tp, self.device)[0]
+
+    def _prepare_params(self, tree):
+        """One standard-layout tree -> this engine's serving placement: under
+        tp the qkv columns packed in ``(tp, 3, H/tp, d)`` order and one slice
+        per shard on its device (the row-parallel biases whole, added once
+        after the sum). The ctor and every hot swap run exactly this path,
+        outside the lock."""
+        if self._tp <= 1:
+            return tree
+        from ..parallel.tp import serving_pspecs, serving_tree
+        return serving_tree(self.model, tree, serving_pspecs(
+            self.model, self.mesh, self._tp_axis), self._tp_axis,
+            self._devices)
+
+    def _pools(self):
+        """The K/V pools as the model's ``cache`` argument: each shard's
+        ``(k, v)`` (one without tp), the model hands shard ``s`` its own."""
+        return TPShards(self._shard_pools)
 
     def _init_spec(self, spec_k, draft_layers, draft_model,
                    draft_params) -> None:
@@ -362,22 +436,27 @@ class DecodeEngine:
         logits, kvs = model.prefill(self._params, ids,
                                     lengths=torch.as_tensor([page], device=dev))
         L = len(kvs)
-        h, d = kvs[0][0].shape[1], kvs[0][0].shape[3]
-        shape = (L, 3, page, h, d)
-        kr = torch.zeros(shape, dtype=ref_dt, device=dev)
-        vr = torch.zeros(shape, dtype=ref_dt, device=dev)
-        kq = (torch.zeros(shape, dtype=store, device=dev),
-              torch.zeros((L, 3, h), device=dev))
-        vq = (torch.zeros(shape, dtype=store, device=dev),
-              torch.zeros((L, 3, h), device=dev))
-        pid = torch.tensor([1], device=dev)
-        for i, (k, v) in enumerate(kvs):
-            kk = k[0].transpose(0, 1)[None]                # [1, page, h, d]
-            vv = v[0].transpose(0, 1)[None]
-            kr[i, pid] = kk.to(ref_dt)
-            vr[i, pid] = vv.to(ref_dt)
-            quant.paged_quant_write_pages(kq[0], kq[1], i, pid, kk)
-            quant.paged_quant_write_pages(vq[0], vq[1], i, pid, vv)
+        refs, quants = [], []
+        for s, d_s in enumerate(self._devices):
+            k0 = _shard(kvs[0][0], s)
+            h, d = k0.shape[1], k0.shape[3]
+            shape = (L, 3, page, h, d)
+            kr = torch.zeros(shape, dtype=ref_dt, device=d_s)
+            vr = torch.zeros(shape, dtype=ref_dt, device=d_s)
+            kq = (torch.zeros(shape, dtype=store, device=d_s),
+                  torch.zeros((L, 3, h), device=d_s))
+            vq = (torch.zeros(shape, dtype=store, device=d_s),
+                  torch.zeros((L, 3, h), device=d_s))
+            pid = torch.tensor([1], device=d_s)
+            for i, (ks, vs) in enumerate(kvs):
+                kk = _shard(ks, s)[0].transpose(0, 1)[None]  # [1, page, h, d]
+                vv = _shard(vs, s)[0].transpose(0, 1)[None]
+                kr[i, pid] = kk.to(ref_dt)
+                vr[i, pid] = vv.to(ref_dt)
+                quant.paged_quant_write_pages(kq[0], kq[1], i, pid, kk)
+                quant.paged_quant_write_pages(vq[0], vq[1], i, pid, vv)
+            refs.append((kr, vr))
+            quants.append((kq, vq))
         table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
         tok = logits.argmax(dim=-1)
         pos = torch.tensor([page], device=dev)
@@ -385,25 +464,28 @@ class DecodeEngine:
 
         def attend_ref(layer, q, k_new, v_new, cache, p):
             kp, vp = cache
-            kp[layer, pids, off] = k_new.to(kp.dtype)
-            vp[layer, pids, off] = v_new.to(vp.dtype)
-            out = paged_attention(q, kp[layer], vp[layer], table,
+            d_q = q.device
+            kp[layer, pids.to(d_q), off.to(d_q)] = k_new.to(kp.dtype)
+            vp[layer, pids.to(d_q), off.to(d_q)] = v_new.to(vp.dtype)
+            out = paged_attention(q, kp[layer], vp[layer], table.to(d_q),
                                   (p + 1).to(torch.int32))
             return out.to(q.dtype), cache
 
         def attend_q(layer, q, k_new, v_new, cache, p):
             kp, vp = cache
-            quant.paged_quant_append(kp[0], kp[1], layer, pids, off, k_new)
-            quant.paged_quant_append(vp[0], vp[1], layer, pids, off, v_new)
-            out = paged_attention(q, kp[0][layer], vp[0][layer], table,
-                                  (p + 1).to(torch.int32),
+            d_q = q.device
+            pid, of = pids.to(d_q), off.to(d_q)
+            quant.paged_quant_append(kp[0], kp[1], layer, pid, of, k_new)
+            quant.paged_quant_append(vp[0], vp[1], layer, pid, of, v_new)
+            out = paged_attention(q, kp[0][layer], vp[0][layer],
+                                  table.to(d_q), (p + 1).to(torch.int32),
                                   k_scales=kp[1][layer],
                                   v_scales=vp[1][layer])
             return out.to(q.dtype), cache
 
-        lg_ref, _ = model.decode_step(self._params, (kr, vr), tok, pos,
+        lg_ref, _ = model.decode_step(self._params, TPShards(refs), tok, pos,
                                       attend=attend_ref)
-        lg_q, _ = model.decode_step(self._params, (kq, vq), tok, pos,
+        lg_q, _ = model.decode_step(self._params, TPShards(quants), tok, pos,
                                     attend=attend_q)
         err = float((lg_q.float() - lg_ref.float()).abs().max())
         self._kv_quant_error = err
@@ -451,9 +533,11 @@ class DecodeEngine:
                                           v_scales=vp[1][layer])
         return paged_attention_verify(q, kp[layer], vp[layer], table, start)
 
-    def _pool_tensors(self):
-        """Every device tensor of the K and V pools (rows, and scales)."""
-        pools = (self._k_pool, self._v_pool)
+    def _pool_tensors(self, shards=None):
+        """Every device tensor of the K and V pools (rows, and scales), of
+        every tp shard or of ``shards``."""
+        pools = [p for pair in (self._shard_pools if shards is None
+                                else shards) for p in pair]
         return [t for p in pools for t in (p if self._quantized else (p,))]
 
     # -- device pieces -----------------------------------------------------------
@@ -494,14 +578,16 @@ class DecodeEngine:
 
         def attend(layer, q, k_new, v_new, cache, _pos):
             kp, vp = cache
-            self._kv_rows(kp, layer, page_ids, off, k_new)
-            self._kv_rows(vp, layer, page_ids, off, v_new)
-            out = self._paged_att(q, kp, vp, layer, table_t, lengths)
+            d = q.device      # a tp shard's device
+            pid, of = page_ids.to(d), off.to(d)
+            self._kv_rows(kp, layer, pid, of, k_new)
+            self._kv_rows(vp, layer, pid, of, v_new)
+            out = self._paged_att(q, kp, vp, layer, table_t.to(d),
+                                  lengths.to(d))
             return out.to(q.dtype), cache
 
         logits, _ = self.model.decode_step(
-            self._params, (self._k_pool, self._v_pool), token_t, pos_t,
-            attend=attend)
+            self._params, self._pools(), token_t, pos_t, attend=attend)
         return logits
 
     def _prefill_bucket(self, ids: np.ndarray, n: int,
@@ -514,14 +600,17 @@ class DecodeEngine:
             self._params, torch.as_tensor(ids, device=dev),
             lengths=torch.as_tensor([n], device=dev))
         pid = torch.as_tensor(page_ids, dtype=torch.int64, device=dev)
-        for i, (k, v) in enumerate(kvs):
-            # [1, heads, bucket, d] -> [npages, page, heads, d]
-            kk = k[0].transpose(0, 1).reshape(npages, page, k.shape[1],
-                                              k.shape[3])
-            vv = v[0].transpose(0, 1).reshape(npages, page, v.shape[1],
-                                              v.shape[3])
-            self._kv_pages(self._k_pool, i, pid, kk)
-            self._kv_pages(self._v_pool, i, pid, vv)
+        for i, (ks, vs) in enumerate(kvs):
+            for s, (kp, vp) in enumerate(self._shard_pools):
+                k, v = _shard(ks, s), _shard(vs, s)
+                # [1, heads, bucket, d] -> [npages, page, heads, d]
+                kk = k[0].transpose(0, 1).reshape(npages, page, k.shape[1],
+                                                  k.shape[3])
+                vv = v[0].transpose(0, 1).reshape(npages, page, v.shape[1],
+                                                  v.shape[3])
+                p = pid.to(k.device)
+                self._kv_pages(kp, i, p, kk)
+                self._kv_pages(vp, i, p, vv)
         return logits
 
     def _suffix_chunk(self, ids: np.ndarray, start: int, valid: int,
@@ -546,22 +635,23 @@ class DecodeEngine:
 
         def attend(layer, q, k_new, v_new, cache, _start):
             kp, vp = cache
-            self._kv_rows(kp, layer, pids, off, k_new[0].transpose(0, 1))
-            self._kv_rows(vp, layer, pids, off, v_new[0].transpose(0, 1))
-            hk = self._kv_gather(kp, layer, row).reshape(maxp * page, -1,
-                                                         model.head_dim)
-            hv = self._kv_gather(vp, layer, row).reshape(maxp * page, -1,
-                                                         model.head_dim)
+            d = q.device      # a tp shard's device
+            pid, of, rw = pids.to(d), off.to(d), row.to(d)
+            self._kv_rows(kp, layer, pid, of, k_new[0].transpose(0, 1))
+            self._kv_rows(vp, layer, pid, of, v_new[0].transpose(0, 1))
+            hk = self._kv_gather(kp, layer, rw).reshape(maxp * page, -1,
+                                                        model.head_dim)
+            hv = self._kv_gather(vp, layer, rw).reshape(maxp * page, -1,
+                                                        model.head_dim)
             s = torch.einsum("hcd,lhd->hcl", q[0].float(), hk) * scale
-            s = torch.where(causal[None], s, NEG_INF)
+            s = torch.where(causal.to(d)[None], s, NEG_INF)
             p = torch.softmax(s, dim=-1)
             out = torch.einsum("hcl,lhd->hcd", p, hv)
             return out[None].to(q.dtype), cache
 
         logits, _ = model.prefill_suffix(
             self._params, torch.as_tensor(ids, device=dev),
-            torch.as_tensor([start], device=dev),
-            (self._k_pool, self._v_pool), attend,
+            torch.as_tensor([start], device=dev), self._pools(), attend,
             lengths=torch.as_tensor([valid], device=dev))
         return logits
 
@@ -575,7 +665,7 @@ class DecodeEngine:
         page, maxp = self.page_size, self.max_pages_per_slot
         bidx = torch.arange(self.num_slots, device=self.device)
         writable = start + nappend         # first position with no room
-        pools = (self._k_pool, self._v_pool)
+        pools = self._pools()
         toks, tok = [], token
         for j in range(self.spec_k):
             pos = start + j
@@ -587,9 +677,12 @@ class DecodeEngine:
             def attend(layer, q, k_new, v_new, cache, _pos, pids=pids,
                        off=off, lengths=lengths):
                 kp, vp = cache
-                self._kv_rows(kp, layer, pids, off, k_new)
-                self._kv_rows(vp, layer, pids, off, v_new)
-                out = self._paged_att(q, kp, vp, layer, table, lengths)
+                d = q.device      # a tp shard's device
+                pid, of = pids.to(d), off.to(d)
+                self._kv_rows(kp, layer, pid, of, k_new)
+                self._kv_rows(vp, layer, pid, of, v_new)
+                out = self._paged_att(q, kp, vp, layer, table.to(d),
+                                      lengths.to(d))
                 return out.to(q.dtype), cache
 
             logits, _ = self.model.decode_step(
@@ -651,13 +744,16 @@ class DecodeEngine:
 
         def attend(layer, q, k_new, v_new, cache, _st):
             kp, vp = cache
-            self._kv_rows(kp, layer, pids, off, k_new.transpose(1, 2))
-            self._kv_rows(vp, layer, pids, off, v_new.transpose(1, 2))
-            out = self._paged_verify_att(q, kp, vp, layer, table, start32)
+            d = q.device      # a tp shard's device
+            pid, of = pids.to(d), off.to(d)
+            self._kv_rows(kp, layer, pid, of, k_new.transpose(1, 2))
+            self._kv_rows(vp, layer, pid, of, v_new.transpose(1, 2))
+            out = self._paged_verify_att(q, kp, vp, layer, table.to(d),
+                                         start32.to(d))
             return out.to(q.dtype), cache
 
         logits, _ = self.model.decode_verify(
-            self._params, ids, start, (self._k_pool, self._v_pool), attend)
+            self._params, ids, start, self._pools(), attend)
         return logits
 
     def _copy_pages(self, src: int, dst: int) -> None:
@@ -1049,6 +1145,7 @@ class DecodeEngine:
         faults.fire("engine.swap")  # chaos hook; no-op unless armed
         tree = params_tree(self.model, params, self.device)
         check_template(tree, self._weights_template)
+        tree = self._prepare_params(tree)   # device placement, no lock
         with self._lock:
             v = (int(version) if version is not None
                  else self._serving_version + 1)
@@ -1085,11 +1182,10 @@ class DecodeEngine:
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
+            from ..parallel.tp import shard_bytes
             kv_bytes = sum(t.numel() * t.element_size()
-                           for t in self._pool_tensors())
-            param_bytes = sum(t.numel() * t.element_size()
-                              for layer in self._params.values()
-                              for t in layer.values())
+                           for t in self._pool_tensors(self._shard_pools[:1]))
+            param_bytes = shard_bytes(self._params)
             return {
                 "num_slots": self.num_slots,
                 "prefill_buckets": list(self.prefill_buckets),
@@ -1128,7 +1224,9 @@ class DecodeEngine:
                     "verify_ms": self._spec_verify_ms,
                 },
                 "kv": self.kv.stats(),
-                "parallel": {"mesh": None, "tp": 1, "ep": 1, "pp": 1,
+                "parallel": {"mesh": (dict(self.mesh.shape)
+                                      if self.mesh is not None else None),
+                             "tp": self._tp, "ep": 1, "pp": 1,
                              "stages": 1, "pp_wave": False,
                              "wave_ticks": 0,
                              "kv_bytes_per_device": kv_bytes,

@@ -22,7 +22,7 @@ first run outside warmup is counted in ``fallback_compiles``, so the
 steady-state contract ("no first-time work after warmup") reads the same.
 ``stats()`` keeps every key of the JAX engine's; those with no counterpart
 read as the JAX engine reports them with the feature off: ``traces`` and
-``steady_traces`` 0 (nothing is traced) and ``tp`` / ``ep`` 1.
+``steady_traces`` 0 (nothing is traced) and ``ep`` 1.
 
 Cold start (:mod:`~sparkflow_tpu_torch.serving.coldstart`): what a fresh
 replica compiles is the kernel library, not executables, so
@@ -42,9 +42,21 @@ the CPU). A bucket that divides dp splits into dp row blocks, one per copy;
 a smaller bucket runs on copy 0. :meth:`warmup` runs every bucket on every
 copy, a hot swap places the new tree on every copy before the flip,
 ``quantize`` quantizes once and copies the int8 tree, and ``stats()["mesh"]``
-is the mesh's shape. Not yet ported, refused with a ``ValueError`` naming
-ROADMAP.md queue 1 item 7: model-parallel serving (``sharding`` with
-``tp_axis`` / ``ep_axis``, or a mesh axis other than the batch axes).
+is the mesh's shape.
+
+Tensor-parallel serving (``sharding=ShardingConfig(tp_axis=...)`` on a mesh
+with that axis, or a mesh axis named ``tp``): each dp copy is split into
+``tp`` shards by the model's megatron rules (:mod:`..parallel.tp`), shard
+``t`` of copy ``d`` on card ``(d * tp + t) % device_count``; each block
+half runs on every shard — the ``flash_fwd`` kernel on each shard's heads —
+and the partials are summed in float32 on the copy's shard 0, where the
+row-parallel biases are added once. ``stats()`` reports ``tp`` and the bytes one shard
+holds. As in JAX, ``quantize`` together with ``tp`` is refused, and so is
+a ``tp_axis`` for a model without ``param_pspecs``. JAX's
+``sharded_attention`` context needs no counterpart: each shard already
+holds its own heads. Not yet ported, refused with a ``ValueError`` naming
+ROADMAP.md queue 1 item 7: ``ep_axis`` / ``pp_axis``, and a mesh axis other
+than the batch, tp and fsdp axes (an ``fsdp`` axis holds whole copies).
 """
 
 from __future__ import annotations
@@ -130,8 +142,9 @@ class InferenceEngine:
         The kernel build directory the library is looked up and built in,
         in place of ``ops/_build/`` or ``SPARKFLOW_TORCH_KERNEL_DIR``.
     mesh, sharding
-        Data-parallel serving over weight copies (see the module
-        docstring); model-parallel axes are not yet ported.
+        Data-parallel serving over weight copies, split into tensor-parallel
+        shards under ``tp`` (see the module docstring); ``ep`` / ``pp`` are
+        not yet ported.
     """
 
     def __init__(self, graph, weights=None, *,
@@ -152,30 +165,50 @@ class InferenceEngine:
                  device=None):
         from ..sharding import as_sharding_config
         self.sharding = as_sharding_config(sharding)
-        if self.sharding.model_parallel():
-            _not_yet(f"sharding={sharding!r}", "tensor / expert-parallel "
+        if (self.sharding.ep_axis is not None
+                or self.sharding.pp_axis is not None):
+            _not_yet(f"sharding={sharding!r}", "expert / pipeline-parallel "
                      "serving, queue 1 item 7")
+        if self.sharding.tp_axis is not None and mesh is None:
+            raise ValueError("sharding names tp_axis but no mesh was given; "
+                             "pass mesh= to InferenceEngine")
         self.mesh = None
-        dp = 1
+        dp, tp_axis, tp = 1, None, 1
         if mesh is not None:
-            from ..parallel.mesh import as_mesh, serving_dp
+            from ..parallel.mesh import as_mesh, serving_layout
             self.mesh = as_mesh(mesh)
             # a typo'd axis fails here, not on the first request
             self.sharding.validate(self.mesh, require_data_axis=False)
             try:
-                dp = serving_dp(self.mesh, self.sharding)
+                dp, tp_axis, tp = serving_layout(self.mesh, self.sharding)
             except NotImplementedError as e:
                 _not_yet(f"mesh={dict(self.mesh.shape)!r}", str(e))
+        if tp > 1 and quantize:
+            raise ValueError("quantize does not compose with tensor/expert-"
+                             "parallel serving (int8 packing breaks the "
+                             "megatron layout); pick one")
         if isinstance(graph, str):
             from ..models import model_from_json
             self.model = model_from_json(graph, compute_dtype, device=device)
         else:
             self.model = graph
         self.device = self.model.device
-        # the serving rule (parallel/mesh.py): one copy per dp shard
-        from ..parallel.mesh import model_on, serving_devices
-        self.dp = dp
-        self._devices = serving_devices(dp, self.device)
+        self._pspecs = None
+        if tp > 1:
+            from ..parallel.tp import serving_pspecs
+            self._pspecs = serving_pspecs(self.model, self.mesh, tp_axis)
+            if self._pspecs is None:
+                if self.sharding.tp_axis is not None:
+                    raise TypeError("model-parallel serving needs the model "
+                                    "to publish param_pspecs() (megatron "
+                                    "rules)")
+                tp = 1   # a bare tp axis on a model without rules: copies
+        # the serving rule (parallel/mesh.py): one copy per dp shard, split
+        # into tp shards
+        from ..parallel.mesh import model_on, serving_grid
+        self.dp, self.tp, self._tp_axis = dp, tp, tp_axis
+        self._grid = serving_grid(dp, tp, self.device)
+        self._devices = [g[0] for g in self._grid]
         self._models = [model_on(self.model, d) for d in self._devices]
         self.input_name = input_name
         self.output_name = output_name
@@ -265,9 +298,14 @@ class InferenceEngine:
 
     def _place_params(self, params) -> list:
         """Quantize one standard-layout tree into this engine's serving
-        form, one copy per dp shard (the tree itself on one device). The
-        ctor and every hot swap run exactly this path, so a swapped tree
-        lands bit-identical to a cold start."""
+        form, one copy per dp shard (the tree itself on one device), each
+        split into its tp shards under tp. The ctor and every hot swap run
+        exactly this path, so a swapped tree lands bit-identical to a cold
+        start."""
+        if self.tp > 1:
+            from ..parallel.tp import serving_tree
+            return [serving_tree(self.model, params, self._pspecs,
+                                 self._tp_axis, g) for g in self._grid]
         if self.quantize:
             from ..utils.quant import quantize_for_serving
             params = quantize_for_serving(self.model, params, self.quantize,
@@ -463,6 +501,7 @@ class InferenceEngine:
     # -- introspection -------------------------------------------------------
 
     def stats(self) -> Dict[str, Any]:
+        from ..parallel.tp import shard_bytes
         with self._stats_lock:
             requests, rows = self._requests, self._rows
             serving_version, swaps = self._serving_version, self._swaps
@@ -483,9 +522,7 @@ class InferenceEngine:
                 "quantize": self.quantize,
                 "mesh": (dict(self.mesh.shape) if self.mesh is not None
                          else None),
-                "tp": 1,
+                "tp": self.tp,
                 "ep": 1,
-                "param_bytes_per_device": sum(
-                    t.numel() * t.element_size()
-                    for layer in params.values() for t in layer.values()),
+                "param_bytes_per_device": shard_bytes(params),
                 "device": str(self.device)}

@@ -21,9 +21,11 @@ package's ``sharding.py``.
 
 - ``offload_opt_state`` — a host mirror of a mesh fit's optimizer state,
   refreshed behind each step (the trainer's ``_OffloadMirror``);
-- ``param_axes``, ``tp_axis`` / ``ep_axis`` / ``pp_axis`` — parsed and
-  validated with the JAX package's rules and messages; a fit that
-  activates a model-parallel axis or explicit ``param_axes`` raises "not
+- ``tp_axis`` — the tensor-parallel axis of the serving engines (the
+  trainer's tp axis is the mesh's ``tp``, as in JAX);
+- ``param_axes``, ``ep_axis`` / ``pp_axis`` — parsed and validated with the
+  JAX package's rules and messages; a fit or engine that activates
+  ``ep_axis`` / ``pp_axis`` or an explicit ``param_axes`` pytree raises "not
   yet ported" (ROADMAP queue 1, item 7).
 
 In the port a rank holds plain local tensors, so there are no

@@ -30,7 +30,10 @@ variable read, so it serves both as weight-only).
 checks: ``sp`` needs ``fitMode="collect"``, a ``dp=1`` axis is added when
 ``dp`` is absent): ``"dp=N"`` is synchronous data parallelism, in collect
 and stream mode, with ``weightUpdateSharding`` / ``zeroStage`` choosing the
-ZeRO stage, ``sp`` sequence parallelism; the trainer launches the ranks
+ZeRO stage; ``"tp=N"`` (Megatron tensor parallelism, registry models that
+publish ``param_pspecs``) and ``"fsdp=N"`` (parameter sharding, any model)
+beside it, in both modes; ``sp`` sequence parallelism; the trainer launches
+the ranks
 (one card each, or sharing the card with gloo). Without ``meshShape`` the
 fit runs over every local card on one ``dp`` axis, as JAX's does
 (``parallel.mesh.default_mesh``): in this process on a host with one card
@@ -41,8 +44,8 @@ script keeps its top-level code under ``if __name__ == "__main__":``.
 copies in this process (the serving rule of ``parallel/mesh.py``); its
 other axes are refused with the JAX package's message.
 Refused before any training with "not yet ported (see ROADMAP.md, queue 1
-item 7)": ``tp`` / ``fsdp`` / ``pp`` / ``ep`` axes and non-default
-``ppMicrobatches`` / ``ppSchedule``.
+item 7)": ``pp`` / ``ep`` axes and non-default ``ppMicrobatches`` /
+``ppSchedule``.
 
 Also importable as :mod:`sparkflow_tpu_torch.tensorflow_async`.
 """
@@ -506,7 +509,7 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
             raise ValueError(
                 "zeroStage must be -1 (unset) or 0-3; got %r" % zs)
         for ax in (mesh_axes or {}):
-            if ax in ("tp", "fsdp", "pp", "ep"):
+            if ax in ("pp", "ep"):
                 _not_yet(f"training on a mesh with a {ax!r} axis "
                          f"(meshShape)")
         pp_mb = _opt_param(self, self.ppMicrobatches, -1)

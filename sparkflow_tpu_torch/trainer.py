@@ -92,8 +92,24 @@ memory is refreshed behind each step (each epoch in ``fit``) on a side
 stream; checkpoint saves, preemption and ``_last_opt_state`` read the
 mirror. Losses are bit-equal to the same fit without it.
 
+Sharded parameters (a mesh with a ``tp`` or ``fsdp`` axis, in ``fit`` and
+``fit_stream``, launched or in place): the JAX trainer's
+``_resolve_pspecs`` decides the specs (``param_sharding="auto"``: the
+model's megatron rules on ``tp``, fsdp's ZeRO specs from ``param_specs()``
+on ``fsdp``, refusing a ``tp`` model without rules and ``tp`` with
+``fsdp``); each rank takes its slices before the optimizer's init
+(:class:`~.parallel.tp.ParamPlacement`) and trains through
+:func:`~.parallel.dp.make_param_sharded_train_step`. A tp rank runs the
+Megatron forward and sees its dp group's rows; an fsdp rank splits its dp
+group's rows again (zero-mask padded), so the batch rule stays JAX's. The
+ZeRO stage declines on sharded params (an explicit ``zero_stage`` raises
+JAX's message). Checkpoints, ``TrainResult.params``, ``weights_list()``
+and ``publish_to`` always carry the standard, gathered, unpacked layout, so
+a tp or fsdp checkpoint resumes a dp fit, a one-card fit and a JAX fit, and
+the other way round.
+
 Not ported yet, and rejected with "not yet ported (see ROADMAP.md, queue 1
-item 7)": ``tp`` / ``fsdp`` / ``ep`` / ``pp`` mesh axes (and the same in
+item 7)": ``ep`` / ``pp`` mesh axes (and ``ep_axis`` / ``pp_axis`` in
 ``sharding``), explicit ``param_sharding`` / ``param_axes`` pytrees,
 ``pp_*``. ``debug_recompiles`` has
 no counterpart: PyTorch runs eagerly, so there are no traces or compiles to
@@ -144,11 +160,9 @@ def _not_yet(what: str):
                               f"ROADMAP.md, queue 1 item 7)")
 
 
-#: mesh axes whose strategies are not yet ported (tensor, fsdp, expert and
-#: pipeline parallelism)
-_UNPORTED_AXES = {"tp": "tensor parallelism", "fsdp": "fsdp parameter "
-                  "sharding", "ep": "expert parallelism",
-                  "pp": "pipeline parallelism"}
+#: mesh axes whose strategies are not yet ported (expert and pipeline
+#: parallelism)
+_UNPORTED_AXES = {"ep": "expert parallelism", "pp": "pipeline parallelism"}
 
 
 def _sync(dev: torch.device) -> None:
@@ -351,6 +365,16 @@ class _FitState:
         self.tr = tr
         mesh = tr.mesh
         params = tr._initial_params(init_params)
+        tr._placement = None
+        if tr._pspecs is not None:
+            # tp / fsdp: this rank's slices BEFORE the optimizer's init, so
+            # its state inherits the placement
+            from .parallel.tp import ParamPlacement
+            tr._placement = ParamPlacement(tr.model, mesh, tr._pspecs,
+                                           tree_map(lambda p: torch.empty(
+                                               p.shape, dtype=p.dtype,
+                                               device="meta"), params))
+            params = tr._params_from_ckpt(params)
         tr._zero_stage = tr._resolve_zero_stage(strategy, params)
         tr._zero1_active = tr._zero_stage >= 1
         tr._zero3_template = None
@@ -392,7 +416,8 @@ class _FitState:
         if self.mirror is not None:
             from .parallel.distributed import current_backend
             host = self.mirror.read()
-            if host is not None and (not self.tr._zero1_active
+            gathers = self.tr._zero1_active or self.tr._placement is not None
+            if host is not None and (not gathers
                                      or current_backend() == "gloo"):
                 return host
         return self.opt_state
@@ -440,12 +465,17 @@ class _FitState:
         from the host mirror under offload."""
         tr = self.tr
         params = self.params
-        if tr._zero_stage >= 3:
+        host = self.mirror.read() if self.mirror is not None else None
+        opt_state = self.opt_state if host is None else host
+        if tr._placement is not None:
+            # tp / fsdp: the standard layout of both (collectives)
+            params = tr._params_to_ckpt(params)
+            opt_state = tr._opt_to_ckpt(params, self._opt_at_rest())
+            params = tr.model.load_params(params, trainable=True)
+        elif tr._zero_stage >= 3:
             params = tr.model.load_params(tr._params_to_ckpt(params),
                                           trainable=True)
-        host = self.mirror.read() if self.mirror is not None else None
-        return (tree_map(lambda p: p.detach(), params),
-                self.opt_state if host is None else host)
+        return tree_map(lambda p: p.detach(), params), opt_state
 
 
 def _host_tree(tree):
@@ -580,14 +610,15 @@ class Trainer:
                 f"weight_update_sharding must be 'auto', 'on', or 'off'; "
                 f"got {weight_update_sharding!r}")
         self.weight_update_sharding = weight_update_sharding
+        self.param_sharding = param_sharding
         # the declarative config supersedes the legacy knob when given: its
         # zero_stage is an explicit request (ineligible fits raise)
         self.sharding = (as_sharding_config(sharding)
                          if sharding is not None else None)
         if self.sharding is not None:
-            if self.sharding.model_parallel():
-                _not_yet("model-parallel sharding axes (tp_axis, ep_axis, "
-                         "pp_axis)")
+            if (self.sharding.ep_axis is not None
+                    or self.sharding.pp_axis is not None):
+                _not_yet("model-parallel sharding axes (ep_axis, pp_axis)")
             if self.sharding.param_axes not in ("auto", None):
                 _not_yet("explicit ShardingConfig.param_axes pytrees")
         # a mesh fit's collective backend: None picks by the rule of
@@ -596,6 +627,10 @@ class Trainer:
         self.backend = backend
         self._zero_stage = 0          # resolved per fit: 0..3
         self._zero1_active = False
+        # a tp / fsdp fit's PartitionSpec tree (None: replicated params),
+        # resolved per fit, and this rank's placement under it
+        self._pspecs = None
+        self._placement = None
         self._zero3_template = None   # standard param shapes, stage-3 fits
         self.last_mesh_stats: Optional[Dict[str, Any]] = None
         self._launch_ema = None
@@ -963,6 +998,36 @@ class Trainer:
                 else ShardingConfig())
         return base.replace(zero_stage=self._zero_stage)
 
+    def _resolve_pspecs(self):
+        """PartitionSpec tree for sharded-parameter training (tp / fsdp), or
+        None — the JAX trainer's rule: only on a mesh with axes beyond 'dp'
+        and the default strategy; ``param_sharding="auto"`` derives the
+        specs from the model (megatron rules, or fsdp's ZeRO specs),
+        ``None`` keeps params replicated. Explicit pytrees are refused at
+        construction."""
+        if self.mesh is None or self._mesh_strategy() != "default":
+            return None
+        if self.sharding is not None and self.sharding.param_axes != "auto":
+            return None                 # param_axes=None: replicated
+        if self.param_sharding is None:
+            return None
+        if all(a == "dp" for a in self.mesh.axis_names):
+            return None
+        from .parallel.tp import derive_param_pspecs
+        pspecs = derive_param_pspecs(self.model, self.mesh)
+        if pspecs is None and any(a_ in self.mesh.axis_names
+                                  for a_ in ("tp", "ep")):
+            # refusing beats silently replicating params and letting the
+            # tensor ranks compute redundant identical work
+            raise ValueError(
+                f"mesh axes {[a_ for a_ in self.mesh.axis_names if a_ != 'dp']} "
+                f"request tensor-sharded params but "
+                f"{type(self.model).__name__} publishes no param_pspecs() "
+                f"(megatron rules exist for the registry transformer/resnet/"
+                f"moe families); use an 'fsdp' axis instead — ZeRO specs "
+                f"derive from param_specs() for any model")
+        return pspecs
+
     def _resolve_zero_stage(self, strategy: str, params) -> int:
         """Decide how much of the weight update shards over dp (stage 0-3) —
         the JAX trainer's rule. Eligible: the default (pure-dp) strategy and
@@ -974,7 +1039,9 @@ class Trainer:
         only checks."""
         cfg_opts = self._opt_cfg or {}
         blocked = [k for k in ("clip_norm", "ema_decay") if cfg_opts.get(k)]
-        eligible = (strategy == "default" and self.mesh is not None
+        sharded = self._pspecs is not None
+        eligible = (strategy == "default" and not sharded
+                    and self.mesh is not None
                     and self._data_axis() in self.mesh.axis_names
                     and self._dp_size() >= 2)
         if self.sharding is not None:
@@ -992,9 +1059,10 @@ class Trainer:
                 raise ValueError(
                     f"sharding.zero_stage={stage} needs a pure-dp fit with "
                     f"replicated params and {self.sharding.data_axis} >= 2 "
-                    f"(got strategy={strategy!r}, sharded-params=False, "
-                    f"{self.sharding.data_axis}={self._dp_size()}); use "
-                    f"zero_stage=0 or a {self.sharding.data_axis}-axis mesh")
+                    f"(got strategy={strategy!r}, sharded-params="
+                    f"{sharded}, {self.sharding.data_axis}="
+                    f"{self._dp_size()}); use zero_stage=0 or a "
+                    f"{self.sharding.data_axis}-axis mesh")
             if blocked:
                 raise ValueError(
                     f"sharding.zero_stage={stage} is incompatible with "
@@ -1012,8 +1080,9 @@ class Trainer:
                     logger.warning(
                         "weight_update_sharding='on' needs a pure-dp fit on "
                         "a mesh with dp >= 2 (got strategy=%r, "
-                        "sharded-params=False, dp=%d); training with the "
-                        "replicated update", strategy, self._dp_size())
+                        "sharded-params=%s, dp=%d); training with the "
+                        "replicated update", strategy, sharded,
+                        self._dp_size())
                 return 0
             if blocked:
                 if params is not None:
@@ -1078,6 +1147,17 @@ class Trainer:
                 f"mini_batch_size={batch} must divide over the batch axes "
                 f"{axes} ({count} ranks) for a mesh fit")
         rows = (axis_index(axes) if axes else 0, count)
+        if strategy == "default" and self._placement is not None:
+            from .parallel.dp import make_param_sharded_train_step
+            raw = make_param_sharded_train_step(
+                self.model, self.optimizer, mesh, self.input_name,
+                self.label_name, self._pspecs, self._placement.template,
+                sharding=self.sharding)
+
+            def step_fn(p, o, x, y, m, gen):
+                return raw(p, o, x, y, m, _draw_seed(gen))
+
+            return step_fn, rows
         if strategy == "default":
             if self._data_axis() not in mesh.axis_names:
                 raise ValueError(
@@ -1127,8 +1207,12 @@ class Trainer:
     # -- layouts: the standard (checkpoint) form and the rank's form --------
 
     def _params_to_ckpt(self, params):
-        """Standard-layout params (stage 3 gathers every rank's rows: a
-        collective)."""
+        """Standard-layout params (stage 3 gathers every rank's rows, a tp /
+        fsdp fit every rank's slices: a collective)."""
+        if self._placement is not None:
+            with torch.no_grad():
+                return self._placement.gather(
+                    tree_map(lambda p: p.detach(), params))
         if self._zero_stage < 3:
             return params
         from .optimizers_sharded import gather_rows, gather_zero3_params
@@ -1137,8 +1221,16 @@ class Trainer:
         return gather_zero3_params(rows, self._zero3_template)
 
     def _params_from_ckpt(self, params):
-        """Standard params -> this rank's stage-3 rows (trainable), the
-        standard tensors' storage released."""
+        """Standard params -> this rank's stage-3 rows, or its tp / fsdp
+        slices (trainable, installed on the model), the standard tensors'
+        storage released."""
+        if self._placement is not None:
+            with torch.no_grad():
+                local = self._placement.place(
+                    tree_map(lambda p: p.detach(), params))
+            for p in tree_leaves(params):
+                p.data = p.data.new_empty(0)
+            return self.model.load_params(local, trainable=True)
         if self._zero_stage < 3:
             return params
         from .optimizers_sharded import place_zero1_state, shard_zero3_params
@@ -1153,7 +1245,12 @@ class Trainer:
 
     def _opt_to_ckpt(self, params, opt_state):
         """The standard (param-shaped) optimizer state: a zero fit gathers
-        every rank's rows (a collective). ``params`` standard layout."""
+        every rank's rows, a tp / fsdp fit every rank's slices (a
+        collective). ``params`` standard layout."""
+        if self._placement is not None:
+            with torch.no_grad():
+                return self._placement.gather_state(self.optimizer,
+                                                    opt_state)
         if not self._zero1_active:
             return opt_state
         from .optimizers_sharded import gather_rows, gather_zero1_state
@@ -1164,7 +1261,10 @@ class Trainer:
 
     def _opt_from_ckpt(self, params, opt_state):
         """Standard state -> this rank's rows, re-padded for THIS mesh's dp
-        size (which may differ from the writing run's)."""
+        size (which may differ from the writing run's); a tp / fsdp fit's
+        slices."""
+        if self._placement is not None:
+            return self._placement.place_state(self.optimizer, opt_state)
         if not self._zero1_active:
             return opt_state
         from .optimizers_sharded import place_zero1_state, shard_zero1_state
@@ -1364,7 +1464,9 @@ class Trainer:
             strategy = self._mesh_strategy()
             task = (self._strategy_task(strategy) if strategy != "default"
                     else None)
-            # the zero-stage errors a fit raises, before any rank starts
+            # the placement and zero-stage errors a fit raises, before any
+            # rank starts
+            self._pspecs = self._resolve_pspecs()
             self._resolve_zero_stage(strategy, None)
             if not _in_group():
                 return self._fit_launched(features, labels, init_params)
@@ -1610,7 +1712,8 @@ class Trainer:
             stats.stop_clock()
             per_batch = self._train_flops_per_batch(
                 tuple(a[:batch] for a in x_pad) if multi else x_pad[:batch],
-                y_pad[:batch], fs.params if self._zero_stage < 3
+                y_pad[:batch], fs.params if (self._zero_stage < 3
+                                             and self._placement is None)
                 else self._params_to_ckpt(fs.params))
             if per_batch and mesh is not None:
                 per_batch = per_batch / mesh.size
@@ -1817,7 +1920,9 @@ class Trainer:
                 "batch schedules — use fit() (fitMode='collect')")
         count = self._batch_ranks()
         bs = -(-bs // count) * count
-        # the zero-stage errors a fit raises, before any rank starts
+        # the placement and zero-stage errors a fit raises, before any rank
+        # starts
+        self._pspecs = self._resolve_pspecs()
         self._resolve_zero_stage("default", None)
         if not _in_group():
             return self._fit_stream_launched(row_iterator, init_params,
@@ -1902,6 +2007,8 @@ class Trainer:
         dev = self.device
         self._ctl_stop = False
         if mesh is not None:
+            # a launched rank enters here, not through fit_stream
+            self._pspecs = self._resolve_pspecs()
             from .parallel import collectives
             collectives.reset_stats()
             launches0 = _launch_counts()

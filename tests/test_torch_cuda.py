@@ -544,12 +544,14 @@ def test_preempted_fit_resumed_on_card_equals_the_uninterrupted_fit(
 def _quant_pools(kp, vp, pool):
     """``(rows, scales)`` of a float pool quantized to ``pool`` ("int8" /
     "fp8"), with a page-head of scale 0 (its rows all zero, so never
-    written) and a page rescaled mid-fill (a late row with a larger absmax
-    appended through the running-scale path)."""
+    written: head 3, or the last of fewer) and a page rescaled mid-fill (a
+    late row with a larger absmax appended through the running-scale
+    path)."""
     from sparkflow_tpu_torch.utils import quant
     kp, vp = kp.float().clone(), vp.float().clone()
-    kp[5, :, 3] = 0.0
-    vp[5, :, 3] = 0.0
+    zero = min(3, kp.shape[2] - 1)
+    kp[5, :, zero] = 0.0
+    vp[5, :, zero] = 0.0
     out = []
     for pages in (kp, vp):
         rows, scales = quant.quantize_kv_pages(pages, pool)
@@ -558,7 +560,7 @@ def _quant_pools(kp, vp, pool):
         quant.paged_quant_append(rows, scales, 0, torch.tensor(
             [9], device=kp.device), torch.tensor([7], device=kp.device), late)
         out.append((rows[0], scales[0]))
-    assert bool((out[0][1][5, 3] == 0).item())
+    assert bool((out[0][1][5, zero] == 0).item())
     return out
 
 
@@ -1528,3 +1530,117 @@ def test_ring_flash_on_card_matches_the_plain_ring(card_ranks, dtype, causal,
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert sum(o["flash_launches"][name] for o in ours) == visits
         assert sum(o["plain_launches"][name] for o in ours) == 0
+
+
+# -- kernels 1-7 at a tp shard's head count -------------------------------------
+#
+# Under tensor parallelism each shard runs the kernels on its heads: 6 of
+# GPT-2 small's and BERT-base's 12 at tp=2, 3 at tp=4. No launch may assume
+# 12 heads or an even head count (the decode kernel's cluster grid is
+# (C, H, B); the verify split is per (slot, head)).
+
+TP_HEADS = pytest.mark.parametrize("h", [6, 3], ids=["h6", "h3"])
+
+
+@TP_HEADS
+@DTYPES
+def test_flash_kernels_at_a_tp_shards_heads(dev, dtype, h):
+    """Kernels 1-3 (forward, dQ, dK/dV) at 6 and 3 heads: a causal GPT-2
+    shape and a key-masked BERT one, against the plain versions."""
+    from sparkflow_tpu_torch.ops import (flash_attention_backward,
+                                         flash_attention_backward_reference,
+                                         flash_bwd_dkv, flash_bwd_dq)
+    for case in (dict(b=2, s=1024, causal=True),
+                 dict(b=3, s=512, causal=False, mask_rows=(400, 77, 512))):
+        q, k, v, out, lse, dout, mask = _bwd_case(dev, dtype, h=h, **case)
+        _check_fwd(q, k, v, case["causal"], mask)
+        before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+        got = flash_attention_backward(q, k, v, out, lse, dout,
+                                       case["causal"], kv_mask=mask)
+        torch.cuda.synchronize()
+        assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+            before[0] + 1, before[1] + 1)
+        _check_bwd(got, flash_attention_backward_reference(
+            q, k, v, out, lse, dout, case["causal"], kv_mask=mask), dtype)
+
+
+@TP_HEADS
+@pytest.mark.parametrize("pool", POOLS)
+@DTYPES
+def test_paged_decode_at_a_tp_shards_heads(dev, dtype, pool, h):
+    """Kernels 4-5 over a pool of 6 or 3 heads: every slot kind, a second
+    launch bit-identical."""
+    out = _check_decode(*_decode_case(dev, dtype, pool, (0, 1, 17, 100, 255,
+                                                         700, 1024), h=h,
+                                      seed=40 + h))
+    assert out.shape[1] == h
+
+
+@TP_HEADS
+@pytest.mark.parametrize("pool", POOLS)
+@DTYPES
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_verify_at_a_tp_shards_heads(dev, dtype, pool, h, s):
+    """Kernels 6-7 (the split and its combine) over a pool of 6 or 3
+    heads, against the plain version."""
+    from sparkflow_tpu_torch.ops import (paged_attention_verify,
+                                         paged_attention_verify_reference)
+    _q, kp, vp, table, lengths, scales = _decode_case(
+        dev, dtype, pool, (0, 1, 17, 100, 255, 700, 1024), h=h,
+        seed=50 + h)
+    g = torch.Generator(device=dev).manual_seed(60 + s)
+    q = torch.randn(len(lengths), h, s, 64, generator=g, device=dev).to(
+        dtype)
+    start = _verify_starts(lengths, s)
+    counter = "launches" if pool is None else "quant_launches"
+    before = getattr(paged_attention_verify, counter)
+    out = paged_attention_verify(q, kp, vp, table, start, **scales)
+    torch.cuda.synchronize()
+    assert getattr(paged_attention_verify, counter) == before + 1
+    ref = paged_attention_verify_reference(q, kp, vp, table, start, **scales)
+    assert out.shape == (len(lengths), h, s, 64) and out.dtype == dtype
+    assert torch.isfinite(out.float()).all()
+    assert _max_err(out, ref) < PAGED_TOL[dtype]
+
+
+def test_tp_decode_engine_on_card_matches_the_cpu_engine(dev):
+    """A tp=2 decode engine on the card (both shards on card 0 on a
+    one-card machine) decodes the CPU tp engine's greedy tokens, plain and
+    with spec_k and int8, and its shards launched the paged kernels."""
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    from sparkflow_tpu_torch.ops import paged_attention_verify
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    spec = build_registry_spec("transformer_lm", vocab_size=97, hidden=64,
+                               num_layers=2, num_heads=4, mlp_dim=128,
+                               max_len=128, dropout=0.0)
+    cpu = model_from_json(spec, device="cpu")
+    params = cpu.init(seed=5)
+    card = model_from_json(spec, device="cuda")
+    tp = dict(mesh={"tp": 2}, sharding=ShardingConfig(tp_axis="tp"))
+    for kw in ({}, {"spec_k": 3}, {"kv_quant": "int8"}):
+        want = DecodeEngine(cpu, params, num_slots=2, page_size=16, seed=0,
+                            **tp, **kw)
+        got = DecodeEngine(card, params, num_slots=2, page_size=16, seed=0,
+                           **tp, **kw)
+        before = (paged_attention.launches + paged_attention.quant_launches
+                  + paged_attention_verify.launches
+                  + paged_attention_verify.quant_launches)
+        for prompt in ([5, 2, 8, 1], list(range(1, 40))):
+            a = _engine_tokens(want, prompt)
+            b = _engine_tokens(got, prompt)
+            assert a == b, kw
+        after = (paged_attention.launches + paged_attention.quant_launches
+                 + paged_attention_verify.launches
+                 + paged_attention_verify.quant_launches)
+        assert after > before
+
+
+def _engine_tokens(eng, prompt, n=8):
+    info = eng.prefill(prompt, max_new_tokens=n)
+    toks = [] if info["token"] is None else [info["token"]]
+    while len(toks) < n:
+        toks.extend(eng.step().get(info["slot"], []))
+    eng.release(info["slot"])
+    return toks[:n]

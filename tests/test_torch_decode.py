@@ -158,9 +158,13 @@ def test_swap_params_defers_until_drained(torch_lm, weights):
         eng.swap_params(bad)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"sharding": "tp"},
-                                {"pp_wave": False}])
+@pytest.mark.parametrize("kw", [
+    {"mesh": {"ep": 2}, "sharding": {"ep_axis": "ep"}},
+    {"mesh": {"pp": 2}, "sharding": {"pp_axis": "pp"}},
+    {"pp_wave": False}])
 def test_unported_engine_options_raise(torch_lm, kw):
+    # tp decode is ported (tests/test_torch_tp_serving.py); ep, pp and the
+    # pp wave are not
     tm, tp = torch_lm
     with pytest.raises(ValueError, match="ROADMAP.md"):
         DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, **kw)

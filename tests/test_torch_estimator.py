@@ -154,12 +154,12 @@ def test_unsupervised_autoencoder_and_vector_predictions(spark):
 
 
 @pytest.mark.parametrize("over", [
-    {"meshShape": "tp=2"}, {"ppMicrobatches": 2},
+    {"meshShape": "pp=2"}, {"ppMicrobatches": 2},
     {"ppSchedule": "1f1b"}, {"weightUpdateSharding": "on", "meshShape": "ep=2"},
-    {"zeroStage": 1, "meshShape": "fsdp=2"}], ids=lambda d: next(iter(d)))
+    {"zeroStage": 1, "meshShape": "dp=2,ep=2"}], ids=lambda d: next(iter(d)))
 def test_unported_params_are_refused_before_training(gaussian_df, over):
-    # dp / sp meshes and the ZeRO Params are ported
-    # (tests/test_torch_zero.py); the model-parallel axes are not
+    # dp / sp / tp / fsdp meshes and the ZeRO Params are ported
+    # (tests/test_torch_{zero,tp,fsdp}.py); the pp and ep axes are not
     calls = []
     est = _estimator(**over).setLossCallback(lambda *a: calls.append(a))
     with pytest.raises(NotImplementedError,

@@ -281,7 +281,10 @@ def test_unported_model_options_raise(kw):
 def test_unported_call_options_raise(pair):
     _, _, tm, tp, _ = pair
     ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(ValueError, match="tp_axis"):
+    # tp_axis is ported (the Megatron forward of a tp rank,
+    # tests/test_torch_tp.py): outside a bound mesh it raises, as a psum
+    # over an unbound axis does in JAX; ep_axis is not ported
+    with pytest.raises(RuntimeError, match="no mesh is bound"):
         tm.prefill(tp, ids, tp_axis="tp")
     with pytest.raises(ValueError, match="kv_dtype"):
         tm.init_decode_cache(1, kv_dtype="int4")

@@ -214,12 +214,13 @@ def test_bad_names_modes_and_weights_fail_at_construction():
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"mesh": {"dp": 1, "tp": 2}}, "item 7"),
-    ({"sharding": {"tp_axis": "tp"}}, "item 7")],
+    ({"mesh": {"dp": 1, "ep": 2}}, "item 7"),
+    ({"sharding": {"ep_axis": "ep"}}, "item 7")],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_unported_options_are_refused(option, item):
-    # dp serving is ported (tests/test_torch_mesh_predict.py); a tp axis,
-    # on the mesh or in the sharding config, is not
+    # dp and tp serving are ported (tests/test_torch_{mesh_predict,
+    # tp_serving}.py); an ep axis, on the mesh or in the sharding config,
+    # is not
     spec, weights, inp, out = _mlp()
     with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
         InferenceEngine(spec, weights, input_name=inp, output_name=out,

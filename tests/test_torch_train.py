@@ -295,10 +295,11 @@ def test_trainer_predict_ema_and_weights():
 
 def test_trainer_misuse_raises():
     spec = build_registry_spec("transformer_lm", **LM)
-    # dp / sp meshes are ported (tests/test_torch_zero.py); tensor
-    # parallelism is not, and a mesh must be a Mesh or a dict of sizes
+    # dp / sp / tp / fsdp meshes are ported (tests/test_torch_{zero,tp,
+    # fsdp}.py); pipeline parallelism is not, and a mesh must be a Mesh or
+    # a dict of sizes
     with pytest.raises(NotImplementedError, match="not yet ported.*item 7"):
-        Trainer(spec, "input_ids", None, mesh={"tp": 2}, device="cpu")
+        Trainer(spec, "input_ids", None, mesh={"pp": 2}, device="cpu")
     with pytest.raises(TypeError, match="mesh must be"):
         Trainer(spec, "input_ids", None, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="traces and compiles nothing"):

@@ -409,3 +409,107 @@ def sp_forward(spec, p0, ids):
         out = model.apply(_tree_t(p0), {"input_ids": torch.tensor(
             ids[:, r * sl:(r + 1) * sl]).long()}, ["logits"])["logits"]
     return _np(out)
+
+
+# -- tensor parallelism and fsdp ----------------------------------------------
+
+
+def _placed(model, m, specs, p0):
+    """This rank's trainable slices of the standard ``p0`` under ``specs``,
+    and the placement that maps them back."""
+    from sparkflow_tpu_torch.parallel.tp import ParamPlacement
+    std = _tree_t(p0)
+    place = ParamPlacement(model, m, specs, std)
+    local = place.place(std)
+    return place, {k: {kk: t.requires_grad_(True) for kk, t in d.items()}
+                   for k, d in local.items()}
+
+
+def _specs(model, m, fsdp_min_size):
+    from sparkflow_tpu_torch.parallel.tp import (derive_param_pspecs,
+                                                 fsdp_pspecs)
+    if fsdp_min_size is not None:
+        return fsdp_pspecs(model.param_specs(), min_size=fsdp_min_size)
+    return derive_param_pspecs(model, m)
+
+
+def sharded_step(spec, axes, p0, x, y, lr=0.1, fsdp_min_size=None,
+                 input_name="input_ids", label_name="y"):
+    """One gradient-descent step of ``make_param_sharded_train_step`` at
+    ``lr`` from the standard ``p0`` (tp specs from the model, or fsdp
+    specs at ``fsdp_min_size``), on this rank's dp block of the rows: the
+    loss, the gathered standard params, and this rank's param bytes."""
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    from sparkflow_tpu_torch.parallel.dp import make_param_sharded_train_step
+    m = _mesh(axes)
+    model = model_from_json(spec, device="cpu")
+    specs = _specs(model, m, fsdp_min_size)
+    opt = build_optimizer("gradient_descent", lr, None)
+    with m.bind():
+        place, params = _placed(model, m, specs, p0)
+        state = opt.init(params)
+        step = make_param_sharded_train_step(model, opt, m, input_name,
+                                             label_name, specs, place.template)
+        dpn = m.shape.get("dp", 1)
+        di = m.axis_index("dp") if "dp" in m.shape else 0
+        b = x.shape[0] // dpn
+        rows = slice(di * b, (di + 1) * b)
+        params, state, loss = step(params, state, torch.tensor(x[rows]),
+                                   torch.tensor(y[rows]), torch.ones(b), 0)
+        local_bytes = sum(t.numel() * t.element_size()
+                          for d in params.values() for t in d.values())
+        return {"loss": float(loss), "params": _tree_np(place.gather(params)),
+                "local_bytes": local_bytes}
+
+
+def tp_grads(spec, axes, p0, feeds):
+    """The masked-mean loss and its gradient (standard layout) through the
+    Megatron forward on this rank's tp slices — no optimizer, no dp sum."""
+    import copy
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.optimizers import tree_leaves
+    m = _mesh(axes)
+    model = model_from_json(spec, device="cpu")
+    specs = _specs(model, m, None)
+    with m.bind():
+        place, params = _placed(model, m, specs, p0)
+        tp_model = copy.copy(model)
+        tp_model.tp_axis = "tp"
+        lv = tp_model.loss_vector(params, {k: torch.tensor(v) for k, v in
+                                           feeds.items()}, train=False)
+        loss = lv.mean()
+        leaves = tree_leaves(params)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        gtree = {k: {kk: next(grads) for kk in d} for k, d in params.items()}
+        return {"loss": float(loss),
+                "grads": _tree_np(place.gather(gtree))}
+
+
+def tp_trainer_fit(spec, axes, trainer_kw, x, y, init_params=None):
+    """``trainer_fit`` for a model with named inputs: ``trainer_kw`` carries
+    ``inputs=(input_name, label_name)``; also the final optimizer state."""
+    from sparkflow_tpu_torch.trainer import Trainer
+    kw = dict(trainer_kw)
+    inputs = kw.pop("inputs")
+    t = Trainer(spec, inputs[0], inputs[1], mesh=_mesh(axes), device="cpu",
+                **kw)
+    r = t.fit(x, y, init_params=init_params)
+    return {"losses": r.losses, "params": _tree_np(r.params),
+            "stop": r.stop_reason, "stats": t.last_mesh_stats,
+            "opt_state": _opt_np(t._last_opt_state),
+            "resumed_from": t._resumed_from}
+
+
+def tp_stream_fit(spec, axes, trainer_kw, x, y, init_params=None):
+    """``fit_stream`` in place for a model with named inputs (``inputs`` in
+    ``trainer_kw``) over the rows ``(x[i], y[i])``."""
+    from sparkflow_tpu_torch.trainer import Trainer
+    kw = dict(trainer_kw)
+    inputs = kw.pop("inputs")
+    t = Trainer(spec, inputs[0], inputs[1], mesh=_mesh(axes), device="cpu",
+                **kw)
+    rows = list(zip(list(x), list(y))) if inputs[1] else list(x)
+    r = t.fit_stream(lambda: iter(rows), init_params=init_params, chunk=64)
+    return {"losses": r.losses, "params": _tree_np(r.params),
+            "stats": t.last_mesh_stats}
