@@ -327,11 +327,39 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     one card, is bit-equal to it. ``python3 chip_smoke.py --phase tp-fsdp``
     runs set-up and this phase alone.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 18, 19, 20; a ``[time]`` line
-gives each phase's wall time. The line before the last gives the card's name and
-power limit; the last line is ``{"ok": true, "device": {"platform": "gpu",
-"kind": ..., "count": ...}}``. Exits nonzero, printing no result, where
-there is no CUDA card.
+21. pp: pipeline parallelism (ROADMAP 7e). Two ranks share the card over
+    gloo and one-process serving puts both stages on it: the phase shows
+    the schedules, the stage-to-stage hops and the kernels on each stage's
+    layers, not scaling. (a) GPT-2 small (bf16, dropout 0.1, adam 3e-4)
+    through ``Trainer(mesh={"dp": 1, "pp": 2})`` in place on two ranks,
+    batch 8 x 1024 (8 microbatches), 3 steps under each of ``gpipe``,
+    ``1f1b`` and ``sequential``: step ms on each rank (CUDA events),
+    tokens/s, bytes moved a step a rank (the hops, the shared gradients'
+    all-reduce), param bytes a rank against one card's, peak memory,
+    ``schedule_ticks`` and launches of kernels 1-3 a rank, held to the
+    schedule's count. (b) BERT-base (float32) through ``Pipeline(
+    [OneHotEncoder, SparkAsyncDL(meshShape="pp=2", ppSchedule="1f1b",
+    ppMicrobatches=4)])`` over 64 rows x 512 (tokens only), batch 32, 2
+    steps: examples/s against one card's ``Trainer``, param bytes a rank at
+    rest, the fitted model's transform without a mesh. (c) GPT-2 small
+    ``DecodeEngine(mesh={"pp": 2}, num_slots=8, page_size=16)``, 8 prompts x
+    32 new tokens, arms ``pp_wave``, ``pp_wave=False``, ``spec_k=4``
+    (``draft_layers=6``, one stage), int8 with ``spec_k=4`` and ``mesh={"pp":
+    2, "tp": 2}``: in float32 (TF32 off) the greedy tokens equal the engine's
+    without a mesh in every arm; in bf16 step ms p50, tokens/s against the
+    engine without a mesh, pool bytes a stage (half), kernels 1 and 4-7's
+    launches a stage, wave ticks. (d) GPT-2 small's widths cut to 2 layers,
+    float32, TF32 off: pp=2 under each schedule against one card (one SGD
+    step: loss 1e-5 relative, params rtol 3e-4 / atol 3e-5; 3 adam steps:
+    losses 2e-4), and a pp=2 checkpoint resumed on one card bit-equal to the
+    fit. ``python3 chip_smoke.py --phase pp`` runs set-up and this phase
+    alone.
+
+Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 18,
+19, 20, 21; a ``[time]`` line gives each phase's wall time. The line before
+the last gives the card's name and power limit; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Exits nonzero, printing no result, where there is no CUDA card.
 """
 
 from __future__ import annotations
@@ -5842,14 +5870,16 @@ def _tpf_training(card, device, pool):
 def _tpf_one_card_ex_s(spec, ids, masks, labels, device):
     """Training examples/s of one card's ``Trainer`` on the estimator's
     rows, one step an epoch: the last step's host time, from the loss read
-    of the step before to its own."""
+    of the step before to its own. ``masks`` None: tokens only."""
     from sparkflow_tpu_torch.trainer import Trainer
     marks = []
-    Trainer(spec, ["input_ids", "attention_mask"], "y", optimizer="adam",
+    names = "input_ids" if masks is None else ["input_ids", "attention_mask"]
+    Trainer(spec, names, "y", optimizer="adam",
             learning_rate=3e-4, iters=TPF_EST_STEPS + 1,
             mini_batch_size=TPF_EST_BATCH, mini_stochastic_iters=1, seed=0,
             device=device, loss_callback=lambda loss, it, part: marks.append(
-                time.perf_counter())).fit((ids, masks), labels)
+                time.perf_counter())).fit(
+        ids if masks is None else (ids, masks), labels)
     return TPF_EST_BATCH / (marks[-1] - marks[-2])
 
 
@@ -6347,9 +6377,444 @@ def _tpf_rest(card, work, device, pool, lap):
     return out
 
 
+# -- phase 21: pipeline parallelism (ROADMAP 7e) ------------------------------
+#
+# Two ranks share the card over gloo for training, and one-process serving
+# puts both stages (and, under pp x tp, their shards) on it: the phase shows
+# the schedules, the stage-to-stage hops and the kernels on each stage's
+# layers, not scaling.
+PP_TRAIN_BATCH, PP_TRAIN_STEPS = 8, 3            # (a) GPT-2 small 8 x 1024
+PP_SCHEDULES = ("gpipe", "1f1b", "sequential")
+# (b) BERT-base: phase 20's rows, batch and steps (its one-card rate too)
+PP_EST_ROWS, PP_EST_BATCH, PP_EST_STEPS = (TPF_EST_ROWS, TPF_EST_BATCH,
+                                           TPF_EST_STEPS)
+PP_EST_MICRO = 4
+PP_DEC_NEW = 32                                  # (c) 8 prompts, TPF's lengths
+PP_DEC_ARMS = (("pp_wave", {}, "plain"),
+               ("pp_wave=False", {"pp_wave": False}, "plain"),
+               ("spec_k=4", {"spec_k": SPEC_K, "draft_layers": 6}, "spec"),
+               ("int8+spec_k=4", {"kv_quant": "int8", "spec_k": SPEC_K,
+                                  "draft_layers": 6}, "int8+spec"),
+               ("pp x tp", {"tp": True}, "plain"))
+PP_EXACT_BATCH = 8                               # (d) 8 x 1024, 2 layers
+
+
+def _pp_launches_a_step(schedule, stage, n_stages, layers, micro):
+    """Kernels 1-3's launches a step on one stage: a stage's layers once a
+    microbatch in the forward sweep (the last stage stores its arrivals
+    instead, and ``sequential`` keeps its graph), once more in the
+    recompute, and once in the backward."""
+    per = layers // n_stages
+    last = stage == n_stages - 1
+    fwd = per * micro * (1 if schedule == "sequential" or last else 2)
+    return {"flash_fwd": fwd, "flash_bwd_dq": per * micro,
+            "flash_bwd_dkv": per * micro}
+
+
+def _pp_rank_rows(st):
+    """Each rank's accounting of a pp fit, its bytes split into the
+    stage-to-stage hops and the all-reduces (the shared leaves' gradients,
+    the loss)."""
+    rows = _tpf_rank_rows(st, MESH_NAMES)
+    for row, r in zip(rows, st["ranks"]):
+        steps = max(1, r["steps"])
+        row["hop_gb_a_step"] = r["bytes_moved"].get("pp_hop", 0) / steps / 1e9
+        row["all_reduce_gb_a_step"] = (r["bytes_moved"]["all_reduce"]
+                                       / steps / 1e9)
+        row["schedule_ticks"] = r.get("schedule_ticks")
+    return rows
+
+
+def _pp_train_rank(spec, ids, schedule, device):
+    """(a) on each of 2 ranks: ``Trainer(mesh={"dp": 1, "pp": 2})`` fitting
+    in place (as under torchrun) under ``schedule``: the fit's wall and this
+    rank's accounting."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    _rank, dev = _sm_rank_setup(device)
+    tr = Trainer(spec, "input_ids", None, optimizer="adam", learning_rate=3e-4,
+                 iters=PP_TRAIN_STEPS, mini_batch_size=PP_TRAIN_BATCH,
+                 mini_stochastic_iters=1, seed=0, device=dev,
+                 compute_dtype="bfloat16" if device != "cpu" else None,
+                 mesh=Mesh({"dp": 1, "pp": 2}), pp_schedule=schedule)
+    t0 = time.perf_counter()
+    res = tr.fit(ids)
+    return {"losses": res.losses, "fit_s": time.perf_counter() - t0,
+            "stats": tr.last_mesh_stats}
+
+
+def _pp_training(card, device, pool):
+    """(a) GPT-2 small at ``pp=2`` through ``Trainer(mesh={"dp": 1, "pp":
+    2})`` on the pool's two ranks under each schedule: bf16, dropout 0.1,
+    adam 3e-4, batch 8 x 1024 (auto M = 8), 3 steps."""
+    import numpy as np
+    from sparkflow_tpu_torch.models import build_registry_spec
+    lm = build_registry_spec("transformer_lm", **dict(GPT2_SMALL,
+                                                      dropout=0.1))
+    rs = np.random.RandomState(9)
+    ids = rs.randint(0, min(1000, GPT2_SMALL["vocab_size"]),
+                     (PP_TRAIN_BATCH, GPT2_SMALL["max_len"])
+                     ).astype(np.float32)
+    full = _tpf_full_bytes(lm)
+    tokens = PP_TRAIN_BATCH * GPT2_SMALL["max_len"]
+    out, launches = {}, {}
+    for schedule in PP_SCHEDULES:
+        got = pool.run(_pp_train_rank, lm, ids, schedule, device)
+        st = dict(got[0]["stats"], ranks=[g["stats"]["ranks"][0]
+                                          for g in got])
+        losses = got[0]["losses"]
+        if not (st["mesh"] == {"dp": 1, "pp": 2} and st["strategy"] == "pp"
+                and all(math.isfinite(x) for x in losses)
+                and len(losses) == PP_TRAIN_STEPS
+                and got[1]["losses"] == losses):
+            raise AssertionError(f"pp=2 GPT-2 small {schedule}: "
+                                 f"{st['mesh']} losses "
+                                 f"{[g['losses'] for g in got]}")
+        ranks = _pp_rank_rows(st)
+        for stage, r in enumerate(ranks):
+            want = {n: v * PP_TRAIN_STEPS for n, v in _pp_launches_a_step(
+                schedule, stage, 2, GPT2_SMALL["num_layers"], 8).items()}
+            if device != "cpu" and r["launches"] != want:
+                raise AssertionError(f"pp=2 {schedule} rank {stage} "
+                                     f"launches {r['launches']}, want {want}")
+        # the ranks step in lockstep (every step ends in a collective): the
+        # slower rank's median is the step
+        step_ms = max(r["step_ms_median_after_first"] for r in ranks)
+        out[schedule] = {
+            "losses": losses, "fit_s": got[0]["fit_s"],
+            "backend": st["backend"], "step_ms": step_ms,
+            "tokens_per_s": tokens * 1e3 / step_ms,
+            "schedule_ticks": ranks[0]["schedule_ticks"],
+            "param_bytes_share_of_one_card": [r["param_gb"] * 1e9 / full
+                                              for r in ranks],
+            "ranks": ranks}
+        launches[schedule] = {n: sum(r["launches"][n] for r in ranks)
+                              for n in MESH_NAMES}
+        pool.run(_rank_release)
+    out["one_card_param_gb"] = full / 1e9
+    log("[pp] (a) GPT-2 small, Trainer(mesh={'dp': 1, 'pp': 2}) in place on "
+        "2 ranks, bf16, dropout 0.1, adam 3e-4, batch 8 x 1024 (M = 8), 3 "
+        "steps a schedule, 6 of 12 blocks a rank: " + json.dumps(out)
+        + f" [{card}]")
+    return out, launches
+
+
+def _pp_estimator(card, device, work):
+    """(b) BERT-base through ``Pipeline([OneHotEncoder,
+    SparkAsyncDL(meshShape="pp=2", ppSchedule="1f1b", ppMicrobatches=4)])``,
+    float32, 64 rows x 512 (tokens only: a pp classifier takes one input),
+    batch 32, 2 steps (a random batch an epoch): examples/s against one
+    card's ``Trainer`` on the same rows, param bytes a rank at rest, and
+    the fitted model's transform without a mesh."""
+    import numpy as np
+    from sparkflow_tpu_torch.localml import (LocalSession, OneHotEncoder,
+                                             Pipeline)
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    spark = LocalSession.builder.appName("pp").getOrCreate()
+    bert = build_registry_spec("transformer_classifier", **BERT_BASE)
+    df = synthetic_text(spark, PP_EST_ROWS, BERT_BASE["max_len"],
+                        BERT_BASE["vocab_size"])
+    rows = df.collect()
+    ids = np.stack([r["tokens"].toArray() for r in rows]).astype(np.float32)
+    labels = np.eye(2, dtype=np.float32)[[int(r["label"]) for r in rows]]
+    # one card on the same rows, tokens only (as the pp classifier takes
+    # them); phase 20's batch and steps are phase 21's
+    one_ex_s = _tpf_one_card_ex_s(bert, ids, None, labels, device)
+    losses = []
+    est = SparkAsyncDL(
+        inputCol="tokens", tensorflowGraph=bert, tfInput="input_ids:0",
+        tfLabel="y:0", tfOutput="probs:0", tfOptimizer="adam",
+        tfLearningRate=3e-4, iters=PP_EST_STEPS, miniStochasticIters=1,
+        miniBatchSize=PP_EST_BATCH, labelCol="labels", predictionCol="probs",
+        meshShape="pp=2", ppSchedule="1f1b", ppMicrobatches=PP_EST_MICRO,
+        device=device, weightsPath=os.path.join(work, "pp-est"))
+    est.setLossCallback(lambda loss, it, part: losses.append(loss))
+    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
+                                          outputCol="labels",
+                                          dropLast=False), est])
+    t0 = time.perf_counter()
+    fitted = pipe.fit(df)
+    fit_s = time.perf_counter() - t0
+    st = est.last_mesh_stats
+    if not (st is not None and st["mesh"] == {"dp": 1, "pp": 2}
+            and st["launched"] and st["strategy"] == "pp"
+            and len(losses) == PP_EST_STEPS
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"pp=2 estimator: mesh {st and st['mesh']}, "
+                             f"losses {losses}")
+    ranks = _pp_rank_rows(st)
+    for stage, r in enumerate(ranks):
+        want = {n: v * PP_EST_STEPS for n, v in _pp_launches_a_step(
+            "1f1b", stage, 2, BERT_BASE["num_layers"], PP_EST_MICRO).items()}
+        if device != "cpu" and r["launches"] != want:
+            raise AssertionError(f"pp=2 estimator rank {stage} launches "
+                                 f"{r['launches']}, want {want}")
+    served = fitted.transform(df).collect()
+    probs = np.stack([np.asarray(r["probs"]) for r in served])
+    if not (probs.shape == (PP_EST_ROWS, 2) and np.isfinite(probs).all()):
+        raise AssertionError(f"pp=2 fitted model's transform: "
+                             f"{probs.shape}")
+    full = _tpf_full_bytes(bert)
+    step_ms = max(r["step_ms_median_after_first"] for r in ranks)
+    out = {"mesh": st["mesh"], "backend": st["backend"], "fit_s": fit_s,
+           "live_losses": losses,
+           "train_examples_per_s": PP_EST_BATCH * 1e3 / step_ms,
+           "one_card_train_examples_per_s": one_ex_s,
+           "param_share_a_rank_at_rest": [r["param_gb"] * 1e9 / full
+                                          for r in ranks],
+           "one_card_param_gb": full / 1e9,
+           "transform_rows": len(served), "ranks": ranks}
+    out["examples_per_s_over_one_card"] = (out["train_examples_per_s"]
+                                           / one_ex_s)
+    log("[pp] (b) BERT-base through SparkAsyncDL(meshShape='pp=2', "
+        "ppSchedule='1f1b', ppMicrobatches=4), float32, 64 rows x 512, "
+        "batch 32, 2 steps: " + json.dumps(out) + f" [{card}]")
+    return out, {n: sum(r["launches"][n] for r in ranks) for n in MESH_NAMES}
+
+
+def _pp_engine(model, params, extra, pp):
+    """A GPT-2-small ``DecodeEngine`` of phase 21's arms: no mesh
+    (``pp=False``), ``pp=2``, or ``pp=2 x tp=2`` (``extra["tp"]``)."""
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    kw = {k: v for k, v in extra.items() if k != "tp"}
+    if pp:
+        if extra.get("tp"):
+            kw.update(mesh={"pp": 2, "tp": 2},
+                      sharding=ShardingConfig(pp_axis="pp", tp_axis="tp"))
+        else:
+            kw.update(mesh={"pp": 2}, sharding=ShardingConfig(pp_axis="pp"))
+    elif "pp_wave" in kw:
+        kw.pop("pp_wave")
+    return DecodeEngine(model, params, num_slots=8, page_size=16, seed=0,
+                        **kw)
+
+
+def _pp_decode(card, device):
+    """(c) GPT-2 small behind ``DecodeEngine(mesh={"pp": 2},
+    sharding=ShardingConfig(pp_axis="pp"), num_slots=8, page_size=16)``,
+    8 prompts x 32 new tokens, in five arms. Exactness in float32 (TF32
+    off): each arm's greedy tokens equal those of the engine without a mesh
+    (the same options). Then bf16: step ms p50 and tokens/s against the
+    engine without a mesh, pool bytes a stage (half; a quarter a stage's
+    shard under pp x tp), kernels 1 and 4-7's launches a stage, wave
+    ticks; the counters zeroed just before each arm's burst."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
+               for n in TPF_DEC_LENS]
+    out = {"float32_identical": {}, "bf16": {}}
+    refs = {"plain": {}, "spec": {"spec_k": SPEC_K, "draft_layers": 6},
+            "int8+spec": {"kv_quant": "int8", "spec_k": SPEC_K,
+                          "draft_layers": 6}}
+    model, params = _tpf_lm(None, device)
+    want = {k: _greedy(_pp_engine(model, params, kw, False), prompts,
+                       PP_DEC_NEW) for k, kw in refs.items()}
+    for name, extra, ref in PP_DEC_ARMS:
+        got = _greedy(_pp_engine(model, params, extra, True), prompts,
+                      PP_DEC_NEW)
+        out["float32_identical"][name] = got == want[ref]
+        if got != want[ref]:
+            raise AssertionError(f"pp decode ({name}, float32) tokens {got} "
+                                 f"!= no-mesh {want[ref]}")
+    del model, params
+    model, params = _tpf_lm("bfloat16" if device != "cpu" else None, device)
+    # a first bf16 burst, untimed: the first engine of a process pays its
+    # GEMM shapes' first use, which is no arm's cost
+    _greedy(_pp_engine(model, params, {}, False), prompts, PP_DEC_NEW)
+    base = {}
+    for k, kw in refs.items():
+        eng = _pp_engine(model, params, kw, False)
+        toks, ms = _tpf_greedy_timed(eng, prompts, PP_DEC_NEW)
+        base[k] = {"tokens": toks, "ms": ms,
+                   "kv": eng.stats()["parallel"]["kv_bytes_per_device"],
+                   "tokens_per_s": len(prompts) * PP_DEC_NEW * 1e3 / sum(ms)}
+        del eng
+    launches = {}
+    for name, extra, ref in PP_DEC_ARMS:
+        eng = _pp_engine(model, params, extra, True)
+        reset_launch_counts()
+        got, ms = _tpf_greedy_timed(eng, prompts, PP_DEC_NEW)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        launches[name] = {n: counts[n] for n in TPF_NAMES}
+        par = eng.stats()["parallel"]
+        split = 4 if extra.get("tp") else 2
+        tok_s = len(prompts) * PP_DEC_NEW * 1e3 / sum(ms)
+        first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                      None) for a, b in zip(got, base[ref]["tokens"])]
+        row = {"tokens_identical_to_no_mesh": got == base[ref]["tokens"],
+               "first_differing_token": first,
+               "step_ms_p50": _pct(ms, 50), "step_ms_p95": _pct(ms, 95),
+               "steps": len(ms), "tokens_per_s": tok_s,
+               "tokens_per_s_over_no_mesh": tok_s / base[ref]["tokens_per_s"],
+               "no_mesh_step_ms_p50": _pct(base[ref]["ms"], 50),
+               "wave_ticks": par["wave_ticks"], "pp_wave": par["pp_wave"],
+               "kv_gb_a_stage": par["kv_bytes_per_device"] / 1e9,
+               "kv_gb_no_mesh": base[ref]["kv"] / 1e9,
+               "param_gb_a_stage": par["param_bytes_per_device"] / 1e9,
+               "launches_a_stage": {n: counts[n] / split for n in TPF_NAMES
+                                    if counts[n]}}
+        if par["kv_bytes_per_device"] * split != base[ref]["kv"]:
+            raise AssertionError(f"pp decode {name}: pool bytes a stage "
+                                 f"{par}, no mesh {base[ref]['kv']}")
+        out["bf16"][name] = row
+        del eng
+    need = {"pp_wave": ("flash_fwd", "paged_attention"),
+            "pp_wave=False": ("flash_fwd", "paged_attention"),
+            "spec_k=4": ("flash_fwd", "paged_attention", "paged_verify"),
+            "int8+spec_k=4": ("flash_fwd", "paged_attention_quant",
+                              "paged_verify_quant"),
+            "pp x tp": ("flash_fwd", "paged_attention")}
+    for name, kernels in need.items():
+        if device != "cpu" and not all(launches[name][n] for n in kernels):
+            raise AssertionError(f"pp decode {name}: launches "
+                                 f"{launches[name]}")
+    if not (out["bf16"]["pp_wave"]["pp_wave"]
+            and out["bf16"]["pp_wave"]["wave_ticks"] > 0):
+        raise AssertionError(f"pp decode: no wave ticks "
+                             f"{out['bf16']['pp_wave']}")
+    log("[pp] (c) GPT-2 small DecodeEngine(mesh={'pp': 2}, num_slots=8, "
+        "page_size=16), 8 prompts x 32 new tokens: float32 (TF32 off) greedy "
+        "tokens identical to the engine without a mesh in every arm; bf16: "
+        + json.dumps(out) + f" [{card}]")
+    return out, launches
+
+
+def _pp_fit_rank(spec, schedule, kw, ids, device):
+    """(d) a ``Trainer(mesh={"dp": 1, "pp": 2})`` fit in place on this rank
+    (TF32 off): losses, the checkpoint epoch it resumed from, and rank 0
+    the standard-layout params."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev = _sm_rank_setup(device)
+    tr = Trainer(spec, "input_ids", None, mesh=Mesh({"dp": 1, "pp": 2}),
+                 pp_schedule=schedule, device=dev, **kw)
+    r = tr.fit(ids)
+    out = {"losses": r.losses, "resumed_from": tr._resumed_from}
+    if rank == 0:
+        out["params"] = _np_tree(r.params)
+    return out
+
+
+def _pp_exactness(card, device, work, pool):
+    """(d) GPT-2 small's widths cut to 2 layers, float32, TF32 off, dropout
+    0, 8 x 1024: ``pp=2`` under each schedule against one card's
+    ``Trainer`` — one SGD step (lr 0.1; loss 1e-5 relative, params rtol
+    3e-4 / atol 3e-5) and 3 adam steps (losses 2e-4); a 1f1b fit's
+    checkpoint (the stacked stage layout) resumed on one card bit-equal to
+    the fit's merged params."""
+    import numpy as np
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.trainer import Trainer
+    lm2 = build_registry_spec("transformer_lm", **dict(GPT2_SMALL,
+                                                       num_layers=2))
+    rs = np.random.RandomState(12)
+    ids = rs.randint(0, GPT2_SMALL["vocab_size"],
+                     (PP_EXACT_BATCH, GPT2_SMALL["max_len"])
+                     ).astype(np.float32)
+    kws = {"sgd": dict(optimizer="gradient_descent", learning_rate=0.1,
+                       iters=1, mini_batch_size=PP_EXACT_BATCH, seed=0),
+           "adam": dict(optimizer="adam", learning_rate=3e-4, iters=3,
+                        mini_batch_size=PP_EXACT_BATCH, seed=0,
+                        optimizer_options={"epsilon": 1e-6})}
+    out = {}
+    for opt, kw in kws.items():
+        one = Trainer(lm2, "input_ids", None, device=device, **kw).fit(ids)
+        want = _np_tree(one.params)
+        for schedule in PP_SCHEDULES:
+            got = pool.run(_pp_fit_rank, lm2, schedule, kw, ids, device)
+            lrel = max(abs(a - b) / max(abs(b), 1e-12)
+                       for a, b in zip(got[0]["losses"], one.losses))
+            e = {"loss_rel": lrel,
+                 "param_excess": _tpf_excess(got[0]["params"], want)}
+            out[f"{opt} {schedule}"] = e
+            ok = (len(got[0]["losses"]) == len(one.losses)
+                  and got[0]["losses"] == got[1]["losses"])
+            if opt == "sgd":
+                ok = ok and lrel <= TPF_LOSS_RTOL and (
+                    e["param_excess"] <= TPF_PARAM_ATOL)
+            else:
+                ok = ok and lrel <= TPF_ADAM_RTOL
+            if not ok:
+                raise AssertionError(f"(d) {opt} {schedule} vs one card: {e}")
+    ck = os.path.join(work, "pp-ck")
+    ckw = dict(kws["adam"], iters=2, checkpoint_dir=ck, checkpoint_every=1)
+    got = pool.run(_pp_fit_rank, lm2, "1f1b", ckw, ids, device)
+    tr = Trainer(lm2, "input_ids", None, device=device, **ckw)
+    res = tr.fit(ids)
+    resumed = _np_tree(res.params)
+    bit = all((resumed[ln][k] == got[0]["params"][ln][k]).all()
+              for ln in resumed for k in resumed[ln])
+    out["pp2_checkpoint_resumed_on_one_card"] = {
+        "resumed_from": tr._resumed_from, "epochs_run": len(res.losses),
+        "bit_equal": bool(bit)}
+    if not (bit and tr._resumed_from == 2 and res.losses == []):
+        raise AssertionError(f"(d) pp=2 checkpoint on one card: "
+                             f"{out['pp2_checkpoint_resumed_on_one_card']}")
+    log("[pp] (d) exactness, GPT-2 small widths cut to 2 layers, float32, "
+        "TF32 off, 8 x 1024: " + json.dumps(out) + f" (SGD loss <= "
+        f"{TPF_LOSS_RTOL} relative, params |d| - {TPF_PARAM_RTOL} |p| <= "
+        f"{TPF_PARAM_ATOL}; adam losses <= {TPF_ADAM_RTOL}) [{card}]")
+    return out
+
+
+def phase_pp(card, work, device=None, pool=None):
+    """Phase 21: pipeline parallelism on the card (see the module
+    docstring). The in-place rank work of (a) and (d) runs in ``pool``
+    (phase 18's) or a pool of its own. Returns the phase's launches and
+    summary. Rehearse it on the CPU with ``device="cpu"`` and shrunk
+    ``GPT2_SMALL`` / ``BERT_BASE``."""
+    import torch
+    from sparkflow_tpu_torch.parallel import distributed
+    t0 = time.perf_counter()
+    cuda = device != "cpu"
+    kind = "cuda" if cuda else "cpu"
+    os.environ["SPARKFLOW_TORCH_MESH_TIMEOUT_S"] = str(MESH_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = distributed.choose_backend(2, kind)
+    log(f"[pp] 2 ranks on {torch.cuda.device_count()} card(s), backend "
+        f"{backend}; decode stage s's shard t on card (s * tp + t) % count. "
+        f"On one card this shows the schedules, the hops and the kernels on "
+        f"each stage's layers, not scaling [{card}]")
+    out = {"backend": backend, "seconds": {}}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds"][name] = now - mark[0]
+        mark[0] = now
+
+    with _pool_of(pool, kind) as pool:
+        out["train"], train_l = _pp_training(card, device, pool)
+        lap("a_training")
+        out["estimator"], est_l = _pp_estimator(card, device, work)
+        lap("b_estimator")
+        out["decode"], dec_l = _pp_decode(card, device)
+        lap("c_decode")
+        out["exact"] = _pp_exactness(card, device, work, pool)
+        pool.run(_rank_release)
+        lap("d_exact")
+    launches = {}
+    for n in TPF_NAMES:
+        row = {f"training_{s}": train_l[s].get(n, 0) for s in PP_SCHEDULES}
+        row["estimator_1f1b"] = est_l.get(n, 0)
+        row.update({f"decode_{a}": dec_l[a][n] for a, _e, _r in PP_DEC_ARMS})
+        launches[n] = row
+    out["launches"] = launches
+    log(f"[pp] phase 21 {time.perf_counter() - t0:.1f} s, by part "
+        + json.dumps(out["seconds"]) + f" [{card}]")
+    return out
+
+
 def main(only: str = None) -> int:
-    """All phases; with ``only="tp-fsdp"`` set-up and phase 20 alone (its
-    summary in place of the kernels line)."""
+    """All phases; with ``only="tp-fsdp"`` or ``only="pp"`` set-up and phase
+    20 or 21 alone (its summary in place of the kernels line)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -6370,17 +6835,23 @@ def main(only: str = None) -> int:
         log(f"[time] {name} {time.perf_counter() - t:.1f} s")
         return out
 
-    if only == "tp-fsdp":
+    alone = {"tp-fsdp": ("tp_fsdp", phase_tp_fsdp), "pp": ("pp", phase_pp)}
+    if only is not None:
+        if only not in alone:
+            print(f"chip_smoke: unknown phase {only!r}; one of "
+                  f"{sorted(alone)}", file=sys.stderr)
+            return 2
+        key, fn = alone[only]
         try:
             timed("setup", phase_setup)
             with timed("mesh-pool", mesh_pool) as pool:
-                tpf = timed("tp-fsdp", phase_tp_fsdp, card, work, None, pool)
+                summary = timed(only, fn, card, work, None, pool)
         except Exception:
             traceback.print_exc()
             return 1
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        print(json.dumps({"tp_fsdp": tpf}))
+        print(json.dumps({key: summary}))
         print(card_line())
         print(json.dumps({"ok": True, "device": device_report()}),
               flush=True)
@@ -6410,6 +6881,7 @@ def main(only: str = None) -> int:
             stream_mesh = timed("stream-mesh", phase_stream_mesh, card,
                                 work, mesh, None, pool)
             tpf = timed("tp-fsdp", phase_tp_fsdp, card, work, None, pool)
+            ppr = timed("pp", phase_pp, card, work, None, pool)
     except Exception:
         traceback.print_exc()
         return 1
@@ -6510,6 +6982,10 @@ def main(only: str = None) -> int:
         # heads
         row["tp_fsdp"] = {"launches": tpf["launches"][row["name"]],
                           "heads6": tpf["kernels_h6"][row["name"]]}
+        # phase 21: the launches of its pp paths (each schedule's fit and
+        # the estimator's summed over the ranks, each decode arm over the
+        # stages)
+        row["pp"] = {"launches": ppr["launches"][row["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)

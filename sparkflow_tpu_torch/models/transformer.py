@@ -447,6 +447,17 @@ class _TransformerBase(RegistryModel):
         return _layer_norm(x, params["final_ln"]["scale"],
                            params["final_ln"]["bias"]), mask, aux_total
 
+    def stage_apply(self, blocks, x, mask=None, causal: bool = True,
+                    train: bool = False,
+                    generator: Optional[torch.Generator] = None):
+        """A pipeline stage: ``x`` [B,S,hidden] through ``blocks`` (a list
+        of block trees, e.g. :func:`~..parallel.pp.stage_blocks`) in order;
+        the blocks' auxiliary losses are dropped, as JAX's pp stage drops
+        them."""
+        for bp in blocks:
+            x = self._block(bp, x, mask, causal, None, train, generator)[0]
+        return x
+
     def prefill_embed(self, params, ids):
         emb = params["embed"]
         s = ids.shape[1]
@@ -552,6 +563,37 @@ class TransformerLM(_TransformerBase):
             last = (lengths.long() - 1).clamp(0, s - 1)
         x_last = x[torch.arange(b, device=x.device), last]
         return torch.matmul(x_last.float(), params["embed"]["tok"].float().t())
+
+    # -- stage-level pieces ---------------------------------------------------
+    #
+    # Pipeline-parallel decode (serving/decode.py with an active pp_axis)
+    # walks the embed / per-block / head pieces stage by stage, each stage
+    # holding only its own blocks and its own layers of the pool, so the
+    # per-block pieces take stage-LOCAL layer indices (whatever index the
+    # ``attend`` callback expects). The whole-model methods below compose
+    # the same pieces.
+
+    def block_decode(self, bp, x, layer, cache, pos, attend, tp_axis=None,
+                     ep_axis=None):
+        """One block's decode step (see :meth:`_block_decode`):
+        ``(x, cache)``."""
+        return self._axes_model(tp_axis, ep_axis)._block_decode(
+            bp, x, layer, cache, pos, attend)
+
+    def block_suffix(self, bp, x, layer, cache, start, attend, tp_axis=None,
+                     ep_axis=None):
+        """One block over a prompt suffix (see :meth:`_block_suffix`):
+        ``(x, cache)``."""
+        return self._axes_model(tp_axis, ep_axis)._block_suffix(
+            bp, x, layer, cache, start, attend)
+
+    def block_prefill(self, bp, x, mask=None, tp_axis=None, ep_axis=None):
+        """One causal block over a prompt, with its keys / values for the
+        decode cache: ``(x, k, v)``, k / v [B,heads,S,d] (the local heads
+        under tp; TPShards of them in one-process tp serving)."""
+        x, k, v, _ = self._axes_model(tp_axis, ep_axis)._block(bp, x, mask,
+                                                               True)
+        return x, k, v
 
     # -- whole-model entry points -----------------------------------------------
 

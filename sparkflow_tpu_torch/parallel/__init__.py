@@ -14,12 +14,15 @@
   the spec rules, a rank's slices and the gather back, and the one-process
   serving split (:class:`~.tp.TPShards`); the step is
   :func:`~.dp.make_param_sharded_train_step`;
+- :mod:`.pp` — pipeline parallelism: the stage layout, the 1F1B tables
+  and the gpipe / 1f1b / sequential train step with a hand-scheduled
+  backward over stage-to-stage hops;
 - :mod:`.elastic` — bounded-staleness async data parallelism over a
   versioned parameter store (the reference's Hogwild heritage), whose
   replicas are threads on one card.
 
-Pipeline and expert parallelism (``pp``, ``ep``) and ``hyper`` are not yet
-ported (ROADMAP.md, queue 1 item 7)."""
+Expert parallelism (``ep``) and ``hyper`` are not yet ported (ROADMAP.md,
+queue 1 item 7)."""
 
 from .mesh import default_mesh, make_mesh, mesh_axis_size
 from . import collectives

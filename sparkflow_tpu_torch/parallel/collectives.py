@@ -9,7 +9,8 @@ JAX one does; the mapping is one to one:
 - ``psum_scatter`` (:func:`reduce_scatter`) -> ``reduce_scatter_tensor``;
 - ``all_gather`` -> ``all_gather_into_tensor``;
 - ``ppermute`` (:func:`ppermute_ring`) -> ``batch_isend_irecv`` to rank
-  +/- ``shift`` along the axis;
+  +/- ``shift`` along the axis; the pipeline's stage-to-stage hop
+  (:func:`send_recv`) -> the same, to named neighbours only;
 - ``axis_index`` -> the rank's coordinate on the axis;
 - Megatron's *f* and *g* (:func:`tp_enter`, :func:`tp_exit`) — an
   all-reduce in the backward or the forward of a tensor-parallel block,
@@ -57,9 +58,9 @@ def reset_stats() -> None:
 def stats() -> Dict[str, int]:
     """Payload bytes each op sent from this rank since
     :func:`reset_stats` (``all_reduce``, ``reduce_scatter``, ``all_gather``,
-    ``ppermute``), their call counts (``calls``), and the bytes copied
-    between a card and pinned host memory for gloo (``host_staged``, both
-    directions)."""
+    ``ppermute``, ``pp_hop``), their call counts (``calls``), and the bytes
+    copied between a card and pinned host memory for gloo (``host_staged``,
+    both directions)."""
     with _LOCK:
         return dict(_STATS)
 
@@ -305,6 +306,46 @@ def ppermute_ring(x, axis_name: Axes, shift: int = 1):
     return out[0] if single else out
 
 
+def send_recv(sends: Sequence[Tuple[torch.Tensor, int]],
+              recvs: Sequence[Tuple[tuple, torch.dtype, int]],
+              axis_name: Axes, device=None) -> List[torch.Tensor]:
+    """Point-to-point hops along the mesh axis, in one
+    ``batch_isend_irecv``: each ``(tensor, to)`` of ``sends`` goes to the
+    rank at index ``to`` on this rank's line along ``axis_name``, and each
+    ``(shape, dtype, frm)`` of ``recvs`` is received from index ``frm``
+    (onto ``device``). The pipeline's stage-to-stage hop — an activation
+    forward, a cotangent back; both ends must post the pair in the same
+    exchange. Counted under ``"pp_hop"`` (bytes sent) and ``calls``."""
+    mesh = bound_mesh()
+    group, _n = _group(axis_name)
+    line = mesh.line(axis_name)
+    if not sends and not recvs:
+        return []
+    staged = (any(_staged(t, group) for t, _ in sends)
+              or (bool(recvs) and device is not None
+                  and torch.device(device).type == "cuda"
+                  and _gloo(group)))
+    # pinned slots of their own, apart from the other ops' (0-7)
+    bufs = [(_to_host(t, 8 + j) if staged else t.contiguous())
+            for j, (t, _to) in enumerate(sends)]
+    outs = []
+    for j, (shape, dtype, _frm) in enumerate(recvs):
+        like = torch.empty(shape, dtype=dtype, device="meta")
+        outs.append(_host(like, 16 + j) if staged
+                    else torch.empty(shape, dtype=dtype, device=device))
+    ops = ([dist.P2POp(dist.isend, b, line[to], group)
+            for b, (_t, to) in zip(bufs, sends)]
+           + [dist.P2POp(dist.irecv, o, line[frm], group)
+              for o, (_s, _d, frm) in zip(outs, recvs)])
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    for b in bufs:
+        _add("pp_hop", b.numel() * b.element_size())
+    _add("calls", 1)
+    return [(_from_host(o, device, shape) if staged else o.view(shape))
+            for o, (shape, _d, _f) in zip(outs, recvs)]
+
+
 # ---------------------------------------------------------------------------
 # Megatron's two operators (tensor parallelism inside autograd)
 # ---------------------------------------------------------------------------
@@ -401,4 +442,4 @@ def hierarchical_psum_mean(tree, ici_axis: str, dcn_axis: str):
 __all__ = ["all_gather", "axis_index", "axis_size", "barrier",
            "hierarchical_psum_mean",
            "ppermute_ring", "psum", "psum_mean", "reduce_scatter",
-           "reset_stats", "stats", "tp_enter", "tp_exit"]
+           "reset_stats", "send_recv", "stats", "tp_enter", "tp_exit"]

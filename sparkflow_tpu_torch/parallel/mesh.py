@@ -36,7 +36,9 @@ t) % device_count`` (:func:`serving_grid`); every block half runs on each
 shard and the partials are summed on the copy's shard 0. An ``fsdp`` axis
 holds full copies: one process has no ranks to shard against. JAX refuses
 a serving mesh that needs more devices than it sees; the rank rule lets one
-card hold every copy. ``ep``, ``pp`` and ``sp`` axes are refused
+card hold every copy. A ``pp`` axis is a decode axis (``DecodeEngine``
+puts stage ``s``'s shard ``t`` on card ``(s * tp + t) % device_count``),
+refused for predict as in JAX; ``ep`` and ``sp`` axes are refused
 (:func:`serving_layout`).
 """
 
@@ -303,8 +305,10 @@ def serving_layout(mesh, sharding=None) -> Tuple[int, Optional[str], int]:
     or a dict of sizes): ``dp`` the product of the sharding config's batch
     axes (the row blocks a batch splits into), ``tp_axis`` the config's
     ``tp_axis`` or the mesh's ``tp`` axis (None without one) and ``tp`` its
-    size. An ``fsdp`` axis holds full copies; any other axis of size > 1
-    is refused."""
+    size. An ``fsdp`` axis holds full copies; a ``pp`` axis is refused
+    with the JAX predict engine's message (depth-sharded models serve
+    through ``DecodeEngine``), any other axis of size > 1 as not yet
+    ported."""
     from ..sharding import as_sharding_config
     mesh = as_mesh(mesh)
     cfg = as_sharding_config(sharding)
@@ -312,6 +316,13 @@ def serving_layout(mesh, sharding=None) -> Tuple[int, Optional[str], int]:
     tp_axis = cfg.tp_axis or ("tp" if "tp" in mesh.axis_names else None)
     bad = [a for a in mesh.axis_names if a not in axes
            and a not in (tp_axis, "fsdp") and mesh.shape[a] > 1]
+    pp_axis = cfg.pp_axis or "pp"
+    if pp_axis in bad:
+        raise ValueError(
+            "pp_axis is a decode-plane axis: the single-shot predict engine "
+            "has no token cadence to hide pipeline bubbles behind. Serve "
+            "depth-sharded models through DecodeEngine (serving/decode.py), "
+            "or drop pp_axis from this engine's sharding config.")
     if bad:
         raise NotImplementedError(
             f"serving over mesh axes {bad} (model-parallel) is not yet "
@@ -322,15 +333,16 @@ def serving_layout(mesh, sharding=None) -> Tuple[int, Optional[str], int]:
     return (mesh.axis_size(axes) if axes else 1), tp_axis, tp
 
 
-def serving_grid(dp: int, tp: int, device) -> list:
+def serving_grid(dp: int, tp: int, device, stage: int = 0) -> list:
     """The devices of ``dp`` serving copies of ``tp`` shards each: shard
     ``t`` of copy ``d`` on card ``(d * tp + t) % device_count``, or all on
-    the CPU."""
+    the CPU. A pipeline stage ``s`` of a ``pp x tp`` decode engine (one
+    copy) puts its shard ``t`` on card ``(s * tp + t) % device_count``."""
     import torch
     from .distributed import rank_device
     kind = torch.device(device).type
-    return [[torch.device(rank_device(d * tp + t, kind)) for t in range(tp)]
-            for d in range(dp)]
+    return [[torch.device(rank_device((d + stage) * tp + t, kind))
+             for t in range(tp)] for d in range(dp)]
 
 
 def model_on(model, device):

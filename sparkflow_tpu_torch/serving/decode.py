@@ -76,8 +76,29 @@ device, as in JAX. The host bookkeeping (page tables, refcounts, the prefix
 trie, the batcher) stays single and layout-blind. ``stats()["parallel"]``
 reports ``tp`` and one shard's bytes.
 
+Pipeline-parallel decode (``sharding=ShardingConfig(pp_axis=...)`` on a
+mesh with that axis, the JAX engine's checks and messages) splits the
+depth into ``pp`` stages in one process: stage ``s`` holds its ``L/pp``
+blocks, a copy of the shared leaves (embedding, final norm) and its
+``L/pp`` layers of each pool (a quantized pool's scales split with their
+layers), on card ``s * tp % device_count`` — under ``pp x tp`` its tp
+shards on cards ``(s * tp + t) % device_count``, each block split as
+above. The activation moves to the next stage's device between stages
+(:class:`_Stages`). Every arm runs staged: the ladder and chunked prefill,
+prefix hits, the plain step, ``spec_k`` with the self draft (which must
+stop at a stage boundary) and with an external draft, ``kv_quant`` and hot
+swap. With ``pp_wave=True`` (the default) and ``spec_k=0`` every
+:meth:`DecodeEngine.step` is one tick: the slots split into ``pp`` waves by
+lane, stage ``s`` runs wave ``(t - s) mod pp`` on the activation its
+predecessor left last tick, and the last stage's wave emits — the same
+slots on the same ticks as JAX's engine. A chunked prefill drains the
+waves first. ``pp_wave=False`` keeps the single-wave step. JAX stages
+without control flow (every stage computes every pass, inactive ones
+write to scratch page 0); eagerly only the stages with work run, so the
+tokens are the same and only scratch page 0 may differ.
+
 Not yet ported, and refused with a ``ValueError`` naming ROADMAP.md:
-``ep_axis`` / ``pp_axis`` and ``pp_wave=False``.
+``ep_axis`` (and ``pp`` with ``ep`` is refused with JAX's message).
 
 The engine is mechanism only — slot admission at token boundaries, queueing,
 futures and drain semantics live in
@@ -118,6 +139,80 @@ def _prefill_ladder(page_size: int, max_prompt: int) -> List[int]:
         b *= 2
     buckets.append(max_prompt)
     return buckets
+
+
+class _Stages:
+    """The model's serving entry points (``prefill``, ``decode_step``,
+    ``prefill_suffix``, ``decode_verify``) walked over pipeline stages in
+    one process: ``params`` is one tree a stage (``DecodeEngine.
+    _stage_tree``) and ``cache`` one cache a stage; the activation moves to
+    each stage's device before its blocks, which see stage-local layer
+    indices, and the logits come back on ``out_device``. Each stage runs
+    only when it has work: JAX's every-stage-every-pass ("no-cond") staging
+    is a compile-time rule, and the tokens are the same."""
+
+    def __init__(self, model, per: int, out_device):
+        self.model, self.per, self.out_device = model, per, out_device
+        self.num_layers = model.num_layers
+
+    def _blocks(self, params, x, n_layers, run):
+        """``x`` through the first ``n_layers`` blocks: ``run(bp, x, j, s)``
+        on stage ``s``'s block ``j``. Returns ``(x, shared)``, the shared
+        leaves of the stage it left on."""
+        last = 0
+        for i in range(n_layers):
+            s, j = divmod(i, self.per)
+            st = params[s]
+            if j == 0:
+                x = x.to(st["device"])
+            x = run(st["blocks"][j], x, j, s)
+            last = s
+        return x, params[last]["shared"]
+
+    def prefill(self, params, ids, mask=None, lengths=None):
+        m = self.model
+        kvs = []
+
+        def run(bp, x, _j, _s):
+            x, k, v = m.block_prefill(bp, x, mask)
+            kvs.append((k, v))
+            return x
+
+        x, shared = self._blocks(params, m.prefill_embed(
+            params[0]["shared"], ids), self.num_layers, run)
+        if lengths is not None:
+            lengths = lengths.to(x.device)
+        return m.head_last(shared, x, lengths).to(self.out_device), kvs
+
+    def decode_step(self, params, cache, token, pos, attend,
+                    num_layers: Optional[int] = None):
+        m = self.model
+        n = self.num_layers if num_layers is None else int(num_layers)
+        x, shared = self._blocks(
+            params, m.decode_embed(params[0]["shared"], token, pos), n,
+            lambda bp, x, j, s: m.block_decode(bp, x, j, cache[s], pos,
+                                               attend)[0])
+        return m.decode_head(shared, x).to(self.out_device), cache
+
+    def _suffix(self, params, ids, start, cache, attend):
+        m = self.model
+        return self._blocks(
+            params, m.suffix_embed(params[0]["shared"], ids, start),
+            self.num_layers,
+            lambda bp, x, j, s: m.block_suffix(bp, x, j, cache[s], start,
+                                               attend)[0])
+
+    def prefill_suffix(self, params, ids, start, cache, attend,
+                       lengths=None):
+        x, shared = self._suffix(params, ids, start, cache, attend)
+        if lengths is not None:
+            lengths = lengths.to(x.device)
+        return (self.model.head_last(shared, x, lengths).to(self.out_device),
+                cache)
+
+    def decode_verify(self, params, ids, start, cache, attend):
+        x, shared = self._suffix(params, ids, start, cache, attend)
+        return self.model.head_all(shared, x).to(self.out_device), cache
 
 
 def _not_yet(option: str):
@@ -176,8 +271,6 @@ class DecodeEngine:
                  kv_quant: Optional[str] = None,
                  executable_dir: Optional[str] = None,
                  metrics: Optional[metrics_mod.Metrics] = None):
-        if not pp_wave:
-            _not_yet(f"pp_wave={pp_wave!r}")
         if isinstance(model, str):
             from ..models import model_from_json
             model = model_from_json(model)
@@ -243,16 +336,26 @@ class DecodeEngine:
         # page (prefix-hit suffixes are typically short)
         self._chunk_width = self.prefill_chunk or self.page_size
         self._init_spec(spec_k, draft_layers, draft_model, draft_params)
+        # micro-token wave scheduling: live slots partition into pp waves
+        # that occupy the pipeline at once (stage s decodes wave (t - s) mod
+        # pp at tick t); the speculative step already amortizes depth over
+        # its multi-token chunk, so waves stand down when speculation is on
+        self._pp_wave = bool(pp_wave) and self._pp > 1 and not self.spec_k
+        if self._pp_wave and self.num_slots % self._pp:
+            raise ValueError(
+                f"num_slots={num_slots} is not divisible by pp={self._pp}: "
+                f"wave scheduling partitions the slot lanes into pp equal "
+                f"waves (pass pp_wave=False for the single-wave schedule)")
 
         tree = params_tree(model, params, self.device)
         self._weights_template = shape_template(tree)
         self._params = self._prepare_params(tree)
         # under tp each shard holds the pool's heads axis / tp on its device
-        # (the int8/fp8 scales sharded on heads with their rows); the page
-        # bookkeeping stays single and layout-blind
+        # (the int8/fp8 scales sharded on heads with their rows), under pp
+        # each stage its layers / pp (the scales split with their layers);
+        # the page bookkeeping stays single and layout-blind
         local_heads = heads // self._tp
-        pool_shape = (model.num_layers, num_pages, self.page_size,
-                      local_heads, hd)
+        pool_shape = (self._per, num_pages, self.page_size, local_heads, hd)
 
         def make_pool(dev):
             if self._quantized:
@@ -263,9 +366,10 @@ class DecodeEngine:
             return torch.zeros(pool_shape, dtype=pool_dtype, device=dev)
 
         with torch.inference_mode():
-            shards = [(make_pool(d), make_pool(d)) for d in self._devices]
-            self._shard_pools = shards
-            self._k_pool, self._v_pool = shards[0]
+            self._stage_pools = [[(make_pool(d), make_pool(d)) for d in devs]
+                                 for devs in self._stage_devices]
+            self._shard_pools = [p for st in self._stage_pools for p in st]
+            self._k_pool, self._v_pool = self._shard_pools[0]
             if self._draft_model is not None:
                 dm = self._draft_model
                 # dense per-slot draft cache: a clamped-window chain reaches
@@ -283,6 +387,13 @@ class DecodeEngine:
         # step masks them to scratch until their K/V is committed
         self._decode_ready = np.zeros(self.num_slots, bool)
         self._pending: List[Dict[str, Any]] = []  # chunked-prefill states
+        # wave scheduling: each stage's output activation of the last tick
+        # (the carry the next stage picks up), the tick counter, and which
+        # slots ride each in-flight wave
+        self._x_carry: List[Optional[torch.Tensor]] = [None] * self._pp
+        self._tick = 0
+        self._wave_inflight: Dict[int, List[int]] = (
+            {w: [] for w in range(self._pp)} if self._pp_wave else {})
         self._lock = threading.Lock()
         self._steps = 0
         self._tokens_out = 0
@@ -312,16 +423,17 @@ class DecodeEngine:
 
     def _init_mesh(self, mesh, sharding) -> None:
         """Validate ``mesh`` / ``sharding`` (the JAX engine's rules and
-        messages) and lay out the tp shards: shard ``t`` on card ``t %
-        device_count`` (the serving rule, :mod:`..parallel.mesh`), or the
-        CPU."""
+        messages) and lay out the stages and their tp shards: shard ``t`` of
+        stage ``s`` on card ``(s * tp + t) % device_count`` (the serving
+        rule, :mod:`..parallel.mesh`), or the CPU."""
         from ..parallel.mesh import as_mesh, serving_grid
         from ..sharding import as_sharding_config
         model = self.model
         self.mesh = as_mesh(mesh)
         self.sharding = None
         self._tp_axis: Optional[str] = None
-        self._tp = 1
+        self._pp_axis: Optional[str] = None
+        self._tp = self._pp = ep = 1
         if sharding is not None:
             self.sharding = as_sharding_config(sharding)
             if self.mesh is None and self.sharding.model_parallel():
@@ -330,27 +442,56 @@ class DecodeEngine:
                                  "DecodeEngine")
         if self.mesh is not None and self.sharding is not None:
             self.sharding.validate(self.mesh, require_data_axis=False)
-            for field in ("ep_axis", "pp_axis"):
-                ax = getattr(self.sharding, field)
-                if ax and int(self.mesh.shape[ax]) > 1:
-                    _not_yet(f"sharding.{field}={ax!r}")
-            tp_ax = self.sharding.tp_axis
+            tp_ax, ep_ax = self.sharding.tp_axis, self.sharding.ep_axis
+            pp_ax = self.sharding.pp_axis
             if tp_ax and int(self.mesh.shape[tp_ax]) > 1:
                 self._tp_axis, self._tp = tp_ax, int(self.mesh.shape[tp_ax])
+            if ep_ax and int(self.mesh.shape[ep_ax]) > 1:
+                ep = int(self.mesh.shape[ep_ax])
+            if pp_ax and int(self.mesh.shape[pp_ax]) > 1:
+                self._pp_axis, self._pp = pp_ax, int(self.mesh.shape[pp_ax])
         if self._tp > 1 and int(model.num_heads) % self._tp:
             raise ValueError(f"num_heads={model.num_heads} is not divisible "
                              f"by tp={self._tp}")
-        if self._tp > 1 and not hasattr(model, "param_pspecs"):
+        if self._pp > 1 and ep > 1:
+            raise ValueError(
+                "pp_axis does not compose with ep_axis: expert dispatch "
+                "reduces inside the block body, which the staged no-cond "
+                "schedule would re-run on every stage. Shard depth (pp) "
+                "x width (tp) instead.")
+        if ep > 1:
+            _not_yet(f"sharding.ep_axis={self.sharding.ep_axis!r}")
+        if self._pp > 1:
+            if int(model.num_layers) % self._pp:
+                raise ValueError(
+                    f"num_layers={model.num_layers} is not divisible by "
+                    f"pp={self._pp}: each pipeline stage must hold the same "
+                    f"number of blocks")
+            for need in ("decode_embed", "block_decode", "decode_head"):
+                if not hasattr(model, need):
+                    raise TypeError(
+                        f"pipeline-parallel decode needs the model to expose "
+                        f"stage-level pieces ({need}()); use a "
+                        f"transformer_lm")
+        if self._tp * self._pp > 1 and not hasattr(model, "param_pspecs"):
             raise TypeError("model-parallel decode needs the model to "
                             "publish param_pspecs() (megatron rules)")
-        self._devices = serving_grid(1, self._tp, self.device)[0]
+        self._per = int(model.num_layers) // self._pp
+        self._stage_devices = [serving_grid(1, self._tp, self.device, s)[0]
+                               for s in range(self._pp)]
+        self._devices = self._stage_devices[0]
+        self._lm = (_Stages(model, self._per, self.device) if self._pp > 1
+                    else model)
 
     def _prepare_params(self, tree):
         """One standard-layout tree -> this engine's serving placement: under
         tp the qkv columns packed in ``(tp, 3, H/tp, d)`` order and one slice
         per shard on its device (the row-parallel biases whole, added once
-        after the sum). The ctor and every hot swap run exactly this path,
-        outside the lock."""
+        after the sum); under pp one tree a stage (:class:`_Stages`): its
+        blocks and a copy of the shared leaves on its devices. The ctor and
+        every hot swap run exactly this path, outside the lock."""
+        if self._pp > 1:
+            return [self._stage_tree(tree, s) for s in range(self._pp)]
         if self._tp <= 1:
             return tree
         from ..parallel.tp import serving_pspecs, serving_tree
@@ -358,10 +499,33 @@ class DecodeEngine:
             self.model, self.mesh, self._tp_axis), self._tp_axis,
             self._devices)
 
+    def _stage_tree(self, tree, s: int):
+        """Stage ``s``'s serving tree: ``{"blocks": [its blocks, tp-split
+        under tp], "shared": {embed, final_ln}, "device"}``."""
+        per, devs = self._per, self._stage_devices[s]
+        names = [f"block_{s * per + j}" for j in range(per)]
+        sub = {k: v for k, v in tree.items() if not k.startswith("block_")}
+        sub.update({n: tree[n] for n in names})
+        if self._tp > 1:
+            from ..parallel.tp import serving_pspecs, serving_tree
+            specs = serving_pspecs(self.model, self.mesh, self._tp_axis)
+            sub = serving_tree(self.model, sub, specs, self._tp_axis, devs)
+        else:
+            sub = {k: {n: t.to(devs[0]) for n, t in v.items()}
+                   for k, v in sub.items()}
+        return {"blocks": [sub.pop(n) for n in names], "shared": sub,
+                "device": devs[0]}
+
     def _pools(self):
         """The K/V pools as the model's ``cache`` argument: each shard's
-        ``(k, v)`` (one without tp), the model hands shard ``s`` its own."""
-        return TPShards(self._shard_pools)
+        ``(k, v)`` (one without tp), the model hands shard ``s`` its own;
+        under pp one such cache a stage."""
+        return self._cache(self._stage_pools)
+
+    def _cache(self, stage_pools):
+        """A cache argument from per-stage lists of per-shard pools."""
+        caches = [TPShards(st) for st in stage_pools]
+        return caches if self._pp > 1 else caches[0]
 
     def _init_spec(self, spec_k, draft_layers, draft_model,
                    draft_params) -> None:
@@ -385,6 +549,11 @@ class DecodeEngine:
             if not 1 <= n <= int(model.num_layers):
                 raise ValueError(
                     f"draft_layers={n} outside [1, {model.num_layers}]")
+            if self._pp > 1 and n % self._per:
+                raise ValueError(
+                    f"draft_layers={n} must be a whole number of "
+                    f"pipeline stages (stage depth = {self._per}) so the "
+                    f"self-speculation chain exits at a stage boundary")
             self.draft_layers = n
             return
         if isinstance(draft_model, str):
@@ -433,30 +602,34 @@ class DecodeEngine:
         rng = np.random.default_rng(0)
         ids = torch.as_tensor(rng.integers(0, model.vocab_size, (1, page)),
                               device=dev)
-        logits, kvs = model.prefill(self._params, ids,
-                                    lengths=torch.as_tensor([page], device=dev))
-        L = len(kvs)
-        refs, quants = [], []
-        for s, d_s in enumerate(self._devices):
-            k0 = _shard(kvs[0][0], s)
-            h, d = k0.shape[1], k0.shape[3]
-            shape = (L, 3, page, h, d)
-            kr = torch.zeros(shape, dtype=ref_dt, device=d_s)
-            vr = torch.zeros(shape, dtype=ref_dt, device=d_s)
-            kq = (torch.zeros(shape, dtype=store, device=d_s),
-                  torch.zeros((L, 3, h), device=d_s))
-            vq = (torch.zeros(shape, dtype=store, device=d_s),
-                  torch.zeros((L, 3, h), device=d_s))
-            pid = torch.tensor([1], device=d_s)
-            for i, (ks, vs) in enumerate(kvs):
-                kk = _shard(ks, s)[0].transpose(0, 1)[None]  # [1, page, h, d]
-                vv = _shard(vs, s)[0].transpose(0, 1)[None]
-                kr[i, pid] = kk.to(ref_dt)
-                vr[i, pid] = vv.to(ref_dt)
-                quant.paged_quant_write_pages(kq[0], kq[1], i, pid, kk)
-                quant.paged_quant_write_pages(vq[0], vq[1], i, pid, vv)
-            refs.append((kr, vr))
-            quants.append((kq, vq))
+        logits, kvs = self._lm.prefill(
+            self._params, ids, lengths=torch.as_tensor([page], device=dev))
+        L = self._per
+        refs, quants = [], []   # a stage's shards' pools
+        for st, devs in enumerate(self._stage_devices):
+            refs.append([])
+            quants.append([])
+            for s, d_s in enumerate(devs):
+                k0 = _shard(kvs[0][0], s)
+                h, d = k0.shape[1], k0.shape[3]
+                shape = (L, 3, page, h, d)
+                kr = torch.zeros(shape, dtype=ref_dt, device=d_s)
+                vr = torch.zeros(shape, dtype=ref_dt, device=d_s)
+                kq = (torch.zeros(shape, dtype=store, device=d_s),
+                      torch.zeros((L, 3, h), device=d_s))
+                vq = (torch.zeros(shape, dtype=store, device=d_s),
+                      torch.zeros((L, 3, h), device=d_s))
+                pid = torch.tensor([1], device=d_s)
+                for i, (ks, vs) in enumerate(kvs[st * L:(st + 1) * L]):
+                    # [1, page, h, d]
+                    kk = _shard(ks, s)[0].transpose(0, 1)[None].to(d_s)
+                    vv = _shard(vs, s)[0].transpose(0, 1)[None].to(d_s)
+                    kr[i, pid] = kk.to(ref_dt)
+                    vr[i, pid] = vv.to(ref_dt)
+                    quant.paged_quant_write_pages(kq[0], kq[1], i, pid, kk)
+                    quant.paged_quant_write_pages(vq[0], vq[1], i, pid, vv)
+                refs[-1].append((kr, vr))
+                quants[-1].append((kq, vq))
         table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
         tok = logits.argmax(dim=-1)
         pos = torch.tensor([page], device=dev)
@@ -483,10 +656,10 @@ class DecodeEngine:
                                   v_scales=vp[1][layer])
             return out.to(q.dtype), cache
 
-        lg_ref, _ = model.decode_step(self._params, TPShards(refs), tok, pos,
-                                      attend=attend_ref)
-        lg_q, _ = model.decode_step(self._params, TPShards(quants), tok, pos,
-                                    attend=attend_q)
+        lg_ref, _ = self._lm.decode_step(self._params, self._cache(refs),
+                                         tok, pos, attend=attend_ref)
+        lg_q, _ = self._lm.decode_step(self._params, self._cache(quants),
+                                       tok, pos, attend=attend_q)
         err = float((lg_q.float() - lg_ref.float()).abs().max())
         self._kv_quant_error = err
         self.metrics.gauge("decode/kv_quant_error", err)
@@ -562,23 +735,19 @@ class DecodeEngine:
                                            generator=self._gens[slots[i]])[0]
         return tok.cpu().numpy()
 
-    def _decode(self, token: np.ndarray, pos: np.ndarray,
-                table: np.ndarray) -> torch.Tensor:
-        """One token for every lane: write each lane's new K/V row into its
-        page, attend over the pool through the page table; returns logits
-        [num_slots, vocab] f32."""
-        dev, page = self.device, self.page_size
-        token_t = torch.as_tensor(token, device=dev)
-        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=dev)
-        table_t = torch.as_tensor(table, dtype=torch.int32, device=dev)
-        bidx = torch.arange(self.num_slots, device=dev)
+    def _decode_attend(self, pos_t: torch.Tensor, table_t: torch.Tensor):
+        """The decode step's ``attend`` for lanes at ``pos_t`` over the
+        table rows ``table_t``: write each lane's new K/V row into its page,
+        attend over the pool through the table."""
+        page = self.page_size
+        bidx = torch.arange(pos_t.shape[0], device=pos_t.device)
         page_ids = table_t[bidx, pos_t // page].long()
         off = pos_t % page
         lengths = (pos_t + 1).to(torch.int32)
 
         def attend(layer, q, k_new, v_new, cache, _pos):
             kp, vp = cache
-            d = q.device      # a tp shard's device
+            d = q.device      # a tp shard's (a stage's) device
             pid, of = page_ids.to(d), off.to(d)
             self._kv_rows(kp, layer, pid, of, k_new)
             self._kv_rows(vp, layer, pid, of, v_new)
@@ -586,8 +755,20 @@ class DecodeEngine:
                                   lengths.to(d))
             return out.to(q.dtype), cache
 
-        logits, _ = self.model.decode_step(
-            self._params, self._pools(), token_t, pos_t, attend=attend)
+        return attend
+
+    def _decode(self, token: np.ndarray, pos: np.ndarray,
+                table: np.ndarray) -> torch.Tensor:
+        """One token for every lane: write each lane's new K/V row into its
+        page, attend over the pool through the page table; returns logits
+        [num_slots, vocab] f32."""
+        dev = self.device
+        token_t = torch.as_tensor(token, device=dev)
+        pos_t = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+        table_t = torch.as_tensor(table, dtype=torch.int32, device=dev)
+        logits, _ = self._lm.decode_step(
+            self._params, self._pools(), token_t, pos_t,
+            attend=self._decode_attend(pos_t, table_t))
         return logits
 
     def _prefill_bucket(self, ids: np.ndarray, n: int,
@@ -596,12 +777,14 @@ class DecodeEngine:
         into ``page_ids`` (pads -> scratch page 0). Returns [1, vocab]."""
         dev, page = self.device, self.page_size
         npages = ids.shape[1] // page
-        logits, kvs = self.model.prefill(
+        logits, kvs = self._lm.prefill(
             self._params, torch.as_tensor(ids, device=dev),
             lengths=torch.as_tensor([n], device=dev))
         pid = torch.as_tensor(page_ids, dtype=torch.int64, device=dev)
-        for i, (ks, vs) in enumerate(kvs):
-            for s, (kp, vp) in enumerate(self._shard_pools):
+        for layer, (ks, vs) in enumerate(kvs):
+            # a stage's pools hold its layers, at stage-local indices
+            st, i = divmod(layer, self._per)
+            for s, (kp, vp) in enumerate(self._stage_pools[st]):
                 k, v = _shard(ks, s), _shard(vs, s)
                 # [1, heads, bucket, d] -> [npages, page, heads, d]
                 kk = k[0].transpose(0, 1).reshape(npages, page, k.shape[1],
@@ -649,7 +832,7 @@ class DecodeEngine:
             out = torch.einsum("hcl,lhd->hcd", p, hv)
             return out[None].to(q.dtype), cache
 
-        logits, _ = model.prefill_suffix(
+        logits, _ = self._lm.prefill_suffix(
             self._params, torch.as_tensor(ids, device=dev),
             torch.as_tensor([start], device=dev), self._pools(), attend,
             lengths=torch.as_tensor([valid], device=dev))
@@ -685,7 +868,7 @@ class DecodeEngine:
                                       lengths.to(d))
                 return out.to(q.dtype), cache
 
-            logits, _ = self.model.decode_step(
+            logits, _ = self._lm.decode_step(
                 self._params, pools, tok, pos, attend=attend,
                 num_layers=self.draft_layers)
             tok = logits.argmax(dim=-1)
@@ -752,7 +935,7 @@ class DecodeEngine:
                                          start32.to(d))
             return out.to(q.dtype), cache
 
-        logits, _ = self.model.decode_verify(
+        logits, _ = self._lm.decode_verify(
             self._params, ids, start, self._pools(), attend)
         return logits
 
@@ -918,7 +1101,13 @@ class DecodeEngine:
         prefill advances one chunk here, before a plain decode step (the
         speculative path stands down for that iteration); a slot whose final
         chunk just committed contributes its *first* token. No-op (empty
-        dict) when nothing is active."""
+        dict) when nothing is active.
+
+        With wave scheduling on (``pp_wave`` under a pp mesh) each call is
+        one pipeline *tick*: roughly ``1/pp`` of the slots emit a token a
+        call and a slot's next token arrives ``pp`` ticks after its entry.
+        A pending chunked prefill drains the waves first, then runs the
+        single-wave step."""
         with self._lock, torch.inference_mode():
             if self._pending_swap is not None:
                 self._maybe_swap_locked()  # lands iff fully drained
@@ -926,11 +1115,21 @@ class DecodeEngine:
             ready = np.asarray([int(s) for s in active
                                 if self._decode_ready[s]], np.int64)
             state = self._pending[0] if self._pending else None
+            if self._pp_wave and state is None:
+                return self._wave_step_locked(ready)
             if ready.size == 0 and state is None:
                 return {}
             if self.spec_k and state is None:
                 return self._spec_step_locked(ready)
             t0 = time.perf_counter()
+            pre: Dict[int, List[int]] = {}
+            if self._pp_wave:
+                # the chunk step runs the single-wave schedule: every
+                # in-flight token lands before new page room is appended
+                pre = self._drain_waves_locked()
+                ready = np.asarray(
+                    [int(s) for s in self.kv.active_slots()
+                     if self._decode_ready[s]], np.int64)
             # the incoming token occupies position == current length: make
             # sure its page exists, then pass the PRE-append position
             for s in ready:
@@ -998,6 +1197,110 @@ class DecodeEngine:
             self.metrics.observe("serving/decode/step_active",
                                  int(ready.size))
             self.metrics.observe("serving/decode/token_latency_ms", dt_ms)
+            for sl, ts in pre.items():
+                # tokens harvested while draining the waves come first
+                out[sl] = ts + out.get(sl, [])
+        return out
+
+    # -- wave scheduling (pp_wave) --------------------------------------------
+
+    def _wave_step_locked(self, ready: np.ndarray) -> Dict[int, List[int]]:
+        """One wave tick: admit this tick's entry wave (append page room for
+        its ready slots), run every stage on its own wave and harvest the
+        exit wave. A slot's wave is fixed by its lane (``slot //
+        (num_slots / pp)``), so a freshly admitted slot waits at most ``pp -
+        1`` ticks for its entry turn."""
+        inflight = any(self._wave_inflight[w] for w in range(self._pp))
+        if ready.size == 0 and not inflight:
+            return {}
+        t0 = time.perf_counter()
+        W = self.num_slots // self._pp
+        wn = self._tick % self._pp
+        entry = [int(s) for s in ready if wn * W <= int(s) < (wn + 1) * W]
+        for s in entry:
+            self.kv.append(s)
+        self._wave_inflight[wn] = entry
+        with obs_span("serving/decode_wave_tick",
+                      args={"tick": int(self._tick), "entry": len(entry)},
+                      profiler_annotation=True):
+            out = self._run_tick_locked()
+        self._steps += 1
+        dt_ms = (time.perf_counter() - t0) * 1000.0
+        self.metrics.observe("serving/decode/step_ms", dt_ms)
+        self.metrics.observe("serving/decode/step_active", int(ready.size))
+        for _ in out:
+            self.metrics.observe("serving/decode/token_latency_ms", dt_ms)
+        return out
+
+    def _run_tick_locked(self) -> Dict[int, List[int]]:
+        """One tick over the in-flight waves: stage ``s`` runs wave ``(t -
+        s) mod pp`` — stage 0 embeds its wave's tokens, every other stage
+        continues the activation its predecessor left last tick — and the
+        last stage's wave is sampled and harvested. A stage whose wave is
+        empty does nothing. The operands are rebuilt every tick, which is
+        safe mid-flight: a slot's length, table row and token change only
+        at its entry (append) and its harvest (sample)."""
+        B, PP = self.num_slots, self._pp
+        W = B // PP
+        t = self._tick
+        inflight = sorted({s for lst in self._wave_inflight.values()
+                           for s in lst})
+        mask = np.zeros(B, bool)
+        mask[inflight] = True
+        lengths = self.kv.lengths()
+        pos = np.maximum(lengths - 1, 0).astype(np.int64)
+        pos[~mask] = 0
+        table = self.kv.page_tables().copy()
+        table[~mask] = 0
+        token = np.where(mask, self._last_token, 0).astype(np.int64)
+        model, cache = self.model, self._pools()
+        carry: List[Optional[torch.Tensor]] = [None] * PP
+        logits = None
+        for s in range(PP):
+            w = (t - s) % PP
+            if not self._wave_inflight[w]:
+                continue
+            st = self._params[s]
+            dev = st["device"]
+            lanes = slice(w * W, (w + 1) * W)
+            pos_t = torch.as_tensor(pos[lanes], device=dev)
+            table_t = torch.as_tensor(table[lanes], dtype=torch.int32,
+                                      device=dev)
+            x = (model.decode_embed(st["shared"], torch.as_tensor(
+                token[lanes], device=dev), pos_t) if s == 0
+                 else self._x_carry[s - 1].to(dev))
+            attend = self._decode_attend(pos_t, table_t)
+            for j, bp in enumerate(st["blocks"]):
+                x, _ = model.block_decode(bp, x, j, cache[s], pos_t, attend)
+            if s == PP - 1:
+                logits = model.decode_head(st["shared"], x).to(self.device)
+            else:
+                carry[s] = x
+        self._x_carry = carry
+        we = (t - (PP - 1)) % PP
+        self._tick += 1
+        exit_slots = self._wave_inflight[we]
+        self._wave_inflight[we] = []
+        out: Dict[int, List[int]] = {}
+        if exit_slots:
+            rows = torch.as_tensor([s - we * W for s in exit_slots],
+                                   device=self.device)
+            toks = self._sample(logits[rows], exit_slots,
+                                self._temp[exit_slots],
+                                self._topk[exit_slots])
+            for s, tk in zip(exit_slots, toks):
+                self._last_token[s] = tk
+                out[s] = [int(tk)]
+            self._tokens_out += len(exit_slots)
+        return out
+
+    def _drain_waves_locked(self) -> Dict[int, List[int]]:
+        """Tick the pipeline with no new entries until every in-flight wave
+        has been harvested (at most ``pp - 1`` ticks)."""
+        out: Dict[int, List[int]] = {}
+        while any(self._wave_inflight[w] for w in range(self._pp)):
+            for s, ts in self._run_tick_locked().items():
+                out.setdefault(s, []).extend(ts)
         return out
 
     def _spec_step_locked(self, ready: np.ndarray) -> Dict[int, List[int]]:
@@ -1119,6 +1422,9 @@ class DecodeEngine:
 
     def _release_locked(self, slot: int) -> None:
         self.kv.free(slot)
+        for w in self._wave_inflight:
+            self._wave_inflight[w] = [s for s in self._wave_inflight[w]
+                                      if s != slot]
         self._pending = [st for st in self._pending if st["slot"] != slot]
         self._decode_ready[slot] = False
         self._last_token[slot] = 0
@@ -1185,7 +1491,13 @@ class DecodeEngine:
             from ..parallel.tp import shard_bytes
             kv_bytes = sum(t.numel() * t.element_size()
                            for t in self._pool_tensors(self._shard_pools[:1]))
-            param_bytes = shard_bytes(self._params)
+            if self._pp > 1:
+                st = self._params[0]   # a device: stage 0's shard 0
+                param_bytes = shard_bytes(dict(
+                    st["shared"], **{f"b{j}": bp for j, bp in
+                                     enumerate(st["blocks"])}))
+            else:
+                param_bytes = shard_bytes(self._params)
             return {
                 "num_slots": self.num_slots,
                 "prefill_buckets": list(self.prefill_buckets),
@@ -1226,9 +1538,9 @@ class DecodeEngine:
                 "kv": self.kv.stats(),
                 "parallel": {"mesh": (dict(self.mesh.shape)
                                       if self.mesh is not None else None),
-                             "tp": self._tp, "ep": 1, "pp": 1,
-                             "stages": 1, "pp_wave": False,
-                             "wave_ticks": 0,
+                             "tp": self._tp, "ep": 1, "pp": self._pp,
+                             "stages": self._pp, "pp_wave": self._pp_wave,
+                             "wave_ticks": self._tick,
                              "kv_bytes_per_device": kv_bytes,
                              "param_bytes_per_device": param_bytes},
             }

@@ -54,9 +54,11 @@ row-parallel biases are added once. ``stats()`` reports ``tp`` and the bytes one
 holds. As in JAX, ``quantize`` together with ``tp`` is refused, and so is
 a ``tp_axis`` for a model without ``param_pspecs``. JAX's
 ``sharded_attention`` context needs no counterpart: each shard already
-holds its own heads. Not yet ported, refused with a ``ValueError`` naming
-ROADMAP.md queue 1 item 7: ``ep_axis`` / ``pp_axis``, and a mesh axis other
-than the batch, tp and fsdp axes (an ``fsdp`` axis holds whole copies).
+holds its own heads. An active ``pp_axis`` is refused with the JAX
+engine's ``ValueError`` (depth-sharded models serve through
+``DecodeEngine``). Not yet ported, refused with a ``ValueError`` naming
+ROADMAP.md queue 1 item 7: ``ep_axis``, and a mesh axis other than the
+batch, tp and fsdp axes (an ``fsdp`` axis holds whole copies).
 """
 
 from __future__ import annotations
@@ -143,8 +145,8 @@ class InferenceEngine:
         in place of ``ops/_build/`` or ``SPARKFLOW_TORCH_KERNEL_DIR``.
     mesh, sharding
         Data-parallel serving over weight copies, split into tensor-parallel
-        shards under ``tp`` (see the module docstring); ``ep`` / ``pp`` are
-        not yet ported.
+        shards under ``tp`` (see the module docstring); ``pp`` is a decode
+        axis (refused, as in JAX) and ``ep`` not yet ported.
     """
 
     def __init__(self, graph, weights=None, *,
@@ -165,10 +167,9 @@ class InferenceEngine:
                  device=None):
         from ..sharding import as_sharding_config
         self.sharding = as_sharding_config(sharding)
-        if (self.sharding.ep_axis is not None
-                or self.sharding.pp_axis is not None):
-            _not_yet(f"sharding={sharding!r}", "expert / pipeline-parallel "
-                     "serving, queue 1 item 7")
+        if self.sharding.ep_axis is not None:
+            _not_yet(f"sharding={sharding!r}", "expert-parallel serving, "
+                     "queue 1 item 7")
         if self.sharding.tp_axis is not None and mesh is None:
             raise ValueError("sharding names tp_axis but no mesh was given; "
                              "pass mesh= to InferenceEngine")
@@ -179,6 +180,15 @@ class InferenceEngine:
             self.mesh = as_mesh(mesh)
             # a typo'd axis fails here, not on the first request
             self.sharding.validate(self.mesh, require_data_axis=False)
+            if (self.sharding.pp_axis is not None
+                    and int(self.mesh.shape.get(self.sharding.pp_axis, 1))
+                    > 1):
+                raise ValueError(
+                    "pp_axis is a decode-plane axis: the single-shot "
+                    "predict engine has no token cadence to hide pipeline "
+                    "bubbles behind. Serve depth-sharded models through "
+                    "DecodeEngine (serving/decode.py), or drop pp_axis "
+                    "from this engine's sharding config.")
             try:
                 dp, tp_axis, tp = serving_layout(self.mesh, self.sharding)
             except NotImplementedError as e:

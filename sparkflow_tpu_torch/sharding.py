@@ -23,10 +23,13 @@ package's ``sharding.py``.
   refreshed behind each step (the trainer's ``_OffloadMirror``);
 - ``tp_axis`` — the tensor-parallel axis of the serving engines (the
   trainer's tp axis is the mesh's ``tp``, as in JAX);
-- ``param_axes``, ``ep_axis`` / ``pp_axis`` — parsed and validated with the
-  JAX package's rules and messages; a fit or engine that activates
-  ``ep_axis`` / ``pp_axis`` or an explicit ``param_axes`` pytree raises "not
-  yet ported" (ROADMAP queue 1, item 7).
+- ``pp_axis`` — the pipeline axis of the decode engine (the trainer's pp
+  axis is the mesh's ``pp``, as in JAX; the predict engine refuses an
+  active one with JAX's message);
+- ``param_axes``, ``ep_axis`` — parsed and validated with the JAX
+  package's rules and messages; a fit or engine that activates
+  ``ep_axis`` or an explicit ``param_axes`` pytree raises "not yet ported"
+  (ROADMAP queue 1, item 7).
 
 In the port a rank holds plain local tensors, so there are no
 ``NamedSharding`` objects: :meth:`ShardingConfig.data_spec` and

@@ -43,9 +43,13 @@ script keeps its top-level code under ``if __name__ == "__main__":``.
 ``meshShape="dp=N"`` on the model stage serves each partition over N weight
 copies in this process (the serving rule of ``parallel/mesh.py``); its
 other axes are refused with the JAX package's message.
+A ``pp`` axis (``"pp=2"``, ``"dp=2,pp=2"``) trains the registry
+transformers through the Trainer's pipeline under ``ppSchedule``
+(``"gpipe"``, ``"1f1b"`` or ``"sequential"``) and ``ppMicrobatches``
+(unset or < 1: the Trainer's rule), in ``fitMode="collect"`` only — the
+JAX package's rules and messages; the fitted model serves without a mesh.
 Refused before any training with "not yet ported (see ROADMAP.md, queue 1
-item 7)": ``pp`` / ``ep`` axes and non-default ``ppMicrobatches`` /
-``ppSchedule``.
+item 7)": an ``ep`` axis.
 
 Also importable as :mod:`sparkflow_tpu_torch.tensorflow_async`.
 """
@@ -268,10 +272,10 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
     # the JAX package's upgrades over the reference param set, all kept so
     # persisted stages keep their shape: weightsPath (npz side-file weights),
     # extraInputCols/extraTfInputs (multi-input feeds), useEmaWeights,
-    # checkpointDir/checkpointEvery, fitMode='stream', dp / sp meshShape
-    # and weightUpdateSharding/zeroStage are ported; ppMicrobatches /
-    # ppSchedule and model-parallel axes are refused (see the module
-    # docstring)
+    # checkpointDir/checkpointEvery, fitMode='stream', dp / sp / tp / fsdp /
+    # pp meshShape with ppMicrobatches / ppSchedule and
+    # weightUpdateSharding/zeroStage are ported; an ep axis is refused (see
+    # the module docstring)
     weightsPath = Param(Params._dummy(), "weightsPath", "", typeConverter=TypeConverters.toString)
     checkpointDir = Param(Params._dummy(), "checkpointDir", "", typeConverter=TypeConverters.toString)
     checkpointEvery = Param(Params._dummy(), "checkpointEvery", "", typeConverter=TypeConverters.toInt)
@@ -509,13 +513,9 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
             raise ValueError(
                 "zeroStage must be -1 (unset) or 0-3; got %r" % zs)
         for ax in (mesh_axes or {}):
-            if ax in ("pp", "ep"):
+            if ax == "ep":
                 _not_yet(f"training on a mesh with a {ax!r} axis "
                          f"(meshShape)")
-        pp_mb = _opt_param(self, self.ppMicrobatches, -1)
-        if (pp_mb is not None and pp_mb >= 1) or sched != "gpipe":
-            _not_yet("pipeline-parallel training (ppMicrobatches, "
-                     "ppSchedule)")
         if self.getOrDefault(self.useEmaWeights):
             # fail BEFORE training, not after hours of fit: the EMA only
             # exists when the optimizer maintains it
@@ -612,6 +612,10 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
             checkpoint_dir=self.getOrDefault(self.checkpointDir),
             checkpoint_every=self.getOrDefault(self.checkpointEvery) or 0,
             mesh=self._mesh(mesh_axes),
+            pp_microbatches=(None if (_opt_param(self, self.ppMicrobatches,
+                                                 -1) or -1) < 1
+                             else _opt_param(self, self.ppMicrobatches)),
+            pp_schedule=_opt_param(self, self.ppSchedule, "gpipe") or "gpipe",
             weight_update_sharding=(_opt_param(self, self.weightUpdateSharding,
                                                "auto") or "auto"),
             sharding=self._sharding_config(),

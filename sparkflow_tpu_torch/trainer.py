@@ -108,10 +108,24 @@ and ``publish_to`` always carry the standard, gathered, unpacked layout, so
 a tp or fsdp checkpoint resumes a dp fit, a one-card fit and a JAX fit, and
 the other way round.
 
+Pipeline parallelism (a mesh with a ``pp`` axis, composed with ``dp``
+only, in ``fit``, launched or in place; ``fit_stream`` refuses it, as in
+JAX): the JAX trainer's rules and messages decide the task (``lm``
+without labels, ``classifier`` with one input) and the microbatches
+(``pp_microbatches``, default the first of 8, 4, 2, 1 that divides a dp
+replica's rows); the dataset is trimmed to whole batches. Each rank keeps
+its stage's blocks and the shared leaves (:class:`~.parallel.pp.
+StagePlacement`) before the optimizer's init and trains through
+:func:`~.parallel.pp.make_pp_train_step` under ``pp_schedule``
+(``"gpipe"``, ``"1f1b"`` or ``"sequential"``). Checkpoints hold the
+stacked stage layout, as the JAX pp fit writes them; a fit reading a
+checkpoint of the other layout (a pp fit's on one card, one card's in a pp
+fit) relays it out. ``TrainResult.params``, ``weights_list()``,
+``publish_to`` and ``ema_weights()`` carry the standard layout.
+
 Not ported yet, and rejected with "not yet ported (see ROADMAP.md, queue 1
-item 7)": ``ep`` / ``pp`` mesh axes (and ``ep_axis`` / ``pp_axis`` in
-``sharding``), explicit ``param_sharding`` / ``param_axes`` pytrees,
-``pp_*``. ``debug_recompiles`` has
+item 7)": ``ep`` mesh axes (and ``ep_axis`` in ``sharding``), explicit
+``param_sharding`` / ``param_axes`` pytrees. ``debug_recompiles`` has
 no counterpart: PyTorch runs eagerly, so there are no traces or compiles to
 count. ``graph`` is a registry spec, an ``nn`` graph-DSL spec, a TF1
 ``MetaGraphDef`` JSON (the reference's wire format), a
@@ -160,9 +174,8 @@ def _not_yet(what: str):
                               f"ROADMAP.md, queue 1 item 7)")
 
 
-#: mesh axes whose strategies are not yet ported (expert and pipeline
-#: parallelism)
-_UNPORTED_AXES = {"ep": "expert parallelism", "pp": "pipeline parallelism"}
+#: mesh axes whose strategies are not yet ported (expert parallelism)
+_UNPORTED_AXES = {"ep": "expert parallelism"}
 
 
 def _sync(dev: torch.device) -> None:
@@ -366,6 +379,18 @@ class _FitState:
         mesh = tr.mesh
         params = tr._initial_params(init_params)
         tr._placement = None
+        tr._stages = None
+        if strategy == "pp":
+            # this rank's stage BEFORE the optimizer's init, so its state
+            # tracks the stage layout
+            from .parallel.pp import StagePlacement, split_stage_params
+            tr._stages = StagePlacement(tr.model, mesh, params)
+            with torch.no_grad():
+                params = tr._params_from_ckpt(split_stage_params(
+                    tr.model, tree_map(lambda p: p.detach(), params),
+                    mesh.shape["pp"]))
+            for p in tree_leaves(tr.model.params()):
+                p.data = p.data.new_empty(0)
         if tr._pspecs is not None:
             # tp / fsdp: this rank's slices BEFORE the optimizer's init, so
             # its state inherits the placement
@@ -416,7 +441,8 @@ class _FitState:
         if self.mirror is not None:
             from .parallel.distributed import current_backend
             host = self.mirror.read()
-            gathers = self.tr._zero1_active or self.tr._placement is not None
+            gathers = (self.tr._zero1_active or self.tr._placement is not None
+                       or self.tr._stages is not None)
             if host is not None and (not gathers
                                      or current_backend() == "gloo"):
                 return host
@@ -467,7 +493,16 @@ class _FitState:
         params = self.params
         host = self.mirror.read() if self.mirror is not None else None
         opt_state = self.opt_state if host is None else host
-        if tr._placement is not None:
+        if tr._stages is not None:
+            # pp: the standard layout of both (collectives)
+            from .parallel.pp import merge_stage_state
+            stacked = tr._opt_to_ckpt(None, self._opt_at_rest())
+            opt_state = merge_stage_state(tr.optimizer, tr.model,
+                                          tr._stages.ckpt_template, stacked)
+            params = tr.model.load_params(
+                tree_map(lambda p: p.clone(), tr._std_params(params)),
+                trainable=True)
+        elif tr._placement is not None:
             # tp / fsdp: the standard layout of both (collectives)
             params = tr._params_to_ckpt(params)
             opt_state = tr._opt_to_ckpt(params, self._opt_at_rest())
@@ -476,6 +511,24 @@ class _FitState:
             params = tr.model.load_params(tr._params_to_ckpt(params),
                                           trainable=True)
         return tree_map(lambda p: p.detach(), params), opt_state
+
+
+def _ckpt_stages(mgr) -> Optional[int]:
+    """The layout of the newest checkpoint under ``mgr``: its number of
+    pipeline stages (a pp fit's stacked layout), 0 for the standard layout,
+    None when there is none or its manifest lists no leaf paths (a JAX npz
+    checkpoint, read in this fit's own layout)."""
+    step = mgr.latest_step()
+    paths = (mgr._manifest(step) or {}).get("leaves") if step is not None \
+        else None
+    if not paths:
+        return None
+    for i, p in enumerate(paths):
+        if list(p[:2]) == ["params", "stages"]:
+            from .checkpoint import STATE_NAME
+            with np.load(os.path.join(mgr._step_dir(step), STATE_NAME)) as z:
+                return int(z[f"l_{i}"].shape[0])
+    return 0
 
 
 def _host_tree(tree):
@@ -602,9 +655,11 @@ class Trainer:
         if param_sharding not in ("auto", None):
             _not_yet("explicit param_sharding pytrees (tensor / fsdp "
                      "placement)")
-        if pp_microbatches is not None or pp_schedule != "gpipe":
-            _not_yet("pipeline-parallel training (pp_microbatches, "
-                     "pp_schedule)")
+        # pipeline-parallel fits ('pp' mesh axis): microbatches per batch
+        # (None: the deepest of 8, 4, 2, 1 dividing a dp replica's rows) and
+        # the schedule ('gpipe' | '1f1b' | 'sequential', parallel/pp.py)
+        self.pp_microbatches = pp_microbatches
+        self.pp_schedule = pp_schedule
         if weight_update_sharding not in ("auto", "on", "off"):
             raise ValueError(
                 f"weight_update_sharding must be 'auto', 'on', or 'off'; "
@@ -616,9 +671,8 @@ class Trainer:
         self.sharding = (as_sharding_config(sharding)
                          if sharding is not None else None)
         if self.sharding is not None:
-            if (self.sharding.ep_axis is not None
-                    or self.sharding.pp_axis is not None):
-                _not_yet("model-parallel sharding axes (ep_axis, pp_axis)")
+            if self.sharding.ep_axis is not None:
+                _not_yet("model-parallel sharding axes (ep_axis)")
             if self.sharding.param_axes not in ("auto", None):
                 _not_yet("explicit ShardingConfig.param_axes pytrees")
         # a mesh fit's collective backend: None picks by the rule of
@@ -631,6 +685,10 @@ class Trainer:
         # resolved per fit, and this rank's placement under it
         self._pspecs = None
         self._placement = None
+        # a pp fit's stage placement (parallel.pp.StagePlacement) and its
+        # schedule's serial span (schedule_ticks)
+        self._stages = None
+        self._pp_ticks = None
         self._zero3_template = None   # standard param shapes, stage-3 fits
         self.last_mesh_stats: Optional[Dict[str, Any]] = None
         self._launch_ema = None
@@ -719,6 +777,7 @@ class Trainer:
             checkpoint_every=checkpoint_every, publish_every=publish_every,
             straggler_factor=straggler_factor, halt_on_nan=halt_on_nan,
             param_sharding=param_sharding,
+            pp_microbatches=pp_microbatches, pp_schedule=pp_schedule,
             weight_update_sharding=weight_update_sharding,
             sharding=sharding, backend=backend,
             mesh=dict(self.mesh.shape) if self.mesh is not None else None)
@@ -854,10 +913,10 @@ class Trainer:
         """``(params, opt_state, epoch)`` from a restored checkpoint ``state``
         (a tree of ``like``'s structure); sets the generators' states."""
         gen_states = self._check_rng(state["rng"], state["rng_impl"], gens)
-        params = self.model.load_params(tree_map(
-            lambda a: torch.as_tensor(np.asarray(a)).to(
-                self.device, torch.float32, copy=True), state["params"]),
-            trainable=True)
+        params = tree_map(lambda a: torch.as_tensor(np.asarray(a)).to(
+            self.device, torch.float32, copy=True), state["params"])
+        if self._stages is None:
+            params = self.model.load_params(params, trainable=True)
         opt_state = _tree_zip(_state_from_ckpt, like["opt_state"],
                               state["opt_state"])
         for g, st in zip(gens, gen_states):
@@ -873,10 +932,49 @@ class Trainer:
         from .checkpoint import CheckpointManager
         mgr = CheckpointManager(self.checkpoint_dir)
         like = self._ckpt_state(params, opt_state, 0, gens)
-        state = mgr.restore(like=like)
+        theirs = _ckpt_stages(mgr)
+        if theirs is not None and (theirs > 0) != (self._stages is not None):
+            state = self._restore_relayout(mgr, like, theirs)
+        else:
+            state = mgr.restore(like=like)
         if state is None:
             return mgr, like, None
         return mgr, like, self._restore(state, like, gens)
+
+    def _restore_relayout(self, mgr, like, theirs: int):
+        """A checkpoint of the other layout, read and relaid out into
+        ``like``'s: a pp fit's stacked stages (``theirs`` stages) into the
+        standard layout, or the standard layout into this pp fit's stacked
+        stages (``theirs`` 0)."""
+        from .parallel.pp import (merge_stage_params, merge_stage_state,
+                                  split_stage_params, split_stage_state)
+        meta = tree_map(lambda p: torch.empty(tuple(np.shape(p)),
+                                              device="meta"), like["params"])
+        if theirs:
+            std_t = meta
+            other_p = split_stage_params(self.model, std_t, theirs)
+            other_o = split_stage_state(self.optimizer, self.model, std_t,
+                                        like["opt_state"], theirs)
+        else:
+            other_p = merge_stage_params(self.model, meta)
+            other_o = merge_stage_state(self.optimizer, self.model, meta,
+                                        like["opt_state"])
+        state = mgr.restore(like=dict(like, params=other_p,
+                                      opt_state=other_o))
+        if state is None:
+            return None
+        if theirs:
+            stage_t = split_stage_params(self.model, meta, theirs)
+            params = merge_stage_params(self.model, state["params"])
+            opt = merge_stage_state(self.optimizer, self.model, stage_t,
+                                    state["opt_state"])
+        else:
+            std_t = merge_stage_params(self.model, meta)
+            n = self.mesh.shape["pp"]
+            params = split_stage_params(self.model, state["params"], n)
+            opt = split_stage_state(self.optimizer, self.model, std_t,
+                                    state["opt_state"], n)
+        return dict(state, params=params, opt_state=opt)
 
     # -- fit ----------------------------------------------------------------
 
@@ -944,6 +1042,16 @@ class Trainer:
 
     def _mesh_strategy(self) -> str:
         axes = self.mesh.axis_names
+        if "pp" in axes and "sp" in axes:
+            raise ValueError(
+                "a Trainer mesh cannot combine 'pp' and 'sp' axes; pick "
+                "one strategy per fit (pipeline xor sequence parallelism)")
+        if "pp" in axes:
+            bad = [a_ for a_ in axes if a_ not in ("pp", "dp")]
+            if bad:
+                raise ValueError(
+                    f"'pp' composes with 'dp' only; mesh also has {bad}")
+            return "pp"
         if "sp" in axes:
             bad = [a for a in axes if a not in ("sp", "dp")]
             if bad:
@@ -953,14 +1061,34 @@ class Trainer:
         return "default"
 
     def _strategy_task(self, strategy: str) -> str:
-        """Validate the model/mesh/label combination for an sp fit and
-        return the step's task (the JAX trainer's rules)."""
+        """Validate the model/mesh/label combination for a pp or sp fit and
+        return the step's task, ``"classifier"`` or ``"lm"`` (the JAX
+        trainer's rules)."""
+        m = self.model
         n_inputs = (len(self.input_name)
                     if isinstance(self.input_name, (list, tuple)) else 1)
+        if strategy == "pp" and self.label_name is not None and n_inputs != 1:
+            raise ValueError(
+                "pp classifier fits take exactly one input tensor (the "
+                "token ids); the pipeline step has no attention-mask path — "
+                "extra inputs would be silently ignored, so refuse instead")
         if n_inputs > 2:
             raise ValueError(
                 f"{strategy} fits take at most (input_ids, attention_mask); "
                 f"got {n_inputs} input tensors")
+        if strategy == "pp":
+            if not (hasattr(m, "num_layers") and hasattr(m, "_block")):
+                raise ValueError(
+                    f"meshShape with a 'pp' axis trains the registry "
+                    f"transformer families (stage-shardable blocks); "
+                    f"{type(m).__name__} has no block structure to "
+                    f"pipeline — use dp/fsdp for nn-DSL graphs")
+            n_stages = self.mesh.shape["pp"]
+            if m.num_layers % n_stages:
+                raise ValueError(
+                    f"num_layers={m.num_layers} does not divide into "
+                    f"pp={n_stages} pipeline stages")
+            return "lm" if self.label_name is None else "classifier"
         from .models.transformer import TransformerLM
         if not isinstance(self.model, TransformerLM):
             raise ValueError(
@@ -984,10 +1112,10 @@ class Trainer:
 
     def _batch_axes(self) -> tuple:
         """The mesh axes a batch's rows shard over: the config's (dcn, dp)
-        on the default strategy, ``dp`` under sp."""
+        on the default strategy, ``dp`` under pp and sp."""
         if self.mesh is None:
             return ()
-        if self._mesh_strategy() == "sp":
+        if self._mesh_strategy() in ("pp", "sp"):
             return tuple(a for a in ("dp",) if a in self.mesh.axis_names)
         return (self.sharding or ShardingConfig()).batch_axes(self.mesh)
 
@@ -1174,6 +1302,8 @@ class Trainer:
                 return raw(p, o, x, y, m, _draw_seed(gen))
 
             return step_fn, rows
+        if strategy == "pp":
+            return self._pp_step(task, batch, count), rows
         from .parallel.sp import make_sp_train_step
         sp = mesh.shape["sp"]
         j = axis_index("sp")
@@ -1192,6 +1322,40 @@ class Trainer:
 
         return step_fn, rows
 
+    def _pp_microbatches(self, batch: int, dp: int) -> int:
+        """Microbatches a pp batch splits into: ``pp_microbatches``, or the
+        deepest of 8, 4, 2, 1 dividing a dp replica's rows (JAX's rule and
+        message)."""
+        per_dp = batch // max(dp, 1)
+        M = self.pp_microbatches
+        if M is None:
+            # auto: the deepest power-of-two microbatching the per-replica
+            # batch supports (bounds the pipeline bubble at fixed memory)
+            return next(m for m in (8, 4, 2, 1) if per_dp % m == 0)
+        if per_dp % M:
+            raise ValueError(
+                f"pp_microbatches={M} must divide the per-dp-replica "
+                f"batch {per_dp}")
+        return M
+
+    def _pp_step(self, task: str, batch: int, dp: int):
+        """The pp epoch's step (microbatches by :meth:`_pp_microbatches`),
+        the attention mask as the lm task's token weights."""
+        from .parallel.pp import make_pp_train_step
+        M = self._pp_microbatches(batch, dp)
+        raw = make_pp_train_step(self.model, self.optimizer, self.mesh,
+                                 n_microbatches=M, schedule=self.pp_schedule,
+                                 task=task)
+        self._pp_ticks = raw.schedule_ticks
+
+        def step_fn(p, o, x, y, m, gen):
+            ids = x[0] if isinstance(x, tuple) else x
+            # the lm task takes the attention mask as token loss weights
+            y_eff = x[1] if task == "lm" and isinstance(x, tuple) else y
+            return raw(p, o, ids, y_eff, _draw_seed(gen))
+
+        return step_fn
+
     def _stop_requested(self, guard) -> bool:
         """The preemption flag, or a launched rank's "stop" from its caller;
         on a mesh, raised on any rank stops every rank at the same epoch
@@ -1207,8 +1371,12 @@ class Trainer:
     # -- layouts: the standard (checkpoint) form and the rank's form --------
 
     def _params_to_ckpt(self, params):
-        """Standard-layout params (stage 3 gathers every rank's rows, a tp /
-        fsdp fit every rank's slices: a collective)."""
+        """The checkpoint layout of params: the standard one (stage 3
+        gathers every rank's rows, a tp / fsdp fit every rank's slices),
+        or a pp fit's stacked stages (every rank's stage): a collective."""
+        if self._stages is not None:
+            with torch.no_grad():
+                return self._stages.to_ckpt(params)
         if self._placement is not None:
             with torch.no_grad():
                 return self._placement.gather(
@@ -1220,10 +1388,27 @@ class Trainer:
                            self._dp_size(), self._data_axis())
         return gather_zero3_params(rows, self._zero3_template)
 
+    def _std_params(self, params):
+        """Standard-layout params from this rank's (a collective on a
+        mesh that shards them)."""
+        out = self._params_to_ckpt(params)
+        if self._stages is not None:
+            from .parallel.pp import merge_stage_params
+            out = merge_stage_params(self.model, out)
+        return out
+
     def _params_from_ckpt(self, params):
-        """Standard params -> this rank's stage-3 rows, or its tp / fsdp
-        slices (trainable, installed on the model), the standard tensors'
-        storage released."""
+        """Checkpoint-layout params -> this rank's stage-3 rows, its tp /
+        fsdp slices (trainable, installed on the model) or its pp stage
+        (trainable), the full tensors' storage released."""
+        if self._stages is not None:
+            with torch.no_grad():
+                local = self._stages.from_ckpt(tree_map(
+                    lambda p: torch.as_tensor(p).detach(), params))
+            for p in tree_leaves(params):
+                if torch.is_tensor(p):
+                    p.data = p.data.new_empty(0)
+            return tree_map(lambda p: p.requires_grad_(True), local)
         if self._placement is not None:
             with torch.no_grad():
                 local = self._placement.place(
@@ -1244,9 +1429,13 @@ class Trainer:
         return tree_map(lambda r: r.requires_grad_(True), rows)
 
     def _opt_to_ckpt(self, params, opt_state):
-        """The standard (param-shaped) optimizer state: a zero fit gathers
-        every rank's rows, a tp / fsdp fit every rank's slices (a
-        collective). ``params`` standard layout."""
+        """The checkpoint layout of the optimizer state: the standard
+        (param-shaped) one — a zero fit gathers every rank's rows, a tp /
+        fsdp fit every rank's slices — or a pp fit's stacked stages (a
+        collective). ``params`` in the checkpoint layout."""
+        if self._stages is not None:
+            with torch.no_grad():
+                return self._stages.state_to_ckpt(self.optimizer, opt_state)
         if self._placement is not None:
             with torch.no_grad():
                 return self._placement.gather_state(self.optimizer,
@@ -1262,7 +1451,9 @@ class Trainer:
     def _opt_from_ckpt(self, params, opt_state):
         """Standard state -> this rank's rows, re-padded for THIS mesh's dp
         size (which may differ from the writing run's); a tp / fsdp fit's
-        slices."""
+        slices; a pp fit's stage."""
+        if self._stages is not None:
+            return self._stages.state_from_ckpt(self.optimizer, opt_state)
         if self._placement is not None:
             return self._placement.place_state(self.optimizer, opt_state)
         if not self._zero1_active:
@@ -1282,7 +1473,8 @@ class Trainer:
         from .parallel.distributed import current_backend
         rank = dist.get_rank()
         moved = collectives.stats()
-        ops = ("all_reduce", "reduce_scatter", "all_gather", "ppermute")
+        ops = ("all_reduce", "reduce_scatter", "all_gather", "ppermute",
+               "pp_hop")
         per_step = max(1, steps)
         now = _launch_counts()
         dev = self.device
@@ -1302,6 +1494,8 @@ class Trainer:
             "epoch_ms": timer.ms() if timer is not None else [],
             "kernel_launches": {k: now[k] - launches0.get(k, 0)
                                 for k in now}}
+        if strategy == "pp":
+            me["schedule_ticks"] = self._pp_ticks
         return {"backend": current_backend(), "mesh": dict(self.mesh.shape),
                 "strategy": strategy, "zero_stage": self._zero_stage,
                 "world": self.mesh.size, "launched": False, "ranks": [me]}
@@ -1468,13 +1662,16 @@ class Trainer:
             # rank starts
             self._pspecs = self._resolve_pspecs()
             self._resolve_zero_stage(strategy, None)
+            if strategy != "default":
+                # pp / sp steps have no padded-row masking: every batch must
+                # be all-real rows, so the dataset is trimmed to whole
+                # batches (here, so launched ranks get the trimmed rows)
+                features, labels, n = self._trim_for_strategy(
+                    strategy, features, labels, n, multi)
+            if strategy == "pp":
+                self._pp_microbatches(self._plan(n)[1], self._batch_ranks())
             if not _in_group():
                 return self._fit_launched(features, labels, init_params)
-        if strategy != "default":
-            # sp steps have no padded-row masking: every batch must be
-            # all-real rows, so the dataset is trimmed to whole batches
-            features, labels, n = self._trim_for_strategy(
-                strategy, features, labels, n, multi)
 
         mode, batch, num_batches = self._plan(n)
         if strategy != "default" and batch > n:
@@ -1667,7 +1864,7 @@ class Trainer:
                                     and self.publish_every > 0
                                     and (it % self.publish_every == 0
                                          or it == total_epochs)):
-                                std_p = self._params_to_ckpt(fs.params)
+                                std_p = self._std_params(fs.params)
                                 if chief:
                                     self._publish_weights(std_p)
                             if stats is not None:
@@ -1713,8 +1910,9 @@ class Trainer:
             per_batch = self._train_flops_per_batch(
                 tuple(a[:batch] for a in x_pad) if multi else x_pad[:batch],
                 y_pad[:batch], fs.params if (self._zero_stage < 3
-                                             and self._placement is None)
-                else self._params_to_ckpt(fs.params))
+                                             and self._placement is None
+                                             and self._stages is None)
+                else self._std_params(fs.params))
             if per_batch and mesh is not None:
                 per_batch = per_batch / mesh.size
             stats.finalize(flops_per_step=(per_batch * num_batches
@@ -1896,12 +2094,12 @@ class Trainer:
         already consumed are not replayed), and SIGTERM saves and stops.
         ``TrainResult.losses`` holds one loss per step.
 
-        On a dp mesh (``sp`` is refused, as in JAX) the batch rounds up to
-        a multiple of the ranks and each rank steps on its block of every
-        global batch at the resolved zero stage. Launched (outside a process
-        group) the stream is read here and each rank gets its rows over
-        its line, at most ``queue_capacity`` batches ahead; in place every
-        rank reads the same stream.
+        On a dp mesh (``pp`` and ``sp`` are refused, as in JAX) the batch
+        rounds up to a multiple of the ranks and each rank steps on its
+        block of every global batch at the resolved zero stage. Launched
+        (outside a process group) the stream is read here and each rank
+        gets its rows over its line, at most ``queue_capacity`` batches
+        ahead; in place every rank reads the same stream.
         """
         if epochs > 1 and not callable(row_iterator):
             raise ValueError("epochs > 1 needs a callable iterator factory "

@@ -1644,3 +1644,78 @@ def _engine_tokens(eng, prompt, n=8):
         toks.extend(eng.step().get(info["slot"], []))
     eng.release(info["slot"])
     return toks[:n]
+
+
+# -- pipeline parallelism on the card -----------------------------------------
+
+
+def test_pp_sgd_step_on_two_ranks_matches_one_card(card_ranks):
+    """One pp=2 SGD step (1f1b, 4 microbatches) on two ranks sharing the
+    card, float32 with TF32 off, against one card's step on the same rows:
+    loss within 1e-5 relative, params within rtol 3e-4 / atol 3e-5 (phase
+    21 (d)'s pin); each rank's stage ran the flash kernels."""
+    import torch_rank_tasks as tasks
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = build_registry_spec("transformer_classifier", vocab_size=97,
+                               num_classes=3, hidden=128, num_layers=4,
+                               num_heads=2, mlp_dim=256, max_len=64,
+                               dropout=0.0)
+    cpu = model_from_json(spec, device="cpu")
+    p0 = {k: {kk: v.numpy() for kk, v in d.items()}
+          for k, d in cpu.init(seed=3).items()}
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 97, (8, 64)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 8)]
+    out = card_ranks.run(tasks.pp_steps, spec, {"pp": 2}, p0, ids, y,
+                         "1f1b", 4, "classifier", device="cuda")
+    card = model_from_json(spec, device="cuda")
+    params = card.load_params({k: {kk: torch.tensor(v, device="cuda")
+                                   for kk, v in d.items()}
+                               for k, d in p0.items()}, trainable=True)
+    loss = card.loss_vector(params, {
+        "input_ids": torch.tensor(ids, device="cuda"),
+        "y": torch.tensor(y, device="cuda")}, train=False).mean()
+    leaves = [p for d in params.values() for p in d.values()]
+    grads = iter(torch.autograd.grad(loss, leaves))
+    for o in out:
+        assert abs(o["losses"][0] - float(loss)) <= 1e-5 * abs(float(loss))
+    for k, d in params.items():
+        for kk, p in d.items():
+            want = (p.detach() - 0.1 * next(grads)).cpu().numpy()
+            np.testing.assert_allclose(out[0]["params"][k][kk], want,
+                                       rtol=3e-4, atol=3e-5)
+    assert all(o["moved"]["pp_hop"] > 0 for o in out)
+
+
+def test_pp_decode_engine_on_card_matches_the_engine_without_a_mesh(dev):
+    """Float32 (TF32 off): a pp=2 decode engine on the card (both stages on
+    card 0 on a one-card machine) decodes the greedy tokens of the engine
+    without a mesh, with waves, single-wave and spec_k, and its stages
+    launched the paged kernels."""
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = build_registry_spec("transformer_lm", vocab_size=97, hidden=128,
+                               num_layers=4, num_heads=2, mlp_dim=256,
+                               max_len=128, dropout=0.0)
+    card = model_from_json(spec, device="cuda")
+    params = card.init(seed=5)
+    pp = dict(mesh={"pp": 2}, sharding=ShardingConfig(pp_axis="pp"))
+    for kw in ({}, {"pp_wave": False}, {"spec_k": 3, "draft_layers": 2}):
+        plain = {k: v for k, v in kw.items() if k != "pp_wave"}
+        want = DecodeEngine(card, params, num_slots=2, page_size=16, seed=0,
+                            **plain)
+        got = DecodeEngine(card, params, num_slots=2, page_size=16, seed=0,
+                           **pp, **kw)
+        for prompt in ([5, 2, 8, 1], list(range(1, 40))):
+            reset_launch_counts()
+            toks = _engine_tokens(got, prompt)
+            counts = launch_counts()
+            assert counts["paged_attention"] > 0, kw
+            assert counts["flash_fwd"] > 0, kw
+            assert toks == _engine_tokens(want, prompt), kw

@@ -160,14 +160,27 @@ def test_swap_params_defers_until_drained(torch_lm, weights):
 
 @pytest.mark.parametrize("kw", [
     {"mesh": {"ep": 2}, "sharding": {"ep_axis": "ep"}},
-    {"mesh": {"pp": 2}, "sharding": {"pp_axis": "pp"}},
-    {"pp_wave": False}])
+    {"mesh": {"pp": 2}, "sharding": {"pp_axis": "pp"}, "num_slots": 3},
+    {"mesh": {"pp": 2}, "sharding": {"pp_axis": "pp"}, "num_slots": 3,
+     "pp_wave": False}])
 def test_unported_engine_options_raise(torch_lm, kw):
-    # tp decode is ported (tests/test_torch_tp_serving.py); ep, pp and the
-    # pp wave are not
+    # tp and pp decode are ported (tests/test_torch_{tp,pp}_serving.py); ep
+    # is not. A pp engine's waves split the slots into pp equal waves, so
+    # num_slots=3 is refused with JAX's message; pp_wave=False stands that
+    # rule down and serves the single-wave step
     tm, tp = torch_lm
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        DecodeEngine(tm, tp, num_slots=2, page_size=PAGE, **kw)
+    kw = dict({"num_slots": 2, "page_size": PAGE}, **kw)
+    if kw.get("pp_wave") is False:
+        eng = DecodeEngine(tm, tp, seed=0, **kw)
+        plain = DecodeEngine(tm, tp, num_slots=3, page_size=PAGE, seed=0)
+        assert _drive(eng, [5, 2, 8], NEW)[0] == _drive(plain, [5, 2, 8],
+                                                        NEW)[0]
+        assert eng.stats()["parallel"]["pp_wave"] is False
+        return
+    match = ("ROADMAP.md" if "ep" in kw["mesh"]
+             else "num_slots=3 is not divisible by pp=2")
+    with pytest.raises(ValueError, match=match):
+        DecodeEngine(tm, tp, **kw)
 
 
 def test_executable_dir_reports_cold_start(torch_lm, tmp_path):

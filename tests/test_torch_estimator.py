@@ -154,17 +154,42 @@ def test_unsupervised_autoencoder_and_vector_predictions(spark):
 
 
 @pytest.mark.parametrize("over", [
-    {"meshShape": "pp=2"}, {"ppMicrobatches": 2},
-    {"ppSchedule": "1f1b"}, {"weightUpdateSharding": "on", "meshShape": "ep=2"},
+    {"meshShape": "pp=2"}, {"ppMicrobatches": 3, "meshShape": "pp=2"},
+    {"ppSchedule": "zigzag"},
+    {"weightUpdateSharding": "on", "meshShape": "ep=2"},
     {"zeroStage": 1, "meshShape": "dp=2,ep=2"}], ids=lambda d: next(iter(d)))
 def test_unported_params_are_refused_before_training(gaussian_df, over):
-    # dp / sp / tp / fsdp meshes and the ZeRO Params are ported
-    # (tests/test_torch_{zero,tp,fsdp}.py); the pp and ep axes are not
+    # dp / sp / tp / fsdp / pp meshes and the ZeRO Params are ported
+    # (tests/test_torch_{zero,tp,fsdp,pp}.py); the ep axis is not. The pp
+    # Params are refused where JAX refuses them, with its messages: a pp
+    # mesh over a graph with no blocks, microbatches that do not divide the
+    # batch, an unknown schedule
     calls = []
+    df = gaussian_df
+    if "ppMicrobatches" in over:
+        rs = np.random.RandomState(0)
+        df = LocalSession.builder.appName("pp-tokens").getOrCreate(
+        ).createDataFrame([(float(rs.randint(0, 2)), Vectors.dense(
+            rs.randint(0, 30, 8).astype(float))) for _ in range(32)],
+            ["label", "features"])
+        over = dict(over, tensorflowGraph=build_registry_spec(
+            "transformer_classifier", vocab_size=30, num_classes=2,
+            hidden=32, num_layers=2, num_heads=4, mlp_dim=64, max_len=8,
+            dropout=0.0), tfInput="input_ids", tfLabel="y",
+            tfOutput="logits", miniBatchSize=16)
     est = _estimator(**over).setLossCallback(lambda *a: calls.append(a))
-    with pytest.raises(NotImplementedError,
-                       match="not yet ported.*ROADMAP.md.*item 7"):
-        est.fit(gaussian_df)
+    if "ep=" in over.get("meshShape", ""):
+        with pytest.raises(NotImplementedError,
+                           match="not yet ported.*ROADMAP.md.*item 7"):
+            est.fit(df)
+    else:
+        match = ("has no block structure to pipeline"
+                 if "ppMicrobatches" not in over and "meshShape" in over
+                 else "pp_microbatches=3 must divide the per-dp-replica "
+                      "batch 16" if "ppMicrobatches" in over
+                 else "ppSchedule must be")
+        with pytest.raises(ValueError, match=match):
+            est.fit(df)
     assert calls == []
 
 

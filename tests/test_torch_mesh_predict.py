@@ -175,9 +175,12 @@ def test_sharded_transformer_classifier_matches_jax():
 def test_a_model_parallel_predict_mesh_is_refused():
     tr = Trainer(build_graph(lambda: clf_graph(tnn)), "x:0", "y:0",
                  device="cpu")
-    for mesh in ({"dp": 2, "ep": 2}, {"ep": 2}, {"pp": 2}):
+    for mesh in ({"dp": 2, "ep": 2}, {"ep": 2}):
         with pytest.raises(NotImplementedError, match="item 7"):
             tr.predict_fn("out:0", mesh=mesh)
+    # a pp axis is a decode axis: refused with the JAX engine's message
+    with pytest.raises(ValueError, match="decode-plane axis"):
+        tr.predict_fn("out:0", mesh={"pp": 2})
 
 
 # -- the engine -------------------------------------------------------------------

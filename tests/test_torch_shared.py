@@ -4,7 +4,23 @@ one small transformer_lm configuration, built in both packages, with
 weights drawn by numpy from a seed and handed to both, and the prompts and
 drive loop the engine parity tests share."""
 
+import os
+
 import numpy as np
+
+# Every test process runs torch's CPU ops on one thread, and so do the rank
+# processes it spawns (they inherit the environment): the suite runs in
+# several workers at once, and each worker's threaded ops would spin on
+# every core. Collection imports this module in every worker.
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+
+
+def _one_thread():
+    import torch
+    torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
+
+
+_one_thread()
 
 CFG = dict(vocab_size=61, hidden=32, num_layers=2, num_heads=4, mlp_dim=64,
            max_len=64, dropout=0.0)

@@ -513,3 +513,62 @@ def tp_stream_fit(spec, axes, trainer_kw, x, y, init_params=None):
     r = t.fit_stream(lambda: iter(rows), init_params=init_params, chunk=64)
     return {"losses": r.losses, "params": _tree_np(r.params),
             "stats": t.last_mesh_stats}
+
+
+# -- pipeline parallelism -----------------------------------------------------
+
+
+def pp_steps(spec, axes, p0, ids, y, schedule="gpipe", microbatches=2,
+             task="classifier", optimizer="gradient_descent", lr=0.1,
+             steps=1, opt_kw=None, device="cpu"):
+    """``steps`` of ``make_pp_train_step`` from the standard ``p0`` on this
+    rank's dp block of the rows (seed 0, the step index): the losses, the
+    standard params (gathered), this rank's param bytes and hop bytes.
+    ``device="cuda"``: the rank's card, TF32 off."""
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    from sparkflow_tpu_torch.parallel import collectives as C
+    from sparkflow_tpu_torch.parallel.pp import (StagePlacement,
+                                                 make_pp_train_step)
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        device = f"cuda:{torch.cuda.current_device()}"
+    m = _mesh(axes)
+    model = model_from_json(spec, device=device)
+    opt = build_optimizer(optimizer, lr, opt_kw)
+    with m.bind():
+        std = _tree_t(p0, device)
+        place = StagePlacement(model, m, std)
+        params = tree_grad(place.place(std))
+        state = opt.init(params)
+        step = make_pp_train_step(model, opt, m, n_microbatches=microbatches,
+                                  schedule=schedule, task=task)
+        dpn = m.shape.get("dp", 1)
+        di = m.axis_index("dp") if "dp" in m.shape else 0
+        b = ids.shape[0] // dpn
+        rows = slice(di * b, (di + 1) * b)
+        C.reset_stats()
+        losses = []
+        for i in range(steps):
+            params, state, loss = step(params, state,
+                                       torch.tensor(ids[rows], device=device),
+                                       torch.tensor(y[rows], device=device),
+                                       i)
+            losses.append(float(loss))
+        local_bytes = sum(t.numel() * t.element_size()
+                          for t in _leaves(params))
+        return {"losses": losses, "params": _tree_np(place.gather(params)),
+                "local_bytes": local_bytes, "ticks": step.schedule_ticks,
+                "moved": C.stats()}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def tree_grad(tree):
+    if isinstance(tree, dict):
+        return {k: tree_grad(v) for k, v in tree.items()}
+    return tree.requires_grad_(True)
