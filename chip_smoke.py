@@ -258,13 +258,15 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     bert_classifier.py``'s BERT-base through ``Pipeline([OneHotEncoder,
     SparkAsyncDL(meshShape="dp=2")])``, batch 32 x 512 (16 rows a rank,
     ragged 256-512 live tokens), 4 steps at ``zeroStage`` auto (adam -> 1)
-    and at 3: training examples/s and step ms (CUDA events on rank 0),
+    and at 3, in place on the shared pool's two ranks (as under torchrun):
+    training examples/s and step ms (CUDA events on rank 0),
     each rank's peak memory, optimizer-state and parameter bytes, bytes
     moved a step and staged through the host, launches of kernels 1-3 per
     rank (12 a step); one step profiled on rank 0 (busy, idle); the fitted
     model's transform against the rank-0 params' single-card forward
     (1e-5). (c) GPT-2 small (bf16, dropout 0.1, adam 3e-4) through
-    ``Trainer(mesh={"dp": 1, "sp": 2})``, batch 8 x 1024, 3 steps: tokens/s,
+    ``Trainer(mesh={"dp": 1, "sp": 2})`` in place on the pool's two ranks,
+    batch 8 x 1024, 3 steps: tokens/s,
     36 launches a step of each kernel summed over the ranks, losses finite
     and falling. (d) Float32, TF32 off, full widths cut to 2 layers: dp=2
     at zero stages 0-3 against one card's ``Trainer`` on the same rows
@@ -308,16 +310,19 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     3 steps: step ms on each rank (CUDA
     events), tokens/s, bytes moved a step and param bytes a rank (against
     one card's), peak memory, launches of kernels 1-3 a rank (12 a step).
-    (b) BERT-base (float32) through ``Pipeline([OneHotEncoder,
-    SparkAsyncDL(meshShape=...)])`` over 64 rows x 512, batch 32, 2 steps
-    each: "tp=2" and "fsdp=2" (a random batch an epoch), then "fsdp=2"
-    with ``fitMode="stream"``: examples/s against one card's
+    (b) BERT-base's widths cut to 2 layers (float32) through
+    ``Pipeline([OneHotEncoder, SparkAsyncDL(meshShape=...)])`` over 64 rows
+    x 512, batch 32, 2 steps each: "tp=2" (a random batch an epoch) and
+    "fsdp=2" with ``fitMode="stream"``, each launching its own ranks, and
+    "fsdp=2" (a random batch an epoch) in place on the shared pool's two
+    ranks: per-rank launches of kernels 1-3, examples/s against one card's
     ``Trainer`` on the same rows in the same run, param bytes a rank at
     rest. (c) GPT-2 small ``DecodeEngine(mesh={"tp": 2}, num_slots=8,
     page_size=16)``, 8 prompts x 32 new tokens, plain, ``spec_k=4`` and
     int8 with ``spec_k=4``: in float32 (TF32 off) the greedy tokens equal
-    the engine's without a mesh; in bf16 step ms p50, pool bytes a shard
-    (half) and kernels 4-7's launches a shard. (d) BERT-base
+    the engine's without a mesh, with pool bytes a shard (half) and kernels
+    4-7's launches a shard; in bf16, the plain arm, step ms p50. (d)
+    BERT-base
     ``InferenceEngine(mesh={"tp": 2})``, float32, bucket 32: max |d| from
     the engine without a mesh (1e-4), rows/s of each. (e) Full widths cut
     to 2 layers, float32, TF32 off: tp=2 and fsdp=2 against one card (one
@@ -339,24 +344,69 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     ``schedule_ticks`` and launches of kernels 1-3 a rank, held to the
     schedule's count. (b) BERT-base (float32) through ``Pipeline(
     [OneHotEncoder, SparkAsyncDL(meshShape="pp=2", ppSchedule="1f1b",
-    ppMicrobatches=4)])`` over 64 rows x 512 (tokens only), batch 32, 2
-    steps: examples/s against one card's ``Trainer``, param bytes a rank at
+    ppMicrobatches=4)])`` at BERT-base's widths cut to 2 layers, launching
+    its own ranks, over 64 rows x 512 (tokens only), batch 32, 2 steps:
+    per-rank launches of kernels 1-3 held to the schedule's count, examples/s against one card's ``Trainer``, param bytes a rank at
     rest, the fitted model's transform without a mesh. (c) GPT-2 small
     ``DecodeEngine(mesh={"pp": 2}, num_slots=8, page_size=16)``, 8 prompts x
     32 new tokens, arms ``pp_wave``, ``pp_wave=False``, ``spec_k=4``
     (``draft_layers=6``, one stage), int8 with ``spec_k=4`` and ``mesh={"pp":
     2, "tp": 2}``: in float32 (TF32 off) the greedy tokens equal the engine's
-    without a mesh in every arm; in bf16 step ms p50, tokens/s against the
-    engine without a mesh, pool bytes a stage (half), kernels 1 and 4-7's
-    launches a stage, wave ticks. (d) GPT-2 small's widths cut to 2 layers,
+    without a mesh in every arm, with the pool bytes a stage (half) and
+    kernels 1 and 4-7's launches a stage; in bf16, the arms without
+    speculation, step ms p50, tokens/s against the engine without a mesh,
+    wave ticks. (d) GPT-2 small's widths cut to 2 layers,
     float32, TF32 off: pp=2 under each schedule against one card (one SGD
     step: loss 1e-5 relative, params rtol 3e-4 / atol 3e-5; 3 adam steps:
     losses 2e-4), and a pp=2 checkpoint resumed on one card bit-equal to the
     fit. ``python3 chip_smoke.py --phase pp`` runs set-up and this phase
     alone.
 
-Run order: 1, 2, 9, 6, 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 18,
-19, 20, 21; a ``[time]`` line gives each phase's wall time. The line before
+22. ep: expert parallelism (ROADMAP 7f) and the vmapped sweep. Two ranks
+    share the card over gloo and one-process serving puts every expert
+    (and tp) shard on it: the phase shows the split banks, the exchanges
+    and the kernels on each rank, not scaling. The model is phase 16's MoE
+    LM at Switch-Base-8 widths. (a) ``Trainer(mesh={"dp": 1, "ep": 2})``
+    in place on two ranks (4 of each bank's 8 experts a rank), bf16, adam
+    3e-4, batch 8 x 512, 4 steps: step ms (CUDA events), tokens/s, param
+    bytes a rank against one card's, bytes moved and staged through the
+    host a step a rank, launches of kernels 1-3 a rank (12 a step). (b) The
+    all_to_all step (``make_moe_shardmap_train_step``, the model built with
+    ``ep_axis="ep"``), 4 rows x 512 a rank, 4 steps: the same figures, the
+    ``all_to_all`` bytes a step, and the fraction of routed choices each
+    MoE layer dropped. (c) Float32, TF32 off, full widths cut to 2 layers:
+    (a)'s fit and (b)'s step against one card (3 adam steps; losses 1e-5
+    relative, params as phase 18 (d)); (b)'s at capacity
+    factor 8 on both sides, where neither form drops a token. (d)
+    ``DecodeEngine(num_slots=8, page_size=16)`` with ``{"ep": 2}`` and
+    ``{"tp": 2, "ep": 2}``, phase 16's 8 prompts x 32 new tokens, plain,
+    ``spec_k=4`` and int8 with ``spec_k=4``: in float32 (TF32 off) the
+    greedy tokens equal the engine's without a mesh in every arm (at 4
+    layers, the draft through 2), that engine's model running one product
+    per expert as split banks do (``per_expert_products``), with kernels 1
+    and 4-7's launches and the sequences its batched expert products change
+    (counted); in bf16 at full depth, the plain arm, the sequences that
+    differ from the engine without a mesh (batched products; counted), step
+    ms and tokens/s against it, and its burst through
+    ``/v1/generate`` (tokens/s against the engine without a mesh's,
+    ``/healthz``'s ep). (e) ``InferenceEngine(mesh={"ep": 2})`` on the MoE
+    LM's float32 logits, 4 x 512: max |d| from the engine without a mesh,
+    on one product per expert (1e-5) and on its batched products (1e-4).
+    (f) ``hyperparameter_search`` with K = 4 learning rates at
+    BERT-base widths cut to 4 layers, float32, TF32 off, 16 x 512, batch 8,
+    4 steps: the curves equal 4 separate one-rate sweeps (1e-5 relative),
+    kernels 1-3 launched once a layer and step for all four replicas, and
+    the sweep's time against the separate ones'. ``python3 chip_smoke.py
+    --phase ep`` runs set-up and this phase alone.
+
+Run order: 1, 2, 9, 6, then two processes side by side: this one runs 3,
+4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, and a second one
+(``--mesh-group``, started once the kernels' times are taken) runs 18, 19,
+20, 21 on one 2-rank pool, its lines relayed here. Both are host-bound
+(the card idles most of their time), so together they take about the
+longer one's time; a phase's throughput in this run is taken with the
+other process sharing the card and the host, and ``--phase NAME`` gives
+it alone. A ``[time]`` line gives each phase's wall time. The line before
 the last gives the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits nonzero, printing no result, where there is no CUDA card.
@@ -397,8 +447,13 @@ GPT2_SMALL = dict(vocab_size=50257, hidden=768, num_layers=12, num_heads=12,
                   mlp_dim=3072, max_len=1024, dropout=0.0)
 
 
+_LOG_LOCK = threading.Lock()
+
+
 def log(*a):
-    print(*a, flush=True)
+    # whole lines: the second process's lines are relayed by a thread
+    with _LOG_LOCK:
+        print(*a, flush=True)
 
 
 def card_line() -> str:
@@ -4877,6 +4932,23 @@ def _mesh_exact_dp_rank(spec, stage, ids, masks, labels, opt):
     return out
 
 
+def _mesh_sp_rank(spec, ids):
+    """(c) on each of 2 ranks: ``Trainer(mesh={"dp": 1, "sp": 2})`` fitting
+    in place (as under torchrun): the losses, the fit's wall and this
+    rank's accounting."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    _rank, dev, _ = _mesh_rank_setup()
+    tr = Trainer(spec, "input_ids", None, optimizer="adam", learning_rate=3e-4,
+                 iters=MESH_SP_STEPS, mini_batch_size=MESH_SP_BATCH,
+                 mini_stochastic_iters=1, compute_dtype="bfloat16", seed=0,
+                 device=dev, mesh=Mesh({"dp": 1, "sp": 2}))
+    t0 = time.perf_counter()
+    res = tr.fit(ids)
+    return {"losses": res.losses, "fit_s": time.perf_counter() - t0,
+            "stats": tr.last_mesh_stats}
+
+
 def _mesh_exact_kw(opt):
     """Adam nearly ignores the gradient's scale, so (d) also takes one SGD
     step at learning rate 1: the params then move by minus the gradient,
@@ -4932,30 +5004,23 @@ def _mesh_exact_sp_rank(spec, ids, masks):
             "grad_rel": err / max(top, 1e-12)}
 
 
-def _mesh_estimator_fit(card, spec, df, label, zero_stage, work):
-    """(b) ``SparkAsyncDL(meshShape="dp=2")`` over the BERT-base rows, fit
-    and transform, with the mesh accounting of the fit."""
-    import numpy as np
-    from sparkflow_tpu_torch.localml import OneHotEncoder, Pipeline
-    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
-    losses = []
-    est = SparkAsyncDL(
+def _mesh_estimator_fit(card, spec, label, zero_stage, work, pool):
+    """(b) ``SparkAsyncDL(meshShape="dp=2")`` over the BERT-base rows, in
+    place on the pool's two ranks, with the mesh accounting of the fit; at
+    ZeRO auto rank 0 also holds the fitted model's transform to its
+    weights' forward."""
+    kw = dict(
         inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
         tfLabel="y:0", tfOutput="probs:0", tfOptimizer="adam",
         tfLearningRate=3e-4, iters=MESH_EST_STEPS,
         miniBatchSize=MESH_EST_BATCH, miniStochasticIters=1,
         labelCol="labels", predictionCol="probs", extraInputCols="mask",
         extraTfInputs="attention_mask:0", meshShape="dp=2",
-        zeroStage=zero_stage, weightsPath=os.path.join(work, f"mesh-{label}"))
-    est.setLossCallback(lambda loss, it, part: losses.append(loss))
-    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
-                                          outputCol="labels",
-                                          dropLast=False), est])
-    t0 = time.perf_counter()
-    fitted = pipe.fit(df)
-    fit_s = time.perf_counter() - t0
-    st = est.last_mesh_stats
-    if st is None or st["mesh"] != {"dp": 2} or not st["launched"]:
+        zeroStage=zero_stage)
+    losses, fit_s, st = _est_in_place(
+        pool, kw, MESH_EST_ROWS, None, work, f"mesh-{label}",
+        check_card=card if zero_stage < 0 else None)
+    if st is None or st["mesh"] != {"dp": 2} or st["launched"]:
         raise AssertionError(f"the estimator did not fit on the mesh: {st}")
     if len(losses) != MESH_EST_STEPS or not all(
             math.isfinite(x) for x in losses):
@@ -4988,9 +5053,10 @@ def _mesh_estimator_fit(card, spec, df, label, zero_stage, work):
                "fit_s": fit_s, "losses": losses,
                "train_examples_per_s": (MESH_EST_BATCH * 1e3
                                         / r0["step_ms_median_after_first"]),
+               "transform_err": st.get("transform_err"),
                "ranks": per_rank}
     log(f"[mesh-dp] {label} " + json.dumps(summary) + f" [{card}]")
-    return fitted, summary
+    return summary
 
 
 def _mesh_transform_check(card, fitted, spec, df):
@@ -5188,39 +5254,27 @@ def phase_mesh(card, work, pool=None):
             f"TF32 off), kernel ring vs plain ring: " + json.dumps(sp_ex)
             + f" (tol {MESH_SP_TOL}) [{card}]")
         out["sp_exact"] = sp_ex
+
+        # (b) the estimator's path, dp=2 at ZeRO auto (adam -> 1) and 3
+        out["dp"] = {label: _mesh_estimator_fit(card, bert, label, stage,
+                                                work, pool)
+                     for label, stage in (("auto", -1), ("zero3", 3))}
+        out["transform_err"] = out["dp"]["auto"]["transform_err"]
         pool.run(_rank_release)
 
-    # (b) the estimator's main path, dp=2, at ZeRO auto (adam -> 1) and 3
-    out["dp"] = {}
-    dp_launches = {n: 0 for n in MESH_NAMES}
-    for label, stage in (("auto", -1), ("zero3", 3)):
-        fitted, summary = _mesh_estimator_fit(card, bert, df, label, stage,
-                                              work)
-        out["dp"][label] = summary
-        for r in summary["ranks"]:
-            for n in MESH_NAMES:
-                dp_launches[n] += r["launches"][n]
-        if label == "auto":
-            out["transform_err"] = _mesh_transform_check(card, fitted, bert,
-                                                         df)
-        del fitted
-
-    # (c) sp=2 on GPT-2 small through Trainer(mesh=...)
-    lm = build_registry_spec("transformer_lm", **dict(GPT2_SMALL,
-                                                      dropout=0.1))
-    sp_ids = np.random.RandomState(9).randint(
-        0, 1000, (MESH_SP_BATCH, 1024)).astype(np.float32)
-    tr = Trainer(lm, "input_ids", None, optimizer="adam", learning_rate=3e-4,
-                 iters=MESH_SP_STEPS, mini_batch_size=MESH_SP_BATCH,
-                 mini_stochastic_iters=1, compute_dtype="bfloat16", seed=0,
-                 mesh={"dp": 1, "sp": 2})
-    t1 = time.perf_counter()
-    res = tr.fit(sp_ids)
-    sp_fit_s = time.perf_counter() - t1
-    st = tr.last_mesh_stats
-    if not (all(math.isfinite(x) for x in res.losses)
-            and res.losses[-1] < res.losses[0]):
-        raise AssertionError(f"sp=2 GPT-2 small losses {res.losses}")
+        # (c) sp=2 on GPT-2 small through Trainer(mesh=...), in place
+        lm = build_registry_spec("transformer_lm", **dict(GPT2_SMALL,
+                                                          dropout=0.1))
+        sp_ids = np.random.RandomState(9).randint(
+            0, 1000, (MESH_SP_BATCH, 1024)).astype(np.float32)
+        got = pool.run(_mesh_sp_rank, lm, sp_ids)
+        pool.run(_rank_release)
+    losses, sp_fit_s = got[0]["losses"], got[0]["fit_s"]
+    st = dict(got[0]["stats"], ranks=[g["stats"]["ranks"][0] for g in got])
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and got[1]["losses"] == losses):
+        raise AssertionError(f"sp=2 GPT-2 small losses "
+                             f"{[g['losses'] for g in got]}")
     sp_launches = {n: sum(r["kernel_launches"][n] for r in st["ranks"])
                    for n in MESH_NAMES}
     want_l = 3 * GPT2_SMALL["num_layers"] * MESH_SP_STEPS
@@ -5229,7 +5283,7 @@ def phase_mesh(card, work, pool=None):
                              f"each (3 ring visits x 12 layers x "
                              f"{MESH_SP_STEPS} steps)")
     steady = sorted(st["ranks"][0]["epoch_ms"][1:])
-    sp_sum = {"losses": res.losses, "fit_s": sp_fit_s,
+    sp_sum = {"losses": losses, "fit_s": sp_fit_s,
               "backend": st["backend"],
               "step_ms": st["ranks"][0]["epoch_ms"],
               "tokens_per_s": (MESH_SP_BATCH * 1024 * 1e3
@@ -5243,9 +5297,14 @@ def phase_mesh(card, work, pool=None):
                                       for n in MESH_NAMES}}
                         for r in st["ranks"]]}
     log("[mesh-sp] GPT-2 small (bf16, dropout 0.1, adam 3e-4), "
-        "Trainer(mesh={'dp': 1, 'sp': 2}), batch 8 x 1024: "
+        "Trainer(mesh={'dp': 1, 'sp': 2}) in place on 2 ranks, batch 8 x "
+        "1024: "
         + json.dumps(sp_sum) + f" [{card}]")
     out["sp"] = sp_sum
+
+    dp_launches = {n: sum(r["launches"][n] for lab in ("auto", "zero3")
+                          for r in out["dp"][lab]["ranks"])
+                   for n in MESH_NAMES}
     out["launches"] = {"dp": dp_launches, "sp_ring": sp_launches}
     log(f"[mesh] phase 18 {time.perf_counter() - t0:.1f} s")
     return out
@@ -5730,6 +5789,11 @@ def phase_stream_mesh(card, work, mesh_out, device=None, pool=None):
 # 1-7 at a tp shard's head count (6 of 12 at tp=2), not scaling.
 TPF_TRAIN_BATCH, TPF_TRAIN_STEPS = 8, 3          # (a) GPT-2 small 8 x 1024
 TPF_EST_ROWS, TPF_EST_BATCH, TPF_EST_STEPS = 64, 32, 2    # (b) 2 steps each
+# (b) BERT-base's widths cut to 2 layers: a launched fit's cost is mostly
+# its ranks' start, which depth does not cut
+TPF_EST_LAYERS = 2
+TPF_EST_FITS = (("tp=2", "collect", True), ("fsdp=2", "collect", False),
+                ("fsdp=2", "stream", True))    # (mesh, fitMode, launched)
 TPF_DEC_LENS = (20, 57, 100, 150, 200, 256, 300, 400)     # (c) 8 prompts
 TPF_DEC_NEW = 32
 TPF_PREDICT_BATCH, TPF_PREDICT_REPS = 32, 5      # (d) one bucket
@@ -5883,25 +5947,66 @@ def _tpf_one_card_ex_s(spec, ids, masks, labels, device):
     return TPF_EST_BATCH / (marks[-1] - marks[-2])
 
 
-def _tpf_estimator(card, spec, df, mesh_shape, fit_mode, work, device):
-    """(b) ``Pipeline([OneHotEncoder, SparkAsyncDL(meshShape=...)])`` over
-    the BERT-base rows, 2 steps (collect: one random batch an epoch): the
-    fit's accounting and its training examples/s (the second step's
-    CUDA-event ms)."""
+def _est_rank(est_kw, rows, seq_len, vocab, device, weights_dir,
+              check_card=None):
+    """An estimator fit in place on this rank (as under torchrun):
+    ``Pipeline([OneHotEncoder, SparkAsyncDL(**est_kw)])`` over
+    ``synthetic_text``'s ``rows`` rows (the same on every rank): this
+    rank's live losses, the fit's wall and mesh accounting; with
+    ``check_card``, rank 0 holds the fitted model's transform to a forward
+    of the fitted weights (:func:`_mesh_transform_check`)."""
+    from sparkflow_tpu_torch.localml import (LocalSession, OneHotEncoder,
+                                             Pipeline)
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    rank, _dev = _sm_rank_setup(device)
+    os.makedirs(weights_dir, exist_ok=True)
+    spark = LocalSession.builder.appName("est-in-place").getOrCreate()
+    df = synthetic_text(spark, rows, seq_len, vocab)
+    losses = []
+    est = SparkAsyncDL(device=device, weightsPath=os.path.join(
+        weights_dir, f"rank{rank}"), **est_kw)
+    est.setLossCallback(lambda loss, it, part: losses.append(loss))
+    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
+                                          outputCol="labels",
+                                          dropLast=False), est])
+    t0 = time.perf_counter()
+    fitted = pipe.fit(df)
+    out = {"losses": losses, "fit_s": time.perf_counter() - t0,
+           "stats": est.last_mesh_stats}
+    if check_card is not None and rank == 0:
+        out["transform_err"] = _mesh_transform_check(
+            check_card, fitted, est_kw["tensorflowGraph"], df)
+    return out
+
+
+def _est_in_place(pool, est_kw, rows, device, work, tag, check_card=None):
+    """:func:`_est_rank` on the pool's two ranks: rank 0's losses and wall
+    and the fit's accounting with every rank's row (with ``check_card``,
+    rank 0's transform error against the fitted weights' forward)."""
+    got = pool.run(_est_rank, est_kw, rows, BERT_BASE["max_len"],
+                   BERT_BASE["vocab_size"], device,
+                   os.path.join(work, tag), check_card)
+    if got[0]["losses"] != got[1]["losses"]:
+        raise AssertionError(f"{tag}: the ranks' losses differ "
+                             f"{[g['losses'] for g in got]}")
+    st = dict(got[0]["stats"], ranks=[g["stats"]["ranks"][0] for g in got])
+    if check_card is not None:
+        st["transform_err"] = got[0]["transform_err"]
+    return got[0]["losses"], got[0]["fit_s"], st
+
+
+def _est_launched(est_kw, df, device, work, tag, transform=False):
+    """``Pipeline([OneHotEncoder, SparkAsyncDL(**est_kw)])`` fit from this
+    process, the estimator launching the mesh's ranks itself: rank 0's live
+    losses, the fit's wall and mesh accounting (every rank's row) and, with
+    ``transform``, the fitted model's transform without a mesh (its rows'
+    count and whether every prob is finite)."""
+    import numpy as np
     from sparkflow_tpu_torch.localml import OneHotEncoder, Pipeline
     from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
     losses = []
-    stream = fit_mode == "stream"
-    est = SparkAsyncDL(
-        inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
-        tfLabel="y:0", tfOutput="probs:0", tfOptimizer="adam",
-        tfLearningRate=3e-4, iters=1 if stream else TPF_EST_STEPS,
-        miniStochasticIters=-1 if stream else 1,
-        miniBatchSize=TPF_EST_BATCH, labelCol="labels",
-        predictionCol="probs", extraInputCols="mask",
-        extraTfInputs="attention_mask:0", fitMode=fit_mode,
-        meshShape=mesh_shape, device=device,
-        weightsPath=os.path.join(work, f"tpf-{mesh_shape}-{fit_mode}"))
+    est = SparkAsyncDL(device=device, weightsPath=os.path.join(work, tag),
+                       **est_kw)
     est.setLossCallback(lambda loss, it, part: losses.append(loss))
     pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
                                           outputCol="labels",
@@ -5909,12 +6014,43 @@ def _tpf_estimator(card, spec, df, mesh_shape, fit_mode, work, device):
     t0 = time.perf_counter()
     fitted = pipe.fit(df)
     fit_s = time.perf_counter() - t0
-    st = est.last_mesh_stats
+    served = None
+    if transform:
+        probs = np.stack([np.asarray(r["probs"]) for r in
+                          fitted.transform(df).collect()])
+        served = {"rows": int(probs.shape[0]),
+                  "finite": bool(np.isfinite(probs).all())}
+    return losses, fit_s, est.last_mesh_stats, served
+
+
+def _tpf_estimator(card, spec, df, mesh_shape, fit_mode, launched, work,
+                   device, pool):
+    """(b) ``Pipeline([OneHotEncoder, SparkAsyncDL(meshShape=...)])`` over
+    the BERT-base rows at 2 layers, 2 steps (collect: one random batch an
+    epoch), the ranks launched by the estimator or (``launched`` False) in
+    place on the pool's two ranks: the fit's accounting and its training
+    examples/s (the second step's CUDA-event ms)."""
+    stream = fit_mode == "stream"
+    kw = dict(
+        inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
+        tfLabel="y:0", tfOutput="probs:0", tfOptimizer="adam",
+        tfLearningRate=3e-4, iters=1 if stream else TPF_EST_STEPS,
+        miniStochasticIters=-1 if stream else 1,
+        miniBatchSize=TPF_EST_BATCH, labelCol="labels",
+        predictionCol="probs", extraInputCols="mask",
+        extraTfInputs="attention_mask:0", fitMode=fit_mode,
+        meshShape=mesh_shape)
+    tag = f"tpf-{mesh_shape}-{fit_mode}"
+    if launched:
+        losses, fit_s, st, _t = _est_launched(kw, df, device, work, tag)
+    else:
+        losses, fit_s, st = _est_in_place(pool, kw, TPF_EST_ROWS, device,
+                                          work, tag)
     axes = dict(kv.split("=") for kv in mesh_shape.split(","))
     want_mesh = {"dp": 1, **{k: int(v) for k, v in axes.items()}}
     steps = TPF_EST_STEPS
-    if not (st is not None and st["mesh"] == want_mesh and st["launched"]
-            and len(losses) == steps
+    if not (st is not None and st["mesh"] == want_mesh
+            and st["launched"] == launched and len(losses) == steps
             and all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"{mesh_shape} {fit_mode}: mesh "
                              f"{st and st['mesh']}, losses {losses}")
@@ -5922,7 +6058,7 @@ def _tpf_estimator(card, spec, df, mesh_shape, fit_mode, work, device):
         raise AssertionError(f"{mesh_shape}: zero stage {st['zero_stage']} "
                              f"on sharded params, want 0")
     ranks = _tpf_rank_rows(st, MESH_NAMES)
-    layers = BERT_BASE["num_layers"]
+    layers = TPF_EST_LAYERS
     for r in ranks:
         if device != "cpu" and r["launches"] != {n: layers * steps
                                                  for n in MESH_NAMES}:
@@ -5930,12 +6066,13 @@ def _tpf_estimator(card, spec, df, mesh_shape, fit_mode, work, device):
                                  f"{r['rank']} launches {r['launches']}, "
                                  f"want {layers} x {steps}")
     summary = {"mesh": st["mesh"], "backend": st["backend"],
-               "fit_s": fit_s, "live_losses": losses,
-               "train_examples_per_s": TPF_EST_BATCH * 1e3 / ranks[0][
-                   "step_ms_median_after_first"],
+               "launched": st["launched"], "fit_s": fit_s,
+               "live_losses": losses,
+               "train_examples_per_s": TPF_EST_BATCH * 1e3 / max(
+                   r["step_ms_median_after_first"] for r in ranks),
                "ranks": ranks}
     launches = {n: sum(r["launches"][n] for r in ranks) for n in MESH_NAMES}
-    return fitted, summary, launches
+    return summary, launches
 
 
 def _tpf_greedy_timed(eng, prompts, n):
@@ -5965,9 +6102,10 @@ def _tpf_decode(card, device):
     """(c) GPT-2 small behind ``DecodeEngine(mesh={"tp": 2},
     sharding=ShardingConfig(tp_axis="tp"), num_slots=8, page_size=16)``,
     8 prompts x 32 new tokens, in three arms. Exactness in float32 (TF32
-    off): the tp engine's greedy tokens equal the engine's without a mesh.
-    Then bf16: step ms p50, the pool bytes a shard, kernels 4-7's launches
-    a shard, the counters zeroed just before each arm's burst."""
+    off): the tp engine's greedy tokens equal the engine's without a mesh,
+    with the pool bytes a shard (half) and kernels 4-7's launches a shard,
+    the counters zeroed just before each arm's burst. Then bf16, the plain
+    arm: step ms p50 and the tokens that differ."""
     import numpy as np
     import torch
     from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -5978,67 +6116,67 @@ def _tpf_decode(card, device):
                for n in TPF_DEC_LENS]
     kw = dict(num_slots=8, page_size=16, seed=0)
     tp = dict(mesh={"tp": 2}, sharding=ShardingConfig(tp_axis="tp"))
-    out = {"float32_identical": {}, "bf16": {}}
-    model, params = _tpf_lm(None, device)
-    for name, extra in TPF_DEC_ARMS:
-        want = _greedy(DecodeEngine(model, params, **kw, **extra), prompts,
-                       TPF_DEC_NEW)
-        got = _greedy(DecodeEngine(model, params, **kw, **tp, **extra),
-                      prompts, TPF_DEC_NEW)
-        out["float32_identical"][name] = got == want
-        if got != want:
-            raise AssertionError(f"tp=2 decode ({name}, float32) tokens "
-                                 f"{got} != no-mesh {want}")
-    del model, params
-    model, params = _tpf_lm("bfloat16" if device != "cpu" else None, device)
+    out = {"float32_identical": {}, "launches_a_shard": {}, "bf16": {}}
     launches = {n: 0 for n in TPF_NAMES}
+    model, params = _tpf_lm(None, device)
     for name, extra in TPF_DEC_ARMS:
         plain = DecodeEngine(model, params, **kw, **extra)
         want = _greedy(plain, prompts, TPF_DEC_NEW)
         eng = DecodeEngine(model, params, **kw, **tp, **extra)
         reset_launch_counts()
-        got, ms = _tpf_greedy_timed(eng, prompts, TPF_DEC_NEW)
+        got = _greedy(eng, prompts, TPF_DEC_NEW)
         if device != "cpu":
             torch.cuda.synchronize()
         counts = launch_counts()
         for n in TPF_NAMES:
             launches[n] += counts[n]
+        out["float32_identical"][name] = got == want
+        if got != want:
+            raise AssertionError(f"tp=2 decode ({name}, float32) tokens "
+                                 f"{got} != no-mesh {want}")
+        out["launches_a_shard"][name] = {n: counts[n] / 2 for n in TPF_NAMES
+                                         if counts[n]}
         par, ref = eng.stats()["parallel"], plain.stats()["parallel"]
-        # bf16: the shards' GEMMs (half the columns, half the rows) round
-        # otherwise than the whole ones, so a near-tie may flip; where the
-        # first token differs in each sequence (None: identical)
-        first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                      None) for a, b in zip(got, want)]
-        row = {"tokens_identical_to_no_mesh": got == want,
-               "sequences_identical": sum(a == b for a, b in zip(got, want)),
-               "first_differing_token": first,
-               "step_ms_p50": _pct(ms, 50), "step_ms_p95": _pct(ms, 95),
-               "steps": len(ms),
-               "kv_gb_a_shard": par["kv_bytes_per_device"] / 1e9,
-               "kv_gb_no_mesh": ref["kv_bytes_per_device"] / 1e9,
-               "param_gb_a_shard": par["param_bytes_per_device"] / 1e9,
-               "param_gb_no_mesh": ref["param_bytes_per_device"] / 1e9,
-               "launches_a_shard": {n: counts[n] / 2 for n in TPF_NAMES
-                                    if counts[n]}}
         if par["kv_bytes_per_device"] * 2 != ref["kv_bytes_per_device"]:
             raise AssertionError(f"tp=2 decode {name}: pool bytes a shard "
                                  f"{par}, no mesh {ref}")
-        out["bf16"][name] = row
         del plain, eng
+    del model, params
+    model, params = _tpf_lm("bfloat16" if device != "cpu" else None, device)
+    plain = DecodeEngine(model, params, **kw)
+    want = _greedy(plain, prompts, TPF_DEC_NEW)
+    eng = DecodeEngine(model, params, **kw, **tp)
+    got, ms = _tpf_greedy_timed(eng, prompts, TPF_DEC_NEW)
+    par, ref = eng.stats()["parallel"], plain.stats()["parallel"]
+    # bf16: the shards' GEMMs (half the columns, half the rows) round
+    # otherwise than the whole ones, so a near-tie may flip; where the
+    # first token differs in each sequence (None: identical)
+    first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                  None) for a, b in zip(got, want)]
+    out["bf16"]["plain"] = {
+        "tokens_identical_to_no_mesh": got == want,
+        "sequences_identical": sum(a == b for a, b in zip(got, want)),
+        "first_differing_token": first,
+        "step_ms_p50": _pct(ms, 50), "step_ms_p95": _pct(ms, 95),
+        "steps": len(ms),
+        "kv_gb_a_shard": par["kv_bytes_per_device"] / 1e9,
+        "kv_gb_no_mesh": ref["kv_bytes_per_device"] / 1e9,
+        "param_gb_a_shard": par["param_bytes_per_device"] / 1e9,
+        "param_gb_no_mesh": ref["param_bytes_per_device"] / 1e9}
+    del plain, eng
     need = {"plain": ("paged_attention",),
             "spec_k=4": ("paged_attention", "paged_verify"),
             "int8+spec_k=4": ("paged_attention_quant",
                               "paged_verify_quant")}
     for name, kernels in need.items():
         if device != "cpu" and not all(
-                out["bf16"][name]["launches_a_shard"].get(n)
-                for n in kernels):
+                out["launches_a_shard"][name].get(n) for n in kernels):
             raise AssertionError(f"tp=2 decode {name}: launches "
-                                 f"{out['bf16'][name]['launches_a_shard']}")
+                                 f"{out['launches_a_shard'][name]}")
     log("[tp-fsdp] (c) GPT-2 small DecodeEngine(mesh={'tp': 2}, num_slots=8, "
         "page_size=16), 8 prompts x 32 new tokens: float32 (TF32 off) greedy "
-        "tokens identical to the engine without a mesh in every arm; bf16: "
-        + json.dumps(out) + f" [{card}]")
+        "tokens identical to the engine without a mesh in every arm; bf16, "
+        "the plain arm: " + json.dumps(out) + f" [{card}]")
     return out, launches
 
 
@@ -6341,27 +6479,29 @@ def _tpf_rest(card, work, device, pool, lap):
     ids = np.stack([r["tokens"].toArray() for r in rows]).astype(np.float32)
     masks = np.stack([r["mask"].toArray() for r in rows]).astype(np.float32)
     labels = np.eye(2, dtype=np.float32)[[int(r["label"]) for r in rows]]
-    one_ex_s = _tpf_one_card_ex_s(bert, ids, masks, labels, device)
+    bert2 = build_registry_spec("transformer_classifier",
+                                **dict(BERT_BASE, num_layers=TPF_EST_LAYERS))
+    one_ex_s = _tpf_one_card_ex_s(bert2, ids, masks, labels, device)
     est, est_l = {}, {n: 0 for n in MESH_NAMES}
-    for mesh_shape, mode in (("tp=2", "collect"), ("fsdp=2", "collect"),
-                             ("fsdp=2", "stream")):
-        _fitted, summary, launches = _tpf_estimator(
-            card, bert, df, mesh_shape, mode, work, device)
+    for mesh_shape, mode, launched in TPF_EST_FITS:
+        summary, launches = _tpf_estimator(card, bert2, df, mesh_shape, mode,
+                                           launched, work, device, pool)
         summary["examples_per_s_over_one_card"] = (
             summary["train_examples_per_s"] / one_ex_s)
         est[f"{mesh_shape} {mode}"] = summary
         for n in MESH_NAMES:
             est_l[n] += launches[n]
-        del _fitted
-    full = _tpf_full_bytes(bert)
+    pool.run(_rank_release)
+    full = _tpf_full_bytes(bert2)
     est["one_card_train_examples_per_s"] = one_ex_s
     est["one_card_param_gb"] = full / 1e9
     est["fsdp_param_share_a_rank"] = [
         r["param_gb"] * 1e9 / full
         for r in est["fsdp=2 collect"]["ranks"]]
-    log("[tp-fsdp] (b) BERT-base through SparkAsyncDL(meshShape=...), "
-        "float32, 64 rows x 512, batch 32, 2 steps each (collect: a random "
-        "batch an epoch): "
+    log("[tp-fsdp] (b) BERT-base's widths at 2 layers through SparkAsyncDL("
+        "meshShape=...), tp=2 collect and fsdp=2 stream launching their "
+        "ranks, fsdp=2 collect in place on 2 ranks, float32, 64 rows x 512, "
+        "batch 32, 2 steps each (collect: a random batch an epoch): "
         + json.dumps(est) + f" [{card}]")
     out["estimator"] = est
     lap("b_estimator")
@@ -6389,6 +6529,7 @@ PP_SCHEDULES = ("gpipe", "1f1b", "sequential")
 PP_EST_ROWS, PP_EST_BATCH, PP_EST_STEPS = (TPF_EST_ROWS, TPF_EST_BATCH,
                                            TPF_EST_STEPS)
 PP_EST_MICRO = 4
+PP_EST_LAYERS = TPF_EST_LAYERS
 PP_DEC_NEW = 32                                  # (c) 8 prompts, TPF's lengths
 PP_DEC_ARMS = (("pp_wave", {}, "plain"),
                ("pp_wave=False", {"pp_wave": False}, "plain"),
@@ -6500,19 +6641,19 @@ def _pp_training(card, device, pool):
 
 
 def _pp_estimator(card, device, work):
-    """(b) BERT-base through ``Pipeline([OneHotEncoder,
+    """(b) BERT-base's widths at 2 layers through ``Pipeline([OneHotEncoder,
     SparkAsyncDL(meshShape="pp=2", ppSchedule="1f1b", ppMicrobatches=4)])``,
-    float32, 64 rows x 512 (tokens only: a pp classifier takes one input),
-    batch 32, 2 steps (a random batch an epoch): examples/s against one
-    card's ``Trainer`` on the same rows, param bytes a rank at rest, and
-    the fitted model's transform without a mesh."""
+    the estimator launching its ranks, float32, 64 rows x 512 (tokens only:
+    a pp classifier takes one input), batch 32, 2 steps (a random batch an
+    epoch): examples/s against one card's ``Trainer`` on the same rows,
+    param bytes a rank at rest, and the fitted model's transform without a
+    mesh."""
     import numpy as np
-    from sparkflow_tpu_torch.localml import (LocalSession, OneHotEncoder,
-                                             Pipeline)
+    from sparkflow_tpu_torch.localml import LocalSession
     from sparkflow_tpu_torch.models import build_registry_spec
-    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
     spark = LocalSession.builder.appName("pp").getOrCreate()
-    bert = build_registry_spec("transformer_classifier", **BERT_BASE)
+    bert = build_registry_spec("transformer_classifier",
+                               **dict(BERT_BASE, num_layers=PP_EST_LAYERS))
     df = synthetic_text(spark, PP_EST_ROWS, BERT_BASE["max_len"],
                         BERT_BASE["vocab_size"])
     rows = df.collect()
@@ -6521,22 +6662,14 @@ def _pp_estimator(card, device, work):
     # one card on the same rows, tokens only (as the pp classifier takes
     # them); phase 20's batch and steps are phase 21's
     one_ex_s = _tpf_one_card_ex_s(bert, ids, None, labels, device)
-    losses = []
-    est = SparkAsyncDL(
+    kw = dict(
         inputCol="tokens", tensorflowGraph=bert, tfInput="input_ids:0",
         tfLabel="y:0", tfOutput="probs:0", tfOptimizer="adam",
         tfLearningRate=3e-4, iters=PP_EST_STEPS, miniStochasticIters=1,
         miniBatchSize=PP_EST_BATCH, labelCol="labels", predictionCol="probs",
-        meshShape="pp=2", ppSchedule="1f1b", ppMicrobatches=PP_EST_MICRO,
-        device=device, weightsPath=os.path.join(work, "pp-est"))
-    est.setLossCallback(lambda loss, it, part: losses.append(loss))
-    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
-                                          outputCol="labels",
-                                          dropLast=False), est])
-    t0 = time.perf_counter()
-    fitted = pipe.fit(df)
-    fit_s = time.perf_counter() - t0
-    st = est.last_mesh_stats
+        meshShape="pp=2", ppSchedule="1f1b", ppMicrobatches=PP_EST_MICRO)
+    losses, fit_s, st, served = _est_launched(kw, df, device, work,
+                                              "pp-est", transform=True)
     if not (st is not None and st["mesh"] == {"dp": 1, "pp": 2}
             and st["launched"] and st["strategy"] == "pp"
             and len(losses) == PP_EST_STEPS
@@ -6546,15 +6679,12 @@ def _pp_estimator(card, device, work):
     ranks = _pp_rank_rows(st)
     for stage, r in enumerate(ranks):
         want = {n: v * PP_EST_STEPS for n, v in _pp_launches_a_step(
-            "1f1b", stage, 2, BERT_BASE["num_layers"], PP_EST_MICRO).items()}
+            "1f1b", stage, 2, PP_EST_LAYERS, PP_EST_MICRO).items()}
         if device != "cpu" and r["launches"] != want:
             raise AssertionError(f"pp=2 estimator rank {stage} launches "
                                  f"{r['launches']}, want {want}")
-    served = fitted.transform(df).collect()
-    probs = np.stack([np.asarray(r["probs"]) for r in served])
-    if not (probs.shape == (PP_EST_ROWS, 2) and np.isfinite(probs).all()):
-        raise AssertionError(f"pp=2 fitted model's transform: "
-                             f"{probs.shape}")
+    if served != {"rows": PP_EST_ROWS, "finite": True}:
+        raise AssertionError(f"pp=2 fitted model's transform: {served}")
     full = _tpf_full_bytes(bert)
     step_ms = max(r["step_ms_median_after_first"] for r in ranks)
     out = {"mesh": st["mesh"], "backend": st["backend"], "fit_s": fit_s,
@@ -6564,12 +6694,13 @@ def _pp_estimator(card, device, work):
            "param_share_a_rank_at_rest": [r["param_gb"] * 1e9 / full
                                           for r in ranks],
            "one_card_param_gb": full / 1e9,
-           "transform_rows": len(served), "ranks": ranks}
+           "transform_rows": served["rows"], "ranks": ranks}
     out["examples_per_s_over_one_card"] = (out["train_examples_per_s"]
                                            / one_ex_s)
-    log("[pp] (b) BERT-base through SparkAsyncDL(meshShape='pp=2', "
-        "ppSchedule='1f1b', ppMicrobatches=4), float32, 64 rows x 512, "
-        "batch 32, 2 steps: " + json.dumps(out) + f" [{card}]")
+    log("[pp] (b) BERT-base's widths at 2 layers through SparkAsyncDL("
+        "meshShape='pp=2', ppSchedule='1f1b', ppMicrobatches=4), launching "
+        "its ranks, float32, 64 rows x 512, batch 32, 2 steps: "
+        + json.dumps(out) + f" [{card}]")
     return out, {n: sum(r["launches"][n] for r in ranks) for n in MESH_NAMES}
 
 
@@ -6596,73 +6727,77 @@ def _pp_decode(card, device):
     sharding=ShardingConfig(pp_axis="pp"), num_slots=8, page_size=16)``,
     8 prompts x 32 new tokens, in five arms. Exactness in float32 (TF32
     off): each arm's greedy tokens equal those of the engine without a mesh
-    (the same options). Then bf16: step ms p50 and tokens/s against the
-    engine without a mesh, pool bytes a stage (half; a quarter a stage's
-    shard under pp x tp), kernels 1 and 4-7's launches a stage, wave
-    ticks; the counters zeroed just before each arm's burst."""
+    (the same options), with the pool bytes a stage (half; a quarter a
+    stage's shard under pp x tp) and kernels 1 and 4-7's launches a stage,
+    the counters zeroed just before each arm's burst. Then bf16, the arms
+    without speculation: step ms p50 and tokens/s against the engine
+    without a mesh, wave ticks."""
     import numpy as np
     import torch
     from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
     rng = np.random.default_rng(6)
     prompts = [rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
                for n in TPF_DEC_LENS]
-    out = {"float32_identical": {}, "bf16": {}}
+    out = {"float32_identical": {}, "launches_a_stage": {}, "bf16": {}}
     refs = {"plain": {}, "spec": {"spec_k": SPEC_K, "draft_layers": 6},
             "int8+spec": {"kv_quant": "int8", "spec_k": SPEC_K,
                           "draft_layers": 6}}
     model, params = _tpf_lm(None, device)
-    want = {k: _greedy(_pp_engine(model, params, kw, False), prompts,
-                       PP_DEC_NEW) for k, kw in refs.items()}
-    for name, extra, ref in PP_DEC_ARMS:
-        got = _greedy(_pp_engine(model, params, extra, True), prompts,
-                      PP_DEC_NEW)
-        out["float32_identical"][name] = got == want[ref]
-        if got != want[ref]:
-            raise AssertionError(f"pp decode ({name}, float32) tokens {got} "
-                                 f"!= no-mesh {want[ref]}")
-    del model, params
-    model, params = _tpf_lm("bfloat16" if device != "cpu" else None, device)
-    # a first bf16 burst, untimed: the first engine of a process pays its
-    # GEMM shapes' first use, which is no arm's cost
-    _greedy(_pp_engine(model, params, {}, False), prompts, PP_DEC_NEW)
-    base = {}
+    want, kv_ref = {}, {}
     for k, kw in refs.items():
         eng = _pp_engine(model, params, kw, False)
-        toks, ms = _tpf_greedy_timed(eng, prompts, PP_DEC_NEW)
-        base[k] = {"tokens": toks, "ms": ms,
-                   "kv": eng.stats()["parallel"]["kv_bytes_per_device"],
-                   "tokens_per_s": len(prompts) * PP_DEC_NEW * 1e3 / sum(ms)}
+        want[k] = _greedy(eng, prompts, PP_DEC_NEW)
+        kv_ref[k] = eng.stats()["parallel"]["kv_bytes_per_device"]
         del eng
     launches = {}
     for name, extra, ref in PP_DEC_ARMS:
         eng = _pp_engine(model, params, extra, True)
         reset_launch_counts()
-        got, ms = _tpf_greedy_timed(eng, prompts, PP_DEC_NEW)
+        got = _greedy(eng, prompts, PP_DEC_NEW)
         if device != "cpu":
             torch.cuda.synchronize()
         counts = launch_counts()
         launches[name] = {n: counts[n] for n in TPF_NAMES}
-        par = eng.stats()["parallel"]
+        out["float32_identical"][name] = got == want[ref]
+        if got != want[ref]:
+            raise AssertionError(f"pp decode ({name}, float32) tokens {got} "
+                                 f"!= no-mesh {want[ref]}")
         split = 4 if extra.get("tp") else 2
+        out["launches_a_stage"][name] = {n: counts[n] / split
+                                         for n in TPF_NAMES if counts[n]}
+        par = eng.stats()["parallel"]
+        if par["kv_bytes_per_device"] * split != kv_ref[ref]:
+            raise AssertionError(f"pp decode {name}: pool bytes a stage "
+                                 f"{par}, no mesh {kv_ref[ref]}")
+        del eng
+    del model, params
+    model, params = _tpf_lm("bfloat16" if device != "cpu" else None, device)
+    # a first bf16 burst, untimed: the first engine of a process pays its
+    # GEMM shapes' first use, which is no arm's cost
+    _greedy(_pp_engine(model, params, {}, False), prompts, PP_DEC_NEW)
+    eng = _pp_engine(model, params, {}, False)
+    base_toks, base_ms = _tpf_greedy_timed(eng, prompts, PP_DEC_NEW)
+    base_tok_s = len(prompts) * PP_DEC_NEW * 1e3 / sum(base_ms)
+    del eng
+    for name, extra, ref in PP_DEC_ARMS:
+        if ref != "plain":
+            continue
+        eng = _pp_engine(model, params, extra, True)
+        got, ms = _tpf_greedy_timed(eng, prompts, PP_DEC_NEW)
+        par = eng.stats()["parallel"]
         tok_s = len(prompts) * PP_DEC_NEW * 1e3 / sum(ms)
         first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                      None) for a, b in zip(got, base[ref]["tokens"])]
-        row = {"tokens_identical_to_no_mesh": got == base[ref]["tokens"],
-               "first_differing_token": first,
-               "step_ms_p50": _pct(ms, 50), "step_ms_p95": _pct(ms, 95),
-               "steps": len(ms), "tokens_per_s": tok_s,
-               "tokens_per_s_over_no_mesh": tok_s / base[ref]["tokens_per_s"],
-               "no_mesh_step_ms_p50": _pct(base[ref]["ms"], 50),
-               "wave_ticks": par["wave_ticks"], "pp_wave": par["pp_wave"],
-               "kv_gb_a_stage": par["kv_bytes_per_device"] / 1e9,
-               "kv_gb_no_mesh": base[ref]["kv"] / 1e9,
-               "param_gb_a_stage": par["param_bytes_per_device"] / 1e9,
-               "launches_a_stage": {n: counts[n] / split for n in TPF_NAMES
-                                    if counts[n]}}
-        if par["kv_bytes_per_device"] * split != base[ref]["kv"]:
-            raise AssertionError(f"pp decode {name}: pool bytes a stage "
-                                 f"{par}, no mesh {base[ref]['kv']}")
-        out["bf16"][name] = row
+                      None) for a, b in zip(got, base_toks)]
+        out["bf16"][name] = {
+            "tokens_identical_to_no_mesh": got == base_toks,
+            "first_differing_token": first,
+            "step_ms_p50": _pct(ms, 50), "step_ms_p95": _pct(ms, 95),
+            "steps": len(ms), "tokens_per_s": tok_s,
+            "tokens_per_s_over_no_mesh": tok_s / base_tok_s,
+            "no_mesh_step_ms_p50": _pct(base_ms, 50),
+            "wave_ticks": par["wave_ticks"], "pp_wave": par["pp_wave"],
+            "kv_gb_a_stage": par["kv_bytes_per_device"] / 1e9,
+            "param_gb_a_stage": par["param_bytes_per_device"] / 1e9}
         del eng
     need = {"pp_wave": ("flash_fwd", "paged_attention"),
             "pp_wave=False": ("flash_fwd", "paged_attention"),
@@ -6680,8 +6815,8 @@ def _pp_decode(card, device):
                              f"{out['bf16']['pp_wave']}")
     log("[pp] (c) GPT-2 small DecodeEngine(mesh={'pp': 2}, num_slots=8, "
         "page_size=16), 8 prompts x 32 new tokens: float32 (TF32 off) greedy "
-        "tokens identical to the engine without a mesh in every arm; bf16: "
-        + json.dumps(out) + f" [{card}]")
+        "tokens identical to the engine without a mesh in every arm; bf16, "
+        "the arms without speculation: " + json.dumps(out) + f" [{card}]")
     return out, launches
 
 
@@ -6812,9 +6947,778 @@ def phase_pp(card, work, device=None, pool=None):
     return out
 
 
+# -- phase 22: expert parallelism (ROADMAP 7f) and the vmapped sweep ----------
+#
+# Two ranks share the card over gloo for training, and one-process serving
+# puts every expert and tp shard on it: the phase shows the expert bank's
+# split, the exchanges and the kernels on each rank, not scaling.
+EP_TRAIN_BATCH, EP_TRAIN_STEPS = 8, 4            # (a) Switch-Base-8, 8 x 512
+EP_A2A_STEPS = 4                                 # (b) 4 rows a rank
+EP_EXACT_LAYERS, EP_EXACT_BATCH = 2, 8           # (c) full widths, 2 layers
+EP_EXACT_CF = 8.0          # (c) the all_to_all step: capacity for every token
+EP_DEC_ARMS = (("plain", {}), ("spec_k=4", {"spec_k": SPEC_K,
+                                            "draft_layers": 6}),
+               ("int8+spec_k=4", {"kv_quant": "int8", "spec_k": SPEC_K,
+                                  "draft_layers": 6}))
+# (d) float32 exactness at phase 16's exactness depth (4 layers, 2 MoE),
+# the self draft through 2 of them
+EP_EXACT_DRAFT = 2
+EP_DEC_MESHES = (("ep=2", {"ep": 2}, {"ep_axis": "ep"}),
+                 ("tp=2 x ep=2", {"tp": 2, "ep": 2},
+                  {"tp_axis": "tp", "ep_axis": "ep"}))
+EP_PREDICT_ROWS, EP_PREDICT_TOL = 4, 1e-5        # (e) one bucket, float32
+EP_HYPER_LRS = (1e-5, 3e-5, 1e-4, 3e-4)          # (f) K = 4
+EP_HYPER_LAYERS, EP_HYPER_ROWS, EP_HYPER_BATCH, EP_HYPER_ITERS = 4, 16, 8, 2
+EP_HYPER_TOL = 1e-5
+
+
+def _ep_train_rank(spec, ids, device):
+    """(a) on each of 2 ranks: ``Trainer(mesh={"dp": 1, "ep": 2})`` fitting
+    in place (as under torchrun): the fit's wall and this rank's
+    accounting."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    _rank, dev = _sm_rank_setup(device)
+    tr = Trainer(spec, "input_ids", None, optimizer="adam", learning_rate=3e-4,
+                 iters=EP_TRAIN_STEPS, mini_batch_size=EP_TRAIN_BATCH,
+                 mini_stochastic_iters=1, seed=0, device=dev,
+                 compute_dtype="bfloat16" if device != "cpu" else None,
+                 mesh=Mesh({"dp": 1, "ep": 2}))
+    t0 = time.perf_counter()
+    res = tr.fit(ids)
+    return {"losses": res.losses, "fit_s": time.perf_counter() - t0,
+            "stats": tr.last_mesh_stats}
+
+
+def _ep_training(card, device, pool):
+    """(a) The MoE LM at Switch-Base-8 widths through ``Trainer(mesh={"dp":
+    1, "ep": 2})`` on the pool's two ranks: bf16, adam 3e-4, batch 8 x 512,
+    4 steps; each rank holds 4 of each bank's 8 experts."""
+    import numpy as np
+    spec = _moe_spec()
+    rs = np.random.RandomState(22)
+    ids = rs.randint(0, SWITCH_BASE_8["vocab_size"],
+                     (EP_TRAIN_BATCH, SWITCH_BASE_8["max_len"])
+                     ).astype(np.float32)
+    got = pool.run(_ep_train_rank, spec, ids, device)
+    st = dict(got[0]["stats"], ranks=[g["stats"]["ranks"][0] for g in got])
+    losses = got[0]["losses"]
+    if not (st["mesh"] == {"dp": 1, "ep": 2}
+            and all(math.isfinite(x) for x in losses)
+            and len(losses) == EP_TRAIN_STEPS
+            and got[1]["losses"] == losses):
+        raise AssertionError(f"ep=2 Switch-Base-8: {st['mesh']} losses "
+                             f"{[g['losses'] for g in got]}")
+    ranks = _tpf_rank_rows(st, MESH_NAMES)
+    want_l = SWITCH_BASE_8["num_layers"] * EP_TRAIN_STEPS
+    for r in ranks:
+        if device != "cpu" and r["launches"] != {n: want_l
+                                                 for n in MESH_NAMES}:
+            raise AssertionError(f"ep=2 rank {r['rank']} launches "
+                                 f"{r['launches']}, want {want_l} each")
+    full = _tpf_full_bytes(spec)
+    tokens = EP_TRAIN_BATCH * SWITCH_BASE_8["max_len"]
+    step_ms = max(r["step_ms_median_after_first"] for r in ranks)
+    out = {"losses": losses, "fit_s": got[0]["fit_s"],
+           "backend": st["backend"], "step_ms": step_ms,
+           "tokens_per_s": tokens * 1e3 / step_ms,
+           "param_bytes_share_of_one_card": [r["param_gb"] * 1e9 / full
+                                             for r in ranks],
+           "one_card_param_gb": full / 1e9,
+           "host_staged_gb_a_step": [r["host_staged_gb"] / EP_TRAIN_STEPS
+                                     for r in ranks],
+           "ranks": ranks}
+    log("[ep] (a) Switch-Base-8 widths, Trainer(mesh={'dp': 1, 'ep': 2}) in "
+        "place on 2 ranks, bf16, adam 3e-4, batch 8 x 512, 4 steps, 4 of 8 "
+        "experts a bank a rank: " + json.dumps(out) + f" [{card}]")
+    return out, {n: sum(r["launches"][n] for r in ranks) for n in MESH_NAMES}
+
+
+def _ep_overflow(model, params, feeds):
+    """The fraction of routed choices each MoE layer's all_to_all dispatch
+    dropped on this rank, from one forward with the dispatch asked for it."""
+    import torch
+    from sparkflow_tpu_torch.ops import moe_dispatch
+    orig, dropped = moe_dispatch.all_to_all_moe_ffn, []
+
+    def probe(*a, **k):
+        k["return_overflow"] = True
+        y, aux, over = orig(*a, **k)
+        dropped.append(float(over))
+        return y, aux
+
+    moe_dispatch.all_to_all_moe_ffn = probe
+    try:
+        with torch.no_grad():
+            model.loss_vector(params, feeds, train=False)
+    finally:
+        moe_dispatch.all_to_all_moe_ffn = orig
+    return dropped
+
+
+def _ep_a2a_rank(spec, ids, device, steps, opt_kw, compute_dtype,
+                 gather=False):
+    """(b) and (c) on each of 2 ranks: ``make_moe_shardmap_train_step``
+    (the batch and the banks sharded over ``ep``, all_to_all dispatch) for
+    ``steps`` steps on this rank's rows: losses, step ms (CUDA events),
+    bytes, launches, param bytes, the drop fraction, and with ``gather``
+    rank 0 the gathered standard params."""
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    from sparkflow_tpu_torch.parallel import collectives as C
+    from sparkflow_tpu_torch.parallel.ep import (make_moe_shardmap_train_step,
+                                                 place_moe_params)
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.parallel.tp import gather_params
+    rank, dev = _sm_rank_setup(device)
+    cuda = device != "cpu"
+    m = Mesh({"ep": 2})
+    model = model_from_json(spec, compute_dtype=compute_dtype, device=dev)
+    std = {ln: {k: t.detach() for k, t in d.items()}
+           for ln, d in model.init(seed=0).items()}
+    b = ids.shape[0] // 2
+    x = torch.tensor(ids[rank * b:(rank + 1) * b], device=dev).long()
+    mask = torch.ones(x.shape, device=dev)
+    opt = build_optimizer(**opt_kw)
+    with m.bind():
+        params = {ln: {k: t.requires_grad_(True) for k, t in d.items()}
+                  for ln, d in place_moe_params(model, std, m).items()}
+        state = opt.init(params)
+        step = make_moe_shardmap_train_step(model, opt, m)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        C.reset_stats()
+        losses, ms = [], []
+        for i in range(steps):
+            if cuda:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            params, state, loss = step(params, state, x, mask, i)
+            if cuda:
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+        counts = launch_counts()
+        st = C.stats()
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        dropped = _ep_overflow(model, params, {"input_ids": x,
+                                               "attention_mask": mask})
+        out = {"losses": losses, "step_ms": ms,
+               "launches": {n: counts[n] for n in MESH_NAMES},
+               "bytes": st, "peak_mem_gb": peak / 1e9, "overflow": dropped,
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for d in params.values()
+                                  for t in d.values())}
+        if gather:
+            full = gather_params({ln: {k: t.detach() for k, t in d.items()}
+                                  for ln, d in params.items()}, m,
+                                 model.param_pspecs(), std)
+            if rank == 0:
+                out["params"] = _np_tree(full)
+    return out
+
+
+def _ep_a2a(card, device, pool):
+    """(b) The all_to_all step at Switch-Base-8 widths (the model built with
+    ``ep_axis="ep"``): bf16, adam 3e-4, 4 rows x 512 a rank, 4 steps."""
+    import numpy as np
+    spec = _moe_spec(ep_axis="ep")
+    rs = np.random.RandomState(23)
+    ids = rs.randint(0, SWITCH_BASE_8["vocab_size"],
+                     (EP_TRAIN_BATCH, SWITCH_BASE_8["max_len"])
+                     ).astype(np.float32)
+    got = pool.run(_ep_a2a_rank, spec, ids, device, EP_A2A_STEPS,
+                   {"optimizer_name": "adam", "learning_rate": 3e-4},
+                   "bfloat16" if device != "cpu" else None)
+    losses = got[0]["losses"]
+    if not (all(math.isfinite(x) for x in losses)
+            and got[1]["losses"] == losses):
+        raise AssertionError(f"ep=2 all_to_all step losses "
+                             f"{[g['losses'] for g in got]}")
+    moe_layers = SWITCH_BASE_8["num_layers"] // SWITCH_BASE_8["moe_every"]
+    want_l = SWITCH_BASE_8["num_layers"] * EP_A2A_STEPS
+    for r, g in enumerate(got):
+        if device != "cpu" and g["launches"] != {n: want_l
+                                                 for n in MESH_NAMES}:
+            raise AssertionError(f"all_to_all step rank {r} launches "
+                                 f"{g['launches']}, want {want_l} each")
+        # 3 exchanges out (tokens, expert ids, validity) and 1 back per MoE
+        # layer in the forward, the tokens' pair again in the backward
+        if g["bytes"]["all_to_all"] <= 0:
+            raise AssertionError(f"all_to_all step rank {r}: no exchange "
+                                 f"{g['bytes']}")
+    full = _tpf_full_bytes(_moe_spec())
+    tokens = EP_TRAIN_BATCH * SWITCH_BASE_8["max_len"]
+    step_ms = max(float(np.median(g["step_ms"][1:] or g["step_ms"]))
+                  for g in got) if got[0]["step_ms"] else None
+    rows = tokens // 2
+    cap = math.ceil(SWITCH_BASE_8["capacity_factor"] * rows / 2)
+    out = {"losses": losses, "step_ms": step_ms,
+           "tokens_per_s": tokens * 1e3 / step_ms if step_ms else None,
+           "a_rank": [{
+               "step_ms": g["step_ms"],
+               "param_share_of_one_card": g["param_bytes"] / full,
+               "all_to_all_mb_a_step": g["bytes"]["all_to_all"]
+               / EP_A2A_STEPS / 1e6,
+               "all_reduce_gb_a_step": g["bytes"].get("all_reduce", 0)
+               / EP_A2A_STEPS / 1e9,
+               "host_staged_gb_a_step": g["bytes"].get("host_staged", 0)
+               / EP_A2A_STEPS / 1e9,
+               "exchange_mb": 2 * cap * SWITCH_BASE_8["hidden"] * 2 / 1e6,
+               "overflow_by_moe_layer": g["overflow"],
+               "peak_mem_gb": g["peak_mem_gb"],
+               "launches": g["launches"]} for g in got],
+           "moe_layers": moe_layers, "send_buffer_rows_a_peer": cap}
+    log("[ep] (b) the all_to_all step (make_moe_shardmap_train_step), "
+        "Switch-Base-8 widths, bf16, adam 3e-4, 4 rows x 512 a rank, 4 "
+        "steps: " + json.dumps(out) + f" [{card}]")
+    return out, {n: sum(g["launches"][n] for g in got) for n in MESH_NAMES}
+
+
+def _ep_fit_rank(spec, kw, ids, device):
+    """(c) a ``Trainer(mesh={"dp": 1, "ep": 2})`` fit in place on this rank
+    (TF32 off): losses, and rank 0 the standard-layout params."""
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev = _sm_rank_setup(device)
+    tr = Trainer(spec, "input_ids", None, mesh=Mesh({"dp": 1, "ep": 2}),
+                 device=dev, **kw)
+    r = tr.fit(ids)
+    out = {"losses": r.losses}
+    if rank == 0:
+        out["params"] = _np_tree(r.params)
+    return out
+
+
+def _ep_param_excess(got, want):
+    import numpy as np
+    return max(float(np.max(np.abs(got[ln][k] - want[ln][k])
+                            - MESH_PARAM_RTOL * np.abs(want[ln][k])))
+               for ln in want for k in want[ln])
+
+
+def _ep_one_card_steps(spec, ids, opt_kw, steps, device):
+    """One card's steps of the loss the all_to_all step takes (the mean of
+    the per-row losses over every row), through the slot dispatch."""
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.optimizers import (apply_updates,
+                                                build_optimizer, tree_leaves)
+    model = model_from_json(spec, device=device)
+    params = {ln: {k: t.detach().clone().requires_grad_(True)
+                   for k, t in d.items()}
+              for ln, d in model.init(seed=0).items()}
+    opt = build_optimizer(**opt_kw)
+    state = opt.init(params)
+    x = torch.tensor(ids, device=model.device).long()
+    feeds = {"input_ids": x, "attention_mask": torch.ones(
+        x.shape, device=model.device)}
+    losses = []
+    for _ in range(steps):
+        loss = model.loss_vector(params, feeds, train=True).mean()
+        leaves = tree_leaves(params)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        gtree = {ln: {k: next(grads) for k in d} for ln, d in params.items()}
+        with torch.no_grad():
+            upd, state = opt.update(gtree, state, params)
+            apply_updates(params, upd)
+        losses.append(loss.item())
+    return losses, _np_tree(params)
+
+
+def _ep_exactness(card, device, pool):
+    """(c) Switch-Base-8 widths cut to 2 layers (one MoE layer), float32,
+    TF32 off, 8 x 512: the trainer's ep=2 fit (a) and the all_to_all step
+    (b) against one card, 3 adam steps each: losses 1e-5 relative, params
+    as phase 18 (d). The all_to_all step runs at capacity factor 8 on both
+    sides: its buffers are per peer, the slot table's per expert, so the
+    two forms drop the same tokens only when neither drops any."""
+    import numpy as np
+    from sparkflow_tpu_torch.trainer import Trainer
+    cut = dict(num_layers=EP_EXACT_LAYERS)
+    spec = _moe_spec(**cut)
+    rs = np.random.RandomState(24)
+    ids = rs.randint(0, SWITCH_BASE_8["vocab_size"],
+                     (EP_EXACT_BATCH, SWITCH_BASE_8["max_len"])
+                     ).astype(np.float32)
+    kws = {"adam": dict(optimizer="adam", learning_rate=3e-4, iters=3,
+                        mini_batch_size=EP_EXACT_BATCH, seed=0,
+                        optimizer_options={"epsilon": 1e-6})}
+    out = {}
+
+    def check(name, got_l, got_p, one_l, one_p, ranks_equal):
+        lrel = max(abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(got_l, one_l))
+        e = {"loss_rel": lrel, "param_excess": _ep_param_excess(got_p,
+                                                               one_p)}
+        out[name] = e
+        if not (ranks_equal and len(got_l) == len(one_l)
+                and lrel <= MESH_LOSS_RTOL
+                and e["param_excess"] <= MESH_PARAM_ATOL):
+            raise AssertionError(f"(c) {name} vs one card: {e}")
+
+    for opt, kw in kws.items():
+        one = Trainer(spec, "input_ids", None, device=device, **kw).fit(ids)
+        got = pool.run(_ep_fit_rank, spec, kw, ids, device)
+        check(f"trainer ep=2 {opt}", got[0]["losses"], got[0]["params"],
+              one.losses, _np_tree(one.params),
+              got[0]["losses"] == got[1]["losses"])
+    a2a = {"adam": ({"optimizer_name": "adam", "learning_rate": 3e-4,
+                     "optimizer_options": {"epsilon": 1e-6}}, 3)}
+    wide = dict(cut, capacity_factor=EP_EXACT_CF)
+    for opt, (okw, steps) in a2a.items():
+        one_l, one_p = _ep_one_card_steps(_moe_spec(**wide), ids, okw, steps,
+                                          device)
+        got = pool.run(_ep_a2a_rank, _moe_spec(ep_axis="ep", **wide), ids,
+                       device, steps, okw, None, True)
+        check(f"all_to_all step {opt}", got[0]["losses"], got[0]["params"],
+              one_l, one_p, got[0]["losses"] == got[1]["losses"])
+    pool.run(_rank_release)
+    log("[ep] (c) exactness, Switch-Base-8 widths cut to 2 layers, float32, "
+        "TF32 off, 8 x 512: " + json.dumps(out) + f" (losses <= "
+        f"{MESH_LOSS_RTOL} relative, params |d| - {MESH_PARAM_RTOL} |p| <= "
+        f"{MESH_PARAM_ATOL}) [{card}]")
+    return out
+
+
+def _ep_engine(model, params, extra, mesh):
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    kw = dict(extra)
+    if mesh is not None:
+        kw.update(mesh=mesh[1], sharding=ShardingConfig(**mesh[2]))
+    return DecodeEngine(model, params, num_slots=8, page_size=16, seed=0,
+                        **kw)
+
+
+def _ep_http_burst(eng, prompts):
+    """Phase 16's burst through ``/v1/generate``: every prompt at once from
+    its own client thread; tokens and wall."""
+    from sparkflow_tpu_torch.serving import (ContinuousBatcher,
+                                             InferenceServer, ServingClient)
+    cb = ContinuousBatcher(eng, max_queue=64)
+    srv = InferenceServer(None, generate_batcher=cb, host="127.0.0.1",
+                          port=0, memory_watch=False).start()
+    results = [None] * len(prompts)
+    try:
+        cli = ServingClient(srv.url, timeout=300)
+
+        def one(i):
+            results[i] = cli.generate(prompts[i], max_new_tokens=MOE_NEW)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        ep = cli.healthz()["decode"]["ep"]
+    finally:
+        srv.stop()
+    for i, r in enumerate(results):
+        if r is None or len(r["tokens"]) != MOE_NEW:
+            raise AssertionError(f"ep burst request {i}: {r}")
+    return [r["tokens"] for r in results], wall, ep
+
+
+def _ep_decode(card, device, params):
+    """(d) The Switch-Base-8-width MoE LM behind ``DecodeEngine(mesh=...,
+    num_slots=8, page_size=16)`` with ``{"ep": 2}`` and ``{"tp": 2, "ep":
+    2}``, phase 16's 8 prompts x 32 new tokens, plain, ``spec_k=4`` and int8
+    with ``spec_k=4``. Float32 (TF32 off) at phase 16's exactness depth (4
+    layers, the self draft through 2): each arm's greedy tokens equal the
+    engine's without a mesh on the split banks' arithmetic (the model's
+    ``per_expert_products``), kernels 1 and 4-7's launches, and the
+    sequences in which the engine without a mesh on its own batched expert
+    products differs from that (counted). Bf16 at full
+    depth, the plain arm: tokens that differ from the engine without a mesh
+    (counted), step ms and tokens/s against it; then its burst through
+    ``/v1/generate`` (tokens/s against the engine without a mesh's burst,
+    ``/healthz``'s ep)."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(16)
+    vocab = SWITCH_BASE_8["vocab_size"]
+    prompts = [rng.integers(0, vocab, n).tolist() for n in MOE_PROMPTS]
+    out = {"float32_identical": {}, "float32_batched_differing": {},
+           "bf16": {}, "http": {}}
+    cut = model_from_json(_moe_spec(num_layers=MOE_EXACT_LAYERS),
+                          device=device)
+    # the reference: one product per expert, as the split banks run them
+    ref = model_from_json(_moe_spec(num_layers=MOE_EXACT_LAYERS),
+                          device=device)
+    ref.per_expert_products = True
+    cut_params = {k: v for k, v in params.items()
+                  if not k.startswith("block_")
+                  or int(k.split("_")[1]) < MOE_EXACT_LAYERS}
+    launches = {}
+    for arm, extra in EP_DEC_ARMS:
+        extra = ({**extra, "draft_layers": EP_EXACT_DRAFT}
+                 if "draft_layers" in extra else extra)
+        want = _greedy(_ep_engine(ref, cut_params, extra, None), prompts,
+                       MOE_NEW)
+        batched = _greedy(_ep_engine(cut, cut_params, extra, None), prompts,
+                          MOE_NEW)
+        out["float32_batched_differing"][arm] = sum(
+            a != b for a, b in zip(batched, want))
+        for mname, axes, cfg in EP_DEC_MESHES:
+            eng = _ep_engine(cut, cut_params, extra, (mname, axes, cfg))
+            reset_launch_counts()
+            got = _greedy(eng, prompts, MOE_NEW)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            key = f"{mname} {arm}"
+            launches[key] = {n: counts[n] for n in TPF_NAMES}
+            out["float32_identical"][key] = got == want
+            if got != want:
+                raise AssertionError(f"ep decode ({key}, float32) tokens "
+                                     f"{got} != no-mesh {want}")
+            if eng.stats()["parallel"]["ep"] != 2:
+                raise AssertionError(f"ep decode {key}: "
+                                     f"{eng.stats()['parallel']}")
+    del cut, ref, cut_params
+    # bf16 at full depth, the plain arm: flips and tokens/s against the
+    # engine without a mesh (a first burst untimed: first use of shapes)
+    model = model_from_json(_moe_spec(), compute_dtype="bfloat16"
+                            if device != "cpu" else None, device=device)
+    _greedy(_ep_engine(model, params, {}, None), prompts, MOE_NEW)
+    base, base_ms = _tpf_greedy_timed(_ep_engine(model, params, {}, None),
+                                      prompts, MOE_NEW)
+    base_tok_s = len(prompts) * MOE_NEW * 1e3 / sum(base_ms)
+    for mname, axes, cfg in EP_DEC_MESHES:
+        eng = _ep_engine(model, params, {}, (mname, axes, cfg))
+        got, ms = _tpf_greedy_timed(eng, prompts, MOE_NEW)
+        par = eng.stats()["parallel"]
+        tok_s = len(prompts) * MOE_NEW * 1e3 / sum(ms)
+        flips = [next((i for i, (x, y) in enumerate(zip(a, b))
+                       if x != y), None) for a, b in zip(got, base)]
+        out["bf16"][f"{mname} plain"] = {
+            "sequences_differing": sum(f is not None for f in flips),
+            "first_differing_token": flips,
+            "step_ms_p50": _pct(ms, 50),
+            "no_mesh_step_ms_p50": _pct(base_ms, 50),
+            "tokens_per_s": tok_s,
+            "tokens_per_s_over_no_mesh": tok_s / base_tok_s,
+            "ep": par["ep"], "tp": par["tp"],
+            "param_gb_a_device": par["param_bytes_per_device"] / 1e9}
+        del eng
+    out["launches_float32"] = {k: {n: c for n, c in v.items() if c}
+                               for k, v in launches.items()}
+    need = {"plain": ("flash_fwd", "paged_attention"),
+            "spec_k=4": ("flash_fwd", "paged_attention", "paged_verify"),
+            "int8+spec_k=4": ("flash_fwd", "paged_attention_quant",
+                              "paged_verify_quant")}
+    for key, counts in launches.items():
+        arm = key.split(" ")[-1]
+        if device != "cpu" and not all(counts[n] for n in need[arm]):
+            raise AssertionError(f"ep decode {key}: launches {counts}")
+    base_toks, base_wall, _ = _ep_http_burst(
+        _ep_engine(model, params, {}, None), prompts)
+    for mname, axes, cfg in EP_DEC_MESHES:
+        toks, wall, ep = _ep_http_burst(
+            _ep_engine(model, params, {}, (mname, axes, cfg)), prompts)
+        if ep != 2:
+            raise AssertionError(f"/healthz ep {ep} under {mname}")
+        out["http"][mname] = {
+            "tokens_per_s": len(prompts) * MOE_NEW / wall,
+            "tokens_per_s_over_no_mesh": base_wall / wall,
+            "sequences_differing_from_no_mesh": sum(
+                a != b for a, b in zip(toks, base_toks)), "healthz_ep": ep}
+    log("[ep] (d) Switch-Base-8 widths DecodeEngine(mesh=..., num_slots=8, "
+        "page_size=16), 8 prompts x 32 new tokens: float32 (TF32 off, 4 "
+        "layers) greedy tokens identical to the engine without a mesh on "
+        "one product per expert in every arm; bf16 (12 layers), the plain "
+        "arm: " + json.dumps(out)
+        + f" [{card}]")
+    return out, launches
+
+
+def _ep_predict(card, device, params):
+    """(e) ``InferenceEngine(mesh={"ep": 2}, sharding=ShardingConfig(
+    ep_axis="ep"))`` on the MoE LM's logits, float32, TF32 off, 4 rows x
+    512: max |d| from the engine without a mesh on one product per expert
+    (1e-5) and on its batched products (phase 20 (d)'s 1e-4), and the
+    rows/s of the ep engine and of the batched one."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.serving import InferenceEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    model = model_from_json(_moe_spec(), device=device)
+    ref = model_from_json(_moe_spec(), device=device)
+    ref.per_expert_products = True
+    rs = np.random.RandomState(25)
+    x = rs.randint(0, SWITCH_BASE_8["vocab_size"],
+                   (EP_PREDICT_ROWS, SWITCH_BASE_8["max_len"])
+                   ).astype(np.int32)
+    kw = dict(input_name="input_ids:0", output_name="logits:0",
+              max_batch=EP_PREDICT_ROWS)
+    engs = {"no mesh": InferenceEngine(model, params, **kw),
+            "ep=2": InferenceEngine(model, params, mesh={"ep": 2},
+                                    sharding=ShardingConfig(ep_axis="ep"),
+                                    **kw)}
+    got, rate = {}, {}
+    for name, eng in engs.items():
+        got[name] = eng.predict(x)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.predict(x)
+        rate[name] = 3 * EP_PREDICT_ROWS / (time.perf_counter() - t0)
+    got["per expert"] = InferenceEngine(ref, params, **kw).predict(x)
+    d = float(np.max(np.abs(got["ep=2"] - got["per expert"])))
+    d_batched = float(np.max(np.abs(got["ep=2"] - got["no mesh"])))
+    st = engs["ep=2"].stats()
+    out = {"max_abs_diff": d, "max_abs_diff_batched": d_batched,
+           "rows_per_s": rate, "ep": st["ep"],
+           "param_gb_a_device": st["param_bytes_per_device"] / 1e9,
+           "no_mesh_param_gb": engs["no mesh"].stats()[
+               "param_bytes_per_device"] / 1e9}
+    if not (d <= EP_PREDICT_TOL and d_batched <= TPF_PREDICT_TOL
+            and st["ep"] == 2):
+        raise AssertionError(f"(e) ep predict: {out}")
+    log("[ep] (e) InferenceEngine(mesh={'ep': 2}) on the MoE LM, float32, "
+        "4 x 512 logits: " + json.dumps(out) + f" [{card}]")
+    return out
+
+
+def _ep_hyper(card, device):
+    """(f) ``hyperparameter_search`` with K = 4 learning rates at BERT-base
+    widths cut to 4 layers (dropout 0: the sweep draws one mask for its K
+    replicas, separate sweeps one each), float32, TF32 off, adam, 16 rows x
+    512, batch
+    8, 2 epochs (4 steps): the curves equal 4 separate one-rate sweeps
+    within 1e-5 relative; kernels 1-3 launch once per layer and step for
+    all four replicas (16 each), the separate sweeps 64."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.parallel.hyper import hyperparameter_search
+    bert = build_registry_spec("transformer_classifier",
+                               **dict(BERT_BASE, num_layers=EP_HYPER_LAYERS,
+                                      dropout=0.0))
+    rs = np.random.RandomState(26)
+    ids = rs.randint(0, BERT_BASE["vocab_size"],
+                     (EP_HYPER_ROWS, BERT_BASE["max_len"])).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[rs.randint(0, 2, EP_HYPER_ROWS)]
+    kw = dict(optimizer="adam", iters=EP_HYPER_ITERS,
+              mini_batch_size=EP_HYPER_BATCH, seed=0, device=device)
+    cuda = device != "cpu"
+
+    def run(lrs):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = hyperparameter_search(bert, "input_ids", "y", ids, y,
+                                    learning_rates=list(lrs), **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    run(EP_HYPER_LRS[:1])          # first use of the shapes, untimed
+    reset_launch_counts()
+    sweep, sweep_s = run(EP_HYPER_LRS)
+    counts = launch_counts()
+    sweep_l = {n: counts[n] for n in MESH_NAMES}
+    reset_launch_counts()
+    sep, sep_s = [], 0.0
+    for lr in EP_HYPER_LRS:
+        r, s = run((lr,))
+        sep.append(r.loss_curves[0])
+        sep_s += s
+    counts = launch_counts()
+    sep_l = {n: counts[n] for n in MESH_NAMES}
+    steps = EP_HYPER_ITERS * (EP_HYPER_ROWS // EP_HYPER_BATCH)
+    rel = float(np.max(np.abs(sweep.loss_curves - np.stack(sep))
+                       / np.maximum(np.abs(np.stack(sep)), 1e-12)))
+    out = {"curves": sweep.loss_curves.tolist(), "max_rel_vs_separate": rel,
+           "sweep_s": sweep_s, "separate_s": sep_s,
+           "sweep_over_separate_time": sweep_s / sep_s,
+           "launches_sweep": sweep_l, "launches_separate": sep_l,
+           "best_learning_rate": float(sweep.best_learning_rate)}
+    want = EP_HYPER_LAYERS * steps
+    if not (rel <= EP_HYPER_TOL and np.isfinite(sweep.loss_curves).all()):
+        raise AssertionError(f"(f) sweep vs separate fits: {out}")
+    if cuda and not (sweep_l == {n: want for n in MESH_NAMES}
+                     and sep_l == {n: want * len(EP_HYPER_LRS)
+                                   for n in MESH_NAMES}):
+        raise AssertionError(f"(f) launches {sweep_l} / {sep_l}, want "
+                             f"{want} / {want * len(EP_HYPER_LRS)} each")
+    log("[ep] (f) hyperparameter_search, K = 4, BERT-base widths cut to 4 "
+        "layers, float32, TF32 off, adam, 16 x 512, batch 8, 4 steps: "
+        + json.dumps(out) + f" [{card}]")
+    return out, sweep_l
+
+
+def phase_ep(card, work, device=None, pool=None):
+    """Phase 22: expert parallelism and the vmapped sweep on the card (see
+    the module docstring). The in-place rank work of (a)-(c) runs in
+    ``pool`` (phase 18's) or a pool of its own. Returns the phase's
+    launches and summary. Rehearse it on the CPU with ``device="cpu"`` and
+    shrunk ``SWITCH_BASE_8`` / ``BERT_BASE``."""
+    import torch
+    from sparkflow_tpu_torch.parallel import distributed
+    t0 = time.perf_counter()
+    cuda = device != "cpu"
+    kind = "cuda" if cuda else "cpu"
+    os.environ["SPARKFLOW_TORCH_MESH_TIMEOUT_S"] = str(MESH_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = distributed.choose_backend(2, kind)
+    log(f"[ep] 2 ranks on {torch.cuda.device_count()} card(s), backend "
+        f"{backend}; decode expert shard e on card (e * tp) % count. On one "
+        f"card this shows the split banks, the exchanges and the kernels on "
+        f"each rank, not scaling [{card}]")
+    out = {"backend": backend, "seconds": {}}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds"][name] = now - mark[0]
+        mark[0] = now
+        log(f"[ep] {name} {out['seconds'][name]:.1f} s")
+
+    with _pool_of(pool, kind) as pool:
+        out["train"], train_l = _ep_training(card, device, pool)
+        pool.run(_rank_release)
+        lap("a_training")
+        out["a2a"], a2a_l = _ep_a2a(card, device, pool)
+        pool.run(_rank_release)
+        lap("b_all_to_all")
+        out["exact"] = _ep_exactness(card, device, pool)
+        lap("c_exact")
+    from sparkflow_tpu_torch.models import model_from_json
+    params = model_from_json(_moe_spec(), device=device).init(
+        torch.Generator().manual_seed(0))      # float32, one draw for (d)-(e)
+    out["decode"], dec_l = _ep_decode(card, device, params)
+    lap("d_decode")
+    out["predict"] = _ep_predict(card, device, params)
+    del params
+    lap("e_predict")
+    out["hyper"], hyper_l = _ep_hyper(card, device)
+    lap("f_hyper")
+    launches = {}
+    for n in TPF_NAMES:
+        row = {"training_ep2": train_l.get(n, 0),
+               "all_to_all_step": a2a_l.get(n, 0),
+               "hyper_sweep_k4": hyper_l.get(n, 0)}
+        row.update({f"decode {k}": v[n] for k, v in dec_l.items()})
+        launches[n] = row
+    out["launches"] = launches
+    log(f"[ep] phase 22 {time.perf_counter() - t0:.1f} s, by part "
+        + json.dumps(out["seconds"]) + f" [{card}]")
+    return out
+
+
+def _timed(name, fn, *args):
+    """``fn(*args)`` with a ``[time]`` line; the cached card memory it
+    leaves is freed after it, as the other process shares the card."""
+    import gc
+    import torch
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name} {time.perf_counter() - t:.1f} s")
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+MESH_GROUP_RESULT = "mesh-group.json"
+
+
+def run_mesh_group(work: str) -> int:
+    """Phases 18-21 (``python3 chip_smoke.py --mesh-group WORK``), the
+    second process :func:`main` runs beside its own phases: the kernel
+    library phase 1 built is found in the build directory, the four phases
+    share one 2-rank pool and write under ``WORK``, and what the kernels
+    line needs of them goes to ``WORK/mesh-group.json``. Exits when its
+    caller is gone."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    caller = os.getppid()
+
+    def orphaned():
+        while os.getppid() == caller:
+            time.sleep(1.0)
+        os._exit(3)     # the pool's ranks exit once this process is gone
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    try:
+        from sparkflow_tpu_torch.ops import _build
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA card")
+        card = card_line()
+        _build.load()
+        log(f"[mesh-group] kernel library {_build.loaded()['how']} in "
+            f"{_build.loaded()['seconds']:.1f} s [{card}]")
+        with _timed("mesh-pool", mesh_pool) as pool:
+            mesh = _timed("mesh", phase_mesh, card, work, pool)
+            stream_mesh = _timed("stream-mesh", phase_stream_mesh, card,
+                                 work, mesh, None, pool)
+            tpf = _timed("tp-fsdp", phase_tp_fsdp, card, work, None, pool)
+            ppr = _timed("pp", phase_pp, card, work, None, pool)
+        out = {"mesh": {"launches": mesh["launches"]},
+               "stream_mesh": {"launches": stream_mesh["launches"]},
+               "tp_fsdp": {"launches": tpf["launches"],
+                           "kernels_h6": tpf["kernels_h6"]},
+               "pp": {"launches": ppr["launches"]}}
+        path = os.path.join(work, MESH_GROUP_RESULT)
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f, default=lambda o: o.item()
+                      if hasattr(o, "item") else str(o))
+        os.replace(path + ".tmp", path)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def _start_mesh_group(work):
+    """Start :func:`run_mesh_group` in a second process writing under
+    ``work/mesh-group``, its standard output relayed line by line."""
+    d = os.path.join(work, "mesh-group")
+    os.makedirs(d)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-group", d],
+        stdout=subprocess.PIPE, text=True, bufsize=1)
+
+    def relay():
+        for line in proc.stdout:
+            log(line.rstrip("\n"))
+
+    relay_thread = threading.Thread(target=relay, daemon=True)
+    relay_thread.start()
+    return proc, relay_thread, d
+
+
+def _join_mesh_group(group):
+    """Wait for the second process; its summaries, or AssertionError."""
+    proc, relay_thread, d = group
+    rc = proc.wait()
+    relay_thread.join(timeout=60)
+    if rc != 0:
+        raise AssertionError(f"phases 18-21 failed in their process (exit "
+                             f"{rc}); its traceback is above")
+    with open(os.path.join(d, MESH_GROUP_RESULT)) as f:
+        return json.load(f)
+
+
 def main(only: str = None) -> int:
-    """All phases; with ``only="tp-fsdp"`` or ``only="pp"`` set-up and phase
-    20 or 21 alone (its summary in place of the kernels line)."""
+    """All phases; with ``only`` set-up and one phase alone, its summary in
+    place of the kernels line: ``"spec-serving"`` (3), ``"families"`` (16),
+    ``"tp-fsdp"`` (20), ``"pp"`` (21) or ``"ep"`` (22)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -6828,64 +7732,70 @@ def main(only: str = None) -> int:
     t0 = time.perf_counter()
     # phase 12's fitted weights and phase 13's weight store
     work = tempfile.mkdtemp(prefix="chip-smoke-")
-
-    def timed(name, fn, *args):
-        t = time.perf_counter()
-        out = fn(*args)
-        log(f"[time] {name} {time.perf_counter() - t:.1f} s")
-        return out
-
-    alone = {"tp-fsdp": ("tp_fsdp", phase_tp_fsdp), "pp": ("pp", phase_pp)}
+    alone = {"tp-fsdp": ("tp_fsdp", phase_tp_fsdp), "pp": ("pp", phase_pp),
+             "ep": ("ep", phase_ep)}
+    single = {"spec-serving": ("spec_serving", phase_spec_serving),
+              "families": ("families",
+                           lambda card: phase_families(card, work))}
     if only is not None:
-        if only not in alone:
+        if only not in alone and only not in single:
             print(f"chip_smoke: unknown phase {only!r}; one of "
-                  f"{sorted(alone)}", file=sys.stderr)
+                  f"{sorted(alone) + sorted(single)}", file=sys.stderr)
             return 2
-        key, fn = alone[only]
         try:
-            timed("setup", phase_setup)
-            with timed("mesh-pool", mesh_pool) as pool:
-                summary = timed(only, fn, card, work, None, pool)
+            _timed("setup", phase_setup)
+            if only in single:
+                key, fn = single[only]
+                summary = _timed(only, fn, card)
+            else:
+                key, fn = alone[only]
+                with _timed("mesh-pool", mesh_pool) as pool:
+                    summary = _timed(only, fn, card, work, None, pool)
         except Exception:
             traceback.print_exc()
             return 1
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        print(json.dumps({key: summary}))
+        print(json.dumps({key: summary}, default=str))
         print(card_line())
         print(json.dumps({"ok": True, "device": device_report()}),
               flush=True)
         return 0
+    group = None
     try:
-        timed("setup", phase_setup)
-        flash_row, paged_row = timed("kernels", phase_kernels, card)
-        spec_rows = timed("spec-kernels", phase_spec_kernels, card)
-        bwd_rows = timed("bwd", phase_backward_kernels, card)
-        launches, eng = timed("serving", phase_serving, card)
-        timed("profile", phase_profile, card, eng)
+        _timed("setup", phase_setup)
+        flash_row, paged_row = _timed("kernels", phase_kernels, card)
+        spec_rows = _timed("spec-kernels", phase_spec_kernels, card)
+        bwd_rows = _timed("bwd", phase_backward_kernels, card)
+        # the kernels' times are taken: phases 18-21 start beside the rest
+        group = _start_mesh_group(work)
+        launches, eng = _timed("serving", phase_serving, card)
+        _timed("profile", phase_profile, card, eng)
         del eng
-        spec_launches = timed("spec-serving", phase_spec_serving, card)
-        timed("exactness", phase_exactness, card)
-        timed("spec-exactness", phase_spec_exactness, card)
-        train_launches = timed("training", phase_training, card)
-        timed("train-exactness", phase_train_exactness, card)
-        (spec, weights), est_rows = timed("estimator", phase_estimator,
+        spec_launches = _timed("spec-serving", phase_spec_serving, card)
+        _timed("exactness", phase_exactness, card)
+        _timed("spec-exactness", phase_spec_exactness, card)
+        train_launches = _timed("training", phase_training, card)
+        _timed("train-exactness", phase_train_exactness, card)
+        (spec, weights), est_rows = _timed("estimator", phase_estimator,
                                           card, work)
-        predict = timed("predict", phase_predict, card, spec, weights, work)
-        resil = timed("resilience", phase_resilience, card, work)
-        fleet = timed("fleet", phase_fleet, card, spec, work)
-        families = timed("families", phase_families, card, work)
-        tf1_hog = timed("tf1-hogwild", phase_tf1_hogwild, card, work)
-        with timed("mesh-pool", mesh_pool) as pool:
-            mesh = timed("mesh", phase_mesh, card, work, pool)
-            stream_mesh = timed("stream-mesh", phase_stream_mesh, card,
-                                work, mesh, None, pool)
-            tpf = timed("tp-fsdp", phase_tp_fsdp, card, work, None, pool)
-            ppr = timed("pp", phase_pp, card, work, None, pool)
+        predict = _timed("predict", phase_predict, card, spec, weights, work)
+        resil = _timed("resilience", phase_resilience, card, work)
+        fleet = _timed("fleet", phase_fleet, card, spec, work)
+        families = _timed("families", phase_families, card, work)
+        tf1_hog = _timed("tf1-hogwild", phase_tf1_hogwild, card, work)
+        with _timed("mesh-pool", mesh_pool) as pool:
+            epr = _timed("ep", phase_ep, card, work, None, pool)
+        side = _timed("mesh-group wait", _join_mesh_group, group)
+        mesh, stream_mesh = side["mesh"], side["stream_mesh"]
+        tpf, ppr = side["tp_fsdp"], side["pp"]
     except Exception:
         traceback.print_exc()
         return 1
     finally:
+        if group is not None and group[0].poll() is None:
+            group[0].kill()
+            group[0].wait(timeout=60)
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
     src = "sparkflow_tpu_torch/ops/csrc/"
@@ -6986,6 +7896,10 @@ def main(only: str = None) -> int:
         # the estimator's summed over the ranks, each decode arm over the
         # stages)
         row["pp"] = {"launches": ppr["launches"][row["name"]]}
+        # phase 22: the launches of its ep paths (the ep=2 fit and the
+        # all_to_all step summed over the ranks, the K = 4 sweep, each
+        # decode arm over the shards)
+        row["ep"] = {"launches": epr["launches"][row["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)
@@ -6997,4 +7911,6 @@ if __name__ == "__main__":
         sys.exit(run_replica(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--phase"]:
         sys.exit(main(only=sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-group"]:
+        sys.exit(run_mesh_group(sys.argv[2]))
     sys.exit(main())

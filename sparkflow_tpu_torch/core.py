@@ -202,9 +202,12 @@ def make_predict_fn(model, input_name, output_name: str,
     is unchanged), any batch size padded up to a dp multiple, split into
     contiguous row blocks, each block's output concatenated and trimmed.
     On a ``tp`` axis a model with megatron rules (``param_pspecs``) splits
-    each copy into tp shards and sums each block half's partials; a model
-    without them holds whole copies, as JAX's replicated program does.
-    An ``fsdp`` axis holds whole copies."""
+    each copy into tp shards and sums each block half's partials; on an
+    ``ep`` axis an MoE model splits each bank into ep shards and sums their
+    outputs; a model without rules holds whole copies, as JAX's replicated
+    program does. An ``fsdp`` or ``sp`` axis holds whole copies. An MoE
+    model keeps its batch on one copy: its routing couples the rows, and
+    JAX's program routes the whole batch."""
     multi = isinstance(input_name, (list, tuple))
     in_keys = ([n.split(":")[0] for n in input_name] if multi
                else [input_name.split(":")[0]])
@@ -226,25 +229,32 @@ def make_predict_fn(model, input_name, output_name: str,
     if mesh is None:
         return predict
     from .parallel import mesh as pmesh
-    dp, tp_axis, tp = pmesh.serving_layout(mesh, sharding)
+    dp, tp_axis, tp, ep_axis, ep = pmesh.serving_layout(mesh, sharding)
     pspecs = None
-    if tp > 1:
+    if tp * ep > 1:
         from .parallel.tp import serving_pspecs
-        pspecs = serving_pspecs(model, pmesh.as_mesh(mesh), tp_axis)
+        pspecs = serving_pspecs(model, pmesh.as_mesh(mesh),
+                                tp_axis if tp > 1 else None,
+                                ep_axis if ep > 1 else None)
     if pspecs is None:
-        tp = 1      # no megatron rules: each copy holds the whole tree
-    if dp <= 1 and tp <= 1:
+        tp = ep = 1     # no megatron rules: each copy holds the whole tree
+    if getattr(model, "num_experts", None):
+        dp = 1          # an MoE layer routes the whole batch, as in JAX
+    if dp <= 1 and tp * ep <= 1:
         return predict
-    grid = pmesh.serving_grid(dp, tp, model.device)
+    grid = pmesh.serving_grid(dp, tp, model.device, ep=ep)
+    experts = pmesh.expert_grid(dp, tp, ep, model.device)
     models = [pmesh.model_on(model, g[0]) for g in grid]
     held: dict = {"key": None}
 
     def place(params):
-        if tp <= 1:
+        if tp * ep <= 1:
             return pmesh.dp_copies(params, [g[0] for g in grid])
         from .parallel.tp import serving_tree
-        return [serving_tree(model, params, pspecs, tp_axis, g)
-                for g in grid]
+        return [serving_tree(model, params, pspecs,
+                             tp_axis if tp > 1 else None, g,
+                             ep_axis if ep > 1 else None, x)
+                for g, x in zip(grid, experts)]
 
     def copies(params):
         # the per-shard copies of the tree this call got, made again only

@@ -55,8 +55,10 @@ block's params are a :class:`~..parallel.tp.TPShards` (and so are a decode
 cache and a prefill's K/V): each half runs on every shard, the partials are
 summed in float32 on shard 0's device in shard order and rounded to the
 compute dtype once, and the bias is added once after. An MoE layer's
-expert MLP is replicated on a ``tp`` mesh and has no reduction. Expert parallelism
-(``ep_axis``) is not yet ported and raises.
+expert MLP is replicated on a ``tp`` mesh and has no reduction; expert
+parallelism splits its bank instead (``expert_axis`` on an ep rank, an
+:class:`~..parallel.tp.EPShards` in one-process serving, the all_to_all
+form for ``ep_axis``; :mod:`.moe`).
 """
 
 from __future__ import annotations
@@ -102,10 +104,6 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _not_yet(what: str):
-    raise ValueError(f"{what} is not yet ported to PyTorch (see ROADMAP.md)")
-
-
 # remat="dots": the weight products' outputs are kept, everything else is
 # recomputed in the backward
 _SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -138,6 +136,10 @@ class _TransformerBase(RegistryModel):
         # a mesh axis name, set on a tp rank's copy of the model: the
         # Megatron forward over that axis of the bound mesh
         self.tp_axis: Optional[str] = None
+        # a mesh axis name, set on an ep rank's copy of an MoE model: each
+        # MoE layer runs this rank's slice of the expert bank and sums over
+        # that axis (models/moe.py)
+        self.expert_axis: Optional[str] = None
         self.vocab_size = int(vocab_size)
         self.hidden = int(hidden)
         self.num_layers = int(num_layers)
@@ -199,15 +201,24 @@ class _TransformerBase(RegistryModel):
     # -- blocks --------------------------------------------------------------
 
     def _axes_model(self, tp_axis, ep_axis):
-        """The model an entry point called with mesh axes runs as: itself,
-        or a copy running the Megatron forward over ``tp_axis`` (of the
-        bound mesh, on this rank's slices). ``ep_axis`` is refused."""
-        if ep_axis is not None:
-            _not_yet("expert parallelism (ep_axis)")
-        if tp_axis is None or tp_axis == self.tp_axis:
+        """The model a serving entry point called with mesh axes runs as:
+        itself, or a copy running the Megatron forward over ``tp_axis`` and
+        the MoE layers' local banks over ``ep_axis`` (of the bound mesh, on
+        this rank's slices; a dense block ignores ``ep_axis``, as in JAX).
+        An MoE model built with the all_to_all ``ep_axis`` serves through
+        the slot table, as JAX's decode forms do."""
+        a2a = getattr(self, "ep_axis", None)
+        if ((tp_axis is None or tp_axis == self.tp_axis)
+                and (ep_axis is None or ep_axis == self.expert_axis)
+                and a2a is None):
             return self
         other = copy.copy(self)
-        other.tp_axis = tp_axis
+        if tp_axis is not None:
+            other.tp_axis = tp_axis
+        if ep_axis is not None:
+            other.expert_axis = ep_axis
+        if a2a is not None:
+            other.ep_axis = None
         return other
 
     def _tp_enter(self, y):

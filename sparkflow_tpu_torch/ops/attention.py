@@ -164,6 +164,14 @@ def attention_reference(q, k, v, causal: bool = False,
     return out
 
 
+def _mapped(*xs) -> bool:
+    """Whether an operand is a ``torch.func`` transform's wrapper (a vmap
+    batch, a grad level): the call then goes through
+    :class:`FlashAttentionFunction`, whose rules fold the mapped axis."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return any(x is not None and wrapped(x) for x in xs)
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     sm_scale: Optional[float] = None, kv_mask=None,
                     return_lse: bool = False
@@ -193,8 +201,9 @@ def flash_attention(q, k, v, causal: bool = False,
     b, h, s, d = q.shape
     sk = k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                     or v.requires_grad)) or _mapped(
+                                         q, k, v, kv_mask):
         out, lse = FlashAttentionFunction.apply(q, k, v, kv_mask,
                                                 bool(causal), float(scale))
         return (out, lse) if return_lse else out
@@ -410,26 +419,102 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False,
     return dq, dk, dv
 
 
+def _fold(x, dim, k: int):
+    """A ``torch.func.vmap`` operand with its mapped axis ``dim`` (None: not
+    mapped) folded into dim 0 — the batch — of ``k`` copies: [K*B, ...]."""
+    if x is None:
+        return None
+    if dim is None:
+        x = x.unsqueeze(0).expand((k,) + tuple(x.shape))
+    else:
+        x = x.movedim(dim, 0)
+    return x.reshape((k * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def _vmap_size(in_dims, *xs) -> int:
+    return next(x.shape[d] for x, d in zip(xs, in_dims)
+                if x is not None and d is not None)
+
+
+def _unfold(x, k: int):
+    return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention — the counterpart of the JAX package's
     ``jax.custom_vjp`` ``_flash``. ``apply(q, k, v, kv_mask, causal, scale)
-    -> (out, lse)``; ``lse`` carries no gradient, nor does ``kv_mask``."""
+    -> (out, lse)``; ``lse`` carries no gradient, nor does ``kv_mask``.
+
+    Written in the form ``torch.func`` takes (``forward`` without ``ctx``,
+    ``setup_context``), with a batching rule: under ``torch.func.vmap`` the
+    mapped axis folds into B (the mask's with it), so K mapped replicas
+    launch the forward kernel once, as JAX's ``pallas_call`` batching rule
+    adds a grid axis; under ``torch.func`` the backward
+    (:class:`_FlashBackward`) folds the same way, and outside it calls the
+    backward kernels directly."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, scale):
-        out, lse = flash_attention(q, k, v, causal, scale, kv_mask=kv_mask,
-                                   return_lse=True)
+    def forward(q, k, v, kv_mask, causal, scale):
+        return flash_attention(q, k, v, causal, scale, kv_mask=kv_mask,
+                               return_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, kv_mask, causal, scale = inputs
+        out, lse = output
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.mark_non_differentiable(lse)
-        return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
-                                              ctx.causal, ctx.scale, kv_mask)
+        if not _mapped(q, dout):
+            dq, dk, dv = flash_attention_backward(
+                q, k, v, out, lse, dout, ctx.causal, ctx.scale, kv_mask)
+        else:
+            # under torch.func: the backward's own batching rule
+            dq, dk, dv = _FlashBackward.apply(q, k, v, kv_mask, out, lse,
+                                              dout.contiguous(), ctx.causal,
+                                              ctx.scale)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, kv_mask, causal, scale):
+        n = info.batch_size
+        qd, kd, vd, md = in_dims[:4]
+        out, lse = FlashAttentionFunction.apply(
+            _fold(q, qd, n), _fold(k, kd, n), _fold(v, vd, n),
+            _fold(kv_mask, md, n), causal, scale)
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class _FlashBackward(torch.autograd.Function):
+    """``(dq, dk, dv)`` of :class:`FlashAttentionFunction` — the dq and dk/dv
+    kernels on the card — with the same batching rule (K mapped replicas:
+    one launch of each)."""
+
+    @staticmethod
+    def forward(q, k, v, kv_mask, out, lse, dout, causal, scale):
+        return flash_attention_backward(q, k, v, out, lse, dout, causal,
+                                        scale, kv_mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, kv_mask, out, lse, dout, causal,
+             scale):
+        n = info.batch_size
+        args = [_fold(x, d, n) for x, d in zip(
+            (q, k, v, kv_mask, out, lse, dout), in_dims[:7])]
+        grads = _FlashBackward.apply(*args, causal, scale)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 # ---------------------------------------------------------------------------

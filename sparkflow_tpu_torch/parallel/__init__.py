@@ -17,12 +17,14 @@
 - :mod:`.pp` — pipeline parallelism: the stage layout, the 1F1B tables
   and the gpipe / 1f1b / sequential train step with a hand-scheduled
   backward over stage-to-stage hops;
+- :mod:`.ep` — expert parallelism's all_to_all form (the batch and the
+  expert bank sharded over one axis, :mod:`..ops.moe_dispatch`); the local
+  bank form trains through :func:`~.dp.make_param_sharded_train_step`;
+- :mod:`.hyper` — K learning rates trained in one program
+  (``torch.func.vmap``);
 - :mod:`.elastic` — bounded-staleness async data parallelism over a
   versioned parameter store (the reference's Hogwild heritage), whose
-  replicas are threads on one card.
-
-Expert parallelism (``ep``) and ``hyper`` are not yet ported (ROADMAP.md,
-queue 1 item 7)."""
+  replicas are threads on one card."""
 
 from .mesh import default_mesh, make_mesh, mesh_axis_size
 from . import collectives
@@ -33,10 +35,14 @@ from .elastic import (ElasticDPEngine, ElasticParamStore, ElasticResult,
                       InProcessTransport, PushResult, ReplicaSpec, SparseRows,
                       decode_grads, encode_grads,
                       sync_baseline_examples_per_sec)
+from .ep import make_moe_shardmap_train_step, place_moe_params
+from .hyper import HyperResult, hyperparameter_search
 
 __all__ = ["default_mesh", "make_mesh", "mesh_axis_size", "collectives",
            "ShardingConfig", "make_dp_train_step",
            "make_dp_shardmap_train_step", "make_dp_zero1_train_step",
+           "make_moe_shardmap_train_step",
+           "place_moe_params", "HyperResult", "hyperparameter_search",
            "ElasticDPEngine", "ElasticParamStore", "ElasticResult",
            "InProcessTransport", "PushResult", "ReplicaSpec", "SparseRows",
            "encode_grads", "decode_grads",

@@ -11,7 +11,14 @@ JAX one does; the mapping is one to one:
 - ``ppermute`` (:func:`ppermute_ring`) -> ``batch_isend_irecv`` to rank
   +/- ``shift`` along the axis; the pipeline's stage-to-stage hop
   (:func:`send_recv`) -> the same, to named neighbours only;
+- ``all_to_all(x, axis, 0, 0, tiled=False)`` (:func:`all_to_all`) ->
+  ``all_to_all_single``: slab ``j`` goes to peer ``j``; differentiable,
+  its backward the reverse exchange (expert parallelism's token buffers);
 - ``axis_index`` -> the rank's coordinate on the axis;
+- :func:`psum_grad`, a ``psum`` inside autograd whose backward sums the
+  cotangents over the axis, as JAX transposes ``psum`` inside a
+  ``shard_map`` with ``check_vma=False`` (the routing statistics of
+  :func:`~..ops.moe_dispatch.all_to_all_moe_ffn`);
 - Megatron's *f* and *g* (:func:`tp_enter`, :func:`tp_exit`) — an
   all-reduce in the backward or the forward of a tensor-parallel block,
   inside autograd.
@@ -58,7 +65,7 @@ def reset_stats() -> None:
 def stats() -> Dict[str, int]:
     """Payload bytes each op sent from this rank since
     :func:`reset_stats` (``all_reduce``, ``reduce_scatter``, ``all_gather``,
-    ``ppermute``, ``pp_hop``), their call counts (``calls``), and the bytes
+    ``all_to_all``, ``ppermute``, ``pp_hop``), their call counts (``calls``), and the bytes
     copied between a card and pinned host memory for gloo (``host_staged``,
     both directions)."""
     with _LOCK:
@@ -275,6 +282,79 @@ def reduce_scatter(x: torch.Tensor, axis_name: Axes,
     return out.movedim(0, axis)
 
 
+def _all_to_all_raw(x: torch.Tensor, axis_name: Axes) -> torch.Tensor:
+    """``x`` [n, ...] over the axis's n ranks: slab ``j`` goes to peer
+    ``j``, and slab ``j`` of the result came from peer ``j``."""
+    group, n = _group(axis_name)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all: dimension 0 of size {x.shape[0]} is "
+                         f"not the axis size {n}")
+    _add("all_to_all", x.numel() * x.element_size())
+    _add("calls", 1)
+    if n == 1:
+        return x.clone()
+    if _staged(x, group):
+        src = _to_host(x, 24)
+        got = _host(x, 25)
+        dist.all_to_all_single(got, src, group=group)
+        return _from_host(got, x.device, x.shape)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """JAX ``all_to_all(x, axis, 0, 0, tiled=False)`` inside autograd: its
+    transpose is the same exchange of the cotangents. The mesh is kept in
+    ``ctx`` for autograd's CUDA backward thread."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.mesh = axis, bound_mesh()
+        return _all_to_all_raw(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.mesh.bind():
+            return _all_to_all_raw(g.contiguous(), ctx.axis), None
+
+
+def all_to_all(x: torch.Tensor, axis_name: Axes) -> torch.Tensor:
+    """Exchange slabs over mesh ``axis_name``: ``x`` [n, ...] (n the axis
+    size), slab ``j`` to the rank at index ``j`` on the axis; returns the n
+    slabs received, slab ``j`` from index ``j``. Differentiable (the
+    backward is the reverse exchange). Counted under ``"all_to_all"``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, axis_name)
+    return _all_to_all_raw(x, axis_name)
+
+
+class _PsumGrad(torch.autograd.Function):
+    """``psum`` whose backward sums the cotangents over the axis too."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.mesh = axis, bound_mesh()
+        return psum({"x": x.contiguous()}, axis)["x"]
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.mesh.bind():
+            return psum({"g": g.contiguous()}, ctx.axis)["g"], None
+
+
+def psum_grad(x: torch.Tensor, axis_name: Axes) -> torch.Tensor:
+    """Sum ``x`` over mesh ``axis_name``, differentiably: the backward
+    sums the cotangents over the axis — JAX's transpose of ``psum`` inside
+    a ``shard_map`` with ``check_vma=False``. A statistic every rank then
+    uses in a replicated loss (the MoE load-balance term) gets the
+    gradient of the global loss this way; an identity backward would be
+    off by the axis size."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PsumGrad.apply(x, axis_name)
+    return psum({"x": x}, axis_name)["x"]
+
+
 def ppermute_ring(x, axis_name: Axes, shift: int = 1):
     """Rotate shards around the mesh-axis ring: rank i's ``x`` goes to rank
     ``(i + shift) % n`` of the axis (the building block of ring attention).
@@ -439,7 +519,7 @@ def hierarchical_psum_mean(tree, ici_axis: str, dcn_axis: str):
     return _rebuild(tree, iter(out))
 
 
-__all__ = ["all_gather", "axis_index", "axis_size", "barrier",
+__all__ = ["all_gather", "all_to_all", "axis_index", "axis_size", "barrier",
            "hierarchical_psum_mean",
-           "ppermute_ring", "psum", "psum_mean", "reduce_scatter",
+           "ppermute_ring", "psum", "psum_grad", "psum_mean", "reduce_scatter",
            "reset_stats", "send_recv", "stats", "tp_enter", "tp_exit"]

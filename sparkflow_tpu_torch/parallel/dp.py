@@ -26,9 +26,9 @@ step's seed folded with the rank's index on each batch axis (JAX's
 repeats. The step must run inside ``with mesh.bind():`` on every rank.
 
 :func:`make_param_sharded_train_step` is the step of a fit whose
-parameters shard over ``tp`` (Megatron) or ``fsdp`` — JAX's GSPMD step
-with tp/fsdp-placed params (:mod:`.tp`); zero stages stay a pure-dp
-matter, as in JAX.
+parameters shard over ``tp`` (Megatron), ``ep`` (an MoE model's expert
+banks) or ``fsdp`` — JAX's GSPMD step with tp/ep/fsdp-placed params
+(:mod:`.tp`); zero stages stay a pure-dp matter, as in JAX.
 """
 
 from __future__ import annotations
@@ -202,11 +202,13 @@ def make_dp_train_step(model, optimizer, mesh, input_name,
     return step
 
 
-def _leaf_specs(params, specs) -> list:
-    """The spec of every leaf of ``params``, in ``tree_leaves`` order."""
+def _leaf_specs(params, specs, name=None) -> list:
+    """``(name, spec)`` of every leaf of ``params``, in ``tree_leaves``
+    order."""
     if isinstance(params, dict):
-        return [x for k in params for x in _leaf_specs(params[k], specs[k])]
-    return [specs]
+        return [x for k in params
+                for x in _leaf_specs(params[k], specs[k], k)]
+    return [(name, specs)]
 
 
 def _sub_rows(a, k: int, i: int):
@@ -243,9 +245,17 @@ def make_param_sharded_train_step(model, optimizer, mesh, input_name,
       just in time and its gradient comes back reduce-scattered over
       ``fsdp``; then the sharded leaves' gradients all-reduce over the dp
       axes and the replicated leaves' over dp and fsdp.
+    - ``ep`` (the expert leaves of an MoE model on ``P("ep", ...)``, JAX's
+      GSPMD form): a rank holds ``E/ep`` experts and, like a tp rank, its
+      dp group's rows; each MoE layer serves its experts' slots and sums
+      over ``ep`` (a copy of the model with ``expert_axis`` set,
+      ``models/moe.py``), so every gradient is complete on its rank and
+      all-reduces over the batch axes only. It composes with ``tp``.
 
     The loss is the masked mean over the global batch, as on one card; the
-    1/n comes after the sums. ``clip_norm`` measures the global norm: the
+    1/n comes after the sums. An MoE model routes the global batch when its
+    rows shard (``route_axes``, ``models/moe.py``): capacity, slot order
+    and the load-balance term are those of JAX's GSPMD program. ``clip_norm`` measures the global norm: the
     sharded leaves' squares summed over their axes, the replicated leaves'
     counted once. ``full_shapes`` is a tree of the standard shapes."""
     import copy
@@ -258,22 +268,33 @@ def make_param_sharded_train_step(model, optimizer, mesh, input_name,
     dp_axes = cfg.batch_axes(mesh)
     f = mesh.shape.get("fsdp", 1)
     batch_axes = dp_axes + (("fsdp",) if "fsdp" in mesh.axis_names else ())
+    from .tp import EXPERT_LEAVES
     leaf_axes: list = []          # per leaf, its spec's axes
-    model_axes = set()
-    for s in _leaf_specs(full_shapes, specs):
+    tp_axes, ep_axes = set(), set()
+    for name, s in _leaf_specs(full_shapes, specs):
         leaf_axes.append(spec_axes(s))
-        model_axes.update(a for a in spec_axes(s) if a != "fsdp")
-    if len(model_axes) > 1:
-        raise ValueError(f"a sharded step takes one tensor-parallel axis; "
-                         f"the specs name {sorted(model_axes)}")
-    tp_axis = next(iter(model_axes), None)
+        (ep_axes if name in EXPERT_LEAVES else tp_axes).update(
+            a for a in spec_axes(s) if a != "fsdp")
+    if len(tp_axes) > 1 or len(ep_axes) > 1:
+        raise ValueError(f"a sharded step takes one tensor-parallel and one "
+                         f"expert-parallel axis; the specs name "
+                         f"{sorted(tp_axes | ep_axes)}")
+    tp_axis = next(iter(tp_axes), None)
+    ep_axis = next(iter(ep_axes), None)
     fsdp_live = any("fsdp" in axes for axes in leaf_axes)
-    if tp_axis is not None:
-        model = copy.copy(model)
-        model.tp_axis = tp_axis
     build_feeds = make_feeds_builder(input_name, label_name)
     dp_n = mesh.axis_size(dp_axes) if dp_axes else 1
     all_n = mesh.axis_size(batch_axes) if batch_axes else 1
+    moe = hasattr(model, "route_axes")
+    if tp_axis is not None or ep_axis is not None or (moe and all_n > 1):
+        model = copy.copy(model)
+        if tp_axis is not None:
+            model.tp_axis = tp_axis
+        if ep_axis is not None:
+            model.expert_axis = ep_axis
+        if moe and all_n > 1:
+            # JAX's GSPMD step routes the global batch
+            model.route_axes = batch_axes
 
     def summed(tensors, axes, n):
         if n <= 1 or not tensors:
@@ -283,12 +304,13 @@ def make_param_sharded_train_step(model, optimizer, mesh, input_name,
 
     def norm_sq(leaves):
         rep = [u for u, a in zip(leaves, leaf_axes) if not a]
-        shd = [u for u, a in zip(leaves, leaf_axes) if a]
         total = sum((u.float() * u.float()).sum() for u in rep)
-        if shd:
+        groups: dict = {}          # the sharded leaves, by their axes
+        for u, a in zip(leaves, leaf_axes):
+            if a:
+                groups.setdefault(a, []).append(u)
+        for axes, shd in groups.items():
             part = sum((u.float() * u.float()).sum() for u in shd)
-            axes = tuple(a for a in mesh.axis_names
-                         if any(a in la for la in leaf_axes))
             total = total + C.psum({"s": part}, axes)["s"]
         return total
 

@@ -33,12 +33,18 @@ Under ``tp`` (the config's ``tp_axis``, or a mesh axis named ``tp``) each
 dp copy is split into ``tp`` shards (:func:`serving_layout`,
 :class:`~.tp.TPShards`): shard ``t`` of copy ``d`` lives on card ``(d * tp +
 t) % device_count`` (:func:`serving_grid`); every block half runs on each
-shard and the partials are summed on the copy's shard 0. An ``fsdp`` axis
-holds full copies: one process has no ranks to shard against. JAX refuses
-a serving mesh that needs more devices than it sees; the rank rule lets one
-card hold every copy. A ``pp`` axis is a decode axis (``DecodeEngine``
-puts stage ``s``'s shard ``t`` on card ``(s * tp + t) % device_count``),
-refused for predict as in JAX; ``ep`` and ``sp`` axes are refused
+shard and the partials are summed on the copy's shard 0. Under ``ep`` (the
+config's ``ep_axis``, or a mesh axis named ``ep``) each MoE block's expert
+bank is split into ``ep`` shards (:class:`~.tp.EPShards`): the copy spans
+an ``ep x tp`` grid of cards, position ``(e, t)`` on card ``((d * ep + e)
+* tp + t) % device_count``; the tp shards are row ``e = 0`` and expert
+shard ``e`` sits at ``(e, 0)`` (:func:`expert_grid`), each serving its
+experts' slots, the outputs summed in float32 on the copy's first card.
+An ``fsdp`` or ``sp`` axis holds full copies: one process has no ranks to
+shard against. JAX refuses a serving mesh that needs more devices than it
+sees; the rank rule lets one card hold every copy. A ``pp`` axis is a
+decode axis (``DecodeEngine`` puts stage ``s``'s shard ``t`` on card ``(s
+* tp + t) % device_count``), refused for predict as in JAX
 (:func:`serving_layout`).
 """
 
@@ -300,49 +306,62 @@ def parse_mesh_shape(s: str) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def serving_layout(mesh, sharding=None) -> Tuple[int, Optional[str], int]:
-    """``(dp, tp_axis, tp)`` of a one-process serving mesh (a :class:`Mesh`
-    or a dict of sizes): ``dp`` the product of the sharding config's batch
-    axes (the row blocks a batch splits into), ``tp_axis`` the config's
-    ``tp_axis`` or the mesh's ``tp`` axis (None without one) and ``tp`` its
-    size. An ``fsdp`` axis holds full copies; a ``pp`` axis is refused
-    with the JAX predict engine's message (depth-sharded models serve
-    through ``DecodeEngine``), any other axis of size > 1 as not yet
-    ported."""
+def serving_layout(mesh, sharding=None
+                   ) -> Tuple[int, Optional[str], int, Optional[str], int]:
+    """``(dp, tp_axis, tp, ep_axis, ep)`` of a one-process serving mesh (a
+    :class:`Mesh` or a dict of sizes): ``dp`` the product of the sharding
+    config's batch axes (the row blocks a batch splits into), ``tp_axis``
+    the config's ``tp_axis`` or the mesh's ``tp`` axis (None without one)
+    and ``tp`` its size, ``ep_axis`` / ``ep`` the same for ``ep``. An
+    ``fsdp`` or ``sp`` axis holds full copies (JAX's predict program
+    replicates the params over it); a ``pp`` axis is refused with the JAX
+    predict engine's message (depth-sharded models serve through
+    ``DecodeEngine``)."""
     from ..sharding import as_sharding_config
     mesh = as_mesh(mesh)
     cfg = as_sharding_config(sharding)
     axes = cfg.batch_axes(mesh)
     tp_axis = cfg.tp_axis or ("tp" if "tp" in mesh.axis_names else None)
-    bad = [a for a in mesh.axis_names if a not in axes
-           and a not in (tp_axis, "fsdp") and mesh.shape[a] > 1]
+    ep_axis = cfg.ep_axis or ("ep" if "ep" in mesh.axis_names else None)
     pp_axis = cfg.pp_axis or "pp"
-    if pp_axis in bad:
+    if mesh.shape.get(pp_axis, 1) > 1 and pp_axis not in axes:
         raise ValueError(
             "pp_axis is a decode-plane axis: the single-shot predict engine "
             "has no token cadence to hide pipeline bubbles behind. Serve "
             "depth-sharded models through DecodeEngine (serving/decode.py), "
             "or drop pp_axis from this engine's sharding config.")
-    if bad:
-        raise NotImplementedError(
-            f"serving over mesh axes {bad} (model-parallel) is not yet "
-            f"ported to PyTorch (see ROADMAP.md, queue 1 item 7); a serving "
-            f"mesh shards the batch over {list(axes) or ['dp']} and the "
-            f"weights over a tp axis only")
     tp = mesh.shape[tp_axis] if tp_axis in mesh.shape else 1
-    return (mesh.axis_size(axes) if axes else 1), tp_axis, tp
+    ep = mesh.shape[ep_axis] if ep_axis in mesh.shape else 1
+    return ((mesh.axis_size(axes) if axes else 1), tp_axis, tp, ep_axis,
+            ep)
 
 
-def serving_grid(dp: int, tp: int, device, stage: int = 0) -> list:
+def serving_grid(dp: int, tp: int, device, stage: int = 0,
+                 ep: int = 1) -> list:
     """The devices of ``dp`` serving copies of ``tp`` shards each: shard
-    ``t`` of copy ``d`` on card ``(d * tp + t) % device_count``, or all on
-    the CPU. A pipeline stage ``s`` of a ``pp x tp`` decode engine (one
-    copy) puts its shard ``t`` on card ``(s * tp + t) % device_count``."""
+    ``t`` of copy ``d`` on card ``(d * ep * tp + t) % device_count``, or
+    all on the CPU. A pipeline stage ``s`` of a ``pp x tp`` decode engine
+    (one copy) puts its shard ``t`` on card ``(s * tp + t) % device_count``.
+    Under ``ep`` (:func:`expert_grid`) copy ``d`` spans ``ep * tp`` cards
+    and its tp shards are the first ``tp``."""
     import torch
     from .distributed import rank_device
     kind = torch.device(device).type
-    return [[torch.device(rank_device((d + stage) * tp + t, kind))
+    return [[torch.device(rank_device(((d + stage) * ep) * tp + t, kind))
              for t in range(tp)] for d in range(dp)]
+
+
+def expert_grid(dp: int, tp: int, ep: int, device) -> list:
+    """The devices of each copy's ``ep`` expert shards: shard ``e`` of copy
+    ``d`` on card ``((d * ep + e) * tp) % device_count`` — position ``(e,
+    t=0)`` of the copy's ``ep x tp`` grid, whose row ``e = 0`` holds the tp
+    shards (:func:`serving_grid`), so expert shard 0 shares tp shard 0's
+    card — or all on the CPU."""
+    import torch
+    from .distributed import rank_device
+    kind = torch.device(device).type
+    return [[torch.device(rank_device((d * ep + e) * tp, kind))
+             for e in range(ep)] for d in range(dp)]
 
 
 def model_on(model, device):
@@ -383,5 +402,5 @@ def dp_apply(apply, copies, xs):
 
 
 __all__ = ["Mesh", "as_mesh", "bound_mesh", "current_mesh", "default_mesh",
-           "dp_apply", "dp_copies", "make_mesh", "mesh_axis_size",
+           "dp_apply", "dp_copies", "expert_grid", "make_mesh", "mesh_axis_size",
            "model_on", "parse_mesh_shape", "serving_grid", "serving_layout"]

@@ -34,7 +34,15 @@ for bit, as the JAX package's counterpart.
 Serving is one process (:class:`TPShards`): each block's leaves are split
 into per-shard trees on the shards' devices, every block half runs on each
 shard, and the partials are summed in float32 on shard 0's device in shard
-order, rounded to the compute dtype once.
+order, rounded to the compute dtype once. Under ``ep`` an MoE block's
+expert bank is split the same way into an :class:`EPShards`, each shard
+serving its experts' slots.
+
+Expert parallelism in training is the same machinery: the MoE models'
+rules put the expert leaves on ``P("ep", ...)``, so a rank's slice of a
+bank is its ``E/ep`` experts along dim 0 (:func:`shard_params`) and
+:func:`gather_params` returns the whole bank; an ``ep`` rank's copy of the
+model sets ``expert_axis`` (:func:`~.dp.make_param_sharded_train_step`).
 """
 
 from __future__ import annotations
@@ -445,7 +453,10 @@ class ParamPlacement:
         self.model, self.mesh = model, mesh
         self.specs = filtered_pspecs(pspecs, mesh)
         self.template = template
-        axes = {a for layer in self.specs.values() for sp in layer.values()
+        # the tp axis is the one the qkv columns shard over (an ep axis
+        # shards whole experts and needs no relayout)
+        axes = {a for layer in self.specs.values()
+                for pn, sp in layer.items() if pn in _QKV
                 for a in spec_axes(sp) if a != "fsdp"}
         self.tp_axis = next(iter(sorted(axes)), None)
         self.tp = mesh.shape[self.tp_axis] if self.tp_axis else 1
@@ -560,50 +571,96 @@ def shard_of(x, s: int):
     return x[s] if isinstance(x, TPShards) else x
 
 
-def serving_pspecs(model, mesh, tp_axis: str):
+class EPShards(list):
+    """An MoE block's expert bank split over ``ep`` shards for serving in
+    one process: entry ``e`` is shard ``e``'s ``{experts_fc1, experts_b1,
+    experts_fc2, experts_b2}`` slice (experts ``[e * E/ep, (e + 1) *
+    E/ep)``) on its device, held in the block's tree under ``"experts"``.
+    The router and every other leaf stay whole; each shard serves its
+    experts' slots and the outputs are summed (``models/moe.py``)."""
+
+
+EXPERT_LEAVES = ("experts_fc1", "experts_b1", "experts_fc2", "experts_b2")
+
+
+def serving_pspecs(model, mesh, tp_axis: Optional[str],
+                   ep_axis: Optional[str] = None):
     """The specs a one-process serving path splits ``model`` by over
-    ``tp_axis`` (its megatron rules renamed to the axis), or None for a
-    model that publishes none."""
+    ``tp_axis`` and ``ep_axis`` (its megatron and expert rules renamed to
+    the axes), or None for a model that publishes none."""
     if not hasattr(model, "param_pspecs"):
         return None
     from ..sharding import ShardingConfig
-    return derive_param_pspecs(model, mesh, ShardingConfig(tp_axis=tp_axis))
+    return derive_param_pspecs(model, mesh, ShardingConfig(tp_axis=tp_axis,
+                                                           ep_axis=ep_axis))
 
 
-def serving_tree(model, params, pspecs, tp_axis: str, devices: Sequence):
-    """A standard tree -> the one-process ``tp`` serving tree: the
+def serving_tree(model, params, pspecs, tp_axis: Optional[str],
+                 devices: Sequence, ep_axis: Optional[str] = None,
+                 ep_devices: Sequence = ()):
+    """A standard tree -> the one-process serving tree of one copy: the
     replicated non-block leaves (embeddings, final norm, heads) on
-    ``devices[0]``, each block a :class:`TPShards` of its ``len(devices)``
-    slices (qkv columns packed first, biases whole), shard ``s`` on
-    ``devices[s]``."""
+    ``devices[0]``; under ``tp`` each block a :class:`TPShards` of its
+    ``len(devices)`` slices (qkv columns packed first, biases whole), shard
+    ``t`` on ``devices[t]``; under ``ep`` (``len(ep_devices)`` shards) each
+    MoE block's expert leaves an :class:`EPShards` under ``"experts"``,
+    shard ``e`` on ``ep_devices[e]`` (the same object in every tp shard's
+    tree)."""
     from .mesh import Mesh
-    tp = len(devices)
+    tp = len(devices) if tp_axis is not None else 1
+    ep = len(ep_devices) if ep_axis is not None else 1
     packed = tp_pack_params(model, params, tp, divide_biases=False)
-    mesh = Mesh({tp_axis: tp})
+    axes = {}
+    if tp > 1:
+        axes[tp_axis] = tp
+    if ep > 1:
+        axes[ep_axis] = ep
+    mesh = Mesh(axes or {"_": 1})
     specs = filtered_pspecs(pspecs, mesh)
     out = {}
     for name, sub in packed.items():
         sp = specs[name]
-        if not any(spec_axes(s) for s in sp.values()):
-            out[name] = {k: v.to(devices[0]) for k, v in sub.items()}
+        experts = None
+        if ep > 1 and any(ep_axis in spec_axes(sp[k]) for k in sub
+                          if k in EXPERT_LEAVES):
+            experts = EPShards(
+                [{k: leaf_slice(sub[k], sp[k], mesh, index={ep_axis: e})
+                  .to(ep_devices[e], copy=True).contiguous()
+                  for k in EXPERT_LEAVES} for e in range(ep)])
+            sub = {k: v for k, v in sub.items() if k not in EXPERT_LEAVES}
+        if tp <= 1 or not any(tp_axis in spec_axes(sp[k]) for k in sub):
+            part = {k: v.to(devices[0]) for k, v in sub.items()}
+            if experts is not None:
+                part["experts"] = experts
+            out[name] = part
             continue
-        out[name] = TPShards(
-            [{k: leaf_slice(v, sp[k], mesh, index={tp_axis: s}).to(
-                devices[s], copy=True).contiguous()
-              for k, v in sub.items()} for s in range(tp)])
+        shards = TPShards()
+        for t in range(tp):
+            part = {k: leaf_slice(v, sp[k], mesh, index={tp_axis: t}).to(
+                devices[t], copy=True).contiguous() for k, v in sub.items()}
+            if experts is not None:
+                part["experts"] = experts
+            shards.append(part)
+        out[name] = shards
     return out
 
 
 def shard_bytes(tree) -> int:
-    """Device bytes of shard 0 of a serving tree (what one device holds)."""
+    """Device bytes of shard 0 of a serving tree (what one device holds:
+    its tp slice of each block and expert shard 0 of each bank)."""
     total = 0
     for sub in tree.values():
         part = sub[0] if isinstance(sub, TPShards) else sub
-        total += sum(t.numel() * t.element_size() for t in part.values())
+        for v in part.values():
+            if isinstance(v, EPShards):
+                v = v[0]
+                total += sum(t.numel() * t.element_size() for t in v.values())
+            else:
+                total += v.numel() * v.element_size()
     return total
 
 
-__all__ = ["ParamPlacement", "TPShards", "derive_param_pspecs", "filter_pspec",
+__all__ = ["EPShards", "ParamPlacement", "TPShards", "derive_param_pspecs", "filter_pspec",
            "filtered_pspecs", "fsdp_pspecs", "gather_params",
            "gathered_params", "leaf_slice", "qkv_permutation",
            "rename_pspec_axes", "serving_pspecs", "serving_tree",

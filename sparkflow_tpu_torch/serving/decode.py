@@ -97,8 +97,18 @@ without control flow (every stage computes every pass, inactive ones
 write to scratch page 0); eagerly only the stages with work run, so the
 tokens are the same and only scratch page 0 may differ.
 
-Not yet ported, and refused with a ``ValueError`` naming ROADMAP.md:
-``ep_axis`` (and ``pp`` with ``ep`` is refused with JAX's message).
+Expert-parallel decode (``sharding=ShardingConfig(ep_axis=...)``, the JAX
+engine's checks and messages, in their order: an ``ep_axis`` over a model
+without an expert bank, ``num_experts`` not divisible by ``ep``, then
+``pp`` with ``ep``): in one process each MoE block's expert bank is split
+into ``ep`` shards (:class:`~sparkflow_tpu_torch.parallel.tp.EPShards`),
+shard ``e`` on card ``(e * tp) % device_count`` (the serving rule of
+:mod:`~sparkflow_tpu_torch.parallel.mesh`; under ``tp x ep`` the tp shards
+on cards ``t % device_count``). The routing runs once on the whole batch;
+each shard serves its experts' slots and the outputs are summed in float32
+on the first card and rounded once — one real row per token beside exact
+zeros, so the tokens are the unsharded engine's. Every arm runs so, as
+under tp; ``stats()["parallel"]["ep"]`` is its size.
 
 The engine is mechanism only — slot admission at token boundaries, queueing,
 futures and drain semantics live in
@@ -280,6 +290,8 @@ class DecodeEngine:
                                 f"a causal LM (transformer_lm)")
         self.model = model
         self.device = model.device
+        # an MoE model's lanes compete for expert capacity (_scratch_src)
+        self._routes = bool(getattr(model, "num_experts", None))
         self._init_mesh(mesh, sharding)
         self.metrics = metrics if metrics is not None else metrics_mod.Metrics()
         self.num_slots = int(num_slots)
@@ -425,15 +437,17 @@ class DecodeEngine:
         """Validate ``mesh`` / ``sharding`` (the JAX engine's rules and
         messages) and lay out the stages and their tp shards: shard ``t`` of
         stage ``s`` on card ``(s * tp + t) % device_count`` (the serving
-        rule, :mod:`..parallel.mesh`), or the CPU."""
-        from ..parallel.mesh import as_mesh, serving_grid
+        rule, :mod:`..parallel.mesh`), or the CPU; under ``ep`` expert
+        shard ``e`` on card ``(e * tp) % device_count``."""
+        from ..parallel.mesh import as_mesh, expert_grid, serving_grid
         from ..sharding import as_sharding_config
         model = self.model
         self.mesh = as_mesh(mesh)
         self.sharding = None
         self._tp_axis: Optional[str] = None
+        self._ep_axis: Optional[str] = None
         self._pp_axis: Optional[str] = None
-        self._tp = self._pp = ep = 1
+        self._tp = self._ep = self._pp = 1
         if sharding is not None:
             self.sharding = as_sharding_config(sharding)
             if self.mesh is None and self.sharding.model_parallel():
@@ -447,20 +461,26 @@ class DecodeEngine:
             if tp_ax and int(self.mesh.shape[tp_ax]) > 1:
                 self._tp_axis, self._tp = tp_ax, int(self.mesh.shape[tp_ax])
             if ep_ax and int(self.mesh.shape[ep_ax]) > 1:
-                ep = int(self.mesh.shape[ep_ax])
+                self._ep_axis, self._ep = ep_ax, int(self.mesh.shape[ep_ax])
             if pp_ax and int(self.mesh.shape[pp_ax]) > 1:
                 self._pp_axis, self._pp = pp_ax, int(self.mesh.shape[pp_ax])
         if self._tp > 1 and int(model.num_heads) % self._tp:
             raise ValueError(f"num_heads={model.num_heads} is not divisible "
                              f"by tp={self._tp}")
-        if self._pp > 1 and ep > 1:
+        if self._ep > 1:
+            n_exp = getattr(model, "num_experts", None)
+            if not n_exp:
+                raise ValueError("ep_axis is set but the model has no expert "
+                                 "bank (num_experts); use a transformer_moe_lm")
+            if int(n_exp) % self._ep:
+                raise ValueError(f"num_experts={n_exp} is not divisible by "
+                                 f"ep={self._ep}")
+        if self._pp > 1 and self._ep > 1:
             raise ValueError(
                 "pp_axis does not compose with ep_axis: expert dispatch "
                 "reduces inside the block body, which the staged no-cond "
                 "schedule would re-run on every stage. Shard depth (pp) "
                 "x width (tp) instead.")
-        if ep > 1:
-            _not_yet(f"sharding.ep_axis={self.sharding.ep_axis!r}")
         if self._pp > 1:
             if int(model.num_layers) % self._pp:
                 raise ValueError(
@@ -473,12 +493,16 @@ class DecodeEngine:
                         f"pipeline-parallel decode needs the model to expose "
                         f"stage-level pieces ({need}()); use a "
                         f"transformer_lm")
-        if self._tp * self._pp > 1 and not hasattr(model, "param_pspecs"):
+        if (self._tp * self._ep * self._pp > 1
+                and not hasattr(model, "param_pspecs")):
             raise TypeError("model-parallel decode needs the model to "
                             "publish param_pspecs() (megatron rules)")
         self._per = int(model.num_layers) // self._pp
-        self._stage_devices = [serving_grid(1, self._tp, self.device, s)[0]
+        self._stage_devices = [serving_grid(1, self._tp, self.device, s,
+                                            ep=self._ep)[0]
                                for s in range(self._pp)]
+        self._expert_devices = expert_grid(1, self._tp, self._ep,
+                                           self.device)[0]
         self._devices = self._stage_devices[0]
         self._lm = (_Stages(model, self._per, self.device) if self._pp > 1
                     else model)
@@ -487,17 +511,18 @@ class DecodeEngine:
         """One standard-layout tree -> this engine's serving placement: under
         tp the qkv columns packed in ``(tp, 3, H/tp, d)`` order and one slice
         per shard on its device (the row-parallel biases whole, added once
-        after the sum); under pp one tree a stage (:class:`_Stages`): its
+        after the sum); under ep each expert bank an ``EPShards``; under pp one tree a stage (:class:`_Stages`): its
         blocks and a copy of the shared leaves on its devices. The ctor and
         every hot swap run exactly this path, outside the lock."""
         if self._pp > 1:
             return [self._stage_tree(tree, s) for s in range(self._pp)]
-        if self._tp <= 1:
+        if self._tp * self._ep <= 1:
             return tree
         from ..parallel.tp import serving_pspecs, serving_tree
         return serving_tree(self.model, tree, serving_pspecs(
-            self.model, self.mesh, self._tp_axis), self._tp_axis,
-            self._devices)
+            self.model, self.mesh, self._tp_axis, self._ep_axis),
+            self._tp_axis, self._devices, self._ep_axis,
+            self._expert_devices)
 
     def _stage_tree(self, tree, s: int):
         """Stage ``s``'s serving tree: ``{"blocks": [its blocks, tp-split
@@ -669,16 +694,55 @@ class DecodeEngine:
     # With kv_quant on, each pool is a (rows int8/fp8, scales f32) pair;
     # these keep the attend closures layout-agnostic. All writes are in place.
 
-    def _kv_rows(self, pool, layer, pids, offs, rows) -> None:
+    def _scratch_src(self, pids, offs=None):
+        """For writes at ``(pids, offs)`` (``offs`` None: whole pages), the
+        row each write takes so that every write aimed at scratch page 0
+        carries the row of the LAST lane writing the same place — what a
+        sequential scatter (the CPU's, XLA's) keeps; a CUDA ``index_put_``
+        keeps an arbitrary one of several rows written to one place. Only
+        an MoE model needs it: a lane past its room (a clamped spec window,
+        a prompt's padding) attends over scratch rows, and its hidden state
+        claims expert capacity like a live token's, so an arbitrary pick
+        would make the live tokens vary run to run; in a dense model only
+        that lane's own, discarded output reads them. None where nothing
+        needs resolving. One index serves every layer and both K and V of
+        a forward call."""
+        flat = pids.reshape(-1).long()
+        n = flat.numel()
+        if not self._routes or n < 2:
+            return None
+        order = torch.arange(n, device=flat.device)
+        scratch = flat == 0
+        at = (torch.zeros_like(flat) if offs is None
+              else offs.reshape(-1).long())
+        last = torch.full((self.page_size,), -1, dtype=torch.long,
+                          device=flat.device).scatter_reduce(
+            0, at, torch.where(scratch, order, -1), "amax")
+        return torch.where(scratch, last[at], order)
+
+    @staticmethod
+    def _take(rows, src, lead: int):
+        """``rows`` (``lead`` batch dims first) re-picked by ``src``."""
+        if src is None:
+            return rows
+        flat = rows.reshape((-1,) + tuple(rows.shape[lead:]))
+        return flat[src.to(rows.device)].reshape(rows.shape)
+
+    def _kv_rows(self, pool, layer, pids, offs, rows, src=None) -> None:
         """Write token rows at ``(layer, pids, offs)``, any batch shape;
-        a quantized pool keeps its running per-page-per-head scale."""
+        a quantized pool keeps its running per-page-per-head scale.
+        ``src``: the forward call's :meth:`_scratch_src`."""
+        rows = self._take(rows, src, pids.dim())
         if self._quantized:
             quant.paged_quant_append(pool[0], pool[1], layer, pids, offs, rows)
         else:
             pool[layer, pids, offs] = rows.to(pool.dtype)
 
-    def _kv_pages(self, pool, layer, page_ids, pages) -> None:
-        """Commit whole pages at ``(layer, page_ids)`` (ladder prefill)."""
+    def _kv_pages(self, pool, layer, page_ids, pages, src=None) -> None:
+        """Commit whole pages at ``(layer, page_ids)`` (ladder prefill; the
+        padding's pages aim at scratch page 0, resolved by ``src``, the
+        call's :meth:`_scratch_src`)."""
+        pages = self._take(pages, src, page_ids.dim())
         if self._quantized:
             quant.paged_quant_write_pages(pool[0], pool[1], layer, page_ids,
                                           pages)
@@ -781,6 +845,7 @@ class DecodeEngine:
             self._params, torch.as_tensor(ids, device=dev),
             lengths=torch.as_tensor([n], device=dev))
         pid = torch.as_tensor(page_ids, dtype=torch.int64, device=dev)
+        src = self._scratch_src(pid)
         for layer, (ks, vs) in enumerate(kvs):
             # a stage's pools hold its layers, at stage-local indices
             st, i = divmod(layer, self._per)
@@ -792,8 +857,8 @@ class DecodeEngine:
                 vv = v[0].transpose(0, 1).reshape(npages, page, v.shape[1],
                                                   v.shape[3])
                 p = pid.to(k.device)
-                self._kv_pages(kp, i, p, kk)
-                self._kv_pages(vp, i, p, vv)
+                self._kv_pages(kp, i, p, kk, src)
+                self._kv_pages(vp, i, p, vv, src)
         return logits
 
     def _suffix_chunk(self, ids: np.ndarray, start: int, valid: int,
@@ -814,14 +879,15 @@ class DecodeEngine:
         pids = row[(pos_abs // page).clamp(0, maxp - 1)]
         pids = torch.where(j < valid, pids, 0)              # pad -> scratch
         off = pos_abs % page
+        src = self._scratch_src(pids, off)
         causal = tpos[None, :] <= pos_abs[:, None]          # [C, L]
 
         def attend(layer, q, k_new, v_new, cache, _start):
             kp, vp = cache
             d = q.device      # a tp shard's device
             pid, of, rw = pids.to(d), off.to(d), row.to(d)
-            self._kv_rows(kp, layer, pid, of, k_new[0].transpose(0, 1))
-            self._kv_rows(vp, layer, pid, of, v_new[0].transpose(0, 1))
+            self._kv_rows(kp, layer, pid, of, k_new[0].transpose(0, 1), src)
+            self._kv_rows(vp, layer, pid, of, v_new[0].transpose(0, 1), src)
             hk = self._kv_gather(kp, layer, rw).reshape(maxp * page, -1,
                                                         model.head_dim)
             hv = self._kv_gather(vp, layer, rw).reshape(maxp * page, -1,
@@ -856,14 +922,15 @@ class DecodeEngine:
             pids = torch.where(pos < writable, pids, 0)
             off = pos % page
             lengths = (pos + 1).to(torch.int32)
+            src = self._scratch_src(pids, off)
 
             def attend(layer, q, k_new, v_new, cache, _pos, pids=pids,
-                       off=off, lengths=lengths):
+                       off=off, lengths=lengths, src=src):
                 kp, vp = cache
                 d = q.device      # a tp shard's device
                 pid, of = pids.to(d), off.to(d)
-                self._kv_rows(kp, layer, pid, of, k_new)
-                self._kv_rows(vp, layer, pid, of, v_new)
+                self._kv_rows(kp, layer, pid, of, k_new, src)
+                self._kv_rows(vp, layer, pid, of, v_new, src)
                 out = self._paged_att(q, kp, vp, layer, table.to(d),
                                       lengths.to(d))
                 return out.to(q.dtype), cache
@@ -923,14 +990,15 @@ class DecodeEngine:
         pids = table[bidx[:, None], (pos_abs // page).clamp(0, maxp - 1)]
         pids = torch.where(j[None, :] < nvalid[:, None], pids.long(), 0)
         off = pos_abs % page
+        src = self._scratch_src(pids, off)
         start32 = start.to(torch.int32)
 
         def attend(layer, q, k_new, v_new, cache, _st):
             kp, vp = cache
             d = q.device      # a tp shard's device
             pid, of = pids.to(d), off.to(d)
-            self._kv_rows(kp, layer, pid, of, k_new.transpose(1, 2))
-            self._kv_rows(vp, layer, pid, of, v_new.transpose(1, 2))
+            self._kv_rows(kp, layer, pid, of, k_new.transpose(1, 2), src)
+            self._kv_rows(vp, layer, pid, of, v_new.transpose(1, 2), src)
             out = self._paged_verify_att(q, kp, vp, layer, table.to(d),
                                          start32.to(d))
             return out.to(q.dtype), cache
@@ -1538,7 +1606,7 @@ class DecodeEngine:
                 "kv": self.kv.stats(),
                 "parallel": {"mesh": (dict(self.mesh.shape)
                                       if self.mesh is not None else None),
-                             "tp": self._tp, "ep": 1, "pp": self._pp,
+                             "tp": self._tp, "ep": self._ep, "pp": self._pp,
                              "stages": self._pp, "pp_wave": self._pp_wave,
                              "wave_ticks": self._tick,
                              "kv_bytes_per_device": kv_bytes,

@@ -22,7 +22,7 @@ first run outside warmup is counted in ``fallback_compiles``, so the
 steady-state contract ("no first-time work after warmup") reads the same.
 ``stats()`` keeps every key of the JAX engine's; those with no counterpart
 read as the JAX engine reports them with the feature off: ``traces`` and
-``steady_traces`` 0 (nothing is traced) and ``ep`` 1.
+``steady_traces`` 0 (nothing is traced).
 
 Cold start (:mod:`~sparkflow_tpu_torch.serving.coldstart`): what a fresh
 replica compiles is the kernel library, not executables, so
@@ -39,7 +39,9 @@ dict of sizes; ``sharding`` for its data / dcn axes) follows the serving
 rule of :mod:`~sparkflow_tpu_torch.parallel.mesh`, in this process: one
 parameter copy per dp shard, copy ``r`` on card ``r % device_count`` (or
 the CPU). A bucket that divides dp splits into dp row blocks, one per copy;
-a smaller bucket runs on copy 0. :meth:`warmup` runs every bucket on every
+a smaller bucket runs on copy 0. An MoE model keeps one copy: its routing
+couples a batch's rows (capacity, slot order), and JAX's program routes
+the whole batch. :meth:`warmup` runs every bucket on every
 copy, a hot swap places the new tree on every copy before the flip,
 ``quantize`` quantizes once and copies the int8 tree, and ``stats()["mesh"]``
 is the mesh's shape.
@@ -56,9 +58,18 @@ a ``tp_axis`` for a model without ``param_pspecs``. JAX's
 ``sharded_attention`` context needs no counterpart: each shard already
 holds its own heads. An active ``pp_axis`` is refused with the JAX
 engine's ``ValueError`` (depth-sharded models serve through
-``DecodeEngine``). Not yet ported, refused with a ``ValueError`` naming
-ROADMAP.md queue 1 item 7: ``ep_axis``, and a mesh axis other than the
-batch, tp and fsdp axes (an ``fsdp`` axis holds whole copies).
+``DecodeEngine``). An ``fsdp`` or ``sp`` axis holds whole copies.
+
+Expert-parallel serving (``sharding=ShardingConfig(ep_axis=...)`` on a mesh
+with that axis): each MoE block's expert bank is split into ``ep`` shards
+(:class:`~..parallel.tp.EPShards`), shard ``e`` of copy ``d`` on card
+``((d * ep + e) * tp) % device_count``; each shard serves its experts'
+slots and the outputs are summed in float32 on the copy's first card —
+exact zeros besides one real row per token, so the predictions equal the
+unsharded forward. It composes with ``tp``; ``stats()["ep"]`` is its
+size. As in JAX, ``quantize`` with ``ep`` is refused, an ``ep`` axis the
+config does not name replicates (``ep`` 1), and an ``ep_axis`` without a
+mesh serves unsharded.
 """
 
 from __future__ import annotations
@@ -92,11 +103,6 @@ def _bucket_ladder(max_batch: int) -> List[int]:
         b *= 2
     buckets.append(max_batch)
     return buckets
-
-
-def _not_yet(option: str, why: str):
-    raise ValueError(f"InferenceEngine option {option} is not yet ported to "
-                     f"PyTorch ({why}; see ROADMAP.md)")
 
 
 class InferenceEngine:
@@ -145,8 +151,8 @@ class InferenceEngine:
         in place of ``ops/_build/`` or ``SPARKFLOW_TORCH_KERNEL_DIR``.
     mesh, sharding
         Data-parallel serving over weight copies, split into tensor-parallel
-        shards under ``tp`` (see the module docstring); ``pp`` is a decode
-        axis (refused, as in JAX) and ``ep`` not yet ported.
+        shards under ``tp`` and expert shards under ``ep`` (see the module
+        docstring); ``pp`` is a decode axis (refused, as in JAX).
     """
 
     def __init__(self, graph, weights=None, *,
@@ -167,14 +173,11 @@ class InferenceEngine:
                  device=None):
         from ..sharding import as_sharding_config
         self.sharding = as_sharding_config(sharding)
-        if self.sharding.ep_axis is not None:
-            _not_yet(f"sharding={sharding!r}", "expert-parallel serving, "
-                     "queue 1 item 7")
         if self.sharding.tp_axis is not None and mesh is None:
             raise ValueError("sharding names tp_axis but no mesh was given; "
                              "pass mesh= to InferenceEngine")
         self.mesh = None
-        dp, tp_axis, tp = 1, None, 1
+        dp, tp_axis, tp, ep_axis, ep = 1, None, 1, None, 1
         if mesh is not None:
             from ..parallel.mesh import as_mesh, serving_layout
             self.mesh = as_mesh(mesh)
@@ -189,11 +192,11 @@ class InferenceEngine:
                     "bubbles behind. Serve depth-sharded models through "
                     "DecodeEngine (serving/decode.py), or drop pp_axis "
                     "from this engine's sharding config.")
-            try:
-                dp, tp_axis, tp = serving_layout(self.mesh, self.sharding)
-            except NotImplementedError as e:
-                _not_yet(f"mesh={dict(self.mesh.shape)!r}", str(e))
-        if tp > 1 and quantize:
+            dp, tp_axis, tp, ep_axis, ep = serving_layout(self.mesh,
+                                                          self.sharding)
+            if self.sharding.ep_axis is None:
+                ep = 1      # as JAX's engine: a bare ep axis replicates
+        if tp * ep > 1 and quantize:
             raise ValueError("quantize does not compose with tensor/expert-"
                              "parallel serving (int8 packing breaks the "
                              "megatron layout); pick one")
@@ -204,20 +207,29 @@ class InferenceEngine:
             self.model = graph
         self.device = self.model.device
         self._pspecs = None
-        if tp > 1:
+        if tp * ep > 1:
             from ..parallel.tp import serving_pspecs
-            self._pspecs = serving_pspecs(self.model, self.mesh, tp_axis)
+            self._pspecs = serving_pspecs(self.model, self.mesh,
+                                          tp_axis if tp > 1 else None,
+                                          ep_axis if ep > 1 else None)
             if self._pspecs is None:
-                if self.sharding.tp_axis is not None:
+                if (self.sharding.tp_axis is not None
+                        or self.sharding.ep_axis is not None):
                     raise TypeError("model-parallel serving needs the model "
                                     "to publish param_pspecs() (megatron "
                                     "rules)")
-                tp = 1   # a bare tp axis on a model without rules: copies
+                tp = ep = 1   # a bare tp axis on a model without rules
+        if getattr(self.model, "num_experts", None):
+            # an MoE layer routes the whole batch (capacity and slot order
+            # couple its rows), as JAX's program does: one copy holds it
+            dp = 1
         # the serving rule (parallel/mesh.py): one copy per dp shard, split
-        # into tp shards
-        from ..parallel.mesh import model_on, serving_grid
+        # into tp shards and its banks into ep shards
+        from ..parallel.mesh import expert_grid, model_on, serving_grid
         self.dp, self.tp, self._tp_axis = dp, tp, tp_axis
-        self._grid = serving_grid(dp, tp, self.device)
+        self.ep, self._ep_axis = ep, ep_axis
+        self._grid = serving_grid(dp, tp, self.device, ep=ep)
+        self._expert_grid = expert_grid(dp, tp, ep, self.device)
         self._devices = [g[0] for g in self._grid]
         self._models = [model_on(self.model, d) for d in self._devices]
         self.input_name = input_name
@@ -312,10 +324,12 @@ class InferenceEngine:
         split into its tp shards under tp. The ctor and every hot swap run
         exactly this path, so a swapped tree lands bit-identical to a cold
         start."""
-        if self.tp > 1:
+        if self.tp * self.ep > 1:
             from ..parallel.tp import serving_tree
             return [serving_tree(self.model, params, self._pspecs,
-                                 self._tp_axis, g) for g in self._grid]
+                                 self._tp_axis if self.tp > 1 else None, g,
+                                 self._ep_axis if self.ep > 1 else None, x)
+                    for g, x in zip(self._grid, self._expert_grid)]
         if self.quantize:
             from ..utils.quant import quantize_for_serving
             params = quantize_for_serving(self.model, params, self.quantize,
@@ -533,6 +547,6 @@ class InferenceEngine:
                 "mesh": (dict(self.mesh.shape) if self.mesh is not None
                          else None),
                 "tp": self.tp,
-                "ep": 1,
+                "ep": self.ep,
                 "param_bytes_per_device": shard_bytes(params),
                 "device": str(self.device)}

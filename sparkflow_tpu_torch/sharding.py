@@ -26,10 +26,12 @@ package's ``sharding.py``.
 - ``pp_axis`` — the pipeline axis of the decode engine (the trainer's pp
   axis is the mesh's ``pp``, as in JAX; the predict engine refuses an
   active one with JAX's message);
-- ``param_axes``, ``ep_axis`` — parsed and validated with the JAX
-  package's rules and messages; a fit or engine that activates
-  ``ep_axis`` or an explicit ``param_axes`` pytree raises "not yet ported"
-  (ROADMAP queue 1, item 7).
+- ``ep_axis`` — the expert-parallel axis of the serving engines (each MoE
+  bank split into ep shards in one process; the trainer's ep axis is the
+  mesh's ``ep``, as in JAX);
+- ``param_axes`` — parsed and validated with the JAX package's rules and
+  messages; a fit that activates an explicit ``param_axes`` pytree raises
+  "not yet ported" (ROADMAP queue 1, item 7).
 
 In the port a rank holds plain local tensors, so there are no
 ``NamedSharding`` objects: :meth:`ShardingConfig.data_spec` and

@@ -48,8 +48,10 @@ transformers through the Trainer's pipeline under ``ppSchedule``
 (``"gpipe"``, ``"1f1b"`` or ``"sequential"``) and ``ppMicrobatches``
 (unset or < 1: the Trainer's rule), in ``fitMode="collect"`` only — the
 JAX package's rules and messages; the fitted model serves without a mesh.
-Refused before any training with "not yet ported (see ROADMAP.md, queue 1
-item 7)": an ``ep`` axis.
+An ``ep`` axis (``"ep=2"``, ``"dp=2,ep=2"``) reaches the Trainer as in JAX:
+an MoE spec shards its expert banks over it, a dense graph trains
+replicated over it, and the combinations JAX refuses fail with its
+messages.
 
 Also importable as :mod:`sparkflow_tpu_torch.tensorflow_async`.
 """
@@ -72,11 +74,6 @@ from .pipeline_util import PysparkReaderWriter
 from .trainer import Trainer
 
 logger = logging.getLogger("sparkflow_tpu_torch")
-
-
-def _not_yet(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
-                              f"ROADMAP.md, queue 1 item 7)")
 
 
 class _OnDevice:
@@ -273,9 +270,8 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
     # persisted stages keep their shape: weightsPath (npz side-file weights),
     # extraInputCols/extraTfInputs (multi-input feeds), useEmaWeights,
     # checkpointDir/checkpointEvery, fitMode='stream', dp / sp / tp / fsdp /
-    # pp meshShape with ppMicrobatches / ppSchedule and
-    # weightUpdateSharding/zeroStage are ported; an ep axis is refused (see
-    # the module docstring)
+    # pp / ep meshShape with ppMicrobatches / ppSchedule and
+    # weightUpdateSharding/zeroStage are ported (see the module docstring)
     weightsPath = Param(Params._dummy(), "weightsPath", "", typeConverter=TypeConverters.toString)
     checkpointDir = Param(Params._dummy(), "checkpointDir", "", typeConverter=TypeConverters.toString)
     checkpointEvery = Param(Params._dummy(), "checkpointEvery", "", typeConverter=TypeConverters.toInt)
@@ -512,10 +508,6 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
         if zs not in (-1, 0, 1, 2, 3):
             raise ValueError(
                 "zeroStage must be -1 (unset) or 0-3; got %r" % zs)
-        for ax in (mesh_axes or {}):
-            if ax == "ep":
-                _not_yet(f"training on a mesh with a {ax!r} axis "
-                         f"(meshShape)")
         if self.getOrDefault(self.useEmaWeights):
             # fail BEFORE training, not after hours of fit: the EMA only
             # exists when the optimizer maintains it

@@ -92,13 +92,13 @@ memory is refreshed behind each step (each epoch in ``fit``) on a side
 stream; checkpoint saves, preemption and ``_last_opt_state`` read the
 mirror. Losses are bit-equal to the same fit without it.
 
-Sharded parameters (a mesh with a ``tp`` or ``fsdp`` axis, in ``fit`` and
-``fit_stream``, launched or in place): the JAX trainer's
+Sharded parameters (a mesh with a ``tp``, ``ep`` or ``fsdp`` axis, in
+``fit`` and ``fit_stream``, launched or in place): the JAX trainer's
 ``_resolve_pspecs`` decides the specs (``param_sharding="auto"``: the
-model's megatron rules on ``tp``, fsdp's ZeRO specs from ``param_specs()``
-on ``fsdp``, refusing a ``tp`` model without rules and ``tp`` with
-``fsdp``); each rank takes its slices before the optimizer's init
-(:class:`~.parallel.tp.ParamPlacement`) and trains through
+model's megatron rules on ``tp`` and its expert rules on ``ep``, fsdp's
+ZeRO specs from ``param_specs()`` on ``fsdp``, refusing a ``tp`` / ``ep``
+model without rules and ``tp`` / ``ep`` with ``fsdp``); each rank takes
+its slices before the optimizer's init (:class:`~.parallel.tp.ParamPlacement`) and trains through
 :func:`~.parallel.dp.make_param_sharded_train_step`. A tp rank runs the
 Megatron forward and sees its dp group's rows; an fsdp rank splits its dp
 group's rows again (zero-mask padded), so the batch rule stays JAX's. The
@@ -123,9 +123,14 @@ checkpoint of the other layout (a pp fit's on one card, one card's in a pp
 fit) relays it out. ``TrainResult.params``, ``weights_list()``,
 ``publish_to`` and ``ema_weights()`` carry the standard layout.
 
+On an ``ep`` axis (JAX's GSPMD form: rows shard over ``dp`` only) an MoE
+rank holds ``E/ep`` experts of each bank and serves its experts' slots,
+the outputs summed over ``ep``; a dense model trains replicated over the
+axis, as JAX's spec filter makes it. ``ep`` composes with ``dp`` and
+``tp``; checkpoints and published weights hold whole banks.
+
 Not ported yet, and rejected with "not yet ported (see ROADMAP.md, queue 1
-item 7)": ``ep`` mesh axes (and ``ep_axis`` in ``sharding``), explicit
-``param_sharding`` / ``param_axes`` pytrees. ``debug_recompiles`` has
+item 7)": explicit ``param_sharding`` / ``param_axes`` pytrees. ``debug_recompiles`` has
 no counterpart: PyTorch runs eagerly, so there are no traces or compiles to
 count. ``graph`` is a registry spec, an ``nn`` graph-DSL spec, a TF1
 ``MetaGraphDef`` JSON (the reference's wire format), a
@@ -172,10 +177,6 @@ RNG_IMPL = "torch"
 def _not_yet(what: str):
     raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
                               f"ROADMAP.md, queue 1 item 7)")
-
-
-#: mesh axes whose strategies are not yet ported (expert parallelism)
-_UNPORTED_AXES = {"ep": "expert parallelism"}
 
 
 def _sync(dev: torch.device) -> None:
@@ -649,9 +650,6 @@ class Trainer:
                  backend: Optional[str] = None):
         from .parallel.mesh import as_mesh
         self.mesh = as_mesh(mesh)
-        for ax in (self.mesh.axis_names if self.mesh is not None else ()):
-            if ax in _UNPORTED_AXES:
-                _not_yet(f"{_UNPORTED_AXES[ax]} (mesh axis {ax!r})")
         if param_sharding not in ("auto", None):
             _not_yet("explicit param_sharding pytrees (tensor / fsdp "
                      "placement)")
@@ -671,8 +669,6 @@ class Trainer:
         self.sharding = (as_sharding_config(sharding)
                          if sharding is not None else None)
         if self.sharding is not None:
-            if self.sharding.ep_axis is not None:
-                _not_yet("model-parallel sharding axes (ep_axis)")
             if self.sharding.param_axes not in ("auto", None):
                 _not_yet("explicit ShardingConfig.param_axes pytrees")
         # a mesh fit's collective backend: None picks by the rule of

@@ -1719,3 +1719,125 @@ def test_pp_decode_engine_on_card_matches_the_engine_without_a_mesh(dev):
             assert counts["paged_attention"] > 0, kw
             assert counts["flash_fwd"] > 0, kw
             assert toks == _engine_tokens(want, prompt), kw
+
+
+def test_ep_decode_engine_on_card_matches_the_engine_without_a_mesh(dev):
+    """Float32 (TF32 off): an ep=2 and a tp=2 x ep=2 decode engine of a
+    small MoE LM on the card (every shard on card 0 of a one-card machine)
+    decode the greedy tokens of the engine without a mesh, plain and with
+    spec_k, through the flash and paged kernels. The split banks run one
+    product per expert (a batched product's kernel on the card follows its
+    batch count), so the reference's model runs its whole bank so too."""
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = build_registry_spec("transformer_moe_lm", vocab_size=97,
+                               hidden=128, num_layers=4, num_heads=2,
+                               mlp_dim=256, max_len=128, dropout=0.0,
+                               num_experts=4, moe_every=2)
+    card = model_from_json(spec, device="cuda")
+    params = card.init(seed=6)
+    ref = model_from_json(spec, device="cuda")
+    ref.per_expert_products = True
+    meshes = [dict(mesh={"ep": 2}, sharding=ShardingConfig(ep_axis="ep")),
+              dict(mesh={"tp": 2, "ep": 2},
+                   sharding=ShardingConfig(tp_axis="tp", ep_axis="ep"))]
+    for kw in ({}, {"spec_k": 3, "draft_layers": 2}):
+        want = DecodeEngine(ref, params, num_slots=2, page_size=16, seed=0,
+                            **kw)
+        for mesh in meshes:
+            got = DecodeEngine(card, params, num_slots=2, page_size=16,
+                               seed=0, **mesh, **kw)
+            for prompt in ([5, 2, 8, 1], list(range(1, 40))):
+                reset_launch_counts()
+                toks = _engine_tokens(got, prompt)
+                counts = launch_counts()
+                assert counts["paged_attention"] > 0, kw
+                assert counts["flash_fwd"] > 0, kw
+                assert toks == _engine_tokens(want, prompt), (kw, mesh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_vmapped_flash_launches_once_for_k_replicas(dev, dtype):
+    """Under ``torch.func.vmap`` over ``torch.func.grad`` the flash
+    wrapper's batching rule folds K replicas into the batch: one launch of
+    each of kernels 1-3 for all K, each replica's output and gradients
+    those of the plain attention."""
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    g = torch.Generator(device=dev).manual_seed(7)
+    k_, b, h, s, d = 3, 2, 4, 100, 64
+    q, k, v = (torch.randn(k_, b, h, s, d, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    mask = torch.ones(b, s, device=dev)
+    mask[1, 70:] = 0
+
+    def loss(q, k, v):
+        return flash_attention(q, k, v, causal=True,
+                               kv_mask=mask).float().square().sum()
+
+    reset_launch_counts()
+    grads = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(q, k,
+                                                                       v)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_fwd"] == 1
+    assert counts["flash_bwd_dq"] == 1 and counts["flash_bwd_dkv"] == 1
+    for i in range(k_):
+        qi, ki, vi = (t[i].detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        ref = attention_reference(qi, ki, vi, causal=True, kv_mask=mask)
+        want = torch.autograd.grad(ref.square().sum(), (qi, ki, vi))
+        for got, w in zip(grads, want):
+            top = float(w.abs().max())
+            assert _max_err(got[i], w) <= BWD_TOL[dtype] * max(top, 1.0)
+
+
+def test_moe_spec_decode_on_card_repeats_itself(dev):
+    """Float32 (TF32 off): an MoE LM's spec decode on the card gives the
+    same tokens twice — its lanes past their room read scratch page 0 and
+    claim expert capacity, so the duplicate scratch writes must resolve
+    the same way every time — and its ep=2 engine gives those of the
+    engine without a mesh on the split banks' arithmetic (one product per
+    expert)."""
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = build_registry_spec("transformer_moe_lm", vocab_size=97,
+                               hidden=128, num_layers=4, num_heads=2,
+                               mlp_dim=256, max_len=128, dropout=0.0,
+                               num_experts=4, moe_every=2,
+                               capacity_factor=1.0)
+    card = model_from_json(spec, device="cuda")
+    params = card.init(seed=8)
+    ref = model_from_json(spec, device="cuda")
+    ref.per_expert_products = True
+    prompts = [list(range(1, 9 + 3 * i)) for i in range(4)]
+
+    def run(model=card, **kw):
+        eng = DecodeEngine(model, params, num_slots=4, page_size=16, seed=0,
+                           spec_k=3, draft_layers=2, **kw)
+        infos = [eng.prefill(p, max_new_tokens=10 + i)
+                 for i, p in enumerate(prompts)]
+        need = {i["slot"]: 10 + n for n, i in enumerate(infos)}
+        toks = {i["slot"]: [i["token"]] for i in infos}
+        live = set(toks)
+        while live:
+            for s, t in eng.step().items():
+                toks[s].extend(t)
+                if len(toks[s]) >= need[s]:
+                    eng.release(s)
+                    live.discard(s)
+        return [toks[s][:need[s]] for s in need]
+
+    first = run()
+    assert run() == first
+    per_expert = run(ref)
+    assert run(ref) == per_expert
+    assert run(mesh={"ep": 2},
+               sharding=ShardingConfig(ep_axis="ep")) == per_expert

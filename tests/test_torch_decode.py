@@ -163,11 +163,12 @@ def test_swap_params_defers_until_drained(torch_lm, weights):
     {"mesh": {"pp": 2}, "sharding": {"pp_axis": "pp"}, "num_slots": 3},
     {"mesh": {"pp": 2}, "sharding": {"pp_axis": "pp"}, "num_slots": 3,
      "pp_wave": False}])
-def test_unported_engine_options_raise(torch_lm, kw):
-    # tp and pp decode are ported (tests/test_torch_{tp,pp}_serving.py); ep
-    # is not. A pp engine's waves split the slots into pp equal waves, so
-    # num_slots=3 is refused with JAX's message; pp_wave=False stands that
-    # rule down and serves the single-wave step
+def test_unported_engine_options_raise(torch_lm, weights, kw):
+    # tp, pp and ep decode are ported (tests/test_torch_{tp,pp,ep}_serving
+    # .py). An ep axis over the dense LM is refused with JAX's message (no
+    # expert bank). A pp engine's waves split the slots into pp equal
+    # waves, so num_slots=3 is refused with JAX's message; pp_wave=False
+    # stands that rule down and serves the single-wave step
     tm, tp = torch_lm
     kw = dict({"num_slots": 2, "page_size": PAGE}, **kw)
     if kw.get("pp_wave") is False:
@@ -177,8 +178,17 @@ def test_unported_engine_options_raise(torch_lm, kw):
                                                         NEW)[0]
         assert eng.stats()["parallel"]["pp_wave"] is False
         return
-    match = ("ROADMAP.md" if "ep" in kw["mesh"]
-             else "num_slots=3 is not divisible by pp=2")
+    if "ep" in kw["mesh"]:
+        from sparkflow_tpu.parallel.mesh import make_mesh
+        jm, jp, _ = weights
+        match = "ep_axis is set but the model has no expert bank"
+        with pytest.raises(ValueError, match=match):
+            JaxDecodeEngine(jm, jp, num_slots=2, page_size=PAGE,
+                            mesh=make_mesh(kw["mesh"],
+                                           devices=jax.devices()[:2]),
+                            sharding=kw["sharding"])
+    else:
+        match = "num_slots=3 is not divisible by pp=2"
     with pytest.raises(ValueError, match=match):
         DecodeEngine(tm, tp, **kw)
 

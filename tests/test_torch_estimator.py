@@ -159,11 +159,13 @@ def test_unsupervised_autoencoder_and_vector_predictions(spark):
     {"weightUpdateSharding": "on", "meshShape": "ep=2"},
     {"zeroStage": 1, "meshShape": "dp=2,ep=2"}], ids=lambda d: next(iter(d)))
 def test_unported_params_are_refused_before_training(gaussian_df, over):
-    # dp / sp / tp / fsdp / pp meshes and the ZeRO Params are ported
-    # (tests/test_torch_{zero,tp,fsdp,pp}.py); the ep axis is not. The pp
-    # Params are refused where JAX refuses them, with its messages: a pp
-    # mesh over a graph with no blocks, microbatches that do not divide the
-    # batch, an unknown schedule
+    # dp / sp / tp / fsdp / pp / ep meshes and the ZeRO Params are ported
+    # (tests/test_torch_{zero,tp,fsdp,pp,ep}.py). Each case is refused where
+    # JAX refuses it, with its message: a pp mesh over a graph with no
+    # blocks, microbatches that do not divide the batch, an unknown
+    # schedule, and an ep axis over a graph that publishes no
+    # param_pspecs() (JAX's estimator needs its mesh to span every visible
+    # device, so JAX's side is its Trainer on a mesh of that shape)
     calls = []
     df = gaussian_df
     if "ppMicrobatches" in over:
@@ -179,8 +181,24 @@ def test_unported_params_are_refused_before_training(gaussian_df, over):
             tfOutput="logits", miniBatchSize=16)
     est = _estimator(**over).setLossCallback(lambda *a: calls.append(a))
     if "ep=" in over.get("meshShape", ""):
-        with pytest.raises(NotImplementedError,
-                           match="not yet ported.*ROADMAP.md.*item 7"):
+        import jax
+        from sparkflow_tpu.parallel.mesh import make_mesh
+        from sparkflow_tpu.sharding import ShardingConfig
+        from sparkflow_tpu.trainer import Trainer as JaxTrainer
+        from sparkflow_tpu_torch.parallel.mesh import parse_mesh_shape
+        axes = parse_mesh_shape(over["meshShape"])
+        match = ("request tensor-sharded params but GraphModel publishes no "
+                 "param_pspecs")
+        jkw = ({"weight_update_sharding": "on"}
+               if "weightUpdateSharding" in over
+               else {"sharding": ShardingConfig(zero_stage=1)})
+        with pytest.raises(ValueError, match=match):
+            JaxTrainer(jax_build_graph(lambda: create_model(jnn)), "x:0",
+                       "y:0", iters=1, mesh=make_mesh(
+                           axes, devices=jax.devices()[:int(np.prod(
+                               list(axes.values())))]), **jkw).fit(
+                np.zeros((8, 2), np.float32), np.zeros((8, 1), np.float32))
+        with pytest.raises(ValueError, match=match):
             est.fit(df)
     else:
         match = ("has no block structure to pipeline"

@@ -173,11 +173,25 @@ def test_sharded_transformer_classifier_matches_jax():
 
 
 def test_a_model_parallel_predict_mesh_is_refused():
+    # an ep mesh serves (tests/test_torch_ep_serving.py): the graph has no
+    # expert bank, so as in JAX's replicated program each copy holds the
+    # whole tree and the predictions are the plain ones and JAX's
     tr = Trainer(build_graph(lambda: clf_graph(tnn)), "x:0", "y:0",
                  device="cpu")
+    jtr = JaxTrainer(jax_build_graph(lambda: clf_graph(jnn)), "x:0", "y:0")
+    x = np.random.RandomState(3).randn(5, 10).astype(np.float32)
+    params = tr.model.init(seed=1)
+    tree = jax.tree.map(np.asarray, {ln: {k: v.detach().numpy() for k, v in
+                                           layer.items()}
+                                      for ln, layer in params.items()})
+    plain = tr.predict_fn("out:0")(params, x).numpy()
     for mesh in ({"dp": 2, "ep": 2}, {"ep": 2}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tr.predict_fn("out:0", mesh=mesh)
+        got = tr.predict_fn("out:0", mesh=mesh)(params, x).numpy()
+        jmesh = jax_make_mesh(mesh, devices=jax.devices()[:int(np.prod(
+            list(mesh.values())))])
+        want = np.asarray(jtr.predict_fn("out:0", mesh=jmesh)(tree, x))
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
     # a pp axis is a decode axis: refused with the JAX engine's message
     with pytest.raises(ValueError, match="decode-plane axis"):
         tr.predict_fn("out:0", mesh={"pp": 2})

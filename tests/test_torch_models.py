@@ -279,17 +279,24 @@ def test_unported_model_options_raise(kw):
 
 
 def test_unported_call_options_raise(pair):
-    _, _, tm, tp, _ = pair
+    jm, jp, tm, tp, _ = pair
     ids = torch.zeros(1, 4, dtype=torch.long)
     # tp_axis is ported (the Megatron forward of a tp rank,
     # tests/test_torch_tp.py): outside a bound mesh it raises, as a psum
-    # over an unbound axis does in JAX; ep_axis is not ported
+    # over an unbound axis does in JAX. ep_axis is ported too: a dense
+    # model's blocks ignore it in both packages, so the prefill is the
+    # plain one
     with pytest.raises(RuntimeError, match="no mesh is bound"):
         tm.prefill(tp, ids, tp_axis="tp")
     with pytest.raises(ValueError, match="kv_dtype"):
         tm.init_decode_cache(1, kv_dtype="int4")
-    with pytest.raises(ValueError, match="ep_axis"):
-        tm.prefill(tp, ids, ep_axis="ep")
+    with torch.inference_mode():
+        got = tm.prefill(tp, ids, ep_axis="ep")[0].numpy()
+        plain = tm.prefill(tp, ids)[0].numpy()
+    want = np.asarray(jm.prefill(jp, jnp.zeros((1, 4), jnp.int32),
+                                 ep_axis="ep")[0])
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_constructor_without_device_needs_a_card():

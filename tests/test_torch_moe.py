@@ -273,13 +273,30 @@ def test_int8_tree_is_bit_equal_to_jax(served):
 
 
 def test_expert_parallelism_is_refused():
+    """Expert parallelism is ported (tests/test_torch_ep.py): a spec with
+    ``ep_axis`` builds in both packages, and outside a mesh each package
+    refuses it as JAX does — the all_to_all forward with JAX's NameError,
+    the local-bank prefill (``ep_axis=``) as a collective over an unbound
+    axis (JAX's NameError, the port's "no mesh is bound")."""
     spec = build_registry_spec("transformer_moe_lm",
                                **dict(MOE, ep_axis="ep"))
-    with pytest.raises(ValueError, match="ep_axis.*not yet ported"):
-        model_from_json(spec, device="cpu")
-    _, tm, npp = _pair(1)
-    with pytest.raises(ValueError, match="ep_axis"):
-        tm.prefill(params_from_jax(tm, npp), torch.zeros(1, 4, dtype=torch.long),
+    assert spec == jax_spec("transformer_moe_lm", **dict(MOE, ep_axis="ep"))
+    jm, tm = jax_from_json(spec), model_from_json(spec, device="cpu")
+    assert tm.ep_axis == jm.ep_axis == "ep"
+    npp = numpy_params(jm.param_specs(), seed=1)
+    ids = np.zeros((1, 4), np.int32)
+    with pytest.raises(NameError, match="mesh axis 'ep' is not bound"):
+        jm.apply(jax.tree.map(jnp.asarray, npp),
+                 {"input_ids": jnp.asarray(ids)}, ["logits"])
+    with pytest.raises(NameError, match="mesh axis 'ep' is not bound"):
+        tm.apply(params_from_jax(tm, npp), {"input_ids": torch.tensor(ids)},
+                 ["logits"])
+    jm, tm, npp = _pair(1)
+    with pytest.raises(NameError, match="unbound axis"):
+        jm.prefill(jax.tree.map(jnp.asarray, npp), jnp.asarray(ids),
+                   ep_axis="ep")
+    with pytest.raises(RuntimeError, match="no mesh is bound"):
+        tm.prefill(params_from_jax(tm, npp), torch.tensor(ids),
                    ep_axis="ep")
 
 

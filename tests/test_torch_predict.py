@@ -218,13 +218,28 @@ def test_bad_names_modes_and_weights_fail_at_construction():
     ({"sharding": {"ep_axis": "ep"}}, "item 7")],
     ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_unported_options_are_refused(option, item):
-    # dp and tp serving are ported (tests/test_torch_{mesh_predict,
-    # tp_serving}.py); an ep axis, on the mesh or in the sharding config,
-    # is not
+    # dp, tp and ep serving are ported (tests/test_torch_{mesh_predict,
+    # tp_serving,ep_serving}.py). On the MLP graph each option serves as the
+    # JAX engine serves it: an ep axis the config does not name replicates
+    # the params (ep 1), and an ep_axis without a mesh serves unsharded —
+    # the predictions are the plain engine's and JAX's
     spec, weights, inp, out = _mlp()
-    with pytest.raises(ValueError, match=f"not yet ported.*{item}"):
-        InferenceEngine(spec, weights, input_name=inp, output_name=out,
-                        device="cpu", **option)
+    x = _rows("mlp", 5)
+    eng = InferenceEngine(spec, weights, input_name=inp, output_name=out,
+                          device="cpu", max_batch=8, **option)
+    plain = InferenceEngine(spec, weights, input_name=inp, output_name=out,
+                            device="cpu", max_batch=8)
+    jopt = dict(option)
+    if "mesh" in jopt:
+        from sparkflow_tpu.parallel.mesh import make_mesh
+        jopt["mesh"] = make_mesh(jopt["mesh"], devices=jax.devices()[:2])
+    jeng = JaxEngine(spec, weights, input_name=inp, output_name=out,
+                     max_batch=8, **jopt)
+    got = eng.predict(x)
+    np.testing.assert_array_equal(got, plain.predict(x))
+    np.testing.assert_allclose(got, np.asarray(jeng.predict(x)), atol=1e-5,
+                               rtol=1e-5)
+    assert eng.stats()["ep"] == jeng.stats()["ep"] == 1
 
 
 # -- cold start (executable_dir / compile_cache_dir) ---------------------------

@@ -295,12 +295,14 @@ def test_trainer_predict_ema_and_weights():
 
 def test_trainer_misuse_raises():
     spec = build_registry_spec("transformer_lm", **LM)
-    # dp / sp / tp / fsdp / pp meshes are ported (tests/test_torch_{zero,
-    # tp,fsdp,pp}.py); expert parallelism is not, a pp mesh refuses an sp
-    # axis with JAX's message before any rank starts, and a mesh must be a
-    # Mesh or a dict of sizes
+    # dp / sp / tp / fsdp / pp / ep meshes are ported (tests/test_torch_{
+    # zero,tp,fsdp,pp,ep}.py); an explicit param_sharding pytree is not, a
+    # pp mesh refuses an sp axis with JAX's message before any rank starts,
+    # and a mesh must be a Mesh or a dict of sizes
+    Trainer(spec, "input_ids", None, mesh={"ep": 2}, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported.*item 7"):
-        Trainer(spec, "input_ids", None, mesh={"ep": 2}, device="cpu")
+        Trainer(spec, "input_ids", None, mesh={"ep": 2}, device="cpu",
+                param_sharding={"embed": {}})
     with pytest.raises(ValueError, match="cannot combine 'pp' and 'sp'"):
         Trainer(spec, "input_ids", None, mesh={"pp": 2, "sp": 2},
                 device="cpu").fit(_tokens(8, 4).astype(np.float32))

@@ -572,3 +572,89 @@ def tree_grad(tree):
     if isinstance(tree, dict):
         return {k: tree_grad(v) for k, v in tree.items()}
     return tree.requires_grad_(True)
+
+
+# -- expert parallelism -------------------------------------------------------
+
+
+def ep_collectives(axes, xs, gs):
+    """``all_to_all`` and ``psum_grad`` over ``ep`` on this rank's
+    ``xs[rank]`` [n, ...]: the values and the gradients of ``sum(out *
+    gs[rank])``."""
+    from sparkflow_tpu_torch.parallel import collectives as C
+    m = _mesh(axes)
+    r = dist.get_rank()
+    g = torch.tensor(gs[r])
+    with m.bind():
+        x = torch.tensor(xs[r], requires_grad=True)
+        a2a = C.all_to_all(x, "ep")
+        (dx_a2a,) = torch.autograd.grad((a2a * g).sum(), x)
+        x = torch.tensor(xs[r], requires_grad=True)
+        ps = C.psum_grad(x, "ep")
+        (dx_ps,) = torch.autograd.grad((ps * g).sum(), x)
+        return {"a2a": _np(a2a), "a2a_grad": _np(dx_a2a), "psum": _np(ps),
+                "psum_grad": _np(dx_ps), "stats": C.stats()}
+
+
+def moe_ffn(axes, x, mask, params, gy, top_k, cf, aux_w):
+    """``all_to_all_moe_ffn`` over ``ep`` on this rank's block of the rows
+    of ``x`` [B, S, H] (and ``mask``), with this rank's slice of the expert
+    bank: the output, aux, overflow and the gradients of ``sum(y * gy) +
+    aux_w * aux`` for x, the router and the rank's expert slices."""
+    from sparkflow_tpu_torch.ops.moe_dispatch import all_to_all_moe_ffn
+    m = _mesh(axes)
+    n = m.shape["ep"]
+    r = dist.get_rank()
+    b = x.shape[0] // n
+    rows = slice(r * b, (r + 1) * b)
+    e_loc = params["experts_fc1"].shape[0] // n
+    loc = {k: torch.tensor(v[r * e_loc:(r + 1) * e_loc] if k.startswith(
+        "experts") else v, requires_grad=True) for k, v in params.items()}
+    xt = torch.tensor(x[rows], requires_grad=True)
+    mt = None if mask is None else torch.tensor(mask[rows])
+    with m.bind():
+        y, aux, over = all_to_all_moe_ffn(
+            xt, loc["router"], loc["experts_fc1"], loc["experts_b1"],
+            loc["experts_fc2"], loc["experts_b2"], "ep",
+            params["router"].shape[1], cf, mt, top_k=top_k,
+            return_overflow=True)
+        loss = (y * torch.tensor(gy[rows])).sum() + aux_w * aux
+        names = ["router", "experts_fc1", "experts_b1", "experts_fc2",
+                 "experts_b2"]
+        grads = torch.autograd.grad(loss, [xt] + [loc[k] for k in names])
+    return {"y": _np(y), "aux": float(aux), "overflow": float(over),
+            "grads": {k: _np(g) for k, g in zip(["x"] + names, grads)}}
+
+
+def moe_shardmap_steps(spec, axes, p0, ids, mask, opt_name, lr, steps,
+                       opt_options=None):
+    """``steps`` steps of ``make_moe_shardmap_train_step`` from ``p0`` on
+    this rank's block of the rows: the losses and the gathered params."""
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    from sparkflow_tpu_torch.parallel.ep import (make_moe_shardmap_train_step,
+                                                 place_moe_params)
+    from sparkflow_tpu_torch.parallel.tp import gather_params
+    m = _mesh(axes)
+    model = model_from_json(spec, device="cpu")
+    opt = build_optimizer(opt_name, lr, opt_options)
+    with m.bind():
+        n = m.shape["ep"]
+        r = m.axis_index("ep")
+        b = ids.shape[0] // n
+        std = _tree_t(p0)
+        params = place_moe_params(model, std, m)
+        params = {k: {kk: t.requires_grad_(True) for kk, t in d.items()}
+                  for k, d in params.items()}
+        state = opt.init(params)
+        step = make_moe_shardmap_train_step(model, opt, m)
+        losses = []
+        for i in range(steps):
+            params, state, loss = step(
+                params, state, torch.tensor(ids[r * b:(r + 1) * b]).long(),
+                torch.tensor(mask[r * b:(r + 1) * b]), i)
+            losses.append(float(loss))
+        full = gather_params({k: {kk: t.detach() for kk, t in d.items()}
+                              for k, d in params.items()}, m,
+                             model.param_pspecs(), std)
+        return {"losses": losses, "params": _tree_np(full)}
