@@ -399,10 +399,31 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     the sweep's time against the separate ones'. ``python3 chip_smoke.py
     --phase ep`` runs set-up and this phase alone.
 
+23. tooling: the analysis and tracing tools on the card. (a) At
+    GPT-2-small width, under ``sparkflow_tpu_torch.utils.tracing.trace``:
+    10 bf16 decode steps of an 8-slot engine, 3 speculative steps
+    (``spec_k=4``) over a bf16 and over an int8 pool, and 2 bf16
+    ``Trainer`` steps at 2 x 1024. In each exported Chrome trace the
+    device events of each kernel's ``__global__`` names equal its launch
+    counter over the same window, each launched inside an annotated range
+    (the engines' ``serving/*`` spans; the training fit inside a
+    ``tooling/train_fit`` range); each window also runs untraced, for the
+    profiler's cost in host-clock ms a step. (b) The recompile guards:
+    the BERT-base float32 ``InferenceEngine`` (``max_batch=8``) after
+    warmup serves every size 1-8 and 11 rows with ``steady_traces == 0``
+    and no finding, each decode engine of (a) ends with
+    ``steady_traces == 0``, a ``Trainer(debug_recompiles=True)`` fit
+    reports one epoch signature, and a ragged last batch through the
+    trainer's step under ``track_recompiles`` is named by its leaf (the
+    trainer pads its batches, as JAX's does). (c)
+    ``utils.tracing.device_memory_stats()`` holds the allocator's
+    counters, ``bytes_limit`` the card's memory. ``python3 chip_smoke.py
+    --phase tooling`` runs set-up and this phase alone.
+
 Run order: 1, 2, 9, 6, then two processes side by side: this one runs 3,
 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, and a second one
 (``--mesh-group``, started once the kernels' times are taken) runs 18, 19,
-20, 21 on one 2-rank pool, its lines relayed here. Both are host-bound
+20, 21 on one 2-rank pool, then 23, its lines relayed here. Both are host-bound
 (the card idles most of their time), so together they take about the
 longer one's time; a phase's throughput in this run is taken with the
 other process sharing the card and the host, and ``--phase NAME`` gives
@@ -3856,21 +3877,24 @@ def _moe_serving(card, device):
                "decode_tokens_per_s": gen / wall, "step_ms_p50": step_ms,
                "launches": launches, "card": card}
     if cuda:
-        slots = [eng.prefill(p, max_new_tokens=100)["slot"]
-                 for p in prompts]
-        for _ in range(3):
-            eng.step()
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        steps = 10
-        with profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(steps):
+        slots = []
+        try:
+            for p in prompts:
+                slots.append(eng.prefill(p, max_new_tokens=100)["slot"])
+            for _ in range(3):
                 eng.step()
-            torch.cuda.synchronize()
-            prof_wall = (time.perf_counter() - t1) * 1e3
-        for s in slots:
-            eng.release(s)
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            steps = 10
+            with profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(steps):
+                    eng.step()
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - t1) * 1e3
+        finally:
+            for s in slots:
+                eng.release(s)
         summary["decode_step_8_slots"] = _device_profile(
             prof, prof_wall, steps, kernels=("paged_attention", "gemm",
                                              "index", "scatter"))
@@ -3900,59 +3924,65 @@ def _moe_exactness(card, device):
                        prefix_cache=False)
     rng = np.random.default_rng(17)
     vocab = SWITCH_BASE_8["vocab_size"]
-    infos = [eng.prefill(rng.integers(0, vocab, n).tolist(),
-                         max_new_tokens=MOE_EXACT_STEPS + 1)
-             for n in (40, 129, 300)]                   # one idle lane
-    live = torch.tensor([i["slot"] for i in infos], device=model.device)
-    page = eng.page_size
-    cache = model.init_decode_cache(eng.num_slots, max_len=eng.max_seq_len)
-    tables, lengths = eng.kv.page_tables(), eng.kv.lengths()
-    with torch.inference_mode():
-        for s in live.tolist():
-            pos = torch.arange(int(lengths[s]), device=model.device)
-            pids = torch.as_tensor(tables[s],
-                                   device=model.device)[pos // page].long()
-            for pool, name in ((eng._k_pool, "k"), (eng._v_pool, "v")):
-                cache[name][:, s, :, :len(pos)] = pool[
-                    :, pids, pos % page].transpose(1, 2)
-    step_inner, route_inner = model.decode_step, model.route
-    seen, margins = [], []
-
-    def decode_spy(*a, **kw):
-        logits, c = step_inner(*a, **kw)
-        seen.append((a[2].clone(), a[3].clone(), logits.detach().clone()))
-        return logits, c
-
-    def route_spy(bp, xf, token_mask=None):
-        out = route_inner(bp, xf, token_mask)
-        top2 = out[0].topk(2, dim=-1).values
-        margins.append((top2[:, 0] - top2[:, 1]).detach())
-        return out
-
-    model.decode_step, model.route = decode_spy, route_spy
-    near = {"engine": 0, "dense": 0}
-    worst, tok = 0.0, None
+    infos = []
     try:
+        for n in (40, 129, 300):                     # one idle lane
+            infos.append(eng.prefill(rng.integers(0, vocab, n).tolist(),
+                                     max_new_tokens=MOE_EXACT_STEPS + 1))
+        live = torch.tensor([i["slot"] for i in infos], device=model.device)
+        page = eng.page_size
+        cache = model.init_decode_cache(eng.num_slots,
+                                        max_len=eng.max_seq_len)
+        tables, lengths = eng.kv.page_tables(), eng.kv.lengths()
         with torch.inference_mode():
-            for _ in range(MOE_EXACT_STEPS):
-                margins.clear()
-                eng.step()
-                token, pos, want = seen[-1]
-                near["engine"] += int(sum(
-                    (m[live] < MOE_MARGIN).sum() for m in margins))
-                margins.clear()
-                got, cache = step_inner(params, cache, token, pos)
-                near["dense"] += int(sum(
-                    (m[live] < MOE_MARGIN).sum() for m in margins))
-                worst = max(worst, max_err(got[live], want[live]))
-                tok = (token, pos, want)
-            model.compute_dtype = torch.bfloat16
-            bf_cache = {k: v.to(torch.bfloat16) for k, v in cache.items()}
-            bf, _ = step_inner(params, bf_cache, tok[0], tok[1])
-            control = max_err(bf[live], tok[2][live])
+            for s in live.tolist():
+                pos = torch.arange(int(lengths[s]), device=model.device)
+                pids = torch.as_tensor(
+                    tables[s], device=model.device)[pos // page].long()
+                for pool, name in ((eng._k_pool, "k"), (eng._v_pool, "v")):
+                    cache[name][:, s, :, :len(pos)] = pool[
+                        :, pids, pos % page].transpose(1, 2)
+        step_inner, route_inner = model.decode_step, model.route
+        seen, margins = [], []
+
+        def decode_spy(*a, **kw):
+            logits, c = step_inner(*a, **kw)
+            seen.append((a[2].clone(), a[3].clone(),
+                         logits.detach().clone()))
+            return logits, c
+
+        def route_spy(bp, xf, token_mask=None):
+            out = route_inner(bp, xf, token_mask)
+            top2 = out[0].topk(2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).detach())
+            return out
+
+        model.decode_step, model.route = decode_spy, route_spy
+        near = {"engine": 0, "dense": 0}
+        worst, tok = 0.0, None
+        try:
+            with torch.inference_mode():
+                for _ in range(MOE_EXACT_STEPS):
+                    margins.clear()
+                    eng.step()
+                    token, pos, want = seen[-1]
+                    near["engine"] += int(sum(
+                        (m[live] < MOE_MARGIN).sum() for m in margins))
+                    margins.clear()
+                    got, cache = step_inner(params, cache, token, pos)
+                    near["dense"] += int(sum(
+                        (m[live] < MOE_MARGIN).sum() for m in margins))
+                    worst = max(worst, max_err(got[live], want[live]))
+                    tok = (token, pos, want)
+                model.compute_dtype = torch.bfloat16
+                bf_cache = {k: v.to(torch.bfloat16)
+                            for k, v in cache.items()}
+                bf, _ = step_inner(params, bf_cache, tok[0], tok[1])
+                control = max_err(bf[live], tok[2][live])
+        finally:
+            model.compute_dtype = None
+            del model.decode_step, model.route
     finally:
-        model.compute_dtype = None
-        del model.decode_step, model.route
         for i in infos:
             eng.release(i["slot"])
     if not worst <= MOE_LOGIT_TOL:
@@ -4084,7 +4114,9 @@ def _marked_fit(fit, cuda):
     import torch
     import sparkflow_tpu_torch.core as core
     marks = []
-    make_step = core.make_train_step
+    # the one-step body every epoch (and make_train_step) builds its step
+    # from, looked up in core when a fit builds its epoch
+    make_step = core._step_body
 
     def marked_train_step(loss_fn, optimizer):
         step = make_step(loss_fn, optimizer)
@@ -4100,7 +4132,7 @@ def _marked_fit(fit, cuda):
             return out
         return marked
 
-    core.make_train_step = marked_train_step
+    core._step_body = marked_train_step
     try:
         _sync(cuda)
         t0 = time.perf_counter()
@@ -4108,7 +4140,7 @@ def _marked_fit(fit, cuda):
         _sync(cuda)
         wall = time.perf_counter() - t0
     finally:
-        core.make_train_step = make_step
+        core._step_body = make_step
     gaps = [(a.elapsed_time(b) / 1e3 if cuda else b - a)
             for a, b in zip(marks, marks[1:])]
     return out, wall, gaps
@@ -6331,8 +6363,13 @@ def _tpf_kernels_h6(card):
     decode step's paged operands (8 slots, 16-token pages, bf16 and int8)
     and the verify grid (S = spec_k + 1); a second launch of each must
     give the same bits. The kernel's ms beside (ten calls a CUDA-graph
-    replay, as phase 2 times them)."""
+    replay, as phase 2 times them), its bound from this run's operands
+    (``_bound``: each operand read once, each output written once, and
+    the (query, key) pairs this data needs) and, for kernels 1-3,
+    ``F.scaled_dot_product_attention``'s forward and backward at the same
+    shape (``library_ms``)."""
     import torch
+    import torch.nn.functional as F
     from sparkflow_tpu_torch.ops import (attention_reference,
                                          flash_attention, flash_bwd_dkv,
                                          flash_bwd_dkv_reference,
@@ -6350,17 +6387,26 @@ def _tpf_kernels_h6(card):
     out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     again = flash_attention(q, k, v, causal=True)
     ref = attention_reference(q, k, v, causal=True)
+    bf, s_len = q.shape[0], q.shape[2]
+    pairs = h * bf * s_len * (s_len + 1) / 2     # causal (query, key) pairs
+    plane = q.numel() * q.element_size()         # one [B, H, S, D] operand
     rows["flash_fwd"] = {"max_abs_err": max_err(out, ref),
                          "repeat_bit_equal": bool(torch.equal(out, again)),
                          "ms": time_device([lambda: flash_attention(
-                             q, k, v, causal=True)] * 10)}
+                             q, k, v, causal=True)] * 10),
+                         "library_ms": time_device([
+                             lambda: F.scaled_dot_product_attention(
+                                 q, k, v, is_causal=True)] * 10),
+                         "bytes": 4 * plane, "flops": 2 * 2 * 64 * pairs}
     delta = (do.float() * out.float()).sum(-1).contiguous()
     args = (q, k, v, do, lse, delta, True)
-    for name, fn, ref_fn in (
+    sdpa_bwd = time_sdpa_backward(q, k, v, do, None, True)
+    stats = 2 * bf * h * s_len * 4                # lse and delta, float32
+    for name, fn, ref_fn, nbytes, products in (
             ("flash_bwd_dq", lambda: (flash_bwd_dq(*args),),
-             lambda: (flash_bwd_dq_reference(*args),)),
+             lambda: (flash_bwd_dq_reference(*args),), 5 * plane + stats, 3),
             ("flash_bwd_dkv", lambda: flash_bwd_dkv(*args),
-             lambda: flash_bwd_dkv_reference(*args))):
+             lambda: flash_bwd_dkv_reference(*args), 6 * plane + stats, 4)):
         got, again, want = fn(), fn(), ref_fn()
         rows[name] = {
             "max_abs_err": max(max_err(a, w) for a, w in zip(got, want)),
@@ -6368,7 +6414,8 @@ def _tpf_kernels_h6(card):
                 w.float().abs().max()) for a, w in zip(got, want)),
             "repeat_bit_equal": all(torch.equal(a, b_)
                                     for a, b_ in zip(got, again)),
-            "ms": time_device([fn] * 10)}
+            "ms": time_device([fn] * 10), "library_ms": sdpa_bwd,
+            "bytes": nbytes, "flops": products * 2 * 64 * pairs}
     b, page, maxp = 8, 16, 64
     num_pages = b * maxp + 1
     qd = torch.randn(b, h, 64, generator=g, device=dev).to(torch.bfloat16)
@@ -6393,15 +6440,39 @@ def _tpf_kernels_h6(card):
               paged_attention_verify_reference, qv, kb, vb, start, {}),
              ("paged_verify_quant", paged_attention_verify,
               paged_attention_verify_reference, qv, kq, vq, start, sc))
+    # the pool rows each kernel walks, and its (query, key) pairs: the
+    # decode step every key below a slot's length, the verify query j of a
+    # slot every key at or before start + j
+    S = SPEC_K + 1
+    walked = {"paged": (lengths, 4 * h * 64 * int(lengths.sum())),
+              "verify": (start + S, 4 * h * 64 * sum(
+                  int(st) * S + S * (S + 1) // 2 for st in start.tolist()))}
     for name, fn, ref_fn, qq, kk, vv, ln, extra in cases:
         o1 = fn(qq, kk, vv, table, ln, **extra)
         o2 = fn(qq, kk, vv, table, ln, **extra)
+        rows_read, flops = walked["verify" if "verify" in name else "paged"]
+        pool_rows = _pool_rows(table, rows_read, page)
+        npages = len({p for p, _ in pool_rows})
+        qbytes = qq.numel() * qq.element_size()
         rows[name] = {"max_abs_err": max_err(o1, ref_fn(qq, kk, vv, table,
                                                          ln, **extra)),
                       "repeat_bit_equal": bool(torch.equal(o1, o2)),
                       "ms": time_device([lambda: fn(qq, kk, vv, table, ln,
-                                                    **extra)] * 10)}
+                                                    **extra)] * 10),
+                      "library_ms": None,
+                      # K and V rows read once (and one float32 scale per
+                      # page-head read), q read and O written, table and
+                      # lengths / starts
+                      "bytes": (2 * len(pool_rows) * h * 64
+                                * kk.element_size()
+                                + (2 * npages * h * 4 if extra else 0)
+                                + 2 * qbytes + table.numel() * 4
+                                + ln.numel() * 4),
+                      "flops": flops}
     torch.cuda.synchronize()
+    for r in rows.values():
+        r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["flops"],
+                                              "bfloat16")
 
     def held(n, r):
         if not (r["repeat_bit_equal"] and math.isfinite(r["max_abs_err"])):
@@ -7621,6 +7692,308 @@ def phase_ep(card, work, device=None, pool=None):
     return out
 
 
+# -- phase 23: the tooling ---------------------------------------------------
+
+TOOLING_PROMPTS = (17, 64, 100, 128, 255, 300, 512, 700)
+TOOLING_DECODE_STEPS, TOOLING_SPEC_STEPS, TOOLING_TRAIN_STEPS = 10, 3, 2
+TOOLING_PREDICT_MAX_BATCH = 8
+KERNEL_NAMES = ("flash_fwd", "paged_attention", "flash_bwd_dq",
+                "flash_bwd_dkv", "paged_attention_quant", "paged_verify",
+                "paged_verify_quant")
+
+
+def _kernel_of(name: str):
+    """The launch counter a device event's ``__global__`` name belongs to
+    (the quantized instantiations by their third template argument,
+    ``kQuant``), ``"paged_verify_combine"`` for the verify's second launch,
+    else None."""
+    def quant(marker):
+        args = name[name.index(marker) + len(marker):].split(",")
+        return args[2].strip() in ("true", "(bool)1", "1")
+
+    for marker, plain in (("paged_attention_kernel<", "paged_attention"),
+                          ("paged_verify_split_kernel<", "paged_verify")):
+        if marker in name:
+            return plain + "_quant" if quant(marker) else plain
+    for marker, kernel in (("flash_fwd_", "flash_fwd"),
+                           ("flash_bwd_dq_", "flash_bwd_dq"),
+                           ("flash_bwd_dkv_", "flash_bwd_dkv"),
+                           ("paged_verify_combine_kernel",
+                            "paged_verify_combine")):
+        if marker in name and "_kernel" in name:
+            return kernel
+    return None
+
+
+def _trace_kernels(path, counts, label):
+    """Read one exported trace: per kernel, its device events (which must
+    equal ``counts``, the launch counters over the same window), each one
+    launched inside an annotated range (its launch call, found by its
+    correlation id, inside a ``record_function`` range; or the kernel
+    inside a GPU-side one). The verify's combine launches must equal its
+    split launches."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+
+    def spans(cat):
+        return [(e["ts"], e["ts"] + e.get("dur", 0)) for e in evs
+                if e.get("cat") == cat and e.get("ph") == "X"]
+
+    ann, gpu_ann = spans("user_annotation"), spans("gpu_user_annotation")
+    launch = {e["args"]["correlation"]: e["ts"] for e in evs
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    per = dict.fromkeys(KERNEL_NAMES, 0)
+    combine, outside, names = 0, [], set()
+    for e in evs:
+        if e.get("cat") != "kernel":
+            continue
+        k = _kernel_of(e.get("name", ""))
+        if k is None:
+            continue
+        names.add(e["name"][:160])
+        if k == "paged_verify_combine":
+            combine += 1
+            continue
+        per[k] += 1
+        t = launch.get(e.get("args", {}).get("correlation"))
+        t0, t1 = e["ts"], e["ts"] + e.get("dur", 0)
+        if not ((t is not None and any(a <= t <= b for a, b in ann))
+                or any(a <= t0 and t1 <= b for a, b in gpu_ann)):
+            outside.append(k)
+    want = {k: counts.get(k, 0) for k in KERNEL_NAMES}
+    verify = per["paged_verify"] + per["paged_verify_quant"]
+    if per != want or outside or combine != verify:
+        raise AssertionError(
+            f"[tooling] {label}: trace events {per} vs launch counters "
+            f"{want}; combine launches {combine} vs verify {verify}; "
+            f"{len(outside)} outside every annotated range ({outside[:5]}); "
+            f"kernels seen {sorted(names)}")
+    return per, sorted(names)
+
+
+def _tooling_traces(card, work, device=None):
+    """(a) GPT-2-small-width windows under ``utils.tracing.trace``: decode
+    steps of an 8-slot bf16 engine, spec steps (``spec_k=4``) over a bf16
+    and an int8 pool, and bf16 training steps at 2 x 1024. Each window
+    runs once untraced and once traced (host-clock ms a step, both) and
+    its exported trace is held to the launch counters. Returns the summed
+    events and counters per kernel, and the engines' guard counts."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    from sparkflow_tpu_torch.trainer import Trainer
+    from sparkflow_tpu_torch.utils import tracing
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    cuda = device != "cpu"
+    tdir = os.path.join(work, "tooling")
+    events = dict.fromkeys(KERNEL_NAMES, 0)
+    counters = dict.fromkeys(KERNEL_NAMES, 0)
+    windows, guards = {}, {}
+
+    def window(label, run, steps):
+        # ``run`` returns its own ms a step (a fit: its last step alone,
+        # without the fit's set-up), or None for the window's wall / steps
+        _sync(cuda)
+        t0 = time.perf_counter()
+        own = run()
+        _sync(cuda)
+        plain_ms = own or (time.perf_counter() - t0) * 1e3 / steps
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with tracing.trace(tdir) as cap:
+            own = run()
+        traced_ms = own or (time.perf_counter() - t0) * 1e3 / steps
+        counts = launch_counts()
+        per, names = _trace_kernels(cap.path, counts, label)
+        for k in KERNEL_NAMES:
+            events[k] += per[k]
+            counters[k] += counts[k]
+        windows[label] = {"steps": steps, "ms_per_step": plain_ms,
+                          "ms_per_step_traced": traced_ms,
+                          "trace_bytes": os.path.getsize(cap.path),
+                          "events": {k: v for k, v in per.items() if v},
+                          "kernels_seen": names}
+        log(f"[tooling] (a) {label}: {json.dumps(windows[label])} [{card}]")
+
+    # the profiler's own start-up (CUPTI, Kineto) out of the first window
+    with tracing.trace(os.path.join(tdir, "warm-up")):
+        torch.ones(8, device=device).add_(1)
+    model = model_from_json(build_registry_spec("transformer_lm",
+                                                **GPT2_SMALL),
+                            compute_dtype="bfloat16", device=device)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(23)
+    vocab = GPT2_SMALL["vocab_size"]
+    arms = (("decode", {}, TOOLING_DECODE_STEPS),
+            ("spec_bf16", {"spec_k": SPEC_K}, TOOLING_SPEC_STEPS),
+            ("spec_int8", {"spec_k": SPEC_K, "kv_quant": "int8"},
+             TOOLING_SPEC_STEPS))
+    for label, kw, steps in arms:
+        eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0,
+                           **kw)
+        slots = []
+        try:
+            for n in TOOLING_PROMPTS:
+                slots.append(eng.prefill(rng.integers(0, vocab, n).tolist(),
+                                         max_new_tokens=120)["slot"])
+            for _ in range(2):
+                eng.step()
+
+            def run(eng=eng, steps=steps):
+                for _ in range(steps):
+                    eng.step()
+
+            window(label, run, steps)
+        finally:
+            for s in slots:
+                eng.release(s)
+        st = eng.stats()
+        guards[label] = {"traces": st["traces"],
+                         "aot_compiles": st["aot_compiles"],
+                         "steady_traces": st["steady_traces"]}
+        if st["steady_traces"] or eng.recompile_guard.findings():
+            raise AssertionError(f"[tooling] {label}: a shape escaped the "
+                                 f"warmup: {eng.recompile_guard.report()}")
+        del eng
+    del model, params
+    if cuda:
+        torch.cuda.empty_cache()
+
+    toks = rng.integers(0, 1000, (2, GPT2_SMALL["max_len"])).astype(
+        np.float32)
+    marks = []
+    # one step an epoch; the per-epoch loss_callback reads each step's
+    # loss back to the host, so the marks time the steps
+    tr = Trainer(_train_spec(), "input_ids", None, optimizer="adam",
+                 learning_rate=3e-4, iters=TOOLING_TRAIN_STEPS,
+                 mini_batch_size=2, mini_stochastic_iters=1,
+                 compute_dtype="bfloat16", seed=0, device=device,
+                 loss_callback=lambda *a: marks.append(time.perf_counter()))
+
+    def fit():
+        marks.clear()
+        with tracing.annotate("tooling/train_fit"):
+            tr.fit(toks)
+        return (marks[-1] - marks[-2]) * 1e3
+
+    window("train", fit, TOOLING_TRAIN_STEPS)
+    return events, counters, windows, guards
+
+
+def _tooling_guards(card, device=None):
+    """(b) The recompile guards on the card: the BERT-base float32 predict
+    engine after warmup serves every size up to ``max_batch`` and one
+    oversize request with no new signature; a ``debug_recompiles`` fit
+    reports one epoch signature and no finding; a ragged last batch
+    through the trainer's step, under ``track_recompiles``, is named."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.analysis import track_recompiles
+    from sparkflow_tpu_torch.core import make_loss_fn, make_train_step
+    from sparkflow_tpu_torch.models import (build_registry_spec,
+                                            model_from_json)
+    from sparkflow_tpu_torch.optimizers import build_optimizer
+    from sparkflow_tpu_torch.serving import InferenceEngine
+    from sparkflow_tpu_torch.trainer import Trainer
+    dev = "cuda" if device is None else device
+    spec = build_registry_spec("transformer_classifier", **BERT_BASE)
+    params = model_from_json(spec, device=dev).init(
+        torch.Generator().manual_seed(0))
+    eng = InferenceEngine(spec, params, input_name=PREDICT_IN,
+                          output_name="probs:0",
+                          max_batch=TOOLING_PREDICT_MAX_BATCH, device=dev)
+    st0 = eng.stats()
+    sizes = list(range(1, TOOLING_PREDICT_MAX_BATCH + 1)) + [
+        TOOLING_PREDICT_MAX_BATCH + 3]
+    for n in sizes:
+        out = eng.predict(_predict_rows(n, n))
+        if out.shape != (n, BERT_BASE["num_classes"]):
+            raise AssertionError(f"[tooling] predict {n} rows: {out.shape}")
+    st = eng.stats()
+    predict = {"buckets": eng.buckets, "sizes": sizes,
+               "traces": st["traces"], "aot_compiles": st["aot_compiles"],
+               "steady_traces": st["steady_traces"],
+               "findings": [f.render() for f in
+                            eng.recompile_guard.findings()]}
+    if not (st0["traces"] == st["traces"] == st["aot_compiles"]
+            == len(eng.buckets) and st["steady_traces"] == 0
+            and not predict["findings"]):
+        raise AssertionError(f"[tooling] BERT-base predict engine: "
+                             f"{predict}")
+    del eng, params
+
+    spec = _train_spec(num_layers=2)
+    seq = GPT2_SMALL["max_len"]
+    toks = np.random.default_rng(5).integers(0, 1000, (4, seq))
+    tr = Trainer(spec, "input_ids", None, iters=2, mini_batch_size=2,
+                 compute_dtype="bfloat16", debug_recompiles=True,
+                 loss_callback=lambda *a: None, device=dev)
+    tr.fit(toks.astype(np.float32))
+    fit = {"report": tr.recompile_report,
+           "findings": [f.render() for f in tr.recompile_findings]}
+    if (tr.recompile_report != "epoch: 1 trace(s)\n  #1: first trace"
+            or tr.recompile_findings):
+        raise AssertionError(f"[tooling] debug_recompiles fit: {fit}")
+    model = tr.model
+    opt = build_optimizer("adam", 3e-4)
+    p = {k: {n: t.detach().clone().requires_grad_(True)
+             for n, t in d.items()} for k, d in tr.params.items()}
+    state = opt.init(p)
+    step = make_train_step(make_loss_fn(model, "input_ids", None), opt)
+    ids = torch.as_tensor(toks[:3], device=dev)
+    with track_recompiles() as tracker:
+        for lo, hi in ((0, 2), (0, 2), (2, 3)):     # the last batch ragged
+            p, state, _ = step(p, state, ids[lo:hi], None,
+                               torch.ones(hi - lo, device=dev))
+    report = tracker.report()
+    fit["ragged_report"] = report
+    want = f"arg[0][2]: int64[2, {seq}] -> int64[1, {seq}]"
+    if tracker.traces != {"train_step": 2} or want not in report:
+        raise AssertionError(f"[tooling] ragged batch under "
+                             f"track_recompiles: {tracker.traces}, "
+                             f"{report!r} (want {want!r})")
+    log(f"[tooling] (b) BERT-base float32 predict engine (max_batch "
+        f"{TOOLING_PREDICT_MAX_BATCH}): {json.dumps(predict)}; "
+        f"debug_recompiles fit: {json.dumps(fit)} [{card}]")
+    return {"predict": predict, "fit": fit}
+
+
+def phase_tooling(card, work, device=None):
+    """Phase 23: the tooling on the card (see the module docstring);
+    ``device="cpu"`` rehearses it, without the checks that need a card."""
+    import torch
+    from sparkflow_tpu_torch.utils import tracing
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    events, counters, windows, guards = _tooling_traces(card, work, device)
+    guarded = _tooling_guards(card, device)
+    mem = tracing.device_memory_stats()
+    total = (torch.cuda.get_device_properties(0).total_memory if cuda
+             else 0)
+    m0 = mem.get("cuda:0", {})
+    keys = {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    if cuda and not (set(m0) >= keys and m0["bytes_limit"] == total
+            and 0 <= m0["bytes_in_use"] <= m0["peak_bytes_in_use"] <= total
+            and m0["peak_bytes_in_use"] > 0):
+        raise AssertionError(f"[tooling] device_memory_stats {mem} (card "
+                             f"total {total})")
+    if cuda and not all(events[k] > 0 for k in KERNEL_NAMES):
+        raise AssertionError(f"[tooling] a kernel never ran in the traced "
+                             f"windows: {events}")
+    out = {"windows": windows, "decode_guards": guards, **guarded,
+           "memory": m0, "kernels": {k: {"trace_events": events[k],
+                                         "counter_launches": counters[k]}
+                                     for k in KERNEL_NAMES},
+           "card": card}
+    log("[tooling] " + json.dumps({k: out[k] for k in
+                                   ("decode_guards", "memory", "kernels")}))
+    return out
+
+
 def _timed(name, fn, *args):
     """``fn(*args)`` with a ``[time]`` line; the cached card memory it
     leaves is freed after it, as the other process shares the card."""
@@ -7639,10 +8012,10 @@ MESH_GROUP_RESULT = "mesh-group.json"
 
 
 def run_mesh_group(work: str) -> int:
-    """Phases 18-21 (``python3 chip_smoke.py --mesh-group WORK``), the
-    second process :func:`main` runs beside its own phases: the kernel
-    library phase 1 built is found in the build directory, the four phases
-    share one 2-rank pool and write under ``WORK``, and what the kernels
+    """Phases 18-21 and 23 (``python3 chip_smoke.py --mesh-group WORK``),
+    the second process :func:`main` runs beside its own phases: the kernel
+    library phase 1 built is found in the build directory, phases 18-21
+    share one 2-rank pool, all write under ``WORK``, and what the kernels
     line needs of them goes to ``WORK/mesh-group.json``. Exits when its
     caller is gone."""
     import torch
@@ -7669,11 +8042,13 @@ def run_mesh_group(work: str) -> int:
                                  work, mesh, None, pool)
             tpf = _timed("tp-fsdp", phase_tp_fsdp, card, work, None, pool)
             ppr = _timed("pp", phase_pp, card, work, None, pool)
+        tooling = _timed("tooling", phase_tooling, card, work)
         out = {"mesh": {"launches": mesh["launches"]},
                "stream_mesh": {"launches": stream_mesh["launches"]},
                "tp_fsdp": {"launches": tpf["launches"],
                            "kernels_h6": tpf["kernels_h6"]},
-               "pp": {"launches": ppr["launches"]}}
+               "pp": {"launches": ppr["launches"]},
+               "tooling": {"kernels": tooling["kernels"]}}
         path = os.path.join(work, MESH_GROUP_RESULT)
         with open(path + ".tmp", "w") as f:
             json.dump(out, f, default=lambda o: o.item()
@@ -7709,8 +8084,8 @@ def _join_mesh_group(group):
     rc = proc.wait()
     relay_thread.join(timeout=60)
     if rc != 0:
-        raise AssertionError(f"phases 18-21 failed in their process (exit "
-                             f"{rc}); its traceback is above")
+        raise AssertionError(f"phases 18-21 and 23 failed in their process "
+                             f"(exit {rc}); its traceback is above")
     with open(os.path.join(d, MESH_GROUP_RESULT)) as f:
         return json.load(f)
 
@@ -7718,7 +8093,8 @@ def _join_mesh_group(group):
 def main(only: str = None) -> int:
     """All phases; with ``only`` set-up and one phase alone, its summary in
     place of the kernels line: ``"spec-serving"`` (3), ``"families"`` (16),
-    ``"tp-fsdp"`` (20), ``"pp"`` (21) or ``"ep"`` (22)."""
+    ``"tp-fsdp"`` (20), ``"pp"`` (21), ``"ep"`` (22) or ``"tooling"``
+    (23)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -7730,18 +8106,20 @@ def main(only: str = None) -> int:
     card = card_line()
     log(f"[setup] {card}")
     t0 = time.perf_counter()
-    # phase 12's fitted weights and phase 13's weight store
-    work = tempfile.mkdtemp(prefix="chip-smoke-")
     alone = {"tp-fsdp": ("tp_fsdp", phase_tp_fsdp), "pp": ("pp", phase_pp),
              "ep": ("ep", phase_ep)}
     single = {"spec-serving": ("spec_serving", phase_spec_serving),
               "families": ("families",
-                           lambda card: phase_families(card, work))}
+                           lambda card: phase_families(card, work)),
+              "tooling": ("tooling",
+                          lambda card: phase_tooling(card, work))}
+    if only is not None and only not in alone and only not in single:
+        print(f"chip_smoke: unknown phase {only!r}; one of "
+              f"{sorted(alone) + sorted(single)}", file=sys.stderr)
+        return 2
+    # phase 12's fitted weights and phase 13's weight store
+    work = tempfile.mkdtemp(prefix="chip-smoke-")
     if only is not None:
-        if only not in alone and only not in single:
-            print(f"chip_smoke: unknown phase {only!r}; one of "
-                  f"{sorted(alone) + sorted(single)}", file=sys.stderr)
-            return 2
         try:
             _timed("setup", phase_setup)
             if only in single:
@@ -7788,7 +8166,7 @@ def main(only: str = None) -> int:
             epr = _timed("ep", phase_ep, card, work, None, pool)
         side = _timed("mesh-group wait", _join_mesh_group, group)
         mesh, stream_mesh = side["mesh"], side["stream_mesh"]
-        tpf, ppr = side["tp_fsdp"], side["pp"]
+        tpf, ppr, tooling = side["tp_fsdp"], side["pp"], side["tooling"]
     except Exception:
         traceback.print_exc()
         return 1
@@ -7900,6 +8278,9 @@ def main(only: str = None) -> int:
         # all_to_all step summed over the ranks, the K = 4 sweep, each
         # decode arm over the shards)
         row["ep"] = {"launches": epr["launches"][row["name"]]}
+        # phase 23: its device events in the traced windows, beside its
+        # launch counter over the same windows
+        row["tooling"] = tooling["kernels"][row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)

@@ -27,6 +27,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .analysis.runtime_guards import trace_probe
 from .optimizers import GradientTransformation, apply_updates, tree_leaves
 
 
@@ -70,12 +71,9 @@ def make_loss_fn(model, input_name, label_name: Optional[str]) -> Callable:
     return loss_fn
 
 
-def make_train_step(loss_fn: Callable,
-                    optimizer: GradientTransformation) -> Callable:
-    """``step(params, opt_state, x, y, mask, generator) -> (params,
-    opt_state, loss)``. The parameter leaves must require a gradient; they
-    are updated in place (the returned tree is the same tensors), the
-    returned loss is a detached device scalar (no host sync)."""
+def _step_body(loss_fn: Callable,
+               optimizer: GradientTransformation) -> Callable:
+    """The one optimizer step shared by make_train_step and make_epoch_fn."""
 
     def step(params, opt_state, x, y, mask, generator=None):
         leaves = tree_leaves(params)
@@ -89,6 +87,17 @@ def make_train_step(loss_fn: Callable,
         return params, opt_state, loss.detach()
 
     return step
+
+
+def make_train_step(loss_fn: Callable,
+                    optimizer: GradientTransformation) -> Callable:
+    """``step(params, opt_state, x, y, mask, generator) -> (params,
+    opt_state, loss)``. The parameter leaves must require a gradient; they
+    are updated in place (the returned tree is the same tensors), the
+    returned loss is a detached device scalar (no host sync). Under
+    :func:`~.analysis.runtime_guards.track_recompiles` each new argument
+    signature is reported as a ``train_step`` trace."""
+    return trace_probe(_step_body(loss_fn, optimizer), "train_step")
 
 
 def _unflatten(like, it):
@@ -142,8 +151,11 @@ def make_epoch_fn(loss_fn: Callable, optimizer: GradientTransformation,
     On a mesh ``step_fn`` replaces the one-device step (same signature; it
     receives ``dropout_gen`` as it is) and ``rows = (index, count)`` feeds it
     only block ``index`` of ``count`` equal blocks of every batch — this
-    rank's rows; the epoch's row order is the same on every rank."""
-    step = step_fn or make_train_step(loss_fn, optimizer)
+    rank's rows; the epoch's row order is the same on every rank. Under
+    :func:`~.analysis.runtime_guards.track_recompiles` each new argument
+    signature is reported as an ``epoch`` trace (the one-step body inside
+    is not probed, as in JAX, where it is traced inside the epoch)."""
+    step = step_fn or _step_body(loss_fn, optimizer)
     r_idx, r_cnt = rows or (0, 1)
     local = batch_size // r_cnt
 
@@ -167,7 +179,7 @@ def make_epoch_fn(loss_fn: Callable, optimizer: GradientTransformation,
             losses.append(loss)
         return params, opt_state, torch.stack(losses)
 
-    return epoch
+    return trace_probe(epoch, "epoch")
 
 
 def pad_to_batches(x: np.ndarray, batch_size: int,

@@ -17,9 +17,11 @@ Finished spans land in a bounded ring buffer, exportable two ways:
 - :meth:`Tracer.export_jsonl` — one JSON object per span for log pipelines.
 
 Device-side integration: ``span(..., profiler_annotation=True)`` additionally
-enters :func:`torch.profiler.record_function`, so when a ``torch.profiler``
-capture is active the same named range shows up in the device timeline —
-host spans and device annotations line up by name.
+enters :func:`sparkflow_tpu_torch.utils.tracing.annotate` (a
+``torch.profiler.record_function`` range, and an NVTX range on the card),
+so when a ``torch.profiler`` capture is active the same named range shows
+up in the device timeline — host spans and device annotations line up by
+name.
 
 Overhead discipline (pinned by ``python bench.py --span-overhead``): a span
 is two ``perf_counter`` calls, one small allocation, and one locked ring
@@ -202,8 +204,8 @@ class _SpanCtx:
         self.span = sp
         stack.append(sp)
         if self.profiler_annotation:
-            from torch.profiler import record_function
-            self._ann = record_function(self.name)
+            from ..utils.tracing import annotate
+            self._ann = annotate(self.name)
             self._ann.__enter__()
         return sp
 

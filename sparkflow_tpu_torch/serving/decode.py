@@ -50,10 +50,18 @@ device. What it keeps:
 
 What changes: there is no ``jit`` and no AOT executable — the engine runs
 eagerly under ``torch.inference_mode()`` and the pools are updated in
-place. ``stats()`` keeps the keys the server and ``/healthz`` read;
-``traces`` / ``steady_traces`` read 0 (nothing is traced). The
-quantization-error probe lets a failure raise (the JAX engine swallows it):
-on the card it runs the kernels, and a kernel fault must not pass unseen.
+place. :meth:`DecodeEngine.warmup` runs each device entry point once at
+every shape the engine serves (each prefill bucket, the decode step, the
+suffix chunk, the wave stages, draft and verify, the external draft's
+prefill ladder) on scratch operands, writing only scratch page 0, which
+it restores. :attr:`DecodeEngine.recompile_guard` (a
+:class:`~sparkflow_tpu_torch.analysis.runtime_guards.RecompileGuard`)
+wraps those entry points: ``stats()["traces"]`` counts their argument
+signatures, ``aot_compiles`` the ones warmup ran, and ``steady_traces``
+any first met after warmup. ``stats()`` keeps the keys the server and
+``/healthz`` read. The quantization-error probe lets a failure raise (the
+JAX engine swallows it): on the card it runs the kernels, and a kernel
+fault must not pass unseen.
 
 ``executable_dir`` boots the kernel library from a
 :class:`~sparkflow_tpu_torch.serving.coldstart.ExecutableStore` before
@@ -125,6 +133,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis.runtime_guards import RecompileGuard
 from ..convert import check_template, params_tree, shape_template
 from ..obs.spans import span as obs_span
 from ..ops import paged_attention, paged_attention_verify
@@ -132,6 +141,7 @@ from ..parallel.tp import TPShards, shard_of as _shard
 from ..resilience import faults
 from ..utils import metrics as metrics_mod
 from ..utils import quant
+from ..utils.tracing import annotate
 from .coldstart import ExecutableStore, boot_kernels, cold_start_stats
 from .kvcache import OutOfPages, PagedKVCache
 
@@ -421,6 +431,22 @@ class DecodeEngine:
         self._pending_swap: Optional[Tuple[Any, int]] = None
         self._serving_version = 0  # 0 = ctor weights
         self._swaps = 0
+        # expected signatures: one per prefill bucket + decode + suffix
+        # chunk (+ a wave stage each); speculation adds draft + verify, and
+        # an external draft its own prefill ladder — all run in warmup
+        spec_shapes = 0
+        if self.spec_k:
+            spec_shapes = 2 + (len(self.prefill_buckets)
+                               if self._draft_model is not None else 0)
+        self.recompile_guard = RecompileGuard(
+            name="serving.decode",
+            warn_after=len(self.prefill_buckets) + 2
+            + (self._pp if self._pp_wave else 0) + spec_shapes)
+        for fn in ("_decode", "_prefill_bucket", "_suffix_chunk",
+                   "_wave_stage", "_self_draft", "_ext_draft", "_verify",
+                   "_draft_forward"):
+            setattr(self, fn, self.recompile_guard.wrap(getattr(self, fn)))
+        self._aot_compiles = 0
         # cold start: the kernel library from the store before any launch
         self.exec_store = None
         self.boot = None
@@ -604,14 +630,76 @@ class DecodeEngine:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def warmup(self) -> None:
-        """Build the CUDA kernels ahead of the first request (on the card)
-        and, for a quantized pool, measure ``kv_quant_error``."""
+        """Build the CUDA kernels ahead of the first request (on the card),
+        run every device entry point once at each shape the engine serves
+        (then the recompile guard is marked steady) and, for a quantized
+        pool, measure ``kv_quant_error``. Idempotent."""
         if self.device.type == "cuda":
             from ..ops import _build
             _build.load()
-        if self._quantized and self._kv_quant_error is None:
-            with self._lock, torch.inference_mode():
+        with self._lock, torch.inference_mode():
+            if not self._aot_compiles:
+                self._warm_locked()
+                self._aot_compiles = self.recompile_guard.traces
+                self.recompile_guard.mark_steady()
+            if self._quantized and self._kv_quant_error is None:
                 self._kv_quant_error_probe_locked()
+
+    def _warm_locked(self) -> None:
+        """Each guarded entry point once per shape, with the operands' dtypes
+        of the serving path and every write aimed at scratch page 0 (all
+        lanes idle: position 0, table 0, no room). Scratch page 0 holds
+        whatever the padding last wrote, and an MoE model's idle lanes
+        read it, so it is saved and restored: warmup leaves no trace in
+        the tokens."""
+        B, K, dev = self.num_slots, self.spec_k, self.device
+        saved = [t[:, 0].clone() for t in self._pool_tensors()]
+        table = np.zeros_like(self.kv.page_tables())
+        zeros = np.zeros(B, np.int64)
+        try:
+            for b in self.prefill_buckets:
+                with annotate(f"serving/decode_compile_prefill_b{b}"):
+                    self._prefill_bucket(
+                        np.zeros((1, b), np.int64), 1,
+                        np.zeros(b // self.page_size, np.int64))
+            with annotate("serving/decode_compile_step"):
+                self._decode(zeros, zeros, table)
+            with annotate("serving/decode_compile_suffix"):
+                self._suffix_chunk(np.zeros((1, self._chunk_width), np.int64),
+                                   0, 1, table[0])
+            if self._pp_wave:
+                W = B // self._pp
+                pos_w = torch.zeros(W, dtype=torch.int64)
+                x = torch.zeros(W, dtype=torch.int64)
+                with annotate("serving/decode_compile_wave_tick"):
+                    for st in range(self._pp):
+                        d = self._params[st]["device"]
+                        x = self._wave_stage(
+                            st, x.to(d), pos_w.to(d),
+                            torch.as_tensor(table[:W], dtype=torch.int32,
+                                            device=d))
+            if K:
+                tok = torch.zeros(B, dtype=torch.int64, device=dev)
+                table_t = torch.as_tensor(table, dtype=torch.int32,
+                                          device=dev)
+                with annotate("serving/decode_compile_draft"):
+                    if self._draft_model is None:
+                        self._self_draft(tok, tok, table_t, tok)
+                    else:
+                        self._ext_draft(tok, tok, torch.zeros(
+                            B, dtype=torch.bool, device=dev))
+                with annotate("serving/decode_compile_verify"):
+                    self._verify(torch.zeros((B, K + 1), dtype=torch.int64,
+                                             device=dev), tok, tok, table_t)
+                if self._draft_model is not None:
+                    for b in self.prefill_buckets:
+                        with annotate(
+                                f"serving/decode_compile_draft_prefill_b{b}"):
+                            self._draft_forward(np.zeros((1, b), np.int64),
+                                                1)
+        finally:
+            for t, page0 in zip(self._pool_tensors(), saved):
+                t[:, 0] = page0
 
     def _kv_quant_error_probe_locked(self) -> None:
         """The ``decode/kv_quant_error`` gauge: prefill one synthetic
@@ -1150,14 +1238,19 @@ class DecodeEngine:
         with obs_span("serving/decode_draft_prefill",
                       args={"bucket": bucket, "slot": int(slot)},
                       profiler_annotation=True):
-            _logits, kvs = self._draft_model.prefill(
-                self._draft_params, torch.as_tensor(ids, device=self.device),
-                lengths=torch.as_tensor([n], device=self.device))
+            kvs = self._draft_forward(ids, n)
             for i, (k, v) in enumerate(kvs):
                 self._draft_k[i, slot, :, :bucket] = k[0].to(
                     self._draft_k.dtype)
                 self._draft_v[i, slot, :, :bucket] = v[0].to(
                     self._draft_v.dtype)
+
+    def _draft_forward(self, ids: np.ndarray, n: int):
+        """The external draft's forward of one bucket-padded prompt: every
+        block's K/V, ``[(k, v)]`` of ``[1, heads, bucket, d]``."""
+        return self._draft_model.prefill(
+            self._draft_params, torch.as_tensor(ids, device=self.device),
+            lengths=torch.as_tensor([n], device=self.device))[1]
 
     # -- decode --------------------------------------------------------------
 
@@ -1321,29 +1414,23 @@ class DecodeEngine:
         table = self.kv.page_tables().copy()
         table[~mask] = 0
         token = np.where(mask, self._last_token, 0).astype(np.int64)
-        model, cache = self.model, self._pools()
         carry: List[Optional[torch.Tensor]] = [None] * PP
         logits = None
         for s in range(PP):
             w = (t - s) % PP
             if not self._wave_inflight[w]:
                 continue
-            st = self._params[s]
-            dev = st["device"]
+            dev = self._params[s]["device"]
             lanes = slice(w * W, (w + 1) * W)
-            pos_t = torch.as_tensor(pos[lanes], device=dev)
-            table_t = torch.as_tensor(table[lanes], dtype=torch.int32,
-                                      device=dev)
-            x = (model.decode_embed(st["shared"], torch.as_tensor(
-                token[lanes], device=dev), pos_t) if s == 0
-                 else self._x_carry[s - 1].to(dev))
-            attend = self._decode_attend(pos_t, table_t)
-            for j, bp in enumerate(st["blocks"]):
-                x, _ = model.block_decode(bp, x, j, cache[s], pos_t, attend)
+            inp = (torch.as_tensor(token[lanes], device=dev) if s == 0
+                   else self._x_carry[s - 1].to(dev))
+            out = self._wave_stage(
+                s, inp, torch.as_tensor(pos[lanes], device=dev),
+                torch.as_tensor(table[lanes], dtype=torch.int32, device=dev))
             if s == PP - 1:
-                logits = model.decode_head(st["shared"], x).to(self.device)
+                logits = out
             else:
-                carry[s] = x
+                carry[s] = out
         self._x_carry = carry
         we = (t - (PP - 1)) % PP
         self._tick += 1
@@ -1361,6 +1448,22 @@ class DecodeEngine:
                 out[s] = [int(tk)]
             self._tokens_out += len(exit_slots)
         return out
+
+    def _wave_stage(self, s: int, inp: torch.Tensor, pos_t: torch.Tensor,
+                    table_t: torch.Tensor) -> torch.Tensor:
+        """Stage ``s``'s blocks over one wave's lanes: stage 0 embeds the
+        token ids ``inp``, a later stage continues the activation ``inp``;
+        returns the activation, or the logits at the last stage."""
+        model, st = self.model, self._params[s]
+        x = (model.decode_embed(st["shared"], inp, pos_t) if s == 0
+             else inp)
+        attend = self._decode_attend(pos_t, table_t)
+        cache = self._pools()[s]
+        for j, bp in enumerate(st["blocks"]):
+            x, _ = model.block_decode(bp, x, j, cache, pos_t, attend)
+        if s == self._pp - 1:
+            return model.decode_head(st["shared"], x).to(self.device)
+        return x
 
     def _drain_waves_locked(self) -> Dict[int, List[int]]:
         """Tick the pipeline with no new entries until every in-flight wave
@@ -1574,10 +1677,10 @@ class DecodeEngine:
                 "prefill_chunk": self.prefill_chunk,
                 "pending_prefills": len(self._pending),
                 "device": str(self.device),
-                "aot_compiles": 0,
+                "aot_compiles": self._aot_compiles,
                 "cold_start": cold_start_stats(self.exec_store, self.boot),
-                "traces": 0,
-                "steady_traces": 0,
+                "traces": self.recompile_guard.traces,
+                "steady_traces": self.recompile_guard.steady_traces,
                 "steps": self._steps,
                 "tokens_out": self._tokens_out,
                 "prefills": self._prefills,

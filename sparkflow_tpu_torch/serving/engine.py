@@ -20,9 +20,12 @@ device instead — the kernels' build at first use, cuBLAS's set-up and the
 allocator's pools — and counts those runs in ``aot_compiles``; a bucket
 first run outside warmup is counted in ``fallback_compiles``, so the
 steady-state contract ("no first-time work after warmup") reads the same.
-``stats()`` keeps every key of the JAX engine's; those with no counterpart
-read as the JAX engine reports them with the feature off: ``traces`` and
-``steady_traces`` 0 (nothing is traced).
+``stats()`` keeps every key of the JAX engine's. ``traces`` and
+``steady_traces`` come from :attr:`InferenceEngine.recompile_guard`, a
+:class:`~sparkflow_tpu_torch.analysis.runtime_guards.RecompileGuard` around
+the bucket forward: one signature per bucket after warmup, and any
+signature first met after it (a shape that escaped the ladder) counts in
+``steady_traces``.
 
 Cold start (:mod:`~sparkflow_tpu_torch.serving.coldstart`): what a fresh
 replica compiles is the kernel library, not executables, so
@@ -81,12 +84,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..analysis.runtime_guards import RecompileGuard
 from ..convert import check_template, list_to_params, params_tree, \
     shape_template
 from ..core import _to_numpy
 from ..obs.spans import span as obs_span
 from ..resilience import faults
 from ..utils import metrics as metrics_mod
+from ..utils.tracing import annotate
 from .coldstart import (ExecutableStore, boot_kernels, cold_start_stats,
                         compile_cache_stats)
 
@@ -265,6 +270,10 @@ class InferenceEngine:
         self._warm: set = set()
         self._compile_lock = threading.Lock()
         self._stats_lock = threading.Lock()  # request counters + params ref
+        # one expected signature per ladder bucket; anything beyond warns
+        self.recompile_guard = RecompileGuard(name="serving.predict",
+                                              warn_after=len(self.buckets))
+        self._forward = self.recompile_guard.wrap(self._forward)
         self.aot_compiles = 0
         self.fallback_compiles = 0
         self._requests = 0
@@ -391,22 +400,26 @@ class InferenceEngine:
             lambda r, p, block: self._apply(p, block, r), copies, xs))
 
     def warmup(self) -> None:
-        """Run every bucket once on every copy (zeros rows: the block a
-        copy gets of a sharded bucket, the whole bucket otherwise).
-        Idempotent; after it returns, no request size meets first-time
-        work."""
+        """Run every bucket once through the request path's forward (zeros
+        rows), and a bucket that does not split over the dp copies on
+        every copy as well. Idempotent; after it returns, no request size
+        meets first-time work, and the recompile guard is marked steady: a
+        signature first met later counts in ``steady_traces``."""
         with self._compile_lock:
             copies = self._snapshot_copies()
             for b in self.buckets:
                 if b not in self._warm:
-                    rows = b // self.dp if b % self.dp == 0 else b
-                    xs = tuple(np.zeros((rows,) + shape, dtype)
+                    xs = tuple(np.zeros((b,) + shape, dtype)
                                for shape, dtype in zip(self._in_shapes,
                                                        self._in_dtypes))
-                    for r in range(self.dp):
-                        _to_numpy(self._apply(copies[r], xs, r))
+                    with annotate(f"serving/aot_compile_b{b}"):
+                        self._forward(copies, xs, b)
+                        if b % self.dp:
+                            for r in range(1, self.dp):
+                                _to_numpy(self._apply(copies[r], xs, r))
                     self._warm.add(b)
                     self.aot_compiles += 1
+            self.recompile_guard.mark_steady()
 
     def _first_use(self, bucket: int) -> None:
         # lazy path (warmup=False) — counted so tests can assert the steady
@@ -536,8 +549,8 @@ class InferenceEngine:
                 "sharding": self.sharding.describe(),
                 "aot_compiles": self.aot_compiles,
                 "fallback_compiles": self.fallback_compiles,
-                "traces": 0,
-                "steady_traces": 0,
+                "traces": self.recompile_guard.traces,
+                "steady_traces": self.recompile_guard.steady_traces,
                 "requests": requests,
                 "rows": rows,
                 "compile_cache": compile_cache_stats(self.compile_cache_dir,

@@ -130,9 +130,12 @@ axis, as JAX's spec filter makes it. ``ep`` composes with ``dp`` and
 ``tp``; checkpoints and published weights hold whole banks.
 
 Not ported yet, and rejected with "not yet ported (see ROADMAP.md, queue 1
-item 7)": explicit ``param_sharding`` / ``param_axes`` pytrees. ``debug_recompiles`` has
-no counterpart: PyTorch runs eagerly, so there are no traces or compiles to
-count. ``graph`` is a registry spec, an ``nn`` graph-DSL spec, a TF1
+item 7)": explicit ``param_sharding`` / ``param_axes`` pytrees.
+``debug_recompiles=True`` runs each fit under
+:func:`~.analysis.runtime_guards.track_recompiles`: PyTorch traces nothing,
+so what it counts is each new argument signature of the epoch and train
+step (``recompile_report`` / ``recompile_findings``, JAX's report).
+``graph`` is a registry spec, an ``nn`` graph-DSL spec, a TF1
 ``MetaGraphDef`` JSON (the reference's wire format), a
 :class:`~.graphdef.GraphDef` or a model object. ``jax.random`` streams
 cannot be repeated in PyTorch: shuffles and dropout come from
@@ -716,12 +719,12 @@ class Trainer:
             raise ValueError("elastic options require strategy='elastic_dp'")
         # filled by an elastic fit: push/staleness/membership accounting
         self.last_elastic_stats: Optional[Dict[str, Any]] = None
-        if debug_recompiles:
-            raise ValueError(
-                "debug_recompiles counts the JAX package's traces and XLA "
-                "compiles of the train step; PyTorch runs the step eagerly "
-                "and traces and compiles nothing, so there is nothing to "
-                "count")
+        # debug_recompiles=True runs each fit under track_recompiles: the
+        # signature report of the core epoch / step probes lands in
+        # self.recompile_report / self.recompile_findings
+        self.debug_recompiles = bool(debug_recompiles)
+        self.recompile_report: Optional[str] = None
+        self.recompile_findings: list = []
         if rng_impl is not None:
             raise ValueError("rng_impl names a jax.random implementation; the "
                              "port draws from torch.Generator")
@@ -995,6 +998,28 @@ class Trainer:
         Each step phase waits for the card before it reads the clock.
         Nothing is traced or compiled here, so no step is ever the JAX
         package's ``step_compile``."""
+        with self._recompile_scope():
+            return self._fit_traced(features, labels, init_params,
+                                    trace_spans, trace_dir)
+
+    @contextlib.contextmanager
+    def _recompile_scope(self):
+        """With ``debug_recompiles``, run the fit under
+        :func:`~.analysis.runtime_guards.track_recompiles` and keep the
+        tracker's report/findings on the trainer afterwards."""
+        if not self.debug_recompiles:
+            yield
+            return
+        from .analysis.runtime_guards import track_recompiles
+        with track_recompiles() as tracker:
+            try:
+                yield
+            finally:
+                self.recompile_report = tracker.report()
+                self.recompile_findings = tracker.findings()
+
+    def _fit_traced(self, features, labels, init_params, trace_spans,
+                    trace_dir) -> TrainResult:
         if not trace_spans:
             return self._fit_impl(features, labels, init_params)
         from .obs import StepStats, Tracer
@@ -2097,6 +2122,12 @@ class Trainer:
         gets its rows over its line, at most ``queue_capacity`` batches
         ahead; in place every rank reads the same stream.
         """
+        with self._recompile_scope():
+            return self._fit_stream_impl(row_iterator, init_params,
+                                         queue_capacity, chunk, epochs)
+
+    def _fit_stream_impl(self, row_iterator, init_params, queue_capacity,
+                         chunk, epochs) -> TrainResult:
         if epochs > 1 and not callable(row_iterator):
             raise ValueError("epochs > 1 needs a callable iterator factory "
                              "(streams are single-pass)")

@@ -58,7 +58,18 @@ SUBPACKAGES = ["sparkflow_tpu_torch", "sparkflow_tpu_torch.device",
                "sparkflow_tpu_torch.RWLock",
                "sparkflow_tpu_torch.utils.rwlock",
                "sparkflow_tpu_torch.analysis",
-               "sparkflow_tpu_torch.analysis.racecheck"]
+               "sparkflow_tpu_torch.analysis.racecheck",
+               "sparkflow_tpu_torch.analysis.ast_lint",
+               "sparkflow_tpu_torch.analysis.locks",
+               "sparkflow_tpu_torch.analysis.lockgraph",
+               "sparkflow_tpu_torch.analysis.lifecycle",
+               "sparkflow_tpu_torch.analysis.policy_lint",
+               "sparkflow_tpu_torch.analysis.tracelint",
+               "sparkflow_tpu_torch.analysis.restrack",
+               "sparkflow_tpu_torch.analysis.cli",
+               "sparkflow_tpu_torch.analysis.runtime_guards",
+               "sparkflow_tpu_torch.analysis.fx_lint",
+               "sparkflow_tpu_torch.utils.tracing"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -128,10 +139,14 @@ def test_native_sources_are_the_jax_packages(name):
         assert ours == f.read()
 
 
-@pytest.mark.parametrize("name", ["findings.py", "racecheck.py"])
+@pytest.mark.parametrize("name", [
+    "findings.py", "racecheck.py", "ast_lint.py", "locks.py", "lockgraph.py",
+    "lifecycle.py", "policy_lint.py", "tracelint.py", "restrack.py",
+    "__main__.py"])
 def test_analysis_sources_are_the_jax_packages(name):
-    """The race detector and its finding records import no JAX and are
-    carried byte for byte."""
+    """The race detector, the static passes (they read source, never
+    import it), the resource tracker and their finding records import no
+    JAX and are carried byte for byte."""
     with open(os.path.join(PORT, "analysis", name), "rb") as f:
         ours = f.read()
     with open(os.path.join(REPO, "sparkflow_tpu", "analysis", name),

@@ -381,7 +381,8 @@ sys.modules["jax"] = None
 import numpy as np
 import sparkflow_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+    if not m.name.endswith(".__main__"):    # a package's program, not a module
+        importlib.import_module(m.name)
 from sparkflow_tpu_torch.model_loader import extract_tensorflow_weights
 try:
     extract_tensorflow_weights("nowhere")

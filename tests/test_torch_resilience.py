@@ -185,9 +185,28 @@ def test_driver_exhausts_restart_budget(reg_data, tmp_path):
     assert isinstance(ei.value.last_error, faults.InjectedFault)
 
 
-def test_debug_recompiles_is_refused_because_nothing_is_traced():
-    with pytest.raises(ValueError, match="nothing to count"):
-        Trainer(MLP, "x:0", "y:0", debug_recompiles=True, device="cpu")
+def test_debug_recompiles_is_refused_because_nothing_is_traced(reg_data):
+    """Kept under its old name: ``debug_recompiles=True`` was refused while
+    the port had no guard. It now runs the fit under ``track_recompiles``,
+    counting the epoch's argument signatures where JAX counts its traces,
+    and its report and findings equal the JAX ``Trainer``'s on the same
+    data (a ``loss_callback`` puts both on the per-epoch loop; without one
+    JAX fuses the epochs into ``run``, which the port has no counterpart
+    of). A fixed-shape fit: one signature, no finding; a second fit on the
+    same trainer builds its epoch anew and reports it again."""
+    x, y = reg_data
+    kw = dict(iters=3, mini_batch_size=32, debug_recompiles=True,
+              loss_callback=lambda *a: None)
+    jax_tr = JaxTrainer(jax_build_graph(lambda: _reg_graph(jnn)), "x:0",
+                        "y:0", **kw)
+    jax_tr.fit(x, y)
+    tr = Trainer(MLP, "x:0", "y:0", device="cpu", **kw)
+    tr.fit(x, y)
+    assert tr.recompile_report == jax_tr.recompile_report
+    assert tr.recompile_report == "epoch: 1 trace(s)\n  #1: first trace"
+    assert tr.recompile_findings == jax_tr.recompile_findings == []
+    tr.fit(x, y)
+    assert tr.recompile_report == jax_tr.recompile_report
 
 
 # -- across the packages -----------------------------------------------------

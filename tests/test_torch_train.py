@@ -308,8 +308,20 @@ def test_trainer_misuse_raises():
                 device="cpu").fit(_tokens(8, 4).astype(np.float32))
     with pytest.raises(TypeError, match="mesh must be"):
         Trainer(spec, "input_ids", None, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="traces and compiles nothing"):
-        Trainer(spec, "input_ids", None, debug_recompiles=True, device="cpu")
+    # debug_recompiles is no longer refused: a fit fills the report the
+    # JAX trainer's fit gives on the same tokens (both on the per-epoch
+    # loop, which a loss_callback selects)
+    kw = dict(debug_recompiles=True, iters=1, mini_batch_size=4,
+              loss_callback=lambda *a: None)
+    toks = _tokens(8, 4).astype(np.float32)
+    tr = Trainer(spec, "input_ids", None, device="cpu", **kw)
+    tr.fit(toks)
+    jax_tr = JaxTrainer(jax_spec("transformer_lm", **LM), "input_ids", None,
+                        **kw)
+    jax_tr.fit(toks)
+    assert tr.recompile_report == jax_tr.recompile_report
+    assert tr.recompile_report == "epoch: 1 trace(s)\n  #1: first trace"
+    assert tr.recompile_findings == jax_tr.recompile_findings == []
     # strategy='elastic_dp' is ported; its options without it are refused
     with pytest.raises(ValueError, match="elastic_dp"):
         Trainer(spec, "input_ids", None, elastic={"replicas": 2},

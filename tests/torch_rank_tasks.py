@@ -164,6 +164,20 @@ def dp_steps(axes, spec, opt_name, stage, p0, x, y, steps=2, dcn_axis=None,
         return {"losses": losses, "params": _tree_np(params)}
 
 
+def fx_j106(axes, spec, declared, built, opt_name="adam"):
+    """GC-J106 (``analysis.fx_lint.lint_dp_train_step``) on this rank: the
+    dp step built at zero stage ``built``, held to the declared stage
+    ``declared``. Returns the findings' rules and messages."""
+    from sparkflow_tpu_torch.analysis.fx_lint import lint_dp_train_step
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.sharding import ShardingConfig
+    fs = lint_dp_train_step(
+        model_from_json(spec, device="cpu"), opt_name, mesh=_mesh(axes),
+        sharding=ShardingConfig(zero_stage=declared),
+        built=ShardingConfig(zero_stage=built))
+    return [(f.rule, f.message) for f in fs]
+
+
 def dp_all_stages(axes, spec, opt_name, p0, x, y, dcn_axis=None):
     return {s: dp_steps(axes, spec, opt_name, s, p0, x, y,
                         dcn_axis=dcn_axis) for s in (0, 1, 2, 3)}
