@@ -420,10 +420,30 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     counters, ``bytes_limit`` the card's memory. ``python3 chip_smoke.py
     --phase tooling`` runs set-up and this phase alone.
 
+24. param-sharding: explicit parameter placement (ROADMAP item 7). Four
+    ranks share the card over gloo, every collective staged through pinned
+    host memory: the phase shows the placement, the just-in-time gathers
+    and the kernels on each rank, not scaling. (a) GPT-2 small (bf16, adam
+    3e-4) through ``Trainer(mesh={"tp": 2, "fsdp": 2},
+    param_sharding=ps_tree(...))`` in place on the 4 ranks, batch 8 x 1024
+    (4 rows a rank after the fsdp split), 3 steps: step ms a rank (CUDA
+    events), tokens/s, param, optimizer-state and peak bytes a rank
+    against the same fit on one card, the plan's compute / at-rest leaf
+    counts, and kernels 1-3 launched 12 times a step a rank at 6 heads
+    (asserted). (b) The same tree at GPT-2 small's widths cut to 2 layers,
+    float32, TF32 off, 8 x 1024, against the same fit on one card (one SGD
+    step: loss 1e-5 relative, params rtol 3e-4 / atol 3e-5; 3 adam steps:
+    losses 2e-4). (c) A tree the Megatron forward cannot take (each
+    ``qkv_kernel`` split by rows over tp, ``embed.tok`` over ``("tp",
+    "fsdp")``): the plain forward on every rank at 12 heads, the same bars.
+    ``python3 chip_smoke.py --phase param-sharding`` runs set-up and this
+    phase alone.
+
 Run order: 1, 2, 9, 6, then two processes side by side: this one runs 3,
 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, and a second one
 (``--mesh-group``, started once the kernels' times are taken) runs 18, 19,
-20, 21 on one 2-rank pool, then 23, its lines relayed here. Both are host-bound
+20, 21 on one 2-rank pool, then 23, then 24 on a 4-rank pool, its lines
+relayed here. Both are host-bound
 (the card idles most of their time), so together they take about the
 longer one's time; a phase's throughput in this run is taken with the
 other process sharing the card and the host, and ``--phase NAME`` gives
@@ -7994,6 +8014,249 @@ def phase_tooling(card, work, device=None):
     return out
 
 
+PS_MESH = {"tp": 2, "fsdp": 2}
+PS_TRAIN_BATCH, PS_TRAIN_STEPS = 8, 3          # (a) GPT-2 small 8 x 1024
+PS_EXACT_LAYERS = 2                            # (b), (c) float32, 8 x 1024
+PS_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def ps_tree(cfg, family="transformer_lm"):
+    """Phase 24's tp x fsdp tree for a ``family`` model of ``cfg``: the
+    model's Megatron rules on ``tp``, plus ``fsdp`` on each leaf's first
+    dimension the rule leaves free that ``fsdp`` divides; one-dimensional
+    leaves keep their rule."""
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.sharding import P
+    model = model_from_json(build_registry_spec(family, **cfg), device="cpu")
+    shapes = model.param_specs()
+    f = PS_MESH["fsdp"]
+    out = {}
+    for ln, layer in model.param_pspecs().items():
+        out[ln] = {}
+        for k, s in layer.items():
+            shape = shapes[ln][k][0]
+            entries = list(s) + [None] * (len(shape) - len(s))
+            if len(shape) > 1:
+                for d, e in enumerate(entries):
+                    if e is None and shape[d] % f == 0:
+                        entries[d] = "fsdp"
+                        break
+            out[ln][k] = P(*entries)
+    return out
+
+
+def ps_plain_tree(cfg):
+    """(c) A tree the Megatron forward cannot take: each ``qkv_kernel``
+    split by rows over ``tp`` (the rule splits its columns) and its
+    columns over ``fsdp``, ``embed.tok``'s columns over ``("tp",
+    "fsdp")``; the rest as :func:`ps_tree`."""
+    from sparkflow_tpu_torch.sharding import P
+    tree = ps_tree(cfg)
+    for ln, layer in tree.items():
+        if "qkv_kernel" in layer:
+            layer["qkv_kernel"] = P("tp", "fsdp")
+    tree["embed"]["tok"] = P(None, ("tp", "fsdp"))
+    return tree
+
+
+def _ps_rank(spec, tree, kw, ids, device, heads_of=False):
+    """A ``Trainer(mesh=PS_MESH, param_sharding=tree)`` fit in place on
+    this rank: losses, the fit's wall, this rank's accounting, the head
+    counts the flash forward saw, and rank 0 the standard params (float32
+    fits)."""
+    import sparkflow_tpu_torch.models.transformer as transformer
+    from sparkflow_tpu_torch.parallel.mesh import Mesh
+    from sparkflow_tpu_torch.trainer import Trainer
+    rank, dev = _sm_rank_setup(device)
+    real, heads = transformer.flash_attention, set()
+
+    def spy(q, *a, **k):
+        heads.add(int(q.shape[1]))
+        return real(q, *a, **k)
+
+    transformer.flash_attention = spy
+    try:
+        tr = Trainer(spec, "input_ids", None, mesh=Mesh(PS_MESH), device=dev,
+                     param_sharding=tree, **kw)
+        t0 = time.perf_counter()
+        res = tr.fit(ids)
+        fit_s = time.perf_counter() - t0
+    finally:
+        transformer.flash_attention = real
+    out = {"losses": res.losses, "fit_s": fit_s, "heads": sorted(heads),
+           "stats": tr.last_mesh_stats}
+    if rank == 0 and not kw.get("compute_dtype"):
+        out["params"] = _np_tree(res.params)
+    return out
+
+
+def _ps_pool_stats(got):
+    return dict(got[0]["stats"], ranks=[g["stats"]["ranks"][0] for g in got])
+
+
+def _ps_training(card, device, pool):
+    """(a) GPT-2 small through ``Trainer(mesh={"tp": 2, "fsdp": 2},
+    param_sharding=ps_tree)`` in place on the pool's 4 ranks: bf16, adam
+    3e-4, batch 8 x 1024, 3 steps; and the same fit on one card for its
+    bytes and rate."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.trainer import Trainer
+    lm = build_registry_spec("transformer_lm", **GPT2_SMALL)
+    tree = ps_tree(GPT2_SMALL)
+    rs = np.random.RandomState(24)
+    ids = rs.randint(0, min(1000, GPT2_SMALL["vocab_size"]),
+                     (PS_TRAIN_BATCH, GPT2_SMALL["max_len"])
+                     ).astype(np.float32)
+    kw = dict(optimizer="adam", learning_rate=3e-4, iters=PS_TRAIN_STEPS,
+              mini_batch_size=PS_TRAIN_BATCH, mini_stochastic_iters=1,
+              seed=0, compute_dtype="bfloat16" if device != "cpu" else None)
+    got = pool.run(_ps_rank, lm, tree, kw, ids, device)
+    st = _ps_pool_stats(got)
+    losses = got[0]["losses"]
+    ranks = _tpf_rank_rows(st, PS_NAMES)
+    want_l = GPT2_SMALL["num_layers"] * PS_TRAIN_STEPS
+    heads = GPT2_SMALL["num_heads"] // PS_MESH["tp"]
+    if not (st["mesh"] == PS_MESH and len(losses) == PS_TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and all(g["losses"] == losses for g in got)
+            and st["placement"]["compute_axes"] == ["tp"]
+            and all(g["heads"] == [heads] for g in got)):
+        raise AssertionError(
+            f"(a) tp x fsdp GPT-2 small: {st['mesh']} {st['placement']} "
+            f"heads {[g['heads'] for g in got]} losses "
+            f"{[g['losses'] for g in got]}")
+    for r in ranks:
+        if device != "cpu" and r["launches"] != {n: want_l for n in PS_NAMES}:
+            raise AssertionError(f"(a) rank {r['rank']} launches "
+                                 f"{r['launches']}, want {want_l} each")
+    # one card: the same fit, for its bytes and rate
+    one_kw = dict(kw)
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(lm, "input_ids", None, device=device, **one_kw)
+    timer_t0 = time.perf_counter()
+    one = tr.fit(ids)
+    one_s = time.perf_counter() - timer_t0
+    one_param = sum(p.numel() * p.element_size()
+                    for p in _leaves_of(one.params))
+    from sparkflow_tpu_torch.optimizers_sharded import state_bytes_per_device
+    one_opt = state_bytes_per_device(tr._last_opt_state)
+    one_peak = (torch.cuda.max_memory_allocated() if device != "cpu"
+                else None)
+    del tr, one
+    tokens = PS_TRAIN_BATCH * GPT2_SMALL["max_len"]
+    out = {"losses": losses, "fit_s": got[0]["fit_s"],
+           "backend": st["backend"], "placement": st["placement"],
+           "heads_a_rank": heads,
+           "tokens_per_s": tokens * 1e3 / ranks[0][
+               "step_ms_median_after_first"],
+           "one_card": {"param_gb": one_param / 1e9,
+                        "opt_state_gb": one_opt / 1e9,
+                        "peak_mem_gb": (one_peak or 0) / 1e9,
+                        "fit_s": one_s},
+           "param_bytes_share_of_one_card": [r["param_gb"] * 1e9 / one_param
+                                             for r in ranks],
+           "opt_state_share_of_one_card": [r["opt_state_gb"] * 1e9 / one_opt
+                                           for r in ranks],
+           "ranks": ranks}
+    log("[param-sharding] (a) GPT-2 small, Trainer(mesh={'tp': 2, 'fsdp': "
+        "2}, param_sharding=tree) in place on 4 ranks of one card over "
+        "gloo, bf16, adam 3e-4, batch 8 x 1024 (4 rows a rank after the "
+        "fsdp split), 3 steps, 6 of 12 heads a rank: " + json.dumps(out)
+        + f" [{card}]")
+    return out, {n: sum(r["launches"][n] for r in ranks) for n in PS_NAMES}
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves_of(v)]
+    return [tree]
+
+
+def _ps_exactness(card, device, pool):
+    """(b) The tp x fsdp tree and (c) the plain-forward tree at GPT-2
+    small's widths cut to 2 layers, float32, TF32 off, 8 x 1024: one SGD
+    step (loss 1e-5 relative, params rtol 3e-4 / atol 3e-5) and 3 adam
+    steps (losses 2e-4) against the same fit on one card; kernels 1-3 at
+    6 heads a rank under (b), 12 under (c)."""
+    import numpy as np
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.trainer import Trainer
+    cfg = dict(GPT2_SMALL, num_layers=PS_EXACT_LAYERS)
+    lm = build_registry_spec("transformer_lm", **cfg)
+    rs = np.random.RandomState(25)
+    ids = rs.randint(0, min(1000, cfg["vocab_size"]),
+                     (PS_TRAIN_BATCH, cfg["max_len"])).astype(np.float32)
+    kws = {"sgd": dict(optimizer="gradient_descent", learning_rate=0.1,
+                       iters=1, mini_batch_size=PS_TRAIN_BATCH, seed=0),
+           "adam": dict(optimizer="adam", learning_rate=3e-4, iters=3,
+                        mini_batch_size=PS_TRAIN_BATCH, seed=0,
+                        optimizer_options={"epsilon": 1e-6})}
+    trees = {"b": (ps_tree(cfg), cfg["num_heads"] // PS_MESH["tp"], ["tp"]),
+             "c": (ps_plain_tree(cfg), cfg["num_heads"], [])}
+    out, launches = {}, {n: 0 for n in PS_NAMES}
+    for opt, kw in kws.items():
+        one = Trainer(lm, "input_ids", None, device=device,
+                      **kw).fit(ids)
+        want = _np_tree(one.params)
+        for key, (tree, heads, compute) in trees.items():
+            got = pool.run(_ps_rank, lm, tree, kw, ids, device)
+            st = _ps_pool_stats(got)
+            lrel = max(abs(a - b) / max(abs(b), 1e-12)
+                       for a, b in zip(got[0]["losses"], one.losses))
+            e = {"loss_rel": lrel,
+                 "param_excess": _tpf_excess(got[0]["params"], want),
+                 "placement": st["placement"],
+                 "heads_a_rank": got[0]["heads"],
+                 "param_bytes_a_rank": [r["param_bytes"]
+                                        for r in st["ranks"]]}
+            out[f"({key}) {opt}"] = e
+            ranks = _tpf_rank_rows(st, PS_NAMES)
+            for n in PS_NAMES:
+                launches[n] += sum(r["launches"][n] for r in ranks)
+            want_l = cfg["num_layers"] * len(one.losses)
+            ok = (len(got[0]["losses"]) == len(one.losses)
+                  and all(g["losses"] == got[0]["losses"] for g in got)
+                  and st["placement"]["compute_axes"] == compute
+                  and all(g["heads"] == [heads] for g in got)
+                  and (device == "cpu" or all(
+                      r["launches"] == {n: want_l for n in PS_NAMES}
+                      for r in ranks)))
+            if opt == "sgd":
+                ok = ok and lrel <= TPF_LOSS_RTOL and (
+                    e["param_excess"] <= TPF_PARAM_ATOL)
+            else:
+                ok = ok and lrel <= TPF_ADAM_RTOL
+            if not ok:
+                raise AssertionError(f"({key}) {opt} vs one card: {e}")
+    log("[param-sharding] (b) tp x fsdp tree, (c) plain-forward tree, "
+        "GPT-2 small widths cut to 2 layers, float32, TF32 off, 8 x 1024, "
+        "against one card: " + json.dumps(out) + f" (SGD loss <= "
+        f"{TPF_LOSS_RTOL} relative, params |d| - {TPF_PARAM_RTOL} |p| <= "
+        f"{TPF_PARAM_ATOL}; adam losses <= {TPF_ADAM_RTOL}) [{card}]")
+    return out, launches
+
+
+def phase_param_sharding(card, work, device=None):
+    """Phase 24: explicit parameter placement on a 4-rank pool of its own
+    (see the module docstring); ``device="cpu"`` rehearses it, without the
+    launch counts."""
+    from sparkflow_tpu_torch.parallel.distributed import RankPool
+    import torch
+    kind = "cpu" if device == "cpu" else "cuda"
+    if kind == "cuda":
+        # the one-card float32 references of (b) and (c) run here
+        torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["SPARKFLOW_TORCH_MESH_TIMEOUT_S"] = str(MESH_TIMEOUT_S)
+    with RankPool(4, device=kind) as pool:
+        train, la = _ps_training(card, device, pool)
+        exact, lb = _ps_exactness(card, device, pool)
+    return {"training": train, "exactness": exact,
+            "launches": {n: la[n] + lb[n] for n in PS_NAMES}}
+
+
 def _timed(name, fn, *args):
     """``fn(*args)`` with a ``[time]`` line; the cached card memory it
     leaves is freed after it, as the other process shares the card."""
@@ -8012,10 +8275,11 @@ MESH_GROUP_RESULT = "mesh-group.json"
 
 
 def run_mesh_group(work: str) -> int:
-    """Phases 18-21 and 23 (``python3 chip_smoke.py --mesh-group WORK``),
-    the second process :func:`main` runs beside its own phases: the kernel
-    library phase 1 built is found in the build directory, phases 18-21
-    share one 2-rank pool, all write under ``WORK``, and what the kernels
+    """Phases 18-21, 23 and 24 (``python3 chip_smoke.py --mesh-group
+    WORK``), the second process :func:`main` runs beside its own phases:
+    the kernel library phase 1 built is found in the build directory,
+    phases 18-21 share one 2-rank pool, phase 24 starts a 4-rank pool of
+    its own after 23, all write under ``WORK``, and what the kernels
     line needs of them goes to ``WORK/mesh-group.json``. Exits when its
     caller is gone."""
     import torch
@@ -8043,12 +8307,14 @@ def run_mesh_group(work: str) -> int:
             tpf = _timed("tp-fsdp", phase_tp_fsdp, card, work, None, pool)
             ppr = _timed("pp", phase_pp, card, work, None, pool)
         tooling = _timed("tooling", phase_tooling, card, work)
+        psh = _timed("param-sharding", phase_param_sharding, card, work)
         out = {"mesh": {"launches": mesh["launches"]},
                "stream_mesh": {"launches": stream_mesh["launches"]},
                "tp_fsdp": {"launches": tpf["launches"],
                            "kernels_h6": tpf["kernels_h6"]},
                "pp": {"launches": ppr["launches"]},
-               "tooling": {"kernels": tooling["kernels"]}}
+               "tooling": {"kernels": tooling["kernels"]},
+               "param_sharding": {"launches": psh["launches"]}}
         path = os.path.join(work, MESH_GROUP_RESULT)
         with open(path + ".tmp", "w") as f:
             json.dump(out, f, default=lambda o: o.item()
@@ -8084,8 +8350,8 @@ def _join_mesh_group(group):
     rc = proc.wait()
     relay_thread.join(timeout=60)
     if rc != 0:
-        raise AssertionError(f"phases 18-21 and 23 failed in their process "
-                             f"(exit {rc}); its traceback is above")
+        raise AssertionError(f"phases 18-21, 23 and 24 failed in their "
+                             f"process (exit {rc}); its traceback is above")
     with open(os.path.join(d, MESH_GROUP_RESULT)) as f:
         return json.load(f)
 
@@ -8093,8 +8359,8 @@ def _join_mesh_group(group):
 def main(only: str = None) -> int:
     """All phases; with ``only`` set-up and one phase alone, its summary in
     place of the kernels line: ``"spec-serving"`` (3), ``"families"`` (16),
-    ``"tp-fsdp"`` (20), ``"pp"`` (21), ``"ep"`` (22) or ``"tooling"``
-    (23)."""
+    ``"tp-fsdp"`` (20), ``"pp"`` (21), ``"ep"`` (22), ``"tooling"``
+    (23) or ``"param-sharding"`` (24)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -8112,7 +8378,10 @@ def main(only: str = None) -> int:
               "families": ("families",
                            lambda card: phase_families(card, work)),
               "tooling": ("tooling",
-                          lambda card: phase_tooling(card, work))}
+                          lambda card: phase_tooling(card, work)),
+              "param-sharding": ("param_sharding",
+                                 lambda card: phase_param_sharding(card,
+                                                                   work))}
     if only is not None and only not in alone and only not in single:
         print(f"chip_smoke: unknown phase {only!r}; one of "
               f"{sorted(alone) + sorted(single)}", file=sys.stderr)
@@ -8167,6 +8436,7 @@ def main(only: str = None) -> int:
         side = _timed("mesh-group wait", _join_mesh_group, group)
         mesh, stream_mesh = side["mesh"], side["stream_mesh"]
         tpf, ppr, tooling = side["tp_fsdp"], side["pp"], side["tooling"]
+        psh = side["param_sharding"]
     except Exception:
         traceback.print_exc()
         return 1
@@ -8281,6 +8551,10 @@ def main(only: str = None) -> int:
         # phase 23: its device events in the traced windows, beside its
         # launch counter over the same windows
         row["tooling"] = tooling["kernels"][row["name"]]
+        # phase 24: the launches of the explicit-placement fits ((a), (b)
+        # and (c) summed over the 4 ranks); the decode kernels run none
+        row["param_sharding"] = {"launches": psh["launches"].get(
+            row["name"], 0)}
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)

@@ -245,7 +245,11 @@ def make_predict_fn(model, input_name, output_name: str,
     pspecs = None
     if tp * ep > 1:
         from .parallel.tp import serving_pspecs
-        pspecs = serving_pspecs(model, pmesh.as_mesh(mesh),
+        # the split follows the tp / ep axes alone: an fsdp axis beside them
+        # holds whole copies (a fit's explicit tree may combine them)
+        split = {a: n for a, n in pmesh.as_mesh(mesh).shape.items()
+                 if a in (tp_axis, ep_axis)}
+        pspecs = serving_pspecs(model, pmesh.as_mesh(split),
                                 tp_axis if tp > 1 else None,
                                 ep_axis if ep > 1 else None)
     if pspecs is None:

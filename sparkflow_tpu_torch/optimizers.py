@@ -21,8 +21,10 @@ Differences from optax that do not change a number:
 - unknown optimizer names fall back to gradient_descent, as the reference
   does; ``use_locking`` is accepted and ignored.
 
-The ZeRO re-exports of the JAX module wait for the parallel slice
-(ROADMAP.md).
+ZeRO weight-update sharding lives in :mod:`.optimizers_sharded`; its
+``sharded_update``, ``zero1_state_specs``, ``place_zero1_state``,
+``gather_zero1_state``, ``shard_zero1_state`` and ``has_per_param_state``
+are re-exported here, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -694,3 +696,16 @@ def build_optimizer_from_json(optimizer_name: str,
     opts = (json.loads(optimizer_options_json) if optimizer_options_json
             else None)
     return build_optimizer(optimizer_name, learning_rate, opts)
+
+
+# ZeRO-1 weight-update sharding lives in its own module to keep this one a
+# pure registry; re-exported here so "wrap any registry optimizer" reads as
+# one import site (see optimizers_sharded for layout + checkpoint interop).
+from .optimizers_sharded import (  # noqa: E402
+    sharded_update,
+    zero1_state_specs,
+    place_zero1_state,
+    gather_zero1_state,
+    shard_zero1_state,
+    has_per_param_state,
+)

@@ -26,9 +26,9 @@ step's seed folded with the rank's index on each batch axis (JAX's
 repeats. The step must run inside ``with mesh.bind():`` on every rank.
 
 :func:`make_param_sharded_train_step` is the step of a fit whose
-parameters shard over ``tp`` (Megatron), ``ep`` (an MoE model's expert
-banks) or ``fsdp`` — JAX's GSPMD step with tp/ep/fsdp-placed params
-(:mod:`.tp`); zero stages stay a pure-dp matter, as in JAX.
+parameters shard by a PartitionSpec tree — derived (``tp`` Megatron,
+``ep`` expert banks, ``fsdp``) or explicit, JAX's GSPMD step with placed
+params (:mod:`.tp`); zero stages stay a pure-dp matter, as in JAX.
 """
 
 from __future__ import annotations
@@ -227,80 +227,76 @@ def _sub_rows(a, k: int, i: int):
 def make_param_sharded_train_step(model, optimizer, mesh, input_name,
                                   label_name: Optional[str], pspecs,
                                   full_shapes, sharding: Any = None):
-    """The per-rank step of a fit whose parameters shard over ``tp`` or
-    ``fsdp`` (the counterpart of JAX's GSPMD step with tp/fsdp-placed
-    params): ``step(params, opt_state, x, y, mask, rng) -> (params,
-    opt_state, loss)``, ``params`` this rank's slices
-    (:func:`~..parallel.tp.shard_params`, a ``tp`` tree packed first),
+    """The per-rank step of a fit whose parameters shard by a spec tree
+    (the counterpart of JAX's GSPMD step with placed params): ``step(params,
+    opt_state, x, y, mask, rng) -> (params, opt_state, loss)``, ``params``
+    this rank's slices (:class:`~..parallel.tp.ParamPlacement`),
     ``opt_state`` built on them, ``x`` / ``y`` / ``mask`` this rank's rows
     over the config's batch axes, ``loss`` the global masked mean.
+    ``full_shapes`` is a tree of the standard shapes.
 
-    - ``tp``: the model runs the Megatron forward over the tp axis (a copy
-      with ``tp_axis`` set); every tp rank of a dp group sees the same rows
-      and draws the same dropout masks (the generator folds the batch axes'
-      indices only), so the replicated leaves stay equal across them.
-      Gradients all-reduce over the batch axes.
-    - ``fsdp``: a dp shard's rows split again over ``fsdp`` (padded with
-      zero-mask rows to a multiple of it), each sharded leaf is gathered
-      just in time and its gradient comes back reduce-scattered over
-      ``fsdp``; then the sharded leaves' gradients all-reduce over the dp
-      axes and the replicated leaves' over dp and fsdp.
-    - ``ep`` (the expert leaves of an MoE model on ``P("ep", ...)``, JAX's
-      GSPMD form): a rank holds ``E/ep`` experts and, like a tp rank, its
-      dp group's rows; each MoE layer serves its experts' slots and sums
-      over ``ep`` (a copy of the model with ``expert_axis`` set,
-      ``models/moe.py``), so every gradient is complete on its rank and
-      all-reduces over the batch axes only. It composes with ``tp``.
+    Each leaf's split is a compute split or at rest
+    (:class:`~..parallel.tp.PlacementPlan`):
 
-    The loss is the masked mean over the global batch, as on one card; the
-    1/n comes after the sums. An MoE model routes the global batch when its
-    rows shard (``route_axes``, ``models/moe.py``): capacity, slot order
-    and the load-balance term are those of JAX's GSPMD program. ``clip_norm`` measures the global norm: the
-    sharded leaves' squares summed over their axes, the replicated leaves'
-    counted once. ``full_shapes`` is a tree of the standard shapes."""
+    - ``tp`` computing: the model runs the Megatron forward over the tp
+      axis (a copy with ``tp_axis`` set); every tp rank of a dp group sees
+      the same rows and draws the same dropout masks (the generator folds
+      the batch axes' indices only), so the replicated leaves stay equal
+      across them.
+    - ``ep`` computing (the expert leaves of an MoE model on ``P("ep",
+      ...)``, JAX's GSPMD form): a rank holds ``E/ep`` experts and, like a
+      tp rank, its dp group's rows; each MoE layer serves its experts'
+      slots and sums over ``ep`` (a copy of the model with
+      ``expert_axis`` set, ``models/moe.py``). It composes with ``tp``.
+    - at rest (every ``fsdp`` or ``dp`` split, and a ``tp`` / ``ep`` split
+      the forward does not compute on): the leaf is gathered just in time
+      into its compute-local shape (:func:`~..parallel.tp.gathered_params`);
+      its gradient comes back reduce-scattered over an at-rest batch axis
+      and sliced over any other, where every rank holds the same whole
+      gradient.
+
+    A dp shard's rows split again over ``fsdp`` (padded with zero-mask
+    rows to a multiple of it). After the backward each leaf's gradient
+    all-reduces over the batch axes its spec does not name, so every leaf
+    ends summed over every batch axis once. The loss is the masked mean
+    over the global batch, as on one card; the 1/n comes after the sums.
+    An MoE model routes the global batch when its rows shard
+    (``route_axes``, ``models/moe.py``): capacity, slot order and the
+    load-balance term are those of JAX's GSPMD program. ``clip_norm``
+    measures the global norm: each leaf's squares summed over the axes its
+    spec names (its local gradient is its own block of the whole one), a
+    replicated leaf's counted once."""
     import copy
     from ..core import make_feeds_builder
     from ..optimizers import global_norm_sq
-    from .tp import filtered_pspecs, gathered_params, spec_axes
+    from .tp import PlacementPlan, gathered_params, spec_axes
 
     cfg = as_sharding_config(sharding)
-    specs = filtered_pspecs(pspecs, mesh)
+    plan = PlacementPlan(model, mesh, pspecs, full_shapes)
     dp_axes = cfg.batch_axes(mesh)
     f = mesh.shape.get("fsdp", 1)
     batch_axes = dp_axes + (("fsdp",) if "fsdp" in mesh.axis_names else ())
-    from .tp import EXPERT_LEAVES
-    leaf_axes: list = []          # per leaf, its spec's axes
-    tp_axes, ep_axes = set(), set()
-    for name, s in _leaf_specs(full_shapes, specs):
-        leaf_axes.append(spec_axes(s))
-        (ep_axes if name in EXPERT_LEAVES else tp_axes).update(
-            a for a in spec_axes(s) if a != "fsdp")
-    if len(tp_axes) > 1 or len(ep_axes) > 1:
-        raise ValueError(f"a sharded step takes one tensor-parallel and one "
-                         f"expert-parallel axis; the specs name "
-                         f"{sorted(tp_axes | ep_axes)}")
-    tp_axis = next(iter(tp_axes), None)
-    ep_axis = next(iter(ep_axes), None)
-    fsdp_live = any("fsdp" in axes for axes in leaf_axes)
+    leaf_axes = [spec_axes(plan.specs[ln][pn]) for ln, pn in plan.names]
+    # the batch axes each leaf's gradient still sums over after the
+    # backward, and the leaves by those axes
+    sum_groups: dict = {}
+    for i, axes in enumerate(leaf_axes):
+        rest = tuple(a for a in batch_axes if a not in axes)
+        if rest and mesh.axis_size(rest) > 1:
+            sum_groups.setdefault(rest, []).append(i)
+    gathers = plan.gathers()
     build_feeds = make_feeds_builder(input_name, label_name)
-    dp_n = mesh.axis_size(dp_axes) if dp_axes else 1
     all_n = mesh.axis_size(batch_axes) if batch_axes else 1
     moe = hasattr(model, "route_axes")
-    if tp_axis is not None or ep_axis is not None or (moe and all_n > 1):
+    if plan.tp_axis or plan.ep_axis or (moe and all_n > 1):
         model = copy.copy(model)
-        if tp_axis is not None:
-            model.tp_axis = tp_axis
-        if ep_axis is not None:
-            model.expert_axis = ep_axis
+        if plan.tp_axis is not None:
+            model.tp_axis = plan.tp_axis
+        if plan.ep_axis is not None:
+            model.expert_axis = plan.ep_axis
         if moe and all_n > 1:
             # JAX's GSPMD step routes the global batch
             model.route_axes = batch_axes
-
-    def summed(tensors, axes, n):
-        if n <= 1 or not tensors:
-            return tensors
-        out = C.psum({str(i): t for i, t in enumerate(tensors)}, axes)
-        return [out[str(i)] for i in range(len(tensors))]
 
     def norm_sq(leaves):
         rep = [u for u, a in zip(leaves, leaf_axes) if not a]
@@ -320,7 +316,7 @@ def make_param_sharded_train_step(model, optimizer, mesh, input_name,
             x, y, mask = _sub_rows(x, f, i), _sub_rows(y, f, i), \
                 _sub_rows(mask, f, i)
         gen = rank_generator(rng, batch_axes, mask.device)
-        full = (gathered_params(params, specs, full_shapes) if fsdp_live
+        full = (gathered_params(params, plan, batch_axes) if gathers
                 else params)
         lv = model.loss_vector(full, build_feeds(x, y), train=True,
                                generator=gen)
@@ -333,15 +329,11 @@ def make_param_sharded_train_step(model, optimizer, mesh, input_name,
         n = torch.clamp_min(tot["n"], 1.0)
         loss = tot["s"] / n
         with torch.no_grad():
-            # a leaf sharded over fsdp arrives summed over fsdp; every other
-            # leaf sums over all the batch axes
-            over_dp = [i for i, a in enumerate(leaf_axes) if "fsdp" in a]
-            over_all = [i for i, a in enumerate(leaf_axes) if "fsdp" not in a]
-            for idx, axes, cnt in ((over_dp, dp_axes, dp_n),
-                                   (over_all, batch_axes, all_n)):
-                for i, g in zip(idx, summed([grads[i] for i in idx], axes,
-                                            cnt)):
-                    grads[i] = g
+            for axes in sorted(sum_groups):
+                idx = sum_groups[axes]
+                out = C.psum({str(i): grads[i] for i in idx}, axes)
+                for i in idx:
+                    grads[i] = out[str(i)]
             grads = [g / n for g in grads]
             with global_norm_sq(norm_sq):
                 updates, opt_state = optimizer.update(

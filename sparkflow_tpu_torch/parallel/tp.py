@@ -43,6 +43,18 @@ rules put the expert leaves on ``P("ep", ...)``, so a rank's slice of a
 bank is its ``E/ep`` experts along dim 0 (:func:`shard_params`) and
 :func:`gather_params` returns the whole bank; an ``ep`` rank's copy of the
 model sets ``expert_axis`` (:func:`~.dp.make_param_sharded_train_step`).
+
+Any tree. A fit may be given an explicit spec tree (JAX places any
+PartitionSpec pytree), ``tp`` with ``fsdp`` included.
+:class:`PlacementPlan` decides leaf by leaf: a leaf's ``tp`` / ``ep``
+split that matches the model's own rules is a compute split (the forward
+runs on the local block, the qkv columns packed), every other split is at
+rest, stored sharded and gathered just in time into the compute-local
+leaf (:func:`gathered_params`, one stage per axis, minor axis first). A
+tree that misses one of the rules' ``tp`` splits computes on no ``tp``:
+the plain forward runs on every rank. :func:`check_pspec_tree` refuses a
+tree of another structure, and a split its axes do not divide, as JAX's
+placement does.
 """
 
 from __future__ import annotations
@@ -314,19 +326,21 @@ def shard_params(params, mesh, pspecs, rank: Optional[int] = None):
 
 def _gather_leaf(local: torch.Tensor, spec: PartitionSpec, full_shape):
     """Inside a bound mesh: the whole leaf from every rank's block (padded
-    to whole chunks for the gather, trimmed after)."""
+    to whole chunks for the gather, trimmed after). A dimension split over
+    several axes gathers over its minor axis first, so the blocks line up
+    in the spec's row-major order whatever the mesh's axis order."""
     from .collectives import all_gather, axis_size
     out = local
     for dim, axes in reversed(sharded_dims(spec)):
-        k = axis_size(axes)
         n = int(full_shape[dim])
-        c = _chunk(n, k)
+        c = _chunk(n, axis_size(axes))
         have = out.shape[dim]
         if have < c:
             pad = list(out.shape)
             pad[dim] = c - have
             out = torch.cat([out, out.new_zeros(pad)], dim)
-        out = all_gather(out.contiguous(), axes, axis=dim)
+        for a in reversed(axes):
+            out = all_gather(out.contiguous(), a, axis=dim)
         out = out.narrow(dim, 0, n)
     return out
 
@@ -342,7 +356,172 @@ def gather_params(local, mesh, pspecs, full_shapes):
 
 
 # ---------------------------------------------------------------------------
-# fsdp: the just-in-time gather inside the loss
+# Explicit trees: which split the forward computes on, which is storage
+# ---------------------------------------------------------------------------
+
+
+# the axes of the models' own tables (``param_pspecs()``) a forward can
+# compute on: Megatron's column / row splits, and the expert banks
+COMPUTE_AXES = ("tp", "ep")
+
+
+def _leading(spec: PartitionSpec, axis: str) -> tuple:
+    """The dimensions whose entry in ``spec`` starts with ``axis``."""
+    return tuple(d for d, axes in sharded_dims(spec) if axes[0] == axis)
+
+
+def _mismatch(path: str, what: str):
+    return ValueError(f"param_sharding tree differs from the params at "
+                      f"{path or '<root>'}: {what}")
+
+
+def check_pspec_tree(pspecs, shapes, mesh) -> None:
+    """Refuse an explicit PartitionSpec tree that cannot place ``shapes``
+    (a tree of the params' shapes: tuples, tensors or anything with
+    ``shape``) on ``mesh``, naming the first leaf at fault: a structure
+    that differs from the params', a leaf that is not a
+    :class:`PartitionSpec`, a spec longer than its leaf's rank or naming an
+    axis twice, and a dimension that its live axes do not divide (JAX's
+    ``device_put`` refuses that too; the port's ceil-sized blocks are for
+    the derived fsdp specs only)."""
+    live = {a: mesh.shape[a] for a in mesh.axis_names if mesh.shape[a] > 1}
+
+    def walk(spec, shape, path):
+        if isinstance(shape, dict):
+            if not isinstance(spec, dict):
+                raise _mismatch(path, f"the params have a dict of "
+                                      f"{sorted(shape)}, the tree {spec!r}")
+            for k in shape:
+                at = f"{path}/{k}" if path else k
+                if k not in spec:
+                    raise _mismatch(at, "the params have it, the tree lacks "
+                                        "it")
+                walk(spec[k], shape[k], at)
+            for k in spec:
+                if k not in shape:
+                    raise _mismatch(f"{path}/{k}" if path else k,
+                                    "the tree has it, the params lack it")
+            return
+        dims = tuple(int(d) for d in getattr(shape, "shape", shape))
+        if not isinstance(spec, PartitionSpec):
+            raise _mismatch(path, f"a leaf of shape {dims} needs a "
+                                  f"PartitionSpec, got {spec!r}")
+        if len(spec) > len(dims):
+            raise ValueError(
+                f"param_sharding leaf {path}: {spec} has {len(spec)} "
+                f"entries for a leaf of rank {len(dims)} (shape {dims})")
+        axes = spec_axes(spec)
+        if len(set(axes)) != len(axes):
+            raise ValueError(f"param_sharding leaf {path}: {spec} names a "
+                             f"mesh axis more than once")
+        for d, entry in sharded_dims(_keep_axes(spec, live)):
+            k = 1
+            for a in entry:
+                k *= live[a]
+            if dims[d] % k:
+                raise ValueError(
+                    f"param_sharding leaf {path}: {spec} implies that the "
+                    f"global size of its dimension {d} should be divisible "
+                    f"by {k}, but it is equal to {dims[d]} (full shape: "
+                    f"{dims})")
+
+    walk(pspecs, shapes, "")
+
+
+class PlacementPlan:
+    """How a fit uses a spec tree, leaf by leaf; every rank computes the
+    same plan from the same arguments.
+
+    ``specs`` is the tree with the axes ``mesh`` lacks (or has at size 1)
+    dropped. An axis of :data:`COMPUTE_AXES` is a *compute* axis when the
+    model's own table (``param_pspecs()``) splits some leaf over it and the
+    tree leads every dimension the table splits that way with it: the
+    forward then computes on the local block (the Megatron forward over
+    ``tp``, the local experts over ``ep``), and ``tp`` packs the qkv
+    columns. Every other split of a leaf is *at rest*: stored sharded and
+    gathered just in time into the compute-local leaf
+    (:func:`gathered_params`). A tree that misses one of the table's
+    splits over an axis computes on none of that axis: the plain forward
+    runs on every rank of it, and each of the tree's splits over it is at
+    rest. ``template`` is a tree of the standard shapes."""
+
+    def __init__(self, model, mesh, pspecs, template):
+        self.mesh = mesh
+        self.specs = filtered_pspecs(pspecs, mesh)
+        self.template = template
+        self.names = [(ln, pn) for ln, layer in template.items()
+                      for pn in layer]
+        table = (filtered_pspecs(model.param_pspecs(), mesh)
+                 if hasattr(model, "param_pspecs") else {})
+        want = {n: table.get(n[0], {}).get(n[1], P()) for n in self.names}
+        spec = {n: self.specs[n[0]][n[1]] for n in self.names}
+        on = []
+        for axis in COMPUTE_AXES:
+            need = {n: _leading(want[n], axis) for n in self.names}
+            need = {n: d for n, d in need.items() if d}
+            if need and all(_leading(spec[n], axis) == d
+                            for n, d in need.items()):
+                on.append(axis)
+        self.tp_axis = "tp" if "tp" in on else None
+        self.ep_axis = "ep" if "ep" in on else None
+        # per leaf: {dim: compute axis} and [(dim, at-rest axes)]
+        self.compute: Dict[tuple, Dict[int, str]] = {}
+        self.rest: Dict[tuple, List[tuple]] = {}
+        for n in self.names:
+            comp, rest = {}, []
+            for d, axes in sharded_dims(spec[n]):
+                if axes[0] in on and d in _leading(want[n], axes[0]):
+                    comp[d] = axes[0]
+                    axes = axes[1:]
+                if axes:
+                    rest.append((d, axes))
+            self.compute[n], self.rest[n] = comp, rest
+
+    def describe(self) -> dict:
+        """The decision for ``last_mesh_stats``: the compute axes and how
+        many leaves compute on a split, keep one at rest, both, or
+        neither."""
+        kinds = {"compute": 0, "at_rest": 0, "compute_and_at_rest": 0,
+                 "replicated": 0}
+        for n in self.names:
+            c, r = bool(self.compute[n]), bool(self.rest[n])
+            kinds["compute_and_at_rest" if c and r else "compute" if c
+                  else "at_rest" if r else "replicated"] += 1
+        return {"compute_axes": [a for a in (self.tp_axis, self.ep_axis)
+                                 if a], "leaves": kinds}
+
+    def gathers(self) -> bool:
+        """Whether any leaf is stored at rest."""
+        return any(self.rest[n] for n in self.names)
+
+    def stages(self, n) -> List[tuple]:
+        """Leaf ``n``'s just-in-time gather as single-axis stages ``(axis,
+        dim, block, out)``: for each at-rest dimension, its axes from the
+        minor one up, each gathering blocks of ``block`` entries along
+        ``dim`` into ``out`` (the compute-local length after the last)."""
+        shape = tuple(self.template[n[0]][n[1]].shape)
+        comp, out = self.compute[n], []
+        for d, axes in self.rest[n]:
+            length = int(shape[d])
+            if d in comp:
+                a = comp[d]
+                lo, hi = _bounds(length, self.mesh.shape[a],
+                                 self.mesh.axis_index(a))
+                length = hi - lo
+            k_all = 1
+            for a in axes:
+                k_all *= self.mesh.shape[a]
+            block = _chunk(length, k_all)
+            for j, a in enumerate(reversed(axes)):
+                k = self.mesh.shape[a]
+                last = j == len(axes) - 1
+                out.append((a, d, block, length if last else k * block))
+                block *= k
+        return out
+
+
+# ---------------------------------------------------------------------------
+# The just-in-time gather inside the loss
 # ---------------------------------------------------------------------------
 
 
@@ -355,29 +534,38 @@ def _row(local: torch.Tensor, dim: int, c: int) -> torch.Tensor:
     return x.reshape(1, -1)
 
 
-class _FsdpGather(torch.autograd.Function):
-    """Every rank's block -> the whole leaves in the forward (one
-    all-gather per dtype); the whole leaves' gradients reduce-scatter back
-    to the blocks in the backward (one per dtype), summed over the axis.
-    The mesh is kept in ``ctx``: autograd runs a CUDA backward on its own
+def _moved(shape, dim: int) -> list:
+    out = list(shape)
+    out.insert(0, out.pop(dim))
+    return out
+
+
+class _AtRestGather(torch.autograd.Function):
+    """One stage of the just-in-time gather, over one axis: every rank's
+    blocks -> the leaves gathered along their dimension in the forward
+    (one all-gather per dtype). In the backward, over a batch axis
+    (``reduce``) the gathered gradients reduce-scatter back to the blocks,
+    summed over the axis (one per dtype); over any other axis every rank
+    holds the same whole gradient and takes its own block. ``metas`` are
+    ``(dim, block, out)`` per leaf (:meth:`PlacementPlan.stages`). The
+    mesh is kept in ``ctx``: autograd runs a CUDA backward on its own
     thread, where the bound mesh is not seen."""
 
     @staticmethod
-    def forward(ctx, axis, k, metas, *locals_):
+    def forward(ctx, axis, reduce, metas, *locals_):
         from ..optimizers_sharded import _gather_rows
         from .mesh import bound_mesh
-        ctx.axis, ctx.k, ctx.metas = axis, k, metas
-        ctx.mesh = bound_mesh()
-        ctx.local_sizes = [t.shape for t in locals_]
-        rows = [_row(t.detach(), dim, _chunk(shape[dim], k))
-                for t, (dim, shape) in zip(locals_, metas)]
+        mesh = bound_mesh()
+        k = mesh.axis_size(axis)
+        ctx.axis, ctx.reduce, ctx.k, ctx.metas = axis, reduce, k, metas
+        ctx.mesh, ctx.index = mesh, mesh.axis_index(axis)
+        ctx.local_shapes = [tuple(t.shape) for t in locals_]
+        rows = [_row(t.detach(), dim, c)
+                for t, (dim, c, _n) in zip(locals_, metas)]
         fulls = _gather_rows(rows, k, axis)
         out = []
-        for f, (dim, shape) in zip(fulls, metas):
-            c = _chunk(shape[dim], k)
-            moved = list(shape)
-            moved.insert(0, moved.pop(dim))
-            x = f.reshape([k * c] + moved[1:])[:shape[dim]]
+        for f, shape, (dim, c, n) in zip(fulls, ctx.local_shapes, metas):
+            x = f.reshape([k * c] + _moved(shape, dim)[1:])[:n]
             out.append(x.movedim(0, dim).contiguous())
         return tuple(out)
 
@@ -386,52 +574,50 @@ class _FsdpGather(torch.autograd.Function):
         from ..optimizers_sharded import _scatter_shards
         k = ctx.k
         rows = []
-        for g, (dim, shape) in zip(grads, ctx.metas):
-            c = _chunk(shape[dim], k)
+        for g, (dim, c, _n) in zip(grads, ctx.metas):
             x = g.movedim(dim, 0)
             if x.shape[0] < k * c:
                 x = torch.cat([x, x.new_zeros((k * c - x.shape[0],)
                                               + tuple(x.shape[1:]))])
             rows.append(x.reshape(k, -1))
-        with ctx.mesh.bind():
-            shards = _scatter_shards(rows, k, ctx.axis, None)
+        if ctx.reduce:
+            with ctx.mesh.bind():
+                shards = _scatter_shards(rows, k, ctx.axis, None)
+        else:
+            shards = [r[ctx.index] for r in rows]
         out = []
-        for s, (dim, shape), have in zip(shards, ctx.metas,
-                                         ctx.local_sizes):
-            c = _chunk(shape[dim], k)
-            moved = list(shape)
-            moved.insert(0, moved.pop(dim))
-            x = s.reshape([c] + moved[1:])[:have[dim]]
+        for s, shape, (dim, c, _n) in zip(shards, ctx.local_shapes,
+                                          ctx.metas):
+            x = s.reshape([c] + _moved(shape, dim)[1:])[:shape[dim]]
             out.append(x.movedim(0, dim).contiguous())
         return (None, None, None) + tuple(out)
 
 
-def gathered_params(local, pspecs, full_shapes, axis: str = "fsdp"):
-    """Inside a bound mesh: the whole params from every rank's fsdp blocks
-    (``local``, leaves requiring a gradient); replicated leaves pass as
-    they are. Differentiating a loss of the result gives ``local``
-    gradients that arrive reduce-scattered (summed over ``axis``)."""
-    from .collectives import axis_size
-    k = axis_size(axis)
-    pairs: list = []
-
-    def collect(t, s, like):
-        dims = sharded_dims(s)
-        if dims:
-            if len(dims) != 1 or dims[0][1] != (axis,):
-                raise ValueError(f"fsdp gathers one dimension over {axis!r}; "
-                                 f"got spec {s}")
-            pairs.append((t, dims[0][0], tuple(like.shape)))
-
-    _zip(collect, local, pspecs, full_shapes)
-    if not pairs:
-        return local
-    metas = [(d, shape) for _t, d, shape in pairs]
-    fulls = _FsdpGather.apply(axis, k, metas,
-                              *(t for t, _d, _s in pairs))
-    it = iter((fulls,) if torch.is_tensor(fulls) else fulls)
-    return _zip(lambda t, s: next(it) if sharded_dims(s) else t, local,
-                pspecs)
+def gathered_params(local, plan: PlacementPlan, batch_axes=()):
+    """Inside a bound mesh: the compute-local params from every rank's
+    blocks (``local``, leaves requiring a gradient) under ``plan``: each
+    at-rest split gathered, stage by stage, one collective per stage and
+    axis; leaves with none pass as they are. Differentiating a loss of the
+    result gives ``local`` gradients summed over the at-rest axes among
+    ``batch_axes`` (reduce-scattered) and sliced over the others."""
+    stages = {n: plan.stages(n) for n in plan.names}
+    cur = {n: local[n[0]][n[1]] for n in plan.names}
+    depth = max((len(s) for s in stages.values()), default=0)
+    for t in range(depth):
+        by_axis: Dict[str, list] = {}
+        for n in plan.names:
+            if t < len(stages[n]):
+                by_axis.setdefault(stages[n][t][0], []).append(n)
+        for axis in sorted(by_axis):     # one order on every rank
+            names = by_axis[axis]
+            outs = _AtRestGather.apply(
+                axis, axis in batch_axes, [stages[n][t][1:] for n in names],
+                *(cur[n] for n in names))
+            for n, o in zip(names, (outs,) if torch.is_tensor(outs)
+                            else outs):
+                cur[n] = o
+    return {ln: {pn: cur[(ln, pn)] for pn in layer}
+            for ln, layer in local.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -443,26 +629,24 @@ _QKV = ("qkv_kernel", "qkv_bias")
 
 
 class ParamPlacement:
-    """A tp or fsdp fit's placement on one rank: the standard layout of the
-    params and of the optimizer state on one side, this rank's slices on
-    the other (a ``tp`` model's ``qkv`` columns packed, biases whole).
-    ``template`` is a tree of the standard shapes. :meth:`gather` and
-    :meth:`gather_state` are collectives (inside the bound mesh)."""
+    """A sharded-parameter fit's placement on one rank: the standard
+    layout of the params and of the optimizer state on one side, this
+    rank's slices on the other (a ``tp``-computing model's ``qkv`` columns
+    packed, biases whole). :attr:`plan` is the spec tree's
+    :class:`PlacementPlan`; ``template`` a tree of the standard shapes.
+    :meth:`gather` and :meth:`gather_state` are collectives (inside the
+    bound mesh)."""
 
     def __init__(self, model, mesh, pspecs, template):
         self.model, self.mesh = model, mesh
-        self.specs = filtered_pspecs(pspecs, mesh)
+        self.plan = PlacementPlan(model, mesh, pspecs, template)
+        self.specs = self.plan.specs
         self.template = template
-        # the tp axis is the one the qkv columns shard over (an ep axis
-        # shards whole experts and needs no relayout)
-        axes = {a for layer in self.specs.values()
-                for pn, sp in layer.items() if pn in _QKV
-                for a in spec_axes(sp) if a != "fsdp"}
-        self.tp_axis = next(iter(sorted(axes)), None)
+        # the qkv columns pack only where tp is a compute split
+        self.tp_axis = self.plan.tp_axis
         self.tp = mesh.shape[self.tp_axis] if self.tp_axis else 1
         # (layer, name) of each param leaf, in tree_leaves order
-        self._names = [(ln, pn) for ln, layer in template.items()
-                       for pn in layer]
+        self._names = self.plan.names
         self._state_owner = None
 
     # -- params --------------------------------------------------------------
@@ -660,8 +844,9 @@ def shard_bytes(tree) -> int:
     return total
 
 
-__all__ = ["EPShards", "ParamPlacement", "TPShards", "derive_param_pspecs", "filter_pspec",
-           "filtered_pspecs", "fsdp_pspecs", "gather_params",
+__all__ = ["COMPUTE_AXES", "EPShards", "ParamPlacement", "PlacementPlan",
+           "TPShards", "check_pspec_tree", "derive_param_pspecs",
+           "filter_pspec", "filtered_pspecs", "fsdp_pspecs", "gather_params",
            "gathered_params", "leaf_slice", "qkv_permutation",
            "rename_pspec_axes", "serving_pspecs", "serving_tree",
            "shard_bytes",

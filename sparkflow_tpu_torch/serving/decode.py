@@ -235,11 +235,6 @@ class _Stages:
         return self.model.head_all(shared, x).to(self.out_device), cache
 
 
-def _not_yet(option: str):
-    raise ValueError(f"DecodeEngine option {option} is not yet ported to "
-                     f"PyTorch (see ROADMAP.md)")
-
-
 class DecodeEngine:
     """Continuous-decode mechanism over a paged KV cache.
 

@@ -29,9 +29,13 @@ package's ``sharding.py``.
 - ``ep_axis`` — the expert-parallel axis of the serving engines (each MoE
   bank split into ep shards in one process; the trainer's ep axis is the
   mesh's ``ep``, as in JAX);
-- ``param_axes`` — parsed and validated with the JAX package's rules and
-  messages; a fit that activates an explicit ``param_axes`` pytree raises
-  "not yet ported" (ROADMAP queue 1, item 7).
+- ``param_axes`` — per-parameter placement of a mesh fit: ``'auto'``
+  defers to the trainer's ``param_sharding``, ``None`` replicates, or an
+  explicit PartitionSpec pytree of the params' structure (JAX's rules and
+  messages). Each leaf's split is either the one the Megatron / expert
+  forward computes on or storage, gathered just in time
+  (:class:`~.parallel.tp.PlacementPlan`); ZeRO stages decline on sharded
+  params.
 
 In the port a rank holds plain local tensors, so there are no
 ``NamedSharding`` objects: :meth:`ShardingConfig.data_spec` and
@@ -54,6 +58,10 @@ class PartitionSpec(tuple):
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
+
+    def __getnewargs__(self):
+        # pickle rebuilds a tuple subclass through ``__new__(cls, *args)``
+        return tuple(self)
 
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"

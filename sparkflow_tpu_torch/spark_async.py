@@ -454,8 +454,7 @@ class SparkAsyncDL(_OnDevice, Estimator, HasInputCol, HasPredictionCol,
 
     def _validate_params(self):
         """Error loudly on inconsistent Param combinations (the JAX
-        package's checks and messages), then refuse what is not yet ported
-        — all before any training."""
+        package's checks and messages) — all before any training."""
         label_col = self.getOrDefault(self.labelCol)
         tf_label = self.getTfLabel()
         if tf_label is not None and label_col is None:

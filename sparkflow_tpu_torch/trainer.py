@@ -108,6 +108,19 @@ and ``publish_to`` always carry the standard, gathered, unpacked layout, so
 a tp or fsdp checkpoint resumes a dp fit, a one-card fit and a JAX fit, and
 the other way round.
 
+Explicit placement (``param_sharding=<PartitionSpec pytree>`` or
+``sharding=ShardingConfig(param_axes=<pytree>)``, on any mesh of the
+default strategy: dp, tp, fsdp, ep and their mixes, ``tp`` with ``fsdp``
+included, which the auto derivation refuses): the tree is checked against
+the params at fit time (structure, rank, divisibility, each refusal naming
+the leaf) and placed as it is; a pp / sp mesh refuses an explicit
+``param_sharding`` tree with JAX's message. Each leaf's split is either a
+compute split (its ``tp`` / ``ep`` split where it matches the model's own
+table, so the Megatron / expert forward runs on the local block) or at
+rest, gathered just in time (:class:`~.parallel.tp.PlacementPlan`;
+``last_mesh_stats["placement"]`` names the decision). A tree that misses
+one of the table's ``tp`` splits runs the plain forward on every rank.
+
 Pipeline parallelism (a mesh with a ``pp`` axis, composed with ``dp``
 only, in ``fit``, launched or in place; ``fit_stream`` refuses it, as in
 JAX): the JAX trainer's rules and messages decide the task (``lm``
@@ -129,8 +142,6 @@ the outputs summed over ``ep``; a dense model trains replicated over the
 axis, as JAX's spec filter makes it. ``ep`` composes with ``dp`` and
 ``tp``; checkpoints and published weights hold whole banks.
 
-Not ported yet, and rejected with "not yet ported (see ROADMAP.md, queue 1
-item 7)": explicit ``param_sharding`` / ``param_axes`` pytrees.
 ``debug_recompiles=True`` runs each fit under
 :func:`~.analysis.runtime_guards.track_recompiles`: PyTorch traces nothing,
 so what it counts is each new argument signature of the epoch and train
@@ -175,11 +186,6 @@ logger = logging.getLogger("sparkflow_tpu_torch")
 # the name of this package's random stream in a checkpoint's ``rng_impl``
 # (the JAX package writes its jax.random implementation's, e.g. "threefry")
 RNG_IMPL = "torch"
-
-
-def _not_yet(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to PyTorch (see "
-                              f"ROADMAP.md, queue 1 item 7)")
 
 
 def _sync(dev: torch.device) -> None:
@@ -396,13 +402,13 @@ class _FitState:
             for p in tree_leaves(tr.model.params()):
                 p.data = p.data.new_empty(0)
         if tr._pspecs is not None:
-            # tp / fsdp: this rank's slices BEFORE the optimizer's init, so
-            # its state inherits the placement
+            # sharded params: this rank's slices BEFORE the optimizer's
+            # init, so its state inherits the placement
             from .parallel.tp import ParamPlacement
+            template = tree_map(lambda p: torch.empty(
+                p.shape, dtype=p.dtype, device="meta"), params)
             tr._placement = ParamPlacement(tr.model, mesh, tr._pspecs,
-                                           tree_map(lambda p: torch.empty(
-                                               p.shape, dtype=p.dtype,
-                                               device="meta"), params))
+                                           template)
             params = tr._params_from_ckpt(params)
         tr._zero_stage = tr._resolve_zero_stage(strategy, params)
         tr._zero1_active = tr._zero_stage >= 1
@@ -653,9 +659,6 @@ class Trainer:
                  backend: Optional[str] = None):
         from .parallel.mesh import as_mesh
         self.mesh = as_mesh(mesh)
-        if param_sharding not in ("auto", None):
-            _not_yet("explicit param_sharding pytrees (tensor / fsdp "
-                     "placement)")
         # pipeline-parallel fits ('pp' mesh axis): microbatches per batch
         # (None: the deepest of 8, 4, 2, 1 dividing a dp replica's rows) and
         # the schedule ('gpipe' | '1f1b' | 'sequential', parallel/pp.py)
@@ -666,14 +669,17 @@ class Trainer:
                 f"weight_update_sharding must be 'auto', 'on', or 'off'; "
                 f"got {weight_update_sharding!r}")
         self.weight_update_sharding = weight_update_sharding
+        # sharded-parameter training: "auto" derives PartitionSpecs from
+        # the model when the mesh has axes beyond 'dp' (megatron rules, or
+        # fsdp's ZeRO specs), an explicit pspec pytree is used as it is,
+        # None keeps params replicated; resolved at fit time
+        # (_resolve_pspecs), as in JAX
         self.param_sharding = param_sharding
         # the declarative config supersedes the legacy knob when given: its
-        # zero_stage is an explicit request (ineligible fits raise)
+        # zero_stage is an explicit request (ineligible fits raise), its
+        # param_axes the per-param placement
         self.sharding = (as_sharding_config(sharding)
                          if sharding is not None else None)
-        if self.sharding is not None:
-            if self.sharding.param_axes not in ("auto", None):
-                _not_yet("explicit ShardingConfig.param_axes pytrees")
         # a mesh fit's collective backend: None picks by the rule of
         # parallel.distributed.choose_backend; an explicit one that cannot
         # be honoured raises
@@ -1086,6 +1092,15 @@ class Trainer:
         return the step's task, ``"classifier"`` or ``"lm"`` (the JAX
         trainer's rules)."""
         m = self.model
+        # pipeline stages / replicated sp params are placed by the strategy
+        # itself — an explicit user pytree cannot be honored, so refuse it
+        # loudly rather than silently replicating
+        if (self.param_sharding is not None
+                and not isinstance(self.param_sharding, str)):
+            raise ValueError(
+                "explicit param_sharding pytrees do not apply to pp/sp "
+                "strategy meshes (the strategy places its own params); "
+                "drop param_sharding or use a dp/tp/fsdp/ep mesh")
         n_inputs = (len(self.input_name)
                     if isinstance(self.input_name, (list, tuple)) else 1)
         if strategy == "pp" and self.label_name is not None and n_inputs != 1:
@@ -1148,18 +1163,32 @@ class Trainer:
         return base.replace(zero_stage=self._zero_stage)
 
     def _resolve_pspecs(self):
-        """PartitionSpec tree for sharded-parameter training (tp / fsdp), or
-        None — the JAX trainer's rule: only on a mesh with axes beyond 'dp'
-        and the default strategy; ``param_sharding="auto"`` derives the
-        specs from the model (megatron rules, or fsdp's ZeRO specs),
-        ``None`` keeps params replicated. Explicit pytrees are refused at
-        construction."""
+        """PartitionSpec tree for sharded-parameter training, or None — the
+        JAX trainer's rule and messages: only on a mesh and the default
+        strategy (pp / sp place their own params); ``sharding.param_axes``
+        other than ``"auto"`` comes first (None: replicated, a pytree:
+        explicit), then ``param_sharding``: an explicit pytree as it is,
+        None replicated, ``"auto"`` derived from the model on a mesh with
+        axes beyond 'dp' (megatron rules, or fsdp's ZeRO specs). An
+        explicit tree is checked against the params here, before any rank
+        starts (:func:`~.parallel.tp.check_pspec_tree`)."""
         if self.mesh is None or self._mesh_strategy() != "default":
             return None
         if self.sharding is not None and self.sharding.param_axes != "auto":
-            return None                 # param_axes=None: replicated
+            pa = self.sharding.param_axes
+            if pa is not None and isinstance(pa, str):
+                raise ValueError(
+                    f"ShardingConfig.param_axes must be 'auto', None, or a "
+                    f"PartitionSpec pytree; got {pa!r}")
+            return self._explicit_pspecs(pa)
         if self.param_sharding is None:
             return None
+        if not isinstance(self.param_sharding, str):
+            return self._explicit_pspecs(self.param_sharding)
+        if self.param_sharding != "auto":
+            raise ValueError(
+                f"param_sharding must be 'auto', None, or a PartitionSpec "
+                f"pytree; got {self.param_sharding!r}")
         if all(a == "dp" for a in self.mesh.axis_names):
             return None
         from .parallel.tp import derive_param_pspecs
@@ -1176,6 +1205,17 @@ class Trainer:
                 f"moe families); use an 'fsdp' axis instead — ZeRO specs "
                 f"derive from param_specs() for any model")
         return pspecs
+
+    def _explicit_pspecs(self, tree):
+        """A user's PartitionSpec tree, checked against the params' shapes
+        and the mesh (None passes: replicated)."""
+        if tree is not None:
+            from .parallel.tp import check_pspec_tree
+            check_pspec_tree(tree, {
+                ln: {k: shape for k, (shape, _init) in layer.items()}
+                for ln, layer in self.model.param_specs().items()},
+                self.mesh)
+        return tree
 
     def _resolve_zero_stage(self, strategy: str, params) -> int:
         """Decide how much of the weight update shards over dp (stage 0-3) —
@@ -1519,6 +1559,10 @@ class Trainer:
             me["schedule_ticks"] = self._pp_ticks
         return {"backend": current_backend(), "mesh": dict(self.mesh.shape),
                 "strategy": strategy, "zero_stage": self._zero_stage,
+                # which splits the forward computes on and which are stored
+                # at rest (parallel.tp.PlacementPlan), None when replicated
+                "placement": (self._placement.plan.describe()
+                              if self._placement is not None else None),
                 "world": self.mesh.size, "launched": False, "ranks": [me]}
 
     def _launch_recipe(self, verdicts: bool) -> Dict[str, Any]:

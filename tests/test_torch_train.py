@@ -295,14 +295,18 @@ def test_trainer_predict_ema_and_weights():
 
 def test_trainer_misuse_raises():
     spec = build_registry_spec("transformer_lm", **LM)
-    # dp / sp / tp / fsdp / pp / ep meshes are ported (tests/test_torch_{
-    # zero,tp,fsdp,pp,ep}.py); an explicit param_sharding pytree is not, a
-    # pp mesh refuses an sp axis with JAX's message before any rank starts,
-    # and a mesh must be a Mesh or a dict of sizes
+    # dp / sp / tp / fsdp / pp / ep meshes and explicit param_sharding
+    # pytrees are ported (tests/test_torch_{zero,tp,fsdp,pp,ep,
+    # param_sharding}.py); a pytree of another structure than the params is
+    # refused at fit time naming the first leaf at fault, a pp mesh refuses
+    # an sp axis with JAX's message before any rank starts, and a mesh must
+    # be a Mesh or a dict of sizes
     Trainer(spec, "input_ids", None, mesh={"ep": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported.*item 7"):
+    with pytest.raises(ValueError, match="differs from the params at "
+                                         "embed/tok"):
         Trainer(spec, "input_ids", None, mesh={"ep": 2}, device="cpu",
-                param_sharding={"embed": {}})
+                param_sharding={"embed": {}}).fit(
+                    _tokens(8, 4).astype(np.float32))
     with pytest.raises(ValueError, match="cannot combine 'pp' and 'sp'"):
         Trainer(spec, "input_ids", None, mesh={"pp": 2, "sp": 2},
                 device="cpu").fit(_tokens(8, 4).astype(np.float32))
