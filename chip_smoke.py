@@ -439,8 +439,25 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     ``python3 chip_smoke.py --phase param-sharding`` runs set-up and this
     phase alone.
 
+25. examples: every example of ``sparkflow_tpu_torch/examples`` through
+    its ``run()`` on the card, one line each (wall s, rows or tokens a
+    second, its result). The reference's three (``simple_dnn``,
+    ``cnn_example``, ``autoencoder_example``) at their own sizes, the rest
+    at their full widths with depth cut (``EXAMPLE_CUTS``; each cut
+    printed as a ``reduced`` line): ``bert_classifier`` (BERT-base) and
+    ``text_classifier`` launch kernels 1-3 in their fits and kernel 1 in
+    their transforms, ``long_context_lm`` on two launched ranks (8192
+    tokens, ring attention over sp=2) in each rank. Asserted: every loss
+    finite, the reference's three lose loss over their fit, a saved and
+    reloaded pipeline (``simple_dnn``, ``cnn_example``) predicts what the
+    in-memory one did bit for bit (at the logits), ``tf1_migration``
+    trains from ``tests/fixtures/torch_tf1/tf1_migration.json`` (no
+    TensorFlow here), and kernels 1-3 launched in the transformer
+    examples. ``python3 chip_smoke.py --phase examples`` runs set-up and
+    this phase alone.
+
 Run order: 1, 2, 9, 6, then two processes side by side: this one runs 3,
-4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, and a second one
+4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, 25, and a second one
 (``--mesh-group``, started once the kernels' times are taken) runs 18, 19,
 20, 21 on one 2-rank pool, then 23, then 24 on a 4-rank pool, its lines
 relayed here. Both are host-bound
@@ -8257,6 +8274,132 @@ def phase_param_sharding(card, work, device=None):
             "launches": {n: la[n] + lb[n] for n in PS_NAMES}}
 
 
+# run() keywords of each example on the card: the depth cuts (the JAX
+# examples' full sizes where empty); bert_classifier in full is ~41 k
+# training examples at ~116 a second
+EXAMPLE_CUTS = {
+    "simple_dnn": {}, "cnn_example": {}, "autoencoder_example": {},
+    "bert_classifier": {"rows": 256, "iters": 1},
+    "text_classifier": {"iters": 4},
+    "serving_example": {}, "quantized_serving": {},
+    "streaming_example": {},
+    "rnn_sequence": {"iters": 10},
+    "resnet_cifar": {"rows": 256, "iters": 1},
+    "tf1_migration": {},
+    "long_context_lm": {},
+}
+# what a cut stands in for: the JAX example's full size
+EXAMPLE_FULL = {"bert_classifier": {"rows": 4096, "iters": 10},
+                "text_classifier": {"iters": 40},
+                "rnn_sequence": {"iters": "60 (classifier), 40 (char LM)"},
+                "resnet_cifar": {"rows": 2048, "iters": 20}}
+# the float tensor a saved pipeline's predictions are compared at
+EXAMPLE_LOGITS = {"simple_dnn": "dense_2/BiasAdd:0",
+                  "cnn_example": "dense/BiasAdd:0"}
+
+
+def _logits_of(stage, tensor, df, device):
+    """``stage``'s model read at ``tensor`` on ``df``'s features, as a
+    numpy array (a fresh model from its Params, so the stage is kept)."""
+    import numpy as np
+    from sparkflow_tpu_torch.localml import VectorAssembler
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDLModel
+    feats = VectorAssembler(inputCols=df.columns[1:785],
+                            outputCol="features").transform(df)
+    m = SparkAsyncDLModel(
+        inputCol="features", modelJson=stage.getOrDefault(stage.modelJson),
+        modelWeights=stage.getOrDefault(stage.modelWeights), tfInput="x:0",
+        tfOutput=tensor, predictionCol="p", device=device)
+    return np.stack([np.asarray(r["p"].toArray())
+                     for r in m.transform(feats).collect()])
+
+
+def _example_line(name, res, wall):
+    if "rows_per_s" in res:
+        rate = f"{res['rows_per_s']:,.1f} rows/s"
+    elif "tokens_per_s" in res:
+        rate = f"{res['tokens_per_s']:,.1f} tokens/s"
+    else:
+        rate = f"{res['requests_per_s']:,.1f} requests/s"
+    keys = ("test_error", "accuracy", "int8_accuracy", "error_rate", "auc",
+            "perplexity", "errors", "served", "steps", "latency_ms",
+            "recompiles", "predicted_mean")
+    what = {k: res[k] for k in keys if k in res}
+    losses = res.get("losses") or []
+    if losses:
+        what["loss"] = f"{losses[0]:.4f} -> {losses[-1]:.4f}"
+    return f"{wall:.1f} s, {rate}, {json.dumps(what, default=str)}"
+
+
+def phase_examples(card, work, device=None):
+    """Phase 25: every example's ``run()`` (see the module docstring);
+    ``device="cpu"`` rehearses it at the smoke sizes, without the launch
+    counts. Returns the kernels' launches summed over the examples and
+    each example's line."""
+    import importlib
+    import numpy as np
+    from sparkflow_tpu_torch import ops
+    from sparkflow_tpu_torch.pipeline_util import PysparkPipelineWrapper
+    from sparkflow_tpu_torch.localml import PipelineModel
+    cuda = device != "cpu"
+    dev = "cuda" if cuda else "cpu"
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "torch_tf1",
+                           "tf1_migration.json")
+    total = {n: 0 for n in ops.launch_counts()}
+    lines, by_example = {}, {}
+    for name, cut in EXAMPLE_CUTS.items():
+        mod = importlib.import_module(f"sparkflow_tpu_torch.examples.{name}")
+        kw = dict(cut) if cuda else {}
+        if name == "tf1_migration":
+            kw["metagraph"] = fixture     # the card's machine has no TF
+        if cut and cuda:
+            log(f"[examples] reduced {name}: {cut} (full: "
+                f"{EXAMPLE_FULL[name]}) [{card}]")
+        d = os.path.join(work, "examples", name)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        res = mod.run(device=dev, smoke=not cuda, workdir=d, **kw)
+        wall = time.perf_counter() - t
+        counts = ops.launch_counts()
+        for k, v in res.get("launches", {}).items():  # launched ranks'
+            counts[k] = counts.get(k, 0) + v
+        for k in total:
+            total[k] += counts.get(k, 0)
+        by_example[name] = {k: v for k, v in counts.items() if v}
+        if "predicted" in res:
+            res["predicted_mean"] = float(np.mean(res["predicted"].toArray()))
+        line = _example_line(name, res, wall)
+        lines[name] = line
+        log(f"[examples] {name}: {line}; launches {by_example[name]} "
+            f"[{card}]")
+        for key in ("losses", "lm_losses", "rank_losses"):
+            vals = np.asarray(res.get(key, []), np.float64)
+            assert np.isfinite(vals).all(), (name, key, vals)
+        if name in ("simple_dnn", "cnn_example", "autoencoder_example"):
+            losses = res["losses"]
+            assert len(losses) >= 2 and losses[-1] < losses[0], (name,
+                                                                 losses)
+        if name in EXAMPLE_LOGITS:
+            stage = res["pipeline"].stages[-1]
+            loaded = PysparkPipelineWrapper.unwrap(
+                PipelineModel.load(res["path"])).stages[-1]
+            df = res["df"].limit(256)
+            a = _logits_of(stage, EXAMPLE_LOGITS[name], df, dev)
+            b = _logits_of(loaded, EXAMPLE_LOGITS[name], df, dev)
+            assert a.shape == b.shape and np.array_equal(a, b), name
+            log(f"[examples] {name}: saved and reloaded pipeline predicts "
+                f"the in-memory one's logits bit for bit ({a.shape[0]} "
+                f"rows) [{card}]")
+        if name == "tf1_migration":
+            assert res["served"] is None and res["errors"] < 30, res
+        if cuda and name in ("bert_classifier", "text_classifier",
+                             "long_context_lm"):
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                assert counts.get(k, 0) > 0, (name, counts)
+    return {"launches": total, "by_example": by_example, "lines": lines}
+
+
 def _timed(name, fn, *args):
     """``fn(*args)`` with a ``[time]`` line; the cached card memory it
     leaves is freed after it, as the other process shares the card."""
@@ -8360,7 +8503,7 @@ def main(only: str = None) -> int:
     """All phases; with ``only`` set-up and one phase alone, its summary in
     place of the kernels line: ``"spec-serving"`` (3), ``"families"`` (16),
     ``"tp-fsdp"`` (20), ``"pp"`` (21), ``"ep"`` (22), ``"tooling"``
-    (23) or ``"param-sharding"`` (24)."""
+    (23), ``"param-sharding"`` (24) or ``"examples"`` (25)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -8381,7 +8524,9 @@ def main(only: str = None) -> int:
                           lambda card: phase_tooling(card, work)),
               "param-sharding": ("param_sharding",
                                  lambda card: phase_param_sharding(card,
-                                                                   work))}
+                                                                   work)),
+              "examples": ("examples",
+                           lambda card: phase_examples(card, work))}
     if only is not None and only not in alone and only not in single:
         print(f"chip_smoke: unknown phase {only!r}; one of "
               f"{sorted(alone) + sorted(single)}", file=sys.stderr)
@@ -8433,6 +8578,7 @@ def main(only: str = None) -> int:
         tf1_hog = _timed("tf1-hogwild", phase_tf1_hogwild, card, work)
         with _timed("mesh-pool", mesh_pool) as pool:
             epr = _timed("ep", phase_ep, card, work, None, pool)
+        exr = _timed("examples", phase_examples, card, work)
         side = _timed("mesh-group wait", _join_mesh_group, group)
         mesh, stream_mesh = side["mesh"], side["stream_mesh"]
         tpf, ppr, tooling = side["tp_fsdp"], side["pp"], side["tooling"]
@@ -8555,6 +8701,9 @@ def main(only: str = None) -> int:
         # and (c) summed over the 4 ranks); the decode kernels run none
         row["param_sharding"] = {"launches": psh["launches"].get(
             row["name"], 0)}
+        # phase 25: its launches summed over the examples' runs (the
+        # long-context example's over its two ranks)
+        row["examples"] = {"launches": exr["launches"].get(row["name"], 0)}
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)

@@ -7,15 +7,18 @@
   update, and the update added to the parameters in place;
 - :func:`make_epoch_fn` — one epoch of steps in the reference's three
   batching modes (``sweep``, ``stochastic``, ``full``);
+- :func:`make_multi_epoch_fn` — ``n_epochs`` such epochs in one call;
 - :func:`make_predict_fn` / :func:`predict_in_chunks` — fixed-size chunked
   inference, dp-sharded (and tp-split) over a mesh in one process with
   ``mesh=``.
 
 Batches keep a fixed size: the dataset is padded to whole batches and a
 0/1 row mask weights the loss, so padded rows add zero loss and zero
-gradient, as in the JAX package. PyTorch runs eagerly, so there is no
-compiled epoch program and no fused multi-epoch path here: an epoch is a
-Python loop of steps (a mesh rank's step comes from :mod:`.parallel`).
+gradient, as in the JAX package. PyTorch runs eagerly, so an epoch is a
+Python loop of steps, not one compiled program (a mesh rank's step comes
+from :mod:`.parallel`), and :func:`make_multi_epoch_fn` is a loop of
+epochs that the ``Trainer`` does not use: its fit keeps its per-epoch loop
+for the host-side work between epochs.
 Shuffles and batch draws come from a CPU ``torch.Generator`` (the same
 indices on any device), dropout from a generator on the model's device.
 """
@@ -182,6 +185,32 @@ def make_epoch_fn(loss_fn: Callable, optimizer: GradientTransformation,
     return trace_probe(epoch, "epoch")
 
 
+def make_multi_epoch_fn(loss_fn: Callable, optimizer: GradientTransformation,
+                        batch_size: int, num_batches: int, mode: str,
+                        shuffle: bool, n_epochs: int,
+                        n_real: Optional[int] = None,
+                        step_fn: Optional[Callable] = None) -> Callable:
+    """``n_epochs`` whole epochs in one call: ``run(params, opt_state, data,
+    labels, mask, gens) -> (params, opt_state, losses [n_epochs,
+    num_batches])``, ``gens`` the ``(shuffle_gen, dropout_gen)`` pair of
+    :func:`make_epoch_fn`'s epoch. Every epoch draws from those generators
+    in turn, as the per-epoch loop draws from them, so the losses equal
+    ``n_epochs`` calls of the epoch function bit for bit."""
+    epoch = make_epoch_fn(loss_fn, optimizer, batch_size, num_batches, mode,
+                          shuffle, n_real=n_real, step_fn=step_fn)
+
+    def run(params, opt_state, data, labels, mask, gens):
+        shuffle_gen, dropout_gen = gens
+        losses = []
+        for _ in range(n_epochs):
+            params, opt_state, loss = epoch(params, opt_state, data, labels,
+                                            mask, shuffle_gen, dropout_gen)
+            losses.append(loss)
+        return params, opt_state, torch.stack(losses)
+
+    return run
+
+
 def pad_to_batches(x: np.ndarray, batch_size: int,
                    num_batches: Optional[int] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
@@ -341,4 +370,5 @@ def predict_in_chunks(predict_fn: Callable, params, x,
 
 __all__: Sequence[str] = (
     "make_feeds_builder", "make_loss_fn", "make_train_step", "make_epoch_fn",
-    "pad_to_batches", "make_predict_fn", "predict_in_chunks")
+    "make_multi_epoch_fn", "pad_to_batches", "make_predict_fn",
+    "predict_in_chunks")

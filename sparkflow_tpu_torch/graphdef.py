@@ -855,6 +855,14 @@ class GraphModel:
                 values[node.id] = od.eval(node, ins, ctx)
         return {o: values[t] for o, t in zip(outputs, target_ids)}
 
+    def quantize_for_serving(self, params, mode: str = "weight_only",
+                             min_size: int = 4096):
+        """int8-quantize a trained params tree for inference and set this
+        model to serve it (``utils/quant.py``). Returns the quantized tree;
+        training must keep the original full-precision params."""
+        from .utils.quant import quantize_for_serving
+        return quantize_for_serving(self, params, mode, min_size)
+
     def loss_vector(self, params: Optional[Params], feeds: Dict[str, Any],
                     train: bool = True,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:

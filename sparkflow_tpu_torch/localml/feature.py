@@ -33,9 +33,18 @@ class VectorAssembler(Transformer, HasInputCol, HasOutputCol):
         in_cols = self.getInputCols()
         out_col = self.getOrDefault(self.outputCol)
         rows = []
+        fields, idx = None, None
         for r in dataset.collect():
-            parts = [vector_to_array(r[c]) for c in in_cols]
-            vec = Vectors.dense(np.concatenate(parts))
+            if r.__fields__ != fields:  # look the columns up once per layout
+                fields = r.__fields__
+                idx = [fields.index(c) if c in fields else c for c in in_cols]
+            vals = [r.__values__[i] if isinstance(i, int) else r[i]
+                    for i in idx]
+            if all(isinstance(v, (int, float)) for v in vals):
+                vec = Vectors.dense(np.asarray(vals, dtype=np.float64))
+            else:
+                vec = Vectors.dense(np.concatenate(
+                    [vector_to_array(v) for v in vals]))
             rows.append(Row(**{**r.asDict(), out_col: vec}))
         cols = dataset.columns + ([out_col] if out_col not in dataset.columns else [])
         return DataFrame(rows, cols, dataset.num_partitions)

@@ -132,6 +132,17 @@ class RegistryModel(nn.Module):
         return self._loss(params, feeds, train=train, generator=generator,
                           **kw)
 
+    def quantize_for_serving(self, params, mode: str = "weight_only",
+                             min_size: int = 4096):
+        """int8-quantize a trained params tree for inference (families with
+        ``SUPPORTS_INT8_SERVING``; ``utils/quant.py``)."""
+        if not self.SUPPORTS_INT8_SERVING:
+            raise ValueError(
+                f"{type(self).__name__} does not support int8 serving; "
+                f"the transformer family and graphdef models do")
+        from ..utils.quant import quantize_for_serving
+        return quantize_for_serving(self, params, mode, min_size)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Logits for the model's first input tensor (``input_ids``, or a
         ResNet's ``x``)."""

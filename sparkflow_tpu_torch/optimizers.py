@@ -320,6 +320,10 @@ def _prox(w, step_size, l1, l2):
     return shrunk / (1.0 + step_size * l2)
 
 
+class ProximalAdagradState(NamedTuple):
+    accum: Tree
+
+
 def proximal_adagrad(learning_rate: float = 0.001,
                      initial_accumulator_value: float = 0.1,
                      l1_regularization_strength: float = 0.0,
@@ -334,11 +338,12 @@ def proximal_adagrad(learning_rate: float = 0.001,
             step = lr / torch.sqrt(a_new)
             return _prox(w - step * g, step, l1, l2) - w, a_new
 
-        out = tree_map(leaf, grads, state, params)
-        return (tree_map(lambda o: o[0], out), tree_map(lambda o: o[1], out))
+        out = tree_map(leaf, grads, state.accum, params)
+        return (tree_map(lambda o: o[0], out),
+                ProximalAdagradState(tree_map(lambda o: o[1], out)))
 
     return GradientTransformation(
-        lambda p: _full(p, initial_accumulator_value),
+        lambda p: ProximalAdagradState(_full(p, initial_accumulator_value)),
         _needs_params("proximal_adagrad", update))
 
 
@@ -687,6 +692,23 @@ AVAILABLE_OPTIMIZERS = (
     "adam", "rmsprop", "momentum", "adadelta", "adagrad", "gradient_descent",
     "adagrad_da", "ftrl", "proximal_adagrad", "proximal_gradient_descent",
 )
+
+#: name -> ``lr -> transformation`` with optax's defaults, as the JAX
+#: package's ``OPTIMIZER_BUILDERS`` builds each under
+#: ``inject_hyperparams`` (the vmapped sweep, :mod:`.parallel.hyper`);
+#: unknown names fall back to sgd there
+OPTIMIZER_BUILDERS = {
+    "adam": adam,
+    "rmsprop": lambda lr: rmsprop(lr, decay=0.9, eps=1e-8, momentum=None),
+    "momentum": lambda lr: sgd(lr, momentum=0.9),
+    "adadelta": lambda lr: adadelta(lr, rho=0.9, eps=1e-6),
+    "adagrad": lambda lr: adagrad(lr, initial_accumulator_value=0.1),
+    "gradient_descent": sgd,
+    "ftrl": ftrl,
+    "adagrad_da": adagrad_da,
+    "proximal_adagrad": proximal_adagrad,
+    "proximal_gradient_descent": proximal_gradient_descent,
+}
 
 
 def build_optimizer_from_json(optimizer_name: str,

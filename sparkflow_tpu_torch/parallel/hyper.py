@@ -27,6 +27,7 @@ from torch.utils import _pytree as pytree
 
 from .. import optimizers as O
 from ..core import make_loss_fn, pad_to_batches
+from ..optimizers import OPTIMIZER_BUILDERS
 from .dp import fold_in
 
 
@@ -44,22 +45,6 @@ class HyperResult:
         self.best_index = int(best_index)
         self.best_learning_rate = self.learning_rates[self.best_index]
         self.best_params = best_params
-
-
-#: the JAX package's ``OPTIMIZER_BUILDERS``: each name's optax constructor
-#: with optax's defaults, as ``inject_hyperparams`` builds it
-OPTIMIZER_BUILDERS = {
-    "adam": O.adam,
-    "rmsprop": lambda lr: O.rmsprop(lr, decay=0.9, eps=1e-8, momentum=None),
-    "momentum": lambda lr: O.sgd(lr, momentum=0.9),
-    "adadelta": lambda lr: O.adadelta(lr, rho=0.9, eps=1e-6),
-    "adagrad": lambda lr: O.adagrad(lr, initial_accumulator_value=0.1),
-    "gradient_descent": O.sgd,
-    "ftrl": O.ftrl,
-    "adagrad_da": O.adagrad_da,
-    "proximal_adagrad": O.proximal_adagrad,
-    "proximal_gradient_descent": O.proximal_gradient_descent,
-}
 
 
 def _injectable(optimizer_name: str):

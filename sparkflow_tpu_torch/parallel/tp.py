@@ -10,12 +10,12 @@ each leaf by its spec (:func:`shard_params`); :func:`gather_params` is the
 collective that returns the standard layout. The optimizer state is built
 on the local leaves, so it inherits their placement as JAX's does.
 
-There is no counterpart of JAX's ``make_sharded_train_step`` (a jitted
-GSPMD step). Its counterpart is the per-rank step of
-:func:`~sparkflow_tpu_torch.parallel.dp.make_param_sharded_train_step`: a
-``tp`` model runs the Megatron forward (column-parallel qkv and fc1,
-row-parallel o and fc2, one all-reduce after each,
-:func:`~sparkflow_tpu_torch.parallel.collectives.tp_enter` /
+JAX's ``make_sharded_train_step`` (a jitted GSPMD step) is
+:func:`make_sharded_train_step` here: the per-rank step of
+:func:`~sparkflow_tpu_torch.parallel.dp.make_param_sharded_train_step` on
+the model's own spec tree. A ``tp`` model runs the Megatron forward
+(column-parallel qkv and fc1, row-parallel o and fc2, one all-reduce after
+each, :func:`~sparkflow_tpu_torch.parallel.collectives.tp_enter` /
 :func:`~sparkflow_tpu_torch.parallel.collectives.tp_exit`); an fsdp model
 gathers each sharded leaf just in time (:func:`gathered_params`, whose
 backward reduce-scatters).
@@ -184,6 +184,36 @@ def qkv_permutation(num_heads: int, head_dim: int, tp: int) -> torch.Tensor:
 
 def _is_attention_block(sub) -> bool:
     return isinstance(sub, dict) and "qkv_kernel" in sub
+
+
+def make_sharded_train_step(model, optimizer, mesh, input_name: str,
+                            label_name: Optional[str], dp_axis: str = "dp"):
+    """The per-rank train step of a fit whose parameters shard by the
+    model's own spec tree (:func:`derive_param_pspecs`: Megatron rules on a
+    ``tp`` / ``ep`` mesh, :func:`fsdp_pspecs` on an ``fsdp`` one, replicated
+    otherwise), the batch over ``dp_axis``. Inside the bound mesh:
+
+        step = make_sharded_train_step(model, optimizer, mesh, 'input_ids', 'y')
+        params = step.placement.place(model.init(seed=0))   # this rank's slices
+        opt_state = optimizer.init(params)                  # inherits placement
+        params, opt_state, loss = step(params, opt_state, x, y, mask, seed)
+
+    ``x`` / ``y`` / ``mask`` are this rank's rows over ``dp_axis``, ``seed``
+    an int for dropout, ``loss`` the global masked mean;
+    ``step.placement.gather(params)`` (a collective) returns the standard
+    layout."""
+    from ..sharding import ShardingConfig
+    from .dp import make_param_sharded_train_step
+    template = {ln: {pn: torch.empty(shape, device="meta")
+                     for pn, (shape, _init) in layer.items()}
+                for ln, layer in model.param_specs().items()}
+    pspecs = derive_param_pspecs(model, mesh) or {
+        ln: {pn: P() for pn in layer} for ln, layer in template.items()}
+    step = make_param_sharded_train_step(
+        model, optimizer, mesh, input_name, label_name, pspecs, template,
+        sharding=ShardingConfig(data_axis=dp_axis))
+    step.placement = ParamPlacement(model, mesh, pspecs, template)
+    return step
 
 
 def tp_pack_params(model, params, tp: int, *, divide_biases: bool = True):
@@ -847,7 +877,8 @@ def shard_bytes(tree) -> int:
 __all__ = ["COMPUTE_AXES", "EPShards", "ParamPlacement", "PlacementPlan",
            "TPShards", "check_pspec_tree", "derive_param_pspecs",
            "filter_pspec", "filtered_pspecs", "fsdp_pspecs", "gather_params",
-           "gathered_params", "leaf_slice", "qkv_permutation",
+           "gathered_params", "leaf_slice", "make_sharded_train_step",
+           "qkv_permutation",
            "rename_pspec_axes", "serving_pspecs", "serving_tree",
            "shard_bytes",
            "shard_of", "shard_params", "shards_of", "sharded_dims",

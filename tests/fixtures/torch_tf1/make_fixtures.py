@@ -12,6 +12,10 @@ format (``sparkflow/graph_utils.py:6-15``):
   ``tf.layers``' default), ``out`` = argmax;
 - ``autoencoder.json``: ``examples/autoencoder_example.py``, 784 -> 256 ->
   128 (``out/Sigmoid``) -> 256 -> 784, mean squared error against the input.
+- ``tf1_migration.json``: the MetaGraphDef of
+  ``sparkflow_tpu_torch/examples/tf1_migration.py``'s
+  ``make_legacy_artifacts`` (2 -> 12 relu -> 1, ``out_act`` = sigmoid, log
+  loss), which that example trains from on a machine without TensorFlow.
 
 Layers are built from ``get_variable`` + ``matmul`` / ``conv2d`` with glorot
 kernels and zero biases (``tf.layers`` is gone under Keras 3); the JSON
@@ -100,3 +104,12 @@ if __name__ == "__main__":
         with open(path, "w") as f:
             f.write(export(build))
         print(path, os.path.getsize(path))
+    import sys
+    import tempfile
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
+    from sparkflow_tpu_torch.examples.tf1_migration import (
+        make_legacy_artifacts)
+    path = os.path.join(HERE, "tf1_migration.json")
+    with tempfile.TemporaryDirectory() as tmp, open(path, "w") as f:
+        f.write(make_legacy_artifacts(tmp)[0])
+    print(path, os.path.getsize(path))

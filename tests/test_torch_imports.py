@@ -69,7 +69,11 @@ SUBPACKAGES = ["sparkflow_tpu_torch", "sparkflow_tpu_torch.device",
                "sparkflow_tpu_torch.analysis.cli",
                "sparkflow_tpu_torch.analysis.runtime_guards",
                "sparkflow_tpu_torch.analysis.fx_lint",
-               "sparkflow_tpu_torch.utils.tracing"]
+               "sparkflow_tpu_torch.utils.tracing",
+               "sparkflow_tpu_torch.examples"] + [
+    "sparkflow_tpu_torch.examples." + f[:-3]
+    for f in sorted(os.listdir(os.path.join(PORT, "examples")))
+    if f.endswith(".py") and f != "__init__.py"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():

@@ -477,6 +477,31 @@ def sharded_step(spec, axes, p0, x, y, lr=0.1, fsdp_min_size=None,
                 "local_bytes": local_bytes}
 
 
+def public_sharded_step(spec, axes, p0, x, y, lr=0.1):
+    """One gradient-descent step of ``parallel.tp.make_sharded_train_step``
+    (the model's own specs) from the standard ``p0``, on this rank's dp
+    block of the rows: the loss and the gathered standard params."""
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.optimizers import build_optimizer, tree_map
+    from sparkflow_tpu_torch.parallel.tp import make_sharded_train_step
+    m = _mesh(axes)
+    model = model_from_json(spec, device="cpu")
+    opt = build_optimizer("gradient_descent", lr, None)
+    with m.bind():
+        step = make_sharded_train_step(model, opt, m, "input_ids", "y")
+        params = tree_map(lambda t: t.requires_grad_(True),
+                          step.placement.place(_tree_t(p0)))
+        dpn = m.shape.get("dp", 1)
+        di = m.axis_index("dp") if "dp" in m.shape else 0
+        b = x.shape[0] // dpn
+        rows = slice(di * b, (di + 1) * b)
+        params, _, loss = step(params, opt.init(params),
+                               torch.tensor(x[rows]), torch.tensor(y[rows]),
+                               torch.ones(b), 0)
+        return {"loss": float(loss),
+                "params": _tree_np(step.placement.gather(params))}
+
+
 def tp_grads(spec, axes, p0, feeds):
     """The masked-mean loss and its gradient (standard layout) through the
     Megatron forward on this rank's tp slices — no optimizer, no dp sum."""
