@@ -456,11 +456,60 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     examples. ``python3 chip_smoke.py --phase examples`` runs set-up and
     this phase alone.
 
+26. serving-ops: the serving plane's operations layer on phase 15 (d)'s
+    GPT-2-small decode replicas (bf16, ``DecodeEngine(num_slots=8,
+    page_size=16)``, booted from an ``ExecutableStore`` this process
+    fills), three processes spawned together by a ``ReplicaManager``: one
+    whose every prefill stalls 1.2 s, one plain, one with a
+    ``WeightWatcher`` polling a ``WeightStore`` every 0.2 s. (a)
+    ``RouterServer(hedge=True, hedge_delay_ms=100, trace_sample=0.0)``
+    over the stalled and the plain replica: one generate of a 256-token
+    prompt, 32 new tokens, under a client-minted ``traceparent``; its
+    trace, read back through ``GET /traces/<id>``, is kept as ``hedged``,
+    spans 3 processes with dispatches labelled ``loser`` and ``winner``
+    (the plain replica), a ``serving/request`` under each dispatch, at
+    least 32 ``serving/decode_tick`` spans, children no earlier than
+    their parents (0.05 s skew), and the tokens equal this process's own
+    engine's. Then a second traced request goes straight to the stalled
+    replica and, its flight ``begin`` line on disk, the manager SIGKILLs
+    it: the harvest names that trace id alone; the plain replica is
+    drained by SIGTERM: it dumps its flight record, exits 0 and reports
+    12 ``flash_fwd`` a prefill, 12 ``paged_attention`` a decode step and
+    nothing else. Printed: the trace's span count, TTFT through the
+    router (from ``router/request`` to the winner's
+    ``serving/decode_admit`` end) and the winner's ``decode_tick`` p50 /
+    p95 ms (host clock). (b) 8 closed-loop clients on the watched
+    replica, at least 4 greedy generates each (64-512-token prompts, 32
+    new tokens), on until version 2 has failed (at most 16 each). After
+    the first answer version 1 (weights from seed 1) is published; once
+    ``/healthz`` serves it, a version 2 (seed 2), damaged on disk once
+    committed (``faults.corrupt_latest_weights``; the replica waits 3 s
+    before reading a version past the first, which orders the damage
+    first, and the damage must take under half of that). Asserted: no client failure; ``/healthz`` moves 0 -> 1 once;
+    version 2 under ``pull_failures`` / ``failed_versions``; each of a
+    client's first 8 answers equals this process's engine's tokens on
+    version 0 or on version 1, and some on version 1; 8 more prompts
+    after the swap equal an engine cold-started on version 1; a SIGTERM
+    with a generation in flight completes it and exits 0, with the
+    launches of (a). Printed: seconds from the publish to the first
+    answer on version 1. (c) In this process, the engine on the card
+    behind a ``ContinuousBatcher``, under ``RaceTracker``
+    (``examples/race_smoke.py``'s fields, locks wrapped) and
+    ``ResourceTracker``: 4 clients x 4 generates (64-256-token prompts,
+    8-32 new tokens), each client's second half held until
+    ``begin_drain()`` has come after the first token and a post-drain
+    submit was refused. Asserted: no lockset finding, balanced
+    resources, every accepted future resolved, tokens equal two untracked
+    runs' (one before the tracked run, one after), launches as in (a).
+    Printed: the tracked fields, acquired / released, tokens/s tracked
+    and untracked (the trackers' cost, a reading). ``python3 chip_smoke.py --phase serving-ops`` runs set-up
+    and this phase alone.
+
 Run order: 1, 2, 9, 6, then two processes side by side: this one runs 3,
 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, 25, and a second one
 (``--mesh-group``, started once the kernels' times are taken) runs 18, 19,
-20, 21 on one 2-rank pool, then 23, then 24 on a 4-rank pool, its lines
-relayed here. Both are host-bound
+20, 21 on one 2-rank pool, then 23, then 24 on a 4-rank pool, then 26,
+its lines relayed here. Both are host-bound
 (the card idles most of their time), so together they take about the
 longer one's time; a phase's throughput in this run is taken with the
 other process sharing the card and the host, and ``--phase NAME`` gives
@@ -3082,12 +3131,33 @@ def _replica_predict_engine(cfg, status):
     return eng, watcher
 
 
+def _replica_decode_watcher(cfg, eng):
+    """Phase 26 (b)'s ``WeightWatcher`` over ``cfg["gen_store"]``. Its pull
+    of any version past the first waits ``cfg["late_pull_s"]``: the phase
+    damages its second version a few ms after the commit, and the wait
+    orders the damage before this process reads it (the CPU test arms the
+    ``weights.pull`` fault point for the same end)."""
+    from sparkflow_tpu_torch.serving import WeightStore, WeightWatcher
+    store = WeightStore(cfg["gen_store"])
+    load, late = store.load, cfg.get("late_pull_s", 0.0)
+
+    def late_load(*a, version=None, **kw):
+        if late and version is not None and version > 1:
+            time.sleep(late)
+        return load(*a, version=version, **kw)
+
+    store.load = late_load
+    return WeightWatcher(store, [eng], poll_interval_s=cfg["poll_s"])
+
+
 def run_replica(kind: str, port: int) -> int:
     """One fleet replica (``python3 chip_smoke.py --replica KIND PORT``):
     the port's ``InferenceServer`` over a BERT-base predict engine or a
     GPT-2-small decode engine, until SIGTERM drains it. Its status file
     carries the boot tier, the ready and first-answer times and, at exit,
-    the launch counts of what it served."""
+    the launch counts of what it served. A decode replica's config may
+    stall each prefill (``stall_s``) and give it a ``WeightWatcher`` over
+    a store (``gen_store``, ``poll_s``, ``late_pull_s``)."""
     with open(os.environ["CHIP_SMOKE_REPLICA"]) as f:
         cfg = json.load(f)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3127,9 +3197,11 @@ def run_replica(kind: str, port: int) -> int:
         params = model.init(torch.Generator().manual_seed(0))
         eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0,
                            executable_dir=cfg["exe"])
-        first = eng.prefill
+        first, stall = eng.prefill, cfg.get("stall_s", 0.0)
 
         def prefill(*a, **kw):
+            if stall:
+                time.sleep(stall)     # phase 26's straggler
             out = first(*a, **kw)
             if "t_first_answer" not in status:
                 status["t_first_answer"] = time.time()   # its first token
@@ -3137,10 +3209,13 @@ def run_replica(kind: str, port: int) -> int:
             return out
 
         eng.prefill = prefill
+        watcher = (_replica_decode_watcher(cfg, eng)
+                   if cfg.get("gen_store") else None)
         srv = InferenceServer(None, port=port,
                               generate_batcher=ContinuousBatcher(
                                   eng, max_queue=64),
-                              memory_watch=False, flight_dir=cfg["out"])
+                              memory_watch=False, weight_watcher=watcher,
+                              flight_dir=cfg["out"])
     status["boot"] = eng.boot
     status["t_engine"] = time.time()
     calls0 = eng.metrics.histograms().get(
@@ -3159,7 +3234,9 @@ def run_replica(kind: str, port: int) -> int:
                       "serving/engine_batch_rows", {}).get("count", 0)
                   - calls0,
                   steps=st.get("steps"), prefills=st.get("prefills"),
-                  serving_version=st.get("serving_version"))
+                  serving_version=st.get("serving_version"),
+                  weights=(srv.weight_watcher.stats()
+                           if srv.weight_watcher is not None else None))
     _write_status(status_path, status)
     return 0
 
@@ -4506,6 +4583,7 @@ def _tf1_step_profile(mg, cfg, x, y, device):
     the step's host ms."""
     import torch
     import sparkflow_tpu_torch.core as core
+    from torch.autograd import DeviceType
     from sparkflow_tpu_torch.models import model_from_json
     from sparkflow_tpu_torch.optimizers import build_optimizer
     name, _out, sup, batch = cfg[:4]
@@ -4524,11 +4602,19 @@ def _tf1_step_profile(mg, cfg, x, y, device):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        params, state, loss = step(params, state, xb, yb, mask)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    for attempt in (1, 2):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, xb, yb, mask)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if attempt == 2 or any(e.device_type == DeviceType.CUDA
+                               for e in prof.events()):
+            break
+        # the step ran on the card, but CUPTI delivered no device event
+        # once in a full run beside the other process: profile it again
+        log(f"[tf1] {name}: the profiler recorded no device event; "
+            f"profiling the step again")
     return _device_profile(prof, wall_ms, 1)
 
 
@@ -8400,6 +8486,636 @@ def phase_examples(card, work, device=None):
     return {"launches": total, "by_example": by_example, "lines": lines}
 
 
+# -- phase 26: the serving plane's operations layer ---------------------------
+#
+# Phase 15 (d)'s GPT-2-small decode replicas (bf16, 8 slots, page 16, booted
+# from the kernel store) with the operations layer on: (a) a hedge around a
+# stalled replica, its trace assembled over three processes, and the flight
+# records of a crash and of a drain harvested by a ReplicaManager; (b) a
+# replica's WeightWatcher under a good and a damaged publication; (c) the
+# lockset race detector and the resource tracker around a batcher on the
+# card.
+OPS_STALL_S = 1.2          # (a) the straggler's stall before each prefill
+OPS_HEDGE_MS = 100.0
+OPS_TRACE_LEN = 256        # (a) the traced prompt
+OPS_NEW = 32               # new tokens of each generate in (a) and (b)
+OPS_PUB_CLIENTS = 8        # (b) closed-loop clients
+OPS_PUB_MIN = 4            # (b) a client's generates at least ...
+OPS_PUB_MAX = 16           # ... and at most (it stops once v2 has failed)
+OPS_PUB_REF = 8            # (b) a client's first generates with v0 / v1 refs
+OPS_PUB_LENS = (64, 512)
+OPS_POLL_S = 0.2           # (b) the replica's WeightWatcher
+OPS_LATE_PULL_S = 3.0      # (b) its wait before reading a version past 1
+OPS_RACE_CLIENTS = 4       # (c)
+OPS_RACE_EACH = 4
+OPS_RACE_LENS = (64, 256)
+OPS_RACE_NEW = (8, 32)
+# (c) the fields examples/race_smoke.py puts under lockset tracking
+OPS_RACE_FIELDS = {"engine": ("_steps", "_tokens_out", "_prefills"),
+                   "kv": ("_prefix_lookups", "_prefix_hits",
+                          "_tokens_saved")}
+
+
+def _ops_prompts(rng, n, lens, vocab):
+    return [rng.integers(0, vocab, int(rng.integers(lens[0], lens[1] + 1)))
+            .tolist() for _ in range(n)]
+
+
+def _ops_refs(eng, prompts, n):
+    """Greedy tokens of each prompt, a slot's worth at a time."""
+    out = []
+    for i in range(0, len(prompts), eng.num_slots):
+        out += _greedy(eng, prompts[i:i + eng.num_slots], n)
+    return out
+
+
+def _flight_seen(path, event, trace_id):
+    """Whether the flight file at ``path`` holds ``event`` for the trace."""
+    try:
+        with open(path) as f:
+            text = f.read()
+    except OSError:
+        return False
+    return f'"event":"{event}","trace_id":"{trace_id}"' in text
+
+
+def _ops_outcomes(trace):
+    return sorted((s.get("args") or {}).get("outcome", "")
+                  for s in trace["spans"] if s["name"] == "router/dispatch")
+
+
+def _ops_trace_checks(trace, ctx, plain_url):
+    """CPU test (b)'s assertions on the assembled trace; returns the
+    winning replica's process fingerprint."""
+    spans = trace["spans"]
+    names = [s["name"] for s in spans]
+    if not (trace["trace_id"] == ctx.trace_id
+            and trace["reason"] == "hedged"
+            and len(trace["processes"]) == 3
+            and _ops_outcomes(trace) == ["loser", "winner"]
+            and {"router/request", "serving/request",
+                 "serving/decode_admit"} <= set(names)
+            and names.count("serving/decode_tick") >= OPS_NEW):
+        raise AssertionError(f"the hedged trace is not whole: reason "
+                             f"{trace.get('reason')}, processes "
+                             f"{trace.get('processes')}, outcomes "
+                             f"{_ops_outcomes(trace)}, names "
+                             f"{sorted(set(names))}")
+    ts = [s["ts"] for s in spans]
+    by_id = {s["span_id"]: s for s in spans}
+    late = [(s["name"], by_id[s["parent_id"]]["name"]) for s in spans
+            if s.get("parent_id") in by_id
+            and s["ts"] < by_id[s["parent_id"]]["ts"] - 0.05]
+    if ts != sorted(ts) or late:
+        raise AssertionError(f"spans out of order: {late}")
+    dispatch = {s["span_id"]: s for s in spans
+                if s["name"] == "router/dispatch"}
+    roots = {s.get("parent_id") for s in spans
+             if s["name"] == "serving/request"}
+    if not (roots and roots <= set(dispatch) and len(roots) == 2):
+        raise AssertionError(f"serving/request roots {roots} are not two "
+                             f"distinct dispatches")
+    winner = [d for d in dispatch.values()
+              if d["args"].get("outcome") == "winner"][0]
+    if winner["args"]["replica"] != plain_url:
+        raise AssertionError(f"the stalled replica won: {winner}")
+    return [s["process"] for s in spans if s["name"] == "serving/request"
+            and s["parent_id"] == winner["span_id"]][0]
+
+
+def _ops_hedge(card, rm, rep, out, prompts, want, layers, cuda):
+    """(a): the hedged trace, then the stalled replica's crash and the
+    plain one's drain, both harvested."""
+    import numpy as np
+    from sparkflow_tpu_torch.obs.spans import TraceContext, Tracer
+    from sparkflow_tpu_torch.serving import RouterServer, ServingClient
+    stalled, plain = rep["stalled"], rep["plain"]
+    # first-use costs (each GEMM shape's lazy module load) are paid on a
+    # prompt of the traced one's length that shares no page with it
+    for r, p in ((stalled, prompts["warm"][0]), (plain, prompts["warm"][1])):
+        c = ServingClient(r.url, retries=0, timeout=300)
+        c.generate(p, max_new_tokens=2)
+        c.close()
+    router = RouterServer([stalled.url, plain.url], probe_interval_s=60.0,
+                          hedge=True, hedge_delay_ms=OPS_HEDGE_MS,
+                          dispatch_retries=1, tracer=Tracer(),
+                          trace_sample=0.0).start()
+    try:
+        ctx = TraceContext.mint()
+        cli = ServingClient(router.url, retries=0, timeout=300)
+        t = time.perf_counter()
+        r = cli.generate(prompts["trace"], max_new_tokens=OPS_NEW,
+                         traceparent=ctx)
+        request_ms = (time.perf_counter() - t) * 1e3
+        cli.close()
+        if r["tokens"] != want:
+            raise AssertionError("the hedged generate's tokens differ from "
+                                 "this process's engine's")
+        if ctx.trace_id not in router.collector.trace_ids():
+            raise AssertionError("the router did not keep the hedged trace")
+        probe = ServingClient(router.url, retries=0, timeout=60)
+        deadline = time.time() + 60
+        while True:
+            trace = probe._request(f"/traces/{ctx.trace_id}")
+            if (_ops_outcomes(trace) == ["loser", "winner"]
+                    or time.time() > deadline):
+                break
+            time.sleep(0.1)
+        probe.close()
+    finally:
+        router.stop()
+    wproc = _ops_trace_checks(trace, ctx, plain.url)
+    spans = trace["spans"]
+    t_req = min(s["ts"] for s in spans if s["name"] == "router/request")
+    admit = [s for s in spans if s["name"] == "serving/decode_admit"
+             and s["process"] == wproc][0]
+    ticks = [s["duration_s"] * 1e3 for s in spans
+             if s["name"] == "serving/decode_tick" and s["process"] == wproc]
+    trace_row = {"spans": len(spans), "processes": len(trace["processes"]),
+                 "reason": trace["reason"], "outcomes": _ops_outcomes(trace),
+                 "decode_ticks": sum(s["name"] == "serving/decode_tick"
+                                     for s in spans),
+                 "winner_decode_ticks": len(ticks),
+                 "ttft_ms_through_router": (admit["ts"] + admit["duration_s"]
+                                            - t_req) * 1e3,
+                 "request_ms": request_ms,
+                 "replica_timing_ms": r.get("timing_ms"),
+                 "decode_tick_ms_p50": float(np.percentile(ticks, 50)),
+                 "decode_tick_ms_p95": float(np.percentile(ticks, 95)),
+                 "tokens_identical_to_phase_engine": True, "card": card}
+
+    # the crash: a second traced request straight to the stalled replica,
+    # SIGKILLed once its begin line is on disk (the hedge's loser leg
+    # ended first, so the harvest must name this trace alone)
+    path = os.path.join(out, f"replica-{stalled.port}.jsonl")
+    _wait(lambda: _flight_seen(path, "end", ctx.trace_id), 60,
+          "the hedge loser's end line")
+    ctx2 = TraceContext.mint()
+
+    def doomed():
+        c = ServingClient(stalled.url, retries=0, timeout=60)
+        try:
+            c.generate(prompts["crash"], max_new_tokens=OPS_NEW,
+                       traceparent=ctx2)
+        except Exception:  # noqa: BLE001 - killed under it: the point
+            pass
+        finally:
+            c.close()
+
+    th = threading.Thread(target=doomed, daemon=True)
+    th.start()
+    _wait(lambda: _flight_seen(path, "begin", ctx2.trace_id), 60,
+          "the doomed request's begin line")
+    rm.destroy(stalled, reason="crash")
+    th.join(timeout=60)
+    reports = {x["replica_url"]: x for x in rm.flight_reports}
+    crash = reports[stalled.url]
+    if (crash["dumped"] or crash["harvest_reason"] != "crash"
+            or crash["inflight_trace_ids"] != [ctx2.trace_id]):
+        raise AssertionError(f"the crash's harvest: {crash}")
+
+    # the drain: SIGTERM, a dump, exit 0
+    proc = rm._managed[plain.index].proc
+    rm.drain(plain, reason="scale-down")
+    drained = {x["replica_url"]: x for x in rm.flight_reports}[plain.url]
+    if (proc.returncode != 0 or not drained["dumped"]
+            or not str(drained.get("reason")).startswith("signal:")
+            or drained["inflight_trace_ids"]):
+        raise AssertionError(f"the drained replica exited "
+                             f"{proc.returncode}, harvest {drained}")
+    launches = _served_launches(out, [plain.port], cuda, "generate", layers)
+    flight_row = {"crash": {"inflight_trace_ids": crash["inflight_trace_ids"],
+                            "begins": crash["begins"], "ends": crash["ends"],
+                            "dumped": crash["dumped"]},
+                  "drain": {"exit": proc.returncode,
+                            "reason": drained["reason"],
+                            "begins": drained["begins"],
+                            "dumped_spans": len(drained.get("spans", []))},
+                  "launches": launches, "card": card}
+    return trace_row, flight_row, launches
+
+
+def _ops_publish(card, rm, watched, out, store_dir, trees, prompts, refs,
+                 layers, cuda):
+    """(b): a closed-loop burst on the watched replica while version 1 is
+    published and then a version 2 damaged once committed; a drain with a
+    generation in flight."""
+    from sparkflow_tpu_torch.obs.spans import TraceContext
+    from sparkflow_tpu_torch.resilience import faults
+    from sparkflow_tpu_torch.serving import ServingClient, WeightStore
+    store = WeightStore(store_dir)
+    url = watched.url
+    for p in prompts["warm"]:
+        c = ServingClient(url, retries=0, timeout=300)
+        c.generate(p, max_new_tokens=2)
+        c.close()
+    answers, errors, versions = [], [], []
+    stop_clients, stop_sampler = threading.Event(), threading.Event()
+
+    def client(k):
+        c = ServingClient(url, retries=0, timeout=300)
+        for j, p in enumerate(prompts["burst"][k]):
+            if j >= OPS_PUB_MIN and stop_clients.is_set():
+                break
+            try:
+                r = c.generate(p, max_new_tokens=OPS_NEW)
+                if r["num_tokens"] != OPS_NEW or \
+                        r["finish_reason"] != "length":
+                    errors.append(f"client {k}: bad completion {r}")
+                answers.append((k, j, r["tokens"], time.perf_counter()))
+            except Exception as e:  # noqa: BLE001 - every failure counted
+                errors.append(f"client {k}: {type(e).__name__}: {e}")
+        c.close()
+
+    def sampler():
+        c = ServingClient(url, retries=0, timeout=30)
+        while not stop_sampler.is_set():
+            try:
+                w = c.healthz(timeout_s=10.0)["weights"]
+                versions.append((time.perf_counter(),
+                                 int(w["serving_version"])))
+            except Exception as e:  # noqa: BLE001 - counted
+                errors.append(f"healthz: {type(e).__name__}: {e}")
+            time.sleep(0.02)
+        c.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(OPS_PUB_CLIENTS)]
+    monitor = threading.Thread(target=sampler)
+    monitor.start()
+    for t in threads:
+        t.start()
+    try:
+        _wait(lambda: answers, 300, "the burst's first answer")
+        t_pub = time.perf_counter()
+        if store.publish(trees[1]) != 1:
+            raise AssertionError("the store's first version is not 1")
+        publish_s = time.perf_counter() - t_pub
+        _wait(lambda: any(v == 1 for _t, v in versions), 120,
+              "the replica serving version 1")
+        if store.publish(trees[2]) != 2:
+            raise AssertionError("the store's second version is not 2")
+        t2 = time.perf_counter()
+        faults.corrupt_latest_weights(store_dir, mode="flip")
+        damaged_after_commit_s = time.perf_counter() - t2
+        if damaged_after_commit_s > OPS_LATE_PULL_S / 2:
+            raise AssertionError(f"the damage took {damaged_after_commit_s}"
+                                 f" s: the replica may have read version 2 "
+                                 f"whole")
+        probe = ServingClient(url, retries=0, timeout=30)
+        _wait(lambda: probe.healthz()["weights"]["pull_failures"] > 0, 120,
+              "the replica's pull of the damaged version 2")
+        weights = probe.healthz()["weights"]
+        probe.close()
+    finally:
+        stop_clients.set()
+        for t in threads:
+            t.join(timeout=600)
+        stop_sampler.set()
+        monitor.join(timeout=60)
+    if errors:
+        raise AssertionError(f"{len(errors)} client-visible failures: "
+                             f"{errors[:3]}")
+    seen = [v for i, (_t, v) in enumerate(versions)
+            if i == 0 or v != versions[i - 1][1]]
+    if seen != [0, 1] or weights["serving_version"] != 1 or \
+            weights["pull_failures"] != 1 or \
+            weights["failed_versions"] != [2]:
+        raise AssertionError(f"versions seen {seen}, watcher {weights}")
+    # every answer with a reference is one version's, whole
+    under = {0: 0, 1: 0}
+    first_v1 = None
+    for k, j, toks, t_done in answers:
+        if j >= OPS_PUB_REF:
+            continue
+        if toks == refs["v1"][k][j] and toks != refs["v0"][k][j]:
+            under[1] += 1
+            first_v1 = t_done if first_v1 is None else min(first_v1, t_done)
+        elif toks == refs["v0"][k][j]:
+            under[0] += 1
+        else:
+            raise AssertionError(f"client {k} generate {j} matches neither "
+                                 f"version's tokens")
+    if not under[1]:
+        raise AssertionError("no burst answer came from version 1")
+
+    # after the swap: a DecodeEngine cold-started on version 1 decodes the
+    # same
+    got = [None] * len(prompts["post"])
+
+    def one(i):
+        c = ServingClient(url, retries=0, timeout=300)
+        got[i] = c.generate(prompts["post"][i], max_new_tokens=OPS_NEW)
+        c.close()
+
+    ths = [threading.Thread(target=one, args=(i,))
+           for i in range(len(got))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=300)
+    if [g["tokens"] for g in got] != refs["post"]:
+        raise AssertionError("post-swap tokens differ from a cold engine on "
+                             "version 1")
+
+    # the drain: SIGTERM with a generation in flight, which completes
+    ctx = TraceContext.mint()
+    rider = {}
+
+    def ride():
+        c = ServingClient(url, retries=0, timeout=300)
+        rider["out"] = c.generate(prompts["rider"], max_new_tokens=OPS_NEW,
+                                  traceparent=ctx)
+        c.close()
+
+    th = threading.Thread(target=ride)
+    th.start()
+    path = os.path.join(out, f"replica-{watched.port}.jsonl")
+    _wait(lambda: _flight_seen(path, "begin", ctx.trace_id), 60,
+          "the rider's begin line")
+    proc = rm._managed[watched.index].proc
+    rm.drain(watched, reason="scale-down")
+    th.join(timeout=120)
+    if proc.returncode != 0 or rider.get("out", {}).get("tokens") != \
+            refs["rider"]:
+        raise AssertionError(f"the drain: exit {proc.returncode}, rider "
+                             f"{rider.get('out')}")
+    launches = _served_launches(out, [watched.port], cuda, "generate",
+                                layers)
+    status = _read_status(out, watched.port) or {}
+    return {"answers": len(answers), "under_v0": under[0],
+            "under_v1": under[1], "unreferenced": sum(
+                j >= OPS_PUB_REF for _k, j, _t, _d in answers),
+            "publish_s": publish_s,
+            "publish_to_first_v1_answer_s": first_v1 - t_pub,
+            "damaged_after_commit_s": damaged_after_commit_s,
+            "versions_seen": seen, "watcher": weights,
+            "replica_serving_version_at_exit":
+                status.get("serving_version"),
+            "post_swap_tokens_identical_to_cold_v1": True,
+            "drain_rider_tokens": rider["out"]["num_tokens"],
+            "exit": proc.returncode, "launches": launches,
+            "card": card}, launches
+
+
+def _ops_race_burst(eng, prompts, budgets, batcher_hook=None):
+    """(c)'s traffic on one engine: each client submits half its requests,
+    the drain begins after the first token, a post-drain submit is
+    refused, and the clients' other halves are refused too."""
+    from sparkflow_tpu_torch.serving import ContinuousBatcher, Draining
+    batcher = ContinuousBatcher(eng, max_queue=64)
+    if batcher_hook is not None:
+        batcher_hook(batcher)
+    accepted, refused, mu = {}, [], threading.Lock()
+    half = threading.Barrier(OPS_RACE_CLIENTS + 1)
+    go = threading.Event()
+
+    def client(k):
+        for j in range(OPS_RACE_EACH):
+            if j == OPS_RACE_EACH // 2:
+                half.wait(timeout=120)
+                go.wait(timeout=120)
+            try:
+                f = batcher.submit(prompts[k][j], max_new_tokens=budgets[k][j])
+                with mu:
+                    accepted[k, j] = f
+            except Draining:
+                with mu:
+                    refused.append((k, j))
+
+    tokens0 = eng.stats()["tokens_out"]
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(OPS_RACE_CLIENTS)]
+    for t in threads:
+        t.start()
+    half.wait(timeout=120)
+    _wait(lambda: eng.stats()["tokens_out"] > tokens0, 120, "a first token")
+    batcher.begin_drain()
+    try:
+        batcher.submit([1, 2, 3], max_new_tokens=2)
+        raise AssertionError("a post-drain submit was accepted")
+    except Draining:
+        pass
+    go.set()
+    for t in threads:
+        t.join(timeout=120)
+    if not batcher.wait_drained(timeout=300):
+        raise AssertionError("the drain did not complete")
+    wall = time.perf_counter() - t0
+    batcher.close()
+    outs = {key: f.result(timeout=60) for key, f in accepted.items()}
+    want = [(k, j) for k in range(OPS_RACE_CLIENTS)
+            for j in range(OPS_RACE_EACH // 2)]
+    if sorted(outs) != want or len(refused) != len(want):
+        raise AssertionError(f"accepted {sorted(outs)}, refused {refused}")
+    return {key: o["tokens"] for key, o in outs.items()}, wall, \
+        len(refused) + 1
+
+
+def _ops_race(card, model, tree, plain_eng, rng, vocab, layers, cuda):
+    """(c): the drain burst untracked on ``plain_eng``, tracked on a fresh
+    engine of the same weights, and untracked again."""
+    from sparkflow_tpu_torch.analysis import racecheck, restrack
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    prompts = [_ops_prompts(rng, OPS_RACE_EACH, OPS_RACE_LENS, vocab)
+               for _ in range(OPS_RACE_CLIENTS)]
+    budgets = [[int(rng.integers(OPS_RACE_NEW[0], OPS_RACE_NEW[1] + 1))
+                for _ in range(OPS_RACE_EACH)]
+               for _ in range(OPS_RACE_CLIENTS)]
+    plain, plain_s, _refused = _ops_race_burst(plain_eng, prompts, budgets)
+    plain_eng.kv.flush_prefix_index()   # the second untracked run runs cold
+    racer = racecheck.RaceTracker().install()
+    balance = restrack.ResourceTracker().install()
+    try:
+        eng = DecodeEngine(model, tree, num_slots=8, page_size=16, seed=0)
+        # before the batcher's thread starts: every thread then takes the
+        # wrapped locks only
+        racecheck.instrument_object(eng, fields=OPS_RACE_FIELDS["engine"],
+                                    name="DecodeEngine")
+        racecheck.instrument_object(eng.kv, fields=OPS_RACE_FIELDS["kv"],
+                                    name="PagedKVCache")
+        racecheck.instrument_object(eng.metrics, name="Metrics")
+        restrack.instrument_engine(eng)
+        st0 = eng.stats()
+        reset_launch_counts()
+        tracked, tracked_s, refused = _ops_race_burst(
+            eng, prompts, budgets, restrack.instrument_batcher)
+        counts = launch_counts()
+        st1 = eng.stats()
+    finally:
+        racer.uninstall()
+        balance.uninstall()
+    racer.assert_clean()
+    balance.assert_balanced()
+    again, again_s, _refused = _ops_race_burst(plain_eng, prompts, budgets)
+    if not tracked == plain == again:
+        raise AssertionError("the tracked run's tokens differ from the "
+                             "untracked runs'")
+    want = {"flash_fwd": layers * (st1["prefills"] - st0["prefills"]),
+            "paged_attention": layers * (st1["steps"] - st0["steps"])}
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    if cuda and ({k: counts.get(k) for k in want} != want or others
+                 or not all(want.values())):
+        raise AssertionError(f"tracked engine launches {counts}, want {want}"
+                             f" and no other")
+    ntok = sum(len(t) for t in tracked.values())
+    return {"fields": sorted(fs.label for fs in racer._fields.values()),
+            "findings": len(racer.findings()),
+            "acquired": balance.acquired, "released": balance.released,
+            "accepted": len(tracked), "refused": refused,
+            "tokens": ntok, "tracked_tokens_per_s": ntok / tracked_s,
+            "untracked_tokens_per_s": [ntok / plain_s, ntok / again_s],
+            "tokens_identical_to_untracked": True,
+            "launches": {k: counts.get(k, 0) for k in want},
+            "card": card}, {k: counts.get(k, 0) for k in want}
+
+
+def phase_serving_ops(card, work, device=None, lm=None):
+    """Phase 26: the serving plane's operations layer (see the module
+    docstring); ``device="cpu"`` with a small ``lm`` rehearses it without
+    the launch counts. Returns the phase's launches for the kernels line
+    and its lines."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.resilience.retry import RetryPolicy
+    from sparkflow_tpu_torch.serving import DecodeEngine, ExecutableStore
+    from sparkflow_tpu_torch.serving.autoscaler import ReplicaManager
+    from sparkflow_tpu_torch.serving.coldstart import boot_kernels
+    from sparkflow_tpu_torch.serving.membership import Membership
+    from sparkflow_tpu_torch.utils.metrics import Metrics
+    cuda = device != "cpu"
+    lm = lm or GPT2_SMALL
+    layers, vocab = lm["num_layers"], lm["vocab_size"]
+    t0 = time.perf_counter()
+    out = os.path.join(work, "serving-ops")
+    os.makedirs(out)
+    exe = os.path.join(out, "executables")
+    if cuda:
+        torch.cuda.empty_cache()
+        fill = boot_kernels(ExecutableStore(exe), None, torch.device("cuda"))
+        if fill["source"] != "already_loaded" or not fill["saved"]:
+            raise AssertionError(f"cannot fill the kernel store: {fill}")
+    store_dir = os.path.join(out, "store")
+    base = {"out": out, "exe": exe, "device": device, "lm": lm,
+            "kind": "generate"}
+    roles = {"stalled": dict(base, role="stalled", stall_s=OPS_STALL_S),
+             "plain": dict(base, role="plain"),
+             "watched": dict(base, role="watched", gen_store=store_dir,
+                             poll_s=OPS_POLL_S, late_pull_s=OPS_LATE_PULL_S)}
+    order, role_of, launched, procs = list(roles), {}, {}, []
+    mu = threading.Lock()
+
+    def launcher(port):
+        with mu:
+            role = order.pop(0)
+            role_of[port] = role
+        proc = _launch_replica(roles[role], port, launched)
+        procs.append(proc)
+        return proc
+
+    metrics = Metrics()
+    mem = Membership(["http://127.0.0.1:1"], metrics=metrics,
+                     probe_interval_s=60.0)
+    mem.deregister(mem.replicas[0])
+    rm = ReplicaManager(launcher, membership=mem,
+                        retry=RetryPolicy(max_attempts=1),
+                        health_timeout_s=FLEET_HEALTH_S,
+                        drain_timeout_s=60.0, metrics=metrics,
+                        flight_dir=out)
+    spawned, spawn_errors = [], []
+
+    def spawn():
+        try:
+            r = rm.spawn()
+            with mu:
+                spawned.append(r)
+        except Exception as e:  # noqa: BLE001 - raised below
+            spawn_errors.append(e)
+
+    spawners = [threading.Thread(target=spawn) for _ in roles]
+    for t in spawners:
+        t.start()
+    try:
+        # while the replicas boot: this process's engine gives every
+        # reference, on the replicas' seeds
+        model = model_from_json(build_registry_spec("transformer_lm", **lm),
+                                compute_dtype="bfloat16", device=device)
+        trees = [model.init(torch.Generator().manual_seed(s))
+                 for s in range(3)]
+        eng = DecodeEngine(model, trees[0], num_slots=8, page_size=16,
+                           seed=0)
+        rng = np.random.default_rng(26)
+        trace_p = {"trace": _ops_prompts(rng, 1, (OPS_TRACE_LEN,) * 2,
+                                         vocab)[0],
+                   "crash": _ops_prompts(rng, 1, (OPS_TRACE_LEN,) * 2,
+                                         vocab)[0],
+                   "warm": _ops_prompts(rng, 2, (OPS_TRACE_LEN,) * 2,
+                                        vocab)}
+        pub_p = {"burst": [_ops_prompts(rng, OPS_PUB_MAX, OPS_PUB_LENS,
+                                        vocab)
+                           for _ in range(OPS_PUB_CLIENTS)],
+                 "post": _ops_prompts(rng, 8, OPS_PUB_LENS, vocab),
+                 "rider": _ops_prompts(rng, 1, (OPS_PUB_LENS[1],) * 2,
+                                       vocab)[0],
+                 "warm": _ops_prompts(rng, 2, OPS_PUB_LENS, vocab)}
+        t_ref = time.perf_counter()
+        want_trace = _ops_refs(eng, [trace_p["trace"]], OPS_NEW)[0]
+        flat = [p for ps in pub_p["burst"] for p in ps[:OPS_PUB_REF]]
+
+        def by_client(toks):
+            return [toks[k * OPS_PUB_REF:(k + 1) * OPS_PUB_REF]
+                    for k in range(OPS_PUB_CLIENTS)]
+
+        refs = {"v0": by_client(_ops_refs(eng, flat, OPS_NEW))}
+        cold = DecodeEngine(model, trees[1], num_slots=8, page_size=16,
+                            seed=0)       # cold-started on version 1
+        refs["v1"] = by_client(_ops_refs(cold, flat, OPS_NEW))
+        refs["post"] = _ops_refs(cold, pub_p["post"], OPS_NEW)
+        refs["rider"] = _ops_refs(cold, [pub_p["rider"]], OPS_NEW)[0]
+        del cold
+        ref_s = time.perf_counter() - t_ref
+        for t in spawners:
+            t.join(timeout=FLEET_HEALTH_S + 60)
+        if spawn_errors or len(spawned) != len(roles):
+            raise AssertionError(f"replicas failed to boot: "
+                                 f"{spawn_errors}")
+        rep = {role_of[r.port]: r for r in spawned}
+        boots = [dict(_boot_row(out, r.port, launched, cuda),
+                      role=role_of[r.port]) for r in spawned]
+        log("[serving-ops-boot] " + json.dumps(
+            {"replicas": boots, "references_s": ref_s, "card": card}))
+        trace_row, flight_row, hl = _ops_hedge(card, rm, rep, out, trace_p,
+                                               want_trace, layers, cuda)
+        log("[serving-ops-trace] " + json.dumps(trace_row))
+        log("[serving-ops-flight] " + json.dumps(flight_row))
+        pub_row, pl = _ops_publish(card, rm, rep["watched"], out, store_dir,
+                                   trees, pub_p, refs, layers, cuda)
+        log("[serving-ops-publish] " + json.dumps(pub_row))
+        harvested = metrics.counters().get("autoscaler/flight_harvested")
+        if harvested != 3:
+            raise AssertionError(f"{harvested} flight records harvested, "
+                                 f"want 3")
+        race_row, rl = _ops_race(card, model, trees[0], eng, rng, vocab,
+                                 layers, cuda)
+        log("[serving-ops-race] " + json.dumps(race_row))
+    finally:
+        rm.stop_all(kill=True)
+        mem.stop()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    log(f"[serving-ops] phase 26 {time.perf_counter() - t0:.1f} s [{card}]")
+    launches = {name: {"replicas": [r.get(name, 0) for r in hl + pl],
+                       "tracked_engine": rl.get(name, 0)}
+                for name in ("flash_fwd", "paged_attention")}
+    return {"launches": launches, "trace": trace_row, "flight": flight_row,
+            "publish": pub_row, "race": race_row}
+
+
 def _timed(name, fn, *args):
     """``fn(*args)`` with a ``[time]`` line; the cached card memory it
     leaves is freed after it, as the other process shares the card."""
@@ -8418,13 +9134,13 @@ MESH_GROUP_RESULT = "mesh-group.json"
 
 
 def run_mesh_group(work: str) -> int:
-    """Phases 18-21, 23 and 24 (``python3 chip_smoke.py --mesh-group
+    """Phases 18-21, 23, 24 and 26 (``python3 chip_smoke.py --mesh-group
     WORK``), the second process :func:`main` runs beside its own phases:
     the kernel library phase 1 built is found in the build directory,
     phases 18-21 share one 2-rank pool, phase 24 starts a 4-rank pool of
-    its own after 23, all write under ``WORK``, and what the kernels
-    line needs of them goes to ``WORK/mesh-group.json``. Exits when its
-    caller is gone."""
+    its own after 23, phase 26 its replica processes, all write under
+    ``WORK``, and what the kernels line needs of them goes to
+    ``WORK/mesh-group.json``. Exits when its caller is gone."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     caller = os.getppid()
@@ -8451,13 +9167,15 @@ def run_mesh_group(work: str) -> int:
             ppr = _timed("pp", phase_pp, card, work, None, pool)
         tooling = _timed("tooling", phase_tooling, card, work)
         psh = _timed("param-sharding", phase_param_sharding, card, work)
+        ops = _timed("serving-ops", phase_serving_ops, card, work)
         out = {"mesh": {"launches": mesh["launches"]},
                "stream_mesh": {"launches": stream_mesh["launches"]},
                "tp_fsdp": {"launches": tpf["launches"],
                            "kernels_h6": tpf["kernels_h6"]},
                "pp": {"launches": ppr["launches"]},
                "tooling": {"kernels": tooling["kernels"]},
-               "param_sharding": {"launches": psh["launches"]}}
+               "param_sharding": {"launches": psh["launches"]},
+               "serving_ops": {"launches": ops["launches"]}}
         path = os.path.join(work, MESH_GROUP_RESULT)
         with open(path + ".tmp", "w") as f:
             json.dump(out, f, default=lambda o: o.item()
@@ -8493,7 +9211,7 @@ def _join_mesh_group(group):
     rc = proc.wait()
     relay_thread.join(timeout=60)
     if rc != 0:
-        raise AssertionError(f"phases 18-21, 23 and 24 failed in their "
+        raise AssertionError(f"phases 18-21, 23, 24 and 26 failed in their "
                              f"process (exit {rc}); its traceback is above")
     with open(os.path.join(d, MESH_GROUP_RESULT)) as f:
         return json.load(f)
@@ -8503,7 +9221,8 @@ def main(only: str = None) -> int:
     """All phases; with ``only`` set-up and one phase alone, its summary in
     place of the kernels line: ``"spec-serving"`` (3), ``"families"`` (16),
     ``"tp-fsdp"`` (20), ``"pp"`` (21), ``"ep"`` (22), ``"tooling"``
-    (23), ``"param-sharding"`` (24) or ``"examples"`` (25)."""
+    (23), ``"param-sharding"`` (24), ``"examples"`` (25) or
+    ``"serving-ops"`` (26)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -8526,7 +9245,9 @@ def main(only: str = None) -> int:
                                  lambda card: phase_param_sharding(card,
                                                                    work)),
               "examples": ("examples",
-                           lambda card: phase_examples(card, work))}
+                           lambda card: phase_examples(card, work)),
+              "serving-ops": ("serving_ops",
+                              lambda card: phase_serving_ops(card, work))}
     if only is not None and only not in alone and only not in single:
         print(f"chip_smoke: unknown phase {only!r}; one of "
               f"{sorted(alone) + sorted(single)}", file=sys.stderr)
@@ -8582,7 +9303,7 @@ def main(only: str = None) -> int:
         side = _timed("mesh-group wait", _join_mesh_group, group)
         mesh, stream_mesh = side["mesh"], side["stream_mesh"]
         tpf, ppr, tooling = side["tp_fsdp"], side["pp"], side["tooling"]
-        psh = side["param_sharding"]
+        psh, ops = side["param_sharding"], side["serving_ops"]
     except Exception:
         traceback.print_exc()
         return 1
@@ -8704,6 +9425,10 @@ def main(only: str = None) -> int:
         # phase 25: its launches summed over the examples' runs (the
         # long-context example's over its two ranks)
         row["examples"] = {"launches": exr["launches"].get(row["name"], 0)}
+        # phase 26: each drained decode replica's launches ((a)'s plain
+        # one, (b)'s watched one) and the tracked engine's in (c)
+        row["serving_ops"] = {"launches": ops["launches"].get(
+            row["name"], 0)}
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)

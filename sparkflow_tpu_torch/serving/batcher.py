@@ -29,6 +29,7 @@ if TYPE_CHECKING:  # type-only: batcher must not pull in the engines at import
 
 from ..obs import spans as spans_mod
 from ..utils import metrics as metrics_mod
+from .kvcache import SwapPending
 
 
 class QueueFull(Exception):
@@ -609,10 +610,16 @@ class ContinuousBatcher:
                     temperature=req.temperature, top_k=req.top_k,
                     seed=req.seed)
         except Exception as exc:  # noqa: BLE001 - fan to the caller
+            requeue = isinstance(exc, SwapPending)
             with self._cond:
                 self._prefilling -= 1
+                if requeue:
+                    # a swap staged after can_admit: backpressure, not
+                    # failure; the request waits at the head of the queue
+                    # until the swap lands at the drained boundary
+                    self._pending.insert(0, req)
                 self._cond.notify_all()
-            if not req.future.cancelled():
+            if not requeue and not req.future.cancelled():
                 req.future.set_exception(exc)
             return
         req.slot = info["slot"]

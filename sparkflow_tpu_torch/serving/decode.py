@@ -143,7 +143,7 @@ from ..utils import metrics as metrics_mod
 from ..utils import quant
 from ..utils.tracing import annotate
 from .coldstart import ExecutableStore, boot_kernels, cold_start_stats
-from .kvcache import OutOfPages, PagedKVCache
+from .kvcache import OutOfPages, PagedKVCache, SwapPending
 
 __all__ = ["DecodeEngine"]
 
@@ -1141,7 +1141,7 @@ class DecodeEngine:
         with self._lock, torch.inference_mode():
             if (self._pending_swap is not None
                     and not self._maybe_swap_locked()):
-                raise OutOfPages("weight swap pending at token boundary")
+                raise SwapPending("weight swap pending at token boundary")
             slot = self.kv.free_slot()
             if slot is None:
                 raise OutOfPages("no free decode slot")

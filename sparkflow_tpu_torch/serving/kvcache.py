@@ -83,13 +83,20 @@ import numpy as np
 from ..utils import metrics as metrics_mod
 from ..utils.quant import KV_DTYPES
 
-__all__ = ["PagedKVCache", "OutOfPages", "KV_DTYPES"]
+__all__ = ["PagedKVCache", "OutOfPages", "SwapPending", "KV_DTYPES"]
 
 
 class OutOfPages(Exception):
     """Raised by :meth:`PagedKVCache.alloc` when the reservation (worst-case
     pages for the request) does not fit in the free pool — the admission
     signal the continuous batcher turns into backpressure."""
+
+
+class SwapPending(OutOfPages):
+    """Raised by ``DecodeEngine.prefill`` while a weight swap waits for the
+    active slots to drain. A swap staged between the batcher's
+    ``can_admit`` and its prefill lands here: the batcher puts the request
+    back at the head of its queue instead of failing it."""
 
 
 class PagedKVCache:
