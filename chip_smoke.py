@@ -10,7 +10,8 @@ Phases — any failure exits nonzero with its traceback and prints no result:
    split-verify or cluster decode instantiation fails the phase);
 2. kernels against their plain PyTorch versions at the serving path's
    shapes, in bfloat16 and float32 (``flash_fwd`` on the tensor cores in
-   both: bf16, and 3xTF32 for float32), and their times beside the plain
+   both: bf16, and 3xTF32 for float32; a second launch bit-identical), and
+   their times beside the plain
    version's, the least time the card could take (``bound_ms``; for
    float32 work at the 3xTF32 tensor-core rate, 495 / 3 TFLOP/s, with the
    CUDA cores' 67 TFLOP/s bound beside it as ``bound_cuda_core_ms``) and, for
@@ -128,14 +129,15 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     against its plain version, beside its bound and SDPA's time.
 
 14. resilience and stream: README's text pipeline at BERT-base width
-    (phase 12's configuration, float32, TF32 off). (a) 256 long synthetic
+    (phase 12's configuration cut to 4 of its 12 layers, float32, TF32
+    off). (a) 256 long synthetic
     reviews (200-700 words, ``examples/text_classifier.py``'s shape),
     ``build_vocab`` over them, the native WordPiece ids and masks at 512
     tokens against the pure-Python fallback's on 32 rows (the native
     library must have loaded), encode rows/s. (b) ``Pipeline([
     WordpieceEncoder, OneHotEncoder, SparkAsyncDL(fitMode="stream",
     checkpointDir, checkpointEvery=4)])`` over them, batch 32, 8 steps:
-    the counters zeroed before and read after (12 a step for each flash
+    the counters zeroed before and read after (4 a step for each flash
     kernel), finite losses, training examples/s with and without the
     saves, the step-4 and step-8 checkpoints verified by their manifests,
     each save's host ms and bytes; then the transform's accuracy. (c)
@@ -479,15 +481,17 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     router (from ``router/request`` to the winner's
     ``serving/decode_admit`` end) and the winner's ``decode_tick`` p50 /
     p95 ms (host clock). (b) 8 closed-loop clients on the watched
-    replica, at least 4 greedy generates each (64-512-token prompts, 32
-    new tokens), on until version 2 has failed (at most 16 each). After
+    replica, greedy generates of 64-512-token prompts, 32 new tokens: each
+    client's 8 referenced ones, its last started once the replica serves
+    version 1, and unreferenced ones between and after them, on until
+    version 2 has failed (at most 64 each). After
     the first answer version 1 (weights from seed 1) is published; once
     ``/healthz`` serves it, a version 2 (seed 2), damaged on disk once
     committed (``faults.corrupt_latest_weights``; the replica waits 3 s
     before reading a version past the first, which orders the damage
     first, and the damage must take under half of that). Asserted: no client failure; ``/healthz`` moves 0 -> 1 once;
     version 2 under ``pull_failures`` / ``failed_versions``; each of a
-    client's first 8 answers equals this process's engine's tokens on
+    client's 8 referenced answers equals this process's engine's tokens on
     version 0 or on version 1, and some on version 1; 8 more prompts
     after the swap equal an engine cold-started on version 1; a SIGTERM
     with a generation in flight completes it and exits 0, with the
@@ -505,11 +509,38 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     and untracked (the trackers' cost, a reading). ``python3 chip_smoke.py --phase serving-ops`` runs set-up
     and this phase alone.
 
-Run order: 1, 2, 9, 6, then two processes side by side: this one runs 3,
-4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, 25, and a second one
-(``--mesh-group``, started once the kernels' times are taken) runs 18, 19,
-20, 21 on one 2-rank pool, then 23, then 24 on a 4-rank pool, then 26,
-its lines relayed here. Both are host-bound
+27. wide-heads: head_dim 256, through the serving path at GPT-J-6B's
+    widths (EleutherAI's ``gpt-j-6b`` config.json: 4096 hidden, 16 heads
+    of 256, 16384 MLP, vocab 50400, 2048 positions, 28 layers) on the
+    repo's ``transformer_lm`` (learned positions, a sequential residual and
+    a tied head, where GPT-J has rotary embeddings and a parallel
+    residual), 5.9 B float32 weights drawn from a seed on the card. (a)
+    Kernels 1 and 4-7 at D = 256 against their plain versions, launched
+    twice for the same bits, timed by CUDA-graph replay beside their
+    bounds: ``flash_fwd`` bf16 and float32 at B=1 S=1024 H=16, causal (and
+    SDPA's time); ``paged_attention`` at the decode step's table and
+    lengths with H=16 over bf16, float32, int8 and fp8 pools;
+    ``paged_attention_verify`` at S=5 over the same pools. (b) The bf16
+    model at 28 layers behind ``/v1/generate`` (``ContinuousBatcher``,
+    ``DecodeEngine(num_slots=8, page_size=16)``): 8 concurrent greedy
+    clients, prompts of 100-700 tokens, 32 new tokens each; tokens/s,
+    TTFT, step ms (host clock untraced; the device's under
+    ``torch.profiler``), peak card memory; ``flash_fwd`` launched 28 times
+    a prefill and ``paged_attention`` 28 times a step. (c) The same with
+    ``kv_quant="int8"`` and ``spec_k=4``: every step speculative,
+    ``paged_verify_quant`` 28 times a step, ``paged_attention_quant`` 4 x 14
+    times. (d) Float32, TF32 off, 4 layers: the engine's greedy tokens,
+    spec-off and with ``spec_k=4``, equal the dense forward's over the
+    plain attention, prefill logits within 1e-3 (the 3xTF32 forward, the
+    float32-pool decode and verify kernels at D = 256). ``python3
+    chip_smoke.py --phase wide-heads`` runs set-up and this phase alone.
+
+Run order: 1, 2, 9, 6, 27 (a), then two processes side by side: this one
+runs 27 (b)-(d), 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, 25,
+and a second one (``--mesh-group``, started once the kernels' times are
+taken) runs 18, 19, 20, 21 on one 2-rank pool, then 23, then 24 on a
+4-rank pool, then 26, its lines relayed here. A ``[memory]`` line gives the
+card's peak use over all processes. Both are host-bound
 (the card idles most of their time), so together they take about the
 longer one's time; a phase's throughput in this run is taken with the
 other process sharing the card and the host, and ``--phase NAME`` gives
@@ -742,7 +773,6 @@ def max_err(a, b) -> float:
 
 def phase_kernels(card):
     import torch
-    import torch.nn.functional as F
     from sparkflow_tpu_torch.ops import attention_reference, flash_attention
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -758,38 +788,9 @@ def phase_kernels(card):
             g = torch.Generator(device=dev).manual_seed(s)
             q, k, v = (torch.randn(1, 12, s, 64, generator=g, device=dev)
                        .to(dtype) for _ in range(3))
-            out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-            ref, ref_lse = attention_reference(q, k, v, causal=True,
-                                               return_lse=True)
-            torch.cuda.synchronize()
-            e, el = max_err(out, ref), max_err(lse, ref_lse)
-            if not (e < FLASH_TOL[dn] and el < LSE_TOL[dn]):
-                raise AssertionError(f"flash_fwd {dn} S={s}: max |dO| {e} "
-                                     f"(tol {FLASH_TOL[dn]}), max |dlse| "
-                                     f"{el} (tol {LSE_TOL[dn]})")
-            flash_err = max(flash_err, e)
-            # q, k, v read once, O written once; causal QK^T and PV over the
-            # S(S+1)/2 (query, key) pairs at or below the diagonal
-            nbytes = 4 * q.numel() * q.element_size()
-            flops = 4 * 64 * 12 * s * (s + 1) / 2
-            kern = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
-            row = {"dtype": dn, "S": s, "max_abs_err": e, "lse_err": el,
-                   "ms": time_device([kern] * 20),
-                   "call_ms": time_calls(kern),
-                   "plain_ms": time_device([lambda: attention_reference(
-                       q, k, v, causal=True)] * 5),
-                   "library_ms": time_device([lambda: F.scaled_dot_product_attention(
-                       q, k, v, is_causal=True)] * 20),
-                   "bytes": nbytes, "flops": flops}
-            _rate(row, dn)
+            row = _flash_row(card, "kernels", q, k, v)
+            flash_err = max(flash_err, row["max_abs_err"])
             flash_rows.append(row)
-            log(f"[kernels] flash_fwd {dn} B=1 H=12 S={s} D=64 causal: "
-                f"err {e:.3g} lse_err {el:.3g} ms {row['ms']:.5f} (per "
-                f"call {row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
-                f"sdpa {row['library_ms']:.5f} bound {row['bound_ms']:.5f} "
-                f"({row['bound_by']}{_cuda_core_note(row)}) "
-                f"{row['tflops']:.1f} TFLOP/s, "
-                f"{row['bound_share']:.3f} of the bound [{card}]")
         g = torch.Generator(device=dev).manual_seed(3)
         q, k, v = (torch.randn(2, 12, 256, 64, generator=g, device=dev)
                    .to(dtype) for _ in range(3))
@@ -828,6 +829,52 @@ def phase_kernels(card):
              "tflops": main_flash["tflops"],
              "bound_share": main_flash["bound_share"]},
             {"max_abs_err": paged_err, **_decode_pick(paged_rows, "bfloat16")})
+
+
+def _flash_row(card, tag, q, k, v):
+    """Check and time ``flash_attention`` of ``q``, ``k``, ``v`` [B, H, S,
+    D], causal: output and logsumexp against ``attention_reference``
+    within ``FLASH_TOL`` / ``LSE_TOL``, a second launch bit-identical;
+    device ms by CUDA-graph replay beside the plain version's, SDPA's and
+    the bound. Returns the detail row."""
+    import torch
+    import torch.nn.functional as F
+    from sparkflow_tpu_torch.ops import attention_reference, flash_attention
+    b, h, s, d = q.shape
+    dn = str(q.dtype).replace("torch.", "")
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    again = flash_attention(q, k, v, causal=True, return_lse=True)
+    ref, ref_lse = attention_reference(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    e, el = max_err(out, ref), max_err(lse, ref_lse)
+    if not (e < FLASH_TOL[dn] and el < LSE_TOL[dn]):
+        raise AssertionError(f"flash_fwd {dn} S={s} D={d}: max |dO| {e} (tol "
+                             f"{FLASH_TOL[dn]}), max |dlse| {el} (tol "
+                             f"{LSE_TOL[dn]})")
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"flash_fwd {dn} S={s} D={d}: a second launch "
+                             f"gave other bits")
+    kern = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    row = {"dtype": dn, "B": b, "H": h, "S": s, "D": d, "max_abs_err": e,
+           "lse_err": el, "ms": time_device([kern] * 20),
+           "call_ms": time_calls(kern),
+           "plain_ms": time_device([lambda: attention_reference(
+               q, k, v, causal=True)] * 5),
+           "library_ms": time_device([lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True)] * 20),
+           # q, k, v read once, O written once; causal QK^T and PV over the
+           # S(S+1)/2 (query, key) pairs at or below the diagonal
+           "bytes": 4 * q.numel() * q.element_size(),
+           "flops": 4 * d * b * h * s * (s + 1) / 2}
+    _rate(row, dn)
+    log(f"[{tag}] flash_fwd {dn} B={b} H={h} S={s} D={d} causal: err {e:.3g} "
+        f"lse_err {el:.3g} ms {row['ms']:.5f} (per call "
+        f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} sdpa "
+        f"{row['library_ms']:.5f} bound {row['bound_ms']:.5f} "
+        f"({row['bound_by']}{_cuda_core_note(row)}) {row['tflops']:.1f} "
+        f"TFLOP/s, {row['bound_share']:.3f} of the bound; a second launch "
+        f"bit-identical [{card}]")
+    return row
 
 
 # the decode step's paged operands: B, H, D, page, max pages, pool pages
@@ -878,7 +925,7 @@ def _decode_row(card, tag, q, kp, vp, sc, case):
     from sparkflow_tpu_torch.ops import (paged_attention,
                                          paged_attention_reference,
                                          paged_attention_verify)
-    _, h, d, page, _, _ = DECODE_SHAPE
+    h, d, page = q.shape[1], q.shape[2], kp.shape[1]
     lengths, table = _decode_operands(q.device)
     if case == "one-slot":
         q, table = q[7:8], table[7:8]
@@ -1152,7 +1199,6 @@ def phase_serving(card):
 def phase_exactness(card):
     import numpy as np
     import torch
-    from sparkflow_tpu_torch.ops import attention_reference
     from sparkflow_tpu_torch.serving import DecodeEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1160,34 +1206,48 @@ def phase_exactness(card):
     eng = DecodeEngine(model, params, num_slots=4, page_size=16, seed=0,
                        prefix_cache=False)
     rng = np.random.default_rng(1)
+    worst = _greedy_equals_dense(eng, model, params, [
+        rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
+        for n in (40, 129, 300)])
+    log(f"[exactness] 3 prompts x 8 greedy tokens equal the dense float32 "
+        f"forward; max |prefill logit delta| {worst:.3g} [{card}]")
+
+
+def _greedy_equals_dense(eng, model, params, prompts, n=8):
+    """Each prompt's ``n`` greedy tokens from the engine (through the
+    kernels) equal the argmax of the dense full-sequence forward over the
+    plain attention (``attention_reference``), and its prefill logits agree
+    within 1e-3; returns the largest prefill logit delta."""
+    import torch
+    from sparkflow_tpu_torch.ops import attention_reference
     worst = 0.0
-    for n in (40, 129, 300):
-        prompt = rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
-        info = eng.prefill(prompt, max_new_tokens=8)
+    for prompt in prompts:
+        info = eng.prefill(prompt, max_new_tokens=n)
         toks = [info["token"]]
-        while len(toks) < 8:
+        while len(toks) < n:
             toks.extend(eng.step()[info["slot"]])
         eng.release(info["slot"])
+        toks = toks[:n]      # a speculative step may give several
         ids = list(prompt)
         with torch.inference_mode():
             kernel_logits, _ = model.prefill(
-                params, torch.tensor([prompt], device="cuda"))
-            for i in range(8):
+                params, torch.tensor([prompt], device=model.device))
+            for i in range(n):
                 lg = model._forward(
-                    params, {"input_ids": torch.tensor([ids], device="cuda")},
+                    params, {"input_ids": torch.tensor([ids],
+                                                       device=model.device)},
                     attention=attention_reference)["logits"][0, -1]
                 if i == 0:
                     err = max_err(kernel_logits[0], lg)
                     worst = max(worst, err)
                     if not err < 1e-3:
                         raise AssertionError(f"prefill logits differ by "
-                                             f"{err} (prompt {n})")
+                                             f"{err} (prompt {len(prompt)})")
                 ids.append(int(lg.argmax()))
-        if toks != ids[n:]:
-            raise AssertionError(f"prompt {n}: engine {toks} != dense "
-                                 f"{ids[n:]}")
-    log(f"[exactness] 3 prompts x 8 greedy tokens equal the dense float32 "
-        f"forward; max |prefill logit delta| {worst:.3g} [{card}]")
+        if toks != ids[len(prompt):]:
+            raise AssertionError(f"prompt {len(prompt)}: engine {toks} != "
+                                 f"dense {ids[len(prompt):]}")
+    return worst
 
 
 def _quant_pools(kp, vp, kind, zero_page, grow_page):
@@ -1222,8 +1282,6 @@ def phase_spec_kernels(card):
     queries; each timed like the paged row (pool cold in L2). Returns the
     kernels-line rows (bf16 queries; int8 for the quantized kernels)."""
     import torch
-    from sparkflow_tpu_torch.ops import (paged_attention_verify,
-                                         paged_attention_verify_reference)
     dev = torch.device("cuda")
     names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     b, h, d, page, maxp, num_pages = DECODE_SHAPE
@@ -1235,13 +1293,6 @@ def phase_spec_kernels(card):
     # (slot 7's table row, start 1019) — one block walked it all before
     # the walk was split into chunks
     one = torch.tensor([1024 - S], dtype=torch.int32, device=dev)
-    slots = {"verify": (table, start + S), "one-slot": (table[7:8], one + S)}
-    rows = {k: _pool_rows(t, walked, page) for k, (t, walked) in
-            slots.items()}
-    pages = {k: len({p for p, _ in r}) for k, r in rows.items()}
-    # (query, key) pairs: every key at or before the query's position
-    pairs = {k: sum(int(st) * S + S * (S + 1) // 2 for st in sv.tolist())
-             for k, sv in (("verify", start), ("one-slot", one))}
     detail, worst = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = names[dtype]
@@ -1278,65 +1329,12 @@ def phase_spec_kernels(card):
                 pool = (kp.to(dtype), None), (vp.to(dtype), None)
             else:
                 pool = _quant_pools(kp, vp, kind, zero_page, grow_page)
-            (kq, ks), (vq, vs) = pool
-            sc = {} if kind is None else dict(k_scales=ks, v_scales=vs)
-            tab = slots[shape][0]
-            q, per_slot = {"verify": (qs, start),
-                           "one-slot": (qs[7:8], one)}[shape]
-
-            def call(kk, vv, sc, q=q, tab=tab, per_slot=per_slot):
-                return paged_attention_verify(q, kk, vv, tab, per_slot, **sc)
-
-            def plain(kk, vv, sc, q=q, tab=tab, per_slot=per_slot):
-                return paged_attention_verify_reference(q, kk, vv, tab,
-                                                        per_slot, **sc)
-
-            out, ref, again = (call(kq, vq, sc), plain(kq, vq, sc),
-                               call(kq, vq, sc))
-            torch.cuda.synchronize()
-            e = max_err(out, ref)
-            if not (e < PAGED_TOL[dn] and bool(torch.isfinite(
-                    out.float()).all())):
-                raise AssertionError(f"{name} {dn} q, {pool_name} pool, "
-                                     f"{shape}: max |d| {e} (tol "
-                                     f"{PAGED_TOL[dn]})")
-            if not torch.equal(out, again):
-                raise AssertionError(f"{name} {dn} q, {pool_name} pool, "
-                                     f"{shape}: a second launch gave other "
-                                     f"bits")
-            worst[name] = max(worst.get(name, 0.0), e)
-            item = kq.element_size()
-            qbytes = q.numel() * q.element_size()
-            # K and V rows read once (and one float32 scale per page-head
-            # of the pages read), q read and O written, table and start
-            nbytes = (2 * len(rows[shape]) * h * d * item
-                      + (2 * pages[shape] * h * 4 if kind else 0)
-                      + 2 * qbytes + tab.numel() * 4 + per_slot.numel() * 4)
-            flops = 4 * h * d * pairs[shape]
-            # cold in L2 as in a decode step: enough pool copies that more
-            # than the 50 MB L2 of live rows lies between two visits of one
-            copies = 12 * 2 // item if item < 4 else 12
-            pools = [(kq.clone(), vq.clone(), {k: v.clone() for k, v in
-                                               sc.items()})
-                     for _ in range(copies)]
-            row = {"kernel": name, "dtype": dn, "pool": pool_name,
-                   "case": shape, "B": q.shape[0], "S": S,
-                   "tokens": int(slots[shape][1].sum()),
-                   "max_abs_err": e,
-                   "ms": time_device([lambda p=p: call(*p) for p in pools]),
-                   "call_ms": time_calls(lambda: call(kq, vq, sc)),
-                   "plain_ms": time_device([lambda p=p: plain(*p)
-                                            for p in pools[:12]]),
-                   "library_ms": None, "bytes": nbytes, "flops": flops}
-            del pools
-            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
+            q, tab, per_slot = {"verify": (qs, table, start),
+                                "one-slot": (qs[7:8], table[7:8], one)}[shape]
+            row = _verify_row(card, "spec-kernels", name, q, pool, tab,
+                              per_slot, pool_name, shape)
+            worst[name] = max(worst.get(name, 0.0), row["max_abs_err"])
             detail.append(row)
-            log(f"[spec-kernels] {name} {dn} q, {pool_name} pool, "
-                f"B={row['B']} H=12 D=64 page=16 S={row['S']} tokens "
-                f"{row['tokens']}: err {e:.3g} ms {row['ms']:.5f} (per call "
-                f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} bound "
-                f"{row['bound_ms']:.5f} ({row['bound_by']}); a second launch "
-                f"bit-identical [{card}]")
     log("[spec-kernels] detail " + json.dumps(detail))
     picked = {"paged_attention_quant": {
         "max_abs_err": worst["paged_attention_quant"],
@@ -1350,13 +1348,83 @@ def phase_spec_kernels(card):
     return picked
 
 
-def _serve_burst(eng, seed: int):
-    """Eight concurrent ``generate`` calls (the serving phase's prompt
-    lengths, 32 new tokens, two of them sampled) through
-    ``ContinuousBatcher`` -> ``InferenceServer`` -> ``ServingClient``, after
-    one warm-up request per prefill bucket. The launch counters are zeroed
-    just before the burst and read just after. Returns ``(results, wall
-    seconds, launch counts, engine steps in the burst)``."""
+def _verify_row(card, tag, name, q, pool, tab, start, pool_name, case):
+    """Check and time ``paged_attention_verify`` (``name``: its counter's
+    kernel) of queries ``q`` [B, H, S, D] over ``pool`` ((rows, scales) of
+    K and V; scales None for a plain pool) through ``tab`` from ``start``:
+    against the plain version within ``PAGED_TOL``, a second launch
+    bit-identical, timed with the pool cold in L2 like :func:`_decode_row`.
+    Returns the detail row."""
+    import torch
+    from sparkflow_tpu_torch.ops import (paged_attention_verify,
+                                         paged_attention_verify_reference)
+    (kq, ks), (vq, vs) = pool
+    sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
+    b, h, S, d = q.shape
+    page = kq.shape[1]
+    dn = str(q.dtype).replace("torch.", "")
+
+    def call(kk, vv, sc):
+        return paged_attention_verify(q, kk, vv, tab, start, **sc)
+
+    def plain(kk, vv, sc):
+        return paged_attention_verify_reference(q, kk, vv, tab, start, **sc)
+
+    out, ref, again = call(kq, vq, sc), plain(kq, vq, sc), call(kq, vq, sc)
+    torch.cuda.synchronize()
+    e = max_err(out, ref)
+    if not (e < PAGED_TOL[dn] and bool(torch.isfinite(out.float()).all())):
+        raise AssertionError(f"{name} {dn} q, {pool_name} pool, {case}: max "
+                             f"|d| {e} (tol {PAGED_TOL[dn]})")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} {dn} q, {pool_name} pool, {case}: a "
+                             f"second launch gave other bits")
+    rows = _pool_rows(tab, start + S, page)
+    npages = len({p for p, _ in rows})
+    item = kq.element_size()
+    qbytes = q.numel() * q.element_size()
+    # K and V rows read once (and one float32 scale per page-head of the
+    # pages read), q read and O written, table and start
+    nbytes = (2 * len(rows) * h * d * item + (2 * npages * h * 4 if sc else 0)
+              + 2 * qbytes + tab.numel() * 4 + start.numel() * 4)
+    # (query, key) pairs: every key at or before the query's position
+    pairs = sum(int(st) * S + S * (S + 1) // 2 for st in start.tolist())
+    flops = 4 * h * d * pairs
+    # cold in L2 as in a decode step: enough pool copies that more than the
+    # 50 MB L2 of live rows lies between two visits of one
+    copies = 12 * 2 // item if item < 4 else 12
+    pools = [(kq.clone(), vq.clone(), {k: v.clone() for k, v in sc.items()})
+             for _ in range(copies)]
+    row = {"kernel": name, "dtype": dn, "pool": pool_name, "case": case,
+           "B": b, "S": S, "tokens": int((start + S).sum()),
+           "max_abs_err": e,
+           "ms": time_device([lambda p=p: call(*p) for p in pools]),
+           "call_ms": time_calls(lambda: call(kq, vq, sc)),
+           "plain_ms": time_device([lambda p=p: plain(*p)
+                                    for p in pools[:12]]),
+           "library_ms": None, "bytes": nbytes, "flops": flops}
+    del pools
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dn)
+    log(f"[{tag}] {name} {dn} q, {pool_name} pool, B={b} H={h} D={d} "
+        f"page={page} S={S} tokens {row['tokens']}: err {e:.3g} ms "
+        f"{row['ms']:.5f} (per call {row['call_ms']:.4f}) plain "
+        f"{row['plain_ms']:.4f} bound {row['bound_ms']:.5f} "
+        f"({row['bound_by']}); a second launch bit-identical [{card}]")
+    return row
+
+
+SERVE_LENS = (17, 64, 100, 128, 255, 300, 512, 700)
+
+
+def _serve_burst(eng, seed: int, lens=SERVE_LENS,
+                 vocab=GPT2_SMALL["vocab_size"], sampled=None):
+    """Eight concurrent ``generate`` calls (by default the serving phase's
+    prompt lengths, 32 new tokens, two of them sampled; ``sampled={}``:
+    all greedy) through ``ContinuousBatcher`` -> ``InferenceServer`` ->
+    ``ServingClient``, after one warm-up request per prefill bucket. The
+    launch counters are zeroed just before the burst and read just after.
+    Returns ``(results, wall seconds, launch counts, engine steps, spec
+    steps and prefills in the burst)``."""
     import numpy as np
     from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
     from sparkflow_tpu_torch.serving import (ContinuousBatcher,
@@ -1370,10 +1438,9 @@ def _serve_burst(eng, seed: int):
         for n in [max(1, bk // 2 + 1) for bk in eng.prefill_buckets]:
             cli.generate(rng.integers(0, 1000, n).tolist(), max_new_tokens=2,
                          temperature=0.5, top_k=8, seed=0)
-        lens = (17, 64, 100, 128, 255, 300, 512, 700)
-        prompts = [rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
-                   for n in lens]
-        sampled = {2: 1234, 5: 99}
+        prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
+        if sampled is None:
+            sampled = {2: 1234, 5: 99}
         results = [None] * len(prompts)
 
         def one(i):
@@ -1408,7 +1475,8 @@ def _serve_burst(eng, seed: int):
         srv.stop()
     return results, wall, launches, {
         "steps": st1["steps"] - st0["steps"],
-        "spec_steps": st1["spec"]["steps"] - st0["spec"]["steps"]}
+        "spec_steps": st1["spec"]["steps"] - st0["spec"]["steps"],
+        "prefills": st1["prefills"] - st0["prefills"]}
 
 
 def _profile_steps(eng, steps: int = 5) -> dict:
@@ -2638,6 +2706,9 @@ def phase_predict(card, spec, weights, work):
 # (c) runs 2 epochs: with 3 the phase took over the ~90 s it is allowed
 RES_ROWS, RES_BATCH, RES_EPOCHS = 256, 32, 2
 RES_LEN = BERT_BASE["max_len"]
+# BERT-base's widths cut to 4 of its 12 layers in this phase's fits, for
+# the time phase 27 takes: 0.64 GB checkpoints in place of 1.31
+RES_LAYERS = 4
 RES_SAMPLE = 32           # rows whose native ids are held to the fallback's
 # the resumed weights equal the uninterrupted fit's bit for bit (no kernel
 # uses atomics); this relative bound is a fallback that is never used
@@ -2790,9 +2861,11 @@ def _stream_fit(card, rows, vocab, spec, work):
     peak = torch.cuda.max_memory_allocated() / 1e9
     steps = RES_ROWS // RES_BATCH
     losses = [loss for _t, loss in marks]
-    if len(marks) != steps or any(launches[n] != 12 * steps for n in names):
+    if len(marks) != steps or any(launches[n] != RES_LAYERS * steps
+                                  for n in names):
         raise AssertionError(f"{len(marks)} steps, launches {launches}: each "
-                             f"flash kernel must launch 12 x {steps} times")
+                             f"flash kernel must launch {RES_LAYERS} x "
+                             f"{steps} times")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"stream losses {losses}: not finite")
     mgr = CheckpointManager(ck)
@@ -3030,7 +3103,8 @@ def phase_resilience(card, work):
     rows = synthetic_reviews(RES_ROWS, seed=14)
     texts = [t for _l, t in rows]
     vocab, _text = _text_front(card, texts)
-    spec = build_registry_spec("transformer_classifier", **BERT_BASE)
+    spec = build_registry_spec("transformer_classifier",
+                               **dict(BERT_BASE, num_layers=RES_LAYERS))
     stream = _stream_fit(card, rows, vocab, spec, work)
     ids, mask = WordpieceTokenizer(vocab).encode_batch(texts, RES_LEN)
     labels = np.eye(2, dtype=np.float32)[[int(l) for l, _t in rows]]
@@ -8500,9 +8574,9 @@ OPS_HEDGE_MS = 100.0
 OPS_TRACE_LEN = 256        # (a) the traced prompt
 OPS_NEW = 32               # new tokens of each generate in (a) and (b)
 OPS_PUB_CLIENTS = 8        # (b) closed-loop clients
-OPS_PUB_MIN = 4            # (b) a client's generates at least ...
-OPS_PUB_MAX = 16           # ... and at most (it stops once v2 has failed)
-OPS_PUB_REF = 8            # (b) a client's first generates with v0 / v1 refs
+OPS_PUB_MAX = 16           # (b) a client's prompts ...
+OPS_PUB_REF = 8            # ... the first with v0 / v1 refs, the rest cycled
+OPS_PUB_CAP = 64           # its generates at most (it stops once v2 failed)
 OPS_PUB_LENS = (64, 512)
 OPS_POLL_S = 0.2           # (b) the replica's WeightWatcher
 OPS_LATE_PULL_S = 3.0      # (b) its wait before reading a version past 1
@@ -8714,17 +8788,35 @@ def _ops_publish(card, rm, watched, out, store_dir, trees, prompts, refs,
 
     def client(k):
         c = ServingClient(url, retries=0, timeout=300)
-        for j, p in enumerate(prompts["burst"][k]):
-            if j >= OPS_PUB_MIN and stop_clients.is_set():
-                break
+        done = [0]
+
+        def one(j):
             try:
-                r = c.generate(p, max_new_tokens=OPS_NEW)
+                r = c.generate(prompts["burst"][k][j],
+                               max_new_tokens=OPS_NEW)
                 if r["num_tokens"] != OPS_NEW or \
                         r["finish_reason"] != "length":
                     errors.append(f"client {k}: bad completion {r}")
                 answers.append((k, j, r["tokens"], time.perf_counter()))
             except Exception as e:  # noqa: BLE001 - every failure counted
                 errors.append(f"client {k}: {type(e).__name__}: {e}")
+            done[0] += 1
+
+        def filler():
+            return OPS_PUB_REF + done[0] % (OPS_PUB_MAX - OPS_PUB_REF)
+
+        for j in range(OPS_PUB_REF - 1):
+            one(j)
+        # the last referenced generate starts once the replica serves
+        # version 1 (on a fast host a client's first ones can all finish
+        # before the swap); unreferenced ones keep the load on meanwhile,
+        # and after it until version 2 has failed
+        while not (stop_clients.is_set() or any(
+                v == 1 for _t, v in versions)) and done[0] < OPS_PUB_CAP:
+            one(filler())
+        one(OPS_PUB_REF - 1)
+        while not stop_clients.is_set() and done[0] < OPS_PUB_CAP:
+            one(filler())
         c.close()
 
     def sampler():
@@ -9116,12 +9208,278 @@ def phase_serving_ops(card, work, device=None, lm=None):
             "publish": pub_row, "race": race_row}
 
 
+# Phase 27: GPT-J-6B's widths, from EleutherAI's gpt-j-6b config.json
+# (n_embd 4096, n_head 16: head_dim 256; n_inner 4 x 4096; vocab_size 50400;
+# n_positions 2048; n_layer 28), on the repo's transformer_lm: learned
+# positions, a sequential residual and a tied head, where GPT-J has rotary
+# embeddings and a parallel residual, which the JAX package lacks. Random
+# weights from a seed, drawn on the card.
+GPTJ_6B = dict(vocab_size=50400, hidden=4096, num_layers=28, num_heads=16,
+               mlp_dim=16384, max_len=2048, dropout=0.0)
+WIDE_LENS = (100, 150, 200, 300, 400, 500, 600, 700)   # (b), (c) prompts
+WIDE_NEW = 32
+WIDE_EXACT_LAYERS = 4                                  # (d) float32
+WIDE_HEADS = 16                                        # (a) the rows' heads
+
+
+def _wide_lm(compute_dtype, num_layers, seed, device=None):
+    """The GPT-J-6B-width ``transformer_lm`` at ``num_layers``, its float32
+    weights drawn from a generator on the model's device (5.9 B parameters
+    at 28 layers: no host copy)."""
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    spec = build_registry_spec("transformer_lm",
+                               **dict(GPTJ_6B, num_layers=num_layers))
+    model = model_from_json(spec, compute_dtype=compute_dtype, device=device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return model, model.init(gen)
+
+
+def _wide_kernel_rows(card):
+    """(a) Kernels 1 and 4-7 at head_dim 256 against their plain versions on
+    the card, each launched twice for the same bits and timed by CUDA-graph
+    replay beside its bound: kernel 1 in bf16 and float32 at B=1 S=1024
+    H=16, causal (with SDPA's time); kernels 4/5 at the decode step's
+    operands (``DECODE_SHAPE``'s table and lengths) at H=16 over a bf16
+    and a float32 pool and, with bf16 queries, int8 and fp8 pools; kernels
+    6/7 at S=5 over the same pools. Returns the detail rows by kernel."""
+    import torch
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, d, s = WIDE_HEADS, GPTJ_6B["hidden"] // GPTJ_6B["num_heads"], 1024
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    rows = {k: [] for k in ("flash_fwd", "paged_attention",
+                            "paged_attention_quant", "paged_verify",
+                            "paged_verify_quant")}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(27)
+        q, k, v = (torch.randn(1, h, s, d, generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        rows["flash_fwd"].append(_flash_row(card, "wide-heads", q, k, v))
+        del q, k, v
+
+    b, _, _, page, _, num_pages = DECODE_SHAPE
+    lengths, table = _decode_operands(dev)
+    zero_page, grow_page = int(table[5, 0]), int(table[6, 1])
+    S = SPEC_K + 1
+    start = (lengths - S).clamp(min=0).to(torch.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = names[dtype]
+        g = torch.Generator(device=dev).manual_seed(28)
+        kp = torch.randn(num_pages, page, h, d, generator=g, device=dev)
+        vp = torch.randn(num_pages, page, h, d, generator=g, device=dev)
+        q1 = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+        # the verify query as the model hands it over: a strided view of
+        # one [B, S, 3, H, D] qkv projection
+        qs = torch.randn(b, S, 3, h, d, generator=g, device=dev).to(dtype)
+        qs = qs.permute(2, 0, 3, 1, 4)[0]
+        pools = {dn: ((kp.to(dtype), None), (vp.to(dtype), None))}
+        if dtype == torch.bfloat16:
+            for kind in ("int8", "fp8"):
+                pools[kind] = _quant_pools(kp, vp, kind, zero_page,
+                                           grow_page)
+        for pool_name, ((kq, ks), (vq, vs)) in pools.items():
+            sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
+            row = _decode_row(card, "wide-heads", q1, kq, vq, sc, "decode")
+            rows[row["kernel"]].append(row)
+            name = "paged_verify_quant" if sc else "paged_verify"
+            rows[name].append(_verify_row(
+                card, "wide-heads", name, qs, pools[pool_name], table, start,
+                pool_name, "verify"))
+        del kp, vp, pools
+    log("[wide-heads] detail " + json.dumps(rows))
+    return rows
+
+
+def _wide_burst(card, eng, tag, seed, profile=True):
+    """One burst of 8 concurrent greedy ``ServingClient.generate`` clients
+    (prompts of ``WIDE_LENS`` tokens, ``WIDE_NEW`` new tokens each) through
+    ``/v1/generate``, its numbers, and, on the card, the card's peak memory
+    since the engine was built and, with ``profile``, 5 engine steps with 8
+    live slots under ``torch.profiler`` (the device's ms a step)."""
+    import torch
+    results, wall, launches, steps = _serve_burst(
+        eng, seed=seed, lens=WIDE_LENS, vocab=GPTJ_6B["vocab_size"],
+        sampled={})
+    ttft = [r["timing_ms"]["queue_wait_ms"] + r["timing_ms"]["prefill_ms"]
+            for r in results]
+    gen = sum(r["num_tokens"] for r in results)
+    window = steps["steps"]
+    out = {"arm": tag, "layers": eng.model.num_layers,
+           "requests": len(results),
+           "prompt_tokens": list(WIDE_LENS), "tokens_generated": gen,
+           "wall_s": wall, "decode_tokens_per_s": gen / wall,
+           "ttft_ms_p50": _pct(ttft, 50), "ttft_ms_p95": _pct(ttft, 95),
+           "step_ms_p50_host": eng.metrics.percentile(
+               "serving/decode/step_ms", 50, window=window),
+           "steps": steps, "launches": launches,
+           "kv_bytes_per_page": eng.stats()["kv"]["kv_bytes_per_page"],
+           "card": card}
+    if eng.device.type == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if profile:
+            prof = _profile_steps(eng)
+            out["step_ms_device"] = prof["device_busy_ms"]
+            out["step_idle_share"] = prof["device_idle_share"]
+    return out
+
+
+def _wide_pick(wide, name):
+    """The kernels-line entry of phase 27 for kernel ``name``: its rows at
+    D = 256 by query dtype (flash) or pool, and its launches in each arm
+    (none for the backward kernels, which take head_dim up to 128)."""
+    out = {"D": 256, "launches": {arm: counts.get(name, 0)
+                                  for arm, counts in wide["launches"].items()}}
+    for r in wide["rows"].get(name, []):
+        out[r.get("pool", r["dtype"])] = {"max_abs_err": r["max_abs_err"],
+                                          **_pick(r)}
+    return out
+
+
+def phase_wide_heads(card, device=None, kernels=True):
+    """Phase 27: head_dim 256 through the port's serving path at GPT-J-6B's
+    widths (``GPTJ_6B``). (a) With ``kernels``, kernels 1 and 4-7 at D =
+    256 against their plain versions (:func:`_wide_kernel_rows`; on the
+    card only; the whole script runs (a) beside phases 2, 9 and 6, alone on
+    the card, and (b)-(d) first once the ``--mesh-group`` process has
+    started). (b) The
+    bf16 model at all 28 layers behind ``InferenceServer`` ``/v1/generate``
+    with a ``ContinuousBatcher`` and ``DecodeEngine(num_slots=8,
+    page_size=16)``: one burst (:func:`_wide_burst`); ``flash_fwd`` must
+    launch 28 times a prefill and ``paged_attention`` 28 times a step, the
+    other kernels never. (c) The same model with ``kv_quant="int8"`` and
+    ``spec_k=4`` (self-speculation through 14 layers): every step
+    speculative, ``paged_verify_quant`` 28 times a step and
+    ``paged_attention_quant`` 4 x 14, the plain-pool kernels never. (d)
+    Float32, TF32 off, 4 layers: the engine's greedy tokens (the 3xTF32
+    forward and the float32-pool decode kernel at D = 256), and with
+    ``spec_k=4`` (the float32 verify kernel too), equal the argmax of the
+    dense forward over the plain attention, prefill logits within 1e-3.
+    ``device="cpu"`` rehearses (b)-(d) with the plain versions. Returns the
+    rows, the launches and the seconds of each part."""
+    import gc
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    cuda = device is None or str(device).startswith("cuda")
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - mark[0]
+        mark[0] = now
+
+    rows = _wide_kernel_rows(card) if cuda and kernels else {}
+    lap("a_kernels")
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    layers = GPTJ_6B["num_layers"]
+    t0 = time.perf_counter()
+    model, params = _wide_lm("bfloat16", layers, seed=0, device=device)
+    n = sum(t.numel() for lay in params.values() for t in lay.values())
+    log(f"[wide-heads] transformer_lm at GPT-J-6B widths ({GPTJ_6B}), bf16 "
+        f"compute, {n / 1e9:.3f} B float32 parameters drawn on "
+        f"{model.device} in {time.perf_counter() - t0:.1f} s")
+    others = ("flash_bwd_dq", "flash_bwd_dkv", "paged_attention_quant",
+              "paged_verify", "paged_verify_quant")
+    eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0)
+    serving = _wide_burst(card, eng, "bf16", seed=27)
+    lc, st = serving["launches"], serving["steps"]
+    if cuda and not (lc["flash_fwd"] == layers * st["prefills"] > 0
+            and lc["paged_attention"] == layers * st["steps"] > 0
+            and all(lc[k] == 0 for k in others)):
+        raise AssertionError(f"(b) launches {lc} over {st}: flash_fwd must "
+                             f"be {layers} x prefills, paged_attention "
+                             f"{layers} x steps, {others} 0")
+    log("[wide-heads] serving " + json.dumps(serving))
+    lap("b_serving")
+    del eng
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0,
+                       spec_k=SPEC_K, kv_quant="int8")
+    spec = _wide_burst(card, eng, "int8+spec_k=4", seed=28, profile=False)
+    lc, st, n = spec["launches"], spec["steps"], spec["steps"]["spec_steps"]
+    plain = ("paged_attention", "paged_verify", "flash_bwd_dq",
+             "flash_bwd_dkv")
+    if not (n > 0 and n == st["steps"]) or cuda and not (
+            lc["paged_verify_quant"] == layers * n
+            and lc["paged_attention_quant"] == SPEC_K * eng.draft_layers * n
+            and lc["flash_fwd"] > 0 and all(lc[k] == 0 for k in plain)):
+        raise AssertionError(f"(c) launches {lc} over {st}: every step "
+                             f"speculative, paged_verify_quant {layers} a "
+                             f"step, paged_attention_quant {SPEC_K} x "
+                             f"{eng.draft_layers}, {plain} 0")
+    spec.update(draft_layers=eng.draft_layers,
+                accept_rate=eng.stats()["spec"]["accept_rate"],
+                kv_quant_error=eng.stats()["kv_quant_error"])
+    log("[wide-heads] spec " + json.dumps(spec))
+    lap("c_spec_int8")
+    del eng, model, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, params = _wide_lm(None, WIDE_EXACT_LAYERS, seed=1, device=device)
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(0, GPTJ_6B["vocab_size"], n).tolist()
+               for n in (40, 129, 300)]
+    reset_launch_counts()
+    worst = 0.0
+    # spec-off, then spec_k=4 (self-draft through half the layers: the
+    # float32 verify kernel at D = 256 too); both held to the dense forward
+    for extra in ({}, {"spec_k": SPEC_K}):
+        eng = DecodeEngine(model, params, num_slots=4, page_size=16, seed=0,
+                           prefix_cache=False, max_seq_len=512, **extra)
+        worst = max(worst, _greedy_equals_dense(eng, model, params, prompts))
+        del eng
+    exact = launch_counts()
+    if cuda and not all(exact[k] > 0 for k in ("flash_fwd", "paged_attention",
+                                                "paged_verify")):
+        raise AssertionError(f"(d) the kernels did not launch: {exact}")
+    log(f"[wide-heads] exactness: float32, {WIDE_EXACT_LAYERS} layers at "
+        f"GPT-J-6B widths, 3 prompts x 8 greedy tokens through the kernels, "
+        f"spec-off and spec_k={SPEC_K} (flash_fwd {exact['flash_fwd']}, "
+        f"paged_attention {exact['paged_attention']}, paged_verify "
+        f"{exact['paged_verify']} launches) equal the dense forward over "
+        f"the plain attention; max |prefill logit delta| {worst:.3g} "
+        f"[{card}]")
+    del model, params
+    gc.collect()
+    lap("d_exact")
+    log(f"[wide-heads] phase 27 by part {json.dumps(seconds)} [{card}]")
+    return {"rows": rows, "launches": {"serving": serving["launches"],
+                                       "spec_int8": spec["launches"],
+                                       "exactness": exact},
+            "seconds": seconds}
+
+
+_PHASE = [None]             # the phase this process runs now
+
+
+def _card_memory(stop, peak, every_s: float = 0.5):
+    """Until ``stop`` is set, the card's used memory over every process
+    (total minus free) every ``every_s``; its peak in ``peak["gb"]``, with
+    the phase this process ran then in ``peak["phase"]``."""
+    import torch
+    while not stop.wait(every_s):
+        free, total = torch.cuda.mem_get_info()
+        if (total - free) / 1e9 > peak["gb"]:
+            peak.update(gb=(total - free) / 1e9, phase=_PHASE[0])
+
+
 def _timed(name, fn, *args):
     """``fn(*args)`` with a ``[time]`` line; the cached card memory it
     leaves is freed after it, as the other process shares the card."""
     import gc
     import torch
     t = time.perf_counter()
+    _PHASE[0] = name
     out = fn(*args)
     log(f"[time] {name} {time.perf_counter() - t:.1f} s")
     gc.collect()
@@ -9221,8 +9579,8 @@ def main(only: str = None) -> int:
     """All phases; with ``only`` set-up and one phase alone, its summary in
     place of the kernels line: ``"spec-serving"`` (3), ``"families"`` (16),
     ``"tp-fsdp"`` (20), ``"pp"`` (21), ``"ep"`` (22), ``"tooling"``
-    (23), ``"param-sharding"`` (24), ``"examples"`` (25) or
-    ``"serving-ops"`` (26)."""
+    (23), ``"param-sharding"`` (24), ``"examples"`` (25),
+    ``"serving-ops"`` (26) or ``"wide-heads"`` (27)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -9247,7 +9605,8 @@ def main(only: str = None) -> int:
               "examples": ("examples",
                            lambda card: phase_examples(card, work)),
               "serving-ops": ("serving_ops",
-                              lambda card: phase_serving_ops(card, work))}
+                              lambda card: phase_serving_ops(card, work)),
+              "wide-heads": ("wide_heads", phase_wide_heads)}
     if only is not None and only not in alone and only not in single:
         print(f"chip_smoke: unknown phase {only!r}; one of "
               f"{sorted(alone) + sorted(single)}", file=sys.stderr)
@@ -9275,13 +9634,22 @@ def main(only: str = None) -> int:
               flush=True)
         return 0
     group = None
+    memory, stop = {"gb": 0.0, "phase": None}, threading.Event()
+    threading.Thread(target=_card_memory, args=(stop, memory),
+                     daemon=True).start()
     try:
         _timed("setup", phase_setup)
         flash_row, paged_row = _timed("kernels", phase_kernels, card)
         spec_rows = _timed("spec-kernels", phase_spec_kernels, card)
         bwd_rows = _timed("bwd", phase_backward_kernels, card)
+        wide_rows = _timed("wide-kernels", _wide_kernel_rows, card)
         # the kernels' times are taken: phases 18-21 start beside the rest
         group = _start_mesh_group(work)
+        # phase 27 (b)-(d) first, beside the other process's phase 18: its
+        # 28-layer model (~33 GB) and phase 18's two ranks stay well clear
+        # of 80 GB together (the [memory] line); the other process runs no
+        # profiler before phase 23 counts kernel events in its traces
+        wide = _timed("wide-heads", phase_wide_heads, card, None, False)
         launches, eng = _timed("serving", phase_serving, card)
         _timed("profile", phase_profile, card, eng)
         del eng
@@ -9301,6 +9669,7 @@ def main(only: str = None) -> int:
             epr = _timed("ep", phase_ep, card, work, None, pool)
         exr = _timed("examples", phase_examples, card, work)
         side = _timed("mesh-group wait", _join_mesh_group, group)
+        wide["rows"] = wide_rows
         mesh, stream_mesh = side["mesh"], side["stream_mesh"]
         tpf, ppr, tooling = side["tp_fsdp"], side["pp"], side["tooling"]
         psh, ops = side["param_sharding"], side["serving_ops"]
@@ -9308,11 +9677,15 @@ def main(only: str = None) -> int:
         traceback.print_exc()
         return 1
     finally:
+        stop.set()
         if group is not None and group[0].poll() is None:
             group[0].kill()
             group[0].wait(timeout=60)
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] all phases {time.perf_counter() - t0:.1f} s")
+    log(f"[memory] the card's peak use over all processes {memory['gb']:.1f} "
+        f"GB (sampled every 0.5 s), this process then in {memory['phase']} "
+        f"[{card}]")
     src = "sparkflow_tpu_torch/ops/csrc/"
     ref = "sparkflow_tpu/ops/attention.py:"
     spec_a, spec_b = spec_launches["a"], spec_launches["b"]
@@ -9429,6 +9802,12 @@ def main(only: str = None) -> int:
         # one, (b)'s watched one) and the tracked engine's in (c)
         row["serving_ops"] = {"launches": ops["launches"].get(
             row["name"], 0)}
+        # phase 27: at head_dim 256 (GPT-J-6B's widths), the kernel against
+        # its plain version (bf16 and float32, and the int8 and fp8 pools
+        # for the quantized kernels) and its launches in (b) the 28-layer
+        # bf16 burst, (c) the int8 + spec_k=4 burst and (d) the float32
+        # 4-layer exactness arm
+        row["wide_heads"] = _wide_pick(wide, row["name"])
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)

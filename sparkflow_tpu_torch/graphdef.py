@@ -185,27 +185,30 @@ def _fans(shape) -> Tuple[float, float]:
 
 
 def initialize(name: str, shape, generator: torch.Generator) -> torch.Tensor:
-    """A float32 CPU tensor of ``shape`` drawn by the initializer ``name``
-    (the JAX package's names: ``zeros``, ``ones``, ``normal(std)``, the
-    glorot / he / lecun families)."""
+    """A float32 tensor of ``shape`` drawn by the initializer ``name`` (the
+    JAX package's names: ``zeros``, ``ones``, ``normal(std)``, the glorot /
+    he / lecun families), on the generator's device: the CPU for a CPU
+    generator, the card for a CUDA one (a model too large to draw on the
+    host)."""
     shape = tuple(int(d) for d in shape)
+    dev = generator.device
     if name == "zeros":
-        return torch.zeros(shape, dtype=torch.float32)
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
     if name == "ones":
-        return torch.ones(shape, dtype=torch.float32)
+        return torch.ones(shape, dtype=torch.float32, device=dev)
     if name.startswith("normal"):
         stddev = 0.05
         if "(" in name:
             stddev = float(name[name.index("(") + 1:name.index(")")])
-        return torch.randn(shape, generator=generator,
-                           dtype=torch.float32) * stddev
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=dev) * stddev
     if name not in _VARIANCE_SCALING:
         raise ValueError(f"unknown initializer {name!r}")
     scale, mode, dist = _VARIANCE_SCALING[name]
     fan_in, fan_out = _fans(shape)
     denom = fan_in if mode == "fan_in" else (fan_in + fan_out) / 2
     variance = scale / max(1.0, denom)
-    out = torch.empty(shape, dtype=torch.float32)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     if dist == "uniform":
         limit = math.sqrt(3 * variance)
         return torch.nn.init.uniform_(out, -limit, limit, generator=generator)

@@ -56,10 +56,11 @@ class RegistryModel(nn.Module):
         """Draw float32 parameters following ``param_specs()`` — any
         initializer of :func:`~sparkflow_tpu_torch.graphdef.initialize`
         (``normal(std)``, ``ones``, ``zeros``, ``he_normal``, ...) — from
-        ``generator`` (a CPU ``torch.Generator``; default one seeded with
-        ``seed``), install them on this module and return the tree. The
-        draws are made on the CPU so a seed gives the same weights on every
-        device."""
+        ``generator`` (default a CPU ``torch.Generator`` seeded with
+        ``seed``), install them on this module and return the tree. A CPU
+        generator's draws give the same weights on every device; a CUDA
+        generator draws on its card (other numbers from the same seed),
+        for a model too large to draw on the host."""
         if generator is None:
             generator = torch.Generator().manual_seed(int(seed))
         tree: Params = {}

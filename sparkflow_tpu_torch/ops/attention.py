@@ -39,9 +39,13 @@ Layout convention: ``[batch, heads, seq, head_dim]`` for flash attention
 and the verify queries; the paged pool is ``[num_pages, page_size, heads,
 head_dim]``, as in the JAX package. Unlike the TPU kernels there are no
 tile rules: the CUDA kernels mask their ragged edges and take every
-sequence length, with ``head_dim`` a multiple of 8 up to 128, queries in
-float32 or bfloat16 and quantized pools in int8 or float8_e4m3fn. The
-verify kernel takes up to :data:`MAX_VERIFY_ROWS` query rows per slot.
+sequence length, with queries in float32 or bfloat16 and quantized pools in
+int8 or float8_e4m3fn. ``head_dim`` is a multiple of 8 up to
+:data:`MAX_HEAD_DIM` (256) for the forward, decode and verify kernels — the
+serving path — and up to :data:`BWD_MAX_HEAD_DIM` (128) for the backward
+pair; on the card a wider head raises ``ValueError``, and a differentiable
+call raises before its forward launches. The verify kernel takes up to
+:data:`MAX_VERIFY_ROWS` query rows per slot.
 """
 
 from __future__ import annotations
@@ -90,10 +94,26 @@ def _check_kernel_operands(name: str, dtype: torch.dtype, *tensors) -> None:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
 
 
-def _check_head_dim(name: str, d: int) -> None:
-    if d % 8 or not 8 <= d <= 128:
+#: widest head the forward, decode and verify kernels take
+MAX_HEAD_DIM = 256
+#: widest head the backward kernels (dq, dk/dv) take
+BWD_MAX_HEAD_DIM = 128
+
+
+def _check_head_dim(name: str, d: int, top: int = MAX_HEAD_DIM) -> None:
+    if d % 8 or not 8 <= d <= top:
         raise ValueError(f"{name}: head_dim must be a multiple of 8 in "
-                         f"[8, 128], got {d}")
+                         f"[8, {top}], got {d}")
+
+
+def _check_grad_head_dim(name: str, q, *others) -> None:
+    """On the card, a call whose gradient will be taken needs the backward
+    kernels' head_dim: refuse it before the forward launches, so a training
+    step fails whole."""
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q,) + others)):
+        _check_head_dim(f"{name} (its backward)", q.shape[-1],
+                        BWD_MAX_HEAD_DIM)
 
 
 # ---------------------------------------------------------------------------
@@ -125,12 +145,13 @@ def _check_shapes(name: str, q, k, v, *like_q) -> None:
         raise ValueError(f"{name}: {got} do not match")
 
 
-def _flash_operands(name: str, q, k, v, kv_mask, *like_q):
+def _flash_operands(name: str, q, k, v, kv_mask, *like_q,
+                    max_head_dim: int = MAX_HEAD_DIM):
     """Check the flash kernels' operands (shapes already checked) and ready
     them for a launch: ``head_dim`` contiguous, the [B, S_k] mask float32
     and contiguous. Returns ``(q, k, v, *like_q, kv_mask)``."""
     _check_kernel_operands(name, q.dtype, q, k, v, *like_q)
-    _check_head_dim(name, q.shape[-1])
+    _check_head_dim(name, q.shape[-1], max_head_dim)
     ts = tuple(t if t.stride(-1) == 1 else t.contiguous()
                for t in (q, k, v) + like_q)
     if kv_mask is not None:
@@ -204,6 +225,7 @@ def flash_attention(q, k, v, causal: bool = False,
     if (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                      or v.requires_grad)) or _mapped(
                                          q, k, v, kv_mask):
+        _check_grad_head_dim("flash_attention", q, k, v)
         out, lse = FlashAttentionFunction.apply(q, k, v, kv_mask,
                                                 bool(causal), float(scale))
         return (out, lse) if return_lse else out
@@ -327,7 +349,8 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, kv_mask):
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name}: {what} must be a contiguous float32 "
                              f"[B, H, S] = {want} tensor on {q.device}")
-    *ts, kv_mask = _flash_operands(name, q, k, v, kv_mask, dout)
+    *ts, kv_mask = _flash_operands(name, q, k, v, kv_mask, dout,
+                                   max_head_dim=BWD_MAX_HEAD_DIM)
     return (*(_cp_async_ready(t) for t in ts), kv_mask)
 
 
@@ -550,12 +573,16 @@ _DECODE_TRIP_LANES = 8 * 32 * 4
 def _decode_trip(d: int, itemsize: int) -> int:
     """Tokens one block of the decode kernel loads in a single trip: a lane
     loads a 16-byte run of a row (8 bytes for an int8/fp8 row whose ``d`` is
-    not a multiple of 16), and a power of two of lanes covers the row."""
+    not a multiple of 16), and a power of two of runs covers the row. Up to
+    32 runs a row, one lane holds one run; a row of 64 runs (a float32 row
+    above 128 elements) takes 32 lanes holding two runs each, with half as
+    many rows a lane in flight (``NR`` and ``kU`` in the kernel), so the
+    trip is the same count of rows either way."""
     run = 16 if itemsize > 1 or d % 16 == 0 else 8
-    lanes = 1
-    while lanes * run < d * itemsize:
-        lanes *= 2
-    return _DECODE_TRIP_LANES // lanes
+    runs = 1
+    while runs * run < d * itemsize:
+        runs *= 2
+    return _DECODE_TRIP_LANES // runs
 
 
 def _paged_split(max_pages: int, page: int, d: int,
@@ -1056,6 +1083,7 @@ def ring_flash_attention(q, k, v, axis_name: str, causal: bool = False,
                          "have the same sequence length")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
+    _check_grad_head_dim("ring_flash_attention", q, k, v)
     if kv_mask is not None:
         kv_mask = kv_mask.to(device=q.device, dtype=torch.float32)
     return RingFlashAttentionFunction.apply(q, k, v, kv_mask, axis_name,

@@ -48,7 +48,16 @@
 //   that is a multiple of 8 but not of 16 is zero-padded in shared memory
 //   (cp.async's zero fill), which adds nothing to Q K^T, and the padded
 //   output columns are not written; query rows past S are zero-filled and
-//   never stored.
+//   never stored;
+// - above 128 (GPT-J-6B's heads are 256), on head_dim rounded up to 32
+//   (HD = 160, 192, 224, 256: four instantiations for the 16 head_dims,
+//   zero-padded the same way). There one warp's 16-row O accumulator alone
+//   is HD / 2 float registers a lane (128 at HD = 256), so the warp's Q
+//   fragments (64 more registers at HD = 128) are no longer held: they are
+//   read from the shared Q tile with ldmatrix at each key tile, and the
+//   key tiles narrow to 32 (S and P 16 and 8 registers). The arithmetic is
+//   the same; only the tiles whose maxima P is rounded against are
+//   narrower.
 //
 // What bounds it on the H100: at the training shape (B=8, H=12, S=1024,
 // D=64, causal) the work is 2 products of ~2*S*S/2*D flops per head over
@@ -62,6 +71,8 @@
 //   HD  32:  92 / 26,112 / 5     HD  96: 140 / 67,072 / 3
 //   HD  48: 104 / 36,352 / 4     HD 112: 171 / 77,312 / 2
 //   HD  64: 134 / 46,592 / 3     HD 128: 174 / 87,552 / 2
+//   HD 160: 130 / 64,768 / 3     HD 224: 167 / 89,344 / 2
+//   HD 192: 167 / 77,056 / 2     HD 256: 237 / 101,632 / 2
 // Measured (chip_smoke.py, H100 80GB HBM3, 700 W): 0.0872 ms at the training
 // shape, 148 TFLOP/s, 1.80x SDPA; 0.0261 ms at B=1 S=1024, 1.72x SDPA.
 // cp.async needs 16-byte aligned rows: the wrapper checks each operand's
@@ -87,7 +98,9 @@
 //   key mask) flow through the same two-stage cp.async ring of 16-byte
 //   copies, zero-filled past Sk; rows are float32 at a pitch of HD + 4
 //   floats, so every fragment load hits 32 distinct banks. Tiles are 64
-//   keys, 32 above HD = 64 (two blocks an SM in shared memory);
+//   keys, 32 above HD = 64 (two blocks an SM in shared memory; one above
+//   HD = 128, where the Q tile and the ring take 199,936 bytes at HD =
+//   256);
 // - S = Q K^T with Q as the A operand and K read as B^T; an operand is
 //   split as its fragment is loaded from shared memory. Up to HD = 64 the
 //   warp's Q fragments are split once and held for the whole walk (64
@@ -107,7 +120,9 @@
 //   with no live key visits every tile and averages them uniformly. The
 //   mask, causal test and ragged edge run only on the tiles that need them;
 // - specialised on head_dim itself (HD = 8..128 in steps of 8): m16n8k8's
-//   k-step of 8 covers every head_dim the entry takes, with no padding;
+//   k-step of 8 covers every head_dim up to 128 with no padding; above,
+//   on head_dim rounded up to 32 (160..256), columns past D zero-filled
+//   on load (zero k-steps add nothing) and not stored, as in bf16;
 // - no atomics: a second launch gives the same bits.
 // The kernel asks for two blocks an SM (__launch_bounds__(128, 2), what
 // shared memory allows at HD = 64), so ptxas may spend up to 255 registers
@@ -125,6 +140,8 @@
 //   HD  48: 188 / 67,072 / 2     HD 112: 150 / 89,344 / 2
 //   HD  56: 204 / 77,312 / 2     HD 120: 151 / 95,488 / 2
 //   HD  64: 222 / 87,552 / 2     HD 128: 159 / 101,632 / 2
+//   HD 160: 176 / 126,208 / 1    HD 224: 207 / 175,360 / 1
+//   HD 192: 198 / 150,784 / 1    HD 256: 228 / 199,936 / 1
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError() of the launch.
@@ -165,10 +182,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMasked = kNegInf * kLog2e;   // NEG_INF in the exp2 domain
 
+// Keys per visited tile: 64 up to HD = 128; above, 32. Up to HD = 128 a
+// warp also holds its Q fragments in registers for the whole walk (64
+// registers at HD = 128); above, the HD-wide accumulator alone is 4 * HD / 8
+// registers a lane (128 at HD = 256), so Q is read from shared memory at
+// each tile and the narrower tiles keep S and P at 16 and 8 registers.
+template <int HD>
+__host__ __device__ constexpr int mma_tile() {
+  return HD <= 128 ? kBlockN : 32;
+}
+
 template <int HD>
 size_t mma_smem() {
-  return sizeof(bf16) * (HD + 8) * (kBlockM + 2 * 2 * kBlockN) +
-         sizeof(float) * 2 * kBlockN;
+  constexpr int BN = mma_tile<HD>();
+  return sizeof(bf16) * (HD + 8) * (kBlockM + 2 * 2 * BN) +
+         sizeof(float) * 2 * BN;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -189,7 +217,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ mask, bf16* __restrict__ o,
                      float* __restrict__ lse, int H, int S, int Sk, int D,
                      Strides st, float scale, int causal) {
-  constexpr int P = HD + 8, BN = kBlockN;
+  constexpr int P = HD + 8, BN = mma_tile<HD>();
+  constexpr bool kQRegs = HD <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [kBlockM][P]
   bf16* skv = sq + kBlockM * P;                  // [2 stages][K, V][BN][P]
@@ -226,12 +255,14 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // this lane's two rows of the warp's 16 (accumulator rows g and g + 8),
-  // and the warp's Q fragments, held for the whole loop
+  // and the warp's Q fragments, held for the whole loop up to HD = 128
   const int g = lane >> 2, c2 = (lane & 3) * 2, rw = warp * 16;
-  uint32_t aq[HD / 16][4];
+  uint32_t aq[kQRegs ? HD / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    sf_mma::ldmatrix_x4(aq[kk], sq + sf_mma::a_offset(lane, P, rw, kk * 16));
+    for (int kk = 0; kk < HD / 16; ++kk)
+      sf_mma::ldmatrix_x4(aq[kk], sq + sf_mma::a_offset(lane, P, rw, kk * 16));
+  }
   const float sl2 = scale * kLog2e;
 
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
@@ -249,12 +280,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[BN / 8][4] = {};
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = aq[kk][i];
+      } else {
+        sf_mma::ldmatrix_x4(a, sq + sf_mma::a_offset(lane, P, rw, kk * 16));
+      }
 #pragma unroll
       for (int n = 0; n < BN / 16; ++n) {
         uint32_t bk[4];
         sf_mma::ldmatrix_x4(bk, sk + sf_mma::bt_offset(lane, P, n * 16, kk * 16));
-        sf_mma::mma_bf16(s[2 * n], aq[kk], bk[0], bk[1]);
-        sf_mma::mma_bf16(s[2 * n + 1], aq[kk], bk[2], bk[3]);
+        sf_mma::mma_bf16(s[2 * n], a, bk[0], bk[1]);
+        sf_mma::mma_bf16(s[2 * n + 1], a, bk[2], bk[3]);
       }
     }
 
@@ -373,11 +411,26 @@ bool cp_async_ready(const void* q, const void* k, const void* v,
   return true;
 }
 
+// head_dim in (128, 256] rounded up to 32: the forward's own instantiations
+// above 128 (the backward kernels stop at 128), zero-padded past D as below
+#define SF_DISPATCH_WIDE(fn, d, ...)              \
+  switch ((d + 31) / 32 * 32) {                   \
+    case 160: return fn<160>(__VA_ARGS__);        \
+    case 192: return fn<192>(__VA_ARGS__);        \
+    case 224: return fn<224>(__VA_ARGS__);        \
+    case 256: return fn<256>(__VA_ARGS__);        \
+    default: return cudaErrorInvalidValue;        \
+  }
+
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
                          const float* mask, void* o, float* lse, int B, int H,
                          int S, int Sk, int D, const Strides& st, float scale,
                          int causal, cudaStream_t stream) {
   if (!cp_async_ready(q, k, v, st, 8)) return cudaErrorInvalidValue;
+  if (D > 128) {
+    SF_DISPATCH_WIDE(launch_mma, D, q, k, v, mask, o, lse, B, H, S, Sk, D, st,
+                     scale, causal, stream)
+  }
   switch ((D + 15) / 16 * 16) {   // head_dim rounded up to 16
     case 16: return launch_mma<16>(q, k, v, mask, o, lse, B, H, S, Sk, D, st, scale, causal, stream);
     case 32: return launch_mma<32>(q, k, v, mask, o, lse, B, H, S, Sk, D, st, scale, causal, stream);
@@ -402,16 +455,22 @@ size_t tf32_smem() {
   return sizeof(float) * ((HD + 4) * (kBlockM + 2 * 2 * BN) + 2 * BN);
 }
 
-// One block per (batch*head, 64-query tile); loops over key tiles.
+// One block per (batch*head, 64-query tile); loops over key tiles. Two
+// blocks an SM up to HD = 128; above, shared memory holds one (199,936
+// bytes at HD = 256).
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+__global__ void __launch_bounds__(kMmaThreads, HD <= 128 ? 2 : 1)
 flash_fwd_tf32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ mask, float* __restrict__ o,
-                      float* __restrict__ lse, int H, int S, int Sk,
+                      float* __restrict__ lse, int H, int S, int Sk, int D,
                       Strides st, float scale, int causal) {
   constexpr int P = HD + 4, BN = sf_mma::tf32_tile<HD>();
+  // up to HD = 128 the kernel is specialised on head_dim itself; above, on
+  // head_dim rounded up to 32, with columns past D zero-filled on load and
+  // not stored
+  const int Dc = HD <= 128 ? HD : D;
   // Q's split fragments stay in registers for the whole walk up to HD = 64
   // (64 registers there); above, they are split again from shared memory
   // at each tile
@@ -432,7 +491,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   const float* vb = v + b * s_[6] + h * s_[7];
   const float* mrow = mask != nullptr ? mask + (long long)b * Sk : nullptr;
 
-  sf_mma::load_rows_f32<HD, kMmaThreads>(sq, qb, s_[2], q0, kBlockM, S);
+  sf_mma::load_rows_f32<HD, kMmaThreads>(sq, qb, s_[2], q0, kBlockM, S, Dc);
   sf_mma::cp_async_commit();
   int ntiles = (Sk + BN - 1) / BN;
   if (causal) ntiles = min(ntiles, (min(q0 + kBlockM, S) - 1) / BN + 1);
@@ -468,9 +527,9 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
   auto load_tile = [&](int t) {
     const int k0 = t * BN;
     float* dst = skv + (t & 1) * 2 * BN * P;
-    sf_mma::load_rows_f32<HD, kMmaThreads>(dst, kb, s_[5], k0, BN, Sk);
+    sf_mma::load_rows_f32<HD, kMmaThreads>(dst, kb, s_[5], k0, BN, Sk, Dc);
     sf_mma::load_rows_f32<HD, kMmaThreads>(dst + BN * P, vb, s_[8], k0, BN,
-                                           Sk);
+                                           Sk, Dc);
     if (mrow != nullptr && tid < BN) {
       const int kj = k0 + tid;
       sf_mma::cp_async4(smask + (t & 1) * BN + tid, mrow + (kj < Sk ? kj : 0),
@@ -604,8 +663,9 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
     float* row = o + b * s_[9] + h * s_[10] + qi * s_[11];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      sf_mma::store2(row + n * 8 + c2, acc[n][2 * r] / den,
-                     acc[n][2 * r + 1] / den);
+      if (n * 8 + c2 < Dc)
+        sf_mma::store2(row + n * 8 + c2, acc[n][2 * r] / den,
+                       acc[n][2 * r + 1] / den);
     // a row with no live key: NEG_INF itself, as the TPU kernel's m is
     if (lse != nullptr && (lane & 3) == 0)
       lse[(long long)bh * S + qi] =
@@ -616,7 +676,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
 template <int HD>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v,
                         const float* mask, void* o, float* lse, int B, int H,
-                        int S, int Sk, const Strides& st, float scale,
+                        int S, int Sk, int D, const Strides& st, float scale,
                         int causal, cudaStream_t stream) {
   auto kern = flash_fwd_tf32_kernel<HD>;
   const size_t smem = tf32_smem<HD>();
@@ -626,7 +686,7 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
   kern<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), mask, static_cast<float*>(o), lse, H, S,
-      Sk, st, scale, causal);
+      Sk, D, st, scale, causal);
   return cudaGetLastError();
 }
 
@@ -640,7 +700,11 @@ cudaError_t dispatch_tf32(const void* q, const void* k, const void* v,
       reinterpret_cast<uintptr_t>(o) % 8 != 0 || st.s[9] % 2 != 0 ||
       st.s[10] % 2 != 0 || st.s[11] % 2 != 0)
     return cudaErrorInvalidValue;
-  SF_DISPATCH_HD8(launch_tf32, D, q, k, v, mask, o, lse, B, H, S, Sk, st,
+  if (D > 128) {
+    SF_DISPATCH_WIDE(launch_tf32, D, q, k, v, mask, o, lse, B, H, S, Sk, D,
+                     st, scale, causal, stream)
+  }
+  SF_DISPATCH_HD8(launch_tf32, D, q, k, v, mask, o, lse, B, H, S, Sk, D, st,
                   scale, causal, stream)
 }
 
@@ -649,7 +713,7 @@ cudaError_t dispatch_tf32(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/o are [B, H, S|Sk, D] with D
 // contiguous; strides[12] = (q, k, v, o) x (batch, head, seq) in elements.
 // mask: [B, Sk] float32 (> 0 attends) or null; lse: [B, H, S] float32
-// contiguous, or null. Requires D % 8 == 0 and 8 <= D <= 128 (the wrapper
+// contiguous, or null. Requires D % 8 == 0 and 8 <= D <= 256 (the wrapper
 // checks), 16-byte aligned q/k/v pointers and their strides multiples of 8
 // (bfloat16) or 4 (float32) elements (cp_async_ready); a float32 o 8-byte
 // aligned with even strides. float32 runs the 3xTF32 kernel, bfloat16 the
@@ -659,7 +723,7 @@ extern "C" int sf_flash_fwd(int dtype, const void* q, const void* k,
                             void* lse, int B, int H, int S, int Sk, int D,
                             const long long* strides, float scale, int causal,
                             void* stream) {
-  if (D % 8 != 0 || D < 8 || D > 128) return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0 || D < 8 || D > 256) return (int)cudaErrorInvalidValue;
   Strides st{};
   for (int i = 0; i < 12; ++i) st.s[i] = strides[i];
   const float* m = static_cast<const float*>(mask);

@@ -122,7 +122,8 @@ __device__ __forceinline__ void accum_to_a_split(uint32_t (&big)[4],
 
 // Tile rows the float32 kernels visit per step: 64, or 32 above HD = 64,
 // where shared memory (and in dkv the two HD-wide accumulators) would
-// leave one block an SM.
+// leave one block an SM; the forward's instantiations above HD = 128 keep
+// 32 and one block an SM.
 template <int HD>
 __host__ __device__ constexpr int tf32_tile() { return HD <= 64 ? 64 : 32; }
 
@@ -132,17 +133,17 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 }
 
 // Start cp.async copies, by a block of kThreads threads, of rows
-// [r0, r0 + nrows) of one head of a float32 [B, H, S, HD] operand
-// (sequence stride ss) into an [nrows][HD + 4] tile. Rows past n are
-// zero-filled.
+// [r0, r0 + nrows) of one head of a float32 [B, H, S, D] operand
+// (sequence stride ss, D a multiple of 4, HD by default) into an
+// [nrows][HD + 4] tile. Rows past n and columns past D are zero-filled.
 template <int HD, int kThreads>
 __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
                                               long long ss, int r0,
-                                              int nrows, int n) {
+                                              int nrows, int n, int D = HD) {
   constexpr int kChunks = HD / 4;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < nrows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i - r * kChunks, row = r0 + r;
-    const bool ok = row < n;
+    const bool ok = row < n && c * 4 < D;
     cp_async16(dst + r * (HD + 4) + c * 4, ok ? src + row * ss + c * 4 : src,
                ok ? 16 : 0);
   }

@@ -64,6 +64,12 @@
 //    the page-head K and V scales once per page into shared memory, before
 //    it computes on any of them. A trip is kWarps * (32 / G) * kUnroll
 //    tokens (G lanes a row): the whole 128-token chunk in bf16 at D = 64.
+//    Up to D = 256 (GPT-J-6B's heads) a row of 16-byte runs needs at most
+//    32 lanes in bf16 and int8/fp8; a float32 row above 128 elements needs
+//    64, more than a warp, so there each of 32 lanes holds two runs (NR =
+//    2, elements sub * 4 and 128 + sub * 4) and half as many rows in
+//    flight: the same registers of raw rows a lane, one row a warp a step,
+//    a trip of 16 rows.
 // 3. Each warp keeps its online-softmax state (m, l, acc) in float32; the
 //    row groups of a warp merge by shuffles, the warps through shared
 //    memory. Then every block, live or dead, writes its (m, l, acc[D]) into
@@ -81,9 +87,9 @@
 // rank 0 has started before any block writes into its shared memory.
 //
 // ptxas -v (sm_90a, CUDA 12.8): no instantiation spills. Registers: plain
-// bf16 64, plain float32 59; int8/fp8 pools 64 with VEC 8 and 80 with
-// VEC 16, float32 and bf16 queries alike. Shared memory 12932 bytes plain,
-// 21132 quantized.
+// bf16 64, plain float32 59 (67 with two runs a lane); int8/fp8 pools 64
+// with VEC 8 and 80 with VEC 16, float32 and bf16 queries alike. Shared
+// memory, sized for D = 256: 21,636 bytes plain, 29,836 quantized.
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream and
 // returns the error of the launch.
@@ -94,8 +100,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;        // rows per lane in flight
-constexpr int kMaxD = 128;
+constexpr int kUnroll = 4;        // rows per lane in flight (one run each)
+constexpr int kMaxD = 256;
 constexpr int kMaxCluster = 8;    // the portable cluster size
 // page ids of one trip: at most 32 rows a warp step (G = 1), kUnroll steps
 constexpr int kMaxTripPages = kThreads * kUnroll + 1;
@@ -133,15 +139,21 @@ __device__ __forceinline__ void store_rank0(float* local, float x) {
 }
 
 // grid (C, H, B), cluster (C, 1, 1); block kThreads. G = lanes per row, a
-// power of two >= D / VEC; 32 / G rows per warp per step. T: query/output
-// type; P: pool element type (T itself, or int8_t / __nv_fp8_e4m3 with
-// kQuant); VEC: pool elements a lane loads per row (16 or 8 bytes).
-// Resident blocks an SM: 4 (64 registers a thread), which every
-// instantiation fits without a spill except those holding 16 int8/fp8
-// elements a row: 3 (80 registers). Given the block size alone, ptxas
-// squeezed the bf16 plain instantiation to 64 registers and spilled.
-template <typename T, typename P, bool kQuant, int VEC>
-__global__ void __launch_bounds__(kThreads, kQuant && VEC == 16 ? 3 : 4)
+// power of two with G * VEC * NR >= D, at most 32; 32 / G rows per warp per
+// step. T: query/output type; P: pool element type (T itself, or int8_t /
+// __nv_fp8_e4m3 with kQuant); VEC: pool elements a lane loads per run (16
+// or 8 bytes); NR: runs a lane holds of a row, 1, or 2 where one run a
+// lane would need more lanes than a warp has (a float32 pool at D > 128:
+// run r of lane `sub` at elements (sub + r * 32) * 4), with half as many
+// rows in flight, so a lane holds as many raw registers and a block's trip
+// stays kWarps * 32 * kUnroll / (G * NR) rows. Resident blocks an SM: 4
+// (64 registers a thread), which every instantiation fits without a spill
+// except those holding 16 int8/fp8 elements a row or two runs: 3 (80
+// registers). Given the block size alone, ptxas squeezed the bf16 plain
+// instantiation to 64 registers and spilled.
+template <typename T, typename P, bool kQuant, int VEC, int NR>
+__global__ void __launch_bounds__(kThreads,
+                                  (kQuant && VEC == 16) || NR > 1 ? 3 : 4)
 paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
                        const P* __restrict__ kp, const P* __restrict__ vp,
                        const float* __restrict__ ks,
@@ -150,6 +162,7 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
                        const int* __restrict__ lengths, T* __restrict__ out,
                        int H, int D, int page, int chunk, float scale, int G) {
   using Raw = typename PoolRun<P, VEC>::Raw;
+  constexpr int kU = kUnroll / NR;   // rows per lane in flight
   __shared__ __align__(16) float s_q[kMaxD];
   __shared__ int s_pid[kMaxTripPages];
   __shared__ float s_ks[kQuant ? kMaxTripPages : 1];
@@ -166,12 +179,17 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
   const int rank = static_cast<int>(cluster_rank());   // == blockIdx.x
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sub = lane & (G - 1), grp = lane / G, groups = 32 / G;
-  const int d0 = sub * VEC;
-  const bool active = d0 < D;
+  int d0[NR];          // the first element of each of the lane's runs
+  bool active[NR];     // a run past D holds no K and reads no q
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    d0[r] = (sub + r * G) * VEC;
+    active[r] = d0[r] < D;
+  }
   const int total = maxp * page;
   const int c0 = rank * chunk, c1 = min(c0 + chunk, total);
   const int step = kWarps * groups;        // rows per block per unrolled row
-  const int trip = step * kUnroll;         // rows per block in flight
+  const int trip = step * kU;              // rows per block in flight
   const int* trow = table + (long long)b * maxp;
 
   // the page ids of the trip from token t0, whatever the slot's length
@@ -185,9 +203,9 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
   // rows in flight
   if (tid < D) s_q[tid] = to_f(q[b * qsb + h * qsh + tid]);
 
-  float m = kNegInf, l = 0.f, acc[VEC];
+  float m = kNegInf, l = 0.f, acc[NR * VEC];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  for (int e = 0; e < NR * VEC; ++e) acc[e] = 0.f;
 
   const long long row = (long long)H * D;  // between consecutive tokens
   const int cend = min(c1, len);
@@ -202,22 +220,25 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
       __syncthreads();
     }
     const int pa = t0 / page;
-    Raw kr[kUnroll], vr[kUnroll];
-    int slot[kUnroll];   // the row's page within the trip
+    Raw kr[kU][NR], vr[kU][NR];
+    int slot[kU];   // the row's page within the trip
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kU; ++u) {
       const int t = t0 + warp * groups + grp + u * step;
       const int pg = t / page;
       slot[u] = pg - pa;
-      if (active && t < cend) {
-        const long long base =
-            ((long long)s_pid[pg - pa] * page + (t - pg * page)) * row +
-            (long long)h * D + d0;
-        kr[u] = raw_load(reinterpret_cast<const Raw*>(kp + base));
-        vr[u] = raw_load(reinterpret_cast<const Raw*>(vp + base));
-      } else {
-        kr[u] = Raw{};
-        vr[u] = Raw{};
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        if (active[r] && t < cend) {
+          const long long base =
+              ((long long)s_pid[pg - pa] * page + (t - pg * page)) * row +
+              (long long)h * D + d0[r];
+          kr[u][r] = raw_load(reinterpret_cast<const Raw*>(kp + base));
+          vr[u][r] = raw_load(reinterpret_cast<const Raw*>(vp + base));
+        } else {
+          kr[u][r] = Raw{};
+          vr[u][r] = Raw{};
+        }
       }
     }
     if (kQuant) {
@@ -231,18 +252,22 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
       __syncthreads();
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kU; ++u) {
       float part = 0.f;
-      if (active) {   // a lane past D holds no K and reads no q
-        float kf[VEC];
-        widen(kr[u], static_cast<const P*>(nullptr), kf);
 #pragma unroll
-        for (int e = 0; e < VEC; e += 4) {
-          const float4 qq = *reinterpret_cast<const float4*>(s_q + d0 + e);
-          part = fmaf(qq.x, kf[e], part);
-          part = fmaf(qq.y, kf[e + 1], part);
-          part = fmaf(qq.z, kf[e + 2], part);
-          part = fmaf(qq.w, kf[e + 3], part);
+      for (int r = 0; r < NR; ++r) {
+        if (active[r]) {
+          float kf[VEC];
+          widen(kr[u][r], static_cast<const P*>(nullptr), kf);
+#pragma unroll
+          for (int e = 0; e < VEC; e += 4) {
+            const float4 qq =
+                *reinterpret_cast<const float4*>(s_q + d0[r] + e);
+            part = fmaf(qq.x, kf[e], part);
+            part = fmaf(qq.y, kf[e + 1], part);
+            part = fmaf(qq.z, kf[e + 2], part);
+            part = fmaf(qq.w, kf[e + 3], part);
+          }
         }
       }
       for (int o = G >> 1; o > 0; o >>= 1)
@@ -253,10 +278,14 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
       const float alpha = expf(m - mn), p = expf(s - mn);
       l = l * alpha + p;
       const float pv = kQuant ? p * s_vs[slot[u]] : p;
-      float vf[VEC];
-      widen(vr[u], static_cast<const P*>(nullptr), vf);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(pv, vf[e], acc[e] * alpha);
+      for (int r = 0; r < NR; ++r) {
+        float vf[VEC];
+        widen(vr[u][r], static_cast<const P*>(nullptr), vf);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[r * VEC + e] = fmaf(pv, vf[e], acc[r * VEC + e] * alpha);
+      }
       m = mn;
     }
   }
@@ -269,15 +298,18 @@ paged_attention_kernel(const T* __restrict__ q, long long qsb, long long qsh,
     const float a1 = expf(m - mn), a2 = expf(m2 - mn);
     l = l * a1 + l2 * a2;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
+    for (int e = 0; e < NR * VEC; ++e) {
       const float x2 = __shfl_xor_sync(0xffffffffu, acc[e], o);
       acc[e] = acc[e] * a1 + x2 * a2;
     }
     m = mn;
   }
-  if (grp == 0 && active) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) s_acc[warp][d0 + e] = acc[e];
+  for (int r = 0; r < NR; ++r) {
+    if (grp == 0 && active[r]) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s_acc[warp][d0[r] + e] = acc[r * VEC + e];
+    }
   }
   if (lane == 0) {
     s_m[warp] = m;
@@ -335,10 +367,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, typename P, bool kQuant, int VEC>
+template <typename T, typename P, bool kQuant, int VEC, int NR>
 cudaError_t launch(const Args& a) {
   int G = 1;
-  while (G * VEC < a.D) G <<= 1;
+  while (G * VEC * NR < a.D) G <<= 1;
+  if (G > 32) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.nchunks, a.H, a.B);
   cfg.blockDim = dim3(kThreads);
@@ -352,7 +385,7 @@ cudaError_t launch(const Args& a) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, paged_attention_kernel<T, P, kQuant, VEC>,
+      &cfg, paged_attention_kernel<T, P, kQuant, VEC, NR>,
       static_cast<const T*>(a.q), a.qsb, a.qsh, static_cast<const P*>(a.kp),
       static_cast<const P*>(a.vp), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), a.table, a.maxp, a.lengths,
@@ -365,7 +398,8 @@ cudaError_t launch(const Args& a) {
 // 16-byte aligned), else 8-byte ones
 template <typename T, typename P>
 cudaError_t launch_quant(const Args& a) {
-  return a.D % 16 == 0 ? launch<T, P, true, 16>(a) : launch<T, P, true, 8>(a);
+  return a.D % 16 == 0 ? launch<T, P, true, 16, 1>(a)
+                       : launch<T, P, true, 8, 1>(a);
 }
 
 bool valid(int D, int maxp, int page, int chunk, int nchunks) {
@@ -385,7 +419,7 @@ bool valid(int D, int maxp, int page, int chunk, int nchunks) {
 // nchunks: tokens per block and blocks per (slot, head) cluster, from the
 // table's width (ops/attention.py _paged_split): nchunks in [1, 8] and
 // nchunks chunks cover maxp * page tokens, the last one not empty.
-// Requires D % 8 == 0 and 8 <= D <= 128 and 16-byte aligned pools (the
+// Requires D % 8 == 0 and 8 <= D <= 256 and 16-byte aligned pools (the
 // wrapper checks).
 extern "C" int sf_paged_attention(int dtype, const void* q, long long qsb,
                                   long long qsh, const void* k_pages,
@@ -398,9 +432,12 @@ extern "C" int sf_paged_attention(int dtype, const void* q, long long qsb,
                static_cast<const int*>(table), maxp,
                static_cast<const int*>(lengths), out, B, H, D, page, chunk,
                nchunks, scale, static_cast<cudaStream_t>(stream)};
+  // a float32 row above 128 elements is wider than 32 lanes of 4: two runs
+  // a lane
   cudaError_t e = dtype == 0
-      ? launch<float, float, false, 4>(a)
-      : launch<__nv_bfloat16, __nv_bfloat16, false, 8>(a);
+      ? (D > 128 ? launch<float, float, false, 4, 2>(a)
+                 : launch<float, float, false, 4, 1>(a))
+      : launch<__nv_bfloat16, __nv_bfloat16, false, 8, 1>(a);
   return (int)e;
 }
 

@@ -42,8 +42,16 @@
 // - warp w owns queries w, w + kWarps (S <= 16): lane r scores tile row r
 //   against them, the warp reduces max and sum with shuffles, and each lane
 //   accumulates its own HD / 32 consecutive output elements; the kernels
-//   are specialised on head_dim rounded up to 32 (HD = 32, 64, 96, 128), so
-//   D = 64 does not run D = 128's idle lanes.
+//   are specialised on head_dim rounded up to 32 (HD = 32, 64, ..., 256),
+//   so D = 64 does not run D = 128's idle lanes. At HD = 256 a lane holds
+//   8 output elements for each of its 2 queries (16 float registers), and
+//   the dynamic shared memory is the S x HD float32 queries (16 KB at S =
+//   16) and the two-stage ring of 2 x 32 raw K and V rows of HD + 16 bytes
+//   (133,120 bytes for a float32 pool, 67,584 bf16, 34,816 int8/fp8):
+//   149,504 bytes at most, with ~2 KB static, under the 227 KB a block may
+//   have. The float32 partials the wrapper allocates per call are B x H x
+//   chunks x S x (D + 2) floats: 5.3 MB at the decode step's 8 slots of
+//   1024 tokens, H = 16, D = 256, S = 5.
 //
 // kChunk = 128 tokens (8 pages of 16): at the serving shape (B=8, H=12,
 // max 1024 tokens) the longest slot splits into 8 chunks and the call has
@@ -59,7 +67,8 @@
 // 0.023-0.026 ms at the decode step's shape against a 0.0012-0.0024 ms
 // bound, 0.014-0.016 ms for one 1024-token slot).
 // ptxas -v (sm_90a): no instantiation spills; the split kernel 46-64
-// registers (bf16 query, int8 pool, HD 64: 64), the combine kernel 32.
+// registers (bf16 query, int8 pool, HD 64: 64; 55-63 at HD 160-256), the
+// combine kernel 32.
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError() of the launches.
@@ -350,6 +359,10 @@ cudaError_t dispatch(const Args& a) {
     case 2: return launch<T, P, kQuant, 64>(a);
     case 3: return launch<T, P, kQuant, 96>(a);
     case 4: return launch<T, P, kQuant, 128>(a);
+    case 5: return launch<T, P, kQuant, 160>(a);
+    case 6: return launch<T, P, kQuant, 192>(a);
+    case 7: return launch<T, P, kQuant, 224>(a);
+    case 8: return launch<T, P, kQuant, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -365,7 +378,7 @@ cudaError_t dispatch(const Args& a) {
 // table: [B, maxp] int32 pool page ids; start: [B] int32. part_acc /
 // part_ml: float32 scratch of [B, H, nchunks, S, D] / [B, H, nchunks, S, 2]
 // elements, nchunks = ceil(maxp * page / 128) (paged_verify_chunk()).
-// Requires 1 <= S <= 16, D % 8 == 0, 8 <= D <= 128 and 16-byte aligned
+// Requires 1 <= S <= 16, D % 8 == 0, 8 <= D <= 256 and 16-byte aligned
 // pools (the wrapper checks).
 extern "C" int sf_paged_verify(int dtype, int pool, const void* q,
                                const void* k_pages, const void* v_pages,
@@ -375,7 +388,7 @@ extern "C" int sf_paged_verify(int dtype, int pool, const void* q,
                                int nchunks, int B, int H, int S, int D,
                                int page, const long long* strides,
                                float scale, void* stream) {
-  if (D % 8 != 0 || D < 8 || D > 128 || S < 1 || S > kMaxS ||
+  if (D % 8 != 0 || D < 8 || D > 256 || S < 1 || S > kMaxS ||
       pool < -1 || pool > 1 ||
       (pool >= 0 && (k_scales == nullptr || v_scales == nullptr)) ||
       part_acc == nullptr || part_ml == nullptr ||

@@ -109,11 +109,12 @@ def _check_fwd(q, k, v, causal, mask=None):
     return out
 
 
-@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
 def test_flash_fwd_bf16_every_head_dim(dev, d):
-    """Every head_dim the wrapper takes (a multiple of 8 in [8, 128]) runs
-    on the tensor-core forward, causal over a ragged S and non-causal with
-    padded keys."""
+    """Every head_dim the wrapper takes (a multiple of 8 in [8, 256]; above
+    128 the 32-key instantiations, padded to a multiple of 32) runs on the
+    tensor-core forward, causal over a ragged S and non-causal with padded
+    keys."""
     g = torch.Generator(device=dev).manual_seed(d)
     q, k, v = (torch.randn(2, 2, 150, d, generator=g, device=dev).to(
         torch.bfloat16) for _ in range(3))
@@ -649,12 +650,124 @@ def _check_decode(q, kp, vp, table, lengths, scales):
 
 @pytest.mark.parametrize("pool", POOLS)
 @DTYPES
-@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
 def test_paged_decode_every_head_dim(dev, dtype, pool, d):
-    """Every head_dim 8-128: 2 to 32 lanes a row, and 8-byte runs for an
-    int8/fp8 row whose D is not a multiple of 16."""
+    """Every head_dim 8-256: 2 to 32 lanes a row, two 16-byte runs a lane
+    for a float32 row above 128 elements, and 8-byte runs for an int8/fp8
+    row whose D is not a multiple of 16."""
     _check_decode(*_decode_case(dev, dtype, pool, (0, 1, 17, 100, 255, 700,
                                                    1024), d=d, h=4, seed=d))
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@DTYPES
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+def test_paged_verify_split_every_head_dim(dev, dtype, pool, d):
+    """The split verify at every head_dim 8-256 (instantiations at head_dim
+    rounded up to 32), S = 5 queries a slot over the decode cases' slots,
+    plain and quantized pools: within the tolerance of the plain version,
+    a second launch bit-identical."""
+    from sparkflow_tpu_torch.ops import (paged_attention_verify,
+                                         paged_attention_verify_reference)
+    _, kp, vp, table, lengths, scales = _decode_case(
+        dev, dtype, pool, (0, 1, 17, 100, 255, 700, 1024), d=d, h=4, seed=d)
+    g = torch.Generator(device=dev).manual_seed(d + 1)
+    q = torch.randn(len(lengths), 4, 5, d, generator=g, device=dev).to(dtype)
+    start = _verify_starts(lengths, 5)
+    out = paged_attention_verify(q, kp, vp, table, start, **scales)
+    again = paged_attention_verify(q, kp, vp, table, start, **scales)
+    torch.cuda.synchronize()
+    ref = paged_attention_verify_reference(q, kp, vp, table, start, **scales)
+    assert torch.isfinite(out.float()).all()
+    assert _max_err(out, ref) < PAGED_TOL[dtype]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("d", [136, 256])
+def test_backward_refuses_head_dim_above_128(dev, d):
+    """The backward kernels take head_dim up to 128: at 136 and 256 the dq
+    and dk/dv wrappers raise ValueError naming it, in both dtypes, and a
+    forward whose gradient is wanted raises before it launches; no kernel
+    is launched and nothing falls back to a plain version."""
+    from sparkflow_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq,
+                                         launch_counts)
+    before = launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(d)
+        q, k, v, dout = (torch.randn(1, 2, 64, d, generator=g,
+                                     device=dev).to(dtype) for _ in range(4))
+        lse = torch.zeros(1, 2, 64, device=dev)
+        delta = torch.zeros(1, 2, 64, device=dev)
+        with pytest.raises(ValueError, match=f"got {d}"):
+            flash_bwd_dq(q, k, v, dout, lse, delta, causal=True)
+        with pytest.raises(ValueError, match=f"got {d}"):
+            flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
+        if d == 256:
+            with pytest.raises(ValueError, match="got 256"):
+                flash_attention(q.requires_grad_(), k, v, causal=True)
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("case", ["fwd-bf16", "fwd-f32", "decode-f32",
+                                  "decode-bf16", "decode-int8", "verify-f32",
+                                  "verify-fp8"])
+def test_wide_head_kernels_replay_in_a_cuda_graph(dev, case):
+    """Each head_dim-256 instantiation captured in a CUDA graph and
+    replayed equals the eager call, and after new inputs are copied into
+    the same tensors (new q values and mask, new lengths or starts) a
+    replay equals the eager call on them."""
+    from sparkflow_tpu_torch.ops import paged_attention_verify
+    kind, dn = case.split("-")
+    g = torch.Generator(device=dev).manual_seed(24)
+    if kind == "fwd":
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dn]
+        q, k, v = (torch.randn(2, 4, 300, 256, generator=g, device=dev).to(
+            dtype) for _ in range(3))
+        mask = torch.ones(2, 300, device=dev)
+        mask[1, 140:] = 0
+
+        def call():
+            return flash_attention(q, k, v, kv_mask=mask, return_lse=True)
+
+        def change():
+            q.copy_(torch.randn(q.shape, generator=g, device=dev))
+            mask[1, 140:200] = 1
+            mask[0, 30:] = 0
+    else:
+        dtype = torch.float32 if dn == "f32" else torch.bfloat16
+        pool = dn if dn in ("int8", "fp8") else None
+        _, kp, vp, table, lengths, sc = _decode_case(
+            dev, dtype, pool, (0, 1, 17, 100, 255, 512, 700, 1024), d=256,
+            seed=24)
+        q = torch.randn(8, 12, 5, 256, generator=g, device=dev).to(dtype)
+        start = _verify_starts(lengths, 5)
+
+        def call():
+            if kind == "decode":
+                return (paged_attention(q[:, :, 0], kp, vp, table, lengths,
+                                        **sc),)
+            return (paged_attention_verify(q, kp, vp, table, start, **sc),)
+
+        def change():
+            new = torch.tensor([1024, 0, 900, 5, 129, 128, 16, 300],
+                               dtype=torch.int32, device=dev)
+            lengths.copy_(new)
+            start.copy_(_verify_starts(new, 5))
+
+    want = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    change()
+    want = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("pool", POOLS)
@@ -1032,10 +1145,11 @@ def test_flash_bwd_f32_replays_in_a_cuda_graph(dev):
 
 # -- the float32 forward on the tensor cores (3xTF32) ------------------------
 
-@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
 def test_flash_fwd_f32_every_head_dim(dev, d):
-    """Every head_dim the float32 entry takes (a multiple of 8 in [8, 128]),
-    each its own 3xTF32 instantiation: causal over a ragged S = 150, and
+    """Every head_dim the float32 entry takes (a multiple of 8 in [8, 256]),
+    each its own 3xTF32 instantiation up to 128 and one of four (head_dim
+    rounded up to 32, zero-padded) above: causal over a ragged S = 150, and
     non-causal with padded keys."""
     g = torch.Generator(device=dev).manual_seed(d)
     q, k, v = (torch.randn(2, 2, 150, d, generator=g, device=dev)

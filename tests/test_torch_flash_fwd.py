@@ -48,19 +48,20 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _tensor_core_forward(q, k, v, causal, scale, mask, round_p=True):
+def _tensor_core_forward(q, k, v, causal, scale, mask, round_p=True,
+                         block_n=BLOCK_N):
     """The bf16 forward kernel's arithmetic on bf16-valued float32 tensors
     [B,H,S,D]: scores in float32, masked to NEG_INF (causal, padded keys),
-    the running max and sum folded per 64-key tile, P rounded to bf16 (with
-    ``round_p``) before P V while l sums the unrounded P; O rounded to bf16.
-    Returns ``(O, lse)``."""
+    the running max and sum folded per ``block_n``-key tile (64; 32 above
+    head_dim 128), P rounded to bf16 (with ``round_p``) before P V while l
+    sums the unrounded P; O rounded to bf16. Returns ``(O, lse)``."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     m = torch.full((b, h, s), NEG_INF)
     l = torch.zeros(b, h, s)
     acc = torch.zeros(b, h, s, d)
-    for k0 in range(0, sk, BLOCK_N):
-        kt, vt = k[:, :, k0:k0 + BLOCK_N], v[:, :, k0:k0 + BLOCK_N]
+    for k0 in range(0, sk, block_n):
+        kt, vt = k[:, :, k0:k0 + block_n], v[:, :, k0:k0 + block_n]
         sc = torch.einsum("bhqd,bhkd->bhqk", q, kt) * scale
         keys = torch.arange(k0, k0 + kt.shape[2])
         if causal:
@@ -132,6 +133,44 @@ def test_tensor_core_forward_matches_jax_pallas(case):
     unrounded, _ = _tensor_core_forward(q, k, v, case["causal"], scale, mask,
                                         round_p=False)
     assert not torch.equal(unrounded, got)
+
+
+def _wide_head_forward(q, k, v, causal, scale, mask):
+    """The layout of the bf16 forward's instantiations above head_dim 128:
+    head_dim zero-padded to a multiple of 32 (cp.async's zero fill; 136 ->
+    160), 32-key tiles, Q read from shared memory at each tile (the same
+    values as Q held in registers), the padded output columns not
+    stored."""
+    d = q.shape[-1]
+    pad = -d % 32
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    out, lse = _tensor_core_forward(qp, kp, vp, causal, scale, mask,
+                                    block_n=32)
+    return out[..., :d], lse
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=2, s=128, causal=True),
+    dict(b=3, s=256, causal=False, pad_rows=(200, 77, 0)),  # row 2 all pad
+], ids=["causal128", "masked256"])
+@pytest.mark.parametrize("d", [136, 256])
+def test_wide_head_forward_matches_jax_pallas(case, d):
+    """Head_dim 136 (padded to 160) and 256 (GPT-J-6B's heads) in the wide
+    instantiations' layout against the JAX Pallas forward, within the
+    bfloat16 tolerance; the lse within 1e-4."""
+    q, k, v, mask = _fwd_case(d + case["s"], **case, d=d)
+    scale = 1.0 / math.sqrt(d)
+    got, got_lse = _wide_head_forward(q, k, v, case["causal"], scale, mask)
+    want, want_lse = _jax_forward_bf16(q, k, v, mask, case["causal"], scale)
+    assert got.shape == q.shape
+    err = float((got - want).abs().max())
+    assert err <= FWD_TOL, err
+    live = want_lse > 0.5 * NEG_INF
+    np.testing.assert_allclose(got_lse[live].numpy(), want_lse[live].numpy(),
+                               atol=LSE_TOL, rtol=0)
+    assert bool((got_lse[~live] <= 0.5 * NEG_INF).all())
+    ref = attention_reference(q, k, v, case["causal"], scale, kv_mask=mask)
+    assert float((got - ref).abs().max()) <= FWD_TOL
 
 
 # -- the split verify ---------------------------------------------------------

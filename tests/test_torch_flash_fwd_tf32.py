@@ -190,6 +190,46 @@ def test_3xtf32_forward_matches_jax_pallas(case, d):
     assert e1 >= ONE_TF32_FACTOR * e3, (e1, e3)
 
 
+@pytest.mark.parametrize("d", [136, 256])
+@pytest.mark.parametrize("case", ["causal", "padded"])
+def test_3xtf32_wide_head_forward_matches_jax_pallas(case, d):
+    """The layout of the float32 forward's instantiations above head_dim
+    128: head_dim zero-padded to a multiple of 32 (cp.async's zero fill;
+    136 -> 160: the zero k-steps add nothing), 32-key tiles, Q split again
+    from shared memory at each tile, the padded output columns not stored;
+    against the JAX Pallas forward at head_dim 136 and 256 (GPT-J-6B's).
+
+    The bar is TOL scaled by sqrt(head_dim / 64), 4e-6 at 256: each score
+    and output sums head_dim or more float32 terms, and the same recurrence
+    with no TF32 rounding at all lands 2.4e-6 from JAX at head_dim 256
+    (1.5e-6 at 136, 6.6e-7 at 64): the summation order, not the 3xTF32
+    products, sets it. One TF32 product stays at least 10x further off."""
+    c = CASES[case]
+    s, causal = c["s"], c["causal"]
+    q, k, v = _inputs(d + s + causal, s, d)
+    mask = _mask(s, c["first_pad"])
+    scale = 1.0 / math.sqrt(d)
+    want_o, want_lse = jattn._flash_pallas_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if mask is None else jnp.asarray(mask), causal, scale, s, s,
+        True, with_lse=True)
+    pad = -d % 32
+    args = [torch.nn.functional.pad(torch.from_numpy(x), (0, pad))
+            for x in (q, k, v)]
+    assert _tile_keys(d + pad) == 32
+    tm = None if mask is None else torch.from_numpy(mask)
+    tol = TOL * math.sqrt(d / 64)
+    errs = {}
+    for mode in ("3x", "1x"):
+        o, lse = tf32_forward(*args, causal, scale, tm, mode)
+        errs[mode] = (float(np.abs(o[..., :d].numpy()
+                                   - np.asarray(want_o)).max()),
+                      float(np.abs(lse.numpy() - np.asarray(want_lse)).max()))
+    (e3, el3), (e1, _) = errs["3x"], errs["1x"]
+    assert e3 <= tol and el3 <= tol, errs["3x"]
+    assert e1 >= ONE_TF32_FACTOR * e3, (e1, e3)
+
+
 SKIP_CASES = {
     # padded tails, one row all padding: tiles skipped and walks cut short
     "padded": dict(s=200, d=64, causal=False, first_pad=(77, 0)),

@@ -47,6 +47,9 @@ TABLES = {
     "grown": (16, 80, 80, (160, 8), (160, 8)),   # 1280 tokens: it grows
     "one-block": (8, 4, 80, (128, 1), (128, 1)),  # a cluster of one block
     "trip256": (16, 40, 64, (128, 5), (256, 3)),  # an int8/fp8 trip
+    # GPT-J-6B's head: a float32 row is 32 lanes x 2 runs (a trip of 16
+    # rows), an int8/fp8 row 16 lanes (64 rows): chunks of 128 either way
+    "wide256": (16, 40, 256, (128, 5), (128, 5)),
 }
 
 
@@ -175,6 +178,144 @@ def test_cluster_split_equals_the_whole_walk(name, kind):
     assert np.all(jo[0] == 0.0)
 
 
+def decode_layout(d, itemsize):
+    """What ``csrc/paged_attention.cu`` launches for a pool row of ``d``
+    elements of ``itemsize`` bytes: ``(VEC, NR, G, kU, trip)`` — VEC
+    elements a run (16 bytes; 8 for an int8/fp8 row whose d is not a
+    multiple of 16), NR runs a lane (2 for a float32 row above 128 elements,
+    ``sf_paged_attention``), G lanes a row (``launch``), kU rows a lane in
+    flight, and the block's trip of kWarps * (32 / G) * kU rows."""
+    vec = (16 if itemsize > 1 or d % 16 == 0 else 8) // itemsize
+    nr = 2 if itemsize == 4 and d > 128 else 1
+    g = 1
+    while g * vec * nr < d:
+        g *= 2
+    return vec, nr, g, 4 // nr, 8 * (32 // g) * (4 // nr)
+
+
+def _butterfly(xs):
+    """A shuffle-xor tree over a power-of-two list of per-lane values, as
+    lane 0 sees it: at offset o (high to low) lane i adds lane i ^ o."""
+    while len(xs) > 1:
+        half = len(xs) // 2
+        xs = [xs[i] + xs[i + half] for i in range(half)]
+    return xs[0]
+
+
+def _merge(a, b):
+    """Two online-softmax states (m, l, acc) folded as the kernel folds a
+    row group's or a warp's: rescaled to their common max."""
+    (m1, l1, a1), (m2, l2, a2) = a, b
+    mn = torch.maximum(m1, m2)
+    f1, f2 = torch.exp(m1 - mn), torch.exp(m2 - mn)
+    return mn, l1 * f1 + l2 * f2, a1 * f1[..., None] + a2 * f2[..., None]
+
+
+def _lane_decode(q, k, v, table, lengths, ks=None, vs=None):
+    """The decode kernel's walk inside each block, in float32, in its own
+    layout and order: row slot j = warp * (32 / G) + group of a block takes
+    tokens c0 + j, c0 + j + 32 / G * kWarps, ... of its chunk (trips of
+    kU rows a lane); a row's score is each lane's dot over its NR runs of
+    VEC elements, summed over the row's G lanes by a shuffle-xor tree; each
+    row slot keeps its own (m, l, acc) over its rows in order; the row
+    groups of a warp fold by shuffles, the 8 warps in order, and the
+    blocks of the cluster in rank order."""
+    b, h, d = q.shape
+    maxp, page = table.shape[1], k.shape[1]
+    vec, nr, g, _, _ = decode_layout(d, k.element_size())
+    chunk, blocks = _paged_split(maxp, page, d, k.element_size())
+    total, groups = maxp * page, 32 // g
+    step = 8 * groups
+    idx = table.long()
+    kq = k[idx].float().reshape(b, total, h, d)
+    vq = v[idx].float().reshape(b, total, h, d)
+    per_tok = None
+    if ks is not None:
+        per_tok = lambda sc: sc[idx].repeat_interleave(  # noqa: E731
+            page, dim=1)                                # [B, T, H]
+        kscale, vscale = per_tok(ks), per_tok(vs)
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float()
+    # each lane's runs: lane `sub` holds elements (sub + r * G) * VEC + e
+    runs = [[(sub + r * g) * vec for r in range(nr)] for sub in range(g)]
+    n = lengths.long().clamp(max=total)
+    empty = (torch.full((b, h), NEG_INF), torch.zeros(b, h),
+             torch.zeros(b, h, d))
+    ranks = []
+    for r in range(blocks):
+        c0, c1 = r * chunk, min((r + 1) * chunk, total)
+        slots = []
+        for j in range(step):
+            st = empty
+            for t in range(c0 + j, c1, step):
+                live = (t < n)[:, None]                 # [B, 1]
+                lane = [sum((qf[:, :, d0:d0 + vec] * kq[:, t, :, d0:d0 + vec]
+                             ).sum(-1) for d0 in rs if d0 < d)
+                        if any(d0 < d for d0 in rs) else torch.zeros(b, h)
+                        for rs in runs]
+                sc = _butterfly(lane)
+                sc = sc * (kscale[:, t] * scale if ks is not None else scale)
+                m, l, acc = st
+                mn = torch.maximum(m, sc)
+                alpha, p = torch.exp(m - mn), torch.exp(sc - mn)
+                pv = p * vscale[:, t] if ks is not None else p
+                new = (mn, l * alpha + p,
+                       acc * alpha[..., None] + pv[..., None] * vq[:, t])
+                st = tuple(torch.where(live[..., None] if x.dim() == 3
+                                       else live, y, x)
+                           for x, y in zip(st, new))
+            slots.append(st)
+        # row groups of a warp by shuffles (groups 2i, 2i+1 first), then
+        # the warps in order
+        warps = []
+        for w in range(8):
+            gs = slots[w * groups:(w + 1) * groups]
+            while len(gs) > 1:
+                gs = [_merge(gs[i], gs[i + 1]) for i in range(0, len(gs), 2)]
+            warps.append(gs[0])
+        mx = torch.stack([w_[0] for w_ in warps]).amax(0)
+        lsum, acc = torch.zeros(b, h), torch.zeros(b, h, d)
+        for m, l, a in warps:
+            f = torch.exp(m - mx)
+            lsum, acc = lsum + l * f, acc + a * f[..., None]
+        ranks.append((mx, lsum, acc))
+    mx = torch.stack([r_[0] for r_ in ranks]).amax(0)
+    lsum, acc = torch.zeros(b, h), torch.zeros(b, h, d)
+    for m, l, a in ranks:                               # rank order
+        f = torch.exp(m - mx)
+        lsum, acc = lsum + l * f, acc + a * f[..., None]
+    return acc / lsum.clamp(min=1e-30)[..., None]
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"],
+                         ids=["plain", "int8", "fp8"])
+@pytest.mark.parametrize("d", [136, 256])
+def test_lane_layout_walk_at_wide_heads_matches_jax_pallas(d, kind):
+    """Head_dim 136 and 256 in the kernel's own lane layout: over a float32
+    pool a row is wider than a warp's 32 lanes of one 16-byte run, so each
+    lane holds two runs (at 256: elements sub * 4 and 128 + sub * 4) with
+    half as many rows in flight; an int8/fp8 row takes 16 lanes (256) or
+    32 lanes of 8-byte runs (136). Equal to the chunk-level emulation, the
+    plain version and the JAX Pallas kernel in interpret mode; the empty
+    slot exact zeros."""
+    page, maxp = 16, 10
+    q, k, v, ks, vs, table, lengths = _case(d, page, maxp, kind, d)
+    tq, tk, tv, tks, tvs = (_to_torch(a) for a in (q, k, v, ks, vs))
+    tt, tl = torch.from_numpy(table), torch.from_numpy(lengths)
+    vec, nr, g, _, _ = decode_layout(d, tk.element_size())
+    assert g <= 32 and (nr == 2) == (kind is None)
+    got = _lane_decode(tq, tk, tv, tt, tl, tks, tvs)
+    assert bool((got[0] == 0).all())
+    whole, _ = _cluster_decode(tq, tk, tv, tt, tl, tks, tvs)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), **TOL)
+    jsc = {} if kind is None else dict(k_scales=jnp.asarray(ks),
+                                       v_scales=jnp.asarray(vs))
+    jo = np.asarray(jattn.paged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table),
+        jnp.asarray(lengths), interpret=True, **jsc))
+    np.testing.assert_allclose(got.numpy(), jo, **TOL)
+
+
 @pytest.mark.parametrize("maxp,page,d,itemsize,split", [
     (64, 16, 64, 2, (128, 8)),    # the decode step, bf16: 8 blocks of 128
     (64, 16, 64, 1, (256, 4)),    # int8/fp8: one trip is 256 tokens
@@ -188,6 +329,11 @@ def test_cluster_split_equals_the_whole_walk(name, kind):
     (1000, 1, 64, 2, (128, 8)),
     (2000, 1, 64, 2, (250, 8)),
     (0, 16, 64, 2, (128, 1)),     # an empty table still launches one block
+    (64, 16, 256, 4, (128, 8)),   # GPT-J's head, float32: a trip is 16
+    (64, 16, 256, 2, (128, 8)),   # bf16: a trip is 32
+    (64, 16, 256, 1, (128, 8)),   # int8/fp8: a trip is 64, not 256
+    (64, 16, 136, 1, (128, 8)),   # 8-byte int8 runs, 32 lanes: a trip is 32
+    (128, 16, 256, 4, (256, 8)),  # 2048 tokens at 256: the chunk grows
 ])
 def test_split_is_sized_from_the_table_width(maxp, page, d, itemsize, split):
     """The chunk is at least DECODE_CHUNK tokens and one block's trip, and
