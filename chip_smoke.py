@@ -253,7 +253,8 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     memory; the backend is printed). (a) ``ring_flash_attention`` against
     the plain ring on the card and against one rank's ``flash_attention``
     over the whole sequence, output and dq / dk / dv, at the training shape
-    (B=8, H=12, S=1024, 512 a rank, D=64) in bf16 and float32, causal, and
+    (B=8, H=12, S=1024, 512 a rank, D=64) in bf16 and float32, and at
+    GPT-J-6B's heads (B=2, H=16, S=1024, D=256) in bf16, causal, and
     non-causal with a key-padding mask, in phases 2 and 6's tolerances; a
     causal ring launches kernels 1-3 3 times each summed over the ranks (4
     without causality), the ring's fwd+bwd ms. (b) ``examples/
@@ -509,16 +510,19 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     and untracked (the trackers' cost, a reading). ``python3 chip_smoke.py --phase serving-ops`` runs set-up
     and this phase alone.
 
-27. wide-heads: head_dim 256, through the serving path at GPT-J-6B's
-    widths (EleutherAI's ``gpt-j-6b`` config.json: 4096 hidden, 16 heads
-    of 256, 16384 MLP, vocab 50400, 2048 positions, 28 layers) on the
-    repo's ``transformer_lm`` (learned positions, a sequential residual and
-    a tied head, where GPT-J has rotary embeddings and a parallel
+27. wide-heads: head_dim 256, through the serving and training paths at
+    GPT-J-6B's widths (EleutherAI's ``gpt-j-6b`` config.json: 4096 hidden,
+    16 heads of 256, 16384 MLP, vocab 50400, 2048 positions, 28 layers) on
+    the repo's ``transformer_lm`` (learned positions, a sequential residual
+    and a tied head, where GPT-J has rotary embeddings and a parallel
     residual), 5.9 B float32 weights drawn from a seed on the card. (a)
-    Kernels 1 and 4-7 at D = 256 against their plain versions, launched
+    All seven kernels at D = 256 against their plain versions, launched
     twice for the same bits, timed by CUDA-graph replay beside their
-    bounds: ``flash_fwd`` bf16 and float32 at B=1 S=1024 H=16, causal (and
-    SDPA's time); ``paged_attention`` at the decode step's table and
+    bounds: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` bf16 and
+    float32 at B=1 S=1024 H=16, causal (and SDPA's forward and backward
+    times; the backward within ``BWD_TOL`` x max |plain| per gradient, the
+    pair also against the bound of its five products); ``paged_attention``
+    at the decode step's table and
     lengths with H=16 over bf16, float32, int8 and fp8 pools;
     ``paged_attention_verify`` at S=5 over the same pools. (b) The bf16
     model at 28 layers behind ``/v1/generate`` (``ContinuousBatcher``,
@@ -532,11 +536,20 @@ Phases — any failure exits nonzero with its traceback and prints no result:
     times. (d) Float32, TF32 off, 4 layers: the engine's greedy tokens,
     spec-off and with ``spec_k=4``, equal the dense forward's over the
     plain attention, prefill logits within 1e-3 (the 3xTF32 forward, the
-    float32-pool decode and verify kernels at D = 256). ``python3
-    chip_smoke.py --phase wide-heads`` runs set-up and this phase alone.
+    float32-pool decode and verify kernels at D = 256). (e) Training, cut to
+    4 layers (28 with adam in float32 would hold ~94 GB): ``Trainer.fit``,
+    bf16 compute, adam 3e-4, dropout 0, 8 steps of 4 x 2048 tokens from a
+    seed; tokens/s, step ms (host clock, untraced), MFU and peak card
+    memory; ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times a
+    step each, the losses finite and falling. (f) Float32, TF32 off, 2
+    layers, B=2 S=1024: one step's loss through the kernels within 1e-5
+    relative of the step through ``attention_reference``, gradients within
+    1e-4 x max |plain|, 3 adam steps within 1e-4 relative (as phase 8).
+    ``python3 chip_smoke.py --phase wide-heads`` runs set-up and this phase
+    alone.
 
 Run order: 1, 2, 9, 6, 27 (a), then two processes side by side: this one
-runs 27 (b)-(d), 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, 25,
+runs 27 (b)-(f), 3, 4, 10, 5, 11, 7, 8, 12, 13, 14, 15, 16, 17, 22, 25,
 and a second one (``--mesh-group``, started once the kernels' times are
 taken) runs 18, 19, 20, 21 on one 2-rank pool, then 23, then 24 on a
 4-rank pool, then 26, its lines relayed here. A ``[memory]`` line gives the
@@ -1666,11 +1679,7 @@ def phase_backward_kernels(card):
     two backward kernels and for the forward."""
     import torch
     import torch.nn.functional as F
-    from sparkflow_tpu_torch.ops import (attention_reference, flash_attention,
-                                         flash_attention_backward_reference,
-                                         flash_bwd_dkv,
-                                         flash_bwd_dkv_reference,
-                                         flash_bwd_dq, flash_bwd_dq_reference)
+    from sparkflow_tpu_torch.ops import attention_reference, flash_attention
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1739,80 +1748,13 @@ def phase_backward_kernels(card):
                     f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} "
                     f"of the bound [{card}]")
             del ref_out, ref_lse
-            delta = (dout.float() * out.float()).sum(-1).contiguous()
-            args = (q, k, v, dout, lse, delta, causal)
-            dq = flash_bwd_dq(*args, kv_mask=mask)
-            dk, dv = flash_bwd_dkv(*args, kv_mask=mask)
-            ref = flash_attention_backward_reference(q, k, v, out, lse, dout,
-                                                     causal, kv_mask=mask)
-            torch.cuda.synchronize()
-            errs = {}
-            for gname, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-                e, top = max_err(a, r), float(r.float().abs().max())
-                if not (e <= BWD_TOL[dn] * top and torch.isfinite(
-                        a.float()).all()):
-                    raise AssertionError(
-                        f"flash_bwd {gname} {dn} {case}: max |d| {e} > "
-                        f"{BWD_TOL[dn]} x max |plain| {top}")
-                errs[gname] = e
-            if mask is not None and not (torch.all(dq[3] == 0)
-                                         and torch.all(dk[3] == 0)):
-                raise AssertionError(f"flash_bwd {dn}: the all-padding row's "
-                                     f"gradient is not zero")
-            again = (flash_bwd_dq(*args, kv_mask=mask),
-                     *flash_bwd_dkv(*args, kv_mask=mask))
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv),
-                                                         again)):
-                raise AssertionError(f"flash_bwd {dn} {case}: a second "
-                                     f"launch gave other bits")
-            del again
+            got, errs = _bwd_rows(card, "bwd", case, q, k, v, dout, out, lse,
+                                  mask, causal)
+            rows += got
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
             worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"],
                                          errs["dv"])
-            # the (query, key) pairs this run's data needs: at or below the
-            # diagonal when causal, the unpadded keys otherwise
-            if causal:
-                pairs = 12 * b * s * (s + 1) / 2
-            else:
-                pairs = 12 * s * float(mask.sum()) if mask is not None \
-                    else 12 * b * s * s
-            item = q.element_size()
-            plane = q.numel() * item            # one [B,H,S,D] operand
-            stats = 2 * b * 12 * s * 4          # lse and delta, float32
-            mbytes = mask.numel() * 4 if mask is not None else 0
-            library_ms = time_sdpa_backward(q, k, v, dout, mask, causal)
-            for name, kern, plain, nbytes, products in (
-                    ("flash_bwd_dq",
-                     lambda: flash_bwd_dq(*args, kv_mask=mask),
-                     lambda: flash_bwd_dq_reference(*args, None, mask),
-                     5 * plane + stats + mbytes, 3),
-                    ("flash_bwd_dkv",
-                     lambda: flash_bwd_dkv(*args, kv_mask=mask),
-                     lambda: flash_bwd_dkv_reference(*args, None, mask),
-                     6 * plane + stats + mbytes, 4)):
-                flops = products * 2 * 64 * pairs
-                row = {"kernel": name, "dtype": dn, "case": case, "B": b,
-                       "S": s, "causal": causal,
-                       "max_abs_err": (errs["dq"] if name == "flash_bwd_dq"
-                                       else max(errs["dk"], errs["dv"])),
-                       "ms": time_device([kern] * 10),
-                       "call_ms": time_calls(kern),
-                       "plain_ms": time_device([plain] * 2),
-                       "library_ms": library_ms,
-                       "bytes": nbytes, "flops": flops}
-                _rate(row, dn)
-                rows.append(row)
-                log(f"[bwd] {name} {dn} {case} B={b} H=12 S={s} D=64 "
-                    f"{'causal' if causal else 'padded keys'}: err "
-                    f"{row['max_abs_err']:.3g} ms {row['ms']:.5f} (per call "
-                    f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
-                    f"bound {row['bound_ms']:.5f} ({row['bound_by']}"
-                    f"{_cuda_core_note(row)}) {row['tflops']:.1f} TFLOP/s, "
-                    f"{row['bound_share']:.3f} of the bound; sdpa-bwd "
-                    f"{library_ms:.5f}; a second launch bit-identical "
-                    f"[{card}]")
-            del q, k, v, dout, out, lse, delta, dq, dk, dv, ref
+            del q, k, v, dout, out, lse
     log("[bwd] detail " + json.dumps({"flash_fwd": fwd_rows,
                                       "backward": rows}))
     picked = {}
@@ -1828,6 +1770,94 @@ def phase_backward_kernels(card):
                            "tflops": main["tflops"],
                            "bound_share": main["bound_share"]}
     return picked
+
+
+def _bwd_rows(card, tag, case, q, k, v, dout, out, lse, mask, causal):
+    """``flash_bwd_dq`` and ``flash_bwd_dkv`` of ``q, k, v`` [B, H, S, D]
+    with cotangent ``dout``, from the forward's ``out`` and ``lse``: against
+    their plain versions within ``BWD_TOL`` x max |plain| per gradient (a
+    batch row whose keys are all padding gets exactly zero), a second
+    launch bit-identical, and each kernel's device ms by CUDA-graph replay
+    beside the plain version's, SDPA's backward (all three gradients in one
+    call, timed by itself) and the bound. Returns the two rows and the
+    errors by gradient."""
+    import torch
+    from sparkflow_tpu_torch.ops import (flash_attention_backward_reference,
+                                         flash_bwd_dkv,
+                                         flash_bwd_dkv_reference,
+                                         flash_bwd_dq, flash_bwd_dq_reference)
+    b, h, s, d = q.shape
+    dn = str(q.dtype).replace("torch.", "")
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, dout, lse, delta, causal)
+    dq = flash_bwd_dq(*args, kv_mask=mask)
+    dk, dv = flash_bwd_dkv(*args, kv_mask=mask)
+    ref = flash_attention_backward_reference(q, k, v, out, lse, dout, causal,
+                                             kv_mask=mask)
+    torch.cuda.synchronize()
+    errs = {}
+    for gname, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        e, top = max_err(a, r), float(r.float().abs().max())
+        if not (e <= BWD_TOL[dn] * top and torch.isfinite(a.float()).all()):
+            raise AssertionError(
+                f"flash_bwd {gname} {dn} {case} D={d}: max |d| {e} > "
+                f"{BWD_TOL[dn]} x max |plain| {top}")
+        errs[gname] = e
+    if mask is not None:
+        empty = mask.sum(-1) == 0
+        if not (torch.all(dq[empty] == 0) and torch.all(dk[empty] == 0)):
+            raise AssertionError(f"flash_bwd {dn} D={d}: the all-padding "
+                                 f"row's gradient is not zero")
+    again = (flash_bwd_dq(*args, kv_mask=mask),
+             *flash_bwd_dkv(*args, kv_mask=mask))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+        raise AssertionError(f"flash_bwd {dn} {case} D={d}: a second launch "
+                             f"gave other bits")
+    del again, dq, dk, dv, ref
+    # the (query, key) pairs this run's data needs: at or below the
+    # diagonal when causal, the unpadded keys otherwise
+    if causal:
+        pairs = h * b * s * (s + 1) / 2
+    else:
+        pairs = h * s * float(mask.sum()) if mask is not None \
+            else h * b * s * s
+    item = q.element_size()
+    plane = q.numel() * item            # one [B,H,S,D] operand
+    stats = 2 * b * h * s * 4           # lse and delta, float32
+    mbytes = mask.numel() * 4 if mask is not None else 0
+    library_ms = time_sdpa_backward(q, k, v, dout, mask, causal)
+    rows = []
+    for name, kern, plain, nbytes, products in (
+            ("flash_bwd_dq",
+             lambda: flash_bwd_dq(*args, kv_mask=mask),
+             lambda: flash_bwd_dq_reference(*args, None, mask),
+             5 * plane + stats + mbytes, 3),
+            ("flash_bwd_dkv",
+             lambda: flash_bwd_dkv(*args, kv_mask=mask),
+             lambda: flash_bwd_dkv_reference(*args, None, mask),
+             6 * plane + stats + mbytes, 4)):
+        flops = products * 2 * d * pairs
+        row = {"kernel": name, "dtype": dn, "case": case, "B": b, "H": h,
+               "S": s, "D": d, "causal": causal,
+               "max_abs_err": (errs["dq"] if name == "flash_bwd_dq"
+                               else max(errs["dk"], errs["dv"])),
+               "ms": time_device([kern] * 10),
+               "call_ms": time_calls(kern),
+               "plain_ms": time_device([plain] * 2),
+               "library_ms": library_ms,
+               "bytes": nbytes, "flops": flops}
+        _rate(row, dn)
+        rows.append(row)
+        log(f"[{tag}] {name} {dn} {case} B={b} H={h} S={s} D={d} "
+            f"{'causal' if causal else 'padded keys'}: err "
+            f"{row['max_abs_err']:.3g} ms {row['ms']:.5f} (per call "
+            f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} "
+            f"bound {row['bound_ms']:.5f} ({row['bound_by']}"
+            f"{_cuda_core_note(row)}) {row['tflops']:.1f} TFLOP/s, "
+            f"{row['bound_share']:.3f} of the bound; sdpa-bwd "
+            f"{library_ms:.5f}; a second launch bit-identical [{card}]")
+    return rows, errs
 
 
 def _train_spec(**over):
@@ -1923,23 +1953,19 @@ def phase_training(card):
     return launches
 
 
-def phase_train_exactness(card):
-    """Float32, TF32 off, full width cut to 2 layers: the training step
-    through the kernels against the same step through the plain attention
-    (autograd of ``attention_reference``), dropout draws shared."""
-    import numpy as np
+def _kernel_vs_plain_steps(model, init, x):
+    """Float32, TF32 off: one training step of ``model`` from the params
+    tree ``init`` on the ids ``x`` through the kernels against the same
+    step through the plain attention (autograd of ``attention_reference``),
+    dropout draws shared — the loss within 1e-5 relative, every gradient
+    within 1e-4 x its max |plain| — then 3 adam steps (3e-4) each way, their
+    losses within 1e-4 relative. Returns the numbers."""
     import torch
     from sparkflow_tpu_torch.core import make_train_step
-    from sparkflow_tpu_torch.models import model_from_json
     from sparkflow_tpu_torch.ops import attention_reference
     from sparkflow_tpu_torch.optimizers import build_optimizer, tree_leaves
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = model_from_json(_train_spec(num_layers=2))
-    init = {ln: {pn: t.detach().clone() for pn, t in layer.items()}
-            for ln, layer in model.init(seed=2).items()}
-    x = torch.as_tensor(np.random.default_rng(3).integers(
-        0, GPT2_SMALL["vocab_size"], (4, 1024)), device="cuda")
 
     def fresh():
         return model.load_params({ln: {pn: t.clone() for pn, t in l.items()}
@@ -1949,11 +1975,13 @@ def phase_train_exactness(card):
         return lambda p, xb, y, m, g: model.loss_vector(
             p, {"input_ids": xb}, True, g, attention=attention).mean()
 
+    def gen(seed):
+        return torch.Generator(device=x.device).manual_seed(seed)
+
     grads = {}
     for name, att in (("kernel", None), ("plain", attention_reference)):
         p = fresh()
-        loss = loss_fn(att)(p, x, None, None,
-                            torch.Generator(device="cuda").manual_seed(4))
+        loss = loss_fn(att)(p, x, None, None, gen(4))
         grads[name] = (float(loss.detach()),
                        torch.autograd.grad(loss, tree_leaves(p)))
     (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
@@ -1962,23 +1990,43 @@ def phase_train_exactness(card):
     ratio = max(max_err(a, b) / float(b.abs().max()) for a, b in zip(gk, gp))
     if not ratio <= 1e-4:
         raise AssertionError(f"gradients differ by {ratio} x max |plain|")
+    del grads, gk, gp
     traj = {}
     for name, att in (("kernel", None), ("plain", attention_reference)):
         p, opt = fresh(), build_optimizer("adam", 3e-4)
-        state, gen = opt.init(p), torch.Generator(device="cuda").manual_seed(5)
+        state, g = opt.init(p), gen(5)
         step = make_train_step(loss_fn(att), opt)
         traj[name] = []
         for _ in range(3):
-            p, state, loss = step(p, state, x, None, None, gen)
+            p, state, loss = step(p, state, x, None, None, g)
             traj[name].append(float(loss))
+        del p, state
     rel = max(abs(a - b) / abs(b) for a, b in zip(traj["kernel"],
                                                   traj["plain"]))
     if not rel <= 1e-4:
         raise AssertionError(f"adam losses {traj}: differ by {rel} relative")
-    log(f"[train-exactness] float32, 2 layers, B=4 S=1024: loss {lk:.7f} vs "
-        f"plain {lp:.7f}; max |dgrad| / max |grad| {ratio:.3g} over "
-        f"{len(gk)} leaves; 3 adam steps {traj['kernel']} vs "
-        f"{traj['plain']} (max rel {rel:.3g}) [{card}]")
+    return {"loss": lk, "loss_plain": lp, "grad_ratio": ratio,
+            "leaves": len(tree_leaves(init)), "adam": traj, "adam_rel": rel}
+
+
+def phase_train_exactness(card):
+    """Float32, TF32 off, full width cut to 2 layers: the training step
+    through the kernels against the same step through the plain attention
+    (:func:`_kernel_vs_plain_steps`)."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    model = model_from_json(_train_spec(num_layers=2))
+    init = {ln: {pn: t.detach().clone() for pn, t in layer.items()}
+            for ln, layer in model.init(seed=2).items()}
+    x = torch.as_tensor(np.random.default_rng(3).integers(
+        0, GPT2_SMALL["vocab_size"], (4, 1024)), device="cuda")
+    r = _kernel_vs_plain_steps(model, init, x)
+    log(f"[train-exactness] float32, 2 layers, B=4 S=1024: loss "
+        f"{r['loss']:.7f} vs plain {r['loss_plain']:.7f}; max |dgrad| / max "
+        f"|grad| {r['grad_ratio']:.3g} over {r['leaves']} leaves; 3 adam "
+        f"steps {r['adam']['kernel']} vs {r['adam']['plain']} (max rel "
+        f"{r['adam_rel']:.3g}) [{card}]")
 
 
 # BASELINE.md's transformer configuration, examples/bert_classifier.py at
@@ -4998,6 +5046,8 @@ def phase_tf1_hogwild(card, work, device=None):
 # phase 18: synchronous mesh training — ranks are processes on the card
 # (gloo over CUDA tensors, staged through pinned host memory: one card)
 MESH_RING_SHAPE = (8, 12, 1024, 64)   # the training shape, 512 a rank
+# GPT-J-6B's heads: 16 of 256 (the backward pair's instantiations above 128)
+MESH_RING_WIDE = (2, 16, 1024, 256)
 MESH_RING_REPS = 5
 MESH_EST_ROWS, MESH_EST_BATCH, MESH_EST_STEPS = 64, 32, 4
 MESH_SP_BATCH, MESH_SP_STEPS = 8, 3
@@ -5023,20 +5073,19 @@ def _mesh_rank_setup():
 
 def _mesh_ring_rank(cases):
     """(a) on each of 2 ranks: ``ring_flash_attention`` and the plain ring on
-    this rank's half of the training shape, forward and backward; the
-    kernels' launches over one ring call; a single-rank ``flash_attention``
-    over the whole sequence; ring fwd+bwd ms (CUDA events, rank 0's
-    reading)."""
+    this rank's half of each case's [B, H, S, D] shape, forward and
+    backward; the kernels' launches over one ring call; a single-rank
+    ``flash_attention`` over the whole sequence; ring fwd+bwd ms (CUDA
+    events, rank 0's reading)."""
     import torch
     from sparkflow_tpu_torch.ops import attention as A
     from sparkflow_tpu_torch.parallel.mesh import Mesh
     rank, dev, how = _mesh_rank_setup()
     mesh = Mesh({"sp": 2})
-    b, h, s, d = MESH_RING_SHAPE
-    sl = s // 2
-    cols = slice(rank * sl, (rank + 1) * sl)
     rows = []
-    for dtype_name, causal, masked in cases:
+    for dtype_name, causal, masked, (b, h, s, d) in cases:
+        sl = s // 2
+        cols = slice(rank * sl, (rank + 1) * sl)
         dt = getattr(torch, dtype_name)
         g = torch.Generator().manual_seed(11)
         q, k, v, do = (torch.randn(b, h, s, d, generator=g).to(dev, dt)
@@ -5383,15 +5432,19 @@ def phase_mesh(card, work, pool=None):
     labels = np.eye(2, dtype=np.float32)[[int(r["label"]) for r in rows]]
 
     with _pool_of(pool, "cuda") as pool:
-        # (a) the ring against its plain version and one card's flash
-        cases = [(dt, c, m) for dt in ("bfloat16", "float32")
+        # (a) the ring against its plain version and one card's flash, at
+        # the training shape and, in bf16, at GPT-J-6B's 256-wide heads
+        cases = [(dt, c, m, MESH_RING_SHAPE) for dt in ("bfloat16", "float32")
                  for c, m in ((True, False), (False, True))]
+        cases += [("bfloat16", c, m, MESH_RING_WIDE)
+                  for c, m in ((True, False), (False, True))]
         ring = pool.run(_mesh_ring_rank, cases)
         if {r["library"] for r in ring} != {"found"}:
             raise AssertionError(f"a rank did not load the built kernel "
                                  f"library: {[r['library'] for r in ring]}")
         ring_rows = []
-        for i, (dt, causal, masked) in enumerate(cases):
+        for i, (dt, causal, masked, shape) in enumerate(cases):
+            b, h, s, d = shape
             visits = 3 if causal else 4
             got = {n: sum(r["rows"][i]["launches"][n] for r in ring)
                    for n in MESH_NAMES}
@@ -5409,13 +5462,13 @@ def phase_mesh(card, work, pool=None):
                             f"ring {dt} causal={causal} rank {r['rank']} vs "
                             f"{ref}: {e[ref]}")
             row = {"dtype": dt, "causal": causal, "kv_mask": masked,
-                   "launches_summed_over_ranks": got,
+                   "shape": shape, "launches_summed_over_ranks": got,
                    "errs": [r["rows"][i]["errs"] for r in ring],
                    "ring_fwd_bwd_ms_rank0": ring[0]["rows"][i][
                        "ring_fwd_bwd_ms"]}
             ring_rows.append(row)
-            log(f"[mesh-ring] B=8 H=12 S=1024 (512 a rank) D=64 {dt} "
-                f"causal={causal} kv_mask={masked}: " + json.dumps(row)
+            log(f"[mesh-ring] B={b} H={h} S={s} ({s // 2} a rank) D={d} "
+                f"{dt} causal={causal} kv_mask={masked}: " + json.dumps(row)
                 + f" [{card}]")
         out["ring"] = ring_rows
         # (b) one estimator-shaped step profiled on rank 0
@@ -9220,6 +9273,12 @@ WIDE_LENS = (100, 150, 200, 300, 400, 500, 600, 700)   # (b), (c) prompts
 WIDE_NEW = 32
 WIDE_EXACT_LAYERS = 4                                  # (d) float32
 WIDE_HEADS = 16                                        # (a) the rows' heads
+# (e): 28 layers with adam in float32 hold 5.85 B x 16 bytes ~ 94 GB, past
+# the card's 80; 4 layers hold 16.3 GB (1.02 B parameters)
+WIDE_TRAIN_LAYERS = 4
+WIDE_TRAIN_BATCH, WIDE_TRAIN_SEQ, WIDE_TRAIN_ROWS = 4, 2048, 32
+WIDE_TRAIN_VOCAB = 1000     # (e) token ids drawn from the first 1,000
+WIDE_EXACT_TRAIN = dict(layers=2, batch=2, seq=1024)   # (f) float32
 
 
 def _wide_lm(compute_dtype, num_layers, seed, device=None):
@@ -9236,27 +9295,51 @@ def _wide_lm(compute_dtype, num_layers, seed, device=None):
 
 
 def _wide_kernel_rows(card):
-    """(a) Kernels 1 and 4-7 at head_dim 256 against their plain versions on
+    """(a) All seven kernels at head_dim 256 against their plain versions on
     the card, each launched twice for the same bits and timed by CUDA-graph
-    replay beside its bound: kernel 1 in bf16 and float32 at B=1 S=1024
-    H=16, causal (with SDPA's time); kernels 4/5 at the decode step's
-    operands (``DECODE_SHAPE``'s table and lengths) at H=16 over a bf16
-    and a float32 pool and, with bf16 queries, int8 and fp8 pools; kernels
-    6/7 at S=5 over the same pools. Returns the detail rows by kernel."""
+    replay beside its bound: kernels 1-3 in bf16 and float32 at B=1 S=1024
+    H=16, causal (with SDPA's forward and backward times; the backward
+    pair also against the bound of its five products together); kernels
+    4/5 at the decode step's operands (``DECODE_SHAPE``'s table and
+    lengths) at H=16 over a bf16 and a float32 pool and, with bf16
+    queries, int8 and fp8 pools; kernels 6/7 at S=5 over the same pools.
+    Returns the detail rows by kernel."""
     import torch
+    from sparkflow_tpu_torch.ops import flash_attention
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     h, d, s = WIDE_HEADS, GPTJ_6B["hidden"] // GPTJ_6B["num_heads"], 1024
     names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-    rows = {k: [] for k in ("flash_fwd", "paged_attention",
+    rows = {k: [] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                            "backward_pair", "paged_attention",
                             "paged_attention_quant", "paged_verify",
                             "paged_verify_quant")}
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device=dev).manual_seed(27)
-        q, k, v = (torch.randn(1, h, s, d, generator=g, device=dev)
-                   .to(dtype) for _ in range(3))
+        q, k, v, dout = (torch.randn(1, h, s, d, generator=g, device=dev)
+                         .to(dtype) for _ in range(4))
         rows["flash_fwd"].append(_flash_row(card, "wide-heads", q, k, v))
-        del q, k, v
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        (dq_row, dkv_row), _ = _bwd_rows(card, "wide-heads", "wide", q, k, v,
+                                         dout, out, lse, None, True)
+        rows["flash_bwd_dq"].append(dq_row)
+        rows["flash_bwd_dkv"].append(dkv_row)
+        # the pair: q, k, v, dO, L and D read once, dQ, dK, dV written once;
+        # the five products S, dP, dS K, P^T dO, dS^T Q over the causal pairs
+        pair = {"dtype": names[dtype], "B": 1, "H": h, "S": s, "D": d,
+                "ms": dq_row["ms"] + dkv_row["ms"],
+                "library_ms": dq_row["library_ms"],
+                "bytes": 7 * q.numel() * q.element_size() + 2 * h * s * 4,
+                "flops": 5 * 2 * d * h * s * (s + 1) / 2}
+        _rate(pair, names[dtype])
+        rows["backward_pair"].append(pair)
+        log(f"[wide-heads] backward pair {names[dtype]} B=1 H={h} S={s} "
+            f"D={d} causal: dq + dkv ms {pair['ms']:.5f}, sdpa-bwd "
+            f"{pair['library_ms']:.5f}, bound of the five products "
+            f"{pair['bound_ms']:.5f} ({pair['bound_by']}), "
+            f"{pair['tflops']:.1f} TFLOP/s, {pair['bound_share']:.3f} of the "
+            f"bound [{card}]")
+        del q, k, v, dout, out, lse
 
     b, _, _, page, _, num_pages = DECODE_SHAPE
     lengths, table = _decode_operands(dev)
@@ -9324,12 +9407,123 @@ def _wide_burst(card, eng, tag, seed, profile=True):
     return out
 
 
+def _wide_training(card, device=None):
+    """(e) ``Trainer.fit`` (the entry point ``SparkAsyncDL`` builds) on the
+    GPT-J-6B-width model cut to ``WIDE_TRAIN_LAYERS``: bf16 compute, adam
+    3e-4, dropout 0, ``TRAIN_STEPS`` epochs of one step of 4 x 2048 tokens
+    (ids from a 1,000-id sub-vocabulary, as phase 7) from weights drawn on
+    the card. Each step is timed on the host clock at the reference
+    ``loss_callback`` (untraced); the launch counters and the peak-memory
+    mark are reset just before the fit and read just after:
+    ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` launch
+    ``WIDE_TRAIN_LAYERS`` times a step each, the losses are finite and
+    fall. Returns the summary."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import build_registry_spec
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.trainer import Trainer
+    from sparkflow_tpu_torch.utils.flops import device_peak_flops
+    cuda = device is None or str(device).startswith("cuda")
+    layers, batch = WIDE_TRAIN_LAYERS, WIDE_TRAIN_BATCH
+    spec = build_registry_spec("transformer_lm",
+                               **dict(GPTJ_6B, num_layers=layers))
+    toks = np.random.default_rng(25).integers(
+        0, WIDE_TRAIN_VOCAB, (WIDE_TRAIN_ROWS, WIDE_TRAIN_SEQ)).astype(
+            np.float32)
+    _, init = _wide_lm("bfloat16", layers, seed=2, device=device)
+    marks, losses = [], []
+
+    def on_step(loss, it, partition):
+        # the trainer has read the epoch's loss back to the host: its one
+        # step is done
+        marks.append(time.perf_counter())
+        losses.append(loss)
+
+    tr = Trainer(spec, "input_ids", None, optimizer="adam",
+                 learning_rate=3e-4, iters=TRAIN_STEPS,
+                 mini_batch_size=batch, mini_stochastic_iters=1,
+                 compute_dtype="bfloat16", seed=0, loss_callback=on_step,
+                 device=device)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.fit(toks, init_params=init)
+    counts = launch_counts()
+    launches = {n: counts[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    peak_mem = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    want = layers * TRAIN_STEPS if cuda else 0
+    if len(losses) != TRAIN_STEPS or any(n != want
+                                         for n in launches.values()):
+        raise AssertionError(f"(e) {len(losses)} steps, launches {launches}; "
+                             f"each kernel must launch {want} times")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"(e) losses {losses}: not finite, or not "
+                             f"falling")
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    flops = tr._train_flops_per_batch(toks[:batch], None, None)
+    peak = device_peak_flops()
+    n = sum(t.numel() for lay in init.values() for t in lay.values())
+    summary = {"config": f"transformer_lm at GPT-J-6B widths cut to {layers} "
+                         f"layers ({n / 1e9:.3f} B parameters), bf16 "
+                         f"compute, adam 3e-4, dropout 0",
+               "steps": len(losses), "batch": batch, "seq": WIDE_TRAIN_SEQ,
+               "losses": losses, "step_ms": step_ms,
+               "first_step_includes": "fit set-up (staging, optimizer state)",
+               "step_ms_median_after_first": steady,
+               "tokens_per_s_after_first":
+                   batch * WIDE_TRAIN_SEQ / (steady / 1e3),
+               "flops_per_step": flops,
+               "mfu": (flops / (steady / 1e3) / peak) if peak else None,
+               "mfu_peak_flops": peak, "peak_mem_gb": peak_mem,
+               "launches": launches, "card": card}
+    log("[wide-heads] training " + json.dumps(summary))
+    return summary
+
+
+def _wide_train_exactness(card, device=None):
+    """(f) Float32, TF32 off, the GPT-J-6B-width model cut to 2 layers, B=2
+    S=1024: the training step through the kernels (the 3xTF32 forward and
+    backward at D = 256) against the same step through the plain attention
+    (:func:`_kernel_vs_plain_steps`); kernels 1-3 each launch 2 x 4 times
+    (one step, then 3 adam steps). Returns the launches."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    cuda = device is None or str(device).startswith("cuda")
+    cfg = WIDE_EXACT_TRAIN
+    model, init = _wide_lm(None, cfg["layers"], seed=3, device=device)
+    x = torch.as_tensor(np.random.default_rng(26).integers(
+        0, GPTJ_6B["vocab_size"], (cfg["batch"], cfg["seq"])),
+        device=model.device)
+    reset_launch_counts()
+    r = _kernel_vs_plain_steps(model, init, x)
+    counts = launch_counts()
+    launches = {n: counts[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    want = cfg["layers"] * 4 if cuda else 0
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"(f) launches {launches}, want {want} each")
+    log(f"[wide-heads] train-exactness: float32, {cfg['layers']} layers at "
+        f"GPT-J-6B widths, B={cfg['batch']} S={cfg['seq']}: loss "
+        f"{r['loss']:.7f} vs plain {r['loss_plain']:.7f}; max |dgrad| / max "
+        f"|grad| {r['grad_ratio']:.3g} over {r['leaves']} leaves; 3 adam "
+        f"steps {r['adam']['kernel']} vs {r['adam']['plain']} (max rel "
+        f"{r['adam_rel']:.3g}); launches {launches} [{card}]")
+    return launches
+
+
 def _wide_pick(wide, name):
     """The kernels-line entry of phase 27 for kernel ``name``: its rows at
-    D = 256 by query dtype (flash) or pool, and its launches in each arm
-    (none for the backward kernels, which take head_dim up to 128)."""
+    D = 256 by query dtype (flash) or pool, and its launches in each arm."""
     out = {"D": 256, "launches": {arm: counts.get(name, 0)
                                   for arm, counts in wide["launches"].items()}}
+    if name.startswith("flash_bwd"):
+        out["source"] = "sparkflow_tpu_torch/ops/csrc/flash_bwd_wide.cu"
     for r in wide["rows"].get(name, []):
         out[r.get("pool", r["dtype"])] = {"max_abs_err": r["max_abs_err"],
                                           **_pick(r)}
@@ -9337,12 +9531,12 @@ def _wide_pick(wide, name):
 
 
 def phase_wide_heads(card, device=None, kernels=True):
-    """Phase 27: head_dim 256 through the port's serving path at GPT-J-6B's
-    widths (``GPTJ_6B``). (a) With ``kernels``, kernels 1 and 4-7 at D =
-    256 against their plain versions (:func:`_wide_kernel_rows`; on the
-    card only; the whole script runs (a) beside phases 2, 9 and 6, alone on
-    the card, and (b)-(d) first once the ``--mesh-group`` process has
-    started). (b) The
+    """Phase 27: head_dim 256 through the port's serving and training paths
+    at GPT-J-6B's widths (``GPTJ_6B``). (a) With ``kernels``, all seven
+    kernels at D = 256 against their plain versions
+    (:func:`_wide_kernel_rows`; on the card only; the whole script runs (a)
+    beside phases 2, 9 and 6, alone on the card, and (b)-(f) first once the
+    ``--mesh-group`` process has started). (b) The
     bf16 model at all 28 layers behind ``InferenceServer`` ``/v1/generate``
     with a ``ContinuousBatcher`` and ``DecodeEngine(num_slots=8,
     page_size=16)``: one burst (:func:`_wide_burst`); ``flash_fwd`` must
@@ -9355,8 +9549,11 @@ def phase_wide_heads(card, device=None, kernels=True):
     forward and the float32-pool decode kernel at D = 256), and with
     ``spec_k=4`` (the float32 verify kernel too), equal the argmax of the
     dense forward over the plain attention, prefill logits within 1e-3.
-    ``device="cpu"`` rehearses (b)-(d) with the plain versions. Returns the
-    rows, the launches and the seconds of each part."""
+    (e) ``Trainer.fit`` at 4 layers, bf16 (:func:`_wide_training`). (f)
+    Float32 training exactness at 2 layers (:func:`_wide_train_exactness`).
+    Each arm's model is freed before the next. ``device="cpu"`` rehearses
+    (b)-(f) with the plain versions. Returns the rows, the launches and the
+    seconds of each part."""
     import gc
     import numpy as np
     import torch
@@ -9451,11 +9648,25 @@ def phase_wide_heads(card, device=None, kernels=True):
         f"[{card}]")
     del model, params
     gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
     lap("d_exact")
+    training = _wide_training(card, device)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    lap("e_training")
+    train_exact = _wide_train_exactness(card, device)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    lap("f_train_exact")
     log(f"[wide-heads] phase 27 by part {json.dumps(seconds)} [{card}]")
     return {"rows": rows, "launches": {"serving": serving["launches"],
                                        "spec_int8": spec["launches"],
-                                       "exactness": exact},
+                                       "exactness": exact,
+                                       "training": training["launches"],
+                                       "train_exactness": train_exact},
             "seconds": seconds}
 
 
@@ -9645,10 +9856,11 @@ def main(only: str = None) -> int:
         wide_rows = _timed("wide-kernels", _wide_kernel_rows, card)
         # the kernels' times are taken: phases 18-21 start beside the rest
         group = _start_mesh_group(work)
-        # phase 27 (b)-(d) first, beside the other process's phase 18: its
-        # 28-layer model (~33 GB) and phase 18's two ranks stay well clear
-        # of 80 GB together (the [memory] line); the other process runs no
-        # profiler before phase 23 counts kernel events in its traces
+        # phase 27 (b)-(f) first, beside the other process's phase 18: its
+        # 28-layer model (~33 GB) or its 4-layer fit, and phase 18's two
+        # ranks, stay clear of 80 GB together (the [memory] line); the other
+        # process runs no profiler before phase 23 counts kernel events in
+        # its traces
         wide = _timed("wide-heads", phase_wide_heads, card, None, False)
         launches, eng = _timed("serving", phase_serving, card)
         _timed("profile", phase_profile, card, eng)
@@ -9805,8 +10017,9 @@ def main(only: str = None) -> int:
         # phase 27: at head_dim 256 (GPT-J-6B's widths), the kernel against
         # its plain version (bf16 and float32, and the int8 and fp8 pools
         # for the quantized kernels) and its launches in (b) the 28-layer
-        # bf16 burst, (c) the int8 + spec_k=4 burst and (d) the float32
-        # 4-layer exactness arm
+        # bf16 burst, (c) the int8 + spec_k=4 burst, (d) the float32
+        # 4-layer exactness arm, (e) the 4-layer bf16 fit and (f) the
+        # float32 2-layer training exactness arm
         row["wide_heads"] = _wide_pick(wide, row["name"])
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -41,11 +41,9 @@ head_dim]``, as in the JAX package. Unlike the TPU kernels there are no
 tile rules: the CUDA kernels mask their ragged edges and take every
 sequence length, with queries in float32 or bfloat16 and quantized pools in
 int8 or float8_e4m3fn. ``head_dim`` is a multiple of 8 up to
-:data:`MAX_HEAD_DIM` (256) for the forward, decode and verify kernels — the
-serving path — and up to :data:`BWD_MAX_HEAD_DIM` (128) for the backward
-pair; on the card a wider head raises ``ValueError``, and a differentiable
-call raises before its forward launches. The verify kernel takes up to
-:data:`MAX_VERIFY_ROWS` query rows per slot.
+:data:`MAX_HEAD_DIM` (256) for every kernel, the backward pair included; on
+the card a wider head raises ``ValueError`` before any launch. The verify
+kernel takes up to :data:`MAX_VERIFY_ROWS` query rows per slot.
 """
 
 from __future__ import annotations
@@ -94,26 +92,14 @@ def _check_kernel_operands(name: str, dtype: torch.dtype, *tensors) -> None:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
 
 
-#: widest head the forward, decode and verify kernels take
+#: widest head the kernels take
 MAX_HEAD_DIM = 256
-#: widest head the backward kernels (dq, dk/dv) take
-BWD_MAX_HEAD_DIM = 128
 
 
-def _check_head_dim(name: str, d: int, top: int = MAX_HEAD_DIM) -> None:
-    if d % 8 or not 8 <= d <= top:
+def _check_head_dim(name: str, d: int) -> None:
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim must be a multiple of 8 in "
-                         f"[8, {top}], got {d}")
-
-
-def _check_grad_head_dim(name: str, q, *others) -> None:
-    """On the card, a call whose gradient will be taken needs the backward
-    kernels' head_dim: refuse it before the forward launches, so a training
-    step fails whole."""
-    if (q.device.type == "cuda" and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q,) + others)):
-        _check_head_dim(f"{name} (its backward)", q.shape[-1],
-                        BWD_MAX_HEAD_DIM)
+                         f"[8, {MAX_HEAD_DIM}], got {d}")
 
 
 # ---------------------------------------------------------------------------
@@ -145,13 +131,12 @@ def _check_shapes(name: str, q, k, v, *like_q) -> None:
         raise ValueError(f"{name}: {got} do not match")
 
 
-def _flash_operands(name: str, q, k, v, kv_mask, *like_q,
-                    max_head_dim: int = MAX_HEAD_DIM):
+def _flash_operands(name: str, q, k, v, kv_mask, *like_q):
     """Check the flash kernels' operands (shapes already checked) and ready
     them for a launch: ``head_dim`` contiguous, the [B, S_k] mask float32
     and contiguous. Returns ``(q, k, v, *like_q, kv_mask)``."""
     _check_kernel_operands(name, q.dtype, q, k, v, *like_q)
-    _check_head_dim(name, q.shape[-1], max_head_dim)
+    _check_head_dim(name, q.shape[-1])
     ts = tuple(t if t.stride(-1) == 1 else t.contiguous()
                for t in (q, k, v) + like_q)
     if kv_mask is not None:
@@ -225,7 +210,6 @@ def flash_attention(q, k, v, causal: bool = False,
     if (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                      or v.requires_grad)) or _mapped(
                                          q, k, v, kv_mask):
-        _check_grad_head_dim("flash_attention", q, k, v)
         out, lse = FlashAttentionFunction.apply(q, k, v, kv_mask,
                                                 bool(causal), float(scale))
         return (out, lse) if return_lse else out
@@ -349,8 +333,7 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, kv_mask):
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name}: {what} must be a contiguous float32 "
                              f"[B, H, S] = {want} tensor on {q.device}")
-    *ts, kv_mask = _flash_operands(name, q, k, v, kv_mask, dout,
-                                   max_head_dim=BWD_MAX_HEAD_DIM)
+    *ts, kv_mask = _flash_operands(name, q, k, v, kv_mask, dout)
     return (*(_cp_async_ready(t) for t in ts), kv_mask)
 
 
@@ -363,10 +346,11 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     ``_flash_bwd_dq_kernel``) on the tensor cores: in bf16 for bfloat16
     operands (P and dS rounded to bfloat16 before the second product), in
     3xTF32 for float32 ones (each product as three TF32 products of a
-    big/small split, float32-accurate). Operands whose rows are not 16-byte
-    aligned are copied first (:func:`_cp_async_ready`). dQ is allocated
-    [B,S,H,D]-contiguous and returned as its [B,H,S,D] view, like the
-    forward's output."""
+    big/small split, float32-accurate); above head_dim 128, the
+    instantiations of ``csrc/flash_bwd_wide.cu``. Operands whose rows are
+    not 16-byte aligned are copied first (:func:`_cp_async_ready`). dQ is
+    allocated [B,S,H,D]-contiguous and returned as its [B,H,S,D] view, like
+    the forward's output."""
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if _route(q) == "reference":
         return flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal,
@@ -399,7 +383,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of flash attention; operands as :func:`flash_bwd_dq`. On the
     card this launches the dk/dv kernel of ``csrc/flash_bwd.cu`` (the port
-    of the TPU ``_flash_bwd_dkv_kernel``), by dtype as there."""
+    of the TPU ``_flash_bwd_dkv_kernel``), by dtype as there; above
+    head_dim 128 one call launches two kernels of ``csrc/flash_bwd_wide.cu``,
+    dV's and dK's (one launch count, as one call of the TPU kernel)."""
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if _route(q) == "reference":
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal,
@@ -1083,7 +1069,6 @@ def ring_flash_attention(q, k, v, axis_name: str, causal: bool = False,
                          "have the same sequence length")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
-    _check_grad_head_dim("ring_flash_attention", q, k, v)
     if kv_mask is not None:
         kv_mask = kv_mask.to(device=q.device, dtype=torch.float32)
     return RingFlashAttentionFunction.apply(q, k, v, kv_mask, axis_name,

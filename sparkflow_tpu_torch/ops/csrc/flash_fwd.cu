@@ -411,17 +411,6 @@ bool cp_async_ready(const void* q, const void* k, const void* v,
   return true;
 }
 
-// head_dim in (128, 256] rounded up to 32: the forward's own instantiations
-// above 128 (the backward kernels stop at 128), zero-padded past D as below
-#define SF_DISPATCH_WIDE(fn, d, ...)              \
-  switch ((d + 31) / 32 * 32) {                   \
-    case 160: return fn<160>(__VA_ARGS__);        \
-    case 192: return fn<192>(__VA_ARGS__);        \
-    case 224: return fn<224>(__VA_ARGS__);        \
-    case 256: return fn<256>(__VA_ARGS__);        \
-    default: return cudaErrorInvalidValue;        \
-  }
-
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
                          const float* mask, void* o, float* lse, int B, int H,
                          int S, int Sk, int D, const Strides& st, float scale,

@@ -123,7 +123,8 @@ __device__ __forceinline__ void accum_to_a_split(uint32_t (&big)[4],
 // Tile rows the float32 kernels visit per step: 64, or 32 above HD = 64,
 // where shared memory (and in dkv the two HD-wide accumulators) would
 // leave one block an SM; the forward's instantiations above HD = 128 keep
-// 32 and one block an SM.
+// 32 and one block an SM (the backward's there: flash_bwd.cuh
+// tf32_bwd_tile).
 template <int HD>
 __host__ __device__ constexpr int tf32_tile() { return HD <= 64 ? 64 : 32; }
 
@@ -171,5 +172,18 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
     case 112: return fn<112>(__VA_ARGS__);        \
     case 120: return fn<120>(__VA_ARGS__);        \
     case 128: return fn<128>(__VA_ARGS__);        \
+    default: return cudaErrorInvalidValue;        \
+  }
+
+// Dispatch on head_dim in (128, 256] rounded up to 32 (160, 192, 224, 256):
+// the instantiations above 128 of the forward and backward kernels, bf16 and
+// float32, whose columns past head_dim are zero-filled on load and not
+// stored.
+#define SF_DISPATCH_WIDE(fn, d, ...)              \
+  switch ((d + 31) / 32 * 32) {                   \
+    case 160: return fn<160>(__VA_ARGS__);        \
+    case 192: return fn<192>(__VA_ARGS__);        \
+    case 224: return fn<224>(__VA_ARGS__);        \
+    case 256: return fn<256>(__VA_ARGS__);        \
     default: return cudaErrorInvalidValue;        \
   }

@@ -250,10 +250,11 @@ def test_flash_bwd_bf16_head_dims_ragged(dev, d):
         q, k, v, out, lse, dout, True), torch.bfloat16)
 
 
-@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
 def test_flash_bwd_bf16_every_head_dim(dev, d):
-    """Every head_dim the wrapper takes (a multiple of 8 in [8, 128]) runs
-    on the bf16 kernels, non-causal with padded keys."""
+    """Every head_dim the wrapper takes (a multiple of 8 in [8, 256]) runs
+    on the bf16 kernels (above 128 the instantiations at head_dim rounded
+    up to 32, dK and dV by two kernels), non-causal with padded keys."""
     from sparkflow_tpu_torch.ops import (flash_attention_backward,
                                          flash_attention_backward_reference)
     q, k, v, out, lse, dout, mask = _bwd_case(
@@ -683,14 +684,15 @@ def test_paged_verify_split_every_head_dim(dev, dtype, pool, d):
     assert torch.equal(out, again)
 
 
-@pytest.mark.parametrize("d", [136, 256])
-def test_backward_refuses_head_dim_above_128(dev, d):
-    """The backward kernels take head_dim up to 128: at 136 and 256 the dq
-    and dk/dv wrappers raise ValueError naming it, in both dtypes, and a
-    forward whose gradient is wanted raises before it launches; no kernel
-    is launched and nothing falls back to a plain version."""
+def test_every_kernel_refuses_head_dim_above_256(dev):
+    """At head_dim 264 every kernel's wrapper raises ValueError naming it,
+    in both dtypes, before any launch: the forward (also when a gradient
+    is wanted), the backward pair, decode over a plain and an int8 pool,
+    verify; nothing falls back to a plain version."""
     from sparkflow_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq,
-                                         launch_counts)
+                                         launch_counts,
+                                         paged_attention_verify)
+    d = 264
     before = launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(d)
@@ -699,28 +701,58 @@ def test_backward_refuses_head_dim_above_128(dev, d):
         lse = torch.zeros(1, 2, 64, device=dev)
         delta = torch.zeros(1, 2, 64, device=dev)
         with pytest.raises(ValueError, match=f"got {d}"):
+            flash_attention(q, k, v, causal=True)
+        with pytest.raises(ValueError, match=f"got {d}"):
+            flash_attention(q.clone().requires_grad_(), k, v, causal=True)
+        with pytest.raises(ValueError, match=f"got {d}"):
             flash_bwd_dq(q, k, v, dout, lse, delta, causal=True)
         with pytest.raises(ValueError, match=f"got {d}"):
             flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
-        if d == 256:
-            with pytest.raises(ValueError, match="got 256"):
-                flash_attention(q.requires_grad_(), k, v, causal=True)
+        for pool in (None, "int8"):
+            qd, kp, vp, table, lengths, sc = _decode_case(
+                dev, dtype, pool, (0, 17, 100), d=d, h=2, maxp=8, seed=d)
+            with pytest.raises(ValueError, match=f"got {d}"):
+                paged_attention(qd, kp, vp, table, lengths, **sc)
+            qv = torch.randn(3, 2, 5, d, generator=g, device=dev).to(dtype)
+            with pytest.raises(ValueError, match=f"got {d}"):
+                paged_attention_verify(qv, kp, vp, table,
+                                       _verify_starts(lengths, 5), **sc)
     torch.cuda.synchronize()
     assert launch_counts() == before
 
 
 @pytest.mark.parametrize("case", ["fwd-bf16", "fwd-f32", "decode-f32",
                                   "decode-bf16", "decode-int8", "verify-f32",
-                                  "verify-fp8"])
+                                  "verify-fp8", "bwd-bf16", "bwd-f32"])
 def test_wide_head_kernels_replay_in_a_cuda_graph(dev, case):
     """Each head_dim-256 instantiation captured in a CUDA graph and
     replayed equals the eager call, and after new inputs are copied into
-    the same tensors (new q values and mask, new lengths or starts) a
-    replay equals the eager call on them."""
-    from sparkflow_tpu_torch.ops import paged_attention_verify
+    the same tensors (new q values and mask, new lengths or starts, a new
+    dO) a replay equals the eager call on them. The backward's dk/dv call
+    is two launches there (dV's kernel, then dK's)."""
+    from sparkflow_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq,
+                                         paged_attention_verify)
     kind, dn = case.split("-")
     g = torch.Generator(device=dev).manual_seed(24)
-    if kind == "fwd":
+    if kind == "bwd":
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dn]
+        q, k, v, dout = (torch.randn(2, 4, 300, 256, generator=g,
+                                     device=dev).to(dtype) for _ in range(4))
+        mask = torch.ones(2, 300, device=dev)
+        mask[1, 140:] = 0
+        out, lse = flash_attention(q, k, v, kv_mask=mask, return_lse=True)
+        delta = (dout.float() * out.float()).sum(-1).contiguous()
+
+        def call():
+            args = (q, k, v, dout, lse, delta, False)
+            return (flash_bwd_dq(*args, kv_mask=mask),
+                    *flash_bwd_dkv(*args, kv_mask=mask))
+
+        def change():
+            dout.copy_(torch.randn(dout.shape, generator=g, device=dev))
+            mask[1, 140:200] = 1
+            mask[0, 30:] = 0
+    elif kind == "fwd":
         dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dn]
         q, k, v = (torch.randn(2, 4, 300, 256, generator=g, device=dev).to(
             dtype) for _ in range(3))
@@ -986,11 +1018,12 @@ def _bwd_f32(q, k, v, out, lse, dout, causal, mask=None):
     return got
 
 
-@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
 def test_flash_bwd_f32_every_head_dim(dev, d):
-    """Every head_dim the float32 entry takes (a multiple of 8 in [8, 128]),
-    each its own 3xTF32 instantiation: causal over a ragged S = 150, and
-    non-causal with padded keys."""
+    """Every head_dim the float32 entry takes (a multiple of 8 in [8, 256]),
+    each its own 3xTF32 instantiation up to 128 and one of four (head_dim
+    rounded up to 32, dK and dV by two kernels) above: causal over a ragged
+    S = 150, and non-causal with padded keys."""
     for causal, rows in ((True, ()), (False, (150, 61))):
         q, k, v, out, lse, dout, mask = _bwd_case(
             dev, torch.float32, 2, 150, causal, mask_rows=rows, seed=d, h=2,
