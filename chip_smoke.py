@@ -769,12 +769,13 @@ def phase_setup():
                 if re.search(r"[1-9]\d* bytes spill", ln):
                     spilled.append(name)
     log(f"[setup] instantiations that spill: {spilled or 'none'}")
-    # the tensor-core (bf16 and 3xTF32), the split verify and the cluster
-    # decode kernels are held to no spill
+    # the tensor-core (bf16 and 3xTF32), the split verify, the cluster
+    # decode and the column-sliced kernels are held to no spill
     held = ("flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma",
             "flash_fwd_tf32", "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32",
             "paged_verify_split", "paged_verify_combine",
-            "paged_attention_kernel")
+            "paged_attention_kernel", "flash_fwd_sliced",
+            "flash_bwd_dq_sliced", "flash_bwd_dkv_sliced", "paged_sliced")
     bad = [n for n in spilled if n and n.startswith(held)]
     if bad:
         raise AssertionError(f"ptxas spills registers in {bad}")
@@ -844,9 +845,10 @@ def phase_kernels(card):
             {"max_abs_err": paged_err, **_decode_pick(paged_rows, "bfloat16")})
 
 
-def _flash_row(card, tag, q, k, v):
+def _flash_row(card, tag, q, k, v, mask=None):
     """Check and time ``flash_attention`` of ``q``, ``k``, ``v`` [B, H, S,
-    D], causal: output and logsumexp against ``attention_reference``
+    D], causal, or with ``mask`` ([B, S] key padding, every row with a live
+    key) non-causal: output and logsumexp against ``attention_reference``
     within ``FLASH_TOL`` / ``LSE_TOL``, a second launch bit-identical;
     device ms by CUDA-graph replay beside the plain version's, SDPA's and
     the bound. Returns the detail row."""
@@ -855,9 +857,11 @@ def _flash_row(card, tag, q, k, v):
     from sparkflow_tpu_torch.ops import attention_reference, flash_attention
     b, h, s, d = q.shape
     dn = str(q.dtype).replace("torch.", "")
-    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-    again = flash_attention(q, k, v, causal=True, return_lse=True)
-    ref, ref_lse = attention_reference(q, k, v, causal=True, return_lse=True)
+    causal = mask is None
+    kw = dict(causal=causal, kv_mask=mask)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    again = flash_attention(q, k, v, return_lse=True, **kw)
+    ref, ref_lse = attention_reference(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     e, el = max_err(out, ref), max_err(lse, ref_lse)
     if not (e < FLASH_TOL[dn] and el < LSE_TOL[dn]):
@@ -867,20 +871,25 @@ def _flash_row(card, tag, q, k, v):
     if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
         raise AssertionError(f"flash_fwd {dn} S={s} D={d}: a second launch "
                              f"gave other bits")
-    kern = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    kern = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+    attn_mask = None if causal else (mask > 0)[:, None, None, :]
     row = {"dtype": dn, "B": b, "H": h, "S": s, "D": d, "max_abs_err": e,
            "lse_err": el, "ms": time_device([kern] * 20),
            "call_ms": time_calls(kern),
            "plain_ms": time_device([lambda: attention_reference(
-               q, k, v, causal=True)] * 5),
+               q, k, v, **kw)] * 5),
            "library_ms": time_device([lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True)] * 20),
-           # q, k, v read once, O written once; causal QK^T and PV over the
-           # S(S+1)/2 (query, key) pairs at or below the diagonal
-           "bytes": 4 * q.numel() * q.element_size(),
-           "flops": 4 * d * b * h * s * (s + 1) / 2}
+               q, k, v, attn_mask=attn_mask, is_causal=causal)] * 20),
+           # q, k, v read once, O written once (and the mask); QK^T and PV
+           # over the (query, key) pairs this run's data needs: the S(S+1)/2
+           # at or below the diagonal, or the live keys
+           "bytes": 4 * q.numel() * q.element_size() + (
+               0 if causal else mask.numel() * 4),
+           "flops": 4 * d * h * (b * s * (s + 1) / 2 if causal
+                                 else s * float(mask.sum()))}
     _rate(row, dn)
-    log(f"[{tag}] flash_fwd {dn} B={b} H={h} S={s} D={d} causal: err {e:.3g} "
+    log(f"[{tag}] flash_fwd {dn} B={b} H={h} S={s} D={d} "
+        f"{'causal' if causal else 'padded keys'}: err {e:.3g} "
         f"lse_err {el:.3g} ms {row['ms']:.5f} (per call "
         f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} sdpa "
         f"{row['library_ms']:.5f} bound {row['bound_ms']:.5f} "
@@ -9670,6 +9679,489 @@ def phase_wide_heads(card, device=None, kernels=True):
             "seconds": seconds}
 
 
+# Phase 28: every head_dim and verify rows past 16. TinyBERT General 4L-312D
+# (huawei-noah/TinyBERT_General_4L_312D config.json: hidden_size 312,
+# num_attention_heads 12, so head_dim 26; intermediate_size 1200,
+# num_hidden_layers 4, vocab_size 30522, max_position_embeddings 512,
+# hidden_dropout_prob 0.1) as the repo's transformer_classifier: a
+# BERT-class encoder with a mean-pooled head, pre-LN with a final
+# LayerNorm where BERT is post-LN. Random weights from a seed.
+TINYBERT_4L = dict(vocab_size=30522, num_classes=2, hidden=312, num_layers=4,
+                   num_heads=12, mlp_dim=1200, max_len=512, dropout=0.1)
+HD_ROWS, HD_BATCH = 128, 32          # (b) 4 steps of 32 x 512
+HD_SPEC_K = 16                       # (c) 17 verify rows a slot: two groups
+HD_EXACT_LAYERS = 4                  # (c) the float32 exactness arm
+# (d) heads of 512: no public model has them; the JAX package runs them
+WIDE512_LM = dict(vocab_size=1000, hidden=1024, num_layers=2, num_heads=2,
+                  mlp_dim=4096, max_len=1024, dropout=0.0)
+# (a) the verify rows: (head_dim, heads, S)
+HD_VERIFY = ((26, 12, 17), (64, 12, 17), (64, 12, 33), (512, 4, 17))
+
+
+def _hd_kernel_rows(card):
+    """(a) All seven kernels at the new widths against their plain versions
+    on the card, each launched twice for the same bits and timed by
+    CUDA-graph replay beside its bound: kernels 1-3 at TinyBERT's predict
+    bucket (B=32 H=12 S=512 D=26, ragged key padding; the tensor-core
+    kernels on operands zero-padded to 32, the staging copy timed alone)
+    and at D=512 (B=1 H=2 S=1024 causal; the column-sliced kernels), bf16
+    and float32, with SDPA's times; kernels 4/5 at the decode step's table
+    and lengths (8 slots) at D=26 (H=12) and D=512 (H=4) over a bf16 and an
+    int8 pool, bf16 queries; kernels 6/7 at S=17 (D=26, 64, 512) and S=33
+    (D=64) over the same pools. Returns the detail rows by kernel."""
+    import torch
+    from sparkflow_tpu_torch.ops import flash_attention
+    from sparkflow_tpu_torch.ops.attention import _flash_head, _pad_head
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    rows = {k: [] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                            "staging", "paged_attention",
+                            "paged_attention_quant", "paged_verify",
+                            "paged_verify_quant")}
+    bucket_mask = torch.as_tensor(_predict_rows(32, 28)[1], device=dev)
+    for d, b, h, s, mask in ((26, 32, 12, 512, bucket_mask),
+                             (512, 1, 2, 1024, None)):
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=dev).manual_seed(d)
+            q, k, v, dout = (torch.randn(b, h, s, d, generator=g, device=dev)
+                             .to(dtype) for _ in range(4))
+            row = _flash_row(card, "head-dims", q, k, v, mask)
+            rows["flash_fwd"].append(row)
+            causal = mask is None
+            out, lse = flash_attention(q, k, v, causal=causal, kv_mask=mask,
+                                       return_lse=True)
+            (dq_row, dkv_row), _ = _bwd_rows(card, "head-dims", f"D={d}", q,
+                                             k, v, dout, out, lse, mask,
+                                             causal)
+            rows["flash_bwd_dq"].append(dq_row)
+            rows["flash_bwd_dkv"].append(dkv_row)
+            dp = _flash_head(d)
+            if dp != d:
+                # the wrapper's staging of q, k, v into zero-padded operands
+                # (inside the forward's time above), alone
+                st = {"dtype": names[dtype], "D": d, "padded_to": dp,
+                      "ms": time_device([lambda: [_pad_head(t, dp)
+                                                  for t in (q, k, v)]] * 5),
+                      "forward_ms": row["ms"]}
+                rows["staging"].append(st)
+                log(f"[head-dims] staging q, k, v {names[dtype]} B={b} H={h} "
+                    f"S={s} D={d} -> {dp}: ms {st['ms']:.5f} of the "
+                    f"forward's {row['ms']:.5f} [{card}]")
+            del q, k, v, dout, out, lse
+
+    b, _, _, page, _, num_pages = DECODE_SHAPE
+    lengths, table = _decode_operands(dev)
+    zero_page, grow_page = int(table[5, 0]), int(table[6, 1])
+
+    def pools_of(d, h, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        kp = torch.randn(num_pages, page, h, d, generator=g, device=dev)
+        vp = torch.randn(num_pages, page, h, d, generator=g, device=dev)
+        return g, {"bfloat16": ((kp.to(torch.bfloat16), None),
+                                (vp.to(torch.bfloat16), None)),
+                   "int8": _quant_pools(kp, vp, "int8", zero_page,
+                                        grow_page)}
+
+    for d, h in ((26, 12), (512, 4)):
+        g, pools = pools_of(d, h, d + 1)
+        q1 = torch.randn(b, h, d, generator=g, device=dev).to(torch.bfloat16)
+        for pool_name, ((kq, ks), (vq, vs)) in pools.items():
+            sc = {} if ks is None else dict(k_scales=ks, v_scales=vs)
+            row = _decode_row(card, "head-dims", q1, kq, vq, sc, "decode")
+            row["D"] = d
+            rows[row["kernel"]].append(row)
+        del pools
+    for d, h, S in HD_VERIFY:
+        g, pools = pools_of(d, h, d + S)
+        # the verify query as the model hands it over: a strided view of
+        # one [B, S, 3, H, D] qkv projection
+        qs = torch.randn(b, S, 3, h, d, generator=g, device=dev).to(
+            torch.bfloat16).permute(2, 0, 3, 1, 4)[0]
+        start = (lengths - S).clamp(min=0).to(torch.int32)
+        for pool_name, pool in pools.items():
+            name = "paged_verify" if pool_name == "bfloat16" \
+                else "paged_verify_quant"
+            row = _verify_row(card, "head-dims", name, qs, pool, table,
+                              start, pool_name, "verify")
+            row["D"] = d
+            rows[name].append(row)
+        del pools
+    log("[head-dims] detail " + json.dumps(rows))
+    return rows
+
+
+def _hd_tinybert(card, work, device=None):
+    """(b) TinyBERT-4L-312D (``TINYBERT_4L``, float32: the estimator gives
+    its Trainer no compute dtype) through
+    ``Pipeline([OneHotEncoder, SparkAsyncDL]).fit`` with ``weightsPath``
+    (``HD_ROWS`` rows of 512 tokens, batch ``HD_BATCH``, adam 3e-4) and
+    ``transform``: kernels 1-3 launch 4 times a step (4 layers) at D = 26,
+    ``flash_fwd`` 4 times a transform partition. One step's loss on the
+    fitted weights through the kernels within 1e-5 relative of the same
+    step through ``attention_reference`` (dropout draws shared), its
+    gradients within 1e-4 of their max. The fitted weights in an
+    ``InferenceEngine`` at bucket 32 x 512, float32 and bf16: the bucket's
+    ms and launches, and the float32 engine's probs against the plain
+    attention's. Returns the summary."""
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.convert import list_to_params
+    from sparkflow_tpu_torch.localml import (LocalSession, OneHotEncoder,
+                                             Pipeline)
+    from sparkflow_tpu_torch.ml_util import resolve_weights
+    from sparkflow_tpu_torch.models import build_registry_spec, model_from_json
+    from sparkflow_tpu_torch.ops import (attention_reference, launch_counts,
+                                         reset_launch_counts)
+    from sparkflow_tpu_torch.optimizers import tree_leaves
+    from sparkflow_tpu_torch.serving import InferenceEngine
+    from sparkflow_tpu_torch.tensorflow_async import SparkAsyncDL
+    cuda = device is None or str(device).startswith("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    layers = TINYBERT_4L["num_layers"]
+    spark = LocalSession.builder.appName("tinybert").getOrCreate()
+    seq, vocab = TINYBERT_4L["max_len"], TINYBERT_4L["vocab_size"]
+    df = synthetic_text(spark, HD_ROWS, seq, vocab)
+    spec = build_registry_spec("transformer_classifier", **TINYBERT_4L)
+    losses = []
+    est = SparkAsyncDL(
+        inputCol="tokens", tensorflowGraph=spec, tfInput="input_ids:0",
+        tfLabel="y:0", tfOutput="pred:0", tfOptimizer="adam",
+        tfLearningRate=3e-4, iters=1, miniBatchSize=HD_BATCH,
+        labelCol="labels", predictionCol="predicted", extraInputCols="mask",
+        extraTfInputs="attention_mask:0",
+        weightsPath=os.path.join(work, "tinybert"), device=device)
+    est.setLossCallback(lambda loss, it, part: losses.append(loss))
+    pipe = Pipeline(stages=[OneHotEncoder(inputCol="label",
+                                          outputCol="labels",
+                                          dropLast=False), est])
+    reset_launch_counts()
+    fitted, fit_s, gaps = _marked_fit(lambda: pipe.fit(df), cuda)
+    fit_launches = {n: launch_counts()[n] for n in names}
+    steps = len(gaps) + 1
+    want_steps = -(-HD_ROWS // HD_BATCH)
+    want = layers * want_steps if cuda else 0
+    if steps != want_steps or any(fit_launches[n] != want for n in names):
+        raise AssertionError(f"(b) {steps} steps, launches {fit_launches}; "
+                             f"each kernel must launch {want} times")
+    if not (losses and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"(b) losses {losses}: not finite")
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    preds = fitted.transform(df).collect()
+    _sync(cuda)
+    transform_s = time.perf_counter() - t1
+    tr_launches = {n: launch_counts()[n] for n in names}
+    parts = df.rdd.getNumPartitions()
+    if tr_launches != {"flash_fwd": layers * parts if cuda else 0,
+                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise AssertionError(f"(b) transform launches {tr_launches}; want "
+                             f"{layers} x {parts} partitions of flash_fwd")
+    if len(preds) != HD_ROWS or not all(r["predicted"] in (0.0, 1.0)
+                                        for r in preds):
+        raise AssertionError("(b) transform: a row without a class")
+
+    # one step's loss and gradients through the kernels against the plain
+    # attention, on the fitted weights and the first batch
+    stage = fitted.stages[-1]
+    weights = stage.getOrDefault(stage.modelWeights)
+    model = model_from_json(spec, device=device)
+    init = list_to_params(model, resolve_weights(weights))
+    first = df.collect()[:HD_BATCH]
+    feeds = {"input_ids": torch.tensor(np.stack(
+                 [r["tokens"].toArray() for r in first]),
+                 dtype=torch.float32, device=model.device),
+             "attention_mask": torch.tensor(np.stack(
+                 [r["mask"].toArray() for r in first]),
+                 dtype=torch.float32, device=model.device),
+             "y": torch.tensor(np.eye(2)[[int(r["label"]) for r in first]],
+                               dtype=torch.float32, device=model.device)}
+    step = {}
+    for name, att in (("kernel", None), ("plain", attention_reference)):
+        p = model.load_params({ln: {pn: t.clone() for pn, t in lay.items()}
+                               for ln, lay in init.items()}, trainable=True)
+        gen = torch.Generator(device=model.device).manual_seed(4)
+        loss = model.loss_vector(p, feeds, True, gen, attention=att).mean()
+        step[name] = (float(loss.detach()),
+                      torch.autograd.grad(loss, tree_leaves(p)))
+    (lk, gk), (lp, gp) = step["kernel"], step["plain"]
+    ratio = max(max_err(a, b) / float(b.abs().max()) for a, b in zip(gk, gp))
+    if not (abs(lk - lp) <= 1e-5 * abs(lp) and ratio <= 1e-4):
+        raise AssertionError(f"(b) the step's loss {lk} through the kernels, "
+                             f"{lp} plain; gradients {ratio} x max |plain|")
+    del step, gk, gp
+
+    engines = {}
+    rows8 = _predict_rows(8, 5)
+    for tag, extra in (("float32", {}),
+                       ("bfloat16", {"compute_dtype": "bfloat16"})):
+        eng = InferenceEngine(spec, weights, input_name=PREDICT_IN,
+                              output_name="probs:0", max_batch=HD_BATCH,
+                              device=device, **extra)
+        reset_launch_counts()
+        got = eng.predict(rows8)
+        ms = _bucket_ms(eng, HD_BATCH) if cuda else None
+        calls = launch_counts()["flash_fwd"]
+        if not (np.isfinite(got).all() and got.shape == (8, 2)):
+            raise AssertionError(f"(b) the {tag} engine's probs {got}")
+        if cuda and calls != layers * 7:    # predict, then 6 bucket calls
+            raise AssertionError(f"(b) the {tag} engine launched flash_fwd "
+                                 f"{calls} times, want {layers} x 7")
+        engines[tag] = {"bucket32_ms": ms, "flash_fwd_launches": calls}
+        if tag == "float32":
+            with torch.inference_mode():
+                want_p = eng.model.apply(
+                    eng._snapshot_params(),
+                    {"input_ids": torch.tensor(rows8[0], device=eng.device),
+                     "attention_mask": torch.tensor(rows8[1],
+                                                    device=eng.device)},
+                    ["probs"], attention=attention_reference)["probs"]
+            err = float(np.abs(got - want_p.cpu().numpy()).max())
+            if not err < EST_PROBS_TOL:
+                raise AssertionError(f"(b) float32 engine probs differ from "
+                                     f"the plain attention's by {err}")
+            engines[tag]["probs_err_vs_plain"] = err
+        del eng
+    summary = {"config": "transformer_classifier at TinyBERT-4L-312D widths "
+                         "(312/4/12 heads of 26/1200, vocab 30522, max_len "
+                         "512, dropout 0.1), float32, adam 3e-4",
+               "rows": HD_ROWS, "batch": HD_BATCH, "steps": steps,
+               "fit_s": fit_s, "steps_after_first_s": sum(gaps),
+               "train_examples_per_s_after_first":
+                   HD_BATCH * (steps - 1) / sum(gaps) if gaps else None,
+               "transform_s": transform_s, "losses": losses,
+               "step_loss": lk, "step_loss_plain": lp, "grad_ratio": ratio,
+               "launches": {"fit": fit_launches, "transform": tr_launches},
+               "engines": engines, "card": card}
+    log("[head-dims] tinybert " + json.dumps(summary))
+    return summary
+
+
+def _hd_spec_json(cfg, **over):
+    from sparkflow_tpu_torch.models import build_registry_spec
+    return build_registry_spec("transformer_lm", **dict(cfg, **over))
+
+
+def _hd_lm(cfg, compute_dtype, seed, device=None, **over):
+    """A ``transformer_lm`` of ``cfg`` (``over`` replacing entries), its
+    float32 weights drawn from a generator on the model's device."""
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    model = model_from_json(_hd_spec_json(cfg, **over),
+                            compute_dtype=compute_dtype, device=device)
+    return model, model.init(torch.Generator(
+        device=model.device).manual_seed(seed))
+
+
+def _hd_spec16(card, device=None):
+    """(c) GPT-2 small at full width, bf16, ``DecodeEngine(num_slots=8,
+    page_size=16, spec_k=16)`` (self-draft through 6 layers) behind
+    ``/v1/generate``, over a bf16 and an int8 pool: one greedy burst each
+    (:func:`_serve_burst`); every step speculative, the verify kernel
+    launched 12 times a step at S = 17. Then float32, 4 layers, TF32 off:
+    the spec_k=16 engine's greedy tokens equal the dense forward's argmax
+    over the plain attention. Returns the bursts and launches."""
+    import gc
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    cuda = device is None or str(device).startswith("cuda")
+    layers = GPT2_SMALL["num_layers"]
+    model, params = _hd_lm(GPT2_SMALL, "bfloat16", 0, device)
+    bursts = {}
+    for tag, extra, verify in (("bf16", {}, "paged_verify"),
+                               ("int8", {"kv_quant": "int8"},
+                                "paged_verify_quant")):
+        eng = DecodeEngine(model, params, num_slots=8, page_size=16, seed=0,
+                           spec_k=HD_SPEC_K, **extra)
+        results, wall, lc, st = _serve_burst(
+            eng, seed=16, vocab=GPT2_SMALL["vocab_size"], sampled={})
+        n = st["spec_steps"]
+        if not (n > 0 and n == st["steps"]) or cuda and lc[verify] != \
+                layers * n:
+            raise AssertionError(f"(c) {tag}: launches {lc} over {st}: every "
+                                 f"step speculative, {verify} {layers} a "
+                                 f"step")
+        gen = sum(r["num_tokens"] for r in results)
+        bursts[tag] = {"tokens_generated": gen, "wall_s": wall,
+                       "decode_tokens_per_s": gen / wall, "steps": st,
+                       "verify_rows": HD_SPEC_K + 1,
+                       "accept_rate": eng.stats()["spec"]["accept_rate"],
+                       "launches": lc}
+        log(f"[head-dims] spec_k={HD_SPEC_K} {tag} pool, GPT-2 small bf16, 8 "
+            f"greedy requests: {gen} tokens in {wall:.2f} s "
+            f"({gen / wall:.1f} tokens/s), {n} spec steps, {verify} "
+            f"{lc[verify]} launches (S={HD_SPEC_K + 1}) [{card}]")
+        del eng
+        gc.collect()
+    del model, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, params = _hd_lm(GPT2_SMALL, None, 1, device,
+                           num_layers=HD_EXACT_LAYERS)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, GPT2_SMALL["vocab_size"], n).tolist()
+               for n in (40, 129, 300)]
+    reset_launch_counts()
+    eng = DecodeEngine(model, params, num_slots=4, page_size=16, seed=0,
+                       prefix_cache=False, max_seq_len=512,
+                       spec_k=HD_SPEC_K)
+    worst = _greedy_equals_dense(eng, model, params, prompts, n=20)
+    exact = launch_counts()
+    if cuda and not exact["paged_verify"] > 0:
+        raise AssertionError(f"(c) exactness: the verify kernel did not "
+                             f"launch: {exact}")
+    log(f"[head-dims] exactness: float32, {HD_EXACT_LAYERS} layers at GPT-2 "
+        f"small widths, spec_k={HD_SPEC_K}: 3 prompts x 20 greedy tokens "
+        f"equal the dense forward over the plain attention (paged_verify "
+        f"{exact['paged_verify']} launches); max |prefill logit delta| "
+        f"{worst:.3g} [{card}]")
+    del eng, model, params
+    gc.collect()
+    return {"bursts": bursts, "exactness": exact}
+
+
+def _hd_wide512(card, device=None):
+    """(d) A ``transformer_lm`` with 2 heads of 512 (``WIDE512_LM``), float32,
+    TF32 off: the engine's greedy tokens with a plain pool and with
+    ``spec_k=4`` equal the dense forward's argmax over the plain attention;
+    with an int8 pool the card's tokens equal the same engine's on the CPU
+    (its plain versions); one training step through the kernels against
+    the plain attention (:func:`_kernel_vs_plain_steps`, B=2 S=512).
+    Returns the launches."""
+    import gc
+    import numpy as np
+    import torch
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import DecodeEngine
+    cuda = device is None or str(device).startswith("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, params = _hd_lm(WIDE512_LM, None, 5, device)
+    rng = np.random.default_rng(512)
+    prompts = [rng.integers(0, WIDE512_LM["vocab_size"], n).tolist()
+               for n in (40, 129, 300)]
+    kw = dict(num_slots=4, page_size=16, seed=0, prefix_cache=False,
+              max_seq_len=512)
+    reset_launch_counts()
+    worst = 0.0
+    for extra in ({}, {"spec_k": SPEC_K}):
+        worst = max(worst, _greedy_equals_dense(
+            DecodeEngine(model, params, **kw, **extra), model, params,
+            prompts))
+    card_toks = _greedy(DecodeEngine(model, params, kv_quant="int8", **kw),
+                        prompts, 8)
+    decode = launch_counts()
+    cpu_model = model_from_json(_hd_spec_json(WIDE512_LM), device="cpu")
+    cpu_params = {ln: {pn: t.cpu() for pn, t in lay.items()}
+                  for ln, lay in params.items()}
+    cpu_toks = _greedy(DecodeEngine(cpu_model, cpu_params, kv_quant="int8",
+                                    **kw), prompts, 8)
+    if card_toks != cpu_toks:
+        raise AssertionError(f"(d) int8: card {card_toks} != CPU engine "
+                             f"{cpu_toks}")
+    if cuda and not all(decode[k] > 0 for k in (
+            "flash_fwd", "paged_attention", "paged_attention_quant",
+            "paged_verify")):
+        raise AssertionError(f"(d) decode launches {decode}")
+    x = torch.as_tensor(np.random.default_rng(513).integers(
+        0, WIDE512_LM["vocab_size"], (2, 512)), device=model.device)
+    init = {ln: {pn: t.detach().clone() for pn, t in lay.items()}
+            for ln, lay in params.items()}
+    reset_launch_counts()
+    r = _kernel_vs_plain_steps(model, init, x)
+    train = launch_counts()
+    want = WIDE512_LM["num_layers"] * 4 if cuda else 0
+    if any(train[n] != want for n in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")):
+        raise AssertionError(f"(d) training launches {train}, want {want}")
+    log(f"[head-dims] heads of 512 (transformer_lm {WIDE512_LM}), float32: "
+        f"greedy tokens plain and spec_k={SPEC_K} equal the dense forward "
+        f"(max |prefill logit delta| {worst:.3g}), int8 card equals the CPU "
+        f"engine; one step loss {r['loss']:.7f} vs plain "
+        f"{r['loss_plain']:.7f}, max |dgrad| / max |grad| "
+        f"{r['grad_ratio']:.3g}; 3 adam steps max rel {r['adam_rel']:.3g}; "
+        f"launches decode {decode}, training {train} [{card}]")
+    del model, params, init
+    gc.collect()
+    return {"decode": decode, "training": train}
+
+
+def _hd_pick(hd, name):
+    """The kernels-line entry of phase 28 for kernel ``name``: the source
+    of its column-sliced kernel (for kernels 1-3 above head_dim 256, for
+    kernels 4-7 at every head_dim the vector kernels do not take), its
+    rows by head_dim and query dtype (flash) or pool and verify rows, the
+    staging copy's time (flash_fwd), and its launches in each arm."""
+    src = "sparkflow_tpu_torch/ops/csrc/"
+    out = {"sliced_source": src + ("flash_sliced.cu"
+                                   if name.startswith("flash")
+                                   else "paged_sliced.cu"),
+           "launches": {arm: counts.get(name, 0)
+                        for arm, counts in hd["launches"].items()}}
+    for r in hd["rows"].get(name, []):
+        key = f"D{r['D']}_" + r.get("pool", r["dtype"])
+        if "S" in r and name.startswith("paged_verify"):
+            key += f"_S{r['S']}"
+        out[key] = {"max_abs_err": r["max_abs_err"], **_pick(r)}
+    if name == "flash_fwd":
+        out["staging"] = hd["rows"].get("staging", [])
+    return out
+
+
+def phase_head_dims(card, work, device=None, kernels=True):
+    """Phase 28: the head_dims below 8, not a multiple of 8 and above 256,
+    and verify rows past 16, through the port's paths. (a) With
+    ``kernels``, all seven kernels at D = 26, 512 and verify at S = 17 / 33
+    against their plain versions (:func:`_hd_kernel_rows`; on the card
+    only; the whole script runs (a) beside phase 27 (a), alone on the card,
+    and (b)-(d) after phase 27 (f)). (b) TinyBERT-4L-312D through the
+    estimator and the predict engine (:func:`_hd_tinybert`). (c) GPT-2
+    small with ``spec_k=16`` behind ``/v1/generate`` and its float32
+    exactness (:func:`_hd_spec16`). (d) Heads of 512: decode and a training
+    step (:func:`_hd_wide512`). ``device="cpu"`` rehearses (b)-(d) with the
+    plain versions. Returns the rows, the launches and the seconds of each
+    part."""
+    import gc
+    import torch
+    cuda = device is None or str(device).startswith("cuda")
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - mark[0]
+        mark[0] = now
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    rows = _hd_kernel_rows(card) if cuda and kernels else {}
+    lap("a_kernels")
+    tiny = _hd_tinybert(card, work, device)
+    lap("b_tinybert")
+    spec = _hd_spec16(card, device)
+    lap("c_spec16")
+    wide = _hd_wide512(card, device)
+    lap("d_heads512")
+    log(f"[head-dims] phase 28 by part {json.dumps(seconds)} [{card}]")
+    return {"rows": rows,
+            "launches": {"tinybert_fit": tiny["launches"]["fit"],
+                         "tinybert_transform": tiny["launches"]["transform"],
+                         "spec16_bf16": spec["bursts"]["bf16"]["launches"],
+                         "spec16_int8": spec["bursts"]["int8"]["launches"],
+                         "spec16_exactness": spec["exactness"],
+                         "heads512_decode": wide["decode"],
+                         "heads512_training": wide["training"]},
+            "tinybert": tiny, "spec16": spec["bursts"], "seconds": seconds}
+
+
 _PHASE = [None]             # the phase this process runs now
 
 
@@ -9791,7 +10283,8 @@ def main(only: str = None) -> int:
     place of the kernels line: ``"spec-serving"`` (3), ``"families"`` (16),
     ``"tp-fsdp"`` (20), ``"pp"`` (21), ``"ep"`` (22), ``"tooling"``
     (23), ``"param-sharding"`` (24), ``"examples"`` (25),
-    ``"serving-ops"`` (26) or ``"wide-heads"`` (27)."""
+    ``"serving-ops"`` (26), ``"wide-heads"`` (27) or ``"head-dims"``
+    (28)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -9817,7 +10310,9 @@ def main(only: str = None) -> int:
                            lambda card: phase_examples(card, work)),
               "serving-ops": ("serving_ops",
                               lambda card: phase_serving_ops(card, work)),
-              "wide-heads": ("wide_heads", phase_wide_heads)}
+              "wide-heads": ("wide_heads", phase_wide_heads),
+              "head-dims": ("head_dims",
+                            lambda card: phase_head_dims(card, work))}
     if only is not None and only not in alone and only not in single:
         print(f"chip_smoke: unknown phase {only!r}; one of "
               f"{sorted(alone) + sorted(single)}", file=sys.stderr)
@@ -9854,6 +10349,7 @@ def main(only: str = None) -> int:
         spec_rows = _timed("spec-kernels", phase_spec_kernels, card)
         bwd_rows = _timed("bwd", phase_backward_kernels, card)
         wide_rows = _timed("wide-kernels", _wide_kernel_rows, card)
+        hd_rows = _timed("head-dims-kernels", _hd_kernel_rows, card)
         # the kernels' times are taken: phases 18-21 start beside the rest
         group = _start_mesh_group(work)
         # phase 27 (b)-(f) first, beside the other process's phase 18: its
@@ -9862,6 +10358,7 @@ def main(only: str = None) -> int:
         # process runs no profiler before phase 23 counts kernel events in
         # its traces
         wide = _timed("wide-heads", phase_wide_heads, card, None, False)
+        hd = _timed("head-dims", phase_head_dims, card, work, None, False)
         launches, eng = _timed("serving", phase_serving, card)
         _timed("profile", phase_profile, card, eng)
         del eng
@@ -9882,6 +10379,7 @@ def main(only: str = None) -> int:
         exr = _timed("examples", phase_examples, card, work)
         side = _timed("mesh-group wait", _join_mesh_group, group)
         wide["rows"] = wide_rows
+        hd["rows"] = hd_rows
         mesh, stream_mesh = side["mesh"], side["stream_mesh"]
         tpf, ppr, tooling = side["tp_fsdp"], side["pp"], side["tooling"]
         psh, ops = side["param_sharding"], side["serving_ops"]
@@ -10021,6 +10519,11 @@ def main(only: str = None) -> int:
         # 4-layer exactness arm, (e) the 4-layer bf16 fit and (f) the
         # float32 2-layer training exactness arm
         row["wide_heads"] = _wide_pick(wide, row["name"])
+        # phase 28: at head_dim 26 (TinyBERT-4L-312D's) and 512, and verify
+        # at S = 17 / 33, the kernel against its plain version, and its
+        # launches in (b) the TinyBERT fit and transform, (c) the spec_k=16
+        # bursts and float32 arm, (d) the heads-of-512 decode and step
+        row["head_dims"] = _hd_pick(hd, row["name"])
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": device_report()}), flush=True)

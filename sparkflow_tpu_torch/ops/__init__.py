@@ -6,9 +6,8 @@ See :mod:`sparkflow_tpu_torch.ops.attention`; the CUDA sources live in
 ``ops/csrc/`` and are built at first use by :mod:`._build`.
 """
 
-from .attention import (MAX_VERIFY_ROWS, FlashAttentionFunction,
-                        attention_reference, flash_attention,
-                        flash_attention_backward,
+from .attention import (FlashAttentionFunction, attention_reference,
+                        flash_attention, flash_attention_backward,
                         flash_attention_backward_reference, flash_bwd_dkv,
                         flash_bwd_dkv_reference, flash_bwd_dq,
                         flash_bwd_dq_reference, last_attention_path,
@@ -18,7 +17,7 @@ from .attention import (MAX_VERIFY_ROWS, FlashAttentionFunction,
                         reset_launch_counts, ring_attention,
                         ring_flash_attention)
 
-__all__ = ["MAX_VERIFY_ROWS", "FlashAttentionFunction", "attention_reference",
+__all__ = ["FlashAttentionFunction", "attention_reference",
            "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_bwd_dkv",
            "flash_bwd_dkv_reference", "flash_bwd_dq",

@@ -34,8 +34,10 @@ from typing import Any, Dict, List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_wide.cu",
-           "paged_attention.cu", "paged_verify.cu")
-HEADERS = ("pool_load.cuh", "mma_bf16.cuh", "mma_tf32.cuh", "flash_bwd.cuh")
+           "flash_sliced.cu", "paged_attention.cu", "paged_verify.cu",
+           "paged_sliced.cu")
+HEADERS = ("pool_load.cuh", "mma_bf16.cuh", "mma_tf32.cuh", "flash_bwd.cuh",
+           "flash_sliced.cuh", "paged_sliced.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

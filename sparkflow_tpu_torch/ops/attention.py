@@ -40,10 +40,19 @@ and the verify queries; the paged pool is ``[num_pages, page_size, heads,
 head_dim]``, as in the JAX package. Unlike the TPU kernels there are no
 tile rules: the CUDA kernels mask their ragged edges and take every
 sequence length, with queries in float32 or bfloat16 and quantized pools in
-int8 or float8_e4m3fn. ``head_dim`` is a multiple of 8 up to
-:data:`MAX_HEAD_DIM` (256) for every kernel, the backward pair included; on
-the card a wider head raises ``ValueError`` before any launch. The verify
-kernel takes up to :data:`MAX_VERIFY_ROWS` query rows per slot.
+int8 or float8_e4m3fn, every ``head_dim`` from 1 up and every count of
+verify rows; nothing is refused by width. A multiple of 8 up to 256 runs
+the tensor-core flash kernels and the vector paged kernels; a head_dim
+below 256 that is not a multiple of 8 (TinyBERT's 26) runs the flash
+kernels on q/k/v (and dO) staged into copies zero-padded to a multiple of 8
+(:func:`_pad_head`; the zero columns add nothing to Q K^T or dO V^T, and the
+padded output columns are dropped) and the paged kernels of
+``csrc/paged_sliced.cu``, which read the pool as it is (it is the whole KV
+cache: never copied); above 256 the column-sliced kernels of
+``csrc/flash_sliced.cu`` and ``csrc/paged_sliced.cu`` run, each block owning
+at most 256 output columns. ``sm_scale`` defaults to ``1/sqrt(head_dim)``
+of the true head_dim. The verify kernel scores its rows in groups of 16,
+so ``spec_k`` above 15 takes more groups, not another kernel.
 """
 
 from __future__ import annotations
@@ -92,14 +101,52 @@ def _check_kernel_operands(name: str, dtype: torch.dtype, *tensors) -> None:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dtype}")
 
 
-#: widest head the kernels take
-MAX_HEAD_DIM = 256
+#: widest head_dim the tensor-core flash kernels and the vector paged
+#: kernels take (a multiple of 8); the column-sliced kernels take the rest
+_VECTOR_MAX_HEAD_DIM = 256
 
 
-def _check_head_dim(name: str, d: int) -> None:
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim must be a multiple of 8 in "
-                         f"[8, {MAX_HEAD_DIM}], got {d}")
+def _vector_head(d: int) -> bool:
+    """Whether the tensor-core flash kernels and the vector paged kernels
+    take head_dim ``d`` as it is (the C entries' own routing); else the
+    column-sliced kernels run it."""
+    return d % 8 == 0 and 8 <= d <= _VECTOR_MAX_HEAD_DIM
+
+
+def _flash_head(d: int) -> int:
+    """The head_dim the flash kernels run a ``d``-wide head at: ``d`` where
+    the tensor-core kernels take it or above 256 (the column-sliced
+    kernels), else ``d`` rounded up to a multiple of 8 (at least 8), to
+    which :func:`_pad_head` stages the operands."""
+    if _vector_head(d) or d > _VECTOR_MAX_HEAD_DIM:
+        return d
+    return max(8, -(-d // 8) * 8)
+
+
+def _pad_head(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t`` [..., d] as a fresh contiguous [..., dp] tensor whose columns
+    past d are zeros — aligned rows for the tensor-core kernels' 16-byte
+    copies, and the same values: a zero column adds nothing to a product
+    contracted over head_dim, and the kernels' padded output columns are
+    dropped (:func:`_trim_head`)."""
+    return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+
+
+def _trim_head(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A kernel's output at the padded head_dim, as its first ``d`` columns
+    (a view)."""
+    return t if t.shape[-1] == d else t[..., :d]
+
+
+def _launch_ready(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """A flash kernel's operand as the launch at head_dim ``dp`` takes it:
+    zero-padded to ``dp`` (:func:`_pad_head`), as it is for the column-sliced
+    kernels (any alignment), else 16-byte aligned (:func:`_cp_async_ready`)."""
+    if t.shape[-1] != dp:
+        return _pad_head(t, dp)
+    if dp > _VECTOR_MAX_HEAD_DIM:
+        return t
+    return _cp_async_ready(t)
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +183,6 @@ def _flash_operands(name: str, q, k, v, kv_mask, *like_q):
     them for a launch: ``head_dim`` contiguous, the [B, S_k] mask float32
     and contiguous. Returns ``(q, k, v, *like_q, kv_mask)``."""
     _check_kernel_operands(name, q.dtype, q, k, v, *like_q)
-    _check_head_dim(name, q.shape[-1])
     ts = tuple(t if t.stride(-1) == 1 else t.contiguous()
                for t in (q, k, v) + like_q)
     if kv_mask is not None:
@@ -196,7 +242,11 @@ def flash_attention(q, k, v, causal: bool = False,
     contiguous; an operand whose rows are not 16-byte aligned is copied
     first (:func:`_cp_async_ready`). The output is allocated
     [B,S,H,D]-contiguous and returned as its [B,H,S,D] view, so the caller's
-    transpose back to [B,S,H*D] is free.
+    transpose back to [B,S,H*D] is free. A head_dim that is not a multiple
+    of 8 below 256 runs on q/k/v zero-padded to one (:func:`_pad_head`) and
+    returns the first head_dim columns of the padded output; above 256 the
+    column-sliced kernel of ``csrc/flash_sliced.cu`` runs (CUDA cores,
+    float32 arithmetic, at most 256 output columns a block).
 
     When grad mode is on and q, k or v requires a gradient, the call runs
     as :class:`FlashAttentionFunction`: the forward saves q, k, v, the mask,
@@ -219,8 +269,9 @@ def flash_attention(q, k, v, causal: bool = False,
         return attention_reference(q, k, v, causal, scale, kv_mask=kv_mask,
                                    return_lse=return_lse)
     q, k, v, kv_mask = _flash_operands("flash_attention", q, k, v, kv_mask)
-    q, k, v = (_cp_async_ready(t) for t in (q, k, v))
-    out = torch.empty((b, s, h, d), dtype=q.dtype,
+    dp = _flash_head(d)
+    q, k, v = (_launch_ready(t, dp) for t in (q, k, v))
+    out = torch.empty((b, s, h, dp), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -232,11 +283,12 @@ def flash_attention(q, k, v, causal: bool = False,
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None,
             out.data_ptr(), lse.data_ptr() if lse is not None else None,
-            b, h, s, sk, d, ctypes.addressof(strides), float(scale),
+            b, h, s, sk, dp, ctypes.addressof(strides), float(scale),
             int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "flash_fwd")
         _count(flash_attention, "launches")
+    out = _trim_head(out, d)
     return (out, lse) if return_lse else out
 
 
@@ -334,7 +386,8 @@ def _bwd_operands(name, q, k, v, dout, lse, delta, kv_mask):
             raise ValueError(f"{name}: {what} must be a contiguous float32 "
                              f"[B, H, S] = {want} tensor on {q.device}")
     *ts, kv_mask = _flash_operands(name, q, k, v, kv_mask, dout)
-    return (*(_cp_async_ready(t) for t in ts), kv_mask)
+    dp = _flash_head(q.shape[-1])
+    return (*(_launch_ready(t, dp) for t in ts), kv_mask)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
@@ -350,15 +403,18 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
     instantiations of ``csrc/flash_bwd_wide.cu``. Operands whose rows are
     not 16-byte aligned are copied first (:func:`_cp_async_ready`). dQ is
     allocated [B,S,H,D]-contiguous and returned as its [B,H,S,D] view, like
-    the forward's output."""
+    the forward's output. Other head_dims as in :func:`flash_attention`:
+    zero-padded operands below 256, the column-sliced kernel of
+    ``csrc/flash_sliced.cu`` above."""
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if _route(q) == "reference":
         return flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal,
                                       scale, kv_mask)
+    d = q.shape[-1]
     q, k, v, dout, mask = _bwd_operands("flash_bwd_dq", q, k, v, dout,
                                         lse, delta, kv_mask)
-    b, h, s, d = q.shape
-    dq = torch.empty((b, s, h, d), dtype=q.dtype,
+    b, h, s, dp = q.shape
+    dq = torch.empty((b, s, h, dp), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     if dq.numel():
         from . import _build
@@ -368,11 +424,11 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             mask.data_ptr() if mask is not None else None, dq.data_ptr(),
-            b, h, s, k.shape[2], d, ctypes.addressof(strides), float(scale),
+            b, h, s, k.shape[2], dp, ctypes.addressof(strides), float(scale),
             int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "flash_bwd_dq")
         _count(flash_bwd_dq, "launches")
-    return dq
+    return _trim_head(dq, d)
 
 
 flash_bwd_dq.launches = 0
@@ -385,15 +441,17 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     card this launches the dk/dv kernel of ``csrc/flash_bwd.cu`` (the port
     of the TPU ``_flash_bwd_dkv_kernel``), by dtype as there; above
     head_dim 128 one call launches two kernels of ``csrc/flash_bwd_wide.cu``,
-    dV's and dK's (one launch count, as one call of the TPU kernel)."""
+    dV's and dK's (one launch count, as one call of the TPU kernel). Other
+    head_dims as in :func:`flash_bwd_dq`."""
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if _route(q) == "reference":
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal,
                                        scale, kv_mask)
+    d = q.shape[-1]
     q, k, v, dout, mask = _bwd_operands("flash_bwd_dkv", q, k, v, dout,
                                         lse, delta, kv_mask)
-    b, h, sk, d = k.shape
-    dk = torch.empty((b, sk, h, d), dtype=k.dtype,
+    b, h, sk, dp = k.shape
+    dk = torch.empty((b, sk, h, dp), dtype=k.dtype,
                      device=k.device).transpose(1, 2)
     dv = torch.empty_like(dk)
     if dk.numel():
@@ -404,12 +462,12 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             mask.data_ptr() if mask is not None else None, dk.data_ptr(),
-            dv.data_ptr(), b, h, q.shape[2], sk, d,
+            dv.data_ptr(), b, h, q.shape[2], sk, dp,
             ctypes.addressof(strides), float(scale), int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "flash_bwd_dkv")
         _count(flash_bwd_dkv, "launches")
-    return dk, dv
+    return _trim_head(dk, d), _trim_head(dv, d)
 
 
 flash_bwd_dkv.launches = 0
@@ -542,9 +600,6 @@ _POOL_CODE = {torch.int8: 0}
 if hasattr(torch, "float8_e4m3fn"):
     _POOL_CODE[torch.float8_e4m3fn] = 1
 
-#: most query rows per slot the verify kernel takes (spec_k <= 15)
-MAX_VERIFY_ROWS = 16
-
 #: tokens a thread block of the decode kernel walks, at the least, and the
 #: most blocks (the portable thread-block cluster size) one (slot, head)'s
 #: walk is split over
@@ -641,7 +696,6 @@ def _paged_operands(name: str, q, k_pages, v_pages, page_table, k_scales,
                             f"float8_e4m3fn, got {k_pages.dtype}")
         k_scales = k_scales.to(torch.float32).contiguous()
         v_scales = v_scales.to(torch.float32).contiguous()
-    _check_head_dim(name, q.shape[-1])
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError(f"{name}: pools must be 16-byte aligned")
@@ -712,7 +766,10 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths,
     ``lengths``), each block walks only its chunk's tokens below
     ``lengths[b]``, and the blocks merge their partial softmax states
     through distributed shared memory, in a fixed order — one launch,
-    nothing allocated but the output."""
+    nothing allocated but the output. At a head_dim that kernel does not
+    take (above 256, or not a multiple of 8) the same call launches the
+    column-sliced kernel of ``csrc/paged_sliced.cu`` over the same pool,
+    never copied (same counters)."""
     _check_scales_given(k_scales, v_scales)
     b, h, d = q.shape
     _check_paged_shapes("paged_attention", b, h, d, k_pages, v_pages,
@@ -813,10 +870,14 @@ def paged_attention_verify(q, k_pages, v_pages, page_table, start,
     read every K/V row once and score it for all S queries; the combine
     kernel folds the chunks' partial softmax states, in order, into O. The
     partial states live in float32 scratch allocated here per call, sized
-    from ``page_table``'s width, so the host never reads ``start``. The
-    kernel takes S up to :data:`MAX_VERIFY_ROWS`. q may be a strided view
-    with ``head_dim`` contiguous; the output is allocated
-    [B,S,H,D]-contiguous and returned as its [B,H,S,D] view."""
+    from ``page_table``'s width, so the host never reads ``start``. A block
+    scores a group of 16 query rows; S above 16 (``spec_k`` above 15) runs
+    one split launch a group within the call (one count). q may be a strided view with ``head_dim``
+    contiguous; the output is allocated [B,S,H,D]-contiguous and returned as
+    its [B,H,S,D] view. At a head_dim the split kernel does not take (above
+    256, or not a multiple of 8) the same call launches the column-sliced
+    kernel of ``csrc/paged_sliced.cu`` (one block a query row and column
+    slice, no scratch) over the same pool."""
     _check_scales_given(k_scales, v_scales)
     b, h, s, d = q.shape
     _check_paged_shapes("paged_attention_verify", b, h, d, k_pages, v_pages,
@@ -828,10 +889,6 @@ def paged_attention_verify(q, k_pages, v_pages, page_table, start,
         return paged_attention_verify_reference(
             q, k_pages, v_pages, page_table, start, scale, k_scales,
             v_scales)
-    if not 1 <= s <= MAX_VERIFY_ROWS:
-        raise ValueError(f"paged_attention_verify: {s} query rows per slot; "
-                         f"the CUDA kernel takes 1 to {MAX_VERIFY_ROWS} "
-                         f"(spec_k up to {MAX_VERIFY_ROWS - 1})")
     kp, vp, table, ks, vs, code = _paged_operands(
         "paged_attention_verify", q, k_pages, v_pages, page_table, k_scales,
         v_scales)
@@ -849,17 +906,21 @@ def paged_attention_verify(q, k_pages, v_pages, page_table, start,
         maxp, page = table.shape[1], kp.shape[1]
         chunk = lib.sf_paged_verify_chunk()
         nchunks = -(-maxp * page // chunk)
-        part_acc = torch.empty((b, h, nchunks, s, d), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((b, h, nchunks, s, 2), dtype=torch.float32,
-                              device=q.device)
+        part_acc = part_ml = None
+        if _vector_head(d):   # the split kernel's scratch
+            part_acc = torch.empty((b, h, nchunks, s, d), dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty((b, h, nchunks, s, 2), dtype=torch.float32,
+                                  device=q.device)
         rc = lib.sf_paged_verify(
             _DTYPE_CODE[q.dtype], -1 if code is None else code, q.data_ptr(),
             kp.data_ptr(), vp.data_ptr(),
             ks.data_ptr() if ks is not None else None,
             vs.data_ptr() if vs is not None else None,
             table.data_ptr(), maxp, st.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), nchunks, b, h, s, d,
+            part_acc.data_ptr() if part_acc is not None else None,
+            part_ml.data_ptr() if part_ml is not None else None, nchunks,
+            b, h, s, d,
             page, ctypes.addressof(strides), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(rc, "paged_attention_verify")

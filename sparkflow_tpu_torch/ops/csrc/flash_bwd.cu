@@ -156,6 +156,7 @@
 #include <stdint.h>
 
 #include "flash_bwd.cuh"
+#include "flash_sliced.cuh"
 
 namespace {
 
@@ -258,23 +259,27 @@ cudaError_t dispatch_dkv_tf32(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. q/dout/dq are [B, H, S, D] and k/v
 // [B, H, Sk, D] with D contiguous; strides[15] = (q, k, v, dout, dq) x
 // (batch, head, seq) in elements. lse, delta: [B, H, S] float32 contiguous;
-// mask: [B, Sk] float32 (> 0 attends) or null. Requires D % 8 == 0 and
-// 8 <= D <= 256 (the wrapper checks; above 128 the kernels of
-// flash_bwd_wide.cu run), 16-byte aligned q/k/v/dout pointers
-// and their strides multiples of 8 (bfloat16) or 4 (float32) elements
-// (cp_async_ready); a float32 dq 8-byte aligned with even strides.
-// float32 runs the 3xTF32 kernel, bfloat16 the bf16 one.
+// mask: [B, Sk] float32 (> 0 attends) or null. Any D >= 1: a multiple of 8
+// up to 256 runs on the tensor cores (above 128 the kernels of
+// flash_bwd_wide.cu) — float32 the 3xTF32 kernel, bfloat16 the bf16 one —
+// and needs 16-byte aligned q/k/v/dout pointers and their strides
+// multiples of 8 (bfloat16) or 4 (float32) elements (cp_async_ready), a
+// float32 dq 8-byte aligned with even strides; every other D runs the
+// column-sliced kernels of flash_sliced.cu, which take any alignment.
 extern "C" int sf_flash_bwd_dq(int dtype, const void* q, const void* k,
                                const void* v, const void* dout,
                                const void* lse, const void* delta,
                                const void* mask, void* dq, int B, int H, int S,
                                int Sk, int D, const long long* strides,
                                float scale, int causal, void* stream) {
-  if (D % 8 != 0 || D < 8 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D < 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!sf_sliced::tensor_core_head_dim(D))
+    return (int)sf_sliced::dq(dtype, q, k, v, dout, l, dl, m, dq, B, H, S, Sk,
+                              D, strides, scale, causal, s);
   cudaError_t e = dtype == 0
       ? dispatch_dq_tf32(q, k, v, dout, l, dl, m, dq, B, H, S, Sk, D, strides, scale, causal, s)
       : dispatch_dq_mma(q, k, v, dout, l, dl, m, dq, B, H, S, Sk, D, strides, scale, causal, s);
@@ -291,11 +296,14 @@ extern "C" int sf_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                 int H, int S, int Sk, int D,
                                 const long long* strides, float scale,
                                 int causal, void* stream) {
-  if (D % 8 != 0 || D < 8 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D < 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!sf_sliced::tensor_core_head_dim(D))
+    return (int)sf_sliced::dkv(dtype, q, k, v, dout, l, dl, m, dk, dv, B, H,
+                               S, Sk, D, strides, scale, causal, s);
   cudaError_t e = dtype == 0
       ? dispatch_dkv_tf32(q, k, v, dout, l, dl, m, dk, dv, B, H, S, Sk, D, strides, scale, causal, s)
       : dispatch_dkv_mma(q, k, v, dout, l, dl, m, dk, dv, B, H, S, Sk, D, strides, scale, causal, s);

@@ -57,7 +57,11 @@
 //   read from the shared Q tile with ldmatrix at each key tile, and the
 //   key tiles narrow to 32 (S and P 16 and 8 registers). The arithmetic is
 //   the same; only the tiles whose maxima P is rounded against are
-//   narrower.
+//   narrower;
+// - every other head_dim (above 256, or not a multiple of 8) the C entry
+//   sends to the column-sliced kernel of flash_sliced.cu; the wrapper
+//   stages a head_dim below 256 that is not a multiple of 8 into operands
+//   zero-padded to one (ops/attention.py _pad_head), so those run here.
 //
 // What bounds it on the H100: at the training shape (B=8, H=12, S=1024,
 // D=64, causal) the work is 2 products of ~2*S*S/2*D flops per head over
@@ -153,6 +157,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "flash_sliced.cuh"
 
 namespace {
 
@@ -702,22 +707,26 @@ cudaError_t dispatch_tf32(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/o are [B, H, S|Sk, D] with D
 // contiguous; strides[12] = (q, k, v, o) x (batch, head, seq) in elements.
 // mask: [B, Sk] float32 (> 0 attends) or null; lse: [B, H, S] float32
-// contiguous, or null. Requires D % 8 == 0 and 8 <= D <= 256 (the wrapper
-// checks), 16-byte aligned q/k/v pointers and their strides multiples of 8
-// (bfloat16) or 4 (float32) elements (cp_async_ready); a float32 o 8-byte
-// aligned with even strides. float32 runs the 3xTF32 kernel, bfloat16 the
-// bf16 one, both on the tensor cores.
+// contiguous, or null. Any D >= 1: a multiple of 8 up to 256 runs on the
+// tensor cores — float32 the 3xTF32 kernel, bfloat16 the bf16 one — and
+// needs 16-byte aligned q/k/v pointers and their strides multiples of 8
+// (bfloat16) or 4 (float32) elements (cp_async_ready), a float32 o 8-byte
+// aligned with even strides; every other D runs the column-sliced kernel
+// of flash_sliced.cu, which takes any alignment.
 extern "C" int sf_flash_fwd(int dtype, const void* q, const void* k,
                             const void* v, const void* mask, void* o,
                             void* lse, int B, int H, int S, int Sk, int D,
                             const long long* strides, float scale, int causal,
                             void* stream) {
-  if (D % 8 != 0 || D < 8 || D > 256) return (int)cudaErrorInvalidValue;
-  Strides st{};
-  for (int i = 0; i < 12; ++i) st.s[i] = strides[i];
+  if (D < 1) return (int)cudaErrorInvalidValue;
   const float* m = static_cast<const float*>(mask);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!sf_sliced::tensor_core_head_dim(D))
+    return (int)sf_sliced::fwd(dtype, q, k, v, m, o, l, B, H, S, Sk, D,
+                               strides, scale, causal, s);
+  Strides st{};
+  for (int i = 0; i < 12; ++i) st.s[i] = strides[i];
   cudaError_t e = dtype == 0
       ? dispatch_tf32(q, k, v, m, o, l, B, H, S, Sk, D, st, scale, causal, s)
       : dispatch_mma(q, k, v, m, o, l, B, H, S, Sk, D, st, scale, causal, s);

@@ -91,9 +91,15 @@
 // with VEC 8 and 80 with VEC 16, float32 and bf16 queries alike. Shared
 // memory, sized for D = 256: 21,636 bytes plain, 29,836 quantized.
 //
+// Every other head_dim (above 256, or not a multiple of 8: an int8 row at
+// D = 25 is 25 bytes, with no 8-byte run) the C entries send to the
+// column-sliced kernel of paged_sliced.cu, which reads the same pool, never
+// copied.
+//
 // Interface: plain C, loaded with ctypes; launches on the caller's stream and
 // returns the error of the launch.
 
+#include "paged_sliced.cuh"
 #include "pool_load.cuh"
 
 namespace {
@@ -402,9 +408,9 @@ cudaError_t launch_quant(const Args& a) {
                        : launch<T, P, true, 8, 1>(a);
 }
 
-bool valid(int D, int maxp, int page, int chunk, int nchunks) {
+bool valid(int maxp, int page, int chunk, int nchunks) {
   const long long total = (long long)maxp * page;
-  return D % 8 == 0 && D >= 8 && D <= kMaxD && page >= 1 && maxp >= 0 &&
+  return page >= 1 && maxp >= 0 &&
          chunk >= 1 && nchunks >= 1 && nchunks <= kMaxCluster &&
          (long long)nchunks * chunk >= total &&
          (long long)(nchunks - 1) * chunk < (total > 0 ? total : 1);
@@ -419,15 +425,22 @@ bool valid(int D, int maxp, int page, int chunk, int nchunks) {
 // nchunks: tokens per block and blocks per (slot, head) cluster, from the
 // table's width (ops/attention.py _paged_split): nchunks in [1, 8] and
 // nchunks chunks cover maxp * page tokens, the last one not empty.
-// Requires D % 8 == 0 and 8 <= D <= 256 and 16-byte aligned pools (the
-// wrapper checks).
+// Any D >= 1: a multiple of 8 up to 256 runs this file's kernel and needs
+// 16-byte aligned pools (the wrapper checks); every other D the sliced
+// kernel (paged_sliced.cu), where chunk / nchunks are unused.
 extern "C" int sf_paged_attention(int dtype, const void* q, long long qsb,
                                   long long qsh, const void* k_pages,
                                   const void* v_pages, const void* table,
                                   int maxp, const void* lengths, void* out,
                                   int B, int H, int D, int page, int chunk,
                                   int nchunks, float scale, void* stream) {
-  if (!valid(D, maxp, page, chunk, nchunks)) return (int)cudaErrorInvalidValue;
+  if (!sf_paged_sliced::vector_head_dim(D))
+    return (int)sf_paged_sliced::run(
+        dtype, -1, q, qsb, qsh, 0, k_pages, v_pages, nullptr, nullptr,
+        static_cast<const int*>(table), maxp,
+        static_cast<const int*>(lengths), 0, out, (long long)H * D, D, 0, B,
+        H, 1, D, page, scale, static_cast<cudaStream_t>(stream));
+  if (!valid(maxp, page, chunk, nchunks)) return (int)cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, nullptr, nullptr, qsb, qsh,
                static_cast<const int*>(table), maxp,
                static_cast<const int*>(lengths), out, B, H, D, page, chunk,
@@ -451,9 +464,15 @@ extern "C" int sf_paged_attention_quant(
     const void* v_scales, const void* table, int maxp, const void* lengths,
     void* out, int B, int H, int D, int page, int chunk, int nchunks,
     float scale, void* stream) {
-  if (!valid(D, maxp, page, chunk, nchunks) || (pool != 0 && pool != 1) ||
-      k_scales == nullptr || v_scales == nullptr)
+  if ((pool != 0 && pool != 1) || k_scales == nullptr || v_scales == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (!sf_paged_sliced::vector_head_dim(D))
+    return (int)sf_paged_sliced::run(
+        dtype, pool, q, qsb, qsh, 0, k_pages, v_pages, k_scales, v_scales,
+        static_cast<const int*>(table), maxp,
+        static_cast<const int*>(lengths), 0, out, (long long)H * D, D, 0, B,
+        H, 1, D, page, scale, static_cast<cudaStream_t>(stream));
+  if (!valid(maxp, page, chunk, nchunks)) return (int)cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, k_scales, v_scales, qsb, qsh,
                static_cast<const int*>(table), maxp,
                static_cast<const int*>(lengths), out, B, H, D, page, chunk,

@@ -19,13 +19,22 @@
 // is split into chunks of kChunk tokens (flash-decoding):
 // 1. the split kernel, grid (chunks, H, B), sized on the host from
 //    max_pages * page alone — the host never reads `start`, so a call needs
-//    no synchronisation and can later be captured in a CUDA graph. A chunk
-//    at or past start[b] + S exits at once. A live chunk walks its tokens
+//    no synchronisation and can later be captured in a CUDA graph. It is
+//    launched once for each group of 16 query rows (S = spec_k + 1 takes
+//    ceil(S / 16) groups: one up to spec_k = 15, two at 16 to 31), each
+//    group walking the chunks on its own, so a K/V row is read once a
+//    group; a chunk at or past start[b] + 16g + 16 (the group's last
+//    query's reach) exits at once. (A grid axis of groups, tried first,
+//    took the block's group offset and row count into registers and
+//    pushed 13 instantiations past the 64 registers ptxas gives them, into
+//    spills; as kernel arguments they stay in the constant bank.) A live
+//    chunk walks its tokens
 //    in tiles of kTile rows and writes, for each of the S queries, its
 //    partial softmax state (m, l and the unnormalised acc, float32) to
 //    scratch that the wrapper allocates;
-// 2. the combine kernel, grid (S, H, B), reads the live chunks' partial
-//    states in chunk order, rescales them to the common max and writes O. A
+// 2. the combine kernel, grid (S, H, B), reads the partial states of the
+//    chunks that query s reaches (those at or before start[b] + s) in
+//    chunk order, rescales them to the common max and writes O. A
 //    chunk in which a query sees no row (m = -1e30, l = 0, acc = 0) adds
 //    exactly 0. The order is fixed and there are no atomics: two launches
 //    give the same bits.
@@ -39,8 +48,9 @@
 //   page of the chunk, into shared memory, not once per row;
 // - every K/V row is read from device memory ONCE and used for all S
 //   queries, which is the point of one verify call over S decode calls;
-// - warp w owns queries w, w + kWarps (S <= 16): lane r scores tile row r
-//   against them, the warp reduces max and sum with shuffles, and each lane
+// - a block scores one group of at most kGroup = 16 consecutive queries,
+//   so that warp w owns queries w, w + kWarps of its group: lane r scores
+//   tile row r against them, the warp reduces max and sum with shuffles, and each lane
 //   accumulates its own HD / 32 consecutive output elements; the kernels
 //   are specialised on head_dim rounded up to 32 (HD = 32, 64, ..., 256),
 //   so D = 64 does not run D = 128's idle lanes. At HD = 256 a lane holds
@@ -51,7 +61,11 @@
 //   149,504 bytes at most, with ~2 KB static, under the 227 KB a block may
 //   have. The float32 partials the wrapper allocates per call are B x H x
 //   chunks x S x (D + 2) floats: 5.3 MB at the decode step's 8 slots of
-//   1024 tokens, H = 16, D = 256, S = 5.
+//   1024 tokens, H = 16, D = 256, S = 5; 3.4 MB at GPT-2 small's H = 12,
+//   D = 64 with spec_k = 16 (S = 17), growing linearly in S.
+// Every other head_dim (above 256, or not a multiple of 8) the C entry sends
+// to the column-sliced kernel of paged_sliced.cu (one block a query row and
+// column slice, no scratch), which reads the same pool, never copied.
 //
 // kChunk = 128 tokens (8 pages of 16): at the serving shape (B=8, H=12,
 // max 1024 tokens) the longest slot splits into 8 chunks and the call has
@@ -74,6 +88,7 @@
 // returns cudaGetLastError() of the launches.
 
 #include "mma_bf16.cuh"
+#include "paged_sliced.cuh"
 #include "pool_load.cuh"
 
 namespace {
@@ -82,8 +97,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 128;               // tokens per chunk of a slot's walk
 constexpr int kTile = 32;                 // K/V rows staged per step = lanes
-constexpr int kMaxS = 16;                 // query rows per slot
-constexpr int kQPerWarp = kMaxS / kWarps; // queries a warp owns, at most
+constexpr int kGroup = 16;                // query rows a block scores
+constexpr int kQPerWarp = kGroup / kWarps;  // queries a warp owns, at most
 constexpr int kMaxPages = kChunk + 1;     // pages a chunk touches, at most
 constexpr float kNegInf = -1e30f;
 
@@ -110,9 +125,11 @@ size_t split_smem(int S) {
   return sizeof(float) * (size_t)S * HD + 2 * 2 * kTile * row_bytes<P, HD>();
 }
 
-// grid (chunks, H, B); block kThreads. T: query type; P: pool element type
+// grid (chunks, H, B); block kThreads; one launch a group of Sg <= 16
+// queries s0 .. s0 + Sg - 1 of the S. T: query type; P: pool element type
 // (T itself, or int8_t / __nv_fp8_e4m3 with kQuant). part_acc [B, H,
-// chunks, S, D] and part_ml [B, H, chunks, S, 2] float32 scratch.
+// chunks, S, D] and part_ml [B, H, chunks, S, 2] float32 scratch; the
+// launch writes its queries' rows.
 template <typename T, typename P, bool kQuant, int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_verify_split_kernel(const T* __restrict__ q, const P* __restrict__ kp,
@@ -122,21 +139,22 @@ paged_verify_split_kernel(const T* __restrict__ q, const P* __restrict__ kp,
                           const int* __restrict__ table, int maxp,
                           const int* __restrict__ start,
                           float* __restrict__ part_acc,
-                          float* __restrict__ part_ml, int H, int S, int D,
+                          float* __restrict__ part_ml, int H, int S,
+                          int s0, int Sg, int D,
                           int page, int nchunks, long long qsb, long long qsh,
                           long long qss, float scale, int vec16) {
   constexpr int E = HD / 32;                  // output elements per lane
   constexpr int RB = row_bytes<P, HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_q = reinterpret_cast<float*>(smem_raw);         // [S][HD]
-  unsigned char* ring = smem_raw + sizeof(float) * S * HD;  // [2][K, V][kTile][RB]
+  float* s_q = reinterpret_cast<float*>(smem_raw);          // [Sg][HD]
+  unsigned char* ring = smem_raw + sizeof(float) * Sg * HD;  // [2][K, V][kTile][RB]
   __shared__ long long s_base[kMaxPages];  // element offset of (page, row 0, h)
   __shared__ float s_ks[kMaxPages], s_vs[kMaxPages];
 
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int st0 = start[b];
-  const int end = min(st0 + S, maxp * page);   // tokens the slot walks
+  const int st0 = start[b] + s0;               // the group's first query
+  const int end = min(st0 + Sg, maxp * page);  // tokens the group walks
   const int c0 = c * kChunk;
   if (c0 >= end) return;                       // a chunk past the walk
   const int c1 = min(c0 + kChunk, end);
@@ -152,9 +170,9 @@ paged_verify_split_kernel(const T* __restrict__ q, const P* __restrict__ kp,
       s_vs[tid] = vs[pid * H + h];
     }
   }
-  for (int i = tid; i < S * D; i += kThreads) {
+  for (int i = tid; i < Sg * D; i += kThreads) {
     const int s = i / D, d = i - s * D;
-    s_q[s * HD + d] = to_f(q[b * qsb + h * qsh + s * qss + d]);
+    s_q[s * HD + d] = to_f(q[b * qsb + h * qsh + (s0 + s) * qss + d]);
   }
   __syncthreads();
 
@@ -222,7 +240,7 @@ paged_verify_split_kernel(const T* __restrict__ q, const P* __restrict__ kp,
 #pragma unroll
       for (int j = 0; j < kQPerWarp; ++j) {
         const int s = warp + j * kWarps;
-        if (s >= S) break;
+        if (s >= Sg) break;
         const float4 a = *reinterpret_cast<const float4*>(s_q + s * HD + cc);
         const float4 z = *reinterpret_cast<const float4*>(s_q + s * HD + cc + 4);
         float x = dot[j];
@@ -237,7 +255,7 @@ paged_verify_split_kernel(const T* __restrict__ q, const P* __restrict__ kp,
 #pragma unroll
     for (int j = 0; j < kQPerWarp; ++j) {
       const int s = warp + j * kWarps;
-      if (s >= S) break;                       // uniform across the warp
+      if (s >= Sg) break;                      // uniform across the warp
       const bool visible = live && tok <= st0 + s;
       const float sc = visible ? dot[j] * kscale : kNegInf;
       const float mx = warp_max(sc);
@@ -267,8 +285,8 @@ paged_verify_split_kernel(const T* __restrict__ q, const P* __restrict__ kp,
 #pragma unroll
   for (int j = 0; j < kQPerWarp; ++j) {
     const int s = warp + j * kWarps;
-    if (s >= S) break;
-    const long long idx = (((long long)b * H + h) * nchunks + c) * S + s;
+    if (s >= Sg) break;
+    const long long idx = (((long long)b * H + h) * nchunks + c) * S + s0 + s;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int d = lane * E + e;
@@ -281,8 +299,10 @@ paged_verify_split_kernel(const T* __restrict__ q, const P* __restrict__ kp,
   }
 }
 
-// grid (S, H, B); block kCombineThreads. Folds the live chunks' partial
-// states, in chunk order, into out [B, H, S, D] (strides (batch, head, seq)).
+// grid (S, H, B); block kCombineThreads. Folds the partial states of the
+// chunks query s reaches, in chunk order, into out [B, H, S, D] (strides
+// (batch, head, seq)). A chunk its group walked past its reach holds (m =
+// -1e30, l = 0, acc = 0) for it, which would add exactly nothing.
 constexpr int kCombineThreads = 128;
 
 template <typename T>
@@ -294,8 +314,8 @@ paged_verify_combine_kernel(const float* __restrict__ part_acc,
                             int nchunks, long long osb, long long osh,
                             long long oss) {
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int end = min(start[b] + S, maxp * page);
-  const int live = (end + kChunk - 1) / kChunk;   // chunks the split wrote
+  const int end = min(start[b] + s + 1, maxp * page);
+  const int live = (end + kChunk - 1) / kChunk;   // chunks s reaches
   const long long base = ((long long)b * H + h) * nchunks * S + s;
   float mmax = kNegInf;
   for (int c = 0; c < live; ++c)
@@ -328,7 +348,7 @@ struct Args {
 template <typename T, typename P, bool kQuant, int HD>
 cudaError_t launch(const Args& a) {
   auto kern = paged_verify_split_kernel<T, P, kQuant, HD>;
-  const size_t smem = split_smem<P, HD>(a.S);
+  const size_t smem = split_smem<P, HD>(min(a.S, kGroup));
   if (smem > 40 * 1024) {  // with the ~2 KB of static page staging, > 48 KB
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -337,14 +357,16 @@ cudaError_t launch(const Args& a) {
   // 16-byte copies where a row's bytes allow them (the pool is 16-byte
   // aligned), else 8-byte ones: an int8/fp8 row of D % 16 != 0 elements
   const int vec16 = (a.D * (int)sizeof(P)) % 16 == 0;
-  kern<<<dim3(a.nchunks, a.H, a.B), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const P*>(a.kp),
-      static_cast<const P*>(a.vp), static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), a.table, a.maxp, a.start, a.part_acc,
-      a.part_ml, a.H, a.S, a.D, a.page, a.nchunks, a.st[0], a.st[1], a.st[2],
-      a.scale, vec16);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  for (int s0 = 0; s0 < a.S; s0 += kGroup) {
+    kern<<<dim3(a.nchunks, a.H, a.B), kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const P*>(a.kp),
+        static_cast<const P*>(a.vp), static_cast<const float*>(a.ks),
+        static_cast<const float*>(a.vs), a.table, a.maxp, a.start,
+        a.part_acc, a.part_ml, a.H, a.S, s0, min(kGroup, a.S - s0), a.D,
+        a.page, a.nchunks, a.st[0], a.st[1], a.st[2], a.scale, vec16);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   paged_verify_combine_kernel<T><<<dim3(a.S, a.H, a.B), kCombineThreads, 0,
                                    a.stream>>>(
       a.part_acc, a.part_ml, a.start, a.maxp, a.page, static_cast<T*>(a.out),
@@ -378,8 +400,10 @@ cudaError_t dispatch(const Args& a) {
 // table: [B, maxp] int32 pool page ids; start: [B] int32. part_acc /
 // part_ml: float32 scratch of [B, H, nchunks, S, D] / [B, H, nchunks, S, 2]
 // elements, nchunks = ceil(maxp * page / 128) (paged_verify_chunk()).
-// Requires 1 <= S <= 16, D % 8 == 0, 8 <= D <= 256 and 16-byte aligned
-// pools (the wrapper checks).
+// Any S >= 1 and D >= 1: a multiple of 8 up to 256 runs this file's kernels
+// and needs the scratch and 16-byte aligned pools (the wrapper checks);
+// every other D the sliced kernel (paged_sliced.cu), where the scratch and
+// nchunks are unused.
 extern "C" int sf_paged_verify(int dtype, int pool, const void* q,
                                const void* k_pages, const void* v_pages,
                                const void* k_scales, const void* v_scales,
@@ -388,10 +412,17 @@ extern "C" int sf_paged_verify(int dtype, int pool, const void* q,
                                int nchunks, int B, int H, int S, int D,
                                int page, const long long* strides,
                                float scale, void* stream) {
-  if (D % 8 != 0 || D < 8 || D > 256 || S < 1 || S > kMaxS ||
-      pool < -1 || pool > 1 ||
-      (pool >= 0 && (k_scales == nullptr || v_scales == nullptr)) ||
-      part_acc == nullptr || part_ml == nullptr ||
+  if (D < 1 || S < 1 || pool < -1 || pool > 1 ||
+      (pool >= 0 && (k_scales == nullptr || v_scales == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (!sf_paged_sliced::vector_head_dim(D))
+    return (int)sf_paged_sliced::run(
+        dtype, pool, q, strides[0], strides[1], strides[2], k_pages, v_pages,
+        k_scales, v_scales, static_cast<const int*>(table), maxp,
+        static_cast<const int*>(start), 1, out, strides[3], strides[4],
+        strides[5], B, H, S, D, page, scale,
+        static_cast<cudaStream_t>(stream));
+  if (part_acc == nullptr || part_ml == nullptr ||
       nchunks != (maxp * page + kChunk - 1) / kChunk)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, k_scales, v_scales,

@@ -253,7 +253,8 @@ class DecodeEngine:
     spec_k : int
         Speculative window: draft up to ``spec_k`` tokens per slot per step
         and verify them (plus a bonus token) in one target call; 0 (default)
-        is off. At most ``MAX_VERIFY_ROWS - 1`` (15) on the card.
+        is off. Any ``spec_k >= 1``, as in the JAX engine (the verify
+        kernel scores a slot's ``spec_k + 1`` rows in groups of 16).
     draft_layers : int | None
         Self-speculation depth (default ``num_layers // 2``).
     draft_model, draft_params

@@ -50,6 +50,16 @@ LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max |reference|
 
 
+# every head_dim 1-64; 72-256 in steps of 8; a head_dim of each residue mod
+# 8 between them and up to 264; wider ones for the column-sliced kernels
+HEAD_DIMS = sorted(set(range(1, 65)) | set(range(72, 257, 8))
+                   | {100, 131, 142, 189, 203, 245, 250}
+                   | set(range(257, 265))
+                   | {280, 320, 384, 512, 768, 1024, 2048})
+# the forward and decode also at 4096
+WIDEST_HEAD_DIMS = HEAD_DIMS + [4096]
+
+
 @pytest.fixture(scope="module")
 def dev():
     if not torch.cuda.is_available():
@@ -109,19 +119,22 @@ def _check_fwd(q, k, v, causal, mask=None):
     return out
 
 
-@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+@pytest.mark.parametrize("d", WIDEST_HEAD_DIMS)
 def test_flash_fwd_bf16_every_head_dim(dev, d):
-    """Every head_dim the wrapper takes (a multiple of 8 in [8, 256]; above
-    128 the 32-key instantiations, padded to a multiple of 32) runs on the
-    tensor-core forward, causal over a ragged S and non-causal with padded
-    keys."""
+    """Every head_dim: a multiple of 8 up to 256 on the tensor-core forward
+    (above 128 the 32-key instantiations, padded to a multiple of 32),
+    another below 256 on q/k/v zero-padded to a multiple of 8, above 256
+    the column-sliced kernel — causal over a ragged S and non-causal with
+    padded keys, one launch each."""
     g = torch.Generator(device=dev).manual_seed(d)
     q, k, v = (torch.randn(2, 2, 150, d, generator=g, device=dev).to(
         torch.bfloat16) for _ in range(3))
+    before = flash_attention.launches
     _check_fwd(q, k, v, True)
     mask = torch.ones(2, 150, device=dev)
     mask[1, 61:] = 0
     _check_fwd(q, k, v, False, mask)
+    assert flash_attention.launches == before + 2
 
 
 def test_flash_fwd_bf16_strided_training_operands_need_no_copy(dev):
@@ -250,11 +263,12 @@ def test_flash_bwd_bf16_head_dims_ragged(dev, d):
         q, k, v, out, lse, dout, True), torch.bfloat16)
 
 
-@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_bwd_bf16_every_head_dim(dev, d):
-    """Every head_dim the wrapper takes (a multiple of 8 in [8, 256]) runs
-    on the bf16 kernels (above 128 the instantiations at head_dim rounded
-    up to 32, dK and dV by two kernels), non-causal with padded keys."""
+    """Every head_dim: a multiple of 8 up to 256 on the bf16 kernels (above
+    128 the instantiations at head_dim rounded up to 32, dK and dV by two
+    kernels), another below 256 on zero-padded operands, above 256 the
+    column-sliced kernels — non-causal with padded keys."""
     from sparkflow_tpu_torch.ops import (flash_attention_backward,
                                          flash_attention_backward_reference)
     q, k, v, out, lse, dout, mask = _bwd_case(
@@ -651,23 +665,25 @@ def _check_decode(q, kp, vp, table, lengths, scales):
 
 @pytest.mark.parametrize("pool", POOLS)
 @DTYPES
-@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+@pytest.mark.parametrize("d", WIDEST_HEAD_DIMS)
 def test_paged_decode_every_head_dim(dev, dtype, pool, d):
-    """Every head_dim 8-256: 2 to 32 lanes a row, two 16-byte runs a lane
-    for a float32 row above 128 elements, and 8-byte runs for an int8/fp8
-    row whose D is not a multiple of 16."""
+    """Every head_dim: a multiple of 8 up to 256 on the vector kernel (2 to
+    32 lanes a row, two 16-byte runs a lane for a float32 row above 128
+    elements, 8-byte runs for an int8/fp8 row whose D is not a multiple of
+    16), every other on the column-sliced kernel over the same pool."""
     _check_decode(*_decode_case(dev, dtype, pool, (0, 1, 17, 100, 255, 700,
                                                    1024), d=d, h=4, seed=d))
 
 
 @pytest.mark.parametrize("pool", POOLS)
 @DTYPES
-@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_paged_verify_split_every_head_dim(dev, dtype, pool, d):
-    """The split verify at every head_dim 8-256 (instantiations at head_dim
-    rounded up to 32), S = 5 queries a slot over the decode cases' slots,
-    plain and quantized pools: within the tolerance of the plain version,
-    a second launch bit-identical."""
+    """The verify at every head_dim (the split kernel's instantiations at
+    head_dim rounded up to 32 for a multiple of 8 up to 256, the
+    column-sliced kernel otherwise), S = 5 queries a slot over the decode
+    cases' slots, plain and quantized pools: within the tolerance of the
+    plain version, a second launch bit-identical."""
     from sparkflow_tpu_torch.ops import (paged_attention_verify,
                                          paged_attention_verify_reference)
     _, kp, vp, table, lengths, scales = _decode_case(
@@ -684,41 +700,57 @@ def test_paged_verify_split_every_head_dim(dev, dtype, pool, d):
     assert torch.equal(out, again)
 
 
-def test_every_kernel_refuses_head_dim_above_256(dev):
-    """At head_dim 264 every kernel's wrapper raises ValueError naming it,
-    in both dtypes, before any launch: the forward (also when a gradient
-    is wanted), the backward pair, decode over a plain and an int8 pool,
-    verify; nothing falls back to a plain version."""
-    from sparkflow_tpu_torch.ops import (flash_bwd_dkv, flash_bwd_dq,
+@pytest.mark.parametrize("d", [1, 25, 264, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_every_kernel_launches_at_any_head_dim(dev, dtype, d):
+    """At head_dim 1, 25, 264 and 1024 every wrapper launches its kernel
+    (its counter moves by one a call), matches its plain version and gives
+    the same bits on a second launch: the forward (also through autograd),
+    the backward pair, decode over a plain and an int8 pool, and verify
+    over both at S = 5 and 17."""
+    from sparkflow_tpu_torch.ops import (flash_attention_backward_reference,
+                                         flash_bwd_dkv, flash_bwd_dq,
                                          launch_counts,
-                                         paged_attention_verify)
-    d = 264
-    before = launch_counts()
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator(device=dev).manual_seed(d)
-        q, k, v, dout = (torch.randn(1, 2, 64, d, generator=g,
-                                     device=dev).to(dtype) for _ in range(4))
-        lse = torch.zeros(1, 2, 64, device=dev)
-        delta = torch.zeros(1, 2, 64, device=dev)
-        with pytest.raises(ValueError, match=f"got {d}"):
-            flash_attention(q, k, v, causal=True)
-        with pytest.raises(ValueError, match=f"got {d}"):
-            flash_attention(q.clone().requires_grad_(), k, v, causal=True)
-        with pytest.raises(ValueError, match=f"got {d}"):
-            flash_bwd_dq(q, k, v, dout, lse, delta, causal=True)
-        with pytest.raises(ValueError, match=f"got {d}"):
-            flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
-        for pool in (None, "int8"):
-            qd, kp, vp, table, lengths, sc = _decode_case(
-                dev, dtype, pool, (0, 17, 100), d=d, h=2, maxp=8, seed=d)
-            with pytest.raises(ValueError, match=f"got {d}"):
-                paged_attention(qd, kp, vp, table, lengths, **sc)
-            qv = torch.randn(3, 2, 5, d, generator=g, device=dev).to(dtype)
-            with pytest.raises(ValueError, match=f"got {d}"):
-                paged_attention_verify(qv, kp, vp, table,
-                                       _verify_starts(lengths, 5), **sc)
+                                         paged_attention_verify,
+                                         paged_attention_verify_reference)
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v, dout = (torch.randn(1, 2, 100, d, generator=g,
+                                 device=dev).to(dtype) for _ in range(4))
+    counts = launch_counts()
+    _check_fwd(q, k, v, True)
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    again = flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, dout, lse, delta, True)
+    got = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, (flash_bwd_dq(*args), *flash_bwd_dkv(*args))))
+    _check_bwd(got, flash_attention_backward_reference(
+        q, k, v, out, lse, dout, True), dtype)
+    qg = q.clone().requires_grad_()
+    flash_attention(qg, k, v, causal=True).float().sum().backward()
+    assert qg.grad.shape == q.shape and torch.isfinite(qg.grad.float()).all()
+    for pool in (None, "int8"):
+        case = _decode_case(dev, dtype, pool, (0, 17, 100, 300), d=d, h=2,
+                            maxp=24, seed=d)
+        _check_decode(*case)
+        _, kp, vp, table, lengths, sc = case
+        for s in (5, 17):
+            qv = torch.randn(4, 2, s, d, generator=g, device=dev).to(dtype)
+            start = _verify_starts(lengths, s)
+            o = paged_attention_verify(qv, kp, vp, table, start, **sc)
+            o2 = paged_attention_verify(qv, kp, vp, table, start, **sc)
+            ref = paged_attention_verify_reference(qv, kp, vp, table, start,
+                                                   **sc)
+            assert _max_err(o, ref) < PAGED_TOL[dtype] and torch.equal(o, o2)
     torch.cuda.synchronize()
-    assert launch_counts() == before
+    now = launch_counts()
+    moved = {n: now[n] - counts[n] for n in now}
+    assert moved == {"flash_fwd": 4, "flash_bwd_dq": 3, "flash_bwd_dkv": 3,
+                     "paged_attention": 2, "paged_attention_quant": 2,
+                     "paged_verify": 4, "paged_verify_quant": 4}
 
 
 @pytest.mark.parametrize("case", ["fwd-bf16", "fwd-f32", "decode-f32",
@@ -859,7 +891,7 @@ def test_paged_decode_replays_in_a_cuda_graph(dev, dtype, pool):
 @pytest.mark.parametrize("pool", [None, "int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("s", [1, 5, 16])
+@pytest.mark.parametrize("s", [1, 5, 16, 17, 32, 33, 64])
 def test_paged_verify_kernel_matches_plain(dev, dtype, pool, s):
     from sparkflow_tpu_torch.ops import (paged_attention_verify,
                                          paged_attention_verify_reference)
@@ -887,12 +919,14 @@ def test_paged_verify_kernel_matches_plain(dev, dtype, pool, s):
 @pytest.mark.parametrize("pool", [None, "int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("s", [1, 5, 16])
+@pytest.mark.parametrize("s", [1, 5, 16, 17, 32, 33, 64])
 def test_paged_verify_split_walks_one_to_eight_chunks(dev, dtype, pool, s):
     """One call whose slots walk 1 to 8 chunks of 128 tokens (starts 0 to
     1024 - S, the table's end), over a page-head of scale 0 (quantized
     pools): within the tolerance of the plain version, and a second launch
-    gives the same bits (the chunks are combined in a fixed order)."""
+    gives the same bits (the chunks are combined in a fixed order). Above
+    S = 16 the rows are scored in groups of 16, each walking the chunks its
+    last query reaches."""
     from sparkflow_tpu_torch.ops import (paged_attention_verify,
                                          paged_attention_verify_reference)
     _, kp, vp, table, _ = _paged_inputs(dev, dtype, seed=8)
@@ -926,12 +960,60 @@ def test_paged_verify_one_row_is_the_decode_kernel(dev):
     assert _max_err(one, dec) < PAGED_TOL[torch.float32]
 
 
-def test_paged_verify_refuses_more_rows_than_the_kernel_takes(dev):
-    from sparkflow_tpu_torch.ops import MAX_VERIFY_ROWS, paged_attention_verify
-    _, kp, vp, table, lengths = _paged_inputs(dev, torch.float32)
-    q = torch.zeros(8, 12, MAX_VERIFY_ROWS + 1, 64, device=dev)
-    with pytest.raises(ValueError, match=str(MAX_VERIFY_ROWS)):
-        paged_attention_verify(q, kp, vp, table, lengths)
+def test_paged_verify_row_groups_equal_separate_calls(dev):
+    """S = 40 rows in one call (three groups of 16) give the bits of the
+    same rows split over calls of 16, 16 and 8 with the starts moved on:
+    one launch of the verify kernel for the 40 rows."""
+    from sparkflow_tpu_torch.ops import paged_attention_verify
+    _, kp, vp, table, lengths = _paged_inputs(dev, torch.float32, seed=6)
+    g = torch.Generator(device=dev).manual_seed(40)
+    q = torch.randn(8, 12, 40, 64, generator=g, device=dev)
+    start = _verify_starts(lengths, 40)
+    before = paged_attention_verify.launches
+    whole = paged_attention_verify(q, kp, vp, table, start)
+    assert paged_attention_verify.launches == before + 1
+    parts = [paged_attention_verify(q[:, :, a:a + 16].contiguous(), kp, vp,
+                                    table, (start + a).to(torch.int32))
+             for a in (0, 16, 32)]
+    torch.cuda.synchronize()
+    assert torch.equal(whole, torch.cat(parts, dim=2))
+
+
+@pytest.mark.parametrize("spec_k", [16, 32])
+def test_spec_k_past_one_row_group_serves_over_http_on_card(dev, spec_k):
+    """``DecodeEngine(spec_k=16 / 32)`` builds on the card (its warm-up
+    verifies 17 / 33 rows a slot) and serves ``/v1/generate``: the float32
+    greedy tokens equal the spec-off engine's, and the verify kernel
+    launches once a layer a speculative step."""
+    from sparkflow_tpu_torch.models import model_from_json
+    from sparkflow_tpu_torch.ops import launch_counts, reset_launch_counts
+    from sparkflow_tpu_torch.serving import (ContinuousBatcher, DecodeEngine,
+                                             InferenceServer, ServingClient)
+    model = model_from_json(_tiny_lm_spec(max_len=256), device="cuda")
+    params = model.init(seed=5)
+    for t in params["block_0"].values():     # wander instead of repeating
+        t.mul_(10.0)
+    prompt = [5, 9, 2, 40, 17, 3, 3, 60, 1, 8, 22]
+
+    def generate(eng):
+        srv = InferenceServer(None, generate_batcher=ContinuousBatcher(eng),
+                              port=0, memory_watch=False).start()
+        try:
+            return ServingClient(srv.url, timeout=120).generate(
+                prompt, max_new_tokens=24)["tokens"]
+        finally:
+            srv.stop()
+
+    kw = dict(num_slots=2, page_size=8, seed=0)
+    want = generate(DecodeEngine(model, params, **kw))
+    eng = DecodeEngine(model, params, spec_k=spec_k, **kw)
+    steps0 = eng.stats()["spec"]["steps"]
+    reset_launch_counts()
+    got = generate(eng)
+    steps = eng.stats()["spec"]["steps"] - steps0
+    assert got == want
+    assert steps > 0
+    assert launch_counts()["paged_verify"] == model.num_layers * steps
 
 
 @pytest.mark.parametrize("kw", [{"spec_k": 3}, {"kv_quant": "int8"},
@@ -1018,11 +1100,12 @@ def _bwd_f32(q, k, v, out, lse, dout, causal, mask=None):
     return got
 
 
-@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_bwd_f32_every_head_dim(dev, d):
-    """Every head_dim the float32 entry takes (a multiple of 8 in [8, 256]),
-    each its own 3xTF32 instantiation up to 128 and one of four (head_dim
-    rounded up to 32, dK and dV by two kernels) above: causal over a ragged
+    """Every head_dim: a multiple of 8 up to 256 on its own 3xTF32
+    instantiation up to 128 and one of four (head_dim rounded up to 32, dK
+    and dV by two kernels) above, another below 256 on zero-padded
+    operands, above 256 the column-sliced kernels — causal over a ragged
     S = 150, and non-causal with padded keys."""
     for causal, rows in ((True, ()), (False, (150, 61))):
         q, k, v, out, lse, dout, mask = _bwd_case(
@@ -1178,12 +1261,13 @@ def test_flash_bwd_f32_replays_in_a_cuda_graph(dev):
 
 # -- the float32 forward on the tensor cores (3xTF32) ------------------------
 
-@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+@pytest.mark.parametrize("d", WIDEST_HEAD_DIMS)
 def test_flash_fwd_f32_every_head_dim(dev, d):
-    """Every head_dim the float32 entry takes (a multiple of 8 in [8, 256]),
-    each its own 3xTF32 instantiation up to 128 and one of four (head_dim
-    rounded up to 32, zero-padded) above: causal over a ragged S = 150, and
-    non-causal with padded keys."""
+    """Every head_dim: a multiple of 8 up to 256 on its own 3xTF32
+    instantiation up to 128 and one of four (head_dim rounded up to 32,
+    zero-padded) above, another below 256 on zero-padded q/k/v, above 256
+    the column-sliced kernel: causal over a ragged S = 150, and non-causal
+    with padded keys."""
     g = torch.Generator(device=dev).manual_seed(d)
     q, k, v = (torch.randn(2, 2, 150, d, generator=g, device=dev)
                for _ in range(3))
